@@ -5,7 +5,7 @@ NVIDIA card. Run from the repository root:
     python3 chip_smoke.py
 
 Phases, each fatal on failure (exit code 1, no result line):
-1. build   — nvcc builds every kernel of the serving path from csrc/.
+1. build   — nvcc builds every kernel (serving and training) from csrc/.
 2. kernels — each CUDA kernel against its plain PyTorch version at
              llama3-1b shapes (n_q 16, n_kv 8, hd 128, block 64, bf16,
              max_len 1024, 8 slots): ragged cursors, a sliding window,
@@ -15,6 +15,11 @@ Phases, each fatal on failure (exit code 1, no result line):
              version and one library call
              (SDPA over the gathered K/V, a yardstick the port never
              calls) and computes the card's bound for the same work.
+             The flash forward, dQ and dK/dV kernels at llama3-1b's
+             training shape (b 2, s 2048, n_q 16, n_kv 8, hd 128, bf16
+             and fp32): causal, window 700, non-causal and s 1000; times
+             at the causal bf16 shape against one SDPA call (forward;
+             forward + backward for the backward kernels).
 3. serve   — boots the port's HTTP server in-process (the CLI's
              `--model llama3-1b --random --seed 0
              --prefill-chunk-tokens 64`), POSTs 4 `:generate` requests
@@ -25,6 +30,24 @@ Phases, each fatal on failure (exit code 1, no result line):
              token's logprob matches a teacher-forced pass of the plain
              dense model at the same weights. Prints the batcher's
              iterations and its host time per decode step and slice.
+4. train   — `Trainer` on llama3-1b at full width (fp32 masters, bf16
+             activations, full remat, chunked CE in 16 chunks, AdamW
+             warmup 10 / total 1000), random weights from seed 0, batch
+             2 x 2048 tokens from numpy seed 0 with rolled targets.
+             First the gradients at the initial weights through the
+             flash kernels against the plain attention path's (and two
+             controls: P rounded to bf16, and a dQ that misses each
+             query's own key, which the check must catch); then three
+             steps through the plain path, and from the same weights
+             two uncounted and 6 counted steps through the kernels,
+             every launch counter set to 0 just before and read just
+             after. Checks the kernels ran exactly as the design implies
+             (32 forward, 16 dQ, 16 dK/dV launches a step), the losses
+             are finite and fall, and the first three agree with the
+             plain path's (lr is 0 on the first update, as in optax, so
+             loss 3 is the first after an update); prints step time,
+             tokens/s, model-FLOPs utilisation and peak memory, then
+             profiles one more step.
 Then prints the `kernels` JSON line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`.
 
@@ -35,6 +58,7 @@ package is not beside this script.
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import os
 import socket
@@ -58,6 +82,30 @@ BF16_FLOPS_S = 989e12              # H100 SXM dense bf16 tensor rate
 # ~3e-3) exceeds it.
 KERNEL_ATOL, KERNEL_RTOL = 1e-4, 2**-7
 TOL_TEXT = f"tol {KERNEL_ATOL} + 2^-7 |ref|"
+# Flash kernels vs plain versions: |err| <= c * max|ref| + rtol * |ref|.
+# Both accumulate in fp32; sums over up to 2 s terms taken in another
+# order differ by a small multiple of fp32 epsilon times the size of the
+# terms, which max|ref| bounds (c = 1e-5 fp32, 1e-4 bf16); a bf16 result
+# is rounded once by both, so they may differ by one bf16 ulp of it
+# (rtol 2^-7); fp32 rtol 1e-4. lse is fp32 for both dtypes: 1e-5 max|ref|.
+FLASH_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-4, 2**-7)}
+FLASH_B, FLASH_S = 2, 2048         # llama3-1b training batch (bench.py)
+# name: (s, causal, window)
+FLASH_CASES = {"causal": (FLASH_S, True, None),
+               "window_700": (FLASH_S, True, 700),
+               "noncausal": (FLASH_S, False, None),
+               "odd_s1000": (1000, True, None)}
+TRAIN_STEPS = 6                    # counted, after two uncounted steps
+# Kernel path vs plain path. Gradients at the initial weights, worst
+# leaf (per layer for block leaves) by relative L2 error: read 1.92e-2
+# on an H100 80GB HBM3, the bf16 noise of this model (the bf16-P
+# control reads 2.25e-2), while a dQ that misses each query's own key
+# reads 0.237; the limit sits between, 2.6x the reading and 4.7x below
+# that fault. The first three losses from the same weights on the same
+# batch: read 1.54e-4 (loss 3, the first after an update, 1.9e-5);
+# limit 6.5x that.
+TRAIN_GRAD_TOL = 0.05
+TRAIN_LOSS_TOL = 1e-3
 LOGPROB_TOL = 0.1                  # served vs teacher-forced, bf16 model
 PROMPT_LENS = (17, 130, 300, 17)
 MAX_NEW = 16
@@ -379,6 +427,144 @@ def check_prefill(torch, dev):
         f"main path's shape; mean per slice)", worst, slices, kp, vp, 160)
 
 
+def _pairs(s, causal, window):
+    """(query, key) pairs the attention sees, per head and batch row."""
+    if not causal:
+        return s * s
+    return sum(min(t + 1, window or s) for t in range(s))
+
+
+def _flash_need(kind, b, s, causal, window):
+    """(bytes, flops) one call needs at bf16: every input read once,
+    every output written once; 2 hd flops per visible pair and product
+    (forward: QK, PV; dQ: QK, dO V^T, dS K; dK/dV: those and P^T dO)."""
+    q = b * s * N_Q * HD * 2
+    kv = b * s * N_KV * HD * 2
+    rows = b * N_Q * s * 4                      # an fp32 lse or delta
+    products, moved = {
+        "fwd": (2, q + 2 * kv + q + rows),      # q k v -> o lse
+        "dq": (3, 2 * q + 2 * kv + 2 * rows + q),
+        "dkv": (4, 2 * q + 2 * kv + 2 * rows + 2 * kv),
+    }[kind]
+    return moved, products * 2 * HD * _pairs(s, causal, window) * N_Q * b
+
+
+def _flash_err(got, want, c, rtol):
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    bound = c * float(w.abs().max()) + rtol * w.abs()
+    return float(d.max()), float((d / bound).max())
+
+
+def _time_events(torch, fn, n):
+    """Device ms per eager call (CUDA events around n calls after two
+    warm-up calls): for the library's autograd backward, which is not
+    captured in a graph."""
+    fn()
+    fn()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0.record()
+    for _ in range(n):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / n
+
+
+def check_flash(torch, dev):
+    """Each flash kernel against its plain version over the cases and
+    both dtypes; timings at the causal bf16 shape."""
+    from kubeflow_tpu_torch.ops.cuda import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(4)
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        c, rtol = FLASH_TOL[str(dtype).split(".")[1]]
+        for name, (s, causal, window) in FLASH_CASES.items():
+            q, do = (torch.randn(FLASH_B, s, N_Q, HD, generator=gen)
+                     .to(dev, dtype) for _ in range(2))
+            k, v = (torch.randn(FLASH_B, s, N_KV, HD, generator=gen)
+                    .to(dev, dtype) for _ in range(2))
+            kw = dict(causal=causal, window=window)
+            o, lse = fa.flash_block_fwd(q, k, v, **kw)
+            wo, wlse = fa.flash_fwd_plain(q, k, v, **kw)
+            delta = fa.flash_delta(wo, do)
+            args = (q, k, v, do, wlse, delta)
+            dq = fa.flash_dq(*args, **kw)
+            dk, dv = fa.flash_dkv(*args, **kw)
+            torch.cuda.synchronize()
+            wdk, wdv = fa.flash_dkv_plain(*args, **kw)
+            errs = {"fwd": [_flash_err(o, wo, c, rtol),
+                            _flash_err(lse, wlse, 1e-5, 0.0)],
+                    "dq": [_flash_err(dq, fa.flash_dq_plain(*args, **kw),
+                                      c, rtol)],
+                    "dkv": [_flash_err(dk, wdk, c, rtol),
+                            _flash_err(dv, wdv, c, rtol)]}
+            for kind, pairs in errs.items():
+                err = max(e for e, _ in pairs)
+                ratio = max(r for _, r in pairs)
+                log(f"  flash {kind} {name} {dtype}: max_abs_err "
+                    f"{err:.3e}, err/tol max {ratio:.3f} (tol {c} max|ref| "
+                    f"+ {rtol:.3g} |ref|)")
+                if ratio > 1 or err != err:
+                    fail(f"flash {kind} {name} {dtype}: err {err} over tol")
+                if dtype == torch.bfloat16:
+                    worst[kind] = max(worst[kind], err)
+            del q, do, k, v, o, lse, wo, wlse, delta, args, dq, dk, dv
+            torch.cuda.empty_cache()
+
+    # timings: causal, bf16, the training shape
+    s = FLASH_S
+    q, do = (torch.randn(FLASH_B, s, N_Q, HD, generator=gen)
+             .to(dev, torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(FLASH_B, s, N_KV, HD, generator=gen)
+            .to(dev, torch.bfloat16) for _ in range(2))
+    o, lse = fa.flash_fwd_plain(q, k, v)
+    delta = fa.flash_delta(o, do)
+    args = (q, k, v, do, lse, delta)
+    kernel = {"fwd": _time_ms(torch, lambda i: fa.flash_block_fwd(
+                  q, k, v, causal=True), 20),
+              "dq": _time_ms(torch, lambda i: fa.flash_dq(*args), 20),
+              "dkv": _time_ms(torch, lambda i: fa.flash_dkv(*args), 20)}
+    plain = {"fwd": _time_ms(torch, lambda i: fa.flash_fwd_plain(q, k, v),
+                             4),
+             "dq": _time_ms(torch, lambda i: fa.flash_dq_plain(*args), 4),
+             "dkv": _time_ms(torch, lambda i: fa.flash_dkv_plain(*args),
+                             4)}
+    # library yardstick: SDPA on [b, heads, s, hd] views with K/V
+    # repeated over the group beforehand (not timed)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    group = N_Q // N_KV
+    qt = q.transpose(1, 2).detach().requires_grad_(True)
+    kt, vt = (x.repeat_interleave(group, dim=2).transpose(1, 2).detach()
+              .requires_grad_(True) for x in (k, v))
+    dot = do.transpose(1, 2)
+    with torch.no_grad():
+        lib_fwd = _time_events(torch, lambda: sdpa(qt, kt, vt,
+                                                   is_causal=True), 20)
+
+    def fwd_bwd():
+        torch.autograd.grad(sdpa(qt, kt, vt, is_causal=True),
+                            (qt, kt, vt), dot)
+
+    lib_fb = _time_events(torch, fwd_bwd, 20)
+    out = sdpa(qt, kt, vt, is_causal=True)
+    lib_bwd = _time_events(torch, lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 20)
+    log(f"  SDPA (K/V repeated over the group): forward {lib_fwd:.4f} ms, "
+        f"forward + backward {lib_fb:.4f} ms, backward alone "
+        f"{lib_bwd:.4f} ms")
+    stats = {}
+    for kind, lib in (("fwd", lib_fwd), ("dq", lib_fb), ("dkv", lib_fb)):
+        moved, flops = _flash_need(kind, FLASH_B, s, True, None)
+        stats[f"flash_attention_{kind}"] = _summary(
+            f"flash {kind} (b {FLASH_B}, s {s}, causal, bf16)", worst[kind],
+            kernel[kind], plain[kind], lib, moved, flops)
+    return stats
+
+
 # -- phase 3 ----------------------------------------------------------------
 
 
@@ -466,9 +652,9 @@ async def serve_and_check(torch):
     finally:
         await runner.cleanup()
     _report_profile(prof, prof_s)
-    for name, n in counts.items():
-        if n == 0:
-            fail(f"kernel {name} was not launched on the main path")
+    for name in ("paged_decode_attention", "paged_prefill_append"):
+        if counts[name] == 0:
+            fail(f"kernel {name} was not launched on the serving path")
     outs = [b["tokens"][0] for b in bodies]
     lps = [b["logprobs"][0] for b in bodies]
     for o, lp in zip(outs, lps):
@@ -502,20 +688,243 @@ async def serve_and_check(torch):
     return counts
 
 
-def _report_profile(prof, wall_s: float) -> None:
-    """Device busy share and the kernels that take the device time."""
+# -- phase 4 ----------------------------------------------------------------
+
+
+def _control_attention(torch, kind):
+    """The plain causal attention of the phase-4 controls (llama3-1b has
+    no window and training no kv_mask): "bf16_p" rounds P to bf16 before
+    P V, as a tensor-core kernel may; "dq_no_diagonal" leaves each
+    query's own key out of dQ and nothing else, as a dQ kernel whose
+    causal mask were off by one would."""
+    from kubeflow_tpu_torch.ops.attention import NEG_INF
+
+    def attend(q, k, v, *_, **__):
+        b, s, n_q, hd = q.shape
+        n_kv = k.shape[2]
+
+        def logits(qq, kk):
+            qg = qq.float().reshape(b, s, n_kv, n_q // n_kv, hd)
+            return torch.einsum("bsngh,btnh->bngst", qg,
+                                kk.float()) * hd**-0.5
+
+        x = logits(q, k)
+        if kind == "dq_no_diagonal":
+            diag = torch.eye(s, dtype=torch.bool, device=q.device)
+            x = torch.where(diag, logits(q.detach(), k), x)
+        keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        p = torch.softmax(x.masked_fill(~keep, NEG_INF), dim=-1)
+        if kind == "bf16_p":
+            p = p.to(torch.bfloat16).float()
+        o = torch.einsum("bngst,btnh->bsngh", p, v.float())
+        return o.reshape(b, s, n_q, hd).to(q.dtype)
+
+    return attend
+
+
+def _grads(torch, loss_fn, params, *batch):
+    """Gradient of every leaf at `params` (untouched), by leaf name."""
+    live = {k: ({n: x.detach().requires_grad_(True) for n, x in v.items()}
+                if isinstance(v, dict) else v.detach().requires_grad_(True))
+            for k, v in params.items()}
+    named = {**{f"blocks.{n}": x for n, x in live["blocks"].items()},
+             **{k: v for k, v in live.items() if k != "blocks"}}
+    grads = torch.autograd.grad(loss_fn(live, *batch), list(named.values()))
+    return dict(zip(named, grads))
+
+
+def _worst_grad_err(torch, got, want):
+    """-> (max over leaves, and over layers of the stacked block leaves,
+    of |got - want| / |want| in L2, that leaf's name)."""
+    worst = (0.0, "")
+    for name, w in want.items():
+        d, w = (got[name] - w).float(), w.float()
+        if name.startswith("blocks."):
+            errs = (torch.linalg.vector_norm(d.flatten(1), dim=1)
+                    / torch.linalg.vector_norm(w.flatten(1), dim=1)).tolist()
+            labels = [f"{name}[{i}]" for i in range(len(errs))]
+        else:
+            errs = [float(torch.linalg.vector_norm(d)
+                          / torch.linalg.vector_norm(w))]
+            labels = [name]
+        worst = max(worst, *zip(errs, labels))
+    return worst
+
+
+def train_and_check(torch):
+    from unittest import mock
+
+    import numpy as np
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.ops import attention
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.train import (
+        TrainConfig,
+        Trainer,
+        chunked_cross_entropy_from_hidden,
+    )
+
+    dev = torch.device("cuda")
+    cfg = llama.LLAMA3_1B           # fp32 masters, bf16, remat "full"
+    tc = TrainConfig(warmup_steps=10, total_steps=1000)
+    b, s = FLASH_B, FLASH_S
+    # explicit positions are not declared contiguous: the plain path
+    plain_positions = torch.arange(s, device=dev).expand(b, s)
+
+    def loss_fn(positions):
+        def fn(params, tokens, targets, mask):
+            h = llama.hidden(params, cfg, tokens, positions=positions)
+            return chunked_cross_entropy_from_hidden(
+                h, llama.unembed_matrix(params, cfg), targets, mask,
+                num_chunks=16)
+        return fn
+
+    def trainer_for(positions):
+        return Trainer(apply_fn=lambda p, t: llama.apply(p, cfg, t),
+                       init_fn=lambda seed: llama.init(cfg, seed, dev,
+                                                       train=True),
+                       train_config=tc, loss_fn=loss_fn(positions),
+                       device=dev)
+
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to(dev)
+    targets = torch.roll(tokens, -1, dims=1)
+    mask = torch.ones(b, s, device=dev)
+    params0 = llama.init(cfg, 0, dev, train=True)
+    n_params = llama.num_params(cfg)
+    log(f"  llama3-1b: {n_params} params (fp32 masters), batch {b} x {s}")
+
+    # gradients at the initial weights: the kernel path and two controls
+    # against the plain path, worst leaf (and layer) by relative L2 error
+    batch = (tokens, targets, mask)
+    want = _grads(torch, loss_fn(plain_positions), params0, *batch)
+    grad_err = {}
+    for kind in ("bf16_p", "dq_no_diagonal"):
+        with mock.patch.object(llama, "dot_product_attention",
+                               _control_attention(torch, kind)):
+            got = _grads(torch, loss_fn(plain_positions), params0, *batch)
+        grad_err[kind] = _worst_grad_err(torch, got, want)
+        del got
+    got = _grads(torch, loss_fn(None), params0, *batch)
+    grad_err["kernel"] = _worst_grad_err(torch, got, want)
+    del got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  gradients at the initial weights vs the plain path, worst "
+        "leaf |diff| / |plain| in L2: " + "; ".join(
+            f"{kind} {e:.3e} ({leaf})" for kind, (e, leaf) in
+            grad_err.items()) + f" (tol {TRAIN_GRAD_TOL})")
+    if grad_err["kernel"][0] > TRAIN_GRAD_TOL:
+        fail("kernel-path gradients disagree with the plain path's")
+    if grad_err["dq_no_diagonal"][0] <= TRAIN_GRAD_TOL:
+        fail("the gradient check cannot see a dQ that misses the diagonal")
+
+    # the plain attention path, three steps from a copy of the weights:
+    # lr is 0 on the first update (optax counts from 0), so losses 1 and
+    # 2 are one forward pass at the initial weights and loss 3 is the
+    # first after an update
+    plain_trainer = trainer_for(plain_positions)
+    state = plain_trainer.init_from_params(
+        {k: ({n: x.clone() for n, x in v.items()} if isinstance(v, dict)
+             else v.clone()) for k, v in params0.items()})
+    plain_losses = []
+    for _ in range(3):
+        state, loss = plain_trainer.step(state, tokens, targets)
+        plain_losses.append(float(loss))
+    del state, plain_trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    trainer = trainer_for(None)
+    state = trainer.init_from_params(params0)
+    del params0
+    reset_launch_counts()
+    attention.reset_impl_counts()
+    t0 = time.perf_counter()
+    state, loss = trainer.step(state, tokens, targets)
+    warm_s = time.perf_counter() - t0
+    state, loss2 = trainer.step(state, tokens, targets)
+    losses = [float(loss), float(loss2)]
+    torch.cuda.reset_peak_memory_stats()
+    pending = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, loss = trainer.step(state, tokens, targets)
+        pending.append(loss)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TRAIN_STEPS
+    counts = launch_counts()
+    impl = attention.impl_counts()
+    losses += [float(x) for x in pending]
+    peak = torch.cuda.max_memory_allocated()
+    steps = 2 + TRAIN_STEPS
+    tok_s = b * s / step_s
+    mfu = trainer.step_flops(b, s) / step_s / BF16_FLOPS_S
+    log(f"  losses {[round(x, 4) for x in losses]}; plain path's first "
+        f"three {[round(x, 4) for x in plain_losses]}")
+    log(f"  step (host clock, {TRAIN_STEPS} steps after a warm-up of "
+        f"{warm_s:.3f} s and one more step): {step_s * 1e3:.1f} ms, "
+        f"{tok_s:.0f} tokens/s, model FLOPs (6 N T) "
+        f"{trainer.step_flops(b, s):.4e} per step = {mfu:.1%} of 989 "
+        f"TFLOP/s; peak memory {peak / 2**30:.2f} GiB; optimizer state "
+        f"{trainer.opt_state_bytes() / 2**30:.2f} GiB")
+    log(f"  attention impl counts {impl}; kernel launches {counts} over "
+        f"{steps} steps")
+    expect = {"flash_attention_fwd": 2 * cfg.num_layers * steps,
+              "flash_attention_dq": cfg.num_layers * steps,
+              "flash_attention_dkv": cfg.num_layers * steps}
+    for name, n in expect.items():
+        if counts[name] != n:
+            fail(f"{name}: {counts[name]} launches on the training path, "
+                 f"the design implies {n} (remat: forward + recompute)")
+    if impl["flash"] == 0 or impl["torch"] != 0:
+        fail(f"training did not route every attention call through the "
+             f"flash kernels: {impl}")
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        fail(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"loss did not fall: {losses}")
+    diff = max(abs(a - p) for a, p in zip(losses, plain_losses))
+    log(f"  kernel vs plain path, first three losses: max |diff| "
+        f"{diff:.2e}, loss 3 |diff| {abs(losses[2] - plain_losses[2]):.2e} "
+        f"(tol {TRAIN_LOSS_TOL})")
+    if diff > TRAIN_LOSS_TOL:
+        fail("kernel-path losses disagree with the plain path's")
+
+    # one more step under torch.profiler: where a step's time goes
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, loss = trainer.step(state, tokens, targets)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    _report_profile(prof, prof_s, top=16)
+    return counts
+
+
+def _report_profile(prof, wall_s: float, top: int = 8) -> None:
+    """Device busy share and the kernels that take the device time. Only
+    device events count: a host op (aten::mm, an autograd node) may also
+    carry the device time of the kernels it launched, which would count
+    them twice."""
+    from torch.autograd import DeviceType
+
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
 
-    events = [e for e in prof.key_averages() if dev_us(e) > 0]
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     total_us = sum(dev_us(e) for e in events)
     if not events:
         log("  profile: no device time recorded (not measured)")
         return
     log(f"  profile (profiler on): wall {wall_s:.3f} s, device busy "
         f"{total_us / 1e6:.3f} s = {total_us / 1e6 / wall_s:.1%}")
-    for e in sorted(events, key=dev_us, reverse=True)[:8]:
+    for e in sorted(events, key=dev_us, reverse=True)[:top]:
         log(f"    {dev_us(e) / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
 
 
@@ -543,11 +952,19 @@ def main() -> None:
 
     log("phase 2: kernels against their plain versions (llama3-1b shapes)")
     stats = {"paged_decode_attention": check_decode(torch, dev),
-             "paged_prefill_append": check_prefill(torch, dev)}
+             "paged_prefill_append": check_prefill(torch, dev),
+             **check_flash(torch, dev)}
 
     log("phase 3: serve llama3-1b through the kernels")
     counts = asyncio.run(serve_and_check(torch))
+    gc.collect()
+    torch.cuda.empty_cache()
 
+    log("phase 4: train llama3-1b through the flash kernels")
+    counts.update({name: n for name, n in train_and_check(torch).items()
+                   if name.startswith("flash")})
+
+    flash = "kubeflow_tpu/ops/pallas/flash_attention.py"
     meta = {
         "paged_decode_attention": (
             "kubeflow_tpu_torch/csrc/paged_decode_attention.cu",
@@ -555,6 +972,12 @@ def main() -> None:
         "paged_prefill_append": (
             "kubeflow_tpu_torch/csrc/paged_prefill_append.cu",
             "kubeflow_tpu/ops/pallas/prefill_append.py:173"),
+        "flash_attention_fwd": (
+            "kubeflow_tpu_torch/csrc/flash_attention_fwd.cu", f"{flash}:78"),
+        "flash_attention_dq": (
+            "kubeflow_tpu_torch/csrc/flash_attention_dq.cu", f"{flash}:186"),
+        "flash_attention_dkv": (
+            "kubeflow_tpu_torch/csrc/flash_attention_dkv.cu", f"{flash}:228"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -1,4 +1,4 @@
-"""Weight bridge: the reference's parameter tree -> the port's.
+"""Weight bridge between the reference's parameter tree and the port's.
 
 The reference (`kubeflow_tpu/models/llama.py::init`) and the port lay
 parameters out the same way (stacked `[L, ...]` block leaves under
@@ -33,3 +33,12 @@ def from_jax(params: dict, cfg: LlamaConfig,
     out = {k: conv(k, v) for k, v in params.items() if k != "blocks"}
     out["blocks"] = {k: conv(k, v) for k, v in params["blocks"].items()}
     return out
+
+
+def to_numpy(params: dict) -> dict:
+    """torch param tree -> the same nested dict of fp32 numpy arrays
+    (the inverse of `from_jax`, for comparing trained params with the
+    reference's)."""
+    return {k: to_numpy(v) if isinstance(v, dict)
+            else v.detach().float().cpu().numpy()
+            for k, v in params.items()}

@@ -1,21 +1,27 @@
-"""Llama-3 family, inference forward (counterpart:
+"""Llama-3 family forward, for serving and training (counterpart:
 kubeflow_tpu/models/llama.py).
 
 Parameters are a nested dict with every transformer block STACKED on a
 leading layers axis, the reference's layout: `params["blocks"]["wq"]`
 is `[L, D, n_q * hd]`. The forward is a Python loop over L where the
-reference scans. No remat and no sharding: this is the serving model.
+reference scans; with `remat` (and gradients on) each block runs under
+`torch.utils.checkpoint`, the reference's "full" remat policy. No
+sharding: the port runs on one card.
 
-Storage dtypes follow what the reference computes with: the block
-matrices are stored in the activation dtype (the reference casts them
-to it at every use), the embedding, head and norm weights in fp32.
+Storage dtypes: serving stores the block matrices in the activation
+dtype (the reference casts them to it at every use) and the embedding,
+head and norm weights in fp32; training (`init(..., train=True)`) keeps
+every leaf in `param_dtype` (fp32 masters), cast at each use as the
+reference does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.ops.attention import dot_product_attention
 from kubeflow_tpu_torch.ops.embedding import embed_lookup
@@ -42,6 +48,22 @@ class LlamaConfig:
     tie_embeddings: bool = False
     sliding_window: int | None = None
     dtype: torch.dtype = torch.bfloat16   # activation dtype
+    param_dtype: torch.dtype = torch.float32  # training master weights
+    remat: bool = True
+    # What a checkpointed block keeps: only "full" (block boundaries; the
+    # backward reruns the whole block forward) is ported. The reference's
+    # "mlp" and "dots" policies are ROADMAP work.
+    remat_policy: str = "full"
+
+    def __post_init__(self):
+        if self.remat_policy in ("mlp", "dots"):
+            raise NotImplementedError(
+                f"remat_policy {self.remat_policy!r} is not ported yet "
+                f"(ROADMAP Queue 1); use 'full'")
+        if self.remat_policy != "full":
+            raise ValueError(
+                f"remat_policy {self.remat_policy!r} unknown "
+                f"(choose from ['dots', 'full', 'mlp'])")
 
     @property
     def q_dim(self) -> int:
@@ -60,6 +82,7 @@ LLAMA3_1B = LlamaConfig(
 LLAMA_TINY = LlamaConfig(
     vocab_size=512, hidden_size=128, intermediate_size=384, num_layers=2,
     num_heads=4, num_kv_heads=2, head_dim=32, dtype=torch.float32,
+    remat=False,
 )
 
 CONFIGS = {"llama3-8b": LLAMA3_8B, "llama3-1b": LLAMA3_1B,
@@ -89,28 +112,40 @@ def param_shapes(cfg: LlamaConfig) -> Params:
 
 
 def leaf_dtype(cfg: LlamaConfig, name: str) -> torch.dtype:
+    """Serving storage dtype of leaf `name`."""
     return cfg.dtype if name in MATRICES else torch.float32
 
 
-def init(cfg: LlamaConfig, seed: int,
-         device: torch.device | str) -> Params:
+def num_params(cfg: LlamaConfig) -> int:
+    shapes = param_shapes(cfg)
+    leaves = [*shapes.pop("blocks").values(), *shapes.values()]
+    return sum(math.prod(shape) for shape in leaves)
+
+
+def init(cfg: LlamaConfig, seed: int, device: torch.device | str, *,
+         train: bool = False) -> Params:
     """Random params from `seed`: truncated normal on [-2, 2] times
     fan_in**-0.5, norms zero (identity under the (1 + w) scale) — the
     reference's recipe, from a torch.Generator on `device`, so the
     values differ from the reference's (parity tests convert the
-    reference's params with `bridge.from_jax` instead)."""
+    reference's params with `bridge.from_jax` instead). `train=True`
+    keeps every leaf in `cfg.param_dtype` (the trainer's masters);
+    otherwise leaves take their serving dtype (`leaf_dtype`)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     shapes = param_shapes(cfg)
 
+    def dtype_of(name):
+        return cfg.param_dtype if train else leaf_dtype(cfg, name)
+
     def leaf(name, shape):
         if name.endswith("norm"):
-            return torch.zeros(shape, dtype=torch.float32, device=device)
+            return torch.zeros(shape, dtype=dtype_of(name), device=device)
         # fan-in is the contraction axis: second-to-last for matrices,
         # the width for the embedding table
         fan_in = shape[-1] if name == "embed" else shape[-2]
         w = torch.empty(shape, dtype=torch.float32, device=device)
         torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-        return (w * fan_in**-0.5).to(leaf_dtype(cfg, name))
+        return (w * fan_in**-0.5).to(dtype_of(name))
 
     params: Params = {
         "embed": leaf("embed", shapes["embed"]),
@@ -127,7 +162,8 @@ def layer_params(params: Params, li: int) -> Params:
     return {k: v[li] for k, v in params["blocks"].items()}
 
 
-def _block(cfg: LlamaConfig, x, p, positions, inv_freq, kv_mask):
+def _block(cfg: LlamaConfig, x, p, positions, inv_freq, kv_mask,
+           contiguous_positions=False):
     """One transformer block on x [b, s, D] in cfg.dtype."""
     b, s, _ = x.shape
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
@@ -141,7 +177,8 @@ def _block(cfg: LlamaConfig, x, p, positions, inv_freq, kv_mask):
     k = apply_rope(k, positions, inv_freq)
     attn = dot_product_attention(q, k, v, positions, positions,
                                  causal=True, kv_mask=kv_mask,
-                                 window=cfg.sliding_window)
+                                 window=cfg.sliding_window,
+                                 contiguous_positions=contiguous_positions)
     x = x + attn.reshape(b, s, cfg.q_dim) @ p["wo"].to(cfg.dtype)
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
     gate = torch.nn.functional.silu(h @ p["w_gate"].to(cfg.dtype))
@@ -154,15 +191,23 @@ def hidden(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
            kv_mask: torch.Tensor | None = None) -> torch.Tensor:
     """tokens [b, s] -> final NORMED hidden [b, s, D] in cfg.dtype."""
     b, s = tokens.shape
+    contiguous = positions is None  # safe for the index-masked kernels
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device).expand(b, s)
     inv_freq = rope_frequencies(cfg.head_dim, theta=cfg.rope_theta,
                                 device=tokens.device)
     x = embed_lookup(params["embed"], tokens, cfg.dtype)
+    # one unbind per leaf: its backward stacks the layers' gradients
+    # once, where indexing per layer would write a full-size zero
+    # gradient per layer and sum them
+    layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
+    remat = cfg.remat and torch.is_grad_enabled()
     for li in range(cfg.num_layers):
-        x = _block(cfg, x, layer_params(params, li), positions, inv_freq,
-                   kv_mask)
+        p = {k: v[li] for k, v in layers.items()}
+        args = (cfg, x, p, positions, inv_freq, kv_mask, contiguous)
+        x = (checkpoint(_block, *args, use_reentrant=False) if remat
+             else _block(*args))
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 

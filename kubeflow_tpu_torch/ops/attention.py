@@ -1,18 +1,26 @@
 """Attention: plain PyTorch paths + dispatch to the CUDA kernels
 (counterpart: kubeflow_tpu/ops/attention.py).
 
-`dot_product_attention` is the plain grouped-query attention (the
-reference's `_xla_attention`): fp32 logits, finite `NEG_INF` masking,
+`dot_product_attention` is grouped-query attention; its plain path is
+the reference's `_xla_attention`: fp32 logits, finite `NEG_INF` masking,
 KV heads never repeated. `paged_attention` (one decode token per row)
 and `paged_prefill_attention` (append s tokens per row, then attend)
 work on the paged KV pool `[num_blocks, block_size, n_kv, hd]` through
 per-row block tables.
 
-impl = "auto" | "torch" | "cuda":
+Paged paths, impl = "auto" | "torch" | "cuda":
 - "auto": the CUDA kernel for a CUDA tensor, the plain version for a
   CPU tensor (the kernel wrappers decide by the tensor's device);
 - "torch": the plain version, on whatever device the tensors are on;
 - "cuda": the kernel; raises for a CPU tensor.
+
+`dot_product_attention`, impl = "auto" | "torch" | "flash": "auto" takes
+the flash kernels (ops/cuda/flash_attention.py) for CUDA tensors under
+exactly the reference's condition (long equal-length causal sequences,
+no kv_mask, positions declared contiguous), else the plain path;
+"flash" raises for CPU tensors. `impl_counts()` counts the calls that
+took each (the reference counts traced call sites; PyTorch has no trace,
+so here every call counts).
 
 Fully masked rows: a row with no visible cell gets mean(V) from the
 plain path (finite NEG_INF softmaxes to uniform) but zeros from the
@@ -28,6 +36,20 @@ import torch
 NEG_INF = -2.0**30  # large-but-finite: avoids NaNs from (-inf) - (-inf)
 
 IMPLS = ("auto", "torch", "cuda")
+DENSE_IMPLS = ("auto", "torch", "flash")
+
+# Calls of `dot_product_attention` per impl taken: how a run proves that
+# training routed through the flash kernels instead of the plain path.
+_impl_counts = {"flash": 0, "torch": 0}
+
+
+def reset_impl_counts() -> None:
+    for key in _impl_counts:
+        _impl_counts[key] = 0
+
+
+def impl_counts() -> dict[str, int]:
+    return dict(_impl_counts)
 
 
 def _check_impl(impl: str, device: torch.device) -> str:
@@ -50,13 +72,53 @@ def dot_product_attention(
     causal: bool = True,
     kv_mask: torch.Tensor | None = None,  # [b, skv] bool, False = invalid
     window: int | None = None,
+    impl: str = "auto",
+    contiguous_positions: bool = False,
 ) -> torch.Tensor:
-    """Plain grouped-query attention with fp32 logits. `window` limits
-    each query to its last `window` positions (requires causal)."""
+    """Grouped-query attention. `window` limits each query to its last
+    `window` positions (requires causal). The flash kernels mask by
+    row/column index, so they need the caller's declaration that
+    positions are 0..s-1 in every row (`contiguous_positions=True`);
+    packed sequences with position resets must take the plain path,
+    which masks by the position tensors."""
     if window is not None and not causal:
         raise ValueError("sliding window requires causal attention")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    if impl not in DENSE_IMPLS:
+        raise ValueError(
+            f"attention impl must be one of {DENSE_IMPLS}, got {impl!r}")
+    if impl == "auto":
+        s = q.shape[1]
+        long_seq = s >= 1024 and s % 512 == 0
+        impl = ("flash" if q.device.type == "cuda" and long_seq
+                and s == k.shape[1] and causal and kv_mask is None
+                and contiguous_positions else "torch")
+    if impl == "flash":
+        if q.device.type != "cuda":
+            raise ValueError(
+                f"impl='flash' needs CUDA tensors, got tensors on "
+                f"{q.device}; use impl='torch'")
+        if kv_mask is not None or not contiguous_positions:
+            raise ValueError(
+                "impl='flash' masks by row/col index only: it supports "
+                "neither kv_mask nor non-contiguous positions (pass "
+                "contiguous_positions=True for plain causal batches, or "
+                "use impl='torch')")
+        from kubeflow_tpu_torch.ops.cuda.flash_attention import (
+            flash_attention,
+        )
+
+        _impl_counts["flash"] += 1
+        return flash_attention(q, k, v, causal=causal, window=window)
+    _impl_counts["torch"] += 1
+    return _torch_attention(q, k, v, q_positions, kv_positions,
+                            causal=causal, kv_mask=kv_mask, window=window)
+
+
+def _torch_attention(q, k, v, q_positions, kv_positions, *, causal,
+                     kv_mask, window):
+    """The plain path: the reference's `_xla_attention`."""
     b, sq, n_q, hd = q.shape
     n_kv = k.shape[2]
     if n_q % n_kv:
@@ -139,9 +201,8 @@ def paged_attention(
             window=window)
     k = _gather_window(k_pool, block_table)
     v = _gather_window(v_pool, block_table)
-    return dot_product_attention(q, k, v, q_positions, kv_positions,
-                                 causal=causal, kv_mask=kv_mask,
-                                 window=window)
+    return _torch_attention(q, k, v, q_positions, kv_positions,
+                            causal=causal, kv_mask=kv_mask, window=window)
 
 
 def paged_prefill_attention(
@@ -213,6 +274,6 @@ def paged_prefill_attention(
     v = _gather_window(v_pool, block_table)
     kv_positions = torch.arange(width, dtype=torch.int32,
                                 device=q.device).expand(b, width)
-    out = dot_product_attention(q, k, v, pos, kv_positions, causal=True,
-                                kv_mask=kv_mask, window=window)
+    out = _torch_attention(q, k, v, pos, kv_positions, causal=True,
+                           kv_mask=kv_mask, window=window)
     return out, k_pool, v_pool

@@ -14,6 +14,13 @@ most one bf16 ulp of it (<= 2**-7 of its value), and the absolute floor
 covers fp32 summation order near zero. Pools are copied, not computed:
 exact, block 0 excluded (the plain version routes padding tokens there,
 the kernel writes nothing).
+
+Flash kernels (forward o and lse, dQ, dK/dV) hold |err| <= c * max|ref|
++ rtol * |ref|: sums over up to 2 * s terms in another order than the
+plain version's err by a small multiple of fp32 epsilon times the size
+of the terms, which max|ref| bounds (c = 1e-5 fp32, 1e-4 bf16); bf16
+results are rounded once by both, so they may differ by one bf16 ulp
+(rtol 2**-7); fp32 rtol 1e-4. lse is fp32 in both cases: 1e-5 * max.
 """
 
 import numpy as np
@@ -28,6 +35,8 @@ from kubeflow_tpu_torch.ops.cuda.prefill_append import (
     paged_prefill_append,
     paged_prefill_append_plain,
 )
+from kubeflow_tpu_torch.ops import attention as tattn
+from kubeflow_tpu_torch.ops.cuda import flash_attention as tflash
 from torch_cases import mk_decode, mk_prefill
 
 
@@ -89,3 +98,81 @@ def test_prefill_kernel_matches_plain_on_card(cuda_device, dtype, tol,
                                    atol=tol[0], rtol=tol[1])
     torch.testing.assert_close(gk[1:], wk[1:], atol=0, rtol=0)
     torch.testing.assert_close(gv[1:], wv[1:], atol=0, rtol=0)
+
+
+FLASH_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-4, 2**-7)}
+
+
+def _flash_close(got, want, c, rtol):
+    got, want = got.float(), want.float()
+    bound = c * want.abs().max() + rtol * want.abs()
+    assert torch.isfinite(got).all()
+    assert bool(((got - want).abs() <= bound).all()), \
+        float(((got - want).abs() / bound).max())
+
+
+# (b, s, n_q, n_kv, causal, window): small odd and llama3-1b shapes
+FLASH_SHAPES = [(1, 200, 4, 2, True, None), (1, 200, 4, 2, True, 37),
+                (1, 131, 4, 4, False, None), (2, 2048, 16, 8, True, None),
+                (2, 2048, 16, 8, True, 700), (2, 1000, 16, 8, True, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,n_q,n_kv,causal,window", FLASH_SHAPES)
+def test_flash_kernels_match_plain_on_card(cuda_device, dtype, b, s, n_q,
+                                           n_kv, causal, window):
+    gen = torch.Generator().manual_seed(s + n_q)
+    q, do = (torch.randn(b, s, n_q, 128, generator=gen).to(cuda_device,
+                                                            dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, s, n_kv, 128, generator=gen).to(cuda_device,
+                                                           dtype)
+            for _ in range(2))
+    c, rtol = FLASH_TOL[dtype]
+    kw = dict(causal=causal, window=window)
+    o, lse = tflash.flash_block_fwd(q, k, v, **kw)
+    wo, wlse = tflash.flash_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _flash_close(o, wo, c, rtol)
+    _flash_close(lse, wlse, 1e-5, 0.0)
+    delta = tflash.flash_delta(wo, do)
+    args = (q, k, v, do, wlse, delta)
+    _flash_close(tflash.flash_dq(*args, **kw),
+                 tflash.flash_dq_plain(*args, **kw), c, rtol)
+    for got, want in zip(tflash.flash_dkv(*args, **kw),
+                         tflash.flash_dkv_plain(*args, **kw)):
+        _flash_close(got, want, c, rtol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_on_card(cuda_device):
+    """The autograd Function launches one forward, one dQ and one dK/dV
+    kernel, and its gradients match autograd through the plain path."""
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(1, 1024, n, 128, generator=gen).to(cuda_device)
+               .requires_grad_(True) for n in (4, 2, 2))
+    pos = torch.arange(1024, device=cuda_device).expand(1, 1024)
+    reset_launch_counts()
+    o = tattn.dot_product_attention(q, k, v, pos, pos,
+                                    contiguous_positions=True)
+    grads = torch.autograd.grad((o * o).sum(), (q, k, v))
+    counts = launch_counts()
+    assert (counts["flash_attention_fwd"], counts["flash_attention_dq"],
+            counts["flash_attention_dkv"]) == (1, 1, 1)
+    wo = tattn.dot_product_attention(q, k, v, pos, pos, impl="torch")
+    want = torch.autograd.grad((wo * wo).sum(), (q, k, v))
+    _flash_close(o.detach(), wo.detach(), *FLASH_TOL[torch.float32])
+    for g, w in zip(grads, want):
+        _flash_close(g, w, *FLASH_TOL[torch.float32])
+
+
+def test_flash_impl_raises_on_cpu_tensors():
+    q = torch.zeros(1, 1024, 4, 128)
+    k = torch.zeros(1, 1024, 2, 128)
+    pos = torch.arange(1024).expand(1, 1024)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tattn.dot_product_attention(q, k, k, pos, pos, impl="flash",
+                                    contiguous_positions=True)

@@ -5,7 +5,8 @@ NVIDIA card. Run from the repository root:
     python3 chip_smoke.py
 
 Phases, each fatal on failure (exit code 1, no result line):
-1. build   — nvcc builds every kernel (serving and training) from csrc/.
+1. build   — nvcc builds every kernel (serving and training) from csrc/,
+             one nvcc per source, all at once.
 2. kernels — each CUDA kernel against its plain PyTorch version at
              llama3-1b shapes (n_q 16, n_kv 8, hd 128, block 64, bf16,
              max_len 1024, 8 slots): ragged cursors, a sliding window,
@@ -20,8 +21,15 @@ Phases, each fatal on failure (exit code 1, no result line):
              and fp32): causal, window 700, non-causal and s 1000; times
              at the causal bf16 shape against one SDPA call (forward;
              forward + backward for the backward kernels).
+             The dense decode kernel at the one-shot path's shapes
+             (llama3-8b: b 8, n_q 32, n_kv 8, max_len 1024, bf16): the
+             window batch (one shared cursor, a left-pad run of another
+             length per row), ragged cursors 0/255/256/1023, window 256,
+             the draft's batch 1 (llama3-1b heads, cursor 300) and the
+             window batch in fp32; times at the window batch and at
+             batch 1 against SDPA over each row's cells up to its cursor.
 3. serve   — boots the port's HTTP server in-process (the CLI's
-             `--model llama3-1b --random --seed 0
+             `--model llama3-1b --random --seed 0 --continuous
              --prefill-chunk-tokens 64`), POSTs 4 `:generate` requests
              (prompts of 17, 130, 300 and again 17 tokens, max_new 16),
              with every kernel launch counter set to 0 just before and
@@ -48,6 +56,24 @@ Phases, each fatal on failure (exit code 1, no result line):
              loss 3 is the first after an update); prints step time,
              tokens/s, model-FLOPs utilisation and peak memory, then
              profiles one more step.
+5. one-shot — llama3-8b (random, seed 0) served in-process by
+             `create_serving_app` in its default mode (50 ms window
+             batcher, 8 rows) with a llama3-1b draft (seed 1); counters
+             set to 0 just before and read just after 8 concurrent
+             single prompts (17, 45, 60, 90, 130, 200, 300 and again 17
+             tokens; max_new 32, logprobs), one explicit 2-row batch
+             (direct path) and one `speculative` request (gamma 4).
+             Checks `decode_attention` launched exactly 32 x 31 times
+             per one-shot call and 16 x (gamma + 1) per speculative
+             round, no other kernel ran, the repeated prompt's tokens
+             are identical, every non-speculative logprob is within 0.1
+             of a teacher-forced pass of the plain dense 8B over the
+             unpadded prompt, every token is its argmax wherever the
+             top-2 margin exceeds 0.2, and llama3-1b with its lm_head
+             x50 drafting for itself equals its greedy output at
+             acceptance 1.0. Prints host ms per decode step of the
+             window batch, speculative and target-alone tokens/s at
+             batch 1, peak memory, and profiles one window-batch call.
 Then prints the `kernels` JSON line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`.
 
@@ -109,6 +135,13 @@ TRAIN_LOSS_TOL = 1e-3
 LOGPROB_TOL = 0.1                  # served vs teacher-forced, bf16 model
 PROMPT_LENS = (17, 130, 300, 17)
 MAX_NEW = 16
+# llama3-8b one-shot serving (phase 5): 32 layers, 32/8 heads, hd 128
+DENSE_LAYERS, DENSE_NQ, DENSE_B = 32, 32, 8
+DENSE_PROMPTS = (17, 45, 60, 90, 130, 200, 300, 17)   # the last repeats
+DENSE_BUCKET = 512                 # bucket_pow2 of the longest prompt
+DENSE_MAX_NEW = 32
+WINDOW_MS = 50.0
+GAMMA = 4
 
 
 def fail(msg: str) -> None:
@@ -271,6 +304,115 @@ def check_decode(torch, dev):
     flops = sum(vis) * N_Q * HD * 4                        # QK and PV
     return _summary(kind, worst, (ms, eager), (plain_ms, plain_eager),
                     library_ms, bytes_moved, flops)
+
+
+def _dense_need(pos, mask, window, n_q, n_kv):
+    """Bytes and flops one dense decode call needs: the K and V of each
+    row's visible cells (causal, kv_mask, window), the mask cells of its
+    live range, q read and out written, the cursors."""
+    vis = live = 0
+    for r, p in enumerate(pos.tolist()):
+        lo = max(0, p - window + 1) if window else 0
+        live += p + 1 - lo
+        vis += int(mask[r, lo:p + 1].sum())
+    bytes_moved = (vis * n_kv * HD * 2 * 2 + 2 * len(pos) * n_q * HD * 2
+                   + live + len(pos) * 4)
+    return bytes_moved, vis * n_q * HD * 4
+
+
+def check_dense_decode(torch, dev):
+    """The dense decode kernel against its plain version at the one-shot
+    path's shapes (llama3-8b, b 8, max_len 1024, bf16), then timings at
+    the window batch's shape and at the speculative draft's batch 1."""
+    from kubeflow_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+    )
+
+    gen = torch.Generator().manual_seed(5)
+    dgen = torch.Generator(device=dev).manual_seed(5)
+    dt = torch.bfloat16
+    b = DENSE_B
+    # the window batch: cursor 527 (prompt bucket 512, 16th decode step),
+    # each row left-padded to the bucket by 512 - its prompt length
+    window_pos = torch.full((b,), DENSE_BUCKET + 15, dtype=torch.int32)
+    window_mask = torch.ones(b, MAX_LEN, dtype=torch.bool)
+    for r, n in enumerate(DENSE_PROMPTS):
+        window_mask[r, :DENSE_BUCKET - n] = False
+    ragged_pos = torch.tensor([0, 255, 256, 1023, 17, 511, 700, 64],
+                              dtype=torch.int32)
+    ragged_mask = torch.ones(b, MAX_LEN, dtype=torch.bool)
+    ragged_mask[ragged_pos > 5, 5] = False   # a hole below most cursors
+    # name: (rows, n_q, pos, mask, window, dtype)
+    cases = {
+        "window_batch": (b, DENSE_NQ, window_pos, window_mask, None, dt),
+        "ragged_0_255_256_1023": (b, DENSE_NQ, ragged_pos, ragged_mask,
+                                  None, dt),
+        "window_256": (b, DENSE_NQ, ragged_pos, ragged_mask, 256, dt),
+        "draft_batch1": (1, N_Q, torch.tensor([300], dtype=torch.int32),
+                         torch.ones(1, MAX_LEN, dtype=torch.bool), None,
+                         dt),
+        "window_batch_fp32": (b, DENSE_NQ, window_pos, window_mask, None,
+                              torch.float32),
+    }
+    worst = 0.0
+    for name, (rows, n_q, pos, mask, window, dtype) in cases.items():
+        q = torch.randn(rows, 1, n_q, HD, generator=gen).to(dev, dtype)
+        k, v = (torch.randn(rows, MAX_LEN, N_KV, HD, generator=gen)
+                .to(dev, dtype) for _ in range(2))
+        args = (q, k, v, pos.to(dev), mask.to(dev))
+        want = decode_attention_plain(*args, window=window)
+        got = decode_attention(*args, window=window)
+        torch.cuda.synchronize()
+        err, ratio = _err(got, want)
+        log(f"  dense decode {name}: max_abs_err {err:.3e}, err/tol max "
+            f"{ratio:.3f} ({TOL_TEXT})")
+        if not torch.isfinite(got).all() or ratio > 1:
+            fail(f"decode_attention {name}: err {err} over {TOL_TEXT}")
+        if dtype == dt:
+            worst = max(worst, err)
+
+    def timed(kind, rows, n_q, layers, pos, mask):
+        """Kernel, plain and SDPA times, cycling `layers` layers' caches
+        as a decode step does (working set > L2)."""
+        q = torch.randn(rows, 1, n_q, HD, generator=gen).to(dev, dt)
+        shape = (layers, rows, MAX_LEN, N_KV, HD)
+        kc, vc = (torch.randn(shape, generator=dgen, device=dev, dtype=dt)
+                  for _ in range(2))
+        posd, maskd = pos.to(dev), mask.to(dev)
+        ms = _time_ms(torch, lambda i: decode_attention(
+            q, kc[i % layers], vc[i % layers], posd, maskd), 10 * layers)
+        plain = _time_ms(torch, lambda i: decode_attention_plain(
+            q, kc[i % layers], vc[i % layers], posd, maskd), layers)
+        # library yardstick: SDPA over each row's cells up to its cursor
+        # (K/V views; every row here shares its cursor), boolean mask
+        n = int(pos.max()) + 1
+        cells = torch.arange(n, device=dev)
+        amask = (maskd[:, :n] & (cells[None] <= posd[:, None]))[:, None,
+                                                                 None, :]
+        qt = q.transpose(1, 2)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library_ms, _ = _time_ms(torch, lambda i: sdpa(
+            qt, kc[i % layers, :, :n].transpose(1, 2),
+            vc[i % layers, :, :n].transpose(1, 2), attn_mask=amask,
+            enable_gqa=True), 10 * layers)
+        moved, flops = _dense_need(pos, mask, None, n_q, N_KV)
+        del kc, vc
+        torch.cuda.empty_cache()
+        stats = _summary(kind, worst, ms, plain, library_ms, moved, flops)
+        # what the kernel streams: K/V of every cell of each row's live
+        # range, pad cells included (it masks them after the load)
+        live = int((pos + 1).sum()) * N_KV * HD * 2 * 2
+        log(f"    live-range K/V {live} B: {live / ms[0] / 1e6:.1f} GB/s at "
+            f"the kernel's time")
+        return stats
+
+    timed("dense decode, batch 1 (the speculative draft's step: llama3-1b, "
+          "cursor 300)", 1, N_Q, LAYERS, torch.tensor([300], dtype=torch.int32),
+          torch.ones(1, MAX_LEN, dtype=torch.bool))
+    return timed(f"dense decode, window batch (llama3-8b, b {b}, cursor "
+                 f"{DENSE_BUCKET + 15}, left-pad runs)", b, DENSE_NQ,
+                 DENSE_LAYERS, window_pos, window_mask)
 
 
 def _prefill_need(starts, lens, mask):
@@ -586,7 +728,7 @@ async def serve_and_check(torch):
     port = _free_port()
     t0 = time.perf_counter()
     app = build_app(parse_args([
-        "--model", "llama3-1b", "--random", "--seed", "0",
+        "--model", "llama3-1b", "--random", "--seed", "0", "--continuous",
         "--prefill-chunk-tokens", str(CHUNK), "--host", "127.0.0.1",
         "--port", str(port)]))
     runner = web.AppRunner(app)
@@ -905,6 +1047,211 @@ def train_and_check(torch):
     return counts
 
 
+# -- phase 5 ----------------------------------------------------------------
+
+
+async def serve_dense_and_check(torch):
+    """llama3-8b served one-shot (window batcher and direct path) and
+    speculatively (llama3-1b draft) through the HTTP app, in-process."""
+    import aiohttp
+    from aiohttp import web
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.serving.engine import (
+        LLAMA_FAMILY,
+        EngineConfig,
+        InferenceEngine,
+    )
+    from kubeflow_tpu_torch.serving.server import (
+        BATCHERS_KEY,
+        SPEC_KEY,
+        create_serving_app,
+    )
+    from kubeflow_tpu_torch.serving.speculative import SpeculativeEngine
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ec = EngineConfig(max_len=MAX_LEN)
+    target = InferenceEngine(llama.init(llama.LLAMA3_8B, 0, dev),
+                             llama.LLAMA3_8B, LLAMA_FAMILY, ec, device=dev)
+    draft = InferenceEngine(llama.init(llama.LLAMA3_1B, 1, dev),
+                            llama.LLAMA3_1B, LLAMA_FAMILY, ec, device=dev)
+    cfg = target.cfg
+    torch.cuda.synchronize()
+    log(f"  llama3-8b (seed 0, {llama.num_params(cfg)} params) and "
+        f"llama3-1b draft (seed 1) built in {time.perf_counter() - t0:.1f} s")
+    app = create_serving_app({"llama3-8b": target}, batch_window_ms=WINDOW_MS,
+                             max_batch=DENSE_B, drafts={"llama3-8b": draft})
+    batcher = app[BATCHERS_KEY]["llama3-8b"]
+    port = _free_port()
+    runner = web.AppRunner(app)
+    await runner.setup()
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    url = f"http://127.0.0.1:{port}/v1/models/llama3-8b:generate"
+    gen = torch.Generator().manual_seed(6)
+
+    def prompt(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+
+    prompts = [prompt(n) for n in DENSE_PROMPTS[:-1]]
+    prompts.append(prompts[0])          # the repeated prompt
+    pair = [prompt(40), prompt(40)]     # the explicit 2-row batch
+    spec_prompt = prompt(60)
+    try:
+        async with aiohttp.ClientSession() as sess:
+            async def post(body):
+                t = time.perf_counter()
+                async with sess.post(url, json=body) as r:
+                    if r.status != 200:
+                        fail(f":generate returned {r.status}: "
+                             f"{await r.text()}")
+                    return await r.json(), time.perf_counter() - t
+
+            # warm-up (cuBLAS handles, first allocations), not counted
+            await post({"tokens": [prompts[0]], "max_new": 2})
+            calls0 = batcher.calls
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            window = await asyncio.gather(*(post(
+                {"tokens": [p], "max_new": DENSE_MAX_NEW, "logprobs": True})
+                for p in prompts))
+            window_s = time.perf_counter() - t0
+            direct, direct_s = await post(
+                {"tokens": pair, "max_new": DENSE_MAX_NEW, "logprobs": True})
+            spec, spec_s = await post(
+                {"tokens": [spec_prompt], "max_new": DENSE_MAX_NEW,
+                 "speculative": True, "gamma": GAMMA})
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            calls = batcher.calls - calls0
+    finally:
+        await runner.cleanup()
+    stats = spec["speculative"]
+    rounds = stats["proposed"] // stats["gamma"]
+    log(f"  window: {len(prompts)} requests in {window_s:.3f} s as {calls} "
+        f"batcher call(s); direct 2-row batch {direct_s:.3f} s; "
+        f"speculative {spec_s:.3f} s ({rounds} rounds, acceptance "
+        f"{stats['acceptance_rate']}, gamma {stats['gamma']})")
+    log(f"  kernel launches {counts}")
+    expect = (cfg.num_layers * (DENSE_MAX_NEW - 1) * (calls + 1)
+              + draft.cfg.num_layers * (stats["gamma"] + 1) * rounds)
+    if counts["decode_attention"] != expect:
+        fail(f"decode_attention: {counts['decode_attention']} launches, the "
+             f"design implies {expect} ({cfg.num_layers} x "
+             f"{DENSE_MAX_NEW - 1} per one-shot call over {calls + 1} "
+             f"calls, {draft.cfg.num_layers} x {stats['gamma'] + 1} per "
+             f"speculative round over {rounds} rounds)")
+    others = {k: n for k, n in counts.items() if k != "decode_attention"}
+    if any(others.values()):
+        fail(f"one-shot serving launched other kernels: {others}")
+
+    # every served sequence teacher-forced through the plain dense 8B over
+    # its unpadded prompt: logprobs (non-speculative) and margin-gated
+    # argmax (all)
+    outs = [(p, b["tokens"][0], b["logprobs"][0]) for p, (b, _) in
+            zip(prompts, window)]
+    outs += [(p, o, lp) for p, o, lp in zip(pair, direct["tokens"],
+                                            direct["logprobs"])]
+    outs.append((spec_prompt, spec["tokens"][0], None))
+    for p, o, lp in outs:
+        if len(o) != DENSE_MAX_NEW or (lp is not None and len(lp) != len(o)) \
+                or not all(0 <= t < cfg.vocab_size for t in o):
+            fail(f"malformed output {o} / {lp}")
+    if outs[0][1] != outs[len(prompts) - 1][1]:
+        fail(f"repeated prompt gave different greedy tokens: {outs[0][1]} "
+             f"vs {outs[len(prompts) - 1][1]}")
+    worst, argmax_ok, argmax_n = 0.0, 0, 0
+    with torch.inference_mode():
+        for p, o, lp in outs:
+            toks = torch.tensor([p + o[:-1]], device=dev)
+            logp = torch.log_softmax(
+                llama.apply(target.params, cfg, toks)[0, len(p) - 1:], -1)
+            if lp is not None:
+                ref = logp[torch.arange(len(o), device=dev),
+                           torch.tensor(o, device=dev)].cpu()
+                worst = max(worst,
+                            float((ref - torch.tensor(lp)).abs().max()))
+            top2 = torch.topk(logp, 2, dim=-1)
+            margin = (top2.values[:, 0] - top2.values[:, 1]).cpu()
+            for j in range(len(o)):
+                if margin[j] > 2 * LOGPROB_TOL:
+                    argmax_n += 1
+                    argmax_ok += int(top2.indices[j, 0]) == o[j]
+    log(f"  teacher-forced logprob max_abs_err {worst:.4f} (tol "
+        f"{LOGPROB_TOL}); greedy argmax agrees on {argmax_ok}/{argmax_n} "
+        f"steps with margin > {2 * LOGPROB_TOL}")
+    if worst > LOGPROB_TOL or argmax_ok != argmax_n:
+        fail("served tokens disagree with the plain dense model")
+
+    # the confident draft: llama3-1b with its lm_head x50 as its own
+    # draft must equal its plain greedy output at acceptance 1.0
+    conf = InferenceEngine(dict(draft.params,
+                                lm_head=draft.params["lm_head"] * 50.0),
+                           draft.cfg, LLAMA_FAMILY, ec, device=dev)
+    want = conf.generate([spec_prompt], max_new=DENSE_MAX_NEW)
+    got, cstats = SpeculativeEngine(conf, conf).generate(
+        [spec_prompt], max_new=DENSE_MAX_NEW, gamma=GAMMA)
+    log(f"  confident self-draft (llama3-1b, lm_head x50): acceptance "
+        f"{cstats.acceptance_rate}, tokens equal: "
+        f"{torch.equal(got, want)}")
+    if not torch.equal(got, want) or cstats.acceptance_rate != 1.0:
+        fail("confident self-draft speculative decoding disagrees with "
+             "plain greedy decoding")
+    del conf, got, want
+
+    # host time per decode step of the window batch: the same padded
+    # batch generated to 1 and to DENSE_MAX_NEW tokens
+    arr = torch.zeros(DENSE_B, DENSE_BUCKET, dtype=torch.long)
+    mask = torch.zeros(DENSE_B, DENSE_BUCKET, dtype=torch.bool)
+    for r, p in enumerate(prompts):
+        arr[r, DENSE_BUCKET - len(p):] = torch.tensor(p)
+        mask[r, DENSE_BUCKET - len(p):] = True
+
+    def wall(max_new):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        target.generate(arr, prompt_mask=mask, max_new=max_new)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    t1, tn = wall(1), wall(DENSE_MAX_NEW)
+    step_ms = (tn - t1) / (DENSE_MAX_NEW - 1) * 1e3
+    spec_eng = app[SPEC_KEY]["llama3-8b"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, sstats = spec_eng.generate([spec_prompt], max_new=DENSE_MAX_NEW,
+                                  gamma=GAMMA)
+    torch.cuda.synchronize()
+    spec_tok_s = DENSE_MAX_NEW / (time.perf_counter() - t)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    target.generate([spec_prompt], max_new=DENSE_MAX_NEW)
+    torch.cuda.synchronize()
+    plain_tok_s = DENSE_MAX_NEW / (time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  window batch of {DENSE_B} (host clock): prefill + first token "
+        f"{t1 * 1e3:.1f} ms, {step_ms:.2f} ms per decode step "
+        f"({DENSE_B * 1e3 / step_ms:.1f} tokens/s); batch 1: speculative "
+        f"(gamma {GAMMA}) {spec_tok_s:.2f} tokens/s at acceptance "
+        f"{sstats.acceptance_rate:.4f}, target alone {plain_tok_s:.2f} "
+        f"tokens/s; peak memory {peak / 2**30:.2f} GiB")
+
+    # one window-batch call under torch.profiler (prefill and 31 decode
+    # steps): where the time goes
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        target.generate(arr, prompt_mask=mask, max_new=DENSE_MAX_NEW)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t
+    _report_profile(prof, prof_s, top=10)
+    return counts
+
+
 def _report_profile(prof, wall_s: float, top: int = 8) -> None:
     """Device busy share and the kernels that take the device time. Only
     device events count: a host op (aten::mm, an autograd node) may also
@@ -953,7 +1300,8 @@ def main() -> None:
     log("phase 2: kernels against their plain versions (llama3-1b shapes)")
     stats = {"paged_decode_attention": check_decode(torch, dev),
              "paged_prefill_append": check_prefill(torch, dev),
-             **check_flash(torch, dev)}
+             **check_flash(torch, dev),
+             "decode_attention": check_dense_decode(torch, dev)}
 
     log("phase 3: serve llama3-1b through the kernels")
     counts = asyncio.run(serve_and_check(torch))
@@ -963,6 +1311,12 @@ def main() -> None:
     log("phase 4: train llama3-1b through the flash kernels")
     counts.update({name: n for name, n in train_and_check(torch).items()
                    if name.startswith("flash")})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 5: serve llama3-8b one-shot and speculatively")
+    counts["decode_attention"] = asyncio.run(
+        serve_dense_and_check(torch))["decode_attention"]
 
     flash = "kubeflow_tpu/ops/pallas/flash_attention.py"
     meta = {
@@ -978,6 +1332,9 @@ def main() -> None:
             "kubeflow_tpu_torch/csrc/flash_attention_dq.cu", f"{flash}:186"),
         "flash_attention_dkv": (
             "kubeflow_tpu_torch/csrc/flash_attention_dkv.cu", f"{flash}:228"),
+        "decode_attention": (
+            "kubeflow_tpu_torch/csrc/decode_attention.cu",
+            "kubeflow_tpu/ops/pallas/decode_attention.py:115"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -1,7 +1,9 @@
-// Block-level paged attention shared by the decode and prefill-append
-// kernels: R query rows (one KV head's GQA group, or a tile of several
-// tokens x the group) attend one sequence's cells through its block
-// table, with an fp32 online softmax.
+// Block-level attention shared by the paged decode, paged prefill-append
+// and dense decode kernels: R query rows (one KV head's GQA group, or a
+// tile of several tokens x the group) attend one sequence's cells, with
+// an fp32 online softmax. How a cell's K/V row is found is a template
+// argument: through the sequence's block table (`PagedAddr`) or at its
+// index in a dense [b, max_len, n_kv, hd] cache (`DenseAddr`).
 //
 // Design, for Hopper (sm_90a), simple-and-correct first:
 // - the Pallas kernels' sequential block axis (carrying m/l/acc in VMEM
@@ -155,24 +157,41 @@ struct Smem {
   }
 };
 
-// Issue the cp.async copies of cells [c0, c0 + n_cells) of KV head h into
-// tile buffer `buf`, then commit them as one group.
-template <typename T, int HD>
+// Where cell `cell` of one sequence's KV head h lives, as the index of
+// its hd-element row in the K (or V) array.
+// Paged pool [num_blocks, bs, n_kv, hd], through the block table.
+struct PagedAddr {
+  const int* table_row;  // the sequence's table [nb]
+  int bs, n_kv, h;
+  __device__ __forceinline__ size_t operator()(int cell) const {
+    const size_t phys = (size_t)table_row[cell / bs];
+    return (phys * bs + cell % bs) * n_kv + h;
+  }
+};
+// Dense cache [b, max_len, n_kv, hd]: cell `cell` of row `row` at
+// base = row * max_len.
+struct DenseAddr {
+  size_t base;
+  int n_kv, h;
+  __device__ __forceinline__ size_t operator()(int cell) const {
+    return (base + cell) * n_kv + h;
+  }
+};
+
+// Issue the cp.async copies of cells [c0, c0 + n_cells) into tile buffer
+// `buf`, then commit them as one group.
+template <typename T, int HD, typename Addr>
 __device__ __forceinline__ void load_chunk(
-    Smem<T, HD>& sm, int buf, const T* __restrict__ k_pool,
-    const T* __restrict__ v_pool, const int* __restrict__ table_row, int c0,
-    int n_cells, int bs, int n_kv, int h) {
+    Smem<T, HD>& sm, int buf, const T* __restrict__ k, const T* __restrict__ v,
+    const Addr& addr, int c0, int n_cells) {
   using G = Tile<T, HD>;
   constexpr int kPerRow = HD / G::kVec;
   for (int i = threadIdx.x; i < n_cells * kPerRow; i += kThreads) {
     const int c = i / kPerRow;
     const int e = i % kPerRow;
-    const int cell = c0 + c;
-    const size_t phys = (size_t)table_row[cell / bs];
-    const size_t src = ((phys * bs + cell % bs) * n_kv + h) * HD +
-                       (size_t)e * G::kVec;
-    cp_async16(sm.kt(buf) + c * G::kStride + e * G::kVec, k_pool + src);
-    cp_async16(sm.vt(buf) + c * G::kStride + e * G::kVec, v_pool + src);
+    const size_t src = addr(c0 + c) * HD + (size_t)e * G::kVec;
+    cp_async16(sm.kt(buf) + c * G::kStride + e * G::kVec, k + src);
+    cp_async16(sm.vt(buf) + c * G::kStride + e * G::kVec, v + src);
   }
   cp_async_commit();
 }
@@ -180,17 +199,15 @@ __device__ __forceinline__ void load_chunk(
 // Rows' q (fp32, in sm.q) and positions (sm.qpos) must be in place and
 // synchronised before the call. On return sm.acc / sm.l hold the
 // unnormalised output and the softmax denominators.
-//   table_row: the sequence's block table [nb]
-//   mask_row:  its per-cell validity [nb * bs] (nullptr = all valid)
+//   addr:     where each cell of the sequence lives (PagedAddr/DenseAddr)
+//   mask_row: the sequence's per-cell validity [width] (nullptr = all valid)
+//   width:    cells the sequence can hold (nb * bs, or max_len)
 //   q_min/q_max: the smallest / largest query position among the rows
-template <typename T, int HD>
-__device__ void paged_attend(Smem<T, HD>& sm, int R,
-                             const T* __restrict__ k_pool,
-                             const T* __restrict__ v_pool,
-                             const int* __restrict__ table_row,
-                             const unsigned char* __restrict__ mask_row,
-                             int nb, int bs, int n_kv, int h, int window,
-                             float scale, int q_min, int q_max) {
+template <typename T, int HD, typename Addr>
+__device__ void attend(Smem<T, HD>& sm, int R, const T* __restrict__ k,
+                       const T* __restrict__ v, const Addr& addr,
+                       const unsigned char* __restrict__ mask_row, int width,
+                       int window, float scale, int q_min, int q_max) {
   using G = Tile<T, HD>;
   constexpr int kChunk = G::kChunk;
   const int tid = threadIdx.x;
@@ -201,20 +218,18 @@ __device__ void paged_attend(Smem<T, HD>& sm, int R,
     sm.m[r] = kNegInf;
     sm.l[r] = 0.f;
   }
-  const int hi_cell = min(q_max, nb * bs - 1);
+  const int hi_cell = min(q_max, width - 1);
   int lo_cell = window > 0 ? max(q_min - window + 1, 0) : 0;
   lo_cell = lo_cell / kChunk * kChunk;
   if (lo_cell <= hi_cell)
-    load_chunk(sm, 0, k_pool, v_pool, table_row, lo_cell,
-               min(kChunk, hi_cell - lo_cell + 1), bs, n_kv, h);
+    load_chunk(sm, 0, k, v, addr, lo_cell, min(kChunk, hi_cell - lo_cell + 1));
   __syncthreads();  // m/l visible to every thread even if nothing loads
 
   for (int c0 = lo_cell, buf = 0; c0 <= hi_cell; c0 += kChunk, buf ^= 1) {
     const int n_cells = min(kChunk, hi_cell - c0 + 1);
     const int next = c0 + kChunk;
     if (next <= hi_cell)  // prefetch the next chunk into the other buffer
-      load_chunk(sm, buf ^ 1, k_pool, v_pool, table_row, next,
-                 min(kChunk, hi_cell - next + 1), bs, n_kv, h);
+      load_chunk(sm, buf ^ 1, k, v, addr, next, min(kChunk, hi_cell - next + 1));
     else
       cp_async_commit();  // empty group keeps the wait count uniform
     cp_async_wait_one();

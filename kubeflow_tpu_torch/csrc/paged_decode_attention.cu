@@ -47,10 +47,11 @@ paged_decode_kernel(const T* __restrict__ q,         // [b, n_q, hd]
   for (int i = threadIdx.x; i < R * HD; i += kft::kThreads)
     sm.q[i] = kft::to_f(q_row[i]);
   for (int r = threadIdx.x; r < R; r += kft::kThreads) sm.qpos[r] = p;
-  // paged_attend synchronises before reading sm.q / sm.qpos
-  kft::paged_attend<T, HD>(sm, R, k_pool, v_pool, table + (size_t)row * nb,
-                           mask ? mask + (size_t)row * nb * bs : nullptr, nb,
-                           bs, n_kv, h, window, scale, p, p);
+  // attend synchronises before reading sm.q / sm.qpos
+  const kft::PagedAddr addr{table + (size_t)row * nb, bs, n_kv, h};
+  kft::attend<T, HD>(sm, R, k_pool, v_pool, addr,
+                     mask ? mask + (size_t)row * nb * bs : nullptr, nb * bs,
+                     window, scale, p, p);
   T* o_row = out + ((size_t)row * n_q + (size_t)h * group) * HD;
   for (int i = threadIdx.x; i < R * HD; i += kft::kThreads) {
     const float l = sm.l[i / HD];

@@ -93,10 +93,11 @@ prefill_attention_kernel(const T* __restrict__ q,       // [b, s, n_q, hd]
   }
   for (int r = threadIdx.x; r < R; r += kft::kThreads)
     sm.qpos[r] = start + (r0 + r) / group;
-  kft::paged_attend<T, HD>(
-      sm, R, k_pool, v_pool, table + (size_t)row * nb,
-      mask ? mask + (size_t)row * nb * bs : nullptr, nb, bs, n_kv, h, window,
-      scale, start + r0 / group, start + (r0 + R - 1) / group);
+  const kft::PagedAddr addr{table + (size_t)row * nb, bs, n_kv, h};
+  kft::attend<T, HD>(sm, R, k_pool, v_pool, addr,
+                     mask ? mask + (size_t)row * nb * bs : nullptr, nb * bs,
+                     window, scale, start + r0 / group,
+                     start + (r0 + R - 1) / group);
   for (int i = threadIdx.x; i < R * HD; i += kft::kThreads) {
     const int f = r0 + i / HD;
     const int t = f / group;

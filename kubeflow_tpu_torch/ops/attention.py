@@ -14,13 +14,17 @@ Paged paths, impl = "auto" | "torch" | "cuda":
 - "torch": the plain version, on whatever device the tensors are on;
 - "cuda": the kernel; raises for a CPU tensor.
 
-`dot_product_attention`, impl = "auto" | "torch" | "flash": "auto" takes
-the flash kernels (ops/cuda/flash_attention.py) for CUDA tensors under
-exactly the reference's condition (long equal-length causal sequences,
-no kv_mask, positions declared contiguous), else the plain path;
-"flash" raises for CPU tensors. `impl_counts()` counts the calls that
-took each (the reference counts traced call sites; PyTorch has no trace,
-so here every call counts).
+`dot_product_attention`, impl = "auto" | "torch" | "flash" | "decode":
+"auto" (`auto_impl`) takes, for CUDA tensors and under exactly the
+reference's conditions, the flash kernels (ops/cuda/flash_attention.py)
+for long equal-length causal sequences with no kv_mask and positions
+declared contiguous, else the dense decode kernel
+(ops/cuda/decode_attention.py) for one query token against a cache of
+at least 256 cells, causal, positions declared contiguous (kv_mask
+allowed); everything else takes the plain path. "flash" and "decode"
+raise for CPU tensors. `impl_counts()` counts the calls that took each
+(the reference counts traced call sites; PyTorch has no trace, so here
+every call counts).
 
 Fully masked rows: a row with no visible cell gets mean(V) from the
 plain path (finite NEG_INF softmaxes to uniform) but zeros from the
@@ -36,11 +40,14 @@ import torch
 NEG_INF = -2.0**30  # large-but-finite: avoids NaNs from (-inf) - (-inf)
 
 IMPLS = ("auto", "torch", "cuda")
-DENSE_IMPLS = ("auto", "torch", "flash")
+DENSE_IMPLS = ("auto", "torch", "flash", "decode")
+# cache cells from which a single-token step takes the decode kernel
+DECODE_MIN_CELLS = 256
 
 # Calls of `dot_product_attention` per impl taken: how a run proves that
-# training routed through the flash kernels instead of the plain path.
-_impl_counts = {"flash": 0, "torch": 0}
+# training routed through the flash kernels, and one-shot decode through
+# the decode kernel, instead of the plain path.
+_impl_counts = {"flash": 0, "decode": 0, "torch": 0}
 
 
 def reset_impl_counts() -> None:
@@ -60,6 +67,25 @@ def _check_impl(impl: str, device: torch.device) -> str:
         raise ValueError(
             f"impl='cuda' needs CUDA tensors, got tensors on {device}")
     return impl
+
+
+def auto_impl(device_type: str, sq: int, skv: int, *, causal: bool,
+              has_kv_mask: bool, contiguous_positions: bool) -> str:
+    """The "auto" choice of `dot_product_attention`: the reference's rule
+    (kubeflow_tpu/ops/attention.py), with "on a TPU" read as "on a CUDA
+    tensor". Flash first: a long equal-length causal batch with no
+    kv_mask and contiguous positions. Then decode: one query token
+    against >= DECODE_MIN_CELLS cells, causal, contiguous positions
+    (the kernel masks by cell index); a kv_mask is allowed."""
+    if device_type != "cuda":
+        return "torch"
+    if (sq >= 1024 and sq % 512 == 0 and sq == skv and causal
+            and not has_kv_mask and contiguous_positions):
+        return "flash"
+    if sq == 1 and skv >= DECODE_MIN_CELLS and causal \
+            and contiguous_positions:
+        return "decode"
+    return "torch"
 
 
 def dot_product_attention(
@@ -89,11 +115,32 @@ def dot_product_attention(
         raise ValueError(
             f"attention impl must be one of {DENSE_IMPLS}, got {impl!r}")
     if impl == "auto":
-        s = q.shape[1]
-        long_seq = s >= 1024 and s % 512 == 0
-        impl = ("flash" if q.device.type == "cuda" and long_seq
-                and s == k.shape[1] and causal and kv_mask is None
-                and contiguous_positions else "torch")
+        impl = auto_impl(q.device.type, q.shape[1], k.shape[1],
+                         causal=causal, has_kv_mask=kv_mask is not None,
+                         contiguous_positions=contiguous_positions)
+    if impl == "decode":
+        if q.shape[1] != 1:
+            raise ValueError("impl='decode' is for single-token steps "
+                             f"(s=1), got s={q.shape[1]}")
+        if not contiguous_positions:
+            raise ValueError(
+                "impl='decode' masks by cache cell index: the caller "
+                "must declare cell index == token position "
+                "(contiguous_positions=True); packed/rotated caches "
+                "must use impl='torch'")
+        if not causal:
+            raise ValueError("impl='decode' is causal-only")
+        if q.device.type != "cuda":
+            raise ValueError(
+                f"impl='decode' needs CUDA tensors, got tensors on "
+                f"{q.device}; use impl='torch'")
+        from kubeflow_tpu_torch.ops.cuda.decode_attention import (
+            decode_attention,
+        )
+
+        _impl_counts["decode"] += 1
+        cursor = q_positions[:, 0].to(torch.int32).contiguous()
+        return decode_attention(q, k, v, cursor, kv_mask, window=window)
     if impl == "flash":
         if q.device.type != "cuda":
             raise ValueError(

@@ -4,6 +4,7 @@ a launch counter.
 Serving:
 - `paged_attention.paged_decode_attention` (csrc/paged_decode_attention.cu)
 - `prefill_append.paged_prefill_append` (csrc/paged_prefill_append.cu)
+- `decode_attention.decode_attention` (csrc/decode_attention.cu)
 
 Training:
 - `flash_attention.flash_block_fwd` (csrc/flash_attention_fwd.cu)
@@ -14,6 +15,7 @@ Training:
 from __future__ import annotations
 
 from kubeflow_tpu_torch.ops.cuda import (
+    decode_attention,
     flash_attention,
     paged_attention,
     prefill_append,
@@ -26,6 +28,7 @@ _COUNTERS = {
     "flash_attention_fwd": (flash_attention, "fwd_launches"),
     "flash_attention_dq": (flash_attention, "dq_launches"),
     "flash_attention_dkv": (flash_attention, "dkv_launches"),
+    "decode_attention": (decode_attention, "launches"),
 }
 
 

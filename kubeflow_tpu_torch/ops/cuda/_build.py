@@ -24,7 +24,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("paged_decode_attention", "paged_prefill_append",
-           "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
+           "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
+           "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,13 +1,20 @@
 """Serving CLI: `python -m kubeflow_tpu_torch.serving` (counterpart:
 kubeflow_tpu/serving/__main__.py).
 
+    python -m kubeflow_tpu_torch.serving --model llama3-8b --random \\
+        --batch-window-ms 20
     python -m kubeflow_tpu_torch.serving --model llama3-1b --random \\
-        --prefill-chunk-tokens 64
+        --continuous --prefill-chunk-tokens 64
 
-Serves one model with continuous batching on the paged KV pool, on the
-CUDA card (`--cpu` runs the plain PyTorch path on the CPU instead).
-Weights are random from `--seed`; loading a checkpoint is not ported
-yet, so `--random` is required.
+Serves one model on the CUDA card (`--cpu` runs the plain PyTorch path
+on the CPU instead). Without `--continuous`, the reference's default
+mode: the one-shot engine on a dense KV cache, single prompts coalesced
+by a `--batch-window-ms` window when it is above 0, else each request
+generated directly. With `--continuous`, continuous batching on the
+paged KV pool with chunked prefill (`--prefill-chunk-tokens`, default
+64; monolithic admission is not ported). Weights are random from
+`--seed`; loading a checkpoint is not ported yet, so `--random` is
+required.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ def model_registry():
     return {
         "llama-tiny": (llama.LLAMA_TINY, LLAMA_FAMILY),
         "llama3-1b": (llama.LLAMA3_1B, LLAMA_FAMILY),
+        "llama3-8b": (llama.LLAMA3_8B, LLAMA_FAMILY),
     }
 
 
@@ -39,23 +47,34 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--max-len", type=int, default=1024)
     p.add_argument("--eos", type=int, default=None)
+    p.add_argument("--continuous", action="store_true",
+                   help="continuous batching on the paged KV pool "
+                        "(default: one-shot generation on a dense cache)")
     p.add_argument("--max-batch", type=int, default=8,
-                   help="decode slots of the continuous batcher")
-    p.add_argument("--prefill-chunk-tokens", type=int, default=64,
-                   help="chunked prefill token budget: each worker "
-                        "iteration feeds at most this many prompt tokens, "
-                        "interleaved with decode chunks")
+                   help="rows of a window batch, or decode slots of the "
+                        "continuous batcher")
+    p.add_argument("--batch-window-ms", type=float, default=0.0,
+                   help="coalesce single-prompt requests arriving within "
+                        "this window into one batch (0: each request "
+                        "generates alone)")
+    p.add_argument("--prefill-chunk-tokens", type=int, default=None,
+                   help="chunked prefill token budget (continuous only, "
+                        "default 64): each worker iteration feeds at most "
+                        "this many prompt tokens, interleaved with decode "
+                        "chunks")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (plain PyTorch path, no kernels)")
     args = p.parse_args(argv)
     if not args.random:
         p.error("pass --random (checkpoint loading is not ported yet)")
+    if args.prefill_chunk_tokens is not None and not args.continuous:
+        p.error("--prefill-chunk-tokens requires --continuous")
     return args
 
 
 def build_app(args: argparse.Namespace):
     """The serving app for parsed CLI args: random weights from the seed
-    on the chosen device, one continuous batcher."""
+    on the chosen device, in the mode the args choose."""
     from kubeflow_tpu_torch.device import resolve_device
     from kubeflow_tpu_torch.models import llama
     from kubeflow_tpu_torch.serving.engine import (
@@ -73,6 +92,7 @@ def build_app(args: argparse.Namespace):
         device=device)
     return create_serving_app(
         {args.model: engine}, max_batch=args.max_batch,
+        continuous=args.continuous, batch_window_ms=args.batch_window_ms,
         prefill_chunk_tokens=args.prefill_chunk_tokens, seed=args.seed)
 
 

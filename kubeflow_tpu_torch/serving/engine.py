@@ -1,16 +1,29 @@
-"""Shared serving model math (counterpart: kubeflow_tpu/serving/engine.py).
+"""Serving model math and one-shot generation on a dense KV cache
+(counterpart: kubeflow_tpu/serving/engine.py).
 
 `transformer_block` is the one definition of a decoder block that every
 serving path runs, with the KV-cache write and the attention call
 injected (`write_kv`, `attn`) and every block matmul behind `proj`.
-`InferenceEngine` holds the weights and the embedding, head and
-sampling steps the continuous engine builds on; the reference's
-one-shot `generate` (dense cache, scan decode) is not ported yet.
+`InferenceEngine` holds the weights, the embedding, head and sampling
+steps the continuous engine builds on, and the reference's one-shot
+entry points: `generate`, `generate_stream`, `prefill_chunked`, `score`
+and `precompute_prefix`.
+
+The one-shot paths keep a dense cache `[L, b, max_len, n_kv, hd]`
+(`DecodeState`) written IN PLACE: each forward assigns its s new rows
+per layer at the shared cursor, and nothing copies the cache. Where the
+reference scans its decode steps inside one compiled program, this
+engine runs a Python loop of `length` steps with EOS forcing on the
+device and no host sync. Every decode step's attention (one token per
+row, against the whole cache, with the left-pad mask) goes through
+`ops.attention.dot_product_attention`'s "auto" rule, which takes the
+dense decode kernel (ops/cuda/decode_attention.py) for CUDA tensors.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable
 
 import numpy as np
@@ -18,9 +31,10 @@ import torch
 
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.llama import layer_params
+from kubeflow_tpu_torch.ops.attention import dot_product_attention
 from kubeflow_tpu_torch.ops.embedding import embed_lookup
 from kubeflow_tpu_torch.ops.norms import rms_norm
-from kubeflow_tpu_torch.ops.rotary import apply_rope
+from kubeflow_tpu_torch.ops.rotary import apply_rope, rope_frequencies
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +119,30 @@ def scaled_filtered_logits(logits: torch.Tensor,
     return filter_logits(scaled, sp.top_k[:, None], sp.top_p[:, None])
 
 
+class DecodeState:
+    """Dense KV cache + cursor of the one-shot paths.
+
+    `k`/`v` [L, b, max_len, n_kv, hd] are written in place by
+    `InferenceEngine._forward_cached`; `length` is the number of filled
+    cells, shared by every row (a host int). `pad` [b, max_len] marks
+    cells holding left-pad keys (excluded from attention); `offset` [b]
+    is each row's pad count, so a token in cell i has LOGICAL position
+    i - offset (what rope sees)."""
+
+    def __init__(self, k, v, length: int, pad=None, offset=None):
+        self.k = k
+        self.v = v
+        self.length = int(length)
+        if pad is None:
+            pad = torch.zeros((k.shape[1], k.shape[2]), dtype=torch.bool,
+                              device=k.device)
+        if offset is None:
+            offset = torch.zeros((k.shape[1],), dtype=torch.int32,
+                                 device=k.device)
+        self.pad = pad
+        self.offset = offset
+
+
 def transformer_block(cfg, fam: Family, p, x, rope_positions, inv_freq,
                       write_kv, attn, proj=None):
     """One decoder block on x [b, s, h]: norms, QKV/output projections,
@@ -150,6 +188,10 @@ class InferenceEngine:
         self.ec = engine_config
         self.layers = [layer_params(params, li)
                        for li in range(cfg.num_layers)]
+        self._inv_freq = rope_frequencies(cfg.head_dim, theta=cfg.rope_theta,
+                                          device=self.device)
+        self._cells = torch.arange(engine_config.max_len, dtype=torch.int32,
+                                   device=self.device)
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -183,3 +225,350 @@ class InferenceEngine:
 
     def rms_final(self, x: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, self.params["final_norm"], self.cfg.norm_eps)
+
+    # -- dense-cache forward -----------------------------------------------
+
+    def _forward_cached(self, tokens: torch.Tensor, state: DecodeState, *,
+                        prompt_mask: torch.Tensor | None = None,
+                        return_all: bool = False):
+        """Run tokens [b, s] from cell `state.length`; returns (last
+        position's logits [b, vocab] fp32, or every position's [b, s,
+        vocab] with `return_all`, and the advanced state). The s new K/V
+        rows are written into `state.k`/`state.v` in place, so the
+        returned state shares the cache with `state`.
+
+        `prompt_mask` [b, s] bool (False = pad) batches variable-length
+        rows; pads are LEFT-aligned, excluded from every later
+        attention, and rope sees logical positions (cell - pad count), so
+        a padded row computes what its unpadded prompt would."""
+        cfg, fam, ec = self.cfg, self.family, self.ec
+        b, s = tokens.shape
+        start = state.length
+        if start + s > ec.max_len:
+            raise ValueError(f"cells {start} + {s} exceed the cache bucket "
+                             f"{ec.max_len}")
+        positions = (start + torch.arange(
+            s, dtype=torch.int32, device=self.device)).expand(b, s)
+        pad, offset = state.pad, state.offset
+        if prompt_mask is not None:
+            offset = offset + (~prompt_mask).sum(1, dtype=torch.int32)
+            pad = pad.clone()
+            pad[:, start:start + s] = ~prompt_mask
+        rope_positions = torch.clamp(positions - offset[:, None], min=0)
+        kv_positions = self._cells.expand(b, ec.max_len)
+        kv_valid = (self._cells < start + s)[None, :] & ~pad
+        x = self._embed(tokens)
+        for li, p in enumerate(self.layers):
+            def write_kv(k, v, li=li):
+                kc, vc = state.k[li], state.v[li]
+                kc[:, start:start + s] = k.to(kc.dtype)
+                vc[:, start:start + s] = v.to(vc.dtype)
+                return kc, vc
+
+            def attn(q, kc, vc):
+                # this cache's cell index IS the token position: the
+                # declaration the decode kernel dispatches on
+                return dot_product_attention(
+                    q, kc, vc, positions, kv_positions, causal=True,
+                    kv_mask=kv_valid, window=cfg.sliding_window,
+                    contiguous_positions=True)
+
+            x, _ = transformer_block(cfg, fam, p, x, rope_positions,
+                                     self._inv_freq, write_kv, attn)
+        x = self.rms_final(x)
+        logits = self._head(x if return_all else x[:, -1])
+        return logits, DecodeState(state.k, state.v, start + s, pad, offset)
+
+    def init_state(self, batch: int) -> DecodeState:
+        cfg = self.cfg
+        shape = (cfg.num_layers, batch, self.ec.max_len, cfg.num_kv_heads,
+                 cfg.head_dim)
+        return DecodeState(
+            torch.zeros(shape, dtype=cfg.dtype, device=self.device),
+            torch.zeros(shape, dtype=cfg.dtype, device=self.device), 0)
+
+    def kv_cache_bytes(self, batch: int, cells: int | None = None) -> int:
+        """KV-cache bytes for `batch` rows of `cells` cache cells (K+V,
+        all layers; defaults to max_len, what the dense cache holds)."""
+        cfg = self.cfg
+        if cells is None:
+            cells = self.ec.max_len
+        itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+        return (2 * cfg.num_layers * batch * cells
+                * cfg.num_kv_heads * cfg.head_dim * itemsize)
+
+    def _tensor(self, x, dtype: torch.dtype) -> torch.Tensor:
+        """A tensor, numpy array or nested list as `dtype` on the
+        engine's device."""
+        if isinstance(x, torch.Tensor):
+            return x.to(device=self.device, dtype=dtype)
+        return torch.as_tensor(np.asarray(x), device=self.device).to(dtype)
+
+    # -- sampling setup ----------------------------------------------------
+
+    def _resolve_sampling(self, temperature, top_k, top_p,
+                          rng: torch.Generator | None,
+                          batch: int | None = None):
+        """EngineConfig defaulting, validation and the default generator,
+        shared with SpeculativeEngine. Each knob is a scalar or a per-row
+        vector; the result holds [batch] vectors (or [n], n the length
+        of a vector knob, when batch is None)."""
+        temperature = np.asarray(
+            self.ec.temperature if temperature is None else temperature,
+            np.float32)
+        top_k = np.asarray(self.ec.top_k if top_k is None else top_k,
+                           np.int64)
+        top_p = np.asarray(self.ec.top_p if top_p is None else top_p,
+                           np.float32)
+        for name, arr in (("temperature", temperature), ("top_k", top_k),
+                          ("top_p", top_p)):
+            if arr.ndim > 1:
+                raise ValueError(f"{name} must be scalar or 1-D, "
+                                 f"got shape {arr.shape}")
+            if (arr.ndim == 1 and batch is not None
+                    and len(arr) != batch):
+                raise ValueError(
+                    f"{name} has {len(arr)} entries for a batch of "
+                    f"{batch}")
+        if (top_k < 0).any():
+            raise ValueError(f"top_k must be >= 0, got {top_k}")
+        if (top_k >= 2**31).any():
+            raise ValueError(f"top_k must be < 2**31, got {top_k}")
+        if not ((0.0 < top_p) & (top_p <= 1.0)).all():
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        n = batch if batch is not None else max(
+            (a.shape[0] for a in (temperature, top_k, top_p) if a.ndim == 1),
+            default=1)
+        sp = SamplingParams.make(*(np.broadcast_to(a, (n,)).copy()
+                                   for a in (temperature, top_k, top_p)),
+                                 self.device)
+        if rng is None:
+            # fresh entropy when some row samples: a constant default
+            # would make every sampled completion identical; greedy never
+            # draws, so a constant seed costs nothing there
+            seed = (int.from_bytes(os.urandom(8), "little") >> 1
+                    if sp.sampled else 0)
+            rng = torch.Generator(device=self.device).manual_seed(seed)
+        return sp, rng
+
+    def _prep(self, prompt_tokens, max_new, rng, temperature, top_k, top_p,
+              prompt_mask):
+        """Shared validation + sampling/state setup of the entry points.
+        -> (sp, rng, tokens [b, s] int64 on the device, prompt_mask
+        [b, s] bool on the device, a fresh state)."""
+        tokens = self._tensor(prompt_tokens, torch.int64)
+        if tokens.ndim != 2:
+            raise ValueError(f"prompt_tokens must be [b, s], got shape "
+                             f"{tuple(tokens.shape)}")
+        b, s = tokens.shape
+        if max_new < 1:
+            raise ValueError(f"max_new must be >= 1, got {max_new}")
+        if s + max_new > self.ec.max_len:
+            raise ValueError(
+                f"prompt {s} + max_new {max_new} exceeds cache bucket "
+                f"{self.ec.max_len}")
+        if prompt_mask is not None:
+            m = self._tensor(prompt_mask, torch.bool).cpu().numpy()
+            if m.shape != (b, s):
+                raise ValueError(
+                    f"prompt_mask shape {m.shape} != {(b, s)}")
+            if not (np.sort(m, axis=1) == m).all() or not m[:, -1].all():
+                raise ValueError(
+                    "prompt_mask pads must be LEFT-aligned (False... "
+                    "then True...) with a real final token per row")
+            mask = torch.as_tensor(m, device=self.device)
+        else:
+            mask = torch.ones((b, s), dtype=torch.bool, device=self.device)
+        sp, rng = self._resolve_sampling(temperature, top_k, top_p, rng,
+                                         batch=b)
+        return sp, rng, tokens, mask, self.init_state(b)
+
+    # -- one-shot generation -----------------------------------------------
+
+    def _prefill_sample(self, prompt, state, gen, sp: SamplingParams,
+                        prompt_mask):
+        """Prefill + sample token #1 (and its logprob). -> (state, first
+        [b], done [b], logprob [b])."""
+        logits, state = self._forward_cached(prompt, state,
+                                             prompt_mask=prompt_mask)
+        first, lp = self._sample(logits, gen, sp)
+        eos = self.ec.eos_token
+        done = (first == eos) if eos is not None else torch.zeros_like(
+            first, dtype=torch.bool)
+        return state, first, done, lp
+
+    def _decode_chunk(self, state, tok, gen, done, sp: SamplingParams, *,
+                      length: int):
+        """Exactly `length` decode steps from (state, last token, done).
+        -> (state, last token, done, tokens [b, length], logprobs
+        [b, length]). A row past its first EOS emits EOS (forced on the
+        device; its logprob entries describe the pre-forcing sample and
+        are undefined for callers). The one step body both `generate`
+        and `generate_stream` run."""
+        eos = self.ec.eos_token
+        toks, lps = [], []
+        for _ in range(length):
+            logits, state = self._forward_cached(tok[:, None], state)
+            nxt, lp = self._sample(logits, gen, sp)
+            if eos is not None:
+                nxt = torch.where(done, torch.full_like(nxt, eos), nxt)
+                done = done | (nxt == eos)
+            toks.append(nxt)
+            lps.append(lp)
+            tok = nxt
+        b = tok.shape[0]
+        if not toks:
+            return (state, tok, done,
+                    torch.zeros((b, 0), dtype=torch.int32,
+                                device=self.device),
+                    torch.zeros((b, 0), dtype=torch.float32,
+                                device=self.device))
+        return state, tok, done, torch.stack(toks, 1), torch.stack(lps, 1)
+
+    @torch.inference_mode()
+    def generate(self, prompt_tokens, *, max_new: int = 32,
+                 rng: torch.Generator | None = None, temperature=None,
+                 top_k=None, top_p=None, prompt_mask=None,
+                 prefill_chunk: int | None = None, adapter=None,
+                 return_logprobs: bool = False):
+        """Generate `max_new` tokens after the prompt -> [b, max_new]
+        int32 on the engine's device (EOS trimming is the caller's job),
+        or (tokens, logprobs) with `return_logprobs`: each chosen
+        token's raw-model log-softmax (entries past a row's first EOS
+        are undefined).
+
+        temperature/top_k/top_p default from EngineConfig (scalars or
+        per-row vectors); `rng` is a torch.Generator on the engine's
+        device. `prompt_mask` batches variable-length prompts, pads
+        LEFT-aligned. `prefill_chunk` prefills in fixed slices
+        (`prefill_chunked`): same tokens, bounded activation memory."""
+        if adapter is not None:
+            raise NotImplementedError(
+                "multi-LoRA adapters are not ported yet (ROADMAP Queue 1)")
+        sp, gen, prompt, mask, state = self._prep(
+            prompt_tokens, max_new, rng, temperature, top_k, top_p,
+            prompt_mask)
+        if prefill_chunk is None:
+            state, first, done, lp1 = self._prefill_sample(
+                prompt, state, gen, sp, mask)
+        else:
+            if prefill_chunk < 1:
+                raise ValueError(f"prefill_chunk must be >= 1, got "
+                                 f"{prefill_chunk}")
+            b, n = prompt.shape
+            pad = (-n) % prefill_chunk
+            if n + pad + max_new > self.ec.max_len:
+                raise ValueError(
+                    f"chunk-padded prompt {n + pad} + max_new {max_new} "
+                    f"exceeds cache bucket {self.ec.max_len}")
+            if pad:
+                prompt = torch.cat([prompt.new_zeros((b, pad)), prompt], 1)
+                mask = torch.cat([mask.new_zeros((b, pad)), mask], 1)
+            state, first, done, lp1 = self.prefill_chunked(
+                prompt, state, gen, sp, mask, chunk=prefill_chunk)
+        _, _, _, rest, lps = self._decode_chunk(
+            state, first, gen, done, sp, length=max_new - 1)
+        toks = torch.cat([first[:, None], rest], 1)
+        if return_logprobs:
+            return toks, torch.cat([lp1[:, None], lps], 1)
+        return toks
+
+    def generate_stream(self, prompt_tokens, *, max_new: int = 32,
+                        chunk: int = 8, rng: torch.Generator | None = None,
+                        temperature=None, top_k=None, top_p=None,
+                        prompt_mask=None):
+        """Yield [b, <=chunk] numpy token chunks as they decode. Same
+        sampling law and generator discipline as `generate`: with equal
+        arguments (and a generator in the same state) the concatenated
+        stream equals a prefix of `generate`'s output. The stream stops
+        early once every row has hit EOS. Validation is eager: bad
+        arguments raise here, not at the first next()."""
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        sp, gen, prompt, mask, state = self._prep(
+            prompt_tokens, max_new, rng, temperature, top_k, top_p,
+            prompt_mask)
+
+        def _iter():
+            # inference mode per step, never across a yield: it is
+            # thread-wide state the consumer would run under
+            with torch.inference_mode():
+                st, tok, done, _ = self._prefill_sample(prompt, state, gen,
+                                                        sp, mask)
+                out = tok[:, None].cpu().numpy()
+            yield out
+            emitted = 1
+            while emitted < max_new:
+                if self.ec.eos_token is not None and bool(done.all()):
+                    return
+                n = min(chunk, max_new - emitted)
+                with torch.inference_mode():
+                    st, tok, done, rest, _ = self._decode_chunk(
+                        st, tok, gen, done, sp, length=n)
+                    out = rest.cpu().numpy()
+                yield out
+                emitted += n
+
+        return _iter()
+
+    @torch.inference_mode()
+    def prefill_chunked(self, prompt, state, gen, sp: SamplingParams,
+                        prompt_mask, *, chunk: int):
+        """Prefill in fixed `chunk`-token slices through the cache, then
+        sample token #1 from the final slice (`_prefill_sample`, so the
+        sampled law equals the one-shot prefill's; earlier slices draw
+        nothing). A slice whose rows are all pads attends nothing (finite
+        NEG_INF masking, no NaN) and is never sampled. `prompt` width
+        must be a multiple of `chunk` (callers left-pad first)."""
+        b, n = prompt.shape
+        if n % chunk:
+            raise ValueError(f"prompt width {n} not a multiple of "
+                             f"chunk {chunk} (left-pad first)")
+        for i in range(n // chunk - 1):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            _, state = self._forward_cached(prompt[:, sl], state,
+                                            prompt_mask=prompt_mask[:, sl])
+        return self._prefill_sample(prompt[:, n - chunk:], state, gen, sp,
+                                    prompt_mask[:, n - chunk:])
+
+    @torch.inference_mode()
+    def score(self, tokens, prompt_mask=None) -> torch.Tensor:
+        """Teacher-forced scoring: log P(token_i | tokens_<i) for every
+        position past the first, [b, s-1] fp32 on the engine's device
+        (pad positions 0). One forward with every position's logits."""
+        tokens = self._tensor(tokens, torch.int64)
+        b, s = tokens.shape
+        if s < 2:
+            raise ValueError("scoring needs at least 2 tokens")
+        if s > self.ec.max_len:
+            raise ValueError(
+                f"sequence {s} exceeds cache bucket {self.ec.max_len}")
+        if prompt_mask is None:
+            mask = torch.ones((b, s), dtype=torch.bool, device=self.device)
+        else:
+            mask = self._tensor(prompt_mask, torch.bool)
+        logits, _ = self._forward_cached(tokens, self.init_state(b),
+                                         prompt_mask=mask, return_all=True)
+        lp = torch.log_softmax(logits, -1)
+        got = torch.gather(lp[:, :-1], -1, tokens[:, 1:, None])[:, :, 0]
+        return got * mask[:, 1:].float()
+
+    @torch.inference_mode()
+    def precompute_prefix(self, tokens: list[int]) -> DecodeState:
+        """Run a shared prefix (system prompt) once; returns a batch-1
+        state at length len(tokens). A forward continuing from it writes
+        its cells past `length` in place and leaves the prefix's cells
+        untouched, so the state can seed one continuation after
+        another."""
+        if not tokens:
+            raise ValueError("prefix must be non-empty")
+        if len(tokens) >= self.ec.max_len:
+            raise ValueError(
+                f"prefix {len(tokens)} leaves no cache room "
+                f"(max_len {self.ec.max_len})")
+        arr = torch.as_tensor([tokens], dtype=torch.int64,
+                              device=self.device)
+        _, state = self._forward_cached(
+            arr, self.init_state(1),
+            prompt_mask=torch.ones_like(arr, dtype=torch.bool))
+        return state

@@ -2,10 +2,23 @@
 
 Routes, each with the reference's request and response bodies:
 - `POST /v1/models/{name}:generate` — body `{"tokens": [[ids...], ...],
-  "max_new": 16, "temperature", "top_k", "top_p", "logprobs"}`; every
-  prompt rides the model's continuous batcher;
+  "max_new": 16, "temperature", "top_k", "top_p", "logprobs",
+  "speculative", "gamma"}`;
 - `GET /healthz` (200 only while the server admits work), `GET /readyz`
   (liveness), `GET /v1/models`.
+
+Modes, as in the reference's `create_serving_app`:
+- default (`continuous=False`): the one-shot engine on a dense KV cache.
+  With `batch_window_ms > 0`, single-prompt requests arriving within the
+  window coalesce into one left-padded `engine.generate` call
+  (`Batcher`); explicit multi-row batches, and every request when the
+  window is 0, call `engine.generate` directly. The port's window
+  batcher also carries `logprobs` (the reference sends such a request
+  to the direct path instead).
+- `continuous=True`: every prompt rides the model's continuous batcher
+  on the paged KV pool (serving/continuous.py).
+- `"speculative": true` (either mode, a model registered in `drafts`):
+  batch-1 speculative decoding through `SpeculativeEngine`.
 The reference's other routes (SSE streams, stop sequences, text mode,
 scoring, drain, migration, reload, metrics, traces) are not ported yet.
 """
@@ -16,6 +29,7 @@ import asyncio
 import math
 from typing import Any
 
+import numpy as np
 from aiohttp import web
 
 from kubeflow_tpu_torch.ops.cuda import launch_counts
@@ -24,25 +38,210 @@ from kubeflow_tpu_torch.serving.continuous import (
     Overloaded,
 )
 from kubeflow_tpu_torch.serving.engine import InferenceEngine
+from kubeflow_tpu_torch.serving.speculative import SpeculativeEngine
 
 ENGINES_KEY: web.AppKey = web.AppKey("engines", dict)
 BATCHERS_KEY: web.AppKey = web.AppKey("batchers", dict)
+SPEC_KEY: web.AppKey = web.AppKey("speculative", dict)
+GPU_LOCK_KEY: web.AppKey = web.AppKey("gpu_lock", asyncio.Lock)
+
+
+def pow2_ceil(n: int) -> int:
+    """Smallest power of two >= n (n >= 1)."""
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def bucket_pow2(n: int, cap: int) -> int:
+    """Round up to a power of two (>= 16), capped: the reference's
+    bucketing of the window batcher's widths and of the direct path's
+    max_new (kubeflow_tpu/serving/continuous.py::bucket_pow2)."""
+    return min(max(pow2_ceil(n), 16), cap)
+
+
+class Batcher:
+    """Window batching for one engine: concurrent single-prompt requests
+    collected within `window_ms` run as ONE left-padded
+    `engine.generate` call.
+
+    Decode reads every weight once per step whatever the batch, so N
+    coalesced requests cost about one request's weight traffic. Rows,
+    prompt width and max_new are bucketed to powers of two; filler rows
+    decode greedily; each caller gets its own row trimmed to its own
+    max_new, with the logprobs of its tokens. `calls` counts engine
+    calls and `requests` the requests they served (counted on success).
+    """
+
+    def __init__(self, engine: InferenceEngine, gpu_lock: asyncio.Lock, *,
+                 window_ms: float = 5.0, max_batch: int = 8):
+        self.engine = engine
+        self.gpu_lock = gpu_lock
+        self.window_s = window_ms / 1000.0
+        self.max_batch = max_batch
+        self.calls = 0
+        self.requests = 0
+        self._queue: asyncio.Queue = asyncio.Queue()
+        self._worker: asyncio.Task | None = None
+        self._inflight: list = []   # dequeued but unresolved (see close)
+        self._closed = False
+
+    def in_flight(self) -> int:
+        return self._queue.qsize() + len(self._inflight)
+
+    async def submit(self, tokens: list[int], max_new: int,
+                     sampling: dict | None = None):
+        """-> (tokens [max_new], logprobs [max_new]) for one prompt."""
+        if self._closed:
+            raise RuntimeError("batcher is shut down")
+        loop = asyncio.get_running_loop()
+        if self._worker is None or self._worker.done():
+            self._worker = loop.create_task(self._run())
+        fut = loop.create_future()
+        await self._queue.put((list(tokens), max_new, dict(sampling or {}),
+                               fut))
+        return await fut
+
+    async def _run(self) -> None:
+        while True:
+            first = await self._queue.get()
+            self._inflight = [first]
+            await asyncio.sleep(self.window_s)   # let siblings arrive
+            batch = [first]
+            while len(batch) < self.max_batch and not self._queue.empty():
+                batch.append(self._queue.get_nowait())
+            self._inflight = batch
+            # split only when the combination would overflow the cache
+            # (each request alone fits)
+            cap = self.engine.ec.max_len
+            sub: list = []
+            for item in batch:
+                trial = sub + [item]
+                need = (max(len(t) for t, _, _, _ in trial)
+                        + max(mn for _, mn, _, _ in trial))
+                if sub and need > cap:
+                    await self._run_group(sub)
+                    sub = [item]
+                else:
+                    sub = trial
+            if sub:
+                await self._run_group(sub)
+            self._inflight = []
+
+    async def _run_group(self, items: list) -> None:
+        ec = self.engine.ec
+        cap = ec.max_len
+        longest = max(len(t) for t, _, _, _ in items)
+        max_new = max(mn for _, mn, _, _ in items)
+        # bucket both widths; exact sizes when the buckets do not fit
+        max_new_b = bucket_pow2(max_new, cap - longest)
+        longest_b = bucket_pow2(longest, cap - max_new_b)
+        if longest_b < longest or max_new_b < max_new:
+            longest_b, max_new_b = longest, max_new
+        rows = pow2_ceil(len(items))   # filler rows, outputs dropped
+        arr = np.zeros((rows, longest_b), np.int64)
+        mask = np.zeros((rows, longest_b), bool)
+        mask[:, -1] = True   # filler rows need one real token
+        # filler rows decode greedily: a sampled EngineConfig default
+        # there would drag an all-greedy batch into the sampled branch
+        temp = np.zeros(rows, np.float32)
+        top_k = np.zeros(rows, np.int64)
+        top_p = np.ones(rows, np.float32)
+        for i, (toks, _, sampling, _) in enumerate(items):
+            arr[i, longest_b - len(toks):] = toks
+            mask[i, :longest_b - len(toks)] = False
+            mask[i, longest_b - len(toks):] = True
+            temp[i] = sampling.get("temperature", ec.temperature)
+            top_k[i] = sampling.get("top_k", ec.top_k)
+            top_p[i] = sampling.get("top_p", ec.top_p)
+
+        def run():
+            toks, lps = self.engine.generate(
+                arr, max_new=max_new_b, prompt_mask=mask, temperature=temp,
+                top_k=top_k, top_p=top_p, return_logprobs=True)
+            return toks.cpu().numpy(), lps.cpu().numpy()
+
+        try:
+            loop = asyncio.get_running_loop()
+            async with self.gpu_lock:
+                out, lps = await loop.run_in_executor(None, run)
+            self.calls += 1
+            self.requests += len(items)
+            for i, (_, mn, _, fut) in enumerate(items):
+                if not fut.done():
+                    fut.set_result((out[i, :mn].tolist(),
+                                    lps[i, :mn].tolist()))
+        except Exception as e:  # noqa: BLE001 — fail the waiting requests
+            for _, _, _, fut in items:
+                if not fut.done():
+                    fut.set_exception(e)
+
+    async def close(self) -> None:
+        """Cancel the worker and fail everything unresolved, queued and
+        already dequeued."""
+        self._closed = True
+        if self._worker is not None:
+            self._worker.cancel()
+            try:
+                await self._worker
+            except asyncio.CancelledError:
+                pass
+        pending = list(self._inflight)
+        self._inflight = []
+        while not self._queue.empty():
+            pending.append(self._queue.get_nowait())
+        for _, _, _, fut in pending:
+            if not fut.done():
+                fut.set_exception(RuntimeError("server shutting down"))
 
 
 def create_serving_app(engines: dict[str, InferenceEngine], *,
-                       max_batch: int = 8, prefill_chunk_tokens: int = 64,
+                       batch_window_ms: float = 0.0, max_batch: int = 8,
+                       continuous: bool = False,
+                       prefill_chunk_tokens: int | None = None,
                        kv_block_size: int = 64,
+                       drafts: dict[str, InferenceEngine] | None = None,
                        seed: int | None = None) -> web.Application:
-    """One continuous batcher (max_batch slots) per served model."""
+    """`continuous=False` (the default) serves through the one-shot
+    engine: a window `Batcher` per model when `batch_window_ms > 0`,
+    else every request calls `engine.generate` directly.
+    `continuous=True` gives each model a continuous batcher of
+    `max_batch` slots on the paged KV pool (`prefill_chunk_tokens`,
+    default 64, and `kv_block_size` are its knobs; `seed` seeds its
+    sampler). `drafts` maps model names to draft engines; a request with
+    "speculative": true then decodes through `SpeculativeEngine`."""
+    if not continuous and (prefill_chunk_tokens is not None
+                           or kv_block_size != 64):
+        # these knobs only exist on the continuous batcher; ignoring
+        # them would ship a server without what the caller asked for
+        raise ValueError("prefill_chunk_tokens/kv_block_size require "
+                         "continuous=True")
+    unknown = set(drafts or {}) - set(engines)
+    if unknown:
+        raise ValueError(f"drafts registered for unknown models "
+                         f"{sorted(unknown)}")
     app = web.Application()
     app[ENGINES_KEY] = dict(engines)
+    app[SPEC_KEY] = {name: SpeculativeEngine(engines[name], draft)
+                     for name, draft in (drafts or {}).items()}
+    # one inference at a time per process: the card is the bottleneck
     gpu_lock = asyncio.Lock()
-    app[BATCHERS_KEY] = {
-        name: ContinuousBatcher(
-            eng, gpu_lock, max_slots=max_batch,
-            prefill_chunk_tokens=prefill_chunk_tokens,
-            kv_block_size=kv_block_size, seed=seed)
-        for name, eng in engines.items()}
+    app[GPU_LOCK_KEY] = gpu_lock
+    if continuous:
+        app[BATCHERS_KEY] = {
+            name: ContinuousBatcher(
+                eng, gpu_lock, max_slots=max_batch,
+                prefill_chunk_tokens=(64 if prefill_chunk_tokens is None
+                                      else prefill_chunk_tokens),
+                kv_block_size=kv_block_size, seed=seed)
+            for name, eng in engines.items()}
+    else:
+        app[BATCHERS_KEY] = (
+            {name: Batcher(eng, gpu_lock, window_ms=batch_window_ms,
+                           max_batch=max_batch)
+             for name, eng in engines.items()}
+            if batch_window_ms > 0 else {})
 
     async def _close_batchers(app_):
         for b in app_[BATCHERS_KEY].values():
@@ -61,18 +260,21 @@ async def _ok(request: web.Request):
 
 
 async def healthz(request: web.Request):
-    """200 only when every model admits work (queue below its shed
-    depth); /readyz stays the bare liveness 200."""
+    """200 only when every model admits work (a continuous batcher's
+    queue below its shed depth); /readyz stays the bare liveness 200."""
     models = {}
     overloaded = False
     for name, b in request.app[BATCHERS_KEY].items():
-        models[name] = {
-            "pending": len(b._pending),
-            "active_slots": len(b._active),
-            "kv_blocks_free": b.cengine.pool.num_free,
-            "kv_blocks_total": b.cengine.num_blocks,
-        }
-        overloaded = overloaded or len(b._pending) >= b.max_pending
+        if isinstance(b, ContinuousBatcher):
+            models[name] = {
+                "pending": len(b._pending),
+                "active_slots": len(b._active),
+                "kv_blocks_free": b.cengine.pool.num_free,
+                "kv_blocks_total": b.cengine.num_blocks,
+            }
+            overloaded = overloaded or len(b._pending) >= b.max_pending
+        else:
+            models[name] = {"in_flight": b.in_flight()}
     if overloaded:
         return web.json_response(
             {"status": "overloaded", "models": models}, status=503)
@@ -82,8 +284,7 @@ async def healthz(request: web.Request):
 async def list_models(request: web.Request):
     out = []
     for name, eng in request.app[ENGINES_KEY].items():
-        b = request.app[BATCHERS_KEY][name]
-        out.append({
+        entry = {
             "name": name,
             "family": eng.family.name,
             "max_len": eng.ec.max_len,
@@ -91,21 +292,38 @@ async def list_models(request: web.Request):
             "hidden_size": eng.cfg.hidden_size,
             "num_layers": eng.cfg.num_layers,
             "device": str(eng.device),
-            "batcher_mode": "continuous",
-            "batcher_calls": b.calls,
-            "batched_requests": b.requests,
-            "occupancy": round(b.occupancy(), 3),
-            "pending": len(b._pending),
-            "active_slots": len(b._active),
-            "kv_block_size": b.cengine.block_size,
-            "kv_pool_blocks": b.cengine.num_blocks,
-        })
+        }
+        b = request.app[BATCHERS_KEY].get(name)
+        if b is not None:
+            # window batcher: mean batch = batched_requests / calls;
+            # continuous: calls are decode steps, occupancy the analog
+            entry["batcher_calls"] = b.calls
+            entry["batched_requests"] = b.requests
+            if isinstance(b, ContinuousBatcher):
+                entry.update({
+                    "batcher_mode": "continuous",
+                    "occupancy": round(b.occupancy(), 3),
+                    "pending": len(b._pending),
+                    "active_slots": len(b._active),
+                    "kv_block_size": b.cengine.block_size,
+                    "kv_pool_blocks": b.cengine.num_blocks,
+                })
+            else:
+                entry["batcher_mode"] = "window"
+        out.append(entry)
     return web.json_response({"models": out,
                               "kernel_launches": launch_counts()})
 
 
 def _bad(msg: str) -> web.Response:
     return web.json_response({"error": msg}, status=400)
+
+
+async def _on_device(request: web.Request, fn):
+    """Run one blocking engine call in the executor under the gpu lock."""
+    loop = asyncio.get_running_loop()
+    async with request.app[GPU_LOCK_KEY]:
+        return await loop.run_in_executor(None, fn)
 
 
 async def generate(request: web.Request):
@@ -160,31 +378,105 @@ async def generate(request: web.Request):
         return _bad("all prompts in a batch must share a length "
                     "(static shapes); pad client-side")
     prompt_len = lens.pop()
-    if prompt_len + max_new > engine.ec.max_len:
+    cap = engine.ec.max_len
+    if prompt_len + max_new > cap:
         return _bad(f"prompt {prompt_len} + max_new {max_new} exceeds "
-                    f"model max_len {engine.ec.max_len}")
+                    f"model max_len {cap}")
     vocab = engine.cfg.vocab_size
     if any(x < 0 or x >= vocab for t in token_lists for x in t):
         return _bad(f"token ids must be in [0, {vocab})")
-    batcher = request.app[BATCHERS_KEY][name]
-    try:
-        results = await asyncio.gather(*(
-            batcher.submit(t, max_new, sampling, with_logprobs=True)
-            for t in token_lists))
-    except Overloaded as e:
-        return web.json_response(
-            {"error": f"server overloaded: {e}"}, status=429,
-            headers={"Retry-After": "1"})
-    rows = [list(toks) for toks, _ in results]
-    resp: dict[str, Any] = {"tokens": rows}
+    speculative = body.get("speculative", False)
+    if not isinstance(speculative, bool):
+        return _bad("speculative must be a boolean")
+    gamma = body.get("gamma", 4)
+    if not isinstance(gamma, int) or isinstance(gamma, bool) or gamma < 1:
+        return _bad("gamma must be a positive integer")
+    arr = np.asarray(token_lists, np.int64)
+    # the one-shot paths generate to a power-of-two bucket of max_new
+    # and trim the response back to the ask
+    max_new_req = max_new
+    max_new = max(bucket_pow2(max_new, cap - prompt_len), max_new_req)
+    batcher = request.app[BATCHERS_KEY].get(name)
+    resp: dict[str, Any] = {}
+    lp_rows = None
+    if speculative:
+        if logprobs:
+            return _bad("logprobs does not compose with speculative")
+        spec = request.app[SPEC_KEY].get(name)
+        if spec is None:
+            return _bad(f"no draft model registered for {name!r}")
+        if arr.shape[0] != 1:
+            return _bad("speculative decoding is batch-1")
+        # gamma to a power of two <= 8 before the capacity check (a perf
+        # knob only: bucketing never changes the output law)
+        g = 1
+        while g * 2 <= min(gamma, 8):
+            g *= 2
+        gamma = g
+        # the draft's cache must hold the window too; the bucketed
+        # max_new shrinks back toward the ask before anything is refused
+        cap = min(cap, spec.draft.ec.max_len)
+        if prompt_len + max_new + gamma > cap:
+            max_new = max(cap - prompt_len - gamma, max_new_req)
+        if prompt_len + max_new_req + gamma > cap:
+            return _bad(f"prompt {prompt_len} + max_new {max_new_req} + "
+                        f"gamma {gamma} exceeds model max_len {cap}")
+
+        def run_spec():
+            toks_, stats_ = spec.generate(arr, max_new=max_new, gamma=gamma,
+                                          **sampling)
+            return toks_.cpu().numpy(), stats_
+
+        toks, stats = await _on_device(request, run_spec)
+        # the speculative engine does not special-case EOS; pin the tail
+        # after the first EOS as the plain path does
+        eos = engine.ec.eos_token
+        if eos is not None:
+            hits = np.where(toks[0] == eos)[0]
+            if hits.size:
+                toks[0, hits[0]:] = eos
+        resp["speculative"] = {
+            "acceptance_rate": round(stats.acceptance_rate, 4),
+            "proposed": int(stats.proposed),
+            "accepted": int(stats.accepted),
+            "gamma": gamma,   # the effective (bucketed) window
+        }
+        rows = toks[:, :max_new_req].tolist()
+    elif isinstance(batcher, ContinuousBatcher):
+        try:
+            results = await asyncio.gather(*(
+                batcher.submit(t, max_new_req, sampling, with_logprobs=True)
+                for t in token_lists))
+        except Overloaded as e:
+            return web.json_response(
+                {"error": f"server overloaded: {e}"}, status=429,
+                headers={"Retry-After": "1"})
+        rows = [list(toks) for toks, _ in results]
+        lp_rows = [list(lps) for _, lps in results]
+    elif batcher is not None and arr.shape[0] == 1:
+        # single prompts ride the window batcher; explicit client-side
+        # batches keep their one-shot call
+        toks, lps = await batcher.submit(token_lists[0], max_new_req,
+                                         sampling)
+        rows, lp_rows = [toks], [lps]
+    else:
+        def run_direct():
+            toks_, lps_ = engine.generate(arr, max_new=max_new,
+                                          return_logprobs=True, **sampling)
+            return toks_.cpu().numpy(), lps_.cpu().numpy()
+
+        toks, lps = await _on_device(request, run_direct)
+        rows = toks[:, :max_new_req].tolist()
+        lp_rows = lps[:, :max_new_req].tolist()
+    resp["tokens"] = rows
     if logprobs:
         # entries cover tokens up to AND INCLUDING the row's first EOS
         eos = engine.ec.eos_token
         out_lps = []
-        for (toks, lps) in results:
-            n = len(toks)
-            if eos is not None and eos in toks:
-                n = toks.index(eos) + 1
-            out_lps.append([round(float(x), 6) for x in lps[:n]])
+        for r, lp in zip(rows, lp_rows):
+            n = len(r)
+            if eos is not None and eos in r:
+                n = r.index(eos) + 1
+            out_lps.append([round(float(x), 6) for x in lp[:n]])
         resp["logprobs"] = out_lps
     return web.json_response(resp)

@@ -7,8 +7,8 @@ card machine runs it with
 
 (--noconftest: tests/conftest.py configures JAX for the CPU tests).
 
-Tolerance: fp32 atol = rtol = 1e-5 (online softmax vs single-pass
-softmax); bf16 atol 1e-4 + rtol 2**-7: the kernel and the plain version
+Tolerance (paged and dense decode, prefill): fp32 atol = rtol = 1e-5
+(online softmax vs single-pass softmax); bf16 atol 1e-4 + rtol 2**-7: the kernel and the plain version
 both accumulate in fp32 and round the result once, so they differ by at
 most one bf16 ulp of it (<= 2**-7 of its value), and the absolute floor
 covers fp32 summation order near zero. Pools are copied, not computed:
@@ -37,7 +37,11 @@ from kubeflow_tpu_torch.ops.cuda.prefill_append import (
 )
 from kubeflow_tpu_torch.ops import attention as tattn
 from kubeflow_tpu_torch.ops.cuda import flash_attention as tflash
-from torch_cases import mk_decode, mk_prefill
+from kubeflow_tpu_torch.ops.cuda.decode_attention import (
+    decode_attention,
+    decode_attention_plain,
+)
+from torch_cases import mk_decode, mk_dense, mk_prefill
 
 
 def _t(a):
@@ -98,6 +102,54 @@ def test_prefill_kernel_matches_plain_on_card(cuda_device, dtype, tol,
                                    atol=tol[0], rtol=tol[1])
     torch.testing.assert_close(gk[1:], wk[1:], atol=0, rtol=0)
     torch.testing.assert_close(gv[1:], wv[1:], atol=0, rtol=0)
+
+
+# (b, max_len, n_q, n_kv, cursors, holes, window): llama3-8b's group 4
+# and llama3-1b's group 2; a max_len that is no multiple of the 64-cell
+# chunk; cursors 0, 63, 64, 255, 256 and the last cell; left-pad runs of
+# a different length per row below a shared cursor (the window batch);
+# a window; the speculative draft's batch 1
+DENSE_CASES = [
+    (6, 300, 32, 8, [0, 63, 64, 255, 256, 299], None, None),
+    (4, 1024, 32, 8, [540, 540, 540, 540],
+     {0: (0, 495), 1: (0, 17), 2: (0, 300), 3: (0, 1)}, None),
+    (4, 1024, 16, 8, [300, 700, 1000, 1023], None, 256),
+    (1, 1024, 16, 8, [300], None, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("b,max_len,n_q,n_kv,pos,holes,window", DENSE_CASES)
+def test_dense_decode_kernel_matches_plain_on_card(cuda_device, dtype, tol,
+                                                   b, max_len, n_q, n_kv,
+                                                   pos, holes, window):
+    q, k, v, pos, mask = (_t(a).to(cuda_device) for a in mk_dense(
+        6, b=b, max_len=max_len, n_q=n_q, n_kv=n_kv, hd=128, pos=pos,
+        holes=holes))
+    q, k, v = (a.to(dtype) for a in (q, k, v))
+    for m in (mask, None):
+        want = decode_attention_plain(q, k, v, pos, m, window=window)
+        got = decode_attention(q, k, v, pos, m, window=window)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), atol=tol[0],
+                                   rtol=tol[1])
+
+
+@pytest.mark.cuda
+def test_decode_door_launches_the_kernel_on_card(cuda_device):
+    """impl="auto" takes the kernel for a single-token causal step over
+    >= 256 cells with contiguous positions, and the plain path for 255."""
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    for max_len, want in ((256, 1), (255, 0)):
+        q, k, v, pos, mask = (_t(a).to(cuda_device) for a in mk_dense(
+            7, b=2, max_len=max_len, n_q=8, n_kv=2, hd=128, pos=[10, 200]))
+        kv_pos = torch.arange(max_len, device=cuda_device).expand(2, max_len)
+        reset_launch_counts()
+        tattn.dot_product_attention(q, k, v, pos[:, None], kv_pos,
+                                    kv_mask=mask, contiguous_positions=True)
+        assert launch_counts()["decode_attention"] == want
 
 
 FLASH_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-4, 2**-7)}
@@ -167,6 +219,15 @@ def test_flash_attention_autograd_on_card(cuda_device):
     _flash_close(o.detach(), wo.detach(), *FLASH_TOL[torch.float32])
     for g, w in zip(grads, want):
         _flash_close(g, w, *FLASH_TOL[torch.float32])
+
+
+def test_decode_impl_raises_on_cpu_tensors():
+    q = torch.zeros(1, 1, 4, 128)
+    k = torch.zeros(1, 256, 2, 128)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tattn.dot_product_attention(q, k, k, torch.zeros(1, 1),
+                                    torch.arange(256)[None], impl="decode",
+                                    contiguous_positions=True)
 
 
 def test_flash_impl_raises_on_cpu_tensors():

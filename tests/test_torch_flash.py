@@ -151,9 +151,9 @@ def test_dispatch_routes_and_counts():
     tattn.dot_product_attention(*_dpa_args(s=1024),
                                 contiguous_positions=True)
     tattn.dot_product_attention(*_dpa_args(), impl="torch")
-    assert tattn.impl_counts() == {"flash": 0, "torch": 2}
+    assert tattn.impl_counts() == {"flash": 0, "decode": 0, "torch": 2}
     tattn.reset_impl_counts()
-    assert tattn.impl_counts() == {"flash": 0, "torch": 0}
+    assert tattn.impl_counts() == {"flash": 0, "decode": 0, "torch": 0}
 
 
 @pytest.mark.parametrize("kwargs,msg", [

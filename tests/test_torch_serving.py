@@ -197,7 +197,7 @@ async def test_http_generate_returns_reference_tokens(engines,
                                      max_new=MAX_NEW))[0].tolist()
             for p in same_len]
     client = await aiohttp_client(create_serving_app(
-        {"tiny": teng}, max_batch=2, kv_block_size=BS,
+        {"tiny": teng}, max_batch=2, continuous=True, kv_block_size=BS,
         prefill_chunk_tokens=4))
     resp = await client.post("/v1/models/tiny:generate",
                              json={"tokens": same_len, "max_new": MAX_NEW,
@@ -224,7 +224,7 @@ async def test_cli_app_serves_on_cpu(aiohttp_client):
         cli.parse_args(["--model", "llama-tiny"])   # --random required
     app = cli.build_app(cli.parse_args(
         ["--model", "llama-tiny", "--random", "--cpu", "--max-len", "64",
-         "--prefill-chunk-tokens", "4"]))
+         "--continuous", "--prefill-chunk-tokens", "4"]))
     client = await aiohttp_client(app)
     resp = await client.post("/v1/models/llama-tiny:generate",
                              json={"tokens": [[3, 1, 4, 1, 5, 9, 2, 6]],

@@ -33,6 +33,29 @@ def mk_decode(seed, b=3, n_q=8, n_kv=2, hd=32, bs=8, nb=6, num_blocks=32,
     return q, kp, vp, table, pos, mask
 
 
+def mk_dense(seed, b=3, max_len=96, n_q=8, n_kv=2, hd=32, pos=None,
+             holes=None):
+    """Random dense cache [b, max_len, n_kv, hd] + per-row cursors and
+    kv_mask in the one-shot engine's layout. `holes` maps a row to the
+    (lo, hi) cell range masked out (a left-pad run); by default cell 3
+    is a hole in every row whose cursor is not 3 (a row's own cell is
+    never masked in serving, and a row with no visible cell is where
+    the plain path, mean(V), and the kernels, 0, differ)."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, 1, n_q, hd)).astype(np.float32)
+    k = rng.normal(size=(b, max_len, n_kv, hd)).astype(np.float32)
+    v = rng.normal(size=(b, max_len, n_kv, hd)).astype(np.float32)
+    if pos is None:
+        pos = rng.integers(0, max_len, size=(b,))
+    pos = np.asarray(pos, np.int32)
+    mask = np.ones((b, max_len), bool)
+    if holes is None:
+        mask[pos != 3, 3] = False
+    else:
+        for row, (lo, hi) in holes.items():
+            mask[row, lo:hi] = False
+    return q, k, v, pos, mask
+
 
 def mk_prefill(seed, b=3, s=5, n_q=8, n_kv=2, hd=32, bs=8, nb=6,
                 num_blocks=64, starts=None, lens=None, shared=False):

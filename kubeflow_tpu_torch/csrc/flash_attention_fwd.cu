@@ -7,37 +7,60 @@
 // fp32 as [b, n_q, s] (the TPU kernel's 128-lane replication of lse is a
 // Pallas tiling constraint, not part of the function).
 //
-// One CUDA block per (query head, batch row, 64-query tile); it keeps its
-// Q tile in shared memory and walks the relevant 64-key tiles in a loop
-// (the Pallas kernel's sequential grid axis), carrying m, l and the
-// [64, hd] accumulator in registers. Tiles above the causal diagonal and
-// wholly older than the window are never visited. Any s works: the tail
-// tile's rows past s are zero-filled and masked. The heaviest query tiles
-// (the last, under causal masking) are launched first.
-//
 // Bound on this card at llama3-1b's training shape (b 2, s 2048, n_q 16,
 // n_kv 8, hd 128, bf16, causal): 34.4 GFLOP of QK and PV products over
 // the visible pairs against 50.6 MB moved (q, k, v read once, o and lse
 // written once; 15 us at 3.35 TB/s), so operations bound it: 34.8 us at
-// the bf16 tensor rate (989 TFLOP/s). This kernel runs those products
-// on the CUDA cores in fp32 (67 TFLOP/s peak), so it cannot come near that
-// bound; tensor-core (wgmma) tiles fed by TMA are the later step.
+// the bf16 tensor rate (989 TFLOP/s).
+//
+// Both kernels: one CUDA block per (query head, batch row, 64-query tile)
+// walks the relevant 64-key tiles in a loop (the Pallas kernel's
+// sequential grid axis), carrying the row max m, the row sum l and the
+// [64, hd] accumulator in registers. Tiles above the causal diagonal and
+// wholly older than the window are never visited. Any s works: the tail
+// tile's rows past s are zero-filled and masked. A masked logit is the
+// reference's finite NEG_INF, so a row whose first visited tile is all
+// masked is washed out by the next tile's alpha. The heaviest query
+// tiles (the last, under causal masking) are launched first.
+//
+// bf16 (the training path), on the tensor cores: one warpgroup per block.
+// Q sits in shared memory as a swizzled bf16 tile (flash_wgmma.cuh); K
+// and V tiles stream through a 2-stage cp.async ring, the next tile's
+// copy overlapping this tile's products. S = Q K^T is 8 wgmma k-steps
+// (m64n64k16, both operands in shared memory); the online softmax runs on
+// the fp32 accumulator fragment (row max and sum over the 4 lanes of a
+// row, exp2 of logits in log2 units); P is rounded to bf16 in registers
+// and is the A operand of O += P V (4 k-steps of m64n128k16, V read
+// MN-major in its natural [keys, hd] layout). No P tile goes through
+// shared memory. 80 KB of shared memory a block, so two blocks share an
+// SM. o leaves through shared memory in 16-byte stores. What held the
+// first kernel (below) back: fp32 products on the CUDA cores (67 TFLOP/s
+// peak against 989), P round-tripped through shared memory with a barrier
+// on each side, synchronous K/V loads, and 118 KB of fp32 tiles (one
+// block an SM).
+//
+// fp32: that first kernel, kept for fp32 inputs (fp32 tiles in shared
+// memory, products on the CUDA cores; flash_tile.cuh).
 #include "flash_tile.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
 using namespace kft_flash;
+namespace wg = kft_wgmma;
+using bf16 = __nv_bfloat16;
+
+// -- fp32 -------------------------------------------------------------------
 
 constexpr size_t kSmemBytes =
     sizeof(float) * (3 * (size_t)kHdTileFloats + kPTileFloats);
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_kernel(const T* __restrict__ q,  // [b, s, n_q, hd]
-                 const T* __restrict__ k,  // [b, s, n_kv, hd]
-                 const T* __restrict__ v,
-                 T* __restrict__ o,        // [b, s, n_q, hd]
-                 float* __restrict__ lse,  // [b, n_q, s]
+flash_fwd_kernel(const float* __restrict__ q,  // [b, s, n_q, hd]
+                 const float* __restrict__ k,  // [b, s, n_kv, hd]
+                 const float* __restrict__ v,
+                 float* __restrict__ o,        // [b, s, n_q, hd]
+                 float* __restrict__ lse,      // [b, n_q, s]
                  int s, int n_q, int n_kv, int causal, int window,
                  float scale) {
   extern __shared__ __align__(16) float smem[];
@@ -118,29 +141,172 @@ flash_fwd_kernel(const T* __restrict__ q,  // [b, s, n_q, hd]
   store_acc(o + q_off, q_row, s - q0, ty, tx, acc, inv);
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int b, int s, int n_q, int n_kv, int causal, int window,
-           float scale, cudaStream_t stream) {
-  // once per instantiation, so launches inside a CUDA-graph capture make
-  // no attribute calls
+// -- bf16: tensor cores -----------------------------------------------------
+
+constexpr int kStages = 2;  // K/V ring
+// Q, then kStages x (K, V); 1 KB of slack for the 1024-byte alignment
+constexpr size_t kTcSmemBytes = 1024 + wg::kTileBytes * (1 + 2 * kStages);
+
+__global__ void __launch_bounds__(wg::kThreads, 2)
+flash_fwd_tc_kernel(const bf16* __restrict__ q,  // [b, s, n_q, hd]
+                    const bf16* __restrict__ k,  // [b, s, n_kv, hd]
+                    const bf16* __restrict__ v,
+                    bf16* __restrict__ o,        // [b, s, n_q, hd]
+                    float* __restrict__ lse,     // [b, n_q, s]
+                    int s, int n_q, int n_kv, int causal, int window,
+                    float scale) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const uint32_t qs = wg::align_1k(tc_smem);
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int nq = (s + kTile - 1) / kTile;
+  const int q0 = (nq - 1 - blockIdx.z) * kTile;  // heaviest tiles first
+  const int hk = h / (n_q / n_kv);
+  const size_t q_row = (size_t)n_q * kHD;
+  const size_t kv_row = (size_t)n_kv * kHD;
+  const size_t q_off = ((size_t)b * s + q0) * q_row + (size_t)h * kHD;
+  const size_t kv_head = (size_t)b * s * kv_row + (size_t)hk * kHD;
+  auto k_tile = [&](int st) { return qs + wg::kTileBytes * (1 + 2 * st); };
+  auto v_tile = [&](int st) { return k_tile(st) + wg::kTileBytes; };
+  auto load_kv = [&](int ki, int st) {
+    const int k0 = ki * kTile;
+    wg::load_tile_async(k_tile(st), k + kv_head + (size_t)k0 * kv_row,
+                        kv_row, s - k0);
+    wg::load_tile_async(v_tile(st), v + kv_head + (size_t)k0 * kv_row,
+                        kv_row, s - k0);
+  };
+  int lo, hi;
+  key_tiles(q0, nq, causal, window, &lo, &hi);
+  wg::load_tile_async(qs, q + q_off, q_row, s - q0);
+  load_kv(lo, 0);
+  wg::cp_async_commit();
+
+  const float sl2 = scale * wg::kLog2e;  // logits in log2 units
+  const int row0 = q0 + wg::frag_row(0);  // this thread's rows: +0, +8
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // l: lane partials
+  for (int ki = lo; ki <= hi; ++ki) {
+    const int st = (ki - lo) & 1;
+    if (ki < hi) load_kv(ki + 1, st ^ 1);
+    wg::cp_async_commit();
+    wg::cp_async_wait<1>();  // this tile (and Q) landed
+    wg::fence_async_smem();
+    __syncthreads();
+
+    float sc[32];
+    wg::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kHD / 16; ++kk)
+      wg::mma_ss_n64(sc, wg::desc_k(qs, kk), wg::desc_k(k_tile(st), kk),
+                     kk > 0);
+    wg::mma_commit();
+    wg::mma_wait<0>();
+    wg::fence_regs(sc);
+
+    // masking only where the tile meets the diagonal, the window's edge
+    // or the sequence's end
+    const int k0 = ki * kTile;
+    const bool edge =
+        k0 + kTile > s ||
+        (causal && (k0 + kTile - 1 > q0 ||
+                    (window > 0 && q0 + kTile - 1 - k0 >= window)));
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      float x = sc[i] * sl2;
+      if (edge && !visible(row0 + 8 * r, k0 + wg::frag_col(i), s, causal,
+                           window))
+        x = kNegInf;
+      sc[i] = x;
+      mx[r] = fmaxf(mx[r], x);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], wg::quad_max(mx[r]));
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      sc[i] = exp2f(sc[i] - m[r]);
+      l[r] += sc[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    uint32_t pa[16];
+    wg::to_a<4>(sc, pa);  // P in bf16, as the A operand
+
+    wg::fence_regs(acc);
+    wg::fence_regs(pa);
+    wg::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      wg::mma_rs_n128(acc, pa + 4 * kk, wg::desc_mn(v_tile(st), kk));
+    wg::mma_commit();
+    wg::mma_wait<0>();
+    wg::fence_regs(acc);
+    __syncthreads();  // stage st is consumed before the next refill
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float sum = wg::quad_sum(l[r]);
+    const float safe_l = sum == 0.f ? 1.f : sum;
+    inv[r] = 1.f / safe_l;
+    const int qp = row0 + 8 * r;
+    if ((threadIdx.x & 3) == 0 && qp < s)
+      lse[((size_t)b * n_q + h) * s + qp] = m[r] * wg::kLn2 + logf(safe_l);
+  }
+  wg::stage_acc(qs, acc, inv[0], inv[1]);  // Q's tile is free now
+  __syncthreads();
+  wg::store_tile(o + q_off, q_row, s - q0, qs);
+}
+
+int launch_fp32(const void* q, const void* k, const void* v, void* o,
+                void* lse, int b, int s, int n_q, int n_kv, int causal,
+                int window, float scale, cudaStream_t stream) {
+  // once per kernel, so launches inside a CUDA-graph capture make no
+  // attribute calls
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmemBytes);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(n_q, b, (s + kTile - 1) / kTile);
-  flash_fwd_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      s, n_q, n_kv, causal, window, scale);
+  flash_fwd_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), s, n_q, n_kv, causal, window, scale);
+  return cudaGetLastError();
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                void* lse, int b, int s, int n_q, int n_kv, int causal,
+                int window, float scale, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kTcSmemBytes);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(n_q, b, (s + kTile - 1) / kTile);
+  flash_fwd_tc_kernel<<<grid, wg::kThreads, kTcSmemBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), s, n_q, n_kv, causal, window, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. hd must be 128 (llama3-1b; other head
-// dims come with a model that needs them). window <= 0 means none (and is
-// ignored unless causal). Returns cudaGetLastError() after the launch.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores). hd must
+// be 128 (llama3-1b; other head dims come with a model that needs them).
+// window <= 0 means none (and is ignored unless causal). Returns
+// cudaGetLastError() after the launch.
 extern "C" int kft_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
                                        int b, int s, int n_q, int n_kv,
@@ -149,10 +315,10 @@ extern "C" int kft_flash_attention_fwd(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd != kHD || s < 1 || n_kv < 1 || n_q % n_kv) return cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch<float>(q, k, v, o, lse, b, s, n_q, n_kv, causal, window,
-                         scale, st);
+    return launch_fp32(q, k, v, o, lse, b, s, n_q, n_kv, causal, window,
+                       scale, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, lse, b, s, n_q, n_kv, causal,
-                                 window, scale, st);
+    return launch_bf16(q, k, v, o, lse, b, s, n_q, n_kv, causal, window,
+                       scale, st);
   return cudaErrorInvalidValue;
 }

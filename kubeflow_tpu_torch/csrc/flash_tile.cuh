@@ -1,15 +1,17 @@
-// Tile arithmetic shared by the flash-attention kernels
-// (flash_attention_fwd.cu, flash_attention_dq.cu, flash_attention_dkv.cu).
+// Tile arithmetic shared by the flash-attention kernels: the layout,
+// masking and tile ranges of all of them, and the CUDA-core tiles of the
+// dQ kernel (flash_attention_dq.cu) and of the fp32 forward and dK/dV
+// kernels (the bf16 forward and dK/dV use flash_wgmma.cuh).
 //
 // Layout: q, o, dO are [b, s, n_q, hd] and k, v, dK, dV [b, s, n_kv, hd],
 // the model's own layout, so no transpose copy is made; a query head h
 // reads KV head h / (n_q / n_kv) (GQA; KV is never repeated in memory).
 // Row statistics (lse, delta) are [b, n_q, s] fp32.
 //
-// Design, for Hopper (sm_90a), simple-and-correct first:
+// Design of the CUDA-core tiles, for Hopper (sm_90a), simple first:
 // - tiles of 64 query rows x 64 key rows, staged in shared memory as fp32
 //   (converted once on load); every product accumulates in fp32 on the
-//   CUDA cores. No tensor cores (mma/wgmma), no TMA, no pipelining yet;
+//   CUDA cores. No tensor cores, no TMA, no pipelining;
 // - 256 threads as 16 x 16: thread (ty, tx) owns score rows ty + 16 i and
 //   score columns tx + 16 j (i, j < 4), and for a [64, hd] accumulator the
 //   rows ty + 16 i and head-dim columns tx*4 + {0..3}, 64 + tx*4 + {0..3};

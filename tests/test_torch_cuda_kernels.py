@@ -21,6 +21,11 @@ plain version's err by a small multiple of fp32 epsilon times the size
 of the terms, which max|ref| bounds (c = 1e-5 fp32, 1e-4 bf16); bf16
 results are rounded once by both, so they may differ by one bf16 ulp
 (rtol 2**-7); fp32 rtol 1e-4. lse is fp32 in both cases: 1e-5 * max.
+The bf16 forward and dK/dV kernels run on the tensor cores and round P,
+P^T and dS^T to bf16 before their products; each rounded term errs by
+at most 2**-8 of itself, so their bf16 bound adds 2**-8 * mag, the sum
+of the product's absolute terms (`flash_bf16_slack`). A plain version
+that leaves each query's own key out must exceed that bound.
 """
 
 import numpy as np
@@ -41,7 +46,13 @@ from kubeflow_tpu_torch.ops.cuda.decode_attention import (
     decode_attention,
     decode_attention_plain,
 )
-from torch_cases import mk_decode, mk_dense, mk_prefill
+from torch_cases import (
+    dropped_diagonal,
+    flash_err_ratio,
+    mk_decode,
+    mk_dense,
+    mk_prefill,
+)
 
 
 def _t(a):
@@ -155,18 +166,27 @@ def test_decode_door_launches_the_kernel_on_card(cuda_device):
 FLASH_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-4, 2**-7)}
 
 
-def _flash_close(got, want, c, rtol):
-    got, want = got.float(), want.float()
-    bound = c * want.abs().max() + rtol * want.abs()
-    assert torch.isfinite(got).all()
-    assert bool(((got - want).abs() <= bound).all()), \
-        float(((got - want).abs() / bound).max())
+def _flash_close(got, want, c, rtol, mag=None):
+    assert torch.isfinite(got.float()).all()
+    ratio = flash_err_ratio(got, want, c, rtol, mag)
+    assert ratio <= 1, ratio
 
 
-# (b, s, n_q, n_kv, causal, window): small odd and llama3-1b shapes
+def _flash_inputs(device, dtype, b, s, n_q, n_kv):
+    gen = torch.Generator().manual_seed(s + n_q)
+    q, do = (torch.randn(b, s, n_q, 128, generator=gen).to(device, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, s, n_kv, 128, generator=gen).to(device, dtype)
+            for _ in range(2))
+    return q, k, v, do
+
+
+# (b, s, n_q, n_kv, causal, window): small odd and llama3-1b shapes, a
+# llama3-8b-style group of 4 (the dK/dV group loop), s one past a tile
 FLASH_SHAPES = [(1, 200, 4, 2, True, None), (1, 200, 4, 2, True, 37),
                 (1, 131, 4, 4, False, None), (2, 2048, 16, 8, True, None),
-                (2, 2048, 16, 8, True, 700), (2, 1000, 16, 8, True, None)]
+                (2, 2048, 16, 8, True, 700), (2, 1000, 16, 8, True, None),
+                (1, 1024, 32, 8, True, None), (1, 1025, 8, 2, True, None)]
 
 
 @pytest.mark.cuda
@@ -174,27 +194,44 @@ FLASH_SHAPES = [(1, 200, 4, 2, True, None), (1, 200, 4, 2, True, 37),
 @pytest.mark.parametrize("b,s,n_q,n_kv,causal,window", FLASH_SHAPES)
 def test_flash_kernels_match_plain_on_card(cuda_device, dtype, b, s, n_q,
                                            n_kv, causal, window):
-    gen = torch.Generator().manual_seed(s + n_q)
-    q, do = (torch.randn(b, s, n_q, 128, generator=gen).to(cuda_device,
-                                                            dtype)
-             for _ in range(2))
-    k, v = (torch.randn(b, s, n_kv, 128, generator=gen).to(cuda_device,
-                                                           dtype)
-            for _ in range(2))
+    q, k, v, do = _flash_inputs(cuda_device, dtype, b, s, n_q, n_kv)
     c, rtol = FLASH_TOL[dtype]
     kw = dict(causal=causal, window=window)
     o, lse = tflash.flash_block_fwd(q, k, v, **kw)
     wo, wlse = tflash.flash_fwd_plain(q, k, v, **kw)
-    torch.cuda.synchronize()
-    _flash_close(o, wo, c, rtol)
-    _flash_close(lse, wlse, 1e-5, 0.0)
     delta = tflash.flash_delta(wo, do)
     args = (q, k, v, do, wlse, delta)
+    mags = [None] * 3
+    if dtype == torch.bfloat16:
+        mags = tflash.flash_bf16_slack(*args, **kw)
+    torch.cuda.synchronize()
+    _flash_close(o, wo, c, rtol, mags[0])
+    _flash_close(lse, wlse, 1e-5, 0.0)
     _flash_close(tflash.flash_dq(*args, **kw),
                  tflash.flash_dq_plain(*args, **kw), c, rtol)
-    for got, want in zip(tflash.flash_dkv(*args, **kw),
-                         tflash.flash_dkv_plain(*args, **kw)):
-        _flash_close(got, want, c, rtol)
+    for got, want, mag in zip(tflash.flash_dkv(*args, **kw),
+                              tflash.flash_dkv_plain(*args, **kw),
+                              mags[1:]):
+        _flash_close(got, want, c, rtol, mag)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_bound_sees_a_dropped_diagonal_on_card(cuda_device):
+    """At a causal bf16 shape, a plain forward and a plain dK/dV that
+    leave out each query's own key exceed the bound the kernels meet."""
+    q, k, v, do = _flash_inputs(cuda_device, torch.bfloat16, 1, 1025, 8,
+                                2)
+    c, rtol = FLASH_TOL[torch.bfloat16]
+    wo, wlse = tflash.flash_fwd_plain(q, k, v)
+    args = (q, k, v, do, wlse, tflash.flash_delta(wo, do))
+    o_mag, dk_mag, dv_mag = tflash.flash_bf16_slack(*args)
+    wdk, wdv = tflash.flash_dkv_plain(*args)
+    with dropped_diagonal(tflash):
+        bad_o, _ = tflash.flash_fwd_plain(q, k, v)
+        bad_dk, bad_dv = tflash.flash_dkv_plain(*args)
+    assert flash_err_ratio(bad_o, wo, c, rtol, o_mag) > 1
+    assert flash_err_ratio(bad_dk, wdk, c, rtol, dk_mag) > 1
+    assert flash_err_ratio(bad_dv, wdv, c, rtol, dv_mag) > 1
 
 
 @pytest.mark.cuda

@@ -1,9 +1,16 @@
 """Input builders for the paged-attention tests: random pools, block
-tables and cursors in the serving engine's layout, from a numpy seed.
+tables and cursors in the serving engine's layout, from a numpy seed;
+and the flash kernels' error bound with its dropped-diagonal control.
 Shared by the CPU parity tests (against the JAX reference) and the card
 tests (the CUDA kernels against their plain versions)."""
 
+from unittest import mock
+
 import numpy as np
+import torch
+
+# a bf16 rounding of a term errs by at most 2**-8 of it
+BF16_ROUNDING = 2.0**-8
 
 
 def mk_decode(seed, b=3, n_q=8, n_kv=2, hd=32, bs=8, nb=6, num_blocks=32,
@@ -82,3 +89,27 @@ def mk_prefill(seed, b=3, s=5, n_q=8, n_kv=2, hd=32, bs=8, nb=6,
         for j in range(max(-(-int(starts[i] + s) // bs), 1)):
             table[i, j] = 1 if shared and j == 0 else free.pop()
     return q, kn, vn, kp, vp, table, starts, lens
+
+
+def flash_err_ratio(got, want, c, rtol, mag=None):
+    """max |got - want| / (c max|want| + rtol |want| + 2**-8 mag), <= 1
+    within the flash kernels' bound. `mag` (`flash_bf16_slack`) adds the
+    bf16 kernels' rounding of P, P^T and dS^T before their products."""
+    got, want = got.float(), want.float()
+    bound = c * want.abs().max() + rtol * want.abs()
+    if mag is not None:
+        bound = bound + BF16_ROUNDING * mag
+    return float(((got - want).abs() / bound).max())
+
+
+def dropped_diagonal(flash_module):
+    """A context in which the plain flash versions of `flash_module`
+    leave each query's own key out: a causal mask off by one, the fault
+    the bound has to see."""
+    mask = flash_module._mask
+
+    def off_by_one(s, causal, window, device):
+        eye = torch.eye(s, dtype=torch.bool, device=device)
+        return mask(s, causal, window, device) & ~eye
+
+    return mock.patch.object(flash_module, "_mask", off_by_one)

@@ -16,16 +16,18 @@ Phases, each fatal on failure (exit code 1, no result line):
              version and one library call
              (SDPA over the gathered K/V, a yardstick the port never
              calls) and computes the card's bound for the same work.
+             The paged decode kernel (split and combine launches, one
+             call) is timed at 64, 128 and 256 cells a split.
              The flash forward, dQ and dK/dV kernels at llama3-1b's
              training shape (b 2, s 2048, n_q 16, n_kv 8, hd 128, bf16
              and fp32): causal, window 700, non-causal and s 1000; the
-             bf16 forward and dK/dV (tensor cores, P, P^T and dS^T
-             rounded to bf16) within a bound that adds 2^-8 of each
-             product's absolute terms, which plain versions without
-             each query's own key must exceed; times at the causal bf16
-             shape against one SDPA call (forward; forward + backward
-             for the backward kernels) and the CUDA-core kernels'
-             recorded times, with ptxas registers and spills.
+             bf16 kernels (tensor cores, P, dS, P^T and dS^T rounded to
+             bf16) within a bound that adds 2^-8 of each product's
+             absolute terms, which plain versions without each query's
+             own key must exceed; times at the causal bf16 shape against
+             one SDPA call (forward; forward + backward for the backward
+             kernels) and the CUDA-core kernels' recorded times, with
+             ptxas registers and spills.
              The dense decode kernel at the one-shot path's shapes
              (llama3-8b: b 8, n_q 32, n_kv 8, max_len 1024, bf16): the
              window batch (one shared cursor, a left-pad run of another
@@ -119,11 +121,12 @@ TOL_TEXT = f"tol {KERNEL_ATOL} + 2^-7 |ref|"
 # terms, which max|ref| bounds (c = 1e-5 fp32, 1e-4 bf16); a bf16 result
 # is rounded once by both, so they may differ by one bf16 ulp of it
 # (rtol 2^-7); fp32 rtol 1e-4. lse is fp32 for both dtypes: 1e-5 max|ref|.
-# The bf16 forward and dK/dV kernels run on the tensor cores and round P,
-# P^T and dS^T to bf16 before their products: each rounded term errs by
-# at most 2^-8 of itself, so their bound adds 2^-8 times the sum of the
-# product's absolute terms (`flash_bf16_slack`). A plain forward and dK/dV
-# that leave out each query's own key must exceed it (the control).
+# The bf16 forward, dQ and dK/dV kernels run on the tensor cores and round
+# P, dS, P^T and dS^T to bf16 before their products: each rounded term
+# errs by at most 2^-8 of itself, so their bound adds 2^-8 times the sum
+# of the product's absolute terms (`flash_bf16_slack`). A plain forward,
+# dQ and dK/dV that leave out each query's own key must exceed it (the
+# control).
 FLASH_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-4, 2**-7)}
 BF16_ROUNDING = 2**-8
 # device ms of the first, CUDA-core flash kernels at the causal bf16
@@ -156,6 +159,7 @@ DENSE_BUCKET = 512                 # bucket_pow2 of the longest prompt
 DENSE_MAX_NEW = 32
 WINDOW_MS = 50.0
 GAMMA = 4
+DECODE_SPLITS = (64, 128, 256)     # paged decode cells a split, timed
 
 
 def fail(msg: str) -> None:
@@ -251,8 +255,10 @@ def _visible(qpos, mask_row):
 
 def check_decode(torch, dev):
     from kubeflow_tpu_torch.ops.cuda.paged_attention import (
+        SPLIT_CELLS,
         paged_decode_attention,
         paged_decode_attention_plain,
+        split_count,
     )
 
     kind = "decode"
@@ -292,8 +298,22 @@ def check_decode(torch, dev):
     mask = torch.ones(SLOTS, NB * BS, dtype=torch.bool, device=dev)
     mask[:, 5] = False
     posd = pos.to(dev)
-    ms, eager = _time_ms(torch, lambda i: paged_decode_attention(
-        q, kp[i % LAYERS], vp[i % LAYERS], table, posd, mask), 320)
+    split_ms = {}
+    for split in DECODE_SPLITS:
+        split_ms[split] = _time_ms(torch, lambda i: paged_decode_attention(
+            q, kp[i % LAYERS], vp[i % LAYERS], table, posd, mask,
+            split_cells=split), 320)
+        n_split = split_count(NB * BS, split)
+        busy = sum(-(-(int(p) + 1) // split) for p in pos)
+        log(f"  decode split of {split} cells: {n_split} splits a row, "
+            f"{busy * N_KV} of {n_split * SLOTS * N_KV} blocks see a cell; "
+            f"device {split_ms[split][0]:.4f} ms (eager call "
+            f"{split_ms[split][1]:.4f} ms)")
+    ms, eager = split_ms[SPLIT_CELLS]
+    for part in ("split", "combine"):
+        marker = f"paged_decode_{part}_kernelI13__nv_bfloat16"
+        log(f"  ptxas, bf16 paged decode {part} kernel: "
+            f"{_ptxas('paged_decode_attention', marker)}")
     plain_ms, plain_eager = _time_ms(
         torch, lambda i: paged_decode_attention_plain(
             q, kp[i % LAYERS], vp[i % LAYERS], table, posd, mask), 32)
@@ -630,7 +650,8 @@ def _dropped_diagonal(torch, fa):
 
 def _ptxas(name, marker):
     """Registers and spills of the kernel of library `name` whose
-    mangled name contains `marker`, from its fresh build's ptxas -v log."""
+    mangled name contains `marker` (the first such instantiation), from
+    its fresh build's ptxas -v log."""
     from kubeflow_tpu_torch.ops.cuda import _build
 
     lines = _build.ptxas_reports.get(name, "").splitlines()
@@ -686,21 +707,23 @@ def check_flash(torch, dev):
             dk, dv = fa.flash_dkv(*args, **kw)
             torch.cuda.synchronize()
             wdk, wdv = fa.flash_dkv_plain(*args, **kw)
-            # the tensor-core kernels' rounding of P, P^T and dS^T (bf16)
-            o_mag, dk_mag, dv_mag = (fa.flash_bf16_slack(*args, **kw)
-                                     if bf16 else (None,) * 3)
+            wdq = fa.flash_dq_plain(*args, **kw)
+            # the tensor-core kernels' rounding of P, dS, P^T and dS^T
+            o_mag, dq_mag, dk_mag, dv_mag = (
+                fa.flash_bf16_slack(*args, **kw) if bf16 else (None,) * 4)
             errs = {"fwd": [_flash_err(o, wo, c, rtol, o_mag),
                             _flash_err(lse, wlse, 1e-5, 0.0)],
-                    "dq": [_flash_err(dq, fa.flash_dq_plain(*args, **kw),
-                                      c, rtol)],
+                    "dq": [_flash_err(dq, wdq, c, rtol, dq_mag)],
                     "dkv": [_flash_err(dk, wdk, c, rtol, dk_mag),
                             _flash_err(dv, wdv, c, rtol, dv_mag)]}
             if bf16 and name == "causal":
                 with _dropped_diagonal(torch, fa):
                     bad_o, _ = fa.flash_fwd_plain(q, k, v, **kw)
+                    bad_dq = fa.flash_dq_plain(*args, **kw)
                     bad_dk, bad_dv = fa.flash_dkv_plain(*args, **kw)
                 controls = {
                     "fwd": [_flash_err(bad_o, wo, c, rtol, o_mag)[1]],
+                    "dq": [_flash_err(bad_dq, wdq, c, rtol, dq_mag)[1]],
                     "dkv": [_flash_err(bad_dk, wdk, c, rtol, dk_mag)[1],
                             _flash_err(bad_dv, wdv, c, rtol, dv_mag)[1]]}
                 log("  dropped-diagonal control (plain versions without "
@@ -710,11 +733,11 @@ def check_flash(torch, dev):
                 if min(min(r) for r in controls.values()) <= 1:
                     fail("the bf16 flash bound cannot see a dropped "
                          f"diagonal: {controls}")
-                del bad_o, bad_dk, bad_dv
+                del bad_o, bad_dq, bad_dk, bad_dv
             for kind, pairs in errs.items():
                 err = max(e for e, _ in pairs)
                 ratio = max(r for _, r in pairs)
-                slack = " + 2^-8 mag" if bf16 and kind != "dq" else ""
+                slack = " + 2^-8 mag" if bf16 else ""
                 log(f"  flash {kind} {name} {dtype}: max_abs_err "
                     f"{err:.3e}, err/tol max {ratio:.3f} (tol {c} max|ref| "
                     f"+ {rtol:.3g} |ref|{slack})")
@@ -723,7 +746,7 @@ def check_flash(torch, dev):
                 if bf16:
                     worst[kind] = max(worst[kind], err)
             del q, do, k, v, o, lse, wo, wlse, delta, args, dq, dk, dv
-            del o_mag, dk_mag, dv_mag
+            del wdq, wdk, wdv, o_mag, dq_mag, dk_mag, dv_mag
             torch.cuda.empty_cache()
 
     # timings: causal, bf16, the training shape
@@ -779,6 +802,7 @@ def check_flash(torch, dev):
             f"faster); {ms / lib:.2f}x SDPA's time; "
             f"{st['bound_ms'] / ms:.1%} of the bound")
     for kind, marker in (("fwd", "flash_fwd_tc_kernel"),
+                         ("dq", "flash_dq_tc_kernel"),
                          ("dkv", "flash_dkv_tc_kernel")):
         log(f"    ptxas, bf16 {kind} kernel: "
             f"{_ptxas(f'flash_attention_{kind}', marker)}")
@@ -1330,11 +1354,16 @@ async def serve_dense_and_check(torch):
     return counts
 
 
+# the port's own kernels, as the profiler names them
+PORT_KERNELS = ("paged_decode_", "prefill_attention_kernel", "scatter_kernel",
+                "flash_fwd_", "flash_dq_", "flash_dkv_", "decode_kernel")
+
+
 def _report_profile(prof, wall_s: float, top: int = 8) -> None:
-    """Device busy share and the kernels that take the device time. Only
-    device events count: a host op (aten::mm, an autograd node) may also
-    carry the device time of the kernels it launched, which would count
-    them twice."""
+    """Device busy share, the kernels that take the device time, and the
+    port's own kernels below those. Only device events count: a host op
+    (aten::mm, an autograd node) may also carry the device time of the
+    kernels it launched, which would count them twice."""
     from torch.autograd import DeviceType
 
     def dev_us(e):
@@ -1349,8 +1378,10 @@ def _report_profile(prof, wall_s: float, top: int = 8) -> None:
         return
     log(f"  profile (profiler on): wall {wall_s:.3f} s, device busy "
         f"{total_us / 1e6:.3f} s = {total_us / 1e6 / wall_s:.1%}")
-    for e in sorted(events, key=dev_us, reverse=True)[:top]:
-        log(f"    {dev_us(e) / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
+    ranked = sorted(events, key=dev_us, reverse=True)
+    for i, e in enumerate(ranked):
+        if i < top or any(k in e.key for k in PORT_KERNELS):
+            log(f"    {dev_us(e) / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
 
 
 def main() -> None:

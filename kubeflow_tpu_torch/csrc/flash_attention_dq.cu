@@ -8,33 +8,61 @@
 // dQ = dS K * scale, accumulated in fp32 and written once in the input
 // dtype.
 //
-// One CUDA block per (query head, batch row, 64-query tile), holding its
-// Q and dO tiles and their lse and delta; it walks the same key tiles as
-// the forward (causal and window skipping, masked tail) with K and V in
-// shared memory, and keeps the [64, hd] dQ accumulator in registers.
-//
 // Bound on this card at llama3-1b's training shape (b 2, s 2048, n_q 16,
 // n_kv 8, hd 128, bf16, causal): 51.6 GFLOP (QK, dO V^T and dS K over the
-// visible pairs) against 67.6 MB moved, so operations bound it: 52 us at
-// the bf16 tensor rate. The products run on the CUDA cores in fp32 here.
+// visible pairs) against 67.6 MB moved (20 us at 3.35 TB/s), so
+// operations bound it: 52 us at the bf16 tensor rate (989 TFLOP/s).
+//
+// Both kernels: one CUDA block per (query head, batch row, 64-query
+// tile), holding its Q and dO tiles and their lse and delta; it walks the
+// same key tiles as the forward (causal and window skipping, masked tail)
+// and keeps the [64, hd] dQ accumulator in registers. The heaviest query
+// tiles (the last, under causal masking) are launched first.
+//
+// bf16 (the training path), on the tensor cores: one warpgroup per block
+// (M = the block's 64 queries). Q and dO sit in shared memory as swizzled
+// bf16 tiles (flash_wgmma.cuh), loaded once; each thread keeps the lse and
+// delta of its two fragment rows in registers. K and V tiles stream
+// through a 2-stage cp.async ring, the next key tile's copy overlapping
+// this one's products. S = Q K^T and dP = dO V^T are 8 wgmma k-steps each
+// (m64n64k16, both operands K-major in shared memory), issued back to
+// back; P = exp2(S scale log2e - lse log2e) and dS = P (dP - delta) are
+// formed in the fp32 accumulator fragments (masked only on tiles that
+// meet the diagonal, the window's edge or the sequence's end), rounded to
+// bf16 in registers, and are the A operand of dQ += dS K (4 k-steps of
+// m64n128k16, K read MN-major from the tile S already used). No dS tile
+// goes through shared memory. Live accumulators: dQ 64, S 32, dP 32 fp32
+// registers a thread. 97 KB of shared memory a block, so two blocks share
+// an SM. dQ leaves through Q's tile in 16-byte stores. What held the
+// first kernel (below) back: all three products in fp32 on the CUDA cores
+// (67 TFLOP/s peak against 989), synchronous K/V loads, dS round-tripped
+// through shared memory with three barriers a key tile, and 150 KB of
+// fp32 tiles (one block an SM).
+//
+// fp32: that first kernel, kept for fp32 inputs (fp32 tiles in shared
+// memory, products on the CUDA cores; flash_tile.cuh).
 #include "flash_tile.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
 using namespace kft_flash;
+namespace wg = kft_wgmma;
+using bf16 = __nv_bfloat16;
+
+// -- fp32 -------------------------------------------------------------------
 
 constexpr size_t kSmemBytes =
     sizeof(float) * (4 * (size_t)kHdTileFloats + kPTileFloats);
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_dq_kernel(const T* __restrict__ q,      // [b, s, n_q, hd]
-                const T* __restrict__ k,      // [b, s, n_kv, hd]
-                const T* __restrict__ v,
-                const T* __restrict__ dout,   // [b, s, n_q, hd]
+flash_dq_kernel(const float* __restrict__ q,      // [b, s, n_q, hd]
+                const float* __restrict__ k,      // [b, s, n_kv, hd]
+                const float* __restrict__ v,
+                const float* __restrict__ dout,   // [b, s, n_q, hd]
                 const float* __restrict__ lse,    // [b, n_q, s]
                 const float* __restrict__ delta,  // [b, n_q, s]
-                T* __restrict__ dq,           // [b, s, n_q, hd]
+                float* __restrict__ dq,           // [b, s, n_q, hd]
                 int s, int n_q, int n_kv, int causal, int window,
                 float scale) {
   extern __shared__ __align__(16) float smem[];
@@ -99,30 +127,170 @@ flash_dq_kernel(const T* __restrict__ q,      // [b, s, n_q, hd]
   store_acc(dq + q_off, q_row, s - q0, ty, tx, acc, mul);
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* dout,
-           const void* lse, const void* delta, void* dq, int b, int s,
-           int n_q, int n_kv, int causal, int window, float scale,
-           cudaStream_t stream) {
-  // once per instantiation, so launches inside a CUDA-graph capture make
-  // no attribute calls
+// -- bf16: tensor cores -----------------------------------------------------
+
+constexpr int kStages = 2;  // K/V ring
+// Q, dO, then kStages x (K, V); 1 KB of slack for the 1024-byte alignment
+constexpr size_t kTcSmemBytes = 1024 + wg::kTileBytes * (2 + 2 * kStages);
+
+__global__ void __launch_bounds__(wg::kThreads, 2)
+flash_dq_tc_kernel(const bf16* __restrict__ q,       // [b, s, n_q, hd]
+                   const bf16* __restrict__ k,       // [b, s, n_kv, hd]
+                   const bf16* __restrict__ v,
+                   const bf16* __restrict__ dout,    // [b, s, n_q, hd]
+                   const float* __restrict__ lse,    // [b, n_q, s]
+                   const float* __restrict__ delta,  // [b, n_q, s]
+                   bf16* __restrict__ dq,            // [b, s, n_q, hd]
+                   int s, int n_q, int n_kv, int causal, int window,
+                   float scale) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const uint32_t qs = wg::align_1k(tc_smem);
+  const uint32_t dos = qs + wg::kTileBytes;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int nq = (s + kTile - 1) / kTile;
+  const int q0 = (nq - 1 - blockIdx.z) * kTile;  // heaviest tiles first
+  const int hk = h / (n_q / n_kv);
+  const size_t q_row = (size_t)n_q * kHD;
+  const size_t kv_row = (size_t)n_kv * kHD;
+  const size_t q_off = ((size_t)b * s + q0) * q_row + (size_t)h * kHD;
+  const size_t kv_head = (size_t)b * s * kv_row + (size_t)hk * kHD;
+  auto k_tile = [&](int st) { return qs + wg::kTileBytes * (2 + 2 * st); };
+  auto v_tile = [&](int st) { return k_tile(st) + wg::kTileBytes; };
+  auto load_kv = [&](int ki, int st) {
+    const int k0 = ki * kTile;
+    wg::load_tile_async(k_tile(st), k + kv_head + (size_t)k0 * kv_row,
+                        kv_row, s - k0);
+    wg::load_tile_async(v_tile(st), v + kv_head + (size_t)k0 * kv_row,
+                        kv_row, s - k0);
+  };
+  int lo, hi;
+  key_tiles(q0, nq, causal, window, &lo, &hi);
+  wg::load_tile_async(qs, q + q_off, q_row, s - q0);
+  wg::load_tile_async(dos, dout + q_off, q_row, s - q0);
+  load_kv(lo, 0);
+  wg::cp_async_commit();
+
+  // this thread's two fragment rows: row0 and row0 + 8
+  const int row0 = q0 + wg::frag_row(0);
+  const size_t stat = ((size_t)b * n_q + h) * s;
+  float lse2[2], dlt[2];  // lse in log2 units, delta
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + 8 * r;
+    lse2[r] = qp < s ? lse[stat + qp] * wg::kLog2e : 0.f;
+    dlt[r] = qp < s ? delta[stat + qp] : 0.f;
+  }
+  const float sl2 = scale * wg::kLog2e;  // logits in log2 units
+  float dq_acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dq_acc[i] = 0.f;
+  for (int ki = lo; ki <= hi; ++ki) {
+    const int st = (ki - lo) & 1;
+    if (ki < hi) load_kv(ki + 1, st ^ 1);
+    wg::cp_async_commit();
+    wg::cp_async_wait<1>();  // this tile (and Q, dO) landed
+    wg::fence_async_smem();
+    __syncthreads();
+
+    float sc[32], dp[32];
+    wg::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kHD / 16; ++kk)
+      wg::mma_ss_n64(sc, wg::desc_k(qs, kk), wg::desc_k(k_tile(st), kk),
+                     kk > 0);
+    wg::mma_commit();
+#pragma unroll
+    for (int kk = 0; kk < kHD / 16; ++kk)
+      wg::mma_ss_n64(dp, wg::desc_k(dos, kk), wg::desc_k(v_tile(st), kk),
+                     kk > 0);
+    wg::mma_commit();
+
+    // masking only where the tile meets the diagonal, the window's edge
+    // or the sequence's end
+    const int k0 = ki * kTile;
+    const bool edge =
+        q0 + kTile > s || k0 + kTile > s ||
+        (causal && (k0 + kTile - 1 > q0 ||
+                    (window > 0 && q0 + kTile - 1 - k0 >= window)));
+    wg::mma_wait<1>();  // S is done, dP may still run
+    wg::fence_regs(sc);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      float p = exp2f(sc[i] * sl2 - lse2[r]);
+      if (edge && !visible(row0 + 8 * r, k0 + wg::frag_col(i), s, causal,
+                           window))
+        p = 0.f;
+      sc[i] = p;  // P
+    }
+    wg::mma_wait<0>();
+    wg::fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      dp[i] = sc[i] * (dp[i] - dlt[(i >> 1) & 1]);  // dS
+    uint32_t dsa[16];
+    wg::to_a<4>(dp, dsa);  // bf16 A operand
+
+    wg::fence_regs(dsa);
+    wg::fence_regs(dq_acc);
+    wg::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      wg::mma_rs_n128(dq_acc, dsa + 4 * kk, wg::desc_mn(k_tile(st), kk));
+    wg::mma_commit();
+    wg::mma_wait<0>();
+    wg::fence_regs(dq_acc);
+    __syncthreads();  // stage st is consumed before the next refill
+  }
+
+  // Q was read for the last time above: its tile holds the output
+  wg::stage_acc(qs, dq_acc, scale, scale);
+  __syncthreads();
+  wg::store_tile(dq + q_off, q_row, s - q0, qs);
+}
+
+int launch_fp32(const void* q, const void* k, const void* v,
+                const void* dout, const void* lse, const void* delta,
+                void* dq, int b, int s, int n_q, int n_kv, int causal,
+                int window, float scale, cudaStream_t stream) {
+  // once per kernel, so launches inside a CUDA-graph capture make no
+  // attribute calls
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmemBytes);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(n_q, b, (s + kTile - 1) / kTile);
-  flash_dq_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+  flash_dq_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), s, n_q, n_kv, causal, window, scale);
+      static_cast<float*>(dq), s, n_q, n_kv, causal, window, scale);
+  return cudaGetLastError();
+}
+
+int launch_bf16(const void* q, const void* k, const void* v,
+                const void* dout, const void* lse, const void* delta,
+                void* dq, int b, int s, int n_q, int n_kv, int causal,
+                int window, float scale, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_dq_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kTcSmemBytes);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(n_q, b, (s + kTile - 1) / kTile);
+  flash_dq_tc_kernel<<<grid, wg::kThreads, kTcSmemBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), s, n_q, n_kv, causal, window, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. hd must be 128. window <= 0 means
-// none. Returns cudaGetLastError() after the launch.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores). hd must
+// be 128. window <= 0 means none. Returns cudaGetLastError() after the
+// launch.
 extern "C" int kft_flash_attention_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
@@ -132,10 +300,10 @@ extern "C" int kft_flash_attention_dq(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd != kHD || s < 1 || n_kv < 1 || n_q % n_kv) return cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch<float>(q, k, v, dout, lse, delta, dq, b, s, n_q, n_kv,
-                         causal, window, scale, st);
+    return launch_fp32(q, k, v, dout, lse, delta, dq, b, s, n_q, n_kv,
+                       causal, window, scale, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, b, s, n_q,
-                                 n_kv, causal, window, scale, st);
+    return launch_bf16(q, k, v, dout, lse, delta, dq, b, s, n_q, n_kv,
+                       causal, window, scale, st);
   return cudaErrorInvalidValue;
 }

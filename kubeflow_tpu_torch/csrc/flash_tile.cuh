@@ -1,7 +1,7 @@
 // Tile arithmetic shared by the flash-attention kernels: the layout,
 // masking and tile ranges of all of them, and the CUDA-core tiles of the
-// dQ kernel (flash_attention_dq.cu) and of the fp32 forward and dK/dV
-// kernels (the bf16 forward and dK/dV use flash_wgmma.cuh).
+// fp32 forward, dQ and dK/dV kernels (their bf16 versions use
+// flash_wgmma.cuh).
 //
 // Layout: q, o, dO are [b, s, n_q, hd] and k, v, dK, dV [b, s, n_kv, hd],
 // the model's own layout, so no transpose copy is made; a query head h
@@ -9,9 +9,9 @@
 // Row statistics (lse, delta) are [b, n_q, s] fp32.
 //
 // Design of the CUDA-core tiles, for Hopper (sm_90a), simple first:
-// - tiles of 64 query rows x 64 key rows, staged in shared memory as fp32
-//   (converted once on load); every product accumulates in fp32 on the
-//   CUDA cores. No tensor cores, no TMA, no pipelining;
+// - tiles of 64 query rows x 64 key rows, staged in shared memory as
+//   fp32; every product accumulates in fp32 on the CUDA cores. No tensor
+//   cores, no TMA, no pipelining;
 // - 256 threads as 16 x 16: thread (ty, tx) owns score rows ty + 16 i and
 //   score columns tx + 16 j (i, j < 4), and for a [64, hd] accumulator the
 //   rows ty + 16 i and head-dim columns tx*4 + {0..3}, 64 + tx*4 + {0..3};
@@ -27,7 +27,7 @@
 //   kernels (with -inf that row would give NaN).
 #pragma once
 
-#include "paged_attend.cuh"  // to_f / from_f / bf16 unpacking, kft_error_string
+#include "paged_attend.cuh"  // kNegInf, kft_error_string
 
 namespace kft_flash {
 
@@ -70,39 +70,20 @@ __device__ __forceinline__ void query_tiles(int k0, int nq, int causal,
   if (window > 0) *hi = min(nq - 1, (k0 + kTile - 1 + window - 1) / kTile);
 }
 
-__device__ __forceinline__ void store16(float* d, uint4 raw, float) {
-  *reinterpret_cast<float4*>(d) = make_float4(
-      __uint_as_float(raw.x), __uint_as_float(raw.y), __uint_as_float(raw.z),
-      __uint_as_float(raw.w));
-}
-__device__ __forceinline__ void store16(float* d, uint4 raw, __nv_bfloat16) {
-  const float2 a = kft::bf2_bits_to_f2(raw.x), b = kft::bf2_bits_to_f2(raw.y);
-  const float2 c = kft::bf2_bits_to_f2(raw.z), e = kft::bf2_bits_to_f2(raw.w);
-  *reinterpret_cast<float4*>(d) = make_float4(a.x, a.y, b.x, b.y);
-  *reinterpret_cast<float4*>(d + 4) = make_float4(c.x, c.y, e.x, e.y);
-}
-
 // Load 64 rows of one head into a padded fp32 tile. `src` points at the
 // tile's first row of that head; consecutive rows are `row_stride`
 // elements apart. Rows at or past `rows_valid` are zero.
-template <typename T>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst,
-                                          const T* __restrict__ src,
+                                          const float* __restrict__ src,
                                           size_t row_stride, int rows_valid) {
-  constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
-  constexpr int kPerRow = kHD / kVec;
+  constexpr int kPerRow = kHD / 4;  // 16-byte loads a row
   for (int i = threadIdx.x; i < kTile * kPerRow; i += kThreads) {
     const int r = i / kPerRow;
-    const int e = (i % kPerRow) * kVec;
-    float* d = dst + r * kStride + e;
-    if (r < rows_valid) {
-      store16(d, *reinterpret_cast<const uint4*>(src + r * row_stride + e),
-              T());
-    } else {
-#pragma unroll
-      for (int x = 0; x < kVec; x += 4)
-        *reinterpret_cast<float4*>(d + x) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
+    const int e = (i % kPerRow) * 4;
+    *reinterpret_cast<float4*>(dst + r * kStride + e) =
+        r < rows_valid
+            ? *reinterpret_cast<const float4*>(src + r * row_stride + e)
+            : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
@@ -193,8 +174,7 @@ __device__ __forceinline__ void store_scores(float* __restrict__ P, int ty,
 // Write a thread's [4][8] accumulator rows (times `mul`) to a [.., s,
 // heads, hd] tensor. `dst` points at the tile's first row of the head;
 // rows at or past `rows_valid` are not written.
-template <typename T>
-__device__ __forceinline__ void store_acc(T* __restrict__ dst,
+__device__ __forceinline__ void store_acc(float* __restrict__ dst,
                                           size_t row_stride, int rows_valid,
                                           int ty, int tx, const float acc[4][8],
                                           const float mul[4]) {
@@ -202,13 +182,12 @@ __device__ __forceinline__ void store_acc(T* __restrict__ dst,
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
     if (r >= rows_valid) continue;
-    T* row = dst + r * row_stride;
+    float* row = dst + r * row_stride;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      T* out = row + half * 64 + tx * 4;
+      float* out = row + half * 64 + tx * 4;
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        out[c] = kft::from_f<T>(acc[i][half * 4 + c] * mul[i]);
+      for (int c = 0; c < 4; ++c) out[c] = acc[i][half * 4 + c] * mul[i];
     }
   }
 }

@@ -1,8 +1,8 @@
 // Hopper tensor-core pieces of the bf16 flash-attention kernels
-// (flash_attention_fwd.cu, flash_attention_dkv.cu): the swizzled
-// shared-memory tile and its wgmma descriptors, the cp.async copy of a
-// tile, the SS and RS warpgroup MMAs with their fence / commit / wait,
-// the accumulator fragment map, and the fp32 -> bf16x2 packing of a
+// (flash_attention_fwd.cu, flash_attention_dq.cu, flash_attention_dkv.cu):
+// the swizzled shared-memory tile and its wgmma descriptors, the cp.async
+// copy of a tile, the SS and RS warpgroup MMAs with their fence / commit /
+// wait, the accumulator fragment map, and the fp32 -> bf16x2 packing of a
 // fragment into an A operand.
 //
 // A tile is 64 rows of one head ([64, 128] bf16, 16 KB) in the layout a
@@ -15,10 +15,10 @@
 // - a K-major operand (rows are M or N, head dim is K: Q and K in
 //   S = Q K^T): k-step kk (16 head-dim columns) starts in panel kk / 4,
 //   32 bytes further per kk % 4; 8-row groups lie 1024 bytes apart (SBO);
-// - an MN-major operand (rows are K, head dim is N: V in O += P V, dO
-//   and Q in dV += P^T dO and dK += dS^T Q): k-step kk (16 rows) starts
-//   2048 bytes further; 8-row groups lie 1024 bytes apart (SBO) and the
-//   two 64-column panels 8192 bytes apart (LBO).
+// - an MN-major operand (rows are K, head dim is N: V in O += P V, K in
+//   dQ += dS K, dO and Q in dV += P^T dO and dK += dS^T Q): k-step kk (16
+//   rows) starts 2048 bytes further; 8-row groups lie 1024 bytes apart
+//   (SBO) and the two 64-column panels 8192 bytes apart (LBO).
 //
 // All of it runs in one warpgroup (128 threads, warps 4i .. 4i + 3).
 #pragma once

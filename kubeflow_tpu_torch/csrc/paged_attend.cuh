@@ -22,8 +22,12 @@
 //   padded by 16 bytes so the 16-byte reads of 8 neighbouring lanes hit
 //   all 32 banks once. Softmax update: one warp per row. P.V: one thread
 //   per (row, pair of hd elements), looping over the chunk's cells.
-//   No tensor cores (mma/wgmma) and no split of the cell range across
-//   blocks yet: that is later work.
+//   No tensor cores (mma/wgmma);
+// - a caller may give `attend` an explicit cell range: the paged decode
+//   kernel splits each row's cells across blocks that way (flash-
+//   decoding) and merges their partial (m, l, acc) in a second pass; the
+//   dense decode and prefill kernels walk the whole live range in one
+//   block (the default range).
 //
 // Masked cells hold -inf in the score tile, so exp() gives exactly 0 and
 // a chunk with no visible cell leaves m unchanged. This is the same
@@ -34,6 +38,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -197,17 +202,21 @@ __device__ __forceinline__ void load_chunk(
 }
 
 // Rows' q (fp32, in sm.q) and positions (sm.qpos) must be in place and
-// synchronised before the call. On return sm.acc / sm.l hold the
-// unnormalised output and the softmax denominators.
+// synchronised before the call. On return sm.acc / sm.m / sm.l hold the
+// unnormalised output, the row maxima and the softmax denominators.
 //   addr:     where each cell of the sequence lives (PagedAddr/DenseAddr)
 //   mask_row: the sequence's per-cell validity [width] (nullptr = all valid)
 //   width:    cells the sequence can hold (nb * bs, or max_len)
 //   q_min/q_max: the smallest / largest query position among the rows
-template <typename T, int HD, typename Addr>
+//   cell_lo/cell_hi: with kRange, only cells [cell_lo, cell_hi) are
+//             visited (cell_lo a multiple of the chunk); without, the
+//             whole live range
+template <typename T, int HD, typename Addr, bool kRange = false>
 __device__ void attend(Smem<T, HD>& sm, int R, const T* __restrict__ k,
                        const T* __restrict__ v, const Addr& addr,
                        const unsigned char* __restrict__ mask_row, int width,
-                       int window, float scale, int q_min, int q_max) {
+                       int window, float scale, int q_min, int q_max,
+                       int cell_lo = 0, int cell_hi = INT_MAX) {
   using G = Tile<T, HD>;
   constexpr int kChunk = G::kChunk;
   const int tid = threadIdx.x;
@@ -218,9 +227,16 @@ __device__ void attend(Smem<T, HD>& sm, int R, const T* __restrict__ k,
     sm.m[r] = kNegInf;
     sm.l[r] = 0.f;
   }
-  const int hi_cell = min(q_max, width - 1);
+  int hi_cell = min(q_max, width - 1);
   int lo_cell = window > 0 ? max(q_min - window + 1, 0) : 0;
   lo_cell = lo_cell / kChunk * kChunk;
+  if (kRange) {
+    hi_cell = min(hi_cell, cell_hi - 1);
+    lo_cell = max(lo_cell, cell_lo);
+    // opaque to the optimizer: nvcc's front end otherwise spends minutes
+    // on the nested min / max of the loop bounds below
+    asm volatile("" : "+r"(lo_cell), "+r"(hi_cell));
+  }
   if (lo_cell <= hi_cell)
     load_chunk(sm, 0, k, v, addr, lo_cell, min(kChunk, hi_cell - lo_cell + 1));
   __syncthreads();  // m/l visible to every thread even if nothing loads

@@ -131,23 +131,26 @@ def flash_dkv_plain(q, k, v, do, lse, delta, *, causal=True, window=None):
 
 
 def flash_bf16_slack(q, k, v, do, lse, delta, *, causal=True, window=None):
-    """-> (o_mag [b, s, n_q, hd], dk_mag, dv_mag [b, s, n_kv, hd]) fp32:
-    P |V|, scale |dS|^T |Q| and P^T |dO|, group-summed like dK and dV.
+    """-> (o_mag, dq_mag [b, s, n_q, hd], dk_mag, dv_mag [b, s, n_kv,
+    hd]) fp32: P |V|, scale |dS| |K|, scale |dS|^T |Q| and P^T |dO|, the
+    last two group-summed like dK and dV.
 
-    The bf16 kernels round P (forward), and P^T and dS^T (dK/dV), to
-    bf16 before their products; each rounded term errs by at most 2**-8
-    of itself, so a kernel differs from the fp32 plain version by at
-    most 2**-8 times these sums of absolute terms. For the card's checks
-    and the tests; no kernel path calls it."""
+    The bf16 kernels round P (forward), dS (dQ), and P^T and dS^T
+    (dK/dV) to bf16 before their products; each rounded term errs by at
+    most 2**-8 of itself, so a kernel differs from the fp32 plain
+    version by at most 2**-8 times these sums of absolute terms. For the
+    card's checks and the tests; no kernel path calls it."""
     b, s, n_q, hd = q.shape
     n_kv = k.shape[2]
     p, ds = _p_and_ds(q, k, v, do, lse, delta, causal, window)
     o = torch.einsum("bngst,btnh->bsngh", p, v.float().abs())
+    dq = torch.einsum("bngst,btnh->bsngh", ds.abs(),
+                      k.float().abs()) * hd**-0.5
     qg = q.float().abs().reshape(b, s, n_kv, n_q // n_kv, hd)
     dog = do.float().abs().reshape(b, s, n_kv, n_q // n_kv, hd)
     dk = torch.einsum("bngst,bsngh->btnh", ds.abs(), qg) * hd**-0.5
     dv = torch.einsum("bngst,bsngh->btnh", p, dog)
-    return o.reshape(b, s, n_q, hd), dk, dv
+    return (o.reshape(b, s, n_q, hd), dq.reshape(b, s, n_q, hd), dk, dv)
 
 
 def flash_delta(o, do):

@@ -3,12 +3,15 @@ PyTorch version.
 
 Replaces the Pallas TPU kernel
 `kubeflow_tpu/ops/pallas/paged_attention.py::paged_decode_attention`.
-The kernel (csrc/paged_decode_attention.cu) is one CUDA block per
-(kv head, row), looping over the row's live cells only; the source
-note there gives its bound (device-memory bytes) and what its design
-does about it. The plain version gathers the row's full window through
-its table and attends it (ops/attention.py) — what the CPU tests run
-and what the card compares the kernel with.
+The kernel (csrc/paged_decode_attention.cu) splits each row's cells
+across CUDA blocks of `split_cells` cells, one per (kv head, row,
+split), each looping over its share of the row's live cells only, and
+merges their partial softmax sums in a second launch; the source note
+there gives its bound (device-memory bytes) and what its design does
+about it. One wrapper call is one count in `launches`, though it makes
+the two launches. The plain version gathers the row's full window
+through its table and attends it (ops/attention.py) — what the CPU
+tests run and what the card compares the kernel with.
 """
 
 from __future__ import annotations
@@ -19,16 +22,25 @@ import torch
 
 from kubeflow_tpu_torch.ops.cuda import _build
 
-# Launches of the CUDA kernel (never of the plain version).
+# Calls that launched the CUDA kernel (split and combine count as one;
+# never the plain version).
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (128,)  # llama3-1b; others come with a model that needs them
 MAX_GROUP = 16
-# q, k_pool, v_pool, table, pos, mask, out; b, nb, bs, n_kv, group, hd,
-# window; scale; dtype; stream
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+CHUNK = 64          # the kernel's cells per step (bf16; 32 in fp32)
+SPLIT_CELLS = 128   # cells per block of the split launch
+# q, k_pool, v_pool, table, pos, mask, out, scratch; b, nb, bs, n_kv,
+# group, hd, window; scale; split_cells, dtype; stream
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+
+def split_count(width: int, split_cells: int = SPLIT_CELLS) -> int:
+    """Blocks the kernel gives each (kv head, row): from the shapes
+    alone, so the launch reads no cursor on the host."""
+    return -(-width // split_cells)
 
 
 def paged_decode_attention_plain(q, k_pool, v_pool, block_table,
@@ -77,17 +89,22 @@ def _check(q, k_pool, v_pool, block_table, q_positions, kv_mask, window):
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_table, q_positions,
-                           kv_mask=None, *, window=None) -> torch.Tensor:
+                           kv_mask=None, *, window=None,
+                           split_cells=SPLIT_CELLS) -> torch.Tensor:
     """One query token per row against its paged cells.
 
     q [b, 1, n_q, hd]; pools [num_blocks, bs, n_kv, hd]; block_table
     [b, blocks_per_slot] int32; q_positions [b] int32 (each row's
-    cursor); kv_mask [b, blocks_per_slot * bs] bool or None. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises."""
+    cursor); kv_mask [b, blocks_per_slot * bs] bool or None;
+    split_cells: cells per block of the kernel's split launch, a
+    multiple of 64 (the plain version has no split). A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel or raises."""
     global launches
-    b, n_q, hd, bs, n_kv, _ = _check(q, k_pool, v_pool, block_table,
-                                     q_positions, kv_mask, window)
+    b, n_q, hd, bs, n_kv, width = _check(q, k_pool, v_pool, block_table,
+                                         q_positions, kv_mask, window)
+    if split_cells < CHUNK or split_cells % CHUNK:
+        raise ValueError(f"split_cells must be a positive multiple of "
+                         f"{CHUNK}, got {split_cells}")
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_pool, v_pool, block_table, q_positions, kv_mask,
@@ -116,14 +133,18 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, q_positions,
                 "kernel inputs must be contiguous tensors on one CUDA "
                 "device")
     out = torch.empty_like(q)
+    # each split's partial accumulator [hd] and its (m, l), fp32
+    scratch = torch.empty(
+        b * n_q * split_count(width, split_cells) * (hd + 2),
+        dtype=torch.float32, device=q.device)
     lib = _build.load("paged_decode_attention", _ARGTYPES)
     err = lib.kft_paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_table.data_ptr(), q_positions.data_ptr(),
         kv_mask.data_ptr() if kv_mask is not None else None,
-        out.data_ptr(), b, block_table.shape[1], bs, n_kv, group, hd,
-        window or 0, hd**-0.5, _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), scratch.data_ptr(), b, block_table.shape[1], bs,
+        n_kv, group, hd, window or 0, hd**-0.5, split_cells,
+        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "paged_decode_attention")
     launches += 1
     return out

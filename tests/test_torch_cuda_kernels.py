@@ -21,11 +21,18 @@ plain version's err by a small multiple of fp32 epsilon times the size
 of the terms, which max|ref| bounds (c = 1e-5 fp32, 1e-4 bf16); bf16
 results are rounded once by both, so they may differ by one bf16 ulp
 (rtol 2**-7); fp32 rtol 1e-4. lse is fp32 in both cases: 1e-5 * max.
-The bf16 forward and dK/dV kernels run on the tensor cores and round P,
-P^T and dS^T to bf16 before their products; each rounded term errs by
-at most 2**-8 of itself, so their bf16 bound adds 2**-8 * mag, the sum
-of the product's absolute terms (`flash_bf16_slack`). A plain version
-that leaves each query's own key out must exceed that bound.
+The bf16 forward, dQ and dK/dV kernels run on the tensor cores and
+round P, dS, P^T and dS^T to bf16 before their products; each rounded
+term errs by at most 2**-8 of itself, so their bf16 bound adds 2**-8 *
+mag, the sum of the product's absolute terms (`flash_bf16_slack`). A
+plain version that leaves each query's own key out must exceed that
+bound.
+
+The paged decode kernel splits each row's cells across blocks of
+`split_cells` cells and merges them in a second launch; its edge cases
+(a cursor on the table's last cell, a cursor inside the first split,
+a window that empties the leading splits, a kv_mask that blanks a whole
+split, several pool blocks per split) hold the same tolerance.
 """
 
 import numpy as np
@@ -86,6 +93,39 @@ def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, tol,
                                         window=window)
     got = paged_decode_attention(q, kp, vp, table, pos, mask,
                                  window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=tol[0],
+                               rtol=tol[1])
+
+
+# name: (bs, nb, cursors, window, masked cell range); width 320 = 2.5
+# splits of 128 cells, 5 of 64
+SPLIT_CASES = {
+    "cursor_on_last_cell": (64, 5, [319, 100, 0], None, None),
+    "cursor_in_first_split": (64, 5, [5, 63, 127], None, None),
+    "window_empties_leading_splits": (64, 5, [300, 319, 200], 13, None),
+    "mask_blanks_a_split": (64, 5, [300, 200, 319], None, (128, 256)),
+    "bs8_splits_span_blocks": (8, 40, [319, 130, 64], None, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("split_cells", [64, 128])
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_decode_kernel_split_edges_on_card(cuda_device, dtype, tol,
+                                           split_cells, case):
+    bs, nb, pos, window, blank = SPLIT_CASES[case]
+    q, kp, vp, table, pos, mask = (_t(a).to(cuda_device) for a in mk_decode(
+        9, b=3, n_q=16, n_kv=8, hd=128, bs=bs, nb=nb, num_blocks=3 * nb + 2,
+        pos=pos))
+    q, kp, vp = (a.to(dtype) for a in (q, kp, vp))
+    if blank is not None:
+        mask[:, blank[0]:blank[1]] = False
+    want = paged_decode_attention_plain(q, kp, vp, table, pos, mask,
+                                        window=window)
+    got = paged_decode_attention(q, kp, vp, table, pos, mask, window=window,
+                                 split_cells=split_cells)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=tol[0],
                                rtol=tol[1])
@@ -201,35 +241,38 @@ def test_flash_kernels_match_plain_on_card(cuda_device, dtype, b, s, n_q,
     wo, wlse = tflash.flash_fwd_plain(q, k, v, **kw)
     delta = tflash.flash_delta(wo, do)
     args = (q, k, v, do, wlse, delta)
-    mags = [None] * 3
+    mags = [None] * 4
     if dtype == torch.bfloat16:
         mags = tflash.flash_bf16_slack(*args, **kw)
     torch.cuda.synchronize()
     _flash_close(o, wo, c, rtol, mags[0])
     _flash_close(lse, wlse, 1e-5, 0.0)
     _flash_close(tflash.flash_dq(*args, **kw),
-                 tflash.flash_dq_plain(*args, **kw), c, rtol)
+                 tflash.flash_dq_plain(*args, **kw), c, rtol, mags[1])
     for got, want, mag in zip(tflash.flash_dkv(*args, **kw),
                               tflash.flash_dkv_plain(*args, **kw),
-                              mags[1:]):
+                              mags[2:]):
         _flash_close(got, want, c, rtol, mag)
 
 
 @pytest.mark.cuda
 def test_flash_bf16_bound_sees_a_dropped_diagonal_on_card(cuda_device):
-    """At a causal bf16 shape, a plain forward and a plain dK/dV that
-    leave out each query's own key exceed the bound the kernels meet."""
+    """At a causal bf16 shape, a plain forward, dQ and dK/dV that leave
+    out each query's own key exceed the bound the kernels meet."""
     q, k, v, do = _flash_inputs(cuda_device, torch.bfloat16, 1, 1025, 8,
                                 2)
     c, rtol = FLASH_TOL[torch.bfloat16]
     wo, wlse = tflash.flash_fwd_plain(q, k, v)
     args = (q, k, v, do, wlse, tflash.flash_delta(wo, do))
-    o_mag, dk_mag, dv_mag = tflash.flash_bf16_slack(*args)
+    o_mag, dq_mag, dk_mag, dv_mag = tflash.flash_bf16_slack(*args)
+    wdq = tflash.flash_dq_plain(*args)
     wdk, wdv = tflash.flash_dkv_plain(*args)
     with dropped_diagonal(tflash):
         bad_o, _ = tflash.flash_fwd_plain(q, k, v)
+        bad_dq = tflash.flash_dq_plain(*args)
         bad_dk, bad_dv = tflash.flash_dkv_plain(*args)
     assert flash_err_ratio(bad_o, wo, c, rtol, o_mag) > 1
+    assert flash_err_ratio(bad_dq, wdq, c, rtol, dq_mag) > 1
     assert flash_err_ratio(bad_dk, wdk, c, rtol, dk_mag) > 1
     assert flash_err_ratio(bad_dv, wdv, c, rtol, dv_mag) > 1
 

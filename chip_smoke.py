@@ -17,7 +17,10 @@ Phases, each fatal on failure (exit code 1, no result line):
              (SDPA over the gathered K/V, a yardstick the port never
              calls) and computes the card's bound for the same work.
              The paged decode kernel (split and combine launches, one
-             call) is timed at 64, 128 and 256 cells a split.
+             call) is timed at 64, 128 and 256 cells a split. The bf16
+             prefill kernel (tensor cores, P rounded to bf16) is held
+             to the flash kernels' bf16 bound with mag = |P| |V|, which
+             a plain version without each query's own cell must exceed.
              The flash forward, dQ and dK/dV kernels at llama3-1b's
              training shape (b 2, s 2048, n_q 16, n_kv 8, hd 128, bf16
              and fp32): causal, window 700, non-causal and s 1000; the
@@ -25,16 +28,19 @@ Phases, each fatal on failure (exit code 1, no result line):
              bf16) within a bound that adds 2^-8 of each product's
              absolute terms, which plain versions without each query's
              own key must exceed; times at the causal bf16 shape against
-             one SDPA call (forward; forward + backward for the backward
-             kernels) and the CUDA-core kernels' recorded times, with
+             one SDPA call captured in a CUDA graph (forward; forward +
+             backward for the backward kernels; the eager times logged
+             beside) and the CUDA-core kernels' recorded times, with
              ptxas registers and spills.
              The dense decode kernel at the one-shot path's shapes
              (llama3-8b: b 8, n_q 32, n_kv 8, max_len 1024, bf16): the
              window batch (one shared cursor, a left-pad run of another
              length per row), ragged cursors 0/255/256/1023, window 256,
              the draft's batch 1 (llama3-1b heads, cursor 300) and the
-             window batch in fp32; times at the window batch and at
-             batch 1 against SDPA over each row's cells up to its cursor.
+             window batch in fp32, each at 64- and 128-cell splits;
+             times at the window batch and at batch 1 at both splits
+             (and how many splits the pad skip drops) against SDPA over
+             each row's cells up to its cursor.
 3. serve   — boots the port's HTTP server in-process (the CLI's
              `--model llama3-1b --random --seed 0 --continuous
              --prefill-chunk-tokens 64`), POSTs 4 `:generate` requests
@@ -108,13 +114,16 @@ NUM_BLOCKS = 1 + SLOTS * NB        # trash + every slot at max_len
 LAYERS = 16
 HBM_BYTES_S = 3.35e12              # H100 SXM device memory rate
 BF16_FLOPS_S = 989e12              # H100 SXM dense bf16 tensor rate
-# Kernel vs plain version, bf16: both accumulate in fp32 and round the
-# result once, so they differ by at most one bf16 ulp of it (<= 2**-7 of
-# its value); the absolute floor covers fp32 summation order near 0. A
-# cell dropped or added on a 1000-cell row (an error of ~|v|/1000, up to
-# ~3e-3) exceeds it.
+# Decode kernels vs plain versions, bf16: both accumulate in fp32 and
+# round the result once, so they differ by at most one bf16 ulp of it
+# (<= 2**-7 of its value); the absolute floor covers fp32 summation
+# order near 0. A cell dropped or added on a 1000-cell row (an error of
+# ~|v|/1000, up to ~3e-3) exceeds it. The bf16 prefill kernel rounds P
+# to bf16 on the tensor cores: it holds the flash kernels' bf16 bound
+# below, with mag = |P| |V| (`prefill_bf16_slack`).
 KERNEL_ATOL, KERNEL_RTOL = 1e-4, 2**-7
 TOL_TEXT = f"tol {KERNEL_ATOL} + 2^-7 |ref|"
+BF16_TOL_TEXT = "tol 1e-4 max|ref| + 2^-7 |ref| + 2^-8 mag"
 # Flash kernels vs plain versions: |err| <= c * max|ref| + rtol * |ref|.
 # Both accumulate in fp32; sums over up to 2 s terms taken in another
 # order differ by a small multiple of fp32 epsilon times the size of the
@@ -160,6 +169,7 @@ DENSE_MAX_NEW = 32
 WINDOW_MS = 50.0
 GAMMA = 4
 DECODE_SPLITS = (64, 128, 256)     # paged decode cells a split, timed
+DENSE_SPLITS = (64, 128)           # dense decode cells a split, timed
 
 
 def fail(msg: str) -> None:
@@ -311,7 +321,7 @@ def check_decode(torch, dev):
             f"{split_ms[split][1]:.4f} ms)")
     ms, eager = split_ms[SPLIT_CELLS]
     for part in ("split", "combine"):
-        marker = f"paged_decode_{part}_kernelI13__nv_bfloat16"
+        marker = f"decode_{part}_kernelI13__nv_bfloat16"
         log(f"  ptxas, bf16 paged decode {part} kernel: "
             f"{_ptxas('paged_decode_attention', marker)}")
     plain_ms, plain_eager = _time_ms(
@@ -354,14 +364,30 @@ def _dense_need(pos, mask, window, n_q, n_kv):
     return bytes_moved, vis * n_q * HD * 4
 
 
+def _pad_splits(pos, mask, split):
+    """-> (splits of the rows' live ranges, splits the kv_mask hides
+    entirely) for one dense decode call without a window: the blocks
+    that find work, and those the pad-split skip sends home."""
+    live = blank = 0
+    for r, p in enumerate(pos.tolist()):
+        for z in range(-(-(p + 1) // split)):
+            live += 1
+            blank += not bool(mask[r, z * split:min((z + 1) * split, p + 1)]
+                              .any())
+    return live, blank
+
+
 def check_dense_decode(torch, dev):
     """The dense decode kernel against its plain version at the one-shot
-    path's shapes (llama3-8b, b 8, max_len 1024, bf16), then timings at
-    the window batch's shape and at the speculative draft's batch 1."""
+    path's shapes (llama3-8b, b 8, max_len 1024, bf16) at 64- and
+    128-cell splits, then timings at the window batch's shape and at the
+    speculative draft's batch 1."""
     from kubeflow_tpu_torch.ops.cuda.decode_attention import (
+        SPLIT_CELLS,
         decode_attention,
         decode_attention_plain,
     )
+    from kubeflow_tpu_torch.ops.cuda.paged_attention import split_count
 
     gen = torch.Generator().manual_seed(5)
     dgen = torch.Generator(device=dev).manual_seed(5)
@@ -396,26 +422,43 @@ def check_dense_decode(torch, dev):
                 .to(dev, dtype) for _ in range(2))
         args = (q, k, v, pos.to(dev), mask.to(dev))
         want = decode_attention_plain(*args, window=window)
-        got = decode_attention(*args, window=window)
-        torch.cuda.synchronize()
-        err, ratio = _err(got, want)
-        log(f"  dense decode {name}: max_abs_err {err:.3e}, err/tol max "
-            f"{ratio:.3f} ({TOL_TEXT})")
-        if not torch.isfinite(got).all() or ratio > 1:
-            fail(f"decode_attention {name}: err {err} over {TOL_TEXT}")
-        if dtype == dt:
-            worst = max(worst, err)
+        for split in DENSE_SPLITS:
+            got = decode_attention(*args, window=window, split_cells=split)
+            torch.cuda.synchronize()
+            err, ratio = _err(got, want)
+            log(f"  dense decode {name}, {split}-cell splits: max_abs_err "
+                f"{err:.3e}, err/tol max {ratio:.3f} ({TOL_TEXT})")
+            if not torch.isfinite(got).all() or ratio > 1:
+                fail(f"decode_attention {name} ({split}-cell splits): err "
+                     f"{err} over {TOL_TEXT}")
+            if dtype == dt:
+                worst = max(worst, err)
+    for part in ("split", "combine"):
+        for label, ty in (("bf16", "I13__nv_bfloat16"), ("fp32", "IfLi128E")):
+            log(f"  ptxas, {label} dense decode {part} kernel: "
+                f"{_ptxas('decode_attention', f'decode_{part}_kernel{ty}')}")
 
     def timed(kind, rows, n_q, layers, pos, mask):
-        """Kernel, plain and SDPA times, cycling `layers` layers' caches
-        as a decode step does (working set > L2)."""
+        """Kernel (at each split), plain and SDPA times, cycling `layers`
+        layers' caches as a decode step does (working set > L2)."""
         q = torch.randn(rows, 1, n_q, HD, generator=gen).to(dev, dt)
         shape = (layers, rows, MAX_LEN, N_KV, HD)
         kc, vc = (torch.randn(shape, generator=dgen, device=dev, dtype=dt)
                   for _ in range(2))
         posd, maskd = pos.to(dev), mask.to(dev)
-        ms = _time_ms(torch, lambda i: decode_attention(
-            q, kc[i % layers], vc[i % layers], posd, maskd), 10 * layers)
+        split_ms = {}
+        for split in DENSE_SPLITS:
+            split_ms[split] = _time_ms(torch, lambda i: decode_attention(
+                q, kc[i % layers], vc[i % layers], posd, maskd,
+                split_cells=split), 10 * layers)
+            live, blank = _pad_splits(pos, mask, split)
+            log(f"  {kind}, {split}-cell splits: device "
+                f"{split_ms[split][0]:.4f} ms (eager call "
+                f"{split_ms[split][1]:.4f} ms); of "
+                f"{split_count(MAX_LEN, split) * rows * N_KV} split blocks "
+                f"{live * N_KV} meet the live range and the pad skip "
+                f"sends {blank * N_KV} of those home")
+        ms = split_ms[SPLIT_CELLS]
         plain = _time_ms(torch, lambda i: decode_attention_plain(
             q, kc[i % layers], vc[i % layers], posd, maskd), layers)
         # library yardstick: SDPA over each row's cells up to its cursor
@@ -433,12 +476,10 @@ def check_dense_decode(torch, dev):
         moved, flops = _dense_need(pos, mask, None, n_q, N_KV)
         del kc, vc
         torch.cuda.empty_cache()
-        stats = _summary(kind, worst, ms, plain, library_ms, moved, flops)
-        # what the kernel streams: K/V of every cell of each row's live
-        # range, pad cells included (it masks them after the load)
-        live = int((pos + 1).sum()) * N_KV * HD * 2 * 2
-        log(f"    live-range K/V {live} B: {live / ms[0] / 1e6:.1f} GB/s at "
-            f"the kernel's time")
+        stats = _summary(f"{kind} ({SPLIT_CELLS}-cell splits, the default)",
+                         worst, ms, plain, library_ms, moved, flops)
+        log(f"    {stats['bound_ms'] / ms[0]:.1%} of the bound, "
+            f"{ms[0] / library_ms:.2f}x SDPA's time")
         return stats
 
     timed("dense decode, batch 1 (the speculative draft's step: llama3-1b, "
@@ -508,14 +549,35 @@ def _time_prefill(torch, kind, worst, calls, kp, vp, n):
                     sum(b for b, _ in need) / k, sum(f for _, f in need) / k)
 
 
+def _prefill_dropped_diagonal():
+    """The plain paged attention with each query's own cell left out
+    (query positions one lower, a window one shorter): a causal mask off
+    by one, the control the bf16 prefill bound must see."""
+    from unittest import mock
+
+    from kubeflow_tpu_torch.ops import attention
+
+    attend = attention._torch_attention
+
+    def off_by_one(q, k, v, q_positions, kv_positions, *, causal, kv_mask,
+                   window):
+        return attend(q, k, v, q_positions - 1, kv_positions, causal=causal,
+                      kv_mask=kv_mask,
+                      window=None if window is None else window - 1)
+
+    return mock.patch.object(attention, "_torch_attention", off_by_one)
+
+
 def check_prefill(torch, dev):
     from kubeflow_tpu_torch.ops.cuda.prefill_append import (
         paged_prefill_append,
         paged_prefill_append_plain,
+        prefill_bf16_slack,
     )
 
     gen = torch.Generator().manual_seed(2)
     dt = torch.bfloat16
+    c_tol, rtol = FLASH_TOL["bfloat16"]
     shape = (LAYERS, NUM_BLOCKS, BS, N_KV, HD)
     kp = torch.randn(shape, generator=gen).to(dev, dt)
     vp = torch.randn(shape, generator=gen).to(dev, dt)
@@ -527,11 +589,18 @@ def check_prefill(torch, dev):
     def compare(calls, window=None):
         """Run the calls in order on the plain version and on the kernel,
         each on its own copy of layer 0's pools; -> (max abs error over
-        valid tokens, max err/tol, pools equal outside block 0)."""
+        valid tokens, max err / bf16 bound, the same for the dropped-
+        diagonal control, pools equal outside block 0)."""
         want = [kp[0].clone(), vp[0].clone()]
         got = [kp[0].clone(), vp[0].clone()]
-        err = ratio = 0.0
+        seen = {"got": [], "want": [], "bad": [], "mag": []}
         for c in calls:
+            valid = [slice(0, n) for n in c[5].tolist()]
+            mag = prefill_bf16_slack(*c[:3], *want, *c[3:], window=window)
+            with _prefill_dropped_diagonal():
+                bad, _, _ = paged_prefill_append_plain(
+                    *c[:3], want[0].clone(), want[1].clone(), *c[3:],
+                    window=window)
             wo, *want = paged_prefill_append_plain(
                 *c[:3], *want, *c[3:], window=window)
             go, *got = paged_prefill_append(
@@ -539,12 +608,15 @@ def check_prefill(torch, dev):
             torch.cuda.synchronize()
             if not torch.isfinite(go).all():
                 fail("paged_prefill_append: non-finite output")
-            lens = c[5].tolist()
-            e, r = _err(torch.cat([go[i, :n] for i, n in enumerate(lens)]),
-                        torch.cat([wo[i, :n] for i, n in enumerate(lens)]))
-            err, ratio = max(err, e), max(ratio, r)
+            for key, x in (("got", go), ("want", wo), ("bad", bad),
+                           ("mag", mag)):
+                seen[key] += [x[i, t] for i, t in enumerate(valid)]
+        got_v, want_v, bad_v, mag_v = (torch.cat(seen[k]) for k in
+                                       ("got", "want", "bad", "mag"))
+        err, ratio = _flash_err(got_v, want_v, c_tol, rtol, mag_v)
+        control = _flash_err(bad_v, want_v, c_tol, rtol, mag_v)[1]
         equal = all(torch.equal(g[1:], w[1:]) for g, w in zip(got, want))
-        return err, ratio, equal
+        return err, ratio, control, equal
 
     # batches of 4 rows: ragged q_lens including 0
     rows = 4
@@ -587,14 +659,22 @@ def check_prefill(torch, dev):
     results["path_slices"] = (None, compare(slices))
 
     worst = 0.0
-    for name, (_, (err, ratio, equal)) in results.items():
+    for name, (_, (err, ratio, control, equal)) in results.items():
         log(f"  prefill {name}: max_abs_err {err:.3e}, err/tol max "
-            f"{ratio:.3f} ({TOL_TEXT}), pools equal outside block 0: "
-            f"{equal}")
+            f"{ratio:.3f} ({BF16_TOL_TEXT}); dropped-diagonal control "
+            f"err/tol {control:.1f}; pools equal outside block 0: {equal}")
         if ratio > 1 or not equal:
             fail(f"paged_prefill_append {name}: err {err}, pools equal "
                  f"{equal}")
+        if control <= 1:
+            fail(f"the bf16 prefill bound cannot see a dropped diagonal "
+                 f"({name}: {control})")
         worst = max(worst, err)
+    for part, marker in (("tensor-core attention",
+                          "prefill_attention_tc_kernel"),
+                         ("scatter", "scatter_kernelI13__nv_bfloat16")):
+        log(f"  ptxas, bf16 prefill {part} kernel: "
+            f"{_ptxas('paged_prefill_append', marker)}")
 
     _time_prefill(torch, "prefill, 4-row batch (ragged_lens)", worst,
                   [results["ragged_lens"][0]], kp, vp, 160)
@@ -668,8 +748,8 @@ def _ptxas(name, marker):
 
 def _time_events(torch, fn, n):
     """Device ms per eager call (CUDA events around n calls after two
-    warm-up calls): for the library's autograd backward, which is not
-    captured in a graph."""
+    warm-up calls): the library's eager times, logged beside its
+    graph-replayed ones."""
     fn()
     fn()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -775,21 +855,28 @@ def check_flash(torch, dev):
     kt, vt = (x.repeat_interleave(group, dim=2).transpose(1, 2).detach()
               .requires_grad_(True) for x in (k, v))
     dot = do.transpose(1, 2)
-    with torch.no_grad():
-        lib_fwd = _time_events(torch, lambda: sdpa(qt, kt, vt,
-                                                   is_causal=True), 20)
+
+    def fwd():
+        with torch.no_grad():
+            return sdpa(qt, kt, vt, is_causal=True)
 
     def fwd_bwd():
-        torch.autograd.grad(sdpa(qt, kt, vt, is_causal=True),
-                            (qt, kt, vt), dot)
+        return torch.autograd.grad(sdpa(qt, kt, vt, is_causal=True),
+                                   (qt, kt, vt), dot)
 
-    lib_fb = _time_events(torch, fwd_bwd, 20)
+    # the yardstick: SDPA captured in a CUDA graph and replayed, as the
+    # kernels are; the eager times (which follow the host) beside it
+    lib_fwd = _time_ms(torch, lambda i: fwd(), 20)[0]
+    lib_fb = _time_ms(torch, lambda i: fwd_bwd(), 20)[0]
+    eager_fwd = _time_events(torch, fwd, 20)
+    eager_fb = _time_events(torch, fwd_bwd, 20)
     out = sdpa(qt, kt, vt, is_causal=True)
-    lib_bwd = _time_events(torch, lambda: torch.autograd.grad(
+    eager_bwd = _time_events(torch, lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True), 20)
-    log(f"  SDPA (K/V repeated over the group): forward {lib_fwd:.4f} ms, "
-        f"forward + backward {lib_fb:.4f} ms, backward alone "
-        f"{lib_bwd:.4f} ms")
+    log(f"  SDPA (K/V repeated over the group), graph-replayed: forward "
+        f"{lib_fwd:.4f} ms, forward + backward {lib_fb:.4f} ms; eager: "
+        f"forward {eager_fwd:.4f} ms, forward + backward {eager_fb:.4f} "
+        f"ms, backward alone {eager_bwd:.4f} ms")
     stats = {}
     for kind, lib in (("fwd", lib_fwd), ("dq", lib_fb), ("dkv", lib_fb)):
         moved, flops = _flash_need(kind, FLASH_B, s, True, None)
@@ -1355,8 +1442,9 @@ async def serve_dense_and_check(torch):
 
 
 # the port's own kernels, as the profiler names them
-PORT_KERNELS = ("paged_decode_", "prefill_attention_kernel", "scatter_kernel",
-                "flash_fwd_", "flash_dq_", "flash_dkv_", "decode_kernel")
+PORT_KERNELS = ("decode_split_kernel", "decode_combine_kernel",
+                "prefill_attention_", "scatter_kernel", "flash_fwd_",
+                "flash_dq_", "flash_dkv_")
 
 
 def _report_profile(prof, wall_s: float, top: int = 8) -> None:

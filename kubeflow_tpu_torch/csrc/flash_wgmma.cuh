@@ -1,9 +1,11 @@
 // Hopper tensor-core pieces of the bf16 flash-attention kernels
-// (flash_attention_fwd.cu, flash_attention_dq.cu, flash_attention_dkv.cu):
+// (flash_attention_fwd.cu, flash_attention_dq.cu, flash_attention_dkv.cu)
+// and of the bf16 paged prefill-append kernel (paged_prefill_append.cu):
 // the swizzled shared-memory tile and its wgmma descriptors, the cp.async
-// copy of a tile, the SS and RS warpgroup MMAs with their fence / commit /
-// wait, the accumulator fragment map, and the fp32 -> bf16x2 packing of a
-// fragment into an A operand.
+// copy of a tile (rows a stride apart, or each row where a functor says),
+// the SS and RS warpgroup MMAs with their fence / commit / wait, the
+// accumulator fragment map, and the fp32 -> bf16x2 packing of a fragment
+// into an A operand.
 //
 // A tile is 64 rows of one head ([64, 128] bf16, 16 KB) in the layout a
 // wgmma descriptor reads with 128-byte swizzling: two 8 KB panels, panel
@@ -77,21 +79,33 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Start copying 64 rows of one head into the tile at `dst`: `src` points
-// at the first row, rows lie `row_stride` elements apart, rows at or past
-// `rows_valid` (>= 1) are zero-filled. Eight 16-byte copies a thread;
-// the 16 lanes of a row read its 256 contiguous bytes.
-__device__ __forceinline__ void load_tile_async(
-    uint32_t dst, const __nv_bfloat16* __restrict__ src, size_t row_stride,
-    int rows_valid) {
+// Start copying 64 rows of one head into the tile at `dst`, row r from
+// `row_src(r)` (256 contiguous bytes; called only for r < rows_valid);
+// rows at or past `rows_valid` (>= 1) are zero-filled. Eight 16-byte
+// copies a thread; the 16 lanes of a row read its 256 contiguous bytes.
+// For rows that lie no fixed stride apart: a paged K/V chunk, whose cells
+// are found through a block table, or a tile of (token, group member)
+// query rows.
+template <typename RowSrc>
+__device__ __forceinline__ void load_rows_async(uint32_t dst,
+                                                const RowSrc& row_src,
+                                                int rows_valid) {
   const int tid = threadIdx.x % kThreads;
 #pragma unroll
   for (int j = 0; j < kRows * 16 / kThreads; ++j) {
     const int i = tid + j * kThreads, r = i >> 4, c = i & 15;
     const bool ok = r < rows_valid;
-    cp_async16(dst + chunk_offset(r, c),
-               src + (size_t)(ok ? r : 0) * row_stride + c * 8, ok ? 16 : 0);
+    const __nv_bfloat16* src = row_src(ok ? r : 0);
+    cp_async16(dst + chunk_offset(r, c), src + c * 8, ok ? 16 : 0);
   }
+}
+
+// The same for rows `row_stride` elements apart from `src`.
+__device__ __forceinline__ void load_tile_async(
+    uint32_t dst, const __nv_bfloat16* __restrict__ src, size_t row_stride,
+    int rows_valid) {
+  load_rows_async(
+      dst, [&](int r) { return src + (size_t)r * row_stride; }, rows_valid);
 }
 
 // Start copying fp32 row statistic r (< 64) from `src` to `dst` + 4 r;
@@ -262,11 +276,11 @@ __device__ __forceinline__ void stage_acc(uint32_t dst, const float (&d)[64],
   }
 }
 
-// Copy the tile at `src` to 64 rows of one head (`row_stride` elements
-// apart), rows below `rows_valid` only, in 16-byte stores.
-__device__ __forceinline__ void store_tile(__nv_bfloat16* __restrict__ dst,
-                                           size_t row_stride, int rows_valid,
-                                           uint32_t src) {
+// Copy the tile at `src` to 64 rows of one head, row r to `row_dst(r)`,
+// rows below `rows_valid` only, in 16-byte stores.
+template <typename RowDst>
+__device__ __forceinline__ void store_rows(const RowDst& row_dst,
+                                           int rows_valid, uint32_t src) {
   const int tid = threadIdx.x % kThreads;
 #pragma unroll
   for (int j = 0; j < kRows * 16 / kThreads; ++j) {
@@ -277,8 +291,16 @@ __device__ __forceinline__ void store_tile(__nv_bfloat16* __restrict__ dst,
                  : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
                  : "r"(src + chunk_offset(r, c))
                  : "memory");
-    *reinterpret_cast<uint4*>(dst + (size_t)r * row_stride + c * 8) = v;
+    *reinterpret_cast<uint4*>(row_dst(r) + c * 8) = v;
   }
+}
+
+// The same for rows `row_stride` elements apart from `dst`.
+__device__ __forceinline__ void store_tile(__nv_bfloat16* __restrict__ dst,
+                                           size_t row_stride, int rows_valid,
+                                           uint32_t src) {
+  store_rows([&](int r) { return dst + (size_t)r * row_stride; }, rows_valid,
+             src);
 }
 
 }  // namespace kft_wgmma

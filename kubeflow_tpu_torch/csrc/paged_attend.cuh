@@ -1,5 +1,5 @@
-// Block-level attention shared by the paged decode, paged prefill-append
-// and dense decode kernels: R query rows (one KV head's GQA group, or a
+// Block-level attention shared by the paged decode, dense decode and
+// fp32 paged prefill-append kernels: R query rows (one KV head's GQA group, or a
 // tile of several tokens x the group) attend one sequence's cells, with
 // an fp32 online softmax. How a cell's K/V row is found is a template
 // argument: through the sequence's block table (`PagedAddr`) or at its
@@ -23,11 +23,11 @@
 //   all 32 banks once. Softmax update: one warp per row. P.V: one thread
 //   per (row, pair of hd elements), looping over the chunk's cells.
 //   No tensor cores (mma/wgmma);
-// - a caller may give `attend` an explicit cell range: the paged decode
-//   kernel splits each row's cells across blocks that way (flash-
-//   decoding) and merges their partial (m, l, acc) in a second pass; the
-//   dense decode and prefill kernels walk the whole live range in one
-//   block (the default range).
+// - a caller may give `attend` an explicit cell range: the paged and
+//   dense decode kernels split each row's cells across blocks that way
+//   (flash-decoding, decode_split.cuh) and merge their partial (m, l,
+//   acc) in a second pass; the fp32 prefill kernel walks the whole live
+//   range in one block (the default range).
 //
 // Masked cells hold -inf in the score tile, so exp() gives exactly 0 and
 // a chunk with no visible cell leaves m unchanged. This is the same

@@ -6,9 +6,13 @@ Replaces the Pallas TPU kernel
 query token per row against that row's cells of a dense KV cache
 `[b, max_len, n_kv, hd]`, causal by cell index against the row's
 cursor, with per-cell validity (left-pad holes) and an optional sliding
-window. The kernel (csrc/decode_attention.cu) is one CUDA block per
-(kv head, row) looping over the row's live cells only; the source note
-there gives its bound (device-memory bytes) and design. The plain
+window. The kernel (csrc/decode_attention.cu) shares the paged decode
+kernel's split-KV launches (csrc/decode_split.cuh): one CUDA block per
+(kv head, row, split of `split_cells` cells), each looping over its
+share of the row's live cells, skipping a split the kv_mask hides
+entirely (left-pad), then a combine launch; the source note there gives
+its bound (device-memory bytes) and design. One wrapper call is one
+count in `launches`, though it makes the two launches. The plain
 version is the reference oracle's `_torch_attention` over
 `kv_positions = arange(max_len)` (ops/attention.py) — what the CPU
 tests run and what the card compares the kernel with.
@@ -24,16 +28,24 @@ from kubeflow_tpu_torch.ops.cuda import _build
 from kubeflow_tpu_torch.ops.cuda.paged_attention import (
     _DTYPES,
     _HEAD_DIMS,
+    CHUNK,
     MAX_GROUP,
+    split_count,
 )
 
-# Launches of the CUDA kernel (never of the plain version).
+# Calls that launched the CUDA kernel (split and combine count as one;
+# never the plain version).
 launches = 0
 
-# q, k, v, pos, mask, out; b, max_len, n_kv, group, hd, window; scale;
-# dtype; stream
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+# q, k, v, pos, mask, out, scratch; b, max_len, n_kv, group, hd, window;
+# scale; split_cells, dtype; stream
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+# Cells per block of the split launch. 64 was faster than 128 on an
+# H100 at both one-shot shapes (the window batch, whose left-pad runs it
+# skips at a finer grain, and the draft's batch 1, whose grid it widens);
+# see PERF.md.
+SPLIT_CELLS = 64
 
 
 def decode_attention_plain(q, k, v, q_positions, kv_mask=None, *,
@@ -78,16 +90,20 @@ def _check(q, k, v, q_positions, kv_mask, window):
 
 
 def decode_attention(q, k, v, q_positions, kv_mask=None, *,
-                     window=None) -> torch.Tensor:
+                     window=None, split_cells=SPLIT_CELLS) -> torch.Tensor:
     """One query token per row against its dense cache prefix.
 
     q [b, 1, n_q, hd]; k, v [b, max_len, n_kv, hd]; q_positions [b]
-    int32 (each row's cursor); kv_mask [b, max_len] bool or None. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel or
-    raises."""
+    int32 (each row's cursor); kv_mask [b, max_len] bool or None;
+    split_cells: cells per block of the kernel's split launch, a
+    multiple of 64 (the plain version has no split). A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel or raises."""
     global launches
     b, n_q, hd, max_len, n_kv = _check(q, k, v, q_positions, kv_mask,
                                        window)
+    if split_cells < CHUNK or split_cells % CHUNK:
+        raise ValueError(f"split_cells must be a positive multiple of "
+                         f"{CHUNK}, got {split_cells}")
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, q_positions, kv_mask,
                                       window=window)
@@ -119,12 +135,16 @@ def decode_attention(q, k, v, q_positions, kv_mask=None, *,
             raise ValueError("q, k and v must be 16-byte aligned "
                              "(the kernel copies 16-byte vectors)")
     out = torch.empty_like(q)
+    # each split's partial accumulator [hd] and its (m, l), fp32
+    scratch = torch.empty(
+        b * n_q * split_count(max_len, split_cells) * (hd + 2),
+        dtype=torch.float32, device=q.device)
     lib = _build.load("decode_attention", _ARGTYPES)
     err = lib.kft_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
         kv_mask.data_ptr() if kv_mask is not None else None,
-        out.data_ptr(), b, max_len, n_kv, group, hd, window or 0,
-        hd**-0.5, _DTYPES[q.dtype],
+        out.data_ptr(), scratch.data_ptr(), b, max_len, n_kv, group, hd,
+        window or 0, hd**-0.5, split_cells, _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "decode_attention")
     launches += 1

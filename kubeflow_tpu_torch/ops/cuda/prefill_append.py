@@ -6,8 +6,13 @@ Replaces the Pallas TPU kernel
 The kernel (csrc/paged_prefill_append.cu) is two launches on one
 stream: a scatter of the valid new K/V cells into the pool, then a
 paged causal attention with one CUDA block per (query tile, kv head,
-row); the source note there gives its bound and design. The plain
-version is the reference's scatter-then-gather (ops/attention.py).
+row). bf16 runs the attention on the tensor cores (64-row tiles of
+(token, group member) queries, P rounded to bf16 before P V), so it is
+held to the flash kernels' bf16 bound, whose 2**-8 * mag term
+(`prefill_bf16_slack`) covers that rounding; fp32 runs on the CUDA
+cores. The source note there gives the bound on this card and the
+design. The plain version is the reference's scatter-then-gather
+(ops/attention.py).
 
 Pools are updated IN PLACE on both paths. The plain version routes
 padding tokens (t >= q_lens) to trash block 0, as the reference does;
@@ -46,6 +51,24 @@ def paged_prefill_append_plain(q, k_new, v_new, k_pool, v_pool,
                                    block_table, q_start, q_lens,
                                    kv_mask=kv_mask, window=window,
                                    impl="torch")
+
+
+def prefill_bf16_slack(q, k_new, v_new, k_pool, v_pool, block_table,
+                       q_start, q_lens, kv_mask=None, *, window=None):
+    """-> fp32 [b, s, n_q, hd]: P |V|, the sum of the absolute terms of
+    the product O = P V, from the plain version on fp32 copies (the
+    pools passed in are left as they are).
+
+    The bf16 kernel rounds P to bf16 before P V; each rounded term errs
+    by at most 2**-8 of itself, so the kernel differs from the plain
+    version by at most 2**-8 times this sum beyond the rounding of the
+    result. For the card's checks and the tests; no kernel path calls
+    it."""
+    out, _, _ = paged_prefill_append_plain(
+        q.float(), k_new.float(), v_new.float().abs(),
+        k_pool.to(torch.float32, copy=True), v_pool.float().abs(),
+        block_table, q_start, q_lens, kv_mask, window=window)
+    return out
 
 
 def paged_prefill_append(q, k_new, v_new, k_pool, v_pool, block_table,
@@ -119,6 +142,11 @@ def paged_prefill_append(q, k_new, v_new, k_pool, v_pool, block_table,
             raise ValueError(
                 "kernel inputs must be contiguous tensors on one CUDA "
                 "device")
+    for t in (q, k_new, v_new, k_pool, v_pool):
+        if t.data_ptr() % 16:
+            raise ValueError("q, k_new, v_new and the pools must be "
+                             "16-byte aligned (the kernel copies 16-byte "
+                             "vectors)")
     out = torch.empty_like(q)
     lib = _build.load("paged_prefill_append", _ARGTYPES)
     err = lib.kft_paged_prefill_append(

@@ -7,13 +7,17 @@ card machine runs it with
 
 (--noconftest: tests/conftest.py configures JAX for the CPU tests).
 
-Tolerance (paged and dense decode, prefill): fp32 atol = rtol = 1e-5
-(online softmax vs single-pass softmax); bf16 atol 1e-4 + rtol 2**-7: the kernel and the plain version
-both accumulate in fp32 and round the result once, so they differ by at
-most one bf16 ulp of it (<= 2**-7 of its value), and the absolute floor
-covers fp32 summation order near zero. Pools are copied, not computed:
-exact, block 0 excluded (the plain version routes padding tokens there,
-the kernel writes nothing).
+Tolerance (paged and dense decode, fp32 prefill): fp32 atol = rtol =
+1e-5 (online softmax vs single-pass softmax); bf16 atol 1e-4 + rtol
+2**-7: the kernel and the plain version both accumulate in fp32 and
+round the result once, so they differ by at most one bf16 ulp of it
+(<= 2**-7 of its value), and the absolute floor covers fp32 summation
+order near zero. The bf16 prefill kernel runs on the tensor cores and
+rounds P to bf16 before P V, so it holds the flash kernels' bf16 bound
+below, with mag = |P| |V| (`prefill_bf16_slack`); a plain version that
+leaves each query's own cell out must exceed it. Pools are copied, not
+computed: exact, block 0 excluded (the plain version routes padding
+tokens there, the kernel writes nothing).
 
 Flash kernels (forward o and lse, dQ, dK/dV) hold |err| <= c * max|ref|
 + rtol * |ref|: sums over up to 2 * s terms in another order than the
@@ -28,11 +32,13 @@ mag, the sum of the product's absolute terms (`flash_bf16_slack`). A
 plain version that leaves each query's own key out must exceed that
 bound.
 
-The paged decode kernel splits each row's cells across blocks of
-`split_cells` cells and merges them in a second launch; its edge cases
-(a cursor on the table's last cell, a cursor inside the first split,
-a window that empties the leading splits, a kv_mask that blanks a whole
-split, several pool blocks per split) hold the same tolerance.
+The paged and dense decode kernels split each row's cells across
+blocks of `split_cells` cells (a block whose cells the kv_mask hides
+entirely reads no K/V) and merge them in a second launch; their edge
+cases (a cursor on the last cell, a cursor inside the first split, a
+window that empties the leading splits, a kv_mask that blanks a whole
+split, a left-pad run over the leading splits, several pool blocks per
+split) hold the same tolerance.
 """
 
 import numpy as np
@@ -46,6 +52,7 @@ from kubeflow_tpu_torch.ops.cuda.paged_attention import (
 from kubeflow_tpu_torch.ops.cuda.prefill_append import (
     paged_prefill_append,
     paged_prefill_append_plain,
+    prefill_bf16_slack,
 )
 from kubeflow_tpu_torch.ops import attention as tattn
 from kubeflow_tpu_torch.ops.cuda import flash_attention as tflash
@@ -59,6 +66,7 @@ from torch_cases import (
     mk_decode,
     mk_dense,
     mk_prefill,
+    prefill_dropped_diagonal,
 )
 
 
@@ -106,6 +114,8 @@ SPLIT_CASES = {
     "window_empties_leading_splits": (64, 5, [300, 319, 200], 13, None),
     "mask_blanks_a_split": (64, 5, [300, 200, 319], None, (128, 256)),
     "bs8_splits_span_blocks": (8, 40, [319, 130, 64], None, None),
+    "left_pad_blanks_leading_splits": (64, 5, [319, 300, 200], None,
+                                       (0, 150)),
 }
 
 
@@ -131,6 +141,18 @@ def test_decode_kernel_split_edges_on_card(cuda_device, dtype, tol,
                                rtol=tol[1])
 
 
+def _prefill_close(got, want, lens, dtype, tol, mag):
+    """Valid tokens only: fp32 within atol/rtol; bf16 (tensor cores, P
+    rounded to bf16) within the flash kernels' bf16 bound with mag."""
+    got, want = (torch.cat([x[i, :n] for i, n in enumerate(lens.tolist())])
+                 for x in (got, want))
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=tol[0], rtol=tol[1])
+    else:
+        mag = torch.cat([mag[i, :n] for i, n in enumerate(lens.tolist())])
+        _flash_close(got, want, *FLASH_TOL[torch.bfloat16], mag)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("geom", GEOMETRY)
@@ -142,17 +164,85 @@ def test_prefill_kernel_matches_plain_on_card(cuda_device, dtype, tol,
             4, b=4, s=6, n_q=16, n_kv=8, hd=128, lens=[6, 3, 1, 0],
             **geom))
     q, kn, vn, kp, vp = (a.to(dtype) for a in (q, kn, vn, kp, vp))
+    mag = prefill_bf16_slack(q, kn, vn, kp, vp, table, starts, lens,
+                             window=window)
     wo, wk, wv = paged_prefill_append_plain(
         q, kn, vn, kp.clone(), vp.clone(), table, starts, lens,
         window=window)
     go, gk, gv = paged_prefill_append(q, kn, vn, kp.clone(), vp.clone(),
                                       table, starts, lens, window=window)
     torch.cuda.synchronize()
-    for i, n in enumerate(lens.tolist()):
-        torch.testing.assert_close(go[i, :n].float(), wo[i, :n].float(),
-                                   atol=tol[0], rtol=tol[1])
+    _prefill_close(go, wo, lens, dtype, tol, mag)
     torch.testing.assert_close(gk[1:], wk[1:], atol=0, rtol=0)
     torch.testing.assert_close(gv[1:], wv[1:], atol=0, rtol=0)
+
+
+# (s, n_q, n_kv, bs, nb, starts, lens, window, hole): the serving path's
+# slice (s 64, llama3-1b's group 2: two 64-row tiles per kv head) at a
+# 300-token prompt's cursors, a group of 4 (llama3-8b), 16-cell blocks
+# under 64-cell chunks, a window, a kv_mask hole, ragged lens with 0
+PREFILL_TC_CASES = [
+    (64, 16, 8, 64, 8, [0, 64, 256], [64, 64, 44], None, False),
+    (64, 32, 8, 64, 8, [128, 300, 0], [64, 20, 0], None, True),
+    (40, 16, 8, 16, 24, [0, 70, 150], [40, 25, 33], 37, False),
+    (64, 16, 8, 16, 32, [200, 7, 400], [64, 64, 50], None, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("s,n_q,n_kv,bs,nb,starts,lens,window,hole",
+                         PREFILL_TC_CASES)
+def test_prefill_tiles_match_plain_on_card(cuda_device, dtype, tol, s, n_q,
+                                           n_kv, bs, nb, starts, lens,
+                                           window, hole):
+    q, kn, vn, kp, vp, table, starts, lens = (
+        _t(a).to(cuda_device) for a in mk_prefill(
+            8, b=3, s=s, n_q=n_q, n_kv=n_kv, hd=128, bs=bs, nb=nb,
+            num_blocks=3 * nb + 2, starts=starts, lens=lens))
+    q, kn, vn, kp, vp = (a.to(dtype) for a in (q, kn, vn, kp, vp))
+    mask = None
+    if hole:
+        mask = torch.ones(3, nb * bs, dtype=torch.bool, device=cuda_device)
+        mask[starts > 5, 5] = False
+    mag = prefill_bf16_slack(q, kn, vn, kp, vp, table, starts, lens, mask,
+                             window=window)
+    wo, wk, wv = paged_prefill_append_plain(
+        q, kn, vn, kp.clone(), vp.clone(), table, starts, lens, mask,
+        window=window)
+    go, gk, gv = paged_prefill_append(q, kn, vn, kp.clone(), vp.clone(),
+                                      table, starts, lens, mask,
+                                      window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(go.float()).all()
+    _prefill_close(go, wo, lens, dtype, tol, mag)
+    torch.testing.assert_close(gk[1:], wk[1:], atol=0, rtol=0)
+    torch.testing.assert_close(gv[1:], wv[1:], atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_prefill_bf16_bound_sees_a_dropped_diagonal_on_card(cuda_device):
+    """At the serving path's bf16 slice shape, a plain prefill that
+    leaves out each query's own cell exceeds the bound the kernel
+    meets."""
+    q, kn, vn, kp, vp, table, starts, lens = (
+        _t(a).to(cuda_device) for a in mk_prefill(
+            9, b=1, s=64, n_q=16, n_kv=8, hd=128, bs=64, nb=8,
+            num_blocks=12, starts=[256], lens=[44]))
+    q, kn, vn, kp, vp = (a.to(torch.bfloat16) for a in (q, kn, vn, kp, vp))
+    mag = prefill_bf16_slack(q, kn, vn, kp, vp, table, starts, lens)
+    wo, _, _ = paged_prefill_append_plain(q, kn, vn, kp.clone(), vp.clone(),
+                                          table, starts, lens)
+    go, _, _ = paged_prefill_append(q, kn, vn, kp.clone(), vp.clone(), table,
+                                    starts, lens)
+    with prefill_dropped_diagonal(tattn):
+        bad, _, _ = paged_prefill_append_plain(
+            q, kn, vn, kp.clone(), vp.clone(), table, starts, lens)
+    torch.cuda.synchronize()
+    c, rtol = FLASH_TOL[torch.bfloat16]
+    n = int(lens[0])
+    assert flash_err_ratio(go[0, :n], wo[0, :n], c, rtol, mag[0, :n]) <= 1
+    assert flash_err_ratio(bad[0, :n], wo[0, :n], c, rtol, mag[0, :n]) > 1
 
 
 # (b, max_len, n_q, n_kv, cursors, holes, window): llama3-8b's group 4
@@ -185,6 +275,41 @@ def test_dense_decode_kernel_matches_plain_on_card(cuda_device, dtype, tol,
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), want.float(), atol=tol[0],
                                    rtol=tol[1])
+
+
+# name: (max_len, cursors, window, masked cell ranges by row): 3 splits
+# of 128 cells, 6 of 64; the window batch's left-pad runs below a shared
+# cursor (pad-only splits), a cursor on the last cell and in the first
+# split, a window that empties the leading splits, a kv_mask that blanks
+# a whole split below the cursor
+DENSE_SPLIT_CASES = {
+    "window_batch_left_pad": (384, [271] * 4,
+                              None, {0: (0, 239), 1: (0, 156), 2: (0, 56)}),
+    "cursor_on_last_cell": (384, [383, 100, 0], None, {}),
+    "cursor_in_first_split": (384, [5, 63, 127], None, {}),
+    "window_empties_leading_splits": (384, [300, 383, 200], 13, {}),
+    "mask_blanks_a_split": (384, [300, 200, 383], None,
+                            {r: (128, 256) for r in range(3)}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("split_cells", [64, 128])
+@pytest.mark.parametrize("case", list(DENSE_SPLIT_CASES))
+def test_dense_decode_split_edges_on_card(cuda_device, dtype, tol,
+                                          split_cells, case):
+    max_len, pos, window, holes = DENSE_SPLIT_CASES[case]
+    q, k, v, pos, mask = (_t(a).to(cuda_device) for a in mk_dense(
+        10, b=len(pos), max_len=max_len, n_q=32, n_kv=8, hd=128, pos=pos,
+        holes=holes))
+    q, k, v = (a.to(dtype) for a in (q, k, v))
+    want = decode_attention_plain(q, k, v, pos, mask, window=window)
+    got = decode_attention(q, k, v, pos, mask, window=window,
+                           split_cells=split_cells)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=tol[0],
+                               rtol=tol[1])
 
 
 @pytest.mark.cuda

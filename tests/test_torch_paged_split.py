@@ -6,14 +6,18 @@ row) `split_count(width, split_cells)` blocks. Block z attends only the
 cells of [z split_cells, (z + 1) split_cells) that the row's live range
 [window lo, cursor] holds, and writes its partial row max m, softmax
 denominator l and unnormalised accumulator; an empty block writes
-l = 0. A second launch merges the splits by their m (a split with
-l == 0 weighs 0) and writes 0 for a row that sees no cell, as the
-Pallas kernel does. `emulate_split` repeats that partition and merge on
-the same numpy inputs, over block tables with several blocks per split
-and one block per split, at the split's edges: a cursor on the table's
-last cell and inside the first split, a window that empties the leading
-splits, a kv_mask that blanks a whole split below the cursor, and a row
-that sees no cell.
+l = 0, and so does a block whose share the kv_mask hides entirely (the
+pad-split skip, csrc/decode_split.cuh). A second launch merges the
+splits by their m (a split with l == 0 weighs 0) and writes 0 for a row
+that sees no cell, as the Pallas kernel does. `emulate_split`
+(torch_cases.py) repeats that partition, skip and merge on the same
+numpy inputs gathered through the table, over block tables with
+several blocks per split and one block per split, at the split's edges:
+a cursor on the table's last cell and inside the first split, a window
+that empties the leading splits, a kv_mask that blanks a whole split
+below the cursor, a left-pad run that blanks the leading splits, and a
+row that sees no cell. Skipping a blanked split leaves the result as it
+is without the skip.
 
 Tolerance: fp32, atol/rtol 1e-5 (per-split softmax merged afterwards
 vs the Pallas kernel's per-block online softmax; different sum orders).
@@ -29,15 +33,16 @@ import torch
 from kubeflow_tpu.ops.pallas.paged_attention import (
     paged_decode_attention as pallas_decode,
 )
-from kubeflow_tpu_torch.ops.attention import NEG_INF
 from kubeflow_tpu_torch.ops.cuda import paged_attention as tpaged
-from torch_cases import mk_decode
+from torch_cases import emulate_split, mk_decode
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 # name: (bs, nb, cursors, window, masked cell range, rows that see no
 # cell); width 320 = 2.5 splits of 128 cells, 5 of 64, 1.25 of 256
 CASES = {
+    "left_pad_blanks_leading_splits": (64, 5, [319, 300, 200], None,
+                                       (0, 150), ()),
     "cursor_on_last_cell": (64, 5, [319, 100, 0], None, None, ()),
     "cursor_in_first_split": (64, 5, [5, 63, 127], None, None, ()),
     "window_empties_leading_splits": (64, 5, [300, 319, 200], 13, None, ()),
@@ -63,62 +68,33 @@ def _case(name):
     return (q, kp, vp, table, pos, mask), window, np.asarray(want)
 
 
-def emulate_split(q, kp, vp, table, pos, mask, window, split_cells):
-    """The kernel's partition and merge, in fp32: per (row, split) the
-    partial (m, l, acc) of the split's share of the live range, then
-    the weighted merge by m."""
-    b, _, n_q, hd = q.shape
-    _, bs, n_kv, _ = kp.shape
-    width = table.shape[1] * bs
-    group = n_q // n_kv
-    out = torch.zeros(b, 1, n_q, hd)
-    for row in range(b):
-        p = int(pos[row])
-        live_lo = max(p - window + 1, 0) if window else 0
-        live_hi = min(p, width - 1)
-        qg = q[row, 0].reshape(n_kv, group, hd)
-        parts = []
-        for z in range(tpaged.split_count(width, split_cells)):
-            lo = max(z * split_cells, live_lo)
-            hi = min((z + 1) * split_cells - 1, live_hi)
-            if lo > hi:                       # an empty block: l = 0
-                parts.append((torch.full((n_q,), NEG_INF),
-                              torch.zeros(n_q), torch.zeros(n_q, hd)))
-                continue
-            cells = torch.arange(lo, hi + 1)
-            phys = table[row, cells // bs].long()
-            k = kp[phys, cells % bs]          # [n, n_kv, hd]
-            v = vp[phys, cells % bs]
-            x = torch.einsum("ngd,cnd->ngc", qg, k).reshape(n_q, -1)
-            vis = mask[row, cells]
-            x = torch.where(vis, x * hd**-0.5, -torch.inf)
-            m = x.amax(-1).clamp(min=NEG_INF)  # NEG_INF where none visible
-            e = torch.exp(x - m[:, None])
-            acc = torch.einsum("ngc,cnd->ngd", e.reshape(n_kv, group, -1),
-                               v).reshape(n_q, hd)
-            parts.append((m, e.sum(-1), acc))
-        ms = torch.stack([m for m, _, _ in parts])       # [n_split, n_q]
-        ls = torch.stack([l for _, l, _ in parts])
-        accs = torch.stack([a for _, _, a in parts])
-        top = torch.where(ls > 0, ms, -torch.inf).amax(0)
-        w = torch.where(ls > 0, torch.exp(ms - top), 0.0)
-        total = (w * ls).sum(0)
-        merged = (w[..., None] * accs).sum(0)
-        out[row, 0] = torch.where(total[:, None] > 0,
-                                  merged / total.clamp(min=1e-30)[:, None],
-                                  0.0)
-    return out
+def _gathered(kp, vp, table):
+    """Each row's cells in order, through its table: [b, nb bs, n_kv, hd]."""
+    b, nb = table.shape
+    return tuple(p[table.long()].reshape(b, nb * p.shape[1], *p.shape[2:])
+                 for p in (kp, vp))
 
 
 @pytest.mark.parametrize("split_cells", [64, 128, 256])
 @pytest.mark.parametrize("case", list(CASES))
 def test_split_merge_matches_pallas(case, split_cells):
     args, window, want = _case(case)
-    got = emulate_split(*(torch.from_numpy(np.ascontiguousarray(a))
-                          for a in args), window, split_cells)
+    q, kp, vp, table, pos, mask = (torch.from_numpy(np.ascontiguousarray(a))
+                                   for a in args)
+    k, v = _gathered(kp, vp, table)
+    got, skipped = emulate_split(q, k, v, pos, mask, window, split_cells)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     for row in CASES[case][5]:                # sees no cell: 0 in both
         assert not np.any(want[row]) and not torch.any(got[row])
+    # the pad-split skip: blanked splits write l = 0, the result stays
+    unskipped, none = emulate_split(q, k, v, pos, mask, window, split_cells,
+                                    skip_pad=False)
+    assert none == 0
+    torch.testing.assert_close(got, unskipped, **TOL)
+    blank = CASES[case][4]
+    if blank is not None and \
+            (-(-blank[0] // split_cells) + 1) * split_cells <= blank[1]:
+        assert skipped > 0                    # a whole split is blanked
 
 
 @pytest.mark.parametrize("width,split_cells,want", [

@@ -1,6 +1,7 @@
 """Input builders for the paged-attention tests: random pools, block
 tables and cursors in the serving engine's layout, from a numpy seed;
-and the flash kernels' error bound with its dropped-diagonal control.
+the decode kernels' split-and-merge arithmetic (`emulate_split`); and
+the flash kernels' error bound with its dropped-diagonal control.
 Shared by the CPU parity tests (against the JAX reference) and the card
 tests (the CUDA kernels against their plain versions)."""
 
@@ -91,6 +92,63 @@ def mk_prefill(seed, b=3, s=5, n_q=8, n_kv=2, hd=32, bs=8, nb=6,
     return q, kn, vn, kp, vp, table, starts, lens
 
 
+def emulate_split(q, k, v, pos, mask, window, split_cells, skip_pad=True):
+    """The split-KV decode kernels' partition and merge (csrc/
+    decode_split.cuh), in fp32. q [b, 1, n_q, hd]; k, v [b, width, n_kv,
+    hd], each row's cells in order (a dense cache, or a paged pool
+    gathered through the table); pos [b]; mask [b, width] bool.
+
+    Per (row, split of `split_cells` cells) the partial (m, l, acc) of
+    the split's share of the live range [window lo, cursor]; a split
+    with an empty share, or (with `skip_pad`) one whose cells the mask
+    hides entirely, is skipped with l = 0. Then the merge by m (l == 0
+    weighs 0); a row that sees no cell is 0. -> (out [b, 1, n_q, hd],
+    splits skipped for the mask alone)."""
+    neg_inf = -2.0**30                 # the kernels' initial row max
+    b, _, n_q, hd = q.shape
+    width, n_kv = k.shape[1], k.shape[2]
+    group = n_q // n_kv
+    out = torch.zeros(b, 1, n_q, hd)
+    skipped = 0
+    for row in range(b):
+        p = int(pos[row])
+        live_lo = max(p - window + 1, 0) if window else 0
+        live_hi = min(p, width - 1)
+        qg = q[row, 0].float().reshape(n_kv, group, hd)
+        parts = []
+        for z in range(-(-width // split_cells)):
+            lo = max(z * split_cells, live_lo)
+            hi = min((z + 1) * split_cells - 1, live_hi)
+            blank = lo > hi
+            if not blank and skip_pad and not bool(mask[row, lo:hi + 1].any()):
+                blank = True
+                skipped += 1
+            if blank:                         # l = 0: weighs 0
+                parts.append((torch.full((n_q,), neg_inf),
+                              torch.zeros(n_q), torch.zeros(n_q, hd)))
+                continue
+            kc = k[row, lo:hi + 1].float()   # [n, n_kv, hd]
+            vc = v[row, lo:hi + 1].float()
+            x = torch.einsum("ngd,cnd->ngc", qg, kc).reshape(n_q, -1)
+            x = torch.where(mask[row, lo:hi + 1], x * hd**-0.5, -torch.inf)
+            m = x.amax(-1).clamp(min=neg_inf)  # neg_inf where none visible
+            e = torch.exp(x - m[:, None])
+            acc = torch.einsum("ngc,cnd->ngd", e.reshape(n_kv, group, -1),
+                               vc).reshape(n_q, hd)
+            parts.append((m, e.sum(-1), acc))
+        ms = torch.stack([m for m, _, _ in parts])       # [n_split, n_q]
+        ls = torch.stack([l for _, l, _ in parts])
+        accs = torch.stack([a for _, _, a in parts])
+        top = torch.where(ls > 0, ms, -torch.inf).amax(0)
+        w = torch.where(ls > 0, torch.exp(ms - top), 0.0)
+        total = (w * ls).sum(0)
+        merged = (w[..., None] * accs).sum(0)
+        out[row, 0] = torch.where(total[:, None] > 0,
+                                  merged / total.clamp(min=1e-30)[:, None],
+                                  0.0)
+    return out, skipped
+
+
 def flash_err_ratio(got, want, c, rtol, mag=None):
     """max |got - want| / (c max|want| + rtol |want| + 2**-8 mag), <= 1
     within the flash kernels' bound. `mag` (`flash_bf16_slack`) adds the
@@ -113,3 +171,22 @@ def dropped_diagonal(flash_module):
         return mask(s, causal, window, device) & ~eye
 
     return mock.patch.object(flash_module, "_mask", off_by_one)
+
+
+def prefill_dropped_diagonal(attention_module):
+    """A context in which the plain attention of `attention_module`
+    (kubeflow_tpu_torch.ops.attention) leaves each query's own cell out:
+    the paged prefill's causal mask off by one, the fault the prefill's
+    bf16 bound has to see. Query positions one lower drop the diagonal
+    (qp - 1 >= kp iff kp < qp), and a window one shorter keeps the far
+    edge where it was."""
+    attend = attention_module._torch_attention
+
+    def off_by_one(q, k, v, q_positions, kv_positions, *, causal, kv_mask,
+                   window):
+        return attend(q, k, v, q_positions - 1, kv_positions, causal=causal,
+                      kv_mask=kv_mask,
+                      window=None if window is None else window - 1)
+
+    return mock.patch.object(attention_module, "_torch_attention",
+                             off_by_one)

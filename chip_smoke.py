@@ -42,15 +42,28 @@ Phases, each fatal on failure (exit code 1, no result line):
              (and how many splits the pad skip drops) against SDPA over
              each row's cells up to its cursor.
 3. serve   — boots the port's HTTP server in-process (the CLI's
-             `--model llama3-1b --random --seed 0 --continuous
-             --prefill-chunk-tokens 64`), POSTs 4 `:generate` requests
-             (prompts of 17, 130, 300 and again 17 tokens, max_new 16),
-             with every kernel launch counter set to 0 just before and
-             read just after; checks both kernels ran, the repeated
-             prompt's greedy tokens are identical, and every served
-             token's logprob matches a teacher-forced pass of the plain
-             dense model at the same weights. Prints the batcher's
-             iterations and its host time per decode step and slice.
+             `--model llama3-1b --random --seed 0 --continuous --warmup
+             --prefill-chunk-tokens 64`; dispatch-ahead depth 2), whose
+             start-up captures every decode-step and prefill-slice CUDA
+             graph; POSTs 4 `:generate` requests (prompts of 17, 130,
+             300 and again 17 tokens, max_new 16), with every kernel
+             launch counter set to 0 just before and read just after;
+             checks traffic captured no graph, the counts are exact
+             under replay (16 paged decode launches per dispatched
+             decode step, 16 prefill-append launches per slice, 10
+             slices), the repeated prompt's greedy tokens are identical,
+             every served token's logprob matches a teacher-forced pass
+             of the plain dense model at the same weights, and the same
+             requests through the explicit eager path (no graphs) give
+             the same greedy tokens. Prints the batcher's host ms per
+             decode step, the device-busy share (profiler) and peak
+             memory.
+3b. serve  — the same with the reference's default monolithic admission
+             (no `--prefill-chunk-tokens`): each bucket group prefills in
+             one pass through the plain attention path, so
+             `paged_prefill_append` must launch 0 times; the same
+             checks otherwise (counts, no capture in traffic, repeated
+             prompt, teacher-forced logprobs and argmax).
 4. train   — `Trainer` on llama3-1b at full width (fp32 masters, bf16
              activations, full remat, chunked CE in 16 chunks, AdamW
              warmup 10 / total 1000), random weights from seed 0, batch
@@ -71,24 +84,29 @@ Phases, each fatal on failure (exit code 1, no result line):
              profiles one more step.
 5. one-shot — llama3-8b (random, seed 0) served in-process by
              `create_serving_app` in its default mode (50 ms window
-             batcher, 8 rows) with a llama3-1b draft (seed 1); counters
-             set to 0 just before and read just after 8 concurrent
-             single prompts (17, 45, 60, 90, 130, 200, 300 and again 17
-             tokens; max_new 32, logprobs), one explicit 2-row batch
-             (direct path) and one `speculative` request (gamma 4).
-             Checks `decode_attention` launched exactly 32 x 31 times
-             per one-shot call and 16 x (gamma + 1) per speculative
-             round, no other kernel ran, the repeated prompt's tokens
-             are identical, every non-speculative logprob is within 0.1
-             of a teacher-forced pass of the plain dense 8B over the
-             unpadded prompt, every token is its argmax wherever the
-             top-2 margin exceeds 0.2, and llama3-1b with its lm_head
-             x50 drafting for itself equals its greedy output at
-             acceptance 1.0. Prints host ms per decode step of the
-             window batch, speculative and target-alone tokens/s at
-             batch 1, peak memory, and profiles one window-batch call.
-Then prints the `kernels` JSON line, the card's name and power limit,
-and last `{"ok": true, "device": {...}}`.
+             batcher, 8 rows, `warmup=True`: start-up captures the decode
+             step graph of rows 1, 2, 4 and 8) with a llama3-1b draft
+             (seed 1); counters set to 0 just before and read just after
+             8 concurrent single prompts (17, 45, 60, 90, 130, 200, 300
+             and again 17 tokens; max_new 32, logprobs), one explicit
+             2-row batch (direct path) and one `speculative` request
+             (gamma 4). Checks the one-shot decode replayed its graph 31
+             times per call and captured nothing in traffic,
+             `decode_attention` launched exactly 32 x 31 times per
+             one-shot call and 16 x (gamma + 1) per speculative round
+             (the draft's steps stay eager), no other kernel ran, the
+             repeated prompt's tokens are identical, every
+             non-speculative logprob is within 0.1 of a teacher-forced
+             pass of the plain dense 8B over the unpadded prompt, every
+             token is its argmax wherever the top-2 margin exceeds 0.2,
+             and llama3-1b with its lm_head x50 drafting for itself
+             equals its greedy output at acceptance 1.0. Prints host ms
+             per decode step of the window batch, speculative and
+             target-alone tokens/s at batch 1, peak memory, and profiles
+             one window-batch call.
+Then prints the `kernels` JSON line (launches: the paged decode kernel's
+over phases 3 and 3b, each other kernel's over its phase), the card's
+name and power limit, and last `{"ok": true, "device": {...}}`.
 
 Exits non-zero without a result when CUDA is unavailable or the port's
 package is not beside this script.
@@ -905,30 +923,74 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-async def serve_and_check(torch):
+def _teacher_check(torch, engine, prompts, outs, lps, label):
+    """Every served sequence teacher-forced through the plain dense model
+    at the same weights: logprobs (where given) within LOGPROB_TOL, and
+    the argmax wherever the top-2 margin exceeds 2 x LOGPROB_TOL."""
+    from kubeflow_tpu_torch.models import llama
+
+    cfg, dev = engine.cfg, engine.device
+    worst, argmax_ok, argmax_n = 0.0, 0, 0
+    with torch.inference_mode():
+        for p, o, lp in zip(prompts, outs, lps):
+            toks = torch.tensor([p + o[:-1]], device=dev)
+            logp = torch.log_softmax(
+                llama.apply(engine.params, cfg, toks)[0, len(p) - 1:], -1)
+            if lp is not None:
+                ref = logp[torch.arange(len(o), device=dev),
+                           torch.tensor(o, device=dev)].cpu()
+                worst = max(worst,
+                            float((ref - torch.tensor(lp)).abs().max()))
+            top2 = torch.topk(logp, 2, dim=-1)
+            margin = (top2.values[:, 0] - top2.values[:, 1]).cpu()
+            for j in range(len(o)):
+                if margin[j] > 2 * LOGPROB_TOL:
+                    argmax_n += 1
+                    argmax_ok += int(top2.indices[j, 0]) == o[j]
+    log(f"  {label}: teacher-forced logprob max_abs_err {worst:.4f} "
+        f"(tol {LOGPROB_TOL}); greedy argmax agrees on {argmax_ok}/"
+        f"{argmax_n} steps with margin > {2 * LOGPROB_TOL}")
+    if worst > LOGPROB_TOL or argmax_ok != argmax_n:
+        fail(f"{label}: served tokens disagree with the plain dense model")
+
+
+async def serve_and_check(torch, chunked: bool):
+    """llama3-1b served continuously in-process through the HTTP app the
+    CLI builds, warmed at start-up, at dispatch-ahead depth 2: chunked
+    prefill (phase 3) or monolithic admission (phase 3b)."""
     import aiohttp
     from aiohttp import web
 
-    from kubeflow_tpu_torch.models import llama
     from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from kubeflow_tpu_torch.serving.__main__ import build_app, parse_args
+    from kubeflow_tpu_torch.serving.continuous import ContinuousBatcher
     from kubeflow_tpu_torch.serving.server import BATCHERS_KEY, ENGINES_KEY
 
+    label = "chunked" if chunked else "monolithic"
     port = _free_port()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    app = build_app(parse_args([
-        "--model", "llama3-1b", "--random", "--seed", "0", "--continuous",
-        "--prefill-chunk-tokens", str(CHUNK), "--host", "127.0.0.1",
-        "--port", str(port)]))
+    argv = ["--model", "llama3-1b", "--random", "--seed", "0",
+            "--continuous", "--warmup", "--host", "127.0.0.1",
+            "--port", str(port)]
+    if chunked:
+        argv += ["--prefill-chunk-tokens", str(CHUNK)]
+    app = build_app(parse_args(argv))
     runner = web.AppRunner(app)
-    await runner.setup()
+    t1 = time.perf_counter()
+    await runner.setup()          # on_startup: the batcher's warmup
+    warm_s = time.perf_counter() - t1
     site = web.TCPSite(runner, "127.0.0.1", port)
     await site.start()
     engine = app[ENGINES_KEY]["llama3-1b"]
     batcher = app[BATCHERS_KEY]["llama3-1b"]
+    graphs = batcher.cengine.graphs
     cfg = engine.cfg
-    log(f"  server up in {time.perf_counter() - t0:.1f} s "
-        f"(llama3-1b random weights, seed 0, port {port})")
+    captures = graphs.captures
+    log(f"  server up in {time.perf_counter() - t0:.1f} s (llama3-1b "
+        f"random weights, seed 0, port {port}, {label} admission, "
+        f"pipeline depth {batcher.pipeline_depth}); warmup {warm_s:.2f} s "
+        f"captured {captures} CUDA graphs")
     gen = torch.Generator().manual_seed(3)
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
                for n in PROMPT_LENS[:3]]
@@ -937,7 +999,9 @@ async def serve_and_check(torch):
     try:
         async with aiohttp.ClientSession() as sess:
             batcher.calls = batcher.iterations = 0
+            batcher.slices = batcher.prefills = 0
             batcher.decode_s = batcher.prefill_s = 0.0
+            replays0 = graphs.replays
             reset_launch_counts()
             t0 = time.perf_counter()
 
@@ -953,23 +1017,23 @@ async def serve_and_check(torch):
             bodies = await asyncio.gather(*(post(p) for p in prompts))
             serve_s = time.perf_counter() - t0
             counts = launch_counts()
+            calls, slices, prefills = (batcher.calls, batcher.slices,
+                                       batcher.prefills)
+            replays = graphs.replays - replays0
             async with sess.get(f"http://127.0.0.1:{port}/healthz") as r:
                 if r.status != 200:
                     fail(f"/healthz returned {r.status}")
-            steps = counts["paged_decode_attention"] // cfg.num_layers
-            slices = counts["paged_prefill_append"] // cfg.num_layers
             log(f"  served {len(prompts)} requests in {serve_s:.3f} s: "
-                f"{steps} decode steps, {slices} prefill slices; kernel "
-                f"launches {counts}")
+                f"{calls} decode steps dispatched, {slices} prefill slices, "
+                f"{prefills} prefill groups, {replays} graph replays; "
+                f"kernel launches {counts}")
             its = max(batcher.iterations, 1)
             log(f"  batcher (host clock): {batcher.iterations} worker "
                 f"iterations, {serve_s / its * 1e3:.2f} ms each; decode "
-                f"{batcher.decode_s:.3f} s over {batcher.calls} steps = "
-                f"{batcher.decode_s / max(batcher.calls, 1) * 1e3:.2f} ms "
+                f"(dispatch + wait) {batcher.decode_s:.3f} s over {calls} "
+                f"steps = {batcher.decode_s / max(calls, 1) * 1e3:.2f} ms "
                 f"per step; prefill {batcher.prefill_s:.3f} s over "
-                f"{slices} slices = "
-                f"{batcher.prefill_s / max(slices, 1) * 1e3:.2f} ms per "
-                f"slice")
+                f"{slices + prefills} slices/groups")
             # the same requests again under torch.profiler: where the
             # time goes (host clock inflated by the profiler itself)
             from torch.profiler import ProfilerActivity, profile
@@ -980,12 +1044,24 @@ async def serve_and_check(torch):
                 await asyncio.gather(*(post(p) for p in prompts))
                 torch.cuda.synchronize()
                 prof_s = time.perf_counter() - t0
+            if graphs.captures != captures:
+                fail(f"traffic captured {graphs.captures - captures} CUDA "
+                     f"graphs after warmup")
     finally:
         await runner.cleanup()
     _report_profile(prof, prof_s)
-    for name in ("paged_decode_attention", "paged_prefill_append"):
-        if counts[name] == 0:
-            fail(f"kernel {name} was not launched on the serving path")
+    log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    layers = cfg.num_layers
+    want = {"paged_decode_attention": layers * calls,
+            "paged_prefill_append": layers * slices if chunked else 0}
+    for name, n in want.items():
+        if counts[name] != n:
+            fail(f"{name}: {counts[name]} launches, the design implies {n} "
+                 f"({layers} layers x {calls} steps / {slices} slices)")
+    if chunked and slices != sum(-(-n // CHUNK) for n in PROMPT_LENS):
+        fail(f"{slices} prefill slices for prompts {PROMPT_LENS}")
+    if not calls or replays < 1:
+        fail("the decode chunks did not replay their graphs")
     outs = [b["tokens"][0] for b in bodies]
     lps = [b["logprobs"][0] for b in bodies]
     for o, lp in zip(outs, lps):
@@ -995,27 +1071,26 @@ async def serve_and_check(torch):
     if outs[0] != outs[3]:
         fail(f"repeated prompt gave different greedy tokens: {outs[0]} vs "
              f"{outs[3]}")
-    # teacher-force each served sequence through the plain dense model
-    worst, argmax_ok, argmax_n = 0.0, 0, 0
-    with torch.inference_mode():
-        for p, o, lp in zip(prompts, outs, lps):
-            toks = torch.tensor([p + o[:-1]], device=engine.device)
-            logp = torch.log_softmax(
-                llama.apply(engine.params, cfg, toks)[0, len(p) - 1:], -1)
-            ref = logp[torch.arange(MAX_NEW, device=engine.device),
-                       torch.tensor(o, device=engine.device)].cpu()
-            worst = max(worst, float((ref - torch.tensor(lp)).abs().max()))
-            top2 = torch.topk(logp, 2, dim=-1)
-            margin = (top2.values[:, 0] - top2.values[:, 1]).cpu()
-            for j in range(MAX_NEW):
-                if margin[j] > 2 * LOGPROB_TOL:
-                    argmax_n += 1
-                    argmax_ok += int(top2.indices[j, 0]) == o[j]
-    log(f"  teacher-forced logprob max_abs_err {worst:.4f} "
-        f"(tol {LOGPROB_TOL}); greedy argmax agrees on {argmax_ok}/"
-        f"{argmax_n} steps with margin > {2 * LOGPROB_TOL}")
-    if worst > LOGPROB_TOL or argmax_ok != argmax_n:
-        fail("served tokens disagree with the plain dense model")
+    _teacher_check(torch, engine, prompts, outs, lps, label)
+    if chunked:
+        # control: the same requests through the explicit eager path
+        control = ContinuousBatcher(engine, asyncio.Lock(), max_slots=SLOTS,
+                                    prefill_chunk_tokens=CHUNK, seed=0,
+                                    cuda_graphs=False)
+        try:
+            eager = await asyncio.gather(*(
+                control.submit(p, MAX_NEW, with_logprobs=True)
+                for p in prompts))
+        finally:
+            await control.close()
+        lp_diff = max(abs(a - b) for (_, elp), lp in zip(eager, lps)
+                      for a, b in zip(elp, lp))
+        log(f"  eager control: greedy tokens identical "
+            f"{[list(t) for t, _ in eager] == outs}, logprobs within "
+            f"{lp_diff:.2e}")
+        if [list(t) for t, _ in eager] != outs:
+            fail("graph replay and eager launches gave different greedy "
+                 "tokens")
     return counts
 
 
@@ -1272,11 +1347,17 @@ async def serve_dense_and_check(torch):
     log(f"  llama3-8b (seed 0, {llama.num_params(cfg)} params) and "
         f"llama3-1b draft (seed 1) built in {time.perf_counter() - t0:.1f} s")
     app = create_serving_app({"llama3-8b": target}, batch_window_ms=WINDOW_MS,
-                             max_batch=DENSE_B, drafts={"llama3-8b": draft})
+                             max_batch=DENSE_B, drafts={"llama3-8b": draft},
+                             warmup=True)
     batcher = app[BATCHERS_KEY]["llama3-8b"]
     port = _free_port()
     runner = web.AppRunner(app)
-    await runner.setup()
+    t0 = time.perf_counter()
+    await runner.setup()          # on_startup: the decode graphs' warmup
+    log(f"  warmup {time.perf_counter() - t0:.2f} s captured "
+        f"{target.captures} CUDA graphs (rows 1, 2, 4, 8 x 3 sampling "
+        f"keys); the lanes' dense caches "
+        f"{target.lane_bytes() / 2**30:.2f} GiB")
     await web.TCPSite(runner, "127.0.0.1", port).start()
     url = f"http://127.0.0.1:{port}/v1/models/llama3-8b:generate"
     gen = torch.Generator().manual_seed(6)
@@ -1301,6 +1382,7 @@ async def serve_dense_and_check(torch):
             # warm-up (cuBLAS handles, first allocations), not counted
             await post({"tokens": [prompts[0]], "max_new": 2})
             calls0 = batcher.calls
+            captures, replays0 = target.captures, target.replays
             reset_launch_counts()
             t0 = time.perf_counter()
             window = await asyncio.gather(*(post(
@@ -1315,6 +1397,7 @@ async def serve_dense_and_check(torch):
             torch.cuda.synchronize()
             counts = launch_counts()
             calls = batcher.calls - calls0
+            replays = target.replays - replays0
     finally:
         await runner.cleanup()
     stats = spec["speculative"]
@@ -1335,6 +1418,14 @@ async def serve_dense_and_check(torch):
     others = {k: n for k, n in counts.items() if k != "decode_attention"}
     if any(others.values()):
         fail(f"one-shot serving launched other kernels: {others}")
+    log(f"  one-shot decode: {replays} graph replays, "
+        f"{target.captures - captures} captures in traffic, draft "
+        f"captures {draft.captures}")
+    if replays != (DENSE_MAX_NEW - 1) * (calls + 1) \
+            or target.captures != captures or draft.captures:
+        fail(f"one-shot decode: {replays} replays (the design implies "
+             f"{(DENSE_MAX_NEW - 1) * (calls + 1)}), "
+             f"{target.captures - captures} captures in traffic")
 
     # every served sequence teacher-forced through the plain dense 8B over
     # its unpadded prompt: logprobs (non-speculative) and margin-gated
@@ -1351,28 +1442,7 @@ async def serve_dense_and_check(torch):
     if outs[0][1] != outs[len(prompts) - 1][1]:
         fail(f"repeated prompt gave different greedy tokens: {outs[0][1]} "
              f"vs {outs[len(prompts) - 1][1]}")
-    worst, argmax_ok, argmax_n = 0.0, 0, 0
-    with torch.inference_mode():
-        for p, o, lp in outs:
-            toks = torch.tensor([p + o[:-1]], device=dev)
-            logp = torch.log_softmax(
-                llama.apply(target.params, cfg, toks)[0, len(p) - 1:], -1)
-            if lp is not None:
-                ref = logp[torch.arange(len(o), device=dev),
-                           torch.tensor(o, device=dev)].cpu()
-                worst = max(worst,
-                            float((ref - torch.tensor(lp)).abs().max()))
-            top2 = torch.topk(logp, 2, dim=-1)
-            margin = (top2.values[:, 0] - top2.values[:, 1]).cpu()
-            for j in range(len(o)):
-                if margin[j] > 2 * LOGPROB_TOL:
-                    argmax_n += 1
-                    argmax_ok += int(top2.indices[j, 0]) == o[j]
-    log(f"  teacher-forced logprob max_abs_err {worst:.4f} (tol "
-        f"{LOGPROB_TOL}); greedy argmax agrees on {argmax_ok}/{argmax_n} "
-        f"steps with margin > {2 * LOGPROB_TOL}")
-    if worst > LOGPROB_TOL or argmax_ok != argmax_n:
-        fail("served tokens disagree with the plain dense model")
+    _teacher_check(torch, target, *zip(*outs), "one-shot")
 
     # the confident draft: llama3-1b with its lm_head x50 as its own
     # draft must equal its plain greedy output at acceptance 1.0
@@ -1500,8 +1570,14 @@ def main() -> None:
              **check_flash(torch, dev),
              "decode_attention": check_dense_decode(torch, dev)}
 
-    log("phase 3: serve llama3-1b through the kernels")
-    counts = asyncio.run(serve_and_check(torch))
+    log("phase 3: serve llama3-1b through the kernels (chunked prefill)")
+    counts = asyncio.run(serve_and_check(torch, chunked=True))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 3b: serve llama3-1b with monolithic admission")
+    counts["paged_decode_attention"] += asyncio.run(
+        serve_and_check(torch, chunked=False))["paged_decode_attention"]
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -24,7 +24,8 @@ at least 256 cells, causal, positions declared contiguous (kv_mask
 allowed); everything else takes the plain path. "flash" and "decode"
 raise for CPU tensors. `impl_counts()` counts the calls that took each
 (the reference counts traced call sites; PyTorch has no trace, so here
-every call counts).
+every call counts; a CUDA graph's replay adds what its capture
+counted).
 
 Fully masked rows: a row with no visible cell gets mean(V) from the
 plain path (finite NEG_INF softmaxes to uniform) but zeros from the
@@ -57,6 +58,13 @@ def reset_impl_counts() -> None:
 
 def impl_counts() -> dict[str, int]:
     return dict(_impl_counts)
+
+
+def add_impl_counts(delta: dict[str, int]) -> None:
+    """Add `delta` to the counts: the calls a CUDA graph replay made
+    without running this module (serving/graphs.py)."""
+    for key, n in delta.items():
+        _impl_counts[key] += n
 
 
 def _check_impl(impl: str, device: torch.device) -> str:

@@ -41,3 +41,12 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for mod, attr in _COUNTERS.values():
         setattr(mod, attr, 0)
+
+
+def add_launch_counts(delta: dict[str, int]) -> None:
+    """Add `delta` (kernel name -> launches) to the counters: what a CUDA
+    graph replay launched without calling the wrappers
+    (serving/graphs.py)."""
+    for name, n in delta.items():
+        mod, attr = _COUNTERS[name]
+        setattr(mod, attr, getattr(mod, attr) + n)

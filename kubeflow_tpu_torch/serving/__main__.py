@@ -4,17 +4,19 @@ kubeflow_tpu/serving/__main__.py).
     python -m kubeflow_tpu_torch.serving --model llama3-8b --random \\
         --batch-window-ms 20
     python -m kubeflow_tpu_torch.serving --model llama3-1b --random \\
-        --continuous --prefill-chunk-tokens 64
+        --continuous --warmup
 
 Serves one model on the CUDA card (`--cpu` runs the plain PyTorch path
 on the CPU instead). Without `--continuous`, the reference's default
 mode: the one-shot engine on a dense KV cache, single prompts coalesced
 by a `--batch-window-ms` window when it is above 0, else each request
 generated directly. With `--continuous`, continuous batching on the
-paged KV pool with chunked prefill (`--prefill-chunk-tokens`, default
-64; monolithic admission is not ported). Weights are random from
-`--seed`; loading a checkpoint is not ported yet, so `--random` is
-required.
+paged KV pool: monolithic admission (one prefill per bucket group,
+`--prefill-chunk` slicing long prompts) unless `--prefill-chunk-tokens`
+sets a chunked-prefill budget; decode chunks dispatched
+`--pipeline-depth` ahead; `--warmup` captures every serving graph
+before the port opens. Weights are random from `--seed`; loading a
+checkpoint is not ported yet, so `--random` is required.
 """
 
 from __future__ import annotations
@@ -57,18 +59,34 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="coalesce single-prompt requests arriving within "
                         "this window into one batch (0: each request "
                         "generates alone)")
-    p.add_argument("--prefill-chunk-tokens", type=int, default=None,
-                   help="chunked prefill token budget (continuous only, "
-                        "default 64): each worker iteration feeds at most "
-                        "this many prompt tokens, interleaved with decode "
-                        "chunks")
+    p.add_argument("--warmup", action="store_true",
+                   help="run every serving shape (CUDA graphs captured) "
+                        "before taking traffic (continuous only)")
+    p.add_argument("--prefill-chunk", type=int, default=0,
+                   help="monolithic admission prefills prompts longer "
+                        "than this in slices of this many tokens (0: one "
+                        "pass)")
+    p.add_argument("--prefill-chunk-tokens", type=int, default=0,
+                   help="chunked prefill token budget (continuous only): "
+                        "each worker iteration feeds at most this many "
+                        "prompt tokens, interleaved with decode chunks. "
+                        "0 = monolithic admission prefill")
+    p.add_argument("--pipeline-depth", type=int, default=0,
+                   help="decode dispatch-ahead depth (0 = the backend's "
+                        "default: 2 on CUDA, 1 on the CPU)")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (plain PyTorch path, no kernels)")
     args = p.parse_args(argv)
     if not args.random:
         p.error("pass --random (checkpoint loading is not ported yet)")
-    if args.prefill_chunk_tokens is not None and not args.continuous:
-        p.error("--prefill-chunk-tokens requires --continuous")
+    if args.warmup and not args.continuous:
+        p.error("--warmup requires --continuous")
+    for flag in ("prefill_chunk", "prefill_chunk_tokens", "pipeline_depth"):
+        name = "--" + flag.replace("_", "-")
+        if getattr(args, flag) < 0:
+            p.error(f"{name} must be >= 0")
+        if getattr(args, flag) and not args.continuous:
+            p.error(f"{name} requires --continuous")
     return args
 
 
@@ -93,7 +111,9 @@ def build_app(args: argparse.Namespace):
     return create_serving_app(
         {args.model: engine}, max_batch=args.max_batch,
         continuous=args.continuous, batch_window_ms=args.batch_window_ms,
-        prefill_chunk_tokens=args.prefill_chunk_tokens, seed=args.seed)
+        warmup=args.warmup, prefill_chunk=args.prefill_chunk or None,
+        prefill_chunk_tokens=args.prefill_chunk_tokens or None,
+        pipeline_depth=args.pipeline_depth or None, seed=args.seed)
 
 
 def main(argv=None) -> int:

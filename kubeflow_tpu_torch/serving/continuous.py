@@ -11,16 +11,31 @@ slices interleaved with decode chunks, and EOS / max_new retirement.
 Where the reference donates its state to each jitted program and gets
 a new one back, this engine updates the state's tensors IN PLACE. The
 layout keeps cell index == token position (the kernels' precondition):
-a row's prompt is appended from cell 0 by chunked prefill and each
-decode step writes at the row's cursor.
+a row's prompt lands from cell 0 and each decode step writes at the
+row's cursor.
 
-Admission is chunked prefill only: a request takes a frozen slot and
-fresh blocks, and its prompt is fed in slices of at most
-`prefill_chunk_tokens` tokens through the prefill-append path
-(`ops.paged_prefill_attention`), one slice per worker iteration; decode
-steps run every slot through `ops.paged_attention`. The reference's
-radix prefix reuse, monolithic prefill/insert, spill tier, tenancy,
-preemption, speculation and migration are not ported yet.
+Where the reference compiles its decode step (a scan of `steps` tokens)
+and its prefill slice as programs, warmed at start-up, this engine
+captures them as CUDA graphs (serving/graphs.py), keyed as the
+reference's programs are: one step graph per `steps` in [1, chunk] and
+sampling key, one slice graph per sampling key. A graph bakes tensor
+addresses, so the engine owns ONE slot state (`slots()`) for its
+lifetime, and the graphs read static sampling knobs and slice inputs
+that the host stages in place.
+
+Admission, as in the reference:
+- monolithic (the default): queued requests group by prefill bucket;
+  each group, padded to a power of two (at most max_slots) with greedy
+  dummy rows, prefills in one `prefill_batch` on a dense cache (plain
+  attention) and lands in fresh pool blocks in one `insert_many`;
+- chunked (`prefill_chunk_tokens`): a request takes a frozen slot and
+  fresh blocks, and its prompt is fed in slices of at most
+  `prefill_chunk_tokens` tokens through the prefill-append path
+  (`ops.paged_prefill_attention`), one slice per worker iteration.
+Decode steps run every slot through `ops.paged_attention`, with up to
+`pipeline_depth` chunks in flight. The reference's radix prefix reuse,
+spill tier, tenancy, preemption, speculation and migration are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -40,13 +55,47 @@ from kubeflow_tpu_torch.ops.attention import (
 )
 from kubeflow_tpu_torch.ops.rotary import rope_frequencies
 from kubeflow_tpu_torch.serving.engine import (
+    SAMPLING_KEYS,
     InferenceEngine,
     SamplingParams,
     transformer_block,
 )
+from kubeflow_tpu_torch.serving.graphs import (
+    GraphCache,
+    HostCopy,
+    stage,
+    upload,
+)
 from kubeflow_tpu_torch.serving.paged import BlockPool
 
 log = logging.getLogger(__name__)
+
+GREEDY = {"temperature": 0.0, "top_k": 0, "top_p": 1.0}
+
+
+def pow2_ceil(n: int) -> int:
+    """Smallest power of two >= n (n >= 1)."""
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def bucket_pow2(n: int, cap: int) -> int:
+    """Round up to a power of two (>= 16), capped: the reference's
+    bucketing of prefill widths, window batches and max_new."""
+    return min(max(pow2_ceil(n), 16), cap)
+
+
+def group_sizes(max_slots: int) -> list[int]:
+    """Admission group sizes: the powers of two below max_slots, and
+    max_slots. A group of g rows pads to min(pow2_ceil(g), max_slots),
+    so warming these sizes covers every arrival count."""
+    sizes, g = [], 1
+    while g < max_slots:
+        sizes.append(g)
+        g *= 2
+    return sizes + [max_slots]
 
 
 class SlotState:
@@ -70,10 +119,19 @@ class SlotState:
 
 
 class ContinuousEngine:
-    """Device half of continuous batching for one `InferenceEngine`."""
+    """Device half of continuous batching for one `InferenceEngine`.
+
+    Two ways in: the explicit calls on a state the caller holds
+    (`init_slots`, `step`, `append_rows`, ...), as the reference's; and
+    the graphed calls on the engine's own state (`slots()`): `decode`
+    and `prefill_slice` replay CUDA graphs of `step` and of the slice
+    body, `warmup` captures them ahead of traffic. `cuda_graphs=False`
+    runs the same bodies as eager launches: an explicit control, never a
+    fallback. `seed` seeds the generator every sampled draw takes."""
 
     def __init__(self, engine: InferenceEngine, max_slots: int = 8,
-                 block_size: int = 64):
+                 block_size: int = 64, *, prefill_chunk: int | None = None,
+                 seed: int | None = None, cuda_graphs: bool = True):
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         if block_size < 2 or block_size & (block_size - 1):
@@ -82,6 +140,9 @@ class ContinuousEngine:
         self.engine = engine
         self.S = max_slots
         self.block_size = block_size
+        # long monolithic prefills run in slices of this many tokens
+        # (buckets become its multiples)
+        self.prefill_chunk = prefill_chunk
         self.blocks_per_slot = -(-engine.ec.max_len // block_size)
         self.kv_width = self.blocks_per_slot * block_size
         # trash block + every slot at max_len: admission never waits on
@@ -96,6 +157,13 @@ class ContinuousEngine:
             self.kv_width, dtype=torch.int32, device=dev).expand(
                 max_slots, self.kv_width)
         self._rows = torch.arange(max_slots, device=dev)
+        if seed is None:
+            seed = int.from_bytes(os.urandom(8), "little") >> 1
+        self.gen = torch.Generator(device=dev).manual_seed(seed)
+        self.graphs = GraphCache(dev, eager=not cuda_graphs)
+        self._st: SlotState | None = None
+        self._knobs = None     # static [S] temperature, top_k, top_p
+        self._slice_in = {}    # prompt-slice width -> static slice inputs
 
     # -- state ------------------------------------------------------------
 
@@ -114,9 +182,32 @@ class ContinuousEngine:
             zeros(S), zeros(S, self.blocks_per_slot),
             zeros(S, dtype=torch.bool))
 
+    @torch.inference_mode()
+    def slots(self) -> SlotState:
+        """The engine's own state, which the graphs read and write;
+        allocated once and never replaced."""
+        if self._st is None:
+            dev, S = self.engine.device, self.S
+            self._st = self.init_slots()
+            self._knobs = (torch.zeros(S, dtype=torch.float32, device=dev),
+                           torch.zeros(S, dtype=torch.int64, device=dev),
+                           torch.ones(S, dtype=torch.float32, device=dev))
+        return self._st
+
+    @torch.inference_mode()
+    def clear_slots(self) -> None:
+        """Every slot back to the trash block with zero cursors, in place:
+        the graphs keep their addresses (the pool's contents are garbage
+        that admission overwrites or the cursors mask)."""
+        if self._st is None:
+            return
+        st = self._st
+        for t in (st.length, st.offset, st.pad, st.tok, st.block_table,
+                  st.frozen):
+            t.zero_()
+
     def _index(self, values) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(values, np.int64),
-                               device=self.engine.device)
+        return upload(values, torch.int64, self.engine.device)
 
     @torch.inference_mode()
     def reset_slots(self, st: SlotState, slots) -> SlotState:
@@ -141,8 +232,7 @@ class ContinuousEngine:
         st.offset[slot] = 0
         st.pad[slot] = False
         st.tok[slot] = tok
-        st.block_table[slot] = torch.as_tensor(
-            np.asarray(table, np.int32), device=st.block_table.device)
+        stage(st.block_table[slot], table)
         st.frozen[slot] = True
         return st
 
@@ -155,6 +245,126 @@ class ContinuousEngine:
         st.k[:, dst, :n] = st.k[:, src, :n]
         st.v[:, dst, :n] = st.v[:, src, :n]
         return st
+
+    # -- monolithic admission ---------------------------------------------
+
+    def bucket_for(self, n_tokens: int, max_new: int,
+                   reserve: int = 0) -> int:
+        """Prefill bucket for one request: a power of two (or, past one
+        `prefill_chunk`, the ceil chunk multiple), falling back to the
+        EXACT length when the bucket plus this request's max_new would
+        overrun the cache (bucket pads occupy dense-cache cells).
+        `reserve` is cache already spoken for (a shared prefix)."""
+        cap = self.engine.ec.max_len - reserve
+        c = self.prefill_chunk
+        if c and n_tokens > c:
+            bc = -(-n_tokens // c) * c
+            if bc + max_new <= cap:
+                return bc
+            return n_tokens
+        b = bucket_pow2(n_tokens, max(cap - max_new, 0))
+        return b if b >= n_tokens else n_tokens
+
+    @torch.inference_mode()
+    def prefill_batch(self, token_lists: list[list[int]], bucket: int,
+                      samplings: list[dict], gen: torch.Generator,
+                      prefix_state=None):
+        """Prefill g prompts left-padded to one bucket on a dense cache in
+        one pass (plain attention, as the reference's) and sample each
+        one's first token. -> (batch-g DecodeState, first [g], done [g],
+        logprobs [g]), ready for `insert_many`. `prefix_state` (a
+        `DecodeState` of batch 1 or g) seeds every row with KV already
+        computed, so only the suffix prefills."""
+        eng = self.engine
+        ec = eng.ec
+        g = len(token_lists)
+        arr = np.zeros((g, bucket), np.int64)
+        mask = np.zeros((g, bucket), bool)
+        for i, toks in enumerate(token_lists):
+            arr[i, bucket - len(toks):] = toks
+            mask[i, bucket - len(toks):] = True
+        sp, gen = eng._resolve_sampling(
+            [s.get("temperature", ec.temperature) for s in samplings],
+            [s.get("top_k", ec.top_k) for s in samplings],
+            [s.get("top_p", ec.top_p) for s in samplings], gen, batch=g)
+        if prefix_state is None:
+            state0 = eng.init_state(g)
+        elif prefix_state.k.shape[1] == g:
+            state0 = prefix_state
+        else:
+            ps = prefix_state
+            state0 = type(ps)(
+                ps.k.repeat_interleave(g, 1), ps.v.repeat_interleave(g, 1),
+                ps.length, ps.pad.repeat_interleave(g, 0),
+                ps.offset.repeat_interleave(g, 0))
+        dev = eng.device
+        tokens = upload(arr, torch.int64, dev)
+        maskd = upload(mask, torch.bool, dev)
+        c = self.prefill_chunk
+        if c and bucket > c and bucket % c == 0:
+            return eng.prefill_chunked(tokens, state0, gen, sp, maskd,
+                                       chunk=c)
+        return eng._prefill_sample(tokens, state0, gen, sp, maskd)
+
+    def _auto_table(self, slot: int) -> np.ndarray:
+        """Engine-managed block table for direct `insert_many` callers
+        (tests, warmup): slot s owns blocks [1 + s*MB, 1 + (s+1)*MB), the
+        dense-equivalent layout. The batcher passes explicit tables."""
+        usable = self.num_blocks - 1
+        base = slot * self.blocks_per_slot
+        return np.asarray([1 + (base + j) % usable
+                           for j in range(self.blocks_per_slot)], np.int32)
+
+    @torch.inference_mode()
+    def insert_many(self, st: SlotState, slots: list[int], pstate,
+                    rows: list[int], first, *, tables=None,
+                    seed_lens: list[int] | None = None) -> SlotState:
+        """Scatter rows `rows` of a prefilled batch-g DecodeState into the
+        pool blocks of `tables` ([n, blocks_per_slot], trash-padded) and
+        point `slots` at them, in one pass. Each row is COMPACTED on the
+        way in: its left pads are dropped, so cell index == position,
+        offset 0, no pads. `seed_lens`: cells [0, seed_len) of a row are
+        an already-compact prefix seed. The write covers EVERY cell of
+        every block of a table (unused entries must be trash block 0), so
+        whatever a freed block held is overwritten."""
+        n = len(slots)
+        if len(rows) != n:
+            raise ValueError(f"insert_many: {n} slots vs {len(rows)} rows")
+        if tables is None:
+            tables = np.stack([self._auto_table(s) for s in slots])
+        if seed_lens is None:
+            seed_lens = [0] * n
+        cfg, dev = self.engine.cfg, self.engine.device
+        max_len = self.engine.ec.max_len
+        slot_i = self._index(slots)
+        row_i = self._index(rows)
+        tab = self._index(np.asarray(tables).reshape(-1))
+        seed = upload(seed_lens, torch.int32, dev)
+        npad = pstate.offset[row_i]                           # [n]
+        j = self._kv_positions[0][None, :]                    # [1, w]
+        src = torch.clamp(torch.where(j < seed[:, None], j,
+                                      j + npad[:, None]),
+                          max=max_len - 1).long()             # [n, w]
+        shape = (cfg.num_layers, n * self.blocks_per_slot, self.block_size,
+                 cfg.num_kv_heads, cfg.head_dim)
+        for pool, dense in ((st.k, pstate.k), (st.v, pstate.v)):
+            rows_kv = dense[:, row_i[:, None], src]       # [L, n, w, ...]
+            pool[:, tab] = rows_kv.reshape(shape).to(pool.dtype)
+        st.length[slot_i] = pstate.length - npad
+        st.offset[slot_i] = 0
+        st.pad[slot_i] = False
+        st.tok[slot_i] = first[row_i].to(torch.int32)
+        st.block_table[slot_i] = tab.view(n, -1).to(torch.int32)
+        st.frozen[slot_i] = False
+        return st
+
+    def insert(self, st: SlotState, slot: int, pstate, first,
+               row: int = 0, *, table=None, seed_len: int = 0) -> SlotState:
+        """Single-row `insert_many`."""
+        return self.insert_many(
+            st, [slot], pstate, [row], first,
+            tables=None if table is None else np.asarray(table)[None],
+            seed_lens=[seed_len])
 
     # -- decode -----------------------------------------------------------
 
@@ -213,26 +423,47 @@ class ContinuousEngine:
             lps.append(lp)
         return st, torch.stack(toks, 1), torch.stack(lps, 1)
 
-    # -- chunked prefill --------------------------------------------------
+    @torch.inference_mode()
+    def sampling(self, temperature, top_k, top_p) -> SamplingParams:
+        """Stage per-slot knobs ([S] each, host values) into the static
+        tensors the graphs read; the copy queues behind the chunks in
+        flight, so those keep the knobs they were dispatched with."""
+        self.slots()
+        for dst, values in zip(self._knobs, (temperature, top_k, top_p)):
+            stage(dst, values)
+        t = np.asarray(temperature)
+        filtered = (np.asarray(top_k) > 0) | (np.asarray(top_p) < 1.0)
+        return SamplingParams(*self._knobs, bool((t > 0).any()),
+                              bool(filtered.any()))
+
+    def _key(self, sp: SamplingParams) -> tuple[bool, bool]:
+        return sp.sampled, sp.sampled and sp.filtered
 
     @torch.inference_mode()
-    def append_rows(self, st: SlotState, slots, tokens, n_valid, finish,
-                    sp: SamplingParams, gen: torch.Generator):
-        """One chunked-prefill slice: feed `tokens[i, :n_valid[i]]` of each
-        listed slot's prompt through the paged pool at the slot's cursor,
-        advancing the cursor by n_valid. Rows with `finish` sample their
-        first output token and unfreeze. -> (state, first_token [g],
-        logprob [g]); both only meaningful for rows with finish.
+    def decode(self, sp: SamplingParams, steps: int):
+        """`steps` decode tokens for every slot of the engine's own state
+        through the step graph of (steps, sampling key): one replay.
+        `sp` comes from `sampling()`. -> (tokens [S, steps], logprobs
+        [S, steps]) on the device: the graph's static outputs, which the
+        next replay overwrites."""
+        st = self.slots()
+        key = self._key(sp)
+        gsp = SamplingParams(*self._knobs, *key)
+        run = self.graphs.runner(
+            ("step", steps) + key,
+            lambda: self.step(st, gsp, self.gen, steps)[1:],
+            generator=self.gen)
+        return run()
 
-        Precondition: cursor + n_valid <= max_len, which admission
-        guarantees (prompt + max_new <= max_len)."""
+    # -- chunked prefill --------------------------------------------------
+
+    def _append(self, st: SlotState, idx, tokens, n_valid, finish,
+                sp: SamplingParams, gen: torch.Generator):
+        """The slice body: device inputs only (slot indices [g] int64,
+        tokens [g, s] int64, n_valid [g] int32, finish [g] bool)."""
         eng = self.engine
         cfg, fam, ec = eng.cfg, eng.family, eng.ec
         dev = eng.device
-        idx = self._index(slots)
-        tokens = torch.as_tensor(np.asarray(tokens, np.int64), device=dev)
-        n_valid = torch.as_tensor(np.asarray(n_valid, np.int32), device=dev)
-        finish = torch.as_tensor(np.asarray(finish, bool), device=dev)
         table = st.block_table[idx]
         start = st.length[idx]
         s = tokens.shape[1]
@@ -268,7 +499,87 @@ class ContinuousEngine:
         st.length.clamp_(max=ec.max_len)
         st.tok[idx] = torch.where(finish, nxt, st.tok[idx])
         st.frozen[idx] = st.frozen[idx] & ~finish
+        return nxt, lp
+
+    @torch.inference_mode()
+    def append_rows(self, st: SlotState, slots, tokens, n_valid, finish,
+                    sp: SamplingParams, gen: torch.Generator):
+        """One chunked-prefill slice: feed `tokens[i, :n_valid[i]]` of each
+        listed slot's prompt through the paged pool at the slot's cursor,
+        advancing the cursor by n_valid. Rows with `finish` sample their
+        first output token and unfreeze. -> (state, first_token [g],
+        logprob [g]); both only meaningful for rows with finish.
+
+        Precondition: cursor + n_valid <= max_len, which admission
+        guarantees (prompt + max_new <= max_len)."""
+        dev = self.engine.device
+        nxt, lp = self._append(
+            st, self._index(slots), upload(tokens, torch.int64, dev),
+            upload(n_valid, torch.int32, dev), upload(finish, torch.bool, dev),
+            sp, gen)
         return st, nxt, lp
+
+    @torch.inference_mode()
+    def prefill_slice(self, sp: SamplingParams, slot: int, tokens, n: int,
+                      finish: bool):
+        """One chunked-prefill slice of one slot of the engine's own
+        state (`tokens` [1, width]) through the slice graph of (width,
+        sampling key): the inputs are staged into the graph's static
+        tensors, then one replay. -> (first token [1], logprob [1]) on
+        the device, meaningful with `finish`."""
+        st = self.slots()
+        tokens = np.asarray(tokens)
+        width = tokens.shape[1]
+        ins = self._slice_in.get(width)
+        if ins is None:
+            dev = self.engine.device
+            ins = self._slice_in[width] = (
+                torch.zeros(1, dtype=torch.int64, device=dev),
+                torch.zeros(1, width, dtype=torch.int64, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev),
+                torch.zeros(1, dtype=torch.bool, device=dev))
+        for dst, values in zip(ins, (slot, tokens, n, finish)):
+            stage(dst, values)
+        key = self._key(sp)
+        gsp = SamplingParams(*self._knobs, *key)
+        run = self.graphs.runner(
+            ("slice", width) + key,
+            lambda: self._append(st, *ins, gsp, self.gen),
+            generator=self.gen)
+        return run()
+
+    # -- warmup -----------------------------------------------------------
+
+    @torch.inference_mode()
+    def warmup(self, buckets=(16,), step_sizes=(1,),
+               slice_tokens: int | None = None) -> int:
+        """Run every serving shape once ahead of traffic, as the
+        reference compiles its programs: `prefill_batch` and
+        `insert_many` for every admission group size x bucket, the step
+        graph for every chunk size and sampling key, the slice graph of
+        `slice_tokens` for every sampling key, and `reset_slots`. Then
+        clears the state. -> the number of shapes run."""
+        st = self.slots()
+        n = 0
+        for g in group_sizes(self.S):
+            for b in buckets:
+                pstate, first, _, _ = self.prefill_batch(
+                    [[0]] * g, b, [GREEDY] * g, self.gen)
+                self.insert_many(st, list(range(g)), pstate,
+                                 list(range(g)), first)
+                n += 2
+        for sampled, filtered in SAMPLING_KEYS:
+            sp = SamplingParams(*self._knobs, sampled, filtered)
+            for steps in step_sizes:
+                self.decode(sp, steps)
+                n += 1
+            if slice_tokens:
+                self.prefill_slice(sp, 0, np.zeros((1, slice_tokens)), 1,
+                                   True)
+                n += 1
+        self.reset_slots(st, [0])
+        self.clear_slots()
+        return n + 1
 
 
 # -- host half -------------------------------------------------------------
@@ -298,51 +609,74 @@ class _Request:
 
 
 class ContinuousBatcher:
-    """Host orchestrator: queue, block admission, chunked prefill
-    interleaved with decode chunks, EOS / max_new retirement.
+    """Host orchestrator: queue, block admission, prefill, dispatch-ahead
+    decode chunks, EOS / max_new retirement.
 
     Each worker iteration: reset retired slots' tables, admit queued
-    requests into free slots (fresh blocks, frozen), feed ONE prompt
-    slice of at most `prefill_chunk_tokens` tokens (shortest remaining
-    prompt first), then decode up to `chunk` tokens for every live slot.
-    Device work runs in the default executor under `gpu_lock`; its
-    results come back to the host there.
+    requests into free slots (monolithic: one prefill + insert per
+    bucket group; chunked: a frozen slot each), feed ONE prompt slice of
+    at most `prefill_chunk_tokens` tokens (shortest remaining prompt
+    first), process the chunks in flight that have finished, then
+    dispatch the next decode chunk of up to `chunk` tokens for every
+    live slot while fewer than `pipeline_depth` chunks are in flight,
+    else wait for the oldest. Device calls run in the default executor
+    under `gpu_lock`, which is held for the dispatch only: a chunk's
+    tokens come back through pinned host memory behind an event, and
+    the host waits for them off the lock and off the event loop.
+
+    Dispatch-ahead (`pipeline_depth`, default 2 on CUDA and 1 on the
+    CPU, as the reference picks 2 on an accelerator): the next chunk is
+    queued while the previous one computes, so the host's emit and
+    retirement work overlaps device time. A slot that retires early
+    decodes up to (depth - 1) x chunk tokens the host drops; a chunk's
+    tokens go only to the request that held the slot at dispatch.
 
     What survives an exception in a device call: nothing of the slot
-    state is trusted. The engine updates the pool in place, so a step
-    that fails midway may have written some layers' cells and not
-    others. `_fail_all` fails every admitted request, returns their
-    blocks, and drops the state; the next admission builds a fresh one.
-    Queued requests are kept.
+    state is trusted. `_fail_all` fails every admitted request, returns
+    their blocks, and clears the state in place (the graphs keep its
+    addresses). Queued requests are kept.
 
-    `.calls` counts decode steps; `occupancy()` is tokens emitted per
-    decode step. `.iterations` counts worker iterations;
-    `.decode_s` and `.prefill_s` are the wall seconds spent in decode
-    chunks and prefill slices (lock wait, dispatch and, where the call
-    reads a result back, the device time too).
+    `.calls` counts dispatched decode steps (over-decoded ones included);
+    `occupancy()` is tokens emitted per decode step. `.slices` counts
+    chunked-prefill slices and `.prefills` monolithic prefill groups.
+    `.decode_s` is wall seconds in dispatching decode chunks (lock wait
+    included) and waiting for their results; `.prefill_s` the same for
+    prefill slices and admission groups.
     """
 
     def __init__(self, engine: InferenceEngine, gpu_lock: asyncio.Lock, *,
                  max_slots: int = 8, chunk: int = 4,
-                 prefill_chunk_tokens: int = 64, max_pending: int = 256,
-                 kv_block_size: int = 64, seed: int | None = None):
+                 prefill_chunk: int | None = None,
+                 prefill_chunk_tokens: int | None = None,
+                 max_pending: int = 256, pipeline_depth: int | None = None,
+                 kv_block_size: int = 64, seed: int | None = None,
+                 cuda_graphs: bool = True):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
-        if prefill_chunk_tokens < 1:
+        if prefill_chunk_tokens is not None and prefill_chunk_tokens < 1:
             raise ValueError(
                 f"prefill_chunk_tokens must be >= 1, got "
                 f"{prefill_chunk_tokens}")
+        if pipeline_depth is None:
+            pipeline_depth = 2 if engine.device.type == "cuda" else 1
+        if pipeline_depth < 1:
+            raise ValueError(
+                f"pipeline_depth must be >= 1, got {pipeline_depth}")
         self.engine = engine
         self.gpu_lock = gpu_lock
         self.chunk = chunk
         self.prefill_chunk_tokens = prefill_chunk_tokens
+        self.pipeline_depth = pipeline_depth
         self.max_pending = max_pending
-        self.cengine = ContinuousEngine(engine, max_slots,
-                                        block_size=kv_block_size)
-        self.calls = 0            # decode steps
+        self.cengine = ContinuousEngine(
+            engine, max_slots, block_size=kv_block_size,
+            prefill_chunk=prefill_chunk, seed=seed, cuda_graphs=cuda_graphs)
+        self.calls = 0            # dispatched decode steps
         self.requests = 0         # admitted requests
         self.tokens_emitted = 0   # decode tokens (first tokens excluded)
         self.iterations = 0
+        self.slices = 0           # chunked-prefill slices
+        self.prefills = 0         # monolithic prefill groups
         self.decode_s = 0.0
         self.prefill_s = 0.0
         self._pending: collections.deque[_Request] = collections.deque()
@@ -350,21 +684,33 @@ class ContinuousBatcher:
         self._free = list(range(max_slots))
         self._dirty: list[int] = []   # freed slots awaiting table reset
         self._prefill_q: list[int] = []   # frozen slots, admission order
-        self._st: SlotState | None = None
         # greedy filler knobs on free slots
         self._temp = np.zeros(max_slots, np.float32)
         self._topk = np.zeros(max_slots, np.int64)
         self._topp = np.ones(max_slots, np.float32)
         self._sp_cache: SamplingParams | None = None
-        if seed is None:
-            seed = int.from_bytes(os.urandom(8), "little") >> 1
-        self._gen = torch.Generator(device=engine.device).manual_seed(seed)
         self._wake = asyncio.Event()
         self._worker: asyncio.Task | None = None
         self._closed = False
 
     def occupancy(self) -> float:
         return self.tokens_emitted / self.calls if self.calls else 0.0
+
+    def warmup(self, buckets=None) -> int:
+        """Blocking ahead-of-traffic run of the whole serving shape set
+        (before traffic; the app's on_startup hook calls it when
+        create_serving_app(warmup=True)): every group size x bucket of
+        admission, the step graph for every chunk size, the slice graph
+        in chunked mode. With `prefill_chunk` the default buckets add a
+        two-chunk prompt, as the reference's. -> shapes run."""
+        if buckets is None:
+            buckets = [16]
+            c = self.cengine.prefill_chunk
+            if c and 2 * c <= self.engine.ec.max_len and 2 * c != 16:
+                buckets.append(2 * c)
+        return self.cengine.warmup(
+            buckets=tuple(buckets), step_sizes=range(1, self.chunk + 1),
+            slice_tokens=self.prefill_chunk_tokens)
 
     # -- public API -------------------------------------------------------
 
@@ -427,9 +773,11 @@ class ContinuousBatcher:
     # -- bookkeeping ------------------------------------------------------
 
     def _sp(self) -> SamplingParams:
+        """The static knobs, restaged when a knob changed. Device side:
+        call it inside a device call."""
         if self._sp_cache is None:
-            self._sp_cache = SamplingParams.make(
-                self._temp, self._topk, self._topp, self.engine.device)
+            self._sp_cache = self.cengine.sampling(self._temp, self._topk,
+                                                   self._topp)
         return self._sp_cache
 
     def _set_knobs(self, slot: int, sampling: dict) -> None:
@@ -444,8 +792,7 @@ class ContinuousBatcher:
         its device table is reset before the next admission."""
         req = self._active.pop(slot, None)
         self._free.append(slot)
-        self._set_knobs(slot, {"temperature": 0.0, "top_k": 0,
-                               "top_p": 1.0})
+        self._set_knobs(slot, GREEDY)
         if slot in self._prefill_q:
             self._prefill_q.remove(slot)
         if req is not None:
@@ -463,9 +810,12 @@ class ContinuousBatcher:
             req = self._active[slot]
             self._release(slot)
             self._fail(req, exc)
-        self._st = None
         self._dirty.clear()
         self._prefill_q.clear()
+        try:
+            self.cengine.clear_slots()
+        except Exception:  # noqa: BLE001 — a dead device fails the next call
+            log.exception("clearing the slot state failed")
 
     def _finish(self, slot: int, req: _Request) -> None:
         self._release(slot)
@@ -487,38 +837,100 @@ class ContinuousBatcher:
     # -- worker -----------------------------------------------------------
 
     async def _device(self, fn, *args):
-        """Run one device call in the executor under the gpu lock."""
+        """Dispatch one device call in the executor under the gpu lock."""
         loop = asyncio.get_running_loop()
         async with self.gpu_lock:
             return await loop.run_in_executor(None, fn, *args)
 
+    @staticmethod
+    async def _fetch(copy: HostCopy) -> list[np.ndarray]:
+        """Wait for a result's host copy off the lock and off the event
+        loop (the device may still be busy with earlier chunks)."""
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(None, copy.wait)
+
+    def _blocks_for(self, req: _Request) -> list[int] | None:
+        n_blocks = -(-min(len(req.tokens) + req.max_new,
+                          self.engine.ec.max_len)
+                     // self.cengine.block_size)
+        return self.cengine.pool.alloc(n_blocks)
+
+    def _take_slot(self, req: _Request, blocks: list[int]) -> int:
+        slot = self._free.pop()
+        req.owned = blocks
+        self._active[slot] = req
+        self._set_knobs(slot, req.sampling)
+        self.requests += 1
+        return slot
+
     async def _admit(self, reqs: list[_Request]) -> None:
-        """Reserve fresh blocks for each request and adopt a frozen slot;
-        a request the pool cannot cover waits at the queue head."""
-        bs = self.cengine.block_size
-        mb = self.cengine.blocks_per_slot
-        deferred = []
+        """Reserve fresh blocks for each request and admit it; a request
+        the pool cannot cover waits at the queue head."""
+        deferred, planned = [], []
         for req in reqs:
-            n_blocks = -(-min(len(req.tokens) + req.max_new,
-                              self.engine.ec.max_len) // bs)
-            blocks = self.cengine.pool.alloc(n_blocks)
+            blocks = self._blocks_for(req)
             if blocks is None:
                 deferred.append(req)
-                continue
-            table = np.zeros(mb, np.int32)
-            table[:n_blocks] = blocks
-            slot = self._free.pop()
-            req.owned = blocks
-            req.prefilling = {"fed": 0}
-            self._active[slot] = req
-            self._prefill_q.append(slot)
-            self._set_knobs(slot, req.sampling)
-            self.requests += 1
-            if self._st is None:
-                self._st = await self._device(self.cengine.init_slots)
-            await self._device(self.cengine.adopt_slot, self._st, slot,
-                               table, 0, req.tokens[0])
+            else:
+                planned.append((req, blocks))
         self._pending.extendleft(reversed(deferred))
+        if self.prefill_chunk_tokens:
+            for req, blocks in planned:
+                await self._adopt(req, blocks)
+            return
+        groups: dict[int, list] = {}
+        for req, blocks in planned:
+            b = self.cengine.bucket_for(len(req.tokens), req.max_new)
+            groups.setdefault(b, []).append((req, blocks))
+        for bucket, group in groups.items():
+            await self._admit_group(bucket, group)
+
+    async def _adopt(self, req: _Request, blocks: list[int]) -> None:
+        """Chunked admission: a frozen slot pointed at fresh blocks; the
+        prompt follows in slices."""
+        table = np.zeros(self.cengine.blocks_per_slot, np.int32)
+        table[:len(blocks)] = blocks
+        slot = self._take_slot(req, blocks)
+        req.prefilling = {"fed": 0}
+        self._prefill_q.append(slot)
+        await self._device(self.cengine.adopt_slot, self.cengine.slots(),
+                           slot, table, 0, req.tokens[0])
+
+    async def _admit_group(self, bucket: int, group: list) -> None:
+        """Monolithic admission of one bucket group: ONE prefill of the
+        group padded to min(pow2_ceil(g), max_slots) rows with greedy
+        dummies (sizes `warmup` covers), ONE insert of the real rows into
+        their fresh blocks, then each request's first token."""
+        n = len(group)
+        pad = min(pow2_ceil(n), self.cengine.S) - n
+        lists = [req.tokens for req, _ in group] + [[0]] * pad
+        samplings = [req.sampling for req, _ in group] + [GREEDY] * pad
+        tables = np.zeros((n, self.cengine.blocks_per_slot), np.int32)
+        slots = []
+        for i, (req, blocks) in enumerate(group):
+            tables[i, :len(blocks)] = blocks
+            slots.append(self._take_slot(req, blocks))
+        ce = self.cengine
+
+        def run():
+            pstate, first, _, lps = ce.prefill_batch(lists, bucket,
+                                                     samplings, ce.gen)
+            ce.insert_many(ce.slots(), slots, pstate, list(range(n)),
+                           first, tables=tables)
+            return HostCopy(first[:n], lps[:n])
+
+        t0 = time.perf_counter()
+        firsts, flps = await self._fetch(await self._device(run))
+        self.prefill_s += time.perf_counter() - t0
+        self.prefills += 1
+        for i, (slot, (req, _)) in enumerate(zip(slots, group)):
+            if self._active.get(slot) is not req:
+                continue
+            if req.fut.done():   # cancelled while prefilling
+                self._finish(slot, req)
+                continue
+            self._emit(slot, req, int(firsts[i]), float(flps[i]),
+                       decode=False)
 
     async def _advance_prefill(self) -> None:
         """Feed one slice of the unfinished prompt with the fewest tokens
@@ -539,72 +951,91 @@ class ContinuousBatcher:
         finish = fed + n == len(req.tokens)
         toks = np.zeros((1, budget), np.int64)
         toks[0, :n] = req.tokens[fed:fed + n]
-        sp = self._sp()
 
         def run():
-            _, nxt, lp = self.cengine.append_rows(
-                self._st, [slot], toks, [n], [finish], sp, self._gen)
-            if finish:
-                return int(nxt[0]), float(lp[0])
-            return None, None
+            nxt, lp = self.cengine.prefill_slice(self._sp(), slot, toks, n,
+                                                 finish)
+            return HostCopy(nxt, lp) if finish else None
 
         t0 = time.perf_counter()
-        first, flp = await self._device(run)
+        out = await self._device(run)
+        if out is not None:
+            first, flp = await self._fetch(out)
         self.prefill_s += time.perf_counter() - t0
+        self.slices += 1
         req.prefilling["fed"] = fed + n
         if finish:
             self._prefill_q.remove(slot)
             req.prefilling = None
-            self._emit(slot, req, first, flp, decode=False)
+            self._emit(slot, req, int(first[0]), float(flp[0]),
+                       decode=False)
 
-    def _plan_steps(self) -> int:
-        """Next decode chunk: the longest remaining budget among live
-        (non-frozen) slots, capped at `chunk`; 0 = nothing to decode."""
-        best = max((r.max_new - len(r.out) for r in self._active.values()
-                    if r.prefilling is None), default=0)
-        return min(self.chunk, best)
+    def _plan_steps(self, inflight) -> int:
+        """Next chunk size: the longest remaining budget among live
+        (non-frozen) slots NOT already covered by chunks in flight (per
+        request: a slot re-admitted after a dispatch is not covered by
+        it), capped at `chunk`; 0 = nothing useful to dispatch."""
+        best = 0
+        for slot, req in self._active.items():
+            if req.prefilling is not None:
+                continue
+            cover = sum(r["steps"] for r in inflight
+                        if r["snap"].get(slot) is req)
+            best = max(best, req.max_new - len(req.out) - cover)
+        return min(self.chunk, best) if best > 0 else 0
 
-    async def _decode_chunk(self, steps: int) -> None:
-        sp = self._sp()
-        # tokens are valid only for the requests live at dispatch
+    async def _dispatch_chunk(self, steps: int) -> dict:
+        """Queue one decode chunk and its host copy, without waiting for
+        the device. The snapshot maps slot -> the request live at
+        dispatch: the chunk's tokens belong to that request only (a slot
+        retired and re-admitted meanwhile holds a new one)."""
         snap = {s: r for s, r in self._active.items()
                 if r.prefilling is None}
 
         def run():
-            _, toks, lps = self.cengine.step(self._st, sp, self._gen,
-                                             steps)
-            return toks.cpu().numpy(), lps.cpu().numpy()
+            return HostCopy(*self.cengine.decode(self._sp(), steps))
 
         t0 = time.perf_counter()
-        toks, lps = await self._device(run)
+        out = await self._device(run)
         self.decode_s += time.perf_counter() - t0
         self.calls += steps
-        for slot, req in snap.items():
+        return {"out": out, "steps": steps, "snap": snap}
+
+    async def _sync_chunk(self, rec: dict) -> None:
+        t0 = time.perf_counter()
+        await self._fetch(rec["out"])
+        self.decode_s += time.perf_counter() - t0
+
+    def _process_chunk(self, rec: dict) -> None:
+        toks, lps = rec["out"].wait()
+        for slot, req in rec["snap"].items():
             if self._active.get(slot) is not req:
-                continue
+                continue   # retired (and maybe re-admitted) meanwhile
             if req.fut.done():   # caller cancelled mid-decode
                 self._finish(slot, req)
                 continue
-            for j in range(steps):
+            for j in range(rec["steps"]):
                 self._emit(slot, req, int(toks[slot, j]),
                            float(lps[slot, j]))
                 if slot not in self._active:
                     break   # retired mid-chunk; the tail is dropped
 
     async def _run(self) -> None:
+        # decode chunks on the device, oldest first
+        inflight: collections.deque = collections.deque()
         while True:
-            if not self._active and not self._pending:
+            if not self._active and not self._pending and not inflight:
                 self._wake.clear()
                 await self._wake.wait()
             try:
                 # reset retired slots' tables BEFORE admission can hand
-                # their freed blocks to a new request
-                if self._dirty and self._st is not None:
+                # their freed blocks to a new request (queued behind the
+                # chunks in flight, which may still write them)
+                if self._dirty:
                     dirty = sorted(set(self._dirty))
                     self._dirty.clear()
-                    await self._device(self.cengine.reset_slots, self._st,
-                                       dirty)
-                self._dirty.clear()
+                    await self._device(self.cengine.reset_slots,
+                                       self.cengine.slots(), dirty)
                 if self._free and self._pending:
                     take = []
                     while self._pending and len(take) < len(self._free):
@@ -614,9 +1045,15 @@ class ContinuousBatcher:
                     await self._admit(take)
                 if self._prefill_q:
                     await self._advance_prefill()
-                steps = self._plan_steps()
-                if steps:
-                    await self._decode_chunk(steps)
+                while inflight and inflight[0]["out"].ready():
+                    self._process_chunk(inflight.popleft())
+                steps = self._plan_steps(inflight)
+                if steps and len(inflight) < self.pipeline_depth:
+                    inflight.append(await self._dispatch_chunk(steps))
+                elif inflight:
+                    head = inflight.popleft()
+                    await self._sync_chunk(head)
+                    self._process_chunk(head)
                 elif not self._prefill_q and self._pending:
                     # queued work the pool cannot take yet: wait for a
                     # retirement instead of spinning
@@ -624,6 +1061,7 @@ class ContinuousBatcher:
                 self.iterations += 1
             except Exception as e:  # noqa: BLE001 — fail admitted requests
                 log.exception("continuous batcher device call failed")
+                inflight.clear()
                 self._fail_all(e)
                 continue
             # let submissions and cancellations in between iterations

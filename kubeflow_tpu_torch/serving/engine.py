@@ -13,17 +13,24 @@ The one-shot paths keep a dense cache `[L, b, max_len, n_kv, hd]`
 (`DecodeState`) written IN PLACE: each forward assigns its s new rows
 per layer at the shared cursor, and nothing copies the cache. Where the
 reference scans its decode steps inside one compiled program, this
-engine runs a Python loop of `length` steps with EOS forcing on the
-device and no host sync. Every decode step's attention (one token per
-row, against the whole cache, with the left-pad mask) goes through
-`ops.attention.dot_product_attention`'s "auto" rule, which takes the
-dense decode kernel (ops/cuda/decode_attention.py) for CUDA tensors.
+engine captures one decode step as a CUDA graph per batch size and
+sampling key (serving/graphs.py) and replays it `length` times, with EOS
+forcing on the device and no host read in between. The graph needs
+fixed addresses, so the engine owns one cache per batch size (a
+`_Lane`) and the step advances a device cursor; the host int
+`DecodeState.length` stays the cursor of prefill, scoring and the
+speculative engine, which run eagerly. Every decode step's attention
+(one token per row, against the whole cache, with the left-pad mask)
+goes through `ops.attention.dot_product_attention`'s "auto" rule, which
+takes the dense decode kernel (ops/cuda/decode_attention.py) for CUDA
+tensors.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 from typing import Callable
 
 import numpy as np
@@ -35,6 +42,7 @@ from kubeflow_tpu_torch.ops.attention import dot_product_attention
 from kubeflow_tpu_torch.ops.embedding import embed_lookup
 from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rotary import apply_rope, rope_frequencies
+from kubeflow_tpu_torch.serving.graphs import GraphCache, upload
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,9 +88,10 @@ class SamplingParams:
         t = np.asarray(temperature, np.float32)
         k = np.asarray(top_k, np.int64)
         p = np.asarray(top_p, np.float32)
-        return cls(torch.as_tensor(t, device=device),
-                   torch.as_tensor(k, device=device),
-                   torch.as_tensor(p, device=device),
+        device = torch.device(device)
+        return cls(upload(t, torch.float32, device),
+                   upload(k, torch.int64, device),
+                   upload(p, torch.float32, device),
                    sampled=bool((t > 0).any()),
                    filtered=bool(((k > 0) | (p < 1.0)).any()))
 
@@ -143,6 +152,47 @@ class DecodeState:
         self.offset = offset
 
 
+# (sampled, filtered) host flags of a step: each pair runs other ops, so
+# each has its graph; filtering without sampling draws nothing
+SAMPLING_KEYS = ((False, False), (True, False), (True, True))
+
+
+class _Lane:
+    """One batch size's dense cache and the static tensors its decode
+    graph reads and writes: each row's cursor (a device [b] int32, so a
+    step depends on no host value), last token, EOS flag and sampling
+    knobs; a step counter; and the history of tokens and logprobs the
+    steps log at it. The engine owns one lane per batch size, so the
+    graph's tensor addresses never change; prefill writes cells [0, n)
+    and the pad mask covers the rest."""
+
+    def __init__(self, eng: "InferenceEngine", b: int):
+        dev, max_len = eng.device, eng.ec.max_len
+
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        st = eng.init_state(b)
+        self.b = b
+        self.k, self.v, self.pad, self.offset = st.k, st.v, st.pad, st.offset
+        self.rows = torch.arange(b, device=dev)
+        self.cursor, self.tok = zeros(b), zeros(b)
+        self.done = zeros(b, dtype=torch.bool)
+        self.temperature = zeros(b, dtype=torch.float32)
+        self.top_k = zeros(b, dtype=torch.int64)
+        self.top_p = torch.ones(b, dtype=torch.float32, device=dev)
+        self.step = zeros(1, dtype=torch.int64)
+        self.toks = zeros(b, max_len)
+        self.lps = zeros(b, max_len, dtype=torch.float32)
+        self.gen = torch.Generator(device=dev)
+        self.graphs = GraphCache(dev, eager=not eng.cuda_graphs)
+        self.busy = False
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (
+            self.k, self.v, self.pad, self.toks, self.lps))
+
+
 def transformer_block(cfg, fam: Family, p, x, rope_positions, inv_freq,
                       write_kv, attn, proj=None):
     """One decoder block on x [b, s, h]: norms, QKV/output projections,
@@ -176,12 +226,20 @@ class InferenceEngine:
 
     `device=None` is the CUDA card (raises when there is none); the CPU
     tests pass `device="cpu"`. `params` must already live there
-    (`models.llama.init` or `bridge.from_jax`)."""
+    (`models.llama.init` or `bridge.from_jax`). `cuda_graphs=False`
+    launches the decode step's ops one by one on the card instead of
+    replaying its graph: an explicit control, never a fallback."""
 
     def __init__(self, params, cfg, family: Family,
                  engine_config: EngineConfig = EngineConfig(),
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None, *,
+                 cuda_graphs: bool = True):
         self.device = resolve_device(device)
+        self.cuda_graphs = cuda_graphs
+        self._lanes: dict[int, _Lane] = {}
+        self._retired = [0, 0]   # captures, replays of private lanes
+        # generate calls and streams may run on several threads
+        self._lane_lock = threading.Lock()
         self.params = params
         self.cfg = cfg
         self.family = family
@@ -213,11 +271,17 @@ class InferenceEngine:
         chosen token's log-softmax under the RAW model distribution
         (temperature and filters do not rescale it). Greedy is the
         argmax of the fp32 logits; sampled rows draw from `gen`, so
-        their tokens cannot match the reference's RNG."""
+        their tokens cannot match the reference's RNG. The draw is the
+        exponential race, argmax(p / E) with E ~ Exp(1) from `gen`,
+        which picks token i with probability p_i (what torch.multinomial
+        does for one sample) and reads nothing back to the host, so a
+        CUDA graph holds it."""
         tok = torch.argmax(logits, dim=-1)
         if sp.sampled:
             probs = torch.softmax(scaled_filtered_logits(logits, sp), -1)
-            drawn = torch.multinomial(probs, 1, generator=gen)[:, 0]
+            race = torch.empty_like(probs).exponential_(generator=gen)
+            race.clamp_(min=torch.finfo(torch.float32).tiny)
+            drawn = torch.argmax(probs / race, dim=-1)
             tok = torch.where(sp.temperature > 0.0, drawn, tok)
         raw = torch.log_softmax(logits.float(), dim=-1)
         lp = torch.gather(raw, -1, tok[:, None])[:, 0]
@@ -227,6 +291,28 @@ class InferenceEngine:
         return rms_norm(x, self.params["final_norm"], self.cfg.norm_eps)
 
     # -- dense-cache forward -----------------------------------------------
+
+    def _stack(self, tokens, positions, rope_positions, kv_valid, write):
+        """The decoder stack over a dense cache: tokens [b, s] at cache
+        cells `positions` [b, s]; `write(li, k, v) -> (k_cache, v_cache)`
+        puts layer li's new K/V in place. -> final-normed x [b, s, h]."""
+        cfg, fam, ec = self.cfg, self.family, self.ec
+        kv_positions = self._cells.expand(tokens.shape[0], ec.max_len)
+
+        def attn(q, kc, vc):
+            # this cache's cell index IS the token position: the
+            # declaration the decode kernel dispatches on
+            return dot_product_attention(
+                q, kc, vc, positions, kv_positions, causal=True,
+                kv_mask=kv_valid, window=cfg.sliding_window,
+                contiguous_positions=True)
+
+        x = self._embed(tokens)
+        for li, p in enumerate(self.layers):
+            x, _ = transformer_block(
+                cfg, fam, p, x, rope_positions, self._inv_freq,
+                lambda k, v, li=li: write(li, k, v), attn)
+        return self.rms_final(x)
 
     def _forward_cached(self, tokens: torch.Tensor, state: DecodeState, *,
                         prompt_mask: torch.Tensor | None = None,
@@ -241,12 +327,11 @@ class InferenceEngine:
         rows; pads are LEFT-aligned, excluded from every later
         attention, and rope sees logical positions (cell - pad count), so
         a padded row computes what its unpadded prompt would."""
-        cfg, fam, ec = self.cfg, self.family, self.ec
         b, s = tokens.shape
         start = state.length
-        if start + s > ec.max_len:
+        if start + s > self.ec.max_len:
             raise ValueError(f"cells {start} + {s} exceed the cache bucket "
-                             f"{ec.max_len}")
+                             f"{self.ec.max_len}")
         positions = (start + torch.arange(
             s, dtype=torch.int32, device=self.device)).expand(b, s)
         pad, offset = state.pad, state.offset
@@ -255,27 +340,15 @@ class InferenceEngine:
             pad = pad.clone()
             pad[:, start:start + s] = ~prompt_mask
         rope_positions = torch.clamp(positions - offset[:, None], min=0)
-        kv_positions = self._cells.expand(b, ec.max_len)
         kv_valid = (self._cells < start + s)[None, :] & ~pad
-        x = self._embed(tokens)
-        for li, p in enumerate(self.layers):
-            def write_kv(k, v, li=li):
-                kc, vc = state.k[li], state.v[li]
-                kc[:, start:start + s] = k.to(kc.dtype)
-                vc[:, start:start + s] = v.to(vc.dtype)
-                return kc, vc
 
-            def attn(q, kc, vc):
-                # this cache's cell index IS the token position: the
-                # declaration the decode kernel dispatches on
-                return dot_product_attention(
-                    q, kc, vc, positions, kv_positions, causal=True,
-                    kv_mask=kv_valid, window=cfg.sliding_window,
-                    contiguous_positions=True)
+        def write(li, k, v):
+            kc, vc = state.k[li], state.v[li]
+            kc[:, start:start + s] = k.to(kc.dtype)
+            vc[:, start:start + s] = v.to(vc.dtype)
+            return kc, vc
 
-            x, _ = transformer_block(cfg, fam, p, x, rope_positions,
-                                     self._inv_freq, write_kv, attn)
-        x = self.rms_final(x)
+        x = self._stack(tokens, positions, rope_positions, kv_valid, write)
         logits = self._head(x if return_all else x[:, -1])
         return logits, DecodeState(state.k, state.v, start + s, pad, offset)
 
@@ -299,10 +372,132 @@ class InferenceEngine:
 
     def _tensor(self, x, dtype: torch.dtype) -> torch.Tensor:
         """A tensor, numpy array or nested list as `dtype` on the
-        engine's device."""
-        if isinstance(x, torch.Tensor):
+        engine's device (host data through pinned memory)."""
+        if isinstance(x, torch.Tensor) and x.device.type != "cpu":
             return x.to(device=self.device, dtype=dtype)
-        return torch.as_tensor(np.asarray(x), device=self.device).to(dtype)
+        return upload(x, dtype, self.device)
+
+    # -- decode lanes -------------------------------------------------------
+
+    def _acquire(self, b: int) -> "_Lane":
+        """Batch size b's lane: the engine's own, or a private one while
+        the own lane is held (a stream in progress)."""
+        with self._lane_lock:
+            lane = self._lanes.get(b)
+            if lane is None:
+                lane = self._lanes[b] = _Lane(self, b)
+            elif lane.busy:
+                lane = _Lane(self, b)
+            lane.busy = True
+        return lane
+
+    def _release(self, lane: "_Lane") -> None:
+        with self._lane_lock:
+            lane.busy = False
+            if self._lanes.get(lane.b) is not lane:   # a private lane
+                self._retired[0] += lane.graphs.captures
+                self._retired[1] += lane.graphs.replays
+
+    @property
+    def captures(self) -> int:
+        """Decode graphs captured (on the CPU: step bodies built)."""
+        return self._retired[0] + sum(
+            lane.graphs.captures for lane in self._lanes.values())
+
+    @property
+    def replays(self) -> int:
+        return self._retired[1] + sum(
+            lane.graphs.replays for lane in self._lanes.values())
+
+    def lane_bytes(self) -> int:
+        """Device bytes of the engine's own lanes (caches + history)."""
+        return sum(lane.nbytes() for lane in self._lanes.values())
+
+    def _step_at_cursor(self, lane: "_Lane") -> torch.Tensor:
+        """One token per row from the lane's device cursor: the s = 1
+        case of `_forward_cached` with the cursor a [b] tensor, so that
+        nothing about the step depends on a host value. -> logits."""
+        positions = lane.cursor[:, None]
+        rope_positions = torch.clamp(positions - lane.offset[:, None],
+                                     min=0)
+        kv_valid = (self._cells[None, :] <= positions) & ~lane.pad
+        at = lane.cursor.long()
+
+        def write(li, k, v):
+            kc, vc = lane.k[li], lane.v[li]
+            kc[lane.rows, at] = k[:, 0].to(kc.dtype)
+            vc[lane.rows, at] = v[:, 0].to(vc.dtype)
+            return kc, vc
+
+        x = self._stack(lane.tok[:, None], positions, rope_positions,
+                        kv_valid, write)
+        return self._head(x[:, -1])
+
+    def _lane_step(self, lane: "_Lane", sp: SamplingParams) -> torch.Tensor:
+        """The one-shot decode step, the body the card captures: sample
+        from the lane's cursor, force EOS on finished rows, log the token
+        and its logprob at the step counter, advance. Reads and writes
+        only the lane's static tensors and generator."""
+        nxt, lp = self._sample(self._step_at_cursor(lane), lane.gen, sp)
+        eos = self.ec.eos_token
+        if eos is not None:
+            nxt = torch.where(lane.done, torch.full_like(nxt, eos), nxt)
+            lane.done |= nxt == eos
+        lane.toks.index_copy_(1, lane.step, nxt[:, None])
+        lane.lps.index_copy_(1, lane.step, lp[:, None])
+        lane.tok.copy_(nxt)
+        lane.cursor += 1
+        lane.step += 1
+        return nxt
+
+    def _load(self, lane: "_Lane", state: DecodeState, first, done,
+              sp: SamplingParams) -> None:
+        """Point the lane at a prefilled state (its cache is the lane's)
+        and the first sampled token."""
+        lane.pad.copy_(state.pad)
+        lane.offset.copy_(state.offset)
+        lane.cursor.fill_(state.length)
+        lane.tok.copy_(first)
+        lane.done.copy_(done)
+        lane.temperature.copy_(sp.temperature)
+        lane.top_k.copy_(sp.top_k)
+        lane.top_p.copy_(sp.top_p)
+        lane.step.zero_()
+
+    def _replay(self, lane: "_Lane", gen: torch.Generator, sampled: bool,
+                filtered: bool, n: int) -> None:
+        """n decode steps on the lane: n replays of the step graph of its
+        sampling key, no host read in between. `gen` is the caller's
+        generator; the lane's own (the one its graphs hold) takes its
+        state before and gives it back after."""
+        key = (sampled, sampled and filtered)
+        sp = SamplingParams(lane.temperature, lane.top_k, lane.top_p, *key)
+        run = lane.graphs.runner(key, lambda: self._lane_step(lane, sp),
+                                 generator=lane.gen)
+        lane.gen.set_state(gen.get_state())
+        for _ in range(n):
+            run()
+        gen.set_state(lane.gen.get_state())
+
+    @torch.inference_mode()
+    def warmup(self, batch_sizes=(1,)) -> int:
+        """Capture the decode step of every sampling key for each batch
+        size ahead of traffic (the window batcher's rows are powers of
+        two up to its max_batch); a batch size left out captures on first
+        use. Returns the number of graphs warmed."""
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        n = 0
+        for b in batch_sizes:
+            lane = self._acquire(b)
+            try:
+                for sampled, filtered in SAMPLING_KEYS:
+                    lane.cursor.zero_()   # a throwaway step at cell 0
+                    lane.step.zero_()
+                    self._replay(lane, gen, sampled, filtered, 1)
+                    n += 1
+            finally:
+                self._release(lane)
+        return n
 
     # -- sampling setup ----------------------------------------------------
 
@@ -353,9 +548,9 @@ class InferenceEngine:
 
     def _prep(self, prompt_tokens, max_new, rng, temperature, top_k, top_p,
               prompt_mask):
-        """Shared validation + sampling/state setup of the entry points.
+        """Shared validation + sampling setup of the entry points.
         -> (sp, rng, tokens [b, s] int64 on the device, prompt_mask
-        [b, s] bool on the device, a fresh state)."""
+        [b, s] bool on the device)."""
         tokens = self._tensor(prompt_tokens, torch.int64)
         if tokens.ndim != 2:
             raise ValueError(f"prompt_tokens must be [b, s], got shape "
@@ -368,7 +563,9 @@ class InferenceEngine:
                 f"prompt {s} + max_new {max_new} exceeds cache bucket "
                 f"{self.ec.max_len}")
         if prompt_mask is not None:
-            m = self._tensor(prompt_mask, torch.bool).cpu().numpy()
+            m = (prompt_mask.cpu().numpy()
+                 if isinstance(prompt_mask, torch.Tensor)
+                 else np.asarray(prompt_mask)).astype(bool)
             if m.shape != (b, s):
                 raise ValueError(
                     f"prompt_mask shape {m.shape} != {(b, s)}")
@@ -376,12 +573,12 @@ class InferenceEngine:
                 raise ValueError(
                     "prompt_mask pads must be LEFT-aligned (False... "
                     "then True...) with a real final token per row")
-            mask = torch.as_tensor(m, device=self.device)
+            mask = upload(m, torch.bool, self.device)
         else:
             mask = torch.ones((b, s), dtype=torch.bool, device=self.device)
         sp, rng = self._resolve_sampling(temperature, top_k, top_p, rng,
                                          batch=b)
-        return sp, rng, tokens, mask, self.init_state(b)
+        return sp, rng, tokens, mask
 
     # -- one-shot generation -----------------------------------------------
 
@@ -397,34 +594,6 @@ class InferenceEngine:
             first, dtype=torch.bool)
         return state, first, done, lp
 
-    def _decode_chunk(self, state, tok, gen, done, sp: SamplingParams, *,
-                      length: int):
-        """Exactly `length` decode steps from (state, last token, done).
-        -> (state, last token, done, tokens [b, length], logprobs
-        [b, length]). A row past its first EOS emits EOS (forced on the
-        device; its logprob entries describe the pre-forcing sample and
-        are undefined for callers). The one step body both `generate`
-        and `generate_stream` run."""
-        eos = self.ec.eos_token
-        toks, lps = [], []
-        for _ in range(length):
-            logits, state = self._forward_cached(tok[:, None], state)
-            nxt, lp = self._sample(logits, gen, sp)
-            if eos is not None:
-                nxt = torch.where(done, torch.full_like(nxt, eos), nxt)
-                done = done | (nxt == eos)
-            toks.append(nxt)
-            lps.append(lp)
-            tok = nxt
-        b = tok.shape[0]
-        if not toks:
-            return (state, tok, done,
-                    torch.zeros((b, 0), dtype=torch.int32,
-                                device=self.device),
-                    torch.zeros((b, 0), dtype=torch.float32,
-                                device=self.device))
-        return state, tok, done, torch.stack(toks, 1), torch.stack(lps, 1)
-
     @torch.inference_mode()
     def generate(self, prompt_tokens, *, max_new: int = 32,
                  rng: torch.Generator | None = None, temperature=None,
@@ -435,27 +604,26 @@ class InferenceEngine:
         int32 on the engine's device (EOS trimming is the caller's job),
         or (tokens, logprobs) with `return_logprobs`: each chosen
         token's raw-model log-softmax (entries past a row's first EOS
-        are undefined).
+        are undefined: a row past its first EOS emits EOS, forced on the
+        device).
 
         temperature/top_k/top_p default from EngineConfig (scalars or
         per-row vectors); `rng` is a torch.Generator on the engine's
         device. `prompt_mask` batches variable-length prompts, pads
         LEFT-aligned. `prefill_chunk` prefills in fixed slices
-        (`prefill_chunked`): same tokens, bounded activation memory."""
+        (`prefill_chunked`): same tokens, bounded activation memory.
+        Decode replays the lane's step graph max_new - 1 times."""
         if adapter is not None:
             raise NotImplementedError(
                 "multi-LoRA adapters are not ported yet (ROADMAP Queue 1)")
-        sp, gen, prompt, mask, state = self._prep(
+        sp, gen, prompt, mask = self._prep(
             prompt_tokens, max_new, rng, temperature, top_k, top_p,
             prompt_mask)
-        if prefill_chunk is None:
-            state, first, done, lp1 = self._prefill_sample(
-                prompt, state, gen, sp, mask)
-        else:
+        b, n = prompt.shape
+        if prefill_chunk is not None:
             if prefill_chunk < 1:
                 raise ValueError(f"prefill_chunk must be >= 1, got "
                                  f"{prefill_chunk}")
-            b, n = prompt.shape
             pad = (-n) % prefill_chunk
             if n + pad + max_new > self.ec.max_len:
                 raise ValueError(
@@ -464,14 +632,22 @@ class InferenceEngine:
             if pad:
                 prompt = torch.cat([prompt.new_zeros((b, pad)), prompt], 1)
                 mask = torch.cat([mask.new_zeros((b, pad)), mask], 1)
-            state, first, done, lp1 = self.prefill_chunked(
-                prompt, state, gen, sp, mask, chunk=prefill_chunk)
-        _, _, _, rest, lps = self._decode_chunk(
-            state, first, gen, done, sp, length=max_new - 1)
-        toks = torch.cat([first[:, None], rest], 1)
-        if return_logprobs:
-            return toks, torch.cat([lp1[:, None], lps], 1)
-        return toks
+        lane = self._acquire(b)
+        try:
+            state = DecodeState(lane.k, lane.v, 0)
+            if prefill_chunk is None:
+                state, first, done, lp1 = self._prefill_sample(
+                    prompt, state, gen, sp, mask)
+            else:
+                state, first, done, lp1 = self.prefill_chunked(
+                    prompt, state, gen, sp, mask, chunk=prefill_chunk)
+            self._load(lane, state, first, done, sp)
+            self._replay(lane, gen, sp.sampled, sp.filtered, max_new - 1)
+            toks = torch.cat([first[:, None], lane.toks[:, :max_new - 1]], 1)
+            lps = torch.cat([lp1[:, None], lane.lps[:, :max_new - 1]], 1)
+        finally:
+            self._release(lane)
+        return (toks, lps) if return_logprobs else toks
 
     def generate_stream(self, prompt_tokens, *, max_new: int = 32,
                         chunk: int = 8, rng: torch.Generator | None = None,
@@ -482,10 +658,12 @@ class InferenceEngine:
         arguments (and a generator in the same state) the concatenated
         stream equals a prefix of `generate`'s output. The stream stops
         early once every row has hit EOS. Validation is eager: bad
-        arguments raise here, not at the first next()."""
+        arguments raise here, not at the first next(). The stream holds
+        its lane across yields: a `generate` or another stream of the
+        same batch size meanwhile gets a lane of its own."""
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
-        sp, gen, prompt, mask, state = self._prep(
+        sp, gen, prompt, mask = self._prep(
             prompt_tokens, max_new, rng, temperature, top_k, top_p,
             prompt_mask)
 
@@ -493,21 +671,29 @@ class InferenceEngine:
             # inference mode per step, never across a yield: it is
             # thread-wide state the consumer would run under
             with torch.inference_mode():
-                st, tok, done, _ = self._prefill_sample(prompt, state, gen,
-                                                        sp, mask)
-                out = tok[:, None].cpu().numpy()
-            yield out
-            emitted = 1
-            while emitted < max_new:
-                if self.ec.eos_token is not None and bool(done.all()):
-                    return
-                n = min(chunk, max_new - emitted)
+                lane = self._acquire(prompt.shape[0])
+            try:
                 with torch.inference_mode():
-                    st, tok, done, rest, _ = self._decode_chunk(
-                        st, tok, gen, done, sp, length=n)
-                    out = rest.cpu().numpy()
+                    state, tok, done, _ = self._prefill_sample(
+                        prompt, DecodeState(lane.k, lane.v, 0), gen, sp,
+                        mask)
+                    self._load(lane, state, tok, done, sp)
+                    out = tok[:, None].cpu().numpy()
                 yield out
-                emitted += n
+                emitted = 1
+                while emitted < max_new:
+                    if self.ec.eos_token is not None and bool(
+                            lane.done.all()):
+                        return
+                    n = min(chunk, max_new - emitted)
+                    with torch.inference_mode():
+                        self._replay(lane, gen, sp.sampled, sp.filtered, n)
+                        out = lane.toks[:, emitted - 1:
+                                        emitted - 1 + n].cpu().numpy()
+                    yield out
+                    emitted += n
+            finally:
+                self._release(lane)
 
         return _iter()
 

@@ -16,7 +16,9 @@ Modes, as in the reference's `create_serving_app`:
   batcher also carries `logprobs` (the reference sends such a request
   to the direct path instead).
 - `continuous=True`: every prompt rides the model's continuous batcher
-  on the paged KV pool (serving/continuous.py).
+  on the paged KV pool (serving/continuous.py): monolithic admission by
+  default, chunked prefill with `prefill_chunk_tokens`, decode chunks
+  dispatched ahead as CUDA-graph replays.
 - `"speculative": true` (either mode, a model registered in `drafts`):
   batch-1 speculative decoding through `SpeculativeEngine`.
 The reference's other routes (SSE streams, stop sequences, text mode,
@@ -26,6 +28,7 @@ scoring, drain, migration, reload, metrics, traces) are not ported yet.
 from __future__ import annotations
 
 import asyncio
+import logging
 import math
 from typing import Any
 
@@ -36,6 +39,8 @@ from kubeflow_tpu_torch.ops.cuda import launch_counts
 from kubeflow_tpu_torch.serving.continuous import (
     ContinuousBatcher,
     Overloaded,
+    bucket_pow2,
+    pow2_ceil,
 )
 from kubeflow_tpu_torch.serving.engine import InferenceEngine
 from kubeflow_tpu_torch.serving.speculative import SpeculativeEngine
@@ -45,20 +50,7 @@ BATCHERS_KEY: web.AppKey = web.AppKey("batchers", dict)
 SPEC_KEY: web.AppKey = web.AppKey("speculative", dict)
 GPU_LOCK_KEY: web.AppKey = web.AppKey("gpu_lock", asyncio.Lock)
 
-
-def pow2_ceil(n: int) -> int:
-    """Smallest power of two >= n (n >= 1)."""
-    p = 1
-    while p < n:
-        p *= 2
-    return p
-
-
-def bucket_pow2(n: int, cap: int) -> int:
-    """Round up to a power of two (>= 16), capped: the reference's
-    bucketing of the window batcher's widths and of the direct path's
-    max_new (kubeflow_tpu/serving/continuous.py::bucket_pow2)."""
-    return min(max(pow2_ceil(n), 16), cap)
+log = logging.getLogger(__name__)
 
 
 class Batcher:
@@ -198,8 +190,10 @@ class Batcher:
 
 def create_serving_app(engines: dict[str, InferenceEngine], *,
                        batch_window_ms: float = 0.0, max_batch: int = 8,
-                       continuous: bool = False,
+                       continuous: bool = False, warmup: bool = False,
+                       prefill_chunk: int | None = None,
                        prefill_chunk_tokens: int | None = None,
+                       pipeline_depth: int | None = None,
                        kv_block_size: int = 64,
                        drafts: dict[str, InferenceEngine] | None = None,
                        seed: int | None = None) -> web.Application:
@@ -207,15 +201,25 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
     engine: a window `Batcher` per model when `batch_window_ms > 0`,
     else every request calls `engine.generate` directly.
     `continuous=True` gives each model a continuous batcher of
-    `max_batch` slots on the paged KV pool (`prefill_chunk_tokens`,
-    default 64, and `kv_block_size` are its knobs; `seed` seeds its
-    sampler). `drafts` maps model names to draft engines; a request with
-    "speculative": true then decodes through `SpeculativeEngine`."""
-    if not continuous and (prefill_chunk_tokens is not None
+    `max_batch` slots on the paged KV pool: monolithic admission unless
+    `prefill_chunk_tokens` sets a chunked-prefill budget;
+    `prefill_chunk` slices long monolithic prefills; `pipeline_depth`
+    (None: 2 on CUDA, 1 on the CPU) is the decode dispatch-ahead depth;
+    `kv_block_size` the pool's block; `seed` seeds the sampler.
+    `warmup=True` runs every serving shape in an on_startup hook before
+    the app takes traffic: the continuous batchers' `warmup`, or in the
+    one-shot mode each engine's decode graphs for the window batcher's
+    row counts (powers of two up to max_batch). `drafts` maps model
+    names to draft engines; a request with "speculative": true then
+    decodes through `SpeculativeEngine`."""
+    if not continuous and (prefill_chunk is not None
+                           or prefill_chunk_tokens is not None
+                           or pipeline_depth is not None
                            or kv_block_size != 64):
         # these knobs only exist on the continuous batcher; ignoring
         # them would ship a server without what the caller asked for
-        raise ValueError("prefill_chunk_tokens/kv_block_size require "
+        raise ValueError("prefill_chunk/prefill_chunk_tokens/"
+                         "pipeline_depth/kv_block_size require "
                          "continuous=True")
     unknown = set(drafts or {}) - set(engines)
     if unknown:
@@ -232,8 +236,9 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
         app[BATCHERS_KEY] = {
             name: ContinuousBatcher(
                 eng, gpu_lock, max_slots=max_batch,
-                prefill_chunk_tokens=(64 if prefill_chunk_tokens is None
-                                      else prefill_chunk_tokens),
+                prefill_chunk=prefill_chunk,
+                prefill_chunk_tokens=prefill_chunk_tokens,
+                pipeline_depth=pipeline_depth,
                 kv_block_size=kv_block_size, seed=seed)
             for name, eng in engines.items()}
     else:
@@ -242,6 +247,22 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
                            max_batch=max_batch)
              for name, eng in engines.items()}
             if batch_window_ms > 0 else {})
+    if warmup:
+        rows = [1]
+        while rows[-1] < max_batch:
+            rows.append(rows[-1] * 2)
+
+        async def _warm(app_):
+            loop = asyncio.get_running_loop()
+            async with gpu_lock:
+                for name, eng in app_[ENGINES_KEY].items():
+                    b = app_[BATCHERS_KEY].get(name)
+                    fn = (b.warmup if isinstance(b, ContinuousBatcher)
+                          else lambda eng=eng: eng.warmup(rows))
+                    n = await loop.run_in_executor(None, fn)
+                    log.info("warmed %s: %d serving shapes", name, n)
+
+        app.on_startup.append(_warm)
 
     async def _close_batchers(app_):
         for b in app_[BATCHERS_KEY].values():
@@ -302,6 +323,7 @@ async def list_models(request: web.Request):
             if isinstance(b, ContinuousBatcher):
                 entry.update({
                     "batcher_mode": "continuous",
+                    "pipeline_depth": b.pipeline_depth,
                     "occupancy": round(b.occupancy(), 3),
                     "pending": len(b._pending),
                     "active_slots": len(b._active),

@@ -187,7 +187,7 @@ def test_continuous_only_knobs_and_drafts_are_checked(engines):
     app = create_serving_app({"m": teng}, continuous=True)
     batcher = app[BATCHERS_KEY]["m"]
     assert isinstance(batcher, ContinuousBatcher)
-    assert batcher.prefill_chunk_tokens == 64
+    assert batcher.prefill_chunk_tokens is None   # monolithic admission
 
 
 async def test_continuous_mode_reports_its_batcher(engines, aiohttp_client):
@@ -218,4 +218,4 @@ def test_cli_modes():
          "--continuous"]))
     batcher = cont[BATCHERS_KEY]["llama-tiny"]
     assert isinstance(batcher, ContinuousBatcher)
-    assert batcher.prefill_chunk_tokens == 64
+    assert batcher.prefill_chunk_tokens is None   # monolithic admission

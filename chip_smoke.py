@@ -11,8 +11,10 @@ Phases, each fatal on failure (exit code 1, no result line):
              llama3-1b shapes (n_q 16, n_kv 8, hd 128, block 64, bf16,
              max_len 1024, 8 slots): ragged cursors, a sliding window,
              copy-on-write-shared table prefixes, ragged q_lens with 0,
-             and the path's own prefill shape (one row, 64-token slices
-             at a 300-token prompt's cursors); then times kernel, plain
+             the path's own prefill shape (one row, 64-token slices at a
+             300-token prompt's cursors) and the capped repeat (one token
+             per row at cells 63, 127, 255 and 511 over a shared block
+             chain); then times kernel, plain
              version and one library call
              (SDPA over the gathered K/V, a yardstick the port never
              calls) and computes the card's bound for the same work.
@@ -55,15 +57,34 @@ Phases, each fatal on failure (exit code 1, no result line):
              every served token's logprob matches a teacher-forced pass
              of the plain dense model at the same weights, and the same
              requests through the explicit eager path (no graphs) give
-             the same greedy tokens. Prints the batcher's host ms per
-             decode step, the device-busy share (profiler) and peak
-             memory.
+             the same greedy tokens. The same requests again under the
+             profiler hit the radix prefix cache: the 130- and 300-token
+             prompts seed 128 and 256 cells (checked). Prints the
+             batcher's host ms per decode step, the device-busy share
+             (profiler) and peak memory.
 3b. serve  — the same with the reference's default monolithic admission
              (no `--prefill-chunk-tokens`): each bucket group prefills in
              one pass through the plain attention path, so
              `paged_prefill_append` must launch 0 times; the same
              checks otherwise (counts, no capture in traffic, repeated
-             prompt, teacher-forced logprobs and argmax).
+             prompt, cache hits, teacher-forced logprobs and argmax).
+3c. reuse  — radix prefix reuse at full width, chunked (64) and then
+             monolithic: the CLI's app (`--warmup`, depth 2, 8 slots),
+             counters set to 0 before and read after three waves: A,
+             four prompts on one 320-token prefix (suffixes of 20, 40,
+             70 and 100 tokens) sent at once; B, wave A again and a
+             256-token prompt twice (under the profiler); C, that prompt
+             again through `:generate` (seeded from 255 cells: its one
+             token at cell 255 after a 63-cell copy-on-write copy).
+             Checks hits, misses, tokens reused and prefilled, slices or
+             groups against what the prompt lengths reckon, exact launch
+             counts, no capture in traffic, the block ledger conserved,
+             wave B's chunked repeats identical to wave A's tokens, and
+             every logprob against the teacher-forced model. Then a
+             batcher with a 17-block pool and a 32-block host spill tier:
+             a 1000-token prompt evicts a cached 320-token prefix to host
+             memory, the prefix's prompt again restores it and gives its
+             first tokens again; prints the export's synchronous cost.
 4. train   — `Trainer` on llama3-1b at full width (fp32 masters, bf16
              activations, full remat, chunked CE in 16 chunks, AdamW
              warmup 10 / total 1000), random weights from seed 0, batch
@@ -104,8 +125,8 @@ Phases, each fatal on failure (exit code 1, no result line):
              per decode step of the window batch, speculative and
              target-alone tokens/s at batch 1, peak memory, and profiles
              one window-batch call.
-Then prints the `kernels` JSON line (launches: the paged decode kernel's
-over phases 3 and 3b, each other kernel's over its phase), the card's
+Then prints the `kernels` JSON line (launches: the paged kernels' over
+phases 3, 3b and 3c, each other kernel's over its phase), the card's
 name and power limit, and last `{"ok": true, "device": {...}}`.
 
 Exits non-zero without a result when CUDA is unavailable or the port's
@@ -179,6 +200,10 @@ TRAIN_LOSS_TOL = 1e-3
 LOGPROB_TOL = 0.1                  # served vs teacher-forced, bf16 model
 PROMPT_LENS = (17, 130, 300, 17)
 MAX_NEW = 16
+# phase 3c: four prompts on one shared prefix, and a prompt of a whole
+# number of blocks sent again (its repeat seeds all but its last cell)
+SHARED_PREFIX, SUFFIX_LENS, REPEAT_LEN = 320, (20, 40, 70, 100), 256
+SPILL_BLOCKS = 32                  # host tier budget of phase 3c's spill run
 # llama3-8b one-shot serving (phase 5): 32 layers, 32/8 heads, hd 128
 DENSE_LAYERS, DENSE_NQ, DENSE_B = 32, 32, 8
 DENSE_PROMPTS = (17, 45, 60, 90, 130, 200, 300, 17)   # the last repeats
@@ -215,6 +240,21 @@ def _tables(gen, torch, rows, cells_needed, shared_prefix=0):
         n = -(-cells // BS)
         ids = shared[:n] + [free.pop() for _ in range(n - len(shared[:n]))]
         table[r, :n] = torch.tensor(ids, dtype=torch.int32)
+    return table
+
+
+def _chain_tables(gen, torch, starts):
+    """Block tables of rows that each repeat a cached prompt of a
+    multiple of 64 tokens, seeded from all but its last cell: row r
+    shares the first starts[r] // BS blocks of one chain (read-only,
+    strictly below its start) and owns the block its start falls in,
+    which copy-on-write filled with the cells below the start."""
+    free = (torch.randperm(NUM_BLOCKS - 1, generator=gen) + 1).tolist()
+    chain = [free.pop() for _ in range(max(starts) // BS)]
+    table = torch.zeros(len(starts), NB, dtype=torch.int32)
+    for r, start in enumerate(starts):
+        ids = chain[:start // BS] + [free.pop()]
+        table[r, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
     return table
 
 
@@ -676,6 +716,20 @@ def check_prefill(torch, dev):
                        mask))
     results["path_slices"] = (None, compare(slices))
 
+    # the capped repeat: one token per row at cells 63, 127, 255 and 511
+    # (a prompt of 64k tokens sent again seeds all but its last cell),
+    # over the chain blocks the rows share below their starts
+    gen_c = torch.Generator().manual_seed(12)
+    starts = [63, 127, 255, 511]
+    q1, kn1, vn1 = (torch.randn(rows, CHUNK, n, HD, generator=gen_c).to(
+        dev, dt) for n in (N_Q, N_KV, N_KV))
+    mask = torch.ones(rows, NB * BS, dtype=torch.bool)
+    mask[:, 5] = False
+    call = (q1, kn1, vn1, _chain_tables(gen_c, torch, starts).to(dev),
+            torch.tensor(starts, dtype=torch.int32, device=dev),
+            torch.ones(rows, dtype=torch.int32, device=dev), mask.to(dev))
+    results["capped_repeat"] = (call, compare([call]))
+
     worst = 0.0
     for name, (_, (err, ratio, control, equal)) in results.items():
         log(f"  prefill {name}: max_abs_err {err:.3e}, err/tol max "
@@ -1023,6 +1077,9 @@ async def serve_and_check(torch, chunked: bool):
             async with sess.get(f"http://127.0.0.1:{port}/healthz") as r:
                 if r.status != 200:
                     fail(f"/healthz returned {r.status}")
+            if batcher.prefix_hits:
+                fail(f"cold pass: {batcher.prefix_hits} prefix hits, but no "
+                     f"prompt shares a full block with another")
             log(f"  served {len(prompts)} requests in {serve_s:.3f} s: "
                 f"{calls} decode steps dispatched, {slices} prefill slices, "
                 f"{prefills} prefill groups, {replays} graph replays; "
@@ -1038,12 +1095,27 @@ async def serve_and_check(torch, chunked: bool):
             # time goes (host clock inflated by the profiler itself)
             from torch.profiler import ProfilerActivity, profile
 
+            hits0, reused0 = batcher.prefix_hits, batcher.tokens_reused
+            slices0, prefills0 = batcher.slices, batcher.prefills
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 await asyncio.gather(*(post(p) for p in prompts))
                 torch.cuda.synchronize()
                 prof_s = time.perf_counter() - t0
+            hits = batcher.prefix_hits - hits0
+            reused = batcher.tokens_reused - reused0
+            log(f"  profiled pass (the same prompts, now cached): {hits} "
+                f"prefix hits, {reused} cells reused, "
+                f"{batcher.slices - slices0} prefill slices, "
+                f"{batcher.prefills - prefills0} prefill groups")
+            # the 130- and 300-token prompts seed from their full blocks
+            # below the cache line (len + max_new - 1): 128 and 256 cells
+            want_reused = sum(min((n + MAX_NEW - 1) // BS * BS, n - 1)
+                              for n in PROMPT_LENS if n > BS)
+            if hits != 2 or reused != want_reused:
+                fail(f"profiled pass: {hits} hits, {reused} cells reused; "
+                     f"the prompts reckon 2 and {want_reused}")
             if graphs.captures != captures:
                 fail(f"traffic captured {graphs.captures - captures} CUDA "
                      f"graphs after warmup")
@@ -1093,6 +1165,233 @@ async def serve_and_check(torch, chunked: bool):
                  "tokens")
     return counts
 
+
+# -- phase 3c ---------------------------------------------------------------
+
+
+def _bucket(n, reserve, max_len, prefill_chunk):
+    """The monolithic prefill bucket of an n-token suffix over `reserve`
+    seeded cells, restated from the reference: the ceil multiple of
+    `prefill_chunk` past one chunk, else a power of two (>= 16); either
+    falls back to n itself when the bucket plus MAX_NEW would overrun
+    the cells left."""
+    cap = max_len - reserve
+    if prefill_chunk and n > prefill_chunk:
+        b = -(-n // prefill_chunk) * prefill_chunk
+        return b if b + MAX_NEW <= cap else n
+    return max(min(max(1 << (n - 1).bit_length(), 16),
+                   max(cap - MAX_NEW, 0)), n)
+
+
+def _reckon(max_len, prefill_chunk, waves, chunked):
+    """What the radix prefix cache must do with `waves`, each admitted
+    in one pass: a prompt seeds from its longest full-block prefix that
+    an earlier wave's prompt holds, capped at len - 1 (one token is
+    always prefilled). Suffixes start with distinct tokens, and no cached
+    block past a prompt holds generated tokens a later prompt matches,
+    so nothing else hits. Monolithic groups are keyed (bucket, m).
+    -> (hits, misses, reused, prefilled, slices or groups)."""
+    cached = set()
+    hits = misses = reused = prefilled = units = 0
+    for wave in waves:
+        groups = set()
+        for p in wave:
+            k = len(p) // BS
+            while k and tuple(p[:k * BS]) not in cached:
+                k -= 1
+            m = min(k * BS, len(p) - 1)
+            hits, misses = hits + (m > 0), misses + (m == 0)
+            reused, prefilled = reused + m, prefilled + len(p) - m
+            units += -(-(len(p) - m) // CHUNK) if chunked else 0
+            groups.add((_bucket(len(p) - m, m, max_len, prefill_chunk), m))
+        units += 0 if chunked else len(groups)
+        cached.update(tuple(p[:k * BS]) for p in wave
+                      for k in range(1, len(p) // BS + 1))
+    return hits, misses, reused, prefilled, units
+
+
+async def prefix_reuse_and_check(torch, chunked: bool):
+    """llama3-1b served by the app the CLI builds (warmed, depth 2, 8
+    slots) over traffic that reuses cached prefixes: wave A is four
+    prompts on one 320-token prefix (suffixes of 20, 40, 70 and 100
+    tokens); wave B is wave A again and a 256-token prompt twice; wave C
+    is that prompt once more, through `:generate`. Waves A and B go to
+    the app's batcher in one event-loop turn each, so each is one
+    admission pass and the counts are exact. Then a batcher with a pool
+    of one max-length request and a host spill tier evicts a cached
+    prefix and restores it."""
+    import aiohttp
+    from aiohttp import web
+
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.serving.__main__ import build_app, parse_args
+    from kubeflow_tpu_torch.serving.continuous import ContinuousBatcher
+    from kubeflow_tpu_torch.serving.server import BATCHERS_KEY, ENGINES_KEY
+
+    label = "chunked" if chunked else "monolithic"
+    port = _free_port()
+    argv = ["--model", "llama3-1b", "--random", "--seed", "0",
+            "--continuous", "--warmup", "--pipeline-depth", "2",
+            "--host", "127.0.0.1", "--port", str(port)]
+    if chunked:
+        argv += ["--prefill-chunk-tokens", str(CHUNK)]
+    app = build_app(parse_args(argv))
+    runner = web.AppRunner(app)
+    await runner.setup()          # on_startup: the batcher's warmup
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    engine = app[ENGINES_KEY]["llama3-1b"]
+    batcher = app[BATCHERS_KEY]["llama3-1b"]
+    cfg, graphs = engine.cfg, batcher.cengine.graphs
+    captures = graphs.captures
+    gen = torch.Generator().manual_seed(7)
+
+    def draw(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+
+    prefix = draw(SHARED_PREFIX)
+    wave_a = [prefix + draw(n) for n in SUFFIX_LENS]
+    repeat = draw(REPEAT_LEN)
+    firsts = [p[SHARED_PREFIX] for p in wave_a] + [repeat[0]]
+    if len(set(firsts)) != len(firsts) or repeat[0] == prefix[0]:
+        fail("phase 3c's prompts share a first token: reseed them")
+    waves = [wave_a, wave_a + [repeat, repeat], [repeat]]
+    want = _reckon(engine.ec.max_len, batcher.cengine.prefill_chunk, waves,
+                   chunked)
+    url = f"http://127.0.0.1:{port}/v1/models/llama3-1b:generate"
+    outs, lps = [], []
+    try:
+        batcher.calls = batcher.slices = batcher.prefills = 0
+        batcher.decode_s = batcher.prefill_s = 0.0
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        for toks, lp in await asyncio.gather(*(
+                batcher.submit(p, MAX_NEW, with_logprobs=True)
+                for p in waves[0])):
+            outs.append(toks)
+            lps.append(lp)
+        wave_a_s = time.perf_counter() - t0
+        from torch.profiler import ProfilerActivity, profile
+
+        calls0, decode_s0 = batcher.calls, batcher.decode_s
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            got = await asyncio.gather(*(
+                batcher.submit(p, MAX_NEW, with_logprobs=True)
+                for p in waves[1]))
+            torch.cuda.synchronize()
+            wave_b_s = time.perf_counter() - t0
+        b_calls = batcher.calls - calls0
+        b_ms = (batcher.decode_s - decode_s0) / max(b_calls, 1) * 1e3
+        outs += [t for t, _ in got]
+        lps += [lp for _, lp in got]
+        async with aiohttp.ClientSession() as sess:
+            async with sess.post(url, json={"tokens": waves[2],
+                                            "max_new": MAX_NEW,
+                                            "logprobs": True}) as r:
+                if r.status != 200:
+                    fail(f":generate returned {r.status}: {await r.text()}")
+                body = await r.json()
+        outs += body["tokens"]
+        lps += body["logprobs"]
+        counts = launch_counts()
+        calls, slices, prefills = (batcher.calls, batcher.slices,
+                                   batcher.prefills)
+        if graphs.captures != captures:
+            fail(f"traffic captured {graphs.captures - captures} CUDA graphs "
+                 f"after warmup")
+        stats = batcher.prefix_cache_stats()
+        ledger = batcher.cache_ledger.snapshot()
+    finally:
+        await runner.cleanup()
+    got = (stats["hits"], stats["misses"], stats["tokens_reused"],
+           stats["tokens_prefilled"], slices if chunked else prefills)
+    log(f"  {label}: waves A (4 requests, {wave_a_s:.3f} s), B (6, "
+        f"{wave_b_s:.3f} s, profiler on), C (1, :generate): hits "
+        f"{got[0]}, misses {got[1]}, tokens reused {got[2]}, prefilled "
+        f"{got[3]}, {slices} prefill slices, {prefills} prefill groups "
+        f"(the prompts reckon {want}); {calls} decode steps; kernel "
+        f"launches {counts}")
+    log(f"  ledger: births {ledger['births']}, frees {ledger['frees']}, "
+        f"live {ledger['live_blocks']}, conserved {ledger['conserved']}; "
+        f"{stats['cached_blocks']} blocks cached")
+    log(f"  wave B: host ms per decode step {b_ms:.2f} (dispatch + wait, "
+        f"{b_calls} steps, profiler on)")
+    _report_profile(prof, wave_b_s)
+    if got != want:
+        fail(f"{label}: (hits, misses, reused, prefilled, slices/groups) "
+             f"{got}, the prompts reckon {want}")
+    if not ledger["conserved"]:
+        fail(f"{label}: the block ledger does not balance: {ledger}")
+    layers = cfg.num_layers
+    want_launches = {"paged_decode_attention": layers * calls,
+                     "paged_prefill_append": layers * slices if chunked
+                     else 0}
+    for name, n in want_launches.items():
+        if counts[name] != n:
+            fail(f"{name}: {counts[name]} launches, the design implies {n}")
+    prompts = waves[0] + waves[1] + waves[2]
+    if chunked and outs[4:8] != outs[:4]:
+        # seeded slices keep the cold pass's starts and shapes
+        fail("chunked: wave B's seeded repeats gave other greedy tokens "
+             "than wave A's cold prefills")
+    _teacher_check(torch, engine, prompts, outs, lps, f"3c {label}")
+    if not chunked:
+        return counts
+
+    # the spill tier: a pool of one max-length request (17 blocks), so a
+    # 1000-token prompt evicts the 340-token prompt's cached prefix to
+    # host memory, and the 340-token prompt sent again restores it
+    spill = ContinuousBatcher(
+        engine, asyncio.Lock(), max_slots=2, prefill_chunk_tokens=CHUNK,
+        pipeline_depth=2, kv_pool_blocks=1 + NB,
+        kv_spill_bytes=SPILL_BLOCKS * batcher.cengine.kv_block_bytes(),
+        seed=0)
+    spill.warmup()
+    warmed = spill.cengine.graphs.captures
+    reader, export_s = spill._radix.spill_reader, []
+
+    def timed_reader(block):
+        t = time.perf_counter()
+        out = reader(block)
+        export_s.append(time.perf_counter() - t)
+        return out
+
+    spill._radix.spill_reader = timed_reader
+    x = wave_a[0]
+    try:
+        first = await spill.submit(x, MAX_NEW)
+        await spill.submit(draw(1000), MAX_NEW)
+        evicted = spill.cache_ledger.snapshot()["spill"]["demotions"]
+        t0 = time.perf_counter()
+        again = await spill.submit(x, MAX_NEW)
+        again_s = time.perf_counter() - t0
+    finally:
+        await spill.close()
+    snap = spill.cache_ledger.snapshot()
+    sp = snap["spill"]
+    log(f"  spill run (pool 17 blocks, tier {SPILL_BLOCKS} blocks of "
+        f"{batcher.cengine.kv_block_bytes() / 2**20:.0f} MiB): "
+        f"{evicted} blocks demoted before the repeat; then demotions "
+        f"{sp['demotions']}, restores {sp['restores']}, drops "
+        f"{sp['drops']}, spilled {sp['spilled']}; the repeat took "
+        f"{again_s * 1e3:.1f} ms ({spill.prefix_hits} hits, "
+        f"{spill.tokens_reused} cells reused); conserved "
+        f"{snap['conserved']}")
+    log(f"  spill export (synchronous device-to-host copy inside "
+        f"admission): {len(export_s)} blocks, "
+        f"{sum(export_s) * 1e3:.2f} ms in all, "
+        f"{max(export_s, default=0) * 1e3:.2f} ms the longest")
+    if sp["restores"] < 1 or evicted < SHARED_PREFIX // BS:
+        fail(f"spill run: {evicted} demoted, {sp['restores']} restored")
+    if again != first:
+        fail(f"spill run: the restored prefix gave {again}, the cold "
+             f"prefill {first}")
+    if not snap["conserved"]:
+        fail(f"spill run: the block ledger does not balance: {snap}")
+    if spill.cengine.graphs.captures != warmed:
+        fail("spill run: traffic captured a CUDA graph after warmup")
+    return counts
 
 # -- phase 4 ----------------------------------------------------------------
 
@@ -1580,6 +1879,15 @@ def main() -> None:
         serve_and_check(torch, chunked=False))["paged_decode_attention"]
     gc.collect()
     torch.cuda.empty_cache()
+
+    log("phase 3c: prefix reuse (radix cache, copy-on-write, spill tier)")
+    for chunked in (True, False):
+        for name, n in asyncio.run(
+                prefix_reuse_and_check(torch, chunked)).items():
+            if name.startswith("paged"):
+                counts[name] += n
+        gc.collect()
+        torch.cuda.empty_cache()
 
     log("phase 4: train llama3-1b through the flash kernels")
     counts.update({name: n for name, n in train_and_check(torch).items()

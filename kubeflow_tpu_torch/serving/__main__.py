@@ -15,8 +15,10 @@ paged KV pool: monolithic admission (one prefill per bucket group,
 `--prefill-chunk` slicing long prompts) unless `--prefill-chunk-tokens`
 sets a chunked-prefill budget; decode chunks dispatched
 `--pipeline-depth` ahead; `--warmup` captures every serving graph
-before the port opens. Weights are random from `--seed`; loading a
-checkpoint is not ported yet, so `--random` is required.
+before the port opens; `--kv-spill-bytes` gives the radix prefix cache
+a host-memory tier that eviction demotes to. Weights are random from
+`--seed`; loading a checkpoint is not ported yet, so `--random` is
+required.
 """
 
 from __future__ import annotations
@@ -71,6 +73,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "each worker iteration feeds at most this many "
                         "prompt tokens, interleaved with decode chunks. "
                         "0 = monolithic admission prefill")
+    p.add_argument("--kv-spill-bytes", type=int, default=0,
+                   help="host-memory KV spill tier budget in bytes "
+                        "(continuous only): radix eviction demotes block "
+                        "contents to host memory instead of discarding "
+                        "them, and a returning prefix restores them with "
+                        "a host-to-device copy instead of prefilling "
+                        "again. 0 = off")
     p.add_argument("--pipeline-depth", type=int, default=0,
                    help="decode dispatch-ahead depth (0 = the backend's "
                         "default: 2 on CUDA, 1 on the CPU)")
@@ -81,7 +90,8 @@ def parse_args(argv=None) -> argparse.Namespace:
         p.error("pass --random (checkpoint loading is not ported yet)")
     if args.warmup and not args.continuous:
         p.error("--warmup requires --continuous")
-    for flag in ("prefill_chunk", "prefill_chunk_tokens", "pipeline_depth"):
+    for flag in ("prefill_chunk", "prefill_chunk_tokens", "pipeline_depth",
+                 "kv_spill_bytes"):
         name = "--" + flag.replace("_", "-")
         if getattr(args, flag) < 0:
             p.error(f"{name} must be >= 0")
@@ -113,7 +123,8 @@ def build_app(args: argparse.Namespace):
         continuous=args.continuous, batch_window_ms=args.batch_window_ms,
         warmup=args.warmup, prefill_chunk=args.prefill_chunk or None,
         prefill_chunk_tokens=args.prefill_chunk_tokens or None,
-        pipeline_depth=args.pipeline_depth or None, seed=args.seed)
+        pipeline_depth=args.pipeline_depth or None,
+        kv_spill_bytes=args.kv_spill_bytes or None, seed=args.seed)
 
 
 def main(argv=None) -> int:

@@ -23,19 +23,26 @@ addresses, so the engine owns ONE slot state (`slots()`) for its
 lifetime, and the graphs read static sampling knobs and slice inputs
 that the host stages in place.
 
-Admission, as in the reference:
-- monolithic (the default): queued requests group by prefill bucket;
-  each group, padded to a power of two (at most max_slots) with greedy
-  dummy rows, prefills in one `prefill_batch` on a dense cache (plain
-  attention) and lands in fresh pool blocks in one `insert_many`;
-- chunked (`prefill_chunk_tokens`): a request takes a frozen slot and
-  fresh blocks, and its prompt is fed in slices of at most
+Admission, as in the reference, goes through the radix prefix cache
+(serving/paged.py): pool blocks hold a canonical form (cell index ==
+token position, no pads), so a prompt's full blocks are indexed by its
+tokens and a later prompt sharing them prefills only its suffix, from
+a seed of m cached cells (a partially shared block is copied into the
+request's own block: copy-on-write). Then
+- monolithic (the default): requests group by (prefill bucket, prefix,
+  m); each group, padded to a power of two (at most max_slots) with
+  greedy dummy rows, gathers its seed from the pool (`gather_seed`),
+  prefills its suffixes in one `prefill_batch` on a dense cache (plain
+  attention) and lands in its tables in one `insert_many`;
+- chunked (`prefill_chunk_tokens`): a request takes a frozen slot at
+  cursor m, and its suffix is fed in slices of at most
   `prefill_chunk_tokens` tokens through the prefill-append path
   (`ops.paged_prefill_attention`), one slice per worker iteration.
 Decode steps run every slot through `ops.paged_attention`, with up to
-`pipeline_depth` chunks in flight. The reference's radix prefix reuse,
-spill tier, tenancy, preemption, speculation and migration are not
-ported yet.
+`pipeline_depth` chunks in flight. Eviction can demote cached blocks to
+a host spill tier (`export_blocks`), and admission restores them
+(`import_blocks`). The reference's tenancy quotas, preemption, peer
+fetch, speculation and migration are not ported yet.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ import time
 import numpy as np
 import torch
 
+from kubeflow_tpu_torch.obs.cachestats import CacheLedger
 from kubeflow_tpu_torch.ops.attention import (
     paged_attention,
     paged_prefill_attention,
@@ -56,6 +64,7 @@ from kubeflow_tpu_torch.ops.attention import (
 from kubeflow_tpu_torch.ops.rotary import rope_frequencies
 from kubeflow_tpu_torch.serving.engine import (
     SAMPLING_KEYS,
+    DecodeState,
     InferenceEngine,
     SamplingParams,
     transformer_block,
@@ -66,7 +75,11 @@ from kubeflow_tpu_torch.serving.graphs import (
     stage,
     upload,
 )
-from kubeflow_tpu_torch.serving.paged import BlockPool
+from kubeflow_tpu_torch.serving.paged import (
+    BlockPool,
+    HostSpillTier,
+    RadixPrefixCache,
+)
 
 log = logging.getLogger(__name__)
 
@@ -130,7 +143,8 @@ class ContinuousEngine:
     fallback. `seed` seeds the generator every sampled draw takes."""
 
     def __init__(self, engine: InferenceEngine, max_slots: int = 8,
-                 block_size: int = 64, *, prefill_chunk: int | None = None,
+                 block_size: int = 64, *, num_blocks: int | None = None,
+                 prefill_chunk: int | None = None,
                  seed: int | None = None, cuda_graphs: bool = True):
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
@@ -145,9 +159,18 @@ class ContinuousEngine:
         self.prefill_chunk = prefill_chunk
         self.blocks_per_slot = -(-engine.ec.max_len // block_size)
         self.kv_width = self.blocks_per_slot * block_size
-        # trash block + every slot at max_len: admission never waits on
-        # blocks while a slot is free
-        self.num_blocks = 1 + max_slots * self.blocks_per_slot
+        # default: trash block + every slot at max_len, the dense
+        # equivalent; a smaller pool caps KV memory below it, and then
+        # admission waits on blocks (evicting idle cached ones first)
+        if num_blocks is None:
+            num_blocks = 1 + max_slots * self.blocks_per_slot
+        if num_blocks < 1 + self.blocks_per_slot:
+            raise ValueError(
+                f"num_blocks {num_blocks} < {1 + self.blocks_per_slot} "
+                f"(trash + one slot's worth at max_len "
+                f"{engine.ec.max_len} / block_size {block_size}): a "
+                "single max-length request could never be admitted")
+        self.num_blocks = num_blocks
         self.pool = BlockPool(self.num_blocks, block_size)
         dev = engine.device
         cfg = engine.cfg
@@ -206,6 +229,10 @@ class ContinuousEngine:
                   st.frozen):
             t.zero_()
 
+    def kv_block_bytes(self) -> int:
+        """Device bytes one pool block holds (K+V, all layers)."""
+        return self.engine.kv_cache_bytes(1, self.block_size)
+
     def _index(self, values) -> torch.Tensor:
         return upload(values, torch.int64, self.engine.device)
 
@@ -244,6 +271,60 @@ class ContinuousEngine:
         block."""
         st.k[:, dst, :n] = st.k[:, src, :n]
         st.v[:, dst, :n] = st.v[:, src, :n]
+        return st
+
+    # -- cached blocks ----------------------------------------------------
+
+    @torch.inference_mode()
+    def gather_seed(self, st: SlotState, chains, m: int) -> DecodeState:
+        """A batch-g prefill seed from cached pool blocks: row i's cells
+        [0, m) read through block chain `chains[i]` ([g, blocks_per_slot],
+        trash-padded past ceil(m / block_size)). Offset 0 and no pads, by
+        the blocks' canonical form; the cells are copied as they are (the
+        dense state has the pool's dtype), so `insert_many` writes a
+        shared block back bit for bit."""
+        chains = self._index(np.asarray(chains).reshape(-1))
+        g = chains.numel() // self.blocks_per_slot
+        max_len = self.engine.ec.max_len
+        k, v = (pool[:, chains].reshape(
+            pool.shape[0], g, self.kv_width,
+            *pool.shape[3:])[:, :, :max_len] for pool in (st.k, st.v))
+        dev = self.engine.device
+        return DecodeState(k, v, m,
+                           torch.zeros(g, max_len, dtype=torch.bool,
+                                       device=dev),
+                           torch.zeros(g, dtype=torch.int32, device=dev))
+
+    @torch.inference_mode()
+    def export_blocks(self, st: SlotState, block_ids):
+        """Host copies of the K/V held by physical blocks `block_ids`:
+        `(k, v)`, each a CPU tensor `[L, n, block_size, n_kv, hd]` of the
+        pool's dtype, in id order. A synchronous device-to-host copy: it
+        waits for the work queued before it. Does not touch the state."""
+        ids = self._index(list(block_ids))
+        return tuple(pool[:, ids].cpu() for pool in (st.k, st.v))
+
+    @torch.inference_mode()
+    def import_blocks(self, st: SlotState, block_ids, k, v) -> SlotState:
+        """Write block payloads (as `export_blocks` returns them) into
+        blocks `block_ids`, in place. Payloads keep the exporter's
+        canonical form (cell index == token position), so the blocks
+        are radix-shareable at once. Raises ValueError when a payload's
+        shape disagrees with the pool's block geometry."""
+        cfg = self.engine.cfg
+        block_ids = list(block_ids)
+        want = (cfg.num_layers, len(block_ids), self.block_size,
+                cfg.num_kv_heads, cfg.head_dim)
+        k, v = (x if isinstance(x, torch.Tensor)
+                else torch.tensor(np.asarray(x)) for x in (k, v))
+        if tuple(k.shape) != want or tuple(v.shape) != want:
+            raise ValueError(
+                f"import_blocks: payload shape k={tuple(k.shape)} "
+                f"v={tuple(v.shape)} does not match pool block geometry "
+                f"[L, n, block_size, n_kv, hd] = {want}")
+        ids = self._index(block_ids)
+        for pool, payload in ((st.k, k), (st.v, v)):
+            pool[:, ids] = upload(payload, pool.dtype, self.engine.device)
         return st
 
     # -- monolithic admission ---------------------------------------------
@@ -592,19 +673,31 @@ class Overloaded(RuntimeError):
 class _Request:
     """One queued or admitted request."""
 
-    __slots__ = ("tokens", "max_new", "sampling", "fut", "out", "lps",
-                 "owned", "prefilling")
+    __slots__ = ("tokens", "max_new", "sampling", "prefix", "fut", "out",
+                 "lps", "kv_toks", "owned", "node_refs", "freed",
+                 "prefilling")
 
     def __init__(self, tokens, max_new, sampling, fut):
         self.tokens = list(tokens)
         self.max_new = max_new
         self.sampling = sampling
+        # a registered prefix's name rides the sampling channel, as in
+        # the reference ("" = none)
+        self.prefix = sampling.get("prefix") or ""
         self.fut = fut
         self.out: list[int] = []
         self.lps: list[float] = []   # chosen-token logprobs, out-aligned
-        self.owned: list[int] = []   # pool blocks, by logical block index
-        # {"fed": n} while the prompt is being fed in slices; None once
-        # the row decodes
+        # paged-KV bookkeeping: the tokens whose KV the slot's blocks
+        # hold (the full prompt, a registered prefix included, then every
+        # emitted token; never trimmed), the exclusively owned blocks by
+        # logical block index, the radix nodes this request holds refs
+        # on, and whether its blocks were released already
+        self.kv_toks: list[int] = []
+        self.owned: dict[int, int] = {}
+        self.node_refs: list = []
+        self.freed = False
+        # {"suffix": [...], "fed": n} while the prompt's uncached suffix
+        # is being fed in slices; None once the row decodes
         self.prefilling: dict | None = None
 
 
@@ -614,15 +707,33 @@ class ContinuousBatcher:
 
     Each worker iteration: reset retired slots' tables, admit queued
     requests into free slots (monolithic: one prefill + insert per
-    bucket group; chunked: a frozen slot each), feed ONE prompt slice of
-    at most `prefill_chunk_tokens` tokens (shortest remaining prompt
+    group; chunked: a frozen slot each), feed ONE prompt slice of at
+    most `prefill_chunk_tokens` tokens (shortest remaining suffix
     first), process the chunks in flight that have finished, then
     dispatch the next decode chunk of up to `chunk` tokens for every
     live slot while fewer than `pipeline_depth` chunks are in flight,
     else wait for the oldest. Device calls run in the default executor
     under `gpu_lock`, which is held for the dispatch only: a chunk's
     tokens come back through pinned host memory behind an event, and
-    the host waits for them off the lock and off the event loop.
+    the host waits for them off the lock and off the event loop. Every
+    device call goes to one stream, which orders a freed block's last
+    write before its next owner's first.
+
+    Admission goes through the radix prefix cache, as the reference's:
+    `_plan_blocks` matches the prompt against the cached full blocks
+    (and a partially matching block, copied into the request's own
+    fresh block: copy-on-write), refs what it reuses and takes fresh
+    blocks from the pool, evicting idle cached blocks when the pool is
+    short; a request the pool cannot cover waits at the queue head.
+    Only the uncached suffix is prefilled: monolithic groups by
+    (bucket, prefix, seed length) and seeds each group from the pool
+    (`gather_seed`) or a registered prefix's state; chunked adopts the
+    slot at the seed length and feeds the suffix. A prompt's full
+    blocks enter the tree once written (at admission, or when its last
+    slice is fed), and retirement donates the request's full blocks
+    below its last written cell. With `kv_spill_bytes`, eviction
+    demotes block contents to host memory and admission restores them.
+    `cache_ledger` books every block's birth and death to a cause.
 
     Dispatch-ahead (`pipeline_depth`, default 2 on CUDA and 1 on the
     CPU, as the reference picks 2 on an accelerator): the next chunk is
@@ -633,8 +744,8 @@ class ContinuousBatcher:
 
     What survives an exception in a device call: nothing of the slot
     state is trusted. `_fail_all` fails every admitted request, returns
-    their blocks, and clears the state in place (the graphs keep its
-    addresses). Queued requests are kept.
+    their blocks, drops the radix tree, and clears the state in place
+    (the graphs keep its addresses). Queued requests are kept.
 
     `.calls` counts dispatched decode steps (over-decoded ones included);
     `occupancy()` is tokens emitted per decode step. `.slices` counts
@@ -648,9 +759,12 @@ class ContinuousBatcher:
                  max_slots: int = 8, chunk: int = 4,
                  prefill_chunk: int | None = None,
                  prefill_chunk_tokens: int | None = None,
+                 prefixes: dict[str, list[int]] | None = None,
                  max_pending: int = 256, pipeline_depth: int | None = None,
-                 kv_block_size: int = 64, seed: int | None = None,
-                 cuda_graphs: bool = True):
+                 kv_block_size: int = 64,
+                 kv_pool_blocks: int | None = None,
+                 kv_spill_bytes: int | None = None,
+                 seed: int | None = None, cuda_graphs: bool = True):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         if prefill_chunk_tokens is not None and prefill_chunk_tokens < 1:
@@ -662,6 +776,9 @@ class ContinuousBatcher:
         if pipeline_depth < 1:
             raise ValueError(
                 f"pipeline_depth must be >= 1, got {pipeline_depth}")
+        if kv_spill_bytes is not None and kv_spill_bytes < 0:
+            raise ValueError(
+                f"kv_spill_bytes must be >= 0, got {kv_spill_bytes}")
         self.engine = engine
         self.gpu_lock = gpu_lock
         self.chunk = chunk
@@ -670,13 +787,38 @@ class ContinuousBatcher:
         self.max_pending = max_pending
         self.cengine = ContinuousEngine(
             engine, max_slots, block_size=kv_block_size,
-            prefill_chunk=prefill_chunk, seed=seed, cuda_graphs=cuda_graphs)
+            num_blocks=kv_pool_blocks, prefill_chunk=prefill_chunk,
+            seed=seed, cuda_graphs=cuda_graphs)
+        pool = self.cengine.pool
+        self._radix = RadixPrefixCache(pool)
+        # attached before the first alloc: births - frees == in_use
+        self.cache_ledger = CacheLedger()
+        pool.attach_ledger(self.cache_ledger)
+        self._spill_tier: HostSpillTier | None = None
+        if kv_spill_bytes is not None:
+            self._spill_tier = HostSpillTier(kv_spill_bytes,
+                                             self.cengine.kv_block_bytes())
+            self._radix.attach_spill(self._spill_tier, self._spill_reader)
+        # registered prefixes (system prompts): each one's KV is computed
+        # once, on first use, through `precompute_prefix`
+        self._prefixes = {name: list(toks)
+                          for name, toks in (prefixes or {}).items()}
+        for name, toks in self._prefixes.items():
+            if not toks or len(toks) >= engine.ec.max_len:
+                raise ValueError(
+                    f"prefix {name!r}: length {len(toks)} invalid for "
+                    f"max_len {engine.ec.max_len}")
+        self._prefix_states: dict[str, asyncio.Task] = {}
         self.calls = 0            # dispatched decode steps
         self.requests = 0         # admitted requests
         self.tokens_emitted = 0   # decode tokens (first tokens excluded)
         self.iterations = 0
         self.slices = 0           # chunked-prefill slices
         self.prefills = 0         # monolithic prefill groups
+        self.prefix_hits = 0      # admissions that reused cached cells
+        self.prefix_misses = 0
+        self.tokens_prefilled = 0   # prompt tokens computed
+        self.tokens_reused = 0      # prompt cells seeded from cache
         self.decode_s = 0.0
         self.prefill_s = 0.0
         self._pending: collections.deque[_Request] = collections.deque()
@@ -696,13 +838,47 @@ class ContinuousBatcher:
     def occupancy(self) -> float:
         return self.tokens_emitted / self.calls if self.calls else 0.0
 
+    def kv_blocks_in_use(self) -> int:
+        """Pool blocks held by active requests and the radix cache (x
+        `cengine.kv_block_bytes()` for device bytes)."""
+        return self.cengine.pool.in_use
+
+    def prefix_cache_stats(self) -> dict:
+        tier = self._spill_tier
+        return {
+            "hits": self.prefix_hits,
+            "misses": self.prefix_misses,
+            "tokens_prefilled": self.tokens_prefilled,
+            "tokens_reused": self.tokens_reused,
+            "cached_blocks": self._radix.cached_blocks,
+            "blocks_in_use": self.cengine.pool.in_use,
+            "spilled_blocks": tier.spilled_blocks if tier else 0,
+            "spilled_bytes": tier.spilled_bytes if tier else 0,
+            "heat": self._radix.heat_digest(16),
+        }
+
+    def cache_anatomy(self) -> dict:
+        """The lifecycle ledger's snapshot (eviction causes, reuse and
+        age quantiles, defers, spill books, conservation) and the prefix
+        heat digest."""
+        return {"ledger": self.cache_ledger.snapshot(),
+                "heat": self._radix.heat_digest(16)}
+
+    def flush_cache(self) -> None:
+        """Drop the radix prefix cache (after a weight swap every cached
+        block describes another model). Only safe with no request
+        admitted: active requests hold refs the clear would strand."""
+        self._radix.clear(cause="refdrop")
+
     def warmup(self, buckets=None) -> int:
         """Blocking ahead-of-traffic run of the whole serving shape set
         (before traffic; the app's on_startup hook calls it when
         create_serving_app(warmup=True)): every group size x bucket of
         admission, the step graph for every chunk size, the slice graph
         in chunked mode. With `prefill_chunk` the default buckets add a
-        two-chunk prompt, as the reference's. -> shapes run."""
+        two-chunk prompt, as the reference's. Seeded admission's
+        `gather_seed`, `copy_cells` and `import_blocks` run eagerly and
+        need no warming. -> shapes run."""
         if buckets is None:
             buckets = [16]
             c = self.cengine.prefill_chunk
@@ -720,7 +896,9 @@ class ContinuousBatcher:
         """Generate up to `max_new` tokens for one prompt; resolves when
         THIS request finishes. The result is EOS-padded to exactly
         max_new; with_logprobs=True returns (tokens, logprobs), the
-        logprobs unpadded (one per computed token)."""
+        logprobs unpadded (one per computed token). `sampling` may name
+        a registered prefix (`"prefix"`), whose tokens go before
+        `tokens`."""
         fut = self._enqueue(tokens, max_new, dict(sampling or {}))
         out, lps = await fut
         eos = self.engine.ec.eos_token
@@ -744,6 +922,17 @@ class ContinuousBatcher:
             raise ValueError(
                 f"prompt {len(tokens)} + max_new {max_new} exceeds model "
                 f"max_len {cap}")
+        prefix = sampling.get("prefix", "")
+        if prefix:
+            if prefix not in self._prefixes:
+                raise ValueError(
+                    f"unknown prefix {prefix!r}; registered: "
+                    f"{sorted(self._prefixes)}")
+            plen = len(self._prefixes[prefix])
+            if plen + len(tokens) + max_new > cap:
+                raise ValueError(
+                    f"prefix {plen} + prompt {len(tokens)} + max_new "
+                    f"{max_new} exceeds model max_len {cap}")
         loop = asyncio.get_running_loop()
         if self._worker is None or self._worker.done():
             self._worker = loop.create_task(self._run())
@@ -787,18 +976,77 @@ class ContinuousBatcher:
         self._topp[slot] = sampling.get("top_p", ec.top_p)
         self._sp_cache = None
 
-    def _release(self, slot: int) -> None:
-        """Return a slot with greedy filler knobs and free its blocks;
-        its device table is reset before the next admission."""
+    def _release(self, slot: int, *, cause: str = "refdrop") -> None:
+        """Return a slot with greedy filler knobs and release its blocks
+        (deaths booked to `cause`); its device table is reset before the
+        next admission."""
         req = self._active.pop(slot, None)
         self._free.append(slot)
         self._set_knobs(slot, GREEDY)
         if slot in self._prefill_q:
             self._prefill_q.remove(slot)
         if req is not None:
-            self.cengine.pool.free(req.owned)
-            req.owned = []
+            self._release_blocks(req, cause=cause)
             self._dirty.append(slot)
+
+    def _release_blocks(self, req: _Request, *,
+                        cause: str = "refdrop") -> None:
+        """Drop a request's claim on pool blocks: unref its radix nodes
+        (tree-owned blocks stay cached, evictable once idle) and free the
+        exclusively owned ones. Idempotent."""
+        if req.freed:
+            return
+        req.freed = True
+        if req.node_refs:
+            self._radix.unref(req.node_refs)
+            req.node_refs = []
+        if req.owned:
+            self.cengine.pool.free(req.owned.values(), cause=cause)
+            req.owned = {}
+
+    def _cache_blocks(self, req: _Request) -> None:
+        """At retirement, donate the request's full KV blocks to the
+        radix tree instead of freeing them. Only cells [0, len(kv_toks) -
+        1) are surely written (the last token's KV may still be in
+        flight, and a chunk in flight writes over-decoded KV from there
+        on), so only full blocks below that line are indexed. Runs
+        before `_release_blocks` frees the rest."""
+        if req.freed or not req.kv_toks or req.prefilling is not None:
+            # mid-chunked-prefill retirement: cells past the fed
+            # frontier are unwritten
+            return
+        bs = self.cengine.block_size
+        n_full = (len(req.kv_toks) - 1) // bs
+        if n_full <= 0:
+            return
+        blocks = {i: req.owned[i] for i in range(n_full) if i in req.owned}
+        adopted, _ = self._radix.insert(req.kv_toks[:n_full * bs], blocks)
+        for i in adopted:
+            del req.owned[i]
+        # blocks the tree declined already have an edge for their token
+        # path (a concurrent twin won the insert): duplicates
+        dup = [b for i, b in blocks.items() if i not in adopted]
+        if dup:
+            for i in [i for i, b in req.owned.items() if b in dup]:
+                del req.owned[i]
+            self.cengine.pool.free(dup, cause="divergence")
+
+    def _index_inflight(self, req: _Request) -> None:
+        """Index the prompt's full blocks in the radix tree as soon as
+        they are written, so a concurrent request sharing the prefix
+        seeds from them while this one decodes (its gather queues behind
+        our writes on the stream). Nodes created here start with a ref
+        held by this request, whose table points at them."""
+        bs = self.cengine.block_size
+        n_full = len(req.kv_toks) // bs
+        if n_full <= 0:
+            return
+        blocks = {i: req.owned[i] for i in range(n_full) if i in req.owned}
+        adopted, held = self._radix.insert(req.kv_toks[:n_full * bs],
+                                           blocks, hold=True)
+        for i in adopted:
+            del req.owned[i]
+        req.node_refs.extend(held)
 
     @staticmethod
     def _fail(req: _Request, exc: BaseException) -> None:
@@ -812,12 +1060,16 @@ class ContinuousBatcher:
             self._fail(req, exc)
         self._dirty.clear()
         self._prefill_q.clear()
+        # the pool's contents are not trusted any more: cached blocks
+        # describe nothing
+        self._radix.clear()
         try:
             self.cengine.clear_slots()
         except Exception:  # noqa: BLE001 — a dead device fails the next call
             log.exception("clearing the slot state failed")
 
     def _finish(self, slot: int, req: _Request) -> None:
+        self._cache_blocks(req)
         self._release(slot)
         if not req.fut.done():
             req.fut.set_result((req.out[:req.max_new],
@@ -827,6 +1079,7 @@ class ContinuousBatcher:
               decode: bool = True) -> None:
         req.out.append(token)
         req.lps.append(lp)
+        req.kv_toks.append(token)   # cache-content log, never trimmed
         if decode:
             self.tokens_emitted += 1
         eos = self.engine.ec.eos_token
@@ -849,83 +1102,299 @@ class ContinuousBatcher:
         loop = asyncio.get_running_loop()
         return await loop.run_in_executor(None, copy.wait)
 
-    def _blocks_for(self, req: _Request) -> list[int] | None:
-        n_blocks = -(-min(len(req.tokens) + req.max_new,
-                          self.engine.ec.max_len)
-                     // self.cengine.block_size)
-        return self.cengine.pool.alloc(n_blocks)
+    async def _get_prefix_state(self, name: str):
+        """A registered prefix's batch-1 `DecodeState`, computed once
+        (single flight: concurrent first users await the same task; a
+        failed computation is forgotten so the next use retries)."""
+        task = self._prefix_states.get(name)
+        if task is None:
+            task = asyncio.get_running_loop().create_task(self._device(
+                self.engine.precompute_prefix, self._prefixes[name]))
+            self._prefix_states[name] = task
+        try:
+            return await task
+        except Exception:
+            if self._prefix_states.get(name) is task:
+                self._prefix_states.pop(name)
+            raise
 
-    def _take_slot(self, req: _Request, blocks: list[int]) -> int:
+    def _spill_reader(self, block: int):
+        """Host copy of one pool block's K/V: the reader the radix
+        cache's eviction demotes through. Synchronous: it waits for the
+        chunks in flight."""
+        return self.cengine.export_blocks(self.cengine.slots(), [block])
+
+    async def _restore_spilled(self, req: _Request) -> None:
+        """Bring this request's spilled full-block prefix back into the
+        pool before block planning, so `_plan_blocks` hits it as if it
+        had never been evicted. Token-identical by the canonical form:
+        the tier's key is the full token prefix. Best-effort: whatever
+        fails degrades to plain prefill of the missing cells."""
+        tier = self._spill_tier
+        if tier is None or tier.spilled_blocks == 0 or req.prefix:
+            return
+        full = req.tokens
+        bs = self.cengine.block_size
+        nodes, _, _ = self._radix.match(full)
+        # walk the tier forward from the cached frontier; the planner
+        # always leaves >= 1 token to prefill, so a block whose last
+        # cell is the final prompt token is of no use
+        i = end = len(nodes) * bs
+        while end + bs <= len(full) - 1 and tier.contains(full[:end + bs]):
+            end += bs
+        n = (end - i) // bs
+        if n <= 0:
+            return
+        # evicting to restore may demote colder blocks: the tier's LRU
+        # decides which contents keep host memory; the matched frontier
+        # the restored blocks hang from is spared
+        fresh = self._alloc_evicting(n, nodes)
+        if fresh is None:
+            return
+        pool = self.cengine.pool
+        payloads = []
+        for j in range(n):
+            p = tier.pop(full[:i + (j + 1) * bs])
+            if p is None:
+                break   # the budget dropped it during our own evict
+            payloads.append(p)
+        if len(payloads) < n:
+            pool.free(fresh[len(payloads):], cause="refdrop")
+            fresh, n = fresh[:len(payloads)], len(payloads)
+        if not n:
+            return
+        k = torch.cat([p[0] for p in payloads], 1)
+        v = torch.cat([p[1] for p in payloads], 1)
+        try:
+            await self._device(self.cengine.import_blocks,
+                               self.cengine.slots(), fresh, k, v)
+        except BaseException as e:
+            # the payloads left the tier and never became cached content
+            pool.free(fresh, cause="refdrop")
+            self.cache_ledger.note_spill_drop(n)
+            if not isinstance(e, Exception):
+                raise   # cancelled: the batcher is closing
+            log.exception("restoring %d spilled blocks failed", n)
+            return   # best-effort: plain prefill covers the cells
+        self.cache_ledger.note_restore(n)
+        blocks = {len(nodes) + j: b for j, b in enumerate(fresh)}
+        adopted, _ = self._radix.insert(full[:end], blocks)
+        dup = [b for j, b in blocks.items() if j not in adopted]
+        if dup:
+            # someone cached (part of) this prefix meanwhile
+            pool.free(dup, cause="divergence")
+
+    def _alloc_evicting(self, n: int, keep) -> list[int] | None:
+        """`n` fresh pool blocks, evicting idle cached blocks other than
+        the nodes in `keep` when the pool is short. -> None when even
+        that does not cover them."""
+        pool = self.cengine.pool
+        fresh = pool.alloc(n)
+        if fresh is None:
+            self._radix.evict(n - pool.num_free, keep=keep)
+            fresh = pool.alloc(n)
+        return fresh
+
+    def _plan_blocks(self, req: _Request) -> dict | None:
+        """Match one request against the radix cache and reserve its
+        blocks. -> a plan, or None when the pool cannot cover it even
+        after evicting idle cached blocks (booked as a
+        `pool_exhausted` defer; the caller re-queues it).
+
+        Plan fields: `full` (the prompt, a registered prefix included:
+        what the slot's KV will hold), `suffix` (what prefill computes),
+        `m` (cells seeded from cache; cell index == token index), `chain`
+        (ref'd nodes backing cells [0, m - m % bs)), `extra` (a ref'd
+        node whose block holds the match's partial tail: a read-only
+        seed source, copied into the row's first fresh block), `fresh`
+        (newly allocated blocks) and `table` (the slot's block table,
+        trash-padded)."""
+        ce = self.cengine
+        bs = ce.block_size
+        chain: list = []
+        extra = None
+        if req.prefix:
+            # seeded from the registered prefix's state, not the tree
+            full = self._prefixes[req.prefix] + req.tokens
+            m = len(self._prefixes[req.prefix])
+        else:
+            full = list(req.tokens)
+            nodes, pnode, plen = self._radix.match(full)
+            # leave >= 1 token to prefill: the first output token needs
+            # a forward pass over something
+            m = min(len(nodes) * bs + plen, len(full) - 1)
+            cut = m // bs
+            if cut < len(nodes):
+                # capped inside the chain: the node at the cut becomes
+                # the partial (copy-on-write) seed
+                extra = nodes[cut] if m % bs else None
+                nodes = nodes[:cut]
+            elif m % bs:
+                extra = pnode
+            chain = nodes
+        n_total = -(-min(len(full) + req.max_new, self.engine.ec.max_len)
+                    // bs)
+        n_fresh = n_total - len(chain)
+        # the match is ref'd only once the plan stands, so the eviction
+        # that makes room spares it: a chain block evicted here would come
+        # back as a fresh block and sit in the table twice, and the
+        # partial seed's block would be overwritten before it is copied
+        fresh = self._alloc_evicting(
+            n_fresh, chain if extra is None else chain + [extra])
+        if fresh is None and extra is not None and not self._active:
+            # nothing active will ever free more: the partial seed's
+            # block is the one in the way, so plan without it
+            extra, m = None, len(chain) * bs
+            fresh = self._alloc_evicting(n_fresh, chain)
+        if fresh is None:
+            self.cache_ledger.note_defer("pool_exhausted")
+            return None
+        self._radix.ref(chain)
+        if extra is not None:
+            self._radix.ref([extra])
+        # one ledger tick per admitted request; reused blocks record
+        # their reuse distance
+        self.cache_ledger.note_admission()
+        reused = [n.block for n in chain]
+        if extra is not None:
+            reused.append(extra.block)
+        if reused:
+            self.cache_ledger.note_reuse(reused)
+        table = np.zeros(ce.blocks_per_slot, np.int32)
+        phys = [n.block for n in chain] + fresh
+        table[:len(phys)] = phys
+        return {"full": full, "suffix": full[m:], "m": m, "chain": chain,
+                "extra": extra, "fresh": fresh, "table": table}
+
+    def _take_slot(self, req: _Request, plan: dict) -> int:
+        """Give a planned request a slot and the plan's blocks, and count
+        its cache hit or miss."""
         slot = self._free.pop()
-        req.owned = blocks
+        req.kv_toks = list(plan["full"])
+        req.node_refs = list(plan["chain"])
+        cut = len(plan["chain"])
+        req.owned = {cut + i: b for i, b in enumerate(plan["fresh"])}
         self._active[slot] = req
         self._set_knobs(slot, req.sampling)
         self.requests += 1
+        self.tokens_reused += plan["m"]
+        if plan["m"]:
+            self.prefix_hits += 1
+        else:
+            self.prefix_misses += 1
         return slot
 
     async def _admit(self, reqs: list[_Request]) -> None:
-        """Reserve fresh blocks for each request and admit it; a request
-        the pool cannot cover waits at the queue head."""
-        deferred, planned = [], []
+        """Plan and admit each request; one the pool cannot cover waits
+        at the queue head. Chunked mode adopts a frozen slot per request
+        (a registered-prefix request takes the monolithic path: its seed
+        is a dense state, not pool blocks); monolithic mode plans every
+        request, then prefills each (bucket, prefix, seed length) group
+        in one pass."""
+        if self.prefill_chunk_tokens:
+            rest, deferred = [], []
+            for req in reqs:
+                if req.prefix:
+                    rest.append(req)
+                    continue
+                await self._restore_spilled(req)
+                plan = self._plan_blocks(req)
+                if plan is None:
+                    deferred.append(req)
+                else:
+                    await self._adopt(req, plan)
+            self._pending.extendleft(reversed(deferred))
+            reqs = rest
+        planned, deferred = [], []
         for req in reqs:
-            blocks = self._blocks_for(req)
-            if blocks is None:
+            await self._restore_spilled(req)
+            plan = self._plan_blocks(req)
+            if plan is None:
                 deferred.append(req)
             else:
-                planned.append((req, blocks))
+                planned.append((self._take_slot(req, plan), req, plan))
         self._pending.extendleft(reversed(deferred))
-        if self.prefill_chunk_tokens:
-            for req, blocks in planned:
-                await self._adopt(req, blocks)
-            return
-        groups: dict[int, list] = {}
-        for req, blocks in planned:
-            b = self.cengine.bucket_for(len(req.tokens), req.max_new)
-            groups.setdefault(b, []).append((req, blocks))
-        for bucket, group in groups.items():
-            await self._admit_group(bucket, group)
+        groups: dict[tuple, list] = {}
+        for slot, req, plan in planned:
+            b = self.cengine.bucket_for(len(plan["suffix"]), req.max_new,
+                                        reserve=plan["m"])
+            groups.setdefault((b, req.prefix, plan["m"]), []).append(
+                (slot, req, plan))
+        for (bucket, prefix, m), group in groups.items():
+            await self._admit_group(bucket, prefix, m, group)
 
-    async def _adopt(self, req: _Request, blocks: list[int]) -> None:
-        """Chunked admission: a frozen slot pointed at fresh blocks; the
-        prompt follows in slices."""
-        table = np.zeros(self.cengine.blocks_per_slot, np.int32)
-        table[:len(blocks)] = blocks
-        slot = self._take_slot(req, blocks)
-        req.prefilling = {"fed": 0}
+    async def _adopt(self, req: _Request, plan: dict) -> None:
+        """Chunked admission: a frozen slot pointed at the planned table
+        with its cursor at the seed length m, and the partially matched
+        block's cells [m - m % bs, m) copied into the row's first fresh
+        block (copy-on-write); the suffix follows in slices."""
+        slot = self._take_slot(req, plan)
+        req.prefilling = {"suffix": plan["suffix"], "fed": 0}
         self._prefill_q.append(slot)
-        await self._device(self.cengine.adopt_slot, self.cengine.slots(),
-                           slot, table, 0, req.tokens[0])
-
-    async def _admit_group(self, bucket: int, group: list) -> None:
-        """Monolithic admission of one bucket group: ONE prefill of the
-        group padded to min(pow2_ceil(g), max_slots) rows with greedy
-        dummies (sizes `warmup` covers), ONE insert of the real rows into
-        their fresh blocks, then each request's first token."""
-        n = len(group)
-        pad = min(pow2_ceil(n), self.cengine.S) - n
-        lists = [req.tokens for req, _ in group] + [[0]] * pad
-        samplings = [req.sampling for req, _ in group] + [GREEDY] * pad
-        tables = np.zeros((n, self.cengine.blocks_per_slot), np.int32)
-        slots = []
-        for i, (req, blocks) in enumerate(group):
-            tables[i, :len(blocks)] = blocks
-            slots.append(self._take_slot(req, blocks))
         ce = self.cengine
+        m, extra = plan["m"], plan["extra"]
 
         def run():
-            pstate, first, _, lps = ce.prefill_batch(lists, bucket,
-                                                     samplings, ce.gen)
-            ce.insert_many(ce.slots(), slots, pstate, list(range(n)),
-                           first, tables=tables)
+            st = ce.slots()
+            ce.adopt_slot(st, slot, plan["table"], m, plan["full"][m])
+            if extra is not None:
+                ce.copy_cells(st, extra.block, plan["fresh"][0],
+                              m % ce.block_size)
+
+        await self._device(run)
+        if extra is not None:
+            # the copy is queued ahead of any later write to the block
+            self._radix.unref([extra])
+
+    async def _admit_group(self, bucket: int, prefix: str, m: int,
+                           group: list) -> None:
+        """Monolithic admission of one (bucket, prefix, seed length)
+        group: the seed gathered from the pool (m > 0) or the registered
+        prefix's state, ONE prefill of the suffixes padded to
+        min(pow2_ceil(g), max_slots) rows with greedy dummies (sizes
+        `warmup` covers), ONE insert of the real rows into their tables,
+        then each prompt's blocks are indexed and its first token
+        emitted."""
+        ce = self.cengine
+        n = len(group)
+        pad = min(pow2_ceil(n), ce.S) - n
+        lists = [plan["suffix"] for _, _, plan in group] + [[0]] * pad
+        samplings = [req.sampling for _, req, _ in group] + [GREEDY] * pad
+        slots = [slot for slot, _, _ in group]
+        tables = np.stack([plan["table"] for _, _, plan in group])
+        seed = chains = None
+        if prefix:
+            seed = await self._get_prefix_state(prefix)
+        elif m:
+            chains = np.zeros((n + pad, ce.blocks_per_slot), np.int32)
+            for i, (_, _, plan) in enumerate(group):
+                phys = [nd.block for nd in plan["chain"]]
+                if plan["extra"] is not None:
+                    phys.append(plan["extra"].block)
+                chains[i, :len(phys)] = phys
+
+        def run():
+            st = ce.slots()
+            pstate0 = (seed if chains is None
+                       else ce.gather_seed(st, chains, m))
+            pstate, first, _, lps = ce.prefill_batch(
+                lists, bucket, samplings, ce.gen, prefix_state=pstate0)
+            ce.insert_many(st, slots, pstate, list(range(n)), first,
+                           tables=tables, seed_lens=[m] * n)
             return HostCopy(first[:n], lps[:n])
 
         t0 = time.perf_counter()
         firsts, flps = await self._fetch(await self._device(run))
         self.prefill_s += time.perf_counter() - t0
         self.prefills += 1
-        for i, (slot, (req, _)) in enumerate(zip(slots, group)):
+        for i, (slot, req, plan) in enumerate(group):
+            if plan["extra"] is not None:
+                # its cells now live in the row's own fresh block
+                self._radix.unref([plan["extra"]])
+            self.tokens_prefilled += len(plan["suffix"])
             if self._active.get(slot) is not req:
                 continue
+            self._index_inflight(req)
             if req.fut.done():   # cancelled while prefilling
                 self._finish(slot, req)
                 continue
@@ -933,24 +1402,28 @@ class ContinuousBatcher:
                        decode=False)
 
     async def _advance_prefill(self) -> None:
-        """Feed one slice of the unfinished prompt with the fewest tokens
-        left (admission order on ties). The finishing slice samples the
-        request's first token and unfreezes the row."""
+        """Feed one slice of the unfinished suffix with the fewest tokens
+        left (admission order on ties), from the slot's cursor. The
+        finishing slice samples the request's first token, unfreezes the
+        row, and indexes the now-written prompt blocks."""
         for slot in list(self._prefill_q):
             if self._active[slot].fut.done():   # cancelled mid-prefill
                 self._finish(slot, self._active[slot])
         if not self._prefill_q:
             return
-        slot = min(self._prefill_q, key=lambda s: (
-            len(self._active[s].tokens)
-            - self._active[s].prefilling["fed"]))
+
+        def left(s):
+            pf = self._active[s].prefilling
+            return len(pf["suffix"]) - pf["fed"]
+
+        slot = min(self._prefill_q, key=left)
         req = self._active[slot]
         budget = self.prefill_chunk_tokens
-        fed = req.prefilling["fed"]
-        n = min(budget, len(req.tokens) - fed)
-        finish = fed + n == len(req.tokens)
+        suffix, fed = req.prefilling["suffix"], req.prefilling["fed"]
+        n = min(budget, len(suffix) - fed)
+        finish = fed + n == len(suffix)
         toks = np.zeros((1, budget), np.int64)
-        toks[0, :n] = req.tokens[fed:fed + n]
+        toks[0, :n] = suffix[fed:fed + n]
 
         def run():
             nxt, lp = self.cengine.prefill_slice(self._sp(), slot, toks, n,
@@ -963,10 +1436,12 @@ class ContinuousBatcher:
             first, flp = await self._fetch(out)
         self.prefill_s += time.perf_counter() - t0
         self.slices += 1
+        self.tokens_prefilled += n
         req.prefilling["fed"] = fed + n
         if finish:
             self._prefill_q.remove(slot)
             req.prefilling = None
+            self._index_inflight(req)
             self._emit(slot, req, int(first[0]), float(flp[0]),
                        decode=False)
 
@@ -1018,7 +1493,9 @@ class ContinuousBatcher:
                 self._emit(slot, req, int(toks[slot, j]),
                            float(lps[slot, j]))
                 if slot not in self._active:
-                    break   # retired mid-chunk; the tail is dropped
+                    # retired mid-chunk: the tail is dropped, and never
+                    # enters kv_toks (its KV lies past the cache line)
+                    break
 
     async def _run(self) -> None:
         # decode chunks on the device, oldest first

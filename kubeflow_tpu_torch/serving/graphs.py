@@ -45,7 +45,9 @@ from kubeflow_tpu_torch.ops.cuda import add_launch_counts, launch_counts
 def upload(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """Host values (numpy, list, CPU tensor) as a new tensor on `device`,
     without blocking the host on a CUDA device."""
-    src = torch.as_tensor(np.asarray(values)).to(dtype)
+    if not isinstance(values, torch.Tensor):
+        values = torch.as_tensor(np.asarray(values))
+    src = values.to(dtype)
     if device.type != "cuda":
         return src.to(device)
     return src.pin_memory().to(device, non_blocking=True)

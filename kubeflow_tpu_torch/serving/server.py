@@ -3,7 +3,7 @@
 Routes, each with the reference's request and response bodies:
 - `POST /v1/models/{name}:generate` — body `{"tokens": [[ids...], ...],
   "max_new": 16, "temperature", "top_k", "top_p", "logprobs",
-  "speculative", "gamma"}`;
+  "speculative", "gamma", "prefix"}`;
 - `GET /healthz` (200 only while the server admits work), `GET /readyz`
   (liveness), `GET /v1/models`.
 
@@ -16,9 +16,12 @@ Modes, as in the reference's `create_serving_app`:
   batcher also carries `logprobs` (the reference sends such a request
   to the direct path instead).
 - `continuous=True`: every prompt rides the model's continuous batcher
-  on the paged KV pool (serving/continuous.py): monolithic admission by
-  default, chunked prefill with `prefill_chunk_tokens`, decode chunks
-  dispatched ahead as CUDA-graph replays.
+  on the paged KV pool (serving/continuous.py): radix prefix reuse,
+  monolithic admission by default, chunked prefill with
+  `prefill_chunk_tokens`, decode chunks dispatched ahead as CUDA-graph
+  replays, an optional host spill tier (`kv_spill_bytes`). A request's
+  `"prefix"` names a prefix registered with `prefixes=`, whose tokens
+  go before the prompt's and whose KV is computed once.
 - `"speculative": true` (either mode, a model registered in `drafts`):
   batch-1 speculative decoding through `SpeculativeEngine`.
 The reference's other routes (SSE streams, stop sequences, text mode,
@@ -195,6 +198,9 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
                        prefill_chunk_tokens: int | None = None,
                        pipeline_depth: int | None = None,
                        kv_block_size: int = 64,
+                       kv_pool_blocks: int | None = None,
+                       kv_spill_bytes: int | None = None,
+                       prefixes: dict[str, list[int]] | None = None,
                        drafts: dict[str, InferenceEngine] | None = None,
                        seed: int | None = None) -> web.Application:
     """`continuous=False` (the default) serves through the one-shot
@@ -205,7 +211,10 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
     `prefill_chunk_tokens` sets a chunked-prefill budget;
     `prefill_chunk` slices long monolithic prefills; `pipeline_depth`
     (None: 2 on CUDA, 1 on the CPU) is the decode dispatch-ahead depth;
-    `kv_block_size` the pool's block; `seed` seeds the sampler.
+    `kv_block_size` the pool's block, `kv_pool_blocks` its size (None:
+    every slot at max_len), `kv_spill_bytes` the host spill tier's
+    budget (None: off); `prefixes` maps names to registered prefix
+    tokens; `seed` seeds the sampler.
     `warmup=True` runs every serving shape in an on_startup hook before
     the app takes traffic: the continuous batchers' `warmup`, or in the
     one-shot mode each engine's decode graphs for the window batcher's
@@ -215,11 +224,14 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
     if not continuous and (prefill_chunk is not None
                            or prefill_chunk_tokens is not None
                            or pipeline_depth is not None
-                           or kv_block_size != 64):
+                           or kv_block_size != 64
+                           or kv_pool_blocks is not None
+                           or kv_spill_bytes is not None or prefixes):
         # these knobs only exist on the continuous batcher; ignoring
         # them would ship a server without what the caller asked for
         raise ValueError("prefill_chunk/prefill_chunk_tokens/"
-                         "pipeline_depth/kv_block_size require "
+                         "pipeline_depth/kv_block_size/kv_pool_blocks/"
+                         "kv_spill_bytes/prefixes require "
                          "continuous=True")
     unknown = set(drafts or {}) - set(engines)
     if unknown:
@@ -238,8 +250,9 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
                 eng, gpu_lock, max_slots=max_batch,
                 prefill_chunk=prefill_chunk,
                 prefill_chunk_tokens=prefill_chunk_tokens,
-                pipeline_depth=pipeline_depth,
-                kv_block_size=kv_block_size, seed=seed)
+                prefixes=prefixes, pipeline_depth=pipeline_depth,
+                kv_block_size=kv_block_size, kv_pool_blocks=kv_pool_blocks,
+                kv_spill_bytes=kv_spill_bytes, seed=seed)
             for name, eng in engines.items()}
     else:
         app[BATCHERS_KEY] = (
@@ -329,7 +342,11 @@ async def list_models(request: web.Request):
                     "active_slots": len(b._active),
                     "kv_block_size": b.cengine.block_size,
                     "kv_pool_blocks": b.cengine.num_blocks,
+                    "prefix_cache": b.prefix_cache_stats(),
                 })
+                if b._prefixes:
+                    entry["prefixes"] = {
+                        n: len(t) for n, t in b._prefixes.items()}
             else:
                 entry["batcher_mode"] = "window"
         out.append(entry)
@@ -392,6 +409,9 @@ async def generate(request: web.Request):
                 or isinstance(top_p, bool) or not 0.0 < top_p <= 1.0:
             return _bad("top_p must be in (0, 1]")
         sampling["top_p"] = float(top_p)
+    prefix = body.get("prefix", "")
+    if not isinstance(prefix, str):
+        return _bad("prefix must be a string")
     logprobs = body.get("logprobs", False)
     if not isinstance(logprobs, bool):
         return _bad("logprobs must be a boolean")
@@ -410,6 +430,22 @@ async def generate(request: web.Request):
     speculative = body.get("speculative", False)
     if not isinstance(speculative, bool):
         return _bad("speculative must be a boolean")
+    batcher = request.app[BATCHERS_KEY].get(name)
+    if prefix:
+        if not isinstance(batcher, ContinuousBatcher):
+            return _bad("prefix requires continuous batching")
+        if prefix not in batcher._prefixes:
+            return _bad(f"unknown prefix {prefix!r}; registered: "
+                        f"{sorted(batcher._prefixes)}")
+        if len(token_lists) != 1:
+            return _bad("prefix requests are single-prompt")
+        if speculative:
+            return _bad("prefix does not compose with speculative")
+        plen = len(batcher._prefixes[prefix])
+        if plen + prompt_len + max_new > cap:
+            return _bad(f"prefix {plen} + prompt {prompt_len} + max_new "
+                        f"{max_new} exceeds model max_len {cap}")
+        sampling["prefix"] = prefix
     gamma = body.get("gamma", 4)
     if not isinstance(gamma, int) or isinstance(gamma, bool) or gamma < 1:
         return _bad("gamma must be a positive integer")
@@ -418,7 +454,6 @@ async def generate(request: web.Request):
     # and trim the response back to the ask
     max_new_req = max_new
     max_new = max(bucket_pow2(max_new, cap - prompt_len), max_new_req)
-    batcher = request.app[BATCHERS_KEY].get(name)
     resp: dict[str, Any] = {}
     lp_rows = None
     if speculative:

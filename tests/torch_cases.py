@@ -1,10 +1,13 @@
 """Input builders for the paged-attention tests: random pools, block
 tables and cursors in the serving engine's layout, from a numpy seed;
-the decode kernels' split-and-merge arithmetic (`emulate_split`); and
-the flash kernels' error bound with its dropped-diagonal control.
-Shared by the CPU parity tests (against the JAX reference) and the card
-tests (the CUDA kernels against their plain versions)."""
+the decode kernels' split-and-merge arithmetic (`emulate_split`); the
+flash kernels' error bound with its dropped-diagonal control; and
+waves of traffic for either framework's continuous batcher
+(`serve_waves`, `cache_books`). Shared by the CPU parity tests (against
+the JAX reference) and the card tests (the CUDA kernels against their
+plain versions)."""
 
+import asyncio
 from unittest import mock
 
 import numpy as np
@@ -190,3 +193,58 @@ def prefill_dropped_diagonal(attention_module):
 
     return mock.patch.object(attention_module, "_torch_attention",
                              off_by_one)
+
+
+# -- continuous-batcher traffic --------------------------------------------
+
+
+def _decoding(batcher) -> bool:
+    """Some admitted request is past its prefill (either framework's
+    batcher: both keep `_active` records with `prefilling` and `out`)."""
+    return any(r.prefilling is None and r.out
+               for r in batcher._active.values())
+
+
+async def serve_waves(batcher, waves, *, reference: bool):
+    """Serve `waves` through a continuous batcher (the reference's with
+    `reference=True`, else the port's) and close it. A wave is a list of
+    requests `{"tokens", "max_new", "prefix" (optional), "late"
+    (optional)}`, submitted at once; each wave is awaited before the
+    next. A `late` request waits until an earlier one of its wave
+    decodes, so it is admitted while that one is still active (in-flight
+    prefix sharing). -> [(tokens, logprobs)] in request order."""
+
+    async def one(req):
+        if req.get("late"):
+            while not _decoding(batcher):
+                await asyncio.sleep(0.001)
+        sampling = {"prefix": req["prefix"]} if req.get("prefix") else {}
+        toks, lps = await batcher.submit(
+            req["tokens"], req["max_new"],
+            tuple(sampling.items()) if reference else sampling,
+            with_logprobs=True)
+        return list(toks), list(lps)
+
+    out = []
+    try:
+        for wave in waves:
+            out += await asyncio.gather(*(one(r) for r in wave))
+    finally:
+        await batcher.close()
+    return out
+
+
+def cache_books(batcher) -> dict:
+    """What both frameworks' batchers must agree on after the same
+    traffic: prefix hits and misses, tokens reused and prefilled,
+    cached and spilled blocks, the heat digest, and the lifecycle
+    ledger's snapshot without its admission defers (a deferred request
+    is planned again every worker iteration, whose count depends on the
+    pipeline depth)."""
+    stats = batcher.prefix_cache_stats()
+    ledger = batcher.cache_ledger.snapshot()
+    ledger.pop("defers")
+    return {k: stats[k] for k in ("hits", "misses", "tokens_prefilled",
+                                  "tokens_reused", "cached_blocks",
+                                  "spilled_blocks", "heat")} | {
+        "ledger": ledger}

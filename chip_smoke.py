@@ -43,6 +43,12 @@ Phases, each fatal on failure (exit code 1, no result line):
              times at the window batch and at batch 1 at both splits
              (and how many splits the pad skip drops) against SDPA over
              each row's cells up to its cursor.
+             Then the three serving kernels again at gemma-2b's shapes
+             (n_q 8, n_kv 1, hd 256, 18 layers' pools): paged decode at
+             the same cursors and splits, prefill-append as the 4-row
+             batch, the 300-token prompt's slices and the capped repeat,
+             dense decode at the window batch and at batch 1; the same
+             bounds and controls, SDPA with K/V repeated over the group.
 3. serve   — boots the port's HTTP server in-process (the CLI's
              `--model llama3-1b --random --seed 0 --continuous --warmup
              --prefill-chunk-tokens 64`; dispatch-ahead depth 2), whose
@@ -125,9 +131,23 @@ Phases, each fatal on failure (exit code 1, no result line):
              per decode step of the window batch, speculative and
              target-alone tokens/s at batch 1, peak memory, and profiles
              one window-batch call.
+6. gemma  — gemma-2b at full width and depth (18 layers, hidden 2048,
+             8 / 1 heads, hd 256, vocab 256128, bf16, tied fp32 head),
+             random weights from seed 0, served three ways with phase
+             3's and phase 5's checks: continuous with chunked prefill
+             and with monolithic admission (as phases 3 and 3b: 8
+             slots, block 64, `--warmup`, depth 2; 18 paged decode
+             launches per dispatched step and 18 prefill-append launches
+             per slice; cache hits on the repeated pass; the eager
+             control), then one-shot (as phase 5 without the draft: the
+             window batch of 8 and a 2-row direct batch; 18 dense decode
+             launches per replayed step). Logprobs within 0.1 of a
+             teacher-forced pass of the plain gemma model.
 Then prints the `kernels` JSON line (launches: the paged kernels' over
-phases 3, 3b and 3c, each other kernel's over its phase), the card's
-name and power limit, and last `{"ok": true, "device": {...}}`.
+phases 3, 3b and 3c, each other kernel's over its phase; each serving
+kernel again as `<name>@gemma-2b`, timed in phase 2 at gemma-2b's shapes
+and counted over phase 6), the card's name and power limit, and last
+`{"ok": true, "device": {...}}`.
 
 Exits non-zero without a result when CUDA is unavailable or the port's
 package is not beside this script.
@@ -143,6 +163,7 @@ import socket
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -213,6 +234,29 @@ WINDOW_MS = 50.0
 GAMMA = 4
 DECODE_SPLITS = (64, 128, 256)     # paged decode cells a split, timed
 DENSE_SPLITS = (64, 128)           # dense decode cells a split, timed
+
+
+class Geom(NamedTuple):
+    """A served model's attention geometry, for phase 2's kernel cases.
+    `repeat_kv`: the SDPA yardstick gets K/V repeated over the GQA group
+    (gemma) instead of `enable_gqa` (llama, as in its earlier timings)."""
+    model: str
+    n_q: int
+    n_kv: int
+    hd: int
+    layers: int
+    repeat_kv: bool = False
+
+
+LLAMA_1B = Geom("llama3-1b", N_Q, N_KV, HD, LAYERS)
+LLAMA_8B = Geom("llama3-8b", DENSE_NQ, N_KV, HD, DENSE_LAYERS)
+# gemma-2b (phase 6): 18 layers, 8 query heads over one kv head of 256
+GEMMA_2B = Geom("gemma-2b", 8, 1, 256, 18, repeat_kv=True)
+
+
+# suffix of a `kernels`-line name measured at gemma-2b's shapes (phase 2)
+# and launched by phase 6
+GEMMA = "@gemma-2b"
 
 
 def fail(msg: str) -> None:
@@ -321,21 +365,29 @@ def _visible(qpos, mask_row):
     return int(mask_row[:qpos + 1].sum())
 
 
-def check_decode(torch, dev):
+def _sdpa_kv(torch, g, *kv):
+    """K/V [b, n_kv, cells, hd] as the SDPA yardstick takes them: as they
+    are (with enable_gqa) or repeated over the group."""
+    if not g.repeat_kv:
+        return kv
+    return tuple(t.repeat_interleave(g.n_q // g.n_kv, dim=1) for t in kv)
+
+
+def check_decode(torch, dev, g=LLAMA_1B):
     from kubeflow_tpu_torch.ops.cuda.paged_attention import (
-        SPLIT_CELLS,
+        default_split_cells,
         paged_decode_attention,
         paged_decode_attention_plain,
         split_count,
     )
 
-    kind = "decode"
+    kind = f"decode ({g.model})"
     gen = torch.Generator().manual_seed(1)
     dt = torch.bfloat16
-    shape = (LAYERS, NUM_BLOCKS, BS, N_KV, HD)
+    shape = (g.layers, NUM_BLOCKS, BS, g.n_kv, g.hd)
     kp = torch.randn(shape, generator=gen).to(dev, dt)
     vp = torch.randn(shape, generator=gen).to(dev, dt)
-    q = torch.randn(SLOTS, 1, N_Q, HD, generator=gen).to(dev, dt)
+    q = torch.randn(SLOTS, 1, g.n_q, g.hd, generator=gen).to(dev, dt)
     pos = torch.tensor([16, 129, 300, 511, 64, 700, 1000, 1023],
                        dtype=torch.int32)
     cases = {
@@ -354,13 +406,13 @@ def check_decode(torch, dev):
         got = paged_decode_attention(*args, window=c["window"])
         torch.cuda.synchronize()
         err, ratio = _err(got, want)
-        log(f"  decode {name}: max_abs_err {err:.3e}, err/tol max "
+        log(f"  {kind} {name}: max_abs_err {err:.3e}, err/tol max "
             f"{ratio:.3f} ({TOL_TEXT})")
         if not torch.isfinite(got).all() or ratio > 1:
             fail(f"paged_decode_attention {name}: err {err} over {TOL_TEXT}")
         worst = max(worst, err)
 
-    # timing on the ragged case, cycling the 16 layers' pools as a decode
+    # timing on the ragged case, cycling the layers' pools as a decode
     # step does (working set > L2)
     table = _tables(gen, torch, SLOTS, (pos + 1).tolist()).to(dev)
     mask = torch.ones(SLOTS, NB * BS, dtype=torch.bool, device=dev)
@@ -369,46 +421,51 @@ def check_decode(torch, dev):
     split_ms = {}
     for split in DECODE_SPLITS:
         split_ms[split] = _time_ms(torch, lambda i: paged_decode_attention(
-            q, kp[i % LAYERS], vp[i % LAYERS], table, posd, mask,
-            split_cells=split), 320)
+            q, kp[i % g.layers], vp[i % g.layers], table, posd, mask,
+            split_cells=split), 20 * g.layers)
         n_split = split_count(NB * BS, split)
         busy = sum(-(-(int(p) + 1) // split) for p in pos)
-        log(f"  decode split of {split} cells: {n_split} splits a row, "
-            f"{busy * N_KV} of {n_split * SLOTS * N_KV} blocks see a cell; "
+        log(f"  {kind} split of {split} cells: {n_split} splits a row, "
+            f"{busy * g.n_kv} of {n_split * SLOTS * g.n_kv} blocks see a "
+            f"cell; "
             f"device {split_ms[split][0]:.4f} ms (eager call "
             f"{split_ms[split][1]:.4f} ms)")
-    ms, eager = split_ms[SPLIT_CELLS]
+    default = default_split_cells(g.n_q // g.n_kv, g.hd)
+    log(f"  {kind}: the wrapper's default split for this head geometry is "
+        f"{default} cells")
+    ms, eager = split_ms[default]
     for part in ("split", "combine"):
-        marker = f"decode_{part}_kernelI13__nv_bfloat16"
-        log(f"  ptxas, bf16 paged decode {part} kernel: "
+        marker = f"decode_{part}_kernelI13__nv_bfloat16Li{g.hd}E"
+        log(f"  ptxas, bf16 paged decode {part} kernel, hd {g.hd}: "
             f"{_ptxas('paged_decode_attention', marker)}")
     plain_ms, plain_eager = _time_ms(
         torch, lambda i: paged_decode_attention_plain(
-            q, kp[i % LAYERS], vp[i % LAYERS], table, posd, mask), 32)
+            q, kp[i % g.layers], vp[i % g.layers], table, posd, mask), 32)
     # library yardstick: SDPA over K/V gathered beforehand (the gather is
     # not timed), boolean mask = causal & kv_mask
-    kg = kp[0][table.long()].reshape(SLOTS, NB * BS, N_KV, HD)
-    vg = vp[0][table.long()].reshape(SLOTS, NB * BS, N_KV, HD)
+    kg = kp[0][table.long()].reshape(SLOTS, NB * BS, g.n_kv, g.hd)
+    vg = vp[0][table.long()].reshape(SLOTS, NB * BS, g.n_kv, g.hd)
     cells = torch.arange(NB * BS, device=dev)
     amask = (mask & (cells[None] <= posd[:, None]))[:, None, None, :]
-    qt, kt, vt = q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2)
+    qt = q.transpose(1, 2)
+    kt, vt = _sdpa_kv(torch, g, kg.transpose(1, 2), vg.transpose(1, 2))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms, _ = _time_ms(torch, lambda i: sdpa(
-        qt, kt, vt, attn_mask=amask, enable_gqa=True), 320)
+        qt, kt, vt, attn_mask=amask, enable_gqa=not g.repeat_kv), 320)
     # bound: each live K/V cell read once per kv head, q read, out written
     live = [int(p) + 1 for p in pos]
     vis = [_visible(int(p), mask[r])
            for r, p in enumerate(pos)]
-    bytes_moved = (sum(live) * N_KV * HD * 2 * 2           # K and V
-                   + 2 * SLOTS * N_Q * HD * 2             # q in, out
+    bytes_moved = (sum(live) * g.n_kv * g.hd * 2 * 2       # K and V
+                   + 2 * SLOTS * g.n_q * g.hd * 2         # q in, out
                    + sum(live)                             # mask cells
                    + sum(-(-c // BS) for c in live) * 4 + SLOTS * 4)
-    flops = sum(vis) * N_Q * HD * 4                        # QK and PV
+    flops = sum(vis) * g.n_q * g.hd * 4                    # QK and PV
     return _summary(kind, worst, (ms, eager), (plain_ms, plain_eager),
                     library_ms, bytes_moved, flops)
 
 
-def _dense_need(pos, mask, window, n_q, n_kv):
+def _dense_need(pos, mask, window, n_q, n_kv, hd):
     """Bytes and flops one dense decode call needs: the K and V of each
     row's visible cells (causal, kv_mask, window), the mask cells of its
     live range, q read and out written, the cursors."""
@@ -417,9 +474,9 @@ def _dense_need(pos, mask, window, n_q, n_kv):
         lo = max(0, p - window + 1) if window else 0
         live += p + 1 - lo
         vis += int(mask[r, lo:p + 1].sum())
-    bytes_moved = (vis * n_kv * HD * 2 * 2 + 2 * len(pos) * n_q * HD * 2
+    bytes_moved = (vis * n_kv * hd * 2 * 2 + 2 * len(pos) * n_q * hd * 2
                    + live + len(pos) * 4)
-    return bytes_moved, vis * n_q * HD * 4
+    return bytes_moved, vis * n_q * hd * 4
 
 
 def _pad_splits(pos, mask, split):
@@ -435,11 +492,12 @@ def _pad_splits(pos, mask, split):
     return live, blank
 
 
-def check_dense_decode(torch, dev):
+def check_dense_decode(torch, dev, wg=LLAMA_8B, g1=LLAMA_1B):
     """The dense decode kernel against its plain version at the one-shot
-    path's shapes (llama3-8b, b 8, max_len 1024, bf16) at 64- and
-    128-cell splits, then timings at the window batch's shape and at the
-    speculative draft's batch 1."""
+    path's shapes (the window batch of model `wg`: b 8, max_len 1024,
+    bf16; batch 1 of model `g1`, the speculative draft's at llama) at
+    64- and 128-cell splits, then timings at the window batch's shape
+    and at batch 1."""
     from kubeflow_tpu_torch.ops.cuda.decode_attention import (
         SPLIT_CELLS,
         decode_attention,
@@ -461,22 +519,20 @@ def check_dense_decode(torch, dev):
                               dtype=torch.int32)
     ragged_mask = torch.ones(b, MAX_LEN, dtype=torch.bool)
     ragged_mask[ragged_pos > 5, 5] = False   # a hole below most cursors
-    # name: (rows, n_q, pos, mask, window, dtype)
+    # name: (rows, geometry, pos, mask, window, dtype)
     cases = {
-        "window_batch": (b, DENSE_NQ, window_pos, window_mask, None, dt),
-        "ragged_0_255_256_1023": (b, DENSE_NQ, ragged_pos, ragged_mask,
-                                  None, dt),
-        "window_256": (b, DENSE_NQ, ragged_pos, ragged_mask, 256, dt),
-        "draft_batch1": (1, N_Q, torch.tensor([300], dtype=torch.int32),
-                         torch.ones(1, MAX_LEN, dtype=torch.bool), None,
-                         dt),
-        "window_batch_fp32": (b, DENSE_NQ, window_pos, window_mask, None,
+        "window_batch": (b, wg, window_pos, window_mask, None, dt),
+        "ragged_0_255_256_1023": (b, wg, ragged_pos, ragged_mask, None, dt),
+        "window_256": (b, wg, ragged_pos, ragged_mask, 256, dt),
+        "batch1": (1, g1, torch.tensor([300], dtype=torch.int32),
+                   torch.ones(1, MAX_LEN, dtype=torch.bool), None, dt),
+        "window_batch_fp32": (b, wg, window_pos, window_mask, None,
                               torch.float32),
     }
     worst = 0.0
-    for name, (rows, n_q, pos, mask, window, dtype) in cases.items():
-        q = torch.randn(rows, 1, n_q, HD, generator=gen).to(dev, dtype)
-        k, v = (torch.randn(rows, MAX_LEN, N_KV, HD, generator=gen)
+    for name, (rows, g, pos, mask, window, dtype) in cases.items():
+        q = torch.randn(rows, 1, g.n_q, g.hd, generator=gen).to(dev, dtype)
+        k, v = (torch.randn(rows, MAX_LEN, g.n_kv, g.hd, generator=gen)
                 .to(dev, dtype) for _ in range(2))
         args = (q, k, v, pos.to(dev), mask.to(dev))
         want = decode_attention_plain(*args, window=window)
@@ -484,7 +540,8 @@ def check_dense_decode(torch, dev):
             got = decode_attention(*args, window=window, split_cells=split)
             torch.cuda.synchronize()
             err, ratio = _err(got, want)
-            log(f"  dense decode {name}, {split}-cell splits: max_abs_err "
+            log(f"  dense decode ({g.model}) {name}, {split}-cell splits: "
+                f"max_abs_err "
                 f"{err:.3e}, err/tol max {ratio:.3f} ({TOL_TEXT})")
             if not torch.isfinite(got).all() or ratio > 1:
                 fail(f"decode_attention {name} ({split}-cell splits): err "
@@ -492,15 +549,18 @@ def check_dense_decode(torch, dev):
             if dtype == dt:
                 worst = max(worst, err)
     for part in ("split", "combine"):
-        for label, ty in (("bf16", "I13__nv_bfloat16"), ("fp32", "IfLi128E")):
-            log(f"  ptxas, {label} dense decode {part} kernel: "
-                f"{_ptxas('decode_attention', f'decode_{part}_kernel{ty}')}")
+        for label, ty in (("bf16", "I13__nv_bfloat16"), ("fp32", "If")):
+            marker = f"decode_{part}_kernel{ty}Li{wg.hd}E"
+            log(f"  ptxas, {label} dense decode {part} kernel, hd {wg.hd}: "
+                f"{_ptxas('decode_attention', marker)}")
 
-    def timed(kind, rows, n_q, layers, pos, mask):
-        """Kernel (at each split), plain and SDPA times, cycling `layers`
-        layers' caches as a decode step does (working set > L2)."""
-        q = torch.randn(rows, 1, n_q, HD, generator=gen).to(dev, dt)
-        shape = (layers, rows, MAX_LEN, N_KV, HD)
+    def timed(kind, rows, g, pos, mask):
+        """Kernel (at each split), plain and SDPA times, cycling the
+        model's layers' caches as a decode step does (working set >
+        L2)."""
+        layers = g.layers
+        q = torch.randn(rows, 1, g.n_q, g.hd, generator=gen).to(dev, dt)
+        shape = (layers, rows, MAX_LEN, g.n_kv, g.hd)
         kc, vc = (torch.randn(shape, generator=dgen, device=dev, dtype=dt)
                   for _ in range(2))
         posd, maskd = pos.to(dev), mask.to(dev)
@@ -513,9 +573,9 @@ def check_dense_decode(torch, dev):
             log(f"  {kind}, {split}-cell splits: device "
                 f"{split_ms[split][0]:.4f} ms (eager call "
                 f"{split_ms[split][1]:.4f} ms); of "
-                f"{split_count(MAX_LEN, split) * rows * N_KV} split blocks "
-                f"{live * N_KV} meet the live range and the pad skip "
-                f"sends {blank * N_KV} of those home")
+                f"{split_count(MAX_LEN, split) * rows * g.n_kv} split "
+                f"blocks {live * g.n_kv} meet the live range and the pad "
+                f"skip sends {blank * g.n_kv} of those home")
         ms = split_ms[SPLIT_CELLS]
         plain = _time_ms(torch, lambda i: decode_attention_plain(
             q, kc[i % layers], vc[i % layers], posd, maskd), layers)
@@ -526,12 +586,14 @@ def check_dense_decode(torch, dev):
         amask = (maskd[:, :n] & (cells[None] <= posd[:, None]))[:, None,
                                                                  None, :]
         qt = q.transpose(1, 2)
+        kvt = [_sdpa_kv(torch, g, kc[i, :, :n].transpose(1, 2),
+                        vc[i, :, :n].transpose(1, 2)) for i in range(layers)]
         sdpa = torch.nn.functional.scaled_dot_product_attention
         library_ms, _ = _time_ms(torch, lambda i: sdpa(
-            qt, kc[i % layers, :, :n].transpose(1, 2),
-            vc[i % layers, :, :n].transpose(1, 2), attn_mask=amask,
-            enable_gqa=True), 10 * layers)
-        moved, flops = _dense_need(pos, mask, None, n_q, N_KV)
+            qt, *kvt[i % layers], attn_mask=amask,
+            enable_gqa=not g.repeat_kv), 10 * layers)
+        moved, flops = _dense_need(pos, mask, None, g.n_q, g.n_kv, g.hd)
+        del kvt
         del kc, vc
         torch.cuda.empty_cache()
         stats = _summary(f"{kind} ({SPLIT_CELLS}-cell splits, the default)",
@@ -540,15 +602,16 @@ def check_dense_decode(torch, dev):
             f"{ms[0] / library_ms:.2f}x SDPA's time")
         return stats
 
-    timed("dense decode, batch 1 (the speculative draft's step: llama3-1b, "
-          "cursor 300)", 1, N_Q, LAYERS, torch.tensor([300], dtype=torch.int32),
-          torch.ones(1, MAX_LEN, dtype=torch.bool))
-    return timed(f"dense decode, window batch (llama3-8b, b {b}, cursor "
-                 f"{DENSE_BUCKET + 15}, left-pad runs)", b, DENSE_NQ,
-                 DENSE_LAYERS, window_pos, window_mask)
+    batch1 = timed(f"dense decode, batch 1 ({g1.model}, cursor 300)", 1, g1,
+                   torch.tensor([300], dtype=torch.int32),
+                   torch.ones(1, MAX_LEN, dtype=torch.bool))
+    window = timed(f"dense decode, window batch ({wg.model}, b {b}, cursor "
+                   f"{DENSE_BUCKET + 15}, left-pad runs)", b, wg, window_pos,
+                   window_mask)
+    return window, batch1
 
 
-def _prefill_need(starts, lens, mask):
+def _prefill_need(g, starts, lens, mask):
     """Bytes and flops one prefill call needs: q, k_new and v_new read
     and out written for the valid tokens only (padding is neither
     scattered nor kept), the new cells written once, each row's prefix
@@ -560,18 +623,19 @@ def _prefill_need(starts, lens, mask):
             new += n
             prefix += s
             vis += sum(_visible(s + t, mask[r]) for t in range(n))
-    bytes_moved = (new * (N_Q * 2 + N_KV * 2) * HD * 2      # q, out, new
-                   + new * N_KV * HD * 2 * 2                # cells written
-                   + prefix * N_KV * HD * 2 * 2             # prefix read
+    n_q, n_kv, hd = g.n_q, g.n_kv, g.hd
+    bytes_moved = (new * (n_q * 2 + n_kv * 2) * hd * 2      # q, out, new
+                   + new * n_kv * hd * 2 * 2                # cells written
+                   + prefix * n_kv * hd * 2 * 2             # prefix read
                    + (prefix + new) + len(starts) * (NB * 4 + 8))
-    return bytes_moved, vis * N_Q * HD * 4
+    return bytes_moved, vis * n_q * hd * 4
 
 
-def _time_prefill(torch, kind, worst, calls, kp, vp, n):
+def _time_prefill(torch, g, kind, worst, calls, kp, vp, n):
     """Time kernel, plain version and SDPA over `calls`, a list of
     (q, k_new, v_new, table, starts, lens, mask) on the card, cycled
-    together with the 16 layers' pools; the bound is the mean over the
-    calls of what each needs."""
+    together with the model's layers' pools; the bound is the mean over
+    the calls of what each needs."""
     from kubeflow_tpu_torch.ops.cuda.prefill_append import (
         paged_prefill_append,
         paged_prefill_append_plain,
@@ -580,8 +644,8 @@ def _time_prefill(torch, kind, worst, calls, kp, vp, n):
     k = len(calls)
 
     def run(fn):
-        return lambda i: fn(*calls[i % k][:3], kp[i % LAYERS],
-                            vp[i % LAYERS], *calls[i % k][3:])
+        return lambda i: fn(*calls[i % k][:3], kp[i % g.layers],
+                            vp[i % g.layers], *calls[i % k][3:])
 
     ms = _time_ms(torch, run(paged_prefill_append), n)
     plain = _time_ms(torch, run(paged_prefill_append_plain), n // 8)
@@ -591,18 +655,18 @@ def _time_prefill(torch, kind, worst, calls, kp, vp, n):
     lib_args = []
     for q, _, _, table, starts, _, mask in calls:
         b, dev = q.shape[0], q.device
-        kg = kp[0][table.long()].reshape(b, NB * BS, N_KV, HD)
-        vg = vp[0][table.long()].reshape(b, NB * BS, N_KV, HD)
+        kg = kp[0][table.long()].reshape(b, NB * BS, g.n_kv, g.hd)
+        vg = vp[0][table.long()].reshape(b, NB * BS, g.n_kv, g.hd)
         cells = torch.arange(NB * BS, device=dev)
         qpos = starts[:, None] + torch.arange(CHUNK, device=dev)[None]
         amask = (mask[:, None, :] & (cells[None, None] <= qpos[:, :, None])
                  )[:, None]
-        lib_args.append((q.transpose(1, 2), kg.transpose(1, 2),
-                         vg.transpose(1, 2), amask))
+        lib_args.append((q.transpose(1, 2), *_sdpa_kv(
+            torch, g, kg.transpose(1, 2), vg.transpose(1, 2)), amask))
     library_ms, _ = _time_ms(torch, lambda i: sdpa(
         *lib_args[i % k][:3], attn_mask=lib_args[i % k][3],
-        enable_gqa=True), n)
-    need = [_prefill_need(c[4], c[5], c[6]) for c in calls]
+        enable_gqa=not g.repeat_kv), n)
+    need = [_prefill_need(g, c[4], c[5], c[6]) for c in calls]
     return _summary(kind, worst, ms, plain, library_ms,
                     sum(b for b, _ in need) / k, sum(f for _, f in need) / k)
 
@@ -626,7 +690,7 @@ def _prefill_dropped_diagonal():
     return mock.patch.object(attention, "_torch_attention", off_by_one)
 
 
-def check_prefill(torch, dev):
+def check_prefill(torch, dev, g=LLAMA_1B):
     from kubeflow_tpu_torch.ops.cuda.prefill_append import (
         paged_prefill_append,
         paged_prefill_append_plain,
@@ -636,13 +700,13 @@ def check_prefill(torch, dev):
     gen = torch.Generator().manual_seed(2)
     dt = torch.bfloat16
     c_tol, rtol = FLASH_TOL["bfloat16"]
-    shape = (LAYERS, NUM_BLOCKS, BS, N_KV, HD)
+    shape = (g.layers, NUM_BLOCKS, BS, g.n_kv, g.hd)
     kp = torch.randn(shape, generator=gen).to(dev, dt)
     vp = torch.randn(shape, generator=gen).to(dev, dt)
 
     def fresh(b):
-        return tuple(torch.randn(b, CHUNK, n, HD, generator=gen).to(dev, dt)
-                     for n in (N_Q, N_KV, N_KV))
+        return tuple(torch.randn(b, CHUNK, n, g.hd, generator=gen)
+                     .to(dev, dt) for n in (g.n_q, g.n_kv, g.n_kv))
 
     def compare(calls, window=None):
         """Run the calls in order on the plain version and on the kernel,
@@ -721,8 +785,8 @@ def check_prefill(torch, dev):
     # over the chain blocks the rows share below their starts
     gen_c = torch.Generator().manual_seed(12)
     starts = [63, 127, 255, 511]
-    q1, kn1, vn1 = (torch.randn(rows, CHUNK, n, HD, generator=gen_c).to(
-        dev, dt) for n in (N_Q, N_KV, N_KV))
+    q1, kn1, vn1 = (torch.randn(rows, CHUNK, n, g.hd, generator=gen_c).to(
+        dev, dt) for n in (g.n_q, g.n_kv, g.n_kv))
     mask = torch.ones(rows, NB * BS, dtype=torch.bool)
     mask[:, 5] = False
     call = (q1, kn1, vn1, _chain_tables(gen_c, torch, starts).to(dev),
@@ -732,8 +796,8 @@ def check_prefill(torch, dev):
 
     worst = 0.0
     for name, (_, (err, ratio, control, equal)) in results.items():
-        log(f"  prefill {name}: max_abs_err {err:.3e}, err/tol max "
-            f"{ratio:.3f} ({BF16_TOL_TEXT}); dropped-diagonal control "
+        log(f"  prefill ({g.model}) {name}: max_abs_err {err:.3e}, err/tol "
+            f"max {ratio:.3f} ({BF16_TOL_TEXT}); dropped-diagonal control "
             f"err/tol {control:.1f}; pools equal outside block 0: {equal}")
         if ratio > 1 or not equal:
             fail(f"paged_prefill_append {name}: err {err}, pools equal "
@@ -743,16 +807,19 @@ def check_prefill(torch, dev):
                  f"({name}: {control})")
         worst = max(worst, err)
     for part, marker in (("tensor-core attention",
-                          "prefill_attention_tc_kernel"),
+                          f"prefill_attention_tc_kernelILi{g.hd}E"),
                          ("scatter", "scatter_kernelI13__nv_bfloat16")):
-        log(f"  ptxas, bf16 prefill {part} kernel: "
+        log(f"  ptxas, bf16 prefill {part} kernel, hd {g.hd}: "
             f"{_ptxas('paged_prefill_append', marker)}")
 
-    _time_prefill(torch, "prefill, 4-row batch (ragged_lens)", worst,
-                  [results["ragged_lens"][0]], kp, vp, 160)
-    return _time_prefill(
-        torch, f"prefill, 1-row slices of a {prompt}-token prompt (the "
-        f"main path's shape; mean per slice)", worst, slices, kp, vp, 160)
+    batch = _time_prefill(
+        torch, g, f"prefill ({g.model}), 4-row batch (ragged_lens)", worst,
+        [results["ragged_lens"][0]], kp, vp, 10 * g.layers)
+    path = _time_prefill(
+        torch, g, f"prefill ({g.model}), 1-row slices of a {prompt}-token "
+        f"prompt (the main path's shape; mean per slice)", worst, slices, kp,
+        vp, 10 * g.layers)
+    return path, batch
 
 
 def _pairs(s, causal, window):
@@ -979,17 +1046,19 @@ def _free_port() -> int:
 
 def _teacher_check(torch, engine, prompts, outs, lps, label):
     """Every served sequence teacher-forced through the plain dense model
-    at the same weights: logprobs (where given) within LOGPROB_TOL, and
-    the argmax wherever the top-2 margin exceeds 2 x LOGPROB_TOL."""
-    from kubeflow_tpu_torch.models import llama
+    of the engine's family at the same weights: logprobs (where given)
+    within LOGPROB_TOL, and the argmax wherever the top-2 margin exceeds
+    2 x LOGPROB_TOL."""
+    from kubeflow_tpu_torch.models import gemma, llama
 
+    model = gemma if engine.family.name == "gemma" else llama
     cfg, dev = engine.cfg, engine.device
     worst, argmax_ok, argmax_n = 0.0, 0, 0
     with torch.inference_mode():
         for p, o, lp in zip(prompts, outs, lps):
             toks = torch.tensor([p + o[:-1]], device=dev)
             logp = torch.log_softmax(
-                llama.apply(engine.params, cfg, toks)[0, len(p) - 1:], -1)
+                model.apply(engine.params, cfg, toks)[0, len(p) - 1:], -1)
             if lp is not None:
                 ref = logp[torch.arange(len(o), device=dev),
                            torch.tensor(o, device=dev)].cpu()
@@ -1008,10 +1077,11 @@ def _teacher_check(torch, engine, prompts, outs, lps, label):
         fail(f"{label}: served tokens disagree with the plain dense model")
 
 
-async def serve_and_check(torch, chunked: bool):
-    """llama3-1b served continuously in-process through the HTTP app the
-    CLI builds, warmed at start-up, at dispatch-ahead depth 2: chunked
-    prefill (phase 3) or monolithic admission (phase 3b)."""
+async def serve_and_check(torch, chunked: bool, model: str = "llama3-1b"):
+    """`model` (llama3-1b in phases 3 and 3b, gemma-2b in phase 6) served
+    continuously in-process through the HTTP app the CLI builds, warmed
+    at start-up, at dispatch-ahead depth 2: chunked prefill or
+    monolithic admission."""
     import aiohttp
     from aiohttp import web
 
@@ -1024,7 +1094,7 @@ async def serve_and_check(torch, chunked: bool):
     port = _free_port()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    argv = ["--model", "llama3-1b", "--random", "--seed", "0",
+    argv = ["--model", model, "--random", "--seed", "0",
             "--continuous", "--warmup", "--host", "127.0.0.1",
             "--port", str(port)]
     if chunked:
@@ -1036,12 +1106,12 @@ async def serve_and_check(torch, chunked: bool):
     warm_s = time.perf_counter() - t1
     site = web.TCPSite(runner, "127.0.0.1", port)
     await site.start()
-    engine = app[ENGINES_KEY]["llama3-1b"]
-    batcher = app[BATCHERS_KEY]["llama3-1b"]
+    engine = app[ENGINES_KEY][model]
+    batcher = app[BATCHERS_KEY][model]
     graphs = batcher.cengine.graphs
     cfg = engine.cfg
     captures = graphs.captures
-    log(f"  server up in {time.perf_counter() - t0:.1f} s (llama3-1b "
+    log(f"  server up in {time.perf_counter() - t0:.1f} s ({model} "
         f"random weights, seed 0, port {port}, {label} admission, "
         f"pipeline depth {batcher.pipeline_depth}); warmup {warm_s:.2f} s "
         f"captured {captures} CUDA graphs")
@@ -1049,7 +1119,7 @@ async def serve_and_check(torch, chunked: bool):
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
                for n in PROMPT_LENS[:3]]
     prompts.append(prompts[0])        # the repeated prompt
-    url = f"http://127.0.0.1:{port}/v1/models/llama3-1b:generate"
+    url = f"http://127.0.0.1:{port}/v1/models/{model}:generate"
     try:
         async with aiohttp.ClientSession() as sess:
             batcher.calls = batcher.iterations = 0
@@ -1613,14 +1683,17 @@ def train_and_check(torch):
 # -- phase 5 ----------------------------------------------------------------
 
 
-async def serve_dense_and_check(torch):
-    """llama3-8b served one-shot (window batcher and direct path) and
-    speculatively (llama3-1b draft) through the HTTP app, in-process."""
+async def serve_dense_and_check(torch, name="llama3-8b", spec=True):
+    """`name` (llama3-8b in phase 5, gemma-2b in phase 6; the CLI's
+    registry entry, random weights from seed 0) served one-shot (window
+    batcher and direct path) and, with `spec`, speculatively (llama3-1b
+    draft) through the HTTP app, in-process."""
     import aiohttp
     from aiohttp import web
 
     from kubeflow_tpu_torch.models import llama
     from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.serving.__main__ import model_registry
     from kubeflow_tpu_torch.serving.engine import (
         LLAMA_FAMILY,
         EngineConfig,
@@ -1637,18 +1710,23 @@ async def serve_dense_and_check(torch):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ec = EngineConfig(max_len=MAX_LEN)
-    target = InferenceEngine(llama.init(llama.LLAMA3_8B, 0, dev),
-                             llama.LLAMA3_8B, LLAMA_FAMILY, ec, device=dev)
-    draft = InferenceEngine(llama.init(llama.LLAMA3_1B, 1, dev),
-                            llama.LLAMA3_1B, LLAMA_FAMILY, ec, device=dev)
-    cfg = target.cfg
+    cfg, init, family = model_registry()[name]
+    target = InferenceEngine(init(cfg, 0, dev), cfg, family, ec, device=dev)
+    drafts = {}
+    if spec:
+        drafts[name] = draft = InferenceEngine(
+            llama.init(llama.LLAMA3_1B, 1, dev), llama.LLAMA3_1B,
+            LLAMA_FAMILY, ec, device=dev)
     torch.cuda.synchronize()
-    log(f"  llama3-8b (seed 0, {llama.num_params(cfg)} params) and "
-        f"llama3-1b draft (seed 1) built in {time.perf_counter() - t0:.1f} s")
-    app = create_serving_app({"llama3-8b": target}, batch_window_ms=WINDOW_MS,
-                             max_batch=DENSE_B, drafts={"llama3-8b": draft},
-                             warmup=True)
-    batcher = app[BATCHERS_KEY]["llama3-8b"]
+    leaves = [*target.params["blocks"].values(),
+              *(v for k, v in target.params.items() if k != "blocks")]
+    n_params = sum(t.numel() for t in leaves)
+    log(f"  {name} (seed 0, {n_params} params)"
+        f"{' and llama3-1b draft (seed 1)' if spec else ''} built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    app = create_serving_app({name: target}, batch_window_ms=WINDOW_MS,
+                             max_batch=DENSE_B, drafts=drafts, warmup=True)
+    batcher = app[BATCHERS_KEY][name]
     port = _free_port()
     runner = web.AppRunner(app)
     t0 = time.perf_counter()
@@ -1658,7 +1736,7 @@ async def serve_dense_and_check(torch):
         f"keys); the lanes' dense caches "
         f"{target.lane_bytes() / 2**30:.2f} GiB")
     await web.TCPSite(runner, "127.0.0.1", port).start()
-    url = f"http://127.0.0.1:{port}/v1/models/llama3-8b:generate"
+    url = f"http://127.0.0.1:{port}/v1/models/{name}:generate"
     gen = torch.Generator().manual_seed(6)
 
     def prompt(n):
@@ -1690,50 +1768,55 @@ async def serve_dense_and_check(torch):
             window_s = time.perf_counter() - t0
             direct, direct_s = await post(
                 {"tokens": pair, "max_new": DENSE_MAX_NEW, "logprobs": True})
-            spec, spec_s = await post(
-                {"tokens": [spec_prompt], "max_new": DENSE_MAX_NEW,
-                 "speculative": True, "gamma": GAMMA})
+            if spec:
+                spec_out, spec_s = await post(
+                    {"tokens": [spec_prompt], "max_new": DENSE_MAX_NEW,
+                     "speculative": True, "gamma": GAMMA})
             torch.cuda.synchronize()
             counts = launch_counts()
             calls = batcher.calls - calls0
             replays = target.replays - replays0
     finally:
         await runner.cleanup()
-    stats = spec["speculative"]
-    rounds = stats["proposed"] // stats["gamma"]
     log(f"  window: {len(prompts)} requests in {window_s:.3f} s as {calls} "
-        f"batcher call(s); direct 2-row batch {direct_s:.3f} s; "
-        f"speculative {spec_s:.3f} s ({rounds} rounds, acceptance "
-        f"{stats['acceptance_rate']}, gamma {stats['gamma']})")
+        f"batcher call(s); direct 2-row batch {direct_s:.3f} s")
+    expect = cfg.num_layers * (DENSE_MAX_NEW - 1) * (calls + 1)
+    why = (f"{cfg.num_layers} x {DENSE_MAX_NEW - 1} per one-shot call over "
+           f"{calls + 1} calls")
+    if spec:
+        stats = spec_out["speculative"]
+        rounds = stats["proposed"] // stats["gamma"]
+        log(f"  speculative {spec_s:.3f} s ({rounds} rounds, acceptance "
+            f"{stats['acceptance_rate']}, gamma {stats['gamma']})")
+        expect += draft.cfg.num_layers * (stats["gamma"] + 1) * rounds
+        why += (f", {draft.cfg.num_layers} x {stats['gamma'] + 1} per "
+                f"speculative round over {rounds} rounds")
     log(f"  kernel launches {counts}")
-    expect = (cfg.num_layers * (DENSE_MAX_NEW - 1) * (calls + 1)
-              + draft.cfg.num_layers * (stats["gamma"] + 1) * rounds)
     if counts["decode_attention"] != expect:
         fail(f"decode_attention: {counts['decode_attention']} launches, the "
-             f"design implies {expect} ({cfg.num_layers} x "
-             f"{DENSE_MAX_NEW - 1} per one-shot call over {calls + 1} "
-             f"calls, {draft.cfg.num_layers} x {stats['gamma'] + 1} per "
-             f"speculative round over {rounds} rounds)")
+             f"design implies {expect} ({why})")
     others = {k: n for k, n in counts.items() if k != "decode_attention"}
     if any(others.values()):
         fail(f"one-shot serving launched other kernels: {others}")
+    draft_captures = draft.captures if spec else 0
     log(f"  one-shot decode: {replays} graph replays, "
         f"{target.captures - captures} captures in traffic, draft "
-        f"captures {draft.captures}")
+        f"captures {draft_captures}")
     if replays != (DENSE_MAX_NEW - 1) * (calls + 1) \
-            or target.captures != captures or draft.captures:
+            or target.captures != captures or draft_captures:
         fail(f"one-shot decode: {replays} replays (the design implies "
              f"{(DENSE_MAX_NEW - 1) * (calls + 1)}), "
              f"{target.captures - captures} captures in traffic")
 
-    # every served sequence teacher-forced through the plain dense 8B over
-    # its unpadded prompt: logprobs (non-speculative) and margin-gated
-    # argmax (all)
+    # every served sequence teacher-forced through the plain dense model
+    # over its unpadded prompt: logprobs (non-speculative) and
+    # margin-gated argmax (all)
     outs = [(p, b["tokens"][0], b["logprobs"][0]) for p, (b, _) in
             zip(prompts, window)]
     outs += [(p, o, lp) for p, o, lp in zip(pair, direct["tokens"],
                                             direct["logprobs"])]
-    outs.append((spec_prompt, spec["tokens"][0], None))
+    if spec:
+        outs.append((spec_prompt, spec_out["tokens"][0], None))
     for p, o, lp in outs:
         if len(o) != DENSE_MAX_NEW or (lp is not None and len(lp) != len(o)) \
                 or not all(0 <= t < cfg.vocab_size for t in o):
@@ -1741,23 +1824,24 @@ async def serve_dense_and_check(torch):
     if outs[0][1] != outs[len(prompts) - 1][1]:
         fail(f"repeated prompt gave different greedy tokens: {outs[0][1]} "
              f"vs {outs[len(prompts) - 1][1]}")
-    _teacher_check(torch, target, *zip(*outs), "one-shot")
+    _teacher_check(torch, target, *zip(*outs), f"one-shot {name}")
 
-    # the confident draft: llama3-1b with its lm_head x50 as its own
-    # draft must equal its plain greedy output at acceptance 1.0
-    conf = InferenceEngine(dict(draft.params,
-                                lm_head=draft.params["lm_head"] * 50.0),
-                           draft.cfg, LLAMA_FAMILY, ec, device=dev)
-    want = conf.generate([spec_prompt], max_new=DENSE_MAX_NEW)
-    got, cstats = SpeculativeEngine(conf, conf).generate(
-        [spec_prompt], max_new=DENSE_MAX_NEW, gamma=GAMMA)
-    log(f"  confident self-draft (llama3-1b, lm_head x50): acceptance "
-        f"{cstats.acceptance_rate}, tokens equal: "
-        f"{torch.equal(got, want)}")
-    if not torch.equal(got, want) or cstats.acceptance_rate != 1.0:
-        fail("confident self-draft speculative decoding disagrees with "
-             "plain greedy decoding")
-    del conf, got, want
+    if spec:
+        # the confident draft: llama3-1b with its lm_head x50 as its own
+        # draft must equal its plain greedy output at acceptance 1.0
+        conf = InferenceEngine(dict(draft.params,
+                                    lm_head=draft.params["lm_head"] * 50.0),
+                               draft.cfg, LLAMA_FAMILY, ec, device=dev)
+        want = conf.generate([spec_prompt], max_new=DENSE_MAX_NEW)
+        got, cstats = SpeculativeEngine(conf, conf).generate(
+            [spec_prompt], max_new=DENSE_MAX_NEW, gamma=GAMMA)
+        log(f"  confident self-draft (llama3-1b, lm_head x50): acceptance "
+            f"{cstats.acceptance_rate}, tokens equal: "
+            f"{torch.equal(got, want)}")
+        if not torch.equal(got, want) or cstats.acceptance_rate != 1.0:
+            fail("confident self-draft speculative decoding disagrees with "
+                 "plain greedy decoding")
+        del conf, got, want
 
     # host time per decode step of the window batch: the same padded
     # batch generated to 1 and to DENSE_MAX_NEW tokens
@@ -1776,13 +1860,17 @@ async def serve_dense_and_check(torch):
 
     t1, tn = wall(1), wall(DENSE_MAX_NEW)
     step_ms = (tn - t1) / (DENSE_MAX_NEW - 1) * 1e3
-    spec_eng = app[SPEC_KEY]["llama3-8b"]
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    _, sstats = spec_eng.generate([spec_prompt], max_new=DENSE_MAX_NEW,
-                                  gamma=GAMMA)
-    torch.cuda.synchronize()
-    spec_tok_s = DENSE_MAX_NEW / (time.perf_counter() - t)
+    batch1 = ""
+    if spec:
+        spec_eng = app[SPEC_KEY][name]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, sstats = spec_eng.generate([spec_prompt], max_new=DENSE_MAX_NEW,
+                                      gamma=GAMMA)
+        torch.cuda.synchronize()
+        spec_tok_s = DENSE_MAX_NEW / (time.perf_counter() - t)
+        batch1 = (f"speculative (gamma {GAMMA}) {spec_tok_s:.2f} tokens/s at "
+                  f"acceptance {sstats.acceptance_rate:.4f}, ")
     torch.cuda.synchronize()
     t = time.perf_counter()
     target.generate([spec_prompt], max_new=DENSE_MAX_NEW)
@@ -1791,22 +1879,29 @@ async def serve_dense_and_check(torch):
     peak = torch.cuda.max_memory_allocated()
     log(f"  window batch of {DENSE_B} (host clock): prefill + first token "
         f"{t1 * 1e3:.1f} ms, {step_ms:.2f} ms per decode step "
-        f"({DENSE_B * 1e3 / step_ms:.1f} tokens/s); batch 1: speculative "
-        f"(gamma {GAMMA}) {spec_tok_s:.2f} tokens/s at acceptance "
-        f"{sstats.acceptance_rate:.4f}, target alone {plain_tok_s:.2f} "
-        f"tokens/s; peak memory {peak / 2**30:.2f} GiB")
+        f"({DENSE_B * 1e3 / step_ms:.1f} tokens/s); batch 1: {batch1}"
+        f"target alone {plain_tok_s:.2f} tokens/s; peak memory "
+        f"{peak / 2**30:.2f} GiB")
 
     # one window-batch call under torch.profiler (prefill and 31 decode
-    # steps): where the time goes
+    # steps): where the time goes; the same call to 1 token under the
+    # profiler too, so that the difference of their device time is the
+    # device time of the 31 decode steps
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        target.generate(arr, prompt_mask=mask, max_new=DENSE_MAX_NEW)
-        torch.cuda.synchronize()
-        prof_s = time.perf_counter() - t
+    busy = {}
+    for n in (1, DENSE_MAX_NEW):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            target.generate(arr, prompt_mask=mask, max_new=n)
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t
+        busy[n] = sum(_dev_us(e) for e in _device_events(prof))
     _report_profile(prof, prof_s, top=10)
+    log(f"  device time per decode step of the window batch: "
+        f"{(busy[DENSE_MAX_NEW] - busy[1]) / (DENSE_MAX_NEW - 1) / 1e3:.3f} "
+        f"ms (profiled calls to {DENSE_MAX_NEW} and to 1 token)")
     return counts
 
 
@@ -1816,29 +1911,35 @@ PORT_KERNELS = ("decode_split_kernel", "decode_combine_kernel",
                 "flash_dq_", "flash_dkv_")
 
 
-def _report_profile(prof, wall_s: float, top: int = 8) -> None:
-    """Device busy share, the kernels that take the device time, and the
-    port's own kernels below those. Only device events count: a host op
-    (aten::mm, an autograd node) may also carry the device time of the
-    kernels it launched, which would count them twice."""
+def _dev_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0))
+
+
+def _device_events(prof):
+    """The profile's device events. Only these count: a host op (aten::mm,
+    an autograd node) may also carry the device time of the kernels it
+    launched, which would count them twice."""
     from torch.autograd import DeviceType
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and _dev_us(e) > 0]
 
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-    total_us = sum(dev_us(e) for e in events)
+
+def _report_profile(prof, wall_s: float, top: int = 8) -> None:
+    """Device busy share, the kernels that take the device time, and the
+    port's own kernels below those."""
+    events = _device_events(prof)
+    total_us = sum(_dev_us(e) for e in events)
     if not events:
         log("  profile: no device time recorded (not measured)")
         return
     log(f"  profile (profiler on): wall {wall_s:.3f} s, device busy "
         f"{total_us / 1e6:.3f} s = {total_us / 1e6 / wall_s:.1%}")
-    ranked = sorted(events, key=dev_us, reverse=True)
+    ranked = sorted(events, key=_dev_us, reverse=True)
     for i, e in enumerate(ranked):
         if i < top or any(k in e.key for k in PORT_KERNELS):
-            log(f"    {dev_us(e) / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
+            log(f"    {_dev_us(e) / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
 
 
 def main() -> None:
@@ -1865,9 +1966,16 @@ def main() -> None:
 
     log("phase 2: kernels against their plain versions (llama3-1b shapes)")
     stats = {"paged_decode_attention": check_decode(torch, dev),
-             "paged_prefill_append": check_prefill(torch, dev),
+             "paged_prefill_append": check_prefill(torch, dev)[0],
              **check_flash(torch, dev),
-             "decode_attention": check_dense_decode(torch, dev)}
+             "decode_attention": check_dense_decode(torch, dev)[0]}
+    log("phase 2, gemma-2b: the serving kernels at head dim 256, group 8")
+    stats.update({
+        f"paged_decode_attention{GEMMA}": check_decode(torch, dev, GEMMA_2B),
+        f"paged_prefill_append{GEMMA}": check_prefill(torch, dev,
+                                                      GEMMA_2B)[0],
+        f"decode_attention{GEMMA}": check_dense_decode(
+            torch, dev, GEMMA_2B, GEMMA_2B)[0]})
 
     log("phase 3: serve llama3-1b through the kernels (chunked prefill)")
     counts = asyncio.run(serve_and_check(torch, chunked=True))
@@ -1898,6 +2006,21 @@ def main() -> None:
     log("phase 5: serve llama3-8b one-shot and speculatively")
     counts["decode_attention"] = asyncio.run(
         serve_dense_and_check(torch))["decode_attention"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 6: serve gemma-2b (chunked, monolithic, one-shot)")
+    for chunked in (True, False):
+        log(f"  continuous, {'chunked' if chunked else 'monolithic'}:")
+        for name, n in asyncio.run(serve_and_check(
+                torch, chunked, "gemma-2b")).items():
+            if name.startswith("paged"):
+                counts[name + GEMMA] = counts.get(name + GEMMA, 0) + n
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("  one-shot (window batcher, direct path):")
+    counts["decode_attention" + GEMMA] = asyncio.run(serve_dense_and_check(
+        torch, "gemma-2b", spec=False))["decode_attention"]
 
     flash = "kubeflow_tpu/ops/pallas/flash_attention.py"
     meta = {
@@ -1917,6 +2040,9 @@ def main() -> None:
             "kubeflow_tpu_torch/csrc/decode_attention.cu",
             "kubeflow_tpu/ops/pallas/decode_attention.py:115"),
     }
+    for name in ("paged_decode_attention", "paged_prefill_append",
+                 "decode_attention"):
+        meta[name + GEMMA] = meta[name]
     kernels = []
     for name, (source, replaces) in meta.items():
         s = stats[name]

@@ -1,11 +1,13 @@
 """Weight bridge between the reference's parameter tree and the port's.
 
-The reference (`kubeflow_tpu/models/llama.py::init`) and the port lay
-parameters out the same way (stacked `[L, ...]` block leaves under
-"blocks"), so the bridge only moves arrays and sets dtypes. It takes
-the tree with every leaf already converted to a numpy array (the
-caller does `jax.tree.map(np.asarray, params)`), so this module needs
-no JAX.
+The reference (`kubeflow_tpu/models/{llama,gemma}.py::init`) and the
+port lay parameters out the same way (stacked `[L, ...]` block leaves
+under "blocks"; a Gemma tree has no `lm_head`, its head is the tied
+embedding), so the bridge only moves arrays and sets dtypes, by the
+serving storage rule both models share (`llama.leaf_dtype`, which
+`gemma` imports). It takes the tree with every leaf already converted
+to a numpy array (the caller does `jax.tree.map(np.asarray, params)`),
+so this module needs no JAX.
 """
 
 from __future__ import annotations
@@ -13,15 +15,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kubeflow_tpu_torch.models.llama import MATRICES, LlamaConfig, leaf_dtype
+from kubeflow_tpu_torch.models.llama import MATRICES, leaf_dtype
 
 
-def from_jax(params: dict, cfg: LlamaConfig,
-             device: torch.device | str,
+def from_jax(params: dict, cfg, device: torch.device | str,
              dtype: torch.dtype | None = None) -> dict:
-    """numpy param tree -> torch params on `device`. Block matrices go
-    to `dtype` (default: cfg.dtype, the dtype the reference casts them
-    to at every use), every other leaf to fp32."""
+    """numpy param tree -> torch params on `device`, for a LlamaConfig or
+    a GemmaConfig `cfg`. Block matrices go to `dtype` (default:
+    cfg.dtype, the dtype the reference casts them to at every use),
+    every other leaf to fp32."""
 
     def conv(name, arr):
         want = leaf_dtype(cfg, name)

@@ -34,25 +34,36 @@
 
 namespace {
 
-template <typename T>
+template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const void* pos,
            const void* mask, void* out, void* scratch, int b, int max_len,
            int n_kv, int group, int window, float scale, int split_cells,
            cudaStream_t stream) {
-  return kft::launch_decode_split<T, 128>(
+  return kft::launch_decode_split<T, HD>(
       q, k, v, kft::DenseCells{max_len}, pos, mask, out, scratch, b, n_kv,
       group, window, scale, split_cells, stream);
+}
+
+template <typename T>
+int launch_hd(int hd, const void* q, const void* k, const void* v,
+              const void* pos, const void* mask, void* out, void* scratch,
+              int b, int max_len, int n_kv, int group, int window,
+              float scale, int split_cells, cudaStream_t stream) {
+  if (hd == 256)
+    return launch<T, 256>(q, k, v, pos, mask, out, scratch, b, max_len, n_kv,
+                          group, window, scale, split_cells, stream);
+  return launch<T, 128>(q, k, v, pos, mask, out, scratch, b, max_len, n_kv,
+                        group, window, scale, split_cells, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. hd must be 128 (llama3-8b and
-// llama3-1b; other head dims come with a model that needs them). group
-// <= kft::kMaxRows. window <= 0 means none. mask may be null (every cell
-// valid). split_cells: cells per block of the split launch, a positive
-// multiple of 64. scratch: fp32 room for b x n_q x n_split x (hd + 2)
-// values, n_split = ceil(max_len / split_cells). Returns
-// cudaGetLastError() after the launches.
+// llama3-1b) or 256 (gemma-2b). group <= kft::kMaxRows. window <= 0
+// means none. mask may be null (every cell valid). split_cells: cells
+// per block of the split launch, a positive multiple of 64. scratch: fp32
+// room for b x n_q x n_split x (hd + 2) values, n_split = ceil(max_len /
+// split_cells). Returns cudaGetLastError() after the launches.
 extern "C" int kft_decode_attention(const void* q, const void* k,
                                     const void* v, const void* pos,
                                     const void* mask, void* out,
@@ -64,11 +75,12 @@ extern "C" int kft_decode_attention(const void* q, const void* k,
   if (!kft::decode_split_args_ok(hd, group, split_cells))
     return cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch<float>(q, k, v, pos, mask, out, scratch, b, max_len, n_kv,
-                         group, window, scale, split_cells, s);
+    return launch_hd<float>(hd, q, k, v, pos, mask, out, scratch, b,
+                            max_len, n_kv, group, window, scale, split_cells,
+                            s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, pos, mask, out, scratch, b,
-                                 max_len, n_kv, group, window, scale,
-                                 split_cells, s);
+    return launch_hd<__nv_bfloat16>(hd, q, k, v, pos, mask, out, scratch, b,
+                                    max_len, n_kv, group, window, scale,
+                                    split_cells, s);
   return cudaErrorInvalidValue;
 }

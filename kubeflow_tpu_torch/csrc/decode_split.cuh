@@ -16,10 +16,16 @@
 //   with an empty range does; l == 0 weighs 0 in the combine, so the
 //   result is the same function. The Pallas kernels read those pad
 //   blocks and mask them after the load.
-// - Combine: one block per (query head, row), one thread per hd element,
-//   merges the splits by their m, divides by the merged l and rounds once
-//   to the output dtype. A row whose splits all have l == 0 sees no cell
+// - Combine: one block per (query head, row), one thread per hd element
+//   (128 or 256 threads; nothing in it depends on the count), merges
+//   the splits by their m, divides by the merged l and rounds once to
+//   the output dtype. A row whose splits all have l == 0 sees no cell
 //   and is written as 0, the Pallas kernels' convention.
+// - Head dims 128 (llama) and 256 (gemma) are instantiated. At 256 a
+//   bf16 K/V row is 512 bytes, so `attend`'s chunk is 32 cells
+//   (paged_attend.cuh's Tile) and a block's shared memory is ~85 KB at
+//   gemma-2b's group of 8 (~102 KB at kMaxRows), above the 48 KB
+//   default: set_smem_once raises the cap per instantiation.
 //
 // The split count, ceil(width / split_cells), follows from the shapes
 // alone, and the skip reads its mask on the device: no host read of the
@@ -140,11 +146,12 @@ decode_combine_kernel(const float* __restrict__ part,
   out[base * HD + d] = from_f<T>(l > 0.f ? acc / l : 0.f);
 }
 
-// The arguments both C entry points accept: hd 128, a GQA group of at
-// most kMaxRows, split_cells a positive multiple of 64.
+// The arguments both C entry points accept: hd 128 (llama) or 256
+// (gemma), a GQA group of at most kMaxRows, split_cells a positive
+// multiple of 64.
 inline bool decode_split_args_ok(int hd, int group, int split_cells) {
-  return hd == 128 && group >= 1 && group <= kMaxRows && split_cells >= 64 &&
-         split_cells % 64 == 0;
+  return (hd == 128 || hd == 256) && group >= 1 && group <= kMaxRows &&
+         split_cells >= 64 && split_cells % 64 == 0;
 }
 
 // Both launches on `stream`. scratch: fp32 room for b x n_q x n_split x

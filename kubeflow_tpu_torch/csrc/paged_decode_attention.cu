@@ -30,25 +30,48 @@
 // in flight on more SMs at once. Scores and P.V stay on the CUDA cores: at
 // a GQA group of 2 a 64-row wgmma tile would be ~97% idle, and bytes, not
 // operations, bind this kernel.
+//
+// gemma-2b (hd 256, one kv head for 8 query heads): the grid is (1, b,
+// n_split), and a block's work per cell is 8 rows x 256 against llama3-1b's
+// 2 x 128, while its bytes per cell are a quarter (one kv head). At 128-cell
+// splits only 33 blocks of the ragged batch see a cell, each walking up to
+// 4 chunks of 32 cells; the wrapper's default for such wide rows is 64
+// (ops/cuda/paged_attention.py, default_split_cells), which doubles the
+// blocks in flight and halves each block's serial chain.
 #include "decode_split.cuh"
 
 namespace {
 
-template <typename T>
+template <typename T, int HD>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* table, const void* pos, const void* mask, void* out,
            void* scratch, int b, int nb, int bs, int n_kv, int group,
            int window, float scale, int split_cells, cudaStream_t stream) {
-  return kft::launch_decode_split<T, 128>(
+  return kft::launch_decode_split<T, HD>(
       q, k_pool, v_pool, kft::PagedCells{static_cast<const int*>(table), nb, bs},
       pos, mask, out, scratch, b, n_kv, group, window, scale, split_cells,
       stream);
 }
 
+template <typename T>
+int launch_hd(int hd, const void* q, const void* k_pool, const void* v_pool,
+              const void* table, const void* pos, const void* mask,
+              void* out, void* scratch, int b, int nb, int bs, int n_kv,
+              int group, int window, float scale, int split_cells,
+              cudaStream_t stream) {
+  if (hd == 256)
+    return launch<T, 256>(q, k_pool, v_pool, table, pos, mask, out, scratch,
+                          b, nb, bs, n_kv, group, window, scale, split_cells,
+                          stream);
+  return launch<T, 128>(q, k_pool, v_pool, table, pos, mask, out, scratch, b,
+                        nb, bs, n_kv, group, window, scale, split_cells,
+                        stream);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. hd must be 128 (llama3-1b; other
-// head dims come with a model that needs them). window <= 0 means none.
+// dtype: 0 = float32, 1 = bfloat16. hd must be 128 (llama) or 256
+// (gemma). window <= 0 means none.
 // mask may be null (every cell valid). split_cells: cells per block of
 // the split launch, a positive multiple of 64. scratch: fp32 room for
 // b x n_q x n_split x (hd + 2) values, n_split = ceil(nb bs /
@@ -62,12 +85,12 @@ extern "C" int kft_paged_decode_attention(
   if (!kft::decode_split_args_ok(hd, group, split_cells))
     return cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch<float>(q, k_pool, v_pool, table, pos, mask, out, scratch,
-                         b, nb, bs, n_kv, group, window, scale, split_cells,
-                         s);
+    return launch_hd<float>(hd, q, k_pool, v_pool, table, pos, mask, out,
+                            scratch, b, nb, bs, n_kv, group, window, scale,
+                            split_cells, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, table, pos, mask, out,
-                                 scratch, b, nb, bs, n_kv, group, window,
-                                 scale, split_cells, s);
+    return launch_hd<__nv_bfloat16>(hd, q, k_pool, v_pool, table, pos, mask,
+                                    out, scratch, b, nb, bs, n_kv, group,
+                                    window, scale, split_cells, s);
   return cudaErrorInvalidValue;
 }

@@ -47,6 +47,17 @@
 // cell was re-read once per 16 rows, and scores and P.V in fp32 on the CUDA
 // cores with a barrier between each step.
 //
+// Head dim 256 (gemma-2b: one kv head for 8 query heads) keeps the
+// [64, 128] swizzled tile as the unit, so flash_wgmma.cuh's descriptors
+// serve unchanged: a 256-wide row of Q, K or V is two tiles, one per
+// 128-column half. S = Q K^T chains 16 k-steps (8 per half) into one
+// [64, 64] accumulator; O += P V is two m64n128 RS products sharing one
+// bf16 P fragment, into two fp32 accumulators (128 registers a thread).
+// Shared memory is Q 32 KB + 2 stages x (K, V) 64 KB = 161 KB with the
+// alignment slack, so one block an SM (launch bounds 1 instead of 2). At
+// group 8 a 64-row tile is 8 tokens, so a 64-token slice is 8 tiles per
+// kv head, each reading the K/V chunks up to its last token's cell.
+//
 // The scatter stays its own launch (about 2 us): fusing it would let the
 // attention blocks read the slice's own cells from k_new / v_new instead
 // of the pool.
@@ -134,12 +145,25 @@ prefill_attention_kernel(const T* __restrict__ q,       // [b, s, n_q, hd]
 namespace wg = kft_wgmma;
 using bf16 = __nv_bfloat16;
 
-constexpr int kTcHD = 128;
 constexpr int kTcStages = 2;  // K/V ring
-// Q, then kTcStages x (K, V); 1 KB of slack for the 1024-byte alignment
-constexpr size_t kTcSmemBytes = 1024 + wg::kTileBytes * (1 + 2 * kTcStages);
 
-__global__ void __launch_bounds__(wg::kThreads, 2)
+// Geometry of the tensor-core kernel at head dim HD (128 or 256): a
+// 64-row operand is HD / 128 swizzled [64, 128] tiles (flash_wgmma.cuh),
+// one per 128-column part of the head dim. Shared memory: Q, then
+// kTcStages x (K, V), each kParts tiles; 1 KB of slack for the 1024-byte
+// alignment. 81 KB at 128 (two blocks an SM), 161 KB at 256 (one).
+template <int HD>
+struct TcGeom {
+  static_assert(HD == 128 || HD == 256, "head dim 128 or 256");
+  static constexpr int kParts = HD / 128;
+  static constexpr uint32_t kOperandBytes = wg::kTileBytes * kParts;
+  static constexpr size_t kSmemBytes =
+      1024 + (size_t)kOperandBytes * (1 + 2 * kTcStages);
+  static constexpr int kMinBlocks = HD == 128 ? 2 : 1;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(wg::kThreads, TcGeom<HD>::kMinBlocks)
 prefill_attention_tc_kernel(const bf16* __restrict__ q,       // [b, s, n_q, hd]
                             const bf16* __restrict__ k_pool,  // [nblk, bs, n_kv, hd]
                             const bf16* __restrict__ v_pool,
@@ -150,6 +174,8 @@ prefill_attention_tc_kernel(const bf16* __restrict__ q,       // [b, s, n_q, hd]
                             bf16* __restrict__ out,           // [b, s, n_q, hd]
                             int s, int nb, int bs, int n_kv, int group,
                             int window, float scale) {
+  using G = TcGeom<HD>;
+  constexpr int kParts = G::kParts;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   const uint32_t qs = wg::align_1k(tc_smem);
   const int r0 = blockIdx.x * wg::kRows;
@@ -174,18 +200,32 @@ prefill_attention_tc_kernel(const bf16* __restrict__ q,       // [b, s, n_q, hd]
   auto q_off = [&](int r) {
     const int f = r0 + r;
     return (((size_t)row * s + f / group) * n_q + (size_t)h * group +
-            f % group) * kTcHD;
+            f % group) * HD;
   };
-  auto k_tile = [&](int st) { return qs + wg::kTileBytes * (1 + 2 * st); };
-  auto v_tile = [&](int st) { return k_tile(st) + wg::kTileBytes; };
+  // part p of an operand: head-dim columns [128 p, 128 p + 128)
+  auto q_tile = [&](int p) { return qs + wg::kTileBytes * p; };
+  auto k_tile = [&](int st, int p) {
+    return qs + G::kOperandBytes * (1 + 2 * st) + wg::kTileBytes * p;
+  };
+  auto v_tile = [&](int st, int p) {
+    return k_tile(st, p) + G::kOperandBytes;
+  };
   auto load_kv = [&](int c0, int st) {
     const int n = min(wg::kRows, hi_cell - c0 + 1);
-    wg::load_rows_async(
-        k_tile(st), [&](int r) { return k_pool + addr(c0 + r) * kTcHD; }, n);
-    wg::load_rows_async(
-        v_tile(st), [&](int r) { return v_pool + addr(c0 + r) * kTcHD; }, n);
+#pragma unroll
+    for (int p = 0; p < kParts; ++p) {
+      wg::load_rows_async(
+          k_tile(st, p),
+          [&](int r) { return k_pool + addr(c0 + r) * HD + 128 * p; }, n);
+      wg::load_rows_async(
+          v_tile(st, p),
+          [&](int r) { return v_pool + addr(c0 + r) * HD + 128 * p; }, n);
+    }
   };
-  wg::load_rows_async(qs, [&](int r) { return q + q_off(r); }, rows);
+#pragma unroll
+  for (int p = 0; p < kParts; ++p)
+    wg::load_rows_async(
+        q_tile(p), [&](int r) { return q + q_off(r) + 128 * p; }, rows);
   if (lo_cell <= hi_cell) load_kv(lo_cell, 0);
   wg::cp_async_commit();
 
@@ -193,9 +233,12 @@ prefill_attention_tc_kernel(const bf16* __restrict__ q,       // [b, s, n_q, hd]
   const int fr = wg::frag_row(0);        // this thread's rows: fr, fr + 8
   const int qpos[2] = {start + (r0 + fr) / group,
                        start + (r0 + fr + 8) / group};
-  float acc[64];
+  // O's parts: acc[p] holds head-dim columns [128 p, 128 p + 128)
+  float acc[kParts][64];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int p = 0; p < kParts; ++p)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[p][i] = 0.f;
   // m starts finite and masked logits are -inf: exp2 of a masked logit is
   // exactly 0 even before the row's first visible cell
   float m[2] = {kft::kNegInf, kft::kNegInf}, l[2] = {0.f, 0.f};
@@ -206,12 +249,16 @@ prefill_attention_tc_kernel(const bf16* __restrict__ q,       // [b, s, n_q, hd]
     wg::fence_async_smem();
     __syncthreads();
 
+    // S = Q K^T: 8 k-steps per 128-column part, chained into one
+    // accumulator
     float sc[32];
     wg::mma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kTcHD / 16; ++kk)
-      wg::mma_ss_n64(sc, wg::desc_k(qs, kk), wg::desc_k(k_tile(st), kk),
-                     kk > 0);
+    for (int p = 0; p < kParts; ++p)
+#pragma unroll
+      for (int kk = 0; kk < 128 / 16; ++kk)
+        wg::mma_ss_n64(sc, wg::desc_k(q_tile(p), kk),
+                       wg::desc_k(k_tile(st, p), kk), p > 0 || kk > 0);
     wg::mma_commit();
     wg::mma_wait<0>();
     wg::fence_regs(sc);
@@ -242,19 +289,26 @@ prefill_attention_tc_kernel(const bf16* __restrict__ q,       // [b, s, n_q, hd]
       l[r] += sc[i];
     }
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    for (int p = 0; p < kParts; ++p)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[p][i] *= alpha[(i >> 1) & 1];
     uint32_t pa[16];
     wg::to_a<4>(sc, pa);  // P in bf16, as the A operand
 
-    wg::fence_regs(acc);
+    // O += P V: one m64n128 product per part, sharing P
+#pragma unroll
+    for (int p = 0; p < kParts; ++p) wg::fence_regs(acc[p]);
     wg::fence_regs(pa);
     wg::mma_fence();
 #pragma unroll
-    for (int kk = 0; kk < wg::kRows / 16; ++kk)
-      wg::mma_rs_n128(acc, pa + 4 * kk, wg::desc_mn(v_tile(st), kk));
+    for (int p = 0; p < kParts; ++p)
+#pragma unroll
+      for (int kk = 0; kk < wg::kRows / 16; ++kk)
+        wg::mma_rs_n128(acc[p], pa + 4 * kk, wg::desc_mn(v_tile(st, p), kk));
     wg::mma_commit();
     wg::mma_wait<0>();
-    wg::fence_regs(acc);
+#pragma unroll
+    for (int p = 0; p < kParts; ++p) wg::fence_regs(acc[p]);
     __syncthreads();  // stage st is consumed before the next refill
   }
   wg::cp_async_wait<0>();  // Q's copy, if no chunk was visited
@@ -266,9 +320,14 @@ prefill_attention_tc_kernel(const bf16* __restrict__ q,       // [b, s, n_q, hd]
     const float sum = wg::quad_sum(l[r]);
     inv[r] = sum == 0.f ? 0.f : 1.f / sum;  // no visible cell: 0
   }
-  wg::stage_acc(qs, acc, inv[0], inv[1]);  // Q's tile is free now
+#pragma unroll
+  for (int p = 0; p < kParts; ++p)  // Q's tiles are free now
+    wg::stage_acc(q_tile(p), acc[p], inv[0], inv[1]);
   __syncthreads();
-  wg::store_rows([&](int r) { return out + q_off(r); }, rows, qs);
+#pragma unroll
+  for (int p = 0; p < kParts; ++p)
+    wg::store_rows([&](int r) { return out + q_off(r) + 128 * p; }, rows,
+                   q_tile(p));
 }
 
 template <typename T>
@@ -285,6 +344,7 @@ cudaError_t launch_scatter(const void* k_new, const void* v_new, void* k_pool,
   return cudaGetLastError();
 }
 
+template <int HD>
 int launch_fp32(const void* q, const void* k_new, const void* v_new,
                 void* k_pool, void* v_pool, const void* table,
                 const void* q_start, const void* q_lens, const void* mask,
@@ -292,13 +352,13 @@ int launch_fp32(const void* q, const void* k_new, const void* v_new,
                 int window, float scale, cudaStream_t stream) {
   cudaError_t err = launch_scatter<float>(k_new, v_new, k_pool, v_pool, table,
                                           q_start, q_lens, b, s, nb, bs,
-                                          n_kv * 128, stream);
+                                          n_kv * HD, stream);
   if (err != cudaSuccess) return err;
-  const size_t smem = kft::Smem<float, 128>::bytes(kRows);
-  err = kft::set_smem_once<float, 128>(prefill_attention_kernel<float, 128>);
+  const size_t smem = kft::Smem<float, HD>::bytes(kRows);
+  err = kft::set_smem_once<float, HD>(prefill_attention_kernel<float, HD>);
   if (err != cudaSuccess) return err;
   const int tiles = (s * group + kRows - 1) / kRows;
-  prefill_attention_kernel<float, 128>
+  prefill_attention_kernel<float, HD>
       <<<dim3(tiles, n_kv, b), kft::kThreads, smem, stream>>>(
           static_cast<const float*>(q), static_cast<const float*>(k_pool),
           static_cast<const float*>(v_pool), static_cast<const int*>(table),
@@ -308,6 +368,7 @@ int launch_fp32(const void* q, const void* k_new, const void* v_new,
   return cudaGetLastError();
 }
 
+template <int HD>
 int launch_bf16(const void* q, const void* k_new, const void* v_new,
                 void* k_pool, void* v_pool, const void* table,
                 const void* q_start, const void* q_lens, const void* mask,
@@ -315,17 +376,18 @@ int launch_bf16(const void* q, const void* k_new, const void* v_new,
                 int window, float scale, cudaStream_t stream) {
   cudaError_t err = launch_scatter<bf16>(k_new, v_new, k_pool, v_pool, table,
                                          q_start, q_lens, b, s, nb, bs,
-                                         n_kv * kTcHD, stream);
+                                         n_kv * HD, stream);
   if (err != cudaSuccess) return err;
-  // once per kernel, so launches inside a CUDA-graph capture make no
-  // attribute calls
+  constexpr size_t kSmem = TcGeom<HD>::kSmemBytes;
+  // once per instantiation, so launches inside a CUDA-graph capture make
+  // no attribute calls
   static const cudaError_t attr = cudaFuncSetAttribute(
-      prefill_attention_tc_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTcSmemBytes);
+      prefill_attention_tc_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (attr != cudaSuccess) return attr;
   const int tiles = (s * group + wg::kRows - 1) / wg::kRows;
-  prefill_attention_tc_kernel<<<dim3(tiles, n_kv, b), wg::kThreads,
-                                kTcSmemBytes, stream>>>(
+  prefill_attention_tc_kernel<HD><<<dim3(tiles, n_kv, b), wg::kThreads,
+                                    kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k_pool),
       static_cast<const bf16*>(v_pool), static_cast<const int*>(table),
       static_cast<const int*>(q_start), static_cast<const int*>(q_lens),
@@ -334,27 +396,41 @@ int launch_bf16(const void* q, const void* k_new, const void* v_new,
   return cudaGetLastError();
 }
 
+template <int HD>
+int launch(const void* q, const void* k_new, const void* v_new,
+           void* k_pool, void* v_pool, const void* table,
+           const void* q_start, const void* q_lens, const void* mask,
+           void* out, int b, int s, int nb, int bs, int n_kv, int group,
+           int window, float scale, int dtype, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_fp32<HD>(q, k_new, v_new, k_pool, v_pool, table, q_start,
+                           q_lens, mask, out, b, s, nb, bs, n_kv, group,
+                           window, scale, stream);
+  if (dtype == 1)
+    return launch_bf16<HD>(q, k_new, v_new, k_pool, v_pool, table, q_start,
+                           q_lens, mask, out, b, s, nb, bs, n_kv, group,
+                           window, scale, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores). hd must
-// be 128 (llama3-1b; other head dims come with a model that needs them).
-// window <= 0 means none. mask may be null (every cell valid). Returns
-// cudaGetLastError() after the launches.
+// be 128 (llama) or 256 (gemma). window <= 0 means none. mask may be null
+// (every cell valid). Returns cudaGetLastError() after the launches.
 extern "C" int kft_paged_prefill_append(
     const void* q, const void* k_new, const void* v_new, void* k_pool,
     void* v_pool, const void* table, const void* q_start, const void* q_lens,
     const void* mask, void* out, int b, int s, int nb, int bs, int n_kv,
     int group, int hd, int window, float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd != 128 || group < 1 || group > kft::kMaxRows)
+  if ((hd != 128 && hd != 256) || group < 1 || group > kft::kMaxRows)
     return cudaErrorInvalidValue;
-  if (dtype == 0)
-    return launch_fp32(q, k_new, v_new, k_pool, v_pool, table, q_start,
+  if (hd == 256)
+    return launch<256>(q, k_new, v_new, k_pool, v_pool, table, q_start,
                        q_lens, mask, out, b, s, nb, bs, n_kv, group, window,
-                       scale, st);
-  if (dtype == 1)
-    return launch_bf16(q, k_new, v_new, k_pool, v_pool, table, q_start,
-                       q_lens, mask, out, b, s, nb, bs, n_kv, group, window,
-                       scale, st);
-  return cudaErrorInvalidValue;
+                       scale, dtype, st);
+  return launch<128>(q, k_new, v_new, k_pool, v_pool, table, q_start, q_lens,
+                     mask, out, b, s, nb, bs, n_kv, group, window, scale,
+                     dtype, st);
 }

@@ -122,20 +122,15 @@ def num_params(cfg: LlamaConfig) -> int:
     return sum(math.prod(shape) for shape in leaves)
 
 
-def init(cfg: LlamaConfig, seed: int, device: torch.device | str, *,
-         train: bool = False) -> Params:
-    """Random params from `seed`: truncated normal on [-2, 2] times
+def random_params(shapes: Params, dtype_of, seed: int,
+                  device: torch.device | str) -> Params:
+    """Random params over a tree of leaf shapes (a model's
+    `param_shapes`), drawn in the tree's order from a torch.Generator on
+    `device` seeded with `seed`: truncated normal on [-2, 2] times
     fan_in**-0.5, norms zero (identity under the (1 + w) scale) — the
-    reference's recipe, from a torch.Generator on `device`, so the
-    values differ from the reference's (parity tests convert the
-    reference's params with `bridge.from_jax` instead). `train=True`
-    keeps every leaf in `cfg.param_dtype` (the trainer's masters);
-    otherwise leaves take their serving dtype (`leaf_dtype`)."""
+    reference's recipe, though not its values. `dtype_of(name)` is each
+    leaf's dtype."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    shapes = param_shapes(cfg)
-
-    def dtype_of(name):
-        return cfg.param_dtype if train else leaf_dtype(cfg, name)
 
     def leaf(name, shape):
         if name.endswith("norm"):
@@ -147,14 +142,21 @@ def init(cfg: LlamaConfig, seed: int, device: torch.device | str, *,
         torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
         return (w * fan_in**-0.5).to(dtype_of(name))
 
-    params: Params = {
-        "embed": leaf("embed", shapes["embed"]),
-        "blocks": {n: leaf(n, s) for n, s in shapes["blocks"].items()},
-        "final_norm": leaf("final_norm", shapes["final_norm"]),
-    }
-    if "lm_head" in shapes:
-        params["lm_head"] = leaf("lm_head", shapes["lm_head"])
-    return params
+    return {k: {n: leaf(n, s) for n, s in v.items()} if k == "blocks"
+            else leaf(k, v) for k, v in shapes.items()}
+
+
+def init(cfg: LlamaConfig, seed: int, device: torch.device | str, *,
+         train: bool = False) -> Params:
+    """Random params from `seed` (`random_params`; parity tests convert
+    the reference's params with `bridge.from_jax` instead). `train=True`
+    keeps every leaf in `cfg.param_dtype` (the trainer's masters);
+    otherwise leaves take their serving dtype (`leaf_dtype`)."""
+
+    def dtype_of(name):
+        return cfg.param_dtype if train else leaf_dtype(cfg, name)
+
+    return random_params(param_shapes(cfg), dtype_of, seed, device)
 
 
 def layer_params(params: Params, li: int) -> Params:

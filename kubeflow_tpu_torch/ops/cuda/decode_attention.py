@@ -42,9 +42,10 @@ launches = 0
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 # Cells per block of the split launch. 64 was faster than 128 on an
-# H100 at both one-shot shapes (the window batch, whose left-pad runs it
-# skips at a finer grain, and the draft's batch 1, whose grid it widens);
-# see PERF.md.
+# H100 at every one-shot shape measured (llama3-8b's window batch, whose
+# left-pad runs it skips at a finer grain, the draft's batch 1, whose
+# grid it widens, and gemma-2b's window batch and batch 1, one kv head
+# of 256 for 8 query heads); see PERF.md.
 SPLIT_CELLS = 64
 
 

@@ -33,7 +33,7 @@ dkv_launches = 0
 
 NEG_INF = -2.0**30  # the reference's finite mask value
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (128,)  # llama3-1b; others come with a model that needs them
+_HEAD_DIMS = (128,)  # llama; gemma's 256 comes with its training
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _TAIL = [_I] * 7 + [ctypes.c_float, _I, _P]  # b s n_q n_kv hd causal window
 _FWD_ARGS = [_P] * 5 + _TAIL                 # q k v o lse

@@ -4,7 +4,8 @@ PyTorch version.
 Replaces the Pallas TPU kernel
 `kubeflow_tpu/ops/pallas/paged_attention.py::paged_decode_attention`.
 The kernel (csrc/paged_decode_attention.cu) splits each row's cells
-across CUDA blocks of `split_cells` cells, one per (kv head, row,
+across CUDA blocks of `split_cells` cells (`default_split_cells`: 128
+at llama3-1b's heads, 64 at gemma-2b's), one per (kv head, row,
 split), each looping over its share of the row's live cells only, and
 merges their partial softmax sums in a second launch; the source note
 there gives its bound (device-memory bytes) and what its design does
@@ -27,17 +28,28 @@ from kubeflow_tpu_torch.ops.cuda import _build
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (128,)  # llama3-1b; others come with a model that needs them
+_HEAD_DIMS = (128, 256)  # llama, gemma-2b (gemma-tiny's 32: CPU only)
 MAX_GROUP = 16
-CHUNK = 64          # the kernel's cells per step (bf16; 32 in fp32)
-SPLIT_CELLS = 128   # cells per block of the split launch
+CHUNK = 64          # split sizes are multiples of this
 # q, k_pool, v_pool, table, pos, mask, out, scratch; b, nb, bs, n_kv,
 # group, hd, window; scale; split_cells, dtype; stream
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
-def split_count(width: int, split_cells: int = SPLIT_CELLS) -> int:
+def default_split_cells(group: int, hd: int) -> int:
+    """Cells per block of the split launch, from the head geometry alone
+    (graph-safe: no cursor is read). A split block's work per cell is
+    its GQA group's rows times the head dim: 128 cells while that is at
+    most 2 x 128 (llama3-1b), else 64, which halves the longest block's
+    serial chunk chain and doubles the blocks in flight. On an H100
+    (chip_smoke.py phase 2; PERF.md): llama3-1b 0.0159 ms at 128
+    against 0.0181 at 64; gemma-2b (group 8, hd 256, one kv head)
+    0.0226 ms at 64 against 0.0369 at 128."""
+    return 128 if group * hd <= 256 else CHUNK
+
+
+def split_count(width: int, split_cells: int) -> int:
     """Blocks the kernel gives each (kv head, row): from the shapes
     alone, so the launch reads no cursor on the host."""
     return -(-width // split_cells)
@@ -90,18 +102,22 @@ def _check(q, k_pool, v_pool, block_table, q_positions, kv_mask, window):
 
 def paged_decode_attention(q, k_pool, v_pool, block_table, q_positions,
                            kv_mask=None, *, window=None,
-                           split_cells=SPLIT_CELLS) -> torch.Tensor:
+                           split_cells=None) -> torch.Tensor:
     """One query token per row against its paged cells.
 
     q [b, 1, n_q, hd]; pools [num_blocks, bs, n_kv, hd]; block_table
     [b, blocks_per_slot] int32; q_positions [b] int32 (each row's
     cursor); kv_mask [b, blocks_per_slot * bs] bool or None;
     split_cells: cells per block of the kernel's split launch, a
-    multiple of 64 (the plain version has no split). A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel or raises."""
+    multiple of 64 (None: `default_split_cells`; the plain version has
+    no split). A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises."""
     global launches
     b, n_q, hd, bs, n_kv, width = _check(q, k_pool, v_pool, block_table,
                                          q_positions, kv_mask, window)
+    group = n_q // n_kv
+    if split_cells is None:
+        split_cells = default_split_cells(group, hd)
     if split_cells < CHUNK or split_cells % CHUNK:
         raise ValueError(f"split_cells must be a positive multiple of "
                          f"{CHUNK}, got {split_cells}")
@@ -116,7 +132,6 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, q_positions,
             f"got q {q.dtype}, pools {k_pool.dtype}/{v_pool.dtype}")
     if hd not in _HEAD_DIMS:
         raise ValueError(f"kernel takes head_dim in {_HEAD_DIMS}, got {hd}")
-    group = n_q // n_kv
     if group > MAX_GROUP:
         raise ValueError(f"kernel takes a GQA group <= {MAX_GROUP}, "
                          f"got {group}")

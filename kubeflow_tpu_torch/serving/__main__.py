@@ -5,9 +5,12 @@ kubeflow_tpu/serving/__main__.py).
         --batch-window-ms 20
     python -m kubeflow_tpu_torch.serving --model llama3-1b --random \\
         --continuous --warmup
+    python -m kubeflow_tpu_torch.serving --model gemma-2b --random \\
+        --continuous --warmup
 
 Serves one model on the CUDA card (`--cpu` runs the plain PyTorch path
-on the CPU instead). Without `--continuous`, the reference's default
+on the CPU instead; `gemma-tiny`'s head dim 32 has no kernel, so it is
+served with `--cpu` only). Without `--continuous`, the reference's default
 mode: the one-shot engine on a dense KV cache, single prompts coalesced
 by a `--batch-window-ms` window when it is above 0, else each request
 generated directly. With `--continuous`, continuous batching on the
@@ -28,14 +31,18 @@ import sys
 
 
 def model_registry():
-    """name -> (config, family)."""
-    from kubeflow_tpu_torch.models import llama
-    from kubeflow_tpu_torch.serving.engine import LLAMA_FAMILY
+    """name -> (config, init, family), as the reference's registry;
+    `init(cfg, seed, device)` gives the model's random serving params.
+    The reference's `mixtral-tiny` waits for the MoE port."""
+    from kubeflow_tpu_torch.models import gemma, llama
+    from kubeflow_tpu_torch.serving.engine import GEMMA_FAMILY, LLAMA_FAMILY
 
     return {
-        "llama-tiny": (llama.LLAMA_TINY, LLAMA_FAMILY),
-        "llama3-1b": (llama.LLAMA3_1B, LLAMA_FAMILY),
-        "llama3-8b": (llama.LLAMA3_8B, LLAMA_FAMILY),
+        "llama-tiny": (llama.LLAMA_TINY, llama.init, LLAMA_FAMILY),
+        "llama3-1b": (llama.LLAMA3_1B, llama.init, LLAMA_FAMILY),
+        "llama3-8b": (llama.LLAMA3_8B, llama.init, LLAMA_FAMILY),
+        "gemma-tiny": (gemma.GEMMA_TINY, gemma.init, GEMMA_FAMILY),
+        "gemma-2b": (gemma.GEMMA_2B, gemma.init, GEMMA_FAMILY),
     }
 
 
@@ -104,7 +111,6 @@ def build_app(args: argparse.Namespace):
     """The serving app for parsed CLI args: random weights from the seed
     on the chosen device, in the mode the args choose."""
     from kubeflow_tpu_torch.device import resolve_device
-    from kubeflow_tpu_torch.models import llama
     from kubeflow_tpu_torch.serving.engine import (
         EngineConfig,
         InferenceEngine,
@@ -112,8 +118,8 @@ def build_app(args: argparse.Namespace):
     from kubeflow_tpu_torch.serving.server import create_serving_app
 
     device = resolve_device("cpu" if args.cpu else None)
-    cfg, family = model_registry()[args.model]
-    params = llama.init(cfg, args.seed, device)
+    cfg, init, family = model_registry()[args.model]
+    params = init(cfg, args.seed, device)
     engine = InferenceEngine(
         params, cfg, family,
         EngineConfig(max_len=args.max_len, eos_token=args.eos),

@@ -226,9 +226,10 @@ class InferenceEngine:
 
     `device=None` is the CUDA card (raises when there is none); the CPU
     tests pass `device="cpu"`. `params` must already live there
-    (`models.llama.init` or `bridge.from_jax`). `cuda_graphs=False`
-    launches the decode step's ops one by one on the card instead of
-    replaying its graph: an explicit control, never a fallback."""
+    (`models.llama.init`, `models.gemma.init` or `bridge.from_jax`).
+    `cuda_graphs=False` launches the decode step's ops one by one on the
+    card instead of replaying its graph: an explicit control, never a
+    fallback."""
 
     def __init__(self, params, cfg, family: Family,
                  engine_config: EngineConfig = EngineConfig(),

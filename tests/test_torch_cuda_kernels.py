@@ -32,6 +32,11 @@ mag, the sum of the product's absolute terms (`flash_bf16_slack`). A
 plain version that leaves each query's own key out must exceed that
 bound.
 
+Every serving kernel is held at llama's heads (hd 128) and at
+gemma-2b's (8 query heads over one kv head of 256); the last card test
+holds the refusals: the flash wrappers at hd 256, every wrapper at
+gemma-tiny's hd 32.
+
 The paged and dense decode kernels split each row's cells across
 blocks of `split_cells` cells (a block whose cells the kv_mask hides
 entirely reads no K/V) and merge them in a second launch; their edge
@@ -84,6 +89,9 @@ def cuda_device():
 DTYPES = [(torch.float32, (1e-5, 1e-5)), (torch.bfloat16, (1e-4, 2**-7))]
 # bs 8: several blocks per 64-cell chunk; bs 64: one chunk per block
 GEOMETRY = [dict(bs=8, nb=6), dict(bs=64, nb=3)]
+# (n_q, n_kv, hd): llama3-1b's heads, and gemma-2b's (one kv head for 8
+# query heads, head dim 256)
+HEADS = [(16, 8, 128), (8, 1, 256)]
 
 
 @pytest.mark.cuda
@@ -91,10 +99,12 @@ GEOMETRY = [dict(bs=8, nb=6), dict(bs=64, nb=3)]
 @pytest.mark.parametrize("geom", GEOMETRY)
 @pytest.mark.parametrize("window,masked", [(None, True), (13, True),
                                            (None, False)])
+@pytest.mark.parametrize("n_q,n_kv,hd", HEADS)
 def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, tol,
-                                             geom, window, masked):
+                                             geom, window, masked, n_q,
+                                             n_kv, hd):
     q, kp, vp, table, pos, mask = (_t(a).to(cuda_device) for a in mk_decode(
-        3, b=5, n_q=16, n_kv=8, hd=128, pos=[3, 7, 8, 33, 47], **geom))
+        3, b=5, n_q=n_q, n_kv=n_kv, hd=hd, pos=[3, 7, 8, 33, 47], **geom))
     q, kp, vp = (a.to(dtype) for a in (q, kp, vp))
     mask = mask if masked else None
     want = paged_decode_attention_plain(q, kp, vp, table, pos, mask,
@@ -123,12 +133,14 @@ SPLIT_CASES = {
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("split_cells", [64, 128])
 @pytest.mark.parametrize("case", list(SPLIT_CASES))
+@pytest.mark.parametrize("n_q,n_kv,hd", HEADS)
 def test_decode_kernel_split_edges_on_card(cuda_device, dtype, tol,
-                                           split_cells, case):
+                                           split_cells, case, n_q, n_kv,
+                                           hd):
     bs, nb, pos, window, blank = SPLIT_CASES[case]
     q, kp, vp, table, pos, mask = (_t(a).to(cuda_device) for a in mk_decode(
-        9, b=3, n_q=16, n_kv=8, hd=128, bs=bs, nb=nb, num_blocks=3 * nb + 2,
-        pos=pos))
+        9, b=3, n_q=n_q, n_kv=n_kv, hd=hd, bs=bs, nb=nb,
+        num_blocks=3 * nb + 2, pos=pos))
     q, kp, vp = (a.to(dtype) for a in (q, kp, vp))
     if blank is not None:
         mask[:, blank[0]:blank[1]] = False
@@ -157,11 +169,12 @@ def _prefill_close(got, want, lens, dtype, tol, mag):
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("geom", GEOMETRY)
 @pytest.mark.parametrize("window", [None, 13])
+@pytest.mark.parametrize("n_q,n_kv,hd", HEADS)
 def test_prefill_kernel_matches_plain_on_card(cuda_device, dtype, tol,
-                                              geom, window):
+                                              geom, window, n_q, n_kv, hd):
     q, kn, vn, kp, vp, table, starts, lens = (
         _t(a).to(cuda_device) for a in mk_prefill(
-            4, b=4, s=6, n_q=16, n_kv=8, hd=128, lens=[6, 3, 1, 0],
+            4, b=4, s=6, n_q=n_q, n_kv=n_kv, hd=hd, lens=[6, 3, 1, 0],
             **geom))
     q, kn, vn, kp, vp = (a.to(dtype) for a in (q, kn, vn, kp, vp))
     mag = prefill_bf16_slack(q, kn, vn, kp, vp, table, starts, lens,
@@ -177,28 +190,34 @@ def test_prefill_kernel_matches_plain_on_card(cuda_device, dtype, tol,
     torch.testing.assert_close(gv[1:], wv[1:], atol=0, rtol=0)
 
 
-# (s, n_q, n_kv, bs, nb, starts, lens, window, hole): the serving path's
-# slice (s 64, llama3-1b's group 2: two 64-row tiles per kv head) at a
-# 300-token prompt's cursors, a group of 4 (llama3-8b), 16-cell blocks
-# under 64-cell chunks, a window, a kv_mask hole, ragged lens with 0
+# (s, n_q, n_kv, hd, bs, nb, starts, lens, window, hole): the serving
+# path's slice (s 64, llama3-1b's group 2: two 64-row tiles per kv head)
+# at a 300-token prompt's cursors, a group of 4 (llama3-8b), 16-cell
+# blocks under 64-cell chunks, a window, a kv_mask hole, ragged lens with
+# 0; then gemma-2b's head dim 256 and group 8 (a 64-row tile is 8
+# tokens, a 64-token slice 8 tiles), its slice at the same cursors, two
+# kv heads of group 8, and 16-cell blocks with a window and a hole
 PREFILL_TC_CASES = [
-    (64, 16, 8, 64, 8, [0, 64, 256], [64, 64, 44], None, False),
-    (64, 32, 8, 64, 8, [128, 300, 0], [64, 20, 0], None, True),
-    (40, 16, 8, 16, 24, [0, 70, 150], [40, 25, 33], 37, False),
-    (64, 16, 8, 16, 32, [200, 7, 400], [64, 64, 50], None, True),
+    (64, 16, 8, 128, 64, 8, [0, 64, 256], [64, 64, 44], None, False),
+    (64, 32, 8, 128, 64, 8, [128, 300, 0], [64, 20, 0], None, True),
+    (40, 16, 8, 128, 16, 24, [0, 70, 150], [40, 25, 33], 37, False),
+    (64, 16, 8, 128, 16, 32, [200, 7, 400], [64, 64, 50], None, True),
+    (64, 8, 1, 256, 64, 8, [0, 64, 256], [64, 64, 44], None, False),
+    (64, 16, 2, 256, 64, 8, [128, 300, 0], [64, 20, 0], None, True),
+    (40, 8, 1, 256, 16, 24, [0, 70, 150], [40, 25, 33], 37, True),
 ]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("s,n_q,n_kv,bs,nb,starts,lens,window,hole",
+@pytest.mark.parametrize("s,n_q,n_kv,hd,bs,nb,starts,lens,window,hole",
                          PREFILL_TC_CASES)
 def test_prefill_tiles_match_plain_on_card(cuda_device, dtype, tol, s, n_q,
-                                           n_kv, bs, nb, starts, lens,
+                                           n_kv, hd, bs, nb, starts, lens,
                                            window, hole):
     q, kn, vn, kp, vp, table, starts, lens = (
         _t(a).to(cuda_device) for a in mk_prefill(
-            8, b=3, s=s, n_q=n_q, n_kv=n_kv, hd=128, bs=bs, nb=nb,
+            8, b=3, s=s, n_q=n_q, n_kv=n_kv, hd=hd, bs=bs, nb=nb,
             num_blocks=3 * nb + 2, starts=starts, lens=lens))
     q, kn, vn, kp, vp = (a.to(dtype) for a in (q, kn, vn, kp, vp))
     mask = None
@@ -221,13 +240,15 @@ def test_prefill_tiles_match_plain_on_card(cuda_device, dtype, tol, s, n_q,
 
 
 @pytest.mark.cuda
-def test_prefill_bf16_bound_sees_a_dropped_diagonal_on_card(cuda_device):
+@pytest.mark.parametrize("n_q,n_kv,hd", HEADS)
+def test_prefill_bf16_bound_sees_a_dropped_diagonal_on_card(cuda_device,
+                                                            n_q, n_kv, hd):
     """At the serving path's bf16 slice shape, a plain prefill that
     leaves out each query's own cell exceeds the bound the kernel
     meets."""
     q, kn, vn, kp, vp, table, starts, lens = (
         _t(a).to(cuda_device) for a in mk_prefill(
-            9, b=1, s=64, n_q=16, n_kv=8, hd=128, bs=64, nb=8,
+            9, b=1, s=64, n_q=n_q, n_kv=n_kv, hd=hd, bs=64, nb=8,
             num_blocks=12, starts=[256], lens=[44]))
     q, kn, vn, kp, vp = (a.to(torch.bfloat16) for a in (q, kn, vn, kp, vp))
     mag = prefill_bf16_slack(q, kn, vn, kp, vp, table, starts, lens)
@@ -245,28 +266,35 @@ def test_prefill_bf16_bound_sees_a_dropped_diagonal_on_card(cuda_device):
     assert flash_err_ratio(bad[0, :n], wo[0, :n], c, rtol, mag[0, :n]) > 1
 
 
-# (b, max_len, n_q, n_kv, cursors, holes, window): llama3-8b's group 4
-# and llama3-1b's group 2; a max_len that is no multiple of the 64-cell
+# (b, max_len, n_q, n_kv, hd, cursors, holes, window): llama3-8b's group
+# 4 and llama3-1b's group 2; a max_len that is no multiple of the 64-cell
 # chunk; cursors 0, 63, 64, 255, 256 and the last cell; left-pad runs of
 # a different length per row below a shared cursor (the window batch);
-# a window; the speculative draft's batch 1
+# a window; the speculative draft's batch 1; then gemma-2b's heads
+# (group 8, head dim 256): the window batch, ragged cursors with a
+# window, and batch 1
 DENSE_CASES = [
-    (6, 300, 32, 8, [0, 63, 64, 255, 256, 299], None, None),
-    (4, 1024, 32, 8, [540, 540, 540, 540],
+    (6, 300, 32, 8, 128, [0, 63, 64, 255, 256, 299], None, None),
+    (4, 1024, 32, 8, 128, [540, 540, 540, 540],
      {0: (0, 495), 1: (0, 17), 2: (0, 300), 3: (0, 1)}, None),
-    (4, 1024, 16, 8, [300, 700, 1000, 1023], None, 256),
-    (1, 1024, 16, 8, [300], None, None),
+    (4, 1024, 16, 8, 128, [300, 700, 1000, 1023], None, 256),
+    (1, 1024, 16, 8, 128, [300], None, None),
+    (4, 1024, 8, 1, 256, [540, 540, 540, 540],
+     {0: (0, 495), 1: (0, 17), 2: (0, 300), 3: (0, 1)}, None),
+    (6, 300, 8, 1, 256, [0, 63, 64, 255, 256, 299], None, 100),
+    (1, 1024, 8, 1, 256, [300], None, None),
 ]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("b,max_len,n_q,n_kv,pos,holes,window", DENSE_CASES)
+@pytest.mark.parametrize("b,max_len,n_q,n_kv,hd,pos,holes,window",
+                         DENSE_CASES)
 def test_dense_decode_kernel_matches_plain_on_card(cuda_device, dtype, tol,
                                                    b, max_len, n_q, n_kv,
-                                                   pos, holes, window):
+                                                   hd, pos, holes, window):
     q, k, v, pos, mask = (_t(a).to(cuda_device) for a in mk_dense(
-        6, b=b, max_len=max_len, n_q=n_q, n_kv=n_kv, hd=128, pos=pos,
+        6, b=b, max_len=max_len, n_q=n_q, n_kv=n_kv, hd=hd, pos=pos,
         holes=holes))
     q, k, v = (a.to(dtype) for a in (q, k, v))
     for m in (mask, None):
@@ -297,12 +325,13 @@ DENSE_SPLIT_CASES = {
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("split_cells", [64, 128])
 @pytest.mark.parametrize("case", list(DENSE_SPLIT_CASES))
+@pytest.mark.parametrize("n_q,n_kv,hd", [(32, 8, 128), (8, 1, 256)])
 def test_dense_decode_split_edges_on_card(cuda_device, dtype, tol,
-                                          split_cells, case):
+                                          split_cells, case, n_q, n_kv, hd):
     max_len, pos, window, holes = DENSE_SPLIT_CASES[case]
     q, k, v, pos, mask = (_t(a).to(cuda_device) for a in mk_dense(
-        10, b=len(pos), max_len=max_len, n_q=32, n_kv=8, hd=128, pos=pos,
-        holes=holes))
+        10, b=len(pos), max_len=max_len, n_q=n_q, n_kv=n_kv, hd=hd,
+        pos=pos, holes=holes))
     q, k, v = (a.to(dtype) for a in (q, k, v))
     want = decode_attention_plain(q, k, v, pos, mask, window=window)
     got = decode_attention(q, k, v, pos, mask, window=window,
@@ -326,6 +355,40 @@ def test_decode_door_launches_the_kernel_on_card(cuda_device):
         tattn.dot_product_attention(q, k, v, pos[:, None], kv_pos,
                                     kv_mask=mask, contiguous_positions=True)
         assert launch_counts()["decode_attention"] == want
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_head_dims_they_lack_on_card(cuda_device):
+    """Nothing falls back: the flash wrappers refuse gemma-2b's head dim
+    256 (its training kernels are not ported yet), and the serving
+    wrappers refuse gemma-tiny's 32 (served on the CPU only)."""
+    gen = torch.Generator().manual_seed(11)
+    q, k, v, do = (torch.randn(1, 1024, n, 256, generator=gen)
+                   .to(cuda_device, torch.bfloat16) for n in (8, 1, 1, 8))
+    with pytest.raises(ValueError, match="head_dim"):
+        tflash.flash_block_fwd(q, k, v, causal=True)
+    # "auto" picks flash for a long mask-free causal pass: it raises too
+    pos = torch.arange(1024, device=cuda_device).expand(1, 1024)
+    with pytest.raises(ValueError, match="head_dim"):
+        tattn.dot_product_attention(q, k, v, pos, pos,
+                                    contiguous_positions=True)
+    lse = torch.zeros(1, 8, 1024, device=cuda_device)
+    args = (q, k, v, do, lse, lse)
+    for fn in (tflash.flash_dq, tflash.flash_dkv):
+        with pytest.raises(ValueError, match="head_dim"):
+            fn(*args)
+    q, kp, vp, table, pos, mask = (_t(a).to(cuda_device) for a in mk_decode(
+        12, n_q=4, n_kv=1, hd=32))
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_decode_attention(q, kp, vp, table, pos, mask)
+    q, k, v, pos, mask = (_t(a).to(cuda_device) for a in mk_dense(
+        12, n_q=4, n_kv=1, hd=32))
+    with pytest.raises(ValueError, match="head_dim"):
+        decode_attention(q, k, v, pos, mask)
+    q, kn, vn, kp, vp, table, starts, lens = (
+        _t(a).to(cuda_device) for a in mk_prefill(12, n_q=4, n_kv=1, hd=32))
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_prefill_append(q, kn, vn, kp, vp, table, starts, lens)
 
 
 FLASH_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-4, 2**-7)}

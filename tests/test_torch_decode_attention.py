@@ -40,10 +40,13 @@ def _both(q, k, v, pos, mask, window=None, block_k=64):
     return got.numpy(), np.asarray(want)
 
 
-@pytest.mark.parametrize("n_q,n_kv", [(4, 4), (8, 2)])
-def test_matches_reference_ragged_cursors(n_q, n_kv):
+# gemma-2b's heads: 8 query heads over one kv head of 256
+@pytest.mark.parametrize("n_q,n_kv,hd", [
+    pytest.param(4, 4, 32, id="4-4"), pytest.param(8, 2, 32, id="8-2"),
+    pytest.param(8, 1, 256, id="gemma-heads")])
+def test_matches_reference_ragged_cursors(n_q, n_kv, hd):
     q, k, v, pos, mask = mk_dense(0, b=4, max_len=256, n_q=n_q, n_kv=n_kv,
-                                  pos=[3, 77, 128, 255], holes={})
+                                  hd=hd, pos=[3, 77, 128, 255], holes={})
     got, want = _both(q, k, v, pos, mask)
     np.testing.assert_allclose(got, want, **TOL)
 

@@ -50,14 +50,23 @@ CASES = {
                             {r: (128, 256) for r in range(3)}, ()),
     "row_sees_no_cell": ([MAX_LEN - 1, 70, 200], 50, {1: (0, MAX_LEN)},
                          (1,)),
+    "gemma_heads_window_batch": ([BUCKET + 15] * 4, None,
+                                 {r: (0, BUCKET - n)
+                                  for r, n in enumerate(PROMPTS)}, ()),
+    "gemma_heads_window_empties_leading_splits": (
+        [300, MAX_LEN - 1, 200], 13, {}, ()),
 }
+# (n_q, n_kv, hd) of a case: 8 query heads over 2 kv heads of 32, or
+# gemma-2b's 8 over one of 256
+HEADS = {name: (8, 1, 256) for name in CASES if name.startswith("gemma")}
 
 
 @functools.lru_cache(maxsize=None)
 def _case(name):
     pos, window, holes, _ = CASES[name]
-    q, k, v, pos, mask = mk_dense(12, b=len(pos), max_len=MAX_LEN, n_q=8,
-                                  n_kv=2, hd=32, pos=pos, holes=holes)
+    n_q, n_kv, hd = HEADS.get(name, (8, 2, 32))
+    q, k, v, pos, mask = mk_dense(12, b=len(pos), max_len=MAX_LEN, n_q=n_q,
+                                  n_kv=n_kv, hd=hd, pos=pos, holes=holes)
     want = pallas_decode(*(jnp.asarray(a) for a in (q, k, v, pos, mask)),
                          window=window, interpret=True)
     return (q, k, v, pos, mask), window, np.asarray(want)

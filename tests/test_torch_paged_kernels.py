@@ -63,6 +63,10 @@ def _decode_cases():
         "mqa": dict(seed=2, n_q=8, n_kv=1),
         "ragged": dict(seed=3, b=5, pos=[3, 7, 8, 33, 47]),
         "cow_shared": dict(seed=4, pos=[9, 20, 40], share=True),
+        # gemma-2b's heads: one kv head of 256 for 8 query heads
+        "gemma_heads": dict(seed=5, n_q=8, n_kv=1, hd=256),
+        "gemma_heads_ragged": dict(seed=6, b=5, n_q=16, n_kv=2, hd=256,
+                                   pos=[3, 7, 8, 33, 47]),
     }
 
 
@@ -117,6 +121,10 @@ def _prefill_cases():
         "ragged_cursors": dict(seed=3, b=5, starts=[0, 7, 8, 30, 43]),
         "ragged_lens": dict(seed=4, b=4, s=6, lens=[6, 3, 1, 0]),
         "cow_shared": dict(seed=5, b=2, s=4, starts=[8, 10], shared=True),
+        # gemma-2b's heads: one kv head of 256 for 8 query heads
+        "gemma_heads": dict(seed=6, n_q=8, n_kv=1, hd=256),
+        "gemma_heads_ragged_lens": dict(seed=7, b=4, s=6, n_q=16, n_kv=2,
+                                        hd=256, lens=[6, 3, 1, 0]),
     }
 
 

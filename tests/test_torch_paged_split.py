@@ -49,15 +49,21 @@ CASES = {
     "mask_blanks_a_split": (64, 5, [300, 200, 319], None, (128, 256), ()),
     "bs8_splits_span_blocks": (8, 40, [319, 130, 64], None, None, ()),
     "row_sees_no_cell": (8, 40, [319, 70, 200], 50, None, (1,)),
+    "gemma_heads_left_pad": (64, 5, [319, 300, 200], None, (0, 150), ()),
+    "gemma_heads_bs8_window": (8, 40, [319, 130, 64], 13, None, ()),
 }
+# (n_q, n_kv, hd) of a case: 8 query heads over 2 kv heads of 32, or
+# gemma-2b's 8 over one of 256
+HEADS = {name: (8, 1, 256) for name in CASES if name.startswith("gemma")}
 
 
 @functools.lru_cache(maxsize=None)
 def _case(name):
     bs, nb, pos, window, blank, blind = CASES[name]
+    n_q, n_kv, hd = HEADS.get(name, (8, 2, 32))
     q, kp, vp, table, pos, mask = mk_decode(
-        11, b=3, n_q=8, n_kv=2, hd=32, bs=bs, nb=nb, num_blocks=3 * nb + 2,
-        pos=pos)
+        11, b=3, n_q=n_q, n_kv=n_kv, hd=hd, bs=bs, nb=nb,
+        num_blocks=3 * nb + 2, pos=pos)
     if blank is not None:
         mask[:, blank[0]:blank[1]] = False
     for row in blind:
@@ -101,6 +107,15 @@ def test_split_merge_matches_pallas(case, split_cells):
     (1024, 128, 8), (1024, 256, 4), (320, 128, 3), (64, 128, 1)])
 def test_split_count_follows_the_shapes(width, split_cells, want):
     assert tpaged.split_count(width, split_cells) == want
+
+
+# (group, hd) -> cells: llama3-1b's 2 x 128 keeps 128-cell splits;
+# wider rows (llama3-8b's group 4, gemma-2b's 8 x 256) take 64
+@pytest.mark.parametrize("group,hd,want", [
+    (1, 128, 128), (2, 128, 128), (4, 128, 64), (8, 256, 64),
+    (16, 128, 64)])
+def test_default_split_follows_the_head_geometry(group, hd, want):
+    assert tpaged.default_split_cells(group, hd) == want
 
 
 @pytest.mark.parametrize("split_cells", [0, 32, 100])

@@ -43,7 +43,15 @@ CASES = {
     "window_37": ([0, 70, 150], [40, 25, 33], 37, False, False),
     "cow_shared_prefix": ([40, 50, 100], [40, 40, 17], None, True, False),
     "kv_mask_hole": ([20, 90, 140], [40, 31, 40], None, False, True),
+    "gemma_heads_ragged_lens": ([0, 70, 150], [40, 25, 0], None, False,
+                                False),
+    "gemma_heads_window_hole": ([20, 90, 140], [40, 31, 40], 37, False,
+                                True),
 }
+# (n_q, n_kv, hd) of a case: 4 query heads over 2 kv heads of 128, or
+# gemma-2b's 8 over one of 256 (s 40 x group 8 = 320 rows, 5 tiles of 8
+# tokens, each row of Q, K and V two 128-column halves in the kernel)
+HEADS = {name: (8, 1, 256) for name in CASES if name.startswith("gemma")}
 
 
 def _bf16(x):
@@ -55,8 +63,9 @@ def _case(name):
     """bf16 inputs (as fp32 arrays), the Pallas kernel's fp32 output,
     and the bound's magnitudes."""
     starts, lens, window, shared, hole = CASES[name]
-    arrays = mk_prefill(21, b=3, s=40, n_q=4, n_kv=2, hd=128, bs=16, nb=12,
-                        num_blocks=48, starts=starts, lens=lens,
+    n_q, n_kv, hd = HEADS.get(name, (4, 2, 128))
+    arrays = mk_prefill(21, b=3, s=40, n_q=n_q, n_kv=n_kv, hd=hd, bs=16,
+                        nb=12, num_blocks=48, starts=starts, lens=lens,
                         shared=shared)
     q, kn, vn, kp, vp = (_bf16(torch.from_numpy(a)).numpy()
                          for a in arrays[:5])

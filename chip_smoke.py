@@ -43,12 +43,16 @@ Phases, each fatal on failure (exit code 1, no result line):
              times at the window batch and at batch 1 at both splits
              (and how many splits the pad skip drops) against SDPA over
              each row's cells up to its cursor.
-             Then the three serving kernels again at gemma-2b's shapes
-             (n_q 8, n_kv 1, hd 256, 18 layers' pools): paged decode at
-             the same cursors and splits, prefill-append as the 4-row
-             batch, the 300-token prompt's slices and the capped repeat,
-             dense decode at the window batch and at batch 1; the same
-             bounds and controls, SDPA with K/V repeated over the group.
+             Then the kernels again at gemma-2b's shapes (n_q 8, n_kv 1,
+             hd 256, 18 layers' pools): paged decode at the same cursors
+             and splits, prefill-append as the 4-row batch, the
+             300-token prompt's slices and the capped repeat, the flash
+             forward, dQ and dK/dV (bf16 only: fp32 takes hd 128) over
+             the same four cases at b 2 (dK/dV also timed without its
+             query-head split), dense decode at the window batch and at
+             batch 1; the same bounds and controls, SDPA with K/V
+             repeated over the group, ptxas registers and spills of
+             every hd-256 instantiation.
 3. serve   — boots the port's HTTP server in-process (the CLI's
              `--model llama3-1b --random --seed 0 --continuous --warmup
              --prefill-chunk-tokens 64`; dispatch-ahead depth 2), whose
@@ -143,11 +147,28 @@ Phases, each fatal on failure (exit code 1, no result line):
              window batch of 8 and a 2-row direct batch; 18 dense decode
              launches per replayed step). Logprobs within 0.1 of a
              teacher-forced pass of the plain gemma model.
+7. train gemma — gemma-2b trained as the reference trains it:
+             `Trainer(apply_fn=lambda p, t: gemma.apply(p, cfg, t))` at
+             full width and depth, fp32 masters, bf16 activations, remat
+             of every block, dense CE over the tied fp32 head, AdamW
+             (warmup 10 / total 1000), random weights from seed 0, batch
+             2 x 2048 from numpy seed 0 with rolled targets. Gradients at
+             the initial weights through the flash kernels (hd 256, group
+             8) against the plain attention path's, and a dQ that misses
+             each query's own key, which the check must catch (so a
+             tolerance below the kernels' noise or above that fault fails
+             the phase); three plain-path steps, then from the same
+             weights two uncounted and 4 counted steps through the
+             kernels, counters set to 0 just before and read just after:
+             36 forward, 18 dQ and 18 dK/dV launches a step, losses
+             finite and falling, the first three within 1e-3 of the
+             plain path's; prints step time, tokens/s, MFU (6 N T, N =
+             2,506,434,560) and peak memory, then profiles one more step.
 Then prints the `kernels` JSON line (launches: the paged kernels' over
-phases 3, 3b and 3c, each other kernel's over its phase; each serving
-kernel again as `<name>@gemma-2b`, timed in phase 2 at gemma-2b's shapes
-and counted over phase 6), the card's name and power limit, and last
-`{"ok": true, "device": {...}}`.
+phases 3, 3b and 3c, each other kernel's over its phase; each kernel
+again as `<name>@gemma-2b`, timed in phase 2 at gemma-2b's shapes and
+counted over phase 6, or phase 7 for the flash kernels), the card's
+name and power limit, and last `{"ok": true, "device": {...}}`.
 
 Exits non-zero without a result when CUDA is unavailable or the port's
 package is not beside this script.
@@ -208,6 +229,8 @@ FLASH_CASES = {"causal": (FLASH_S, True, None),
                "noncausal": (FLASH_S, False, None),
                "odd_s1000": (1000, True, None)}
 TRAIN_STEPS = 6                    # counted, after two uncounted steps
+GEMMA_TRAIN_STEPS = 4              # phase 7: the same, at gemma-2b
+GEMMA_2B_PARAMS = 2_506_434_560    # the tied head counted once
 # Kernel path vs plain path. Gradients at the initial weights, worst
 # leaf (per layer for block leaves) by relative L2 error: read 1.92e-2
 # on an H100 80GB HBM3, the bf16 noise of this model (the bf16-P
@@ -829,19 +852,20 @@ def _pairs(s, causal, window):
     return sum(min(t + 1, window or s) for t in range(s))
 
 
-def _flash_need(kind, b, s, causal, window):
+def _flash_need(kind, b, s, causal, window, g=LLAMA_1B):
     """(bytes, flops) one call needs at bf16: every input read once,
     every output written once; 2 hd flops per visible pair and product
     (forward: QK, PV; dQ: QK, dO V^T, dS K; dK/dV: those and P^T dO)."""
-    q = b * s * N_Q * HD * 2
-    kv = b * s * N_KV * HD * 2
-    rows = b * N_Q * s * 4                      # an fp32 lse or delta
+    q = b * s * g.n_q * g.hd * 2
+    kv = b * s * g.n_kv * g.hd * 2
+    rows = b * g.n_q * s * 4                    # an fp32 lse or delta
     products, moved = {
         "fwd": (2, q + 2 * kv + q + rows),      # q k v -> o lse
         "dq": (3, 2 * q + 2 * kv + 2 * rows + q),
         "dkv": (4, 2 * q + 2 * kv + 2 * rows + 2 * kv),
     }[kind]
-    return moved, products * 2 * HD * _pairs(s, causal, window) * N_Q * b
+    return moved, (products * 2 * g.hd * _pairs(s, causal, window) * g.n_q
+                   * b)
 
 
 def _flash_err(got, want, c, rtol, mag=None):
@@ -902,20 +926,24 @@ def _time_events(torch, fn, n):
     return t0.elapsed_time(t1) / n
 
 
-def check_flash(torch, dev):
+def check_flash(torch, dev, g=LLAMA_1B):
     """Each flash kernel against its plain version over the cases and
-    both dtypes; timings at the causal bf16 shape."""
+    every dtype its kernels take at `g`'s head dim (bf16 and fp32 at
+    llama3-1b's 128, bf16 at gemma-2b's 256); timings at the causal bf16
+    shape."""
     from kubeflow_tpu_torch.ops.cuda import flash_attention as fa
 
     gen = torch.Generator().manual_seed(4)
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
+        if g.hd not in fa.HEAD_DIMS[dtype]:
+            continue
         c, rtol = FLASH_TOL[str(dtype).split(".")[1]]
         bf16 = dtype == torch.bfloat16
         for name, (s, causal, window) in FLASH_CASES.items():
-            q, do = (torch.randn(FLASH_B, s, N_Q, HD, generator=gen)
+            q, do = (torch.randn(FLASH_B, s, g.n_q, g.hd, generator=gen)
                      .to(dev, dtype) for _ in range(2))
-            k, v = (torch.randn(FLASH_B, s, N_KV, HD, generator=gen)
+            k, v = (torch.randn(FLASH_B, s, g.n_kv, g.hd, generator=gen)
                     .to(dev, dtype) for _ in range(2))
             kw = dict(causal=causal, window=window)
             o, lse = fa.flash_block_fwd(q, k, v, **kw)
@@ -970,9 +998,9 @@ def check_flash(torch, dev):
 
     # timings: causal, bf16, the training shape
     s = FLASH_S
-    q, do = (torch.randn(FLASH_B, s, N_Q, HD, generator=gen)
+    q, do = (torch.randn(FLASH_B, s, g.n_q, g.hd, generator=gen)
              .to(dev, torch.bfloat16) for _ in range(2))
-    k, v = (torch.randn(FLASH_B, s, N_KV, HD, generator=gen)
+    k, v = (torch.randn(FLASH_B, s, g.n_kv, g.hd, generator=gen)
             .to(dev, torch.bfloat16) for _ in range(2))
     o, lse = fa.flash_fwd_plain(q, k, v)
     delta = fa.flash_delta(o, do)
@@ -981,6 +1009,16 @@ def check_flash(torch, dev):
                   q, k, v, causal=True), 20),
               "dq": _time_ms(torch, lambda i: fa.flash_dq(*args), 20),
               "dkv": _time_ms(torch, lambda i: fa.flash_dkv(*args), 20)}
+    # dK/dV at every query-head split that divides the group, beside the
+    # shapes' choice (`default_head_splits`)
+    chosen = fa.default_head_splits(FLASH_B, s, g.n_q, g.n_kv, g.hd)
+    sweep = {n: kernel["dkv"][0] if n == chosen else _time_ms(
+                 torch, lambda i, n=n: fa.flash_dkv(*args, head_splits=n),
+                 20)[0]
+             for n in (1, 2, 4, 8, 16) if (g.n_q // g.n_kv) % n == 0}
+    log("  flash dkv by query-head subgroups: " + "; ".join(
+        f"{n}: {ms:.4f} ms" + (" (the shapes' choice)" if n == chosen
+                               else "") for n, ms in sweep.items()))
     plain = {"fwd": _time_ms(torch, lambda i: fa.flash_fwd_plain(q, k, v),
                              4),
              "dq": _time_ms(torch, lambda i: fa.flash_dq_plain(*args), 4),
@@ -989,7 +1027,7 @@ def check_flash(torch, dev):
     # library yardstick: SDPA on [b, heads, s, hd] views with K/V
     # repeated over the group beforehand (not timed)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    group = N_Q // N_KV
+    group = g.n_q // g.n_kv
     qt = q.transpose(1, 2).detach().requires_grad_(True)
     kt, vt = (x.repeat_interleave(group, dim=2).transpose(1, 2).detach()
               .requires_grad_(True) for x in (k, v))
@@ -1018,19 +1056,20 @@ def check_flash(torch, dev):
         f"ms, backward alone {eager_bwd:.4f} ms")
     stats = {}
     for kind, lib in (("fwd", lib_fwd), ("dq", lib_fb), ("dkv", lib_fb)):
-        moved, flops = _flash_need(kind, FLASH_B, s, True, None)
+        moved, flops = _flash_need(kind, FLASH_B, s, True, None, g)
         st = stats[f"flash_attention_{kind}"] = _summary(
-            f"flash {kind} (b {FLASH_B}, s {s}, causal, bf16)", worst[kind],
+            f"flash {kind} ({g.model}: b {FLASH_B}, s {s}, n_q {g.n_q}, "
+            f"n_kv {g.n_kv}, hd {g.hd}, causal, bf16)", worst[kind],
             kernel[kind], plain[kind], lib, moved, flops)
         ms = st["ms"]
-        log(f"    {ms:.4f} ms vs the CUDA-core kernel's "
-            f"{CUDA_CORE_MS[kind]} ms ({CUDA_CORE_MS[kind] / ms:.1f}x "
-            f"faster); {ms / lib:.2f}x SDPA's time; "
+        core = (f"{ms:.4f} ms vs the CUDA-core kernel's {CUDA_CORE_MS[kind]}"
+                f" ms ({CUDA_CORE_MS[kind] / ms:.1f}x faster); "
+                if g is LLAMA_1B else "")
+        log(f"    {core}{ms / lib:.2f}x SDPA's time; "
             f"{st['bound_ms'] / ms:.1%} of the bound")
-    for kind, marker in (("fwd", "flash_fwd_tc_kernel"),
-                         ("dq", "flash_dq_tc_kernel"),
-                         ("dkv", "flash_dkv_tc_kernel")):
-        log(f"    ptxas, bf16 {kind} kernel: "
+    for kind in ("fwd", "dq", "dkv"):
+        marker = f"flash_{kind}_tc_kernelILi{g.hd}E"
+        log(f"    ptxas, bf16 {kind} kernel at hd {g.hd}: "
             f"{_ptxas(f'flash_attention_{kind}', marker)}")
     return stats
 
@@ -1905,6 +1944,169 @@ async def serve_dense_and_check(torch, name="llama3-8b", spec=True):
     return counts
 
 
+# -- phase 7 ----------------------------------------------------------------
+
+
+def train_gemma_and_check(torch):
+    """gemma-2b trained as the reference trains it: `Trainer(apply_fn=
+    lambda p, t: gemma.apply(p, cfg, t))`, dense CE over the tied fp32
+    head, fp32 masters, bf16 activations, remat of every block, AdamW;
+    the flash kernels at head dim 256 and a group of 8."""
+    from unittest import mock
+
+    import numpy as np
+
+    from kubeflow_tpu_torch.models import gemma
+    from kubeflow_tpu_torch.ops import attention
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.train import (
+        TrainConfig,
+        Trainer,
+        cross_entropy_loss,
+    )
+
+    dev = torch.device("cuda")
+    cfg = gemma.GEMMA_2B            # fp32 masters, bf16, remat
+    tc = TrainConfig(warmup_steps=10, total_steps=1000)
+    b, s = FLASH_B, FLASH_S
+    # explicit positions are not declared contiguous: the plain path
+    plain_positions = torch.arange(s, device=dev).expand(b, s)
+
+    def apply_fn(positions):
+        return lambda p, t: gemma.apply(p, cfg, t, positions=positions)
+
+    def dense_loss(positions):
+        return lambda p, t, y, m: cross_entropy_loss(
+            apply_fn(positions)(p, t), y, m)
+
+    def trainer_for(positions):
+        return Trainer(apply_fn=apply_fn(positions),
+                       init_fn=lambda seed: gemma.init(cfg, seed, dev,
+                                                       train=True),
+                       train_config=tc, device=dev)
+
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to(dev)
+    targets = torch.roll(tokens, -1, dims=1)
+    mask = torch.ones(b, s, device=dev)
+
+    # gradients at the initial weights: the kernel path and a dQ that
+    # misses each query's own key against the plain path, worst leaf (and
+    # layer) by relative L2 error. The check has a window: the kernel
+    # path must fall below TRAIN_GRAD_TOL and the broken dQ above it.
+    params0 = gemma.init(cfg, 0, dev, train=True)
+    batch = (tokens, targets, mask)
+    want = _grads(torch, dense_loss(plain_positions), params0, *batch)
+    grad_err = {}
+    with mock.patch.object(gemma, "dot_product_attention",
+                           _control_attention(torch, "dq_no_diagonal")):
+        got = _grads(torch, dense_loss(plain_positions), params0, *batch)
+    grad_err["dq_no_diagonal"] = _worst_grad_err(torch, got, want)
+    del got
+    got = _grads(torch, dense_loss(None), params0, *batch)
+    grad_err["kernel"] = _worst_grad_err(torch, got, want)
+    del got, want, params0
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  gradients at the initial weights vs the plain path, worst "
+        "leaf |diff| / |plain| in L2: " + "; ".join(
+            f"{kind} {e:.3e} ({leaf})" for kind, (e, leaf) in
+            grad_err.items()) + f" (tol {TRAIN_GRAD_TOL})")
+    if grad_err["kernel"][0] > TRAIN_GRAD_TOL:
+        fail("gemma-2b kernel-path gradients disagree with the plain path's")
+    if grad_err["dq_no_diagonal"][0] <= TRAIN_GRAD_TOL:
+        fail("the gemma-2b gradient check cannot see a dQ that misses the "
+             "diagonal")
+
+    # the plain path, three steps from the same weights (the seed's):
+    # losses 1 and 2 are one forward pass at the initial weights (lr 0 on
+    # the first update), loss 3 the first after an update
+    plain_trainer = trainer_for(plain_positions)
+    state = plain_trainer.init(0)
+    plain_losses = []
+    for _ in range(3):
+        state, loss = plain_trainer.step(state, tokens, targets)
+        plain_losses.append(float(loss))
+    del state, plain_trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    trainer = trainer_for(None)
+    state = trainer.init(0)
+    n_params = trainer.param_count
+    log(f"  gemma-2b: {n_params} params (fp32 masters, tied head counted "
+        f"once), batch {b} x {s}, dense CE")
+    if n_params != GEMMA_2B_PARAMS:
+        fail(f"gemma-2b has {n_params} params, not {GEMMA_2B_PARAMS}")
+    reset_launch_counts()
+    attention.reset_impl_counts()
+    t0 = time.perf_counter()
+    state, loss = trainer.step(state, tokens, targets)
+    warm_s = time.perf_counter() - t0
+    state, loss2 = trainer.step(state, tokens, targets)
+    losses = [float(loss), float(loss2)]
+    torch.cuda.reset_peak_memory_stats()
+    pending = []
+    t0 = time.perf_counter()
+    for _ in range(GEMMA_TRAIN_STEPS):
+        state, loss = trainer.step(state, tokens, targets)
+        pending.append(loss)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / GEMMA_TRAIN_STEPS
+    counts = launch_counts()
+    impl = attention.impl_counts()
+    losses += [float(x) for x in pending]
+    peak = torch.cuda.max_memory_allocated()
+    steps = 2 + GEMMA_TRAIN_STEPS
+    tok_s = b * s / step_s
+    mfu = trainer.step_flops(b, s) / step_s / BF16_FLOPS_S
+    log(f"  losses {[round(x, 4) for x in losses]}; plain path's first "
+        f"three {[round(x, 4) for x in plain_losses]}")
+    log(f"  step (host clock, {GEMMA_TRAIN_STEPS} steps after a warm-up of "
+        f"{warm_s:.3f} s and one more step): {step_s * 1e3:.1f} ms, "
+        f"{tok_s:.0f} tokens/s, model FLOPs (6 N T) "
+        f"{trainer.step_flops(b, s):.4e} per step = {mfu:.1%} of 989 "
+        f"TFLOP/s; peak memory {peak / 2**30:.2f} GiB; optimizer state "
+        f"{trainer.opt_state_bytes() / 2**30:.2f} GiB")
+    log(f"  attention impl counts {impl}; kernel launches {counts} over "
+        f"{steps} steps")
+    # remat: each block's forward runs twice (forward and recompute)
+    expect = {"flash_attention_fwd": 2 * cfg.num_layers * steps,
+              "flash_attention_dq": cfg.num_layers * steps,
+              "flash_attention_dkv": cfg.num_layers * steps}
+    for name, n in expect.items():
+        if counts[name] != n:
+            fail(f"{name}: {counts[name]} launches on gemma-2b's training "
+                 f"path, the design implies {n} (remat: forward + "
+                 f"recompute)")
+    if impl["flash"] == 0 or impl["torch"] != 0:
+        fail(f"gemma-2b training did not route every attention call "
+             f"through the flash kernels: {impl}")
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        fail(f"non-finite gemma-2b loss: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"gemma-2b loss did not fall: {losses}")
+    diff = max(abs(a - p) for a, p in zip(losses, plain_losses))
+    log(f"  kernel vs plain path, first three losses: max |diff| "
+        f"{diff:.2e}, loss 3 |diff| {abs(losses[2] - plain_losses[2]):.2e} "
+        f"(tol {TRAIN_LOSS_TOL})")
+    if diff > TRAIN_LOSS_TOL:
+        fail("gemma-2b kernel-path losses disagree with the plain path's")
+
+    # one more step under torch.profiler: where a step's time goes
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, loss = trainer.step(state, tokens, targets)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    _report_profile(prof, prof_s, top=16)
+    del state, trainer
+    return counts
+
+
 # the port's own kernels, as the profiler names them
 PORT_KERNELS = ("decode_split_kernel", "decode_combine_kernel",
                 "prefill_attention_", "scatter_kernel", "flash_fwd_",
@@ -1969,11 +2171,13 @@ def main() -> None:
              "paged_prefill_append": check_prefill(torch, dev)[0],
              **check_flash(torch, dev),
              "decode_attention": check_dense_decode(torch, dev)[0]}
-    log("phase 2, gemma-2b: the serving kernels at head dim 256, group 8")
+    log("phase 2, gemma-2b: the kernels at head dim 256, group 8")
     stats.update({
         f"paged_decode_attention{GEMMA}": check_decode(torch, dev, GEMMA_2B),
         f"paged_prefill_append{GEMMA}": check_prefill(torch, dev,
                                                       GEMMA_2B)[0],
+        **{name + GEMMA: st for name, st in
+           check_flash(torch, dev, GEMMA_2B).items()},
         f"decode_attention{GEMMA}": check_dense_decode(
             torch, dev, GEMMA_2B, GEMMA_2B)[0]})
 
@@ -2021,6 +2225,15 @@ def main() -> None:
     log("  one-shot (window batcher, direct path):")
     counts["decode_attention" + GEMMA] = asyncio.run(serve_dense_and_check(
         torch, "gemma-2b", spec=False))["decode_attention"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 7: train gemma-2b through the flash kernels at head dim 256")
+    counts.update({name + GEMMA: n for name, n in
+                   train_gemma_and_check(torch).items()
+                   if name.startswith("flash")})
+    gc.collect()
+    torch.cuda.empty_cache()
 
     flash = "kubeflow_tpu/ops/pallas/flash_attention.py"
     meta = {
@@ -2041,7 +2254,8 @@ def main() -> None:
             "kubeflow_tpu/ops/pallas/decode_attention.py:115"),
     }
     for name in ("paged_decode_attention", "paged_prefill_append",
-                 "decode_attention"):
+                 "flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkv", "decode_attention"):
         meta[name + GEMMA] = meta[name]
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -40,8 +40,28 @@
 // P^T and dS^T round-tripped through shared memory with barriers around
 // each, synchronous loads, and 150 KB of fp32 tiles (one block an SM).
 //
-// fp32: that first kernel, kept for fp32 inputs (fp32 tiles in shared
-// memory, products on the CUDA cores; flash_tile.cuh).
+// Head dim 256 and one KV head for 8 query heads (gemma-2b: b 2, s 2048;
+// the same 68.7 GFLOP and bound as llama3-1b's shape): the bf16 kernel is
+// a template on the head dim, rows of K, V, Q and dO two [64, 128] tiles
+// each (flash_wgmma.cuh's Operand), S^T and dP^T 16 k-steps each. Two
+// problems, and what the design does about them:
+// - registers: dK and dV at [64, 256] would be 128 + 128 fp32 registers
+//   a thread before S^T and dP^T. So a block computes one 128-column
+//   part of both (grid.x counts the parts): each part's block forms
+//   S^T and dP^T over the full head dim (1.5x the tensor work at 256),
+//   and keeps llama's register budget (dK 64, dV 64, S^T 32, dP^T 32).
+// - parallelism: one KV head, batch 2 and 32 key tiles are 64 blocks (128
+//   with the parts) on 132 SMs, the first key tile walking 8 heads x 32
+//   query tiles. So the group's query heads may be split into `splits`
+//   subgroups, one block each, that write fp32 partial dK and dV at
+//   [b, s, n_kv, splits, hd] for the caller to sum: the reference's own
+//   placement of the group sum (it writes per-query-head dK and dV and
+//   sums them outside its kernel, flash_attention.py:337-349). The
+//   wrapper picks `splits` from the shapes alone; at llama3-1b's shape
+//   (512 blocks) it is 1, the in-kernel group sum and one bf16 output.
+//
+// fp32: that first kernel, kept for fp32 inputs at head dim 128 (fp32
+// tiles in shared memory, products on the CUDA cores; flash_tile.cuh).
 #include "flash_tile.cuh"
 #include "flash_wgmma.cuh"
 
@@ -143,12 +163,25 @@ flash_dkv_kernel(const float* __restrict__ q,      // [b, s, n_q, hd]
 
 constexpr int kStages = 2;  // Q / dO / lse / delta ring
 constexpr uint32_t kStatBytes = 2 * kTile * sizeof(float);  // lse, delta
-// K, V, kStages x (Q, dO), kStages x (lse, delta); 1 KB of slack for the
-// 1024-byte alignment
-constexpr size_t kTcSmemBytes =
-    1024 + wg::kTileBytes * (2 + 2 * kStages) + kStatBytes * kStages;
 
-__global__ void __launch_bounds__(wg::kThreads, 2)
+// Shared memory at head dim HD: K, V, kStages x (Q, dO), each an
+// Operand<HD>, then kStages x (lse, delta); 1 KB of slack for the
+// 1024-byte alignment. 98 KB at 128 (two blocks an SM), 194 KB at 256
+// (one).
+template <int HD>
+constexpr size_t tc_smem_bytes() {
+  return 1024 + (size_t)wg::Operand<HD>::kBytes * (2 + 2 * kStages) +
+         kStatBytes * kStages;
+}
+
+// grid.x = n_kv x splits x HD / 128: block x takes KV head x / (splits
+// HD / 128), query-head subgroup (x / (HD / 128)) % splits of that head's
+// group, and output part x % (HD / 128) (dK and dV head-dim columns
+// [128 part, 128 part + 128)). With splits == 1 it writes dK and dV in
+// bf16 at [b, s, n_kv, hd]; otherwise fp32 partials at [b, s, n_kv,
+// splits, hd], which the caller sums over the splits.
+template <int HD>
+__global__ void __launch_bounds__(wg::kThreads, HD == 128 ? 2 : 1)
 flash_dkv_tc_kernel(const bf16* __restrict__ q,       // [b, s, n_q, hd]
                     const bf16* __restrict__ k,       // [b, s, n_kv, hd]
                     const bf16* __restrict__ v,
@@ -157,44 +190,51 @@ flash_dkv_tc_kernel(const bf16* __restrict__ q,       // [b, s, n_q, hd]
                     const float* __restrict__ delta,  // [b, n_q, s]
                     bf16* __restrict__ dk,            // [b, s, n_kv, hd]
                     bf16* __restrict__ dv,
-                    int s, int n_q, int n_kv, int causal, int window,
-                    float scale) {
+                    float* __restrict__ dk_part,  // [b, s, n_kv, splits, hd]
+                    float* __restrict__ dv_part,
+                    int s, int n_q, int n_kv, int splits, int causal,
+                    int window, float scale) {
+  constexpr int kParts = wg::Operand<HD>::kParts;
+  constexpr uint32_t kOpBytes = wg::Operand<HD>::kBytes;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   const uint32_t ks = wg::align_1k(tc_smem);
-  const uint32_t vs = ks + wg::kTileBytes;
-  auto q_tile = [&](int st) { return ks + wg::kTileBytes * (2 + 2 * st); };
-  auto do_tile = [&](int st) { return q_tile(st) + wg::kTileBytes; };
+  const uint32_t vs = ks + kOpBytes;
+  auto q_tile = [&](int st) { return ks + kOpBytes * (2 + 2 * st); };
+  auto do_tile = [&](int st) { return q_tile(st) + kOpBytes; };
   auto stats = [&](int st) {  // lse [64] then delta [64]
-    return ks + wg::kTileBytes * (2 + 2 * kStages) + kStatBytes * st;
+    return ks + kOpBytes * (2 + 2 * kStages) + kStatBytes * st;
   };
   const float* stats_ptr = reinterpret_cast<const float*>(
       tc_smem + (stats(0) - wg::smem_u32(tc_smem)));
-  const int hk = blockIdx.x;
+  const int op = blockIdx.x % kParts;  // output part
+  const int sub = blockIdx.x / kParts % splits;
+  const int hk = blockIdx.x / kParts / splits;
   const int b = blockIdx.y;
   const int k0 = blockIdx.z * kTile;  // heaviest (earliest) tiles first
   const int nq = (s + kTile - 1) / kTile;
-  const int group = n_q / n_kv;
-  const size_t q_row = (size_t)n_q * kHD;
-  const size_t kv_row = (size_t)n_kv * kHD;
-  const size_t kv_off = ((size_t)b * s + k0) * kv_row + (size_t)hk * kHD;
+  const int heads = n_q / n_kv / splits;  // query heads of the subgroup
+  const int h0 = hk * (n_q / n_kv) + sub * heads;
+  const size_t q_row = (size_t)n_q * HD;
+  const size_t kv_row = (size_t)n_kv * HD;
+  const size_t kv_off = ((size_t)b * s + k0) * kv_row + (size_t)hk * HD;
   int lo, hi;
   query_tiles(k0, nq, causal, window, &lo, &hi);
   const int per_head = hi - lo + 1;
-  const int steps = group * per_head;  // (query head, query tile) pairs
+  const int steps = heads * per_head;  // (query head, query tile) pairs
   const int tid = threadIdx.x;
   auto load_q = [&](int it, int st) {
-    const int h = hk * group + it / per_head;
+    const int h = h0 + it / per_head;
     const int q0 = (lo + it % per_head) * kTile;
-    const size_t q_off = ((size_t)b * s + q0) * q_row + (size_t)h * kHD;
-    wg::load_tile_async(q_tile(st), q + q_off, q_row, s - q0);
-    wg::load_tile_async(do_tile(st), dout + q_off, q_row, s - q0);
+    const size_t q_off = ((size_t)b * s + q0) * q_row + (size_t)h * HD;
+    wg::load_operand_async<HD>(q_tile(st), q + q_off, q_row, s - q0);
+    wg::load_operand_async<HD>(do_tile(st), dout + q_off, q_row, s - q0);
     const size_t stat = ((size_t)b * n_q + h) * s + q0;
     wg::load_row_async(stats(st) + (tid < kTile ? 0 : kTile * 4),
                        (tid < kTile ? lse : delta) + stat, tid % kTile,
                        s - q0);
   };
-  wg::load_tile_async(ks, k + kv_off, kv_row, s - k0);
-  wg::load_tile_async(vs, v + kv_off, kv_row, s - k0);
+  wg::load_operand_async<HD>(ks, k + kv_off, kv_row, s - k0);
+  wg::load_operand_async<HD>(vs, v + kv_off, kv_row, s - k0);
   load_q(0, 0);
   wg::cp_async_commit();
 
@@ -213,15 +253,9 @@ flash_dkv_tc_kernel(const bf16* __restrict__ q,       // [b, s, n_q, hd]
 
     float sT[32], dpT[32];
     wg::mma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kHD / 16; ++kk)
-      wg::mma_ss_n64(sT, wg::desc_k(ks, kk), wg::desc_k(q_tile(st), kk),
-                     kk > 0);
+    wg::mma_hd<HD>(sT, ks, q_tile(st));
     wg::mma_commit();
-#pragma unroll
-    for (int kk = 0; kk < kHD / 16; ++kk)
-      wg::mma_ss_n64(dpT, wg::desc_k(vs, kk), wg::desc_k(do_tile(st), kk),
-                     kk > 0);
+    wg::mma_hd<HD>(dpT, vs, do_tile(st));
     wg::mma_commit();
 
     // masking only where the tile meets the diagonal, the window's edge
@@ -258,12 +292,14 @@ flash_dkv_tc_kernel(const bf16* __restrict__ q,       // [b, s, n_q, hd]
     wg::fence_regs(dv_acc);
     wg::fence_regs(dk_acc);
     wg::mma_fence();
+    const uint32_t do_part = do_tile(st) + wg::kTileBytes * op;
+    const uint32_t q_part = q_tile(st) + wg::kTileBytes * op;
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk)
-      wg::mma_rs_n128(dv_acc, pa + 4 * kk, wg::desc_mn(do_tile(st), kk));
+      wg::mma_rs_n128(dv_acc, pa + 4 * kk, wg::desc_mn(do_part, kk));
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk)
-      wg::mma_rs_n128(dk_acc, dsa + 4 * kk, wg::desc_mn(q_tile(st), kk));
+      wg::mma_rs_n128(dk_acc, dsa + 4 * kk, wg::desc_mn(q_part, kk));
     wg::mma_commit();
     wg::mma_wait<0>();
     wg::fence_regs(dv_acc);
@@ -271,12 +307,23 @@ flash_dkv_tc_kernel(const bf16* __restrict__ q,       // [b, s, n_q, hd]
     __syncthreads();  // stage st is consumed before the next refill
   }
 
+  if (splits > 1) {  // fp32 partials, straight from the fragments
+    auto row = [&](float* base) {
+      return [=](int r) {
+        return base + ((((size_t)b * s + k0 + r) * n_kv + hk) * splits +
+                       sub) * HD + 128 * op;
+      };
+    };
+    wg::store_acc_f32(row(dv_part), s - k0, dv_acc, 1.f);
+    wg::store_acc_f32(row(dk_part), s - k0, dk_acc, scale);
+    return;
+  }
   // K and V were read for the last time above: their tiles hold the output
   wg::stage_acc(vs, dv_acc, 1.f, 1.f);
   wg::stage_acc(ks, dk_acc, scale, scale);
   __syncthreads();
-  wg::store_tile(dv + kv_off, kv_row, s - k0, vs);
-  wg::store_tile(dk + kv_off, kv_row, s - k0, ks);
+  wg::store_tile(dv + kv_off + 128 * op, kv_row, s - k0, vs);
+  wg::store_tile(dk + kv_off + 128 * op, kv_row, s - k0, ks);
 }
 
 int launch_fp32(const void* q, const void* k, const void* v,
@@ -299,28 +346,39 @@ int launch_fp32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta,
                 void* dk, void* dv, int b, int s, int n_q, int n_kv,
-                int causal, int window, float scale, cudaStream_t stream) {
+                int splits, int causal, int window, float scale,
+                cudaStream_t stream) {
+  constexpr size_t kSmem = tc_smem_bytes<HD>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_dkv_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kTcSmemBytes);
+      flash_dkv_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmem);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid(n_kv, b, (s + kTile - 1) / kTile);
-  flash_dkv_tc_kernel<<<grid, wg::kThreads, kTcSmemBytes, stream>>>(
+  const bool part = splits > 1;
+  const dim3 grid(n_kv * splits * wg::Operand<HD>::kParts, b,
+                  (s + kTile - 1) / kTile);
+  flash_dkv_tc_kernel<HD><<<grid, wg::kThreads, kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), s, n_q, n_kv, causal,
-      window, scale);
+      part ? nullptr : static_cast<bf16*>(dk),
+      part ? nullptr : static_cast<bf16*>(dv),
+      part ? static_cast<float*>(dk) : nullptr,
+      part ? static_cast<float*>(dv) : nullptr, s, n_q, n_kv, splits,
+      causal, window, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores). hd must
-// be 128. window <= 0 means none. Returns cudaGetLastError() after the
+// dtype: 0 = float32 (CUDA cores, hd 128 only, splits 1), 1 = bfloat16
+// (tensor cores, hd 128 or 256). splits: query-head subgroups of each
+// GQA group, a divisor of n_q / n_kv; with splits > 1, dk and dv point at
+// fp32 partials [b, s, n_kv, splits, hd] for the caller to sum over
+// splits. window <= 0 means none. Returns cudaGetLastError() after the
 // launch.
 extern "C" int kft_flash_attention_dkv(const void* q, const void* k,
                                        const void* v, const void* dout,
@@ -328,14 +386,19 @@ extern "C" int kft_flash_attention_dkv(const void* q, const void* k,
                                        void* dk, void* dv, int b, int s,
                                        int n_q, int n_kv, int hd, int causal,
                                        int window, float scale, int dtype,
-                                       void* stream) {
+                                       int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd != kHD || s < 1 || n_kv < 1 || n_q % n_kv) return cudaErrorInvalidValue;
-  if (dtype == 0)
+  if (s < 1 || n_kv < 1 || n_q % n_kv || splits < 1 ||
+      (n_q / n_kv) % splits)
+    return cudaErrorInvalidValue;
+  if (dtype == 0 && hd == kHD && splits == 1)
     return launch_fp32(q, k, v, dout, lse, delta, dk, dv, b, s, n_q, n_kv,
                        causal, window, scale, st);
-  if (dtype == 1)
-    return launch_bf16(q, k, v, dout, lse, delta, dk, dv, b, s, n_q, n_kv,
-                       causal, window, scale, st);
+  if (dtype == 1 && hd == 128)
+    return launch_bf16<128>(q, k, v, dout, lse, delta, dk, dv, b, s, n_q,
+                            n_kv, splits, causal, window, scale, st);
+  if (dtype == 1 && hd == 256)
+    return launch_bf16<256>(q, k, v, dout, lse, delta, dk, dv, b, s, n_q,
+                            n_kv, splits, causal, window, scale, st);
   return cudaErrorInvalidValue;
 }

@@ -39,8 +39,19 @@
 // through shared memory with three barriers a key tile, and 150 KB of
 // fp32 tiles (one block an SM).
 //
-// fp32: that first kernel, kept for fp32 inputs (fp32 tiles in shared
-// memory, products on the CUDA cores; flash_tile.cuh).
+// Head dim 256 (gemma-2b: b 2, s 2048, n_q 8, n_kv 1; the same 51.6
+// GFLOP and bound as llama3-1b's shape): the bf16 kernel is a template on
+// the head dim. Q, dO, K and V rows are two [64, 128] tiles each
+// (flash_wgmma.cuh's Operand); S and dP chain 16 k-steps each; dQ is two
+// m64n128 accumulators sharing one bf16 dS fragment: dQ 128, S 32 and
+// dP 32 fp32 registers a thread. Q, dO and a 2-stage K/V ring: 193 KB,
+// one block an SM; the grid stays (query head, batch row, 64-query
+// tile). ptxas fits it in 255 registers with no spill (204 when dQ's
+// head dim was split over two blocks that each form dS, which does 5/3
+// the tensor work; 205 at hd 128).
+//
+// fp32: that first kernel, kept for fp32 inputs at head dim 128 (fp32
+// tiles in shared memory, products on the CUDA cores; flash_tile.cuh).
 #include "flash_tile.cuh"
 #include "flash_wgmma.cuh"
 
@@ -130,10 +141,17 @@ flash_dq_kernel(const float* __restrict__ q,      // [b, s, n_q, hd]
 // -- bf16: tensor cores -----------------------------------------------------
 
 constexpr int kStages = 2;  // K/V ring
-// Q, dO, then kStages x (K, V); 1 KB of slack for the 1024-byte alignment
-constexpr size_t kTcSmemBytes = 1024 + wg::kTileBytes * (2 + 2 * kStages);
 
-__global__ void __launch_bounds__(wg::kThreads, 2)
+// Shared memory at head dim HD: Q, dO, then kStages x (K, V), each an
+// Operand<HD>; 1 KB of slack for the 1024-byte alignment. 97 KB at 128
+// (two blocks an SM), 193 KB at 256 (one).
+template <int HD>
+constexpr size_t tc_smem_bytes() {
+  return 1024 + (size_t)wg::Operand<HD>::kBytes * (2 + 2 * kStages);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(wg::kThreads, HD == 128 ? 2 : 1)
 flash_dq_tc_kernel(const bf16* __restrict__ q,       // [b, s, n_q, hd]
                    const bf16* __restrict__ k,       // [b, s, n_kv, hd]
                    const bf16* __restrict__ v,
@@ -143,31 +161,33 @@ flash_dq_tc_kernel(const bf16* __restrict__ q,       // [b, s, n_q, hd]
                    bf16* __restrict__ dq,            // [b, s, n_q, hd]
                    int s, int n_q, int n_kv, int causal, int window,
                    float scale) {
+  constexpr int kParts = wg::Operand<HD>::kParts;
+  constexpr uint32_t kOpBytes = wg::Operand<HD>::kBytes;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   const uint32_t qs = wg::align_1k(tc_smem);
-  const uint32_t dos = qs + wg::kTileBytes;
+  const uint32_t dos = qs + kOpBytes;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int nq = (s + kTile - 1) / kTile;
   const int q0 = (nq - 1 - blockIdx.z) * kTile;  // heaviest tiles first
   const int hk = h / (n_q / n_kv);
-  const size_t q_row = (size_t)n_q * kHD;
-  const size_t kv_row = (size_t)n_kv * kHD;
-  const size_t q_off = ((size_t)b * s + q0) * q_row + (size_t)h * kHD;
-  const size_t kv_head = (size_t)b * s * kv_row + (size_t)hk * kHD;
-  auto k_tile = [&](int st) { return qs + wg::kTileBytes * (2 + 2 * st); };
-  auto v_tile = [&](int st) { return k_tile(st) + wg::kTileBytes; };
+  const size_t q_row = (size_t)n_q * HD;
+  const size_t kv_row = (size_t)n_kv * HD;
+  const size_t q_off = ((size_t)b * s + q0) * q_row + (size_t)h * HD;
+  const size_t kv_head = (size_t)b * s * kv_row + (size_t)hk * HD;
+  auto k_tile = [&](int st) { return qs + kOpBytes * (2 + 2 * st); };
+  auto v_tile = [&](int st) { return k_tile(st) + kOpBytes; };
   auto load_kv = [&](int ki, int st) {
     const int k0 = ki * kTile;
-    wg::load_tile_async(k_tile(st), k + kv_head + (size_t)k0 * kv_row,
-                        kv_row, s - k0);
-    wg::load_tile_async(v_tile(st), v + kv_head + (size_t)k0 * kv_row,
-                        kv_row, s - k0);
+    wg::load_operand_async<HD>(k_tile(st), k + kv_head + (size_t)k0 * kv_row,
+                               kv_row, s - k0);
+    wg::load_operand_async<HD>(v_tile(st), v + kv_head + (size_t)k0 * kv_row,
+                               kv_row, s - k0);
   };
   int lo, hi;
   key_tiles(q0, nq, causal, window, &lo, &hi);
-  wg::load_tile_async(qs, q + q_off, q_row, s - q0);
-  wg::load_tile_async(dos, dout + q_off, q_row, s - q0);
+  wg::load_operand_async<HD>(qs, q + q_off, q_row, s - q0);
+  wg::load_operand_async<HD>(dos, dout + q_off, q_row, s - q0);
   load_kv(lo, 0);
   wg::cp_async_commit();
 
@@ -182,9 +202,12 @@ flash_dq_tc_kernel(const bf16* __restrict__ q,       // [b, s, n_q, hd]
     dlt[r] = qp < s ? delta[stat + qp] : 0.f;
   }
   const float sl2 = scale * wg::kLog2e;  // logits in log2 units
-  float dq_acc[64];
+  // dQ's parts: dq_acc[p] holds head-dim columns [128 p, 128 p + 128)
+  float dq_acc[kParts][64];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) dq_acc[i] = 0.f;
+  for (int p = 0; p < kParts; ++p)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dq_acc[p][i] = 0.f;
   for (int ki = lo; ki <= hi; ++ki) {
     const int st = (ki - lo) & 1;
     if (ki < hi) load_kv(ki + 1, st ^ 1);
@@ -195,15 +218,9 @@ flash_dq_tc_kernel(const bf16* __restrict__ q,       // [b, s, n_q, hd]
 
     float sc[32], dp[32];
     wg::mma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kHD / 16; ++kk)
-      wg::mma_ss_n64(sc, wg::desc_k(qs, kk), wg::desc_k(k_tile(st), kk),
-                     kk > 0);
+    wg::mma_hd<HD>(sc, qs, k_tile(st));
     wg::mma_commit();
-#pragma unroll
-    for (int kk = 0; kk < kHD / 16; ++kk)
-      wg::mma_ss_n64(dp, wg::desc_k(dos, kk), wg::desc_k(v_tile(st), kk),
-                     kk > 0);
+    wg::mma_hd<HD>(dp, dos, v_tile(st));
     wg::mma_commit();
 
     // masking only where the tile meets the diagonal, the window's edge
@@ -233,21 +250,31 @@ flash_dq_tc_kernel(const bf16* __restrict__ q,       // [b, s, n_q, hd]
     wg::to_a<4>(dp, dsa);  // bf16 A operand
 
     wg::fence_regs(dsa);
-    wg::fence_regs(dq_acc);
+#pragma unroll
+    for (int p = 0; p < kParts; ++p) wg::fence_regs(dq_acc[p]);
     wg::mma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk)
-      wg::mma_rs_n128(dq_acc, dsa + 4 * kk, wg::desc_mn(k_tile(st), kk));
+    for (int p = 0; p < kParts; ++p)
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk)
+        wg::mma_rs_n128(dq_acc[p], dsa + 4 * kk,
+                        wg::desc_mn(k_tile(st) + wg::kTileBytes * p, kk));
     wg::mma_commit();
     wg::mma_wait<0>();
-    wg::fence_regs(dq_acc);
+#pragma unroll
+    for (int p = 0; p < kParts; ++p) wg::fence_regs(dq_acc[p]);
     __syncthreads();  // stage st is consumed before the next refill
   }
 
-  // Q was read for the last time above: its tile holds the output
-  wg::stage_acc(qs, dq_acc, scale, scale);
+  // Q was read for the last time above: its tiles hold the output
+#pragma unroll
+  for (int p = 0; p < kParts; ++p)
+    wg::stage_acc(qs + wg::kTileBytes * p, dq_acc[p], scale, scale);
   __syncthreads();
-  wg::store_tile(dq + q_off, q_row, s - q0, qs);
+#pragma unroll
+  for (int p = 0; p < kParts; ++p)
+    wg::store_tile(dq + q_off + 128 * p, q_row, s - q0,
+                   qs + wg::kTileBytes * p);
 }
 
 int launch_fp32(const void* q, const void* k, const void* v,
@@ -269,16 +296,18 @@ int launch_fp32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta,
                 void* dq, int b, int s, int n_q, int n_kv, int causal,
                 int window, float scale, cudaStream_t stream) {
+  constexpr size_t kSmem = tc_smem_bytes<HD>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_dq_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kTcSmemBytes);
+      flash_dq_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(n_q, b, (s + kTile - 1) / kTile);
-  flash_dq_tc_kernel<<<grid, wg::kThreads, kTcSmemBytes, stream>>>(
+  flash_dq_tc_kernel<HD><<<grid, wg::kThreads, kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -288,9 +317,9 @@ int launch_bf16(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores). hd must
-// be 128. window <= 0 means none. Returns cudaGetLastError() after the
-// launch.
+// dtype: 0 = float32 (CUDA cores, hd 128 only), 1 = bfloat16 (tensor
+// cores, hd 128 or 256). window <= 0 means none. Returns
+// cudaGetLastError() after the launch.
 extern "C" int kft_flash_attention_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
@@ -298,12 +327,15 @@ extern "C" int kft_flash_attention_dq(const void* q, const void* k,
                                       int n_kv, int hd, int causal, int window,
                                       float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd != kHD || s < 1 || n_kv < 1 || n_q % n_kv) return cudaErrorInvalidValue;
-  if (dtype == 0)
+  if (s < 1 || n_kv < 1 || n_q % n_kv) return cudaErrorInvalidValue;
+  if (dtype == 0 && hd == kHD)
     return launch_fp32(q, k, v, dout, lse, delta, dq, b, s, n_q, n_kv,
                        causal, window, scale, st);
-  if (dtype == 1)
-    return launch_bf16(q, k, v, dout, lse, delta, dq, b, s, n_q, n_kv,
-                       causal, window, scale, st);
+  if (dtype == 1 && hd == 128)
+    return launch_bf16<128>(q, k, v, dout, lse, delta, dq, b, s, n_q, n_kv,
+                            causal, window, scale, st);
+  if (dtype == 1 && hd == 256)
+    return launch_bf16<256>(q, k, v, dout, lse, delta, dq, b, s, n_q, n_kv,
+                            causal, window, scale, st);
   return cudaErrorInvalidValue;
 }

@@ -39,8 +39,17 @@
 // on each side, synchronous K/V loads, and 118 KB of fp32 tiles (one
 // block an SM).
 //
-// fp32: that first kernel, kept for fp32 inputs (fp32 tiles in shared
-// memory, products on the CUDA cores; flash_tile.cuh).
+// Head dim 256 (gemma-2b: b 2, s 2048, n_q 8, n_kv 1; n_q hd is 2048 as
+// at llama3-1b, so the same 34.4 GFLOP and bound): the bf16 kernel is a
+// template on the head dim. The [64, 128] swizzled tile stays the unit,
+// so a row of Q, K or V is two tiles (flash_wgmma.cuh's Operand), S
+// chains 16 k-steps into one accumulator, and O is two m64n128
+// accumulators sharing one bf16 P fragment (128 + 32 fp32 registers a
+// thread). Q 32 KB and a 2-stage K/V ring of 64 KB a stage: 161 KB, one
+// block an SM; the grid stays (query head, batch row, 64-query tile).
+//
+// fp32: that first kernel, kept for fp32 inputs at head dim 128 (fp32
+// tiles in shared memory, products on the CUDA cores; flash_tile.cuh).
 #include "flash_tile.cuh"
 #include "flash_wgmma.cuh"
 
@@ -144,10 +153,17 @@ flash_fwd_kernel(const float* __restrict__ q,  // [b, s, n_q, hd]
 // -- bf16: tensor cores -----------------------------------------------------
 
 constexpr int kStages = 2;  // K/V ring
-// Q, then kStages x (K, V); 1 KB of slack for the 1024-byte alignment
-constexpr size_t kTcSmemBytes = 1024 + wg::kTileBytes * (1 + 2 * kStages);
 
-__global__ void __launch_bounds__(wg::kThreads, 2)
+// Shared memory at head dim HD: Q, then kStages x (K, V), each an
+// Operand<HD> (HD / 128 swizzled tiles); 1 KB of slack for the 1024-byte
+// alignment. 81 KB at 128 (two blocks an SM), 161 KB at 256 (one).
+template <int HD>
+constexpr size_t tc_smem_bytes() {
+  return 1024 + (size_t)wg::Operand<HD>::kBytes * (1 + 2 * kStages);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(wg::kThreads, HD == 128 ? 2 : 1)
 flash_fwd_tc_kernel(const bf16* __restrict__ q,  // [b, s, n_q, hd]
                     const bf16* __restrict__ k,  // [b, s, n_kv, hd]
                     const bf16* __restrict__ v,
@@ -155,6 +171,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q,  // [b, s, n_q, hd]
                     float* __restrict__ lse,     // [b, n_q, s]
                     int s, int n_q, int n_kv, int causal, int window,
                     float scale) {
+  constexpr int kParts = wg::Operand<HD>::kParts;
+  constexpr uint32_t kOpBytes = wg::Operand<HD>::kBytes;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   const uint32_t qs = wg::align_1k(tc_smem);
   const int h = blockIdx.x;
@@ -162,30 +180,33 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q,  // [b, s, n_q, hd]
   const int nq = (s + kTile - 1) / kTile;
   const int q0 = (nq - 1 - blockIdx.z) * kTile;  // heaviest tiles first
   const int hk = h / (n_q / n_kv);
-  const size_t q_row = (size_t)n_q * kHD;
-  const size_t kv_row = (size_t)n_kv * kHD;
-  const size_t q_off = ((size_t)b * s + q0) * q_row + (size_t)h * kHD;
-  const size_t kv_head = (size_t)b * s * kv_row + (size_t)hk * kHD;
-  auto k_tile = [&](int st) { return qs + wg::kTileBytes * (1 + 2 * st); };
-  auto v_tile = [&](int st) { return k_tile(st) + wg::kTileBytes; };
+  const size_t q_row = (size_t)n_q * HD;
+  const size_t kv_row = (size_t)n_kv * HD;
+  const size_t q_off = ((size_t)b * s + q0) * q_row + (size_t)h * HD;
+  const size_t kv_head = (size_t)b * s * kv_row + (size_t)hk * HD;
+  auto k_tile = [&](int st) { return qs + kOpBytes * (1 + 2 * st); };
+  auto v_tile = [&](int st) { return k_tile(st) + kOpBytes; };
   auto load_kv = [&](int ki, int st) {
     const int k0 = ki * kTile;
-    wg::load_tile_async(k_tile(st), k + kv_head + (size_t)k0 * kv_row,
-                        kv_row, s - k0);
-    wg::load_tile_async(v_tile(st), v + kv_head + (size_t)k0 * kv_row,
-                        kv_row, s - k0);
+    wg::load_operand_async<HD>(k_tile(st), k + kv_head + (size_t)k0 * kv_row,
+                               kv_row, s - k0);
+    wg::load_operand_async<HD>(v_tile(st), v + kv_head + (size_t)k0 * kv_row,
+                               kv_row, s - k0);
   };
   int lo, hi;
   key_tiles(q0, nq, causal, window, &lo, &hi);
-  wg::load_tile_async(qs, q + q_off, q_row, s - q0);
+  wg::load_operand_async<HD>(qs, q + q_off, q_row, s - q0);
   load_kv(lo, 0);
   wg::cp_async_commit();
 
   const float sl2 = scale * wg::kLog2e;  // logits in log2 units
   const int row0 = q0 + wg::frag_row(0);  // this thread's rows: +0, +8
-  float acc[64];
+  // O's parts: acc[p] holds head-dim columns [128 p, 128 p + 128)
+  float acc[kParts][64];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int p = 0; p < kParts; ++p)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[p][i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // l: lane partials
   for (int ki = lo; ki <= hi; ++ki) {
     const int st = (ki - lo) & 1;
@@ -197,10 +218,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q,  // [b, s, n_q, hd]
 
     float sc[32];
     wg::mma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kHD / 16; ++kk)
-      wg::mma_ss_n64(sc, wg::desc_k(qs, kk), wg::desc_k(k_tile(st), kk),
-                     kk > 0);
+    wg::mma_hd<HD>(sc, qs, k_tile(st));
     wg::mma_commit();
     wg::mma_wait<0>();
     wg::fence_regs(sc);
@@ -238,19 +256,27 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q,  // [b, s, n_q, hd]
       l[r] += sc[i];
     }
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    for (int p = 0; p < kParts; ++p)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[p][i] *= alpha[(i >> 1) & 1];
     uint32_t pa[16];
     wg::to_a<4>(sc, pa);  // P in bf16, as the A operand
 
-    wg::fence_regs(acc);
+    // O += P V: one m64n128 product a part, sharing P
+#pragma unroll
+    for (int p = 0; p < kParts; ++p) wg::fence_regs(acc[p]);
     wg::fence_regs(pa);
     wg::mma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk)
-      wg::mma_rs_n128(acc, pa + 4 * kk, wg::desc_mn(v_tile(st), kk));
+    for (int p = 0; p < kParts; ++p)
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk)
+        wg::mma_rs_n128(acc[p], pa + 4 * kk,
+                        wg::desc_mn(v_tile(st) + wg::kTileBytes * p, kk));
     wg::mma_commit();
     wg::mma_wait<0>();
-    wg::fence_regs(acc);
+#pragma unroll
+    for (int p = 0; p < kParts; ++p) wg::fence_regs(acc[p]);
     __syncthreads();  // stage st is consumed before the next refill
   }
 
@@ -264,9 +290,14 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q,  // [b, s, n_q, hd]
     if ((threadIdx.x & 3) == 0 && qp < s)
       lse[((size_t)b * n_q + h) * s + qp] = m[r] * wg::kLn2 + logf(safe_l);
   }
-  wg::stage_acc(qs, acc, inv[0], inv[1]);  // Q's tile is free now
+#pragma unroll
+  for (int p = 0; p < kParts; ++p)  // Q's tiles are free now
+    wg::stage_acc(qs + wg::kTileBytes * p, acc[p], inv[0], inv[1]);
   __syncthreads();
-  wg::store_tile(o + q_off, q_row, s - q0, qs);
+#pragma unroll
+  for (int p = 0; p < kParts; ++p)
+    wg::store_tile(o + q_off + 128 * p, q_row, s - q0,
+                   qs + wg::kTileBytes * p);
 }
 
 int launch_fp32(const void* q, const void* k, const void* v, void* o,
@@ -286,15 +317,18 @@ int launch_fp32(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 void* lse, int b, int s, int n_q, int n_kv, int causal,
                 int window, float scale, cudaStream_t stream) {
+  constexpr size_t kSmem = tc_smem_bytes<HD>();
+  // once per instantiation
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kTcSmemBytes);
+      flash_fwd_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(n_q, b, (s + kTile - 1) / kTile);
-  flash_fwd_tc_kernel<<<grid, wg::kThreads, kTcSmemBytes, stream>>>(
+  flash_fwd_tc_kernel<HD><<<grid, wg::kThreads, kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
       static_cast<float*>(lse), s, n_q, n_kv, causal, window, scale);
@@ -303,22 +337,24 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores). hd must
-// be 128 (llama3-1b; other head dims come with a model that needs them).
-// window <= 0 means none (and is ignored unless causal). Returns
-// cudaGetLastError() after the launch.
+// dtype: 0 = float32 (CUDA cores, hd 128 only), 1 = bfloat16 (tensor
+// cores, hd 128 or 256). window <= 0 means none (and is ignored unless
+// causal). Returns cudaGetLastError() after the launch.
 extern "C" int kft_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
                                        int b, int s, int n_q, int n_kv,
                                        int hd, int causal, int window,
                                        float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd != kHD || s < 1 || n_kv < 1 || n_q % n_kv) return cudaErrorInvalidValue;
-  if (dtype == 0)
+  if (s < 1 || n_kv < 1 || n_q % n_kv) return cudaErrorInvalidValue;
+  if (dtype == 0 && hd == kHD)
     return launch_fp32(q, k, v, o, lse, b, s, n_q, n_kv, causal, window,
                        scale, st);
-  if (dtype == 1)
-    return launch_bf16(q, k, v, o, lse, b, s, n_q, n_kv, causal, window,
-                       scale, st);
+  if (dtype == 1 && hd == 128)
+    return launch_bf16<128>(q, k, v, o, lse, b, s, n_q, n_kv, causal,
+                            window, scale, st);
+  if (dtype == 1 && hd == 256)
+    return launch_bf16<256>(q, k, v, o, lse, b, s, n_q, n_kv, causal,
+                            window, scale, st);
   return cudaErrorInvalidValue;
 }

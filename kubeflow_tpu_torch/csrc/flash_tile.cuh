@@ -31,7 +31,11 @@
 
 namespace kft_flash {
 
-constexpr int kHD = 128;          // head dim (llama3-1b)
+// Head dim of the fp32 kernels (llama3-1b). The bf16 kernels take theirs
+// as a template parameter (128 or 256); at 256 an fp32 [64, 260] tile is
+// 66.5 KB and the fp32 dK/dV kernel needs four and a score tile, past the
+// 227 KB a block may have, so fp32 stays at 128.
+constexpr int kHD = 128;
 constexpr int kTile = 64;         // query rows and key rows of a tile
 constexpr int kThreads = 256;     // 16 x 16
 constexpr int kStride = kHD + 4;  // padded fp32 row of a [64, hd] tile

@@ -22,6 +22,12 @@
 //   rows) starts 2048 bytes further; 8-row groups lie 1024 bytes apart
 //   (SBO) and the two 64-column panels 8192 bytes apart (LBO).
 //
+// A 64-row operand at head dim HD (128 or 256) is HD / 128 such tiles
+// side by side, part p holding head-dim columns [128p, 128p + 128)
+// (`Operand<HD>`): a product over the head dim chains the parts' k-steps
+// into one accumulator, and a product whose N is the head dim keeps one
+// m64n128 accumulator a part.
+//
 // All of it runs in one warpgroup (128 threads, warps 4i .. 4i + 3).
 #pragma once
 
@@ -118,6 +124,27 @@ __device__ __forceinline__ void load_row_async(uint32_t dst,
   cp_async4(dst + 4 * r, src + (ok ? r : 0), ok ? 4 : 0);
 }
 
+// -- operands at head dim HD ---------------------------------------------
+
+template <int HD>
+struct Operand {
+  static_assert(HD == 128 || HD == 256, "head dim 128 or 256");
+  static constexpr int kParts = HD / 128;
+  static constexpr uint32_t kBytes = kTileBytes * kParts;
+};
+
+// Start copying 64 rows of HD columns, `row_stride` elements apart, into
+// the operand at `dst` (load_tile_async per part).
+template <int HD>
+__device__ __forceinline__ void load_operand_async(
+    uint32_t dst, const __nv_bfloat16* __restrict__ src, size_t row_stride,
+    int rows_valid) {
+#pragma unroll
+  for (int p = 0; p < Operand<HD>::kParts; ++p)
+    load_tile_async(dst + kTileBytes * p, src + 128 * p, row_stride,
+                    rows_valid);
+}
+
 // -- descriptors -----------------------------------------------------------
 
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
@@ -182,6 +209,20 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a,
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d = A B^T over the head dim, A and B [64, HD] K-major operands at `a`
+// and `b` (S = Q K^T, dP = dO V^T, and their transposes): HD / 16
+// k-steps chained into one accumulator. The caller commits.
+template <int HD>
+__device__ __forceinline__ void mma_hd(float (&d)[32], uint32_t a,
+                                       uint32_t b) {
+#pragma unroll
+  for (int p = 0; p < Operand<HD>::kParts; ++p)
+#pragma unroll
+    for (int kk = 0; kk < 128 / 16; ++kk)
+      mma_ss_n64(d, desc_k(a + kTileBytes * p, kk),
+                 desc_k(b + kTileBytes * p, kk), p > 0 || kk > 0);
 }
 
 // d += A B: A [64, 16] bf16 in registers (a[0..3], the layout `to_a`
@@ -273,6 +314,23 @@ __device__ __forceinline__ void stage_acc(uint32_t dst, const float (&d)[64],
                  :: "r"(dst + chunk_offset(r, c >> 3) + (c & 7) * 2),
                     "r"(pack_bf16(d[i] * m, d[i + 1] * m))
                  : "memory");
+  }
+}
+
+// Write an m64n128 accumulator fragment times `mul` in fp32 to 64 rows
+// of 128 columns, row r from `row_dst(r)`, rows below `rows_valid` only
+// (8-byte stores straight from the fragment).
+template <typename RowDst>
+__device__ __forceinline__ void store_acc_f32(const RowDst& row_dst,
+                                              int rows_valid,
+                                              const float (&d)[64],
+                                              float mul) {
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int r = frag_row(i);
+    if (r < rows_valid)
+      *reinterpret_cast<float2*>(row_dst(r) + frag_col(i)) =
+          make_float2(d[i] * mul, d[i + 1] * mul);
   }
 }
 

@@ -148,15 +148,14 @@ using bf16 = __nv_bfloat16;
 constexpr int kTcStages = 2;  // K/V ring
 
 // Geometry of the tensor-core kernel at head dim HD (128 or 256): a
-// 64-row operand is HD / 128 swizzled [64, 128] tiles (flash_wgmma.cuh),
-// one per 128-column part of the head dim. Shared memory: Q, then
-// kTcStages x (K, V), each kParts tiles; 1 KB of slack for the 1024-byte
+// 64-row operand is an Operand<HD>, HD / 128 swizzled [64, 128] tiles
+// (flash_wgmma.cuh), one per 128-column part of the head dim. Shared
+// memory: Q, then kTcStages x (K, V); 1 KB of slack for the 1024-byte
 // alignment. 81 KB at 128 (two blocks an SM), 161 KB at 256 (one).
 template <int HD>
 struct TcGeom {
-  static_assert(HD == 128 || HD == 256, "head dim 128 or 256");
-  static constexpr int kParts = HD / 128;
-  static constexpr uint32_t kOperandBytes = wg::kTileBytes * kParts;
+  static constexpr int kParts = wg::Operand<HD>::kParts;
+  static constexpr uint32_t kOperandBytes = wg::Operand<HD>::kBytes;
   static constexpr size_t kSmemBytes =
       1024 + (size_t)kOperandBytes * (1 + 2 * kTcStages);
   static constexpr int kMinBlocks = HD == 128 ? 2 : 1;
@@ -253,12 +252,7 @@ prefill_attention_tc_kernel(const bf16* __restrict__ q,       // [b, s, n_q, hd]
     // accumulator
     float sc[32];
     wg::mma_fence();
-#pragma unroll
-    for (int p = 0; p < kParts; ++p)
-#pragma unroll
-      for (int kk = 0; kk < 128 / 16; ++kk)
-        wg::mma_ss_n64(sc, wg::desc_k(q_tile(p), kk),
-                       wg::desc_k(k_tile(st, p), kk), p > 0 || kk > 0);
+    wg::mma_hd<HD>(sc, qs, k_tile(st, 0));
     wg::mma_commit();
     wg::mma_wait<0>();
     wg::fence_regs(sc);

@@ -1,4 +1,4 @@
-"""Gemma family forward, for serving (counterpart:
+"""Gemma family forward, for serving and training (counterpart:
 kubeflow_tpu/models/gemma.py).
 
 The same stacked-layers layout as models/llama.py (`params["blocks"]
@@ -15,10 +15,13 @@ explicit, as the reference keeps them:
 
 Storage dtypes follow llama's serving rule (`leaf_dtype`, imported from
 it): block matrices in the activation dtype (the reference casts them
-to it at every use), the embedding and norms in fp32. Training Gemma
-is not ported: the flash kernels take head dim 128 only, so `apply` on
-a CUDA card raises where "auto" picks flash (a mask-free causal pass of
-1024 tokens or more).
+to it at every use), the embedding and norms in fp32. `init(...,
+train=True)` keeps every leaf in `param_dtype` instead (the trainer's
+fp32 masters), and with gradients on `apply` runs each block under
+`torch.utils.checkpoint` when `remat` is set, the reference's
+`jax.checkpoint` of the whole block. The trainer takes it as the
+reference's does: `Trainer(apply_fn=lambda p, t: gemma.apply(p, cfg,
+t))`, dense cross entropy over the tied head's logits.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 # the serving storage rule (block matrices in the activation dtype, every
 # other leaf fp32) and the random-init recipe are llama's
@@ -96,13 +100,18 @@ def param_shapes(cfg: GemmaConfig) -> Params:
     }
 
 
-def init(cfg: GemmaConfig, seed: int,
-         device: torch.device | str) -> Params:
-    """Random serving params from `seed` (llama's `random_params`: the
+def init(cfg: GemmaConfig, seed: int, device: torch.device | str, *,
+         train: bool = False) -> Params:
+    """Random params from `seed` (llama's `random_params`: the
     reference's recipe, not its values; parity tests convert the
-    reference's params with `bridge.from_jax` instead)."""
-    return random_params(param_shapes(cfg),
-                         lambda name: leaf_dtype(cfg, name), seed, device)
+    reference's params with `bridge.from_jax` instead). `train=True`
+    keeps every leaf in `cfg.param_dtype` (the trainer's masters);
+    otherwise leaves take their serving dtype (`leaf_dtype`)."""
+
+    def dtype_of(name):
+        return cfg.param_dtype if train else leaf_dtype(cfg, name)
+
+    return random_params(param_shapes(cfg), dtype_of, seed, device)
 
 
 def embed_scale(cfg: GemmaConfig) -> torch.Tensor:
@@ -150,8 +159,14 @@ def apply(params: Params, cfg: GemmaConfig, tokens: torch.Tensor,
                                 device=tokens.device)
     x = embed_lookup(params["embed"], tokens, cfg.dtype)
     x = x * embed_scale(cfg)
+    # one unbind per leaf, as llama.hidden: its backward stacks the
+    # layers' gradients once
+    layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
+    remat = cfg.remat and torch.is_grad_enabled()
     for li in range(cfg.num_layers):
-        p = {k: v[li] for k, v in params["blocks"].items()}
-        x = _block(cfg, x, p, positions, inv_freq, kv_mask, contiguous)
+        p = {k: v[li] for k, v in layers.items()}
+        args = (cfg, x, p, positions, inv_freq, kv_mask, contiguous)
+        x = (checkpoint(_block, *args, use_reentrant=False) if remat
+             else _block(*args))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x.float() @ params["embed"].T.float()

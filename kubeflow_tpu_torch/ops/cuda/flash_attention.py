@@ -33,12 +33,22 @@ dkv_launches = 0
 
 NEG_INF = -2.0**30  # the reference's finite mask value
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (128,)  # llama; gemma's 256 comes with its training
+# head dims each dtype's kernels take: bf16 runs on the tensor cores at
+# llama's 128 and gemma's 256; the fp32 CUDA-core kernels' tiles do not
+# fit in shared memory at 256
+HEAD_DIMS = {torch.bfloat16: (128, 256), torch.float32: (128,)}
+# the dK/dV grid (KV heads x batch rows x key tiles x 128-column parts)
+# is split over query-head subgroups until it has this many blocks, about
+# two waves of one block an SM: at gemma-2b's training shape 2 subgroups
+# (256 blocks) beat 1, 4 and 8 on an H100 (chip_smoke.py phase 2 logs
+# the sweep)
+DKV_MIN_BLOCKS = 256
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_TAIL = [_I] * 7 + [ctypes.c_float, _I, _P]  # b s n_q n_kv hd causal window
-_FWD_ARGS = [_P] * 5 + _TAIL                 # q k v o lse
-_DQ_ARGS = [_P] * 7 + _TAIL                  # q k v do lse delta dq
-_DKV_ARGS = [_P] * 8 + _TAIL                 # q k v do lse delta dk dv
+_TAIL = [_I] * 7 + [ctypes.c_float, _I]  # b s n_q n_kv hd causal window
+_FWD_ARGS = [_P] * 5 + _TAIL + [_P]      # q k v o lse ... stream
+_DQ_ARGS = [_P] * 7 + _TAIL + [_P]       # q k v do lse delta dq ... stream
+_DKV_ARGS = [_P] * 8 + _TAIL + [_I, _P]  # q k v do lse delta dk dv ...
+#                                          splits stream
 
 
 def _check_args(q, k, v, causal, window):
@@ -163,8 +173,9 @@ def _kernel_checks(q, tensors):
     b, s, n_q, hd = q.shape
     if q.dtype not in _DTYPES:
         raise ValueError(f"kernel takes float32 or bfloat16, got {q.dtype}")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"kernel takes head_dim in {_HEAD_DIMS}, got {hd}")
+    if hd not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"kernel takes head_dim in {HEAD_DIMS[q.dtype]} "
+                         f"for {q.dtype}, got head_dim {hd}")
     for t in tensors:
         if t.device != q.device or not t.is_contiguous() \
                 or t.data_ptr() % 16:
@@ -190,7 +201,25 @@ def _stats(q, *ts):
 def _tail(q, k, causal, window):
     b, s, n_q, hd = q.shape
     return (b, s, n_q, k.shape[2], hd, int(causal), window or 0, hd**-0.5,
-            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+            _DTYPES[q.dtype])
+
+
+def _stream(q):
+    return torch.cuda.current_stream(q.device).cuda_stream
+
+
+def default_head_splits(b, s, n_q, n_kv, hd):
+    """Query-head subgroups of each GQA group for the bf16 dK/dV kernel,
+    from the shapes alone: the smallest power of two dividing the group
+    that gives the grid DKV_MIN_BLOCKS blocks (or the whole group). 1 at
+    llama3-1b's training shape (512 blocks: the in-kernel group sum), 2
+    at gemma-2b's (one KV head: 128 blocks unsplit)."""
+    group = n_q // n_kv
+    blocks = n_kv * b * -(-s // 64) * (hd // 128)
+    splits = 1
+    while (blocks * splits < DKV_MIN_BLOCKS and group % (2 * splits) == 0):
+        splits *= 2
+    return splits
 
 
 def flash_block_fwd(q, k, v, *, causal, window=None):
@@ -208,7 +237,7 @@ def flash_block_fwd(q, k, v, *, causal, window=None):
     lib = _build.load("flash_attention_fwd", _FWD_ARGS)
     err = lib.kft_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), *_tail(q, k, causal, window))
+        lse.data_ptr(), *_tail(q, k, causal, window), _stream(q))
     _build.check(lib, err, "flash_attention_fwd")
     fwd_launches += 1
     return o, lse
@@ -230,15 +259,18 @@ def flash_dq(q, k, v, do, lse, delta, *, causal=True, window=None):
     err = lib.kft_flash_attention_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        *_tail(q, k, causal, window))
+        *_tail(q, k, causal, window), _stream(q))
     _build.check(lib, err, "flash_attention_dq")
     dq_launches += 1
     return dq
 
 
-def flash_dkv(q, k, v, do, lse, delta, *, causal=True, window=None):
+def flash_dkv(q, k, v, do, lse, delta, *, causal=True, window=None,
+              head_splits=None):
     """(dK, dV) [b, s, n_kv, hd], group-summed, in k's dtype. CPU
-    tensors take `flash_dkv_plain`."""
+    tensors take `flash_dkv_plain`. `head_splits` (bf16 only; default
+    `default_head_splits`) splits each group's query heads over that many
+    blocks a key tile, whose fp32 partials are summed here."""
     global dkv_launches
     _check_args(q, k, v, causal, window)
     if q.device.type == "cpu":
@@ -247,15 +279,30 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal=True, window=None):
     _same_dtype(q, k, v, do)
     _stats(q, lse, delta)
     _kernel_checks(q, (q, k, v, do, lse, delta))
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    b, s, n_q, hd = q.shape
+    n_kv = k.shape[2]
+    splits = head_splits
+    if splits is None:
+        splits = (default_head_splits(b, s, n_q, n_kv, hd)
+                  if q.dtype == torch.bfloat16 else 1)
+    if splits < 1 or (n_q // n_kv) % splits or (
+            splits > 1 and q.dtype != torch.bfloat16):
+        raise ValueError(f"head_splits {splits} must divide the group "
+                         f"{n_q // n_kv} (and be 1 for {q.dtype})")
+    if splits == 1:
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+    else:
+        dk, dv = (torch.empty(b, s, n_kv, splits, hd, dtype=torch.float32,
+                              device=q.device) for _ in range(2))
     lib = _build.load("flash_attention_dkv", _DKV_ARGS)
     err = lib.kft_flash_attention_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_tail(q, k, causal, window))
+        *_tail(q, k, causal, window), splits, _stream(q))
     _build.check(lib, err, "flash_attention_dkv")
     dkv_launches += 1
+    if splits > 1:  # the group sum, as the reference places it
+        dk, dv = dk.sum(3).to(k.dtype), dv.sum(3).to(v.dtype)
     return dk, dv
 
 

@@ -1,4 +1,5 @@
-"""Single-device training (counterpart: kubeflow_tpu/train/)."""
+"""Single-device training (counterpart: kubeflow_tpu/train/): the
+model-agnostic `Trainer` over llama's or gemma's `apply`."""
 
 from kubeflow_tpu_torch.train.trainer import (
     TrainConfig,

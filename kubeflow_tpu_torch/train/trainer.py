@@ -1,6 +1,9 @@
 """Single-device training (counterpart: kubeflow_tpu/train/trainer.py).
 
-The reference jits a sharded step over a device mesh; the port runs one
+Model-agnostic, as the reference's: it takes llama (`llama.apply`, or
+chunked CE over `llama.hidden` through `loss_fn`) and gemma
+(`gemma.apply`, dense CE over the tied head) the same way. The
+reference jits a sharded step over a device mesh; the port runs one
 card, eagerly: the loss and its gradients through autograd (the model's
 attention through the flash kernels' `autograd.Function`), then an AdamW
 update written out to match optax's, in place. There is no mesh, so no

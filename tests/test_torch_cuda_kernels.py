@@ -32,10 +32,11 @@ mag, the sum of the product's absolute terms (`flash_bf16_slack`). A
 plain version that leaves each query's own key out must exceed that
 bound.
 
-Every serving kernel is held at llama's heads (hd 128) and at
-gemma-2b's (8 query heads over one kv head of 256); the last card test
-holds the refusals: the flash wrappers at hd 256, every wrapper at
-gemma-tiny's hd 32.
+Every kernel is held at llama's heads (hd 128) and at gemma-2b's (8
+query heads over one kv head of 256; the bf16 dK/dV kernel with its
+head-subgroup split off, forced and as the shapes pick it); one card
+test holds the refusals: the flash wrappers in fp32 at hd 256 and in
+bf16 at 64, every serving wrapper at gemma-tiny's hd 32.
 
 The paged and dense decode kernels split each row's cells across
 blocks of `split_cells` cells (a block whose cells the kv_mask hides
@@ -359,24 +360,27 @@ def test_decode_door_launches_the_kernel_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_kernels_refuse_head_dims_they_lack_on_card(cuda_device):
-    """Nothing falls back: the flash wrappers refuse gemma-2b's head dim
-    256 (its training kernels are not ported yet), and the serving
+    """Nothing falls back: the flash wrappers refuse fp32 at head dim 256
+    (the fp32 CUDA-core kernels' tiles do not fit at 256; bf16 takes 128
+    and 256) and bf16 at 64, naming dtype and head dim, and the serving
     wrappers refuse gemma-tiny's 32 (served on the CPU only)."""
     gen = torch.Generator().manual_seed(11)
-    q, k, v, do = (torch.randn(1, 1024, n, 256, generator=gen)
-                   .to(cuda_device, torch.bfloat16) for n in (8, 1, 1, 8))
-    with pytest.raises(ValueError, match="head_dim"):
-        tflash.flash_block_fwd(q, k, v, causal=True)
-    # "auto" picks flash for a long mask-free causal pass: it raises too
-    pos = torch.arange(1024, device=cuda_device).expand(1, 1024)
-    with pytest.raises(ValueError, match="head_dim"):
-        tattn.dot_product_attention(q, k, v, pos, pos,
-                                    contiguous_positions=True)
-    lse = torch.zeros(1, 8, 1024, device=cuda_device)
-    args = (q, k, v, do, lse, lse)
-    for fn in (tflash.flash_dq, tflash.flash_dkv):
-        with pytest.raises(ValueError, match="head_dim"):
-            fn(*args)
+    for dtype, hd in ((torch.float32, 256), (torch.bfloat16, 64)):
+        q, k, v, do = (torch.randn(1, 1024, n, hd, generator=gen)
+                       .to(cuda_device, dtype) for n in (8, 1, 1, 8))
+        msg = f"for {dtype}, got head_dim {hd}"
+        with pytest.raises(ValueError, match=msg):
+            tflash.flash_block_fwd(q, k, v, causal=True)
+        # "auto" picks flash for a long mask-free causal pass: it raises
+        pos = torch.arange(1024, device=cuda_device).expand(1, 1024)
+        with pytest.raises(ValueError, match=msg):
+            tattn.dot_product_attention(q, k, v, pos, pos,
+                                        contiguous_positions=True)
+        lse = torch.zeros(1, 8, 1024, device=cuda_device)
+        args = (q, k, v, do, lse, lse)
+        for fn in (tflash.flash_dq, tflash.flash_dkv):
+            with pytest.raises(ValueError, match=msg):
+                fn(*args)
     q, kp, vp, table, pos, mask = (_t(a).to(cuda_device) for a in mk_decode(
         12, n_q=4, n_kv=1, hd=32))
     with pytest.raises(ValueError, match="head_dim"):
@@ -400,11 +404,11 @@ def _flash_close(got, want, c, rtol, mag=None):
     assert ratio <= 1, ratio
 
 
-def _flash_inputs(device, dtype, b, s, n_q, n_kv):
+def _flash_inputs(device, dtype, b, s, n_q, n_kv, hd=128):
     gen = torch.Generator().manual_seed(s + n_q)
-    q, do = (torch.randn(b, s, n_q, 128, generator=gen).to(device, dtype)
+    q, do = (torch.randn(b, s, n_q, hd, generator=gen).to(device, dtype)
              for _ in range(2))
-    k, v = (torch.randn(b, s, n_kv, 128, generator=gen).to(device, dtype)
+    k, v = (torch.randn(b, s, n_kv, hd, generator=gen).to(device, dtype)
             for _ in range(2))
     return q, k, v, do
 
@@ -441,6 +445,44 @@ def test_flash_kernels_match_plain_on_card(cuda_device, dtype, b, s, n_q,
                               tflash.flash_dkv_plain(*args, **kw),
                               mags[2:]):
         _flash_close(got, want, c, rtol, mag)
+
+
+# (b, s, n_q, n_kv, causal, window) at head dim 256, bf16: gemma-2b's
+# heads (8 query heads over one KV head) with s off a tile multiple, a
+# window, non-causal, and a group of 4 over two KV heads
+FLASH_HD256_SHAPES = [(1, 200, 8, 1, True, None), (1, 200, 8, 1, True, 37),
+                      (1, 131, 8, 1, False, None),
+                      (1, 1025, 8, 2, True, None),
+                      (2, 1024, 8, 1, True, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_splits", [1, 2, None])
+@pytest.mark.parametrize("b,s,n_q,n_kv,causal,window", FLASH_HD256_SHAPES)
+def test_flash_kernels_at_head_dim_256_match_plain_on_card(
+        cuda_device, b, s, n_q, n_kv, causal, window, head_splits):
+    """The bf16 kernels at head dim 256 within the bf16 bound; dK/dV with
+    the head-subgroup split off (1), forced (2) and as the shapes pick
+    it (None: 4 or 8 subgroups at these sizes)."""
+    q, k, v, do = _flash_inputs(cuda_device, torch.bfloat16, b, s, n_q,
+                                n_kv, hd=256)
+    c, rtol = FLASH_TOL[torch.bfloat16]
+    kw = dict(causal=causal, window=window)
+    o, lse = tflash.flash_block_fwd(q, k, v, **kw)
+    wo, wlse = tflash.flash_fwd_plain(q, k, v, **kw)
+    delta = tflash.flash_delta(wo, do)
+    args = (q, k, v, do, wlse, delta)
+    mags = tflash.flash_bf16_slack(*args, **kw)
+    torch.cuda.synchronize()
+    _flash_close(o, wo, c, rtol, mags[0])
+    _flash_close(lse, wlse, 1e-5, 0.0)
+    _flash_close(tflash.flash_dq(*args, **kw),
+                 tflash.flash_dq_plain(*args, **kw), c, rtol, mags[1])
+    got = tflash.flash_dkv(*args, **kw, head_splits=head_splits)
+    for g, want, mag in zip(got, tflash.flash_dkv_plain(*args, **kw),
+                            mags[2:]):
+        assert g.dtype == torch.bfloat16
+        _flash_close(g, want, c, rtol, mag)
 
 
 @pytest.mark.cuda

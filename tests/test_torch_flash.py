@@ -6,7 +6,10 @@ Same inputs from a numpy seed, fp32 on both sides. Tolerance: atol =
 rtol = 1e-5 for the forward and lse (the reference's online softmax over
 32/64-wide blocks against the port's one-pass softmax differ by fp32
 rounding, ~1e-7 here); 2e-5 for gradients, which add two more fp32
-contractions over s = 128.
+contractions over s <= 256. Head dims 64 and, at gemma-2b's head
+geometry (8 query heads over one KV head), 256. The bf16 dK/dV kernel's
+head-subgroup split is emulated: fp32 partials per subgroup, summed,
+equal the group-summed plain version to fp32 rounding (1e-5).
 """
 
 import importlib
@@ -25,11 +28,16 @@ from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 jflash = importlib.import_module("kubeflow_tpu.ops.pallas.flash_attention")
 FWD_TOL = dict(atol=1e-5, rtol=1e-5)
 GRAD_TOL = dict(atol=2e-5, rtol=2e-5)
-# (n_q, n_kv, causal, window)
-CASES = [(4, 2, True, None), (4, 2, False, None), (4, 2, True, 9),
-         (4, 4, True, None), (4, 1, True, 9)]
+# (n_q, n_kv, causal, window, (b, s, hd)); the gemma_heads cases have
+# gemma-2b's head geometry (8 query heads over one KV head of 256)
+SMALL, GEMMA_S128, GEMMA_S256 = (2, 128, 64), (1, 128, 256), (1, 256, 256)
+CASES = [(4, 2, True, None, SMALL), (4, 2, False, None, SMALL),
+         (4, 2, True, 9, SMALL), (4, 4, True, None, SMALL),
+         (4, 1, True, 9, SMALL), (8, 1, True, None, GEMMA_S256),
+         (8, 1, True, 100, GEMMA_S256), (8, 1, False, None, GEMMA_S128)]
 IDS = ["gqa_causal", "gqa_noncausal", "gqa_window9", "mha_causal",
-       "mqa_window9"]
+       "mqa_window9", "gemma_heads_causal", "gemma_heads_window100",
+       "gemma_heads_noncausal"]
 
 
 def _qkv(n_q, n_kv, b=2, s=128, hd=64, seed=0):
@@ -42,10 +50,11 @@ def _t(*arrays):
     return [torch.from_numpy(a).requires_grad_(True) for a in arrays]
 
 
-@pytest.mark.parametrize("n_q,n_kv,causal,window", CASES, ids=IDS)
+@pytest.mark.parametrize("n_q,n_kv,causal,window,shape", CASES, ids=IDS)
 @pytest.mark.parametrize("block", [32, 64])
-def test_forward_matches_reference(n_q, n_kv, causal, window, block):
-    q, k, v = _qkv(n_q, n_kv)
+def test_forward_matches_reference(n_q, n_kv, causal, window, shape, block):
+    b, s, hd = shape
+    q, k, v = _qkv(n_q, n_kv, b, s, hd)
     want = jflash.flash_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
         window=window, block_q=block, block_k=block, interpret=True)
@@ -55,9 +64,10 @@ def test_forward_matches_reference(n_q, n_kv, causal, window, block):
                                **FWD_TOL)
 
 
-@pytest.mark.parametrize("n_q,n_kv,causal,window", CASES, ids=IDS)
-def test_gradients_match_reference(n_q, n_kv, causal, window):
-    q, k, v = _qkv(n_q, n_kv, seed=1)
+@pytest.mark.parametrize("n_q,n_kv,causal,window,shape", CASES, ids=IDS)
+def test_gradients_match_reference(n_q, n_kv, causal, window, shape):
+    b, s, hd = shape
+    q, k, v = _qkv(n_q, n_kv, b, s, hd, seed=1)
 
     def jloss(q, k, v):
         o = jflash.flash_attention(q, k, v, causal=causal, window=window,
@@ -105,6 +115,44 @@ def test_block_entry_points_match_reference(causal, window):
         np.testing.assert_allclose(
             g.numpy(), np.asarray(jnp.transpose(w, (0, 2, 1, 3))),
             **GRAD_TOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((2, 2048, 16, 8, 128), 1),   # llama3-1b training: 512 blocks
+    ((2, 2048, 8, 1, 256), 2),    # gemma-2b training: 128 blocks unsplit
+    ((1, 200, 8, 1, 256), 8),     # few blocks: the whole group
+    ((1, 200, 4, 2, 128), 2),
+    ((1, 1024, 8, 8, 128), 1),    # no group to split
+])
+def test_default_head_splits(shape, want):
+    assert tflash.default_head_splits(*shape) == want
+
+
+@pytest.mark.parametrize("n_q,n_kv,splits", [(8, 1, 4), (8, 2, 2)])
+def test_head_split_partials_sum_to_the_group(n_q, n_kv, splits):
+    """The bf16 dK/dV kernel's split, emulated: block (KV head hk,
+    subgroup sub) takes query heads hk * group + sub * heads + [0,
+    heads) and writes fp32 partials [b, s, n_kv, splits, hd]; their sum
+    over splits is the group-summed dK and dV."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(n_q, n_kv, 1, 64, 32))
+    do = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        q.shape).astype(np.float32))
+    o, lse = tflash.flash_fwd_plain(q, k, v, causal=True)
+    delta = tflash.flash_delta(o, do)
+    group, heads = n_q // n_kv, n_q // n_kv // splits
+    parts = torch.zeros(2, 1, 64, n_kv, splits, 32)
+    for hk in range(n_kv):
+        for sub in range(splits):
+            hs = slice(hk * group + sub * heads, hk * group + (sub + 1) * heads)
+            got = tflash.flash_dkv_plain(
+                q[:, :, hs], k[:, :, hk:hk + 1], v[:, :, hk:hk + 1],
+                do[:, :, hs], lse[:, hs], delta[:, hs])
+            for i, g in enumerate(got):
+                parts[i, :, :, hk, sub] = g[:, :, 0]
+    want = tflash.flash_dkv_plain(q, k, v, do, lse, delta)
+    for got, w in zip(parts.sum(4), want):
+        np.testing.assert_allclose(got.numpy(), w.numpy(), atol=1e-5,
+                                   rtol=1e-5)
 
 
 def test_cpu_tensors_take_plain_versions():

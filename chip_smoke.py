@@ -164,14 +164,49 @@ Phases, each fatal on failure (exit code 1, no result line):
              finite and falling, the first three within 1e-3 of the
              plain path's; prints step time, tokens/s, MFU (6 N T, N =
              2,506,434,560) and peak memory, then profiles one more step.
+8. door    — checkpoints from trainer to server, then the replica's
+             request door. Phase 4's llama3-1b trainer (full width and
+             depth unless the disk under build/ cannot hold the 12-byte
+             a parameter state: then depth is cut and logged) takes two
+             steps at batch 2 x 2048, saves asynchronously (a BPE the
+             port fits at vocab 512 on README.md carried beside it) and
+             waits; a fresh Trainer restores it to the host, every
+             tensor bit-equal; one step from the in-memory state and one
+             from the restored state give identical losses (4 steps: 32
+             / 16 / 16 flash launches a step). Prints bytes written,
+             save, wait and restore seconds. Then the CLI's own loader
+             (`--checkpoint build/ckpt --tokenizer auto --continuous
+             --warmup --prefill-chunk-tokens 64`, depth 2) serves it
+             over HTTP, counters set to 0 just before the traffic and
+             read after: (a) a 300-token prompt streamed with 64 new
+             tokens equals the non-streamed greedy tokens and a control
+             app's on the in-memory params; (b) 8 concurrent streams
+             (17-300 prompt tokens) print client TTFT and ITL, median
+             and p95; (c) tokens 20-21 of (a) as `stop` trim as
+             `_apply_stop` does and retire the slot (emitted tokens end
+             at the stop, at most depth x chunk decoded past it); (d)
+             `text` through the BPE decodes as the tokenizer does; (e)
+             `:score` of the prompt and its continuation within 0.1 of
+             the teacher-forced plain pass and of (a)'s logprobs; (f)
+             (a)'s timeline by its X-Request-Id holds 64 token stamps;
+             (g) `/metrics` counts TTFT for every answered request, ITL
+             for every decode token and the prefix hits the prompts
+             reckon; exact paged launches (16 per decode step and per
+             slice); (i) `adapter` and `stream` + `stop` get the
+             reference's 400s. (h) a one-shot app (window batcher) on
+             the same params streams a request equal to
+             `engine.generate`'s tokens, `decode_attention` exactly 16 x
+             63 per call. The checkpoint is deleted at the end.
 Then prints the `kernels` JSON line (launches: the paged kernels' over
-phases 3, 3b and 3c, each other kernel's over its phase; each kernel
+phases 3, 3b, 3c and 8, each other kernel's over its phases (4 and 8
+for flash, 5 and 8 for dense decode); each kernel
 again as `<name>@gemma-2b`, timed in phase 2 at gemma-2b's shapes and
 counted over phase 6, or phase 7 for the flash kernels), the card's
 name and power limit, and last `{"ok": true, "device": {...}}`.
 
 Exits non-zero without a result when CUDA is unavailable or the port's
-package is not beside this script.
+package is not beside this script. `--phases 1,8` runs only the phases
+named (a debugging call: it prints no result line).
 """
 
 from __future__ import annotations
@@ -2107,6 +2142,516 @@ def train_gemma_and_check(torch):
     return counts
 
 
+# -- phase 8 ----------------------------------------------------------------
+
+# the checkpoint goes under build/ (gitignored), inside the checkout
+CKPT_DIR = os.path.join(ROOT, "build", "ckpt")
+TOKENIZER_VOCAB = 512              # the BPE the port fits on README.md
+DOOR_MAX_NEW = 64
+DOOR_LENS = PROMPT_LENS * 2        # (b): 8 concurrent streams, 17-300
+STOP_AT = 20                       # (c): tokens 20-21 of (a) as the stop
+DOOR_TEXT = "Train, save, then serve the checkpoint as text."
+
+
+def _card() -> str:
+    """`nvidia-smi`'s name and power limit of the card."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def _fit_depth(cfg, free_bytes: int):
+    """llama3-1b at full depth when the disk holds its state (fp32
+    params and two AdamW moments: 12 bytes a parameter) with a margin,
+    else the deepest config that fits: depth is cut, never width."""
+    import dataclasses
+
+    from kubeflow_tpu_torch.models import llama
+
+    while cfg.num_layers > 1 and 12 * llama.num_params(cfg) * 1.25 \
+            > free_bytes:
+        cfg = dataclasses.replace(cfg, num_layers=cfg.num_layers - 1)
+    return cfg
+
+
+def checkpoint_and_check(torch):
+    """Phase 8, training half: two steps of phase 4's trainer, an async
+    save, a restore into a fresh Trainer (bit-equal), and one step from
+    each state (identical losses). -> (cfg, the saved params on the
+    host, the flash kernels' launches, their expected counts)."""
+    import shutil
+
+    import numpy as np
+
+    from kubeflow_tpu_torch.data import bpe
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.train import (
+        TrainConfig,
+        Trainer,
+        chunked_cross_entropy_from_hidden,
+    )
+    from kubeflow_tpu_torch.train.checkpoint import (
+        CheckpointConfig,
+        Checkpointer,
+        flatten,
+        unflatten,
+    )
+
+    dev = torch.device("cuda")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+    free = shutil.disk_usage(CKPT_DIR).free
+    cfg = _fit_depth(llama.LLAMA3_1B, free)
+    log(f"  disk: {free / 2**30:.1f} GiB free under build/; llama3-1b "
+        f"state {12 * llama.num_params(llama.LLAMA3_1B) / 2**30:.2f} GiB "
+        f"at 12 bytes a parameter; training at {cfg.num_layers} of "
+        f"{llama.LLAMA3_1B.num_layers} layers")
+    tok_path = os.path.join(ROOT, "build", "ckpt_tokenizer.json")
+    with open(os.path.join(ROOT, "README.md")) as f:
+        tok = bpe.train([f.read()], vocab_size=TOKENIZER_VOCAB)
+    tok.save(tok_path)
+    tc = TrainConfig(warmup_steps=10, total_steps=1000)
+    b, s = FLASH_B, FLASH_S
+
+    def loss_fn(params, tokens, targets, mask):
+        h = llama.hidden(params, cfg, tokens)
+        return chunked_cross_entropy_from_hidden(
+            h, llama.unembed_matrix(params, cfg), targets, mask,
+            num_chunks=16)
+
+    def trainer():
+        return Trainer(apply_fn=lambda p, t: llama.apply(p, cfg, t),
+                       init_fn=lambda seed: llama.init(cfg, seed, dev,
+                                                       train=True),
+                       train_config=tc, loss_fn=loss_fn, device=dev)
+
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to(dev)
+    targets = torch.roll(tokens, -1, dims=1)
+    ta = trainer()
+    state = ta.init(0)
+    reset_launch_counts()
+    for _ in range(2):
+        state, loss = ta.step(state, tokens, targets)
+    log(f"  trained 2 steps (loss {float(loss):.4f}); "
+        f"{ta.param_count} params")
+    ckpt = Checkpointer(CheckpointConfig(
+        CKPT_DIR, save_interval_steps=1, enable_async=True,
+        tokenizer_path=tok_path), ta, run_metadata={"model": "llama3-1b"})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if not ckpt.save(state):
+        fail("the checkpointer did not save step 2")
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt.wait()
+    wait_s = time.perf_counter() - t0
+    step_dir = ckpt.step_path(2)
+    written = {f: os.path.getsize(os.path.join(step_dir, f))
+               for f in sorted(os.listdir(step_dir))}
+    total = sum(written.values())
+    log(f"  async save (device-to-host copy + thread start) {save_s:.2f} s, "
+        f"wait (disk write + commit) {wait_s:.2f} s; {total} bytes "
+        f"written ({total / 2**30:.2f} GiB, "
+        f"{total / (save_s + wait_s) / 2**30:.2f} GiB/s end to end): "
+        f"{written}")
+    if "COMMITTED" not in written or ckpt.committed_steps() != [2]:
+        fail(f"step 2 not committed: {written}")
+    if not os.path.exists(os.path.join(CKPT_DIR, "tokenizer.json")):
+        fail("the tokenizer was not carried beside the checkpoint")
+    saved = unflatten({n: t.detach().to("cpu", copy=True)
+                       for n, t in flatten(state.params).items()})
+
+    tb = trainer()
+    t0 = time.perf_counter()
+    restored = Checkpointer(CheckpointConfig(CKPT_DIR, enable_async=False),
+                            tb).restore(device="cpu")
+    restore_s = time.perf_counter() - t0
+    pairs = list(zip(flatten(state.params).values(),
+                     flatten(restored.params).values(), strict=True))
+    for key in ("mu", "nu"):
+        pairs += list(zip(state.opt_state[key], restored.opt_state[key],
+                          strict=True))
+    unequal = sum(not torch.equal(a.detach().cpu(), r.detach())
+                  for a, r in pairs)
+    log(f"  restore (disk to host) {restore_s:.2f} s: {len(pairs)} tensors, "
+        f"{unequal} not bit-equal; step {restored.step}, AdamW count "
+        f"{restored.opt_state['count']}")
+    if unequal or restored.step != state.step \
+            or restored.opt_state["count"] != state.opt_state["count"]:
+        fail("the restored state differs from the saved one")
+    # one step from each state; the in-memory trainer is freed before the
+    # restored state goes to the card (two states would need ~37 GB)
+    _, loss_a = ta.step(state, tokens, targets)
+    loss_a = float(loss_a)
+    del state, ta, pairs, ckpt
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    restored = tb.state_from(restored.params, restored.opt_state,
+                             restored.step)
+    torch.cuda.synchronize()
+    to_card_s = time.perf_counter() - t0
+    _, loss_b = tb.step(restored, tokens, targets)
+    loss_b = float(loss_b)
+    counts = launch_counts()
+    log(f"  one step from each state: in-memory loss {loss_a!r}, restored "
+        f"{loss_b!r} (restored state to the card {to_card_s:.2f} s)")
+    if loss_a != loss_b:
+        fail("the restored state's step differs from the in-memory one's")
+    del restored, tb
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers, steps = cfg.num_layers, 4
+    want = {"flash_attention_fwd": 2 * layers * steps,
+            "flash_attention_dq": layers * steps,
+            "flash_attention_dkv": layers * steps}
+    return cfg, saved, {k: counts[k] for k in want}, want
+
+
+def _quantile(xs, q):
+    xs = sorted(xs)
+    pos = q * (len(xs) - 1)
+    lo = int(pos)
+    hi = min(lo + 1, len(xs) - 1)
+    return xs[lo] + (xs[hi] - xs[lo]) * (pos - lo)
+
+
+def _parse_metrics(text: str) -> dict:
+    """exposition -> {(name, sorted label items): value}"""
+    import re
+
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = re.match(r"^(\w+)(?:\{(.*)\})? (\S+)$", line)
+        labels = tuple(sorted(re.findall(r'(\w+)="((?:[^"\\]|\\.)*)"',
+                                         m.group(2) or "")))
+        out[(m.group(1), labels)] = float(m.group(3))
+    return out
+
+
+async def door_and_check(torch, cfg, saved):
+    """Phase 8, serving half: the CLI's own loader from `--checkpoint
+    --tokenizer auto`, served continuously (`--warmup`, depth 2, chunk
+    64) over HTTP, checks (a)-(i). -> the kernels' launches over the
+    checkpoint app's traffic and over the one-shot app's."""
+    import aiohttp
+    from aiohttp import web
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.serving.__main__ import build_app, parse_args
+    from kubeflow_tpu_torch.serving.engine import (
+        LLAMA_FAMILY,
+        EngineConfig,
+        InferenceEngine,
+    )
+    from kubeflow_tpu_torch.serving.server import (
+        BATCHERS_KEY,
+        ENGINES_KEY,
+        TOKENIZER_KEY,
+        _apply_stop,
+        create_serving_app,
+    )
+    from kubeflow_tpu_torch.train.checkpoint import serving_params
+
+    dev = torch.device("cuda")
+    name = "llama3-1b"
+    card = _card()
+    gen = torch.Generator().manual_seed(8)
+
+    def prompt(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+
+    p300 = prompt(300)
+    streams = [prompt(n) for n in DOOR_LENS]
+    p_h = prompt(300)
+    firsts = [p[0] for p in (p300, *streams, p_h)]
+    if len(set(firsts)) != len(firsts):
+        fail("phase 8's prompts share a first token: reseed them")
+    body_a = {"tokens": [p300], "max_new": DOOR_MAX_NEW}
+
+    async def serving(app, port, fn):
+        runner = web.AppRunner(app)
+        await runner.setup()
+        await web.TCPSite(runner, "127.0.0.1", port).start()
+        try:
+            async with aiohttp.ClientSession() as sess:
+                return await fn(sess, f"http://127.0.0.1:{port}")
+        finally:
+            await runner.cleanup()
+
+    async def post(sess, url, body, headers=None, status=200):
+        async with sess.post(url, json=body, headers=headers) as r:
+            if r.status != status:
+                fail(f"{url} answered {r.status}, not {status}: "
+                     f"{await r.text()}")
+            return await r.json(), r.headers
+
+    async def stream(sess, url, body, headers=None):
+        """-> (tokens, terminal record, event arrival times, sent at,
+        response headers)"""
+        t0 = time.perf_counter()
+        async with sess.post(url, json={**body, "stream": True},
+                             headers=headers) as r:
+            if r.status != 200 or r.content_type != "text/event-stream":
+                fail(f"stream: {r.status} {r.content_type}")
+            toks, times, final = [], [], None
+            async for line in r.content:
+                if not line.startswith(b"data: "):
+                    continue
+                ev = json.loads(line[6:])
+                if "tokens" in ev:
+                    toks += ev["tokens"][0]
+                    times += [time.perf_counter()] * len(ev["tokens"][0])
+                else:
+                    final = ev
+            return toks, final, times, t0, r.headers
+
+    # the control: an app built from the in-memory params, cold
+    t0 = time.perf_counter()
+    ctrl = create_serving_app(
+        {name: InferenceEngine(serving_params(saved, cfg, dev), cfg,
+                               LLAMA_FAMILY, EngineConfig(max_len=MAX_LEN),
+                               device=dev)},
+        continuous=True, prefill_chunk_tokens=CHUNK)
+
+    async def control(sess, base):
+        out, _ = await post(sess, f"{base}/v1/models/{name}:generate",
+                            body_a)
+        return out["tokens"][0]
+
+    ctrl_tokens = await serving(ctrl, _free_port(), control)
+    del ctrl
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  control app (in-memory params, cold): {len(ctrl_tokens)} tokens "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    port = _free_port()
+    t0 = time.perf_counter()
+    app = build_app(parse_args([
+        "--model", name, "--checkpoint", CKPT_DIR, "--tokenizer", "auto",
+        "--continuous", "--warmup", "--prefill-chunk-tokens", str(CHUNK),
+        "--host", "127.0.0.1", "--port", str(port)]))
+    if cfg.num_layers != app[ENGINES_KEY][name].cfg.num_layers:
+        # a depth cut for the disk: serve the trained depth
+        app = create_serving_app(
+            {name: InferenceEngine(
+                app[ENGINES_KEY][name].params, cfg, LLAMA_FAMILY,
+                EngineConfig(max_len=MAX_LEN), device=dev)},
+            tokenizer=app[TOKENIZER_KEY], continuous=True, warmup=True,
+            prefill_chunk_tokens=CHUNK)
+    engine = app[ENGINES_KEY][name]
+    batcher = app[BATCHERS_KEY][name]
+    tok = app[TOKENIZER_KEY]
+    if tok is None or tok.vocab_size != TOKENIZER_VOCAB:
+        fail("--tokenizer auto did not load the carried BPE")
+    if tok.bos_id in firsts:
+        fail("a phase 8 prompt starts with the BPE's BOS: reseed them")
+    log(f"  checkpoint app built by the CLI's loader in "
+        f"{time.perf_counter() - t0:.1f} s (tokenizer vocab "
+        f"{tok.vocab_size}, pipeline depth {batcher.pipeline_depth})")
+    gen_url = f"/v1/models/{name}:generate"
+    out = {}
+
+    async def traffic(sess, base):
+        url = base + gen_url
+        reset_launch_counts()
+        calls0, slices0 = batcher.calls, batcher.slices
+        # (a) stream vs non-stream vs the control
+        toks, final, times, _, hdrs = await stream(sess, url, body_a)
+        out["a_stream"], out["a_final"] = toks, final
+        out["a_rid"] = hdrs.get("X-Request-Id")
+        a, _ = await post(sess, url, {**body_a, "logprobs": True})
+        out["a"], out["a_lps"] = a["tokens"][0], a["logprobs"][0]
+        # (b) 8 concurrent streams
+        got = await asyncio.gather(*(stream(
+            sess, url, {"tokens": [p], "max_new": DOOR_MAX_NEW})
+            for p in streams))
+        out["b"] = got
+        # (c) stop, alone, so the dropped tokens are its own
+        stop = out["a"][STOP_AT:STOP_AT + 2]
+        dropped0 = batcher.tokens_dropped
+        c, _ = await post(sess, url, {**body_a, "stop": [stop]},
+                          headers={"X-Request-Id": "door-stop"})
+        out["c"], out["stop"] = c["tokens"][0], stop
+        out["c_dropped"] = batcher.tokens_dropped - dropped0
+        # (d) text through the BPE, and its encoding sent as tokens
+        d, _ = await post(sess, url, {"text": DOOR_TEXT, "max_new": 32})
+        out["d"] = d
+        out["d_tokens"], _ = await post(sess, url, {
+            "tokens": [tok.encode(DOOR_TEXT, bos=True)], "max_new": 32})
+        # (e) score the prompt and its greedy continuation
+        e, _ = await post(sess, f"{base}/v1/models/{name}:score",
+                          {"tokens": [p300 + out["a"]]})
+        out["e"] = e
+        # (f) (a)'s timeline by its X-Request-Id
+        async with sess.get(
+                f"{base}/v1/requests/{out['a_rid']}/timeline") as r:
+            out["f"] = await r.json() if r.status == 200 else None
+        # (i) refusals
+        out["i_adapter"], _ = await post(
+            sess, url, {**body_a, "adapter": "fr"}, status=400)
+        out["i_stream_stop"], _ = await post(
+            sess, url, {**body_a, "stream": True, "stop": [stop]},
+            status=400)
+        # (g) /metrics
+        async with sess.get(f"{base}/metrics") as r:
+            out["g"] = _parse_metrics(await r.text())
+        out["counts"] = launch_counts()
+        out["calls"] = batcher.calls - calls0
+        out["slices"] = batcher.slices - slices0
+
+    await serving(app, port, traffic)
+    L = cfg.num_layers
+    counts = out["counts"]
+    log(f"  traffic: {out['calls']} decode steps dispatched, "
+        f"{out['slices']} prefill slices; kernel launches {counts}")
+    want = {"paged_decode_attention": L * out["calls"],
+            "paged_prefill_append": L * out["slices"]}
+    for k, n in want.items():
+        if counts[k] != n or not n:
+            fail(f"{k}: {counts[k]} launches over the door's traffic, the "
+                 f"design implies {n}")
+    # (a)
+    if out["a_stream"] != out["a"] or out["a"] != ctrl_tokens \
+            or len(out["a"]) != DOOR_MAX_NEW:
+        fail(f"(a) stream {out['a_stream'][:8]}..., non-stream "
+             f"{out['a'][:8]}..., control {ctrl_tokens[:8]}... differ")
+    if out["a_final"] != {"done": True, "total": DOOR_MAX_NEW}:
+        fail(f"(a) terminal record {out['a_final']}")
+    log(f"  (a) stream == non-stream == control app on the in-memory "
+        f"params: {DOOR_MAX_NEW} greedy tokens")
+    # (b)
+    ttft = [times[0] - t0 for _, _, times, t0, _ in out["b"]]
+    itl = [(times[-1] - times[0]) / (len(times) - 1)
+           for _, _, times, _, _ in out["b"]]
+    if any(len(t) != DOOR_MAX_NEW for t, *_ in out["b"]):
+        fail("(b) a stream ended short")
+    log(f"  (b) 8 concurrent streams ({DOOR_LENS} prompt tokens, "
+        f"{DOOR_MAX_NEW} new), client clock on {card}: TTFT median "
+        f"{_quantile(ttft, 0.5) * 1e3:.1f} ms p95 "
+        f"{_quantile(ttft, 0.95) * 1e3:.1f} ms; ITL (a stream's span over "
+        f"its gaps) median {_quantile(itl, 0.5) * 1e3:.2f} ms p95 "
+        f"{_quantile(itl, 0.95) * 1e3:.2f} ms")
+    # (c)
+    cut = _apply_stop(out["a"], [out["stop"]])
+    tl = batcher.timelines.get("door-stop")
+    bound = batcher.pipeline_depth * batcher.chunk
+    log(f"  (c) stop {out['stop']} at {len(cut)}: {len(out['c'])} tokens "
+        f"returned, {len(tl.tokens)} emitted, {out['c_dropped']} decoded "
+        f"past the stop and dropped (bound {bound})")
+    if out["c"] != cut or len(tl.tokens) != len(cut) + 2 \
+            or out["c_dropped"] > bound:
+        fail("(c) the stop did not trim or retire its slot as designed")
+    # (d)
+    d = out["d"]
+    if d["text"] != tok.decode(d["tokens"][0]) \
+            or d["tokens"] != out["d_tokens"]["tokens"]:
+        fail("(d) text is not the tokenizer's encode and decode")
+    kept = sum(t < tok.vocab_size for t in d["tokens"][0])
+    log(f"  (d) text: {len(tok.encode(DOOR_TEXT, bos=True))} prompt tokens "
+        f"(the BPE's encoding, sent as tokens: the same output); "
+        f"{len(d['tokens'][0])} tokens, {kept} inside the BPE's vocab, "
+        f"decode to {d['text'][:40]!r}")
+    # (e) against the teacher-forced plain dense pass and (a)'s logprobs
+    seq = p300 + out["a"]
+    with torch.inference_mode():
+        logp = torch.log_softmax(llama.apply(
+            engine.params, cfg, torch.tensor([seq], device=dev))[0, :-1], -1)
+        ref = logp[torch.arange(len(seq) - 1, device=dev),
+                   torch.tensor(seq[1:], device=dev)].float().cpu()
+    got = torch.tensor(out["e"]["logprobs"][0])
+    err = float((got - ref).abs().max())
+    err_gen = float((got[len(p300) - 1:]
+                     - torch.tensor(out["a_lps"])).abs().max())
+    log(f"  (e) :score of {len(seq)} tokens: max |diff| {err:.4f} from the "
+        f"teacher-forced plain pass, {err_gen:.4f} from :generate's "
+        f"logprobs (tol {LOGPROB_TOL})")
+    if err > LOGPROB_TOL or err_gen > LOGPROB_TOL \
+            or out["e"]["count"] != len(seq) - 1:
+        fail("(e) :score disagrees")
+    # (f)
+    f = out["f"]
+    if f is None or f["tokens"] != DOOR_MAX_NEW \
+            or not f["ttft_s"] <= f["token_times"][-1]:
+        fail(f"(f) timeline of {out['a_rid']}: {f}")
+    log(f"  (f) timeline {out['a_rid']}: {f['tokens']} tokens, TTFT "
+        f"{f['ttft_s'] * 1e3:.1f} ms, last token {f['token_times'][-1]:.3f}"
+        f" s, events {[e['kind'] for e in f['events']]}")
+    # (g) against what the requests reckon
+    g = out["g"]
+    model = (("model", name),)
+    answered = 2 + len(streams) + 3      # a twice, b, c, d twice
+    # a request hits when an earlier one with its prompt left full
+    # blocks below its cache line (prompt + max_new - 1 cells)
+    text_prompt = tok.encode(DOOR_TEXT, bos=True)
+    served = [(p300, DOOR_MAX_NEW)] * 2 + [
+        (p, DOOR_MAX_NEW) for p in streams] + [
+        (p300, DOOR_MAX_NEW), (text_prompt, 32), (text_prompt, 32)]
+    hits = sum(any(q == p and (len(q) + m - 1) // BS for q, m in served[:i])
+               for i, (p, _) in enumerate(served))
+    seen = {"ttft": g[("serving_time_to_first_token_seconds_count", model)],
+            "itl": g[("serving_itl_seconds_count", model)],
+            "hits": g[("serving_prefix_cache_hits_total", model)],
+            "tokens_emitted": batcher.tokens_emitted}
+    log(f"  (g) /metrics: {seen}; reckoned {answered} answered, {hits} "
+        f"hits")
+    if seen["ttft"] != answered or seen["itl"] != batcher.tokens_emitted \
+            or seen["hits"] != hits:
+        fail("(g) /metrics disagrees with the traffic")
+    # (i)
+    if out["i_adapter"] != {"error": f"model {name!r} has no adapters "
+                                     f"loaded"} \
+            or out["i_stream_stop"] != {
+                "error": "stop does not compose with stream"}:
+        fail(f"(i) refusals: {out['i_adapter']} {out['i_stream_stop']}")
+    log("  (i) adapter and stream + stop refused with the reference's "
+        "400s")
+    del app, batcher
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (h) a one-shot app (the window batcher) on the same params streams
+    one = create_serving_app({name: engine}, batch_window_ms=WINDOW_MS,
+                             max_batch=DENSE_B, warmup=True)
+
+    async def oneshot(sess, base):
+        url = base + gen_url
+        await post(sess, url, {"tokens": [p_h], "max_new": 2})  # uncounted
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        toks, final, *_ = await stream(
+            sess, url, {"tokens": [p_h], "max_new": DOOR_MAX_NEW})
+        want = engine.generate([p_h], max_new=DOOR_MAX_NEW)[0].tolist()
+        torch.cuda.synchronize()
+        return toks, final, want, launch_counts()
+
+    toks, final, want, one_counts = await serving(one, _free_port(), oneshot)
+    expect = 2 * L * (DOOR_MAX_NEW - 1)
+    log(f"  (h) one-shot stream: {len(toks)} tokens == generate's "
+        f"{toks == want}; kernel launches {one_counts} (the design implies "
+        f"decode_attention {expect}: {L} x {DOOR_MAX_NEW - 1} for the "
+        f"stream and for generate)")
+    others = {k: n for k, n in one_counts.items() if k != "decode_attention"}
+    if toks != want or final != {"done": True, "total": DOOR_MAX_NEW} \
+            or one_counts["decode_attention"] != expect or any(
+                others.values()):
+        fail("(h) the one-shot stream disagrees")
+    del one, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, one_counts
+
+
 # the port's own kernels, as the profiler names them
 PORT_KERNELS = ("decode_split_kernel", "decode_combine_kernel",
                 "prefill_attention_", "scatter_kernel", "flash_fwd_",
@@ -2144,8 +2689,28 @@ def _report_profile(prof, wall_s: float, top: int = 8) -> None:
             log(f"    {_dev_us(e) / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
 
 
+def _phases(argv) -> set[str]:
+    """`--phases 1,8` runs those phases only (a debugging call: no
+    result line); no arguments run them all."""
+    import argparse
+
+    p = argparse.ArgumentParser(prog="chip_smoke.py")
+    p.add_argument("--phases", default="",
+                   help="comma-separated phases to run (default: all; a "
+                        "partial run prints no result line)")
+    args = p.parse_args(argv)
+    return set(args.phases.split(",")) if args.phases else set()
+
+
 def main() -> None:
+    import shutil
+
     import torch
+
+    only = _phases(sys.argv[1:])
+
+    def run(phase: str) -> bool:
+        return not only or phase in only
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs the card")
@@ -2166,75 +2731,101 @@ def main() -> None:
             {ln.strip() for ln in report.splitlines()
              if "Used" in ln or "spill" in ln})))
 
-    log("phase 2: kernels against their plain versions (llama3-1b shapes)")
-    stats = {"paged_decode_attention": check_decode(torch, dev),
-             "paged_prefill_append": check_prefill(torch, dev)[0],
-             **check_flash(torch, dev),
-             "decode_attention": check_dense_decode(torch, dev)[0]}
-    log("phase 2, gemma-2b: the kernels at head dim 256, group 8")
-    stats.update({
-        f"paged_decode_attention{GEMMA}": check_decode(torch, dev, GEMMA_2B),
-        f"paged_prefill_append{GEMMA}": check_prefill(torch, dev,
-                                                      GEMMA_2B)[0],
-        **{name + GEMMA: st for name, st in
-           check_flash(torch, dev, GEMMA_2B).items()},
-        f"decode_attention{GEMMA}": check_dense_decode(
-            torch, dev, GEMMA_2B, GEMMA_2B)[0]})
+    stats, counts = {}, {}
+    if run("2"):
+        log("phase 2: kernels against their plain versions (llama3-1b "
+            "shapes)")
+        stats = {"paged_decode_attention": check_decode(torch, dev),
+                 "paged_prefill_append": check_prefill(torch, dev)[0],
+                 **check_flash(torch, dev),
+                 "decode_attention": check_dense_decode(torch, dev)[0]}
+        log("phase 2, gemma-2b: the kernels at head dim 256, group 8")
+        stats.update({
+            f"paged_decode_attention{GEMMA}": check_decode(torch, dev,
+                                                           GEMMA_2B),
+            f"paged_prefill_append{GEMMA}": check_prefill(torch, dev,
+                                                          GEMMA_2B)[0],
+            **{name + GEMMA: st for name, st in
+               check_flash(torch, dev, GEMMA_2B).items()},
+            f"decode_attention{GEMMA}": check_dense_decode(
+                torch, dev, GEMMA_2B, GEMMA_2B)[0]})
 
-    log("phase 3: serve llama3-1b through the kernels (chunked prefill)")
-    counts = asyncio.run(serve_and_check(torch, chunked=True))
-    gc.collect()
-    torch.cuda.empty_cache()
+    def add(got: dict, suffix: str = "", prefix: str = "") -> None:
+        for name, n in got.items():
+            if name.startswith(prefix):
+                counts[name + suffix] = counts.get(name + suffix, 0) + n
 
-    log("phase 3b: serve llama3-1b with monolithic admission")
-    counts["paged_decode_attention"] += asyncio.run(
-        serve_and_check(torch, chunked=False))["paged_decode_attention"]
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    log("phase 3c: prefix reuse (radix cache, copy-on-write, spill tier)")
-    for chunked in (True, False):
-        for name, n in asyncio.run(
-                prefix_reuse_and_check(torch, chunked)).items():
-            if name.startswith("paged"):
-                counts[name] += n
+    def tidy() -> None:
         gc.collect()
         torch.cuda.empty_cache()
 
-    log("phase 4: train llama3-1b through the flash kernels")
-    counts.update({name: n for name, n in train_and_check(torch).items()
-                   if name.startswith("flash")})
-    gc.collect()
-    torch.cuda.empty_cache()
+    if run("3"):
+        log("phase 3: serve llama3-1b through the kernels (chunked "
+            "prefill)")
+        add(asyncio.run(serve_and_check(torch, chunked=True)))
+        tidy()
+        log("phase 3b: serve llama3-1b with monolithic admission")
+        add(asyncio.run(serve_and_check(torch, chunked=False)),
+            prefix="paged_decode")
+        tidy()
+        log("phase 3c: prefix reuse (radix cache, copy-on-write, spill "
+            "tier)")
+        for chunked in (True, False):
+            add(asyncio.run(prefix_reuse_and_check(torch, chunked)),
+                prefix="paged")
+            tidy()
 
-    log("phase 5: serve llama3-8b one-shot and speculatively")
-    counts["decode_attention"] = asyncio.run(
-        serve_dense_and_check(torch))["decode_attention"]
-    gc.collect()
-    torch.cuda.empty_cache()
+    if run("4"):
+        log("phase 4: train llama3-1b through the flash kernels")
+        add(train_and_check(torch), prefix="flash")
+        tidy()
 
-    log("phase 6: serve gemma-2b (chunked, monolithic, one-shot)")
-    for chunked in (True, False):
-        log(f"  continuous, {'chunked' if chunked else 'monolithic'}:")
-        for name, n in asyncio.run(serve_and_check(
-                torch, chunked, "gemma-2b")).items():
-            if name.startswith("paged"):
-                counts[name + GEMMA] = counts.get(name + GEMMA, 0) + n
-        gc.collect()
-        torch.cuda.empty_cache()
-    log("  one-shot (window batcher, direct path):")
-    counts["decode_attention" + GEMMA] = asyncio.run(serve_dense_and_check(
-        torch, "gemma-2b", spec=False))["decode_attention"]
-    gc.collect()
-    torch.cuda.empty_cache()
+    if run("5"):
+        log("phase 5: serve llama3-8b one-shot and speculatively")
+        add(asyncio.run(serve_dense_and_check(torch)),
+            prefix="decode_attention")
+        tidy()
 
-    log("phase 7: train gemma-2b through the flash kernels at head dim 256")
-    counts.update({name + GEMMA: n for name, n in
-                   train_gemma_and_check(torch).items()
-                   if name.startswith("flash")})
-    gc.collect()
-    torch.cuda.empty_cache()
+    if run("6"):
+        log("phase 6: serve gemma-2b (chunked, monolithic, one-shot)")
+        for chunked in (True, False):
+            log(f"  continuous, {'chunked' if chunked else 'monolithic'}:")
+            add(asyncio.run(serve_and_check(torch, chunked, "gemma-2b")),
+                GEMMA, prefix="paged")
+            tidy()
+        log("  one-shot (window batcher, direct path):")
+        add(asyncio.run(serve_dense_and_check(torch, "gemma-2b",
+                                              spec=False)),
+            GEMMA, prefix="decode_attention")
+        tidy()
 
+    if run("7"):
+        log("phase 7: train gemma-2b through the flash kernels at head "
+            "dim 256")
+        add(train_gemma_and_check(torch), GEMMA, prefix="flash")
+        tidy()
+
+    if run("8"):
+        log("phase 8: checkpoint llama3-1b from the trainer, then serve "
+            "it through the door (stop, SSE, text, :score, timelines, "
+            "/metrics)")
+        cfg8, saved, train_counts, train_want = checkpoint_and_check(torch)
+        if train_counts != train_want:
+            fail(f"phase 8 training: flash launches {train_counts}, the "
+                 f"design implies {train_want} (4 steps)")
+        add(train_counts)
+        door, one = asyncio.run(door_and_check(torch, cfg8, saved))
+        add(door, prefix="paged")
+        add(one, prefix="decode_attention")
+        del saved
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        os.remove(os.path.join(ROOT, "build", "ckpt_tokenizer.json"))
+        tidy()
+
+    log(f"total {time.perf_counter() - t_all:.1f} s")
+    if only:
+        log(f"partial run (phases {sorted(only)}): no result line")
+        return
     flash = "kubeflow_tpu/ops/pallas/flash_attention.py"
     meta = {
         "paged_decode_attention": (
@@ -2260,21 +2851,16 @@ def main() -> None:
     kernels = []
     for name, (source, replaces) in meta.items():
         s = stats[name]
+        if not counts.get(name):
+            fail(f"{name} was launched no time on the main path")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"]})
-    log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(_card(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

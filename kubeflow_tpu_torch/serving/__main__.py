@@ -7,6 +7,8 @@ kubeflow_tpu/serving/__main__.py).
         --continuous --warmup
     python -m kubeflow_tpu_torch.serving --model gemma-2b --random \\
         --continuous --warmup
+    python -m kubeflow_tpu_torch.serving --model llama3-1b \\
+        --checkpoint /ckpt/run7 --tokenizer auto --continuous --warmup
 
 Serves one model on the CUDA card (`--cpu` runs the plain PyTorch path
 on the CPU instead; `gemma-tiny`'s head dim 32 has no kernel, so it is
@@ -19,9 +21,14 @@ paged KV pool: monolithic admission (one prefill per bucket group,
 sets a chunked-prefill budget; decode chunks dispatched
 `--pipeline-depth` ahead; `--warmup` captures every serving graph
 before the port opens; `--kv-spill-bytes` gives the radix prefix cache
-a host-memory tier that eviction demotes to. Weights are random from
-`--seed`; loading a checkpoint is not ported yet, so `--random` is
-required.
+a host-memory tier that eviction demotes to.
+
+Weights: `--checkpoint DIR` (a train/checkpoint.py `Checkpointer`
+directory: the newest committed step's params, the optimizer's moments
+left on disk) or `--random` (from `--seed`). `--tokenizer PATH` serves
+the "text" field through a data/bpe.py tokenizer file; `auto` takes
+`tokenizer.json` beside `--checkpoint` when there is one, else the
+byte-level fallback.
 """
 
 from __future__ import annotations
@@ -50,9 +57,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="python -m kubeflow_tpu_torch.serving")
     p.add_argument("--model", default="llama-tiny",
                    choices=tuple(model_registry()))
-    p.add_argument("--random", action="store_true",
-                   help="random params from --seed (required: checkpoint "
-                        "loading is not ported yet)")
+    src = p.add_mutually_exclusive_group()
+    src.add_argument("--checkpoint", default="",
+                     help="train.checkpoint.Checkpointer directory")
+    src.add_argument("--random", action="store_true",
+                     help="fresh random params from --seed (smoke/dev)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
@@ -90,11 +99,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--pipeline-depth", type=int, default=0,
                    help="decode dispatch-ahead depth (0 = the backend's "
                         "default: 2 on CUDA, 1 on the CPU)")
+    p.add_argument("--tokenizer", default="",
+                   help="data.bpe tokenizer file (text mode); 'auto' uses "
+                        "tokenizer.json beside --checkpoint when present, "
+                        "byte fallback otherwise")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (plain PyTorch path, no kernels)")
     args = p.parse_args(argv)
-    if not args.random:
-        p.error("pass --random (checkpoint loading is not ported yet)")
+    if not args.checkpoint and not args.random:
+        p.error("pass --checkpoint DIR or --random")
     if args.warmup and not args.continuous:
         p.error("--warmup requires --continuous")
     for flag in ("prefill_chunk", "prefill_chunk_tokens", "pipeline_depth",
@@ -107,9 +120,42 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def _load_params(args: argparse.Namespace, cfg, init, device):
+    """Serving params: the checkpoint's newest committed step (params
+    only), or random ones from the seed."""
+    if args.random:
+        return init(cfg, args.seed, device)
+    from kubeflow_tpu_torch.train.checkpoint import load_serving_params
+
+    try:
+        return load_serving_params(args.checkpoint, cfg, device)
+    except FileNotFoundError as e:
+        raise SystemExit(str(e)) from None
+
+
+def load_tokenizer(args: argparse.Namespace):
+    """The `--tokenizer` file's tokenizer, or None (byte fallback)."""
+    import os
+
+    ref = args.tokenizer
+    if ref == "auto":
+        # the train -> serve loop carries its tokenizer beside the
+        # checkpoint (CheckpointConfig.tokenizer_path)
+        ref = ""
+        if args.checkpoint:
+            cand = os.path.join(args.checkpoint, "tokenizer.json")
+            if os.path.exists(cand):
+                ref = cand
+    if not ref:
+        return None
+    from kubeflow_tpu_torch.data.bpe import Tokenizer
+
+    return Tokenizer.load(ref)
+
+
 def build_app(args: argparse.Namespace):
-    """The serving app for parsed CLI args: random weights from the seed
-    on the chosen device, in the mode the args choose."""
+    """The serving app for parsed CLI args: the checkpoint's or random
+    weights on the chosen device, in the mode the args choose."""
     from kubeflow_tpu_torch.device import resolve_device
     from kubeflow_tpu_torch.serving.engine import (
         EngineConfig,
@@ -119,13 +165,14 @@ def build_app(args: argparse.Namespace):
 
     device = resolve_device("cpu" if args.cpu else None)
     cfg, init, family = model_registry()[args.model]
-    params = init(cfg, args.seed, device)
+    params = _load_params(args, cfg, init, device)
     engine = InferenceEngine(
         params, cfg, family,
         EngineConfig(max_len=args.max_len, eos_token=args.eos),
         device=device)
     return create_serving_app(
-        {args.model: engine}, max_batch=args.max_batch,
+        {args.model: engine}, tokenizer=load_tokenizer(args),
+        max_batch=args.max_batch,
         continuous=args.continuous, batch_window_ms=args.batch_window_ms,
         warmup=args.warmup, prefill_chunk=args.prefill_chunk or None,
         prefill_chunk_tokens=args.prefill_chunk_tokens or None,
@@ -138,9 +185,10 @@ def main(argv=None) -> int:
 
     args = parse_args(argv)
     app = build_app(args)
-    print(f"serving {args.model} (random, seed {args.seed}) "
-          f"on {args.host}:{args.port} device="
-          f"{'cpu' if args.cpu else 'cuda'}", flush=True)
+    source = f"random, seed {args.seed}" if args.random else args.checkpoint
+    print(f"serving {args.model} ({source}) on {args.host}:{args.port} "
+          f"device={'cpu' if args.cpu else 'cuda'} "
+          f"tokenizer={args.tokenizer or 'byte'}", flush=True)
     web.run_app(app, host=args.host, port=args.port, print=None)
     return 0
 

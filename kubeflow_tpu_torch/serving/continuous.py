@@ -41,8 +41,15 @@ request's own block: copy-on-write). Then
 Decode steps run every slot through `ops.paged_attention`, with up to
 `pipeline_depth` chunks in flight. Eviction can demote cached blocks to
 a host spill tier (`export_blocks`), and admission restores them
-(`import_blocks`). The reference's tenancy quotas, preemption, peer
-fetch, speculation and migration are not ported yet.
+(`import_blocks`).
+
+Every request carries its stop sequences (retired the moment one
+completes as the output's suffix, trimmed off), an optional token queue
+(`open_stream` / `stream`: one item per emitted token, then None) and a
+`RequestTimeline` (`timelines`: enqueue, admit with its prefill split,
+every token, finish), whose decode gaps and queue waits feed the
+`on_itl` / `on_queue_wait` hooks. The reference's tenancy quotas,
+preemption, peer fetch, speculation and migration are not ported yet.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch.obs.cachestats import CacheLedger
+from kubeflow_tpu_torch.obs.timeline import RequestTimeline, TimelineStore
 from kubeflow_tpu_torch.ops.attention import (
     paged_attention,
     paged_prefill_attention,
@@ -187,6 +195,12 @@ class ContinuousEngine:
         self._st: SlotState | None = None
         self._knobs = None     # static [S] temperature, top_k, top_p
         self._slice_in = {}    # prompt-slice width -> static slice inputs
+
+    @property
+    def attention_impl(self) -> str:
+        """The paged attention path decode resolves to: the CUDA kernels
+        for a CUDA engine, the plain version on the CPU."""
+        return "cuda" if self.engine.device.type == "cuda" else "torch"
 
     # -- state ------------------------------------------------------------
 
@@ -675,21 +689,30 @@ class _Request:
 
     __slots__ = ("tokens", "max_new", "sampling", "prefix", "fut", "out",
                  "lps", "kv_toks", "owned", "node_refs", "freed",
-                 "prefilling")
+                 "prefilling", "stop", "queue", "timeline", "t_enqueue",
+                 "restored")
 
-    def __init__(self, tokens, max_new, sampling, fut):
+    def __init__(self, tokens, max_new, sampling, fut, queue=None,
+                 timeline=None, t_enqueue=0.0):
         self.tokens = list(tokens)
         self.max_new = max_new
         self.sampling = sampling
         # a registered prefix's name rides the sampling channel, as in
         # the reference ("" = none)
         self.prefix = sampling.get("prefix") or ""
+        # token-id sequences that end generation
+        self.stop = tuple(tuple(seq) for seq in sampling.get("stop", ()))
         self.fut = fut
+        self.queue = queue          # per-request token stream, or None
+        self.timeline = timeline
+        self.t_enqueue = t_enqueue
+        self.restored = 0           # cached cells restored from the host
         self.out: list[int] = []
         self.lps: list[float] = []   # chosen-token logprobs, out-aligned
         # paged-KV bookkeeping: the tokens whose KV the slot's blocks
         # hold (the full prompt, a registered prefix included, then every
-        # emitted token; never trimmed), the exclusively owned blocks by
+        # emitted token; never trimmed, not even by a stop sequence: the
+        # radix index describes the cache), the exclusively owned blocks by
         # logical block index, the radix nodes this request holds refs
         # on, and whether its blocks were released already
         self.kv_toks: list[int] = []
@@ -747,8 +770,18 @@ class ContinuousBatcher:
     their blocks, drops the radix tree, and clears the state in place
     (the graphs keep its addresses). Queued requests are kept.
 
+    Stop sequences and streams, as the reference's: `_emit` puts each
+    token on the request's queue, and when a stop sequence completes as
+    the output's suffix it trims it from `out`/`lps` and retires the slot
+    through the same path as EOS (a chunk in flight for it is dropped).
+    Every way out of the batcher (finish, failure, close) puts None on
+    the queue; a stream consumer that goes away cancels the future, and
+    the worker's cancellation checks release the slot.
+
     `.calls` counts dispatched decode steps (over-decoded ones included);
-    `occupancy()` is tokens emitted per decode step. `.slices` counts
+    `occupancy()` is tokens emitted per decode step; `.tokens_dropped`
+    counts decode tokens computed for a request after it retired (the
+    dispatch-ahead overhang). `.slices` counts
     chunked-prefill slices and `.prefills` monolithic prefill groups.
     `.decode_s` is wall seconds in dispatching decode chunks (lock wait
     included) and waiting for their results; `.prefill_s` the same for
@@ -819,8 +852,25 @@ class ContinuousBatcher:
         self.prefix_misses = 0
         self.tokens_prefilled = 0   # prompt tokens computed
         self.tokens_reused = 0      # prompt cells seeded from cache
+        self.tokens_dropped = 0     # decoded after retirement, dropped
         self.decode_s = 0.0
         self.prefill_s = 0.0
+        # optional hook(computed, reused, hit, tenant, restored=) per
+        # admission; the server wires the prefix metrics through it
+        self.on_prefix = None
+        # per-request token timelines (enqueue, admit, every token,
+        # finish), kept in a bounded store for
+        # `/v1/requests/{id}/timeline`; the optional hooks on_itl(gap_s)
+        # per decode token and on_queue_wait(wait_s) per admission feed
+        # the server's histograms and must never kill the worker
+        self._clock = time.monotonic
+        self.timelines = TimelineStore()
+        self.on_itl = None
+        self.on_queue_wait = None
+        # EWMA of enqueue -> finish service time, feeding the server's
+        # Retry-After on an Overloaded 429
+        self.service_ewma = 0.0
+        self._seq = 0               # enqueue sequence (fallback ids)
         self._pending: collections.deque[_Request] = collections.deque()
         self._active: dict[int, _Request] = {}
         self._free = list(range(max_slots))
@@ -895,18 +945,51 @@ class ContinuousBatcher:
                      with_logprobs: bool = False):
         """Generate up to `max_new` tokens for one prompt; resolves when
         THIS request finishes. The result is EOS-padded to exactly
-        max_new; with_logprobs=True returns (tokens, logprobs), the
-        logprobs unpadded (one per computed token). `sampling` may name
-        a registered prefix (`"prefix"`), whose tokens go before
-        `tokens`."""
-        fut = self._enqueue(tokens, max_new, dict(sampling or {}))
+        max_new, except with stop sequences, whose trimmed output comes
+        back unpadded (stopping short is the ask); with_logprobs=True
+        returns (tokens, logprobs), the logprobs unpadded (one per
+        computed token). `sampling` may name a registered prefix
+        (`"prefix"`), whose tokens go before `tokens`, stop sequences
+        (`"stop"`: token-id lists) and the timeline's key
+        (`"request_id"`)."""
+        sampling = dict(sampling or {})
+        fut = self._enqueue(tokens, max_new, sampling, queue=None)
         out, lps = await fut
         eos = self.engine.ec.eos_token
-        if eos is not None and len(out) < max_new:
+        if eos is not None and len(out) < max_new \
+                and not sampling.get("stop"):
             out = out + [eos] * (max_new - len(out))
         return (out, lps) if with_logprobs else out
 
-    def _enqueue(self, tokens, max_new, sampling) -> asyncio.Future:
+    def open_stream(self, tokens: list[int], max_new: int,
+                    sampling: dict | None = None):
+        """Enqueue a streaming request now and return (future, queue):
+        admission errors, Overloaded included, raise here, synchronously,
+        so a server can answer them before it sends SSE headers. The
+        queue yields each token as it is emitted, then None."""
+        q: asyncio.Queue = asyncio.Queue()
+        return self._enqueue(tokens, max_new, dict(sampling or {}),
+                             queue=q), q
+
+    async def stream(self, tokens: list[int], max_new: int,
+                     sampling: dict | None = None):
+        """Async-iterate the tokens as they decode; the stream ends at
+        EOS, a stop sequence or max_new. A consumer that stops iterating
+        cancels the request, which releases its slot."""
+        fut, q = self.open_stream(tokens, max_new, sampling)
+        try:
+            while True:
+                item = await q.get()
+                if item is None:
+                    break
+                yield item
+            await fut   # surface admission and step errors after drain
+        finally:
+            if not fut.done():
+                fut.cancel()
+
+    def _enqueue(self, tokens, max_new, sampling, *,
+                 queue) -> asyncio.Future:
         if self._closed:
             raise RuntimeError("batcher is shut down")
         if len(self._pending) >= self.max_pending:
@@ -933,11 +1016,24 @@ class ContinuousBatcher:
                 raise ValueError(
                     f"prefix {plen} + prompt {len(tokens)} + max_new "
                     f"{max_new} exceeds model max_len {cap}")
+        # the request id rides the sampling channel, as in the reference;
+        # direct callers get a sequence-derived one so every timeline has
+        # a key
+        request_id = str(sampling.pop("request_id", "")) \
+            or f"req-{self._seq:06d}"
+        self._seq += 1
         loop = asyncio.get_running_loop()
         if self._worker is None or self._worker.done():
             self._worker = loop.create_task(self._run())
         fut = loop.create_future()
-        self._pending.append(_Request(tokens, max_new, sampling, fut))
+        tl = RequestTimeline(request_id, prompt_tokens=len(tokens),
+                             max_new=max_new, clock=self._clock)
+        tl.event("enqueue", tokens=len(tokens), max_new=max_new,
+                 priority="standard")
+        self.timelines.add(tl)
+        self._pending.append(_Request(tokens, max_new, sampling, fut,
+                                      queue=queue, timeline=tl,
+                                      t_enqueue=self._clock()))
         self._wake.set()
         return fut
 
@@ -1051,6 +1147,8 @@ class ContinuousBatcher:
     @staticmethod
     def _fail(req: _Request, exc: BaseException) -> None:
         if not req.fut.done():
+            if req.queue is not None:
+                req.queue.put_nowait(None)   # unblock a stream consumer
             req.fut.set_exception(exc)
 
     def _fail_all(self, exc: BaseException) -> None:
@@ -1071,17 +1169,67 @@ class ContinuousBatcher:
     def _finish(self, slot: int, req: _Request) -> None:
         self._cache_blocks(req)
         self._release(slot)
+        dt = self._clock() - req.t_enqueue
+        self.service_ewma = (0.8 * self.service_ewma + 0.2 * dt
+                             if self.service_ewma > 0 else dt)
+        if req.timeline is not None:
+            req.timeline.event("finish", tokens=len(req.out))
         if not req.fut.done():
+            if req.queue is not None:
+                req.queue.put_nowait(None)
             req.fut.set_result((req.out[:req.max_new],
                                 req.lps[:req.max_new]))
+
+    def _admitted(self, slot: int, req: _Request, computed: int,
+                  reused: int) -> None:
+        """The timeline's admit event (with its prefill split) and the
+        queue wait: at adoption in chunked mode, after the group prefill
+        in monolithic mode, where the reference stamps them."""
+        if req.timeline is not None:
+            req.timeline.event("admit", slot=slot, prefill_computed=computed,
+                               prefill_reused=reused)
+        if self.on_queue_wait is not None:
+            try:
+                self.on_queue_wait(self._clock() - req.t_enqueue)
+            except Exception:  # noqa: BLE001 — a metrics hook never
+                log.exception("on_queue_wait hook failed")   # kills us
+
+    def _prefilled(self, req: _Request, computed: int, reused: int) -> None:
+        """The admission's prefix hit or miss, through `on_prefix`, once
+        the prompt's suffix is computed."""
+        if self.on_prefix is not None:
+            try:
+                self.on_prefix(computed, reused, reused > 0, "",
+                               restored=req.restored)
+            except Exception:  # noqa: BLE001 — a metrics hook never
+                log.exception("on_prefix hook failed")       # kills us
 
     def _emit(self, slot: int, req: _Request, token: int, lp: float, *,
               decode: bool = True) -> None:
         req.out.append(token)
         req.lps.append(lp)
         req.kv_toks.append(token)   # cache-content log, never trimmed
+        if req.timeline is not None:
+            gap = req.timeline.token()
+            # the first token has no predecessor: not an inter-token gap
+            if decode and gap is not None and self.on_itl is not None:
+                try:
+                    self.on_itl(gap)
+                except Exception:  # noqa: BLE001 — a metrics hook never
+                    log.exception("on_itl hook failed")      # kills us
         if decode:
             self.tokens_emitted += 1
+        if req.queue is not None and not req.fut.done():
+            req.queue.put_nowait(token)
+        # a stop sequence that completes as the output's suffix is
+        # trimmed off (OpenAI semantics) and retires the slot at once
+        for seq in req.stop:
+            n = len(seq)
+            if n and len(req.out) >= n and tuple(req.out[-n:]) == seq:
+                req.out = req.out[:-n]
+                req.lps = req.lps[:-n]
+                self._finish(slot, req)
+                return
         eos = self.engine.ec.eos_token
         if len(req.out) >= req.max_new or (eos is not None
                                            and token == eos):
@@ -1183,6 +1331,8 @@ class ContinuousBatcher:
         if dup:
             # someone cached (part of) this prefix meanwhile
             pool.free(dup, cause="divergence")
+        # the metrics split these cells out of the reused ones
+        req.restored += (n - len(dup)) * bs
 
     def _alloc_evicting(self, n: int, keep) -> list[int] | None:
         """`n` fresh pool blocks, evicting idle cached blocks other than
@@ -1331,6 +1481,7 @@ class ContinuousBatcher:
         slot = self._take_slot(req, plan)
         req.prefilling = {"suffix": plan["suffix"], "fed": 0}
         self._prefill_q.append(slot)
+        self._admitted(slot, req, len(plan["suffix"]), plan["m"])
         ce = self.cengine
         m, extra = plan["m"], plan["extra"]
 
@@ -1394,6 +1545,8 @@ class ContinuousBatcher:
             self.tokens_prefilled += len(plan["suffix"])
             if self._active.get(slot) is not req:
                 continue
+            self._admitted(slot, req, len(plan["suffix"]), plan["m"])
+            self._prefilled(req, len(plan["suffix"]), plan["m"])
             self._index_inflight(req)
             if req.fut.done():   # cancelled while prefilling
                 self._finish(slot, req)
@@ -1441,6 +1594,7 @@ class ContinuousBatcher:
         if finish:
             self._prefill_q.remove(slot)
             req.prefilling = None
+            self._prefilled(req, len(suffix), len(req.kv_toks) - len(suffix))
             self._index_inflight(req)
             self._emit(slot, req, int(first[0]), float(flp[0]),
                        decode=False)
@@ -1483,18 +1637,23 @@ class ContinuousBatcher:
 
     def _process_chunk(self, rec: dict) -> None:
         toks, lps = rec["out"].wait()
+        steps = rec["steps"]
         for slot, req in rec["snap"].items():
             if self._active.get(slot) is not req:
-                continue   # retired (and maybe re-admitted) meanwhile
+                # retired (and maybe re-admitted) meanwhile
+                self.tokens_dropped += steps
+                continue
             if req.fut.done():   # caller cancelled mid-decode
+                self.tokens_dropped += steps
                 self._finish(slot, req)
                 continue
-            for j in range(rec["steps"]):
+            for j in range(steps):
                 self._emit(slot, req, int(toks[slot, j]),
                            float(lps[slot, j]))
                 if slot not in self._active:
                     # retired mid-chunk: the tail is dropped, and never
                     # enters kv_toks (its KV lies past the cache line)
+                    self.tokens_dropped += steps - j - 1
                     break
 
     async def _run(self) -> None:

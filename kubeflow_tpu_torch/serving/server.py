@@ -1,9 +1,24 @@
 """HTTP serving app (counterpart: kubeflow_tpu/serving/server.py).
 
 Routes, each with the reference's request and response bodies:
-- `POST /v1/models/{name}:generate` — body `{"tokens": [[ids...], ...],
-  "max_new": 16, "temperature", "top_k", "top_p", "logprobs",
-  "speculative", "gamma", "prefix"}`;
+- `POST /v1/models/{name}:generate` — body `{"tokens": [[ids...], ...]}`
+  or `{"text": "..."}` (the app's tokenizer, else the byte-level
+  fallback; the response then carries `"text"`), with `"max_new": 16,
+  "temperature", "top_k", "top_p", "logprobs", "stop"` (up to 4
+  token-id lists: the output ends before the earliest one),
+  `"stream"` (SSE: one `data: {"tokens": [[...]]}` event per token on
+  the continuous path, per decoded chunk on the one-shot path, then
+  `{"done": true, "total": n[, "text"]}`, or `{"error": ..., "total":
+  n}` once headers are out), `"speculative", "gamma", "prefix"`;
+  `"adapter"` is refused, as the reference refuses it on a model with
+  no adapter pack. Continuous-path responses carry `X-Request-Id` (the
+  client's, else a minted one), the key of the request's timeline.
+- `POST /v1/models/{name}:score` — teacher-forced logprobs of a given
+  sequence (`{"tokens": [[...]]}` or `{"text": "..."}`).
+- `GET /v1/requests/{id}/timeline`, `GET /v1/requests/timelines` — the
+  continuous batchers' per-request token timelines.
+- `GET /metrics` — Prometheus exposition of the serving families whose
+  sources the port has (`ServingObs`).
 - `GET /healthz` (200 only while the server admits work), `GET /readyz`
   (liveness), `GET /v1/models`.
 
@@ -24,20 +39,31 @@ Modes, as in the reference's `create_serving_app`:
   go before the prompt's and whose KV is computed once.
 - `"speculative": true` (either mode, a model registered in `drafts`):
   batch-1 speculative decoding through `SpeculativeEngine`.
-The reference's other routes (SSE streams, stop sequences, text mode,
-scoring, drain, migration, reload, metrics, traces) are not ported yet.
+The reference's drain, migration, reload, `/v1/spec`, tracing and
+tenancy routes are not ported yet.
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 import logging
 import math
+import secrets
+import time
 from typing import Any
 
 import numpy as np
 from aiohttp import web
 
+from kubeflow_tpu_torch.obs.metrics import (
+    SIZE_BUCKETS,
+    TOKEN_BUCKETS,
+    Counter,
+    Gauge,
+    Registry,
+    get_or_create_histogram,
+)
 from kubeflow_tpu_torch.ops.cuda import launch_counts
 from kubeflow_tpu_torch.serving.continuous import (
     ContinuousBatcher,
@@ -48,12 +74,143 @@ from kubeflow_tpu_torch.serving.continuous import (
 from kubeflow_tpu_torch.serving.engine import InferenceEngine
 from kubeflow_tpu_torch.serving.speculative import SpeculativeEngine
 
+BYTE_OFFSET = 3  # 0=pad, 1=bos, 2=eos
+BOS, EOS = 1, 2
+
+
+def byte_encode(text: str) -> list[int]:
+    return [BOS] + [b + BYTE_OFFSET for b in text.encode("utf-8")]
+
+
+def byte_decode(tokens: list[int], on_dropped=None) -> str:
+    """Ids outside the byte range are dropped. Specials below the offset
+    (pad/bos/eos) are expected in generated rows and stay silent; ids
+    past the byte range (the model's vocab tail: tokenizer/model drift)
+    are counted through `on_dropped(count)`."""
+    kept = [t - BYTE_OFFSET for t in tokens
+            if BYTE_OFFSET <= t < BYTE_OFFSET + 256]
+    if on_dropped is not None:
+        tail = sum(1 for t in tokens if t >= BYTE_OFFSET + 256)
+        if tail:
+            on_dropped(tail)
+    return bytes(kept).decode("utf-8", errors="replace")
+
+
 ENGINES_KEY: web.AppKey = web.AppKey("engines", dict)
 BATCHERS_KEY: web.AppKey = web.AppKey("batchers", dict)
 SPEC_KEY: web.AppKey = web.AppKey("speculative", dict)
 GPU_LOCK_KEY: web.AppKey = web.AppKey("gpu_lock", asyncio.Lock)
+TOKENIZER_KEY: web.AppKey = web.AppKey("tokenizer", object)
+OBS_KEY: web.AppKey = web.AppKey("obs", object)
+
+# Server-side decode granularity of a one-shot SSE stream: fixed (not a
+# client knob), as the reference's.
+STREAM_CHUNK = 8
+# Retry-After ceiling: past this, a client should go to another replica
+# rather than wait on this one.
+RETRY_AFTER_CAP_S = 60
+# The tenant label of a tenant-blind deployment: the reference's label
+# guard maps the empty identity to its overflow bucket.
+TENANT_BLIND = "other"
+# prefill token sources the port has (the reference's fourth,
+# peer_fetched, needs the peer block fetch: ROADMAP Queue 1 item 5)
+PREFILL_SOURCES = ("computed", "reused", "restored")
 
 log = logging.getLogger(__name__)
+
+
+class ServingObs:
+    """The app's metric registry and the serving families whose sources
+    the port has, under the reference's names, help, labels and buckets.
+    `/metrics` renders the registry."""
+
+    def __init__(self):
+        self.registry = reg = Registry()
+        self.request_latency = get_or_create_histogram(
+            reg, "serving_request_duration_seconds",
+            "Serving HTTP request latency by route/method")
+        self.ttft = get_or_create_histogram(
+            reg, "serving_time_to_first_token_seconds",
+            "Request arrival to first generated token, per model "
+            "(streaming: first token on the wire; one-shot: full "
+            "generation, an upper bound)")
+        self.batch_size = get_or_create_histogram(
+            reg, "serving_batch_size",
+            "Requests co-scheduled per engine invocation",
+            buckets=SIZE_BUCKETS)
+        self.prefix_hits = Counter(
+            "serving_prefix_cache_hits_total",
+            "Admissions that reused cached KV cells (radix prefix "
+            "cache or a registered prefix)", reg)
+        self.prefix_misses = Counter(
+            "serving_prefix_cache_misses_total",
+            "Admissions that prefilled their whole prompt (no cached "
+            "prefix matched)", reg)
+        self.kv_blocks = Gauge(
+            "serving_kv_blocks_in_use",
+            "KV pool blocks held by active requests plus the radix "
+            "prefix cache, per model", reg)
+        self.prefill_tokens = get_or_create_histogram(
+            reg, "serving_prefill_tokens",
+            "Per-admission prompt tokens by source: computed (suffix "
+            "actually prefilled), reused (served from device-resident "
+            "cached KV), restored (host spill tier, host->device "
+            "copy)", buckets=TOKEN_BUCKETS)
+        self.dropped_tokens = Counter(
+            "serving_tokenizer_dropped_tokens_total",
+            "Generated token ids outside the byte-decoder's range "
+            "(vocab tail / specials) dropped from text responses — "
+            "nonzero means tokenizer/model drift", reg)
+        self.attention_impl = Gauge(
+            "serving_attention_impl",
+            "Resolved paged-attention impl per model (info gauge: "
+            "value 1, impl in the label)", reg)
+        self.itl = get_or_create_histogram(
+            reg, "serving_itl_seconds",
+            "Inter-token latency: gap between consecutive decode "
+            "tokens of one request, per model (gaps spanning a "
+            "preempt/resume hole are excluded — those measure "
+            "scheduling, see serving_queue_wait_seconds)")
+        self.queue_wait = get_or_create_histogram(
+            reg, "serving_queue_wait_seconds",
+            "Enqueue to first admission into the decode batch, per "
+            "model (scheduling delay; excludes prefill)")
+
+
+_OBS_T0 = "obs_request_start"
+_OBS_TTFT_DONE = "obs_ttft_recorded"
+
+
+def _observe_first_token(request: web.Request, model: str) -> None:
+    """Record time-to-first-token once per request: streams at their
+    first token on the wire, the other paths after generation."""
+    t0 = request.get(_OBS_T0)
+    if t0 is None or request.get(_OBS_TTFT_DONE):
+        return
+    request[_OBS_TTFT_DONE] = True
+    request.app[OBS_KEY].ttft.observe(time.perf_counter() - t0, model=model)
+
+
+def _observed(route: str, handler):
+    """`handler` feeding the latency histogram of every response it
+    gives, labelled by route PATTERN (`/v1/models/{name}:generate`),
+    never the raw path, so label cardinality does not grow with the
+    names clients probe. The reference does this in a middleware; a
+    wrapper per route does the same for every routed request (a path no
+    route matches is not observed) and keeps the app out of aiohttp's
+    process-wide middleware cache, which would hold every app built in a
+    process alive, engines and KV pools included."""
+
+    async def observed(request: web.Request):
+        request[_OBS_T0] = time.perf_counter()
+        try:
+            return await handler(request)
+        finally:
+            request.app[OBS_KEY].request_latency.observe(
+                time.perf_counter() - request[_OBS_T0], route=route,
+                method=request.method)
+
+    return observed
 
 
 class Batcher:
@@ -66,7 +223,9 @@ class Batcher:
     prompt width and max_new are bucketed to powers of two; filler rows
     decode greedily; each caller gets its own row trimmed to its own
     max_new, with the logprobs of its tokens. `calls` counts engine
-    calls and `requests` the requests they served (counted on success).
+    calls and `requests` the requests they served (counted on success);
+    `on_batch(n)`, when set, is called with each successful call's
+    request count.
     """
 
     def __init__(self, engine: InferenceEngine, gpu_lock: asyncio.Lock, *,
@@ -77,6 +236,7 @@ class Batcher:
         self.max_batch = max_batch
         self.calls = 0
         self.requests = 0
+        self.on_batch = None
         self._queue: asyncio.Queue = asyncio.Queue()
         self._worker: asyncio.Task | None = None
         self._inflight: list = []   # dequeued but unresolved (see close)
@@ -163,6 +323,8 @@ class Batcher:
                 out, lps = await loop.run_in_executor(None, run)
             self.calls += 1
             self.requests += len(items)
+            if self.on_batch is not None:
+                self.on_batch(len(items))
             for i, (_, mn, _, fut) in enumerate(items):
                 if not fut.done():
                     fut.set_result((out[i, :mn].tolist(),
@@ -192,6 +354,7 @@ class Batcher:
 
 
 def create_serving_app(engines: dict[str, InferenceEngine], *,
+                       tokenizer=None,
                        batch_window_ms: float = 0.0, max_batch: int = 8,
                        continuous: bool = False, warmup: bool = False,
                        prefill_chunk: int | None = None,
@@ -210,17 +373,23 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
     `max_batch` slots on the paged KV pool: monolithic admission unless
     `prefill_chunk_tokens` sets a chunked-prefill budget;
     `prefill_chunk` slices long monolithic prefills; `pipeline_depth`
-    (None: 2 on CUDA, 1 on the CPU) is the decode dispatch-ahead depth;
-    `kv_block_size` the pool's block, `kv_pool_blocks` its size (None:
-    every slot at max_len), `kv_spill_bytes` the host spill tier's
-    budget (None: off); `prefixes` maps names to registered prefix
-    tokens; `seed` seeds the sampler.
+    (None: 2 on CUDA, 1 on the CPU) is the decode
+    dispatch-ahead depth; `kv_block_size` the pool's block,
+    `kv_pool_blocks` its size (None: every slot at max_len),
+    `kv_spill_bytes` the host spill tier's budget (None: off);
+    `prefixes` maps names to registered prefix tokens; `seed` seeds the
+    sampler.
+    `tokenizer` (data/bpe.py's `Tokenizer`, or anything with encode,
+    decode and vocab_size) serves the "text" request field; without one
+    the byte-level fallback applies. A tokenizer whose vocab exceeds a
+    model's is refused here, not per request.
     `warmup=True` runs every serving shape in an on_startup hook before
     the app takes traffic: the continuous batchers' `warmup`, or in the
     one-shot mode each engine's decode graphs for the window batcher's
     row counts (powers of two up to max_batch). `drafts` maps model
     names to draft engines; a request with "speculative": true then
-    decodes through `SpeculativeEngine`."""
+    decodes through `SpeculativeEngine`. The app's metric registry
+    (`app[OBS_KEY].registry`) is rendered at `/metrics`."""
     if not continuous and (prefill_chunk is not None
                            or prefill_chunk_tokens is not None
                            or pipeline_depth is not None
@@ -237,8 +406,20 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
     if unknown:
         raise ValueError(f"drafts registered for unknown models "
                          f"{sorted(unknown)}")
+    tok_vocab = getattr(tokenizer, "vocab_size", None)
+    if tok_vocab is not None:
+        # fail at start-up: ids past a model's vocab would 400 every
+        # text request with a confusing range error
+        for name, eng in engines.items():
+            if tok_vocab > eng.cfg.vocab_size:
+                raise ValueError(
+                    f"tokenizer vocab {tok_vocab} exceeds model "
+                    f"{name!r} vocab {eng.cfg.vocab_size}")
     app = web.Application()
+    sobs = ServingObs()
+    app[OBS_KEY] = sobs
     app[ENGINES_KEY] = dict(engines)
+    app[TOKENIZER_KEY] = tokenizer
     app[SPEC_KEY] = {name: SpeculativeEngine(engines[name], draft)
                      for name, draft in (drafts or {}).items()}
     # one inference at a time per process: the card is the bottleneck
@@ -260,6 +441,19 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
                            max_batch=max_batch)
              for name, eng in engines.items()}
             if batch_window_ms > 0 else {})
+    for name, b in app[BATCHERS_KEY].items():
+        if isinstance(b, Batcher):
+            b.on_batch = (lambda n, _m=name:
+                          sobs.batch_size.observe(n, model=_m))
+        else:
+            _wire_continuous_metrics(sobs, name, b)
+    if continuous:
+        def collect_kv_blocks():
+            # refreshed at render: /metrics reads the live pool
+            for _m, _b in app[BATCHERS_KEY].items():
+                sobs.kv_blocks.set(_b.kv_blocks_in_use(), model=_m)
+
+        sobs.registry.register_collector(collect_kv_blocks)
     if warmup:
         rows = [1]
         while rows[-1] < max_batch:
@@ -282,11 +476,56 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
             await b.close()
 
     app.on_cleanup.append(_close_batchers)
-    app.router.add_get("/healthz", healthz)
-    app.router.add_get("/readyz", _ok)
-    app.router.add_get("/v1/models", list_models)
-    app.router.add_post("/v1/models/{name}:generate", generate)
+
+    async def render_metrics(_request: web.Request) -> web.Response:
+        return web.Response(text=sobs.registry.render(),
+                            content_type="text/plain")
+
+    get, post = app.router.add_get, app.router.add_post
+    for add, route, handler in (
+            (get, "/healthz", healthz),
+            (get, "/readyz", _ok),
+            (get, "/metrics", render_metrics),
+            (get, "/v1/models", list_models),
+            (get, "/v1/requests/timelines", request_timelines_index),
+            (get, "/v1/requests/{id}/timeline", request_timeline),
+            (post, "/v1/models/{name}:generate", generate),
+            (post, "/v1/models/{name}:score", score)):
+        add(route, _observed(route, handler))
     return app
+
+
+def _wire_continuous_metrics(sobs: ServingObs, model: str,
+                             b: ContinuousBatcher) -> None:
+    """Bind a continuous batcher's hooks to the app's families and seed
+    their series at zero, as the reference does."""
+
+    def on_prefix(computed, reused, hit, tenant="", restored=0):
+        fam = sobs.prefix_hits if hit else sobs.prefix_misses
+        fam.inc(model=model)
+        fam.inc(model=model, tenant=tenant or TENANT_BLIND)
+        sobs.prefill_tokens.observe(computed, model=model,
+                                    source="computed")
+        # restored cells are radix hits whose content came off the host
+        # spill tier: split out of `reused`, the two partition the cells
+        restored = max(0, min(int(restored), int(reused)))
+        if reused - restored:
+            sobs.prefill_tokens.observe(reused - restored, model=model,
+                                        source="reused")
+        if restored:
+            sobs.prefill_tokens.observe(restored, model=model,
+                                        source="restored")
+
+    b.on_prefix = on_prefix
+    b.on_itl = lambda gap: sobs.itl.observe(gap, model=model)
+    b.on_queue_wait = lambda wait: sobs.queue_wait.observe(wait,
+                                                           model=model)
+    for fam in (sobs.prefix_hits, sobs.prefix_misses):
+        fam.inc(0, model=model)
+        fam.inc(0, model=model, tenant=TENANT_BLIND)
+    for source in PREFILL_SOURCES:
+        sobs.prefill_tokens.seed(model=model, source=source)
+    sobs.attention_impl.set(1, model=model, impl=b.cengine.attention_impl)
 
 
 async def _ok(request: web.Request):
@@ -354,6 +593,31 @@ async def list_models(request: web.Request):
                               "kernel_launches": launch_counts()})
 
 
+async def request_timeline(request: web.Request):
+    """One request's timeline by its X-Request-Id, live or finished,
+    while the bounded store holds it."""
+    rid = request.match_info["id"]
+    for b in request.app[BATCHERS_KEY].values():
+        if isinstance(b, ContinuousBatcher):
+            tl = b.timelines.get(rid)
+            if tl is not None:
+                return web.json_response(tl.to_dict())
+    return web.json_response(
+        {"error": f"no timeline for request {rid!r} (timelines "
+                  "exist for continuous-batching requests only, "
+                  "and the store is bounded)"},
+        status=404)
+
+
+async def request_timelines_index(request: web.Request):
+    """Every id the bounded stores still hold, oldest first per model."""
+    ids: list[str] = []
+    for b in request.app[BATCHERS_KEY].values():
+        if isinstance(b, ContinuousBatcher):
+            ids.extend(b.timelines.ids())
+    return web.json_response({"requests": ids})
+
+
 def _bad(msg: str) -> web.Response:
     return web.json_response({"error": msg}, status=400)
 
@@ -365,26 +629,250 @@ async def _on_device(request: web.Request, fn):
         return await loop.run_in_executor(None, fn)
 
 
+def _retry_after_s(batcher: ContinuousBatcher) -> str:
+    """Retry-After of an Overloaded 429: when the backlog should clear,
+    queue depth x the recent per-request service time over the slot
+    count, clamped to [1, RETRY_AFTER_CAP_S] whole seconds."""
+    slots = max(1, len(batcher._free) + len(batcher._active))
+    # service_ewma is 0.0 until the first completion: a second a
+    # request, the old constant, is then the floor
+    est = (len(batcher._pending) + 1) * (batcher.service_ewma or 1.0) / slots
+    return str(max(1, min(RETRY_AFTER_CAP_S, math.ceil(est))))
+
+
+def _overloaded(batcher: ContinuousBatcher, e: Overloaded) -> web.Response:
+    return web.json_response(
+        {"error": f"server overloaded: {e}"}, status=429,
+        headers={"Retry-After": _retry_after_s(batcher)})
+
+
+def _decode_text(request: web.Request, model: str, ids: list[int]) -> str:
+    tokenizer = request.app[TOKENIZER_KEY]
+    if tokenizer is not None:
+        return tokenizer.decode(ids)
+    sobs = request.app[OBS_KEY]
+    return byte_decode(
+        ids, on_dropped=lambda n: sobs.dropped_tokens.inc(n, model=model))
+
+
+def _sse(obj: dict) -> bytes:
+    return b"data: " + json.dumps(obj).encode() + b"\n\n"
+
+
+_SSE_HEADERS = {"Content-Type": "text/event-stream",
+                "Cache-Control": "no-cache", "X-Accel-Buffering": "no"}
+
+
+async def _stream_generate(request: web.Request, engine: InferenceEngine,
+                           arr: np.ndarray, max_new: int, sampling: dict,
+                           text_mode: bool) -> web.StreamResponse:
+    """SSE over the one-shot engine: `data: {"tokens": [[...]]}` per
+    decoded chunk of STREAM_CHUNK tokens, then the terminal record. The
+    stream ends early once every row hits EOS. The gpu lock is held for
+    each chunk's device work only, never across the client write, so a
+    slow reader holds back its own stream and no other request."""
+    # the generator validates eagerly: an argument the handler's checks
+    # missed is still a clean 400, never a 200 that dies mid-stream
+    try:
+        gen = engine.generate_stream(arr, max_new=max_new,
+                                     chunk=STREAM_CHUNK, **sampling)
+    except ValueError as e:
+        return _bad(str(e))
+    model = request.match_info.get("name", "")
+    resp = web.StreamResponse(headers=_SSE_HEADERS)
+    await resp.prepare(request)
+    loop = asyncio.get_running_loop()
+    chunks: list[np.ndarray] = []
+    error: str | None = None
+    while True:
+        try:
+            async with request.app[GPU_LOCK_KEY]:
+                part = await loop.run_in_executor(None, next, gen, None)
+        except Exception as e:  # noqa: BLE001 — headers are out
+            # a raise here would abort the connection like a network
+            # drop: end with a terminal error record instead
+            log.exception("decode failed mid-stream")
+            error = f"{type(e).__name__}: {e}"
+            break
+        if part is None:
+            break
+        chunks.append(part)
+        _observe_first_token(request, model)
+        await resp.write(_sse({"tokens": part.tolist()}))
+    total = int(sum(c.shape[1] for c in chunks))
+    if error is not None:
+        final: dict[str, Any] = {"error": error, "total": total}
+    else:
+        final = {"done": True, "total": total}
+        if text_mode and chunks:
+            final["text"] = _decode_text(
+                request, model, np.concatenate(chunks, axis=1)[0].tolist())
+    await resp.write(_sse(final))
+    await resp.write_eof()
+    return resp
+
+
+async def _stream_continuous(request: web.Request,
+                             batcher: ContinuousBatcher, tokens: list[int],
+                             max_new: int, sampling: dict,
+                             text_mode: bool) -> web.StreamResponse:
+    """SSE through the continuous batcher: one event per emitted token
+    (`data: {"tokens": [[t]]}`), then the same terminal record as
+    `_stream_generate`. Concurrent streams share the slot batch; each
+    consumer awaits its own tokens, never the gpu lock."""
+    try:
+        # enqueue before the SSE headers: admission errors, Overloaded
+        # included, are a clean 429/4xx, never a mid-stream abort
+        fut, q = batcher.open_stream(tokens, max_new, sampling)
+    except Overloaded as e:
+        return _overloaded(batcher, e)
+    model = request.match_info.get("name", "")
+    resp = web.StreamResponse(headers={
+        **_SSE_HEADERS, "X-Request-Id": sampling["request_id"]})
+    ids: list[int] = []
+    error: str | None = None
+    try:
+        await resp.prepare(request)
+        while True:
+            tok = await q.get()
+            if tok is None:
+                break
+            ids.append(tok)
+            _observe_first_token(request, model)
+            await resp.write(_sse({"tokens": [[tok]]}))
+        try:
+            await fut   # admission and step errors surface after drain
+        except Exception as e:  # noqa: BLE001 — headers are out
+            log.exception("continuous decode failed mid-stream")
+            error = f"{type(e).__name__}: {e}"
+    finally:
+        if not fut.done():
+            fut.cancel()   # consumer gone: release the slot
+    if error is not None:
+        final: dict[str, Any] = {"error": error, "total": len(ids)}
+    else:
+        final = {"done": True, "total": len(ids)}
+        if text_mode and ids:
+            final["text"] = _decode_text(request, model, ids)
+    await resp.write(_sse(final))
+    await resp.write_eof()
+    return resp
+
+
+def _parse_token_lists(body: dict, tokenizer, *, min_len: int):
+    """Token rows from "text" or "tokens", the one parser of the
+    generate and score doors. -> (token_lists, text_mode) or a 400
+    response. `min_len` is the per-row floor: 1 to generate, 2 to score
+    (a single token has nothing to predict)."""
+    text_mode = "text" in body
+    if text_mode:
+        if not isinstance(body["text"], str):
+            return _bad("'text' must be a string")
+        token_lists = [tokenizer.encode(body["text"], bos=True)
+                       if tokenizer else byte_encode(body["text"])]
+        if len(token_lists[0]) < min_len:
+            return _bad(f"text encodes to fewer than {min_len} tokens (at "
+                        "least 2 needed to score)"
+                        if min_len > 1 else "text encodes to no tokens")
+    elif "tokens" in body:
+        token_lists = body["tokens"]
+        if (not isinstance(token_lists, list) or not token_lists
+                or not all(
+                    isinstance(t, list) and len(t) >= min_len
+                    and all(isinstance(x, int) and not isinstance(x, bool)
+                            for x in t)
+                    for t in token_lists)):
+            return _bad("tokens must be a non-empty list of integer "
+                        f"token-id lists with at least {min_len} "
+                        "token(s) each")
+    else:
+        return _bad("body needs 'text' or 'tokens'")
+    return token_lists, text_mode
+
+
+async def _json_body(request: web.Request):
+    """The request's JSON object, or a 400 response."""
+    try:
+        body = await request.json()
+    except ValueError:
+        return _bad("invalid JSON")
+    if not isinstance(body, dict):
+        return _bad("body must be a JSON object")
+    return body
+
+
+def _token_array(token_lists, vocab: int):
+    """-> int64 [rows, len] of in-range ids, or a 400 response."""
+    try:
+        arr = np.asarray(token_lists, dtype=np.int64)
+    except OverflowError:
+        return _bad(f"token ids must be in [0, {vocab})")
+    if arr.min() < 0 or arr.max() >= vocab:
+        return _bad(f"token ids must be in [0, {vocab})")
+    return arr
+
+
+async def score(request: web.Request):
+    """Teacher-forced scoring: log P(token_i | prefix) of a given
+    sequence (the perplexity / eval door). Body {"tokens": [[...]]} or
+    {"text": "..."}; response: per-position logprobs (s - 1 a row), each
+    row's total, and the count. One forward of the one-shot engine."""
+    name = request.match_info["name"]
+    engine = request.app[ENGINES_KEY].get(name)
+    if engine is None:
+        return web.json_response({"error": f"no model {name!r}"},
+                                 status=404)
+    body = await _json_body(request)
+    if isinstance(body, web.Response):
+        return body
+    parsed = _parse_token_lists(body, request.app[TOKENIZER_KEY],
+                                min_len=2)
+    if isinstance(parsed, web.Response):
+        return parsed
+    token_lists, _ = parsed
+    if len({len(t) for t in token_lists}) != 1:
+        return _bad("all rows must share a length (static shapes)")
+    if len(token_lists[0]) > engine.ec.max_len:
+        return _bad(f"sequence {len(token_lists[0])} exceeds model "
+                    f"max_len {engine.ec.max_len}")
+    arr = _token_array(token_lists, engine.cfg.vocab_size)
+    if isinstance(arr, web.Response):
+        return arr
+    lps = await _on_device(request,
+                           lambda: engine.score(arr).cpu().numpy())
+    return web.json_response({
+        "logprobs": [[round(float(x), 6) for x in row] for row in lps],
+        "total": [round(float(row.sum()), 6) for row in lps],
+        "count": int(arr.shape[1] - 1),
+    })
+
+
+def _apply_stop(row: list[int], stop: list[list[int]]) -> list[int]:
+    """Cut `row` before the earliest occurrence of any stop sequence."""
+    cut = None
+    for seq in stop:
+        n = len(seq)
+        for i in range(len(row) - n + 1):
+            if row[i:i + n] == seq:
+                cut = i if cut is None else min(cut, i)
+                break
+    return row if cut is None else row[:cut]
+
+
 async def generate(request: web.Request):
     name = request.match_info["name"]
     engine = request.app[ENGINES_KEY].get(name)
     if engine is None:
         return web.json_response({"error": f"no model {name!r}"},
                                  status=404)
-    try:
-        body: dict[str, Any] = await request.json()
-    except ValueError:
-        return _bad("invalid JSON")
-    if not isinstance(body, dict):
-        return _bad("body must be a JSON object")
-    token_lists = body.get("tokens")
-    if (not isinstance(token_lists, list) or not token_lists
-            or not all(isinstance(t, list) and len(t) >= 1
-                       and all(isinstance(x, int)
-                               and not isinstance(x, bool) for x in t)
-                       for t in token_lists)):
-        return _bad("tokens must be a non-empty list of integer token-id "
-                    "lists with at least 1 token(s) each")
+    body = await _json_body(request)
+    if isinstance(body, web.Response):
+        return body
+    tokenizer = request.app[TOKENIZER_KEY]
+    parsed = _parse_token_lists(body, tokenizer, min_len=1)
+    if isinstance(parsed, web.Response):
+        return parsed
+    token_lists, text_mode = parsed
     max_new = body.get("max_new", 16)
     if not isinstance(max_new, int) or isinstance(max_new, bool) \
             or max_new < 1:
@@ -409,12 +897,27 @@ async def generate(request: web.Request):
                 or isinstance(top_p, bool) or not 0.0 < top_p <= 1.0:
             return _bad("top_p must be in (0, 1]")
         sampling["top_p"] = float(top_p)
+    adapter = body.get("adapter", "")
+    if not isinstance(adapter, str):
+        return _bad("adapter must be a string")
+    if adapter:
+        # no adapter pack is ported (ROADMAP Queue 1 item 6): the
+        # reference's answer for a model without one
+        return _bad(f"model {name!r} has no adapters loaded")
     prefix = body.get("prefix", "")
     if not isinstance(prefix, str):
         return _bad("prefix must be a string")
     logprobs = body.get("logprobs", False)
     if not isinstance(logprobs, bool):
         return _bad("logprobs must be a boolean")
+    stop = body.get("stop", [])
+    if (not isinstance(stop, list) or len(stop) > 4
+            or not all(isinstance(s, list) and 0 < len(s) <= 16
+                       and all(isinstance(t, int)
+                               and not isinstance(t, bool) for t in s)
+                       for s in stop)):
+        return _bad("stop must be up to 4 non-empty token-id lists of at "
+                    "most 16 tokens")
     lens = {len(t) for t in token_lists}
     if len(lens) != 1:
         return _bad("all prompts in a batch must share a length "
@@ -424,12 +927,6 @@ async def generate(request: web.Request):
     if prompt_len + max_new > cap:
         return _bad(f"prompt {prompt_len} + max_new {max_new} exceeds "
                     f"model max_len {cap}")
-    vocab = engine.cfg.vocab_size
-    if any(x < 0 or x >= vocab for t in token_lists for x in t):
-        return _bad(f"token ids must be in [0, {vocab})")
-    speculative = body.get("speculative", False)
-    if not isinstance(speculative, bool):
-        return _bad("speculative must be a boolean")
     batcher = request.app[BATCHERS_KEY].get(name)
     if prefix:
         if not isinstance(batcher, ContinuousBatcher):
@@ -439,21 +936,51 @@ async def generate(request: web.Request):
                         f"{sorted(batcher._prefixes)}")
         if len(token_lists) != 1:
             return _bad("prefix requests are single-prompt")
-        if speculative:
+        if body.get("speculative", False) is True:
             return _bad("prefix does not compose with speculative")
         plen = len(batcher._prefixes[prefix])
         if plen + prompt_len + max_new > cap:
             return _bad(f"prefix {plen} + prompt {prompt_len} + max_new "
                         f"{max_new} exceeds model max_len {cap}")
         sampling["prefix"] = prefix
-    gamma = body.get("gamma", 4)
-    if not isinstance(gamma, int) or isinstance(gamma, bool) or gamma < 1:
-        return _bad("gamma must be a positive integer")
-    arr = np.asarray(token_lists, np.int64)
+    arr = _token_array(token_lists, engine.cfg.vocab_size)
+    if isinstance(arr, web.Response):
+        return arr
+    speculative = body.get("speculative", False)
+    if not isinstance(speculative, bool):
+        return _bad("speculative must be a boolean")
     # the one-shot paths generate to a power-of-two bucket of max_new
     # and trim the response back to the ask
     max_new_req = max_new
     max_new = max(bucket_pow2(max_new, cap - prompt_len), max_new_req)
+    gamma = body.get("gamma", 4)
+    if not isinstance(gamma, int) or isinstance(gamma, bool) or gamma < 1:
+        return _bad("gamma must be a positive integer")
+    stream = body.get("stream", False)
+    if not isinstance(stream, bool):
+        return _bad("stream must be a boolean")
+    continuous = isinstance(batcher, ContinuousBatcher)
+    req_id = None
+    if continuous:
+        # the timeline's key, echoed as X-Request-Id; a client's (a
+        # router's) id wins, so a resumed request keeps its timeline
+        req_id = request.headers.get("X-Request-Id") or secrets.token_hex(8)
+    if stream:
+        if speculative:
+            return _bad("stream does not compose with speculative")
+        if stop:
+            # a streamed stop would need partial-match buffering so as
+            # not to emit half a stop sequence
+            return _bad("stop does not compose with stream")
+        if logprobs:
+            return _bad("logprobs does not compose with stream")
+        if continuous and arr.shape[0] == 1:
+            return await _stream_continuous(
+                request, batcher, token_lists[0], max_new_req,
+                {**sampling, "request_id": req_id}, text_mode)
+        return await _stream_generate(request, engine, arr, max_new_req,
+                                      sampling, text_mode)
+
     resp: dict[str, Any] = {}
     lp_rows = None
     if speculative:
@@ -485,6 +1012,7 @@ async def generate(request: web.Request):
             return toks_.cpu().numpy(), stats_
 
         toks, stats = await _on_device(request, run_spec)
+        _observe_first_token(request, name)
         # the speculative engine does not special-case EOS; pin the tail
         # after the first EOS as the plain path does
         eos = engine.ec.eos_token
@@ -499,15 +1027,23 @@ async def generate(request: web.Request):
             "gamma": gamma,   # the effective (bucketed) window
         }
         rows = toks[:, :max_new_req].tolist()
-    elif isinstance(batcher, ContinuousBatcher):
+    elif continuous:
+        submit = dict(sampling)
+        if stop:
+            # the batcher retires the slot the moment a stop sequence
+            # completes; the post-trim below is then a no-op
+            submit["stop"] = stop
+        if len(token_lists) == 1:
+            submit["request_id"] = req_id
+        else:
+            req_id = None   # rows keep the batcher's own timeline ids
         try:
             results = await asyncio.gather(*(
-                batcher.submit(t, max_new_req, sampling, with_logprobs=True)
+                batcher.submit(t, max_new_req, submit, with_logprobs=True)
                 for t in token_lists))
         except Overloaded as e:
-            return web.json_response(
-                {"error": f"server overloaded: {e}"}, status=429,
-                headers={"Retry-After": "1"})
+            return _overloaded(batcher, e)
+        _observe_first_token(request, name)
         rows = [list(toks) for toks, _ in results]
         lp_rows = [list(lps) for _, lps in results]
     elif batcher is not None and arr.shape[0] == 1:
@@ -515,6 +1051,7 @@ async def generate(request: web.Request):
         # batches keep their one-shot call
         toks, lps = await batcher.submit(token_lists[0], max_new_req,
                                          sampling)
+        _observe_first_token(request, name)
         rows, lp_rows = [toks], [lps]
     else:
         def run_direct():
@@ -523,8 +1060,16 @@ async def generate(request: web.Request):
             return toks_.cpu().numpy(), lps_.cpu().numpy()
 
         toks, lps = await _on_device(request, run_direct)
+        request.app[OBS_KEY].batch_size.observe(arr.shape[0], model=name)
+        _observe_first_token(request, name)
         rows = toks[:, :max_new_req].tolist()
         lp_rows = lps[:, :max_new_req].tolist()
+    if stop:
+        # OpenAI semantics on every path: the output ends before the
+        # earliest occurrence of a stop sequence
+        rows = [_apply_stop(r, stop) for r in rows]
+        if lp_rows is not None:
+            lp_rows = [lp[:len(r)] for lp, r in zip(lp_rows, rows)]
     resp["tokens"] = rows
     if logprobs:
         # entries cover tokens up to AND INCLUDING the row's first EOS
@@ -536,4 +1081,7 @@ async def generate(request: web.Request):
                 n = r.index(eos) + 1
             out_lps.append([round(float(x), 6) for x in lp[:n]])
         resp["logprobs"] = out_lps
-    return web.json_response(resp)
+    if text_mode:
+        resp["text"] = _decode_text(request, name, rows[0])
+    return web.json_response(
+        resp, headers={"X-Request-Id": req_id} if req_id else None)

@@ -1,5 +1,6 @@
 """Single-device training (counterpart: kubeflow_tpu/train/): the
-model-agnostic `Trainer` over llama's or gemma's `apply`."""
+model-agnostic `Trainer` over llama's or gemma's `apply`; checkpoints
+in train/checkpoint.py."""
 
 from kubeflow_tpu_torch.train.trainer import (
     TrainConfig,

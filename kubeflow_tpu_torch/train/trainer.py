@@ -8,7 +8,8 @@ card, eagerly: the loss and its gradients through autograd (the model's
 attention through the flash kernels' `autograd.Function`), then an AdamW
 update written out to match optax's, in place. There is no mesh, so no
 sharding rules; the reference's obs bridge (spans, histograms,
-PhaseProfiler, CompileWatch) and checkpoints are ROADMAP work.
+PhaseProfiler, CompileWatch) is ROADMAP work. Checkpoints:
+train/checkpoint.py.
 
 optax parity, where PyTorch's defaults differ:
 - the learning-rate schedule is evaluated at the update count before it
@@ -224,6 +225,13 @@ def make_optimizer(tc: TrainConfig, freeze_labels: Params | None = None
     return AdamW(tc)
 
 
+def _prep(tree: Params, device: torch.device) -> Params:
+    """Params on `device` as autograd leaves."""
+    return {k: _prep(v, device) if isinstance(v, dict)
+            else v.detach().to(device).requires_grad_(True)
+            for k, v in tree.items()}
+
+
 def _leaves(params: Params) -> list:
     """Leaves of a nested dict, in insertion order."""
     out = []
@@ -277,17 +285,24 @@ class Trainer:
         """Fresh optimizer state around existing params (fine-tuning).
         The params are moved to the device and become autograd leaves;
         tensors already there are used as they are, not copied."""
-        def prep(tree):
-            return {k: prep(v) if isinstance(v, dict)
-                    else v.detach().to(self.device).requires_grad_(True)
-                    for k, v in tree.items()}
+        params = _prep(params, self.device)
+        return self.state_from(params, self.optimizer.init(params), 0)
 
-        params = prep(params)
-        opt_state = self.optimizer.init(params)
+    def state_from(self, params: Params, opt_state: dict, step: int, *,
+                   device: torch.device | str | None = None) -> TrainState:
+        """A state around existing params and optimizer state (a restored
+        checkpoint: `{"count", "mu", "nu"}`, the moments in the order of
+        the params' leaves), on `device` (default: the trainer's). As in
+        `init_from_params`, tensors already there are not copied."""
+        device = self.device if device is None else torch.device(device)
+        params = _prep(params, device)
+        opt_state = {"count": int(opt_state["count"]),
+                     "mu": [t.to(device) for t in opt_state["mu"]],
+                     "nu": [t.to(device) for t in opt_state["nu"]]}
         self._n_params = sum(p.numel() for p in _leaves(params))
         self._opt_bytes = sum(t.numel() * t.element_size()
                               for t in opt_state["mu"] + opt_state["nu"])
-        return TrainState(params, opt_state, 0)
+        return TrainState(params, opt_state, int(step))
 
     def _value_and_grad(self, params, tokens, targets, mask):
         leaves = _leaves(params)

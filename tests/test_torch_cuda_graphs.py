@@ -202,3 +202,49 @@ def test_warmup_leaves_traffic_nothing_to_capture(params,
     for b in (1, 2, 4):
         eng.generate(_prompts(5, (33,) * b), max_new=8)
     assert eng.captures == warm
+
+
+@pytest.mark.cuda
+def test_concurrent_streams_with_a_stop_under_replay_equal_eager(params):
+    """Two continuous streams at once, the second with a stop sequence,
+    under graph replay at dispatch-ahead depth 2: each stream's tokens
+    equal the eager control's, the stop retires its slot where the stop
+    completes (a chunk in flight for it is dropped), and both streams
+    end with the None sentinel."""
+    prompts = _prompts(6, (130, 40))
+
+    def run(graphs):
+        batcher = ContinuousBatcher(_engine(params, graphs), asyncio.Lock(),
+                                    max_slots=4, prefill_chunk_tokens=64,
+                                    pipeline_depth=2, seed=0,
+                                    cuda_graphs=graphs)
+        if graphs:
+            batcher.warmup()
+
+        async def one(p, sampling):
+            return [t async for t in batcher.stream(p, 24, sampling)]
+
+        async def serve():
+            try:
+                plain = await one(prompts[1], {})
+                stop = plain[10:12]
+                got = await asyncio.gather(
+                    one(prompts[0], {}),
+                    one(prompts[1], {"stop": [stop],
+                                     "request_id": "stopped"}))
+                return plain, stop, got
+            finally:
+                await batcher.close()
+
+        out = asyncio.run(serve())
+        return out, batcher
+
+    (plain, stop, got), replayed = run(True)
+    (eplain, estop, egot), _ = run(False)
+    assert plain == eplain and got == egot
+    cut = next(i for i in range(len(plain)) if plain[i:i + 2] == stop)
+    assert got[1] == plain[:cut + 2]     # a stream carries the stop itself
+    assert len(replayed.timelines.get("stopped").tokens) == cut + 2
+    assert replayed.tokens_dropped <= replayed.pipeline_depth \
+        * replayed.chunk * 2
+    assert replayed.cengine.graphs.replays > 0

@@ -38,7 +38,9 @@ Phases, each fatal on failure (exit code 1, no result line):
              (llama3-8b: b 8, n_q 32, n_kv 8, max_len 1024, bf16): the
              window batch (one shared cursor, a left-pad run of another
              length per row), ragged cursors 0/255/256/1023, window 256,
-             the draft's batch 1 (llama3-1b heads, cursor 300) and the
+             the draft's batch 1 (llama3-1b heads, cursor 300), the
+             continuous spec rounds' draft step (8 rows of llama3-1b
+             heads at the verify cursors below, no kv_mask) and the
              window batch in fp32, each at 64- and 128-cell splits;
              times at the window batch and at batch 1 at both splits
              (and how many splits the pad skip drops) against SDPA over
@@ -53,6 +55,13 @@ Phases, each fatal on failure (exit code 1, no result line):
              batch 1; the same bounds and controls, SDPA with K/V
              repeated over the group, ptxas registers and spills of
              every hd-256 instantiation.
+             Then prefill-append at the speculative verify pass's shape
+             (phase 9), at llama3-8b's heads (n_q 32, n_kv 8, hd 128)
+             and again at gemma-2b's: 8 rows x gamma + 1 = 5 tokens at
+             cursors 0, 17, 255, 300, 511, 1019, 1021 (q_lens clamped to
+             the 3 cells left in the window) and a frozen-style row at
+             640; the bf16 bound and its control, timed against SDPA
+             over the gathered K/V.
 3. serve   — boots the port's HTTP server in-process (the CLI's
              `--model llama3-1b --random --seed 0 --continuous --warmup
              --prefill-chunk-tokens 64`; dispatch-ahead depth 2), whose
@@ -197,12 +206,49 @@ Phases, each fatal on failure (exit code 1, no result line):
              the same params streams a request equal to
              `engine.generate`'s tokens, `decode_attention` exactly 16 x
              63 per call. The checkpoint is deleted at the end.
+9. spec   — continuous speculative decoding: the CLI's app (`--model
+             llama3-8b --random --seed 0 --continuous --warmup
+             --prefill-chunk-tokens 64 --spec-decode --draft-model
+             llama3-1b --spec-gamma 4`: 8 slots, max_len 1024, the
+             draft random at seed 1), counters set to 0 just before the
+             traffic and read just after: 8 concurrent greedy prompts
+             (17, 45, 60, 90, 130, 200, 300 and again 17 tokens, max_new
+             32), then a 992-token prompt (prompt + max_new == max_len),
+             the 300-token prompt again (a radix hit seeding 299 cells)
+             and a sampled request (temperature 0.8, top_k 20). Checks no
+             graph is captured in traffic, exact launches
+             (`paged_prefill_append` 32 x (verify rounds + slices),
+             `decode_attention` 16 x (gamma + 1) per round,
+             `paged_decode_attention` 0), the repeats' tokens identical,
+             logprobs within 0.1 of the teacher-forced plain dense 8B
+             and the argmax where the top-2 margin exceeds 0.2, every
+             sampled token in the teacher-forced top 20 (boundary ties
+             within 0.05). Then `POST /v1/spec {"enabled": false}`: the
+             same 8 prompts decode through the plain graph chunks (paged
+             decode launches, no round), their tokens part from the
+             spec pass's only at near ties; `GET /v1/spec` reports it;
+             spec back on once drained. `/metrics` carries the
+             `serving_spec_acceptance` burn rates, one event per
+             proposed draft token. The switch-off wave starts from a
+             flushed radix cache, as the spec wave did; one round is
+             profiled in a wave of its own that nothing times. A
+             self-draft control (llama3-1b, lm_head x50, drafting for
+             itself): in fp32 it accepts every proposal and equals the
+             plain batcher's tokens; in bf16 it accepts at least 0.8 of
+             them and parts from the plain batcher's tokens only where
+             the teacher-forced margin is at most 50 x 0.2. Prints
+             rounds and acceptance, host ms a round, tokens/s of both
+             waves whole and of their decode alone, the device-busy
+             share of the profiled round and peak memory.
 Then prints the `kernels` JSON line (launches: the paged kernels' over
-phases 3, 3b, 3c and 8, each other kernel's over its phases (4 and 8
-for flash, 5 and 8 for dense decode); each kernel
+phases 3, 3b, 3c, 8 and 9's spec-off pass, each other kernel's over its
+phases (4 and 8 for flash, 5, 8 and 9 for dense decode); each kernel
 again as `<name>@gemma-2b`, timed in phase 2 at gemma-2b's shapes and
-counted over phase 6, or phase 7 for the flash kernels), the card's
-name and power limit, and last `{"ok": true, "device": {...}}`.
+counted over phase 6, or phase 7 for the flash kernels; and
+`paged_prefill_append@verify`, timed at the verify pass's shape and
+counted over phase 9's verify rounds, whose prefill slices count under
+`paged_prefill_append`), the card's name and power limit,
+and last `{"ok": true, "device": {...}}`.
 
 Exits non-zero without a result when CUDA is unavailable or the port's
 package is not beside this script. `--phases 1,8` runs only the phases
@@ -212,6 +258,7 @@ named (a debugging call: it prints no result line).
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import gc
 import json
 import os
@@ -315,6 +362,9 @@ GEMMA_2B = Geom("gemma-2b", 8, 1, 256, 18, repeat_kv=True)
 # suffix of a `kernels`-line name measured at gemma-2b's shapes (phase 2)
 # and launched by phase 6
 GEMMA = "@gemma-2b"
+# suffix of the prefill-append kernel measured at the speculative verify
+# pass's shape (phase 2) and launched by phase 9's spec waves
+VERIFY = "@verify"
 
 
 def fail(msg: str) -> None:
@@ -553,9 +603,10 @@ def _pad_splits(pos, mask, split):
 def check_dense_decode(torch, dev, wg=LLAMA_8B, g1=LLAMA_1B):
     """The dense decode kernel against its plain version at the one-shot
     path's shapes (the window batch of model `wg`: b 8, max_len 1024,
-    bf16; batch 1 of model `g1`, the speculative draft's at llama) at
-    64- and 128-cell splits, then timings at the window batch's shape
-    and at batch 1."""
+    bf16; batch 1 of model `g1`, the speculative draft's at llama) and
+    at the continuous spec rounds' draft step (b 8 of model `g1` at
+    ragged cursors, no kv_mask) at 64- and 128-cell splits, then timings
+    at the window batch's shape and at batch 1."""
     from kubeflow_tpu_torch.ops.cuda.decode_attention import (
         SPLIT_CELLS,
         decode_attention,
@@ -584,6 +635,10 @@ def check_dense_decode(torch, dev, wg=LLAMA_8B, g1=LLAMA_1B):
         "window_256": (b, wg, ragged_pos, ragged_mask, 256, dt),
         "batch1": (1, g1, torch.tensor([300], dtype=torch.int32),
                    torch.ones(1, MAX_LEN, dtype=torch.bool), None, dt),
+        # the continuous spec rounds' draft step: every slot's row of
+        # the dense draft cache at its own cursor, no left pad
+        "draft_rows": (b, g1, torch.tensor(VERIFY_STARTS, dtype=torch.int32),
+                       None, None, dt),
         "window_batch_fp32": (b, wg, window_pos, window_mask, None,
                               torch.float32),
     }
@@ -592,7 +647,7 @@ def check_dense_decode(torch, dev, wg=LLAMA_8B, g1=LLAMA_1B):
         q = torch.randn(rows, 1, g.n_q, g.hd, generator=gen).to(dev, dtype)
         k, v = (torch.randn(rows, MAX_LEN, g.n_kv, g.hd, generator=gen)
                 .to(dev, dtype) for _ in range(2))
-        args = (q, k, v, pos.to(dev), mask.to(dev))
+        args = (q, k, v, pos.to(dev), None if mask is None else mask.to(dev))
         want = decode_attention_plain(*args, window=window)
         for split in DENSE_SPLITS:
             got = decode_attention(*args, window=window, split_cells=split)
@@ -716,7 +771,7 @@ def _time_prefill(torch, g, kind, worst, calls, kp, vp, n):
         kg = kp[0][table.long()].reshape(b, NB * BS, g.n_kv, g.hd)
         vg = vp[0][table.long()].reshape(b, NB * BS, g.n_kv, g.hd)
         cells = torch.arange(NB * BS, device=dev)
-        qpos = starts[:, None] + torch.arange(CHUNK, device=dev)[None]
+        qpos = starts[:, None] + torch.arange(q.shape[1], device=dev)[None]
         amask = (mask[:, None, :] & (cells[None, None] <= qpos[:, :, None])
                  )[:, None]
         lib_args.append((q.transpose(1, 2), *_sdpa_kv(
@@ -748,55 +803,80 @@ def _prefill_dropped_diagonal():
     return mock.patch.object(attention, "_torch_attention", off_by_one)
 
 
-def check_prefill(torch, dev, g=LLAMA_1B):
+def _compare_prefill(torch, kp0, vp0, calls, window=None):
+    """Run the prefill calls (q, k_new, v_new, table, starts, lens, mask)
+    in order on the plain version and on the kernel, each on its own copy
+    of the pools kp0 / vp0; -> (max abs error over valid tokens, max err
+    / bf16 bound, the same for the dropped-diagonal control, pools equal
+    outside block 0)."""
     from kubeflow_tpu_torch.ops.cuda.prefill_append import (
         paged_prefill_append,
         paged_prefill_append_plain,
         prefill_bf16_slack,
     )
 
+    c_tol, rtol = FLASH_TOL["bfloat16"]
+    want = [kp0.clone(), vp0.clone()]
+    got = [kp0.clone(), vp0.clone()]
+    seen = {"got": [], "want": [], "bad": [], "mag": []}
+    for c in calls:
+        valid = [slice(0, n) for n in c[5].tolist()]
+        mag = prefill_bf16_slack(*c[:3], *want, *c[3:], window=window)
+        with _prefill_dropped_diagonal():
+            bad, _, _ = paged_prefill_append_plain(
+                *c[:3], want[0].clone(), want[1].clone(), *c[3:],
+                window=window)
+        wo, *want = paged_prefill_append_plain(
+            *c[:3], *want, *c[3:], window=window)
+        go, *got = paged_prefill_append(
+            *c[:3], *got, *c[3:], window=window)
+        torch.cuda.synchronize()
+        if not torch.isfinite(go).all():
+            fail("paged_prefill_append: non-finite output")
+        for key, x in (("got", go), ("want", wo), ("bad", bad),
+                       ("mag", mag)):
+            seen[key] += [x[i, t] for i, t in enumerate(valid)]
+    got_v, want_v, bad_v, mag_v = (torch.cat(seen[k]) for k in
+                                   ("got", "want", "bad", "mag"))
+    err, ratio = _flash_err(got_v, want_v, c_tol, rtol, mag_v)
+    control = _flash_err(bad_v, want_v, c_tol, rtol, mag_v)[1]
+    equal = all(torch.equal(g[1:], w[1:]) for g, w in zip(got, want))
+    return err, ratio, control, equal
+
+
+def _prefill_pools(torch, dev, g, gen):
+    shape = (g.layers, NUM_BLOCKS, BS, g.n_kv, g.hd)
+    return tuple(torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+                 for _ in range(2))
+
+
+def _report_prefill(g, name, result):
+    """Log one prefill case's check and fail it outside the bound, or
+    when the bound cannot see a dropped diagonal. -> its max abs error."""
+    err, ratio, control, equal = result
+    log(f"  prefill ({g.model}) {name}: max_abs_err {err:.3e}, err/tol "
+        f"max {ratio:.3f} ({BF16_TOL_TEXT}); dropped-diagonal control "
+        f"err/tol {control:.1f}; pools equal outside block 0: {equal}")
+    if ratio > 1 or not equal:
+        fail(f"paged_prefill_append {name}: err {err}, pools equal "
+             f"{equal}")
+    if control <= 1:
+        fail(f"the bf16 prefill bound cannot see a dropped diagonal "
+             f"({name}: {control})")
+    return err
+
+
+def check_prefill(torch, dev, g=LLAMA_1B):
     gen = torch.Generator().manual_seed(2)
     dt = torch.bfloat16
-    c_tol, rtol = FLASH_TOL["bfloat16"]
-    shape = (g.layers, NUM_BLOCKS, BS, g.n_kv, g.hd)
-    kp = torch.randn(shape, generator=gen).to(dev, dt)
-    vp = torch.randn(shape, generator=gen).to(dev, dt)
+    kp, vp = _prefill_pools(torch, dev, g, gen)
 
     def fresh(b):
         return tuple(torch.randn(b, CHUNK, n, g.hd, generator=gen)
                      .to(dev, dt) for n in (g.n_q, g.n_kv, g.n_kv))
 
     def compare(calls, window=None):
-        """Run the calls in order on the plain version and on the kernel,
-        each on its own copy of layer 0's pools; -> (max abs error over
-        valid tokens, max err / bf16 bound, the same for the dropped-
-        diagonal control, pools equal outside block 0)."""
-        want = [kp[0].clone(), vp[0].clone()]
-        got = [kp[0].clone(), vp[0].clone()]
-        seen = {"got": [], "want": [], "bad": [], "mag": []}
-        for c in calls:
-            valid = [slice(0, n) for n in c[5].tolist()]
-            mag = prefill_bf16_slack(*c[:3], *want, *c[3:], window=window)
-            with _prefill_dropped_diagonal():
-                bad, _, _ = paged_prefill_append_plain(
-                    *c[:3], want[0].clone(), want[1].clone(), *c[3:],
-                    window=window)
-            wo, *want = paged_prefill_append_plain(
-                *c[:3], *want, *c[3:], window=window)
-            go, *got = paged_prefill_append(
-                *c[:3], *got, *c[3:], window=window)
-            torch.cuda.synchronize()
-            if not torch.isfinite(go).all():
-                fail("paged_prefill_append: non-finite output")
-            for key, x in (("got", go), ("want", wo), ("bad", bad),
-                           ("mag", mag)):
-                seen[key] += [x[i, t] for i, t in enumerate(valid)]
-        got_v, want_v, bad_v, mag_v = (torch.cat(seen[k]) for k in
-                                       ("got", "want", "bad", "mag"))
-        err, ratio = _flash_err(got_v, want_v, c_tol, rtol, mag_v)
-        control = _flash_err(bad_v, want_v, c_tol, rtol, mag_v)[1]
-        equal = all(torch.equal(g[1:], w[1:]) for g, w in zip(got, want))
-        return err, ratio, control, equal
+        return _compare_prefill(torch, kp[0], vp[0], calls, window)
 
     # batches of 4 rows: ragged q_lens including 0
     rows = 4
@@ -852,18 +932,8 @@ def check_prefill(torch, dev, g=LLAMA_1B):
             torch.ones(rows, dtype=torch.int32, device=dev), mask.to(dev))
     results["capped_repeat"] = (call, compare([call]))
 
-    worst = 0.0
-    for name, (_, (err, ratio, control, equal)) in results.items():
-        log(f"  prefill ({g.model}) {name}: max_abs_err {err:.3e}, err/tol "
-            f"max {ratio:.3f} ({BF16_TOL_TEXT}); dropped-diagonal control "
-            f"err/tol {control:.1f}; pools equal outside block 0: {equal}")
-        if ratio > 1 or not equal:
-            fail(f"paged_prefill_append {name}: err {err}, pools equal "
-                 f"{equal}")
-        if control <= 1:
-            fail(f"the bf16 prefill bound cannot see a dropped diagonal "
-                 f"({name}: {control})")
-        worst = max(worst, err)
+    worst = max(_report_prefill(g, name, result)
+                for name, (_, result) in results.items())
     for part, marker in (("tensor-core attention",
                           f"prefill_attention_tc_kernelILi{g.hd}E"),
                          ("scatter", "scatter_kernelI13__nv_bfloat16")):
@@ -878,6 +948,44 @@ def check_prefill(torch, dev, g=LLAMA_1B):
         f"prompt (the main path's shape; mean per slice)", worst, slices, kp,
         vp, 10 * g.layers)
     return path, batch
+
+
+# the speculative verify pass's shape (phase 9): every slot feeds
+# [tok, d_1..d_gamma] at its own cursor; a row near the window's end
+# feeds only what fits (q_lens clamped, as `_spec_verify` clamps it)
+VERIFY_STARTS = (0, 17, 255, 300, 511, 1019, 1021, 640)
+
+
+def check_verify(torch, dev, g=LLAMA_8B):
+    """The prefill-append kernel at the verify pass's shape: 8 rows x
+    gamma + 1 tokens at ragged cursors, q_lens min(gamma + 1, width -
+    cursor) (3 at cursor 1021), a frozen-style row (cursor 640, its
+    table covering a longer prompt, as a row mid chunked prefill rides
+    along), cell 5 masked below the rows past it; against the plain
+    version under the bf16 bound, then timed against SDPA over the
+    gathered K/V."""
+    gen = torch.Generator().manual_seed(21)
+    dt = torch.bfloat16
+    s = GAMMA + 1
+    kp, vp = _prefill_pools(torch, dev, g, gen)
+    starts = torch.tensor(VERIFY_STARTS, dtype=torch.int32)
+    lens = torch.clamp(NB * BS - starts, max=s).to(torch.int32)
+    need = [min(int(st) + s, NB * BS) for st in starts]
+    need[-1] = 900                    # the frozen-style row's prompt
+    table = _tables(gen, torch, len(starts), need)
+    mask = torch.ones(len(starts), NB * BS, dtype=torch.bool)
+    mask[:, 5] = False
+    mask[starts <= 5, 5] = True
+    q, kn, vn = (torch.randn(len(starts), s, n, g.hd, generator=gen)
+                 .to(dev, dt) for n in (g.n_q, g.n_kv, g.n_kv))
+    call = (q, kn, vn, table.to(dev), starts.to(dev), lens.to(dev),
+            mask.to(dev))
+    err = _report_prefill(g, f"verify ({len(starts)} rows x {s} tokens, "
+                          f"q_lens {lens.tolist()})",
+                          _compare_prefill(torch, kp[0], vp[0], [call]))
+    return _time_prefill(
+        torch, g, f"prefill ({g.model}), the verify pass ({len(starts)} rows "
+        f"x {s} tokens)", err, [call], kp, vp, 10 * g.layers)
 
 
 def _pairs(s, causal, window):
@@ -2652,6 +2760,379 @@ async def door_and_check(torch, cfg, saved):
     return counts, one_counts
 
 
+# -- phase 9 ----------------------------------------------------------------
+
+
+SPEC_TOPK = 20                     # the sampled request's top_k
+SPEC_TEMPERATURE = 0.8
+TOPK_TIE = 0.05                    # logit slack at the top-k boundary
+# the self-draft control: llama3-1b with its head scaled by HEAD_SCALE
+# drafts for itself. In bf16 it must accept at least this share of its
+# proposals: read 211/236 = 0.894 on an H100 80GB HBM3 at 700 W, where a
+# verify that commits or reads the wrong draft cell rejects most rounds.
+HEAD_SCALE = 50.0
+SELF_DRAFT_BF16_FLOOR = 0.8
+
+
+def _first_divergence_ok(torch, engine, prompt, a, b, scale=1.0):
+    """Two greedy sequences of one prompt agree up to their first
+    difference, and there the teacher-forced top-2 margin of the plain
+    dense model is at most 2 x LOGPROB_TOL x `scale` (a near tie that
+    bf16 paths may break either way; `scale` is a factor the model's
+    head was multiplied by, which scales its margins with their noise).
+    -> (index of the first difference or None, ok)."""
+    from kubeflow_tpu_torch.models import llama
+
+    j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if j is None:
+        return None, True
+    with torch.inference_mode():
+        toks = torch.tensor([prompt + a[:j]], device=engine.device)
+        logits = llama.apply(engine.params, engine.cfg, toks)[0, -1]
+        top2 = torch.topk(torch.log_softmax(logits.float(), -1), 2).values
+    return j, float(top2[0] - top2[1]) <= 2 * LOGPROB_TOL * scale
+
+
+def _topk_check(torch, engine, prompt, out):
+    """Every sampled token lies in the teacher-forced top SPEC_TOPK of
+    the plain dense model, a tie at the boundary allowed within
+    TOPK_TIE in the logits. -> tokens outside."""
+    from kubeflow_tpu_torch.models import llama
+
+    with torch.inference_mode():
+        toks = torch.tensor([prompt + out[:-1]], device=engine.device)
+        logits = llama.apply(engine.params, engine.cfg,
+                             toks)[0, len(prompt) - 1:].float()
+        kth = torch.topk(logits, SPEC_TOPK, dim=-1).values[:, -1]
+        got = logits[torch.arange(len(out), device=logits.device),
+                     torch.tensor(out, device=logits.device)]
+        return int((got < kth - TOPK_TIE).sum())
+
+
+async def serve_spec_and_check(torch):
+    """Phase 9: llama3-8b served continuously with a llama3-1b draft
+    through the CLI's app (`--spec-decode --draft-model llama3-1b
+    --spec-gamma 4 --prefill-chunk-tokens 64 --warmup`, 8 slots,
+    max_len 1024)."""
+    import aiohttp
+    from aiohttp import web
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.serving.__main__ import build_app, parse_args
+    from kubeflow_tpu_torch.serving.continuous import ContinuousBatcher
+    from kubeflow_tpu_torch.serving.engine import (
+        LLAMA_FAMILY,
+        EngineConfig,
+        InferenceEngine,
+    )
+    from kubeflow_tpu_torch.serving.server import (
+        BATCHERS_KEY,
+        ENGINES_KEY,
+        OBS_KEY,
+    )
+
+    name = "llama3-8b"
+    t_phase = time.perf_counter()
+    port = _free_port()
+    torch.cuda.reset_peak_memory_stats()
+    app = build_app(parse_args([
+        "--model", name, "--random", "--seed", "0", "--continuous",
+        "--warmup", "--prefill-chunk-tokens", str(CHUNK), "--spec-decode",
+        "--draft-model", "llama3-1b", "--spec-gamma", str(GAMMA),
+        "--host", "127.0.0.1", "--port", str(port)]))
+    runner = web.AppRunner(app)
+    t0 = time.perf_counter()
+    await runner.setup()          # on_startup: the batcher's warmup
+    warm_s = time.perf_counter() - t0
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    engine = app[ENGINES_KEY][name]
+    batcher = app[BATCHERS_KEY][name]
+    ce = batcher.cengine
+    draft = ce.draft
+    graphs = ce.graphs
+    captures = graphs.captures
+    cfg, L, Ld = engine.cfg, engine.cfg.num_layers, draft.cfg.num_layers
+    log(f"  server up in {time.perf_counter() - t_phase:.1f} s ({name}, "
+        f"llama3-1b draft at seed 1, gamma {batcher.spec_gamma}, "
+        f"{ce.S} slots, max_len {engine.ec.max_len}); warmup {warm_s:.2f} "
+        f"s captured {captures} CUDA graphs; draft cache "
+        f"{2 * ce.draft_slots().k.numel() * 2 / 2**30:.2f} GiB")
+    gen = torch.Generator().manual_seed(9)
+
+    def prompt(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+
+    prompts = [prompt(n) for n in DENSE_PROMPTS[:-1]]
+    prompts.append(prompts[0])          # the repeated prompt
+    edge = prompt(MAX_LEN - DENSE_MAX_NEW)   # prompt + max_new == max_len
+    sampled = prompt(40)
+    base = f"http://127.0.0.1:{port}"
+    url = f"{base}/v1/models/{name}:generate"
+    rounds_seen = []
+    prof_box = {}
+    spec_round = batcher._spec_round
+
+    async def profiled_round():
+        # the third round with a live slot under the profiler
+        if any(r.prefilling is None for r in batcher._active.values()):
+            rounds_seen.append(batcher.spec_rounds)
+        if len(rounds_seen) != 3 or "prof" in prof_box:
+            return await spec_round()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            await spec_round()
+            torch.cuda.synchronize()
+            prof_box["wall"] = time.perf_counter() - t
+        prof_box["prof"] = prof
+
+    def books():
+        return dict(rounds=batcher.spec_rounds, slices=batcher.slices,
+                    calls=batcher.calls, proposed=batcher.spec_proposed,
+                    accepted=batcher.spec_accepted,
+                    emitted=batcher.tokens_emitted,
+                    decode_s=batcher.decode_s, hits=batcher.prefix_hits,
+                    reused=batcher.tokens_reused)
+
+    def delta(a, b):
+        return {k: b[k] - a[k] for k in a}
+
+    try:
+        async with aiohttp.ClientSession() as sess:
+            async def post(p, max_new=DENSE_MAX_NEW, **kw):
+                async with sess.post(url, json={
+                        "tokens": [p], "max_new": max_new,
+                        "logprobs": True, **kw}) as r:
+                    if r.status != 200:
+                        fail(f":generate returned {r.status}: "
+                             f"{await r.text()}")
+                    return await r.json()
+
+            async def spec_state(body=None):
+                if body is None:
+                    req = sess.get(f"{base}/v1/spec")
+                else:
+                    req = sess.post(f"{base}/v1/spec", json=body)
+                async with req as r:
+                    if r.status != 200:
+                        fail(f"/v1/spec returned {r.status}")
+                    return await r.json()
+
+            b0 = books()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            wave1 = await asyncio.gather(*(post(p) for p in prompts))
+            wave1_s = time.perf_counter() - t0
+            b1 = books()
+            wave2 = await asyncio.gather(
+                post(edge), post(prompts[6]),
+                post(sampled, temperature=SPEC_TEMPERATURE,
+                     top_k=SPEC_TOPK))
+            torch.cuda.synchronize()
+            b2 = books()
+            counts = launch_counts()
+            spec_captures = graphs.captures - captures
+
+            # one round under the profiler, in a wave that is not timed
+            batcher._spec_round = profiled_round
+            await asyncio.gather(*(post(prompt(n))
+                                   for n in DENSE_PROMPTS[:-1]))
+            batcher._spec_round = spec_round
+            b_prof = books()
+
+            # the kill switch: the same prompts through plain chunks,
+            # from a cold radix cache as wave 1 had
+            off = await spec_state({"enabled": False})
+            state_off = await spec_state()
+            batcher.flush_cache()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            wave3 = await asyncio.gather(*(post(p) for p in prompts))
+            wave3_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            b3 = books()
+            off_counts = launch_counts()
+            on = await spec_state({"enabled": True})    # drained: safe
+            async with sess.get(f"{base}/metrics") as r:
+                metrics = await r.text()
+    finally:
+        batcher._spec_round = spec_round
+        await runner.cleanup()
+    slo_events = list(app[OBS_KEY].slo._events["serving_spec_acceptance"])
+    spec = delta(b0, b2)
+    plain = delta(b_prof, b3)
+    rounds, slices = spec["rounds"], spec["slices"]
+    acceptance = spec["accepted"] / max(spec["proposed"], 1)
+    log(f"  spec waves: {rounds} rounds, {slices} prefill slices, "
+        f"acceptance {spec['accepted']}/{spec['proposed']} = "
+        f"{acceptance:.4f}; kernel launches {counts}; captures in traffic "
+        f"{spec_captures}")
+    want = {"paged_prefill_append": L * (rounds + slices),
+            "decode_attention": Ld * (GAMMA + 1) * rounds,
+            "paged_decode_attention": 0}
+    for kname, n in want.items():
+        if counts[kname] != n:
+            fail(f"phase 9 {kname}: {counts[kname]} launches, the design "
+                 f"implies {n} ({L} target / {Ld} draft layers, {rounds} "
+                 f"rounds, {slices} slices, gamma {GAMMA})")
+    others = {k: n for k, n in counts.items() if k not in want and n}
+    if others or spec_captures or not rounds:
+        fail(f"phase 9: other kernels {others}, {spec_captures} captures "
+             f"in traffic, {rounds} rounds")
+    reckon = sum(-(-n // CHUNK) for n in [len(p) for p in prompts]
+                 + [len(edge), len(sampled), 1])
+    if slices != reckon:
+        fail(f"phase 9: {slices} slices, the prompts reckon {reckon}")
+    hits, reused = delta(b1, b2)["hits"], delta(b1, b2)["reused"]
+    if hits != 1 or reused != len(prompts[6]) - 1:
+        fail(f"the repeated {len(prompts[6])}-token prompt: {hits} hits, "
+             f"{reused} cells reused (want 1 and {len(prompts[6]) - 1})")
+
+    # tokens: the repeats, the teacher-forced plain dense 8B, the edge
+    outs = [(p, b["tokens"][0], b["logprobs"][0])
+            for p, b in zip(prompts, wave1)]
+    outs += [(edge, wave2[0]["tokens"][0], wave2[0]["logprobs"][0]),
+             (prompts[6], wave2[1]["tokens"][0], wave2[1]["logprobs"][0])]
+    for p, o, lp in outs + [(sampled, wave2[2]["tokens"][0],
+                             wave2[2]["logprobs"][0])]:
+        if len(o) != DENSE_MAX_NEW or len(lp) != len(o) or not all(
+                0 <= t < cfg.vocab_size for t in o):
+            fail(f"malformed output {o} / {lp}")
+    if outs[0][1] != outs[7][1] or outs[6][1] != outs[9][1]:
+        fail("phase 9: a repeated prompt gave different greedy tokens")
+    _teacher_check(torch, engine, *zip(*outs), "spec (llama3-8b)")
+    outside = _topk_check(torch, engine, sampled, wave2[2]["tokens"][0])
+    log(f"  sampled request (temperature {SPEC_TEMPERATURE}, top_k "
+        f"{SPEC_TOPK}): {outside} tokens outside the teacher-forced top "
+        f"{SPEC_TOPK} (tie slack {TOPK_TIE})")
+    if outside:
+        fail("phase 9: sampled tokens outside the top-k set")
+
+    # the kill switch's pass
+    log(f"  /v1/spec off: {off}; GET {state_off}; back on: {on}")
+    if state_off["models"][name] != {"draft": True, "spec_enabled": False} \
+            or on["models"][name]["spec_enabled"] is not True \
+            or not batcher.spec_enabled:
+        fail("phase 9: /v1/spec did not switch speculation")
+    pwant = {"paged_decode_attention": L * plain["calls"],
+             "paged_prefill_append": L * plain["slices"],
+             "decode_attention": 0}
+    log(f"  spec off: {plain['calls']} decode steps, {plain['slices']} "
+        f"slices, {plain['rounds']} rounds; kernel launches {off_counts}")
+    if plain["rounds"] or any(off_counts[k] != n for k, n in pwant.items()) \
+            or not plain["calls"]:
+        fail(f"phase 9, spec off: launches {off_counts}, the design implies "
+             f"{pwant}; rounds {plain['rounds']}")
+    off_outs = [b["tokens"][0] for b in wave3]
+    _teacher_check(torch, engine, prompts, off_outs,
+                   [b["logprobs"][0] for b in wave3], "spec off (llama3-8b)")
+    same = 0
+    for p, (_, o, _), o2 in zip(prompts, outs, off_outs):
+        j, ok = _first_divergence_ok(torch, engine, p, o, o2)
+        same += j is None
+        if not ok:
+            fail(f"phase 9: spec and plain greedy tokens part at {j} where "
+                 f"the teacher-forced margin exceeds {2 * LOGPROB_TOL}")
+    log(f"  spec vs plain greedy tokens: {same}/{len(prompts)} identical, "
+        f"the rest parting at near ties")
+
+    # the acceptance SLO
+    series = [ln for ln in metrics.splitlines()
+              if 'slo="serving_spec_acceptance"' in ln]
+    log(f"  /metrics: {series}; {len(slo_events)} acceptance events")
+    if len(series) != 3 or len(slo_events) != batcher.spec_proposed:
+        fail(f"phase 9: acceptance SLO series {series}, {len(slo_events)} "
+             f"events for {batcher.spec_proposed} proposed draft tokens")
+
+    # host and device time: the two 8-prompt waves from a cold cache,
+    # whole (prefill and decode) and their decode alone
+    host_ms = spec["decode_s"] / rounds * 1e3
+    w1 = delta(b0, b1)
+    tok_spec = len(prompts) * DENSE_MAX_NEW / wave1_s
+    tok_off = len(prompts) * DENSE_MAX_NEW / wave3_s
+    log(f"  (host clock) {host_ms:.2f} ms a round (dispatch + wait), "
+        f"{spec['emitted'] / rounds:.2f} tokens a round; spec off "
+        f"{plain['decode_s'] / plain['calls'] * 1e3:.2f} ms a decode step "
+        f"(dispatch + wait, depth 2); the 8-prompt wave "
+        f"{tok_spec:.1f} tokens/s with spec, {tok_off:.1f} tokens/s with "
+        f"the switch off; decode alone (tokens emitted / decode s) "
+        f"{w1['emitted'] / w1['decode_s']:.1f} tokens/s with spec, "
+        f"{plain['emitted'] / plain['decode_s']:.1f} with the switch off")
+    if "prof" not in prof_box:
+        fail("phase 9: the profile wave ran no round with a live slot")
+    _report_profile(prof_box["prof"], prof_box["wall"], top=6)
+    log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # self-draft control: llama3-1b, lm_head x HEAD_SCALE, drafting for
+    # itself. fp32 (the CUDA-core kernels, P unrounded) must accept every
+    # proposal and give the plain batcher's tokens. In bf16 the verify's
+    # logits (P rounded to bf16 on the tensor cores) and the draft's or
+    # plain decode's may part at the random model's near ties: a
+    # sequence may leave the plain batcher's only where the 8B's rule
+    # above, scaled with the head, allows it, and acceptance must reach
+    # SELF_DRAFT_BF16_FLOOR.
+    params = dict(draft.params,
+                  lm_head=draft.params["lm_head"] * HEAD_SCALE)
+    dcfg, dev = draft.cfg, draft.device
+    del app, runner, engine, batcher, ce, graphs, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def cast(tree, dtype):
+        return {k: cast(v, dtype) if isinstance(v, dict) else v.to(dtype)
+                for k, v in tree.items()}
+
+    async def control(conf, with_draft):
+        b = ContinuousBatcher(conf, asyncio.Lock(), max_slots=SLOTS,
+                              prefill_chunk_tokens=CHUNK, seed=0,
+                              draft=conf if with_draft else None,
+                              spec_gamma=GAMMA)
+        try:
+            out = await asyncio.gather(*(b.submit(p, DENSE_MAX_NEW)
+                                         for p in prompts))
+            return [list(t) for t in out], b
+        finally:
+            await b.close()
+
+    for dtype in (torch.bfloat16, torch.float32):
+        ccfg = dataclasses.replace(dcfg, dtype=dtype)
+        conf = InferenceEngine(cast(params, dtype), ccfg, LLAMA_FAMILY,
+                               EngineConfig(max_len=MAX_LEN), device=dev)
+        self_out, sb = await control(conf, True)
+        plain_out, _ = await control(conf, False)
+        parts = [_first_divergence_ok(torch, conf, p, a, b, HEAD_SCALE)
+                 for p, a, b in zip(prompts, self_out, plain_out)]
+        label = str(dtype).replace("torch.", "")
+        rate = sb.spec_accepted / max(sb.spec_proposed, 1)
+        log(f"  self-draft control (llama3-1b, lm_head x{HEAD_SCALE:g}, "
+            f"{label}): acceptance {sb.spec_accepted}/{sb.spec_proposed} "
+            f"= {rate:.4f}, {[j for j, _ in parts].count(None)}/"
+            f"{len(prompts)} sequences equal to the plain batcher's, the "
+            f"first differences at {[j for j, _ in parts if j is not None]}"
+            f", each at a near tie: {all(ok for _, ok in parts)}")
+        if dtype == torch.float32:
+            bad = (sb.spec_accepted != sb.spec_proposed
+                   or self_out != plain_out)
+        else:
+            bad = (rate < SELF_DRAFT_BF16_FLOOR
+                   or not all(ok for _, ok in parts))
+        if not sb.spec_proposed or bad:
+            fail(f"phase 9: the {label} self-draft disagrees with plain "
+                 f"continuous decoding")
+        del conf, sb
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    log(f"  phase 9 wall {time.perf_counter() - t_phase:.1f} s")
+    # the verify pass's launches under their own name, the slices' under
+    # the kernel's
+    verify = L * rounds
+    counts["paged_prefill_append"] -= verify
+    counts["paged_prefill_append" + VERIFY] = verify
+    return counts, off_counts
+
+
 # the port's own kernels, as the profiler names them
 PORT_KERNELS = ("decode_split_kernel", "decode_combine_kernel",
                 "prefill_attention_", "scatter_kernel", "flash_fwd_",
@@ -2739,6 +3220,9 @@ def main() -> None:
                  "paged_prefill_append": check_prefill(torch, dev)[0],
                  **check_flash(torch, dev),
                  "decode_attention": check_dense_decode(torch, dev)[0]}
+        log("phase 2, verify: prefill-append at the speculative verify "
+            "pass's shape (llama3-8b heads)")
+        stats[f"paged_prefill_append{VERIFY}"] = check_verify(torch, dev)
         log("phase 2, gemma-2b: the kernels at head dim 256, group 8")
         stats.update({
             f"paged_decode_attention{GEMMA}": check_decode(torch, dev,
@@ -2749,6 +3233,9 @@ def main() -> None:
                check_flash(torch, dev, GEMMA_2B).items()},
             f"decode_attention{GEMMA}": check_dense_decode(
                 torch, dev, GEMMA_2B, GEMMA_2B)[0]})
+        log("phase 2, gemma-2b verify: the verify pass's shape at head dim "
+            "256, group 8")
+        check_verify(torch, dev, GEMMA_2B)
 
     def add(got: dict, suffix: str = "", prefix: str = "") -> None:
         for name, n in got.items():
@@ -2822,6 +3309,14 @@ def main() -> None:
         os.remove(os.path.join(ROOT, "build", "ckpt_tokenizer.json"))
         tidy()
 
+    if run("9"):
+        log("phase 9: serve llama3-8b with continuous speculative decoding "
+            "(llama3-1b draft, gamma 4) through the CLI's app")
+        spec_counts, off_counts = asyncio.run(serve_spec_and_check(torch))
+        add(spec_counts)
+        add(off_counts, prefix="paged")
+        tidy()
+
     log(f"total {time.perf_counter() - t_all:.1f} s")
     if only:
         log(f"partial run (phases {sorted(only)}): no result line")
@@ -2848,6 +3343,7 @@ def main() -> None:
                  "flash_attention_fwd", "flash_attention_dq",
                  "flash_attention_dkv", "decode_attention"):
         meta[name + GEMMA] = meta[name]
+    meta["paged_prefill_append" + VERIFY] = meta["paged_prefill_append"]
     kernels = []
     for name, (source, replaces) in meta.items():
         s = stats[name]

@@ -9,6 +9,9 @@ kubeflow_tpu/serving/__main__.py).
         --continuous --warmup
     python -m kubeflow_tpu_torch.serving --model llama3-1b \\
         --checkpoint /ckpt/run7 --tokenizer auto --continuous --warmup
+    python -m kubeflow_tpu_torch.serving --model llama3-8b --random \\
+        --continuous --warmup --prefill-chunk-tokens 64 --spec-decode \\
+        --draft-model llama3-1b --spec-gamma 4
 
 Serves one model on the CUDA card (`--cpu` runs the plain PyTorch path
 on the CPU instead; `gemma-tiny`'s head dim 32 has no kernel, so it is
@@ -21,7 +24,10 @@ paged KV pool: monolithic admission (one prefill per bucket group,
 sets a chunked-prefill budget; decode chunks dispatched
 `--pipeline-depth` ahead; `--warmup` captures every serving graph
 before the port opens; `--kv-spill-bytes` gives the radix prefix cache
-a host-memory tier that eviction demotes to.
+a host-memory tier that eviction demotes to; `--spec-decode` decodes
+every request speculatively, `--spec-gamma` tokens of `--draft-model`
+(random from `--seed` + 1, or `--draft-checkpoint`) verified a round
+(`POST /v1/spec {"enabled": false}` switches it off).
 
 Weights: `--checkpoint DIR` (a train/checkpoint.py `Checkpointer`
 directory: the newest committed step's params, the optimizer's moments
@@ -55,8 +61,8 @@ def model_registry():
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="python -m kubeflow_tpu_torch.serving")
-    p.add_argument("--model", default="llama-tiny",
-                   choices=tuple(model_registry()))
+    names = tuple(model_registry())
+    p.add_argument("--model", default="llama-tiny", choices=names)
     src = p.add_mutually_exclusive_group()
     src.add_argument("--checkpoint", default="",
                      help="train.checkpoint.Checkpointer directory")
@@ -96,6 +102,20 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "them, and a returning prefix restores them with "
                         "a host-to-device copy instead of prefilling "
                         "again. 0 = off")
+    p.add_argument("--spec-decode", action="store_true",
+                   help="speculative decoding on the paged KV pool "
+                        "(continuous only): every request drafts "
+                        "--spec-gamma tokens with --draft-model and "
+                        "verifies them in one batched pass; the target's "
+                        "output law is unchanged")
+    p.add_argument("--draft-model", default="", choices=("",) + names,
+                   help="draft model for --spec-decode (must share the "
+                        "target's vocab)")
+    p.add_argument("--draft-checkpoint", default="",
+                   help="train.checkpoint.Checkpointer directory of the "
+                        "draft's params (default: random from --seed + 1)")
+    p.add_argument("--spec-gamma", type=int, default=4,
+                   help="draft tokens proposed per speculative round")
     p.add_argument("--pipeline-depth", type=int, default=0,
                    help="decode dispatch-ahead depth (0 = the backend's "
                         "default: 2 on CUDA, 1 on the CPU)")
@@ -117,18 +137,24 @@ def parse_args(argv=None) -> argparse.Namespace:
             p.error(f"{name} must be >= 0")
         if getattr(args, flag) and not args.continuous:
             p.error(f"{name} requires --continuous")
+    if args.spec_decode and not args.continuous:
+        p.error("--spec-decode requires --continuous")
+    if args.spec_decode and not args.draft_model:
+        p.error("--spec-decode requires --draft-model")
+    if args.draft_model and not args.spec_decode:
+        p.error("--draft-model requires --spec-decode")
     return args
 
 
-def _load_params(args: argparse.Namespace, cfg, init, device):
+def _load_params(checkpoint: str, seed: int, cfg, init, device):
     """Serving params: the checkpoint's newest committed step (params
-    only), or random ones from the seed."""
-    if args.random:
-        return init(cfg, args.seed, device)
+    only), or random ones from the seed when there is no checkpoint."""
+    if not checkpoint:
+        return init(cfg, seed, device)
     from kubeflow_tpu_torch.train.checkpoint import load_serving_params
 
     try:
-        return load_serving_params(args.checkpoint, cfg, device)
+        return load_serving_params(checkpoint, cfg, device)
     except FileNotFoundError as e:
         raise SystemExit(str(e)) from None
 
@@ -165,11 +191,19 @@ def build_app(args: argparse.Namespace):
 
     device = resolve_device("cpu" if args.cpu else None)
     cfg, init, family = model_registry()[args.model]
-    params = _load_params(args, cfg, init, device)
-    engine = InferenceEngine(
-        params, cfg, family,
-        EngineConfig(max_len=args.max_len, eos_token=args.eos),
-        device=device)
+    ec = EngineConfig(max_len=args.max_len, eos_token=args.eos)
+    params = _load_params(args.checkpoint, args.seed, cfg, init, device)
+    engine = InferenceEngine(params, cfg, family, ec, device=device)
+    drafts = None
+    if args.spec_decode:
+        # a random draft proposes junk (acceptance near 0), but the
+        # plumbing, and the output law, are production's; its cache
+        # covers the target's whole sequence space
+        dcfg, dinit, dfamily = model_registry()[args.draft_model]
+        dparams = _load_params(args.draft_checkpoint, args.seed + 1, dcfg,
+                               dinit, device)
+        drafts = {args.model: InferenceEngine(dparams, dcfg, dfamily, ec,
+                                              device=device)}
     return create_serving_app(
         {args.model: engine}, tokenizer=load_tokenizer(args),
         max_batch=args.max_batch,
@@ -177,7 +211,9 @@ def build_app(args: argparse.Namespace):
         warmup=args.warmup, prefill_chunk=args.prefill_chunk or None,
         prefill_chunk_tokens=args.prefill_chunk_tokens or None,
         pipeline_depth=args.pipeline_depth or None,
-        kv_spill_bytes=args.kv_spill_bytes or None, seed=args.seed)
+        kv_spill_bytes=args.kv_spill_bytes or None, drafts=drafts,
+        spec_decode=args.spec_decode, spec_gamma=args.spec_gamma,
+        seed=args.seed)
 
 
 def main(argv=None) -> int:

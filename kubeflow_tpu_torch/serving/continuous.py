@@ -48,8 +48,20 @@ completes as the output's suffix, trimmed off), an optional token queue
 (`open_stream` / `stream`: one item per emitted token, then None) and a
 `RequestTimeline` (`timelines`: enqueue, admit with its prefill split,
 every token, finish), whose decode gaps and queue waits feed the
-`on_itl` / `on_queue_wait` hooks. The reference's tenancy quotas,
-preemption, peer fetch, speculation and migration are not ported yet.
+`on_itl` / `on_queue_wait` hooks.
+
+With a draft engine (`draft=`, `spec_gamma=`), every live slot decodes
+speculatively, as in the reference: a round drafts gamma tokens for all
+slots on the draft's dense per-slot cache (`DraftSlots`, the dense
+decode kernel on the card), verifies [tok, d_1..d_gamma] of every slot
+in one pass through the prefill-append path (S rows x gamma + 1 tokens
+at their own cursors), keeps the accepted prefix and one more token by
+the ratio test (`spec_accept`), and rolls both caches back by cursor
+motion. Both rounds are CUDA graphs; the draws are exponential races
+from the engine's generator. A slot's draft row is seeded from its
+prompt before its first token is emitted. `spec_enabled` is the kill
+switch: off, plain decode chunks carry on. The reference's tenancy
+quotas, preemption, peer fetch and migration are not ported yet.
 """
 
 from __future__ import annotations
@@ -75,6 +87,8 @@ from kubeflow_tpu_torch.serving.engine import (
     DecodeState,
     InferenceEngine,
     SamplingParams,
+    race_draw,
+    sampling_dist,
     transformer_block,
 )
 from kubeflow_tpu_torch.serving.graphs import (
@@ -139,6 +153,69 @@ class SlotState:
         self.frozen = frozen
 
 
+class DraftSlots:
+    """The draft model's per-slot KV cache for continuous speculative
+    decoding, updated in place by the engine. Dense where the target's
+    is paged: the draft is small, and a second block table would only
+    complicate the rollback. Rows are compact (cell index == position,
+    no pads) and `length` follows the target row's cursor: after every
+    speculative round both caches hold the same committed tokens."""
+
+    def __init__(self, k, v, length):
+        self.k = k            # [L_d, S, W_d, n_kv_d, hd_d]
+        self.v = v
+        self.length = length  # [S] int32 — committed cells per row
+
+
+def _slot_dists(logits: torch.Tensor, sp: SamplingParams) -> torch.Tensor:
+    """[S, n, V] logits -> [S, n, V] sampling distributions, every
+    position under its slot's knobs (`sampling_dist` over the flattened
+    rows)."""
+    S, n, V = logits.shape
+
+    def rep(t):
+        return t[:, None].expand(S, n).reshape(-1)
+
+    flat = SamplingParams(rep(sp.temperature), rep(sp.top_k),
+                          rep(sp.top_p), sp.sampled, sp.filtered)
+    return sampling_dist(logits.reshape(S * n, V), flat).reshape(S, n, V)
+
+
+def spec_accept(ps: torch.Tensor, qs: torch.Tensor, drafted: torch.Tensor,
+                us: torch.Tensor):
+    """The acceptance arithmetic of a verify round (Leviathan et al.), per
+    slot: accept drafted[j] while u_j q_j(d_j) < p_j(d_j); k = the
+    accepted count. One more token is drawn from `dist`: the target's
+    (gamma+1)-th distribution after a fully accepted window, else the
+    clipped residual max(p_k - q_k, 0) (p_k itself where that is all
+    zero). ps [S, gamma+1, V], qs [S, gamma, V], drafted [S, gamma],
+    us [S, gamma] uniforms -> (k [S] int64, dist [S, V])."""
+    S, gamma = drafted.shape
+    idx = drafted[..., None].long()
+    p_d = ps[:, :gamma].gather(2, idx)[..., 0]
+    q_d = qs.gather(2, idx)[..., 0]
+    accept = us * q_d < p_d           # u < p/q without the 0/0 hazard
+    k = torch.cumprod(accept.long(), 1).sum(1)
+    rows = torch.arange(S, device=ps.device)
+    pk = ps[rows, k]
+    qk = qs[rows, torch.clamp(k, max=gamma - 1)]
+    resid = torch.clamp(pk - qk, min=0.0)
+    resid = torch.where(resid.sum(1, keepdim=True) > 0.0, resid, pk)
+    return k, torch.where((k == gamma)[:, None], ps[:, gamma], resid)
+
+
+def spec_emit(drafted: torch.Tensor, k: torch.Tensor, extra: torch.Tensor,
+              logits: torch.Tensor):
+    """The round's emitted tokens [S, gamma+1] (row i's valid ones are
+    emit[i, :k[i] + 1]: the accepted drafts, then `extra`) and their
+    logprobs under the target's raw logits [S, gamma+1, V]."""
+    S = drafted.shape[0]
+    emit = torch.cat([drafted.long(), drafted.new_zeros(S, 1).long()], 1)
+    emit[torch.arange(S, device=emit.device), k] = extra.long()
+    lsm = torch.log_softmax(logits.float(), -1)
+    return emit, lsm.gather(2, emit[..., None])[..., 0]
+
+
 class ContinuousEngine:
     """Device half of continuous batching for one `InferenceEngine`.
 
@@ -148,14 +225,36 @@ class ContinuousEngine:
     and `prefill_slice` replay CUDA graphs of `step` and of the slice
     body, `warmup` captures them ahead of traffic. `cuda_graphs=False`
     runs the same bodies as eager launches: an explicit control, never a
-    fallback. `seed` seeds the generator every sampled draw takes."""
+    fallback. `seed` seeds the generator every sampled draw takes.
+
+    With a `draft` engine (continuous speculative decoding), the engine
+    also owns the draft's per-slot cache (`draft_slots()`), seeds a row
+    of it at admission (`draft_prefill`), and replays two more graphs a
+    round: `spec_draft` (gamma draft tokens for every slot, dense decode
+    attention) and `spec_verify` (the target over [tok, d_1..d_gamma]
+    through the paged prefill-append path, the acceptance test and both
+    caches' rollback)."""
 
     def __init__(self, engine: InferenceEngine, max_slots: int = 8,
                  block_size: int = 64, *, num_blocks: int | None = None,
                  prefill_chunk: int | None = None,
-                 seed: int | None = None, cuda_graphs: bool = True):
+                 seed: int | None = None, cuda_graphs: bool = True,
+                 draft: InferenceEngine | None = None):
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
+        if draft is not None:
+            # the ratio test compares draft and target distributions
+            # token by token, and a draft row follows its target cursor
+            if draft.cfg.vocab_size != engine.cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft.cfg.vocab_size} != target "
+                    f"vocab {engine.cfg.vocab_size}")
+            if draft.ec.max_len < engine.ec.max_len:
+                raise ValueError(
+                    f"draft max_len {draft.ec.max_len} < target "
+                    f"max_len {engine.ec.max_len}: the draft cache row "
+                    "must cover every target cursor position")
+        self.draft = draft
         if block_size < 2 or block_size & (block_size - 1):
             raise ValueError(
                 f"block_size must be a power of two >= 2, got {block_size}")
@@ -195,6 +294,8 @@ class ContinuousEngine:
         self._st: SlotState | None = None
         self._knobs = None     # static [S] temperature, top_k, top_p
         self._slice_in = {}    # prompt-slice width -> static slice inputs
+        self._dst: DraftSlots | None = None
+        self._spec_in = {}     # gamma -> static (drafted, qs)
 
     @property
     def attention_impl(self) -> str:
@@ -232,6 +333,23 @@ class ContinuousEngine:
         return self._st
 
     @torch.inference_mode()
+    def init_draft_slots(self) -> DraftSlots:
+        cfg, dev = self.draft.cfg, self.draft.device
+        shape = (cfg.num_layers, self.S, self.draft.ec.max_len,
+                 cfg.num_kv_heads, cfg.head_dim)
+        return DraftSlots(torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                          torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                          torch.zeros(self.S, dtype=torch.int32, device=dev))
+
+    @torch.inference_mode()
+    def draft_slots(self) -> DraftSlots:
+        """The engine's own draft cache, which the spec graphs read and
+        write; allocated once and never replaced."""
+        if self._dst is None:
+            self._dst = self.init_draft_slots()
+        return self._dst
+
+    @torch.inference_mode()
     def clear_slots(self) -> None:
         """Every slot back to the trash block with zero cursors, in place:
         the graphs keep their addresses (the pool's contents are garbage
@@ -242,6 +360,8 @@ class ContinuousEngine:
         for t in (st.length, st.offset, st.pad, st.tok, st.block_table,
                   st.frozen):
             t.zero_()
+        if self._dst is not None:
+            self._dst.length.zero_()
 
     def kv_block_bytes(self) -> int:
         """Device bytes one pool block holds (K+V, all layers)."""
@@ -552,18 +672,23 @@ class ContinuousEngine:
 
     # -- chunked prefill --------------------------------------------------
 
-    def _append(self, st: SlotState, idx, tokens, n_valid, finish,
-                sp: SamplingParams, gen: torch.Generator):
-        """The slice body: device inputs only (slot indices [g] int64,
-        tokens [g, s] int64, n_valid [g] int32, finish [g] bool)."""
+    def _paged_forward(self, st: SlotState, idx, tokens, n_valid):
+        """Forward tokens [g, s] for slot rows `idx` THROUGH the paged
+        pool: each layer's K/V of row r's first n_valid[r] tokens land at
+        cells [cursor, cursor + n_valid) through the row's table and are
+        attended in the same fused op (`ops.paged_prefill_attention`).
+        Shared by the prefill slices (`_append`) and the speculative
+        verify pass (`_spec_verify`), so that the two cannot drift.
+        -> final-normed hidden states [g, s, D]. A row writes only cells
+        at or above its own cursor, which lie in its exclusively owned
+        blocks (radix-shared blocks sit strictly below it)."""
         eng = self.engine
-        cfg, fam, ec = eng.cfg, eng.family, eng.ec
-        dev = eng.device
+        cfg, fam = eng.cfg, eng.family
         table = st.block_table[idx]
         start = st.length[idx]
         s = tokens.shape[1]
         positions = start[:, None] + torch.arange(
-            s, dtype=torch.int32, device=dev)[None, :]
+            s, dtype=torch.int32, device=eng.device)[None, :]
         rope_positions = torch.clamp(positions - st.offset[idx][:, None],
                                      min=0)
         kv_valid = ~st.pad[idx]
@@ -586,7 +711,15 @@ class ContinuousEngine:
 
             x, _ = transformer_block(cfg, fam, p, x, rope_positions,
                                      self._inv_freq, write_kv, attn)
-        x = eng.rms_final(x)
+        return eng.rms_final(x)
+
+    def _append(self, st: SlotState, idx, tokens, n_valid, finish,
+                sp: SamplingParams, gen: torch.Generator):
+        """The slice body: device inputs only (slot indices [g] int64,
+        tokens [g, s] int64, n_valid [g] int32, finish [g] bool)."""
+        eng = self.engine
+        ec, dev = eng.ec, eng.device
+        x = self._paged_forward(st, idx, tokens, n_valid)
         last = torch.clamp(n_valid - 1, min=0).long()
         x_last = x[torch.arange(x.shape[0], device=dev), last]
         nxt, lp = eng._sample(eng._head(x_last), gen, sp.rows(idx))
@@ -643,18 +776,165 @@ class ContinuousEngine:
             generator=self.gen)
         return run()
 
+    # -- speculative decoding on paged KV -----------------------------------
+
+    def _draft_decode_one(self, dst: DraftSlots, feed) -> torch.Tensor:
+        """One draft token for ALL slots against the dense draft cache
+        (the draft's mirror of `_decode_one`, through the draft engine's
+        dense stack): row r's K/V at cell min(length, W - 1), attention
+        over cells [0, length] (the dense decode kernel on the card),
+        length + 1 capped at W. Cell index == position, so causal masking
+        alone hides stale cells past a cursor; every cell is written
+        before it is first attended. -> logits [S, V]."""
+        deng = self.draft
+        W = deng.ec.max_len
+        positions = dst.length[:, None]
+        write_at = torch.clamp(dst.length, max=W - 1).long()
+
+        def write(li, k, v):
+            kc, vc = dst.k[li], dst.v[li]
+            kc[self._rows, write_at] = k[:, 0].to(kc.dtype)
+            vc[self._rows, write_at] = v[:, 0].to(vc.dtype)
+            return kc, vc
+
+        x = deng._stack(feed[:, None], positions, positions, None, write)
+        dst.length.copy_(torch.clamp(dst.length + 1, max=W))
+        return deng._head(x[:, -1])
+
+    @torch.inference_mode()
+    def draft_prefill(self, dst: DraftSlots, slot: int, tokens) -> None:
+        """Seed draft row `slot` with the KV of `tokens` (the slot's whole
+        prompt): one batch-1 draft forward written straight into the row
+        from cell 0, compact as the row must be (the reference pads to a
+        bucket and strips the pad in a second scatter; an eager forward
+        has no shape to keep stable, so there is no pad here)."""
+        row = DecodeState(dst.k[:, slot:slot + 1], dst.v[:, slot:slot + 1],
+                          0)
+        self.draft._forward_cached(
+            upload([list(tokens)], torch.int64, self.draft.device), row)
+        dst.length[slot] = len(tokens)
+
+    def _spec_draft(self, st: SlotState, dst: DraftSlots, sp: SamplingParams,
+                    gen: torch.Generator, drafted, qs):
+        """The draft body: gamma draft tokens for every slot from its last
+        token, each drawn by the race from its draft distribution, into
+        the static `drafted` [S, gamma] and `qs` [S, gamma, V] (the
+        distributions ride along for the residual in the verify)."""
+        feed = st.tok.long()
+        for j in range(drafted.shape[1]):
+            q = sampling_dist(self._draft_decode_one(dst, feed), sp)
+            feed = race_draw(q, gen)
+            drafted[:, j] = feed
+            qs[:, j] = q
+        return drafted, qs
+
+    def _spec_verify(self, st: SlotState, dst: DraftSlots, drafted, qs,
+                     sp: SamplingParams, gen: torch.Generator):
+        """The verify body: the target over [tok, d_1..d_gamma] of every
+        slot through `_paged_forward` (the prefill-append path, S rows x
+        gamma + 1), `spec_accept`, the extra token's race draw, and both
+        caches rolled back to the accepted frontier. Rollback is cursor
+        motion: rejected cells sit above the new cursor and are written
+        again before they are attended, and shared radix blocks, all
+        below every cursor, are never written.
+
+        A row within gamma cells of the pool window feeds only
+        min(gamma + 1, kv_width - cursor) tokens: the kernel writes
+        nothing past the window and the plain path refuses to, and every
+        token the host keeps lies below max_len, where the queries
+        attend only cells at or below their own. Frozen rows (mid
+        chunked prefill) ride along: their writes land above their
+        prefill frontier, which the next slice writes again, and their
+        cursors and tokens do not move. Free rows write the trash
+        block.
+        -> (emit [S, gamma+1], logprobs [S, gamma+1], k [S])."""
+        eng = self.engine
+        S, gamma = drafted.shape
+        tin = torch.cat([st.tok[:, None].long(), drafted], 1)
+        n_valid = torch.clamp(self.kv_width - st.length,
+                              max=gamma + 1).to(torch.int32)
+        logits = eng._head(self._paged_forward(st, self._rows, tin, n_valid))
+        ps = _slot_dists(logits, sp)
+        us = torch.rand(S, gamma, generator=gen, device=eng.device)
+        k, dist = spec_accept(ps, qs, drafted, us)
+        extra = race_draw(dist, gen)
+        emit, lps = spec_emit(drafted, k, extra, logits)
+        st.length.copy_(torch.where(
+            st.frozen, st.length,
+            torch.clamp(st.length + k + 1, max=eng.ec.max_len)))
+        st.tok.copy_(torch.where(st.frozen, st.tok, extra.to(torch.int32)))
+        # the draft advanced every row by gamma: keep the min(k + 1,
+        # gamma) cells the accepted tokens fed, then feed d_gamma
+        # unconditionally; its cell commits only when k == gamma (else it
+        # lies above the kept cursor and is written again next round)
+        kept = dst.length - gamma + torch.clamp(k + 1, max=gamma)
+        dst.length.copy_(kept)
+        self._draft_decode_one(dst, drafted[:, gamma - 1])
+        dst.length.copy_(torch.where(k == gamma, dst.length, kept))
+        return emit, lps, k
+
+    def _spec_buffers(self, gamma: int):
+        """The static (drafted, qs) of `gamma`: the draft graph's outputs
+        and the verify graph's inputs."""
+        bufs = self._spec_in.get(gamma)
+        if bufs is None:
+            dev, S = self.engine.device, self.S
+            bufs = self._spec_in[gamma] = (
+                torch.zeros(S, gamma, dtype=torch.int64, device=dev),
+                torch.zeros(S, gamma, self.engine.cfg.vocab_size,
+                            dtype=torch.float32, device=dev))
+        return bufs
+
+    @torch.inference_mode()
+    def spec_draft(self, sp: SamplingParams, gamma: int):
+        """gamma draft tokens for every slot of the engine's own state
+        through the draft graph of (gamma, sampling key): one replay.
+        `sp` comes from `sampling()`. -> (drafted [S, gamma], qs [S,
+        gamma, V]) on the device, which `spec_verify` reads."""
+        st, dst = self.slots(), self.draft_slots()
+        drafted, qs = self._spec_buffers(gamma)
+        key = self._key(sp)
+        gsp = SamplingParams(*self._knobs, *key)
+        run = self.graphs.runner(
+            ("spec_draft", gamma) + key,
+            lambda: self._spec_draft(st, dst, gsp, self.gen, drafted, qs),
+            generator=self.gen)
+        return run()
+
+    @torch.inference_mode()
+    def spec_verify(self, sp: SamplingParams, gamma: int):
+        """Verify the last `spec_draft` of `gamma` through the verify graph
+        of (gamma, sampling key): one replay. -> (emit [S, gamma+1],
+        logprobs [S, gamma+1], accepted counts k [S]) on the device; row
+        i's valid tokens are emit[i, :k[i] + 1]."""
+        st, dst = self.slots(), self.draft_slots()
+        drafted, qs = self._spec_buffers(gamma)
+        key = self._key(sp)
+        gsp = SamplingParams(*self._knobs, *key)
+        run = self.graphs.runner(
+            ("spec_verify", gamma) + key,
+            lambda: self._spec_verify(st, dst, drafted, qs, gsp, self.gen),
+            generator=self.gen)
+        return run()
+
     # -- warmup -----------------------------------------------------------
 
     @torch.inference_mode()
     def warmup(self, buckets=(16,), step_sizes=(1,),
-               slice_tokens: int | None = None) -> int:
+               slice_tokens: int | None = None,
+               spec_gamma: int | None = None) -> int:
         """Run every serving shape once ahead of traffic, as the
         reference compiles its programs: `prefill_batch` and
         `insert_many` for every admission group size x bucket, the step
         graph for every chunk size and sampling key, the slice graph of
-        `slice_tokens` for every sampling key, and `reset_slots`. Then
-        clears the state. -> the number of shapes run."""
+        `slice_tokens` for every sampling key, with a draft and
+        `spec_gamma` a draft row's seed and the spec draft and verify
+        graphs for every sampling key, and `reset_slots`. Then clears
+        the state. -> the number of shapes run."""
         st = self.slots()
+        spec = self.draft is not None and bool(spec_gamma)
+        if spec:
+            self.draft_prefill(self.draft_slots(), 0, [0])
         n = 0
         for g in group_sizes(self.S):
             for b in buckets:
@@ -672,9 +952,13 @@ class ContinuousEngine:
                 self.prefill_slice(sp, 0, np.zeros((1, slice_tokens)), 1,
                                    True)
                 n += 1
+            if spec:
+                self.spec_draft(sp, spec_gamma)
+                self.spec_verify(sp, spec_gamma)
+                n += 2
         self.reset_slots(st, [0])
         self.clear_slots()
-        return n + 1
+        return n + 1 + spec
 
 
 # -- host half -------------------------------------------------------------
@@ -778,7 +1062,17 @@ class ContinuousBatcher:
     the queue; a stream consumer that goes away cancels the future, and
     the worker's cancellation checks release the slot.
 
-    `.calls` counts dispatched decode steps (over-decoded ones included);
+    Speculative decoding (`draft`, `spec_gamma`): while `spec_enabled`,
+    each worker iteration runs one synchronous spec round (`_spec_round`)
+    in place of the decode chunks, after processing any chunk still in
+    flight; a slot's draft row is seeded inside the device call that
+    admits it (monolithic) or feeds its last slice (chunked).
+    `.spec_rounds`, `.spec_proposed` and `.spec_accepted` count rounds
+    and draft tokens; `on_spec_round(proposed, accepted)` feeds the
+    server's acceptance SLO.
+
+    `.calls` counts dispatched decode steps (over-decoded ones included;
+    a spec round counts one);
     `occupancy()` is tokens emitted per decode step; `.tokens_dropped`
     counts decode tokens computed for a request after it retired (the
     dispatch-ahead overhang). `.slices` counts
@@ -797,9 +1091,13 @@ class ContinuousBatcher:
                  kv_block_size: int = 64,
                  kv_pool_blocks: int | None = None,
                  kv_spill_bytes: int | None = None,
-                 seed: int | None = None, cuda_graphs: bool = True):
+                 seed: int | None = None, cuda_graphs: bool = True,
+                 draft: InferenceEngine | None = None,
+                 spec_gamma: int = 4):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if spec_gamma < 1:
+            raise ValueError(f"spec_gamma must be >= 1, got {spec_gamma}")
         if prefill_chunk_tokens is not None and prefill_chunk_tokens < 1:
             raise ValueError(
                 f"prefill_chunk_tokens must be >= 1, got "
@@ -818,10 +1116,11 @@ class ContinuousBatcher:
         self.prefill_chunk_tokens = prefill_chunk_tokens
         self.pipeline_depth = pipeline_depth
         self.max_pending = max_pending
+        self.spec_gamma = spec_gamma
         self.cengine = ContinuousEngine(
             engine, max_slots, block_size=kv_block_size,
             num_blocks=kv_pool_blocks, prefill_chunk=prefill_chunk,
-            seed=seed, cuda_graphs=cuda_graphs)
+            seed=seed, cuda_graphs=cuda_graphs, draft=draft)
         pool = self.cengine.pool
         self._radix = RadixPrefixCache(pool)
         # attached before the first alloc: births - frees == in_use
@@ -855,6 +1154,19 @@ class ContinuousBatcher:
         self.tokens_dropped = 0     # decoded after retirement, dropped
         self.decode_s = 0.0
         self.prefill_s = 0.0
+        self.spec_rounds = 0        # speculative verify rounds
+        self.spec_proposed = 0      # draft tokens proposed
+        self.spec_accepted = 0      # draft tokens the target accepted
+        # the kill switch (POST /v1/spec): off, rounds and draft seeding
+        # stop and plain decode chunks carry on; the draft and its cache
+        # stay allocated. Turn it back on with the batcher drained: a
+        # slot admitted while it was off has no draft row, so its
+        # rounds would draft from a stale cache (the output law holds,
+        # acceptance falls)
+        self.spec_enabled = True
+        # optional hook on_spec_round(proposed, accepted) per verify
+        # round; the server feeds the spec-acceptance SLO through it
+        self.on_spec_round = None
         # optional hook(computed, reused, hit, tenant, restored=) per
         # admission; the server wires the prefix metrics through it
         self.on_prefix = None
@@ -925,8 +1237,9 @@ class ContinuousBatcher:
         (before traffic; the app's on_startup hook calls it when
         create_serving_app(warmup=True)): every group size x bucket of
         admission, the step graph for every chunk size, the slice graph
-        in chunked mode. With `prefill_chunk` the default buckets add a
-        two-chunk prompt, as the reference's. Seeded admission's
+        in chunked mode, the spec draft and verify graphs with a draft.
+        With `prefill_chunk` the default buckets add a two-chunk prompt,
+        as the reference's. Seeded admission's
         `gather_seed`, `copy_cells` and `import_blocks` run eagerly and
         need no warming. -> shapes run."""
         if buckets is None:
@@ -936,7 +1249,8 @@ class ContinuousBatcher:
                 buckets.append(2 * c)
         return self.cengine.warmup(
             buckets=tuple(buckets), step_sizes=range(1, self.chunk + 1),
-            slice_tokens=self.prefill_chunk_tokens)
+            slice_tokens=self.prefill_chunk_tokens,
+            spec_gamma=self.spec_gamma)
 
     # -- public API -------------------------------------------------------
 
@@ -1524,6 +1838,8 @@ class ContinuousBatcher:
                     phys.append(plan["extra"].block)
                 chains[i, :len(phys)] = phys
 
+        seed_draft = self._spec_on()
+
         def run():
             st = ce.slots()
             pstate0 = (seed if chains is None
@@ -1532,6 +1848,11 @@ class ContinuousBatcher:
                 lists, bucket, samplings, ce.gen, prefix_state=pstate0)
             ce.insert_many(st, slots, pstate, list(range(n)), first,
                            tables=tables, seed_lens=[m] * n)
+            if seed_draft:
+                # before the first token is emitted: each draft row holds
+                # the prompt, its cursor the target's
+                for slot, _, plan in group:
+                    ce.draft_prefill(ce.draft_slots(), slot, plan["full"])
             return HostCopy(first[:n], lps[:n])
 
         t0 = time.perf_counter()
@@ -1578,9 +1899,15 @@ class ContinuousBatcher:
         toks = np.zeros((1, budget), np.int64)
         toks[0, :n] = suffix[fed:fed + n]
 
+        seed_draft = finish and self._spec_on()
+
         def run():
-            nxt, lp = self.cengine.prefill_slice(self._sp(), slot, toks, n,
-                                                 finish)
+            ce = self.cengine
+            nxt, lp = ce.prefill_slice(self._sp(), slot, toks, n, finish)
+            if seed_draft:
+                # the prompt is whole: seed the draft row before the
+                # first token is emitted
+                ce.draft_prefill(ce.draft_slots(), slot, req.kv_toks)
             return HostCopy(nxt, lp) if finish else None
 
         t0 = time.perf_counter()
@@ -1598,6 +1925,59 @@ class ContinuousBatcher:
             self._index_inflight(req)
             self._emit(slot, req, int(first[0]), float(flp[0]),
                        decode=False)
+
+    def _spec_on(self) -> bool:
+        return self.cengine.draft is not None and self.spec_enabled
+
+    async def _spec_round(self) -> None:
+        """One speculative round for every live (non-frozen) slot: gamma
+        draft tokens, one verify over gamma + 1 tokens a row, then k + 1
+        tokens emitted a row (the tail dropped where a row retires mid
+        window). Synchronous, as the reference's: the accepted counts
+        decide retirement, so the host reads each round before it plans
+        the next; emit, logprobs and k come back through one host copy."""
+        snap = {s: r for s, r in self._active.items()
+                if r.prefilling is None}
+        if not snap:
+            return
+        gamma = self.spec_gamma
+
+        def run():
+            sp = self._sp()
+            self.cengine.spec_draft(sp, gamma)
+            return HostCopy(*self.cengine.spec_verify(sp, gamma))
+
+        t0 = time.perf_counter()
+        emit, lps, k = await self._fetch(await self._device(run))
+        self.decode_s += time.perf_counter() - t0
+        self.calls += 1
+        self.spec_rounds += 1
+        proposed, accepted = gamma * len(snap), 0
+        self.spec_proposed += proposed
+        for slot, req in snap.items():
+            n = int(k[slot]) + 1
+            if self._active.get(slot) is not req:
+                self.tokens_dropped += n
+                continue
+            if req.fut.done():   # caller cancelled mid-round
+                self.tokens_dropped += n
+                self._finish(slot, req)
+                continue
+            accepted += n - 1
+            for j in range(n):
+                self._emit(slot, req, int(emit[slot, j]),
+                           float(lps[slot, j]))
+                if slot not in self._active:
+                    # retired mid-window: the tail is dropped, and never
+                    # enters kv_toks (its KV lies past the cache line)
+                    self.tokens_dropped += n - j - 1
+                    break
+        self.spec_accepted += accepted
+        if self.on_spec_round is not None:
+            try:
+                self.on_spec_round(proposed, accepted)
+            except Exception:  # noqa: BLE001 — a metrics hook never
+                log.exception("on_spec_round hook failed")   # kills us
 
     def _plan_steps(self, inflight) -> int:
         """Next chunk size: the longest remaining budget among live
@@ -1683,7 +2063,18 @@ class ContinuousBatcher:
                     await self._advance_prefill()
                 while inflight and inflight[0]["out"].ready():
                     self._process_chunk(inflight.popleft())
-                steps = self._plan_steps(inflight)
+                if self._spec_on():
+                    # spec rounds replace decode chunks; a chunk still in
+                    # flight (spec just turned on) is processed first, or
+                    # its tokens would come out after the round's
+                    while inflight:
+                        head = inflight.popleft()
+                        await self._sync_chunk(head)
+                        self._process_chunk(head)
+                    await self._spec_round()
+                    steps = 0
+                else:
+                    steps = self._plan_steps(inflight)
                 if steps and len(inflight) < self.pipeline_depth:
                     inflight.append(await self._dispatch_chunk(steps))
                 elif inflight:

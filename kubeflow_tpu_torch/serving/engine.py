@@ -118,6 +118,17 @@ def filter_logits(logits: torch.Tensor, top_k: torch.Tensor,
     return torch.where(keep, logits, -torch.inf)
 
 
+def race_draw(probs: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    """One token per row of [..., vocab] probabilities by the exponential
+    race, argmax(p / E) with E ~ Exp(1) from `gen`: token i wins with
+    probability p_i (the law of torch.multinomial's one sample), a
+    zero-probability token never wins and a one-hot row draws its token.
+    Nothing is read back to the host, so a CUDA graph holds the draw."""
+    race = torch.empty_like(probs).exponential_(generator=gen)
+    race.clamp_(min=torch.finfo(torch.float32).tiny)
+    return torch.argmax(probs / race, dim=-1)
+
+
 def scaled_filtered_logits(logits: torch.Tensor,
                            sp: SamplingParams) -> torch.Tensor:
     """Temperature-scale then top-k/top-p filter: the one definition of
@@ -126,6 +137,20 @@ def scaled_filtered_logits(logits: torch.Tensor,
     if not sp.filtered:
         return scaled
     return filter_logits(scaled, sp.top_k[:, None], sp.top_p[:, None])
+
+
+def sampling_dist(logits: torch.Tensor, sp: SamplingParams) -> torch.Tensor:
+    """[n, vocab] logits -> the sampling distribution under sp (its
+    knobs broadcast over the n rows). Greedy is the temperature->0
+    limit, a one-hot on the argmax, so one accept/reject rule serves
+    greedy and sampled decoding: for one-hots the ratio test is exact
+    token match."""
+    greedy = torch.nn.functional.one_hot(
+        torch.argmax(logits, -1), logits.shape[-1]).float()
+    if not sp.sampled:
+        return greedy
+    probs = torch.softmax(scaled_filtered_logits(logits, sp), -1)
+    return torch.where(sp.temperature[:, None] > 0.0, probs, greedy)
 
 
 class DecodeState:
@@ -280,9 +305,7 @@ class InferenceEngine:
         tok = torch.argmax(logits, dim=-1)
         if sp.sampled:
             probs = torch.softmax(scaled_filtered_logits(logits, sp), -1)
-            race = torch.empty_like(probs).exponential_(generator=gen)
-            race.clamp_(min=torch.finfo(torch.float32).tiny)
-            drawn = torch.argmax(probs / race, dim=-1)
+            drawn = race_draw(probs, gen)
             tok = torch.where(sp.temperature > 0.0, drawn, tok)
         raw = torch.log_softmax(logits.float(), dim=-1)
         lp = torch.gather(raw, -1, tok[:, None])[:, 0]

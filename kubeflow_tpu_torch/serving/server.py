@@ -18,7 +18,9 @@ Routes, each with the reference's request and response bodies:
 - `GET /v1/requests/{id}/timeline`, `GET /v1/requests/timelines` — the
   continuous batchers' per-request token timelines.
 - `GET /metrics` — Prometheus exposition of the serving families whose
-  sources the port has (`ServingObs`).
+  sources the port has (`ServingObs`), the SLO burn rates among them.
+- `GET /v1/spec`, `POST /v1/spec {"enabled": bool}` — the continuous
+  speculative decoding's per-model state and its kill switch.
 - `GET /healthz` (200 only while the server admits work), `GET /readyz`
   (liveness), `GET /v1/models`.
 
@@ -39,8 +41,11 @@ Modes, as in the reference's `create_serving_app`:
   go before the prompt's and whose KV is computed once.
 - `"speculative": true` (either mode, a model registered in `drafts`):
   batch-1 speculative decoding through `SpeculativeEngine`.
-The reference's drain, migration, reload, `/v1/spec`, tracing and
-tenancy routes are not ported yet.
+- `spec_decode=True` (continuous only, a draft for every model): every
+  request decodes speculatively in its model's continuous batcher,
+  `spec_gamma` draft tokens verified a round on the paged KV pool.
+The reference's drain, migration, reload, tracing and tenancy routes are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ from kubeflow_tpu_torch.obs.metrics import (
     Registry,
     get_or_create_histogram,
 )
+from kubeflow_tpu_torch.obs.slo import Slo, get_or_create_slo_engine
 from kubeflow_tpu_torch.ops.cuda import launch_counts
 from kubeflow_tpu_torch.serving.continuous import (
     ContinuousBatcher,
@@ -115,6 +121,19 @@ TENANT_BLIND = "other"
 # prefill token sources the port has (the reference's fourth,
 # peer_fetched, needs the peer block fetch: ROADMAP Queue 1 item 5)
 PREFILL_SOURCES = ("computed", "reused", "restored")
+# The reference's tenant priority classes: every SLO family is seeded for
+# each, and the tenant-blind port feeds every request to PRIORITY's, as a
+# tenant-blind reference deployment does.
+PRIORITIES = ("interactive", "standard", "batch")
+PRIORITY = "standard"
+# The reference's replica SLOs: TTFT thresholds per priority class, the
+# ITL threshold, the latency and availability objectives, and the share
+# of verified draft tokens speculation must keep accepted.
+SLO_TTFT_THRESHOLDS_S = {"interactive": 0.5, "standard": 2.0, "batch": 10.0}
+SLO_ITL_THRESHOLD_S = 0.25
+SLO_LATENCY_OBJECTIVE = 0.95
+SLO_ERROR_OBJECTIVE = 0.99
+SLO_SPEC_ACCEPTANCE_OBJECTIVE = 0.5
 
 log = logging.getLogger(__name__)
 
@@ -122,7 +141,10 @@ log = logging.getLogger(__name__)
 class ServingObs:
     """The app's metric registry and the serving families whose sources
     the port has, under the reference's names, help, labels and buckets.
-    `/metrics` renders the registry."""
+    `/metrics` renders the registry, and `slo` (obs/slo.py, the
+    `slo_burn_rate` and `slo_error_budget_remaining` gauges) holds the
+    reference's SLOs: TTFT per priority class, ITL, errors per priority
+    class, speculative acceptance."""
 
     def __init__(self):
         self.registry = reg = Registry()
@@ -175,6 +197,26 @@ class ServingObs:
             reg, "serving_queue_wait_seconds",
             "Enqueue to first admission into the decode batch, per "
             "model (scheduling delay; excludes prefill)")
+        slos = [Slo(f"serving_ttft_{cls}", SLO_LATENCY_OBJECTIVE,
+                    threshold_s=SLO_TTFT_THRESHOLDS_S[cls],
+                    description=f"p95 TTFT for {cls} traffic under "
+                                f"{SLO_TTFT_THRESHOLDS_S[cls]:g} s")
+                for cls in PRIORITIES]
+        slos.append(Slo(
+            "serving_itl", SLO_LATENCY_OBJECTIVE,
+            threshold_s=SLO_ITL_THRESHOLD_S,
+            description=f"p95 inter-token latency under "
+                        f"{SLO_ITL_THRESHOLD_S:g} s"))
+        slos.extend(Slo(f"serving_errors_{cls}", SLO_ERROR_OBJECTIVE,
+                        description=f"99% of {cls} requests answered "
+                                    "without a 5xx")
+                    for cls in PRIORITIES)
+        slos.append(Slo(
+            "serving_spec_acceptance", SLO_SPEC_ACCEPTANCE_OBJECTIVE,
+            description=f"{SLO_SPEC_ACCEPTANCE_OBJECTIVE:.0%} of verified "
+                        "draft tokens accepted (below this the draft "
+                        "burns more verify slots than it saves)"))
+        self.slo = get_or_create_slo_engine(reg, slos)
 
 
 _OBS_T0 = "obs_request_start"
@@ -188,7 +230,10 @@ def _observe_first_token(request: web.Request, model: str) -> None:
     if t0 is None or request.get(_OBS_TTFT_DONE):
         return
     request[_OBS_TTFT_DONE] = True
-    request.app[OBS_KEY].ttft.observe(time.perf_counter() - t0, model=model)
+    dt = time.perf_counter() - t0
+    sobs = request.app[OBS_KEY]
+    sobs.ttft.observe(dt, model=model)
+    sobs.slo.observe(f"serving_ttft_{PRIORITY}", dt)
 
 
 def _observed(route: str, handler):
@@ -203,12 +248,22 @@ def _observed(route: str, handler):
 
     async def observed(request: web.Request):
         request[_OBS_T0] = time.perf_counter()
+        status = 500
         try:
-            return await handler(request)
+            resp = await handler(request)
+            status = resp.status
+            return resp
+        except web.HTTPException as exc:
+            status = exc.status
+            raise
         finally:
-            request.app[OBS_KEY].request_latency.observe(
+            sobs = request.app[OBS_KEY]
+            sobs.request_latency.observe(
                 time.perf_counter() - request[_OBS_T0], route=route,
                 method=request.method)
+            if route.startswith("/v1/models/"):
+                # the availability SLO counts inference traffic only
+                sobs.slo.record(f"serving_errors_{PRIORITY}", status < 500)
 
     return observed
 
@@ -365,6 +420,7 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
                        kv_spill_bytes: int | None = None,
                        prefixes: dict[str, list[int]] | None = None,
                        drafts: dict[str, InferenceEngine] | None = None,
+                       spec_decode: bool = False, spec_gamma: int = 4,
                        seed: int | None = None) -> web.Application:
     """`continuous=False` (the default) serves through the one-shot
     engine: a window `Batcher` per model when `batch_window_ms > 0`,
@@ -388,24 +444,36 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
     one-shot mode each engine's decode graphs for the window batcher's
     row counts (powers of two up to max_batch). `drafts` maps model
     names to draft engines; a request with "speculative": true then
-    decodes through `SpeculativeEngine`. The app's metric registry
-    (`app[OBS_KEY].registry`) is rendered at `/metrics`."""
+    decodes through `SpeculativeEngine`. `spec_decode=True`
+    (continuous only) instead puts each model's draft into its
+    continuous batcher: EVERY request decodes speculatively on the paged
+    KV pool, `spec_gamma` draft tokens verified a round; it needs a
+    draft for every model, and `/v1/spec` switches it off and on. The
+    app's metric registry (`app[OBS_KEY].registry`) is rendered at
+    `/metrics`, the SLO burn rates with it."""
     if not continuous and (prefill_chunk is not None
                            or prefill_chunk_tokens is not None
                            or pipeline_depth is not None
                            or kv_block_size != 64
                            or kv_pool_blocks is not None
-                           or kv_spill_bytes is not None or prefixes):
+                           or kv_spill_bytes is not None or prefixes
+                           or spec_decode):
         # these knobs only exist on the continuous batcher; ignoring
         # them would ship a server without what the caller asked for
         raise ValueError("prefill_chunk/prefill_chunk_tokens/"
                          "pipeline_depth/kv_block_size/kv_pool_blocks/"
-                         "kv_spill_bytes/prefixes require "
+                         "kv_spill_bytes/prefixes/spec_decode require "
                          "continuous=True")
     unknown = set(drafts or {}) - set(engines)
     if unknown:
         raise ValueError(f"drafts registered for unknown models "
                          f"{sorted(unknown)}")
+    if spec_decode:
+        missing = set(engines) - set(drafts or {})
+        if missing:
+            raise ValueError(
+                f"spec_decode=True requires a draft for every served "
+                f"model; missing {sorted(missing)}")
     tok_vocab = getattr(tokenizer, "vocab_size", None)
     if tok_vocab is not None:
         # fail at start-up: ids past a model's vocab would 400 every
@@ -433,7 +501,9 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
                 prefill_chunk_tokens=prefill_chunk_tokens,
                 prefixes=prefixes, pipeline_depth=pipeline_depth,
                 kv_block_size=kv_block_size, kv_pool_blocks=kv_pool_blocks,
-                kv_spill_bytes=kv_spill_bytes, seed=seed)
+                kv_spill_bytes=kv_spill_bytes, seed=seed,
+                draft=(drafts or {}).get(name) if spec_decode else None,
+                spec_gamma=spec_gamma)
             for name, eng in engines.items()}
     else:
         app[BATCHERS_KEY] = (
@@ -486,6 +556,8 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
             (get, "/healthz", healthz),
             (get, "/readyz", _ok),
             (get, "/metrics", render_metrics),
+            (get, "/v1/spec", spec_toggle),
+            (post, "/v1/spec", spec_toggle),
             (get, "/v1/models", list_models),
             (get, "/v1/requests/timelines", request_timelines_index),
             (get, "/v1/requests/{id}/timeline", request_timeline),
@@ -516,10 +588,24 @@ def _wire_continuous_metrics(sobs: ServingObs, model: str,
             sobs.prefill_tokens.observe(restored, model=model,
                                         source="restored")
 
+    def on_itl(gap):
+        sobs.itl.observe(gap, model=model)
+        sobs.slo.observe("serving_itl", gap)
+
+    def on_spec_round(proposed, accepted):
+        # every verified draft token is one event against the acceptance
+        # SLO: a rejected one burns its budget
+        accepted = min(int(accepted), int(proposed))
+        for _ in range(accepted):
+            sobs.slo.record("serving_spec_acceptance", True)
+        for _ in range(int(proposed) - accepted):
+            sobs.slo.record("serving_spec_acceptance", False)
+
     b.on_prefix = on_prefix
-    b.on_itl = lambda gap: sobs.itl.observe(gap, model=model)
+    b.on_itl = on_itl
     b.on_queue_wait = lambda wait: sobs.queue_wait.observe(wait,
                                                            model=model)
+    b.on_spec_round = on_spec_round
     for fam in (sobs.prefix_hits, sobs.prefix_misses):
         fam.inc(0, model=model)
         fam.inc(0, model=model, tenant=TENANT_BLIND)
@@ -530,6 +616,39 @@ def _wire_continuous_metrics(sobs: ServingObs, model: str,
 
 async def _ok(request: web.Request):
     return web.json_response({"status": "ok"})
+
+
+def _spec_state(app: web.Application) -> dict:
+    """Per-model continuous speculative decoding state for /v1/spec."""
+    out = {}
+    for name, b in app[BATCHERS_KEY].items():
+        has_draft = (isinstance(b, ContinuousBatcher)
+                     and b.cengine.draft is not None)
+        out[name] = {"draft": has_draft,
+                     "spec_enabled": bool(has_draft and b.spec_enabled)}
+    return out
+
+
+async def spec_toggle(request: web.Request):
+    """`POST /v1/spec {"enabled": bool}`: the kill switch of continuous
+    speculative decoding on every model with a draft (a draft that stops
+    earning its keep costs a verify round per window for nothing).
+    `GET` returns the per-model state."""
+    if request.method == "GET":
+        return web.json_response({"models": _spec_state(request.app)})
+    try:
+        body = await request.json()
+    except Exception:  # noqa: BLE001 — any unparsable body is a 400
+        return web.json_response({"error": "invalid JSON"}, status=400)
+    enabled = body.get("enabled") if isinstance(body, dict) else None
+    if not isinstance(enabled, bool):
+        return web.json_response(
+            {"error": "body needs a boolean 'enabled'"}, status=400)
+    for b in request.app[BATCHERS_KEY].values():
+        if isinstance(b, ContinuousBatcher) and b.cengine.draft is not None:
+            b.spec_enabled = enabled
+    return web.json_response({"enabled": enabled,
+                              "models": _spec_state(request.app)})
 
 
 async def healthz(request: web.Request):

@@ -26,7 +26,7 @@ from kubeflow_tpu_torch.serving.engine import (
     DecodeState,
     InferenceEngine,
     SamplingParams,
-    scaled_filtered_logits,
+    sampling_dist,
 )
 
 
@@ -38,20 +38,6 @@ class SpecStats(NamedTuple):
     @property
     def acceptance_rate(self) -> float:
         return float(self.accepted) / max(float(self.proposed), 1.0)
-
-
-def _dist(logits: torch.Tensor, sp: SamplingParams) -> torch.Tensor:
-    """[n, vocab] logits -> the sampling distribution under sp (batch-1
-    knobs broadcast over the n positions). Greedy is the temperature->0
-    limit, a one-hot on the argmax, so one accept/reject rule serves
-    greedy and sampled decoding: for one-hots the ratio test is exact
-    token match."""
-    greedy = torch.nn.functional.one_hot(
-        torch.argmax(logits, -1), logits.shape[-1]).float()
-    if not sp.sampled:
-        return greedy
-    probs = torch.softmax(scaled_filtered_logits(logits, sp), -1)
-    return torch.where(sp.temperature[:, None] > 0.0, probs, greedy)
 
 
 def _draw(gen: torch.Generator, probs: torch.Tensor) -> torch.Tensor:
@@ -100,7 +86,7 @@ class SpeculativeEngine:
         dev = target.device
 
         tlogits, tstate = target._forward_cached(prompt, target.init_state(1))
-        first = _draw(gen, _dist(tlogits, sp))                  # [1]
+        first = _draw(gen, sampling_dist(tlogits, sp))          # [1]
         _, dstate = draft._forward_cached(prompt, draft.init_state(1))
         out = [first]
         n, last, acc, prop = 1, first, 0, 0
@@ -110,7 +96,7 @@ class SpeculativeEngine:
             tok = last
             for _ in range(gamma):
                 logits, dstate = draft._forward_cached(tok[:, None], dstate)
-                q = _dist(logits, sp)                           # [1, vocab]
+                q = sampling_dist(logits, sp)                   # [1, vocab]
                 tok = _draw(gen, q)
                 drafted.append(tok)
                 qs.append(q[0])
@@ -121,7 +107,7 @@ class SpeculativeEngine:
             tin = torch.cat([last, drafted])[None]
             all_logits, tstate = target._forward_cached(tin, tstate,
                                                         return_all=True)
-            ps = _dist(all_logits[0], sp)                       # [gamma+1, V]
+            ps = sampling_dist(all_logits[0], sp)               # [gamma+1, V]
 
             # accept d_i with probability min(1, p(d_i) / q(d_i))
             us = torch.rand(gamma, generator=gen, device=dev)

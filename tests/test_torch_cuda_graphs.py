@@ -11,7 +11,9 @@ kernel, a 512-cell cache). The replayed graphs run the same kernels on
 the same inputs as the explicit eager path, so greedy tokens and
 logprobs are bit-identical to it; launch counts under replay are the
 capture's counts times the replays; warmup leaves traffic nothing to
-capture; sampled rows stay inside their top-k set.
+capture; sampled rows stay inside their top-k set. With a draft of the
+same shape, the speculative rounds' draft and verify graphs replay to
+the eager spec path's tokens.
 """
 
 import asyncio
@@ -248,3 +250,51 @@ def test_concurrent_streams_with_a_stop_under_replay_equal_eager(params):
     assert replayed.tokens_dropped <= replayed.pipeline_depth \
         * replayed.chunk * 2
     assert replayed.cengine.graphs.replays > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefill_chunk_tokens", [None, 64])
+def test_replayed_spec_rounds_equal_eager(params, prefill_chunk_tokens):
+    """Continuous speculative decoding (a draft of the same shape from
+    seed 1, gamma 3; its 512-cell dense cache takes the dense decode
+    kernel): the warmed spec draft and verify graphs replay to the eager
+    spec path's tokens and logprobs bit for bit, capture nothing in
+    traffic, and launch exactly what the design implies."""
+    draft_params = llama.init(CFG, 1, torch.device("cuda"))
+    prompts = _prompts(7, (100, 150, 30, 65))
+    gamma = 3
+
+    def run(graphs):
+        batcher = ContinuousBatcher(
+            _engine(params, graphs), asyncio.Lock(), max_slots=4,
+            prefill_chunk_tokens=prefill_chunk_tokens, seed=0,
+            cuda_graphs=graphs, draft=_engine(draft_params, graphs),
+            spec_gamma=gamma)
+        if graphs:
+            batcher.warmup()
+        warm = batcher.cengine.graphs.captures
+        reset_launch_counts()
+
+        async def serve():
+            try:
+                return await asyncio.gather(*(
+                    batcher.submit(p, 12, with_logprobs=True)
+                    for p in prompts))
+            finally:
+                await batcher.close()
+
+        out = [(list(t), list(lp)) for t, lp in asyncio.run(serve())]
+        torch.cuda.synchronize()
+        return out, batcher, warm, launch_counts()
+
+    graphed, gb, warm, counts = run(True)
+    eager, eb, _, eager_counts = run(False)
+    assert graphed == eager
+    assert gb.cengine.graphs.captures == warm
+    assert ("spec_verify", gamma, False, False) in gb.cengine.graphs
+    L = CFG.num_layers
+    assert gb.spec_rounds == eb.spec_rounds > 0
+    assert counts == eager_counts
+    assert counts["paged_prefill_append"] == L * (gb.spec_rounds + gb.slices)
+    assert counts["decode_attention"] == L * (gamma + 1) * gb.spec_rounds
+    assert counts["paged_decode_attention"] == 0

@@ -240,8 +240,53 @@ Phases, each fatal on failure (exit code 1, no result line):
              rounds and acceptance, host ms a round, tokens/s of both
              waves whole and of their decode alone, the device-busy
              share of the profiled round and peak memory.
+10. tenants — (a) llama3-1b as a multi-tenant replica: the CLI's app
+             (`--model llama3-1b --random --seed 0 --continuous
+             --warmup --prefill-chunk-tokens 64 --max-batch 2 --tenants
+             FILE`, depth 2, max_len 1024; tenants `live` interactive,
+             `bulk` batch, `iso` standard with prefix isolation,
+             `paced` at 0.5 requests/s, burst 1). Four waves, counters
+             set to 0 just before each and read just after: the oracle
+             (bulk's 300- and 130-token prompts alone, 96 new; then a
+             flushed cache), contention (both bulk prompts together;
+             once both have emitted 16 tokens, `live` sends 17 tokens,
+             16 new), isolation (`iso` sends the 300-token prompt) and
+             throttling (`paced` twice, back to back). Checks at least
+             one preemption, of the younger bulk request, whose
+             re-admission reuses at least 64 x floor((len(kv_toks) -
+             1) / 64) cells; exact launches (16 paged decode a
+             dispatched step, 16 prefill-append a slice, slices as the
+             admit and resume events reckon); no capture in traffic;
+             bulk's outputs equal the oracle up to the first position
+             whose teacher-forced top-2 margin is at most 0.2 (logged
+             with its margin), every logprob within 0.1 of the teacher;
+             `iso` misses bulk's cache and gives its tokens by the same
+             rule; `paced`'s second request 429 with Retry-After >= 1;
+             `/metrics`' tenant preemptions, tokens and rate throttles
+             equal the traffic; the block ledger conserved. (b) the
+             instant drain: replicas A and B from the CLI (4 slots,
+             chunk 64, `--warmup`, depth 2) served on local ports. B's
+             oracle (prompts of 17, 130, 300, 520 and 64 tokens, 96
+             new, one at a time; then a flushed cache). Wave M1 at
+             batcher level: A streams the five, four admitted, read to
+             70, 40, 5 and 0 tokens; A's `export_sequences()`; each
+             record into B's `import_sequence` (adopted blocks = n_full,
+             B's blocks bit-equal to A's and to the wire's), resumed
+             through B's `:generate` (cells reused >= 64 x n_full,
+             exact launches, the tie rule against the oracle, logprobs
+             against the teacher); A holds no block. Wave M2 over HTTP:
+             four streams and a plain request on A, then `POST
+             A/drain {"migrate": true, "peers": [B]}`: migrated 5,
+             failed 0, every stream ends with its MigratedAway event,
+             the plain request 503 `migrated`, A's `/healthz` 503, B's
+             migration counters equal A's. B's refusals: a wedged
+             record 500 and a gemma-2b geometry 400 with the free
+             blocks unchanged; `/v1/blocks/export` of the cached
+             300-token prompt equal to B's pool, 404 uncached, 400 bad
+             hash; both ledgers conserved. Prints the synchronous
+             export and import ms a block and the card.
 Then prints the `kernels` JSON line (launches: the paged kernels' over
-phases 3, 3b, 3c, 8 and 9's spec-off pass, each other kernel's over its
+phases 3, 3b, 3c, 8, 9's spec-off pass and 10, each other kernel's over its
 phases (4 and 8 for flash, 5, 8 and 9 for dense decode); each kernel
 again as `<name>@gemma-2b`, timed in phase 2 at gemma-2b's shapes and
 counted over phase 6, or phase 7 for the flash kernels; and
@@ -3133,6 +3178,616 @@ async def serve_spec_and_check(torch):
     return counts, off_counts
 
 
+# -- phase 10 ---------------------------------------------------------------
+
+
+TENANT_MAX_NEW = 96                 # phase 10's bulk and migrated budgets
+LIVE_MAX_NEW = 16
+PREEMPT_AFTER = 16                  # bulk tokens out before live arrives
+TENANTS = {"tenants": {
+    "live": {"priority": "interactive"},
+    "bulk": {"priority": "batch"},
+    "iso": {"priority": "standard", "prefix_isolation": True},
+    "paced": {"requests_per_s": 0.5, "request_burst": 1.0}}}
+MIGRATE_LENS = (17, 130, 300, 520, 64)
+# how far each of the four admitted streams is read before the export:
+# the earliest to decode is read furthest, so none completes first
+MIGRATE_READ = (70, 40, 5, 0)
+# gemma-2b's pool geometry: a record of it must be refused by a
+# llama3-1b pool before anything is allocated
+GEMMA_GEOMETRY = {"block_size": BS, "num_kv_heads": 1, "head_dim": 256,
+                  "num_layers": 18}
+
+
+def _tie_rule(torch, engine, label, prompt, want, got):
+    """`got` equals the uninterrupted `want` up to their first
+    difference, and there the teacher-forced top-2 margin of the plain
+    dense model is at most 2 x LOGPROB_TOL (a near tie that the two bf16
+    paths, paged decode against a recomputed prefill-append tail, may
+    break either way). Fails otherwise; logs the difference and its
+    margin. -> True when the two are equal."""
+    from kubeflow_tpu_torch.models import llama
+
+    j = next((i for i, (x, y) in enumerate(zip(want, got)) if x != y), None)
+    if j is None and len(want) == len(got):
+        return True
+    if j is None:
+        fail(f"{label}: {len(got)} tokens, the uninterrupted run gave "
+             f"{len(want)}")
+    with torch.inference_mode():
+        toks = torch.tensor([prompt + want[:j]], device=engine.device)
+        logits = llama.apply(engine.params, engine.cfg, toks)[0, -1]
+        top2 = torch.topk(torch.log_softmax(logits.float(), -1), 2).values
+    margin = float(top2[0] - top2[1])
+    log(f"  {label}: parts from the uninterrupted run at token {j} of "
+        f"{len(want)}, teacher-forced top-2 margin {margin:.4f} (tie rule: "
+        f"<= {2 * LOGPROB_TOL})")
+    if margin > 2 * LOGPROB_TOL:
+        fail(f"{label}: parts from the uninterrupted run at {j} where the "
+             f"teacher-forced margin {margin:.4f} exceeds "
+             f"{2 * LOGPROB_TOL}")
+    return False
+
+
+async def _serve_app(argv):
+    """The CLI's app for `argv`, warmed and served on a free local port.
+    -> (app, runner, base url)."""
+    from aiohttp import web
+
+    from kubeflow_tpu_torch.serving.__main__ import build_app, parse_args
+
+    port = _free_port()
+    app = build_app(parse_args(argv + ["--host", "127.0.0.1",
+                                       "--port", str(port)]))
+    runner = web.AppRunner(app)
+    await runner.setup()          # on_startup: the batcher's warmup
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    return app, runner, f"http://127.0.0.1:{port}"
+
+
+async def _post_json(sess, url, body, headers=None, status=200):
+    async with sess.post(url, json=body, headers=headers) as r:
+        if r.status != status:
+            fail(f"{url} answered {r.status}, not {status}: "
+                 f"{await r.text()}")
+        return await r.json(), r.headers
+
+
+def _wave_slices(timelines, rids):
+    """The prefill slices the admissions of `rids` reckon: every admit
+    and resume event's computed suffix, in 64-token slices."""
+    n = 0
+    for rid in rids:
+        for ev in timelines.get(rid).to_dict()["events"]:
+            if ev["kind"] in ("admit", "resume"):
+                n += -(-ev["prefill_computed"] // CHUNK)
+    return n
+
+
+async def tenancy_and_check(torch):
+    """Phase 10a: llama3-1b as a multi-tenant replica through the CLI's
+    app (`--tenants`, `--max-batch 2`, chunked prefill 64, `--warmup`,
+    depth 2): the oracle, contention with preemption, isolation and
+    throttling. -> the paged kernels' launches over the four waves."""
+    import tempfile
+
+    import aiohttp
+
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.serving.server import BATCHERS_KEY, ENGINES_KEY
+
+    name = "llama3-1b"
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tenants.json")
+        with open(path, "w") as f:
+            json.dump(TENANTS, f)
+        app, runner, base = await _serve_app([
+            "--model", name, "--random", "--seed", "0", "--continuous",
+            "--warmup", "--prefill-chunk-tokens", str(CHUNK),
+            "--max-batch", "2", "--tenants", path])
+    engine, batcher = app[ENGINES_KEY][name], app[BATCHERS_KEY][name]
+    graphs = batcher.cengine.graphs
+    captures = graphs.captures
+    L = engine.cfg.num_layers
+    log(f"  server up in {time.perf_counter() - t_phase:.1f} s "
+        f"({batcher.cengine.S} slots, pipeline depth "
+        f"{batcher.pipeline_depth}, tenants {batcher.tenancy.names()}); "
+        f"warmup captured {captures} CUDA graphs")
+    gen = torch.Generator().manual_seed(10)
+
+    def prompt(n):
+        return torch.randint(0, engine.cfg.vocab_size, (n,),
+                             generator=gen).tolist()
+
+    bulk = {"bulk-300": prompt(300), "bulk-130": prompt(130)}
+    live, paced = prompt(17), prompt(17)
+    url = f"{base}/v1/models/{name}:generate"
+    emitted = {t: 0 for t in TENANTS["tenants"]}
+    counts_all: dict = {}
+
+    def wave_start():
+        reset_launch_counts()
+        return batcher.calls, batcher.slices
+
+    def wave_end(label, start, rids):
+        """Exact launches over the wave: 16 paged decode launches per
+        dispatched step, 16 prefill-append launches per slice (admission
+        and re-admission tails), slices as the admissions reckon."""
+        calls, slices = (batcher.calls - start[0], batcher.slices - start[1])
+        counts = launch_counts()
+        want = {"paged_decode_attention": L * calls,
+                "paged_prefill_append": L * slices}
+        reckon = _wave_slices(batcher.timelines, rids)
+        log(f"  {label}: {calls} decode steps, {slices} slices; launches "
+            f"{counts}")
+        if any(counts[k] != n for k, n in want.items()) or slices != reckon:
+            fail(f"phase 10a {label}: launches {counts}, the design implies "
+                 f"{want}; {slices} slices, the admissions reckon {reckon}")
+        for k in want:
+            counts_all[k] = counts_all.get(k, 0) + counts[k]
+
+    async def gen_req(sess, rid, tenant, p, max_new=TENANT_MAX_NEW,
+                      status=200):
+        body, headers = await _post_json(
+            sess, url, {"tokens": [p], "max_new": max_new,
+                        "logprobs": True},
+            {"X-Tenant": tenant, "X-Request-Id": rid}, status=status)
+        if status == 200:
+            emitted[tenant] += len(body["tokens"][0])
+        return body, headers
+
+    try:
+        async with aiohttp.ClientSession() as sess:
+            # 1. the oracle: each bulk prompt alone, then a cold cache
+            start = wave_start()
+            oracle = {}
+            for rid, p in bulk.items():
+                body, _ = await gen_req(sess, f"oracle-{rid}", "bulk", p)
+                oracle[rid] = (body["tokens"][0], body["logprobs"][0])
+            wave_end("oracle", start, [f"oracle-{r}" for r in bulk])
+            batcher.flush_cache()
+
+            # 2. contention: both bulk prompts, then live once both have
+            # PREEMPT_AFTER tokens out (read in-process from the batcher)
+            start = wave_start()
+            pre0, reused0 = batcher.preemptions, batcher.tokens_reused
+            tasks = {rid: asyncio.ensure_future(gen_req(sess, rid, "bulk", p))
+                     for rid, p in bulk.items()}
+            t0 = time.perf_counter()
+            while not (len(batcher._active) == 2 and all(
+                    len(r.out) >= PREEMPT_AFTER
+                    for r in batcher._active.values())):
+                if time.perf_counter() - t0 > 60:
+                    fail("phase 10a: the bulk requests never both decoded")
+                await asyncio.sleep(0.002)
+            t_live = time.perf_counter()
+            live_body, _ = await gen_req(sess, "live", "live", live,
+                                         LIVE_MAX_NEW)
+            live_s = time.perf_counter() - t_live
+            got = {rid: (await t)[0] for rid, t in tasks.items()}
+            contention_s = time.perf_counter() - t0
+            wave_end("contention", start, list(bulk) + ["live"])
+            preempted = batcher.preemptions - pre0
+
+            # 3. isolation: iso's 300-token prompt misses bulk's cache
+            start = wave_start()
+            hits0, reused1 = batcher.prefix_hits, batcher.tokens_reused
+            iso_body, _ = await gen_req(sess, "iso", "iso", bulk["bulk-300"])
+            iso_hits = batcher.prefix_hits - hits0
+            iso_reused = batcher.tokens_reused - reused1
+            wave_end("isolation", start, ["iso"])
+
+            # 4. throttling: paced's second request, back to back
+            start = wave_start()
+            await gen_req(sess, "paced-1", "paced", paced, LIVE_MAX_NEW)
+            shed, shed_headers = await gen_req(
+                sess, "paced-2", "paced", paced, LIVE_MAX_NEW, status=429)
+            wave_end("throttling", start, ["paced-1"])
+            async with sess.get(f"{base}/metrics") as r:
+                metrics = _parse_metrics(await r.text())
+        if graphs.captures != captures:
+            fail(f"phase 10a: traffic captured {graphs.captures - captures} "
+                 f"CUDA graphs after warmup")
+        timelines = {rid: batcher.timelines.get(rid).to_dict()
+                     for rid in list(bulk) + ["live"]}
+        ledger = batcher.cache_anatomy()["ledger"]
+        stats = batcher.tenant_stats()
+    finally:
+        await runner.cleanup()
+
+    # the victim: the younger bulk request, re-admitted from its donated
+    # blocks (a full block below its last written cell is a cache hit)
+    victims = [rid for rid in bulk
+               if any(e["kind"] == "preempt"
+                      for e in timelines[rid]["events"])]
+    younger = max(bulk, key=lambda r: timelines[r]["enqueue_monotonic_s"])
+    log(f"  contention: {preempted} preemption(s) of {victims} (the younger "
+        f"bulk request is {younger}); live answered in {live_s:.3f} s, the "
+        f"wave in {contention_s:.3f} s")
+    if preempted < 1 or victims != [younger]:
+        fail(f"phase 10a: {preempted} preemptions of {victims}, want the "
+             f"younger bulk request {younger}")
+    events = timelines[younger]["events"]
+    pre = next(e for e in events if e["kind"] == "preempt")
+    res = next(e for e in events if e["kind"] == "resume")
+    kv_len = len(bulk[younger]) + pre["emitted"]
+    want_reused = BS * ((kv_len - 1) // BS)
+    log(f"  the victim: preempted with {pre['emitted']} tokens out, "
+        f"re-admitted reusing {res['prefill_reused']} cells (want >= "
+        f"{want_reused}) and prefilling {res['prefill_computed']}")
+    if res["prefill_reused"] < want_reused:
+        fail(f"phase 10a: the re-admission reused {res['prefill_reused']} "
+             f"cells, its donated blocks hold {want_reused}")
+
+    # tokens: the tie rule against the oracle, logprobs against the
+    # teacher-forced plain model
+    prompts, outs, lps = [], [], []
+    for rid, p in bulk.items():
+        prompts += [p, p]
+        outs += [oracle[rid][0], got[rid]["tokens"][0]]
+        lps += [oracle[rid][1], got[rid]["logprobs"][0]]
+        _tie_rule(torch, engine, f"bulk {rid} under contention", p,
+                  oracle[rid][0], got[rid]["tokens"][0])
+    prompts += [live, bulk["bulk-300"]]
+    outs += [live_body["tokens"][0], iso_body["tokens"][0]]
+    lps += [live_body["logprobs"][0], iso_body["logprobs"][0]]
+    for o, lp in zip(outs, lps):
+        if len(lp) != len(o) or not all(
+                0 <= t < engine.cfg.vocab_size for t in o):
+            fail(f"phase 10a: malformed output {o} / {lp}")
+    _teacher_check(torch, engine, prompts, outs, lps, "tenants")
+    _tie_rule(torch, engine, "iso (isolated namespace)", bulk["bulk-300"],
+              oracle["bulk-300"][0], iso_body["tokens"][0])
+    log(f"  isolation: iso's 300-token prompt {iso_hits} hits, {iso_reused} "
+        f"cells reused (bulk cached it)")
+    if iso_hits or iso_reused:
+        fail("phase 10a: iso's prompt hit another tenant's cache")
+    retry = shed_headers.get("Retry-After")
+    log(f"  throttling: paced's second request 429 {shed['error']!r}, "
+        f"Retry-After {retry}")
+    if not retry or int(retry) < 1 or "throttled (rate)" not in shed["error"]:
+        fail(f"phase 10a: paced's 429 carried Retry-After {retry}")
+
+    def series(fam, tenant, **kw):
+        labels = tuple(sorted({"model": name, "tenant": tenant,
+                               **kw}.items()))
+        return metrics.get((fam, labels))
+
+    tokens = {t: series("serving_tenant_tokens_total", t) for t in emitted}
+    log(f"  /metrics: preemptions {series('serving_tenant_preemptions_total', 'bulk')}, "
+        f"tokens {tokens} (emitted {emitted}), rate throttles of paced "
+        f"{series('serving_tenant_throttled_total', 'paced', reason='rate')}; "
+        f"ledger conserved {ledger['conserved']}")
+    if (series("serving_tenant_preemptions_total", "bulk")
+            != batcher.preemptions or tokens != emitted
+            or series("serving_tenant_throttled_total", "paced",
+                      reason="rate") != 1
+            or stats["bulk"]["preempted"] != batcher.preemptions):
+        fail("phase 10a: the tenant series disagree with the traffic")
+    if not ledger["conserved"]:
+        fail(f"phase 10a: the block ledger is not conserved: {ledger}")
+    log(f"  phase 10a wall {time.perf_counter() - t_phase:.1f} s")
+    return counts_all
+
+
+async def migration_and_check(torch):
+    """Phase 10b: two llama3-1b replicas (the CLI's app, 4 slots, chunked
+    prefill 64, `--warmup`, depth 2): B's oracle, wave M1 (A's batcher
+    exports, B imports and resumes over HTTP), wave M2 (`POST /drain
+    {"migrate": true}` from A into B), B's refusals. -> the paged
+    kernels' launches over the waves."""
+    import aiohttp
+
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.serving import migration
+    from kubeflow_tpu_torch.serving.server import BATCHERS_KEY, ENGINES_KEY
+
+    name = "llama3-1b"
+    t_phase = time.perf_counter()
+    argv = ["--model", name, "--random", "--seed", "0", "--continuous",
+            "--warmup", "--prefill-chunk-tokens", str(CHUNK),
+            "--max-batch", "4"]
+    app_a, runner_a, base_a = await _serve_app(argv)
+    app_b, runner_b, base_b = await _serve_app(argv)
+    a, b = app_a[BATCHERS_KEY][name], app_b[BATCHERS_KEY][name]
+    engine = app_b[ENGINES_KEY][name]
+    L = engine.cfg.num_layers
+    captures = (a.cengine.graphs.captures, b.cengine.graphs.captures)
+    log(f"  replicas A and B up in {time.perf_counter() - t_phase:.1f} s "
+        f"({a.cengine.S} slots each, pipeline depth {a.pipeline_depth})")
+    gen = torch.Generator().manual_seed(11)
+    prompts = [torch.randint(0, engine.cfg.vocab_size, (n,),
+                             generator=gen).tolist() for n in MIGRATE_LENS]
+    if len({p[0] for p in prompts}) != len(prompts):
+        # a shared first token would seed a partial (copy-on-write) match
+        # and move the slice counts
+        fail("phase 10b's prompts share a first token: reseed them")
+    url_b = f"{base_b}/v1/models/{name}:generate"
+    counts_all: dict = {}
+
+    def launches(label, start, want_slices):
+        calls = a.calls + b.calls - start[0]
+        slices = a.slices + b.slices - start[1]
+        counts = launch_counts()
+        want = {"paged_decode_attention": L * calls,
+                "paged_prefill_append": L * slices}
+        log(f"  {label}: {calls} decode steps, {slices} slices; launches "
+            f"{counts}")
+        if any(counts[k] != n for k, n in want.items()) or (
+                want_slices is not None and slices != want_slices):
+            fail(f"phase 10b {label}: launches {counts}, the design "
+                 f"implies {want}; {slices} slices, want {want_slices}")
+        for k in want:
+            counts_all[k] = counts_all.get(k, 0) + counts[k]
+
+    def wave_start():
+        reset_launch_counts()
+        return a.calls + b.calls, a.slices + b.slices
+
+    def pool(batcher, ids):
+        st = batcher.cengine.slots()
+        return st.k[:, ids], st.v[:, ids]
+
+    try:
+        async with aiohttp.ClientSession() as sess:
+            # B's oracle, one prompt at a time, then a cold cache
+            start = wave_start()
+            oracle = []
+            for p in prompts:
+                body, _ = await _post_json(sess, url_b, {
+                    "tokens": [p], "max_new": TENANT_MAX_NEW,
+                    "logprobs": True})
+                oracle.append(body["tokens"][0])
+            launches("B's oracle", start,
+                     sum(-(-n // CHUNK) for n in MIGRATE_LENS))
+            b.flush_cache()
+
+            # wave M1, at batcher level: five streams on A, four admitted
+            start = wave_start()
+            streams = [a.open_stream(p, TENANT_MAX_NEW) for p in prompts]
+            t0 = time.perf_counter()
+            for (fut, q), k in zip(streams, MIGRATE_READ):
+                for _ in range(k):
+                    if await q.get() is None:
+                        fail("phase 10b: a stream ended before its migrate "
+                             "point")
+            if time.perf_counter() - t0 > 60 or any(
+                    f.done() for f, _ in streams) or len(a._active) != 4 \
+                    or len(a._pending) != 1:
+                fail(f"phase 10b M1: {len(a._active)} active, "
+                     f"{len(a._pending)} pending, done "
+                     f"{[f.done() for f, _ in streams]} at the export")
+            tables = {r.meta.request_id: r.table for r in a._active.values()}
+            t0 = time.perf_counter()
+            records = await a.export_sequences()
+            export_s = time.perf_counter() - t0
+            launches("M1 on A until the export", start, None)
+            for fut, _ in streams:
+                try:
+                    await fut
+                    fail("phase 10b M1: an exported future resolved")
+                except Exception as e:  # noqa: BLE001
+                    if type(e).__name__ != "MigratedAway":
+                        fail(f"phase 10b M1: {e!r}, not MigratedAway")
+            n_fulls = [r["kv"]["n_full"] if r["kv"] else 0 for r in records]
+            blocks = sum(n_fulls)
+            log(f"  M1: exported {len(records)} records (outs "
+                f"{[len(r['out']) for r in records]}, full blocks {n_fulls})"
+                f" in {export_s * 1e3:.1f} ms = "
+                f"{export_s * 1e3 / max(blocks, 1):.3f} ms a block "
+                f"(synchronous: the worker's halt, the device-to-host copy, "
+                f"float32 base64)")
+            if a._active or a.kv_blocks_in_use() != a._radix.cached_blocks \
+                    or any(n.refs for n in _nodes(a._radix)):
+                fail("phase 10b M1: A still holds blocks after the export")
+            import_s, reused0 = 0.0, b.tokens_reused
+            for rec in records:
+                free0 = b.cengine.pool.num_free
+                t0 = time.perf_counter()
+                adopted = await b.import_sequence(rec)
+                torch.cuda.synchronize()
+                import_s += time.perf_counter() - t0
+                n = rec["kv"]["n_full"] if rec["kv"] else 0
+                if adopted != n or b.cengine.pool.num_free != free0 - n:
+                    fail(f"phase 10b M1: B adopted {adopted} of {n} blocks")
+                if not n:
+                    continue
+                # bit-equal: A's blocks, the wire's, B's adopted ones
+                nodes, _, _ = b._radix.match(rec["tokens"][:n * BS],
+                                             ns=rec["ns"])
+                got_k, got_v = pool(b, [nd.block for nd in nodes])
+                src_k, src_v = pool(a, [int(x) for x in
+                                        tables[rec["request_id"]][:n]])
+                wk, wv = (torch.from_numpy(x.copy()).to(
+                    got_k.device, got_k.dtype)
+                    for x in migration.decode_kv(rec["kv"]))
+                if not (torch.equal(got_k, src_k) and torch.equal(got_v, src_v)
+                        and torch.equal(got_k, wk) and torch.equal(got_v, wv)):
+                    fail(f"phase 10b M1: the imported blocks of "
+                         f"{rec['request_id']} differ from the exported ones")
+            log(f"  M1: B imported {blocks} blocks in {import_s * 1e3:.1f} ms "
+                f"= {import_s * 1e3 / max(blocks, 1):.3f} ms a block "
+                f"(synchronous: base64 decode, host-to-device copy); bit-"
+                f"equal to A's exported blocks")
+            start = wave_start()
+            resumed = await asyncio.gather(*(_post_json(sess, url_b, {
+                "tokens": [r["tokens"]],
+                "max_new": r["max_new"] - len(r["out"]),
+                "logprobs": True}) for r in records))
+            reused = b.tokens_reused - reused0
+            want_slices = sum(
+                -(-(len(r["tokens"]) - min(n * BS, len(r["tokens"]) - 1))
+                  // CHUNK) for r, n in zip(records, n_fulls))
+            launches("M1 resume on B", start, want_slices)
+            log(f"  M1: B reused {reused} cells (want >= {blocks * BS})")
+            if reused < blocks * BS:
+                fail("phase 10b M1: the resumed prefills missed the imported "
+                     "blocks")
+            full_outs, full_lps, plist = [], [], []
+            for rec, (body, _) in zip(records, resumed):
+                rid = rec["request_id"]
+                p = rec["tokens"][:rec["prompt_len"]]
+                if p not in prompts or rec["tokens"] != p + rec["out"]:
+                    fail(f"phase 10b M1: {rid}'s record lost its prompt")
+                out = rec["out"] + body["tokens"][0]
+                full_outs.append(out)
+                full_lps.append(rec["lps"] + body["logprobs"][0])
+                plist.append(p)
+                _tie_rule(torch, engine, f"M1 {rid} ({len(p)}-token prompt, "
+                          f"{len(rec['out'])} out at the export)", p,
+                          oracle[prompts.index(p)], out)
+            _teacher_check(torch, engine, plist, full_outs, full_lps,
+                           "M1 migrated (llama3-1b)")
+
+            # wave M2, over HTTP: four streams and a plain request on A,
+            # then A drains into B
+            a.end_drain()
+            a.flush_cache()
+            b.flush_cache()
+            start = wave_start()
+            url_a = f"{base_a}/v1/models/{name}:generate"
+
+            async def sse(p, rid):
+                async with sess.post(url_a, json={
+                        "tokens": [p], "max_new": TENANT_MAX_NEW,
+                        "stream": True},
+                        headers={"X-Request-Id": rid}) as r:
+                    if r.status != 200:
+                        fail(f"phase 10b M2: stream answered {r.status}")
+                    events = []
+                    async for line in r.content:
+                        if line.startswith(b"data: "):
+                            events.append(json.loads(line[6:]))
+                    return events
+
+            tasks = [asyncio.ensure_future(sse(p, f"m2-{i}"))
+                     for i, p in enumerate(prompts[:4])]
+            t0 = time.perf_counter()
+            while not (len(a._active) == 4 and all(
+                    r.prefilling is None and r.out
+                    for r in a._active.values())):
+                if time.perf_counter() - t0 > 60:
+                    fail("phase 10b M2: the streams never all decoded")
+                await asyncio.sleep(0.002)
+            plain = asyncio.ensure_future(_post_json(
+                sess, url_a, {"tokens": [prompts[4]],
+                              "max_new": TENANT_MAX_NEW},
+                {"X-Request-Id": "m2-plain"}, status=503))
+            while len(a._pending) != 1:
+                if time.perf_counter() - t0 > 60:
+                    fail("phase 10b M2: the plain request never queued")
+                await asyncio.sleep(0.002)
+            t0 = time.perf_counter()
+            drained, _ = await _post_json(sess, f"{base_a}/drain", {
+                "migrate": True, "peers": [base_b]})
+            drain_s = time.perf_counter() - t0
+            events = await asyncio.gather(*tasks)
+            plain_body, plain_headers = await plain
+            launches("M2 (A until the drain)", start, None)
+            async with sess.get(f"{base_a}/healthz") as r:
+                health_a = r.status
+            metrics_a, metrics_b = [], []
+            for base, out in ((base_a, metrics_a), (base_b, metrics_b)):
+                async with sess.get(f"{base}/metrics") as r:
+                    out.append(_parse_metrics(await r.text()))
+            metrics_a, metrics_b = metrics_a[0], metrics_b[0]
+            model = (("model", name),)
+            blocks_out = metrics_a[("serving_migration_blocks_total",
+                                    (("direction", "out"),) + model)]
+            blocks_in = metrics_b[("serving_migration_blocks_total",
+                                   (("direction", "in"),) + model)]
+            in_total = metrics_b[("serving_migration_in_total", model)]
+            log(f"  M2: /drain answered {drained} in {drain_s * 1e3:.1f} ms; "
+                f"terminal events {[e[-1] for e in events]}; the plain "
+                f"request {plain_body}; A's /healthz {health_a}; B's "
+                f"migration_in {in_total}, blocks in {blocks_in} (A out "
+                f"{blocks_out}, B cached {b._radix.cached_blocks})")
+            if (drained["migrated"], drained["failed"]) != (5, 0) \
+                    or health_a != 503 or in_total != 5 \
+                    or blocks_in != blocks_out \
+                    or blocks_in != b._radix.cached_blocks or not blocks_in:
+                fail("phase 10b M2: the instant drain did not move every "
+                     "sequence")
+            for i, ev in enumerate(events):
+                toks = [e["tokens"][0][0] for e in ev[:-1]]
+                if ev[-1] != {"error": f"MigratedAway: request m2-{i} "
+                              "migrated to a peer replica",
+                              "total": len(toks)} or not toks:
+                    fail(f"phase 10b M2: stream m2-{i} ended with {ev[-1]}")
+                _tie_rule(torch, engine, f"M2 stream m2-{i}", prompts[i],
+                          oracle[i][:len(toks)], toks)
+            if not plain_body.get("migrated") \
+                    or plain_headers.get("Retry-After") != "0":
+                fail(f"phase 10b M2: the plain request got {plain_body}")
+
+            # refusals on B: a wedged transfer, gemma-2b's geometry, and
+            # the block export of a cached prefix
+            rec = next(r for r in records if r["kv"])
+            free0 = b.cengine.pool.num_free
+            wedged, _ = await _post_json(
+                sess, f"{base_b}/v1/migrate/in",
+                {"model": name, "record": rec, "wedge": True}, status=500)
+            foreign, _ = await _post_json(
+                sess, f"{base_b}/v1/migrate/in",
+                {"model": name, "record": {**rec, "geometry":
+                                           GEMMA_GEOMETRY}}, status=400)
+            if b.cengine.pool.num_free != free0:
+                fail("phase 10b: a refused import leaked pool blocks")
+            p300 = prompts[2]
+            fetch = migration.prefix_fetch_request(name, p300,
+                                                   block_size=BS)
+            exported, _ = await _post_json(sess, f"{base_b}/v1/blocks/export",
+                                           fetch)
+            nodes, _, _ = b._radix.match(p300)
+            got_k, got_v = pool(b, [nd.block for nd in nodes])
+            wk, wv = (torch.from_numpy(x.copy()).to(got_k.device,
+                                                    got_k.dtype)
+                      for x in migration.decode_kv(exported["record"]["kv"]))
+            uncached, _ = await _post_json(
+                sess, f"{base_b}/v1/blocks/export",
+                migration.prefix_fetch_request(
+                    name, list(range(7, 7 + 2 * BS)), block_size=BS),
+                status=404)
+            bad_hash, _ = await _post_json(
+                sess, f"{base_b}/v1/blocks/export",
+                {**fetch, "prefix": "0" * 16}, status=400)
+            log(f"  B's refusals: wedged {wedged}; gemma-2b geometry "
+                f"{foreign}; /v1/blocks/export of the cached 300-token "
+                f"prompt {exported['blocks']} blocks (equal to B's pool: "
+                f"{torch.equal(got_k, wk) and torch.equal(got_v, wv)}), "
+                f"uncached {uncached}, bad hash {bad_hash}")
+            if exported["blocks"] != len(nodes) or len(nodes) != 300 // BS \
+                    or not (torch.equal(got_k, wk)
+                            and torch.equal(got_v, wv)) \
+                    or "geometry mismatch" not in foreign["error"] \
+                    or "wedged" not in wedged["error"]:
+                fail("phase 10b: B's refusals or block export are wrong")
+        for batcher, cap in zip((a, b), captures):
+            if batcher.cengine.graphs.captures != cap:
+                fail("phase 10b: traffic captured CUDA graphs after warmup")
+        for label, batcher in (("A", a), ("B", b)):
+            if not batcher.cache_anatomy()["ledger"]["conserved"]:
+                fail(f"phase 10b: {label}'s block ledger is not conserved")
+    finally:
+        await runner_a.cleanup()
+        await runner_b.cleanup()
+    log(f"  phase 10b wall {time.perf_counter() - t_phase:.1f} s ({_card()})")
+    return counts_all
+
+
+def _nodes(radix):
+    """Every node of a radix tree, all namespaces."""
+    stack = [n for root in radix._roots.values()
+             for n in root.children.values()]
+    out = []
+    while stack:
+        n = stack.pop()
+        out.append(n)
+        stack.extend(n.children.values())
+    return out
+
+
 # the port's own kernels, as the profiler names them
 PORT_KERNELS = ("decode_split_kernel", "decode_combine_kernel",
                 "prefill_attention_", "scatter_kernel", "flash_fwd_",
@@ -3315,6 +3970,16 @@ def main() -> None:
         spec_counts, off_counts = asyncio.run(serve_spec_and_check(torch))
         add(spec_counts)
         add(off_counts, prefix="paged")
+        tidy()
+
+    if run("10"):
+        log("phase 10a: llama3-1b as a multi-tenant replica (fair share, "
+            "batch-class preemption, namespaced radix, rate limits)")
+        add(asyncio.run(tenancy_and_check(torch)))
+        tidy()
+        log("phase 10b: instant drain, live KV-block migration from replica "
+            "A to replica B")
+        add(asyncio.run(migration_and_check(torch)))
         tidy()
 
     log(f"total {time.perf_counter() - t_all:.1f} s")

@@ -72,6 +72,11 @@ class Counter:
         with self._lock:
             self._values[key] = self._values.get(key, 0.0) + amount
 
+    def value(self, **labels: str) -> float:
+        """The current value of one label set (0.0 when unseen)."""
+        with self._lock:
+            return self._values.get(tuple(sorted(labels.items())), 0.0)
+
     def samples(self) -> Iterable[tuple[dict[str, str], float]]:
         with self._lock:
             return [(dict(k), v) for k, v in self._values.items()]

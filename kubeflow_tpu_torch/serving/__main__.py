@@ -12,6 +12,9 @@ kubeflow_tpu/serving/__main__.py).
     python -m kubeflow_tpu_torch.serving --model llama3-8b --random \\
         --continuous --warmup --prefill-chunk-tokens 64 --spec-decode \\
         --draft-model llama3-1b --spec-gamma 4
+    python -m kubeflow_tpu_torch.serving --model llama3-1b --random \\
+        --continuous --warmup --prefill-chunk-tokens 64 \\
+        --tenants tenants.json
 
 Serves one model on the CUDA card (`--cpu` runs the plain PyTorch path
 on the CPU instead; `gemma-tiny`'s head dim 32 has no kernel, so it is
@@ -27,7 +30,13 @@ before the port opens; `--kv-spill-bytes` gives the radix prefix cache
 a host-memory tier that eviction demotes to; `--spec-decode` decodes
 every request speculatively, `--spec-gamma` tokens of `--draft-model`
 (random from `--seed` + 1, or `--draft-checkpoint`) verified a round
-(`POST /v1/spec {"enabled": false}` switches it off).
+(`POST /v1/spec {"enabled": false}` switches it off); `--tenants FILE`
+(a tenancy JSON: `{"tenants": {name: {"priority", "weight",
+"requests_per_s", "request_burst", "tokens_per_s", "token_burst",
+"kv_block_share", "prefix_isolation"}}}`) makes the replica
+multi-tenant, each request's tenant named by its `X-Tenant` header.
+Shutdown, and `POST /drain`, wait up to `--drain-grace-s` for the
+generations in flight.
 
 Weights: `--checkpoint DIR` (a train/checkpoint.py `Checkpointer`
 directory: the newest committed step's params, the optimizer's moments
@@ -125,6 +134,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "byte fallback otherwise")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (plain PyTorch path, no kernels)")
+    p.add_argument("--drain-grace-s", type=float, default=30.0,
+                   help="shutdown waits this long for in-flight "
+                        "generations before closing")
+    p.add_argument("--tenants", default="",
+                   help="tenancy config JSON file (continuous only): "
+                        "per-tenant weights, priorities, rate limits, "
+                        "KV shares, prefix isolation. Requests select a "
+                        "tenant with the X-Tenant header; absent/unknown "
+                        "maps to 'default'")
     args = p.parse_args(argv)
     if not args.checkpoint and not args.random:
         p.error("pass --checkpoint DIR or --random")
@@ -143,6 +161,10 @@ def parse_args(argv=None) -> argparse.Namespace:
         p.error("--spec-decode requires --draft-model")
     if args.draft_model and not args.spec_decode:
         p.error("--draft-model requires --spec-decode")
+    if args.tenants and not args.continuous:
+        # the QoS scheduler replaces the continuous batcher's queue;
+        # ignoring the file would serve without the configured quotas
+        p.error("--tenants requires --continuous")
     return args
 
 
@@ -204,6 +226,11 @@ def build_app(args: argparse.Namespace):
                                dinit, device)
         drafts = {args.model: InferenceEngine(dparams, dcfg, dfamily, ec,
                                               device=device)}
+    tenancy = None
+    if args.tenants:
+        from kubeflow_tpu_torch.tenancy import load_config
+
+        tenancy = load_config(args.tenants)
     return create_serving_app(
         {args.model: engine}, tokenizer=load_tokenizer(args),
         max_batch=args.max_batch,
@@ -213,7 +240,7 @@ def build_app(args: argparse.Namespace):
         pipeline_depth=args.pipeline_depth or None,
         kv_spill_bytes=args.kv_spill_bytes or None, drafts=drafts,
         spec_decode=args.spec_decode, spec_gamma=args.spec_gamma,
-        seed=args.seed)
+        seed=args.seed, tenancy=tenancy, drain_grace_s=args.drain_grace_s)
 
 
 def main(argv=None) -> int:

@@ -60,8 +60,21 @@ the ratio test (`spec_accept`), and rolls both caches back by cursor
 motion. Both rounds are CUDA graphs; the draws are exponential races
 from the engine's generator. A slot's draft row is seeded from its
 prompt before its first token is emitted. `spec_enabled` is the kill
-switch: off, plain decode chunks carry on. The reference's tenancy
-quotas, preemption, peer fetch and migration are not ported yet.
+switch: off, plain decode chunks carry on.
+
+With a tenancy config (`tenancy=`, kubeflow_tpu_torch/tenancy/), the
+FIFO queue becomes a priority + weighted fair-share queue, a ledger
+enforces per-tenant rate limits (`Throttled` at the door) and KV shares
+(admission defers), prefix-isolated tenants match and cache in their
+own radix namespace, and an interactive arrival that cannot admit
+preempts the youngest batch-class decode: its full blocks are donated to
+the radix tree and it is re-queued at its tenant's head, so its replay
+prefills only the partial tail block. Instant drain: `export_sequences`
+parks the worker and packs every admitted request into a migration
+wire record (serving/migration.py) with its full KV blocks;
+`import_sequence` scatters a record's blocks into the pool and indexes
+them, so the re-issued generation resumes from them. The reference's
+peer block fetch on admission is not ported yet.
 """
 
 from __future__ import annotations
@@ -97,10 +110,17 @@ from kubeflow_tpu_torch.serving.graphs import (
     stage,
     upload,
 )
+from kubeflow_tpu_torch.serving import migration
 from kubeflow_tpu_torch.serving.paged import (
     BlockPool,
     HostSpillTier,
     RadixPrefixCache,
+)
+from kubeflow_tpu_torch.tenancy import (
+    FairShareQueue,
+    ReqMeta,
+    TenancyConfig,
+    TenantLedger,
 )
 
 log = logging.getLogger(__name__)
@@ -968,16 +988,29 @@ class Overloaded(RuntimeError):
     """Admission queue is full — callers should shed load (HTTP 429)."""
 
 
+class MigratedAway(RuntimeError):
+    """The request's state was exported to a peer replica (instant
+    drain). Not a failure: the generation resumes on the peer from the
+    migrated KV; the server maps it to a retryable 503."""
+
+    def __init__(self, request_id: str = ""):
+        super().__init__(
+            f"request {request_id or '<unknown>'} migrated to a peer "
+            "replica")
+        self.request_id = request_id
+
+
 class _Request:
-    """One queued or admitted request."""
+    """One queued or admitted request. The fair-share queue reads its
+    `fut` and `meta`."""
 
     __slots__ = ("tokens", "max_new", "sampling", "prefix", "fut", "out",
                  "lps", "kv_toks", "owned", "node_refs", "freed",
-                 "prefilling", "stop", "queue", "timeline", "t_enqueue",
-                 "restored")
+                 "prefilling", "stop", "queue", "meta", "table",
+                 "block_charge", "resumed")
 
-    def __init__(self, tokens, max_new, sampling, fut, queue=None,
-                 timeline=None, t_enqueue=0.0):
+    def __init__(self, tokens, max_new, sampling, fut, meta: ReqMeta,
+                 queue=None):
         self.tokens = list(tokens)
         self.max_new = max_new
         self.sampling = sampling
@@ -988,9 +1021,12 @@ class _Request:
         self.stop = tuple(tuple(seq) for seq in sampling.get("stop", ()))
         self.fut = fut
         self.queue = queue          # per-request token stream, or None
-        self.timeline = timeline
-        self.t_enqueue = t_enqueue
-        self.restored = 0           # cached cells restored from the host
+        # the scheduling record: tenant, priority, namespace, request id,
+        # timeline, enqueue time, and (after a preemption) `resume`
+        self.meta = meta
+        self.table = None           # the slot's block table, once admitted
+        self.block_charge = 0       # pool blocks charged to the tenant
+        self.resumed = False        # admitted again after a preemption
         self.out: list[int] = []
         self.lps: list[float] = []   # chosen-token logprobs, out-aligned
         # paged-KV bookkeeping: the tokens whose KV the slot's blocks
@@ -1071,6 +1107,34 @@ class ContinuousBatcher:
     and draft tokens; `on_spec_round(proposed, accepted)` feeds the
     server's acceptance SLO.
 
+    Tenancy (`tenancy`, a `TenancyConfig`): `_enqueue` resolves the
+    request's tenant (`"tenant"` in the sampling channel; unknown names
+    are `default`) and charges its request bucket (`Throttled` when it
+    is empty); the queue is a `FairShareQueue` (strict priority classes,
+    weighted virtual time, token-paced tenants skipped); `_plan_blocks`
+    matches in the tenant's namespace and defers a request that would
+    take its tenant past its KV share (`kv_quota`). At the top of each
+    worker iteration, before the dirty-slot reset, `_maybe_preempt`
+    evicts the youngest batch-class decode when an interactive request
+    waits and cannot admit: its full blocks are donated to the radix
+    tree, it is released with cause `pressure`, and re-queued at its
+    tenant's head with `resume` (the tokens already out) and the
+    remaining budget; re-admitted, it prefills only the partial tail
+    and emits nothing twice. Without tenancy the queue is the plain
+    deque and nothing of this runs. `.preemptions`, `tenant_stats()`.
+
+    Instant drain: `export_sequences()` stops admission, parks the
+    worker at a loop boundary (after processing every chunk in flight,
+    so each record's `out` is exactly what its consumer received and
+    the host's token log matches the device cursors), and packs every
+    admitted request into a wire record: active slots with their full
+    blocks below len(kv_toks) - 1, pending ones tokens-only. Their
+    futures fail with `MigratedAway`. `import_sequence(record)` scatters
+    a record's blocks into fresh pool blocks and indexes them under the
+    record's namespace (every failure frees them), `export_prefix`
+    packs a cached prefix. `drain(timeout)` waits out admitted work
+    (`in_flight()`), `begin_drain` / `end_drain` close and open the door.
+
     `.calls` counts dispatched decode steps (over-decoded ones included;
     a spec round counts one);
     `occupancy()` is tokens emitted per decode step; `.tokens_dropped`
@@ -1093,7 +1157,8 @@ class ContinuousBatcher:
                  kv_spill_bytes: int | None = None,
                  seed: int | None = None, cuda_graphs: bool = True,
                  draft: InferenceEngine | None = None,
-                 spec_gamma: int = 4):
+                 spec_gamma: int = 4,
+                 tenancy: TenancyConfig | None = None):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         if spec_gamma < 1:
@@ -1182,8 +1247,17 @@ class ContinuousBatcher:
         # EWMA of enqueue -> finish service time, feeding the server's
         # Retry-After on an Overloaded 429
         self.service_ewma = 0.0
-        self._seq = 0               # enqueue sequence (fallback ids)
-        self._pending: collections.deque[_Request] = collections.deque()
+        self._seq = 0        # enqueue sequence: fallback ids, preempt youngest
+        # multi-tenant QoS: with a config the FIFO deque becomes a
+        # priority + weighted fair-share queue and a ledger enforces
+        # rate limits and KV shares; tenant-blind keeps the plain deque
+        self.tenancy = tenancy
+        self._ledger = (TenantLedger(tenancy)
+                        if tenancy is not None else None)
+        self._pending = (FairShareQueue(tenancy, self._ledger)
+                         if tenancy is not None else collections.deque())
+        self.preemptions = 0     # batch decodes evicted for interactive
+        self._interactive_blocked = False   # an interactive plan deferred
         self._active: dict[int, _Request] = {}
         self._free = list(range(max_slots))
         self._dirty: list[int] = []   # freed slots awaiting table reset
@@ -1196,6 +1270,12 @@ class ContinuousBatcher:
         self._wake = asyncio.Event()
         self._worker: asyncio.Task | None = None
         self._closed = False
+        self._draining = False
+        # export_sequences asks the worker to park at its loop top
+        self._halt = False
+        # admitted-but-unfinished requests: up at enqueue, down when the
+        # future resolves, whichever way (a done callback)
+        self._unfinished = 0
 
     def occupancy(self) -> float:
         return self.tokens_emitted / self.calls if self.calls else 0.0
@@ -1306,6 +1386,8 @@ class ContinuousBatcher:
                  queue) -> asyncio.Future:
         if self._closed:
             raise RuntimeError("batcher is shut down")
+        if self._draining:
+            raise RuntimeError("batcher is draining")
         if len(self._pending) >= self.max_pending:
             raise Overloaded(
                 f"{len(self._pending)} requests already queued "
@@ -1319,6 +1401,19 @@ class ContinuousBatcher:
             raise ValueError(
                 f"prompt {len(tokens)} + max_new {max_new} exceeds model "
                 f"max_len {cap}")
+        # the tenant and the request id ride the sampling channel, as in
+        # the reference, and are popped back out: routing metadata, not
+        # sampling knobs. Direct callers get a sequence-derived id so
+        # every timeline has a key
+        tenant = sampling.pop("tenant", "")
+        request_id = str(sampling.pop("request_id", "")) \
+            or f"req-{self._seq:06d}"
+        spec = (self.tenancy.resolve(tenant)
+                if self.tenancy is not None else None)
+        if self._ledger is not None:
+            # the rate-limit door: Throttled (HTTP 429 with the bucket's
+            # refill time) before anything is spent
+            self._ledger.check_request(spec.name)
         prefix = sampling.get("prefix", "")
         if prefix:
             if prefix not in self._prefixes:
@@ -1330,26 +1425,42 @@ class ContinuousBatcher:
                 raise ValueError(
                     f"prefix {plen} + prompt {len(tokens)} + max_new "
                     f"{max_new} exceeds model max_len {cap}")
-        # the request id rides the sampling channel, as in the reference;
-        # direct callers get a sequence-derived one so every timeline has
-        # a key
-        request_id = str(sampling.pop("request_id", "")) \
-            or f"req-{self._seq:06d}"
-        self._seq += 1
         loop = asyncio.get_running_loop()
         if self._worker is None or self._worker.done():
             self._worker = loop.create_task(self._run())
         fut = loop.create_future()
-        tl = RequestTimeline(request_id, prompt_tokens=len(tokens),
-                             max_new=max_new, clock=self._clock)
+        self._unfinished += 1
+        fut.add_done_callback(self._req_done)
+        tl = RequestTimeline(
+            request_id, tenant=spec.name if spec is not None else tenant,
+            prompt_tokens=len(tokens), max_new=max_new, clock=self._clock)
+        meta = ReqMeta(
+            tenant=spec.name if spec is not None else "",
+            priority=spec.priority if spec is not None else "standard",
+            weight=spec.weight if spec is not None else 1.0,
+            cost=float(max_new), t_enqueue=self._clock(), seq=self._seq,
+            ns=(spec.name if spec is not None and spec.prefix_isolation
+                else ""),
+            request_id=request_id, timeline=tl)
+        self._seq += 1
         tl.event("enqueue", tokens=len(tokens), max_new=max_new,
-                 priority="standard")
+                 priority=meta.priority)
         self.timelines.add(tl)
-        self._pending.append(_Request(tokens, max_new, sampling, fut,
-                                      queue=queue, timeline=tl,
-                                      t_enqueue=self._clock()))
+        self._pending.append(_Request(tokens, max_new, sampling, fut, meta,
+                                      queue=queue))
         self._wake.set()
         return fut
+
+    def _req_done(self, _fut) -> None:
+        self._unfinished -= 1
+
+    def _take_pending(self) -> list[_Request]:
+        """Empty the queue (the fair-share queue's `drain_all`)."""
+        if self._ledger is not None:
+            return self._pending.drain_all()
+        items = list(self._pending)
+        self._pending.clear()
+        return items
 
     async def close(self) -> None:
         """Stop the worker and fail whatever is queued or admitted."""
@@ -1361,9 +1472,8 @@ class ContinuousBatcher:
             except asyncio.CancelledError:
                 pass
         exc = RuntimeError("batcher is shut down")
-        for req in list(self._pending):
+        for req in self._take_pending():
             self._fail(req, exc)
-        self._pending.clear()
         for slot in list(self._active):
             req = self._active[slot]
             self._release(slot)
@@ -1407,6 +1517,8 @@ class ContinuousBatcher:
         if req.freed:
             return
         req.freed = True
+        if self._ledger is not None:
+            self._ledger.note_slot_released(req.meta.tenant, req.block_charge)
         if req.node_refs:
             self._radix.unref(req.node_refs)
             req.node_refs = []
@@ -1430,7 +1542,8 @@ class ContinuousBatcher:
         if n_full <= 0:
             return
         blocks = {i: req.owned[i] for i in range(n_full) if i in req.owned}
-        adopted, _ = self._radix.insert(req.kv_toks[:n_full * bs], blocks)
+        adopted, _ = self._radix.insert(req.kv_toks[:n_full * bs], blocks,
+                                        ns=req.meta.ns)
         for i in adopted:
             del req.owned[i]
         # blocks the tree declined already have an edge for their token
@@ -1453,7 +1566,7 @@ class ContinuousBatcher:
             return
         blocks = {i: req.owned[i] for i in range(n_full) if i in req.owned}
         adopted, held = self._radix.insert(req.kv_toks[:n_full * bs],
-                                           blocks, hold=True)
+                                           blocks, hold=True, ns=req.meta.ns)
         for i in adopted:
             del req.owned[i]
         req.node_refs.extend(held)
@@ -1480,14 +1593,78 @@ class ContinuousBatcher:
         except Exception:  # noqa: BLE001 — a dead device fails the next call
             log.exception("clearing the slot state failed")
 
+    def _maybe_preempt(self) -> None:
+        """When an interactive request waits and cannot admit (every slot
+        is busy, or its block plan deferred), evict the youngest
+        batch-class decode. One victim per worker iteration; the next
+        preempts again if the pressure persists. A request mid chunked
+        prefill is never a victim: its blocks hold no complete KV to
+        donate."""
+        blocked = self._interactive_blocked
+        self._interactive_blocked = False
+        if self._free and not blocked:
+            return
+        if not self._pending.has_waiting("interactive"):
+            return
+        victim, vseq = None, -1
+        for slot, req in self._active.items():
+            meta = req.meta
+            if (meta.priority != "batch" or req.fut.done()
+                    or req.prefilling is not None):
+                continue
+            if meta.seq > vseq:
+                victim, vseq = slot, meta.seq
+        if victim is not None:
+            self._preempt(victim)
+
+    def _preempt(self, slot: int) -> None:
+        """Evict one decode and re-queue it at the head of its tenant's
+        queue: retirement without resolving the future. Its full blocks
+        are donated to the radix tree and the slot is released (its table
+        is reset to trash before the next admission can reuse the freed
+        blocks, as for any retirement: the worker preempts before the
+        dirty-slot reset; a chunk in flight for it writes only above its
+        donated cells, and its tokens are dropped). The replay prompt is
+        the prompt and every token emitted, its budget the remainder;
+        the stream and the timeline carry on across the hole."""
+        req = self._active[slot]
+        meta = req.meta
+        self._cache_blocks(req)
+        self._release(slot, cause="pressure")
+        self.preemptions += 1
+        self._ledger.note_preempted(meta.tenant)
+        meta.timeline.event("preempt", slot=slot, emitted=len(req.out))
+        meta.resume = {"out": list(req.out), "lps": list(req.lps),
+                       "max_new": req.max_new}
+        remaining = max(1, req.max_new - len(req.out))
+        # the fair-share charge drops to the remainder: no double billing
+        meta.cost = float(remaining)
+        # the replay tokens already hold a registered prefix's tokens
+        sampling = {k: v for k, v in req.sampling.items() if k != "prefix"}
+        self._pending.appendleft(_Request(
+            req.kv_toks, remaining, sampling, req.fut, meta,
+            queue=req.queue))
+        self._wake.set()
+
+    def tenant_stats(self) -> dict:
+        """Per-tenant usage and queue depth ({} when tenant-blind): the
+        `serving_tenant_*` collector and `/v1/models` read it."""
+        if self._ledger is None:
+            return {}
+        stats = self._ledger.stats()
+        for tenant, depth in self._pending.depths().items():
+            stats.setdefault(tenant, {})["queued"] = depth
+        return stats
+
     def _finish(self, slot: int, req: _Request) -> None:
         self._cache_blocks(req)
         self._release(slot)
-        dt = self._clock() - req.t_enqueue
+        dt = self._clock() - req.meta.t_enqueue
         self.service_ewma = (0.8 * self.service_ewma + 0.2 * dt
                              if self.service_ewma > 0 else dt)
-        if req.timeline is not None:
-            req.timeline.event("finish", tokens=len(req.out))
+        if self._ledger is not None:
+            self._ledger.note_completed(req.meta.tenant)
+        req.meta.timeline.event("finish", tokens=len(req.out))
         if not req.fut.done():
             if req.queue is not None:
                 req.queue.put_nowait(None)
@@ -1496,15 +1673,16 @@ class ContinuousBatcher:
 
     def _admitted(self, slot: int, req: _Request, computed: int,
                   reused: int) -> None:
-        """The timeline's admit event (with its prefill split) and the
-        queue wait: at adoption in chunked mode, after the group prefill
-        in monolithic mode, where the reference stamps them."""
-        if req.timeline is not None:
-            req.timeline.event("admit", slot=slot, prefill_computed=computed,
-                               prefill_reused=reused)
-        if self.on_queue_wait is not None:
+        """The timeline's admit event (with its prefill split; `resume`
+        for a preempted request's re-admission) and the queue wait (first
+        admissions only): at adoption in chunked mode, after the group
+        prefill in monolithic mode, where the reference stamps them."""
+        req.meta.timeline.event("resume" if req.resumed else "admit",
+                                slot=slot, prefill_computed=computed,
+                                prefill_reused=reused)
+        if not req.resumed and self.on_queue_wait is not None:
             try:
-                self.on_queue_wait(self._clock() - req.t_enqueue)
+                self.on_queue_wait(self._clock() - req.meta.t_enqueue)
             except Exception:  # noqa: BLE001 — a metrics hook never
                 log.exception("on_queue_wait hook failed")   # kills us
 
@@ -1513,8 +1691,8 @@ class ContinuousBatcher:
         the prompt's suffix is computed."""
         if self.on_prefix is not None:
             try:
-                self.on_prefix(computed, reused, reused > 0, "",
-                               restored=req.restored)
+                self.on_prefix(computed, reused, reused > 0, req.meta.tenant,
+                               restored=req.meta.restored)
             except Exception:  # noqa: BLE001 — a metrics hook never
                 log.exception("on_prefix hook failed")       # kills us
 
@@ -1523,14 +1701,18 @@ class ContinuousBatcher:
         req.out.append(token)
         req.lps.append(lp)
         req.kv_toks.append(token)   # cache-content log, never trimmed
-        if req.timeline is not None:
-            gap = req.timeline.token()
-            # the first token has no predecessor: not an inter-token gap
-            if decode and gap is not None and self.on_itl is not None:
-                try:
-                    self.on_itl(gap)
-                except Exception:  # noqa: BLE001 — a metrics hook never
-                    log.exception("on_itl hook failed")      # kills us
+        gap = req.meta.timeline.token()
+        # the first token (and the first after a preempt/resume hole) has
+        # no predecessor: not an inter-token gap
+        if decode and gap is not None and self.on_itl is not None:
+            try:
+                self.on_itl(gap)
+            except Exception:  # noqa: BLE001 — a metrics hook never
+                log.exception("on_itl hook failed")      # kills us
+        if self._ledger is not None:
+            # tokens/s pacing: a tenant in debt is not popped until its
+            # bucket refills
+            self._ledger.charge_tokens(req.meta.tenant, 1)
         if decode:
             self.tokens_emitted += 1
         if req.queue is not None and not req.fut.done():
@@ -1596,13 +1778,15 @@ class ContinuousBatcher:
         if tier is None or tier.spilled_blocks == 0 or req.prefix:
             return
         full = req.tokens
+        ns = req.meta.ns
         bs = self.cengine.block_size
-        nodes, _, _ = self._radix.match(full)
+        nodes, _, _ = self._radix.match(full, ns=ns)
         # walk the tier forward from the cached frontier; the planner
         # always leaves >= 1 token to prefill, so a block whose last
         # cell is the final prompt token is of no use
         i = end = len(nodes) * bs
-        while end + bs <= len(full) - 1 and tier.contains(full[:end + bs]):
+        while end + bs <= len(full) - 1 and tier.contains(ns,
+                                                          full[:end + bs]):
             end += bs
         n = (end - i) // bs
         if n <= 0:
@@ -1616,7 +1800,7 @@ class ContinuousBatcher:
         pool = self.cengine.pool
         payloads = []
         for j in range(n):
-            p = tier.pop(full[:i + (j + 1) * bs])
+            p = tier.pop(ns, full[:i + (j + 1) * bs])
             if p is None:
                 break   # the budget dropped it during our own evict
             payloads.append(p)
@@ -1640,13 +1824,13 @@ class ContinuousBatcher:
             return   # best-effort: plain prefill covers the cells
         self.cache_ledger.note_restore(n)
         blocks = {len(nodes) + j: b for j, b in enumerate(fresh)}
-        adopted, _ = self._radix.insert(full[:end], blocks)
+        adopted, _ = self._radix.insert(full[:end], blocks, ns=ns)
         dup = [b for j, b in blocks.items() if j not in adopted]
         if dup:
             # someone cached (part of) this prefix meanwhile
             pool.free(dup, cause="divergence")
         # the metrics split these cells out of the reused ones
-        req.restored += (n - len(dup)) * bs
+        req.meta.restored += (n - len(dup)) * bs
 
     def _alloc_evicting(self, n: int, keep) -> list[int] | None:
         """`n` fresh pool blocks, evicting idle cached blocks other than
@@ -1664,6 +1848,10 @@ class ContinuousBatcher:
         blocks. -> a plan, or None when the pool cannot cover it even
         after evicting idle cached blocks (booked as a
         `pool_exhausted` defer; the caller re-queues it).
+
+        With tenancy, a tenant already holding blocks may not take the
+        pool past its KV share: such a request is deferred (a `kv_quota`
+        defer and throttle), until its own retirements free some.
 
         Plan fields: `full` (the prompt, a registered prefix included:
         what the slot's KV will hold), `suffix` (what prefill computes),
@@ -1683,7 +1871,7 @@ class ContinuousBatcher:
             m = len(self._prefixes[req.prefix])
         else:
             full = list(req.tokens)
-            nodes, pnode, plen = self._radix.match(full)
+            nodes, pnode, plen = self._radix.match(full, ns=req.meta.ns)
             # leave >= 1 token to prefill: the first output token needs
             # a forward pass over something
             m = min(len(nodes) * bs + plen, len(full) - 1)
@@ -1699,6 +1887,17 @@ class ContinuousBatcher:
         n_total = -(-min(len(full) + req.max_new, self.engine.ec.max_len)
                     // bs)
         n_fresh = n_total - len(chain)
+        if self._ledger is not None:
+            # a tenant holding nothing always admits: the share bounds
+            # concurrent holdings, and a lone oversized request would
+            # otherwise wait forever
+            tenant = req.meta.tenant
+            lim = self._ledger.block_limit(tenant, ce.pool.capacity)
+            held = self._ledger.blocks_held(tenant)
+            if lim is not None and held > 0 and held + n_fresh > lim:
+                self._ledger.note_throttled(tenant, "kv_quota")
+                self.cache_ledger.note_defer("kv_quota")
+                return None
         # the match is ref'd only once the plan stands, so the eviction
         # that makes room spares it: a chain block evicted here would come
         # back as a fresh block and sit in the table twice, and the
@@ -1731,9 +1930,22 @@ class ContinuousBatcher:
                 "extra": extra, "fresh": fresh, "table": table}
 
     def _take_slot(self, req: _Request, plan: dict) -> int:
-        """Give a planned request a slot and the plan's blocks, and count
-        its cache hit or miss."""
+        """Give a planned request a slot and the plan's blocks, charge
+        them to its tenant, and count its cache hit or miss. A preempted
+        request gets back the tokens it had emitted and its whole
+        budget (it was queued with the remainder, for block planning)."""
         slot = self._free.pop()
+        resume = req.meta.resume
+        if resume is not None:
+            req.out = list(resume["out"])
+            req.lps = list(resume["lps"])
+            req.max_new = resume["max_new"]
+            req.meta.resume = None
+            req.resumed = True
+        req.table = plan["table"]
+        req.block_charge = len(plan["fresh"])
+        if self._ledger is not None:
+            self._ledger.note_slot_taken(req.meta.tenant, req.block_charge)
         req.kv_toks = list(plan["full"])
         req.node_refs = list(plan["chain"])
         cut = len(plan["chain"])
@@ -1764,20 +1976,20 @@ class ContinuousBatcher:
                 await self._restore_spilled(req)
                 plan = self._plan_blocks(req)
                 if plan is None:
-                    deferred.append(req)
+                    self._defer(req, deferred)
                 else:
                     await self._adopt(req, plan)
-            self._pending.extendleft(reversed(deferred))
+            self._requeue(deferred)
             reqs = rest
         planned, deferred = [], []
         for req in reqs:
             await self._restore_spilled(req)
             plan = self._plan_blocks(req)
             if plan is None:
-                deferred.append(req)
+                self._defer(req, deferred)
             else:
                 planned.append((self._take_slot(req, plan), req, plan))
-        self._pending.extendleft(reversed(deferred))
+        self._requeue(deferred)
         groups: dict[tuple, list] = {}
         for slot, req, plan in planned:
             b = self.cengine.bucket_for(len(plan["suffix"]), req.max_new,
@@ -1786,6 +1998,19 @@ class ContinuousBatcher:
                 (slot, req, plan))
         for (bucket, prefix, m), group in groups.items():
             await self._admit_group(bucket, prefix, m, group)
+
+    def _defer(self, req: _Request, deferred: list) -> None:
+        deferred.append(req)
+        if req.meta.priority == "interactive":
+            # an interactive request cannot get blocks: the worker may
+            # preempt a batch decode although free slots exist
+            self._interactive_blocked = True
+
+    def _requeue(self, reqs: list) -> None:
+        """Deferred requests back at the queue head, in order (the
+        fair-share queue refunds the virtual time their pop charged)."""
+        for req in reversed(reqs):
+            self._pending.appendleft(req)
 
     async def _adopt(self, req: _Request, plan: dict) -> None:
         """Chunked admission: a frozen slot pointed at the planned table
@@ -2043,7 +2268,26 @@ class ContinuousBatcher:
             if not self._active and not self._pending and not inflight:
                 self._wake.clear()
                 await self._wake.wait()
+            if self._halt:
+                # export_sequences parks the worker here; the chunks in
+                # flight are processed first, so each request's tokens
+                # are exactly what its consumer received
+                try:
+                    while inflight:
+                        head = inflight.popleft()
+                        await self._sync_chunk(head)
+                        self._process_chunk(head)
+                except Exception as e:  # noqa: BLE001
+                    log.exception("continuous batcher device call failed")
+                    self._fail_all(e)
+                return
             try:
+                # preemption runs BEFORE the dirty-slot reset, so the
+                # victim's table is reset in this same iteration: the
+                # admission below may hand its freed blocks to the
+                # interactive request that triggered it
+                if self._ledger is not None and self._pending:
+                    self._maybe_preempt()
                 # reset retired slots' tables BEFORE admission can hand
                 # their freed blocks to a new request (queued behind the
                 # chunks in flight, which may still write them)
@@ -2056,9 +2300,22 @@ class ContinuousBatcher:
                     take = []
                     while self._pending and len(take) < len(self._free):
                         req = self._pending.popleft()
+                        if req is None:
+                            # fair-share queue: every queued tenant is
+                            # token-paced
+                            break
                         if not req.fut.done():
                             take.append(req)
-                    await self._admit(take)
+                    if take:
+                        await self._admit(take)
+                    elif not self._active and not inflight and self._pending:
+                        # nothing to decode and nothing admittable: nap
+                        # for the shortest refill instead of spinning
+                        delay = 0.05
+                        if self._ledger is not None:
+                            delay = min(max(self._pending.pacing_delay(),
+                                            0.001), 0.05)
+                        await asyncio.sleep(delay)
                 if self._prefill_q:
                     await self._advance_prefill()
                 while inflight and inflight[0]["out"].ready():
@@ -2093,3 +2350,226 @@ class ContinuousBatcher:
                 continue
             # let submissions and cancellations in between iterations
             await asyncio.sleep(0)
+
+    # -- migration and drain ----------------------------------------------
+
+    def checkpoints(self) -> list[dict]:
+        """Resume records (tokens only, no KV) of every admitted request:
+        `tokens` is the full replay prompt (a registered prefix expanded,
+        every emitted token appended), so a peer resumes by prefilling it
+        with budget `max_new - len(out)`, the replay contract preemption
+        relies on."""
+        out: list[dict] = []
+        for req in self._active.values():
+            if req.fut.done():
+                continue
+            # the replay tokens already hold the prefix's tokens
+            samp = {k: v for k, v in req.sampling.items() if k != "prefix"}
+            out.append({"request_id": req.meta.request_id,
+                        "tenant": req.meta.tenant,
+                        "tokens": list(req.kv_toks), "out": list(req.out),
+                        "max_new": req.max_new, "sampling": samp})
+        pending = (self._pending.items() if self._ledger is not None
+                   else list(self._pending))
+        for req in pending:
+            if req.fut.done():
+                continue
+            emitted, _, max_new, samp = self._queued_view(req)
+            out.append({"request_id": req.meta.request_id,
+                        "tenant": req.meta.tenant, "tokens": list(req.tokens),
+                        "out": emitted, "max_new": max_new,
+                        "sampling": samp})
+        return out
+
+    @staticmethod
+    def _queued_view(req: _Request):
+        """A queued request's (emitted tokens, their logprobs, whole
+        budget, sampling knobs). A preempted one is queued with its
+        replay prompt (a registered prefix's tokens already in it) and
+        the remainder of its budget; `resume` holds the rest."""
+        samp = dict(req.sampling)
+        resume = req.meta.resume
+        if resume is None:
+            return [], [], req.max_new, samp
+        samp.pop("prefix", None)
+        return (list(resume["out"]), list(resume["lps"]), resume["max_new"],
+                samp)
+
+    async def export_sequences(self) -> list[dict]:
+        """Instant drain: stop admission, park the worker at its loop top
+        (it processes the chunks in flight first), and pack EVERY
+        admitted request into a migration wire record: active slots with
+        their full KV blocks below len(kv_toks) - 1 (the cells a chunk
+        may still have written past are above that line), requests mid
+        chunked prefill and queued ones tokens-only. Each exported future
+        fails with `MigratedAway` and every block is released (cause
+        `migration`), so the replica can exit at once."""
+        self._draining = True
+        w = self._worker
+        if w is not None and not w.done():
+            self._halt = True
+            self._wake.set()
+            try:
+                await w
+            except (asyncio.CancelledError, Exception):  # noqa: BLE001
+                pass
+            finally:
+                self._halt = False
+        ce = self.cengine
+        bs = ce.block_size
+        geometry = migration.pool_geometry(ce)
+        exports = []
+        for slot, req in list(self._active.items()):
+            if req.fut.done():
+                self._release(slot)
+                continue
+            n_full = 0
+            if req.prefilling is None and req.kv_toks:
+                n_full = (len(req.kv_toks) - 1) // bs
+            exports.append((slot, req, [int(b) for b in req.table[:n_full]]))
+        all_ids = [b for _, _, phys in exports for b in phys]
+        k_host = v_host = None
+        if all_ids:
+            k_host, v_host = await self._device(ce.export_blocks, ce.slots(),
+                                                all_ids)
+        records: list[dict] = []
+        off = 0
+        for slot, req, phys in exports:
+            n = len(phys)
+            kv = (k_host[:, off:off + n], v_host[:, off:off + n]) if n else None
+            off += n
+            meta = req.meta
+            samp = {k: v for k, v in req.sampling.items() if k != "prefix"}
+            records.append(migration.pack_record(
+                request_id=meta.request_id, tenant=meta.tenant, ns=meta.ns,
+                tokens=list(req.kv_toks), out=list(req.out),
+                lps=list(req.lps), max_new=req.max_new, sampling=samp,
+                geometry=geometry, kv=kv))
+            meta.timeline.event("migrate_out", emitted=len(req.out), blocks=n)
+            self._release(slot, cause="migration")
+            self._fail(req, MigratedAway(meta.request_id))
+        for req in self._take_pending():
+            if req.fut.done():
+                continue
+            meta = req.meta
+            out, lps, max_new, samp = self._queued_view(req)
+            records.append(migration.pack_record(
+                request_id=meta.request_id, tenant=meta.tenant, ns=meta.ns,
+                tokens=list(req.tokens), out=out, lps=lps, max_new=max_new,
+                sampling=samp, geometry=geometry, kv=None))
+            meta.timeline.event("migrate_out", emitted=len(out), blocks=0)
+            self._fail(req, MigratedAway(meta.request_id))
+        return records
+
+    async def import_sequence(self, record: dict, *,
+                              wedge: bool = False) -> int:
+        """Import one migrated sequence's KV blocks into fresh pool blocks
+        and index them in the radix cache under the record's namespace:
+        the re-issued generation (`tokens`, the remaining budget) hits
+        them and prefills only the tail. -> blocks the cache adopted (0
+        for a tokens-only record or a prefix cached already). Raises
+        ValueError on a wire or geometry mismatch, before anything is
+        allocated. On ANY failure, a wedged transfer (`wedge=True`, a
+        fault injected mid-transfer) included, every allocated block is
+        freed (cause `migration`): a failed import leaks nothing."""
+        rec = migration.unpack_record(record)
+        ce = self.cengine
+        migration.validate_geometry(rec["geometry"], ce)
+        if rec["kv"] is None:
+            return 0
+        k, v = migration.decode_kv(rec["kv"])
+        n_full = int(k.shape[1])
+        bs = ce.block_size
+        if n_full * bs > len(rec["tokens"]):
+            raise ValueError(
+                f"migration record claims {n_full} full blocks "
+                f"({n_full * bs} cells) but carries only "
+                f"{len(rec['tokens'])} tokens")
+        pool = ce.pool
+        fresh = pool.alloc(n_full)
+        if fresh is None:
+            self._radix.evict(n_full - pool.num_free)
+            fresh = pool.alloc(n_full)
+            if fresh is None:
+                raise RuntimeError(
+                    f"migration import needs {n_full} blocks, pool has "
+                    f"{pool.num_free} free")
+        done = False
+        dup: list[int] = []
+        try:
+            if wedge:
+                raise RuntimeError(
+                    "migration transfer wedged (fault injection)")
+            await self._device(ce.import_blocks, ce.slots(), fresh, k, v)
+            # indexed last: once the tree adopts a block it owns it, and
+            # the rollback must never free a tree-owned block
+            blocks = dict(enumerate(fresh))
+            adopted, _ = self._radix.insert(rec["tokens"][:n_full * bs],
+                                            blocks, ns=rec["ns"])
+            dup = [b for i, b in blocks.items() if i not in adopted]
+            done = True
+        finally:
+            if not done:
+                pool.free(fresh, cause="migration")
+        if dup:
+            # the prefix (or part of it) was cached here already: the
+            # tree kept its own blocks, ours are duplicates
+            pool.free(dup, cause="divergence")
+        return n_full - len(dup)
+
+    async def export_prefix(self, tokens: list[int], *, ns: str = "",
+                            request_id: str = "") -> dict | None:
+        """The cached full-block KV prefix of `tokens` in namespace `ns`
+        as a migration wire record with `out=[]` (the peer side of
+        `/v1/blocks/export`). -> None when nothing is exportable (no
+        cached full block, or no device state yet). The matched nodes
+        are ref'd for the copy, so admission cannot evict them
+        meanwhile."""
+        ce = self.cengine
+        bs = ce.block_size
+        if ce._st is None or len(tokens) < bs:
+            return None
+        nodes, _, _ = self._radix.match(tokens, ns=ns)
+        if not nodes:
+            return None
+        self._radix.ref(nodes)
+        try:
+            phys = [n.block for n in nodes]
+            k_host, v_host = await self._device(ce.export_blocks, ce.slots(),
+                                                phys)
+        finally:
+            self._radix.unref(nodes)
+        return migration.pack_record(
+            request_id=request_id, tenant="", ns=ns,
+            tokens=[int(t) for t in tokens[:len(phys) * bs]], out=[],
+            lps=[], max_new=0, sampling={},
+            geometry=migration.pool_geometry(ce), kv=(k_host, v_host))
+
+    def in_flight(self) -> int:
+        """Admitted-but-unfinished requests (queued, mid-prefill or in a
+        slot). Zero means `close()` has nothing to abandon."""
+        return self._unfinished
+
+    def begin_drain(self) -> None:
+        """Stop admission (new requests raise) while admitted ones decode
+        to completion. Sticky until `end_drain()` or `close()`."""
+        self._draining = True
+
+    def end_drain(self) -> None:
+        """Open admission again after a completed drain."""
+        self._draining = False
+
+    async def drain(self, timeout: float | None = None) -> bool:
+        """Stop admission and wait for the admitted work to finish. ->
+        True when everything finished, False on timeout or with work
+        admitted and no worker left to finish it. A preempted request
+        is re-queued past the closed door and finishes too."""
+        self._draining = True
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while self._unfinished > 0:
+            if self._worker is None or self._worker.done():
+                return False
+            if deadline is not None and time.monotonic() > deadline:
+                return False
+            await asyncio.sleep(0.01)
+        return True

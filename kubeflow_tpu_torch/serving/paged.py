@@ -126,13 +126,14 @@ class BlockPool:
 class HostSpillTier:
     """Byte-budgeted host-RAM LRU store for demoted KV block contents.
 
-    Entries are keyed by the FULL token prefix ending at the block: a
-    block's content is a pure function of that prefix (the pool's
-    canonical form), so a restore is token-identical by construction.
-    Payloads are opaque here (the batcher stores host `(k, v)` copies).
-    `put` returns the keys the budget pushed out, oldest first, for the
-    caller to book as content deaths. (The reference also keys entries
-    by tenant namespace; the port has no tenancy yet.)"""
+    Entries are keyed by `(ns, token_path)`, the tenant namespace and
+    the FULL token prefix ending at the block: a block's content is a
+    pure function of that prefix (the pool's canonical form), so a
+    restore is token-identical by construction, and one namespace never
+    restores (or times) another's entries. Payloads are opaque here (the
+    batcher stores host `(k, v)` copies). `put` returns the keys the
+    budget pushed out, oldest first, for the caller to book as content
+    deaths."""
 
     def __init__(self, budget_bytes: int, block_bytes: int):
         if budget_bytes < 0:
@@ -143,8 +144,8 @@ class HostSpillTier:
                              f"{block_bytes}")
         self.budget_bytes = int(budget_bytes)
         self.block_bytes = int(block_bytes)
-        # token path tuple -> payload; insertion order is LRU order
-        # (move_to_end on every touch)
+        # (ns, token path tuple) -> payload; insertion order is LRU
+        # order (move_to_end on every touch)
         self._entries: OrderedDict[tuple, object] = OrderedDict()
 
     @property
@@ -160,19 +161,19 @@ class HostSpillTier:
         return len(self._entries) * self.block_bytes
 
     @staticmethod
-    def _key(path) -> tuple:
-        return tuple(int(t) for t in path)
+    def _key(ns: str, path) -> tuple:
+        return (ns, tuple(int(t) for t in path))
 
-    def contains(self, path) -> bool:
+    def contains(self, ns: str, path) -> bool:
         """Presence probe without an LRU touch: planning peeks, only a
         demote or a restore moves the clock."""
-        return self._key(path) in self._entries
+        return self._key(ns, path) in self._entries
 
-    def put(self, path, payload) -> list[tuple]:
+    def put(self, ns: str, path, payload) -> list[tuple]:
         """Park one block's content; -> the keys the byte budget evicted
         to make room (this very entry too when the budget cannot hold
         one block)."""
-        key = self._key(path)
+        key = self._key(ns, path)
         self._entries[key] = payload
         self._entries.move_to_end(key)
         dropped: list[tuple] = []
@@ -181,17 +182,17 @@ class HostSpillTier:
             dropped.append(victim)
         return dropped
 
-    def pop(self, path):
+    def pop(self, ns: str, path):
         """Take one block's content out (a restore owns it now), or None
         if the budget already dropped it."""
-        return self._entries.pop(self._key(path), None)
+        return self._entries.pop(self._key(ns, path), None)
 
 
 class _Node:
     __slots__ = ("key", "block", "children", "refs", "last_use", "parent")
 
     def __init__(self, key, block, parent):
-        self.key = key          # tuple of block_size token ids (None at root)
+        self.key = key          # tuple of block_size token ids (None at roots)
         self.block = block      # physical block id (None at root)
         self.children = {}      # key tuple -> _Node
         self.refs = 0           # active requests pointing at self.block
@@ -207,8 +208,13 @@ class RadixPrefixCache:
     caller-owned blocks; a block whose token path already exists stays
     with the caller (a duplicate: free it). `evict` pops refcount-0
     leaves in LRU order back to the pool, demoting their contents to
-    the spill tier when one is attached. (The reference also keeps one
-    tree per tenant namespace; the port has no tenancy yet.)"""
+    the spill tier when one is attached.
+
+    Every call takes a namespace `ns` (tenant prefix isolation): `""` is
+    the shared default tree (`self.root`), any other namespace gets its
+    own root on first use, so two namespaces never match each other's
+    entries, not even by the timing of a shared-prefix hit. Eviction,
+    `clear` and the block counts run across every namespace."""
 
     def __init__(self, pool: BlockPool, *,
                  heat_half_life: int = HEAT_HALF_LIFE,
@@ -216,10 +222,11 @@ class RadixPrefixCache:
         self.pool = pool
         self.block_size = pool.block_size
         self.root = _Node(None, None, None)
+        self._roots: dict[str, _Node] = {"": self.root}
         self._clock = 0
         self.cached_blocks = 0  # blocks currently owned by the tree
-        # decayed per-prefix heat: first-block key -> [score, last-bump
-        # clock]
+        # decayed per-prefix heat: (ns, first-block key) -> [score,
+        # last-bump clock]
         self.heat_half_life = max(1, int(heat_half_life))
         self.heat_max_entries = max(2, int(heat_max_entries))
         self._heat: dict[tuple, list] = {}
@@ -239,13 +246,19 @@ class RadixPrefixCache:
 
     # -- internals ---------------------------------------------------------
 
+    def _root_for(self, ns: str) -> _Node:
+        root = self._roots.get(ns)
+        if root is None:
+            root = self._roots[ns] = _Node(None, None, None)
+        return root
+
     def _tick(self) -> int:
         self._clock += 1
         return self._clock
 
     def _touch(self, node: _Node) -> None:
         t = self._tick()
-        # the root is the only node with key None
+        # roots (any namespace) are the only nodes with key None
         while node is not None and node.key is not None:
             node.last_use = t
             node = node.parent
@@ -253,13 +266,13 @@ class RadixPrefixCache:
     def _decayed(self, ent: list, t: int) -> float:
         return ent[0] * 0.5 ** ((t - ent[1]) / self.heat_half_life)
 
-    def _heat_bump(self, key: tuple) -> None:
+    def _heat_bump(self, ns: str, key: tuple) -> None:
         t = self._clock
-        ent = self._heat.get(key)
+        ent = self._heat.get((ns, key))
         if ent is None:
             if len(self._heat) >= self.heat_max_entries:
                 self._heat_prune(t)
-            self._heat[key] = [1.0, t]
+            self._heat[(ns, key)] = [1.0, t]
         else:
             ent[0] = self._decayed(ent, t) + 1.0
             ent[1] = t
@@ -273,15 +286,16 @@ class RadixPrefixCache:
 
     # -- queries -----------------------------------------------------------
 
-    def match(self, tokens) -> tuple[list[_Node], _Node | None, int]:
-        """Longest cached prefix of `tokens`.
+    def match(self, tokens, *,
+              ns: str = "") -> tuple[list[_Node], _Node | None, int]:
+        """Longest cached prefix of `tokens` within namespace `ns`.
         -> `(nodes, partial_node, partial_len)`: `nodes` are the fully
         matched block edges in order; `partial_node` (if any) is a child
         whose key shares `partial_len` in [1, block_size) leading tokens
         with the remainder. Takes no refs."""
         bs = self.block_size
         nodes: list[_Node] = []
-        node = self.root
+        node = self._root_for(ns)
         i = 0
         while i + bs <= len(tokens):
             child = node.children.get(tuple(tokens[i:i + bs]))
@@ -303,7 +317,7 @@ class RadixPrefixCache:
                     partial_node, partial_len = child, n
         if nodes:
             self._touch(nodes[-1])
-            self._heat_bump(nodes[0].key)
+            self._heat_bump(ns, nodes[0].key)
         if partial_node is not None:
             self._touch(partial_node)
         return nodes, partial_node, partial_len
@@ -324,8 +338,9 @@ class RadixPrefixCache:
     # -- growth ------------------------------------------------------------
 
     def insert(self, tokens, blocks: dict[int, int], *,
-               hold: bool = False):
-        """Index `tokens` (a multiple of block_size long). `blocks[i]` is
+               hold: bool = False, ns: str = ""):
+        """Index `tokens` (a multiple of block_size long) into namespace
+        `ns`. `blocks[i]` is
         the caller-owned block holding tokens
         `[i*bs, (i+1)*bs)`, consulted only for edges that do not exist
         yet. -> `(adopted, held_nodes)`: the block indices the tree took
@@ -335,7 +350,7 @@ class RadixPrefixCache:
         assert len(tokens) % bs == 0, len(tokens)
         adopted: set[int] = set()
         held: list[_Node] = []
-        node = self.root
+        node = self._root_for(ns)
         for i in range(len(tokens) // bs):
             key = tuple(tokens[i * bs:(i + 1) * bs])
             child = node.children.get(key)
@@ -350,7 +365,7 @@ class RadixPrefixCache:
                 if i == 0:
                     # a prefix's first cached appearance is its first
                     # heat point (later hits bump through match())
-                    self._heat_bump(key)
+                    self._heat_bump(ns, key)
                 if hold:
                     child.refs = 1
                     held.append(child)
@@ -372,7 +387,7 @@ class RadixPrefixCache:
             out.extend(key)
         return tuple(out)
 
-    def _demote(self, victim: _Node) -> bool:
+    def _demote(self, ns: str, victim: _Node) -> bool:
         """Park `victim`'s block content in the spill tier. -> True when
         the content survives on the host (the free books as `spill`),
         False for a plain discard (`lru`). A reader failure degrades to
@@ -385,7 +400,7 @@ class RadixPrefixCache:
             payload = None
         if payload is None:
             return False
-        dropped = self.spill.put(self._path_tokens(victim), payload)
+        dropped = self.spill.put(ns, self._path_tokens(victim), payload)
         if dropped and self.pool.ledger is not None:
             self.pool.ledger.note_spill_drop(len(dropped))
         return True
@@ -399,19 +414,20 @@ class RadixPrefixCache:
         keep = set(keep)
         freed = 0
         while freed < need:
-            victim = None
-            stack = [self.root]
+            victim, victim_ns = None, ""
+            # evict across namespaces
+            stack = list(self._roots.items())
             while stack:
-                n = stack.pop()
-                stack.extend(n.children.values())
+                ns, n = stack.pop()
+                stack.extend((ns, c) for c in n.children.values())
                 if (n.key is None or n.children or n.refs > 0
                         or n in keep):
                     continue
                 if victim is None or n.last_use < victim.last_use:
-                    victim = n
+                    victim, victim_ns = n, ns
             if victim is None:
                 break
-            spilled = self._demote(victim)
+            spilled = self._demote(victim_ns, victim)
             del victim.parent.children[victim.key]
             self.pool.free([victim.block],
                            cause="spill" if spilled else "lru")
@@ -424,12 +440,13 @@ class RadixPrefixCache:
         for when the pool's contents stop being trusted (a failed device
         call) or stop describing the model (a weight swap)."""
         blocks = []
-        stack = list(self.root.children.values())
-        while stack:
-            n = stack.pop()
-            blocks.append(n.block)
-            stack.extend(n.children.values())
-        self.root.children.clear()
+        for root in self._roots.values():
+            stack = list(root.children.values())
+            while stack:
+                n = stack.pop()
+                blocks.append(n.block)
+                stack.extend(n.children.values())
+            root.children.clear()
         if blocks:
             self.pool.free(blocks, cause=cause)
         self.cached_blocks = 0
@@ -438,14 +455,15 @@ class RadixPrefixCache:
 
     def heat_digest(self, k: int = 16) -> list[dict]:
         """Top-`k` hottest prefixes by decayed score, named by 16-hex
-        hashes of their first block (no prompt tokens leave)."""
+        hashes of their first block, salted by namespace (no prompt
+        tokens leave)."""
         t = self._clock
-        ranked = sorted(((self._decayed(ent, t), key)
-                         for key, ent in self._heat.items()),
+        ranked = sorted(((self._decayed(ent, t), ns, key)
+                         for (ns, key), ent in self._heat.items()),
                         key=lambda x: x[0], reverse=True)
         return [
-            {"prefix": prefix_hash(key),
+            {"prefix": prefix_hash(key, ns),
              "score": round(score, 4)}
-            for score, key in ranked[:max(0, int(k))]
+            for score, ns, key in ranked[:max(0, int(k))]
             if score > 1e-9
         ]

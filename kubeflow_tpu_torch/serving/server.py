@@ -21,8 +21,17 @@ Routes, each with the reference's request and response bodies:
   sources the port has (`ServingObs`), the SLO burn rates among them.
 - `GET /v1/spec`, `POST /v1/spec {"enabled": bool}` — the continuous
   speculative decoding's per-model state and its kill switch.
-- `GET /healthz` (200 only while the server admits work), `GET /readyz`
-  (liveness), `GET /v1/models`.
+- `POST /drain` — stop admission: bodyless, in-flight work decodes to
+  completion (the wait-out drain); `{"migrate": true, "peers": [url,
+  ...]}` exports every admitted sequence (serving/migration.py records)
+  and pushes them round-robin to the peers' `/v1/migrate/in` (the
+  instant drain). `POST /v1/migrate/in` imports one record's KV blocks
+  into the radix cache (400 on a bad record or geometry, 500 on a failed
+  transfer, rolled back), `POST /v1/blocks/export` exports a cached
+  prefix as a record (404 when it is not cached, 400 on a bad prefix
+  hash). Shutdown drains within `drain_grace_s` before it closes.
+- `GET /healthz` (200 only while the server admits work: 503 `draining`
+  after a drain), `GET /readyz` (liveness), `GET /v1/models`.
 
 Modes, as in the reference's `create_serving_app`:
 - default (`continuous=False`): the one-shot engine on a dense KV cache.
@@ -44,8 +53,17 @@ Modes, as in the reference's `create_serving_app`:
 - `spec_decode=True` (continuous only, a draft for every model): every
   request decodes speculatively in its model's continuous batcher,
   `spec_gamma` draft tokens verified a round on the paged KV pool.
-The reference's drain, migration, reload, tracing and tenancy routes are
-not ported yet.
+- `tenancy` (continuous only, a `TenancyConfig`): a request's tenant is
+  its `X-Tenant` header (absent or unknown: `default`), which rides the
+  sampling channel into the batcher's fair-share queue, rate limits (a
+  429 whose Retry-After is the bucket's refill time), KV shares,
+  prefix isolation and batch-class preemption; `/metrics` grows
+  zero-seeded `serving_tenant_*` series and the SLOs count each
+  request under its tenant's priority class.
+The reference wraps the drain, migration and block-export routes in
+tracer spans; the port has no tracer yet, so they carry none. Its
+reload, `:prefill` handoff, peer block fetch and fleet routes are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -61,6 +79,7 @@ from typing import Any
 import numpy as np
 from aiohttp import web
 
+from kubeflow_tpu_torch.obs.cardinality import LabelGuard
 from kubeflow_tpu_torch.obs.metrics import (
     SIZE_BUCKETS,
     TOKEN_BUCKETS,
@@ -71,14 +90,21 @@ from kubeflow_tpu_torch.obs.metrics import (
 )
 from kubeflow_tpu_torch.obs.slo import Slo, get_or_create_slo_engine
 from kubeflow_tpu_torch.ops.cuda import launch_counts
+from kubeflow_tpu_torch.serving import migration
 from kubeflow_tpu_torch.serving.continuous import (
     ContinuousBatcher,
+    MigratedAway,
     Overloaded,
     bucket_pow2,
     pow2_ceil,
 )
 from kubeflow_tpu_torch.serving.engine import InferenceEngine
 from kubeflow_tpu_torch.serving.speculative import SpeculativeEngine
+from kubeflow_tpu_torch.tenancy import (
+    THROTTLE_REASONS,
+    TenancyConfig,
+    Throttled,
+)
 
 BYTE_OFFSET = 3  # 0=pad, 1=bos, 2=eos
 BOS, EOS = 1, 2
@@ -108,6 +134,8 @@ SPEC_KEY: web.AppKey = web.AppKey("speculative", dict)
 GPU_LOCK_KEY: web.AppKey = web.AppKey("gpu_lock", asyncio.Lock)
 TOKENIZER_KEY: web.AppKey = web.AppKey("tokenizer", object)
 OBS_KEY: web.AppKey = web.AppKey("obs", object)
+DRAIN_KEY: web.AppKey = web.AppKey("drain_state", dict)
+TENANCY_KEY: web.AppKey = web.AppKey("tenancy", object)  # TenancyConfig|None
 
 # Server-side decode granularity of a one-shot SSE stream: fixed (not a
 # client knob), as the reference's.
@@ -115,15 +143,16 @@ STREAM_CHUNK = 8
 # Retry-After ceiling: past this, a client should go to another replica
 # rather than wait on this one.
 RETRY_AFTER_CAP_S = 60
-# The tenant label of a tenant-blind deployment: the reference's label
-# guard maps the empty identity to its overflow bucket.
+# The tenant label of a tenant-blind deployment: the label guard maps
+# the empty identity to its overflow bucket.
 TENANT_BLIND = "other"
+MIGRATION_DIRECTIONS = ("in", "out")
 # prefill token sources the port has (the reference's fourth,
 # peer_fetched, needs the peer block fetch: ROADMAP Queue 1 item 5)
 PREFILL_SOURCES = ("computed", "reused", "restored")
-# The reference's tenant priority classes: every SLO family is seeded for
-# each, and the tenant-blind port feeds every request to PRIORITY's, as a
-# tenant-blind reference deployment does.
+# The tenant priority classes: every SLO family is seeded for each; a
+# request counts under its tenant's class, every request of a
+# tenant-blind deployment under PRIORITY's.
 PRIORITIES = ("interactive", "standard", "batch")
 PRIORITY = "standard"
 # The reference's replica SLOs: TTFT thresholds per priority class, the
@@ -144,7 +173,9 @@ class ServingObs:
     `/metrics` renders the registry, and `slo` (obs/slo.py, the
     `slo_burn_rate` and `slo_error_budget_remaining` gauges) holds the
     reference's SLOs: TTFT per priority class, ITL, errors per priority
-    class, speculative acceptance."""
+    class, speculative acceptance. The tenant families carry samples
+    only with a tenancy config; `tenant_guard` caps the values a raw
+    `X-Tenant` header can put into a label."""
 
     def __init__(self):
         self.registry = reg = Registry()
@@ -197,6 +228,43 @@ class ServingObs:
             reg, "serving_queue_wait_seconds",
             "Enqueue to first admission into the decode batch, per "
             "model (scheduling delay; excludes prefill)")
+        # multi-tenant QoS: counters synced from the ledger's totals at
+        # scrape time, the gauge read live
+        self.tenant_queue_depth = Gauge(
+            "serving_tenant_queue_depth",
+            "Requests waiting in a tenant's admission sub-queue", reg)
+        self.tenant_tokens = Counter(
+            "serving_tenant_tokens_total",
+            "Tokens generated per tenant and model", reg)
+        self.tenant_throttled = Counter(
+            "serving_tenant_throttled_total",
+            "Admissions shed or deferred per tenant by reason: rate "
+            "(request bucket empty, HTTP 429) or kv_quota (concurrent "
+            "KV-block share spent, request waits)", reg)
+        self.tenant_preemptions = Counter(
+            "serving_tenant_preemptions_total",
+            "Batch-class decodes evicted mid-generation to free a slot "
+            "for interactive work, per tenant", reg)
+        # live KV-block migration: failures roll back and count here
+        self.migration_out = Counter(
+            "serving_migration_out_total",
+            "In-flight sequences exported to a peer replica on "
+            "instant drain, per model", reg)
+        self.migration_in = Counter(
+            "serving_migration_in_total",
+            "Migrated sequences imported into the local KV pool "
+            "(cache-warm; the router re-dispatch resumes them), per "
+            "model", reg)
+        self.migration_failed = Counter(
+            "serving_migration_failed_total",
+            "Migration transfers that failed and rolled back, per "
+            "model and direction (in: import rejected or wedged, "
+            "out: no peer accepted the record)", reg)
+        self.migration_blocks = Counter(
+            "serving_migration_blocks_total",
+            "KV pool blocks moved by live migration, per model and "
+            "direction", reg)
+        self.tenant_guard = LabelGuard()
         slos = [Slo(f"serving_ttft_{cls}", SLO_LATENCY_OBJECTIVE,
                     threshold_s=SLO_TTFT_THRESHOLDS_S[cls],
                     description=f"p95 TTFT for {cls} traffic under "
@@ -223,6 +291,15 @@ _OBS_T0 = "obs_request_start"
 _OBS_TTFT_DONE = "obs_ttft_recorded"
 
 
+def _priority_class(request: web.Request) -> str:
+    """The request's tenant priority class, for the SLOs: PRIORITY for
+    every request of a tenant-blind deployment."""
+    tenancy = request.app[TENANCY_KEY]
+    if tenancy is None:
+        return PRIORITY
+    return tenancy.resolve(request.headers.get("X-Tenant", "")).priority
+
+
 def _observe_first_token(request: web.Request, model: str) -> None:
     """Record time-to-first-token once per request: streams at their
     first token on the wire, the other paths after generation."""
@@ -232,8 +309,13 @@ def _observe_first_token(request: web.Request, model: str) -> None:
     request[_OBS_TTFT_DONE] = True
     dt = time.perf_counter() - t0
     sobs = request.app[OBS_KEY]
-    sobs.ttft.observe(dt, model=model)
-    sobs.slo.observe(f"serving_ttft_{PRIORITY}", dt)
+    labels = {"model": model}
+    tenant_hdr = request.headers.get("X-Tenant")
+    if tenant_hdr:
+        # guarded: the label echoes a client-chosen value
+        labels["tenant"] = sobs.tenant_guard.admit(tenant_hdr)
+    sobs.ttft.observe(dt, **labels)
+    sobs.slo.observe(f"serving_ttft_{_priority_class(request)}", dt)
 
 
 def _observed(route: str, handler):
@@ -263,7 +345,8 @@ def _observed(route: str, handler):
                 method=request.method)
             if route.startswith("/v1/models/"):
                 # the availability SLO counts inference traffic only
-                sobs.slo.record(f"serving_errors_{PRIORITY}", status < 500)
+                sobs.slo.record(f"serving_errors_{_priority_class(request)}",
+                                status < 500)
 
     return observed
 
@@ -296,15 +379,36 @@ class Batcher:
         self._worker: asyncio.Task | None = None
         self._inflight: list = []   # dequeued but unresolved (see close)
         self._closed = False
+        self._draining = False
 
     def in_flight(self) -> int:
         return self._queue.qsize() + len(self._inflight)
+
+    def begin_drain(self) -> None:
+        """Stop admission; queued work still runs."""
+        self._draining = True
+
+    async def drain(self, timeout: float | None = None) -> bool:
+        """Stop admission and wait for admitted work to resolve (the
+        continuous batcher's contract: False on timeout, or with work
+        left and no worker to run it)."""
+        self._draining = True
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while self.in_flight():
+            if self._worker is None or self._worker.done():
+                return False
+            if deadline is not None and time.monotonic() > deadline:
+                return False
+            await asyncio.sleep(0.01)
+        return True
 
     async def submit(self, tokens: list[int], max_new: int,
                      sampling: dict | None = None):
         """-> (tokens [max_new], logprobs [max_new]) for one prompt."""
         if self._closed:
             raise RuntimeError("batcher is shut down")
+        if self._draining:
+            raise RuntimeError("batcher is draining")
         loop = asyncio.get_running_loop()
         if self._worker is None or self._worker.done():
             self._worker = loop.create_task(self._run())
@@ -421,7 +525,9 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
                        prefixes: dict[str, list[int]] | None = None,
                        drafts: dict[str, InferenceEngine] | None = None,
                        spec_decode: bool = False, spec_gamma: int = 4,
-                       seed: int | None = None) -> web.Application:
+                       seed: int | None = None,
+                       tenancy: TenancyConfig | None = None,
+                       drain_grace_s: float = 30.0) -> web.Application:
     """`continuous=False` (the default) serves through the one-shot
     engine: a window `Batcher` per model when `batch_window_ms > 0`,
     else every request calls `engine.generate` directly.
@@ -448,22 +554,27 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
     (continuous only) instead puts each model's draft into its
     continuous batcher: EVERY request decodes speculatively on the paged
     KV pool, `spec_gamma` draft tokens verified a round; it needs a
-    draft for every model, and `/v1/spec` switches it off and on. The
-    app's metric registry (`app[OBS_KEY].registry`) is rendered at
-    `/metrics`, the SLO burn rates with it."""
+    draft for every model, and `/v1/spec` switches it off and on.
+    `tenancy` (continuous only) makes each batcher multi-tenant (the
+    module docstring); without it the server is tenant-blind, FIFO, as
+    before. `drain_grace_s` bounds how long shutdown waits for in-flight
+    generations before it closes the batchers. The app's metric registry
+    (`app[OBS_KEY].registry`) is rendered at `/metrics`, the SLO burn
+    rates with it."""
     if not continuous and (prefill_chunk is not None
                            or prefill_chunk_tokens is not None
                            or pipeline_depth is not None
                            or kv_block_size != 64
                            or kv_pool_blocks is not None
                            or kv_spill_bytes is not None or prefixes
-                           or spec_decode):
+                           or spec_decode or tenancy is not None):
         # these knobs only exist on the continuous batcher; ignoring
         # them would ship a server without what the caller asked for
+        # (tenancy especially: the caller believes quotas are enforced)
         raise ValueError("prefill_chunk/prefill_chunk_tokens/"
                          "pipeline_depth/kv_block_size/kv_pool_blocks/"
-                         "kv_spill_bytes/prefixes/spec_decode require "
-                         "continuous=True")
+                         "kv_spill_bytes/prefixes/spec_decode/tenancy "
+                         "require continuous=True")
     unknown = set(drafts or {}) - set(engines)
     if unknown:
         raise ValueError(f"drafts registered for unknown models "
@@ -486,6 +597,8 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
     app = web.Application()
     sobs = ServingObs()
     app[OBS_KEY] = sobs
+    app[TENANCY_KEY] = tenancy
+    app[DRAIN_KEY] = {"draining": False, "grace_s": float(drain_grace_s)}
     app[ENGINES_KEY] = dict(engines)
     app[TOKENIZER_KEY] = tokenizer
     app[SPEC_KEY] = {name: SpeculativeEngine(engines[name], draft)
@@ -503,7 +616,7 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
                 kv_block_size=kv_block_size, kv_pool_blocks=kv_pool_blocks,
                 kv_spill_bytes=kv_spill_bytes, seed=seed,
                 draft=(drafts or {}).get(name) if spec_decode else None,
-                spec_gamma=spec_gamma)
+                spec_gamma=spec_gamma, tenancy=tenancy)
             for name, eng in engines.items()}
     else:
         app[BATCHERS_KEY] = (
@@ -524,6 +637,8 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
                 sobs.kv_blocks.set(_b.kv_blocks_in_use(), model=_m)
 
         sobs.registry.register_collector(collect_kv_blocks)
+    if tenancy is not None:
+        _wire_tenant_metrics(sobs, app, tenancy)
     if warmup:
         rows = [1]
         while rows[-1] < max_batch:
@@ -542,6 +657,17 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
         app.on_startup.append(_warm)
 
     async def _close_batchers(app_):
+        # drain first: admission stops and admitted work decodes to
+        # completion within the grace window; close fails only the
+        # stragglers
+        app_[DRAIN_KEY]["draining"] = True
+        grace = app_[DRAIN_KEY]["grace_s"]
+        for b in app_[BATCHERS_KEY].values():
+            b.begin_drain()
+        for b in app_[BATCHERS_KEY].values():
+            if not await b.drain(timeout=grace):
+                log.warning("shutdown drain timed out with %d request(s) "
+                            "in flight; closing anyway", b.in_flight())
         for b in app_[BATCHERS_KEY].values():
             await b.close()
 
@@ -562,7 +688,10 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
             (get, "/v1/requests/timelines", request_timelines_index),
             (get, "/v1/requests/{id}/timeline", request_timeline),
             (post, "/v1/models/{name}:generate", generate),
-            (post, "/v1/models/{name}:score", score)):
+            (post, "/v1/models/{name}:score", score),
+            (post, "/drain", drain_endpoint),
+            (post, "/v1/migrate/in", migrate_in),
+            (post, "/v1/blocks/export", blocks_export)):
         add(route, _observed(route, handler))
     return app
 
@@ -575,7 +704,7 @@ def _wire_continuous_metrics(sobs: ServingObs, model: str,
     def on_prefix(computed, reused, hit, tenant="", restored=0):
         fam = sobs.prefix_hits if hit else sobs.prefix_misses
         fam.inc(model=model)
-        fam.inc(model=model, tenant=tenant or TENANT_BLIND)
+        fam.inc(model=model, tenant=sobs.tenant_guard.admit(tenant))
         sobs.prefill_tokens.observe(computed, model=model,
                                     source="computed")
         # restored cells are radix hits whose content came off the host
@@ -611,7 +740,54 @@ def _wire_continuous_metrics(sobs: ServingObs, model: str,
         fam.inc(0, model=model, tenant=TENANT_BLIND)
     for source in PREFILL_SOURCES:
         sobs.prefill_tokens.seed(model=model, source=source)
+    sobs.migration_out.inc(0, model=model)
+    sobs.migration_in.inc(0, model=model)
+    for direction in MIGRATION_DIRECTIONS:
+        sobs.migration_failed.inc(0, model=model, direction=direction)
+        sobs.migration_blocks.inc(0, model=model, direction=direction)
     sobs.attention_impl.set(1, model=model, impl=b.cengine.attention_impl)
+
+
+def _wire_tenant_metrics(sobs: ServingObs, app: web.Application,
+                         tenancy: TenancyConfig) -> None:
+    """Zero-seed every configured tenant's series (dashboards see the
+    full set from the first scrape), admit the configured names into the
+    label guard, and register the collector that syncs the counters
+    with the batchers' ledgers at scrape time."""
+    for tenant in tenancy.names():
+        sobs.tenant_guard.admit(tenant)
+        for model in app[BATCHERS_KEY]:
+            sobs.tenant_queue_depth.set(0, model=model, tenant=tenant)
+            sobs.tenant_tokens.inc(0, model=model, tenant=tenant)
+            sobs.tenant_preemptions.inc(0, model=model, tenant=tenant)
+            sobs.prefix_hits.inc(0, model=model, tenant=tenant)
+            sobs.prefix_misses.inc(0, model=model, tenant=tenant)
+            for reason in THROTTLE_REASONS:
+                sobs.tenant_throttled.inc(0, model=model, tenant=tenant,
+                                          reason=reason)
+
+    def sync(counter, total, **labels):
+        # the ledger keeps cumulative totals and a counter only rises:
+        # add the difference since the last scrape
+        cur = counter.value(**labels)
+        if total > cur:
+            counter.inc(total - cur, **labels)
+
+    def collect_tenants():
+        for model, b in app[BATCHERS_KEY].items():
+            for tenant, st in b.tenant_stats().items():
+                tenant = sobs.tenant_guard.admit(tenant)
+                sobs.tenant_queue_depth.set(st.get("queued", 0),
+                                            model=model, tenant=tenant)
+                sync(sobs.tenant_tokens, st["tokens"], model=model,
+                     tenant=tenant)
+                sync(sobs.tenant_preemptions, st["preempted"], model=model,
+                     tenant=tenant)
+                for reason, n in st["throttled"].items():
+                    sync(sobs.tenant_throttled, n, model=model,
+                         tenant=tenant, reason=reason)
+
+    sobs.registry.register_collector(collect_tenants)
 
 
 async def _ok(request: web.Request):
@@ -651,9 +827,19 @@ async def spec_toggle(request: web.Request):
                               "models": _spec_state(request.app)})
 
 
+def _in_flight(app: web.Application) -> int:
+    return sum(b.in_flight() for b in app[BATCHERS_KEY].values())
+
+
 async def healthz(request: web.Request):
-    """200 only when every model admits work (a continuous batcher's
-    queue below its shed depth); /readyz stays the bare liveness 200."""
+    """200 only when the server admits work: not draining, every
+    continuous batcher's queue below its shed depth. /readyz stays the
+    bare liveness 200."""
+    app = request.app
+    if app[DRAIN_KEY]["draining"]:
+        return web.json_response(
+            {"status": "draining", "in_flight": _in_flight(app)},
+            status=503)
     models = {}
     overloaded = False
     for name, b in request.app[BATCHERS_KEY].items():
@@ -702,6 +888,9 @@ async def list_models(request: web.Request):
                     "kv_pool_blocks": b.cengine.num_blocks,
                     "prefix_cache": b.prefix_cache_stats(),
                 })
+                tstats = b.tenant_stats()
+                if tstats:
+                    entry["tenants"] = tstats
                 if b._prefixes:
                     entry["prefixes"] = {
                         n: len(t) for n, t in b._prefixes.items()}
@@ -748,21 +937,34 @@ async def _on_device(request: web.Request, fn):
         return await loop.run_in_executor(None, fn)
 
 
-def _retry_after_s(batcher: ContinuousBatcher) -> str:
-    """Retry-After of an Overloaded 429: when the backlog should clear,
-    queue depth x the recent per-request service time over the slot
-    count, clamped to [1, RETRY_AFTER_CAP_S] whole seconds."""
-    slots = max(1, len(batcher._free) + len(batcher._active))
-    # service_ewma is 0.0 until the first completion: a second a
-    # request, the old constant, is then the floor
-    est = (len(batcher._pending) + 1) * (batcher.service_ewma or 1.0) / slots
+def _retry_after_s(batcher: ContinuousBatcher, exc: Exception) -> str:
+    """Retry-After of a 429: a `Throttled` tenant's bucket refill time;
+    for `Overloaded`, when the backlog should clear: queue depth x the
+    recent per-request service time over the slot count. Clamped to [1,
+    RETRY_AFTER_CAP_S] whole seconds."""
+    if isinstance(exc, Throttled):
+        est = exc.retry_after
+    else:
+        slots = max(1, len(batcher._free) + len(batcher._active))
+        # service_ewma is 0.0 until the first completion: a second a
+        # request, the old constant, is then the floor
+        est = ((len(batcher._pending) + 1) * (batcher.service_ewma or 1.0)
+               / slots)
     return str(max(1, min(RETRY_AFTER_CAP_S, math.ceil(est))))
 
 
-def _overloaded(batcher: ContinuousBatcher, e: Overloaded) -> web.Response:
+def _shed(batcher: ContinuousBatcher, e: Exception) -> web.Response:
+    """The 429 of a throttled tenant or an overloaded queue."""
+    msg = str(e) if isinstance(e, Throttled) else f"server overloaded: {e}"
     return web.json_response(
-        {"error": f"server overloaded: {e}"}, status=429,
-        headers={"Retry-After": _retry_after_s(batcher)})
+        {"error": msg}, status=429,
+        headers={"Retry-After": _retry_after_s(batcher, e)})
+
+
+def _draining() -> web.Response:
+    # 503, not 429: the server is going away; try another replica
+    return web.json_response({"error": "server is draining"}, status=503,
+                             headers={"Retry-After": "5"})
 
 
 def _decode_text(request: web.Request, model: str, ids: list[int]) -> str:
@@ -843,8 +1045,8 @@ async def _stream_continuous(request: web.Request,
         # enqueue before the SSE headers: admission errors, Overloaded
         # included, are a clean 429/4xx, never a mid-stream abort
         fut, q = batcher.open_stream(tokens, max_new, sampling)
-    except Overloaded as e:
-        return _overloaded(batcher, e)
+    except (Throttled, Overloaded) as e:
+        return _shed(batcher, e)
     model = request.match_info.get("name", "")
     resp = web.StreamResponse(headers={
         **_SSE_HEADERS, "X-Request-Id": sampling["request_id"]})
@@ -861,6 +1063,10 @@ async def _stream_continuous(request: web.Request,
             await resp.write(_sse({"tokens": [[tok]]}))
         try:
             await fut   # admission and step errors surface after drain
+        except MigratedAway as e:
+            # an instant drain exported it: the terminal error event
+            # tells the client to resume elsewhere
+            error = f"{type(e).__name__}: {e}"
         except Exception as e:  # noqa: BLE001 — headers are out
             log.exception("continuous decode failed mid-stream")
             error = f"{type(e).__name__}: {e}"
@@ -936,6 +1142,8 @@ async def score(request: web.Request):
     sequence (the perplexity / eval door). Body {"tokens": [[...]]} or
     {"text": "..."}; response: per-position logprobs (s - 1 a row), each
     row's total, and the count. One forward of the one-shot engine."""
+    if request.app[DRAIN_KEY]["draining"]:
+        return _draining()
     name = request.match_info["name"]
     engine = request.app[ENGINES_KEY].get(name)
     if engine is None:
@@ -966,6 +1174,15 @@ async def score(request: web.Request):
     })
 
 
+def _tenant(request: web.Request) -> dict:
+    """The X-Tenant header as a sampling-channel entry: a header, not a
+    body field, so a proxy forwards it without parsing the payload; the
+    batcher pops it back out and resolves it (absent or unknown:
+    `default`)."""
+    tenant = request.headers.get("X-Tenant", "")
+    return {"tenant": tenant} if tenant else {}
+
+
 def _apply_stop(row: list[int], stop: list[list[int]]) -> list[int]:
     """Cut `row` before the earliest occurrence of any stop sequence."""
     cut = None
@@ -979,6 +1196,9 @@ def _apply_stop(row: list[int], stop: list[list[int]]) -> list[int]:
 
 
 async def generate(request: web.Request):
+    if request.app[DRAIN_KEY]["draining"]:
+        # admission stops at the door; in-flight work keeps decoding
+        return _draining()
     name = request.match_info["name"]
     engine = request.app[ENGINES_KEY].get(name)
     if engine is None:
@@ -1096,7 +1316,8 @@ async def generate(request: web.Request):
         if continuous and arr.shape[0] == 1:
             return await _stream_continuous(
                 request, batcher, token_lists[0], max_new_req,
-                {**sampling, "request_id": req_id}, text_mode)
+                {**sampling, **_tenant(request), "request_id": req_id},
+                text_mode)
         return await _stream_generate(request, engine, arr, max_new_req,
                                       sampling, text_mode)
 
@@ -1147,7 +1368,7 @@ async def generate(request: web.Request):
         }
         rows = toks[:, :max_new_req].tolist()
     elif continuous:
-        submit = dict(sampling)
+        submit = {**sampling, **_tenant(request)}
         if stop:
             # the batcher retires the slot the moment a stop sequence
             # completes; the post-trim below is then a no-op
@@ -1160,8 +1381,12 @@ async def generate(request: web.Request):
             results = await asyncio.gather(*(
                 batcher.submit(t, max_new_req, submit, with_logprobs=True)
                 for t in token_lists))
-        except Overloaded as e:
-            return _overloaded(batcher, e)
+        except (Throttled, Overloaded) as e:
+            return _shed(batcher, e)
+        except MigratedAway as e:
+            # an instant drain shipped this sequence to a peer: retryable
+            return web.json_response({"error": str(e), "migrated": True},
+                                     status=503, headers={"Retry-After": "0"})
         _observe_first_token(request, name)
         rows = [list(toks) for toks, _ in results]
         lp_rows = [list(lps) for _, lps in results]
@@ -1204,3 +1429,181 @@ async def generate(request: web.Request):
         resp["text"] = _decode_text(request, name, rows[0])
     return web.json_response(
         resp, headers={"X-Request-Id": req_id} if req_id else None)
+
+
+async def drain_endpoint(request: web.Request):
+    """Stop admission now. Bodyless: admitted generations decode to
+    completion and the response reports what is still in flight (the
+    wait-out drain). `{"migrate": true, "peers": [url, ...]}`: every
+    admitted sequence is exported (serving/migration.py records) and
+    pushed round-robin to the peers' `/v1/migrate/in`, so the replica
+    can exit at once (the instant drain); the response counts the
+    records `migrated` and those no peer accepted as `failed`."""
+    app = request.app
+    app[DRAIN_KEY]["draining"] = True
+    for b in app[BATCHERS_KEY].values():
+        b.begin_drain()
+    try:
+        body = await request.json()
+    except Exception:  # noqa: BLE001 — bodyless wait-out drain
+        body = {}
+    if not (isinstance(body, dict) and body.get("migrate")):
+        return web.json_response(
+            {"draining": True, "in_flight": _in_flight(app)})
+    import aiohttp
+
+    peers = [str(p).rstrip("/") for p in body.get("peers", []) if p]
+    sobs: ServingObs = app[OBS_KEY]
+    t0 = time.monotonic()
+    migrated = failed = 0
+    async with aiohttp.ClientSession() as session:
+        for name, b in app[BATCHERS_KEY].items():
+            if not isinstance(b, ContinuousBatcher):
+                continue
+            records = await b.export_sequences()
+            for i, record in enumerate(records):
+                ok = False
+                for j in range(len(peers)):
+                    peer = peers[(i + j) % len(peers)]
+                    try:
+                        async with session.post(
+                                f"{peer}/v1/migrate/in",
+                                json={"model": name, "record": record},
+                                timeout=aiohttp.ClientTimeout(
+                                    total=30)) as r:
+                            if r.status == 200:
+                                ok = True
+                                break
+                    except (aiohttp.ClientError, asyncio.TimeoutError,
+                            OSError):
+                        continue
+                if ok:
+                    migrated += 1
+                    sobs.migration_out.inc(model=name)
+                    kv = record.get("kv")
+                    if kv:
+                        sobs.migration_blocks.inc(
+                            kv["n_full"], model=name, direction="out")
+                else:
+                    failed += 1
+                    sobs.migration_failed.inc(model=name, direction="out")
+    return web.json_response({
+        "draining": True, "in_flight": _in_flight(app),
+        "migrated": migrated, "failed": failed,
+        "migrate_s": round(time.monotonic() - t0, 3)})
+
+
+def _record_limit(batcher: ContinuousBatcher) -> int:
+    """Body bytes `/v1/migrate/in` accepts: a record of every full block
+    a slot can hold, float32 and base64 (4/3) for K and V, with 1 MiB
+    for the token lists. aiohttp's default body limit (1 MiB, which the
+    reference keeps) is below one llama3-1b block (8 MiB on the wire)."""
+    ce = batcher.cengine
+    cfg = ce.engine.cfg
+    kv = 2 * cfg.num_layers * ce.kv_width * cfg.num_kv_heads * cfg.head_dim
+    return kv * 4 * 4 // 3 + (1 << 20)
+
+
+async def _read_record_body(request: web.Request, limit: int):
+    """The request's JSON body, read up to `limit` bytes past the app's
+    default body limit. -> the parsed body, or a 400 / 413 response."""
+    raw = bytearray()
+    while True:
+        chunk = await request.content.read(1 << 20)
+        if not chunk:
+            break
+        raw += chunk
+        if len(raw) > limit:
+            return web.json_response(
+                {"error": f"migration record over {limit} bytes"},
+                status=413)
+    try:
+        return json.loads(raw)
+    except ValueError:
+        return web.json_response({"error": "invalid JSON"}, status=400)
+
+
+async def migrate_in(request: web.Request):
+    """Import one migrated sequence (`{"model": name, "record": <wire
+    record>}`): geometry validated, local blocks allocated, the KV
+    scattered into them and the prefix indexed in the radix cache under
+    the record's namespace. Nothing is enqueued: the re-issued
+    generation (replay tokens, remaining budget) hits the imported
+    prefix. Any failure, a wedged transfer (`"wedge": true`, a fault
+    injected mid-transfer) included, rolls back: every block it took is
+    freed."""
+    app = request.app
+    # a record carries its KV blocks: past the app's 1 MiB body limit at
+    # real widths, so the body is read up to the largest record this
+    # replica's pools can import
+    limit = max([_record_limit(b) for b in app[BATCHERS_KEY].values()
+                 if isinstance(b, ContinuousBatcher)] + [1 << 20])
+    body = await _read_record_body(request, limit)
+    if isinstance(body, web.Response):
+        return body
+    name = body.get("model", "") if isinstance(body, dict) else ""
+    batcher = app[BATCHERS_KEY].get(name)
+    if name not in app[ENGINES_KEY]:
+        return web.json_response({"error": f"no model {name!r}"},
+                                 status=404)
+    if not isinstance(batcher, ContinuousBatcher):
+        return web.json_response(
+            {"error": "migration import requires continuous batching"},
+            status=400)
+    record = body.get("record")
+    wedge = bool(body.get("wedge", False))
+    sobs: ServingObs = app[OBS_KEY]
+    try:
+        blocks = await batcher.import_sequence(record, wedge=wedge)
+    except ValueError as e:
+        sobs.migration_failed.inc(model=name, direction="in")
+        return web.json_response({"error": str(e)}, status=400)
+    except Exception as e:  # noqa: BLE001 — rolled back inside
+        sobs.migration_failed.inc(model=name, direction="in")
+        return web.json_response({"error": f"{type(e).__name__}: {e}"},
+                                 status=500)
+    sobs.migration_in.inc(model=name)
+    if blocks:
+        sobs.migration_blocks.inc(blocks, model=name, direction="in")
+    rid = (str(record.get("request_id", ""))
+           if isinstance(record, dict) else "")
+    return web.json_response(
+        {"imported": True, "blocks": blocks, "request_id": rid})
+
+
+async def blocks_export(request: web.Request):
+    """The peer side of a block pull: body
+    `migration.prefix_fetch_request` (`model`, `tokens`, `ns` and the
+    16-hex hash of the first block). -> this replica's cached full-block
+    KV prefix of `tokens` as a migration wire record with `out=[]`, the
+    `/v1/migrate/in` format. 404 when the prefix is not cached, 400 when
+    the hash disagrees with the tokens."""
+    app = request.app
+    try:
+        body: dict[str, Any] = await request.json()
+    except Exception:  # noqa: BLE001 — any unparsable body is a 400
+        return web.json_response({"error": "invalid JSON"}, status=400)
+    name = body.get("model", "") if isinstance(body, dict) else ""
+    if name not in app[ENGINES_KEY]:
+        return web.json_response({"error": f"no model {name!r}"},
+                                 status=404)
+    batcher = app[BATCHERS_KEY].get(name)
+    if not isinstance(batcher, ContinuousBatcher):
+        return web.json_response(
+            {"error": "block export requires continuous batching"},
+            status=400)
+    try:
+        _, tokens, ns = migration.validate_fetch_request(
+            body, block_size=batcher.cengine.block_size)
+    except ValueError as e:
+        return web.json_response({"error": str(e)}, status=400)
+    rid = request.headers.get("X-Request-Id") or secrets.token_hex(8)
+    record = await batcher.export_prefix(tokens, ns=ns, request_id=rid)
+    if record is None:
+        return web.json_response({"error": "prefix not cached"},
+                                 status=404)
+    blocks = int(record["kv"]["n_full"]) if record.get("kv") else 0
+    if blocks:
+        app[OBS_KEY].migration_blocks.inc(blocks, model=name,
+                                          direction="out")
+    return web.json_response({"record": record, "blocks": blocks})

@@ -1,8 +1,8 @@
 """The port's host spill tier against the JAX reference, on the CPU.
 
 - `HostSpillTier` in both packages under the same random puts, pops
-  and probes from a numpy seed: returns, dropped keys and LRU order
-  equal (the reference's keys carry a namespace, "" here).
+  and probes from a numpy seed, under two tenant namespaces: returns,
+  dropped `(ns, path)` keys and LRU order equal.
 - A radix tree with the tier attached, evicting under the same
   operations: demotion keys, payloads and the ledger's spill books
   equal.
@@ -100,14 +100,15 @@ def test_spill_tier_matches_reference_under_random_operations(seed):
     for i in range(200):
         kind = rng.choice(["put", "pop", "contains"], p=[.5, .25, .25])
         path = rng.integers(0, 3, int(rng.integers(1, 4))).tolist()
+        # keys are (tenant namespace, token path), as the reference's
+        ns = str(rng.choice(["", "t"]))
         if kind == "put":
             payload = int(rng.integers(1000))
-            assert got.put(path, payload) == [
-                key for _, key in want.put("", path, payload)]
+            assert got.put(ns, path, payload) == want.put(ns, path, payload)
         else:
-            assert getattr(got, kind)(path) == getattr(want, kind)("", path)
-        assert list(got._entries.items()) == [
-            (key, p) for (_, key), p in want._entries.items()], i
+            assert getattr(got, kind)(ns, path) == \
+                getattr(want, kind)(ns, path)
+        assert list(got._entries.items()) == list(want._entries.items()), i
         assert got.spilled_bytes == want.spilled_bytes
 
 
@@ -142,8 +143,7 @@ def test_radix_demotes_into_the_tier_as_the_reference(seed):
             pool.free([b for i, b in enumerate(blocks) if i not in adopted],
                       cause="divergence")
         (jp, _, jt), (tp, _, tt) = sides
-        assert list(tt._entries.items()) == [
-            (key, p) for (_, key), p in jt._entries.items()]
+        assert list(tt._entries.items()) == list(jt._entries.items())
         assert tp._free == jp._free
         assert tp.ledger.snapshot() == jp.ledger.snapshot()
     snap = sides[1][0].ledger.snapshot()

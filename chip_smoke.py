@@ -285,8 +285,41 @@ Phases, each fatal on failure (exit code 1, no result line):
              300-token prompt equal to B's pool, 404 uncached, 400 bad
              hash; both ledgers conserved. Prints the synchronous
              export and import ms a block and the card.
+11. fleet  — the fleet plane: replicas P (`--pool prefill`) and D
+             (`--pool decode`, a 1 GiB host spill tier), llama3-1b from
+             the CLI (`--random --seed 0 --continuous --warmup
+             --prefill-chunk-tokens 64 --max-batch 4 --fleet-router URL
+             --advertise URL --model-version v1`, depth 2), registered
+             with a stub router inside this script that records every
+             register, heartbeat and deregister body. Counters set to 0
+             before each wave and read after. (a) five prompts of
+             phase 10's lengths (17-520 tokens) to P's `:prefill` with
+             `peer` D: blocks and handoff as the lengths give (0 for 17
+             tokens), 19 prefill slices on P and no decode step, D's
+             imported blocks bit-equal to P's; then `:generate` on D (96
+             new):
+             cells reused exactly min(64 n, len - 1) a prompt, 5 tail
+             slices, exact launches, tokens equal P's own `:generate` or
+             part at a near tie (`_tie_rule`), logprobs against the
+             teacher. (b) three new prompts to D with `X-KV-Peer`: one P
+             served (`ok`, 64 x n cells `peer_fetched`), one P never saw
+             (`miss`), a dead URL (`failed`), all with P's tokens by the
+             same rule; a fourth fetch timed alone. (c) `/v1/reload
+             {"version": "v2", "source": {"seed": 7}}` on D: every
+             parameter's `data_ptr()` and every graph runner kept, no
+             capture, the radix, spill tier and prefix memo empty, a
+             registration with version v2 at the stub before the answer;
+             the replayed tokens pass the teacher check against
+             `init(cfg, 7)` built apart and differ from seed 0's; an
+             empty source answers 400 and changes nothing; a planted
+             `ttft_delay_s` 1 lifts TTFT past 1 s and the next reload
+             heals it. (d) each replica beats within a quiet 2.5 s with
+             the reference's keys, its pool, P's prefill and D's decode
+             seconds above 0, P's heat digest non-empty, and each
+             deregisters at cleanup. Prints the handoff and fetch ms a
+             block, `reload_s` and both replicas' phase totals.
 Then prints the `kernels` JSON line (launches: the paged kernels' over
-phases 3, 3b, 3c, 8, 9's spec-off pass and 10, each other kernel's over its
+phases 3, 3b, 3c, 8, 9's spec-off pass, 10 and 11, each other kernel's over its
 phases (4 and 8 for flash, 5, 8 and 9 for dense decode); each kernel
 again as `<name>@gemma-2b`, timed in phase 2 at gemma-2b's shapes and
 counted over phase 6, or phase 7 for the flash kernels; and
@@ -3237,12 +3270,15 @@ async def _serve_app(argv):
     from kubeflow_tpu_torch.serving.__main__ import build_app, parse_args
 
     port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    if "--fleet-router" in argv:
+        argv = argv + ["--advertise", base]
     app = build_app(parse_args(argv + ["--host", "127.0.0.1",
                                        "--port", str(port)]))
     runner = web.AppRunner(app)
     await runner.setup()          # on_startup: the batcher's warmup
     await web.TCPSite(runner, "127.0.0.1", port).start()
-    return app, runner, f"http://127.0.0.1:{port}"
+    return app, runner, base
 
 
 async def _post_json(sess, url, body, headers=None, status=200):
@@ -3775,6 +3811,340 @@ async def migration_and_check(torch):
     log(f"  phase 10b wall {time.perf_counter() - t_phase:.1f} s ({_card()})")
     return counts_all
 
+FLEET_LENS = (130, 200, 260, 190)   # 11b: fetched, missed, failed; timed
+HEARTBEAT_WITHIN_S = 2.5            # the reference beats every 2 s
+HEARTBEAT_KEYS = {"id", "url", "models", "checkpoints", "queue_depth",
+                  "active_slots", "max_slots", "kv_blocks_free",
+                  "kv_blocks_total", "draining", "pool", "version",
+                  "phase_seconds", "cache_digest"}
+RELOAD_SEED = 7
+DEFECT_S = 1.0
+
+
+async def _stub_router():
+    """A router that only listens: it records every `/fleet/register`,
+    `/fleet/heartbeat` and `/fleet/deregister` body with its arrival
+    time. -> (runner, url, bodies)."""
+    from aiohttp import web
+
+    bodies: list = []
+
+    async def record(request):
+        bodies.append((request.path, time.perf_counter(),
+                       await request.json()))
+        return web.json_response({"ok": True})
+
+    app = web.Application()
+    for path in ("/fleet/register", "/fleet/heartbeat", "/fleet/deregister"):
+        app.router.add_post(path, record)
+    runner = web.AppRunner(app)
+    await runner.setup()
+    port = _free_port()
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    return runner, f"http://127.0.0.1:{port}", bodies
+
+
+async def fleet_and_check(torch):
+    """Phase 11: the fleet plane. Replicas P (`--pool prefill`) and D
+    (`--pool decode`, with a host spill tier), llama3-1b from the CLI's
+    app (4 slots, chunk 64, `--warmup`, depth 2, `--fleet-router` to a
+    stub router, `--model-version v1`): 11a the `:prefill` handoff, 11b
+    the peer block fetch, 11c the live reload, 11d the heartbeats. ->
+    the paged kernels' launches over the waves."""
+    import aiohttp
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.serving import server
+    from kubeflow_tpu_torch.serving.engine import (
+        LLAMA_FAMILY,
+        EngineConfig,
+        InferenceEngine,
+    )
+    from kubeflow_tpu_torch.train.checkpoint import flatten
+
+    name = "llama3-1b"
+    t_phase = time.perf_counter()
+    t_quiet = float("inf")
+    router, router_url, bodies = await _stub_router()
+    argv = ["--model", name, "--random", "--seed", "0", "--continuous",
+            "--warmup", "--prefill-chunk-tokens", str(CHUNK),
+            "--max-batch", "4", "--fleet-router", router_url,
+            "--model-version", "v1"]
+    app_p, runner_p, base_p = await _serve_app(argv + ["--pool", "prefill"])
+    app_d, runner_d, base_d = await _serve_app(
+        argv + ["--pool", "decode", "--kv-spill-bytes", str(1 << 30)])
+    p, d = app_p[server.BATCHERS_KEY][name], app_d[server.BATCHERS_KEY][name]
+    engine = app_d[server.ENGINES_KEY][name]
+    L = engine.cfg.num_layers
+    captures = (p.cengine.graphs.captures, d.cengine.graphs.captures)
+    log(f"  replicas P and D up in {time.perf_counter() - t_phase:.1f} s")
+    gen = torch.Generator().manual_seed(14)
+    prompts = [torch.randint(0, engine.cfg.vocab_size, (n,),
+                             generator=gen).tolist()
+               for n in MIGRATE_LENS + FLEET_LENS]
+    if len({q[0] for q in prompts}) != len(prompts):
+        fail("phase 11's prompts share a first token: reseed them")
+    hand, fresh = prompts[:len(MIGRATE_LENS)], prompts[len(MIGRATE_LENS):]
+    gen_p = f"{base_p}/v1/models/{name}:generate"
+    gen_d = f"{base_d}/v1/models/{name}:generate"
+    counts_all: dict = {}
+
+    def wave_start():
+        reset_launch_counts()
+        return {k: (b.calls, b.slices) for k, b in (("P", p), ("D", d))}
+
+    def launches(label, start, want_slices=None):
+        calls = sum(b.calls - start[k][0] for k, b in (("P", p), ("D", d)))
+        slices = sum(b.slices - start[k][1] for k, b in (("P", p), ("D", d)))
+        counts = launch_counts()
+        want = {"paged_decode_attention": L * calls,
+                "paged_prefill_append": L * slices}
+        log(f"  {label}: {calls} decode steps, {slices} slices; launches "
+            f"{counts}")
+        if any(counts[k] != n for k, n in want.items()) or (
+                want_slices is not None and slices != want_slices):
+            fail(f"phase 11 {label}: launches {counts}, the design implies "
+                 f"{want}; {slices} slices, want {want_slices}")
+        for k in want:
+            counts_all[k] = counts_all.get(k, 0) + counts[k]
+
+    def pool(batcher, tokens):
+        nodes, _, _ = batcher._radix.match(tokens)
+        ids = [nd.block for nd in nodes]
+        st = batcher.cengine.slots()
+        return len(ids), st.k[:, ids], st.v[:, ids]
+
+    async def generate(sess, url, prompt, headers=None):
+        t0 = time.perf_counter()
+        body, _ = await _post_json(sess, url, {
+            "tokens": [prompt], "max_new": TENANT_MAX_NEW, "logprobs": True},
+            headers)
+        return body["tokens"][0], body["logprobs"][0], \
+            time.perf_counter() - t0
+
+    try:
+        async with aiohttp.ClientSession() as sess:
+            # 11a: P prefills each prompt and hands its full blocks to D
+            start = wave_start()
+            prefill0 = p.profiler.totals()["prefill_chunk"]
+            handed, handoff_s, nbytes = [], 0.0, 0
+            for q in hand:
+                body, _ = await _post_json(
+                    sess, f"{base_p}/v1/models/{name}:prefill",
+                    {"tokens": [q], "peer": base_d})
+                n = len(q) // BS
+                if body["blocks"] != n or body["handoff"] != (n > 0) \
+                        or not body["prefilled"]:
+                    fail(f"phase 11a: the {len(q)}-token handoff answered "
+                         f"{body}, want {n} blocks")
+                handed.append(n)
+                handoff_s += body["handoff_s"] if n else 0.0
+                nbytes += body["bytes"]
+            launches("11a P's prefills", start,
+                     sum(-(-len(q) // CHUNK) for q in hand))
+            if p.calls != start["P"][0]:
+                fail("phase 11a: P ran a decode step for a max_new-1 prompt")
+            prefill_s = p.profiler.totals()["prefill_chunk"] - prefill0
+            log(f"  11a: handed off {sum(handed)} blocks {handed} "
+                f"({nbytes / 2**20:.1f} MiB on the wire) in "
+                f"{handoff_s * 1e3:.1f} ms = "
+                f"{handoff_s * 1e3 / sum(handed):.3f} ms a block (admission "
+                f"and P's prefill slices included: {prefill_s * 1e3:.1f} ms "
+                f"of host time in prefill_chunk over all five prompts)")
+            for q, n in zip(hand, handed):
+                if not n:
+                    continue
+                got = pool(d, q)
+                want = pool(p, q)
+                if got[0] != n or want[0] < n or not (
+                        torch.equal(got[1], want[1][:, :n])
+                        and torch.equal(got[2], want[2][:, :n])):
+                    fail(f"phase 11a: D's imported blocks of the {len(q)}-"
+                         f"token prompt differ from P's")
+            start = wave_start()
+            reused0 = d.tokens_reused
+            outs_d = [await generate(sess, gen_d, q) for q in hand]
+            reused = d.tokens_reused - reused0
+            want_reused = sum(min(n * BS, len(q) - 1)
+                              for q, n in zip(hand, handed))
+            launches("11a D's generations", start,
+                     sum(-(-(len(q) - min(n * BS, len(q) - 1)) // CHUNK)
+                         for q, n in zip(hand, handed)))
+            log(f"  11a: D reused {reused} cells (want {want_reused})")
+            if reused != want_reused:
+                fail("phase 11a: D's prefills missed the handed-off blocks")
+            start = wave_start()
+            outs_p = [await generate(sess, gen_p, q) for q in hand]
+            launches("11a P's own generations", start)
+            for q, (a, _, _), (b, _, _) in zip(hand, outs_p, outs_d):
+                _tie_rule(torch, engine, f"11a {len(q)}-token prompt, D "
+                          f"against P", q, a, b)
+            _teacher_check(torch, engine, hand, [o[0] for o in outs_d],
+                           [o[1] for o in outs_d], "11a D (llama3-1b)")
+
+            # 11b: D pulls a prompt P serves, misses one P never saw, and
+            # fails on a dead peer; each answers the plain path's tokens
+            start = wave_start()
+            served_p = await generate(sess, gen_p, fresh[0])
+            metrics0 = await _scrape(sess, base_d)
+            dead = f"http://127.0.0.1:{_free_port()}"
+            hinted = [await generate(sess, gen_d, q, {"X-KV-Peer": peer})
+                      for q, peer in zip(fresh[:3], (base_p, base_p, dead))]
+            metrics1 = await _scrape(sess, base_d)
+            plain = [served_p] + [await generate(sess, gen_p, q)
+                                  for q in fresh[1:3]]
+            launches("11b", start)
+            model = (("model", name),)
+            fetched = {o: metrics1[("fleet_peer_fetch_total",
+                                    model + (("outcome", o),))]
+                       - metrics0[("fleet_peer_fetch_total",
+                                   model + (("outcome", o),))]
+                       for o in ("ok", "miss", "failed")}
+            key = ("serving_prefill_tokens_sum",
+                   model + (("source", "peer_fetched"),))
+            cells = metrics1[key] - metrics0[key]
+            log(f"  11b: fetch outcomes {fetched}, {cells:.0f} cells "
+                f"fetched")
+            if fetched != {"ok": 1, "miss": 1, "failed": 1} \
+                    or cells != BS * (len(fresh[0]) // BS):
+                fail("phase 11b: the peer fetch outcomes are wrong")
+            for q, (a, _, _), (b, _, _) in zip(fresh, plain, hinted):
+                _tie_rule(torch, engine, f"11b {len(q)}-token prompt, "
+                          f"hinted D against P", q, a, b)
+            _teacher_check(torch, engine, fresh[:3], [o[0] for o in hinted],
+                           [o[1] for o in hinted], "11b D (llama3-1b)")
+            # the fetch alone, timed: a fourth prompt P serves
+            await generate(sess, gen_p, fresh[3])
+            n = len(fresh[3]) // BS
+            t0 = time.perf_counter()
+            await server._peer_fetch_blocks(app_d, name, d, fresh[3], base_p)
+            fetch_s = time.perf_counter() - t0
+            log(f"  11b: a {n}-block fetch took {fetch_s * 1e3:.1f} ms = "
+                f"{fetch_s * 1e3 / n:.3f} ms a block (export on P, HTTP, "
+                f"import on D: the wait a hinted request adds to its TTFT)")
+
+            # 11c: D's weights replaced live under its graphs
+            ptrs = {k: t.data_ptr()
+                    for k, t in flatten(engine.params).items()}
+            graphs = d.cengine.graphs
+            runners = dict(graphs._runners)
+            body, _ = await _post_json(sess, f"{base_d}/v1/reload", {
+                "version": "v2", "source": {"seed": RELOAD_SEED}})
+            regs = [b for path, _, b in bodies
+                    if path == "/fleet/register" and b["pool"] == "decode"]
+            log(f"  11c: reload to seed {RELOAD_SEED} in {body['reload_s']} s")
+            if {k: t.data_ptr() for k, t in
+                    flatten(engine.params).items()} != ptrs \
+                    or graphs._runners != runners \
+                    or graphs.captures != captures[1]:
+                fail("phase 11c: the reload moved a parameter or a graph")
+            if d._radix.cached_blocks or d._spill_tier.spilled_blocks \
+                    or d._prefix_states or d.kv_blocks_in_use():
+                fail("phase 11c: a cache of the old weights survived")
+            if not regs or regs[-1]["version"] != "v2":
+                fail("phase 11c: no registration with version v2 before "
+                     "the reload answered")
+            start = wave_start()
+            after = [await generate(sess, gen_d, q) for q in hand[1:3]]
+            launches("11c D after the reload", start)
+            new = InferenceEngine(
+                llama.init(engine.cfg, RELOAD_SEED, engine.device),
+                engine.cfg, LLAMA_FAMILY,
+                EngineConfig(max_len=engine.ec.max_len),
+                device=engine.device)
+            _teacher_check(torch, new, hand[1:3], [o[0] for o in after],
+                           [o[1] for o in after], "11c D at seed 7")
+            if any(a[0] == b[0] for a, b in zip(after, outs_d[1:3])):
+                fail("phase 11c: the reloaded replica gave seed 0's tokens")
+            async with sess.post(f"{base_d}/v1/reload", json={
+                    "version": "v3", "source": {}}) as r:
+                refused = r.status
+            again = await generate(sess, gen_d, hand[1])
+            if refused != 400 or app_d[server.DRAIN_KEY]["draining"] \
+                    or app_d[server.MODEL_VERSION_KEY] != "v2":
+                fail(f"phase 11c: an empty source answered {refused} and "
+                     "left the replica changed")
+            _tie_rule(torch, new, "11c after the refused reload", hand[1],
+                      after[0][0], again[0])
+            del new
+
+            async def ttft():
+                t0 = time.perf_counter()
+                await _post_json(sess, gen_d, {"tokens": [hand[0]],
+                                               "max_new": 1})
+                return time.perf_counter() - t0
+
+            await _post_json(sess, f"{base_d}/v1/reload", {
+                "version": "v3", "source": {"seed": RELOAD_SEED},
+                "defect": {"ttft_delay_s": DEFECT_S}})
+            slow = await ttft()
+            await _post_json(sess, f"{base_d}/v1/reload", {
+                "version": "v4", "source": {"seed": RELOAD_SEED}})
+            healed = await ttft()
+            log(f"  11c: defect ttft_delay_s {DEFECT_S} planted: TTFT "
+                f"{slow:.3f} s; healed by the next reload: {healed:.3f} s")
+            if slow <= DEFECT_S or healed >= DEFECT_S \
+                    or slow - healed < 0.9 * DEFECT_S:
+                fail("phase 11c: the defect was not planted or not healed")
+
+            # 11d: a quiet window: each replica must beat within it
+            t_quiet = time.perf_counter()
+            await asyncio.sleep(HEARTBEAT_WITHIN_S)
+        for label, batcher, cap in (("P", p, captures[0]),
+                                    ("D", d, captures[1])):
+            if batcher.cengine.graphs.captures != cap:
+                fail(f"phase 11: traffic captured CUDA graphs on {label}")
+            if not batcher.cache_anatomy()["ledger"]["conserved"]:
+                fail(f"phase 11: {label}'s block ledger is not conserved")
+    finally:
+        totals = {k: {ph: round(s, 3) for ph, s in b.profiler.totals().items()
+                      if s} for k, b in (("P", p), ("D", d))}
+        await runner_p.cleanup()
+        await runner_d.cleanup()
+        await router.cleanup()
+    # 11d: the heartbeats the stub router recorded
+    log(f"  11d: phase totals (host seconds) {totals}")
+    by_pool: dict = {}
+    for path, t, body in bodies:
+        by_pool.setdefault(body.get("pool") or body["id"], []).append(
+            (path, t, body))
+    for pool_name in ("prefill", "decode"):
+        seen = by_pool.get(pool_name, [])
+        beats = [(t, b) for path, t, b in seen if path == "/fleet/heartbeat"]
+        quiet = [b for t, b in beats
+                 if t_quiet <= t <= t_quiet + HEARTBEAT_WITHIN_S]
+        if not quiet or any(set(b) != HEARTBEAT_KEYS for _, b in beats) \
+                or any(b["pool"] != pool_name for _, b in beats):
+            fail(f"phase 11d: the {pool_name} replica's heartbeats are "
+                 f"missing from a {HEARTBEAT_WITHIN_S} s window or "
+                 f"malformed")
+        last = beats[-1][1]
+        log(f"  11d: {pool_name}: {len(beats)} heartbeats, {len(quiet)} in "
+            f"the quiet {HEARTBEAT_WITHIN_S} s; last phase_seconds "
+            f"{last['phase_seconds']}, version {last['version']}, "
+            f"{len(last['cache_digest'])} digest entries")
+        ids = {b["id"] for _, _, b in seen}
+        if not any(path == "/fleet/deregister" and b["id"] in ids
+                   for path, _, b in bodies):
+            fail(f"phase 11d: the {pool_name} replica did not deregister")
+    last_p = [b for path, _, b in by_pool["prefill"]
+              if path == "/fleet/heartbeat"][-1]
+    last_d = [b for path, _, b in by_pool["decode"]
+              if path == "/fleet/heartbeat"][-1]
+    if not (last_p["phase_seconds"]["prefill"] > 0
+            and last_d["phase_seconds"]["decode"] > 0
+            and last_p["cache_digest"]):
+        fail("phase 11d: the heartbeats carry no phase seconds or digest")
+    log(f"  phase 11 wall {time.perf_counter() - t_phase:.1f} s ({_card()})")
+    return counts_all
+
+
+async def _scrape(sess, base):
+    async with sess.get(f"{base}/metrics") as r:
+        return _parse_metrics(await r.text())
+
+
 
 def _nodes(radix):
     """Every node of a radix tree, all namespaces."""
@@ -3980,6 +4350,12 @@ def main() -> None:
         log("phase 10b: instant drain, live KV-block migration from replica "
             "A to replica B")
         add(asyncio.run(migration_and_check(torch)))
+        tidy()
+
+    if run("11"):
+        log("phase 11: the fleet plane (prefill handoff, peer block fetch, "
+            "live reload under CUDA graphs, heartbeats)")
+        add(asyncio.run(fleet_and_check(torch)))
         tidy()
 
     log(f"total {time.perf_counter() - t_all:.1f} s")

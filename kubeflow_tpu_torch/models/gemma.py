@@ -101,17 +101,19 @@ def param_shapes(cfg: GemmaConfig) -> Params:
 
 
 def init(cfg: GemmaConfig, seed: int, device: torch.device | str, *,
-         train: bool = False) -> Params:
+         train: bool = False,
+         store: torch.device | str | None = None) -> Params:
     """Random params from `seed` (llama's `random_params`: the
     reference's recipe, not its values; parity tests convert the
     reference's params with `bridge.from_jax` instead). `train=True`
     keeps every leaf in `cfg.param_dtype` (the trainer's masters);
-    otherwise leaves take their serving dtype (`leaf_dtype`)."""
+    otherwise leaves take their serving dtype (`leaf_dtype`). `store`:
+    where the leaves drawn on `device` live."""
 
     def dtype_of(name):
         return cfg.param_dtype if train else leaf_dtype(cfg, name)
 
-    return random_params(param_shapes(cfg), dtype_of, seed, device)
+    return random_params(param_shapes(cfg), dtype_of, seed, device, store)
 
 
 def embed_scale(cfg: GemmaConfig) -> torch.Tensor:

@@ -123,40 +123,48 @@ def num_params(cfg: LlamaConfig) -> int:
 
 
 def random_params(shapes: Params, dtype_of, seed: int,
-                  device: torch.device | str) -> Params:
+                  device: torch.device | str,
+                  store: torch.device | str | None = None) -> Params:
     """Random params over a tree of leaf shapes (a model's
     `param_shapes`), drawn in the tree's order from a torch.Generator on
     `device` seeded with `seed`: truncated normal on [-2, 2] times
     fan_in**-0.5, norms zero (identity under the (1 + w) scale) — the
     reference's recipe, though not its values. `dtype_of(name)` is each
-    leaf's dtype."""
+    leaf's dtype. `store` (default `device`) is where the leaves live:
+    each is moved there once drawn, so host-stored params hold the
+    card's draws while the card holds one leaf's draw at a time."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def leaf(name, shape):
         if name.endswith("norm"):
-            return torch.zeros(shape, dtype=dtype_of(name), device=device)
+            w = torch.zeros(shape, dtype=dtype_of(name), device=device)
+            return w if store is None else w.to(store)
         # fan-in is the contraction axis: second-to-last for matrices,
         # the width for the embedding table
         fan_in = shape[-1] if name == "embed" else shape[-2]
         w = torch.empty(shape, dtype=torch.float32, device=device)
         torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-        return (w * fan_in**-0.5).to(dtype_of(name))
+        w = (w * fan_in**-0.5).to(dtype_of(name))
+        return w if store is None else w.to(store)
 
     return {k: {n: leaf(n, s) for n, s in v.items()} if k == "blocks"
             else leaf(k, v) for k, v in shapes.items()}
 
 
 def init(cfg: LlamaConfig, seed: int, device: torch.device | str, *,
-         train: bool = False) -> Params:
+         train: bool = False,
+         store: torch.device | str | None = None) -> Params:
     """Random params from `seed` (`random_params`; parity tests convert
     the reference's params with `bridge.from_jax` instead). `train=True`
     keeps every leaf in `cfg.param_dtype` (the trainer's masters);
-    otherwise leaves take their serving dtype (`leaf_dtype`)."""
+    otherwise leaves take their serving dtype (`leaf_dtype`). `store`:
+    where the leaves drawn on `device` live (a live reload stages them
+    on the host)."""
 
     def dtype_of(name):
         return cfg.param_dtype if train else leaf_dtype(cfg, name)
 
-    return random_params(param_shapes(cfg), dtype_of, seed, device)
+    return random_params(param_shapes(cfg), dtype_of, seed, device, store)
 
 
 def layer_params(params: Params, li: int) -> Params:

@@ -4,5 +4,6 @@ continuous batcher's radix prefix cache reports through
 (`cachestats`), per-request token timelines (`timeline`), and the
 metric registry, counters, gauges and histograms behind the serving
 app's `/metrics` (`metrics`), the SLO burn-rate engine whose gauges it
-renders (`slo`), and the label guard that caps the values a client's
-`X-Tenant` header can put into a label (`cardinality`)."""
+renders (`slo`), the label guard that caps the values a client's
+`X-Tenant` header can put into a label (`cardinality`), and the step
+anatomy of the batcher's worker loop (`profiling`)."""

@@ -22,6 +22,8 @@ import hashlib
 from collections import deque
 from typing import Iterable
 
+from kubeflow_tpu_torch.obs.metrics import sample_quantile
+
 # Closed set of reasons a KV block dies:
 #   lru        — radix prefix-cache LRU eviction (cold prefix displaced)
 #   pressure   — slot preemption under pool pressure
@@ -42,23 +44,6 @@ UNATTRIBUTED = "unattributed"
 DEFER_CAUSES = ("kv_quota", "pool_exhausted")
 
 _WINDOW = 512   # raw samples kept for the reuse / age quantiles
-
-
-def sample_quantile(xs, q: float) -> float | None:
-    """Linear-interpolated quantile over raw samples (the `q * (n - 1)`
-    order statistic; counterpart: kubeflow_tpu/obs/metrics.py)."""
-    if not xs:
-        return None
-    xs = sorted(xs)
-    if len(xs) == 1:
-        return float(xs[0])
-    q = min(max(float(q), 0.0), 1.0)
-    pos = q * (len(xs) - 1)
-    lo = int(pos)
-    frac = pos - lo
-    if frac == 0.0 or lo + 1 >= len(xs):
-        return float(xs[lo])
-    return float(xs[lo] + (xs[lo + 1] - xs[lo]) * frac)
 
 
 def canonical_prefix(tokens: Iterable[int], ns: str = "") -> str:

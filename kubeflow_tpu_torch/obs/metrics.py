@@ -1,8 +1,9 @@
 """Prometheus-style metrics: counters, gauges, histograms and the
 registry that renders them (copies of kubeflow_tpu/controlplane/
 metrics.py's `Counter`, `Gauge` and `Registry`, and of
-kubeflow_tpu/obs/metrics.py's `Histogram`, its buckets and
-`get_or_create_histogram`; the port imports nothing of the JAX package).
+kubeflow_tpu/obs/metrics.py's `Histogram`, its buckets,
+`get_or_create_histogram` and `sample_quantile`; the port imports
+nothing of the JAX package).
 
 No prometheus_client dependency: exposition is the stable text format,
 rendered directly. Collectors are callables run at scrape time, so a
@@ -51,6 +52,25 @@ def _fmt_labels(labels: dict[str, str]) -> str:
         for k, v in sorted(labels.items())
     )
     return "{" + inner + "}"
+
+
+def sample_quantile(xs, q: float) -> float | None:
+    """Linear-interpolated quantile over raw samples (the `q * (n - 1)`
+    order statistic; counterpart: kubeflow_tpu/obs/metrics.py): the one
+    quantile definition of the process-local summaries (the block
+    ledger's reuse and age windows, the phase profiler's snapshot)."""
+    if not xs:
+        return None
+    xs = sorted(xs)
+    if len(xs) == 1:
+        return float(xs[0])
+    q = min(max(float(q), 0.0), 1.0)
+    pos = q * (len(xs) - 1)
+    lo = int(pos)
+    frac = pos - lo
+    if frac == 0.0 or lo + 1 >= len(xs):
+        return float(xs[lo])
+    return float(xs[lo] + (xs[lo + 1] - xs[lo]) * frac)
 
 
 class Counter:

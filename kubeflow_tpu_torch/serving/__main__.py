@@ -15,6 +15,9 @@ kubeflow_tpu/serving/__main__.py).
     python -m kubeflow_tpu_torch.serving --model llama3-1b --random \\
         --continuous --warmup --prefill-chunk-tokens 64 \\
         --tenants tenants.json
+    python -m kubeflow_tpu_torch.serving --model llama3-1b --random \\
+        --continuous --warmup --prefill-chunk-tokens 64 --pool prefill \\
+        --fleet-router http://router:8080 --model-version v1 --port 8001
 
 Serves one model on the CUDA card (`--cpu` runs the plain PyTorch path
 on the CPU instead; `gemma-tiny`'s head dim 32 has no kernel, so it is
@@ -36,7 +39,13 @@ every request speculatively, `--spec-gamma` tokens of `--draft-model`
 "kv_block_share", "prefix_isolation"}}}`) makes the replica
 multi-tenant, each request's tenant named by its `X-Tenant` header.
 Shutdown, and `POST /drain`, wait up to `--drain-grace-s` for the
-generations in flight.
+generations in flight. The fleet plane: `--pool prefill|decode` (with
+`--continuous`) is the replica's disaggregation role (`mixed`, both
+phases, by default); `--fleet-router URL` registers the replica with a
+fleet router and heartbeats its stats there, `--advertise URL` (default
+`http://HOST:PORT`) is where the router reaches it; `--model-version`
+labels the boot weights, which `POST /v1/reload` replaces live from
+`{"checkpoint": dir, "step": n}` or `{"seed": n}`.
 
 Weights: `--checkpoint DIR` (a train/checkpoint.py `Checkpointer`
 directory: the newest committed step's params, the optimizer's moments
@@ -143,6 +152,22 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "KV shares, prefix isolation. Requests select a "
                         "tenant with the X-Tenant header; absent/unknown "
                         "maps to 'default'")
+    p.add_argument("--pool", default="mixed",
+                   choices=("mixed", "prefill", "decode"),
+                   help="disaggregation role (continuous only for "
+                        "prefill/decode): 'prefill' replicas serve "
+                        ":prefill handoffs and ship KV blocks to the "
+                        "decode pool; 'decode' replicas receive them; "
+                        "'mixed' serves both phases (default)")
+    p.add_argument("--fleet-router", default="",
+                   help="fleet router base URL; the replica registers "
+                        "and heartbeats there")
+    p.add_argument("--advertise", default="",
+                   help="URL the fleet router should reach this replica "
+                        "at (default http://HOST:PORT)")
+    p.add_argument("--model-version", default="",
+                   help="version label of the boot weights (rides in "
+                        "fleet heartbeats; POST /v1/reload replaces it)")
     args = p.parse_args(argv)
     if not args.checkpoint and not args.random:
         p.error("pass --checkpoint DIR or --random")
@@ -165,6 +190,11 @@ def parse_args(argv=None) -> argparse.Namespace:
         # the QoS scheduler replaces the continuous batcher's queue;
         # ignoring the file would serve without the configured quotas
         p.error("--tenants requires --continuous")
+    if args.advertise and not args.fleet_router:
+        p.error("--advertise requires --fleet-router")
+    if args.pool != "mixed" and not args.continuous:
+        # the handoff ships paged KV blocks: the continuous engine's
+        p.error("--pool prefill/decode requires --continuous")
     return args
 
 
@@ -179,6 +209,34 @@ def _load_params(checkpoint: str, seed: int, cfg, init, device):
         return load_serving_params(checkpoint, cfg, device)
     except FileNotFoundError as e:
         raise SystemExit(str(e)) from None
+
+
+def _make_reloader(init, cfg, device):
+    """`/v1/reload`'s weight materializer for this process: `{"seed":
+    n}` draws the model's random params on `device` from torch's
+    generator (seed n gives other values than the reference's JAX draw:
+    the same law), `{"checkpoint": dir, "step": n}` loads through the
+    boot loader. Either way the params are staged on the host, leaf by
+    leaf, and the server copies them into the live tensors: the card
+    never holds a second copy of the weights."""
+
+    def reload(name, engine, source):
+        if "seed" in source:
+            return init(cfg, int(source["seed"]), device, store="cpu")
+        checkpoint = source.get("checkpoint", "")
+        if not checkpoint:
+            raise ValueError("reload source needs 'checkpoint' or 'seed'")
+        from kubeflow_tpu_torch.train.checkpoint import load_serving_params
+
+        step = source.get("step")
+        try:
+            return load_serving_params(
+                checkpoint, cfg, "cpu",
+                step=step if isinstance(step, int) else None)
+        except FileNotFoundError as e:
+            raise ValueError(str(e)) from None
+
+    return reload
 
 
 def load_tokenizer(args: argparse.Namespace):
@@ -203,13 +261,17 @@ def load_tokenizer(args: argparse.Namespace):
 
 def build_app(args: argparse.Namespace):
     """The serving app for parsed CLI args: the checkpoint's or random
-    weights on the chosen device, in the mode the args choose."""
+    weights on the chosen device, in the mode the args choose,
+    registered with `--fleet-router` when one is named."""
     from kubeflow_tpu_torch.device import resolve_device
     from kubeflow_tpu_torch.serving.engine import (
         EngineConfig,
         InferenceEngine,
     )
-    from kubeflow_tpu_torch.serving.server import create_serving_app
+    from kubeflow_tpu_torch.serving.server import (
+        create_serving_app,
+        enable_fleet_registration,
+    )
 
     device = resolve_device("cpu" if args.cpu else None)
     cfg, init, family = model_registry()[args.model]
@@ -231,7 +293,7 @@ def build_app(args: argparse.Namespace):
         from kubeflow_tpu_torch.tenancy import load_config
 
         tenancy = load_config(args.tenants)
-    return create_serving_app(
+    app = create_serving_app(
         {args.model: engine}, tokenizer=load_tokenizer(args),
         max_batch=args.max_batch,
         continuous=args.continuous, batch_window_ms=args.batch_window_ms,
@@ -240,7 +302,14 @@ def build_app(args: argparse.Namespace):
         pipeline_depth=args.pipeline_depth or None,
         kv_spill_bytes=args.kv_spill_bytes or None, drafts=drafts,
         spec_decode=args.spec_decode, spec_gamma=args.spec_gamma,
-        seed=args.seed, tenancy=tenancy, drain_grace_s=args.drain_grace_s)
+        seed=args.seed, tenancy=tenancy, drain_grace_s=args.drain_grace_s,
+        pool=args.pool, model_version=args.model_version,
+        reloader=_make_reloader(init, cfg, device))
+    if args.fleet_router:
+        enable_fleet_registration(
+            app, args.fleet_router,
+            args.advertise or f"http://{args.host}:{args.port}")
+    return app
 
 
 def main(argv=None) -> int:

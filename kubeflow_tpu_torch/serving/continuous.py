@@ -89,6 +89,7 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch.obs.cachestats import CacheLedger
+from kubeflow_tpu_torch.obs.profiling import PhaseProfiler
 from kubeflow_tpu_torch.obs.timeline import RequestTimeline, TimelineStore
 from kubeflow_tpu_torch.ops.attention import (
     paged_attention,
@@ -1135,6 +1136,13 @@ class ContinuousBatcher:
     packs a cached prefix. `drain(timeout)` waits out admitted work
     (`in_flight()`), `begin_drain` / `end_drain` close and open the door.
 
+    `profiler` (obs/profiling.py) splits every worker iteration into
+    exclusive host-time phases (admit, prefill, prefill_chunk, decode,
+    draft, verify, sample, detokenize, preempt, resume, idle, and the
+    host_gap residual); `flush_cache()` forgets every cached KV (the
+    tree, the spill tier, the registered prefixes' states) after a
+    weight swap.
+
     `.calls` counts dispatched decode steps (over-decoded ones included;
     a spec round counts one);
     `occupancy()` is tokens emitted per decode step; `.tokens_dropped`
@@ -1242,6 +1250,10 @@ class ContinuousBatcher:
         # the server's histograms and must never kill the worker
         self._clock = time.monotonic
         self.timelines = TimelineStore()
+        # the step anatomy (obs/profiling.py): every worker iteration's
+        # wall split into exclusive host-time phases, on the timelines'
+        # clock; the server binds its families through `on_phase`
+        self.profiler = PhaseProfiler(clock=self._clock)
         self.on_itl = None
         self.on_queue_wait = None
         # EWMA of enqueue -> finish service time, feeding the server's
@@ -1276,6 +1288,8 @@ class ContinuousBatcher:
         # admitted-but-unfinished requests: up at enqueue, down when the
         # future resolves, whichever way (a done callback)
         self._unfinished = 0
+        # the worker's decode chunks in flight
+        self._inflight: collections.deque = collections.deque()
 
     def occupancy(self) -> float:
         return self.tokens_emitted / self.calls if self.calls else 0.0
@@ -1307,10 +1321,17 @@ class ContinuousBatcher:
                 "heat": self._radix.heat_digest(16)}
 
     def flush_cache(self) -> None:
-        """Drop the radix prefix cache (after a weight swap every cached
-        block describes another model). Only safe with no request
-        admitted: active requests hold refs the clear would strand."""
+        """Forget every cached KV of the current weights (after a weight
+        swap they describe a model that no longer exists): the radix
+        tree (blocks freed as `refdrop`), every host spill tier entry
+        (booked as content deaths, so the ledger stays conserved) and
+        the registered prefixes' memoized states. The reference clears
+        the tree only. Only safe with no request admitted: active
+        requests hold refs the clear would strand."""
         self._radix.clear(cause="refdrop")
+        if self._spill_tier is not None:
+            self.cache_ledger.note_spill_drop(self._spill_tier.clear())
+        self._prefix_states.clear()
 
     def warmup(self, buckets=None) -> int:
         """Blocking ahead-of-traffic run of the whole serving shape set
@@ -1627,24 +1648,25 @@ class ContinuousBatcher:
         donated cells, and its tokens are dropped). The replay prompt is
         the prompt and every token emitted, its budget the remainder;
         the stream and the timeline carry on across the hole."""
-        req = self._active[slot]
-        meta = req.meta
-        self._cache_blocks(req)
-        self._release(slot, cause="pressure")
-        self.preemptions += 1
-        self._ledger.note_preempted(meta.tenant)
-        meta.timeline.event("preempt", slot=slot, emitted=len(req.out))
-        meta.resume = {"out": list(req.out), "lps": list(req.lps),
-                       "max_new": req.max_new}
-        remaining = max(1, req.max_new - len(req.out))
-        # the fair-share charge drops to the remainder: no double billing
-        meta.cost = float(remaining)
-        # the replay tokens already hold a registered prefix's tokens
-        sampling = {k: v for k, v in req.sampling.items() if k != "prefix"}
-        self._pending.appendleft(_Request(
-            req.kv_toks, remaining, sampling, req.fut, meta,
-            queue=req.queue))
-        self._wake.set()
+        with self.profiler.phase("preempt"):
+            req = self._active[slot]
+            meta = req.meta
+            self._cache_blocks(req)
+            self._release(slot, cause="pressure")
+            self.preemptions += 1
+            self._ledger.note_preempted(meta.tenant)
+            meta.timeline.event("preempt", slot=slot, emitted=len(req.out))
+            meta.resume = {"out": list(req.out), "lps": list(req.lps),
+                           "max_new": req.max_new}
+            remaining = max(1, req.max_new - len(req.out))
+            # the fair-share charge drops to the remainder: no double billing
+            meta.cost = float(remaining)
+            # the replay tokens already hold a registered prefix's tokens
+            sampling = {k: v for k, v in req.sampling.items() if k != "prefix"}
+            self._pending.appendleft(_Request(
+                req.kv_toks, remaining, sampling, req.fut, meta,
+                queue=req.queue))
+            self._wake.set()
 
     def tenant_stats(self) -> dict:
         """Per-tenant usage and queue depth ({} when tenant-blind): the
@@ -1680,6 +1702,8 @@ class ContinuousBatcher:
         req.meta.timeline.event("resume" if req.resumed else "admit",
                                 slot=slot, prefill_computed=computed,
                                 prefill_reused=reused)
+        if req.resumed:
+            self.profiler.record("resume", 0.0)
         if not req.resumed and self.on_queue_wait is not None:
             try:
                 self.on_queue_wait(self._clock() - req.meta.t_enqueue)
@@ -2081,7 +2105,10 @@ class ContinuousBatcher:
             return HostCopy(first[:n], lps[:n])
 
         t0 = time.perf_counter()
-        firsts, flps = await self._fetch(await self._device(run))
+        with self.profiler.phase(
+                "prefill", tokens=sum(len(plan["suffix"])
+                                      for _, _, plan in group)):
+            firsts, flps = await self._fetch(await self._device(run))
         self.prefill_s += time.perf_counter() - t0
         self.prefills += 1
         for i, (slot, req, plan) in enumerate(group):
@@ -2136,9 +2163,10 @@ class ContinuousBatcher:
             return HostCopy(nxt, lp) if finish else None
 
         t0 = time.perf_counter()
-        out = await self._device(run)
-        if out is not None:
-            first, flp = await self._fetch(out)
+        with self.profiler.phase("prefill_chunk", tokens=n):
+            out = await self._device(run)
+            if out is not None:
+                first, flp = await self._fetch(out)
         self.prefill_s += time.perf_counter() - t0
         self.slices += 1
         self.tokens_prefilled += n
@@ -2173,30 +2201,40 @@ class ContinuousBatcher:
             return HostCopy(*self.cengine.spec_verify(sp, gamma))
 
         t0 = time.perf_counter()
-        emit, lps, k = await self._fetch(await self._device(run))
+        # one device call queues both legs: `draft` is its dispatch,
+        # `verify` the wait for the round's results
+        with self.profiler.phase("draft", tokens=gamma * len(snap)):
+            out = await self._device(run)
+        with self.profiler.phase("verify"):
+            emit, lps, k = await self._fetch(out)
         self.decode_s += time.perf_counter() - t0
         self.calls += 1
         self.spec_rounds += 1
-        proposed, accepted = gamma * len(snap), 0
+        proposed = gamma * len(snap)
         self.spec_proposed += proposed
-        for slot, req in snap.items():
-            n = int(k[slot]) + 1
-            if self._active.get(slot) is not req:
-                self.tokens_dropped += n
-                continue
-            if req.fut.done():   # caller cancelled mid-round
-                self.tokens_dropped += n
-                self._finish(slot, req)
-                continue
-            accepted += n - 1
-            for j in range(n):
-                self._emit(slot, req, int(emit[slot, j]),
-                           float(lps[slot, j]))
-                if slot not in self._active:
-                    # retired mid-window: the tail is dropped, and never
-                    # enters kv_toks (its KV lies past the cache line)
-                    self.tokens_dropped += n - j - 1
-                    break
+        emitted0 = self.tokens_emitted
+        with self.profiler.phase("detokenize"):
+            accepted = 0
+            for slot, req in snap.items():
+                n = int(k[slot]) + 1
+                if self._active.get(slot) is not req:
+                    self.tokens_dropped += n
+                    continue
+                if req.fut.done():   # caller cancelled mid-round
+                    self.tokens_dropped += n
+                    self._finish(slot, req)
+                    continue
+                accepted += n - 1
+                for j in range(n):
+                    self._emit(slot, req, int(emit[slot, j]),
+                               float(lps[slot, j]))
+                    if slot not in self._active:
+                        # retired mid-window: the tail is dropped, and
+                        # never enters kv_toks (its KV lies past the
+                        # cache line)
+                        self.tokens_dropped += n - j - 1
+                        break
+        self.profiler.add_tokens("verify", self.tokens_emitted - emitted0)
         self.spec_accepted += accepted
         if self.on_spec_round is not None:
             try:
@@ -2230,44 +2268,59 @@ class ContinuousBatcher:
             return HostCopy(*self.cengine.decode(self._sp(), steps))
 
         t0 = time.perf_counter()
-        out = await self._device(run)
+        # tokens are booked where the host reads them (_process_chunk),
+        # so over-decoded rows never count
+        with self.profiler.phase("decode"):
+            out = await self._device(run)
         self.decode_s += time.perf_counter() - t0
         self.calls += steps
         return {"out": out, "steps": steps, "snap": snap}
 
     async def _sync_chunk(self, rec: dict) -> None:
+        """Wait for the oldest chunk's host copy: the wait is decode
+        time."""
         t0 = time.perf_counter()
-        await self._fetch(rec["out"])
+        with self.profiler.phase("decode"):
+            await self._fetch(rec["out"])
         self.decode_s += time.perf_counter() - t0
 
     def _process_chunk(self, rec: dict) -> None:
-        toks, lps = rec["out"].wait()
+        with self.profiler.phase("sample"):
+            toks, lps = rec["out"].wait()
         steps = rec["steps"]
-        for slot, req in rec["snap"].items():
-            if self._active.get(slot) is not req:
-                # retired (and maybe re-admitted) meanwhile
-                self.tokens_dropped += steps
-                continue
-            if req.fut.done():   # caller cancelled mid-decode
-                self.tokens_dropped += steps
-                self._finish(slot, req)
-                continue
-            for j in range(steps):
-                self._emit(slot, req, int(toks[slot, j]),
-                           float(lps[slot, j]))
-                if slot not in self._active:
-                    # retired mid-chunk: the tail is dropped, and never
-                    # enters kv_toks (its KV lies past the cache line)
-                    self.tokens_dropped += steps - j - 1
-                    break
+        emitted0 = self.tokens_emitted
+        with self.profiler.phase("detokenize"):
+            for slot, req in rec["snap"].items():
+                if self._active.get(slot) is not req:
+                    # retired (and maybe re-admitted) meanwhile
+                    self.tokens_dropped += steps
+                    continue
+                if req.fut.done():   # caller cancelled mid-decode
+                    self.tokens_dropped += steps
+                    self._finish(slot, req)
+                    continue
+                for j in range(steps):
+                    self._emit(slot, req, int(toks[slot, j]),
+                               float(lps[slot, j]))
+                    if slot not in self._active:
+                        # retired mid-chunk: the tail is dropped, and
+                        # never enters kv_toks (its KV lies past the
+                        # cache line)
+                        self.tokens_dropped += steps - j - 1
+                        break
+        # each emitted token once: a resumed request's replay restores
+        # its output, it is never emitted twice
+        self.profiler.add_tokens("decode", self.tokens_emitted - emitted0)
 
     async def _run(self) -> None:
-        # decode chunks on the device, oldest first
-        inflight: collections.deque = collections.deque()
+        # decode chunks on the device, oldest first (`drain` reads it)
+        inflight = self._inflight = collections.deque()
         while True:
             if not self._active and not self._pending and not inflight:
                 self._wake.clear()
-                await self._wake.wait()
+                # no work is not a bubble: idle leaves goodput's books
+                with self.profiler.phase("idle"):
+                    await self._wake.wait()
             if self._halt:
                 # export_sequences parks the worker here; the chunks in
                 # flight are processed first, so each request's tokens
@@ -2279,8 +2332,12 @@ class ContinuousBatcher:
                         self._process_chunk(head)
                 except Exception as e:  # noqa: BLE001
                     log.exception("continuous batcher device call failed")
+                    inflight.clear()
                     self._fail_all(e)
                 return
+            # one profiled iteration: end_iteration books what no phase
+            # claimed as host_gap
+            self.profiler.begin_iteration()
             try:
                 # preemption runs BEFORE the dirty-slot reset, so the
                 # victim's table is reset in this same iteration: the
@@ -2294,8 +2351,10 @@ class ContinuousBatcher:
                 if self._dirty:
                     dirty = sorted(set(self._dirty))
                     self._dirty.clear()
-                    await self._device(self.cengine.reset_slots,
-                                       self.cengine.slots(), dirty)
+                    # slot recycling is admission's block management
+                    with self.profiler.phase("admit"):
+                        await self._device(self.cengine.reset_slots,
+                                           self.cengine.slots(), dirty)
                 if self._free and self._pending:
                     take = []
                     while self._pending and len(take) < len(self._free):
@@ -2307,7 +2366,8 @@ class ContinuousBatcher:
                         if not req.fut.done():
                             take.append(req)
                     if take:
-                        await self._admit(take)
+                        with self.profiler.phase("admit"):
+                            await self._admit(take)
                     elif not self._active and not inflight and self._pending:
                         # nothing to decode and nothing admittable: nap
                         # for the shortest refill instead of spinning
@@ -2348,6 +2408,11 @@ class ContinuousBatcher:
                 inflight.clear()
                 self._fail_all(e)
                 continue
+            pool = self.cengine.pool
+            self.profiler.note_pool(pool.in_use, pool.capacity)
+            self.profiler.note_occupancy(len(self._active),
+                                         len(self._active) + len(self._free))
+            self.profiler.end_iteration()
             # let submissions and cancellations in between iterations
             await asyncio.sleep(0)
 
@@ -2563,10 +2628,14 @@ class ContinuousBatcher:
         """Stop admission and wait for the admitted work to finish. ->
         True when everything finished, False on timeout or with work
         admitted and no worker left to finish it. A preempted request
-        is re-queued past the closed door and finishes too."""
+        is re-queued past the closed door and finishes too. Finished
+        means quiescent: no slot is held (a cancelled request's slot is
+        released by the worker) and no decode chunk is in flight, so a
+        weight swap after the drain races no device read and no cached
+        block arrives after a flush."""
         self._draining = True
         deadline = None if timeout is None else time.monotonic() + timeout
-        while self._unfinished > 0:
+        while self._unfinished > 0 or self._active or self._inflight:
             if self._worker is None or self._worker.done():
                 return False
             if deadline is not None and time.monotonic() > deadline:

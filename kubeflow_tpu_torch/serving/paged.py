@@ -187,6 +187,13 @@ class HostSpillTier:
         if the budget already dropped it."""
         return self._entries.pop(self._key(ns, path), None)
 
+    def clear(self) -> int:
+        """Drop every entry (their contents describe weights that were
+        replaced). -> entries dropped, for the caller to book."""
+        n = len(self._entries)
+        self._entries.clear()
+        return n
+
 
 class _Node:
     __slots__ = ("key", "block", "children", "refs", "last_use", "parent")

@@ -30,8 +30,42 @@ Routes, each with the reference's request and response bodies:
   transfer, rolled back), `POST /v1/blocks/export` exports a cached
   prefix as a record (404 when it is not cached, 400 on a bad prefix
   hash). Shutdown drains within `drain_grace_s` before it closes.
+- `POST /v1/models/{name}:prefill` — the prefill half of a
+  disaggregated handoff: the prompt (`tokens` or `text`, one row) runs
+  through normal admission with max_new 1 (its one token is thrown
+  away), its cached full-block KV prefix is exported as a migration
+  record and pushed to `"peer"`'s `/v1/migrate/in`. -> `{"prefilled",
+  "handoff", "blocks", "bytes", "handoff_s", "request_id"}` (429 on a
+  throttled tenant or a full queue, 503 while draining).
+- `X-KV-Peer: URL` on a single-row `:generate` without `prefix` (a
+  router's heat hint): before admission the replica pulls the prompt's
+  cached blocks from the peer's `/v1/blocks/export` and imports them
+  (default namespace only); every failure falls through to plain
+  prefill. `fleet_peer_fetch_total{outcome=ok|miss|failed}` and
+  `serving_prefill_tokens{source="peer_fetched"}` book it.
+- `POST /v1/reload {"version", "model"?, "source": {...}, "defect"?}`
+  — live weight reload: admission closes, in-flight work drains within
+  the grace window (409, old weights live, when it does not), the
+  `reloader` materializes the new params on the host (`{"checkpoint":
+  dir, "step"?}` by default; the CLI adds `{"seed": n}`), a name,
+  shape or dtype mismatch is refused (400), and each new tensor is
+  copied into the live parameter in place, on the stream the CUDA
+  graphs replay on: every captured graph reads the new weights and
+  none is recaptured. Every cached KV is forgotten, admission opens,
+  the version label is adopted, `defect.ttft_delay_s` is planted (each
+  `:generate` sleeps it first) or healed, and a fleet registration is
+  forced. Every failure re-opens admission with the old weights.
 - `GET /healthz` (200 only while the server admits work: 503 `draining`
   after a drain), `GET /readyz` (liveness), `GET /v1/models`.
+
+Fleet plane: `pool` ("mixed", "prefill" or "decode"; the two roles need
+`continuous`) is the replica's disaggregation role, `model_version` its
+weights' label; `enable_fleet_registration` registers with a fleet
+router at start-up, heartbeats `fleet_stats` (queue, slots, KV blocks,
+draining, pool, version, prefill and decode phase seconds from the
+batcher's step profiler, the radix heat digest) with
+`sequence_checkpoints` every `period_s`, re-registers on a 404 and
+deregisters first thing at cleanup.
 
 Modes, as in the reference's `create_serving_app`:
 - default (`continuous=False`): the one-shot engine on a dense KV cache.
@@ -60,10 +94,9 @@ Modes, as in the reference's `create_serving_app`:
   prefix isolation and batch-class preemption; `/metrics` grows
   zero-seeded `serving_tenant_*` series and the SLOs count each
   request under its tenant's priority class.
-The reference wraps the drain, migration and block-export routes in
-tracer spans; the port has no tracer yet, so they carry none. Its
-reload, `:prefill` handoff, peer block fetch and fleet routes are not
-ported yet.
+The reference wraps the drain, migration, block-export, reload,
+handoff and peer-fetch paths in tracer spans; the port has no tracer
+yet, so they carry none.
 """
 
 from __future__ import annotations
@@ -74,9 +107,10 @@ import logging
 import math
 import secrets
 import time
-from typing import Any
+from typing import Any, Mapping
 
 import numpy as np
+import torch
 from aiohttp import web
 
 from kubeflow_tpu_torch.obs.cardinality import LabelGuard
@@ -88,6 +122,7 @@ from kubeflow_tpu_torch.obs.metrics import (
     Registry,
     get_or_create_histogram,
 )
+from kubeflow_tpu_torch.obs.profiling import SERVING_PHASES
 from kubeflow_tpu_torch.obs.slo import Slo, get_or_create_slo_engine
 from kubeflow_tpu_torch.ops.cuda import launch_counts
 from kubeflow_tpu_torch.serving import migration
@@ -105,6 +140,7 @@ from kubeflow_tpu_torch.tenancy import (
     TenancyConfig,
     Throttled,
 )
+from kubeflow_tpu_torch.train.checkpoint import flatten, load_serving_params
 
 BYTE_OFFSET = 3  # 0=pad, 1=bos, 2=eos
 BOS, EOS = 1, 2
@@ -136,6 +172,16 @@ TOKENIZER_KEY: web.AppKey = web.AppKey("tokenizer", object)
 OBS_KEY: web.AppKey = web.AppKey("obs", object)
 DRAIN_KEY: web.AppKey = web.AppKey("drain_state", dict)
 TENANCY_KEY: web.AppKey = web.AppKey("tenancy", object)  # TenancyConfig|None
+FLEET_REG_KEY: web.AppKey = web.AppKey("fleet_registration", dict)
+POOL_KEY: web.AppKey = web.AppKey("pool_role", str)
+# the weights' label in heartbeats, the /v1/reload materializer (None:
+# the checkpoint loader) and the defect a reload planted
+MODEL_VERSION_KEY: web.AppKey = web.AppKey("model_version", str)
+RELOADER_KEY: web.AppKey = web.AppKey("weight_reloader", object)
+DEFECT_KEY: web.AppKey = web.AppKey("reload_defect", dict)
+
+# disaggregation roles: "mixed" serves both phases
+POOL_ROLES = ("mixed", "prefill", "decode")
 
 # Server-side decode granularity of a one-shot SSE stream: fixed (not a
 # client knob), as the reference's.
@@ -147,9 +193,8 @@ RETRY_AFTER_CAP_S = 60
 # the empty identity to its overflow bucket.
 TENANT_BLIND = "other"
 MIGRATION_DIRECTIONS = ("in", "out")
-# prefill token sources the port has (the reference's fourth,
-# peer_fetched, needs the peer block fetch: ROADMAP Queue 1 item 5)
-PREFILL_SOURCES = ("computed", "reused", "restored")
+PREFILL_SOURCES = ("computed", "reused", "restored", "peer_fetched")
+PEER_FETCH_OUTCOMES = ("ok", "miss", "failed")
 # The tenant priority classes: every SLO family is seeded for each; a
 # request counts under its tenant's class, every request of a
 # tenant-blind deployment under PRIORITY's.
@@ -208,7 +253,8 @@ class ServingObs:
             "Per-admission prompt tokens by source: computed (suffix "
             "actually prefilled), reused (served from device-resident "
             "cached KV), restored (host spill tier, host->device "
-            "copy)", buckets=TOKEN_BUCKETS)
+            "copy), peer_fetched (imported from a peer replica via "
+            "the X-KV-Peer heat hint)", buckets=TOKEN_BUCKETS)
         self.dropped_tokens = Counter(
             "serving_tokenizer_dropped_tokens_total",
             "Generated token ids outside the byte-decoder's range "
@@ -264,6 +310,55 @@ class ServingObs:
             "serving_migration_blocks_total",
             "KV pool blocks moved by live migration, per model and "
             "direction", reg)
+        # the step anatomy (the batcher's PhaseProfiler): closed phase
+        # sets, zero-seeded per model; the ratios derive at scrape time
+        self.step_phase_seconds = get_or_create_histogram(
+            reg, "serving_step_phase_seconds",
+            "Wall time per worker-loop phase (admit, prefill, decode, "
+            "sample, detokenize, preempt, resume, host_gap, idle), "
+            "per model — phases record exclusive time, so summing "
+            "them reconstructs loop wall time")
+        self.step_tokens = get_or_create_histogram(
+            reg, "serving_step_tokens",
+            "Tokens attributed per phase and model (prefill: suffix "
+            "tokens computed per grouped prefill; decode: tokens "
+            "emitted per chunk)", buckets=TOKEN_BUCKETS)
+        self.goodput = Gauge(
+            "serving_goodput_ratio",
+            "Decode device-time share of total non-idle step time, "
+            "per model (the Podracer-style goodput ledger; 1.0 means "
+            "every non-idle second decoded tokens)", reg)
+        self.bubble = Gauge(
+            "serving_bubble_fraction",
+            "host_gap share of total non-idle step time, per model — "
+            "the bubble dispatch-ahead exists to hide", reg)
+        self.kv_high_water = Gauge(
+            "serving_kv_blocks_high_water",
+            "High-water mark of KV pool blocks in use since startup, "
+            "per model (capacity headroom for the pool sizing knob)", reg)
+        # the host spill tier's traffic and occupancy, and the peer
+        # block fetch by outcome (any non-ok fell back to plain prefill)
+        self.kv_spill_demotions = Counter(
+            "serving_kv_spill_demotions_total",
+            "KV blocks demoted from the device pool into the host-RAM "
+            "spill tier on eviction, per model (deaths booked to "
+            "cause=spill in serving_kv_evictions_total)", reg)
+        self.kv_spill_restores = Counter(
+            "serving_kv_spill_restores_total",
+            "Spilled KV blocks promoted back into the device pool on "
+            "a prefix re-hit (host->device copy instead of prefill "
+            "recompute), per model", reg)
+        self.kv_spill_bytes = Gauge(
+            "serving_kv_spill_bytes",
+            "Host RAM currently holding spilled KV block contents, "
+            "per model (bounded by --kv-spill-bytes)", reg)
+        self.peer_fetch = Counter(
+            "fleet_peer_fetch_total",
+            "Replica-side KV block fetches from a peer named by the "
+            "router's X-KV-Peer heat hint, by outcome: ok (blocks "
+            "imported, prefill seeded), miss (peer no longer caches "
+            "the prefix), failed (transport/geometry error — request "
+            "fell back to plain prefill)", reg)
         self.tenant_guard = LabelGuard()
         slos = [Slo(f"serving_ttft_{cls}", SLO_LATENCY_OBJECTIVE,
                     threshold_s=SLO_TTFT_THRESHOLDS_S[cls],
@@ -387,6 +482,10 @@ class Batcher:
     def begin_drain(self) -> None:
         """Stop admission; queued work still runs."""
         self._draining = True
+
+    def end_drain(self) -> None:
+        """Open admission again after a completed drain (a reload)."""
+        self._draining = False
 
     async def drain(self, timeout: float | None = None) -> bool:
         """Stop admission and wait for admitted work to resolve (the
@@ -527,7 +626,9 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
                        spec_decode: bool = False, spec_gamma: int = 4,
                        seed: int | None = None,
                        tenancy: TenancyConfig | None = None,
-                       drain_grace_s: float = 30.0) -> web.Application:
+                       drain_grace_s: float = 30.0,
+                       pool: str = "mixed", model_version: str = "",
+                       reloader=None) -> web.Application:
     """`continuous=False` (the default) serves through the one-shot
     engine: a window `Batcher` per model when `batch_window_ms > 0`,
     else every request calls `engine.generate` directly.
@@ -560,7 +661,23 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
     before. `drain_grace_s` bounds how long shutdown waits for in-flight
     generations before it closes the batchers. The app's metric registry
     (`app[OBS_KEY].registry`) is rendered at `/metrics`, the SLO burn
-    rates with it."""
+    rates with it.
+    `pool` is the replica's disaggregation role, "mixed" (the default:
+    both phases), "prefill" or "decode" (continuous only): it rides the
+    fleet heartbeat, where a pool-aware router reads it; it changes
+    routing, not capability. `model_version` labels the boot weights
+    (heartbeats; `/v1/reload` replaces it). `reloader(name, engine,
+    source) -> params` materializes `/v1/reload`'s new weights (a nested
+    dict of tensors, on the host or the card); without one, a
+    `{"checkpoint": dir, "step": n}` source loads through
+    train/checkpoint.py."""
+    if pool not in POOL_ROLES:
+        raise ValueError(
+            f"pool must be one of {POOL_ROLES}, got {pool!r}")
+    if pool != "mixed" and not continuous:
+        raise ValueError(
+            f"pool={pool!r} requires continuous=True (the handoff "
+            "path ships paged KV blocks)")
     if not continuous and (prefill_chunk is not None
                            or prefill_chunk_tokens is not None
                            or pipeline_depth is not None
@@ -598,6 +715,10 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
     sobs = ServingObs()
     app[OBS_KEY] = sobs
     app[TENANCY_KEY] = tenancy
+    app[POOL_KEY] = pool
+    app[MODEL_VERSION_KEY] = str(model_version or "")
+    app[RELOADER_KEY] = reloader
+    app[DEFECT_KEY] = {}
     app[DRAIN_KEY] = {"draining": False, "grace_s": float(drain_grace_s)}
     app[ENGINES_KEY] = dict(engines)
     app[TOKENIZER_KEY] = tokenizer
@@ -631,12 +752,8 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
         else:
             _wire_continuous_metrics(sobs, name, b)
     if continuous:
-        def collect_kv_blocks():
-            # refreshed at render: /metrics reads the live pool
-            for _m, _b in app[BATCHERS_KEY].items():
-                sobs.kv_blocks.set(_b.kv_blocks_in_use(), model=_m)
-
-        sobs.registry.register_collector(collect_kv_blocks)
+        sobs.registry.register_collector(
+            lambda: _collect_continuous(sobs, app[BATCHERS_KEY]))
     if tenancy is not None:
         _wire_tenant_metrics(sobs, app, tenancy)
     if warmup:
@@ -688,7 +805,9 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
             (get, "/v1/requests/timelines", request_timelines_index),
             (get, "/v1/requests/{id}/timeline", request_timeline),
             (post, "/v1/models/{name}:generate", generate),
+            (post, "/v1/models/{name}:prefill", prefill_handoff),
             (post, "/v1/models/{name}:score", score),
+            (post, "/v1/reload", reload_weights),
             (post, "/drain", drain_endpoint),
             (post, "/v1/migrate/in", migrate_in),
             (post, "/v1/blocks/export", blocks_export)):
@@ -746,6 +865,55 @@ def _wire_continuous_metrics(sobs: ServingObs, model: str,
         sobs.migration_failed.inc(0, model=model, direction=direction)
         sobs.migration_blocks.inc(0, model=model, direction=direction)
     sobs.attention_impl.set(1, model=model, impl=b.cengine.attention_impl)
+    for phase in SERVING_PHASES:
+        sobs.step_phase_seconds.seed(model=model, phase=phase)
+        sobs.step_tokens.seed(model=model, phase=phase)
+    sobs.goodput.set(0.0, model=model)
+    sobs.bubble.set(0.0, model=model)
+    sobs.kv_high_water.set(0, model=model)
+    for outcome in PEER_FETCH_OUTCOMES:
+        sobs.peer_fetch.inc(0, model=model, outcome=outcome)
+    sobs.kv_spill_demotions.inc(0, model=model)
+    sobs.kv_spill_restores.inc(0, model=model)
+    sobs.kv_spill_bytes.set(0, model=model)
+
+    def on_phase(phase, seconds, tokens):
+        # seconds is None for a token-only attribution
+        if seconds is not None:
+            sobs.step_phase_seconds.observe(seconds, model=model,
+                                            phase=phase)
+        if tokens:
+            sobs.step_tokens.observe(tokens, model=model, phase=phase)
+
+    b.profiler.on_phase = on_phase
+
+
+def _sync_counter(counter, total, **labels) -> None:
+    """A counter brought up to a cumulative total kept elsewhere (a
+    counter only rises: add the difference since the last scrape)."""
+    cur = counter.value(**labels)
+    if total > cur:
+        counter.inc(total - cur, **labels)
+
+
+def _collect_continuous(sobs: ServingObs, batchers: dict) -> None:
+    """Scrape-time refresh of the continuous batchers' derived series:
+    the live pool, the step profiler's goodput ledger and the spill
+    tier's traffic (the block ledger's totals) and occupancy."""
+    for model, b in batchers.items():
+        sobs.kv_blocks.set(b.kv_blocks_in_use(), model=model)
+        g = b.profiler.goodput()
+        sobs.goodput.set(g["goodput_ratio"], model=model)
+        sobs.bubble.set(g["bubble_fraction"], model=model)
+        sobs.kv_high_water.set(g["kv_blocks_high_water"], model=model)
+        led = b.cache_ledger
+        _sync_counter(sobs.kv_spill_demotions, led.spill_demotions,
+                      model=model)
+        _sync_counter(sobs.kv_spill_restores, led.spill_restores,
+                      model=model)
+        tier = b._spill_tier
+        sobs.kv_spill_bytes.set(tier.spilled_bytes if tier else 0,
+                                model=model)
 
 
 def _wire_tenant_metrics(sobs: ServingObs, app: web.Application,
@@ -766,26 +934,19 @@ def _wire_tenant_metrics(sobs: ServingObs, app: web.Application,
                 sobs.tenant_throttled.inc(0, model=model, tenant=tenant,
                                           reason=reason)
 
-    def sync(counter, total, **labels):
-        # the ledger keeps cumulative totals and a counter only rises:
-        # add the difference since the last scrape
-        cur = counter.value(**labels)
-        if total > cur:
-            counter.inc(total - cur, **labels)
-
     def collect_tenants():
         for model, b in app[BATCHERS_KEY].items():
             for tenant, st in b.tenant_stats().items():
                 tenant = sobs.tenant_guard.admit(tenant)
                 sobs.tenant_queue_depth.set(st.get("queued", 0),
                                             model=model, tenant=tenant)
-                sync(sobs.tenant_tokens, st["tokens"], model=model,
-                     tenant=tenant)
-                sync(sobs.tenant_preemptions, st["preempted"], model=model,
-                     tenant=tenant)
+                _sync_counter(sobs.tenant_tokens, st["tokens"],
+                              model=model, tenant=tenant)
+                _sync_counter(sobs.tenant_preemptions, st["preempted"],
+                              model=model, tenant=tenant)
                 for reason, n in st["throttled"].items():
-                    sync(sobs.tenant_throttled, n, model=model,
-                         tenant=tenant, reason=reason)
+                    _sync_counter(sobs.tenant_throttled, n, model=model,
+                                  tenant=tenant, reason=reason)
 
     sobs.registry.register_collector(collect_tenants)
 
@@ -1204,6 +1365,11 @@ async def generate(request: web.Request):
     if engine is None:
         return web.json_response({"error": f"no model {name!r}"},
                                  status=404)
+    # a defect /v1/reload planted: a deliberate TTFT stall a rollout's
+    # canary judge must catch
+    delay = request.app[DEFECT_KEY].get("ttft_delay_s", 0.0)
+    if delay:
+        await asyncio.sleep(float(delay))
     body = await _json_body(request)
     if isinstance(body, web.Response):
         return body
@@ -1285,6 +1451,15 @@ async def generate(request: web.Request):
     arr = _token_array(token_lists, engine.cfg.vocab_size)
     if isinstance(arr, web.Response):
         return arr
+    # a router's heat hint: a peer caches this prompt's first block and
+    # this replica does not, so pull the blocks before admission; every
+    # failure falls through to the plain prefill
+    peer_hint = request.headers.get("X-KV-Peer", "")
+    if (peer_hint and not prefix and arr.shape[0] == 1
+            and not request.app[DRAIN_KEY]["draining"]
+            and isinstance(batcher, ContinuousBatcher)):
+        await _peer_fetch_blocks(request.app, name, batcher,
+                                 token_lists[0], peer_hint)
     speculative = body.get("speculative", False)
     if not isinstance(speculative, bool):
         return _bad("speculative must be a boolean")
@@ -1607,3 +1782,472 @@ async def blocks_export(request: web.Request):
         app[OBS_KEY].migration_blocks.inc(blocks, model=name,
                                           direction="out")
     return web.json_response({"record": record, "blocks": blocks})
+
+
+async def _peer_fetch_blocks(app: web.Application, name: str,
+                             batcher: ContinuousBatcher, tokens: list[int],
+                             peer: str) -> None:
+    """The requester side of the fleet cache tier's pull: `peer` (the
+    `X-KV-Peer` hint) caches this prompt's first block, so its cached
+    full blocks are fetched over `/v1/blocks/export` and imported
+    before admission, which then hits them in the radix tree. Skipped
+    for a prompt shorter than one block and a token (admission leaves a
+    token to prefill) and for a prefix the local tree already holds.
+    Only the shared namespace takes part: hints join on un-namespaced
+    hashes, and an isolated tenant's tree never leaves its replica.
+    Best-effort: every failure books its outcome and falls through to
+    the plain prefill, which gives the same tokens."""
+    sobs: ServingObs = app[OBS_KEY]
+    bs = batcher.cengine.block_size
+    if len(tokens) < bs + 1:
+        return
+    nodes, _, _ = batcher._radix.match(tokens)
+    if nodes:
+        return   # cached here already: the hint is stale
+    try:
+        req = migration.prefix_fetch_request(name, tokens, block_size=bs)
+    except ValueError:
+        return
+    import aiohttp
+
+    try:
+        async with aiohttp.ClientSession() as session:
+            async with session.post(
+                    f"{peer.rstrip('/')}/v1/blocks/export", json=req,
+                    timeout=aiohttp.ClientTimeout(total=30)) as r:
+                if r.status == 404:
+                    sobs.peer_fetch.inc(model=name, outcome="miss")
+                    return
+                if r.status != 200:
+                    sobs.peer_fetch.inc(model=name, outcome="failed")
+                    return
+                payload = await r.json()
+    except (aiohttp.ClientError, asyncio.TimeoutError, OSError, ValueError):
+        sobs.peer_fetch.inc(model=name, outcome="failed")
+        return
+    record = payload.get("record") if isinstance(payload, dict) else None
+    if record is None:
+        sobs.peer_fetch.inc(model=name, outcome="miss")
+        return
+    try:
+        blocks = await batcher.import_sequence(record)
+    except Exception:  # noqa: BLE001 — the import rolled back
+        sobs.peer_fetch.inc(model=name, outcome="failed")
+        return
+    sobs.peer_fetch.inc(model=name, outcome="ok")
+    if blocks:
+        # transfer traffic: admission books the same cells as reused
+        sobs.prefill_tokens.observe(blocks * bs, model=name,
+                                    source="peer_fetched")
+
+
+# a version label: 1..64 characters of this set
+_VERSION_CHARS = frozenset(
+    "abcdefghijklmnopqrstuvwxyz"
+    "ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789._-")
+
+
+def _valid_version(v: Any) -> bool:
+    return (isinstance(v, str) and 0 < len(v) <= 64
+            and all(c in _VERSION_CHARS for c in v))
+
+
+def _params_mismatch(old: dict, new: dict) -> str:
+    """Compatibility of new weights with the live ones, over flat
+    name -> tensor maps: the same names, and each tensor's shape and
+    dtype (the captured graphs read the live storage at its shape and
+    dtype). -> "" when compatible, else the reason."""
+    if set(old) != set(new):
+        return ("parameter tree structure differs from the live "
+                "model's")
+    for name, o in old.items():
+        n = new[name]
+        o_shape = tuple(o.shape)
+        n_shape = getattr(n, "shape", None)
+        n_shape = tuple(n_shape) if n_shape is not None else None
+        o_dtype, n_dtype = o.dtype, getattr(n, "dtype", None)
+        if o_shape != n_shape or o_dtype != n_dtype:
+            return (f"leaf {name}: incoming {n_shape}/{n_dtype} vs live "
+                    f"{o_shape}/{o_dtype}")
+    return ""
+
+
+def _default_reloader(name: str, engine: InferenceEngine, source: dict):
+    """New weights from `source["checkpoint"]` (a train/checkpoint.py
+    directory: `source["step"]`, else the newest committed step), params
+    only, on the host: the path `--checkpoint` boots from."""
+    ckpt_dir = source.get("checkpoint", "")
+    if not ckpt_dir:
+        raise ValueError(
+            "reload source needs a 'checkpoint' directory (no custom "
+            "reloader is installed on this replica)")
+    step = source.get("step")
+    try:
+        return load_serving_params(
+            ckpt_dir, engine.cfg, "cpu",
+            step=step if isinstance(step, int) else None)
+    except FileNotFoundError as e:
+        raise ValueError(str(e)) from None
+
+
+def copy_params(engine: InferenceEngine, params: Mapping) -> None:
+    """Copy `params` into the engine's live tensors, leaf by leaf, in
+    place. The engine keeps its tensors (and the per-layer views into
+    them), so every captured CUDA graph reads the new weights on its
+    next replay and none is recaptured; the copies queue on the stream
+    the graphs replay on, behind any chunk still in flight, and the
+    device is synchronized before this returns. No second full copy of
+    the weights is held on the card: `params` may live on the host."""
+    live, new = flatten(engine.params), flatten(params)
+    with torch.no_grad():
+        for name, t in live.items():
+            t.copy_(new[name])
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+
+
+def _resume_admission(app: web.Application, draining: bool) -> None:
+    """Undo a reload's drain: every batcher open again, the door flag
+    restored (a replica draining before the reload stays draining)."""
+    for b in app[BATCHERS_KEY].values():
+        b.end_drain()
+    app[DRAIN_KEY]["draining"] = draining
+
+
+async def reload_weights(request: web.Request):
+    """`POST /v1/reload`: drain, then swap the weights live. Body:
+
+        {"version": "step-12",            # [A-Za-z0-9._-]{1,64}
+         "model": "llama3-1b",            # optional with one model
+         "source": {"checkpoint": dir,    # the reloader's input
+                    "step": 12},
+         "defect": {"ttft_delay_s": 2}}   # optional, a planted stall
+
+    Admission stops (the door and every batcher), in-flight work drains
+    within the grace window (409 with the old weights live when it does
+    not), the reloader materializes the new params in the executor under
+    the gpu lock, a name, shape or dtype mismatch is refused (400), and
+    `copy_params` writes them into the live tensors under the gpu lock.
+    The batcher forgets every cached KV (`flush_cache`), admission opens,
+    the version is adopted, the defect is planted or healed, and a fleet
+    registration is forced so the router sees the new version at once.
+    Every failure re-opens admission with the old weights."""
+    app = request.app
+    try:
+        body: dict[str, Any] = await request.json()
+    except Exception:  # noqa: BLE001 — any unparsable body is a 400
+        return web.json_response({"error": "invalid JSON"}, status=400)
+    if not isinstance(body, dict):
+        return web.json_response({"error": "body must be an object"},
+                                 status=400)
+    version = body.get("version", "")
+    if not _valid_version(version):
+        return web.json_response(
+            {"error": "version must be 1..64 chars of [A-Za-z0-9._-]"},
+            status=400)
+    engines = app[ENGINES_KEY]
+    name = body.get("model", "")
+    if not name and len(engines) == 1:
+        name = next(iter(engines))
+    if name not in engines:
+        return web.json_response(
+            {"error": f"no model {name!r} (serving {sorted(engines)})"},
+            status=404)
+    source = body.get("source")
+    if source is not None and not isinstance(source, dict):
+        return web.json_response({"error": "source must be an object"},
+                                 status=400)
+    defect = body.get("defect")
+    if defect is not None:
+        delay = (defect.get("ttft_delay_s", 0.0)
+                 if isinstance(defect, dict) else None)
+        if not isinstance(delay, (int, float)) \
+                or isinstance(delay, bool) or not 0 <= delay <= 30:
+            return web.json_response(
+                {"error": "defect.ttft_delay_s must be a number in "
+                          "[0, 30]"}, status=400)
+    engine = engines[name]
+    was_draining = app[DRAIN_KEY]["draining"]
+    app[DRAIN_KEY]["draining"] = True
+    batchers = app[BATCHERS_KEY]
+    for b in batchers.values():
+        b.begin_drain()
+    for b in batchers.values():
+        if not await b.drain(timeout=app[DRAIN_KEY]["grace_s"]):
+            _resume_admission(app, was_draining)
+            return web.json_response(
+                {"error": f"drain timed out with {b.in_flight()} "
+                          "request(s) in flight; weights unchanged"},
+                status=409)
+    reloader = app[RELOADER_KEY] or _default_reloader
+    loop = asyncio.get_running_loop()
+    t0 = time.monotonic()
+    try:
+        async with app[GPU_LOCK_KEY]:
+            params = await loop.run_in_executor(
+                None, reloader, name, engine, dict(source or {}))
+        why = (_params_mismatch(flatten(engine.params), flatten(params))
+               if isinstance(params, Mapping)
+               else "parameter tree structure differs from the live "
+                    "model's")
+        if why:
+            raise ValueError(f"incompatible weights: {why}")
+        async with app[GPU_LOCK_KEY]:
+            await loop.run_in_executor(None, copy_params, engine, params)
+        b = batchers.get(name)
+        if isinstance(b, ContinuousBatcher):
+            # drained above: no request holds a block the flush frees
+            b.flush_cache()
+    except ValueError as e:
+        _resume_admission(app, was_draining)
+        return web.json_response({"error": str(e)}, status=400)
+    except Exception as e:  # noqa: BLE001 — the old weights stay live
+        _resume_admission(app, was_draining)
+        return web.json_response({"error": f"{type(e).__name__}: {e}"},
+                                 status=500)
+    _resume_admission(app, False)
+    app[MODEL_VERSION_KEY] = version
+    app[DEFECT_KEY].clear()
+    if isinstance(defect, dict):
+        app[DEFECT_KEY].update(defect)
+    register = (app.get(FLEET_REG_KEY) or {}).get("register_fn")
+    if register is not None:
+        try:
+            await register()
+        except Exception:  # noqa: BLE001 — the beat loop retries
+            log.exception("fleet re-registration after a reload failed")
+    return web.json_response({
+        "reloaded": True, "model": name, "version": version,
+        "reload_s": round(time.monotonic() - t0, 3)})
+
+
+async def prefill_handoff(request: web.Request):
+    """`POST /v1/models/{name}:prefill`: the prefill half of a
+    disaggregated handoff. Body: the prompt (`tokens`, one row, or
+    `text`) and an optional `"peer"` URL, the decode replica a
+    pool-aware router picked. The prompt runs through normal admission
+    with max_new 1 (its one token is thrown away: the decode replica
+    owns the generation), which leaves its full blocks in the radix
+    tree; the cached full-block prefix is exported as a migration record
+    with `out=[]` and pushed to the peer's `/v1/migrate/in`, where the
+    generation that follows hits it and prefills only the tail. A
+    prompt shorter than one block exports nothing (`handoff` false,
+    `blocks` 0). Best-effort: a failed handoff costs the decode replica
+    one ordinary prefill."""
+    app = request.app
+    if app[DRAIN_KEY]["draining"]:
+        return _draining()
+    name = request.match_info["name"]
+    engine = app[ENGINES_KEY].get(name)
+    if engine is None:
+        return web.json_response({"error": f"no model {name!r}"},
+                                 status=404)
+    batcher = app[BATCHERS_KEY].get(name)
+    if not isinstance(batcher, ContinuousBatcher):
+        return web.json_response(
+            {"error": "prefill handoff requires continuous batching"},
+            status=400)
+    try:
+        body: dict[str, Any] = await request.json()
+    except Exception:  # noqa: BLE001 — any unparsable body is a 400
+        return web.json_response({"error": "invalid JSON"}, status=400)
+    if not isinstance(body, dict):
+        return _bad("body must be a JSON object")
+    parsed = _parse_token_lists(body, app[TOKENIZER_KEY], min_len=1)
+    if isinstance(parsed, web.Response):
+        return parsed
+    token_lists, _ = parsed
+    if len(token_lists) != 1:
+        return _bad("prefill handoff is single-prompt")
+    toks = [int(t) for t in token_lists[0]]
+    vocab = engine.cfg.vocab_size
+    if min(toks) < 0 or max(toks) >= vocab:
+        return _bad(f"token ids must be in [0, {vocab})")
+    if len(toks) + 1 > engine.ec.max_len:
+        return _bad(f"prompt {len(toks)} + 1 exceeds model max_len "
+                    f"{engine.ec.max_len}")
+    peer = body.get("peer", "")
+    if not isinstance(peer, str):
+        return _bad("peer must be a URL string")
+    rid = request.headers.get("X-Request-Id") or secrets.token_hex(8)
+    sobs: ServingObs = app[OBS_KEY]
+    t0 = time.monotonic()
+    try:
+        await batcher.submit(toks, 1, {"request_id": rid, **_tenant(request)})
+    except (Throttled, Overloaded) as e:
+        return _shed(batcher, e)
+    except MigratedAway as e:
+        return web.json_response({"error": str(e), "migrated": True},
+                                 status=503, headers={"Retry-After": "0"})
+    record = await batcher.export_prefix(toks, request_id=rid)
+    blocks = nbytes = 0
+    if record is not None and record.get("kv"):
+        blocks = int(record["kv"]["n_full"])
+        nbytes = len(record["kv"]["k"]) + len(record["kv"]["v"])
+    handoff = False
+    if record is not None and peer:
+        import aiohttp
+
+        try:
+            async with aiohttp.ClientSession() as session:
+                async with session.post(
+                        f"{peer.rstrip('/')}/v1/migrate/in",
+                        json={"model": name, "record": record},
+                        timeout=aiohttp.ClientTimeout(total=30)) as r:
+                    handoff = r.status == 200
+        except (aiohttp.ClientError, asyncio.TimeoutError, OSError):
+            handoff = False
+        if handoff:
+            sobs.migration_out.inc(model=name)
+            if blocks:
+                sobs.migration_blocks.inc(blocks, model=name,
+                                          direction="out")
+        else:
+            sobs.migration_failed.inc(model=name, direction="out")
+    return web.json_response({
+        "prefilled": True, "handoff": handoff, "blocks": blocks,
+        "bytes": nbytes if handoff else 0,
+        "handoff_s": round(time.monotonic() - t0, 6),
+        "request_id": rid})
+
+
+def fleet_stats(app: web.Application) -> dict:
+    """Routing and autoscaling stats in the fleet heartbeat's vocabulary,
+    summed over models: queue depth, active and max slots, free and
+    total KV blocks, draining, the pool role, the version label, the
+    step profiler's totals folded into prefill (prefill and
+    prefill_chunk) and decode (decode, draft and verify) seconds, and
+    the radix heat digest. The window batcher's max_slots is its
+    max_batch. Every value is a plain int, float, str, bool, list or
+    dict: the payload goes through `json.dumps`."""
+    queue_depth = active = max_slots = 0
+    kv_free = kv_total = 0
+    phase_prefill = phase_decode = 0.0
+    cache_digest: list = []
+    for b in app[BATCHERS_KEY].values():
+        if isinstance(b, ContinuousBatcher):
+            queue_depth += len(b._pending)
+            active += len(b._active)
+            max_slots += len(b._free) + len(b._active)
+            kv_free += int(b.cengine.pool.num_free)
+            kv_total += int(b.cengine.num_blocks)
+            cache_digest.extend(b._radix.heat_digest(16))
+            totals = b.profiler.totals()
+            phase_prefill += (totals.get("prefill", 0.0)
+                              + totals.get("prefill_chunk", 0.0))
+            phase_decode += (totals.get("decode", 0.0)
+                             + totals.get("draft", 0.0)
+                             + totals.get("verify", 0.0))
+        else:
+            queue_depth += b._queue.qsize()
+            active += len(b._inflight)
+            max_slots += b.max_batch
+    return {
+        "queue_depth": queue_depth, "active_slots": active,
+        "max_slots": max_slots, "kv_blocks_free": kv_free,
+        "kv_blocks_total": kv_total,
+        "draining": bool(app[DRAIN_KEY]["draining"]),
+        "pool": app[POOL_KEY],
+        "version": app[MODEL_VERSION_KEY],
+        "phase_seconds": {"prefill": round(float(phase_prefill), 6),
+                          "decode": round(float(phase_decode), 6)},
+        "cache_digest": cache_digest,
+    }
+
+
+def sequence_checkpoints(app: web.Application) -> list[dict]:
+    """Resume records (tokens only, no KV) of every admitted request
+    across models: the crash-failover feed of each heartbeat, which a
+    router replays on a healthy peer when this replica dies."""
+    out = []
+    for name, b in app[BATCHERS_KEY].items():
+        if isinstance(b, ContinuousBatcher):
+            out.extend({"model": name, **ck} for ck in b.checkpoints())
+    return out
+
+
+def enable_fleet_registration(app: web.Application, router_url: str,
+                              advertise_url: str, *,
+                              replica_id: str | None = None,
+                              period_s: float = 2.0) -> None:
+    """Wire this replica into a fleet router: register at start-up,
+    heartbeat `fleet_stats` and `sequence_checkpoints` every `period_s`
+    (re-registering when the router answers 404: it restarted and lost
+    its table), deregister at cleanup, before the drain-and-close hook,
+    so the router stops routing here while the drain finishes. An
+    unreachable router is never fatal: the replica serves alone and the
+    beat keeps trying. `state["register_fn"]` forces a registration
+    (`/v1/reload` calls it)."""
+    import aiohttp
+
+    router = router_url.rstrip("/")
+    state: dict[str, Any] = {
+        "router": router, "advertise": advertise_url,
+        "id": replica_id or advertise_url, "period_s": period_s,
+        "session": None, "task": None,
+    }
+    app[FLEET_REG_KEY] = state
+
+    def payload(app_) -> dict:
+        return {"id": state["id"], "url": state["advertise"],
+                "models": sorted(app_[ENGINES_KEY]),
+                "checkpoints": sequence_checkpoints(app_),
+                **fleet_stats(app_)}
+
+    async def register(app_) -> bool:
+        try:
+            async with state["session"].post(
+                    f"{router}/fleet/register", json=payload(app_),
+                    timeout=aiohttp.ClientTimeout(total=5)) as r:
+                return r.status == 200
+        except (aiohttp.ClientError, asyncio.TimeoutError, OSError):
+            return False
+
+    async def register_now() -> bool:
+        if state["session"] is None:
+            return False
+        return await register(app)
+
+    state["register_fn"] = register_now
+
+    async def beat_loop(app_):
+        while True:
+            await asyncio.sleep(state["period_s"])
+            try:
+                async with state["session"].post(
+                        f"{router}/fleet/heartbeat", json=payload(app_),
+                        timeout=aiohttp.ClientTimeout(total=5)) as r:
+                    if r.status == 404:
+                        await register(app_)
+            except (aiohttp.ClientError, asyncio.TimeoutError, OSError):
+                pass   # router down or restarting: keep beating
+
+    async def start(app_):
+        state["session"] = aiohttp.ClientSession()
+        if not await register(app_):
+            log.warning("fleet: could not register with router %s (the "
+                        "heartbeat keeps trying)", router)
+        state["task"] = asyncio.get_running_loop().create_task(
+            beat_loop(app_))
+
+    async def stop(app_):
+        task = state["task"]
+        if task is not None:
+            task.cancel()
+            try:
+                await task
+            except asyncio.CancelledError:
+                pass
+        if state["session"] is not None:
+            try:
+                async with state["session"].post(
+                        f"{router}/fleet/deregister",
+                        json={"id": state["id"]},
+                        timeout=aiohttp.ClientTimeout(total=5)):
+                    pass
+            except (aiohttp.ClientError, asyncio.TimeoutError, OSError):
+                pass
+            await state["session"].close()
+
+    app.on_startup.append(start)
+    app.on_cleanup.insert(0, stop)

@@ -499,10 +499,17 @@ def serving_params(params: Mapping[str, Any], cfg, device) -> dict:
     return out
 
 
-def load_serving_params(directory: str, cfg, device) -> dict:
-    """The params of the newest committed step under `directory`, in
-    serving storage on `device`. Reads params.pt only: the optimizer's
-    moments never leave the disk."""
-    flat = _load(os.path.join(latest_committed_dir(directory),
-                              PARAMS_FILE), device)
+def load_serving_params(directory: str, cfg, device,
+                        step: int | None = None) -> dict:
+    """The params of committed `step` (None: the newest committed step)
+    under `directory`, in serving storage on `device`. Reads params.pt
+    only: the optimizer's moments never leave the disk."""
+    if step is None:
+        step_dir = latest_committed_dir(directory)
+    else:
+        step_dir = os.path.join(directory, str(step))
+        if not os.path.exists(os.path.join(step_dir, COMMIT_MARKER)):
+            raise FileNotFoundError(
+                f"no committed step {step} under {directory}")
+    flat = _load(os.path.join(step_dir, PARAMS_FILE), device)
     return serving_params(unflatten(flat), cfg, device)

@@ -62,6 +62,16 @@ Phases, each fatal on failure (exit code 1, no result line):
              the 3 cells left in the window) and a frozen-style row at
              640; the bf16 bound and its control, timed against SDPA
              over the gathered K/V.
+             Then `int8_proj` (the int8-weight projection) at the seven
+             projection shapes of llama3-8b at M 8, 300 and 2400 (phase
+             12a's decode, probe and window-batch prefill) and of
+             llama3-1b at M 8, 40 (the verify pass), 64 (a slice) and
+             512 (8 rows of a slice), a bf16 weight of the models' init
+             quantized per channel: within 1e-4 max|ref| + 2^-7 |ref| +
+             2^-12 mag, mag = (|h| @ |q|) scale, a bound that a control
+             with bf16 accumulators must fail; timed against its int8
+             bound and graph-replayed bf16 torch.matmul of the same h by
+             the bf16 weight, cycling weight copies past the L2.
 3. serve   — boots the port's HTTP server in-process (the CLI's
              `--model llama3-1b --random --seed 0 --continuous --warmup
              --prefill-chunk-tokens 64`; dispatch-ahead depth 2), whose
@@ -318,6 +328,38 @@ Phases, each fatal on failure (exit code 1, no result line):
              seconds above 0, P's heat digest non-empty, and each
              deregisters at cleanup. Prints the handoff and fetch ms a
              block, `reload_s` and both replicas' phase totals.
+12. quant  — (a) the CLI's app `--model llama3-8b --random --seed 0
+             --quant int8 --batch-window-ms 50 --max-batch 8` (the CLI
+             refuses `--warmup` without `--continuous`, as the
+             reference's: the decode graphs of rows 1, 2, 4, 8 are warmed
+             as `create_serving_app(warmup=True)` warms them): every
+             block matrix int8 on the card and `param_bytes` as
+             reckoned; one 300-token prompt's prefill logits within 0.05
+             max|l| of the bf16 model's at the same seed (224
+             `int8_proj` launches); counters set to 0 just before eight
+             concurrent prompts (17-300 tokens, 32 new) and read just
+             after: `int8_proj` 7 x 32 a forward and a decode step,
+             `decode_attention` 32 a step, nothing else, no capture in
+             traffic, the repeated prompt's tokens identical, logprobs
+             within 0.1 of a teacher-forced plain pass over the int8
+             weights (argmax where the margin exceeds 0.2), an
+             `adapter` refused 400 (no pack). Prints the device ms a
+             decode step (profiled calls to 9 and 1 token) beside phase
+             5's bf16 step and peak memory. (b) llama3-1b continuous
+             through `create_serving_app` (8 slots, chunk 64, warmed,
+             depth 2) with a pack of three adapters (rank 8, alpha 16,
+             the seven targets, B non-zero), once in bf16 and once over
+             `quantize_blocks`: eight concurrent rows mixing the base and
+             the adapters (16 new), exact launches (16 paged decode a
+             step, 16 prefill-append a slice, `int8_proj` 7 x 16 a step
+             and a slice in the int8 pass), no capture in traffic; one
+             200-token prompt as base, alice, alice again reuses 0, 0
+             and 192 cells (the radix keys adapters apart) with alice's
+             tokens identical; every row within 0.1 of a teacher-forced
+             plain pass over its merged weights (int8: the dequantized
+             base plus the scaled delta); the 400s of an unknown name, a
+             non-string and `speculative`. Prints host ms a decode step
+             beside phase 3's and the device busy share.
 Then prints the `kernels` JSON line (launches: the paged kernels' over
 phases 3, 3b, 3c, 8, 9's spec-off pass, 10 and 11, each other kernel's over its
 phases (4 and 8 for flash, 5, 8 and 9 for dense decode); each kernel
@@ -325,7 +367,9 @@ again as `<name>@gemma-2b`, timed in phase 2 at gemma-2b's shapes and
 counted over phase 6, or phase 7 for the flash kernels; and
 `paged_prefill_append@verify`, timed at the verify pass's shape and
 counted over phase 9's verify rounds, whose prefill slices count under
-`paged_prefill_append`), the card's name and power limit,
+`paged_prefill_append`; `int8_proj`, no Pallas kernel's port (it replaces
+the reference's `qdot`), timed as one llama3-8b decode layer's seven
+products and counted over phase 12), the card's name and power limit,
 and last `{"ok": true, "device": {...}}`.
 
 Exits non-zero without a result when CUDA is unavailable or the port's
@@ -521,7 +565,8 @@ def _time_ms(torch, fn, n):
     return t0.elapsed_time(t1) / n, eager_ms
 
 
-def _summary(kind, worst, kernel, plain, library_ms, bytes_moved, flops):
+def _summary(kind, worst, kernel, plain, library_ms, bytes_moved, flops,
+             library="SDPA"):
     """Log one kernel's timings and return its `kernels`-line numbers.
     The bound is the larger of bytes over the memory rate and flops over
     the bf16 tensor rate, for this run's inputs."""
@@ -530,7 +575,7 @@ def _summary(kind, worst, kernel, plain, library_ms, bytes_moved, flops):
     bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
                           else (t_ops, "operations"))
     log(f"  {kind}: device {kernel[0]:.4f} ms (eager call {kernel[1]:.4f} "
-        f"ms), plain {plain[0]:.4f} ms (eager {plain[1]:.4f}), SDPA "
+        f"ms), plain {plain[0]:.4f} ms (eager {plain[1]:.4f}), {library} "
         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
         f"({bytes_moved:.0f} B, {flops:.0f} flop)")
     return dict(max_abs_err=worst, ms=kernel[0], plain_ms=plain[0],
@@ -1295,6 +1340,155 @@ def check_flash(torch, dev, g=LLAMA_1B):
     return stats
 
 
+# -- phase 2, int8_proj -----------------------------------------------------
+
+# (K, N) of the seven block projections, by model (models/llama.py)
+def _proj_shapes(d, q, kv, ffn):
+    return {"wq": (d, q), "wk": (d, kv), "wv": (d, kv), "wo": (q, d),
+            "w_gate": (d, ffn), "w_up": (d, ffn), "w_down": (ffn, d)}
+
+
+INT8_SHAPES = {"llama3-8b": _proj_shapes(4096, 4096, 1024, 14336),
+               "llama3-1b": _proj_shapes(2048, 2048, 1024, 8192)}
+# (model, M): decode at 8 live rows (both models), the spec verify
+# pass's 8 rows x (gamma + 1) = 40 and one 64-token prefill slice
+# (llama3-1b); then the prefill shapes of phase 12: llama3-8b's 300-token
+# probe and its 8-row window batch left-padded to 300 tokens (2400), and
+# a llama3-1b slice group of 8 rows x 64 tokens (512)
+INT8_CASES = (("llama3-8b", 8), ("llama3-1b", 8), ("llama3-1b", 40),
+              ("llama3-1b", 64), ("llama3-8b", 300), ("llama3-8b", 2400),
+              ("llama3-1b", 512))
+INT8_LAYERS = {"llama3-8b": 32, "llama3-1b": 16}
+# No operand is rounded (int8 -> bf16 is exact, h is bf16). The kernel
+# rounds its fp32 sum once, after the scale; the plain version rounds the
+# product to bf16 and then the scaled value, so the two land within one
+# bf16 ulp of each other, <= 2^-7 |ref|. The two sum in other orders in
+# fp32: 2^-12 mag, with mag = (|h| @ |q|) * scale, leaves that far more
+# room than it needs (K 2^-24 mag at most) and is still seen by a kernel
+# whose accumulators are rounded to bf16 after each K tile (the control).
+INT8_SUM_ORDER = 2**-12
+INT8_TOL_TEXT = ("tol 1e-4 max|ref| + 2^-7 |ref| + 2^-12 mag, mag = "
+                 "(|h| @ |q|) scale")
+L2_BYTES = 50 * 2**20              # H100 L2: timed weights cycle past it
+
+
+def _int8_ratio(got, want, mag):
+    g, w = got.float(), want.float()
+    bound = (1e-4 * w.abs().max() + 2**-7 * w.abs()
+             + INT8_SUM_ORDER * mag)
+    return float(((g - w).abs() / bound).max())
+
+
+def _int8_bf16_accumulators(torch, h, q, scale):
+    """The control: the product with its accumulators rounded to bf16
+    after each K tile of 64 (fp32 within a tile), then scaled."""
+    acc = torch.zeros(h.shape[0], q.shape[1], dtype=torch.bfloat16,
+                      device=h.device)
+    for k0 in range(0, q.shape[0], 64):
+        acc = (acc.float() + h[:, k0:k0 + 64].float()
+               @ q[k0:k0 + 64].float()).to(torch.bfloat16)
+    return (acc.float() * scale.float()).to(torch.bfloat16)
+
+
+def check_int8_proj(torch, dev):
+    """The int8 projection kernel against its plain version at every
+    projection of INT8_CASES (a bf16 weight of the model's init, its
+    per-channel int8 quantization, bf16 activations), under the int8
+    bound, which must also fail the bf16-accumulator control; then each
+    timed (CUDA-graph replay, the call cycling over as many copies of the
+    weight as exceed the L2) beside the plain version and the library
+    call the bf16 path runs: torch.matmul of the same h by the bf16
+    weight. The plain version is computed for the check with cuBLAS held
+    to fp32 reductions (no bf16 split-K reduction). -> the `kernels`-line
+    numbers of one llama3-8b decode layer (the seven products at M = 8,
+    summed)."""
+    from kubeflow_tpu_torch.ops.cuda import int8_proj as ip
+    from kubeflow_tpu_torch.serving.quant import quantize
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    worst = 0.0
+    layer = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, flops=0)
+    matmul = torch.backends.cuda.matmul
+    for model, m in INT8_CASES:
+        seven = dict(ms=0.0, library_ms=0.0, ratio=0.0,
+                     control=float("inf"))
+        for name, (k, n) in INT8_SHAPES[model].items():
+            w = (torch.randn(k, n, generator=gen, device=dev)
+                 * k**-0.5).to(torch.bfloat16)
+            qt = quantize(w)
+            h = torch.randn(m, k, generator=gen, device=dev).to(
+                torch.bfloat16)
+            got = ip.int8_proj(h, qt.q, qt.scale)
+            reduced = matmul.allow_bf16_reduced_precision_reduction
+            matmul.allow_bf16_reduced_precision_reduction = False
+            want = ip.int8_proj_plain(h, qt.q, qt.scale)
+            matmul.allow_bf16_reduced_precision_reduction = reduced
+            control = _int8_bf16_accumulators(torch, h, qt.q, qt.scale)
+            torch.cuda.synchronize()
+            mag = (h.float().abs() @ qt.q.float().abs()) * qt.scale.float()
+            err = float((got.float() - want.float()).abs().max())
+            ratio = _int8_ratio(got, want, mag)
+            c_ratio = _int8_ratio(control, want, mag)
+            worst = max(worst, err)
+            if ratio > 1:
+                fail(f"int8_proj at {model} {name} M {m}: error {err:.3e} "
+                     f"is {ratio:.2f}x the bound ({INT8_TOL_TEXT})")
+            if c_ratio <= 1:
+                fail(f"the int8 bound cannot see bf16 accumulators at "
+                     f"{model} {name} M {m}: {c_ratio:.2f}")
+            wbytes = k * n
+            copies = -(-2 * L2_BYTES // wbytes)
+            qs = [qt.q] + [qt.q.clone() for _ in range(copies - 1)]
+            ws = [w] + [w.clone() for _ in range(copies - 1)]
+            n_calls = max(10, copies)
+            kern = _time_ms(torch, lambda i: ip.int8_proj(
+                h, qs[i % copies], qt.scale), n_calls)
+            plain = _time_ms(torch, lambda i: ip.int8_proj_plain(
+                h, qs[i % copies], qt.scale), n_calls)
+            lib = _time_ms(torch, lambda i: torch.matmul(
+                h, ws[i % copies]), n_calls)[0]
+            moved = wbytes + 2 * n + 2 * m * k + 2 * m * n
+            flops = 2 * m * n * k
+            bound = max(moved / HBM_BYTES_S, flops / BF16_FLOPS_S) * 1e3
+            splits = ip._lib().kft_int8_proj_splits(m, n, k)
+            log(f"  int8_proj {model} {name} [{m} x {k}] @ [{k} x {n}]: "
+                f"max_abs_err {err:.3e} ({ratio:.3f} of the bound; bf16-"
+                f"accumulator control {c_ratio:.2f}), {splits} split(s); "
+                f"device {kern[0]:.4f} ms (eager call {kern[1]:.4f}), "
+                f"{bound / kern[0]:.1%} of the int8 bound {bound:.4f} ms; "
+                f"bf16 torch.matmul {lib:.4f} ms ({lib / kern[0]:.2f}x the "
+                f"kernel's time); plain {plain[0]:.4f} ms")
+            seven["ms"] += kern[0]
+            seven["library_ms"] += lib
+            seven["ratio"] = max(seven["ratio"], ratio)
+            seven["control"] = min(seven["control"], c_ratio)
+            if (model, m) == ("llama3-8b", 8):
+                layer["ms"] += kern[0]
+                layer["plain_ms"] += plain[0]
+                layer["library_ms"] += lib
+                layer["bytes"] += moved
+                layer["flops"] += flops
+            del qs, ws, w, qt, h, got, want, control, mag
+            torch.cuda.empty_cache()
+        layers = INT8_LAYERS[model]
+        log(f"  int8_proj {model} M {m}, a layer's seven products: device "
+            f"{seven['ms']:.4f} ms against bf16 torch.matmul "
+            f"{seven['library_ms']:.4f} ms; x {layers} layers "
+            f"{seven['ms'] * layers:.3f} ms against "
+            f"{seven['library_ms'] * layers:.3f} ms; err/tol max "
+            f"{seven['ratio']:.3f}, control min {seven['control']:.2f}")
+    log(f"  int8_proj: every case within {INT8_TOL_TEXT}; every "
+        f"bf16-accumulator control outside it")
+    st = _summary("int8_proj, one llama3-8b decode layer's seven products "
+                  "at M 8 (eager: not summed)", worst,
+                  (layer["ms"], 0.0), (layer["plain_ms"], 0.0),
+                  layer["library_ms"], layer["bytes"], layer["flops"],
+                  library="bf16 torch.matmul")
+    log(f"    {st['bound_ms'] / st['ms']:.1%} of the bound; "
+        f"{st['library_ms'] / st['ms']:.2f}x bf16 torch.matmul's time")
+    return st
+
+
 # -- phase 3 ----------------------------------------------------------------
 
 
@@ -1415,6 +1609,9 @@ async def serve_and_check(torch, chunked: bool, model: str = "llama3-1b"):
                 f"{prefills} prefill groups, {replays} graph replays; "
                 f"kernel launches {counts}")
             its = max(batcher.iterations, 1)
+            if chunked and model == "llama3-1b":
+                MEASURED["phase3_step_ms"] = round(
+                    batcher.decode_s / max(calls, 1) * 1e3, 3)
             log(f"  batcher (host clock): {batcher.iterations} worker "
                 f"iterations, {serve_s / its * 1e3:.2f} ms each; decode "
                 f"(dispatch + wait) {batcher.decode_s:.3f} s over {calls} "
@@ -2159,9 +2356,12 @@ async def serve_dense_and_check(torch, name="llama3-8b", spec=True):
             prof_s = time.perf_counter() - t
         busy[n] = sum(_dev_us(e) for e in _device_events(prof))
     _report_profile(prof, prof_s, top=10)
+    dev_step_ms = (busy[DENSE_MAX_NEW] - busy[1]) / (DENSE_MAX_NEW - 1) / 1e3
+    if name == "llama3-8b":
+        MEASURED["phase5_step_ms"] = dev_step_ms
     log(f"  device time per decode step of the window batch: "
-        f"{(busy[DENSE_MAX_NEW] - busy[1]) / (DENSE_MAX_NEW - 1) / 1e3:.3f} "
-        f"ms (profiled calls to {DENSE_MAX_NEW} and to 1 token)")
+        f"{dev_step_ms:.3f} ms (profiled calls to {DENSE_MAX_NEW} and to 1 "
+        f"token)")
     return counts
 
 
@@ -4158,10 +4358,432 @@ def _nodes(radix):
     return out
 
 
+# -- phase 12 ---------------------------------------------------------------
+
+QUANT_REL = 0.05          # int8 vs bf16 logits: the reference's own bound
+LORA_NAMES = ("alice", "bob", "carol")
+LORA_RANK, LORA_ALPHA = 8, 16.0
+# phase 12b's eight concurrent rows: prompt length and adapter ("" base)
+LORA_ROWS = ((17, ""), (130, "alice"), (300, "bob"), (45, "carol"),
+             (60, ""), (90, "alice"), (200, "bob"), (17, "carol"))
+ISOLATION_LEN = 200       # the prompt served as base, alice, alice again
+# phase 3's and phase 5's bf16 numbers, printed beside phase 12's
+MEASURED: dict = {}
+
+
+def _reckon_param_bytes(cfg) -> int:
+    """Device bytes of llama params under --quant int8: each block matrix
+    int8 plus a bf16 scale per output channel; norms, embedding and head
+    fp32 (the serving storage rule)."""
+    L, D, ffn = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+    shapes = _proj_shapes(D, cfg.q_dim, cfg.kv_dim, ffn).values()
+    blocks = sum(L * (k * n + 2 * n) for k, n in shapes)
+    head = 0 if cfg.tie_embeddings else D * cfg.vocab_size * 4
+    return blocks + (2 * L * D + D) * 4 + cfg.vocab_size * D * 4 + head
+
+
+def _profiled_step_ms(torch, engine, prompts, max_new):
+    """Device ms a decode step of the window batch (the prompts
+    left-padded to one row each): profiled calls to 1 and to `max_new`
+    tokens, the difference of their device time over max_new - 1."""
+    from torch.profiler import ProfilerActivity, profile
+
+    width = max(len(p) for p in prompts)
+    arr = torch.zeros(len(prompts), width, dtype=torch.long)
+    mask = torch.zeros(len(prompts), width, dtype=torch.bool)
+    for r, p in enumerate(prompts):
+        arr[r, width - len(p):] = torch.tensor(p)
+        mask[r, width - len(p):] = True
+    busy = {}
+    for n in (1, max_new):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            engine.generate(arr, prompt_mask=mask, max_new=n)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        busy[n] = sum(_dev_us(e) for e in _device_events(prof))
+    _report_profile(prof, wall, top=6)
+    return (busy[max_new] - busy[1]) / (max_new - 1) / 1e3
+
+
+async def quant_oneshot_and_check(torch):
+    """Phase 12a: llama3-8b under `--quant int8` in the reference's
+    default mode, through the CLI's app: the block matrices int8 on the
+    card, the prefill logits against the bf16 model's, the window batch
+    through `int8_proj` with exact launches and no capture in traffic,
+    the served logprobs against a teacher-forced plain pass over the same
+    int8 weights, an adapter refused (no pack)."""
+    import aiohttp
+    from aiohttp import web
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.serving.__main__ import build_app, parse_args
+    from kubeflow_tpu_torch.serving.engine import (
+        LLAMA_FAMILY,
+        EngineConfig,
+        InferenceEngine,
+    )
+    from kubeflow_tpu_torch.serving.quant import (
+        BLOCK_MATMUL_WEIGHTS,
+        QTensor,
+        param_bytes,
+    )
+    from kubeflow_tpu_torch.serving.server import BATCHERS_KEY, ENGINES_KEY
+
+    name, cfg = "llama3-8b", llama.LLAMA3_8B
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(6)
+
+    def prompt(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+
+    prompts = [prompt(n) for n in DENSE_PROMPTS[:-1]]
+    prompts.append(prompts[0])        # the repeated prompt
+    probe = torch.tensor([prompts[6]], device=dev)    # 300 tokens
+
+    def prefill_logits(engine):
+        with torch.inference_mode():
+            logits, _ = engine._forward_cached(probe, engine.init_state(1),
+                                               return_all=True)
+        return logits[0]
+
+    t0 = time.perf_counter()
+    bf16 = InferenceEngine(llama.init(cfg, 0, dev), cfg, LLAMA_FAMILY,
+                           EngineConfig(max_len=MAX_LEN), device=dev)
+    bf16_bytes = param_bytes(bf16.params)
+    ref = prefill_logits(bf16)
+    del bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    port = _free_port()
+    app = build_app(parse_args([
+        "--model", name, "--random", "--seed", "0", "--quant", "int8",
+        "--batch-window-ms", str(WINDOW_MS), "--max-batch", str(DENSE_B),
+        "--host", "127.0.0.1", "--port", str(port)]))
+    engine, batcher = app[ENGINES_KEY][name], app[BATCHERS_KEY][name]
+    torch.cuda.synchronize()
+    log(f"  bf16 reference logits and the CLI's app (--quant int8) built "
+        f"in {time.perf_counter() - t0:.1f} s")
+    for k in BLOCK_MATMUL_WEIGHTS:
+        w = engine.params["blocks"][k]
+        if not (isinstance(w, QTensor) and w.q.dtype == torch.int8
+                and w.q.is_cuda and w.scale.dtype == torch.bfloat16):
+            fail(f"--quant int8: block matrix {k} is {w!r}, not int8 on "
+                 f"the card")
+    got_bytes, want_bytes = param_bytes(engine.params), \
+        _reckon_param_bytes(cfg)
+    log(f"  param bytes {got_bytes} (reckoned {want_bytes}; bf16 "
+        f"{bf16_bytes}: {got_bytes / bf16_bytes:.3f}x)")
+    if got_bytes != want_bytes:
+        fail(f"--quant int8 param bytes {got_bytes}, reckoned {want_bytes}")
+    reset_launch_counts()
+    logits = prefill_logits(engine)
+    torch.cuda.synchronize()
+    n_fwd = launch_counts()["int8_proj"]
+    err, scale = float((logits - ref).abs().max()), float(ref.abs().max())
+    log(f"  prefill logits (300 tokens) vs the bf16 model's: max_abs_err "
+        f"{err:.4f}, {err / scale:.4f} of max|l| {scale:.3f} (bound "
+        f"{QUANT_REL}); int8_proj {n_fwd} launches a forward")
+    if n_fwd != 7 * cfg.num_layers:
+        fail(f"int8 forward: {n_fwd} int8_proj launches, the design "
+             f"implies {7 * cfg.num_layers}")
+    if err > QUANT_REL * scale:
+        fail(f"int8 prefill logits part from bf16's by {err / scale:.4f} "
+             f"of max|l| (bound {QUANT_REL})")
+    del ref, logits
+    # the CLI refuses --warmup without --continuous, as the reference's
+    # does; the decode graphs are warmed here as create_serving_app(
+    # warmup=True) warms them: rows 1, 2, 4, 8 x 3 sampling keys
+    t0 = time.perf_counter()
+    engine.warmup((1, 2, 4, 8))
+    log(f"  warmup {time.perf_counter() - t0:.2f} s captured "
+        f"{engine.captures} CUDA graphs")
+    runner = web.AppRunner(app)
+    await runner.setup()
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    url = f"http://127.0.0.1:{port}/v1/models/{name}:generate"
+    try:
+        async with aiohttp.ClientSession() as sess:
+            async def post(body, status=200):
+                async with sess.post(url, json=body) as r:
+                    if r.status != status:
+                        fail(f":generate returned {r.status} (want "
+                             f"{status}): {await r.text()}")
+                    return await r.json()
+
+            await post({"tokens": [prompts[0]], "max_new": 2})   # uncounted
+            body = await post({"tokens": [prompts[0]], "max_new": 2,
+                               "adapter": "alice"}, 400)
+            if "has no adapters loaded" not in body["error"]:
+                fail(f"adapter without a pack: {body}")
+            calls0 = batcher.calls
+            captures, replays0 = engine.captures, engine.replays
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            window = await asyncio.gather(*(post(
+                {"tokens": [p], "max_new": DENSE_MAX_NEW, "logprobs": True})
+                for p in prompts))
+            window_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            calls = batcher.calls - calls0
+            replays = engine.replays - replays0
+    finally:
+        await runner.cleanup()
+    log(f"  window: {len(prompts)} requests in {window_s:.3f} s as {calls} "
+        f"batcher call(s), {replays} graph replays, "
+        f"{engine.captures - captures} captures in traffic; kernel "
+        f"launches {counts}")
+    L, steps = cfg.num_layers, DENSE_MAX_NEW - 1
+    want = {"int8_proj": 7 * L * (1 + steps) * calls,
+            "decode_attention": L * steps * calls}
+    for k, n in counts.items():
+        if n != want.get(k, 0):
+            fail(f"phase 12a {k}: {n} launches, the design implies "
+                 f"{want.get(k, 0)} (7 x {L} a forward and a decode step, "
+                 f"{L} decode attention a step, {steps} steps a call, "
+                 f"{calls} calls)")
+    if engine.captures != captures or replays != steps * calls:
+        fail(f"phase 12a: {engine.captures - captures} captures in "
+             f"traffic, {replays} replays (the design implies "
+             f"{steps * calls})")
+    outs = [b["tokens"][0] for b in window]
+    lps = [b["logprobs"][0] for b in window]
+    for o, lp in zip(outs, lps):
+        if len(o) != DENSE_MAX_NEW or len(lp) != len(o) \
+                or not all(0 <= t < cfg.vocab_size for t in o):
+            fail(f"malformed output {o} / {lp}")
+    if outs[0] != outs[-1]:
+        fail(f"repeated prompt gave different greedy tokens: {outs[0]} vs "
+             f"{outs[-1]}")
+    # teacher: llama.apply over the QTensor leaves, each dequantized at
+    # its use (q * scale in bf16), with no kernel
+    _teacher_check(torch, engine, prompts, outs, lps, "one-shot llama3-8b "
+                   "int8 (teacher: the plain pass over the int8 weights)")
+    step_ms = _profiled_step_ms(torch, engine, prompts, 9)
+    bf16_ms = MEASURED.get("phase5_step_ms")
+    log(f"  device time a decode step of the window batch (profiled calls "
+        f"to 9 and to 1 token): int8 {step_ms:.3f} ms; bf16 (phase 5, "
+        f"this run) "
+        f"{'not run' if bf16_ms is None else f'{bf16_ms:.3f} ms'}; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return counts
+
+
+def _lora_adapters(torch, cfg, dev, seed):
+    """Three adapter trees in the reference's layout and test recipe: A
+    fan-in-scaled truncated normal (init_lora's law), B normal x 0.05
+    (non-zero: a fresh B of 0 is the base), fp32 on the card."""
+    from kubeflow_tpu_torch.train.lora import _TARGET_DIMS
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name in LORA_NAMES:
+        blocks = {}
+        for t, (din, dout) in _TARGET_DIMS.items():
+            d_in, d_out = getattr(cfg, din), getattr(cfg, dout)
+            a = torch.empty(cfg.num_layers, d_in, LORA_RANK, device=dev)
+            torch.nn.init.trunc_normal_(a, 0.0, 1.0, -2.0, 2.0, generator=g)
+            blocks[t] = {"A": a * d_in**-0.5,
+                         "B": torch.randn(cfg.num_layers, LORA_RANK, d_out,
+                                          generator=g, device=dev) * 0.05}
+        out[name] = {"blocks": blocks}
+    return out
+
+
+def _merged_teacher(torch, engine, adapters, lcfg, name):
+    """The teacher of adapter `name`'s rows: a plain dense llama on the
+    engine's base (an int8 leaf dequantized in fp32) plus the scaled
+    delta, merged in fp32 and rounded to the serving dtype once."""
+    import types
+
+    from kubeflow_tpu_torch.serving.quant import QTensor
+    from kubeflow_tpu_torch.train.lora import merge_lora
+
+    cfg = engine.cfg
+    dense = {k: (w.q.float() * w.scale.float() if isinstance(w, QTensor)
+                 else w.float()) for k, w in engine.params["blocks"].items()
+             if k in adapters[LORA_NAMES[0]]["blocks"]}
+    base = {"blocks": dense}
+    if name:
+        base = merge_lora(base, adapters[name], lcfg)
+    blocks = dict(engine.params["blocks"])
+    blocks.update({k: w.to(cfg.dtype) for k, w in base["blocks"].items()})
+    del dense, base
+    return types.SimpleNamespace(params=dict(engine.params, blocks=blocks),
+                                 cfg=cfg, family=engine.family,
+                                 device=engine.device)
+
+
+async def adapters_and_check(torch, quant: bool):
+    """Phase 12b: llama3-1b continuous (8 slots, chunk 64, warmed, depth
+    2) with a pack of three adapters, in bf16 or under int8 weights:
+    eight concurrent rows mixing the base and the adapters, exact
+    launches, no capture in traffic, every row against the plain dense
+    model on its merged weights; the base-then-alice prompt keyed apart;
+    the reference's 400s."""
+    import aiohttp
+    from aiohttp import web
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.serving.engine import (
+        LLAMA_FAMILY,
+        EngineConfig,
+        InferenceEngine,
+    )
+    from kubeflow_tpu_torch.serving.multilora import build_pack
+    from kubeflow_tpu_torch.serving.quant import quantize_blocks
+    from kubeflow_tpu_torch.serving.server import (
+        BATCHERS_KEY,
+        create_serving_app,
+    )
+    from kubeflow_tpu_torch.train.lora import LoraConfig
+
+    name, cfg = "llama3-1b", llama.LLAMA3_1B
+    label = "int8" if quant else "bf16"
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lcfg = LoraConfig(rank=LORA_RANK, alpha=LORA_ALPHA)
+    adapters = _lora_adapters(torch, cfg, dev, 12)
+    params = llama.init(cfg, 0, dev)
+    if quant:
+        params = quantize_blocks(params)
+    pack = build_pack(cfg, lcfg, adapters, device=dev)
+    engine = InferenceEngine(params, cfg, LLAMA_FAMILY,
+                             EngineConfig(max_len=MAX_LEN), device=dev,
+                             adapter_pack=pack)
+    app = create_serving_app({name: engine}, continuous=True, warmup=True,
+                             max_batch=SLOTS, prefill_chunk_tokens=CHUNK,
+                             seed=0)
+    port = _free_port()
+    runner = web.AppRunner(app)
+    await runner.setup()              # on_startup: the batcher's warmup
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    batcher = app[BATCHERS_KEY][name]
+    graphs = batcher.cengine.graphs
+    captures = graphs.captures
+    log(f"  {label}: llama3-1b (seed 0) with a {len(LORA_NAMES)}-adapter "
+        f"pack (rank {LORA_RANK}, alpha {LORA_ALPHA}, seven targets, "
+        f"{pack.nbytes / 2**20:.1f} MiB) up in "
+        f"{time.perf_counter() - t0:.1f} s, {captures} graphs captured")
+    gen = torch.Generator().manual_seed(12)
+
+    def prompt(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+
+    rows = [(prompt(n), a) for n, a in LORA_ROWS]
+    iso = prompt(ISOLATION_LEN)
+    url = f"http://127.0.0.1:{port}/v1/models/{name}:generate"
+
+    def body(p, a, max_new=MAX_NEW, **kw):
+        return {"tokens": [p], "max_new": max_new, "logprobs": True,
+                **({"adapter": a} if a else {}), **kw}
+
+    try:
+        async with aiohttp.ClientSession() as sess:
+            async def post(b, status=200):
+                async with sess.post(url, json=b) as r:
+                    if r.status != status:
+                        fail(f":generate returned {r.status} (want "
+                             f"{status}): {await r.text()}")
+                    return await r.json()
+
+            batcher.calls = batcher.slices = 0
+            batcher.decode_s = 0.0
+            reset_launch_counts()
+            t1 = time.perf_counter()
+            served = await asyncio.gather(*(post(body(p, a))
+                                            for p, a in rows))
+            serve_s = time.perf_counter() - t1
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            calls, slices, hits = (batcher.calls, batcher.slices,
+                                   batcher.prefix_hits)
+            step_ms = batcher.decode_s / max(calls, 1) * 1e3
+            # the isolation wave, profiled: the prompt under the base,
+            # then alice (keyed apart: a miss), then alice again (a hit
+            # on her own blocks)
+            iso_out = []
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                for a in ("", "alice", "alice"):
+                    r0 = batcher.tokens_reused
+                    iso_out.append((a, await post(body(iso, a)),
+                                    batcher.tokens_reused - r0))
+                torch.cuda.synchronize()
+                prof_s = time.perf_counter() - t1
+            refusals = [({"adapter": "dave"}, "unknown adapter"),
+                        ({"adapter": 7}, "adapter must be a string"),
+                        ({"adapter": "bob", "speculative": True},
+                         "adapter does not compose with speculative")]
+            for extra, text in refusals:
+                got = await post({"tokens": [rows[0][0]], "max_new": 2,
+                                  **extra}, 400)
+                if text not in got["error"]:
+                    fail(f"phase 12b: {extra} answered {got}, want {text}")
+            new_captures = graphs.captures - captures
+    finally:
+        await runner.cleanup()
+    L = cfg.num_layers
+    want = {"paged_decode_attention": L * calls,
+            "paged_prefill_append": L * slices,
+            "int8_proj": 7 * L * (calls + slices) if quant else 0}
+    log(f"  {label}: {len(rows)} rows in {serve_s:.3f} s: {calls} decode "
+        f"steps dispatched, {slices} slices, {hits} prefix hits; host "
+        f"{step_ms:.2f} ms a decode step (phase 3, bf16, no pack, this "
+        f"run: {MEASURED.get('phase3_step_ms', 'not run')}); kernel "
+        f"launches {counts}")
+    for k, n in counts.items():
+        if n != want.get(k, 0):
+            fail(f"phase 12b ({label}) {k}: {n} launches, the design "
+                 f"implies {want.get(k, 0)} ({L} layers x {calls} steps / "
+                 f"{slices} slices; int8_proj 7 a layer)")
+    if slices != sum(-(-n // CHUNK) for n, _ in LORA_ROWS) or hits:
+        fail(f"phase 12b: {slices} slices, {hits} hits for cold prompts "
+             f"{[n for n, _ in LORA_ROWS]}")
+    if new_captures:
+        fail(f"phase 12b: traffic captured {new_captures} CUDA graphs")
+    (_, base_b, r_base), (_, a1, r_a1), (_, a2, r_a2) = iso_out
+    want_reused = (ISOLATION_LEN + MAX_NEW - 1) // BS * BS
+    log(f"  isolation: base reused {r_base} cells, alice after the base "
+        f"{r_a1} (keyed apart), alice again {r_a2} (reckoned "
+        f"{want_reused}); alice's tokens equal on the repeat: "
+        f"{a1['tokens'] == a2['tokens']}; base and alice differ: "
+        f"{base_b['tokens'] != a1['tokens']}")
+    if (r_base, r_a1, r_a2) != (0, 0, want_reused):
+        fail(f"phase 12b isolation: cells reused {r_base}/{r_a1}/{r_a2}, "
+             f"the keys reckon 0/0/{want_reused}")
+    if a1["tokens"] != a2["tokens"]:
+        fail("phase 12b: alice's repeat gave other tokens")
+    _report_profile(prof, prof_s)
+    groups = {a: [] for a in ("",) + LORA_NAMES}
+    for (p, a), b in zip(rows, served):
+        groups[a].append((p, b["tokens"][0], b["logprobs"][0]))
+    for a, b in (("", base_b), ("alice", a1), ("alice", a2)):
+        groups[a].append((iso, b["tokens"][0], b["logprobs"][0]))
+    for a, items in groups.items():
+        teacher = _merged_teacher(torch, engine, adapters, lcfg, a)
+        _teacher_check(torch, teacher, *map(list, zip(*items)),
+                       f"{label} {a or 'base'} rows (teacher: merged "
+                       f"{'dequantized ' if quant else ''}weights)")
+        del teacher
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return counts
+
+
 # the port's own kernels, as the profiler names them
 PORT_KERNELS = ("decode_split_kernel", "decode_combine_kernel",
                 "prefill_attention_", "scatter_kernel", "flash_fwd_",
-                "flash_dq_", "flash_dkv_")
+                "flash_dq_", "flash_dkv_", "int8_proj_")
 
 
 def _dev_us(e):
@@ -4261,6 +4883,9 @@ def main() -> None:
         log("phase 2, gemma-2b verify: the verify pass's shape at head dim "
             "256, group 8")
         check_verify(torch, dev, GEMMA_2B)
+        log("phase 2, int8_proj: the int8-weight projection at llama3-8b's "
+            "and llama3-1b's projection shapes")
+        stats["int8_proj"] = check_int8_proj(torch, dev)
 
     def add(got: dict, suffix: str = "", prefix: str = "") -> None:
         for name, n in got.items():
@@ -4358,6 +4983,20 @@ def main() -> None:
         add(asyncio.run(fleet_and_check(torch)))
         tidy()
 
+    if run("12"):
+        t12 = time.perf_counter()
+        log("phase 12a: llama3-8b one-shot under --quant int8 (the "
+            "int8_proj kernel)")
+        add(asyncio.run(quant_oneshot_and_check(torch)), prefix="int8")
+        tidy()
+        for quant in (False, True):
+            log(f"phase 12b: llama3-1b continuous with a LoRA adapter pack "
+                f"({'int8' if quant else 'bf16'} weights)")
+            add(asyncio.run(adapters_and_check(torch, quant)),
+                prefix="int8")
+            tidy()
+        log(f"phase 12 {time.perf_counter() - t12:.1f} s")
+
     log(f"total {time.perf_counter() - t_all:.1f} s")
     if only:
         log(f"partial run (phases {sorted(only)}): no result line")
@@ -4385,6 +5024,9 @@ def main() -> None:
                  "flash_attention_dkv", "decode_attention"):
         meta[name + GEMMA] = meta[name]
     meta["paged_prefill_append" + VERIFY] = meta["paged_prefill_append"]
+    # no Pallas kernel: the card's counterpart of the reference's qdot
+    meta["int8_proj"] = ("kubeflow_tpu_torch/csrc/int8_proj.cu",
+                         "kubeflow_tpu/serving/quant.py:77")
     kernels = []
     for name, (source, replaces) in meta.items():
         s = stats[name]

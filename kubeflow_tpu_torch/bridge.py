@@ -7,7 +7,11 @@ embedding), so the bridge only moves arrays and sets dtypes, by the
 serving storage rule both models share (`llama.leaf_dtype`, which
 `gemma` imports). It takes the tree with every leaf already converted
 to a numpy array (the caller does `jax.tree.map(np.asarray, params)`),
-so this module needs no JAX.
+so this module needs no JAX. A quantized tree (the reference's
+`quantize_blocks`) comes with each `QTensor` leaf flattened by the
+caller to `{"q": int8, "scale": float32}` numpy arrays, and becomes the
+port's `QTensor` (its bf16 scale widened to float32 and back is exact).
+`pack_from_jax` carries a reference `AdapterPack` across.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch.models.llama import MATRICES, leaf_dtype
+from kubeflow_tpu_torch.serving.multilora import AdapterPack
+from kubeflow_tpu_torch.serving.quant import QTensor
 
 
 def from_jax(params: dict, cfg, device: torch.device | str,
@@ -23,9 +29,15 @@ def from_jax(params: dict, cfg, device: torch.device | str,
     """numpy param tree -> torch params on `device`, for a LlamaConfig or
     a GemmaConfig `cfg`. Block matrices go to `dtype` (default:
     cfg.dtype, the dtype the reference casts them to at every use),
-    every other leaf to fp32."""
+    every other leaf to fp32. A `{"q", "scale"}` block leaf becomes a
+    QTensor: q int8, scale bf16."""
 
     def conv(name, arr):
+        if isinstance(arr, dict):
+            return QTensor(
+                torch.from_numpy(np.array(arr["q"], np.int8)).to(device),
+                torch.from_numpy(np.array(arr["scale"], np.float32)).to(
+                    device=device, dtype=torch.bfloat16))
         want = leaf_dtype(cfg, name)
         if dtype is not None and name in MATRICES:
             want = dtype
@@ -35,6 +47,25 @@ def from_jax(params: dict, cfg, device: torch.device | str,
     out = {k: conv(k, v) for k, v in params.items() if k != "blocks"}
     out["blocks"] = {k: conv(k, v) for k, v in params["blocks"].items()}
     return out
+
+
+def pack_from_jax(pack, device: torch.device | str,
+                  dtype: torch.dtype | None = None) -> AdapterPack:
+    """A reference `AdapterPack` (its `blocks` arrays in the same
+    layer-leading layout) as the port's, on `device`, each tensor in
+    `dtype` (default: the array's own float width)."""
+
+    def conv(arr):
+        arr = np.asarray(arr)
+        want = dtype or (torch.bfloat16 if arr.dtype.name == "bfloat16"
+                         else torch.float32)
+        return torch.from_numpy(np.array(arr, np.float32)).to(
+            device=device, dtype=want)
+
+    return AdapterPack(
+        blocks={t: {"A": conv(ab["A"]), "B": conv(ab["B"])}
+                for t, ab in pack.blocks.items()},
+        scaling=float(pack.scaling), names=dict(pack.names))
 
 
 def to_numpy(params: dict) -> dict:

@@ -5,6 +5,8 @@ Serving:
 - `paged_attention.paged_decode_attention` (csrc/paged_decode_attention.cu)
 - `prefill_append.paged_prefill_append` (csrc/paged_prefill_append.cu)
 - `decode_attention.decode_attention` (csrc/decode_attention.cu)
+- `int8_proj.int8_proj` (csrc/int8_proj.cu): the weight-only int8
+  projection of `serving/quant.py::qdot`, which no Pallas kernel has
 
 Training:
 - `flash_attention.flash_block_fwd` (csrc/flash_attention_fwd.cu)
@@ -17,6 +19,7 @@ from __future__ import annotations
 from kubeflow_tpu_torch.ops.cuda import (
     decode_attention,
     flash_attention,
+    int8_proj,
     paged_attention,
     prefill_append,
 )
@@ -29,6 +32,7 @@ _COUNTERS = {
     "flash_attention_dq": (flash_attention, "dq_launches"),
     "flash_attention_dkv": (flash_attention, "dkv_launches"),
     "decode_attention": (decode_attention, "launches"),
+    "int8_proj": (int8_proj, "launches"),
 }
 
 

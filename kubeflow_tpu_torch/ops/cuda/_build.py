@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("paged_decode_attention", "paged_prefill_append",
            "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
-           "decode_attention")
+           "decode_attention", "int8_proj")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -82,18 +82,21 @@ def build_all(names=KERNELS) -> float:
     return time.perf_counter() - t0
 
 
-def load(name: str, argtypes) -> ctypes.CDLL:
+def load(name: str, argtypes, extra=None) -> ctypes.CDLL:
     """The library of kernel source `name`, built if missing, with the
-    C entry point `kft_<name>` declared (`argtypes`, int return)."""
+    C entry point `kft_<name>` declared (`argtypes`, int return), and
+    each other entry point of `extra` ({symbol: argtypes}, int return)."""
     lib = _libs.get(name)
     if lib is None:
         build_all((name,))
         lib = ctypes.CDLL(str(_lib_path(name)))
         lib.kft_error_string.argtypes = [ctypes.c_int]
         lib.kft_error_string.restype = ctypes.c_char_p
-        fn = getattr(lib, f"kft_{name}")
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for sym, types in {f"kft_{name}": argtypes,
+                           **(extra or {})}.items():
+            fn = getattr(lib, sym)
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
         _libs[name] = lib
     return lib
 

@@ -9,6 +9,8 @@ kubeflow_tpu/serving/__main__.py).
         --continuous --warmup
     python -m kubeflow_tpu_torch.serving --model llama3-1b \\
         --checkpoint /ckpt/run7 --tokenizer auto --continuous --warmup
+    python -m kubeflow_tpu_torch.serving --model llama3-1b \\
+        --checkpoint /ckpt/run7 --continuous --warmup --quant int8
     python -m kubeflow_tpu_torch.serving --model llama3-8b --random \\
         --continuous --warmup --prefill-chunk-tokens 64 --spec-decode \\
         --draft-model llama3-1b --spec-gamma 4
@@ -45,7 +47,11 @@ phases, by default); `--fleet-router URL` registers the replica with a
 fleet router and heartbeats its stats there, `--advertise URL` (default
 `http://HOST:PORT`) is where the router reaches it; `--model-version`
 labels the boot weights, which `POST /v1/reload` replaces live from
-`{"checkpoint": dir, "step": n}` or `{"seed": n}`.
+`{"checkpoint": dir, "step": n}` or `{"seed": n}`. `--quant int8` serves
+the seven block matrices as int8 with a bf16 scale per output channel
+(serving/quant.py), quantized after the load and again after every
+reload; their products run through the `int8_proj` kernel on the card.
+The draft model is not quantized.
 
 Weights: `--checkpoint DIR` (a train/checkpoint.py `Checkpointer`
 directory: the newest committed step's params, the optimizer's moments
@@ -165,6 +171,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--advertise", default="",
                    help="URL the fleet router should reach this replica "
                         "at (default http://HOST:PORT)")
+    p.add_argument("--quant", choices=("", "int8"), default="",
+                   help="weight-only quantization of the block matrices "
+                        "after the load (int8: symmetric, per output "
+                        "channel); the draft model stays as loaded")
     p.add_argument("--model-version", default="",
                    help="version label of the boot weights (rides in "
                         "fleet heartbeats; POST /v1/reload replaces it)")
@@ -211,16 +221,30 @@ def _load_params(checkpoint: str, seed: int, cfg, init, device):
         raise SystemExit(str(e)) from None
 
 
-def _make_reloader(init, cfg, device):
+def _quantized(params, quant: str):
+    """The boot and reload weights under `--quant`."""
+    if quant == "int8":
+        from kubeflow_tpu_torch.serving.quant import quantize_blocks
+
+        return quantize_blocks(params)
+    return params
+
+
+def _make_reloader(init, cfg, device, quant: str = ""):
     """`/v1/reload`'s weight materializer for this process: `{"seed":
     n}` draws the model's random params on `device` from torch's
     generator (seed n gives other values than the reference's JAX draw:
     the same law), `{"checkpoint": dir, "step": n}` loads through the
     boot loader. Either way the params are staged on the host, leaf by
     leaf, and the server copies them into the live tensors: the card
-    never holds a second copy of the weights."""
+    never holds a second copy of the weights. Under `--quant` they are
+    quantized as boot quantizes them (on the host), so a reload never
+    de-quantizes the server."""
 
     def reload(name, engine, source):
+        return _quantized(_load(source), quant)
+
+    def _load(source):
         if "seed" in source:
             return init(cfg, int(source["seed"]), device, store="cpu")
         checkpoint = source.get("checkpoint", "")
@@ -276,7 +300,9 @@ def build_app(args: argparse.Namespace):
     device = resolve_device("cpu" if args.cpu else None)
     cfg, init, family = model_registry()[args.model]
     ec = EngineConfig(max_len=args.max_len, eos_token=args.eos)
-    params = _load_params(args.checkpoint, args.seed, cfg, init, device)
+    params = _quantized(
+        _load_params(args.checkpoint, args.seed, cfg, init, device),
+        args.quant)
     engine = InferenceEngine(params, cfg, family, ec, device=device)
     drafts = None
     if args.spec_decode:
@@ -304,7 +330,7 @@ def build_app(args: argparse.Namespace):
         spec_decode=args.spec_decode, spec_gamma=args.spec_gamma,
         seed=args.seed, tenancy=tenancy, drain_grace_s=args.drain_grace_s,
         pool=args.pool, model_version=args.model_version,
-        reloader=_make_reloader(init, cfg, device))
+        reloader=_make_reloader(init, cfg, device, args.quant))
     if args.fleet_router:
         enable_fleet_registration(
             app, args.fleet_router,

@@ -75,6 +75,16 @@ wire record (serving/migration.py) with its full KV blocks;
 `import_sequence` scatters a record's blocks into the pool and indexes
 them, so the re-issued generation resumes from them. The reference's
 peer block fetch on admission is not ported yet.
+
+With an adapter pack on the engine (serving/multilora.py), every slot
+carries an adapter id (`SlotState.aid`, 0 = the plain base), set at
+admission; the decode step and the prefill slices add each row's
+low-rank delta inside the captured graphs, and a request names its
+adapter in the sampling channel (`"adapter"`). The radix tree, the
+spill tier and imported blocks are keyed by (namespace, adapter id)
+(`cache_ns`): K/V computed under one adapter is never reused under
+another, where the reference keys by namespace alone and serves an
+adapter request over a base request's cells.
 """
 
 from __future__ import annotations
@@ -129,6 +139,14 @@ log = logging.getLogger(__name__)
 GREEDY = {"temperature": 0.0, "top_k": 0, "top_p": 1.0}
 
 
+def cache_ns(ns: str, aid: int) -> str:
+    """The radix / spill-tier namespace of K/V computed under adapter id
+    `aid` in tenant namespace `ns`: `ns` itself for the base (0), so the
+    base keeps its keys; apart for every adapter, whose `wk`/`wv` deltas
+    make other cells."""
+    return ns if not aid else f"{ns}\x00adapter{int(aid)}"
+
+
 def pow2_ceil(n: int) -> int:
     """Smallest power of two >= n (n >= 1)."""
     p = 1
@@ -159,7 +177,7 @@ class SlotState:
     updated in place by the engine."""
 
     def __init__(self, k, v, length, offset, pad, tok, block_table,
-                 frozen):
+                 frozen, aid):
         self.k = k            # [L, num_blocks, block_size, n_kv, hd]
         self.v = v            # (block 0 is the trash block)
         self.length = length  # [S] int32 — filled cache cells per row
@@ -172,6 +190,7 @@ class SlotState:
         # [S] bool — mid-chunked-prefill rows: a decode step writes their
         # K/V to the trash block and leaves their cursors alone
         self.frozen = frozen
+        self.aid = aid        # [S] int64 — adapter id per row (0 = base)
 
 
 class DraftSlots:
@@ -275,6 +294,11 @@ class ContinuousEngine:
                     f"draft max_len {draft.ec.max_len} < target "
                     f"max_len {engine.ec.max_len}: the draft cache row "
                     "must cover every target cursor position")
+            if engine.adapter_pack is not None:
+                raise ValueError(
+                    "speculative decoding does not compose with a "
+                    "multi-LoRA adapter pack (the verify pass would "
+                    "score base-model logits against adapter rows)")
         self.draft = draft
         if block_size < 2 or block_size & (block_size - 1):
             raise ValueError(
@@ -339,7 +363,7 @@ class ContinuousEngine:
             zeros(*shape, dtype=cfg.dtype), zeros(*shape, dtype=cfg.dtype),
             zeros(S), zeros(S), zeros(S, self.kv_width, dtype=torch.bool),
             zeros(S), zeros(S, self.blocks_per_slot),
-            zeros(S, dtype=torch.bool))
+            zeros(S, dtype=torch.bool), zeros(S, dtype=torch.int64))
 
     @torch.inference_mode()
     def slots(self) -> SlotState:
@@ -379,7 +403,7 @@ class ContinuousEngine:
             return
         st = self._st
         for t in (st.length, st.offset, st.pad, st.tok, st.block_table,
-                  st.frozen):
+                  st.frozen, st.aid):
             t.zero_()
         if self._dst is not None:
             self._dst.length.zero_()
@@ -402,20 +426,23 @@ class ContinuousEngine:
         st.offset[idx] = 0
         st.pad[idx] = False
         st.frozen[idx] = False
+        st.aid[idx] = 0
         return st
 
     @torch.inference_mode()
     def adopt_slot(self, st: SlotState, slot: int, table, seed_len: int,
-                   tok: int) -> SlotState:
+                   tok: int, aid: int = 0) -> SlotState:
         """Point `slot` at its planned block `table` with `seed_len`
         cells already holding KV, FROZEN for chunked prefill until
-        `append_rows` has fed the rest of its prompt."""
+        `append_rows` has fed the rest of its prompt; `aid` is its
+        adapter id."""
         st.length[slot] = seed_len
         st.offset[slot] = 0
         st.pad[slot] = False
         st.tok[slot] = tok
         stage(st.block_table[slot], table)
         st.frozen[slot] = True
+        st.aid[slot] = aid
         return st
 
     @torch.inference_mode()
@@ -504,13 +531,15 @@ class ContinuousEngine:
     @torch.inference_mode()
     def prefill_batch(self, token_lists: list[list[int]], bucket: int,
                       samplings: list[dict], gen: torch.Generator,
-                      prefix_state=None):
+                      prefix_state=None, adapter_ids=None):
         """Prefill g prompts left-padded to one bucket on a dense cache in
         one pass (plain attention, as the reference's) and sample each
         one's first token. -> (batch-g DecodeState, first [g], done [g],
         logprobs [g]), ready for `insert_many`. `prefix_state` (a
         `DecodeState` of batch 1 or g) seeds every row with KV already
-        computed, so only the suffix prefills."""
+        computed, so only the suffix prefills. With an adapter pack every
+        row takes its adapter id (`adapter_ids`, default the base's 0),
+        as the reference always passes them."""
         eng = self.engine
         ec = eng.ec
         g = len(token_lists)
@@ -536,11 +565,15 @@ class ContinuousEngine:
         dev = eng.device
         tokens = upload(arr, torch.int64, dev)
         maskd = upload(mask, torch.bool, dev)
+        aid = None
+        if eng.adapter_pack is not None:
+            aid = upload(adapter_ids if adapter_ids is not None else [0] * g,
+                         torch.int64, dev)
         c = self.prefill_chunk
         if c and bucket > c and bucket % c == 0:
             return eng.prefill_chunked(tokens, state0, gen, sp, maskd,
-                                       chunk=c)
-        return eng._prefill_sample(tokens, state0, gen, sp, maskd)
+                                       chunk=c, aid=aid)
+        return eng._prefill_sample(tokens, state0, gen, sp, maskd, aid)
 
     def _auto_table(self, slot: int) -> np.ndarray:
         """Engine-managed block table for direct `insert_many` callers
@@ -554,13 +587,15 @@ class ContinuousEngine:
     @torch.inference_mode()
     def insert_many(self, st: SlotState, slots: list[int], pstate,
                     rows: list[int], first, *, tables=None,
-                    seed_lens: list[int] | None = None) -> SlotState:
+                    seed_lens: list[int] | None = None,
+                    aids: list[int] | None = None) -> SlotState:
         """Scatter rows `rows` of a prefilled batch-g DecodeState into the
         pool blocks of `tables` ([n, blocks_per_slot], trash-padded) and
         point `slots` at them, in one pass. Each row is COMPACTED on the
         way in: its left pads are dropped, so cell index == position,
         offset 0, no pads. `seed_lens`: cells [0, seed_len) of a row are
-        an already-compact prefix seed. The write covers EVERY cell of
+        an already-compact prefix seed; `aids` the slots' adapter ids
+        (default 0). The write covers EVERY cell of
         every block of a table (unused entries must be trash block 0), so
         whatever a freed block held is overwritten."""
         n = len(slots)
@@ -592,24 +627,35 @@ class ContinuousEngine:
         st.tok[slot_i] = first[row_i].to(torch.int32)
         st.block_table[slot_i] = tab.view(n, -1).to(torch.int32)
         st.frozen[slot_i] = False
+        st.aid[slot_i] = upload(aids if aids is not None else [0] * n,
+                                torch.int64, dev)
         return st
 
     def insert(self, st: SlotState, slot: int, pstate, first,
-               row: int = 0, *, table=None, seed_len: int = 0) -> SlotState:
+               row: int = 0, aid: int = 0, *, table=None,
+               seed_len: int = 0) -> SlotState:
         """Single-row `insert_many`."""
         return self.insert_many(
             st, [slot], pstate, [row], first,
             tables=None if table is None else np.asarray(table)[None],
-            seed_lens=[seed_len])
+            seed_lens=[seed_len], aids=[aid])
 
     # -- decode -----------------------------------------------------------
+
+    def _lora_ids(self, st: SlotState, idx=None):
+        """The rows' adapter ids for `engine.layer_proj`: every slot's
+        (or rows `idx`'s) with an adapter pack, None without one."""
+        if self.engine.adapter_pack is None:
+            return None
+        return st.aid if idx is None else st.aid[idx]
 
     def _decode_one(self, st: SlotState, sp: SamplingParams,
                     gen: torch.Generator):
         """One decode token for ALL slots at per-slot cursors. Frozen
         rows write to the trash block and keep their cursors; retired
         rows compute garbage the host ignores, their cursors clamped at
-        max_len so they never write out of range."""
+        max_len so they never write out of range. With an adapter pack
+        each row adds its adapter's delta (id 0: exactly nothing)."""
         eng = self.engine
         cfg, fam, ec = eng.cfg, eng.family, eng.ec
         bs = self.block_size
@@ -622,6 +668,7 @@ class ContinuousEngine:
             st.block_table[self._rows, write_at // bs]).long()
         write_off = write_at % bs
         window = cfg.sliding_window
+        aid = self._lora_ids(st)
         x = eng._embed(st.tok[:, None])
         for li, p in enumerate(eng.layers):
             kp, vp = st.k[li], st.v[li]
@@ -638,7 +685,8 @@ class ContinuousEngine:
                     window=window)
 
             x, _ = transformer_block(cfg, fam, p, x, rope_positions,
-                                     self._inv_freq, write_kv, attn)
+                                     self._inv_freq, write_kv, attn,
+                                     eng.layer_proj(li, aid))
         logits = eng._head(eng.rms_final(x)[:, -1])
         nxt, lp = eng._sample(logits, gen, sp)
         st.length.copy_(torch.where(
@@ -714,6 +762,7 @@ class ContinuousEngine:
                                      min=0)
         kv_valid = ~st.pad[idx]
         window = cfg.sliding_window
+        aid = self._lora_ids(st, idx)
         x = eng._embed(tokens)
         for li, p in enumerate(eng.layers):
             new = {}
@@ -731,7 +780,8 @@ class ContinuousEngine:
                 return out
 
             x, _ = transformer_block(cfg, fam, p, x, rope_positions,
-                                     self._inv_freq, write_kv, attn)
+                                     self._inv_freq, write_kv, attn,
+                                     eng.layer_proj(li, aid))
         return eng.rms_final(x)
 
     def _append(self, st: SlotState, idx, tokens, n_valid, finish,
@@ -1008,10 +1058,10 @@ class _Request:
     __slots__ = ("tokens", "max_new", "sampling", "prefix", "fut", "out",
                  "lps", "kv_toks", "owned", "node_refs", "freed",
                  "prefilling", "stop", "queue", "meta", "table",
-                 "block_charge", "resumed")
+                 "block_charge", "resumed", "aid", "cache_ns")
 
     def __init__(self, tokens, max_new, sampling, fut, meta: ReqMeta,
-                 queue=None):
+                 queue=None, aid: int = 0):
         self.tokens = list(tokens)
         self.max_new = max_new
         self.sampling = sampling
@@ -1025,6 +1075,10 @@ class _Request:
         # the scheduling record: tenant, priority, namespace, request id,
         # timeline, enqueue time, and (after a preemption) `resume`
         self.meta = meta
+        # the adapter id (0 = the plain base; its name rides the sampling
+        # channel) and the radix / spill namespace its K/V is keyed by
+        self.aid = aid
+        self.cache_ns = cache_ns(meta.ns, aid)
         self.table = None           # the slot's block table, once admitted
         self.block_charge = 0       # pool blocks charged to the tenant
         self.resumed = False        # admitted again after a preemption
@@ -1365,8 +1419,8 @@ class ContinuousBatcher:
         returns (tokens, logprobs), the logprobs unpadded (one per
         computed token). `sampling` may name a registered prefix
         (`"prefix"`), whose tokens go before `tokens`, stop sequences
-        (`"stop"`: token-id lists) and the timeline's key
-        (`"request_id"`)."""
+        (`"stop"`: token-id lists), an adapter of the engine's pack
+        (`"adapter"`) and the timeline's key (`"request_id"`)."""
         sampling = dict(sampling or {})
         fut = self._enqueue(tokens, max_new, sampling, queue=None)
         out, lps = await fut
@@ -1435,12 +1489,27 @@ class ContinuousBatcher:
             # the rate-limit door: Throttled (HTTP 429 with the bucket's
             # refill time) before anything is spent
             self._ledger.check_request(spec.name)
+        # multi-LoRA: the adapter name rides the sampling channel; it is
+        # resolved (unknown names raise) here, before a slot is spent
+        adapter = sampling.get("adapter", "")
+        pack = self.engine.adapter_pack
+        if adapter and pack is None:
+            raise ValueError(
+                f"adapter {adapter!r} requested but no adapter pack "
+                "is loaded on this engine")
+        aid = pack.resolve(adapter) if pack else 0
         prefix = sampling.get("prefix", "")
         if prefix:
             if prefix not in self._prefixes:
                 raise ValueError(
                     f"unknown prefix {prefix!r}; registered: "
                     f"{sorted(self._prefixes)}")
+            if adapter:
+                # the prefix's KV is computed with the base weights:
+                # reusing it under an adapter would serve a hybrid
+                raise ValueError(
+                    "prefix does not compose with adapter (the shared "
+                    "KV is base-model KV)")
             plen = len(self._prefixes[prefix])
             if plen + len(tokens) + max_new > cap:
                 raise ValueError(
@@ -1468,7 +1537,7 @@ class ContinuousBatcher:
                  priority=meta.priority)
         self.timelines.add(tl)
         self._pending.append(_Request(tokens, max_new, sampling, fut, meta,
-                                      queue=queue))
+                                      queue=queue, aid=aid))
         self._wake.set()
         return fut
 
@@ -1564,7 +1633,7 @@ class ContinuousBatcher:
             return
         blocks = {i: req.owned[i] for i in range(n_full) if i in req.owned}
         adopted, _ = self._radix.insert(req.kv_toks[:n_full * bs], blocks,
-                                        ns=req.meta.ns)
+                                        ns=req.cache_ns)
         for i in adopted:
             del req.owned[i]
         # blocks the tree declined already have an edge for their token
@@ -1587,7 +1656,7 @@ class ContinuousBatcher:
             return
         blocks = {i: req.owned[i] for i in range(n_full) if i in req.owned}
         adopted, held = self._radix.insert(req.kv_toks[:n_full * bs],
-                                           blocks, hold=True, ns=req.meta.ns)
+                                           blocks, hold=True, ns=req.cache_ns)
         for i in adopted:
             del req.owned[i]
         req.node_refs.extend(held)
@@ -1665,7 +1734,7 @@ class ContinuousBatcher:
             sampling = {k: v for k, v in req.sampling.items() if k != "prefix"}
             self._pending.appendleft(_Request(
                 req.kv_toks, remaining, sampling, req.fut, meta,
-                queue=req.queue))
+                queue=req.queue, aid=req.aid))
             self._wake.set()
 
     def tenant_stats(self) -> dict:
@@ -1802,7 +1871,7 @@ class ContinuousBatcher:
         if tier is None or tier.spilled_blocks == 0 or req.prefix:
             return
         full = req.tokens
-        ns = req.meta.ns
+        ns = req.cache_ns
         bs = self.cengine.block_size
         nodes, _, _ = self._radix.match(full, ns=ns)
         # walk the tier forward from the cached frontier; the planner
@@ -1895,7 +1964,7 @@ class ContinuousBatcher:
             m = len(self._prefixes[req.prefix])
         else:
             full = list(req.tokens)
-            nodes, pnode, plen = self._radix.match(full, ns=req.meta.ns)
+            nodes, pnode, plen = self._radix.match(full, ns=req.cache_ns)
             # leave >= 1 token to prefill: the first output token needs
             # a forward pass over something
             m = min(len(nodes) * bs + plen, len(full) - 1)
@@ -2050,7 +2119,8 @@ class ContinuousBatcher:
 
         def run():
             st = ce.slots()
-            ce.adopt_slot(st, slot, plan["table"], m, plan["full"][m])
+            ce.adopt_slot(st, slot, plan["table"], m, plan["full"][m],
+                          req.aid)
             if extra is not None:
                 ce.copy_cells(st, extra.block, plan["fresh"][0],
                               m % ce.block_size)
@@ -2074,6 +2144,7 @@ class ContinuousBatcher:
         pad = min(pow2_ceil(n), ce.S) - n
         lists = [plan["suffix"] for _, _, plan in group] + [[0]] * pad
         samplings = [req.sampling for _, req, _ in group] + [GREEDY] * pad
+        aids = [req.aid for _, req, _ in group] + [0] * pad
         slots = [slot for slot, _, _ in group]
         tables = np.stack([plan["table"] for _, _, plan in group])
         seed = chains = None
@@ -2094,9 +2165,11 @@ class ContinuousBatcher:
             pstate0 = (seed if chains is None
                        else ce.gather_seed(st, chains, m))
             pstate, first, _, lps = ce.prefill_batch(
-                lists, bucket, samplings, ce.gen, prefix_state=pstate0)
+                lists, bucket, samplings, ce.gen, prefix_state=pstate0,
+                adapter_ids=aids)
             ce.insert_many(st, slots, pstate, list(range(n)), first,
-                           tables=tables, seed_lens=[m] * n)
+                           tables=tables, seed_lens=[m] * n,
+                           aids=aids[:n])
             if seed_draft:
                 # before the first token is emitted: each draft row holds
                 # the prompt, its cursor the target's
@@ -2540,6 +2613,14 @@ class ContinuousBatcher:
         rec = migration.unpack_record(record)
         ce = self.cengine
         migration.validate_geometry(rec["geometry"], ce)
+        # K/V computed under an adapter is indexed under that adapter's
+        # key, so only its own requests reuse it
+        adapter = rec["sampling"].get("adapter", "")
+        pack = self.engine.adapter_pack
+        if adapter and pack is None:
+            raise ValueError(f"migration record names adapter {adapter!r} "
+                             "but no adapter pack is loaded")
+        ns = cache_ns(rec["ns"], pack.resolve(adapter) if pack else 0)
         if rec["kv"] is None:
             return 0
         k, v = migration.decode_kv(rec["kv"])
@@ -2570,7 +2651,7 @@ class ContinuousBatcher:
             # the rollback must never free a tree-owned block
             blocks = dict(enumerate(fresh))
             adopted, _ = self._radix.insert(rec["tokens"][:n_full * bs],
-                                            blocks, ns=rec["ns"])
+                                            blocks, ns=ns)
             dup = [b for i, b in blocks.items() if i not in adopted]
             done = True
         finally:

@@ -3,7 +3,10 @@
 
 `transformer_block` is the one definition of a decoder block that every
 serving path runs, with the KV-cache write and the attention call
-injected (`write_kv`, `attn`) and every block matmul behind `proj`.
+injected (`write_kv`, `attn`) and every block matmul behind `proj`:
+`quant.qdot` by default (a plain weight's product, or an int8 `QTensor`'s
+through the `int8_proj` kernel), `multilora.lora_proj` for rows that
+carry adapter ids.
 `InferenceEngine` holds the weights, the embedding, head and sampling
 steps the continuous engine builds on, and the reference's one-shot
 entry points: `generate`, `generate_stream`, `prefill_chunked`, `score`
@@ -24,6 +27,11 @@ speculative engine, which run eagerly. Every decode step's attention
 goes through `ops.attention.dot_product_attention`'s "auto" rule, which
 takes the dense decode kernel (ops/cuda/decode_attention.py) for CUDA
 tensors.
+
+With an `adapter_pack` (serving/multilora.py), `generate(adapter=...)`,
+`prefill_chunked` and `score` take one adapter name for the batch or one
+a row; the lane's decode graph then reads the pack and the lane's static
+`aid` ids, and is keyed apart from the plain step.
 """
 
 from __future__ import annotations
@@ -43,6 +51,8 @@ from kubeflow_tpu_torch.ops.embedding import embed_lookup
 from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rotary import apply_rope, rope_frequencies
 from kubeflow_tpu_torch.serving.graphs import GraphCache, upload
+from kubeflow_tpu_torch.serving.multilora import lora_proj
+from kubeflow_tpu_torch.serving.quant import qdot
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,6 +192,14 @@ class DecodeState:
 SAMPLING_KEYS = ((False, False), (True, False), (True, True))
 
 
+def pack_layers(pack) -> list | None:
+    """An adapter pack's per-layer views (None without a pack)."""
+    if pack is None:
+        return None
+    n = next(iter(pack.blocks.values()))["A"].shape[0]
+    return [pack.layer(li) for li in range(n)]
+
+
 class _Lane:
     """One batch size's dense cache and the static tensors its decode
     graph reads and writes: each row's cursor (a device [b] int32, so a
@@ -206,6 +224,7 @@ class _Lane:
         self.temperature = zeros(b, dtype=torch.float32)
         self.top_k = zeros(b, dtype=torch.int64)
         self.top_p = torch.ones(b, dtype=torch.float32, device=dev)
+        self.aid = zeros(b, dtype=torch.int64)    # adapter id per row
         self.step = zeros(1, dtype=torch.int64)
         self.toks = zeros(b, max_len)
         self.lps = zeros(b, max_len, dtype=torch.float32)
@@ -223,10 +242,11 @@ def transformer_block(cfg, fam: Family, p, x, rope_positions, inv_freq,
     """One decoder block on x [b, s, h]: norms, QKV/output projections,
     rotary, gated MLP. `write_kv(k, v) -> (k_cache, v_cache)` and
     `attn(q, k_cache, v_cache) -> out` are the cache policy and the
-    attention call; `proj(name, h, w)` wraps every block matmul."""
+    attention call; `proj(name, h, w)` wraps every block matmul (default
+    `qdot`: a plain weight's product, or an int8 QTensor's)."""
     if proj is None:
         def proj(name, h, w):
-            return h @ w.to(cfg.dtype)
+            return qdot(h, w, cfg.dtype)
 
     b, s = x.shape[:2]
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
@@ -254,12 +274,14 @@ class InferenceEngine:
     (`models.llama.init`, `models.gemma.init` or `bridge.from_jax`).
     `cuda_graphs=False` launches the decode step's ops one by one on the
     card instead of replaying its graph: an explicit control, never a
-    fallback."""
+    fallback. `adapter_pack` (`multilora.build_pack`, on the engine's
+    device) makes K fine-tunes resident over these weights; a request
+    names one per row (`generate(adapter=...)`)."""
 
     def __init__(self, params, cfg, family: Family,
                  engine_config: EngineConfig = EngineConfig(),
                  device: torch.device | str | None = None, *,
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True, adapter_pack=None):
         self.device = resolve_device(device)
         self.cuda_graphs = cuda_graphs
         self._lanes: dict[int, _Lane] = {}
@@ -272,6 +294,8 @@ class InferenceEngine:
         self.ec = engine_config
         self.layers = [layer_params(params, li)
                        for li in range(cfg.num_layers)]
+        self.adapter_pack = adapter_pack
+        self._pack_layers = pack_layers(adapter_pack)
         self._inv_freq = rope_frequencies(cfg.head_dim, theta=cfg.rope_theta,
                                           device=self.device)
         self._cells = torch.arange(engine_config.max_len, dtype=torch.int32,
@@ -316,10 +340,38 @@ class InferenceEngine:
 
     # -- dense-cache forward -----------------------------------------------
 
-    def _stack(self, tokens, positions, rope_positions, kv_valid, write):
+    def layer_proj(self, li: int, aid: torch.Tensor | None):
+        """Layer li's `proj` hook: `lora_proj` over the pack's layer view
+        for rows with adapter ids `aid` [b], else None (`qdot`)."""
+        if aid is None:
+            return None
+        if self.adapter_pack is None:
+            raise ValueError("no adapter_pack loaded on this engine")
+        return lora_proj(self._pack_layers[li], aid,
+                         self.adapter_pack.scaling, self.cfg)
+
+    def adapter_ids(self, adapter, batch: int) -> torch.Tensor | None:
+        """`adapter` (one name for the batch, a list of one a row, or
+        None) -> [batch] int64 ids on the device, or None. Raises as the
+        reference does: no pack, a wrong count, an unknown name."""
+        if adapter is None:
+            return None
+        if self.adapter_pack is None:
+            raise ValueError("no adapter_pack loaded on this engine")
+        names = ([adapter] * batch if isinstance(adapter, str)
+                 else list(adapter))
+        if len(names) != batch:
+            raise ValueError(f"{len(names)} adapter names for a batch of "
+                             f"{batch}")
+        return upload([self.adapter_pack.resolve(n) for n in names],
+                      torch.int64, self.device)
+
+    def _stack(self, tokens, positions, rope_positions, kv_valid, write,
+               aid=None):
         """The decoder stack over a dense cache: tokens [b, s] at cache
         cells `positions` [b, s]; `write(li, k, v) -> (k_cache, v_cache)`
-        puts layer li's new K/V in place. -> final-normed x [b, s, h]."""
+        puts layer li's new K/V in place; `aid` [b] adapter ids or None.
+        -> final-normed x [b, s, h]."""
         cfg, fam, ec = self.cfg, self.family, self.ec
         kv_positions = self._cells.expand(tokens.shape[0], ec.max_len)
 
@@ -335,12 +387,13 @@ class InferenceEngine:
         for li, p in enumerate(self.layers):
             x, _ = transformer_block(
                 cfg, fam, p, x, rope_positions, self._inv_freq,
-                lambda k, v, li=li: write(li, k, v), attn)
+                lambda k, v, li=li: write(li, k, v), attn,
+                self.layer_proj(li, aid))
         return self.rms_final(x)
 
     def _forward_cached(self, tokens: torch.Tensor, state: DecodeState, *,
                         prompt_mask: torch.Tensor | None = None,
-                        return_all: bool = False):
+                        return_all: bool = False, aid=None):
         """Run tokens [b, s] from cell `state.length`; returns (last
         position's logits [b, vocab] fp32, or every position's [b, s,
         vocab] with `return_all`, and the advanced state). The s new K/V
@@ -350,7 +403,8 @@ class InferenceEngine:
         `prompt_mask` [b, s] bool (False = pad) batches variable-length
         rows; pads are LEFT-aligned, excluded from every later
         attention, and rope sees logical positions (cell - pad count), so
-        a padded row computes what its unpadded prompt would."""
+        a padded row computes what its unpadded prompt would. `aid` [b]:
+        each row's adapter id (None: no adapter pass)."""
         b, s = tokens.shape
         start = state.length
         if start + s > self.ec.max_len:
@@ -372,7 +426,8 @@ class InferenceEngine:
             vc[:, start:start + s] = v.to(vc.dtype)
             return kc, vc
 
-        x = self._stack(tokens, positions, rope_positions, kv_valid, write)
+        x = self._stack(tokens, positions, rope_positions, kv_valid, write,
+                        aid)
         logits = self._head(x if return_all else x[:, -1])
         return logits, DecodeState(state.k, state.v, start + s, pad, offset)
 
@@ -437,7 +492,7 @@ class InferenceEngine:
         """Device bytes of the engine's own lanes (caches + history)."""
         return sum(lane.nbytes() for lane in self._lanes.values())
 
-    def _step_at_cursor(self, lane: "_Lane") -> torch.Tensor:
+    def _step_at_cursor(self, lane: "_Lane", lora: bool) -> torch.Tensor:
         """One token per row from the lane's device cursor: the s = 1
         case of `_forward_cached` with the cursor a [b] tensor, so that
         nothing about the step depends on a host value. -> logits."""
@@ -454,15 +509,18 @@ class InferenceEngine:
             return kc, vc
 
         x = self._stack(lane.tok[:, None], positions, rope_positions,
-                        kv_valid, write)
+                        kv_valid, write, lane.aid if lora else None)
         return self._head(x[:, -1])
 
-    def _lane_step(self, lane: "_Lane", sp: SamplingParams) -> torch.Tensor:
+    def _lane_step(self, lane: "_Lane", sp: SamplingParams,
+                   lora: bool = False) -> torch.Tensor:
         """The one-shot decode step, the body the card captures: sample
         from the lane's cursor, force EOS on finished rows, log the token
         and its logprob at the step counter, advance. Reads and writes
-        only the lane's static tensors and generator."""
-        nxt, lp = self._sample(self._step_at_cursor(lane), lane.gen, sp)
+        only the lane's static tensors and generator (and, with `lora`,
+        the adapter pack and the lane's `aid`)."""
+        nxt, lp = self._sample(self._step_at_cursor(lane, lora), lane.gen,
+                               sp)
         eos = self.ec.eos_token
         if eos is not None:
             nxt = torch.where(lane.done, torch.full_like(nxt, eos), nxt)
@@ -475,9 +533,9 @@ class InferenceEngine:
         return nxt
 
     def _load(self, lane: "_Lane", state: DecodeState, first, done,
-              sp: SamplingParams) -> None:
-        """Point the lane at a prefilled state (its cache is the lane's)
-        and the first sampled token."""
+              sp: SamplingParams, aid=None) -> None:
+        """Point the lane at a prefilled state (its cache is the lane's),
+        the first sampled token and the rows' adapter ids."""
         lane.pad.copy_(state.pad)
         lane.offset.copy_(state.offset)
         lane.cursor.fill_(state.length)
@@ -486,18 +544,22 @@ class InferenceEngine:
         lane.temperature.copy_(sp.temperature)
         lane.top_k.copy_(sp.top_k)
         lane.top_p.copy_(sp.top_p)
+        if aid is not None:
+            lane.aid.copy_(aid)
         lane.step.zero_()
 
     def _replay(self, lane: "_Lane", gen: torch.Generator, sampled: bool,
-                filtered: bool, n: int) -> None:
+                filtered: bool, n: int, lora: bool = False) -> None:
         """n decode steps on the lane: n replays of the step graph of its
-        sampling key, no host read in between. `gen` is the caller's
-        generator; the lane's own (the one its graphs hold) takes its
-        state before and gives it back after."""
+        sampling key (and `lora`: the adapter step), no host read in
+        between. `gen` is the caller's generator; the lane's own (the one
+        its graphs hold) takes its state before and gives it back
+        after."""
         key = (sampled, sampled and filtered)
         sp = SamplingParams(lane.temperature, lane.top_k, lane.top_p, *key)
-        run = lane.graphs.runner(key, lambda: self._lane_step(lane, sp),
-                                 generator=lane.gen)
+        run = lane.graphs.runner(
+            key + (("lora",) if lora else ()),
+            lambda: self._lane_step(lane, sp, lora), generator=lane.gen)
         lane.gen.set_state(gen.get_state())
         for _ in range(n):
             run()
@@ -508,16 +570,19 @@ class InferenceEngine:
         """Capture the decode step of every sampling key for each batch
         size ahead of traffic (the window batcher's rows are powers of
         two up to its max_batch); a batch size left out captures on first
-        use. Returns the number of graphs warmed."""
+        use; with an adapter pack each key's adapter step too. Returns the
+        number of graphs warmed."""
         gen = torch.Generator(device=self.device).manual_seed(0)
+        loras = (False, True) if self.adapter_pack is not None else (False,)
         n = 0
         for b in batch_sizes:
             lane = self._acquire(b)
             try:
-                for sampled, filtered in SAMPLING_KEYS:
+                for (sampled, filtered), lora in (
+                        (k, lo) for k in SAMPLING_KEYS for lo in loras):
                     lane.cursor.zero_()   # a throwaway step at cell 0
                     lane.step.zero_()
-                    self._replay(lane, gen, sampled, filtered, 1)
+                    self._replay(lane, gen, sampled, filtered, 1, lora)
                     n += 1
             finally:
                 self._release(lane)
@@ -607,11 +672,11 @@ class InferenceEngine:
     # -- one-shot generation -----------------------------------------------
 
     def _prefill_sample(self, prompt, state, gen, sp: SamplingParams,
-                        prompt_mask):
+                        prompt_mask, aid=None):
         """Prefill + sample token #1 (and its logprob). -> (state, first
         [b], done [b], logprob [b])."""
         logits, state = self._forward_cached(prompt, state,
-                                             prompt_mask=prompt_mask)
+                                             prompt_mask=prompt_mask, aid=aid)
         first, lp = self._sample(logits, gen, sp)
         eos = self.ec.eos_token
         done = (first == eos) if eos is not None else torch.zeros_like(
@@ -636,14 +701,14 @@ class InferenceEngine:
         device. `prompt_mask` batches variable-length prompts, pads
         LEFT-aligned. `prefill_chunk` prefills in fixed slices
         (`prefill_chunked`): same tokens, bounded activation memory.
+        `adapter` (needs an adapter_pack) picks a resident fine-tune: one
+        name for the batch or one a row; '' rows decode the plain base.
         Decode replays the lane's step graph max_new - 1 times."""
-        if adapter is not None:
-            raise NotImplementedError(
-                "multi-LoRA adapters are not ported yet (ROADMAP Queue 1)")
         sp, gen, prompt, mask = self._prep(
             prompt_tokens, max_new, rng, temperature, top_k, top_p,
             prompt_mask)
         b, n = prompt.shape
+        aid = self.adapter_ids(adapter, b)
         if prefill_chunk is not None:
             if prefill_chunk < 1:
                 raise ValueError(f"prefill_chunk must be >= 1, got "
@@ -661,12 +726,14 @@ class InferenceEngine:
             state = DecodeState(lane.k, lane.v, 0)
             if prefill_chunk is None:
                 state, first, done, lp1 = self._prefill_sample(
-                    prompt, state, gen, sp, mask)
+                    prompt, state, gen, sp, mask, aid)
             else:
                 state, first, done, lp1 = self.prefill_chunked(
-                    prompt, state, gen, sp, mask, chunk=prefill_chunk)
-            self._load(lane, state, first, done, sp)
-            self._replay(lane, gen, sp.sampled, sp.filtered, max_new - 1)
+                    prompt, state, gen, sp, mask, chunk=prefill_chunk,
+                    aid=aid)
+            self._load(lane, state, first, done, sp, aid)
+            self._replay(lane, gen, sp.sampled, sp.filtered, max_new - 1,
+                         lora=aid is not None)
             toks = torch.cat([first[:, None], lane.toks[:, :max_new - 1]], 1)
             lps = torch.cat([lp1[:, None], lane.lps[:, :max_new - 1]], 1)
         finally:
@@ -723,13 +790,14 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def prefill_chunked(self, prompt, state, gen, sp: SamplingParams,
-                        prompt_mask, *, chunk: int):
+                        prompt_mask, *, chunk: int, aid=None):
         """Prefill in fixed `chunk`-token slices through the cache, then
         sample token #1 from the final slice (`_prefill_sample`, so the
         sampled law equals the one-shot prefill's; earlier slices draw
         nothing). A slice whose rows are all pads attends nothing (finite
         NEG_INF masking, no NaN) and is never sampled. `prompt` width
-        must be a multiple of `chunk` (callers left-pad first)."""
+        must be a multiple of `chunk` (callers left-pad first). `aid` [b]:
+        the rows' adapter ids, or None."""
         b, n = prompt.shape
         if n % chunk:
             raise ValueError(f"prompt width {n} not a multiple of "
@@ -737,15 +805,17 @@ class InferenceEngine:
         for i in range(n // chunk - 1):
             sl = slice(i * chunk, (i + 1) * chunk)
             _, state = self._forward_cached(prompt[:, sl], state,
-                                            prompt_mask=prompt_mask[:, sl])
+                                            prompt_mask=prompt_mask[:, sl],
+                                            aid=aid)
         return self._prefill_sample(prompt[:, n - chunk:], state, gen, sp,
-                                    prompt_mask[:, n - chunk:])
+                                    prompt_mask[:, n - chunk:], aid)
 
     @torch.inference_mode()
-    def score(self, tokens, prompt_mask=None) -> torch.Tensor:
+    def score(self, tokens, prompt_mask=None, adapter=None) -> torch.Tensor:
         """Teacher-forced scoring: log P(token_i | tokens_<i) for every
         position past the first, [b, s-1] fp32 on the engine's device
-        (pad positions 0). One forward with every position's logits."""
+        (pad positions 0). One forward with every position's logits;
+        `adapter` as in `generate`."""
         tokens = self._tensor(tokens, torch.int64)
         b, s = tokens.shape
         if s < 2:
@@ -758,7 +828,8 @@ class InferenceEngine:
         else:
             mask = self._tensor(prompt_mask, torch.bool)
         logits, _ = self._forward_cached(tokens, self.init_state(b),
-                                         prompt_mask=mask, return_all=True)
+                                         prompt_mask=mask, return_all=True,
+                                         aid=self.adapter_ids(adapter, b))
         lp = torch.log_softmax(logits, -1)
         got = torch.gather(lp[:, :-1], -1, tokens[:, 1:, None])[:, :, 0]
         return got * mask[:, 1:].float()

@@ -9,9 +9,13 @@ Routes, each with the reference's request and response bodies:
   `"stream"` (SSE: one `data: {"tokens": [[...]]}` event per token on
   the continuous path, per decoded chunk on the one-shot path, then
   `{"done": true, "total": n[, "text"]}`, or `{"error": ..., "total":
-  n}` once headers are out), `"speculative", "gamma", "prefix"`;
-  `"adapter"` is refused, as the reference refuses it on a model with
-  no adapter pack. Continuous-path responses carry `X-Request-Id` (the
+  n}` once headers are out), `"speculative", "gamma", "prefix"`,
+  `"adapter"` (a name in the engine's adapter pack, with the
+  reference's 400s: not a string, no pack, an unknown name, with
+  `prefix`, with `speculative`, streamed without the continuous
+  batcher; adapter rows ride the continuous batcher, and under a window
+  batcher the direct path). Continuous-path responses carry
+  `X-Request-Id` (the
   client's, else a minted one), the key of the request's timeline.
 - `POST /v1/models/{name}:score` — teacher-forced logprobs of a given
   sequence (`{"tokens": [[...]]}` or `{"text": "..."}`).
@@ -37,11 +41,12 @@ Routes, each with the reference's request and response bodies:
   record and pushed to `"peer"`'s `/v1/migrate/in`. -> `{"prefilled",
   "handoff", "blocks", "bytes", "handoff_s", "request_id"}` (429 on a
   throttled tenant or a full queue, 503 while draining).
-- `X-KV-Peer: URL` on a single-row `:generate` without `prefix` (a
-  router's heat hint): before admission the replica pulls the prompt's
-  cached blocks from the peer's `/v1/blocks/export` and imports them
-  (default namespace only); every failure falls through to plain
-  prefill. `fleet_peer_fetch_total{outcome=ok|miss|failed}` and
+- `X-KV-Peer: URL` on a single-row `:generate` without `prefix` or
+  `adapter` (a router's heat hint): before admission the replica
+  pulls the prompt's cached blocks from the peer's `/v1/blocks/export`
+  and imports them (default namespace only); every failure falls
+  through to plain prefill.
+  `fleet_peer_fetch_total{outcome=ok|miss|failed}` and
   `serving_prefill_tokens{source="peer_fetched"}` book it.
 - `POST /v1/reload {"version", "model"?, "source": {...}, "defect"?}`
   — live weight reload: admission closes, in-flight work drains within
@@ -134,6 +139,7 @@ from kubeflow_tpu_torch.serving.continuous import (
     pow2_ceil,
 )
 from kubeflow_tpu_torch.serving.engine import InferenceEngine
+from kubeflow_tpu_torch.serving.quant import QTensor
 from kubeflow_tpu_torch.serving.speculative import SpeculativeEngine
 from kubeflow_tpu_torch.tenancy import (
     THROTTLE_REASONS,
@@ -1032,6 +1038,8 @@ async def list_models(request: web.Request):
             "num_layers": eng.cfg.num_layers,
             "device": str(eng.device),
         }
+        if eng.adapter_pack is not None:
+            entry["adapters"] = sorted(eng.adapter_pack.names)
         b = request.app[BATCHERS_KEY].get(name)
         if b is not None:
             # window batcher: mean batch = batched_requests / calls;
@@ -1406,9 +1414,12 @@ async def generate(request: web.Request):
     if not isinstance(adapter, str):
         return _bad("adapter must be a string")
     if adapter:
-        # no adapter pack is ported (ROADMAP Queue 1 item 6): the
-        # reference's answer for a model without one
-        return _bad(f"model {name!r} has no adapters loaded")
+        if engine.adapter_pack is None:
+            return _bad(f"model {name!r} has no adapters loaded")
+        try:
+            engine.adapter_pack.resolve(adapter)
+        except ValueError as e:
+            return _bad(str(e))
     prefix = body.get("prefix", "")
     if not isinstance(prefix, str):
         return _bad("prefix must be a string")
@@ -1439,6 +1450,8 @@ async def generate(request: web.Request):
         if prefix not in batcher._prefixes:
             return _bad(f"unknown prefix {prefix!r}; registered: "
                         f"{sorted(batcher._prefixes)}")
+        if adapter:
+            return _bad("prefix does not compose with adapter")
         if len(token_lists) != 1:
             return _bad("prefix requests are single-prompt")
         if body.get("speculative", False) is True:
@@ -1448,14 +1461,19 @@ async def generate(request: web.Request):
             return _bad(f"prefix {plen} + prompt {prompt_len} + max_new "
                         f"{max_new} exceeds model max_len {cap}")
         sampling["prefix"] = prefix
+    if adapter:
+        # an engine.generate kwarg, and the batcher's sampling channel
+        sampling["adapter"] = adapter
     arr = _token_array(token_lists, engine.cfg.vocab_size)
     if isinstance(arr, web.Response):
         return arr
     # a router's heat hint: a peer caches this prompt's first block and
     # this replica does not, so pull the blocks before admission; every
-    # failure falls through to the plain prefill
+    # failure falls through to the plain prefill. A peer exports base
+    # cells only, which an adapter's radix key never matches, so an
+    # adapter request fetches nothing
     peer_hint = request.headers.get("X-KV-Peer", "")
-    if (peer_hint and not prefix and arr.shape[0] == 1
+    if (peer_hint and not prefix and not adapter and arr.shape[0] == 1
             and not request.app[DRAIN_KEY]["draining"]
             and isinstance(batcher, ContinuousBatcher)):
         await _peer_fetch_blocks(request.app, name, batcher,
@@ -1493,6 +1511,9 @@ async def generate(request: web.Request):
                 request, batcher, token_lists[0], max_new_req,
                 {**sampling, **_tenant(request), "request_id": req_id},
                 text_mode)
+        if adapter:
+            return _bad("adapter streaming requires continuous batching "
+                        "(create_serving_app continuous)")
         return await _stream_generate(request, engine, arr, max_new_req,
                                       sampling, text_mode)
 
@@ -1501,6 +1522,8 @@ async def generate(request: web.Request):
     if speculative:
         if logprobs:
             return _bad("logprobs does not compose with speculative")
+        if adapter:
+            return _bad("adapter does not compose with speculative")
         spec = request.app[SPEC_KEY].get(name)
         if spec is None:
             return _bad(f"no draft model registered for {name!r}")
@@ -1565,9 +1588,10 @@ async def generate(request: web.Request):
         _observe_first_token(request, name)
         rows = [list(toks) for toks, _ in results]
         lp_rows = [list(lps) for _, lps in results]
-    elif batcher is not None and arr.shape[0] == 1:
+    elif batcher is not None and arr.shape[0] == 1 and not adapter:
         # single prompts ride the window batcher; explicit client-side
-        # batches keep their one-shot call
+        # batches, and adapter requests (the window batcher's groups
+        # carry no adapter ids), keep their one-shot call
         toks, lps = await batcher.submit(token_lists[0], max_new_req,
                                          sampling)
         _observe_first_token(request, name)
@@ -1852,6 +1876,19 @@ def _valid_version(v: Any) -> bool:
             and all(c in _VERSION_CHARS for c in v))
 
 
+def param_leaves(params: Mapping) -> dict:
+    """A param tree as a flat name -> tensor map; a QTensor leaf gives
+    `name.q` and `name.scale` (an int8 model's reload must bring int8
+    leaves: a plain tensor there differs in structure)."""
+    out = {}
+    for name, t in flatten(params).items():
+        if isinstance(t, QTensor):
+            out[f"{name}.q"], out[f"{name}.scale"] = t.q, t.scale
+        else:
+            out[name] = t
+    return out
+
+
 def _params_mismatch(old: dict, new: dict) -> str:
     """Compatibility of new weights with the live ones, over flat
     name -> tensor maps: the same names, and each tensor's shape and
@@ -1897,8 +1934,9 @@ def copy_params(engine: InferenceEngine, params: Mapping) -> None:
     next replay and none is recaptured; the copies queue on the stream
     the graphs replay on, behind any chunk still in flight, and the
     device is synchronized before this returns. No second full copy of
-    the weights is held on the card: `params` may live on the host."""
-    live, new = flatten(engine.params), flatten(params)
+    the weights is held on the card: `params` may live on the host. An
+    int8 leaf's `q` and `scale` are copied into the live QTensor's."""
+    live, new = param_leaves(engine.params), param_leaves(params)
     with torch.no_grad():
         for name, t in live.items():
             t.copy_(new[name])
@@ -1986,7 +2024,8 @@ async def reload_weights(request: web.Request):
         async with app[GPU_LOCK_KEY]:
             params = await loop.run_in_executor(
                 None, reloader, name, engine, dict(source or {}))
-        why = (_params_mismatch(flatten(engine.params), flatten(params))
+        why = (_params_mismatch(param_leaves(engine.params),
+                                param_leaves(params))
                if isinstance(params, Mapping)
                else "parameter tree structure differs from the live "
                     "model's")

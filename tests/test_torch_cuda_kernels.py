@@ -547,3 +547,120 @@ def test_flash_impl_raises_on_cpu_tensors():
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         tattn.dot_product_attention(q, k, k, pos, pos, impl="flash",
                                     contiguous_positions=True)
+
+
+# int8_proj: (K, N) of the seven block projections (wq, wk/wv, wo,
+# w_gate/w_up, w_down; wq and wo share (D, q_dim) = (q_dim, D) at both
+# llama widths) of llama3-1b and llama3-8b
+INT8_SHAPES = [(2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048),
+               (4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+
+
+def int8_case(M, K, N, device, seed=0):
+    """Random bf16 h [M, K], int8 q [K, N] over the whole [-127, 127]
+    range, bf16 scale [1, N] at quantize's size (amax / 127 of a fan-in
+    scaled weight), and mag = (|h| @ |q|) * scale in fp32: the sum of the
+    product's absolute terms."""
+    gen = torch.Generator().manual_seed(seed)
+    h = torch.randn(M, K, generator=gen).to(torch.bfloat16)
+    q = torch.randint(-127, 128, (K, N), generator=gen, dtype=torch.int8)
+    scale = (torch.rand(1, N, generator=gen) * 2 * K**-0.5 / 127
+             ).to(torch.bfloat16)
+    h, q, scale = h.to(device), q.to(device), scale.to(device)
+    mag = (h.float().abs() @ q.float().abs()) * scale.float()
+    return h, q, scale, mag
+
+
+def int8_err_ratio(got, want, mag):
+    """max |got - want| / bound, bound = 1e-4 max|want| + 2^-7 |want| +
+    2^-12 mag. No operand is rounded (int8 -> bf16 is exact): the kernel
+    rounds its fp32 sum once, after the scale, the plain version rounds
+    the bf16 product and then the scaled value, so the two land within
+    one bf16 ulp, <= 2^-7 |want|; 2^-12 mag covers the fp32 sums' other
+    orders."""
+    got, want = got.float(), want.float()
+    bound = 1e-4 * want.abs().max() + 2**-7 * want.abs() + 2**-12 * mag
+    return float(((got - want).abs() / bound).max())
+
+
+def int8_want(h, q, scale):
+    """The plain version with cuBLAS held to fp32 reductions (no bf16
+    split-K reduction), the reference the kernel is held to."""
+    from kubeflow_tpu_torch.ops.cuda import int8_proj as ip
+
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        return ip.int8_proj_plain(h, q, scale)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+
+
+def test_int8_bound_sees_bf16_accumulators():
+    """The bound holds the kernel's arithmetic (fp32 sums, one rounding
+    after the scale) and fails a product whose accumulators are rounded
+    to bf16 after each K tile of 64, at a llama3-1b projection shape."""
+    h, q, scale, mag = int8_case(8, 2048, 1024, "cpu")
+    want = int8_want(h, q, scale)
+    fp32 = ((h.float() @ q.float()) * scale.float()).to(torch.bfloat16)
+    acc = torch.zeros(8, 1024, dtype=torch.bfloat16)
+    for k0 in range(0, 2048, 64):
+        acc = (acc.float() + h[:, k0:k0 + 64].float()
+               @ q[k0:k0 + 64].float()).to(torch.bfloat16)
+    bf16_acc = (acc.float() * scale.float()).to(torch.bfloat16)
+    assert int8_err_ratio(fp32, want, mag) <= 1.0
+    assert int8_err_ratio(bf16_acc, want, mag) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 8, 40, 64, 512])
+@pytest.mark.parametrize("K,N", INT8_SHAPES)
+def test_int8_proj_matches_plain_on_card(cuda_device, M, K, N):
+    from kubeflow_tpu_torch.ops.cuda import int8_proj as ip
+
+    h, q, scale, mag = int8_case(M, K, N, cuda_device)
+    before = ip.launches
+    got = ip.int8_proj(h, q, scale)
+    torch.cuda.synchronize()
+    assert ip.launches == before + 1
+    want = int8_want(h, q, scale)
+    assert got.shape == (M, N) and got.dtype == torch.bfloat16
+    assert int8_err_ratio(got, want, mag) <= 1.0
+    # deterministic: the split-K combine sums in a fixed order
+    assert torch.equal(ip.int8_proj(h, q, scale), got)
+
+
+@pytest.mark.cuda
+def test_int8_proj_strided_rows_and_leading_axes_on_card(cuda_device):
+    """A [b, s, K] activation and a row view with a stride past K (the
+    last position of each row) give the rows' products."""
+    from kubeflow_tpu_torch.ops.cuda import int8_proj as ip
+
+    h, q, scale, mag = int8_case(24, 2048, 1024, cuda_device, seed=1)
+    hb = h.reshape(4, 6, 2048)
+    got = ip.int8_proj(hb, q, scale)
+    assert got.shape == (4, 6, 1024)
+    want = int8_want(hb, q, scale)
+    assert int8_err_ratio(got, want, mag.reshape(4, 6, 1024)) <= 1.0
+    last = hb[:, -1]            # stride (6 K, 1)
+    got = ip.int8_proj(last, q, scale)
+    assert int8_err_ratio(got, int8_want(last, q, scale),
+                          mag.reshape(4, 6, 1024)[:, -1]) <= 1.0
+
+
+@pytest.mark.cuda
+def test_int8_proj_refuses_what_it_does_not_take_on_card(cuda_device):
+    from kubeflow_tpu_torch.ops.cuda import int8_proj as ip
+
+    h, q, scale, _ = int8_case(8, 2048, 1024, cuda_device)
+    with pytest.raises(ValueError, match="bfloat16 activations"):
+        ip.int8_proj(h.float(), q, scale)
+    with pytest.raises(ValueError, match="int8 weights"):
+        ip.int8_proj(h, q.to(torch.bfloat16), scale)
+    with pytest.raises(ValueError, match="bfloat16 scale"):
+        ip.int8_proj(h, q, scale.float())
+    with pytest.raises(ValueError, match="multiple of 128"):
+        ip.int8_proj(h, q[:, :1000].contiguous(), scale[:, :1000])
+    with pytest.raises(ValueError, match="unit stride"):
+        ip.int8_proj(h.t().contiguous().t(), q, scale)

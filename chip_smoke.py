@@ -65,13 +65,19 @@ Phases, each fatal on failure (exit code 1, no result line):
              Then `int8_proj` (the int8-weight projection) at the seven
              projection shapes of llama3-8b at M 8, 300 and 2400 (phase
              12a's decode, probe and window-batch prefill) and of
-             llama3-1b at M 8, 40 (the verify pass), 64 (a slice) and
-             512 (8 rows of a slice), a bf16 weight of the models' init
-             quantized per channel: within 1e-4 max|ref| + 2^-7 |ref| +
-             2^-12 mag, mag = (|h| @ |q|) scale, a bound that a control
-             with bf16 accumulators must fail; timed against its int8
+             llama3-1b at M 1 and 8 (decode), 16, 17 and 18 (the path
+             switch's M - 1, M and M + 1), 40 (the verify pass), 64 (a
+             slice), 128, and 512 and 513 (8 rows of a slice; the
+             wgmma tile's switch), a bf16 weight of the
+             models' init quantized per channel: within 1e-4 max|ref| +
+             2^-7 |ref| + 2^-12 mag, mag = (|h| @ |q|) scale, a bound
+             that a control with bf16 accumulators must fail; each
+             product's path and split logged; timed against its int8
              bound and graph-replayed bf16 torch.matmul of the same h by
-             the bf16 weight, cycling weight copies past the L2.
+             the bf16 weight, cycling weight copies past the L2. Then a
+             layer's four launches (wq, wk, wv and w_gate, w_up grouped;
+             each grouped output bit-identical to its product alone),
+             summed against the seven matmuls.
 3. serve   — boots the port's HTTP server in-process (the CLI's
              `--model llama3-1b --random --seed 0 --continuous --warmup
              --prefill-chunk-tokens 64`; dispatch-ahead depth 2), whose
@@ -335,23 +341,25 @@ Phases, each fatal on failure (exit code 1, no result line):
              as `create_serving_app(warmup=True)` warms them): every
              block matrix int8 on the card and `param_bytes` as
              reckoned; one 300-token prompt's prefill logits within 0.05
-             max|l| of the bf16 model's at the same seed (224
+             max|l| of the bf16 model's at the same seed (128
              `int8_proj` launches); counters set to 0 just before eight
              concurrent prompts (17-300 tokens, 32 new) and read just
-             after: `int8_proj` 7 x 32 a forward and a decode step,
+             after: `int8_proj` 4 x 32 a forward and a decode step,
              `decode_attention` 32 a step, nothing else, no capture in
              traffic, the repeated prompt's tokens identical, logprobs
              within 0.1 of a teacher-forced plain pass over the int8
              weights (argmax where the margin exceeds 0.2), an
-             `adapter` refused 400 (no pack). Prints the device ms a
-             decode step (profiled calls to 9 and 1 token) beside phase
-             5's bf16 step and peak memory. (b) llama3-1b continuous
+             `adapter` refused 400 (no pack). Prints the window
+             prefill's `int8_proj` device time (its trace, 128
+             launches), the device ms a decode step (profiled calls to
+             9 and 1 token) beside phase 5's bf16 step and peak memory.
+             (b) llama3-1b continuous
              through `create_serving_app` (8 slots, chunk 64, warmed,
              depth 2) with a pack of three adapters (rank 8, alpha 16,
              the seven targets, B non-zero), once in bf16 and once over
              `quantize_blocks`: eight concurrent rows mixing the base and
              the adapters (16 new), exact launches (16 paged decode a
-             step, 16 prefill-append a slice, `int8_proj` 7 x 16 a step
+             step, 16 prefill-append a slice, `int8_proj` 4 x 16 a step
              and a slice in the int8 pass), no capture in traffic; one
              200-token prompt as base, alice, alice again reuses 0, 0
              and 192 cells (the radix keys adapters apart) with alice's
@@ -368,8 +376,9 @@ counted over phase 6, or phase 7 for the flash kernels; and
 `paged_prefill_append@verify`, timed at the verify pass's shape and
 counted over phase 9's verify rounds, whose prefill slices count under
 `paged_prefill_append`; `int8_proj`, no Pallas kernel's port (it replaces
-the reference's `qdot`), timed as one llama3-8b decode layer's seven
-products and counted over phase 12), the card's name and power limit,
+the reference's `qdot`), timed as one llama3-8b decode layer's four
+launches and counted over phase 12, with its kernel functions), the
+card's name and power limit,
 and last `{"ok": true, "device": {...}}`.
 
 Exits non-zero without a result when CUDA is unavailable or the port's
@@ -1350,14 +1359,22 @@ def _proj_shapes(d, q, kv, ffn):
 
 INT8_SHAPES = {"llama3-8b": _proj_shapes(4096, 4096, 1024, 14336),
                "llama3-1b": _proj_shapes(2048, 2048, 1024, 8192)}
-# (model, M): decode at 8 live rows (both models), the spec verify
-# pass's 8 rows x (gamma + 1) = 40 and one 64-token prefill slice
-# (llama3-1b); then the prefill shapes of phase 12: llama3-8b's 300-token
-# probe and its 8-row window batch left-padded to 300 tokens (2400), and
-# a llama3-1b slice group of 8 rows x 64 tokens (512)
-INT8_CASES = (("llama3-8b", 8), ("llama3-1b", 8), ("llama3-1b", 40),
-              ("llama3-1b", 64), ("llama3-8b", 300), ("llama3-8b", 2400),
-              ("llama3-1b", 512))
+# (model, M): decode at 8 live rows (both models) and at 1; the path
+# switch's M - 1, M and M + 1 (16, 17, 18: mma.sync, then wgmma, a ragged
+# last tile on each side); the spec verify pass's 8 rows x (gamma + 1) =
+# 40, one 64-token prefill slice and two (llama3-1b); then the prefill
+# shapes of phase 12: llama3-8b's 300-token probe and its 8-row window
+# batch left-padded to 300 tokens (2400), and a llama3-1b slice group of
+# 8 rows x 64 tokens (512) and one row past it (513: the wgmma tile's
+# switch from 64 to 256 rows)
+INT8_CASES = (("llama3-8b", 8), ("llama3-1b", 1), ("llama3-1b", 8),
+              ("llama3-1b", 16), ("llama3-1b", 17), ("llama3-1b", 18),
+              ("llama3-1b", 40), ("llama3-1b", 64), ("llama3-1b", 128),
+              ("llama3-8b", 300), ("llama3-8b", 2400), ("llama3-1b", 512),
+              ("llama3-1b", 513))
+# a layer's launches: the products that read one h go out together
+INT8_LAUNCHES = (("wq", "wk", "wv"), ("wo",), ("w_gate", "w_up"),
+                 ("w_down",))
 INT8_LAYERS = {"llama3-8b": 32, "llama3-1b": 16}
 # No operand is rounded (int8 -> bf16 is exact, h is bf16). The kernel
 # rounds its fp32 sum once, after the scale; the plain version rounds the
@@ -1370,6 +1387,9 @@ INT8_SUM_ORDER = 2**-12
 INT8_TOL_TEXT = ("tol 1e-4 max|ref| + 2^-7 |ref| + 2^-12 mag, mag = "
                  "(|h| @ |q|) scale")
 L2_BYTES = 50 * 2**20              # H100 L2: timed weights cycle past it
+# the kernel functions of csrc/int8_proj.cu (the `kernels` line)
+INT8_FUNCTIONS = ("int8_proj_mma_kernel", "int8_proj_wgmma_kernel<64>",
+                  "int8_proj_wgmma_kernel<256>")
 
 
 def _int8_ratio(got, want, mag):
@@ -1390,42 +1410,80 @@ def _int8_bf16_accumulators(torch, h, q, scale):
     return (acc.float() * scale.float()).to(torch.bfloat16)
 
 
+def _int8_weights(torch, dev, gen, model):
+    """A model's seven projections: a bf16 weight of the model's init
+    scale and its per-channel int8 quantization, each with as many copies
+    as exceed the L2 twice (timed calls cycle over them)."""
+    from kubeflow_tpu_torch.serving.quant import quantize
+
+    out = {}
+    for name, (k, n) in INT8_SHAPES[model].items():
+        w = (torch.randn(k, n, generator=gen, device=dev)
+             * k**-0.5).to(torch.bfloat16)
+        qt = quantize(w)
+        copies = -(-2 * L2_BYTES // (k * n))
+        out[name] = dict(k=k, n=n, w=[w] + [w.clone()
+                                           for _ in range(copies - 1)],
+                         q=[qt.q] + [qt.q.clone()
+                                     for _ in range(copies - 1)],
+                         scale=qt.scale, copies=copies)
+    return out
+
+
+def _int8_layer_ms(torch, ip, ws, hs):
+    """Device ms of a layer's four launches (INT8_LAUNCHES), each timed
+    alone, cycling weight copies."""
+    total = 0.0
+    for names in INT8_LAUNCHES:
+        h = hs[ws[names[0]]["k"]]
+        copies = min(ws[n]["copies"] for n in names)
+        total += _time_ms(torch, lambda i: ip.int8_proj_many(
+            h, [(ws[n]["q"][i % copies], ws[n]["scale"]) for n in names]),
+            max(10, copies))[0]
+    return total
+
+
 def check_int8_proj(torch, dev):
     """The int8 projection kernel against its plain version at every
     projection of INT8_CASES (a bf16 weight of the model's init, its
     per-channel int8 quantization, bf16 activations), under the int8
-    bound, which must also fail the bf16-accumulator control; then each
-    timed (CUDA-graph replay, the call cycling over as many copies of the
+    bound, which must also fail the bf16-accumulator control; each timed
+    (CUDA-graph replay, the call cycling over as many copies of the
     weight as exceed the L2) beside the plain version and the library
     call the bf16 path runs: torch.matmul of the same h by the bf16
-    weight. The plain version is computed for the check with cuBLAS held
-    to fp32 reductions (no bf16 split-K reduction). -> the `kernels`-line
-    numbers of one llama3-8b decode layer (the seven products at M = 8,
-    summed)."""
+    weight. Then a layer's four launches (INT8_LAUNCHES: wq, wk, wv and
+    w_gate, w_up grouped), each grouped output bit-identical to its
+    product alone and their times summed against the seven matmuls. The
+    plain version is computed for the check with cuBLAS held to fp32
+    reductions (no bf16 split-K reduction). -> the `kernels`-line numbers of one
+    llama3-8b decode layer (its four launches at M = 8, summed)."""
     from kubeflow_tpu_torch.ops.cuda import int8_proj as ip
-    from kubeflow_tpu_torch.serving.quant import quantize
 
     gen = torch.Generator(device=dev).manual_seed(31)
     worst = 0.0
     layer = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, flops=0)
     matmul = torch.backends.cuda.matmul
+    weights = {model: _int8_weights(torch, dev, gen, model)
+               for model in INT8_SHAPES}
     for model, m in INT8_CASES:
+        ws = weights[model]
         seven = dict(ms=0.0, library_ms=0.0, ratio=0.0,
                      control=float("inf"))
-        for name, (k, n) in INT8_SHAPES[model].items():
-            w = (torch.randn(k, n, generator=gen, device=dev)
-                 * k**-0.5).to(torch.bfloat16)
-            qt = quantize(w)
-            h = torch.randn(m, k, generator=gen, device=dev).to(
-                torch.bfloat16)
-            got = ip.int8_proj(h, qt.q, qt.scale)
+        hs = {k: torch.randn(m, k, generator=gen, device=dev).to(
+            torch.bfloat16) for k in {w["k"] for w in ws.values()}}
+        alone = {}
+        for name, wt in ws.items():
+            k, n, q, scale, copies = (wt["k"], wt["n"], wt["q"][0],
+                                      wt["scale"], wt["copies"])
+            h = hs[k]
+            got = ip.int8_proj(h, q, scale)
             reduced = matmul.allow_bf16_reduced_precision_reduction
             matmul.allow_bf16_reduced_precision_reduction = False
-            want = ip.int8_proj_plain(h, qt.q, qt.scale)
+            want = ip.int8_proj_plain(h, q, scale)
             matmul.allow_bf16_reduced_precision_reduction = reduced
-            control = _int8_bf16_accumulators(torch, h, qt.q, qt.scale)
+            control = _int8_bf16_accumulators(torch, h, q, scale)
             torch.cuda.synchronize()
-            mag = (h.float().abs() @ qt.q.float().abs()) * qt.scale.float()
+            mag = (h.float().abs() @ q.float().abs()) * scale.float()
             err = float((got.float() - want.float()).abs().max())
             ratio = _int8_ratio(got, want, mag)
             c_ratio = _int8_ratio(control, want, mag)
@@ -1436,51 +1494,65 @@ def check_int8_proj(torch, dev):
             if c_ratio <= 1:
                 fail(f"the int8 bound cannot see bf16 accumulators at "
                      f"{model} {name} M {m}: {c_ratio:.2f}")
-            wbytes = k * n
-            copies = -(-2 * L2_BYTES // wbytes)
-            qs = [qt.q] + [qt.q.clone() for _ in range(copies - 1)]
-            ws = [w] + [w.clone() for _ in range(copies - 1)]
+            alone[name] = got
             n_calls = max(10, copies)
             kern = _time_ms(torch, lambda i: ip.int8_proj(
-                h, qs[i % copies], qt.scale), n_calls)
+                h, wt["q"][i % copies], scale), n_calls)
             plain = _time_ms(torch, lambda i: ip.int8_proj_plain(
-                h, qs[i % copies], qt.scale), n_calls)
+                h, wt["q"][i % copies], scale), n_calls)
             lib = _time_ms(torch, lambda i: torch.matmul(
-                h, ws[i % copies]), n_calls)[0]
-            moved = wbytes + 2 * n + 2 * m * k + 2 * m * n
+                h, wt["w"][i % copies]), n_calls)[0]
+            moved = k * n + 2 * n + 2 * m * k + 2 * m * n
             flops = 2 * m * n * k
             bound = max(moved / HBM_BYTES_S, flops / BF16_FLOPS_S) * 1e3
-            splits = ip._lib().kft_int8_proj_splits(m, n, k)
+            path, cluster = ip.plan(m, n, k)
             log(f"  int8_proj {model} {name} [{m} x {k}] @ [{k} x {n}]: "
                 f"max_abs_err {err:.3e} ({ratio:.3f} of the bound; bf16-"
-                f"accumulator control {c_ratio:.2f}), {splits} split(s); "
-                f"device {kern[0]:.4f} ms (eager call {kern[1]:.4f}), "
-                f"{bound / kern[0]:.1%} of the int8 bound {bound:.4f} ms; "
-                f"bf16 torch.matmul {lib:.4f} ms ({lib / kern[0]:.2f}x the "
-                f"kernel's time); plain {plain[0]:.4f} ms")
+                f"accumulator control {c_ratio:.2f}), {path} path, "
+                f"cluster {cluster}; device {kern[0]:.4f} ms (eager call "
+                f"{kern[1]:.4f}), {bound / kern[0]:.1%} of the int8 bound "
+                f"{bound:.4f} ms; bf16 torch.matmul {lib:.4f} ms "
+                f"({lib / kern[0]:.2f}x the kernel's time); plain "
+                f"{plain[0]:.4f} ms")
             seven["ms"] += kern[0]
             seven["library_ms"] += lib
             seven["ratio"] = max(seven["ratio"], ratio)
             seven["control"] = min(seven["control"], c_ratio)
             if (model, m) == ("llama3-8b", 8):
-                layer["ms"] += kern[0]
                 layer["plain_ms"] += plain[0]
                 layer["library_ms"] += lib
                 layer["bytes"] += moved
                 layer["flops"] += flops
-            del qs, ws, w, qt, h, got, want, control, mag
-            torch.cuda.empty_cache()
+            del want, control, mag
+        for names in INT8_LAUNCHES[::2]:
+            outs = ip.int8_proj_many(hs[ws[names[0]]["k"]], [
+                (ws[n]["q"][0], ws[n]["scale"]) for n in names])
+            for n, y in zip(names, outs):
+                if not torch.equal(y, alone[n]):
+                    fail(f"int8_proj_many at {model} M {m}: {n} in "
+                         f"{names} differs from its product alone")
+        grouped = _int8_layer_ms(torch, ip, ws, hs)
+        if (model, m) == ("llama3-8b", 8):
+            layer["ms"] = grouped
         layers = INT8_LAYERS[model]
-        log(f"  int8_proj {model} M {m}, a layer's seven products: device "
-            f"{seven['ms']:.4f} ms against bf16 torch.matmul "
-            f"{seven['library_ms']:.4f} ms; x {layers} layers "
-            f"{seven['ms'] * layers:.3f} ms against "
-            f"{seven['library_ms'] * layers:.3f} ms; err/tol max "
-            f"{seven['ratio']:.3f}, control min {seven['control']:.2f}")
+        log(f"  int8_proj {model} M {m}, a layer: {len(INT8_LAUNCHES)} "
+            f"launches (grouped outputs bit-identical to the products "
+            f"alone) {grouped:.4f} ms, the seven products alone "
+            f"{seven['ms']:.4f} ms, bf16 torch.matmul "
+            f"{seven['library_ms']:.4f} ms "
+            f"({seven['library_ms'] / grouped:.2f}x"
+            f" the grouped time); x {layers} layers {grouped * layers:.3f} "
+            f"ms against {seven['library_ms'] * layers:.3f} ms; err/tol "
+            f"max {seven['ratio']:.3f}, control min {seven['control']:.2f}")
+        del hs, alone
+        torch.cuda.empty_cache()
+    del weights
+    torch.cuda.empty_cache()
     log(f"  int8_proj: every case within {INT8_TOL_TEXT}; every "
         f"bf16-accumulator control outside it")
-    st = _summary("int8_proj, one llama3-8b decode layer's seven products "
-                  "at M 8 (eager: not summed)", worst,
+    st = _summary("int8_proj, one llama3-8b decode layer's four launches "
+                  "at M 8 (plain and library: the seven products; eager: "
+                  "not summed)", worst,
                   (layer["ms"], 0.0), (layer["plain_ms"], 0.0),
                   layer["library_ms"], layer["bytes"], layer["flops"],
                   library="bf16 torch.matmul")
@@ -4361,6 +4433,7 @@ def _nodes(radix):
 # -- phase 12 ---------------------------------------------------------------
 
 QUANT_REL = 0.05          # int8 vs bf16 logits: the reference's own bound
+INT8_PER_LAYER = len(INT8_LAUNCHES)   # int8_proj launches a layer
 LORA_NAMES = ("alice", "bob", "carol")
 LORA_RANK, LORA_ALPHA = 8, 16.0
 # phase 12b's eight concurrent rows: prompt length and adapter ("" base)
@@ -4394,7 +4467,7 @@ def _profiled_step_ms(torch, engine, prompts, max_new):
     for r, p in enumerate(prompts):
         arr[r, width - len(p):] = torch.tensor(p)
         mask[r, width - len(p):] = True
-    busy = {}
+    busy, prefill = {}, None
     for n in (1, max_new):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -4402,9 +4475,14 @@ def _profiled_step_ms(torch, engine, prompts, max_new):
             engine.generate(arr, prompt_mask=mask, max_new=n)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
-        busy[n] = sum(_dev_us(e) for e in _device_events(prof))
+        events = _device_events(prof)
+        busy[n] = sum(_dev_us(e) for e in events)
+        if n == 1:   # the window's prefill and its first token
+            proj = [e for e in events if "int8_proj" in e.key]
+            prefill = (sum(_dev_us(e) for e in proj) / 1e3,
+                       sum(e.count for e in proj), busy[1] / 1e3)
     _report_profile(prof, wall, top=6)
-    return (busy[max_new] - busy[1]) / (max_new - 1) / 1e3
+    return (busy[max_new] - busy[1]) / (max_new - 1) / 1e3, prefill
 
 
 async def quant_oneshot_and_check(torch):
@@ -4487,9 +4565,9 @@ async def quant_oneshot_and_check(torch):
     log(f"  prefill logits (300 tokens) vs the bf16 model's: max_abs_err "
         f"{err:.4f}, {err / scale:.4f} of max|l| {scale:.3f} (bound "
         f"{QUANT_REL}); int8_proj {n_fwd} launches a forward")
-    if n_fwd != 7 * cfg.num_layers:
+    if n_fwd != INT8_PER_LAYER * cfg.num_layers:
         fail(f"int8 forward: {n_fwd} int8_proj launches, the design "
-             f"implies {7 * cfg.num_layers}")
+             f"implies {INT8_PER_LAYER * cfg.num_layers}")
     if err > QUANT_REL * scale:
         fail(f"int8 prefill logits part from bf16's by {err / scale:.4f} "
              f"of max|l| (bound {QUANT_REL})")
@@ -4538,14 +4616,14 @@ async def quant_oneshot_and_check(torch):
         f"{engine.captures - captures} captures in traffic; kernel "
         f"launches {counts}")
     L, steps = cfg.num_layers, DENSE_MAX_NEW - 1
-    want = {"int8_proj": 7 * L * (1 + steps) * calls,
+    want = {"int8_proj": INT8_PER_LAYER * L * (1 + steps) * calls,
             "decode_attention": L * steps * calls}
     for k, n in counts.items():
         if n != want.get(k, 0):
             fail(f"phase 12a {k}: {n} launches, the design implies "
-                 f"{want.get(k, 0)} (7 x {L} a forward and a decode step, "
-                 f"{L} decode attention a step, {steps} steps a call, "
-                 f"{calls} calls)")
+                 f"{want.get(k, 0)} ({INT8_PER_LAYER} x {L} a forward and a "
+                 f"decode step, {L} decode attention a step, {steps} steps "
+                 f"a call, {calls} calls)")
     if engine.captures != captures or replays != steps * calls:
         fail(f"phase 12a: {engine.captures - captures} captures in "
              f"traffic, {replays} replays (the design implies "
@@ -4563,8 +4641,15 @@ async def quant_oneshot_and_check(torch):
     # its use (q * scale in bf16), with no kernel
     _teacher_check(torch, engine, prompts, outs, lps, "one-shot llama3-8b "
                    "int8 (teacher: the plain pass over the int8 weights)")
-    step_ms = _profiled_step_ms(torch, engine, prompts, 9)
+    step_ms, (pre_ms, pre_n, pre_busy) = _profiled_step_ms(
+        torch, engine, prompts, 9)
     bf16_ms = MEASURED.get("phase5_step_ms")
+    log(f"  window prefill (the call to 1 token, its trace): int8_proj "
+        f"{pre_ms:.2f} ms of device time in {pre_n} launches, of "
+        f"{pre_busy:.2f} ms busy")
+    if pre_n != INT8_PER_LAYER * L:
+        fail(f"phase 12a's traced prefill: {pre_n} int8_proj launches, the "
+             f"design implies {INT8_PER_LAYER * L}")
     log(f"  device time a decode step of the window batch (profiled calls "
         f"to 9 and to 1 token): int8 {step_ms:.3f} ms; bf16 (phase 5, "
         f"this run) "
@@ -4734,7 +4819,8 @@ async def adapters_and_check(torch, quant: bool):
     L = cfg.num_layers
     want = {"paged_decode_attention": L * calls,
             "paged_prefill_append": L * slices,
-            "int8_proj": 7 * L * (calls + slices) if quant else 0}
+            "int8_proj": INT8_PER_LAYER * L * (calls + slices) if quant
+            else 0}
     log(f"  {label}: {len(rows)} rows in {serve_s:.3f} s: {calls} decode "
         f"steps dispatched, {slices} slices, {hits} prefix hits; host "
         f"{step_ms:.2f} ms a decode step (phase 3, bf16, no pack, this "
@@ -4744,7 +4830,7 @@ async def adapters_and_check(torch, quant: bool):
         if n != want.get(k, 0):
             fail(f"phase 12b ({label}) {k}: {n} launches, the design "
                  f"implies {want.get(k, 0)} ({L} layers x {calls} steps / "
-                 f"{slices} slices; int8_proj 7 a layer)")
+                 f"{slices} slices; int8_proj {INT8_PER_LAYER} a layer)")
     if slices != sum(-(-n // CHUNK) for n, _ in LORA_ROWS) or hits:
         fail(f"phase 12b: {slices} slices, {hits} hits for cold prompts "
              f"{[n for n, _ in LORA_ROWS]}")
@@ -5038,6 +5124,8 @@ def main() -> None:
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"]})
+        if name == "int8_proj":
+            kernels[-1]["functions"] = list(INT8_FUNCTIONS)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(_card(), flush=True)
     print(json.dumps({"ok": True, "device": {

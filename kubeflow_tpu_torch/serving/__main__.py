@@ -47,7 +47,11 @@ phases, by default); `--fleet-router URL` registers the replica with a
 fleet router and heartbeats its stats there, `--advertise URL` (default
 `http://HOST:PORT`) is where the router reaches it; `--model-version`
 labels the boot weights, which `POST /v1/reload` replaces live from
-`{"checkpoint": dir, "step": n}` or `{"seed": n}`. `--quant int8` serves
+`{"checkpoint": dir, "step": n}` or `{"seed": n}`. `--name` is the served
+model name (the route's model segment and `/v1/models`; default
+`--model`). `--paged-attention-impl` (continuous only) is the
+reference's knob: `auto` and `pallas` run the CUDA paged kernels, `xla`
+(the plain gathered path) is taken with `--cpu` only. `--quant int8` serves
 the seven block matrices as int8 with a bf16 scale per output channel
 (serving/quant.py), quantized after the load and again after every
 reload; their products run through the `int8_proj` kernel on the card.
@@ -87,6 +91,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="python -m kubeflow_tpu_torch.serving")
     names = tuple(model_registry())
     p.add_argument("--model", default="llama-tiny", choices=names)
+    p.add_argument("--name", default="",
+                   help="served model name: the route's model segment and "
+                        "/v1/models' entry (default: --model)")
     src = p.add_mutually_exclusive_group()
     src.add_argument("--checkpoint", default="",
                      help="train.checkpoint.Checkpointer directory")
@@ -143,6 +150,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--pipeline-depth", type=int, default=0,
                    help="decode dispatch-ahead depth (0 = the backend's "
                         "default: 2 on CUDA, 1 on the CPU)")
+    p.add_argument("--paged-attention-impl", default="auto",
+                   choices=("auto", "xla", "pallas"),
+                   help="decode attention over the paged KV pool "
+                        "(continuous only): auto and pallas run the CUDA "
+                        "kernels on the card; xla is the plain gathered "
+                        "path, taken with --cpu only")
     p.add_argument("--tokenizer", default="",
                    help="data.bpe tokenizer file (text mode); 'auto' uses "
                         "tokenizer.json beside --checkpoint when present, "
@@ -183,6 +196,14 @@ def parse_args(argv=None) -> argparse.Namespace:
         p.error("pass --checkpoint DIR or --random")
     if args.warmup and not args.continuous:
         p.error("--warmup requires --continuous")
+    if args.paged_attention_impl != "auto" and not args.continuous:
+        p.error("--paged-attention-impl requires --continuous")
+    if args.paged_attention_impl == "xla" and not args.cpu:
+        # the port's paged path on the card is the kernel: never run the
+        # plain gathered version there quietly
+        p.error("--paged-attention-impl xla is the plain gathered path, "
+                "which the port runs with --cpu only: on the card the "
+                "paged path is the CUDA kernel (auto or pallas)")
     for flag in ("prefill_chunk", "prefill_chunk_tokens", "pipeline_depth",
                  "kv_spill_bytes"):
         name = "--" + flag.replace("_", "-")
@@ -299,6 +320,7 @@ def build_app(args: argparse.Namespace):
 
     device = resolve_device("cpu" if args.cpu else None)
     cfg, init, family = model_registry()[args.model]
+    name = args.name or args.model
     ec = EngineConfig(max_len=args.max_len, eos_token=args.eos)
     params = _quantized(
         _load_params(args.checkpoint, args.seed, cfg, init, device),
@@ -312,21 +334,22 @@ def build_app(args: argparse.Namespace):
         dcfg, dinit, dfamily = model_registry()[args.draft_model]
         dparams = _load_params(args.draft_checkpoint, args.seed + 1, dcfg,
                                dinit, device)
-        drafts = {args.model: InferenceEngine(dparams, dcfg, dfamily, ec,
-                                              device=device)}
+        drafts = {name: InferenceEngine(dparams, dcfg, dfamily, ec,
+                                        device=device)}
     tenancy = None
     if args.tenants:
         from kubeflow_tpu_torch.tenancy import load_config
 
         tenancy = load_config(args.tenants)
     app = create_serving_app(
-        {args.model: engine}, tokenizer=load_tokenizer(args),
+        {name: engine}, tokenizer=load_tokenizer(args),
         max_batch=args.max_batch,
         continuous=args.continuous, batch_window_ms=args.batch_window_ms,
         warmup=args.warmup, prefill_chunk=args.prefill_chunk or None,
         prefill_chunk_tokens=args.prefill_chunk_tokens or None,
         pipeline_depth=args.pipeline_depth or None,
-        kv_spill_bytes=args.kv_spill_bytes or None, drafts=drafts,
+        kv_spill_bytes=args.kv_spill_bytes or None,
+        paged_attention_impl=args.paged_attention_impl, drafts=drafts,
         spec_decode=args.spec_decode, spec_gamma=args.spec_gamma,
         seed=args.seed, tenancy=tenancy, drain_grace_s=args.drain_grace_s,
         pool=args.pool, model_version=args.model_version,
@@ -344,7 +367,8 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     app = build_app(args)
     source = f"random, seed {args.seed}" if args.random else args.checkpoint
-    print(f"serving {args.model} ({source}) on {args.host}:{args.port} "
+    print(f"serving {args.model} as {args.name or args.model} ({source}) "
+          f"on {args.host}:{args.port} "
           f"device={'cpu' if args.cpu else 'cuda'} "
           f"tokenizer={args.tokenizer or 'byte'}", flush=True)
     web.run_app(app, host=args.host, port=args.port, print=None)

@@ -73,8 +73,10 @@ prefills only the partial tail block. Instant drain: `export_sequences`
 parks the worker and packs every admitted request into a migration
 wire record (serving/migration.py) with its full KV blocks;
 `import_sequence` scatters a record's blocks into the pool and indexes
-them, so the re-issued generation resumes from them. The reference's
-peer block fetch on admission is not ported yet.
+them, so the re-issued generation resumes from them. Admission also
+runs the reference's peer block fetch: a request that names a peer
+(`X-KV-Peer`) pulls the blocks its prompt would otherwise prefill
+(server.py's `_peer_fetch_blocks`).
 
 With an adapter pack on the engine (serving/multilora.py), every slot
 carries an adapter id (`SlotState.aid`, 0 = the plain base), set at

@@ -3,10 +3,11 @@
 
 `transformer_block` is the one definition of a decoder block that every
 serving path runs, with the KV-cache write and the attention call
-injected (`write_kv`, `attn`) and every block matmul behind `proj`:
-`quant.qdot` by default (a plain weight's product, or an int8 `QTensor`'s
-through the `int8_proj` kernel), `multilora.lora_proj` for rows that
-carry adapter ids.
+injected (`write_kv`, `attn`) and the block matmuls behind `proj`, which
+takes the products that read one h together (wq, wk, wv; w_gate, w_up;
+wo; w_down): `quant.qdot_many` by default (plain weights' products, or
+int8 `QTensor`s' in one `int8_proj` launch a group: four a layer),
+`multilora.lora_proj` for rows that carry adapter ids.
 `InferenceEngine` holds the weights, the embedding, head and sampling
 steps the continuous engine builds on, and the reference's one-shot
 entry points: `generate`, `generate_stream`, `prefill_chunked`, `score`
@@ -52,7 +53,7 @@ from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rotary import apply_rope, rope_frequencies
 from kubeflow_tpu_torch.serving.graphs import GraphCache, upload
 from kubeflow_tpu_torch.serving.multilora import lora_proj
-from kubeflow_tpu_torch.serving.quant import qdot
+from kubeflow_tpu_torch.serving.quant import qdot_many
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,26 +243,30 @@ def transformer_block(cfg, fam: Family, p, x, rope_positions, inv_freq,
     """One decoder block on x [b, s, h]: norms, QKV/output projections,
     rotary, gated MLP. `write_kv(k, v) -> (k_cache, v_cache)` and
     `attn(q, k_cache, v_cache) -> out` are the cache policy and the
-    attention call; `proj(name, h, w)` wraps every block matmul (default
-    `qdot`: a plain weight's product, or an int8 QTensor's)."""
+    attention call; `proj(names, h, ws)` computes the block matmuls that
+    read one h, in order (default `qdot_many`: plain weights' products,
+    or int8 QTensors' in one launch)."""
     if proj is None:
-        def proj(name, h, w):
-            return qdot(h, w, cfg.dtype)
+        def proj(names, h, ws):
+            return qdot_many(h, ws, cfg.dtype)
 
     b, s = x.shape[:2]
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    q = proj("wq", h, p["wq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = proj("wk", h, p["wk"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = proj("wv", h, p["wv"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    q, k, v = proj(("wq", "wk", "wv"), h, (p["wq"], p["wk"], p["wv"]))
+    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     q = apply_rope(q, rope_positions, inv_freq)
     k = apply_rope(k, rope_positions, inv_freq)
     k_cache, v_cache = write_kv(k, v)
     out = attn(q, k_cache, v_cache)
-    x = x + proj("wo", out.reshape(b, s, cfg.q_dim), p["wo"])
+    (o,) = proj(("wo",), out.reshape(b, s, cfg.q_dim), (p["wo"],))
+    x = x + o
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
-    gate = fam.gate_act(proj("w_gate", h, p["w_gate"]))
-    ff = gate * proj("w_up", h, p["w_up"])
-    x = x + proj("w_down", ff, p["w_down"])
+    gate, up = proj(("w_gate", "w_up"), h, (p["w_gate"], p["w_up"]))
+    ff = fam.gate_act(gate) * up
+    (down,) = proj(("w_down",), ff, (p["w_down"],))
+    x = x + down
     return x, (k_cache, v_cache)
 
 

@@ -17,8 +17,9 @@ in one pass:
   delta is exactly zero (one program, no branch).
 - The low-rank delta is applied unmerged, two skinny products per
   target (`torch.bmm`; the reference computes them in XLA, not in a
-  Pallas kernel). The base product goes through `qdot`, so an int8 base
-  composes.
+  Pallas kernel). The base products go through `qdot_many`, grouped as
+  the block groups them (one `int8_proj` launch for wq, wk, wv), so an
+  int8 base composes.
 
 Under CUDA graphs the pack's tensors and the per-row ids are static
 inputs: the pack never moves, and the ids are state tensors the host
@@ -32,7 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from kubeflow_tpu_torch.serving.quant import qdot
+from kubeflow_tpu_torch.serving.quant import qdot_many
 from kubeflow_tpu_torch.train.lora import _TARGET_DIMS, LoraConfig
 
 Params = dict
@@ -122,19 +123,23 @@ def build_pack(cfg, lora_cfg: LoraConfig, adapters: dict,
 
 
 def lora_proj(layer_pack: Params, ids: torch.Tensor, scaling: float, cfg):
-    """The `proj` hook of `engine.transformer_block`: the base product
-    through `qdot` plus each row's low-rank delta. `layer_pack` is one
-    layer's slice (`AdapterPack.layer`), `ids` [b] the rows' adapter
-    ids. Targets without adapters fall through to `qdot`."""
+    """The `proj` hook of `engine.transformer_block`: the base products
+    of the weights that read one h, grouped through `qdot_many` (one
+    `int8_proj` launch for int8 weights), then each target's low-rank
+    delta per row. `layer_pack` is one layer's slice
+    (`AdapterPack.layer`), `ids` [b] the rows' adapter ids. Targets
+    without adapters keep the base product."""
 
-    def proj(name: str, h: torch.Tensor, w) -> torch.Tensor:
-        y = qdot(h, w, cfg.dtype)
-        ab = layer_pack.get(name)
-        if ab is None:
-            return y
-        a = ab["A"][ids].to(cfg.dtype)      # [b, d_in, r]
-        b = ab["B"][ids].to(cfg.dtype)      # [b, r, d_out]
-        delta = torch.bmm(torch.bmm(h.to(cfg.dtype), a), b)
-        return y + torch.tensor(scaling, dtype=cfg.dtype) * delta
+    def proj(names, h: torch.Tensor, ws) -> list:
+        out = []
+        for name, y in zip(names, qdot_many(h, ws, cfg.dtype)):
+            ab = layer_pack.get(name)
+            if ab is not None:
+                a = ab["A"][ids].to(cfg.dtype)      # [b, d_in, r]
+                b = ab["B"][ids].to(cfg.dtype)      # [b, r, d_out]
+                delta = torch.bmm(torch.bmm(h.to(cfg.dtype), a), b)
+                y = y + torch.tensor(scaling, dtype=cfg.dtype) * delta
+            out.append(y)
+        return out
 
     return proj

@@ -18,6 +18,10 @@ leaves are. `qdot` is every block matmul of the serving paths:
   because PyTorch, unlike XLA, fuses no int8 -> bf16 convert into a
   product's operand read; on the CPU through its plain version.
 
+`qdot_many` is the products of one h by several weights (a layer's wq,
+wk, wv; its w_gate, w_up): QTensors in one `int8_proj_many` launch, each
+product bit-identical to its `qdot`.
+
 `quantize` repeats the reference's arithmetic step for step (the scale
 rounded to its storage dtype first, then round-half-to-even of w / scale
 clipped to +-127), so on the same fp32 weights `q` and `scale` are
@@ -29,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from kubeflow_tpu_torch.ops.cuda.int8_proj import int8_proj
+from kubeflow_tpu_torch.ops.cuda.int8_proj import int8_proj, int8_proj_many
 
 Params = dict
 
@@ -85,6 +89,15 @@ def qdot(h: torch.Tensor, w, dtype: torch.dtype) -> torch.Tensor:
     if isinstance(w, QTensor):
         return int8_proj(h.to(dtype), w.q, w.scale)
     return h @ w.to(dtype)
+
+
+def qdot_many(h: torch.Tensor, ws, dtype: torch.dtype) -> list:
+    """[qdot(h, w, dtype) for w in ws], bit for bit: when every weight is
+    a QTensor, one `int8_proj_many` launch (at most three weights);
+    otherwise each product as `qdot` makes it."""
+    if ws and all(isinstance(w, QTensor) for w in ws):
+        return int8_proj_many(h.to(dtype), [(w.q, w.scale) for w in ws])
+    return [qdot(h, w, dtype) for w in ws]
 
 
 def quantize(w: torch.Tensor, *,

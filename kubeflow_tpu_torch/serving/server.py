@@ -628,6 +628,8 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
                        kv_pool_blocks: int | None = None,
                        kv_spill_bytes: int | None = None,
                        prefixes: dict[str, list[int]] | None = None,
+                       max_pending: int | None = None,
+                       paged_attention_impl: str = "auto",
                        drafts: dict[str, InferenceEngine] | None = None,
                        spec_decode: bool = False, spec_gamma: int = 4,
                        seed: int | None = None,
@@ -646,8 +648,16 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
     dispatch-ahead depth; `kv_block_size` the pool's block,
     `kv_pool_blocks` its size (None: every slot at max_len),
     `kv_spill_bytes` the host spill tier's budget (None: off);
-    `prefixes` maps names to registered prefix tokens; `seed` seeds the
-    sampler.
+    `prefixes` maps names to registered prefix tokens; `max_pending`
+    (None: 256) is the queue depth past which a request is shed with a
+    429; `seed` seeds the sampler. `paged_attention_impl` is the
+    reference's knob ("auto", "xla" or "pallas"): on the card the paged
+    path is the CUDA kernels, which "auto" and "pallas" select, and
+    "xla" (the plain gathered path, what the CPU runs) is refused for a
+    CUDA engine rather than run the plain version quietly.
+    Outside continuous mode these knobs raise the reference's
+    `ValueError`, whose text names `warmup` too: the port's one-shot
+    mode takes `warmup` (it warms the decode graphs).
     `tokenizer` (data/bpe.py's `Tokenizer`, or anything with encode,
     decode and vocab_size) serves the "text" request field; without one
     the byte-level fallback applies. A tokenizer whose vocab exceeds a
@@ -686,18 +696,34 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
             "path ships paged KV blocks)")
     if not continuous and (prefill_chunk is not None
                            or prefill_chunk_tokens is not None
+                           or prefixes or max_pending is not None
                            or pipeline_depth is not None
                            or kv_block_size != 64
                            or kv_pool_blocks is not None
-                           or kv_spill_bytes is not None or prefixes
+                           or kv_spill_bytes is not None
+                           or paged_attention_impl != "auto"
                            or spec_decode or tenancy is not None):
         # these knobs only exist on the continuous batcher; ignoring
         # them would ship a server without what the caller asked for
-        # (tenancy especially: the caller believes quotas are enforced)
-        raise ValueError("prefill_chunk/prefill_chunk_tokens/"
-                         "pipeline_depth/kv_block_size/kv_pool_blocks/"
-                         "kv_spill_bytes/prefixes/spec_decode/tenancy "
-                         "require continuous=True")
+        # (max_pending especially: the caller believes overload sheds at
+        # that depth; tenancy: that quotas are enforced). The reference's
+        # text, which lists warmup too
+        raise ValueError(
+            "warmup/prefill_chunk/prefill_chunk_tokens/prefixes/"
+            "max_pending/pipeline_depth/kv_block_size/kv_pool_blocks/"
+            "kv_spill_bytes/paged_attention_impl/spec_decode/tenancy "
+            "require continuous=True")
+    if paged_attention_impl not in ("auto", "xla", "pallas"):
+        raise ValueError(
+            f"paged attention impl must be 'auto', 'xla' or 'pallas', "
+            f"got {paged_attention_impl!r}")
+    on_card = [name for name, eng in engines.items()
+               if eng.device.type == "cuda"]
+    if paged_attention_impl == "xla" and on_card:
+        raise ValueError(
+            f"paged_attention_impl='xla' is the plain gathered path, which "
+            f"the port runs on the CPU only: on the card the paged path is "
+            f"the CUDA kernel ('auto' or 'pallas'); models {on_card}")
     unknown = set(drafts or {}) - set(engines)
     if unknown:
         raise ValueError(f"drafts registered for unknown models "
@@ -739,7 +765,9 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
                 eng, gpu_lock, max_slots=max_batch,
                 prefill_chunk=prefill_chunk,
                 prefill_chunk_tokens=prefill_chunk_tokens,
-                prefixes=prefixes, pipeline_depth=pipeline_depth,
+                prefixes=prefixes,
+                max_pending=256 if max_pending is None else max_pending,
+                pipeline_depth=pipeline_depth,
                 kv_block_size=kv_block_size, kv_pool_blocks=kv_pool_blocks,
                 kv_spill_bytes=kv_spill_bytes, seed=seed,
                 draft=(drafts or {}).get(name) if spec_decode else None,

@@ -554,21 +554,33 @@ def test_flash_impl_raises_on_cpu_tensors():
 # llama widths) of llama3-1b and llama3-8b
 INT8_SHAPES = [(2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048),
                (4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+# rows: decode (1, 8), the mma.sync tiles' edges (16, 17), the spec
+# verify (40), a slice (64), the path switch at 129 (127, 128, 129, 130),
+# a prompt (300), eight slices (512), the 8 x 300 window prefill (2400)
+INT8_MS = [1, 8, 16, 17, 40, 64, 127, 128, 129, 130, 300, 512, 513, 2400]
+# the products of a layer that read the same h, grouped: (K, N of each)
+INT8_GROUPS = {"llama3-1b": [(2048, (2048, 1024, 1024)), (2048, (8192, 8192))],
+               "llama3-8b": [(4096, (4096, 1024, 1024)),
+                             (4096, (14336, 14336))]}
 
 
 def int8_case(M, K, N, device, seed=0):
     """Random bf16 h [M, K], int8 q [K, N] over the whole [-127, 127]
     range, bf16 scale [1, N] at quantize's size (amax / 127 of a fan-in
     scaled weight), and mag = (|h| @ |q|) * scale in fp32: the sum of the
-    product's absolute terms."""
-    gen = torch.Generator().manual_seed(seed)
-    h = torch.randn(M, K, generator=gen).to(torch.bfloat16)
-    q = torch.randint(-127, 128, (K, N), generator=gen, dtype=torch.int8)
-    scale = (torch.rand(1, N, generator=gen) * 2 * K**-0.5 / 127
-             ).to(torch.bfloat16)
-    h, q, scale = h.to(device), q.to(device), scale.to(device)
-    mag = (h.float().abs() @ q.float().abs()) * scale.float()
+    product's absolute terms. Drawn on `device`."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    h = torch.randn(M, K, generator=gen, device=device).to(torch.bfloat16)
+    q = torch.randint(-127, 128, (K, N), generator=gen, device=device,
+                      dtype=torch.int8)
+    scale = (torch.rand(1, N, generator=gen, device=device) * 2 * K**-0.5
+             / 127).to(torch.bfloat16)
+    mag = int8_mag(h, q, scale)
     return h, q, scale, mag
+
+
+def int8_mag(h, q, scale):
+    return (h.float().abs() @ q.float().abs()) * scale.float()
 
 
 def int8_err_ratio(got, want, mag):
@@ -597,24 +609,84 @@ def int8_want(h, q, scale):
         matmul.allow_bf16_reduced_precision_reduction = reduced
 
 
-def test_int8_bound_sees_bf16_accumulators():
-    """The bound holds the kernel's arithmetic (fp32 sums, one rounding
-    after the scale) and fails a product whose accumulators are rounded
-    to bf16 after each K tile of 64, at a llama3-1b projection shape."""
-    h, q, scale, mag = int8_case(8, 2048, 1024, "cpu")
+def _ranked_sum(h, q, step, ranks):
+    """fp32 (h @ q) summed as the kernels sum it: K cut into `ranks`
+    contiguous ranges of whole 64-wide stages (a cluster's blocks), each
+    range accumulated in fp32 `step` columns of K at a time from zero,
+    the ranges' partials then added in rank order."""
+    K = q.shape[0]
+    stages = K // 64
+    per = -(-stages // ranks)
+    total = None
+    for r0 in range(0, stages, per):
+        acc = torch.zeros(h.shape[0], q.shape[1])
+        for k0 in range(r0 * 64, min(r0 + per, stages) * 64, step):
+            acc = acc + h[:, k0:k0 + step].float() @ q[k0:k0 + step].float()
+        total = acc if total is None else total + acc
+    return total
+
+
+def int8_plan(M, N, K, sms=132):
+    """csrc/int8_proj.cu's `plan`: (path, split) of an [M x K] @ [K x N]
+    product on a card of `sms` SMs. mma.sync (16-row tiles) up to 16
+    rows, splitting K until about two blocks an SM have work; wgmma with
+    64-row tiles up to 512 rows, splitting until about 0.7 blocks an SM
+    do for each 256 rows; 256-row tiles above, split by M and K alone, at
+    most 8 ways. A split is at least 4 stages of 64 and leaves none
+    empty."""
+    steps = K // 64
+
+    def cdiv(a, b):
+        return -(-a // b)
+
+    def clamp(want, cap):
+        s = max(min(want, steps // 4, cap), 1)
+        return cdiv(steps, cdiv(steps, s))
+
+    if M <= 16:
+        return "mma", clamp(cdiv(2 * sms, cdiv(M, 16) * (N // 128)), 16)
+    if M <= 512:
+        want = 7 * sms // 10 * cdiv(M, 256)
+        return "wgmma", clamp(cdiv(want, cdiv(M, 64) * (N // 128)), 16)
+    return "wgmma", clamp(max(sms // (16 * cdiv(M, 256)), cdiv(steps, 128)),
+                          8)
+
+
+# The kernels' sum orders, emulated on the CPU: (name, M, K, N, step of K
+# a product adds, ranks of the cluster). mma.sync and wgmma both add
+# 16-wide steps; the ranks are the plans of a 132-SM card (int8_plan),
+# but for a generic order of whole 64-wide stages unsplit (bk_tiles).
+INT8_SUM_ORDERS = [("bk_tiles", 8, 2048, 1024, 64, 1),
+                   ("cluster_ranks", 8, 2048, 1024, 16, 8),
+                   ("cluster_ranks_k14336", 8, 14336, 1024, 16, 16),
+                   ("large_tile", 256, 4096, 512, 16, 6),
+                   ("large_tile_split", 300, 4096, 512, 16, 10),
+                   ("large_tile_256", 600, 4096, 512, 16, 2)]
+
+
+@pytest.mark.parametrize("order,M,K,N,step,ranks", INT8_SUM_ORDERS,
+                         ids=[o[0] for o in INT8_SUM_ORDERS])
+def test_int8_bound_sees_bf16_accumulators(order, M, K, N, step, ranks):
+    """The bound holds each of the kernels' sum orders (fp32 sums, one
+    rounding after the scale) and fails a product whose accumulators are
+    rounded to bf16 after each K tile of 64."""
+    if order != "bk_tiles":
+        assert int8_plan(M, N, K)[1] == ranks
+    h, q, scale, mag = int8_case(M, K, N, "cpu")
     want = int8_want(h, q, scale)
-    fp32 = ((h.float() @ q.float()) * scale.float()).to(torch.bfloat16)
-    acc = torch.zeros(8, 1024, dtype=torch.bfloat16)
-    for k0 in range(0, 2048, 64):
+    got = (_ranked_sum(h, q, step, ranks) * scale.float()).to(
+        torch.bfloat16)
+    acc = torch.zeros(M, N, dtype=torch.bfloat16)
+    for k0 in range(0, K, 64):
         acc = (acc.float() + h[:, k0:k0 + 64].float()
                @ q[k0:k0 + 64].float()).to(torch.bfloat16)
     bf16_acc = (acc.float() * scale.float()).to(torch.bfloat16)
-    assert int8_err_ratio(fp32, want, mag) <= 1.0
+    assert int8_err_ratio(got, want, mag) <= 1.0
     assert int8_err_ratio(bf16_acc, want, mag) > 1.0
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 8, 40, 64, 512])
+@pytest.mark.parametrize("M", INT8_MS)
 @pytest.mark.parametrize("K,N", INT8_SHAPES)
 def test_int8_proj_matches_plain_on_card(cuda_device, M, K, N):
     from kubeflow_tpu_torch.ops.cuda import int8_proj as ip
@@ -627,26 +699,111 @@ def test_int8_proj_matches_plain_on_card(cuda_device, M, K, N):
     want = int8_want(h, q, scale)
     assert got.shape == (M, N) and got.dtype == torch.bfloat16
     assert int8_err_ratio(got, want, mag) <= 1.0
-    # deterministic: the split-K combine sums in a fixed order
+    # deterministic: the cluster's split-K sums in a fixed order
     assert torch.equal(ip.int8_proj(h, q, scale), got)
 
 
 @pytest.mark.cuda
-def test_int8_proj_strided_rows_and_leading_axes_on_card(cuda_device):
-    """A [b, s, K] activation and a row view with a stride past K (the
-    last position of each row) give the rows' products."""
+@pytest.mark.parametrize("path", ["mma", "wgmma"])
+@pytest.mark.parametrize("M", [1, 17, 128, 129, 256, 300, 600])
+@pytest.mark.parametrize("K,N", [(2048, 1024), (4096, 14336), (2048, 384)])
+def test_int8_proj_both_paths_on_card(cuda_device, path, M, K, N):
+    """Either path, forced, at rows around the switches (wgmma with 64-row
+    tiles up to 512 rows, 256-row ones at 600) and an odd number of
+    128-column tiles (N 384)."""
     from kubeflow_tpu_torch.ops.cuda import int8_proj as ip
 
-    h, q, scale, mag = int8_case(24, 2048, 1024, cuda_device, seed=1)
-    hb = h.reshape(4, 6, 2048)
+    h, q, scale, mag = int8_case(M, K, N, cuda_device, seed=2)
+    (got,) = ip.int8_proj_many(h, [(q, scale)], _force=path)
+    torch.cuda.synchronize()
+    assert int8_err_ratio(got, int8_want(h, q, scale), mag) <= 1.0
+
+
+@pytest.mark.cuda
+def test_int8_proj_plan_on_card(cuda_device):
+    """The switch: mma.sync up to 16 rows, wgmma from 17; every split is
+    1-16 blocks, at most 8 above 512 rows; and the kernel's plan is
+    int8_plan's, the one the CPU emulation of the sum orders uses."""
+    from kubeflow_tpu_torch.ops.cuda import int8_proj as ip
+
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert ip.plan(16, 4096, 4096)[0] == "mma"
+    assert ip.plan(17, 4096, 4096)[0] == "wgmma"
+    for M in INT8_MS:
+        for K in (2048, 4096, 14336):
+            for N in (128, 1024, 4096, 14336):
+                path, split = ip.plan(M, N, K)
+                assert (path, split) == int8_plan(M, N, K, sms)
+                assert path == ("mma" if M <= 16 else "wgmma")
+                assert 1 <= split <= (8 if M > 512 else 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 64, 512, 2400])
+@pytest.mark.parametrize("model", sorted(INT8_GROUPS))
+def test_int8_proj_many_matches_ungrouped_on_card(cuda_device, model, M):
+    """A layer's grouped products (wq, wk, wv; w_gate, w_up) in one
+    launch each, bit-identical to the products launched alone."""
+    from kubeflow_tpu_torch.ops.cuda import int8_proj as ip
+
+    for gi, (K, Ns) in enumerate(INT8_GROUPS[model]):
+        h = int8_case(M, K, 128, cuda_device, seed=10 + gi)[0]
+        ws = [int8_case(1, K, n, cuda_device, seed=20 + j)[1:3]
+              for j, n in enumerate(Ns)]
+        before = ip.launches
+        got = ip.int8_proj_many(h, ws)
+        assert ip.launches == before + 1
+        for (q, scale), y in zip(ws, got):
+            assert torch.equal(y, ip.int8_proj(h, q, scale))
+            assert int8_err_ratio(y, int8_want(h, q, scale),
+                                  int8_mag(h, q, scale)) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 300])
+def test_int8_proj_graph_replay_on_card(cuda_device, M):
+    """Captured in a CUDA graph, a grouped call replays the eager result
+    bit for bit, replay after replay (no counter or workspace to reset)."""
+    from kubeflow_tpu_torch.ops.cuda import int8_proj as ip
+
+    h = int8_case(M, 2048, 128, cuda_device, seed=3)[0]
+    ws = [int8_case(1, 2048, n, cuda_device, seed=4 + j)[1:3]
+          for j, n in enumerate((2048, 1024, 1024))]
+    eager = ip.int8_proj_many(h, ws)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ip.int8_proj_many(h, ws)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ip.int8_proj_many(h, ws)
+    for _ in range(3):
+        for y in out:
+            y.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, eager):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [24, 300])
+def test_int8_proj_strided_rows_and_leading_axes_on_card(cuda_device, M):
+    """A [b, s, K] activation and a row view with a stride past K (the
+    last position of each row) give the rows' products, on both paths."""
+    from kubeflow_tpu_torch.ops.cuda import int8_proj as ip
+
+    h, q, scale, mag = int8_case(M, 2048, 1024, cuda_device, seed=1)
+    hb = h.reshape(M // 6, 6, 2048)
     got = ip.int8_proj(hb, q, scale)
-    assert got.shape == (4, 6, 1024)
+    assert got.shape == (M // 6, 6, 1024)
     want = int8_want(hb, q, scale)
-    assert int8_err_ratio(got, want, mag.reshape(4, 6, 1024)) <= 1.0
+    assert int8_err_ratio(got, want, mag.reshape(M // 6, 6, 1024)) <= 1.0
     last = hb[:, -1]            # stride (6 K, 1)
     got = ip.int8_proj(last, q, scale)
     assert int8_err_ratio(got, int8_want(last, q, scale),
-                          mag.reshape(4, 6, 1024)[:, -1]) <= 1.0
+                          mag.reshape(M // 6, 6, 1024)[:, -1]) <= 1.0
 
 
 @pytest.mark.cuda
@@ -664,3 +821,7 @@ def test_int8_proj_refuses_what_it_does_not_take_on_card(cuda_device):
         ip.int8_proj(h, q[:, :1000].contiguous(), scale[:, :1000])
     with pytest.raises(ValueError, match="unit stride"):
         ip.int8_proj(h.t().contiguous().t(), q, scale)
+    with pytest.raises(ValueError, match="1 to 3 weights"):
+        ip.int8_proj_many(h, [(q, scale)] * 4)
+    with pytest.raises(ValueError, match="features"):
+        ip.int8_proj_many(h, [(q, scale), (q[:1024].contiguous(), scale)])

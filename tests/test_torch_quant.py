@@ -1,6 +1,7 @@
-"""Weight-only int8 serving in the port (serving/quant.py, `qdot` through
-both engines, the continuous and speculative batchers and the CLI)
-against the JAX reference, on the CPU.
+"""Weight-only int8 serving in the port (serving/quant.py, `qdot` and the
+grouped `qdot_many` through both engines, the continuous and
+speculative batchers and the CLI) against the JAX reference, on the
+CPU.
 
 - `quantize` repeats the reference's arithmetic (the scale rounded to
   bf16 first, then round-half-to-even of w / scale, clipped to +-127):
@@ -45,7 +46,9 @@ from kubeflow_tpu_torch.serving.engine import (
     LLAMA_FAMILY,
     EngineConfig,
     InferenceEngine,
+    transformer_block,
 )
+from kubeflow_tpu_torch.serving.multilora import lora_proj
 
 MAX_LEN = 64
 BS = 8
@@ -189,6 +192,88 @@ def test_qtensor_layer_views_and_qdot(tiny_params):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
     torch.testing.assert_close(got, h @ layer.to(torch.float32))
+
+
+@pytest.mark.parametrize("names", [("wq", "wk", "wv"), ("w_gate", "w_up"),
+                                   ("w_down",)])
+def test_qdot_many_is_qdot_bit_for_bit(tiny_params, names):
+    """The grouped products of one h equal each weight's qdot bit for
+    bit: all QTensors (one int8_proj_many call), plain weights, and a
+    mix; on the CPU no launch is counted."""
+    qts = [quant.quantize(tiny_params["blocks"][n])[1] for n in names]
+    plain = [tiny_params["blocks"][n][1] for n in names]
+    h = torch.randn(2, 3, qts[0].shape[0],
+                    generator=torch.Generator().manual_seed(1))
+    for ws in (qts, plain, qts[:1] + plain[1:]):
+        before = ip.launches
+        got = quant.qdot_many(h, ws, torch.float32)
+        assert ip.launches == before
+        assert len(got) == len(ws)
+        for y, w in zip(got, ws):
+            assert torch.equal(y, quant.qdot(h, w, torch.float32))
+
+
+def _block(eng, proj):
+    """Layer 0 of `eng` on a fixed x, attention stubbed to the identity
+    on q (the products are what is held here)."""
+    cfg = eng.cfg
+    x = torch.randn(2, 5, cfg.hidden_size,
+                    generator=torch.Generator().manual_seed(2))
+    pos = torch.arange(5).expand(2, 5)
+    out, _ = transformer_block(cfg, eng.family, eng.layers[0], x, pos,
+                               eng._inv_freq, lambda k, v: (k, v),
+                               lambda q, kc, vc: q, proj)
+    return out
+
+
+def test_block_groups_the_products_of_one_h(models):
+    """transformer_block hands `proj` the products that read one h
+    together, four calls a layer ((wq, wk, wv), (wo,), (w_gate, w_up),
+    (w_down,)), and the grouped block equals one that takes each product
+    alone, bit for bit, over int8 and full-precision weights."""
+    _, _, teng, full, _, _ = models
+    for eng in (teng, full):
+        calls = []
+
+        def grouped(names, h, ws, dt=eng.cfg.dtype):
+            calls.append(tuple(names))
+            return quant.qdot_many(h, ws, dt)
+
+        def alone(names, h, ws, dt=eng.cfg.dtype):
+            return [quant.qdot(h, w, dt) for w in ws]
+
+        got = _block(eng, grouped)
+        assert calls == [("wq", "wk", "wv"), ("wo",), ("w_gate", "w_up"),
+                         ("w_down",)]
+        assert torch.equal(got, _block(eng, alone))
+        assert torch.equal(got, _block(eng, None))   # the default proj
+
+
+def test_grouped_lora_proj_is_each_product_plus_its_delta(models):
+    """The grouped lora_proj: each base product as qdot makes it, plus
+    its target's per-row delta; a weight without an adapter keeps the
+    base product."""
+    _, _, teng, _, _, _ = models
+    cfg, layer = teng.cfg, teng.layers[0]
+    gen = torch.Generator().manual_seed(3)
+    r = 4
+    pack = {n: {"A": torch.randn(3, cfg.hidden_size, r, generator=gen),
+                "B": torch.randn(3, r, layer[n].shape[-1], generator=gen)}
+            for n in ("wq", "w_up")}
+    ids = torch.tensor([2, 0])
+    h = torch.randn(2, 5, cfg.hidden_size, generator=gen)
+    proj = lora_proj(pack, ids, 2.0, cfg)
+    for names in (("wq", "wk", "wv"), ("w_gate", "w_up")):
+        ws = [layer[n] for n in names]
+        got = proj(names, h, ws)
+        for name, w, y in zip(names, ws, got):
+            want = quant.qdot(h, w, cfg.dtype)
+            if name in pack:
+                a = pack[name]["A"][ids].to(cfg.dtype)
+                b = pack[name]["B"][ids].to(cfg.dtype)
+                want = want + torch.tensor(2.0, dtype=cfg.dtype) * torch.bmm(
+                    torch.bmm(h.to(cfg.dtype), a), b)
+            assert torch.equal(y, want)
 
 
 def test_bridge_carries_int8_leaves_exactly(models):

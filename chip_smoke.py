@@ -137,7 +137,13 @@ Phases, each fatal on failure (exit code 1, no result line):
              plain path's (lr is 0 on the first update, as in optax, so
              loss 3 is the first after an update); prints step time,
              tokens/s, model-FLOPs utilisation and peak memory, then
-             profiles one more step.
+             profiles one more step. The trainer's obs bridge (its own
+             registry and tracer) over those 9 steps:
+             `train_step_seconds` counts each, `train_compile_seconds`
+             the first, `train_recompiles_total{fn="train_step"}` is 0,
+             one `train.step` span a step (`compile` on the first only),
+             `train_step_phase_seconds` holds `step` (9) and `host_gap`
+             (8).
 5. one-shot — llama3-8b (random, seed 0) served in-process by
              `create_serving_app` in its default mode (50 ms window
              batcher, 8 rows, `warmup=True`: start-up captures the decode
@@ -368,8 +374,37 @@ Phases, each fatal on failure (exit code 1, no result line):
              base plus the scaled delta); the 400s of an unknown name, a
              non-string and `speculative`. Prints host ms a decode step
              beside phase 3's and the device busy share.
+13. replay — llama3-1b from the serving CLI (`--random --seed 0
+             --continuous --warmup --prefill-chunk-tokens 64 --max-batch
+             8`, depth 2) in a subprocess (`--replica`: every launch
+             counter set to 0 after the warmup, the counts written at
+             shutdown), so the client threads share no interpreter with
+             the server. First the tracer doors: a request's root
+             `http.request` carries the `X-Trace-Id` the client got, with
+             `batcher.submit` and the batcher's `decode.attention` chunks
+             under it, a stream's root holds `stream.continuous`, a valid
+             `X-Trace-Id` / `X-Parent-Span` pair is adopted and a
+             malformed one replaced, `?limit=x` is a 400, the counter
+             tracks carry the model's name. Then three traces from
+             `kubeflow_tpu_torch.scenarios` (`heavy_tail` seed 0, n 120,
+             8 rps, prompts to 900 tokens, 32 new; `agent_swarm` and
+             `abandon_retry` seed 0 at their defaults) replayed open-loop
+             through `HttpTarget` (SSE, TTFT at the first frame, hang-ups
+             at `abandon_at`): each meets its `expect` block; the compile
+             watch (`/debug/profile`'s `recompiles`, equal to
+             `serving_recompiles_total`) reads the same before and after;
+             no slot is held after; the block ledger is conserved with
+             `serving_kv_evictions_total` summing to its frees and
+             `unattributed` 0; `record` of the run off
+             `/v1/requests/timelines` gives a trace `describe` reads with
+             every request sent. At exit: exact paged launches (16 a
+             decode step, 16 a slice) and no capture in traffic. Prints
+             each replay's summary, phase 3's host ms a decode step with
+             the tracer attached and detached, and the card.
+Phase 3 also times the tracer: the same cold requests twice with the
+app's tracer detached and twice attached, host ms a decode step each.
 Then prints the `kernels` JSON line (launches: the paged kernels' over
-phases 3, 3b, 3c, 8, 9's spec-off pass, 10 and 11, each other kernel's over its
+phases 3, 3b, 3c, 8, 9's spec-off pass, 10, 11 and 13, each other kernel's over its
 phases (4 and 8 for flash, 5, 8 and 9 for dense decode); each kernel
 again as `<name>@gemma-2b`, timed in phase 2 at gemma-2b's shapes and
 counted over phase 6, or phase 7 for the flash kernels; and
@@ -383,7 +418,8 @@ and last `{"ok": true, "device": {...}}`.
 
 Exits non-zero without a result when CUDA is unavailable or the port's
 package is not beside this script. `--phases 1,8` runs only the phases
-named (a debugging call: it prints no result line).
+named (a debugging call: it prints no result line). `--replica OUT --
+<serving CLI args>` is phase 13's server process, not a smoke run.
 """
 
 from __future__ import annotations
@@ -1718,6 +1754,8 @@ async def serve_and_check(torch, chunked: bool, model: str = "llama3-1b"):
             if graphs.captures != captures:
                 fail(f"traffic captured {graphs.captures - captures} CUDA "
                      f"graphs after warmup")
+            if chunked and model == "llama3-1b":
+                await _tracer_cost(batcher, post, prompts)
     finally:
         await runner.cleanup()
     _report_profile(prof, prof_s)
@@ -1763,6 +1801,32 @@ async def serve_and_check(torch, chunked: bool, model: str = "llama3-1b"):
             fail("graph replay and eager launches gave different greedy "
                  "tokens")
     return counts
+
+
+async def _tracer_cost(batcher, post, prompts) -> None:
+    """Host ms a decode step (dispatch + wait) over the same cold
+    requests with the app's tracer detached and attached, alternated
+    twice (the radix cache flushed before each pass, so each prefills
+    the same slices). The compile watch and the counter tracks stay on
+    in both: they are not the tracer's."""
+    tracer = batcher.tracer
+    ms = {"off": [], "on": []}
+    for mode in ("off", "on", "off", "on"):
+        if not await batcher.drain(timeout=30):
+            fail("phase 3: the batcher did not drain between passes")
+        batcher.end_drain()
+        batcher.flush_cache()
+        batcher.tracer = tracer if mode == "on" else None
+        batcher.calls, batcher.decode_s = 0, 0.0
+        await asyncio.gather(*(post(p) for p in prompts))
+        ms[mode].append(batcher.decode_s / max(batcher.calls, 1) * 1e3)
+    batcher.tracer = tracer
+    on, off = (sum(ms[k]) / len(ms[k]) for k in ("on", "off"))
+    MEASURED["tracer_ms"] = {"on": [round(x, 3) for x in ms["on"]],
+                             "off": [round(x, 3) for x in ms["off"]]}
+    log(f"  tracer cost (host clock): {on:.3f} ms a decode step with the "
+        f"tracer attached {MEASURED['tracer_ms']['on']}, {off:.3f} without "
+        f"{MEASURED['tracer_ms']['off']}: {on - off:+.3f} ms")
 
 
 # -- phase 3c ---------------------------------------------------------------
@@ -2061,6 +2125,8 @@ def train_and_check(torch):
     import numpy as np
 
     from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.obs.metrics import Registry
+    from kubeflow_tpu_torch.obs.tracing import Tracer
     from kubeflow_tpu_torch.ops import attention
     from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from kubeflow_tpu_torch.train import (
@@ -2084,12 +2150,12 @@ def train_and_check(torch):
                 num_chunks=16)
         return fn
 
-    def trainer_for(positions):
+    def trainer_for(positions, **obs_kw):
         return Trainer(apply_fn=lambda p, t: llama.apply(p, cfg, t),
                        init_fn=lambda seed: llama.init(cfg, seed, dev,
                                                        train=True),
                        train_config=tc, loss_fn=loss_fn(positions),
-                       device=dev)
+                       device=dev, **obs_kw)
 
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to(dev)
@@ -2140,7 +2206,8 @@ def train_and_check(torch):
     gc.collect()
     torch.cuda.empty_cache()
 
-    trainer = trainer_for(None)
+    tracer = Tracer()
+    trainer = trainer_for(None, tracer=tracer, registry=Registry())
     state = trainer.init_from_params(params0)
     del params0
     reset_launch_counts()
@@ -2206,7 +2273,34 @@ def train_and_check(torch):
         torch.cuda.synchronize()
         prof_s = time.perf_counter() - t0
     _report_profile(prof, prof_s, top=16)
+    _check_train_bridge(trainer, tracer, steps + 1)
     return counts
+
+
+def _check_train_bridge(trainer, tracer, steps: int) -> None:
+    """The trainer's obs bridge over `steps` steps of one batch shape:
+    `train_step_seconds` counts each, no recompile, one `train.step` span
+    a step, the `step` and `host_gap` phases in
+    `train_step_phase_seconds`."""
+    spans = tracer.traces(name="train.step", limit=None)
+    got = {"train_step_seconds": trainer.step_seconds.count(),
+           "train_compile_seconds": trainer.compile_seconds.count(),
+           "train_recompiles_total": trainer.recompiles.value(
+               fn="train_step"),
+           "train.step spans": len(spans),
+           "phase step": trainer.phase_seconds.count(phase="step"),
+           "phase host_gap": trainer.phase_seconds.count(phase="host_gap")}
+    want = {"train_step_seconds": steps, "train_compile_seconds": 1,
+            "train_recompiles_total": 0, "train.step spans": steps,
+            "phase step": steps, "phase host_gap": steps - 1}
+    totals = trainer.profiler.totals()
+    log(f"  obs bridge: {got}; step {totals['step']:.3f} s, host_gap "
+        f"{totals['host_gap']:.3f} s (host clock)")
+    if got != want:
+        fail(f"the trainer's obs bridge reads {got}, want {want}")
+    if [t["spans"][-1]["attrs"]["compile"] for t in reversed(spans)] != \
+            [True] + [False] * (steps - 1):
+        fail("train.step spans: only the first step compiles")
 
 
 # -- phase 5 ----------------------------------------------------------------
@@ -4872,6 +4966,333 @@ PORT_KERNELS = ("decode_split_kernel", "decode_combine_kernel",
                 "flash_dq_", "flash_dkv_", "int8_proj_")
 
 
+# -- phase 13 ---------------------------------------------------------------
+
+# open-loop traces from the port's scenario engine, at llama3-1b's width
+REPLAY_TRACES = (("heavy_tail", {"n": 120, "rps": 8.0, "max_prompt": 900,
+                                 "max_new": 32}),
+                 ("agent_swarm", {}),
+                 ("abandon_retry", {}))
+REPLAY_MODEL = "llama3-1b"
+REPLICA_ARGV = ["--model", REPLAY_MODEL, "--random", "--seed", "0",
+                "--continuous", "--warmup", "--prefill-chunk-tokens",
+                str(CHUNK), "--max-batch", str(SLOTS)]
+PHASE13_DIR = os.path.join(ROOT, "build", "phase13")
+
+
+def replica_main(out_path: str, argv: list[str]) -> None:
+    """`chip_smoke.py --replica OUT -- <serving CLI args>`: the port's
+    serving CLI (its parser and app) in this process, with every launch
+    counter set to 0 once the warmup has run and, at shutdown (SIGINT),
+    the counts, the batcher's steps and slices, its captures after the
+    warmup and now, and its live slots written to OUT as JSON."""
+    from aiohttp import web
+
+    sys.path.insert(0, ROOT)
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.serving.__main__ import build_app, parse_args
+    from kubeflow_tpu_torch.serving.server import BATCHERS_KEY, ENGINES_KEY
+
+    args = parse_args(argv)
+    app = build_app(args)
+    state = {}
+
+    async def after_warmup(app_):
+        # on_startup hooks run in order: the app's warmup came first
+        b = next(iter(app_[BATCHERS_KEY].values()))
+        state["captures_warm"] = b.cengine.graphs.captures
+        reset_launch_counts()
+
+    async def dump(app_):
+        (name, b), = app_[BATCHERS_KEY].items()
+        with open(out_path, "w") as f:
+            json.dump({"launch": launch_counts(), "calls": b.calls,
+                       "slices": b.slices, "prefills": b.prefills,
+                       "captures_warm": state["captures_warm"],
+                       "captures": b.cengine.graphs.captures,
+                       "active": len(b._active),
+                       "layers": app_[ENGINES_KEY][name].cfg.num_layers},
+                      f)
+
+    app.on_startup.append(after_warmup)
+    app.on_shutdown.append(dump)
+    web.run_app(app, host=args.host, port=args.port, print=None)
+
+
+def _http(method, url, body=None, headers=None, timeout=60):
+    """-> (status, headers, body bytes), an HTTP error's status included."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method, headers={
+        "Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        with e:
+            return e.code, e.headers, e.read()
+
+
+def _get_json(url):
+    status, _, raw = _http("GET", url)
+    if status != 200:
+        fail(f"GET {url} answered {status}: {raw[:300]!r}")
+    return json.loads(raw)
+
+
+def _spans_of(doc, tid):
+    return {e["args"]["span_id"]: e for e in doc["traceEvents"]
+            if e["ph"] == "X" and e["args"]["trace_id"] == tid}
+
+
+def _trace_checks(base, gen_url):
+    """The tracer doors on the live replica before the replays: a plain
+    and a streamed request each under a root whose trace id is the
+    `X-Trace-Id` the client got, with `batcher.submit`, the first
+    request's `decode.attention` chunks and `stream.continuous` nested
+    under them; a valid `X-Trace-Id` / `X-Parent-Span` pair adopted, a
+    malformed one a fresh trace; a bad `?limit=` a 400; the counter
+    tracks under the model's name."""
+    traces = f"{base}/debug/traces"
+    status, hdr, _ = _http("POST", gen_url, {"tokens": [[11, 12, 13] * 6],
+                                             "max_new": 8},
+                           {"X-Request-Id": "probe-plain"})
+    tid = hdr.get("X-Trace-Id", "")
+    if status != 200 or not tid:
+        fail(f"probe: status {status}, X-Trace-Id {tid!r}")
+    doc = _get_json(f"{traces}?name=http.request&trace_id={tid}")
+    spans = _spans_of(doc, tid)
+    roots = [e for e in spans.values() if e["name"] == "http.request"]
+    if len(roots) != 1:
+        fail(f"/debug/traces: {len(roots)} http.request roots in {tid}")
+    root = roots[0]["args"]["span_id"]
+
+    def under(name, top):
+        found = [e for e in spans.values() if e["name"] == name]
+        for e in found:
+            p = e["args"]["parent_id"]
+            while p in spans and p != top:
+                p = spans[p]["args"]["parent_id"]
+            if p != top:
+                fail(f"{name} span not under its request's root")
+        return len(found)
+
+    n_submit, n_decode = under("batcher.submit", root), under(
+        "decode.attention", root)
+    if n_submit != 1 or n_decode < 1:
+        fail(f"probe trace: {n_submit} batcher.submit, {n_decode} "
+             "decode.attention spans")
+    impl = {e["args"]["impl"] for e in spans.values()
+            if e["name"] == "decode.attention"}
+    status, hdr, raw = _http("POST", gen_url, {
+        "tokens": [[14, 15, 16] * 6], "max_new": 8, "stream": True},
+        {"X-Request-Id": "probe-stream"})
+    stid = hdr.get("X-Trace-Id", "")
+    if status != 200 or not stid or b'"done": true' not in raw:
+        fail(f"streamed probe: status {status}, X-Trace-Id {stid!r}")
+    sdoc = _get_json(f"{traces}?trace_id={stid}")
+    spans = _spans_of(sdoc, stid)
+    sroot = [k for k, e in spans.items() if e["name"] == "http.request"]
+    if len(sroot) != 1 or under("stream.continuous", sroot[0]) != 1:
+        fail("the streamed probe's stream.continuous span is not under "
+             "its root")
+    good_tid, good_psid = "5eed" * 8, "0123456789abcdef"
+    _, hdr, _ = _http("POST", gen_url, {"tokens": [[17] * 9], "max_new": 4},
+                      {"X-Trace-Id": good_tid, "X-Parent-Span": good_psid})
+    rdoc = _get_json(f"{traces}?trace_id={good_tid}")
+    rroots = [e for e in rdoc["traceEvents"] if e["ph"] == "X"
+              and e["name"] == "http.request"]
+    if hdr.get("X-Trace-Id") != good_tid or len(rroots) != 1 \
+            or rroots[0]["args"]["parent_id"] != good_psid:
+        fail("a valid X-Trace-Id / X-Parent-Span pair was not adopted")
+    _, hdr, _ = _http("POST", gen_url, {"tokens": [[18] * 9], "max_new": 4},
+                      {"X-Trace-Id": "not-hex!", "X-Parent-Span": good_psid})
+    fresh = hdr.get("X-Trace-Id", "")
+    if fresh in ("", "not-hex!", good_tid) or len(fresh) != 32:
+        fail(f"a malformed X-Trace-Id was not replaced: {fresh!r}")
+    status, hdr, _ = _http("GET", f"{traces}?limit=x")
+    if status != 400 or not hdr.get("X-Trace-Id"):
+        fail(f"/debug/traces?limit=x answered {status}")
+    tracks = sorted({e["name"] for e in doc["traceEvents"]
+                     if e["ph"] == "C"})
+    want = sorted(f"{REPLAY_MODEL}.{t}" for t in (
+        "kv_blocks", "batch_occupancy", "phase_seconds", "kv_evictions"))
+    if tracks != want:
+        fail(f"counter tracks {tracks}, want {want}")
+    log(f"  traces: probe root {tid[:8]}.. holds batcher.submit and "
+        f"{n_decode} decode.attention spans (impl {sorted(impl)}); the "
+        f"stream's root holds stream.continuous; propagation adopted "
+        f"{good_tid[:8]}.., a malformed pair got {fresh[:8]}..; ?limit=x "
+        f"400; counter tracks {tracks}")
+    return 4   # requests sent
+
+
+def _recompiles(base):
+    prof = _get_json(f"{base}/debug/profile")["models"][REPLAY_MODEL]
+    status, _, raw = _http("GET", f"{base}/metrics")
+    metrics = _parse_metrics(raw.decode())
+    series = {dict(k[1])["fn"]: v for k, v in metrics.items()
+              if k[0] == "serving_recompiles_total"}
+    return prof, metrics, series
+
+
+def replay_and_check() -> dict:
+    """Phase 13: llama3-1b from the serving CLI in a subprocess, three
+    open-loop traces replayed through `HttpTarget`, then the recompile,
+    ledger, tracer and recorder checks. -> the paged kernels' launches
+    over the phase."""
+    import signal
+
+    sys.path.insert(0, ROOT)
+    from kubeflow_tpu_torch import scenarios
+    from kubeflow_tpu_torch.scenarios import __main__ as scenarios_cli
+
+    t_phase = time.perf_counter()
+    os.makedirs(PHASE13_DIR, exist_ok=True)
+    traces = []
+    for shape, params in REPLAY_TRACES:
+        tr = scenarios.generate(shape, 0, **params)
+        path = os.path.join(PHASE13_DIR, f"{shape}.jsonl")
+        scenarios.write_trace(tr, path)
+        traces.append(tr)
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    gen_url = f"{base}/v1/models/{REPLAY_MODEL}:generate"
+    dump = os.path.join(PHASE13_DIR, "replica.json")
+    log_path = os.path.join(PHASE13_DIR, "replica.log")
+    if os.path.exists(dump):
+        os.remove(dump)
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--replica", dump,
+             "--", *REPLICA_ARGV, "--host", "127.0.0.1", "--port",
+             str(port)], cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT)
+
+    def replica_log() -> str:
+        with open(log_path) as f:
+            return f.read()[-3000:]
+
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            if proc.poll() is not None:
+                fail(f"the replica exited with {proc.returncode}:\n"
+                     f"{replica_log()}")
+            try:
+                if _http("GET", f"{base}/healthz", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                fail(f"the replica did not come up:\n{replica_log()}")
+            time.sleep(0.5)
+        log(f"  replica up in {time.perf_counter() - t_phase:.1f} s "
+            f"(`python -m kubeflow_tpu_torch.serving "
+            f"{' '.join(REPLICA_ARGV)}` in a subprocess, port {port})")
+        sent = _trace_checks(base, gen_url)
+        prof0, _, series0 = _recompiles(base)
+        before = prof0["recompiles"]
+        # the metric is zero-seeded for every watched fn name, spec rounds
+        # included: /debug/profile lists the fns this batcher watches
+        if series0 != {fn: float(before.get(fn, 0)) for fn in series0} \
+                or not set(before) <= set(series0):
+            fail(f"serving_recompiles_total {series0} != /debug/profile's "
+                 f"recompiles {before}")
+        summaries = []
+        for tr in traces:
+            target = scenarios.HttpTarget(base, model=REPLAY_MODEL,
+                                          seed=tr.seed)
+            records = scenarios.replay(tr, target)
+            result = scenarios.summarize(tr, records)
+            summaries.append(result)
+            sent += len(tr.requests)
+            keys = ("offered", "completed", "abandoned", "client_failures",
+                    "ttft_p50_s", "ttft_p95_s", "arrival_skew_p95_s",
+                    "duration_s")
+            log(f"  replay {tr.name}: " + json.dumps(
+                {k: result.get(k) for k in keys}))
+            failures = scenarios.check_expect(tr.expect, result)
+            if failures:
+                fail(f"{tr.name} violated its expect block: {failures} "
+                     f"(first error {result.get('first_error')})")
+        for _ in range(100):   # a hung-up stream's slot frees on the loop
+            health = _get_json(f"{base}/healthz")
+            if health["models"][REPLAY_MODEL]["active_slots"] == 0:
+                break
+            time.sleep(0.1)
+        else:
+            fail(f"slots still held after the replays: {health}")
+        prof1, metrics, series1 = _recompiles(base)
+        after = prof1["recompiles"]
+        if after != before or series1 != series0:
+            fail(f"traffic recompiled: /debug/profile {before} -> {after}, "
+                 f"/metrics {series0} -> {series1}")
+        led = prof1["cache"]["ledger"]
+        evictions = {dict(k[1])["cause"]: v for k, v in metrics.items()
+                     if k[0] == "serving_kv_evictions_total"}
+        if not led["conserved"] or led["frees"]["unattributed"] \
+                or sum(evictions.values()) != led["frees_total"] \
+                or evictions.get("unattributed", -1) != 0:
+            fail(f"ledger {led}; serving_kv_evictions_total {evictions}")
+        defers = {dict(k[1])["cause"]: v for k, v in metrics.items()
+                  if k[0] == "serving_kv_admission_defers_total"}
+        log(f"  recompiles {after} before and after, as /metrics; ledger "
+            f"conserved: {led['births']} births, frees {evictions}, "
+            f"{led['live_blocks']} live; defers {defers}; reuse distance "
+            f"{led['reuse_distance']}; goodput {prof1['goodput']}")
+        rec = scenarios.record_from_server(base, name="phase13")
+        rec_path = os.path.join(PHASE13_DIR, "recorded.jsonl")
+        scenarios.write_trace(rec, rec_path)
+        import contextlib
+        import io
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = scenarios_cli.main(["describe", rec_path])
+        desc = json.loads(buf.getvalue())
+        completed = sum(r["completed"] for r in summaries)
+        log(f"  record: {desc['requests']} requests ({desc['abandoning']} "
+            f"abandoning) over {desc['duration_s']} s from "
+            f"/v1/requests/timelines; {sent} sent, {completed} replayed "
+            "requests completed")
+        if rc != 0 or desc["requests"] != sent \
+                or desc["requests"] - desc["abandoning"] < completed:
+            fail(f"the recorded trace reads {desc}, {sent} requests sent")
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    if not os.path.exists(dump):
+        fail(f"the replica wrote no counts:\n{replica_log()}")
+    with open(dump) as f:
+        rep = json.load(f)
+    counts, L = rep["launch"], rep["layers"]
+    want = {"paged_decode_attention": L * rep["calls"],
+            "paged_prefill_append": L * rep["slices"]}
+    log(f"  replica: {rep['calls']} decode steps, {rep['slices']} slices, "
+        f"{rep['prefills']} prefill groups; launches {counts}; captures "
+        f"{rep['captures_warm']} after warmup, {rep['captures']} at exit")
+    for name, n in want.items():
+        if counts.get(name) != n:
+            fail(f"phase 13 {name}: {counts.get(name)} launches, the "
+                 f"design implies {n}")
+    if rep["captures"] != rep["captures_warm"]:
+        fail(f"traffic captured {rep['captures'] - rep['captures_warm']} "
+             "CUDA graphs")
+    tracer = MEASURED.get("tracer_ms")
+    log(f"  phase 3's host ms a decode step with the tracer attached "
+        f"{MEASURED.get('phase3_step_ms', 'not run')}; tracer on / off "
+        f"{tracer or 'not run'}; {_card()}")
+    log(f"  phase 13 wall {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def _dev_us(e):
     return getattr(e, "self_device_time_total",
                    getattr(e, "self_cuda_time_total", 0))
@@ -4921,6 +5342,10 @@ def main() -> None:
 
     import torch
 
+    if sys.argv[1:2] == ["--replica"]:
+        # phase 13's replica process: `--replica OUT -- <CLI args>`
+        replica_main(sys.argv[2], sys.argv[4:])
+        return
     only = _phases(sys.argv[1:])
 
     def run(phase: str) -> bool:
@@ -5082,6 +5507,11 @@ def main() -> None:
                 prefix="int8")
             tidy()
         log(f"phase 12 {time.perf_counter() - t12:.1f} s")
+
+    if run("13"):
+        log("phase 13: replay open-loop traces from the scenario engine "
+            "against llama3-1b served by the CLI in a subprocess")
+        add(replay_and_check(), prefix="paged")
 
     log(f"total {time.perf_counter() - t_all:.1f} s")
     if only:

@@ -11,16 +11,17 @@
 - `prefix_hash`: the name of a prefix (its first KV block of tokens):
   16 hex chars of blake2b over `canonical_prefix`, salted by namespace.
 
-The reference's metric hooks (`on_free`, `on_reuse`, ...) and chrome
-counter events feed its `/metrics` and `/debug/traces` routes, which
-the port does not serve yet; they are left out.
+The ledger is metric-free: the server binds its `on_*` hooks to the
+`serving_kv_*` families (the `PhaseProfiler.on_phase` idiom), and its
+Chrome counter track (cumulative frees per cause) rides `/debug/traces`.
 """
 
 from __future__ import annotations
 
 import hashlib
+import time
 from collections import deque
-from typing import Iterable
+from typing import Callable, Iterable
 
 from kubeflow_tpu_torch.obs.metrics import sample_quantile
 
@@ -42,8 +43,19 @@ UNATTRIBUTED = "unattributed"
 # why an admission was deferred: a tenant's KV quota, or the pool being
 # empty even after LRU eviction
 DEFER_CAUSES = ("kv_quota", "pool_exhausted")
+# where an admitted prompt's tokens came from (`serving_prefill_tokens
+# {source}`): computed on the device, reused from cached KV, restored
+# from the host spill tier, fetched from a peer replica
+PREFILL_SOURCES = ("computed", "reused", "restored", "peer_fetched")
+# outcome of one peer block fetch (`fleet_peer_fetch_total{outcome}`)
+PEER_FETCH_OUTCOMES = ("ok", "miss", "failed")
+# reuse-distance and block-age buckets, in admissions (one tick per
+# admitted request): powers of two past any pool's residency
+REUSE_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0,
+                 512.0, 1024.0, 4096.0)
 
 _WINDOW = 512   # raw samples kept for the reuse / age quantiles
+_MAX_COUNTER_EVENTS = 2048
 
 
 def canonical_prefix(tokens: Iterable[int], ns: str = "") -> str:
@@ -78,9 +90,16 @@ class CacheLedger:
             == live_blocks + spilled             (content)
     and `frees[UNATTRIBUTED] == 0`: content born minus content dead
     equals content on the device plus content parked on the host.
+
+    Hooks, each optional and never allowed to kill the caller (their
+    exceptions are swallowed): `on_free(cause, n)`, `on_reuse(distance)`,
+    `on_age(age)`, `on_defer(cause)`, `on_spill(kind, n)` with kind
+    "demote", "restore" or "drop". `wall` stamps the counter events on
+    the tracer's clock.
     """
 
-    def __init__(self):
+    def __init__(self, *, wall: Callable[[], float] = time.time):
+        self._wall = wall
         self._tick = 0                       # admissions so far
         self.births = 0
         self.frees = {c: 0 for c in (*EVICTION_CAUSES, UNATTRIBUTED)}
@@ -94,6 +113,23 @@ class CacheLedger:
         self._live: dict[int, list[int]] = {}
         self._reuse = deque(maxlen=_WINDOW)  # distances, in admissions
         self._ages = deque(maxlen=_WINDOW)   # age at death, admissions
+        # Chrome "C" events: an all-zero seed, so the track exists in
+        # every trace, then a point per free
+        self._events: deque = deque(maxlen=_MAX_COUNTER_EVENTS)
+        self._emit_event()
+        self.on_free: Callable[[str, int], None] | None = None
+        self.on_reuse: Callable[[int], None] | None = None
+        self.on_age: Callable[[int], None] | None = None
+        self.on_defer: Callable[[str], None] | None = None
+        self.on_spill: Callable[[str, int], None] | None = None
+
+    @staticmethod
+    def _call(hook, *args) -> None:
+        if hook is not None:
+            try:
+                hook(*args)
+            except Exception:  # noqa: BLE001 — a metrics hook never
+                pass           # kills the pool or the batcher
 
     # -- pool-side hooks ---------------------------------------------------
 
@@ -106,16 +142,26 @@ class CacheLedger:
     def note_free(self, blocks: Iterable[int], cause: str | None) -> None:
         cause = cause if cause in self.frees else UNATTRIBUTED
         n = 0
+        ages = []
         for b in blocks:
             n += 1
             meta = self._live.pop(int(b), None)
             if meta is not None:
-                self._ages.append(self._tick - meta[0])
+                ages.append(self._tick - meta[0])
+        self._ages.extend(ages)
+        if not n:
+            return
         self.frees[cause] += n
         if cause == "spill":
             # the device block died but its content moved to the host
             self.spill_demotions += n
             self.spilled += n
+        self._emit_event()
+        self._call(self.on_free, cause, n)
+        if cause == "spill":
+            self._call(self.on_spill, "demote", n)
+        for age in ages:
+            self._call(self.on_age, age)
 
     # -- batcher-side hooks ------------------------------------------------
 
@@ -131,6 +177,7 @@ class CacheLedger:
             meta = self._live.get(int(b))
             if meta is not None:
                 self._reuse.append(t - meta[1])
+                self._call(self.on_reuse, t - meta[1])
                 meta[1] = t
 
     def note_restore(self, n: int) -> None:
@@ -139,6 +186,7 @@ class CacheLedger:
         if n > 0:
             self.spill_restores += n
             self.spilled -= n
+            self._call(self.on_spill, "restore", n)
 
     def note_spill_drop(self, n: int) -> None:
         """`n` host-tier entries evicted by the tier's byte budget (or
@@ -146,13 +194,23 @@ class CacheLedger:
         if n > 0:
             self.spill_drops += n
             self.spilled -= n
+            self._call(self.on_spill, "drop", n)
 
     def note_defer(self, cause: str) -> None:
         if cause not in self.defers:
             cause = "pool_exhausted"
         self.defers[cause] += 1
+        self._call(self.on_defer, cause)
 
     # -- read side ---------------------------------------------------------
+
+    def frees_total(self) -> int:
+        return sum(self.frees.values())
+
+    def live_blocks(self) -> int:
+        """Blocks alive per the ledger: the pool's `in_use` when the
+        ledger was attached before the pool's first alloc."""
+        return len(self._live)
 
     def snapshot(self) -> dict:
         """Cause totals, recent-window reuse / age quantiles, defers,
@@ -193,3 +251,20 @@ class CacheLedger:
                             == out["live_blocks"] + sp["spilled"]
                             and frees[UNATTRIBUTED] == 0)
         return out
+
+    # -- chrome counter track -----------------------------------------------
+
+    def _emit_event(self) -> None:
+        self._events.append({
+            "name": "kv_evictions", "ph": "C",
+            "ts": round(self._wall() * 1e6, 1), "pid": 1, "tid": 0,
+            "args": {c: self.frees[c] for c in EVICTION_CAUSES}})
+
+    def counter_events(self, *, prefix: str = "") -> list[dict]:
+        """Chrome "C" events for `/debug/traces` (cumulative frees per
+        cause over time), named per model as `PhaseProfiler`'s are."""
+        evs = [dict(e) for e in self._events]
+        if prefix:
+            for e in evs:
+                e["name"] = f"{prefix}.{e['name']}"
+        return evs

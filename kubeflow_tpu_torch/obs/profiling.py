@@ -1,6 +1,5 @@
-"""Step anatomy of the continuous batcher's worker loop (counterpart:
-kubeflow_tpu/obs/profiling.py's phase constants, `_PhaseStats` and
-`PhaseProfiler`).
+"""Step anatomy, goodput and the compile watch (counterpart:
+kubeflow_tpu/obs/profiling.py).
 
 Every worker iteration decomposes into named phases with their wall
 time, token counts and occupancy, aggregated into totals, rolling
@@ -9,7 +8,9 @@ percentiles and a goodput ledger. The server binds the
 through `on_phase` and derives `serving_goodput_ratio`,
 `serving_bubble_fraction` and `serving_kv_blocks_high_water` from
 `goodput()` at scrape time; the fleet heartbeat folds `totals()` into
-its prefill and decode seconds.
+its prefill and decode seconds; `/debug/traces` merges the Chrome
+counter tracks (`counter_events`: phase budgets, pool fill, occupancy)
+into the span events. The trainer runs one with `TRAIN_PHASES`.
 
 Phases of the continuous batcher:
 
@@ -37,15 +38,24 @@ TPU too, where dispatch is asynchronous. Nothing here synchronizes the
 device to turn a phase into device time: that would serialize the
 dispatch-ahead pipeline. `goodput_ratio` is then the host-side share.
 
-Left out, with the tracer they belong to: the chrome counter tracks
-(`counter_events`, `merge_counter_tracks`) and `CompileWatch` /
-`abstract_signature` (recompile counting).
+`CompileWatch` keys every call of a watched entry point by the abstract
+signature of its arguments; a signature never seen before, past the
+fn's first, is a recompile (`serving_recompiles_total{fn}` /
+`train_recompiles_total{fn}`, and a `recompile` span). The reference
+keys a jitted program's arguments, so a novel one is a trace and a
+compile. On the card the port's programs are CUDA graphs picked by a
+key (serving/graphs.py), so the batcher watches its entry points
+through `key=`: the arguments that pick the graph (steps, slice width,
+gamma, the sampling key), or for the eager admission calls the padded
+row count and bucket the reference compiles per. A novel signature of a
+graphed entry point is then a graph captured in traffic.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import threading
 import time
 from typing import Any, Callable
@@ -63,6 +73,45 @@ TRAIN_PHASES = ("step", "host_gap")
 GOODPUT_PHASES = ("decode", "draft", "verify", "step")
 # excluded from goodput's denominator: a parked batcher has no work
 IDLE_PHASES = ("idle",)
+# the entry points the compile watches wrap (closed fn sets)
+WATCHED_SERVING_FNS = ("decode_step", "prefill", "insert_many",
+                       "gather_seed", "reset_slots", "prefill_append",
+                       "spec_draft", "spec_verify")
+WATCHED_TRAIN_FNS = ("train_step",)
+
+_MAX_COUNTER_EVENTS = 2048
+
+
+def _dtype_name(dtype) -> str:
+    # `torch.bfloat16` renders as the reference's `bfloat16`: the same
+    # shapes and dtypes give the same signature in both frameworks
+    name = str(dtype)
+    return name[6:] if name.startswith("torch.") else name
+
+
+def abstract_signature(args: tuple, kwargs: dict) -> str:
+    """Compact key for a call's abstract shapes: arrays (numpy, torch,
+    anything with `shape` and `dtype`) render as `dtype[d0,d1,...]`,
+    python scalars by value, containers structurally; an opaque leaf by
+    its type's name."""
+
+    def sig(x: Any) -> str:
+        shape = getattr(x, "shape", None)
+        dtype = getattr(x, "dtype", None)
+        if shape is not None and dtype is not None:
+            return f"{_dtype_name(dtype)}[{','.join(str(d) for d in shape)}]"
+        if isinstance(x, (bool, int, float, str, bytes)) or x is None:
+            return repr(x)
+        if isinstance(x, (tuple, list)):
+            return "(" + ",".join(sig(v) for v in x) + ")"
+        if isinstance(x, dict):
+            items = sorted(x.items(), key=lambda kv: str(kv[0]))
+            return "{" + ",".join(f"{k}:{sig(v)}" for k, v in items) + "}"
+        # by type only: better to miss a recompile than to invent one
+        # per object identity
+        return type(x).__name__
+
+    return sig(args) + sig(kwargs) if kwargs else sig(args)
 
 
 class _PhaseStats:
@@ -89,16 +138,19 @@ class PhaseProfiler:
     book the unclaimed residual as `host_gap`: the phase sums of an
     iteration equal its wall time by construction. Phase names are a
     closed set: an unknown name collapses to the guard's `other`.
-    `clock` is injectable (tests drive a fake one). The `on_phase(phase,
+    `clock` is injectable (tests drive a fake one); `wall_clock` stamps
+    the counter events on the tracer's clock. The `on_phase(phase,
     seconds, tokens)` hook (seconds None for a token-only attribution)
     never kills the instrumented loop: its exceptions are swallowed."""
 
     def __init__(self, *, phases: tuple[str, ...] = SERVING_PHASES,
                  clock: Callable[[], float] | None = None,
+                 wall_clock: Callable[[], float] | None = None,
                  window: int | None = 512):
         self.phases = tuple(phases)
         self.guard = LabelGuard(seed=self.phases, closed=True)
         self._clock = clock or time.perf_counter
+        self._wall = wall_clock or time.time
         self._window = window
         self._lock = threading.Lock()
         self._stats: dict[str, _PhaseStats] = {
@@ -116,6 +168,12 @@ class PhaseProfiler:
         self.pool_capacity = 0
         self.occupancy_high_water = 0
         self.slots = 0
+        self._pool_last = -1
+        self._occ_last = -1
+        # Chrome "C" events: a point per change of pool fill or
+        # occupancy, the phase totals per iteration
+        self._events: collections.deque = collections.deque(
+            maxlen=_MAX_COUNTER_EVENTS)
 
     # -- recording ---------------------------------------------------------
 
@@ -191,19 +249,52 @@ class PhaseProfiler:
         self._iter_t0 = None
         if residual > 0.0:
             self.record("host_gap", residual)
+        self._emit_phase_track()
 
-    # -- pool and occupancy high-water marks -------------------------------
+    # -- pool and occupancy: high-water marks and counter tracks -----------
+
+    def _event(self, name: str, args: dict) -> None:
+        self._events.append({"name": name, "ph": "C",
+                             "ts": round(self._wall() * 1e6, 1),
+                             "pid": 1, "tid": 0, "args": args})
 
     def note_pool(self, in_use: int, capacity: int) -> None:
         self.pool_capacity = int(capacity)
-        self.pool_high_water = max(self.pool_high_water, int(in_use))
+        in_use = int(in_use)
+        self.pool_high_water = max(self.pool_high_water, in_use)
+        if in_use != self._pool_last:
+            self._pool_last = in_use
+            self._event("kv_blocks", {"in_use": in_use})
 
     def note_occupancy(self, occupied: int, slots: int) -> None:
         self.slots = int(slots)
+        occupied = int(occupied)
         self.occupancy_high_water = max(self.occupancy_high_water,
-                                        int(occupied))
+                                        occupied)
+        if occupied != self._occ_last:
+            self._occ_last = occupied
+            self._event("batch_occupancy", {"slots_active": occupied})
+
+    def _emit_phase_track(self) -> None:
+        with self._lock:
+            args = {p: round(st.total_s, 6)
+                    for p, st in self._stats.items() if st.count}
+        if args:
+            self._event("phase_seconds", args)
 
     # -- read side ---------------------------------------------------------
+
+    def counter_events(self, *, prefix: str = "") -> list[dict]:
+        """Chrome counter-track events (`"ph": "C"`) on the tracer's wall
+        clock, so they merge into one `/debug/traces` payload with the
+        spans; `prefix` namespaces the track names per model."""
+        out = []
+        for e in list(self._events):
+            e = dict(e)
+            if prefix:
+                e["name"] = f"{prefix}.{e['name']}"
+            out.append(e)
+        return out
 
     def totals(self) -> dict[str, float]:
         with self._lock:
@@ -256,3 +347,88 @@ class PhaseProfiler:
                   for p, count, total_s, tokens, win in items}
         return {"phases": phases, "goodput": self.goodput(),
                 "wall_s": round(self.wall_s(), 6)}
+
+
+class CompileWatch:
+    """Recompile detector over a batcher's or trainer's entry points.
+
+    `watch(fn, name, key=None)` returns a wrapper that keys every call by
+    `abstract_signature` of its arguments, or of `key(*args, **kwargs)`
+    when given (the port's graphed entry points pass static buffers:
+    their graph is picked by the values `key` returns). The FIRST
+    signature per fn is the expected first build; every novel signature
+    after it is a recompile: the count rises, `on_recompile(fn, sig)`
+    fires (the server binds `serving_recompiles_total{fn}` there) and,
+    with a tracer attached, a `recompile` span records the signature. A
+    repeated signature costs one string build and a set lookup. fn
+    names are a closed set behind a LabelGuard, seeded by `watch`."""
+
+    def __init__(self, *, tracer=None,
+                 on_recompile: Callable[[str, str], None] | None = None):
+        self.tracer = tracer
+        self.on_recompile = on_recompile
+        self.guard = LabelGuard()
+        self._seen: dict[str, set[str]] = {}
+        self._recompiles: dict[str, int] = {}
+        self._lock = threading.Lock()
+
+    def watch(self, fn: Callable, name: str,
+              key: Callable | None = None) -> Callable:
+        name = self.guard.admit(name)
+        with self._lock:
+            self._seen.setdefault(name, set())
+            self._recompiles.setdefault(name, 0)
+
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            try:
+                sig = (abstract_signature(args, kwargs) if key is None
+                       else abstract_signature(key(*args, **kwargs), {}))
+            except Exception:  # noqa: BLE001 — the watch never breaks fn
+                return fn(*args, **kwargs)
+            with self._lock:
+                seen = self._seen[name]
+                novel = sig not in seen
+                first = novel and not seen
+                if novel:
+                    seen.add(sig)
+                    if not first:
+                        self._recompiles[name] += 1
+            if novel and not first:
+                self._note_recompile(name, sig)
+            return fn(*args, **kwargs)
+
+        return wrapped
+
+    def _note_recompile(self, name: str, sig: str) -> None:
+        if self.tracer is not None:
+            try:
+                with self.tracer.span("recompile", fn=name,
+                                      signature=sig[:512]):
+                    pass
+            except Exception:  # noqa: BLE001
+                pass
+        if self.on_recompile is not None:
+            try:
+                self.on_recompile(name, sig)
+            except Exception:  # noqa: BLE001 — a metrics hook never
+                pass           # kills the instrumented loop
+
+    def counts(self) -> dict[str, int]:
+        """Per-fn recompile counts (`/debug/profile`'s `recompiles`; the
+        `*_recompiles_total{fn}` counters mirror them)."""
+        with self._lock:
+            return dict(self._recompiles)
+
+    def watched(self) -> tuple[str, ...]:
+        with self._lock:
+            return tuple(self._seen)
+
+
+def merge_counter_tracks(payload: dict, events: list[dict]) -> dict:
+    """Append counter-track events to a Chrome-trace payload in place
+    (a summary payload without `traceEvents` is left as it is)."""
+    if isinstance(payload, dict) and isinstance(
+            payload.get("traceEvents"), list):
+        payload["traceEvents"].extend(events)
+    return payload

@@ -101,7 +101,7 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch.obs.cachestats import CacheLedger
-from kubeflow_tpu_torch.obs.profiling import PhaseProfiler
+from kubeflow_tpu_torch.obs.profiling import CompileWatch, PhaseProfiler
 from kubeflow_tpu_torch.obs.timeline import RequestTimeline, TimelineStore
 from kubeflow_tpu_torch.ops.attention import (
     paged_attention,
@@ -1197,7 +1197,12 @@ class ContinuousBatcher:
     draft, verify, sample, detokenize, preempt, resume, idle, and the
     host_gap residual); `flush_cache()` forgets every cached KV (the
     tree, the spill tier, the registered prefixes' states) after a
-    weight swap.
+    weight swap. `compile_watch` (obs/profiling.py) counts a novel
+    signature of an engine entry point past its first as a recompile,
+    under the reference's fn names: the graphed entry points keyed by
+    their graph key, so a count that rises in traffic is a CUDA graph
+    captured in traffic. `tracer` (set by the server) makes each decode
+    chunk's dispatch a `decode.attention` span.
 
     `.calls` counts dispatched decode steps (over-decoded ones included;
     a spec round counts one);
@@ -1310,6 +1315,12 @@ class ContinuousBatcher:
         # wall split into exclusive host-time phases, on the timelines'
         # clock; the server binds its families through `on_phase`
         self.profiler = PhaseProfiler(clock=self._clock)
+        # optional obs Tracer (the server sets it): each decode chunk's
+        # dispatch opens a `decode.attention` span in the executor
+        # thread, under the context the worker task was created in
+        self.tracer = None
+        self.compile_watch = CompileWatch()
+        self._watch_entry_points()
         self.on_itl = None
         self.on_queue_wait = None
         # EWMA of enqueue -> finish service time, feeding the server's
@@ -1347,6 +1358,46 @@ class ContinuousBatcher:
         # the worker's decode chunks in flight
         self._inflight: collections.deque = collections.deque()
 
+    def _watch_entry_points(self) -> None:
+        """Wrap the engine's entry points in the compile watch, under the
+        reference's fn names. A graphed entry point is keyed by what
+        picks its CUDA graph (its tensor arguments are static buffers of
+        one shape): the decode step by (steps, sampling key), a prefill
+        slice by (width, sampling key), the spec rounds by (gamma,
+        sampling key). The eager admission calls are keyed as the
+        reference compiles them: the prefill by (padded rows, bucket),
+        the insert and the seed gather by the prefilled batch's rows.
+        `reset_slots` takes any count in one eager call (the reference
+        pads it to a power of two to bound its compiles): one
+        signature. `warmup` runs through the wrappers, so the counts
+        start at the warmed signatures less one a fn."""
+        ce, watch = self.cengine, self.compile_watch.watch
+        ce.decode = watch(ce.decode, "decode_step",
+                          key=lambda sp, steps: (steps, *ce._key(sp)))
+        ce.prefill_batch = watch(
+            ce.prefill_batch, "prefill",
+            key=lambda token_lists, bucket, *a, **k: (len(token_lists),
+                                                      bucket))
+        ce.insert_many = watch(
+            ce.insert_many, "insert_many",
+            key=lambda st, slots, pstate, *a, **k: (pstate.k.shape[1],))
+        ce.gather_seed = watch(
+            ce.gather_seed, "gather_seed",
+            key=lambda st, chains, m: (len(chains),))
+        ce.reset_slots = watch(ce.reset_slots, "reset_slots",
+                               key=lambda st, slots: ())
+        ce.prefill_slice = watch(
+            ce.prefill_slice, "prefill_append",
+            key=lambda sp, slot, tokens, n, finish: (
+                np.shape(tokens)[1], *ce._key(sp)))
+        if ce.draft is not None:
+            ce.spec_draft = watch(
+                ce.spec_draft, "spec_draft",
+                key=lambda sp, gamma: (gamma, *ce._key(sp)))
+            ce.spec_verify = watch(
+                ce.spec_verify, "spec_verify",
+                key=lambda sp, gamma: (gamma, *ce._key(sp)))
+
     def occupancy(self) -> float:
         return self.tokens_emitted / self.calls if self.calls else 0.0
 
@@ -1370,9 +1421,9 @@ class ContinuousBatcher:
         }
 
     def cache_anatomy(self) -> dict:
-        """The lifecycle ledger's snapshot (eviction causes, reuse and
-        age quantiles, defers, spill books, conservation) and the prefix
-        heat digest."""
+        """`/debug/profile`'s `cache`: the lifecycle ledger's snapshot
+        (eviction causes, reuse and age quantiles, defers, spill books,
+        conservation) and the prefix heat digest."""
         return {"ledger": self.cache_ledger.snapshot(),
                 "heat": self._radix.heat_digest(16)}
 
@@ -2342,6 +2393,11 @@ class ContinuousBatcher:
         def run():
             return HostCopy(*self.cengine.decode(self._sp(), steps))
 
+        if self.tracer is not None:
+            # wrap carries the worker's context into the executor thread
+            run = self.tracer.wrap(run, "decode.attention",
+                                   impl=self.cengine.attention_impl,
+                                   steps=steps)
         t0 = time.perf_counter()
         # tokens are booked where the host reads them (_process_chunk),
         # so over-decoded rows never count

@@ -99,9 +99,23 @@ Modes, as in the reference's `create_serving_app`:
   prefix isolation and batch-class preemption; `/metrics` grows
   zero-seeded `serving_tenant_*` series and the SLOs count each
   request under its tenant's priority class.
-The reference wraps the drain, migration, block-export, reload,
-handoff and peer-fetch paths in tracer spans; the port has no tracer
-yet, so they carry none.
+
+Observability: every routed request opens a root `http.request` span
+(adopting a valid `X-Trace-Id` / `X-Parent-Span` pair as its remote
+parent, else a new trace) and every response carries `X-Trace-Id`, SSE
+streams and errors included; the paths below it open the reference's
+spans (`batcher.submit`, `stream.continuous`, `stream.decode`,
+`engine.generate`, `engine.speculative`, `engine.score`, the executor's
+`device.generate` / `device.score`, `migrate.out`, `migrate.in`,
+`blocks.export`, `peer.fetch`, `weights.reload`, `prefill.handoff`, and
+the batcher's `decode.attention` per decode chunk). `GET /debug/traces`
+returns the tracer's ring as Chrome trace events (`?name=`, `?limit=`,
+`?trace_id=`, `?format=summary`; 400 on a bad limit) with each
+continuous batcher's counter tracks, named `<model>.<track>`; `GET
+/debug/profile` returns each continuous batcher's step anatomy, its
+`recompiles` (the compile watch's counts, which
+`serving_recompiles_total{fn}` mirrors) and its `cache` anatomy. Spans
+are host time: nothing here synchronizes the device.
 """
 
 from __future__ import annotations
@@ -118,7 +132,16 @@ import numpy as np
 import torch
 from aiohttp import web
 
+from kubeflow_tpu_torch.obs.cachestats import (
+    DEFER_CAUSES,
+    EVICTION_CAUSES,
+    PEER_FETCH_OUTCOMES,
+    PREFILL_SOURCES,
+    REUSE_BUCKETS,
+    UNATTRIBUTED,
+)
 from kubeflow_tpu_torch.obs.cardinality import LabelGuard
+from kubeflow_tpu_torch.obs.endpoints import metrics_handler
 from kubeflow_tpu_torch.obs.metrics import (
     SIZE_BUCKETS,
     TOKEN_BUCKETS,
@@ -127,7 +150,12 @@ from kubeflow_tpu_torch.obs.metrics import (
     Registry,
     get_or_create_histogram,
 )
-from kubeflow_tpu_torch.obs.profiling import SERVING_PHASES
+from kubeflow_tpu_torch.obs.profiling import (
+    SERVING_PHASES,
+    WATCHED_SERVING_FNS,
+    merge_counter_tracks,
+)
+from kubeflow_tpu_torch.obs.tracing import Tracer, traces_response_payload
 from kubeflow_tpu_torch.obs.slo import Slo, get_or_create_slo_engine
 from kubeflow_tpu_torch.ops.cuda import launch_counts
 from kubeflow_tpu_torch.serving import migration
@@ -199,8 +227,6 @@ RETRY_AFTER_CAP_S = 60
 # the empty identity to its overflow bucket.
 TENANT_BLIND = "other"
 MIGRATION_DIRECTIONS = ("in", "out")
-PREFILL_SOURCES = ("computed", "reused", "restored", "peer_fetched")
-PEER_FETCH_OUTCOMES = ("ok", "miss", "failed")
 # The tenant priority classes: every SLO family is seeded for each; a
 # request counts under its tenant's class, every request of a
 # tenant-blind deployment under PRIORITY's.
@@ -208,7 +234,9 @@ PRIORITIES = ("interactive", "standard", "batch")
 PRIORITY = "standard"
 # The reference's replica SLOs: TTFT thresholds per priority class, the
 # ITL threshold, the latency and availability objectives, and the share
-# of verified draft tokens speculation must keep accepted.
+# of verified draft tokens speculation must keep accepted (the TTFT
+# thresholds and the acceptance objective are overridable per app:
+# `create_serving_app(slo_ttft_s=, slo_spec_acceptance=)`).
 SLO_TTFT_THRESHOLDS_S = {"interactive": 0.5, "standard": 2.0, "batch": 10.0}
 SLO_ITL_THRESHOLD_S = 0.25
 SLO_LATENCY_OBJECTIVE = 0.95
@@ -219,17 +247,22 @@ log = logging.getLogger(__name__)
 
 
 class ServingObs:
-    """The app's metric registry and the serving families whose sources
-    the port has, under the reference's names, help, labels and buckets.
-    `/metrics` renders the registry, and `slo` (obs/slo.py, the
-    `slo_burn_rate` and `slo_error_budget_remaining` gauges) holds the
-    reference's SLOs: TTFT per priority class, ITL, errors per priority
-    class, speculative acceptance. The tenant families carry samples
-    only with a tenancy config; `tenant_guard` caps the values a raw
-    `X-Tenant` header can put into a label."""
+    """The app's metric registry, span tracer and serving families,
+    under the reference's names, help, labels and buckets. `/metrics`
+    renders the registry, `/debug/traces` the tracer's ring, and `slo`
+    (obs/slo.py, the `slo_burn_rate` and `slo_error_budget_remaining`
+    gauges) holds the reference's SLOs: TTFT per priority class (its
+    thresholds merged with `slo_ttft_s`), ITL, errors per priority
+    class, speculative acceptance (objective `slo_spec_acceptance`). The
+    tenant families carry samples only with a tenancy config;
+    `tenant_guard` caps the values a raw `X-Tenant` header can put into
+    a label."""
 
-    def __init__(self):
-        self.registry = reg = Registry()
+    def __init__(self, registry=None, tracer=None, *, slo_ttft_s=None,
+                 slo_spec_acceptance: float | None = None):
+        self.registry = reg = (registry if registry is not None
+                               else Registry())
+        self.tracer = tracer if tracer is not None else Tracer()
         self.request_latency = get_or_create_histogram(
             reg, "serving_request_duration_seconds",
             "Serving HTTP request latency by route/method")
@@ -365,11 +398,49 @@ class ServingObs:
             "imported, prefill seeded), miss (peer no longer caches "
             "the prefix), failed (transport/geometry error — request "
             "fell back to plain prefill)", reg)
+        # the compile watch (a graph captured in traffic on the card) and
+        # the KV block ledger's families: closed cause sets, zero-seeded
+        # per model with `unattributed`, whose permanent zero is the
+        # conservation contract
+        self.recompiles = Counter(
+            "serving_recompiles_total",
+            "Recompiles of a watched entry point (a novel signature "
+            "past the fn's first; on the card a CUDA graph captured in "
+            "traffic) — nonzero RATE in steady state means the shape "
+            "bucketing leaked", reg)
+        self.kv_evictions = Counter(
+            "serving_kv_evictions_total",
+            "KV pool blocks freed, by cause: lru (radix eviction), "
+            "pressure (preemption), refdrop (normal retirement), "
+            "divergence (duplicate content), migration (exported or "
+            "rolled back). `unattributed` is a free site that forgot "
+            "to book a cause — always zero, or it's a bug", reg)
+        self.kv_admission_defers = Counter(
+            "serving_kv_admission_defers_total",
+            "Admissions pushed back for lack of KV blocks, by cause: "
+            "kv_quota (tenant share spent) vs pool_exhausted (pool "
+            "empty even after LRU eviction)", reg)
+        self.kv_reuse_distance = get_or_create_histogram(
+            reg, "serving_kv_reuse_distance_admissions",
+            "Admissions between consecutive touches of the same cached "
+            "KV block, per model — the working-set curve; mass beyond "
+            "the pool's block count predicts misses an LRU pool of "
+            "that size must take", buckets=REUSE_BUCKETS)
+        self.kv_block_age = get_or_create_histogram(
+            reg, "serving_kv_block_age_admissions",
+            "Block age at death in admissions, per model — young "
+            "deaths under pressure/lru mean the pool churns before "
+            "reuse can pay off", buckets=REUSE_BUCKETS)
         self.tenant_guard = LabelGuard()
+        ttft_thr = dict(SLO_TTFT_THRESHOLDS_S)
+        ttft_thr.update(slo_ttft_s or {})
+        spec_obj = (SLO_SPEC_ACCEPTANCE_OBJECTIVE
+                    if slo_spec_acceptance is None
+                    else float(slo_spec_acceptance))
         slos = [Slo(f"serving_ttft_{cls}", SLO_LATENCY_OBJECTIVE,
-                    threshold_s=SLO_TTFT_THRESHOLDS_S[cls],
+                    threshold_s=ttft_thr[cls],
                     description=f"p95 TTFT for {cls} traffic under "
-                                f"{SLO_TTFT_THRESHOLDS_S[cls]:g} s")
+                                f"{ttft_thr[cls]:g} s")
                 for cls in PRIORITIES]
         slos.append(Slo(
             "serving_itl", SLO_LATENCY_OBJECTIVE,
@@ -381,10 +452,10 @@ class ServingObs:
                                     "without a 5xx")
                     for cls in PRIORITIES)
         slos.append(Slo(
-            "serving_spec_acceptance", SLO_SPEC_ACCEPTANCE_OBJECTIVE,
-            description=f"{SLO_SPEC_ACCEPTANCE_OBJECTIVE:.0%} of verified "
-                        "draft tokens accepted (below this the draft "
-                        "burns more verify slots than it saves)"))
+            "serving_spec_acceptance", spec_obj,
+            description=f"{spec_obj:.0%} of verified draft tokens "
+                        "accepted (below this the draft burns more "
+                        "verify slots than it saves)"))
         self.slo = get_or_create_slo_engine(reg, slos)
 
 
@@ -420,34 +491,59 @@ def _observe_first_token(request: web.Request, model: str) -> None:
 
 
 def _observed(route: str, handler):
-    """`handler` feeding the latency histogram of every response it
-    gives, labelled by route PATTERN (`/v1/models/{name}:generate`),
-    never the raw path, so label cardinality does not grow with the
-    names clients probe. The reference does this in a middleware; a
-    wrapper per route does the same for every routed request (a path no
-    route matches is not observed) and keeps the app out of aiohttp's
-    process-wide middleware cache, which would hold every app built in a
-    process alive, engines and KV pools included."""
+    """`handler` under a root `http.request` span, feeding the latency
+    histogram of every response it gives, labelled by route PATTERN
+    (`/v1/models/{name}:generate`), never the raw path, so label
+    cardinality does not grow with the names clients probe. A request
+    with a valid `X-Trace-Id` / `X-Parent-Span` pair (a router's
+    propagation) commits its spans under that remote trace; a malformed
+    pair starts a fresh trace. Every response, error responses included,
+    carries `X-Trace-Id` (streams set it before they send headers). The
+    reference does this in a middleware; a wrapper per route does the
+    same for every routed request (a path no route matches is not
+    observed) and keeps the app out of aiohttp's process-wide middleware
+    cache, which would hold every app built in a process alive, engines
+    and KV pools included."""
 
     async def observed(request: web.Request):
+        sobs = request.app[OBS_KEY]
         request[_OBS_T0] = time.perf_counter()
         status = 500
-        try:
-            resp = await handler(request)
-            status = resp.status
-            return resp
-        except web.HTTPException as exc:
-            status = exc.status
-            raise
-        finally:
-            sobs = request.app[OBS_KEY]
-            sobs.request_latency.observe(
-                time.perf_counter() - request[_OBS_T0], route=route,
-                method=request.method)
-            if route.startswith("/v1/models/"):
-                # the availability SLO counts inference traffic only
-                sobs.slo.record(f"serving_errors_{_priority_class(request)}",
-                                status < 500)
+        remote_tid = request.headers.get("X-Trace-Id", "")
+        remote_psid = request.headers.get("X-Parent-Span", "")
+        if remote_tid and remote_psid:
+            span_cm = sobs.tracer.span_from_remote(
+                "http.request", remote_tid, remote_psid,
+                method=request.method, route=route)
+        else:
+            span_cm = sobs.tracer.span("http.request",
+                                       method=request.method, route=route)
+        with span_cm as span:
+            tenant_hdr = request.headers.get("X-Tenant")
+            if tenant_hdr:
+                # guarded: the attribute echoes a client-chosen value
+                span.attrs["tenant"] = sobs.tenant_guard.admit(tenant_hdr)
+            try:
+                resp = await handler(request)
+                status = resp.status
+                span.attrs["status"] = status
+                if not resp.prepared:   # streams set it before prepare
+                    resp.headers.setdefault("X-Trace-Id", span.trace_id)
+                return resp
+            except web.HTTPException as exc:
+                status = exc.status
+                span.attrs["status"] = status
+                exc.headers.setdefault("X-Trace-Id", span.trace_id)
+                raise
+            finally:
+                sobs.request_latency.observe(
+                    time.perf_counter() - request[_OBS_T0], route=route,
+                    method=request.method)
+                if route.startswith("/v1/models/"):
+                    # the availability SLO counts inference traffic only
+                    sobs.slo.record(
+                        f"serving_errors_{_priority_class(request)}",
+                        status < 500)
 
     return observed
 
@@ -636,7 +732,10 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
                        tenancy: TenancyConfig | None = None,
                        drain_grace_s: float = 30.0,
                        pool: str = "mixed", model_version: str = "",
-                       reloader=None) -> web.Application:
+                       reloader=None, registry=None, tracer=None,
+                       slo_ttft_s: dict[str, float] | None = None,
+                       slo_spec_acceptance: float | None = None,
+                       ) -> web.Application:
     """`continuous=False` (the default) serves through the one-shot
     engine: a window `Batcher` per model when `batch_window_ms > 0`,
     else every request calls `engine.generate` directly.
@@ -686,7 +785,12 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
     source) -> params` materializes `/v1/reload`'s new weights (a nested
     dict of tensors, on the host or the card); without one, a
     `{"checkpoint": dir, "step": n}` source loads through
-    train/checkpoint.py."""
+    train/checkpoint.py.
+    `registry` / `tracer` share an external metric registry and span
+    tracer (default: the app owns fresh ones, rendered at `/metrics` and
+    `/debug/traces`); `slo_ttft_s` ({priority class: seconds}) overrides
+    TTFT thresholds and `slo_spec_acceptance` the acceptance objective of
+    the app's SLOs."""
     if pool not in POOL_ROLES:
         raise ValueError(
             f"pool must be one of {POOL_ROLES}, got {pool!r}")
@@ -744,7 +848,9 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
                     f"tokenizer vocab {tok_vocab} exceeds model "
                     f"{name!r} vocab {eng.cfg.vocab_size}")
     app = web.Application()
-    sobs = ServingObs()
+    sobs = ServingObs(registry=registry, tracer=tracer,
+                      slo_ttft_s=slo_ttft_s,
+                      slo_spec_acceptance=slo_spec_acceptance)
     app[OBS_KEY] = sobs
     app[TENANCY_KEY] = tenancy
     app[POOL_KEY] = pool
@@ -824,15 +930,13 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
 
     app.on_cleanup.append(_close_batchers)
 
-    async def render_metrics(_request: web.Request) -> web.Response:
-        return web.Response(text=sobs.registry.render(),
-                            content_type="text/plain")
-
     get, post = app.router.add_get, app.router.add_post
     for add, route, handler in (
             (get, "/healthz", healthz),
             (get, "/readyz", _ok),
-            (get, "/metrics", render_metrics),
+            (get, "/metrics", metrics_handler(sobs.registry)),
+            (get, "/debug/traces", debug_traces),
+            (get, "/debug/profile", debug_profile),
             (get, "/v1/spec", spec_toggle),
             (post, "/v1/spec", spec_toggle),
             (get, "/v1/models", list_models),
@@ -910,6 +1014,14 @@ def _wire_continuous_metrics(sobs: ServingObs, model: str,
     sobs.kv_spill_demotions.inc(0, model=model)
     sobs.kv_spill_restores.inc(0, model=model)
     sobs.kv_spill_bytes.set(0, model=model)
+    for fn in WATCHED_SERVING_FNS:
+        sobs.recompiles.inc(0, model=model, fn=fn)
+    for cause in (*EVICTION_CAUSES, UNATTRIBUTED):
+        sobs.kv_evictions.inc(0, model=model, cause=cause)
+    for cause in DEFER_CAUSES:
+        sobs.kv_admission_defers.inc(0, model=model, cause=cause)
+    sobs.kv_reuse_distance.seed(model=model)
+    sobs.kv_block_age.seed(model=model)
 
     def on_phase(phase, seconds, tokens):
         # seconds is None for a token-only attribution
@@ -920,6 +1032,18 @@ def _wire_continuous_metrics(sobs: ServingObs, model: str,
             sobs.step_tokens.observe(tokens, model=model, phase=phase)
 
     b.profiler.on_phase = on_phase
+    led = b.cache_ledger
+    led.on_free = lambda cause, n: sobs.kv_evictions.inc(
+        n, model=model, cause=cause)
+    led.on_reuse = lambda dist: sobs.kv_reuse_distance.observe(
+        dist, model=model)
+    led.on_age = lambda age: sobs.kv_block_age.observe(age, model=model)
+    led.on_defer = lambda cause: sobs.kv_admission_defers.inc(
+        model=model, cause=cause)
+    b.tracer = sobs.tracer
+    b.compile_watch.tracer = sobs.tracer
+    b.compile_watch.on_recompile = lambda fn, sig: sobs.recompiles.inc(
+        model=model, fn=fn)
 
 
 def _sync_counter(counter, total, **labels) -> None:
@@ -987,6 +1111,41 @@ def _wire_tenant_metrics(sobs: ServingObs, app: web.Application,
 
 async def _ok(request: web.Request):
     return web.json_response({"status": "ok"})
+
+
+def _continuous(app: web.Application):
+    return ((name, b) for name, b in app[BATCHERS_KEY].items()
+            if isinstance(b, ContinuousBatcher))
+
+
+async def debug_traces(request: web.Request):
+    """The tracer's ring (`traces_response_payload`: 400 on a bad
+    `?limit=`) with each continuous batcher's counter tracks (phase
+    budgets, pool fill, occupancy, cumulative frees per cause), named
+    `<model>.<track>`, on the spans' clock."""
+    try:
+        payload = traces_response_payload(request.app[OBS_KEY].tracer,
+                                          request.rel_url.query)
+    except ValueError as e:
+        raise web.HTTPBadRequest(text=str(e)) from None
+    for name, b in _continuous(request.app):
+        merge_counter_tracks(payload, b.profiler.counter_events(prefix=name))
+        merge_counter_tracks(payload,
+                             b.cache_ledger.counter_events(prefix=name))
+    return web.json_response(payload)
+
+
+async def debug_profile(request: web.Request):
+    """Per continuous batcher: the step anatomy (per-phase counts,
+    totals, tokens, rolling p50 / p95, the goodput ledger), `recompiles`
+    (the compile watch's counts) and `cache` (`cache_anatomy()`)."""
+    models = {}
+    for name, b in _continuous(request.app):
+        snap = b.profiler.snapshot()
+        snap["recompiles"] = b.compile_watch.counts()
+        snap["cache"] = b.cache_anatomy()
+        models[name] = snap
+    return web.json_response({"models": models})
 
 
 def _spec_state(app: web.Application) -> dict:
@@ -1127,9 +1286,12 @@ def _bad(msg: str) -> web.Response:
     return web.json_response({"error": msg}, status=400)
 
 
-async def _on_device(request: web.Request, fn):
-    """Run one blocking engine call in the executor under the gpu lock."""
+async def _on_device(request: web.Request, fn, span: str):
+    """Run one blocking engine call in the executor under the gpu lock,
+    as span `span` (the tracer carries the request's context into the
+    executor thread, which `run_in_executor` does not)."""
     loop = asyncio.get_running_loop()
+    fn = request.app[OBS_KEY].tracer.wrap(fn, span)
     async with request.app[GPU_LOCK_KEY]:
         return await loop.run_in_executor(None, fn)
 
@@ -1181,6 +1343,14 @@ _SSE_HEADERS = {"Content-Type": "text/event-stream",
                 "Cache-Control": "no-cache", "X-Accel-Buffering": "no"}
 
 
+def _sse_headers(tracer: Tracer) -> dict:
+    """A stream's headers, with the root span's `X-Trace-Id`: the route
+    wrapper cannot add a header once the stream is prepared."""
+    trace_id = tracer.current_trace_id()
+    return ({**_SSE_HEADERS, "X-Trace-Id": trace_id} if trace_id
+            else dict(_SSE_HEADERS))
+
+
 async def _stream_generate(request: web.Request, engine: InferenceEngine,
                            arr: np.ndarray, max_new: int, sampling: dict,
                            text_mode: bool) -> web.StreamResponse:
@@ -1197,26 +1367,28 @@ async def _stream_generate(request: web.Request, engine: InferenceEngine,
     except ValueError as e:
         return _bad(str(e))
     model = request.match_info.get("name", "")
-    resp = web.StreamResponse(headers=_SSE_HEADERS)
+    tracer = request.app[OBS_KEY].tracer
+    resp = web.StreamResponse(headers=_sse_headers(tracer))
     await resp.prepare(request)
     loop = asyncio.get_running_loop()
     chunks: list[np.ndarray] = []
     error: str | None = None
-    while True:
-        try:
-            async with request.app[GPU_LOCK_KEY]:
-                part = await loop.run_in_executor(None, next, gen, None)
-        except Exception as e:  # noqa: BLE001 — headers are out
-            # a raise here would abort the connection like a network
-            # drop: end with a terminal error record instead
-            log.exception("decode failed mid-stream")
-            error = f"{type(e).__name__}: {e}"
-            break
-        if part is None:
-            break
-        chunks.append(part)
-        _observe_first_token(request, model)
-        await resp.write(_sse({"tokens": part.tolist()}))
+    with tracer.span("stream.decode", model=model):
+        while True:
+            try:
+                async with request.app[GPU_LOCK_KEY]:
+                    part = await loop.run_in_executor(None, next, gen, None)
+            except Exception as e:  # noqa: BLE001 — headers are out
+                # a raise here would abort the connection like a network
+                # drop: end with a terminal error record instead
+                log.exception("decode failed mid-stream")
+                error = f"{type(e).__name__}: {e}"
+                break
+            if part is None:
+                break
+            chunks.append(part)
+            _observe_first_token(request, model)
+            await resp.write(_sse({"tokens": part.tolist()}))
     total = int(sum(c.shape[1] for c in chunks))
     if error is not None:
         final: dict[str, Any] = {"error": error, "total": total}
@@ -1245,19 +1417,21 @@ async def _stream_continuous(request: web.Request,
     except (Throttled, Overloaded) as e:
         return _shed(batcher, e)
     model = request.match_info.get("name", "")
+    tracer = request.app[OBS_KEY].tracer
     resp = web.StreamResponse(headers={
-        **_SSE_HEADERS, "X-Request-Id": sampling["request_id"]})
+        **_sse_headers(tracer), "X-Request-Id": sampling["request_id"]})
     ids: list[int] = []
     error: str | None = None
     try:
         await resp.prepare(request)
-        while True:
-            tok = await q.get()
-            if tok is None:
-                break
-            ids.append(tok)
-            _observe_first_token(request, model)
-            await resp.write(_sse({"tokens": [[tok]]}))
+        with tracer.span("stream.continuous", model=model):
+            while True:
+                tok = await q.get()
+                if tok is None:
+                    break
+                ids.append(tok)
+                _observe_first_token(request, model)
+                await resp.write(_sse({"tokens": [[tok]]}))
         try:
             await fut   # admission and step errors surface after drain
         except MigratedAway as e:
@@ -1362,8 +1536,10 @@ async def score(request: web.Request):
     arr = _token_array(token_lists, engine.cfg.vocab_size)
     if isinstance(arr, web.Response):
         return arr
-    lps = await _on_device(request,
-                           lambda: engine.score(arr).cpu().numpy())
+    with request.app[OBS_KEY].tracer.span("engine.score", model=name,
+                                          batch=int(arr.shape[0])):
+        lps = await _on_device(
+            request, lambda: engine.score(arr).cpu().numpy(), "device.score")
     return web.json_response({
         "logprobs": [[round(float(x), 6) for x in row] for row in lps],
         "total": [round(float(row.sum()), 6) for row in lps],
@@ -1577,7 +1753,11 @@ async def generate(request: web.Request):
                                           **sampling)
             return toks_.cpu().numpy(), stats_
 
-        toks, stats = await _on_device(request, run_spec)
+        with request.app[OBS_KEY].tracer.span(
+                "engine.speculative", model=name, gamma=gamma,
+                max_new=max_new):
+            toks, stats = await _on_device(request, run_spec,
+                                           "device.generate")
         _observe_first_token(request, name)
         # the speculative engine does not special-case EOS; pin the tail
         # after the first EOS as the plain path does
@@ -1604,9 +1784,12 @@ async def generate(request: web.Request):
         else:
             req_id = None   # rows keep the batcher's own timeline ids
         try:
-            results = await asyncio.gather(*(
-                batcher.submit(t, max_new_req, submit, with_logprobs=True)
-                for t in token_lists))
+            with request.app[OBS_KEY].tracer.span(
+                    "batcher.submit", model=name, max_new=max_new_req):
+                results = await asyncio.gather(*(
+                    batcher.submit(t, max_new_req, submit,
+                                   with_logprobs=True)
+                    for t in token_lists))
         except (Throttled, Overloaded) as e:
             return _shed(batcher, e)
         except MigratedAway as e:
@@ -1620,8 +1803,10 @@ async def generate(request: web.Request):
         # single prompts ride the window batcher; explicit client-side
         # batches, and adapter requests (the window batcher's groups
         # carry no adapter ids), keep their one-shot call
-        toks, lps = await batcher.submit(token_lists[0], max_new_req,
-                                         sampling)
+        with request.app[OBS_KEY].tracer.span(
+                "batcher.submit", model=name, max_new=max_new_req):
+            toks, lps = await batcher.submit(token_lists[0], max_new_req,
+                                             sampling)
         _observe_first_token(request, name)
         rows, lp_rows = [toks], [lps]
     else:
@@ -1630,7 +1815,11 @@ async def generate(request: web.Request):
                                           return_logprobs=True, **sampling)
             return toks_.cpu().numpy(), lps_.cpu().numpy()
 
-        toks, lps = await _on_device(request, run_direct)
+        with request.app[OBS_KEY].tracer.span(
+                "engine.generate", model=name, batch=int(arr.shape[0]),
+                max_new=max_new):
+            toks, lps = await _on_device(request, run_direct,
+                                         "device.generate")
         request.app[OBS_KEY].batch_size.observe(arr.shape[0], model=name)
         _observe_first_token(request, name)
         rows = toks[:, :max_new_req].tolist()
@@ -1687,7 +1876,8 @@ async def drain_endpoint(request: web.Request):
         for name, b in app[BATCHERS_KEY].items():
             if not isinstance(b, ContinuousBatcher):
                 continue
-            records = await b.export_sequences()
+            with sobs.tracer.span("migrate.out", model=name):
+                records = await b.export_sequences()
             for i, record in enumerate(records):
                 ok = False
                 for j in range(len(peers)):
@@ -1781,7 +1971,8 @@ async def migrate_in(request: web.Request):
     wedge = bool(body.get("wedge", False))
     sobs: ServingObs = app[OBS_KEY]
     try:
-        blocks = await batcher.import_sequence(record, wedge=wedge)
+        with sobs.tracer.span("migrate.in", model=name, wedge=wedge):
+            blocks = await batcher.import_sequence(record, wedge=wedge)
     except ValueError as e:
         sobs.migration_failed.inc(model=name, direction="in")
         return web.json_response({"error": str(e)}, status=400)
@@ -1825,7 +2016,8 @@ async def blocks_export(request: web.Request):
     except ValueError as e:
         return web.json_response({"error": str(e)}, status=400)
     rid = request.headers.get("X-Request-Id") or secrets.token_hex(8)
-    record = await batcher.export_prefix(tokens, ns=ns, request_id=rid)
+    with app[OBS_KEY].tracer.span("blocks.export", model=name):
+        record = await batcher.export_prefix(tokens, ns=ns, request_id=rid)
     if record is None:
         return web.json_response({"error": "prefix not cached"},
                                  status=404)
@@ -1882,7 +2074,8 @@ async def _peer_fetch_blocks(app: web.Application, name: str,
         sobs.peer_fetch.inc(model=name, outcome="miss")
         return
     try:
-        blocks = await batcher.import_sequence(record)
+        with sobs.tracer.span("peer.fetch", model=name):
+            blocks = await batcher.import_sequence(record)
     except Exception:  # noqa: BLE001 — the import rolled back
         sobs.peer_fetch.inc(model=name, outcome="failed")
         return
@@ -2049,22 +2242,25 @@ async def reload_weights(request: web.Request):
     loop = asyncio.get_running_loop()
     t0 = time.monotonic()
     try:
-        async with app[GPU_LOCK_KEY]:
-            params = await loop.run_in_executor(
-                None, reloader, name, engine, dict(source or {}))
-        why = (_params_mismatch(param_leaves(engine.params),
-                                param_leaves(params))
-               if isinstance(params, Mapping)
-               else "parameter tree structure differs from the live "
-                    "model's")
-        if why:
-            raise ValueError(f"incompatible weights: {why}")
-        async with app[GPU_LOCK_KEY]:
-            await loop.run_in_executor(None, copy_params, engine, params)
-        b = batchers.get(name)
-        if isinstance(b, ContinuousBatcher):
-            # drained above: no request holds a block the flush frees
-            b.flush_cache()
+        with app[OBS_KEY].tracer.span("weights.reload", model=name,
+                                      version=version):
+            async with app[GPU_LOCK_KEY]:
+                params = await loop.run_in_executor(
+                    None, reloader, name, engine, dict(source or {}))
+            why = (_params_mismatch(param_leaves(engine.params),
+                                    param_leaves(params))
+                   if isinstance(params, Mapping)
+                   else "parameter tree structure differs from the live "
+                        "model's")
+            if why:
+                raise ValueError(f"incompatible weights: {why}")
+            async with app[GPU_LOCK_KEY]:
+                await loop.run_in_executor(None, copy_params, engine,
+                                           params)
+            b = batchers.get(name)
+            if isinstance(b, ContinuousBatcher):
+                # drained above: no request holds a block the flush frees
+                b.flush_cache()
     except ValueError as e:
         _resume_admission(app, was_draining)
         return web.json_response({"error": str(e)}, status=400)
@@ -2140,7 +2336,9 @@ async def prefill_handoff(request: web.Request):
     sobs: ServingObs = app[OBS_KEY]
     t0 = time.monotonic()
     try:
-        await batcher.submit(toks, 1, {"request_id": rid, **_tenant(request)})
+        with sobs.tracer.span("prefill.handoff", model=name):
+            await batcher.submit(toks, 1,
+                                 {"request_id": rid, **_tenant(request)})
     except (Throttled, Overloaded) as e:
         return _shed(batcher, e)
     except MigratedAway as e:

@@ -7,9 +7,17 @@ reference jits a sharded step over a device mesh; the port runs one
 card, eagerly: the loss and its gradients through autograd (the model's
 attention through the flash kernels' `autograd.Function`), then an AdamW
 update written out to match optax's, in place. There is no mesh, so no
-sharding rules; the reference's obs bridge (spans, histograms,
-PhaseProfiler, CompileWatch) is ROADMAP work. Checkpoints:
-train/checkpoint.py.
+sharding rules. Checkpoints: train/checkpoint.py.
+
+The obs bridge, as the reference's: each step is a `train.step` span
+and a `step` phase of a `PhaseProfiler(phases=TRAIN_PHASES)` (the time
+between steps is `host_gap`), feeding `train_step_seconds`,
+`train_compile_seconds` (the first step's wall time),
+`train_step_phase_seconds` and `train_recompiles_total{fn="train_step"}`
+(a `CompileWatch` over the step, keyed by the batch's shapes). The step
+is eager: `step` is host time up to where the step returns, with no
+synchronize added for it (on the card a full launch queue can hold the
+host near the device's step time).
 
 optax parity, where PyTorch's defaults differ:
 - the learning-rate schedule is evaluated at the update count before it
@@ -26,12 +34,15 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
+import time
 from typing import Callable
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from kubeflow_tpu_torch import obs
 from kubeflow_tpu_torch.device import resolve_device
+from kubeflow_tpu_torch.obs.metrics import Counter
 
 Params = dict
 
@@ -257,12 +268,16 @@ class Trainer:
     (moved to `device`, which defaults to the CUDA card). `loss_fn(params,
     tokens, targets, mask) -> scalar` overrides the default apply_fn →
     cross-entropy pipeline, e.g. `chunked_cross_entropy_from_hidden`
-    over `llama.hidden`."""
+    over `llama.hidden`. `tracer` / `registry` receive the obs bridge's
+    spans and families (default: `obs.DEFAULT_TRACER` and the process's
+    default registry; several trainers in one process share the
+    series)."""
 
     def __init__(self, apply_fn: Callable, init_fn: Callable[[int], Params],
                  train_config: TrainConfig = TrainConfig(),
                  loss_fn: Callable | None = None,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None, *,
+                 tracer=None, registry=None):
         self.apply_fn = apply_fn
         self.init_fn = init_fn
         self.tc = train_config
@@ -271,6 +286,48 @@ class Trainer:
         self.optimizer = make_optimizer(train_config)
         self._n_params: int | None = None
         self._opt_bytes: int | None = None
+        self.tracer = tracer if tracer is not None else obs.DEFAULT_TRACER
+        reg = registry if registry is not None else obs.default_registry()
+        self.step_seconds = obs.get_or_create_histogram(
+            reg, "train_step_seconds",
+            "train step wall time on the host clock (no synchronize: "
+            "the step returns once its work is queued); the first call "
+            "includes the kernels' first loads")
+        self.compile_seconds = obs.get_or_create_histogram(
+            reg, "train_compile_seconds",
+            "first-step wall time (kernel loads, allocator growth and "
+            "the step itself)",
+            buckets=(0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+                     120.0, 300.0, 600.0))
+        self._stepped = False
+        self.profiler = obs.PhaseProfiler(phases=obs.TRAIN_PHASES)
+        self.phase_seconds = obs.get_or_create_histogram(
+            reg, "train_step_phase_seconds",
+            "Wall time per training phase: step (the step call, host "
+            "clock) and host_gap (time between consecutive steps)")
+        for phase in obs.TRAIN_PHASES:
+            self.phase_seconds.seed(phase=phase)
+
+        def on_phase(phase, seconds, tokens):
+            if seconds is not None:
+                self.phase_seconds.observe(seconds, phase=phase)
+
+        self.profiler.on_phase = on_phase
+        self.recompiles = reg.get("train_recompiles_total")
+        if self.recompiles is None:
+            self.recompiles = Counter(
+                "train_recompiles_total",
+                "Recompiles of the train step (a novel batch shape past "
+                "the first step)", reg)
+        self._compile_watch = obs.CompileWatch(
+            tracer=self.tracer,
+            on_recompile=lambda fn, sig: self.recompiles.inc(fn=fn))
+        self._watched_step = self._compile_watch.watch(
+            self._step, "train_step",
+            key=lambda state, tokens, targets, mask: (tokens, targets,
+                                                      mask))
+        self.recompiles.inc(0, fn="train_step")
+        self._last_step_end: float | None = None
 
     def _loss(self, params, tokens, targets, mask):
         if self.loss_fn is not None:
@@ -311,7 +368,8 @@ class Trainer:
         return loss.detach(), grads
 
     def step(self, state: TrainState, tokens, targets, mask=None):
-        """One optimizer step on a [b, s] batch -> (state, loss)."""
+        """One optimizer step on a [b, s] batch -> (state, loss), under a
+        `train.step` span and the profiler's `step` phase."""
         tokens = torch.as_tensor(tokens, device=self.device)
         targets = torch.as_tensor(targets, device=self.device)
         if mask is None:
@@ -322,6 +380,26 @@ class Trainer:
         if acc > 1 and tokens.shape[0] % acc:
             raise ValueError(f"batch {tokens.shape[0]} not divisible by "
                              f"grad_accum {acc}")
+        first = not self._stepped
+        t0 = time.perf_counter()
+        if self._last_step_end is not None:
+            # input pipeline, checkpoint writes, logging: the host gap
+            self.profiler.record("host_gap", t0 - self._last_step_end)
+        with self.tracer.span("train.step", batch=int(tokens.shape[0]),
+                              compile=first):
+            with self.profiler.phase("step", tokens=int(tokens.shape[0])
+                                     * int(tokens.shape[1])):
+                out = self._watched_step(state, tokens, targets, mask)
+        dt = time.perf_counter() - t0
+        self._last_step_end = time.perf_counter()
+        self.step_seconds.observe(dt)
+        if first:
+            self._stepped = True
+            self.compile_seconds.observe(dt)
+        return out
+
+    def _step(self, state: TrainState, tokens, targets, mask):
+        acc = self.tc.grad_accum
         if acc <= 1:
             loss, grads = self._value_and_grad(state.params, tokens,
                                                targets, mask)

@@ -1,11 +1,13 @@
 """Weight bridge between the reference's parameter tree and the port's.
 
-The reference (`kubeflow_tpu/models/{llama,gemma}.py::init`) and the
-port lay parameters out the same way (stacked `[L, ...]` block leaves
-under "blocks"; a Gemma tree has no `lm_head`, its head is the tied
-embedding), so the bridge only moves arrays and sets dtypes, by the
-serving storage rule both models share (`llama.leaf_dtype`, which
-`gemma` imports). It takes the tree with every leaf already converted
+The reference (`kubeflow_tpu/models/{llama,gemma,llama_moe}.py::init`)
+and the port lay parameters out the same way (stacked `[L, ...]` block
+leaves under "blocks"; a Gemma tree has no `lm_head`, its head is the
+tied embedding; a MoE tree has `router` [L, D, E] and the expert stacks
+`w_gate` / `w_up` [L, E, D, M] and `w_down` [L, E, M, D]), so the
+bridge only moves arrays and sets dtypes, by the serving storage rule
+the three models share (`llama.leaf_dtype`: the router is a block
+matrix). It takes the tree with every leaf already converted
 to a numpy array (the caller does `jax.tree.map(np.asarray, params)`),
 so this module needs no JAX. A quantized tree (the reference's
 `quantize_blocks`) comes with each `QTensor` leaf flattened by the
@@ -26,10 +28,10 @@ from kubeflow_tpu_torch.serving.quant import QTensor
 
 def from_jax(params: dict, cfg, device: torch.device | str,
              dtype: torch.dtype | None = None) -> dict:
-    """numpy param tree -> torch params on `device`, for a LlamaConfig or
-    a GemmaConfig `cfg`. Block matrices go to `dtype` (default:
-    cfg.dtype, the dtype the reference casts them to at every use),
-    every other leaf to fp32. A `{"q", "scale"}` block leaf becomes a
+    """numpy param tree -> torch params on `device`, for a LlamaConfig, a
+    GemmaConfig or a MoELlamaConfig `cfg`. Block matrices go to `dtype`
+    (default: cfg.dtype, the dtype the reference casts them to at every
+    use), every other leaf to fp32. A `{"q", "scale"}` block leaf becomes a
     QTensor: q int8, scale bf16."""
 
     def conv(name, arr):

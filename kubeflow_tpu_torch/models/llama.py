@@ -31,7 +31,9 @@ from kubeflow_tpu_torch.ops.rotary import apply_rope, rope_frequencies
 Params = dict
 
 # Block matrices, stored in the activation dtype; every other leaf is fp32.
-MATRICES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# "router" is the MoE family's (models/llama_moe.py), which the reference
+# also rounds to the activation dtype before its fp32 product.
+MATRICES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "router")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,7 +126,8 @@ def num_params(cfg: LlamaConfig) -> int:
 
 def random_params(shapes: Params, dtype_of, seed: int,
                   device: torch.device | str,
-                  store: torch.device | str | None = None) -> Params:
+                  store: torch.device | str | None = None,
+                  by_layer: tuple[str, ...] = ()) -> Params:
     """Random params over a tree of leaf shapes (a model's
     `param_shapes`), drawn in the tree's order from a torch.Generator on
     `device` seeded with `seed`: truncated normal on [-2, 2] times
@@ -132,8 +135,16 @@ def random_params(shapes: Params, dtype_of, seed: int,
     reference's recipe, though not its values. `dtype_of(name)` is each
     leaf's dtype. `store` (default `device`) is where the leaves live:
     each is moved there once drawn, so host-stored params hold the
-    card's draws while the card holds one leaf's draw at a time."""
+    card's draws while the card holds one leaf's draw at a time. The
+    leaves named in `by_layer` are drawn one leading index (layer) at a
+    time into their stored tensor, so that the fp32 draw of a leaf too
+    large to draw whole (a MoE expert stack) is one layer's."""
     gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(shape, fan_in, dtype):
+        w = torch.empty(shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        return (w * fan_in**-0.5).to(dtype)
 
     def leaf(name, shape):
         if name.endswith("norm"):
@@ -142,9 +153,13 @@ def random_params(shapes: Params, dtype_of, seed: int,
         # fan-in is the contraction axis: second-to-last for matrices,
         # the width for the embedding table
         fan_in = shape[-1] if name == "embed" else shape[-2]
-        w = torch.empty(shape, dtype=torch.float32, device=device)
-        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-        w = (w * fan_in**-0.5).to(dtype_of(name))
+        if name in by_layer:
+            w = torch.empty(shape, dtype=dtype_of(name),
+                            device=device if store is None else store)
+            for li in range(shape[0]):
+                w[li] = draw(shape[1:], fan_in, dtype_of(name))
+            return w
+        w = draw(shape, fan_in, dtype_of(name))
         return w if store is None else w.to(store)
 
     return {k: {n: leaf(n, s) for n, s in v.items()} if k == "blocks"
@@ -172,9 +187,10 @@ def layer_params(params: Params, li: int) -> Params:
     return {k: v[li] for k, v in params["blocks"].items()}
 
 
-def _block(cfg: LlamaConfig, x, p, positions, inv_freq, kv_mask,
-           contiguous_positions=False):
-    """One transformer block on x [b, s, D] in cfg.dtype."""
+def _attention_half(cfg, x, p, positions, inv_freq, kv_mask,
+                    contiguous_positions=False):
+    """A block's attention half on x [b, s, D] in cfg.dtype: the residual
+    after the attention output (models/llama_moe.py shares it)."""
     b, s, _ = x.shape
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
     q = (h @ p["wq"].to(cfg.dtype)).reshape(b, s, cfg.num_heads,
@@ -189,7 +205,14 @@ def _block(cfg: LlamaConfig, x, p, positions, inv_freq, kv_mask,
                                  causal=True, kv_mask=kv_mask,
                                  window=cfg.sliding_window,
                                  contiguous_positions=contiguous_positions)
-    x = x + attn.reshape(b, s, cfg.q_dim) @ p["wo"].to(cfg.dtype)
+    return x + attn.reshape(b, s, cfg.q_dim) @ p["wo"].to(cfg.dtype)
+
+
+def _block(cfg: LlamaConfig, x, p, positions, inv_freq, kv_mask,
+           contiguous_positions=False):
+    """One transformer block on x [b, s, D] in cfg.dtype."""
+    x = _attention_half(cfg, x, p, positions, inv_freq, kv_mask,
+                        contiguous_positions)
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
     gate = torch.nn.functional.silu(h @ p["w_gate"].to(cfg.dtype))
     ff = gate * (h @ p["w_up"].to(cfg.dtype))

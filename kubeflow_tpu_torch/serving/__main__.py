@@ -22,8 +22,11 @@ kubeflow_tpu/serving/__main__.py).
         --fleet-router http://router:8080 --model-version v1 --port 8001
 
 Serves one model on the CUDA card (`--cpu` runs the plain PyTorch path
-on the CPU instead; `gemma-tiny`'s head dim 32 has no kernel, so it is
-served with `--cpu` only). Without `--continuous`, the reference's default
+on the CPU instead; the head dim 32 of `gemma-tiny` and `mixtral-tiny`
+has no kernel, so they are served with `--cpu` only: on the card the
+kernels refuse it at the first request). `mixtral-tiny` is the MoE
+family (`llama-moe`: routed experts, dropless at serving); `--quant
+int8` is refused for it. Without `--continuous`, the reference's default
 mode: the one-shot engine on a dense KV cache, single prompts coalesced
 by a `--batch-window-ms` window when it is above 0, else each request
 generated directly. With `--continuous`, continuous batching on the
@@ -73,10 +76,13 @@ import sys
 
 def model_registry():
     """name -> (config, init, family), as the reference's registry;
-    `init(cfg, seed, device)` gives the model's random serving params.
-    The reference's `mixtral-tiny` waits for the MoE port."""
-    from kubeflow_tpu_torch.models import gemma, llama
-    from kubeflow_tpu_torch.serving.engine import GEMMA_FAMILY, LLAMA_FAMILY
+    `init(cfg, seed, device)` gives the model's random serving params."""
+    from kubeflow_tpu_torch.models import gemma, llama, llama_moe
+    from kubeflow_tpu_torch.serving.engine import (
+        GEMMA_FAMILY,
+        LLAMA_FAMILY,
+        MOE_LLAMA_FAMILY,
+    )
 
     return {
         "llama-tiny": (llama.LLAMA_TINY, llama.init, LLAMA_FAMILY),
@@ -84,6 +90,8 @@ def model_registry():
         "llama3-8b": (llama.LLAMA3_8B, llama.init, LLAMA_FAMILY),
         "gemma-tiny": (gemma.GEMMA_TINY, gemma.init, GEMMA_FAMILY),
         "gemma-2b": (gemma.GEMMA_2B, gemma.init, GEMMA_FAMILY),
+        "mixtral-tiny": (llama_moe.MIXTRAL_TINY, llama_moe.init,
+                         MOE_LLAMA_FAMILY),
     }
 
 
@@ -226,6 +234,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.pool != "mixed" and not args.continuous:
         # the handoff ships paged KV blocks: the continuous engine's
         p.error("--pool prefill/decode requires --continuous")
+    if args.quant and model_registry()[args.model][2].mlp is not None:
+        p.error(f"--quant {args.quant} is not ported for the MoE family "
+                f"({args.model}): its expert stacks have no int8 product "
+                f"(the reference dequantizes every expert's whole stack "
+                f"each step)")
     return args
 
 

@@ -7,7 +7,10 @@ injected (`write_kv`, `attn`) and the block matmuls behind `proj`, which
 takes the products that read one h together (wq, wk, wv; w_gate, w_up;
 wo; w_down): `quant.qdot_many` by default (plain weights' products, or
 int8 `QTensor`s' in one `int8_proj` launch a group: four a layer),
-`multilora.lora_proj` for rows that carry adapter ids.
+`multilora.lora_proj` for rows that carry adapter ids. A family's `mlp`
+replaces the FFN half: `MOE_LLAMA_FAMILY` routes it through the
+experts (parallel/moe.py) at a capacity where nothing drops, while the
+attention products stay behind `proj`.
 `InferenceEngine` holds the weights, the embedding, head and sampling
 steps the continuous engine builds on, and the reference's one-shot
 entry points: `generate`, `generate_stream`, `prefill_chunked`, `score`
@@ -47,10 +50,12 @@ import torch
 
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.llama import layer_params
+from kubeflow_tpu_torch.models.llama_moe import MOE_LEAVES
 from kubeflow_tpu_torch.ops.attention import dot_product_attention
 from kubeflow_tpu_torch.ops.embedding import embed_lookup
 from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rotary import apply_rope, rope_frequencies
+from kubeflow_tpu_torch.parallel.moe import moe_mlp
 from kubeflow_tpu_torch.serving.graphs import GraphCache, upload
 from kubeflow_tpu_torch.serving.multilora import lora_proj
 from kubeflow_tpu_torch.serving.quant import qdot_many
@@ -58,17 +63,42 @@ from kubeflow_tpu_torch.serving.quant import qdot_many
 
 @dataclasses.dataclass(frozen=True)
 class Family:
-    """Model-family adapter for the shared llama/gemma block schema."""
+    """Model-family adapter for the shared llama/gemma block schema.
+
+    `mlp` overrides the block's FFN half entirely (signature `(cfg,
+    layer_params, normed_h) -> delta`): the MoE family routes through
+    experts there while the attention half, the KV caches and sampling
+    stay shared."""
 
     name: str
     gate_act: Callable[[torch.Tensor], torch.Tensor]
     scale_embed: bool          # multiply embeddings by sqrt(hidden)
+    mlp: Callable[..., torch.Tensor] | None = None
 
 
 LLAMA_FAMILY = Family("llama", torch.nn.functional.silu, scale_embed=False)
 GEMMA_FAMILY = Family(
     "gemma", lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
     scale_embed=True)
+
+
+def _moe_serving_mlp(cfg, p, h: torch.Tensor) -> torch.Tensor:
+    """Dropless MoE FFN for serving (models/llama_moe.py's block schema:
+    router [D, E] and per-expert SwiGLU stacks [E, D, M]). Training's
+    capacity factor trades dropped choices for load balance; serving
+    must never drop: capacity_factor E / k makes the capacity the token
+    count T, and a token takes at most one slot of an expert, so every
+    choice fits and a row's output does not depend on its batch-mates
+    (pads, retired and frozen rows included)."""
+    mcfg = dataclasses.replace(
+        cfg.moe_config(), capacity_factor=cfg.num_experts / cfg.top_k)
+    params = {k: p[k].to(cfg.dtype) for k in MOE_LEAVES}
+    y, _aux = moe_mlp(params, h, mcfg)
+    return y
+
+
+MOE_LLAMA_FAMILY = Family("llama-moe", torch.nn.functional.silu,
+                          scale_embed=False, mlp=_moe_serving_mlp)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,8 +271,9 @@ class _Lane:
 def transformer_block(cfg, fam: Family, p, x, rope_positions, inv_freq,
                       write_kv, attn, proj=None):
     """One decoder block on x [b, s, h]: norms, QKV/output projections,
-    rotary, gated MLP. `write_kv(k, v) -> (k_cache, v_cache)` and
-    `attn(q, k_cache, v_cache) -> out` are the cache policy and the
+    rotary, gated MLP (or the family's `mlp`). `write_kv(k, v) ->
+    (k_cache, v_cache)` and `attn(q, k_cache, v_cache) -> out` are the
+    cache policy and the
     attention call; `proj(names, h, ws)` computes the block matmuls that
     read one h, in order (default `qdot_many`: plain weights' products,
     or int8 QTensors' in one launch)."""
@@ -263,6 +294,8 @@ def transformer_block(cfg, fam: Family, p, x, rope_positions, inv_freq,
     (o,) = proj(("wo",), out.reshape(b, s, cfg.q_dim), (p["wo"],))
     x = x + o
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+    if fam.mlp is not None:
+        return x + fam.mlp(cfg, p, h), (k_cache, v_cache)
     gate, up = proj(("w_gate", "w_up"), h, (p["w_gate"], p["w_up"]))
     ff = fam.gate_act(gate) * up
     (down,) = proj(("w_down",), ff, (p["w_down"],))
@@ -299,6 +332,13 @@ class InferenceEngine:
         self.ec = engine_config
         self.layers = [layer_params(params, li)
                        for li in range(cfg.num_layers)]
+        if adapter_pack is not None and family.mlp is not None:
+            # the packs' LoRA targets are the dense MLP's w_gate / w_up /
+            # w_down, which a family with its own FFN does not have
+            raise ValueError(
+                f"adapter packs are not ported for the {family.name} "
+                f"family: its FFN is routed experts, not the dense "
+                f"w_gate/w_up/w_down the adapters target")
         self.adapter_pack = adapter_pack
         self._pack_layers = pack_layers(adapter_pack)
         self._inv_freq = rope_frequencies(cfg.head_dim, theta=cfg.rope_theta,

@@ -131,7 +131,13 @@ def _quantize_stacked(w: torch.Tensor) -> QTensor:
 def quantize_blocks(params: Params) -> Params:
     """Serving params with the seven block matmul weights as QTensors
     (layer by layer); every other leaf passes through untouched (the
-    same objects)."""
+    same objects). A MoE tree is refused: its expert stacks have no int8
+    product."""
+    if "router" in params["blocks"]:
+        raise ValueError(
+            "int8 weights are not ported for the MoE family: its expert "
+            "stacks [L, E, D, M] have no int8 product (the reference "
+            "dequantizes every expert's whole stack each step)")
     out = dict(params)
     blocks = dict(params["blocks"])
     for name in BLOCK_MATMUL_WEIGHTS:

@@ -38,3 +38,11 @@ def test_forbidden_names():
     assert _forbidden("kubeflow_tpu.serving.paged")
     assert not _forbidden("kubeflow_tpu_torch.serving.paged")
     assert not _forbidden("torch")
+
+
+def test_moe_modules_are_covered():
+    """The MoE slice's modules are among the files checked above."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"kubeflow_tpu_torch/parallel/moe.py",
+            "kubeflow_tpu_torch/parallel/__init__.py",
+            "kubeflow_tpu_torch/models/llama_moe.py"} <= names

@@ -55,6 +55,10 @@ Phases, each fatal on failure (exit code 1, no result line):
              batch 1; the same bounds and controls, SDPA with K/V
              repeated over the group, ptxas registers and spills of
              every hd-256 instantiation.
+             Then the flash forward, dQ and dK/dV at Mixtral-8x7B's
+             attention (n_q 32, n_kv 8, hd 128: group 4; b 2, s 2048;
+             bf16 and fp32, the four cases), phase 15a's shape, with
+             the same bounds, controls and SDPA yardstick.
              Then prefill-append at the speculative verify pass's shape
              (phase 9), at llama3-8b's heads (n_q 32, n_kv 8, hd 128)
              and again at gemma-2b's: 8 rows x gamma + 1 = 5 tokens at
@@ -429,14 +433,49 @@ Phases, each fatal on failure (exit code 1, no result line):
              decode attention kernel and the rest, one layer's expert
              products graph-replayed, how many of the 8 experts each
              decode step's layers route to, and the phase's seconds.
+15. train  — (a) the MoE family at Mixtral-8x7B's widths (hidden 4096,
+             32/8 heads of 128, 8 experts, top 2, expert width 14336,
+             vocab 32000, capacity factor 1.25, aux weight 0.01), at the
+             depth the card's free memory holds (20 bytes a block
+             parameter, 16 an embedding or head one, a margin: 2 of 32
+             layers on an 80 GB card), fp32 masters, bf16 activations,
+             AdamW, full remat, batch 2 x 2048. First the loss and every
+             gradient leaf at the initial weights at fp32 activations:
+             the kernel path (the fp32 flash kernels) routed as the
+             plain attention path routed, against it (MOE_GRAD_TOL); the
+             routes that would differ are counted and allowed only at
+             router gaps under MOE_ROUTE_GAP_TOL; a control with the aux
+             term's gradient detached must exceed the bound on the
+             router. Then 6 steps: exact flash launches (per layer and
+             step 2 forward, 1 dQ, 1 dK/dV), dropped choices and the
+             routed-expert histogram per layer, step ms, tokens/s, peak
+             memory, and MFU from the FLOPs the step runs (expert
+             products at capacity) beside the reference's 6 N T.
+             (b) llama3-1b at phase 4's configuration under the remat
+             policies full, mlp and dots: loss and gradients against
+             full (REMAT_GRAD_TOL), the `aten.mm` calls each backward
+             reruns (6, 4 and 0 a layer), the GEMM kernels of forward
+             and backward, 32 flash forwards a step under each, step ms
+             and peak memory. (c) llama3-1b at full width and depth: 4
+             Adafactor steps (loss falls; state bytes against AdamW's
+             9.9 GB; a checkpoint under build/ckpt/ restored bit-equal,
+             the next step equal to the uninterrupted one), then LoRA
+             (rank 8, the seven targets) over a frozen fp32 base for 8
+             steps (loss falls, base bitwise unchanged, adapter-only
+             moments), the trained adapters then served as a pack
+             through the continuous app (exact paged launches, logprobs
+             and argmax against the merged model).
 Phase 3 also times the tracer: the same cold requests twice with the
 app's tracer detached and twice attached, host ms a decode step each.
 Then prints the `kernels` JSON line (launches: the paged kernels' over
-phases 3, 3b, 3c, 8, 9's spec-off pass, 10, 11, 13 and 14, each other
-kernel's over its phases (4 and 8 for flash, 5, 8, 9 and 14 for dense
-decode); each kernel
+phases 3, 3b, 3c, 8, 9's spec-off pass, 10, 11, 13, 14 and 15c, each
+other kernel's over its phases (4, 8, 15b and 15c for flash, 5, 8, 9
+and 14 for dense decode); each kernel
 again as `<name>@gemma-2b`, timed in phase 2 at gemma-2b's shapes and
-counted over phase 6, or phase 7 for the flash kernels; and
+counted over phase 6, or phase 7 for the flash kernels; the flash
+kernels as `<name>@mixtral`, timed in phase 2 at Mixtral's attention
+and counted over phase 15a (15b and 15c count under the plain names,
+15c's serving under the paged kernels'); and
 `paged_prefill_append@verify`, timed at the verify pass's shape and
 counted over phase 9's verify rounds, whose prefill slices count under
 `paged_prefill_append`; `int8_proj`, no Pallas kernel's port (it replaces
@@ -2140,15 +2179,19 @@ def _control_attention(torch, kind):
     return attend
 
 
-def _grads(torch, loss_fn, params, *batch):
-    """Gradient of every leaf at `params` (untouched), by leaf name."""
+def _grads(torch, loss_fn, params, *batch, only=None):
+    """-> (loss, gradient of every leaf (or of leaf `only`) at `params`
+    (untouched), by leaf name)."""
     live = {k: ({n: x.detach().requires_grad_(True) for n, x in v.items()}
                 if isinstance(v, dict) else v.detach().requires_grad_(True))
             for k, v in params.items()}
     named = {**{f"blocks.{n}": x for n, x in live["blocks"].items()},
              **{k: v for k, v in live.items() if k != "blocks"}}
-    grads = torch.autograd.grad(loss_fn(live, *batch), list(named.values()))
-    return dict(zip(named, grads))
+    if only is not None:
+        named = {only: named[only]}
+    loss = loss_fn(live, *batch)
+    grads = torch.autograd.grad(loss, list(named.values()))
+    return float(loss.detach()), dict(zip(named, grads))
 
 
 def _worst_grad_err(torch, got, want):
@@ -2218,15 +2261,15 @@ def train_and_check(torch):
     # gradients at the initial weights: the kernel path and two controls
     # against the plain path, worst leaf (and layer) by relative L2 error
     batch = (tokens, targets, mask)
-    want = _grads(torch, loss_fn(plain_positions), params0, *batch)
+    _, want = _grads(torch, loss_fn(plain_positions), params0, *batch)
     grad_err = {}
     for kind in ("bf16_p", "dq_no_diagonal"):
         with mock.patch.object(llama, "dot_product_attention",
                                _control_attention(torch, kind)):
-            got = _grads(torch, loss_fn(plain_positions), params0, *batch)
+            _, got = _grads(torch, loss_fn(plain_positions), params0, *batch)
         grad_err[kind] = _worst_grad_err(torch, got, want)
         del got
-    got = _grads(torch, loss_fn(None), params0, *batch)
+    _, got = _grads(torch, loss_fn(None), params0, *batch)
     grad_err["kernel"] = _worst_grad_err(torch, got, want)
     del got, want
     gc.collect()
@@ -2640,14 +2683,14 @@ def train_gemma_and_check(torch):
     # path must fall below TRAIN_GRAD_TOL and the broken dQ above it.
     params0 = gemma.init(cfg, 0, dev, train=True)
     batch = (tokens, targets, mask)
-    want = _grads(torch, dense_loss(plain_positions), params0, *batch)
+    _, want = _grads(torch, dense_loss(plain_positions), params0, *batch)
     grad_err = {}
     with mock.patch.object(gemma, "dot_product_attention",
                            _control_attention(torch, "dq_no_diagonal")):
-        got = _grads(torch, dense_loss(plain_positions), params0, *batch)
+        _, got = _grads(torch, dense_loss(plain_positions), params0, *batch)
     grad_err["dq_no_diagonal"] = _worst_grad_err(torch, got, want)
     del got
-    got = _grads(torch, dense_loss(None), params0, *batch)
+    _, got = _grads(torch, dense_loss(None), params0, *batch)
     grad_err["kernel"] = _worst_grad_err(torch, got, want)
     del got, want, params0
     gc.collect()
@@ -4864,7 +4907,7 @@ def _merged_teacher(torch, engine, adapters, lcfg, name):
     cfg = engine.cfg
     dense = {k: (w.q.float() * w.scale.float() if isinstance(w, QTensor)
                  else w.float()) for k, w in engine.params["blocks"].items()
-             if k in adapters[LORA_NAMES[0]]["blocks"]}
+             if k in next(iter(adapters.values()))["blocks"]}
     base = {"blocks": dense}
     if name:
         base = merge_lora(base, adapters[name], lcfg)
@@ -5662,6 +5705,765 @@ async def serve_moe_and_check(torch):
     return counts
 
 
+# -- phase 15 ---------------------------------------------------------------
+
+# Mixtral-8x7B's attention (32 query heads over 8 KV heads of 128: a GQA
+# group of 4), timed in phase 2 and trained through in phase 15a
+MIXTRAL = Geom("mixtral-8x7b", 32, 8, 128, 32)
+MIXTRAL_SUFFIX = "@mixtral"
+MOE_TRAIN_STEPS = 4                # timed, after two counted steps
+# The MoE training state: 16 bytes a parameter (fp32 master, gradient, two
+# AdamW moments) and 4 more a block parameter (each layer's gradient waits
+# for the others before the unbind's backward stacks them), plus this for
+# activations, the fp32 head's logits and the allocator's slack.
+MOE_TRAIN_MARGIN = 10 * 2**30
+# Kernel path vs plain path at fp32 activations (the fp32 flash kernels,
+# the same routing forced on both): worst leaf (per layer for block
+# leaves) by relative L2 error. The limit, set before the first card run
+# (PERF.md): fp32 sums in other orders through two layers; a control with
+# the aux term's gradient detached must exceed it on the router.
+MOE_GRAD_TOL = 1e-3
+# fp32: a route may differ between the two paths only where the top k + 1
+# router probabilities lie closer than this (a near-tie, not a fault)
+MOE_ROUTE_GAP_TOL = 1e-5
+REMAT_POLICIES = ("full", "mlp", "dots")
+# 15b: gradients and loss under "mlp" / "dots" against "full" (bf16, the
+# same flash kernels): worst leaf by relative L2 error (PERF.md)
+REMAT_GRAD_TOL = 1e-3
+ADAFACTOR_STEPS, LORA_STEPS = 4, 8
+REMAT_STEPS = 3                    # 15b: timed a policy, after one step
+ADAMW_STATE_BYTES_1B = 2 * 4 * 1_235_814_400    # llama3-1b's two moments
+
+
+def _route_probe(torch, calls, force=None):
+    """A stand-in for `moe._top_k` that records each call's natural
+    experts [T, k] and each token's smallest adjacent gap among its top
+    k + 1 probabilities (a swap of rank 0 and 1 moves capacity priority
+    too); with `force` (the experts a previous pass recorded, one entry a
+    call) it routes by those instead, the probabilities gathered there."""
+    from kubeflow_tpu_torch.parallel import moe
+
+    top_k = moe._top_k
+
+    def probe(probs, k):
+        top = torch.topk(probs.detach(), k + 1, dim=-1)
+        gap = (top.values[:, :-1] - top.values[:, 1:]).min(-1).values
+        calls.append((top.indices[:, :k], gap))
+        if force is None:
+            return top_k(probs, k)
+        idx = force[len(calls) - 1]
+        return probs.gather(-1, idx), idx
+
+    return probe
+
+
+def _moe_train_depth(cfg, free_bytes: int):
+    """Mixtral's widths at the deepest depth whose training state fits
+    the card's free memory (MOE_TRAIN_MARGIN): depth is cut, never width.
+    -> (cfg, block params a layer, embedding + head + final norm)."""
+    import math
+
+    from kubeflow_tpu_torch.models import llama_moe
+
+    one = llama_moe.param_shapes(dataclasses.replace(cfg, num_layers=1))
+    per_layer = sum(math.prod(s) for s in one["blocks"].values())
+    fixed = sum(math.prod(s) for k, s in one.items() if k != "blocks")
+    layers = cfg.num_layers
+    while layers > 1 and (20 * per_layer * layers + 16 * fixed
+                          + MOE_TRAIN_MARGIN) > free_bytes:
+        layers -= 1
+    return dataclasses.replace(cfg, num_layers=layers), per_layer, fixed
+
+
+def _moe_step_flops(cfg, b, s):
+    """FLOPs one training step runs, by part: the forward's projections,
+    router, attention core (causal pairs) and expert products at
+    capacity (E x C rows a layer), the fp32 head; the backward (two
+    products per forward product; the flash backward's dQ 3 and dK/dV 4
+    products against the forward's 2); remat's second forward of every
+    block, apart. -> dict of TFLOP."""
+    T, D, L = b * s, cfg.hidden_size, cfg.num_layers
+    rows = cfg.num_experts * cfg.moe_config().capacity(T)
+    proj = 2 * T * D * (2 * cfg.q_dim + 2 * cfg.kv_dim)
+    router = 2 * T * D * cfg.num_experts
+    unit = 2 * cfg.head_dim * _pairs(s, True, None) * cfg.num_heads * b
+    experts = 3 * 2 * rows * D * cfg.expert_mlp_dim
+    head = 2 * T * D * cfg.vocab_size
+    fwd_block = proj + router + experts + 2 * unit
+    parts = {"forward": L * fwd_block + head,
+             "backward": L * (2 * (proj + router + experts) + 7 * unit)
+             + 2 * head,
+             "remat": L * fwd_block}
+    return {k: v / 1e12 for k, v in parts.items()}, rows
+
+
+def moe_train_and_check(torch):
+    """Phase 15a: the MoE family trained at Mixtral-8x7B's widths, at the
+    depth the card's memory holds. -> the flash kernels' launches."""
+    from unittest import mock
+
+    import numpy as np
+
+    from kubeflow_tpu_torch.models import llama, llama_moe
+    from kubeflow_tpu_torch.ops import attention
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.parallel import moe
+    from kubeflow_tpu_torch.train import TrainConfig, Trainer
+    from kubeflow_tpu_torch.train.trainer import cross_entropy_loss
+
+    dev = torch.device("cuda")
+    b, s = FLASH_B, FLASH_S
+    free, total = torch.cuda.mem_get_info()
+    free += torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+    cfg, per_layer, fixed = _moe_train_depth(llama_moe.MIXTRAL_8X7B, free)
+    L = cfg.num_layers
+    log(f"  free {free / 2**30:.2f} of {total / 2**30:.2f} GiB: "
+        f"{L} of {llama_moe.MIXTRAL_8X7B.num_layers} layers ({per_layer} "
+        f"block params a layer, {fixed} in the embedding, head and final "
+        f"norm; {(20 * per_layer * L + 16 * fixed) / 1e9:.1f} GB of state "
+        f"and stacked gradients reckoned, {MOE_TRAIN_MARGIN / 2**30:.0f} "
+        f"GiB margin)")
+    if L < 2:
+        fail(f"phase 15a: {free / 2**30:.1f} GiB free holds fewer than two "
+             "Mixtral layers' training state")
+    rng = np.random.default_rng(15)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to(dev)
+    targets = torch.roll(tokens, -1, dims=1)
+    mask = torch.ones(b, s, device=dev)
+    batch = (tokens, targets, mask)
+    t0 = time.perf_counter()
+    params0 = llama_moe.init(cfg, 0, dev, train=True)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in params0["blocks"].values()) + sum(
+        t.numel() for k, t in params0.items() if k != "blocks")
+    log(f"  {n_params} params (fp32 masters) drawn in "
+        f"{time.perf_counter() - t0:.1f} s; capacity "
+        f"{cfg.moe_config().capacity(b * s)} slots an expert at "
+        f"{b * s} tokens (factor {cfg.capacity_factor})")
+
+    # gradients at the initial weights, fp32 activations (the fp32 flash
+    # kernels), no remat: the plain path, then the kernel path routed as
+    # the plain path routed, then the control
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, remat=False)
+
+    def loss32(detach_aux=False):
+        def fn(params, tokens, targets, mask):
+            logits, aux = llama_moe.apply(params, cfg32, tokens)
+            if detach_aux:
+                aux = aux.detach()
+            return (cross_entropy_loss(logits, targets, mask)
+                    + cfg32.aux_loss_weight * aux)
+        return fn
+
+    def plain_attention(*a, **kw):
+        return attention.dot_product_attention(
+            *a, **{**kw, "contiguous_positions": False})
+
+    assign, drops, hist = moe._assign, [], []
+
+    def counted(*a, **kw):
+        out = assign(*a, **kw)
+        drops.append(int((~out[3]).sum()))
+        hist.append(torch.bincount(out[1].flatten(),
+                                   minlength=cfg.num_experts).tolist())
+        return out
+
+    plain_calls, kernel_calls, top_k = [], [], moe._top_k
+    attention.reset_impl_counts()
+    try:
+        moe._top_k = _route_probe(torch, plain_calls)
+        moe._assign = counted
+        with mock.patch.object(llama, "dot_product_attention",
+                               plain_attention):
+            want_loss, want = _grads(torch, loss32(), params0, *batch)
+        moe._assign = assign
+        plain_impl = attention.impl_counts()
+        attention.reset_impl_counts()
+        force = [idx for idx, _ in plain_calls]
+        moe._top_k = _route_probe(torch, kernel_calls, force)
+        got_loss, got = _grads(torch, loss32(), params0, *batch)
+        kernel_impl = attention.impl_counts()
+        grad_err = _worst_grad_err(torch, got, want)
+        del got
+        gc.collect()
+        ctrl_calls = []
+        moe._top_k = _route_probe(torch, ctrl_calls, force)
+        _, ctrl = _grads(torch, loss32(detach_aux=True), params0,
+                               *batch, only="blocks.router")
+        ctrl_err = _worst_grad_err(
+            torch, ctrl, {"blocks.router": want["blocks.router"]})
+    finally:
+        moe._top_k, moe._assign = top_k, assign
+    del want, ctrl
+    gc.collect()
+    torch.cuda.empty_cache()
+    differ, gaps = 0, []
+    for (p_idx, _), (k_idx, k_gap) in zip(plain_calls, kernel_calls,
+                                          strict=True):
+        moved = (p_idx != k_idx).any(-1)
+        differ += int(moved.sum())
+        gaps += k_gap[moved].tolist()
+    min_gap = min(float(g.min()) for _, g in plain_calls)
+    log(f"  fp32 gradients at the initial weights, kernel path (routed as "
+        f"the plain path) vs plain path, worst leaf |diff| / |plain| in L2: "
+        f"{grad_err[0]:.3e} ({grad_err[1]}); aux-detached control on the "
+        f"router {ctrl_err[0]:.3e} ({ctrl_err[1]}) (tol {MOE_GRAD_TOL}); "
+        f"losses {got_loss:.6f} vs {want_loss:.6f}; attention impl counts "
+        f"plain pass {plain_impl}, kernel pass {kernel_impl}")
+    log(f"  routing choices that differ between the two passes: {differ} "
+        f"tokens of {b * s} x {L} layers, at router gaps "
+        f"{[round(g, 8) for g in gaps]} (excused under "
+        f"{MOE_ROUTE_GAP_TOL}); smallest gap of the plain pass {min_gap:.3e}")
+    log(f"  at capacity factor {cfg.capacity_factor}: choices dropped per "
+        f"layer {drops} of {b * s * cfg.top_k}; routed-expert histogram "
+        f"per layer (choices an expert) {hist}")
+    if plain_impl["flash"] or kernel_impl["torch"] or not kernel_impl["flash"]:
+        fail(f"phase 15a: the passes did not take their paths: plain "
+             f"{plain_impl}, kernel {kernel_impl}")
+    if any(g >= MOE_ROUTE_GAP_TOL for g in gaps):
+        fail(f"phase 15a: routes differ at router gaps {gaps}, not only "
+             f"near-ties under {MOE_ROUTE_GAP_TOL}")
+    if grad_err[0] > MOE_GRAD_TOL or abs(got_loss - want_loss) > \
+            MOE_GRAD_TOL * abs(want_loss):
+        fail("phase 15a: kernel-path MoE gradients disagree with the plain "
+             "path's")
+    if ctrl_err[0] <= MOE_GRAD_TOL:
+        fail("phase 15a: the gradient check cannot see the aux loss's "
+             "gradient on the router")
+
+    # training: bf16 activations, fp32 masters, AdamW, full remat
+    trainer = Trainer(apply_fn=lambda p, t: llama_moe.apply(p, cfg, t)[0],
+                      init_fn=lambda seed: llama_moe.init(cfg, seed, dev,
+                                                          train=True),
+                      train_config=TrainConfig(warmup_steps=2,
+                                               total_steps=1000),
+                      loss_fn=llama_moe.loss_fn(cfg), device=dev)
+    state = trainer.init_from_params(params0)
+    del params0
+    reset_launch_counts()
+    attention.reset_impl_counts()
+    train_hist, train_drops = [], []
+
+    def counted_train(*a, **kw):
+        out = assign(*a, **kw)
+        if len(train_hist) < L:     # the forward's calls, not remat's
+            train_drops.append(int((~out[3]).sum()))
+            train_hist.append(torch.bincount(
+                out[1].flatten(), minlength=cfg.num_experts).tolist())
+        return out
+
+    moe._assign = counted_train
+    try:
+        t0 = time.perf_counter()
+        state, loss = trainer.step(state, tokens, targets)
+        losses = [float(loss)]
+        warm_s = time.perf_counter() - t0
+    finally:
+        moe._assign = assign
+    state, loss = trainer.step(state, tokens, targets)
+    losses.append(float(loss))
+    torch.cuda.reset_peak_memory_stats()
+    pending = []
+    t0 = time.perf_counter()
+    for _ in range(MOE_TRAIN_STEPS):
+        state, loss = trainer.step(state, tokens, targets)
+        pending.append(loss)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / MOE_TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    counts = launch_counts()
+    impl = attention.impl_counts()
+    losses += [float(x) for x in pending]
+    steps = 2 + MOE_TRAIN_STEPS
+    flops, rows = _moe_step_flops(cfg, b, s)
+    run = flops["forward"] + flops["backward"]
+    model = trainer.step_flops(b, s) / 1e12
+    log(f"  losses {[round(x, 4) for x in losses]}; first step "
+        f"{warm_s:.2f} s; choices dropped per layer {train_drops}, "
+        f"routed-expert histogram {train_hist} (bf16, first step)")
+    log(f"  step (host clock, {MOE_TRAIN_STEPS} steps after 2): "
+        f"{step_s * 1e3:.1f} ms, {b * s / step_s:.0f} tokens/s, peak memory "
+        f"{peak / 2**30:.2f} GiB, optimizer state "
+        f"{trainer.opt_state_bytes() / 2**30:.2f} GiB")
+    log(f"  FLOPs the step runs (expert products at capacity, {rows} rows "
+        f"a layer): forward {flops['forward']:.2f} + backward "
+        f"{flops['backward']:.2f} = {run:.2f} TFLOP, "
+        f"{run / step_s / (BF16_FLOPS_S / 1e12):.1%} of 989 TFLOP/s (MFU); "
+        f"with remat's second forward ({flops['remat']:.2f} TFLOP) "
+        f"{(run + flops['remat']) / step_s / (BF16_FLOPS_S / 1e12):.1%} "
+        f"(hardware use). Apart, the reference's 6 N T model FLOPs (all "
+        f"{cfg.num_experts} experts of each token): {model:.2f} TFLOP, "
+        f"{model / step_s / (BF16_FLOPS_S / 1e12):.1%}")
+    log(f"  attention impl counts {impl}; kernel launches {counts} over "
+        f"{steps} steps")
+    # one more step under torch.profiler: where a MoE step's time goes
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, loss = trainer.step(state, tokens, targets)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    _report_profile(prof, prof_s, top=12)
+    bmm_ms = sum(_dev_total(e) for e in prof.key_averages()
+                 if e.key == "aten::bmm") / 1e3
+    log(f"  expert products (aten::bmm: forward, remat, backward) "
+        f"{bmm_ms:.1f} ms of the profiled step's device time")
+    expect = {"flash_attention_fwd": 2 * L * steps,
+              "flash_attention_dq": L * steps,
+              "flash_attention_dkv": L * steps}
+    for name, n in expect.items():
+        if counts[name] != n:
+            fail(f"phase 15a {name}: {counts[name]} launches, the design "
+                 f"implies {n} (remat: forward + recompute, {L} layers x "
+                 f"{steps} steps)")
+    if impl["torch"] != 0:
+        fail(f"phase 15a: attention left the flash kernels: {impl}")
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        fail(f"phase 15a: non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"phase 15a: loss did not fall: {losses}")
+    MEASURED["moe_train"] = dict(step_ms=step_s * 1e3, peak=peak, run=run,
+                                 layers=L)
+    del state, trainer
+    return {k: v for k, v in counts.items() if k in expect}
+
+
+def _chunked_loss(cfg):
+    """Phase 4's loss: chunked CE over llama.hidden."""
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.train import chunked_cross_entropy_from_hidden
+
+    def fn(params, tokens, targets, mask):
+        h = llama.hidden(params, cfg, tokens)
+        return chunked_cross_entropy_from_hidden(
+            h, llama.unembed_matrix(params, cfg), targets, mask,
+            num_chunks=16)
+    return fn
+
+
+def _llama1b_batch(torch, dev, seed):
+    import numpy as np
+
+    from kubeflow_tpu_torch.models import llama
+
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(
+        0, llama.LLAMA3_1B.vocab_size, (FLASH_B, FLASH_S))).to(dev)
+    return tokens, torch.roll(tokens, -1, dims=1)
+
+
+# cuBLAS's GEMM kernels as the profiler names them on an H100
+GEMM_KERNELS = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def _gemm_kernels(prof) -> tuple[int, float]:
+    """(GEMM kernel launches, their device ms) in a profile. Device events
+    only: under selective checkpointing each op is dispatched through a
+    mode that calls it again, so a host op such as `aten::mm` is
+    recorded twice where its kernel runs once."""
+    ev = [e for e in _device_events(prof)
+          if any(k in e.key.lower() for k in GEMM_KERNELS)]
+    return sum(e.count for e in ev), sum(_dev_us(e) for e in ev) / 1e3
+
+
+def _mm_counter():
+    """A dispatch mode counting the `aten.mm` calls that run (a product a
+    selective checkpoint serves from its cache is not called)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ == "mm":
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    return Count()
+
+
+def remat_policies_and_check(torch):
+    """Phase 15b: llama3-1b at phase 4's configuration under each remat
+    policy: loss and gradients at the initial weights against "full",
+    the `aten.mm` calls of the forward and of the backward (a dispatch
+    mode) and the GEMM kernels of each (profiler), the memory the forward
+    leaves saved for the backward and each half's peak, then trainer
+    steps (REMAT_STEPS timed after one; the first splits the step's peak
+    between the gradient pass and the optimizer update). -> flash
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.train import TrainConfig, Trainer
+
+    dev = torch.device("cuda")
+    tokens, targets = _llama1b_batch(torch, dev, 0)
+    mask = torch.ones(FLASH_B, FLASH_S, device=dev)
+    params0 = llama.init(llama.LLAMA3_1B, 0, dev, train=True)
+    counts, rows, full = {}, {}, None
+    for policy in REMAT_POLICIES:
+        cfg = dataclasses.replace(llama.LLAMA3_1B, remat_policy=policy)
+        live = {k: ({n: x.detach().requires_grad_(True)
+                     for n, x in v.items()} if isinstance(v, dict)
+                    else v.detach().requires_grad_(True))
+                for k, v in params0.items()}
+        named = {**{f"blocks.{n}": x for n, x in live["blocks"].items()},
+                 **{k: v for k, v in live.items() if k != "blocks"}}
+        reset_launch_counts()
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        # bytes above what was allocated before the forward: `saved`, what
+        # the forward leaves for the backward; `fwd_top` / `bwd_top`, each
+        # half's peak; `grads`, what the backward leaves (the gradients)
+        m0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with profile(activities=acts) as pf, _mm_counter() as mf:
+            loss = _chunked_loss(cfg)(live, tokens, targets, mask)
+            torch.cuda.synchronize()
+        mem = dict(saved=torch.cuda.memory_allocated() - m0,
+                   fwd_top=torch.cuda.max_memory_allocated() - m0)
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=acts) as pb, _mm_counter() as mb:
+            grads = dict(zip(named, torch.autograd.grad(
+                loss, list(named.values()))))
+            torch.cuda.synchronize()
+        pass_s = time.perf_counter() - t0
+        mem.update(bwd_top=torch.cuda.max_memory_allocated() - m0,
+                   grads=torch.cuda.memory_allocated() - m0)
+        busy_s = sum(_dev_us(e) for p in (pf, pb)
+                     for e in _device_events(p)) / 1e6
+        grad_counts = launch_counts()
+        loss = float(loss.detach())
+        del live, named
+        if full is None:
+            full, err = (loss, grads), (0.0, "")
+        else:
+            err = _worst_grad_err(torch, grads, full[1])
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer = Trainer(apply_fn=None, init_fn=None,
+                          train_config=TrainConfig(warmup_steps=10,
+                                                   total_steps=1000),
+                          loss_fn=_chunked_loss(cfg), device=dev)
+        state = trainer.init_from_params(
+            {k: ({n: x.clone() for n, x in v.items()}
+                 if isinstance(v, dict) else v.clone())
+             for k, v in params0.items()})
+        reset_launch_counts()
+        # the first step's peak, split at the optimizer update: the
+        # gradient pass's, then the update's (above the resident state)
+        update = trainer.optimizer.update
+
+        def split_update(*args):
+            mem["step_grad_top"] = torch.cuda.max_memory_allocated() - m0
+            torch.cuda.reset_peak_memory_stats()
+            update(*args)
+
+        trainer.optimizer.update = split_update
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        mem["resident"] = m0
+        torch.cuda.reset_peak_memory_stats()
+        state, _ = trainer.step(state, tokens, targets)
+        torch.cuda.synchronize()
+        mem["step_update_top"] = torch.cuda.max_memory_allocated() - m0
+        del trainer.optimizer.update
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(REMAT_STEPS):
+            state, _ = trainer.step(state, tokens, targets)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / REMAT_STEPS
+        peak = torch.cuda.max_memory_allocated()
+        got = launch_counts()
+        del state, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        for k, n in got.items():
+            if k.startswith("flash"):
+                counts[k] = counts.get(k, 0) + n
+        rows[policy] = dict(fwd_mm=(mf.n, *_gemm_kernels(pf)),
+                            bwd_mm=(mb.n, *_gemm_kernels(pb)),
+                            step_ms=step_ms, peak=peak, mem=mem,
+                            loss=loss, err=err,
+                            pass_s=pass_s, busy_s=busy_s,
+                            grad_fwd=grad_counts["flash_attention_fwd"],
+                            step_fwd=got["flash_attention_fwd"]
+                            // (1 + REMAT_STEPS))
+    base = rows["dots"]["bwd_mm"][0]
+    L = llama.LLAMA3_1B.num_layers
+    for policy, r in rows.items():
+        log(f"  {policy}: loss {r['loss']:.6f}, gradients vs full worst "
+            f"{r['err'][0]:.3e} {r['err'][1]} (tol {REMAT_GRAD_TOL}); "
+            f"aten.mm forward {r['fwd_mm'][0]}, backward {r['bwd_mm'][0]} "
+            f"({r['bwd_mm'][0] - base} more than dots' = "
+            f"{(r['bwd_mm'][0] - base) / L:.1f} recomputed a layer); GEMM "
+            f"kernels (profiler) forward {r['fwd_mm'][1]} "
+            f"({r['fwd_mm'][2]:.2f} ms), backward {r['bwd_mm'][1]} "
+            f"({r['bwd_mm'][2]:.2f} ms); the profiled pass {r['pass_s']:.3f}"
+            f" s wall, device busy {r['busy_s']:.3f} s; step "
+            f"{r['step_ms']:.1f} ms, peak memory {r['peak'] / 2**30:.2f} GiB;"
+            f" flash forwards {r['grad_fwd']} in the gradient pass, "
+            f"{r['step_fwd']} a trainer step")
+        m = {k: v / 2**30 for k, v in r["mem"].items()}
+        where = ("the gradient pass" if m["step_grad_top"]
+                 >= m["step_update_top"] else "the optimizer update")
+        log(f"  {policy} memory (GiB): the forward saved {m['saved']:.3f} "
+            f"for the backward (forward peak {m['fwd_top']:.3f}, backward "
+            f"peak {m['bwd_top']:.3f}, gradients {m['grads']:.3f}, above "
+            f"the params); a trainer step above its resident "
+            f"{m['resident']:.3f} (params, moments): gradient pass peak "
+            f"{m['step_grad_top']:.3f}, update peak "
+            f"{m['step_update_top']:.3f}: the step's peak falls in "
+            f"{where}")
+        if r["err"][0] > REMAT_GRAD_TOL or abs(r["loss"] - full[0]) > \
+                REMAT_GRAD_TOL * abs(full[0]):
+            fail(f"phase 15b: {policy} disagrees with full remat")
+        if r["grad_fwd"] != 2 * L or r["step_fwd"] != 2 * L:
+            fail(f"phase 15b: {policy} launched {r['grad_fwd']} / "
+                 f"{r['step_fwd']} flash forwards a step, the design "
+                 f"implies {2 * L} (the recompute reruns the kernel)")
+    recomputed = {p: (r["bwd_mm"][0] - base) / L for p, r in rows.items()}
+    if recomputed != {"full": 6.0, "mlp": 4.0, "dots": 0.0}:
+        fail(f"phase 15b: products recomputed a layer {recomputed}, the "
+             "policies imply full 6 (w_down's output is dead in the "
+             "backward), mlp 4, dots 0")
+    del full, params0
+    gc.collect()
+    torch.cuda.empty_cache()
+    MEASURED["remat"] = rows
+    return counts
+
+
+async def _serve_trained_adapters(torch, cfg, base, adapters, lcfg):
+    """15c's serving half: the trained adapters as a one-adapter pack on
+    the base (rounded to its serving dtypes) through the continuous
+    engine the CLI's app builds, greedy tokens and logprobs against the
+    merged model (`_merged_teacher`). -> launch counts."""
+    import aiohttp
+    from aiohttp import web
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.serving.engine import (
+        LLAMA_FAMILY,
+        EngineConfig,
+        InferenceEngine,
+    )
+    from kubeflow_tpu_torch.serving.multilora import build_pack
+    from kubeflow_tpu_torch.serving.server import (
+        BATCHERS_KEY,
+        create_serving_app,
+    )
+
+    dev = torch.device("cuda")
+    name = "llama3-1b"
+    params = {k: ({n: w.detach().to(llama.leaf_dtype(cfg, n))
+                   for n, w in v.items()} if k == "blocks"
+                  else v.detach().to(llama.leaf_dtype(cfg, k)))
+              for k, v in base.items()}
+    pack = build_pack(cfg, lcfg, {"tuned": adapters}, device=dev)
+    engine = InferenceEngine(params, cfg, LLAMA_FAMILY,
+                             EngineConfig(max_len=MAX_LEN), device=dev,
+                             adapter_pack=pack)
+    app = create_serving_app({name: engine}, continuous=True, warmup=True,
+                             max_batch=SLOTS, prefill_chunk_tokens=CHUNK,
+                             seed=0)
+    port = _free_port()
+    runner = web.AppRunner(app)
+    await runner.setup()
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    batcher = app[BATCHERS_KEY][name]
+    gen = torch.Generator().manual_seed(151)
+    rows = [(torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist(),
+             a) for n, a in ((40, "tuned"), (130, ""), (300, "tuned"),
+                             (17, "tuned"))]
+    url = f"http://127.0.0.1:{port}/v1/models/{name}:generate"
+    try:
+        async with aiohttp.ClientSession() as sess:
+            async def post(p, a):
+                body = {"tokens": [p], "max_new": MAX_NEW, "logprobs": True,
+                        **({"adapter": a} if a else {})}
+                async with sess.post(url, json=body) as r:
+                    if r.status != 200:
+                        fail(f"phase 15c :generate {r.status}: "
+                             f"{await r.text()}")
+                    return await r.json()
+
+            batcher.calls = batcher.slices = 0
+            reset_launch_counts()
+            served = await asyncio.gather(*(post(p, a) for p, a in rows))
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            calls, slices = batcher.calls, batcher.slices
+    finally:
+        await runner.cleanup()
+    L = cfg.num_layers
+    want = {"paged_decode_attention": L * calls,
+            "paged_prefill_append": L * slices}
+    log(f"  the trained adapters served as a pack (rows "
+        f"{[(len(p), a or 'base') for p, a in rows]}): {calls} decode steps"
+        f", {slices} slices; kernel launches {counts}")
+    for k, n in want.items():
+        if counts.get(k, 0) != n:
+            fail(f"phase 15c serving {k}: {counts.get(k, 0)} launches, the "
+                 f"design implies {n}")
+    groups = {"": [], "tuned": []}
+    for (p, a), b in zip(rows, served):
+        groups[a].append((p, b["tokens"][0], b["logprobs"][0]))
+    for a, items in groups.items():
+        teacher = _merged_teacher(torch, engine, {"tuned": adapters}, lcfg,
+                                  a)
+        _teacher_check(torch, teacher, *map(list, zip(*items)),
+                       f"trained {'adapter' if a else 'base'} rows "
+                       f"(teacher: merged weights)")
+        del teacher
+    del engine, pack, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: n for k, n in counts.items() if k in want}
+
+
+def adafactor_lora_and_check(torch):
+    """Phase 15c: llama3-1b at full width and depth trained by Adafactor
+    (loss falling, state bytes, a bit-equal resume through the
+    checkpointer) and by LoRA over a frozen base (loss falling, the base
+    bitwise unchanged, adapter-only state), the trained adapters then
+    served. -> flash and paged launches."""
+    import shutil
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.obs.metrics import Registry
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.train import (
+        LoraConfig,
+        TrainConfig,
+        Trainer,
+        init_lora,
+        lora_freeze_labels,
+        lora_loss_fn,
+        lora_train_tree,
+    )
+    from kubeflow_tpu_torch.train.checkpoint import (
+        CheckpointConfig,
+        Checkpointer,
+    )
+    from kubeflow_tpu_torch.train.trainer import _leaves
+
+    dev = torch.device("cuda")
+    cfg = llama.LLAMA3_1B
+    tokens, targets = _llama1b_batch(torch, dev, 1)
+    counts = {}
+
+    def add(got):
+        for k, n in got.items():
+            counts[k] = counts.get(k, 0) + n
+
+    # Adafactor
+    t0 = time.perf_counter()
+    trainer = Trainer(apply_fn=None,
+                      init_fn=lambda seed: llama.init(cfg, seed, dev,
+                                                      train=True),
+                      train_config=TrainConfig(
+                          optimizer="adafactor", learning_rate=1e-2,
+                          warmup_steps=1, total_steps=100,
+                          weight_decay=0.0),
+                      loss_fn=_chunked_loss(cfg), device=dev)
+    reset_launch_counts()
+    state = trainer.init(0)
+    losses = []
+    for _ in range(ADAFACTOR_STEPS):
+        state, loss = trainer.step(state, tokens, targets)
+        losses.append(float(loss))
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    ckpt = Checkpointer(CheckpointConfig(CKPT_DIR, enable_async=False),
+                        trainer, registry=Registry())
+    ckpt.save(state, force=True)
+    restored = ckpt.restore()
+    same_state = all(
+        torch.equal(a, b) for slot in trainer.optimizer.slots
+        for a, b in zip(state.opt_state[slot], restored.opt_state[slot],
+                        strict=True)) and all(
+        torch.equal(a, b) for a, b in zip(_leaves(state.params),
+                                          _leaves(restored.params)))
+    state, l1 = trainer.step(state, tokens, targets)
+    restored, l2 = trainer.step(restored, tokens, targets)
+    resumed = float(l1) == float(l2) and all(
+        torch.equal(a, b) for a, b in zip(_leaves(state.params),
+                                          _leaves(restored.params)))
+    add(launch_counts())
+    ada_bytes = trainer.opt_state_bytes()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    del state, restored, trainer, ckpt
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  adafactor: losses {[round(x, 4) for x in losses]}; optimizer "
+        f"state {ada_bytes / 2**20:.1f} MiB against AdamW's "
+        f"{ADAMW_STATE_BYTES_1B / 1e9:.1f} GB ({ADAMW_STATE_BYTES_1B / ada_bytes:.0f}x); "
+        f"checkpoint restore bit-equal {same_state}; the next step after "
+        f"the restore equals the uninterrupted one {resumed} (loss "
+        f"{float(l1):.6f}); {time.perf_counter() - t0:.1f} s")
+    if not losses[-1] < losses[0]:
+        fail(f"phase 15c: Adafactor's loss did not fall: {losses}")
+    if not (same_state and resumed):
+        fail("phase 15c: Adafactor's checkpoint did not resume bit-equal")
+
+    # LoRA over a frozen base
+    t0 = time.perf_counter()
+    lcfg = LoraConfig(rank=LORA_RANK, alpha=LORA_ALPHA)
+    tree = lora_train_tree(llama.init(cfg, 0, dev, train=True),
+                           init_lora(cfg, lcfg, 1, dev))
+    base_copy = [t.clone() for t in _leaves(tree["base"])]
+    trainer = Trainer(apply_fn=None, init_fn=None,
+                      train_config=TrainConfig(learning_rate=3e-3,
+                                               warmup_steps=1,
+                                               total_steps=100),
+                      loss_fn=lora_loss_fn(_chunked_loss(cfg), lcfg),
+                      device=dev, freeze_labels=lora_freeze_labels(tree))
+    reset_launch_counts()
+    state = trainer.init_from_params(tree)
+    del tree
+    losses = []
+    for _ in range(LORA_STEPS):
+        state, loss = trainer.step(state, tokens, targets)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    add(launch_counts())
+    unchanged = all(torch.equal(a, b) for a, b in
+                    zip(_leaves(state.params["base"]), base_copy))
+    n_adapter = sum(t.numel() for t in _leaves(state.params["lora"]))
+    lora_bytes = trainer.opt_state_bytes()
+    slots_ok = all(len(state.opt_state[s]) ==
+                   len(_leaves(state.params["lora"])) for s in ("mu", "nu"))
+    log(f"  lora (rank {LORA_RANK}, alpha {LORA_ALPHA}, seven targets, "
+        f"{n_adapter} adapter params): losses "
+        f"{[round(x, 4) for x in losses]}; base bitwise unchanged "
+        f"{unchanged}; optimizer state {lora_bytes / 2**20:.1f} MiB "
+        f"(adapters' moments only: {slots_ok}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    del base_copy
+    if not losses[-1] < losses[0]:
+        fail(f"phase 15c: LoRA's loss did not fall: {losses}")
+    if not unchanged or not slots_ok or lora_bytes != 8 * n_adapter:
+        fail("phase 15c: LoRA moved the base or kept state beyond the "
+             "adapters")
+    adapters = {"blocks": {n: {k: v.detach() for k, v in ab.items()}
+                           for n, ab in state.params["lora"]["blocks"]
+                           .items()}}
+    base = state.params["base"]
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    add(asyncio.run(_serve_trained_adapters(torch, cfg, base, adapters,
+                                            lcfg)))
+    MEASURED["adafactor_bytes"] = ada_bytes
+    return counts
+
+
 def _dev_us(e):
     return getattr(e, "self_device_time_total",
                    getattr(e, "self_cuda_time_total", 0))
@@ -5763,6 +6565,10 @@ def main() -> None:
         log("phase 2, gemma-2b verify: the verify pass's shape at head dim "
             "256, group 8")
         check_verify(torch, dev, GEMMA_2B)
+        log("phase 2, mixtral: the flash kernels at Mixtral-8x7B's "
+            "attention (n_q 32, n_kv 8, hd 128: group 4)")
+        stats.update({name + MIXTRAL_SUFFIX: st for name, st in
+                      check_flash(torch, dev, MIXTRAL).items()})
         log("phase 2, int8_proj: the int8-weight projection at llama3-8b's "
             "and llama3-1b's projection shapes")
         stats["int8_proj"] = check_int8_proj(torch, dev)
@@ -5889,6 +6695,23 @@ def main() -> None:
         add(asyncio.run(serve_moe_and_check(torch)))
         tidy()
 
+    if run("15"):
+        tidy()
+        t15 = time.perf_counter()
+        log("phase 15a: train the MoE family at Mixtral-8x7B's widths "
+            "through the flash kernels (group 4)")
+        add(moe_train_and_check(torch), MIXTRAL_SUFFIX)
+        tidy()
+        log("phase 15b: llama3-1b under the remat policies full, mlp and "
+            "dots")
+        add(remat_policies_and_check(torch))
+        tidy()
+        log("phase 15c: llama3-1b trained by Adafactor and by LoRA over a "
+            "frozen base; the trained adapters served")
+        add(adafactor_lora_and_check(torch))
+        tidy()
+        log(f"phase 15 {time.perf_counter() - t15:.1f} s")
+
     log(f"total {time.perf_counter() - t_all:.1f} s")
     if only:
         log(f"partial run (phases {sorted(only)}): no result line")
@@ -5915,6 +6738,9 @@ def main() -> None:
                  "flash_attention_fwd", "flash_attention_dq",
                  "flash_attention_dkv", "decode_attention"):
         meta[name + GEMMA] = meta[name]
+    for name in ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkv"):
+        meta[name + MIXTRAL_SUFFIX] = meta[name]
     meta["paged_prefill_append" + VERIFY] = meta["paged_prefill_append"]
     # no Pallas kernel: the card's counterpart of the reference's qdot
     meta["int8_proj"] = ("kubeflow_tpu_torch/csrc/int8_proj.cu",

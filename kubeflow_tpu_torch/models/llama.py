@@ -5,8 +5,11 @@ Parameters are a nested dict with every transformer block STACKED on a
 leading layers axis, the reference's layout: `params["blocks"]["wq"]`
 is `[L, D, n_q * hd]`. The forward is a Python loop over L where the
 reference scans; with `remat` (and gradients on) each block runs under
-`torch.utils.checkpoint`, the reference's "full" remat policy. No
-sharding: the port runs on one card.
+`torch.utils.checkpoint` with the reference's save policy
+(`remat_policy`): "full" keeps only the block's input, "mlp" also the
+outputs of the three MLP products, "dots" every product without batch
+dims (torch's selective activation checkpointing; see `_remat_context`).
+No sharding: the port runs on one card.
 
 Storage dtypes: serving stores the block matrices in the activation
 dtype (the reference casts them to it at every use) and the embedding,
@@ -17,11 +20,18 @@ reference does.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from kubeflow_tpu_torch.ops.attention import dot_product_attention
 from kubeflow_tpu_torch.ops.embedding import embed_lookup
@@ -52,20 +62,22 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16   # activation dtype
     param_dtype: torch.dtype = torch.float32  # training master weights
     remat: bool = True
-    # What a checkpointed block keeps: only "full" (block boundaries; the
-    # backward reruns the whole block forward) is ported. The reference's
-    # "mlp" and "dots" policies are ROADMAP work.
+    # What a checkpointed block keeps for its backward:
+    #   "full" - the block's input only; the backward reruns the block;
+    #   "mlp"  - also the outputs of the three MLP products (gate, up,
+    #            down), so the backward reruns the attention side;
+    #   "dots" - also every product without batch dims (the 2-D `mm`
+    #            each projection folds into); the backward reruns the
+    #            elementwise ops and the attention core.
+    # The flash forward is rerun under every policy: it launches outside
+    # the dispatcher, and the reference saves no kernel output either.
     remat_policy: str = "full"
 
     def __post_init__(self):
-        if self.remat_policy in ("mlp", "dots"):
-            raise NotImplementedError(
-                f"remat_policy {self.remat_policy!r} is not ported yet "
-                f"(ROADMAP Queue 1); use 'full'")
-        if self.remat_policy != "full":
+        if self.remat_policy not in REMAT_POLICIES:
             raise ValueError(
                 f"remat_policy {self.remat_policy!r} unknown "
-                f"(choose from ['dots', 'full', 'mlp'])")
+                f"(choose from {sorted(REMAT_POLICIES)})")
 
     @property
     def q_dim(self) -> int:
@@ -74,6 +86,40 @@ class LlamaConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+
+REMAT_POLICIES = ("full", "mlp", "dots")
+# the products a policy may save: a 3-D @ 2-D matmul folds into this 2-D
+# `mm`; batched products (`bmm`: the attention core) are never saved
+_DOTS = (torch.ops.aten.mm.default,)
+_in_mlp_product = False   # set while a block runs a product "mlp" saves
+
+
+@contextlib.contextmanager
+def _mlp_product():
+    """Marks the products inside as the "mlp" policy's save set (the
+    reference's `checkpoint_name` "mlp_gate" / "mlp_up" / "mlp_down")."""
+    global _in_mlp_product
+    prev, _in_mlp_product = _in_mlp_product, True
+    try:
+        yield
+    finally:
+        _in_mlp_product = prev
+
+
+def _save_policy(policy, ctx, op, *args, **kwargs):
+    if op in _DOTS and (policy == "dots" or _in_mlp_product):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(policy: str):
+    """`torch.utils.checkpoint`'s `context_fn` for `policy` ("full" saves
+    nothing inside the block: the default context)."""
+    if policy == "full":
+        return noop_context_fn
+    return functools.partial(create_selective_checkpoint_contexts,
+                             functools.partial(_save_policy, policy))
 
 
 LLAMA3_8B = LlamaConfig()
@@ -214,9 +260,15 @@ def _block(cfg: LlamaConfig, x, p, positions, inv_freq, kv_mask,
     x = _attention_half(cfg, x, p, positions, inv_freq, kv_mask,
                         contiguous_positions)
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
-    gate = torch.nn.functional.silu(h @ p["w_gate"].to(cfg.dtype))
-    ff = gate * (h @ p["w_up"].to(cfg.dtype))
-    return x + ff @ p["w_down"].to(cfg.dtype)
+    w_gate, w_up, w_down = (p[n].to(cfg.dtype)
+                            for n in ("w_gate", "w_up", "w_down"))
+    with _mlp_product():
+        gate = h @ w_gate
+        up = h @ w_up
+    ff = torch.nn.functional.silu(gate) * up
+    with _mlp_product():
+        down = ff @ w_down
+    return x + down
 
 
 def hidden(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
@@ -236,10 +288,12 @@ def hidden(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     # gradient per layer and sum them
     layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
     remat = cfg.remat and torch.is_grad_enabled()
+    context = _remat_context(cfg.remat_policy)
     for li in range(cfg.num_layers):
         p = {k: v[li] for k, v in layers.items()}
         args = (cfg, x, p, positions, inv_freq, kv_mask, contiguous)
-        x = (checkpoint(_block, *args, use_reentrant=False) if remat
+        x = (checkpoint(_block, *args, use_reentrant=False,
+                        context_fn=context) if remat
              else _block(*args))
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 

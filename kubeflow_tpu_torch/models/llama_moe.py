@@ -1,5 +1,6 @@
-"""Mixtral-style MoE transformer for serving: Llama attention and routed
-expert FFN blocks (counterpart: kubeflow_tpu/models/llama_moe.py).
+"""Mixtral-style MoE transformer, for serving and training: Llama
+attention and routed expert FFN blocks (counterpart:
+kubeflow_tpu/models/llama_moe.py).
 
 The dense Llama block's SwiGLU MLP is replaced by parallel/moe.py's
 top-k routed expert layer; the attention half is models/llama.py's
@@ -7,19 +8,27 @@ top-k routed expert layer; the attention half is models/llama.py's
 weights are stacked [L, E, ...] under "blocks" as in the reference's
 tree, so `bridge.from_jax` carries the reference's params across.
 
-Storage: the block matrices, the router among them (`llama.MATRICES`),
-in the activation dtype, since the reference casts them to it at every
-use; the embedding, head and norms in fp32. `init` draws the expert
-stacks a layer at a time (`llama.random_params`' `by_layer`): at
-Mixtral-8x7B's widths one layer's w_gate is 1.88 GB in fp32, the whole
-stack of 16 layers 30 GB.
+Storage: serving keeps the block matrices, the router among them
+(`llama.MATRICES`), in the activation dtype, since the reference casts
+them to it at every use, and the embedding, head and norms in fp32;
+training (`init(..., train=True)`) keeps every leaf in `param_dtype`
+(fp32 masters), cast at each use. `init` draws the expert stacks a
+layer at a time (`llama.random_params`' `by_layer`): at Mixtral-8x7B's
+widths one layer's w_gate is 1.88 GB in fp32, the whole stack of 16
+layers 30 GB.
 
-`apply` runs with gradients off and returns the logits and the mean
-aux loss. At the config's `capacity_factor` (1.25) an expert that
-overflows drops choices, rank-major, so logits are causal only while
-capacity holds; serving routes with capacity_factor E / k, where
-nothing can drop (serving/engine.py's `_moe_serving_mlp`). `loss_fn`
-and MoE training wait for the next slice (ROADMAP Queue 1).
+`apply` returns the logits and the mean aux loss, with gradients when
+the caller has them on (serving's teacher passes call it under
+`inference_mode`); with `remat` each block runs under
+`torch.utils.checkpoint`, the reference's full remat. Each stacked leaf
+is unbound once, so the backward stacks its layers' gradients once
+(indexing per layer would write a full-size zero gradient per layer:
+1.88 GB per expert stack and layer at Mixtral's widths). At the config's
+`capacity_factor` (1.25) an expert that overflows drops choices,
+rank-major, so logits are causal only while capacity holds; serving
+routes with capacity_factor E / k, where nothing can drop
+(serving/engine.py's `_moe_serving_mlp`). `loss_fn` is the trainer's:
+dense CE plus `aux_loss_weight` times the layers' mean aux loss.
 """
 
 from __future__ import annotations
@@ -27,11 +36,11 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.models.llama import (
     Params,
     _attention_half,
-    layer_params,
     leaf_dtype,
     random_params,
 )
@@ -112,14 +121,21 @@ def param_shapes(cfg: MoELlamaConfig) -> Params:
 
 
 def init(cfg: MoELlamaConfig, seed: int, device: torch.device | str, *,
+         train: bool = False,
          store: torch.device | str | None = None) -> Params:
-    """Random serving params from `seed` (`llama.random_params`: the
-    reference's recipe, not its values; parity tests convert the
-    reference's params with `bridge.from_jax` instead), the expert
-    stacks drawn a layer at a time. `store`: where the leaves drawn on
-    `device` live (a live reload stages them on the host)."""
-    return random_params(param_shapes(cfg), lambda n: leaf_dtype(cfg, n),
-                         seed, device, store, by_layer=EXPERT_STACKS)
+    """Random params from `seed` (`llama.random_params`: the reference's
+    recipe, not its values; parity tests convert the reference's params
+    with `bridge.from_jax` instead), the expert stacks drawn a layer at
+    a time. `train=True` keeps every leaf in `cfg.param_dtype` (the
+    trainer's masters); otherwise leaves take their serving dtype.
+    `store`: where the leaves drawn on `device` live (a live reload
+    stages them on the host)."""
+
+    def dtype_of(name):
+        return cfg.param_dtype if train else leaf_dtype(cfg, name)
+
+    return random_params(param_shapes(cfg), dtype_of, seed, device, store,
+                         by_layer=EXPERT_STACKS)
 
 
 def _block(cfg: MoELlamaConfig, x, p, positions, inv_freq):
@@ -134,7 +150,6 @@ def _block(cfg: MoELlamaConfig, x, p, positions, inv_freq):
     return x + y, aux
 
 
-@torch.no_grad()
 def apply(params: Params, cfg: MoELlamaConfig,
           tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward -> (logits [b, s, vocab] fp32, mean aux loss [])."""
@@ -145,9 +160,28 @@ def apply(params: Params, cfg: MoELlamaConfig,
                                 device=tokens.device)
     x = embed_lookup(params["embed"], tokens, cfg.dtype)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
+    remat = cfg.remat and torch.is_grad_enabled()
     for li in range(cfg.num_layers):
-        x, a = _block(cfg, x, layer_params(params, li), positions, inv_freq)
+        p = {k: v[li] for k, v in layers.items()}
+        args = (cfg, x, p, positions, inv_freq)
+        x, a = (checkpoint(_block, *args, use_reentrant=False) if remat
+                else _block(*args))
         aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x.float() @ params["lm_head"].float()
     return logits, aux / cfg.num_layers
+
+
+def loss_fn(cfg: MoELlamaConfig):
+    """Trainer-shaped loss: next-token CE plus the weighted load-balance
+    aux loss."""
+
+    from kubeflow_tpu_torch.train.trainer import cross_entropy_loss
+
+    def loss(params, tokens, targets, mask):
+        logits, aux = apply(params, cfg, tokens)
+        return (cross_entropy_loss(logits, targets, mask)
+                + cfg.aux_loss_weight * aux)
+
+    return loss

@@ -28,6 +28,17 @@ serving's capacity C = T. Every shape is static and nothing is read
 back to the host (no `.item()`, `nonzero` or boolean indexing), so a
 CUDA graph holds the layer.
 
+Gradients (training) are autograd's through the same index moves, and
+they are the reference's: the dispatch write's backward gathers each
+kept choice's row gradient back to its token, the combine's gives each
+expert row its tokens' weighted output gradient and each gate value
+the dot of its row with the output gradient. A dropped choice's gate
+value is replaced by 0 before the combine, so it gets no gradient, and
+its token's write went to the trash row, which no product reads, so
+that row's gradient is 0 and gives the token none. The router's
+gradient flows through the top-k values and through `mean_prob` in the
+aux loss; `frac` is a count and carries none.
+
 The expert products are `torch.bmm` over all E experts and C slots: at
 serving's capacity they compute E / k times the routed products and
 read every expert's weights each step, as the reference's einsums do.

@@ -6,8 +6,12 @@ reference's names and semantics over files PyTorch reads back with
 `torch.load(weights_only=True)`. Layout per step:
 
     <dir>/<step>/params.pt          flat name -> tensor ("blocks.wq", ...)
-    <dir>/<step>/opt_state.pt       {"count": n, "mu": {name: t},
-                                     "nu": {name: t}} (AdamW's moments)
+    <dir>/<step>/opt_state.pt       {"count": n, slot: {name: t}} for
+                                     each optimizer slot (AdamW: "mu",
+                                     "nu"; Adafactor: "v_row", "v_col",
+                                     "v", an empty tensor where a leaf
+                                     has no such slot), over the trained
+                                     leaves only (a frozen base: none)
     <dir>/<step>/run_metadata.json  the run config, for provenance
     <dir>/<step>/data_state.json    the data stream's position
     <dir>/<step>/COMMITTED          written once the step is durable
@@ -117,17 +121,19 @@ def _fsync_dir(path: str) -> None:
         os.close(fd)
 
 
-def _to_host(state: TrainState) -> tuple[dict, dict]:
-    """Host copies of a state's params and moments, by flat name."""
-    names = list(flatten(state.params))
+def _to_host(state: TrainState, optimizer) -> tuple[dict, dict]:
+    """Host copies of a state's params and optimizer slots, by flat
+    name (the slots' over the leaves `optimizer` trains)."""
+    names = [n for n, _ in optimizer.trained(state.params)]
 
     def host(t):
         return t.detach().to("cpu", copy=True)
 
     params = {n: host(t) for n, t in flatten(state.params).items()}
     opt = {"count": int(state.opt_state["count"]),
-           "mu": {n: host(t) for n, t in zip(names, state.opt_state["mu"])},
-           "nu": {n: host(t) for n, t in zip(names, state.opt_state["nu"])}}
+           **{slot: {n: host(t) for n, t in
+                     zip(names, state.opt_state[slot], strict=True)}
+              for slot in optimizer.slots}}
     return params, opt
 
 
@@ -213,7 +219,7 @@ class Checkpointer:
             return False
         meta = dict(self.run_metadata)
         meta["virtual_replicas"] = self.virtual_replicas
-        params, opt = _to_host(state)
+        params, opt = _to_host(state, self.trainer.optimizer)
         os.makedirs(step_dir)
         if self.config.enable_async:
             errors: list = []
@@ -378,15 +384,17 @@ class Checkpointer:
         step_dir = self.step_path(step)
         flat = _load(os.path.join(step_dir, PARAMS_FILE), device)
         opt = _load(os.path.join(step_dir, OPT_FILE), device)
-        names = list(flat)
-        if set(opt["mu"]) != set(names) or set(opt["nu"]) != set(names):
-            raise ValueError(
-                f"step {step}: optimizer state and params name different "
-                "leaves")
         params = unflatten(flat)
+        optimizer = self.trainer.optimizer
+        names = [n for n, _ in optimizer.trained(params)]
+        if any(set(opt.get(slot, ())) != set(names)
+               for slot in optimizer.slots):
+            raise ValueError(
+                f"step {step}: optimizer state and trained params name "
+                "different leaves (or another optimizer wrote it)")
         opt_state = {"count": int(opt["count"]),
-                     "mu": [opt["mu"][n] for n in names],
-                     "nu": [opt["nu"][n] for n in names]}
+                     **{slot: [opt[slot][n] for n in names]
+                        for slot in optimizer.slots}}
         return self.trainer.state_from(params, opt_state, step,
                                        device=device)
 

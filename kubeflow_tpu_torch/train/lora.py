@@ -1,15 +1,22 @@
-"""LoRA's adapter schema, for serving adapter packs (counterpart:
-kubeflow_tpu/train/lora.py).
+"""LoRA: low-rank adapters, for training with a frozen base and for
+serving adapter packs (counterpart: kubeflow_tpu/train/lora.py).
 
-Only what the port needs today: `LoraConfig` (rank, alpha, targets,
-the reference's checks), `_TARGET_DIMS` (each adaptable block weight's
-in and out widths, as attributes of the model config: llama and gemma
-share the schema) and `merge_lora`, which folds adapters into the block
-weights: the oracle the tests and the card's smoke run hold the
-unmerged adapter path to. Adapter trees keep the reference's layout,
-`{"blocks": {name: {"A": [L, d_in, r], "B": [L, r, d_out]}}}`. Training
-with adapters (the reference's `init_lora`, `lora_loss_fn` and frozen
-base) is not ported yet.
+`LoraConfig` (rank, alpha, targets, the reference's checks),
+`_TARGET_DIMS` (each adaptable block weight's in and out widths, as
+attributes of the model config: llama and gemma share the schema) and
+`merge_lora`, which folds adapters into the block weights: training's
+forward, and the oracle the tests and the card's smoke run hold the
+unmerged serving path to. Adapter trees keep the reference's layout,
+`{"blocks": {name: {"A": [L, d_in, r], "B": [L, r, d_out]}}}`.
+
+Training, as the reference trains: the train tree is `{"base": params,
+"lora": adapters}` (`lora_train_tree`), `lora_freeze_labels` gives the
+trainer's `freeze_labels` (the base: no gradient, no update, no
+optimizer state), and `lora_loss_fn` merges the detached base with the
+adapters each step before the model's loss, so autograd reaches only A
+and B. `init_lora` draws A from a fan-in-scaled truncated normal and
+sets B = 0, so step 0 is the base. The reference's `lora_logical_axes`
+is sharding, which waits for the distributed queue (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -74,3 +81,58 @@ def merge_lora(base: Params, adapters: Params,
     out = dict(base)
     out["blocks"] = blocks
     return out
+
+
+def init_lora(cfg, lora_cfg: LoraConfig, seed: int,
+              device: torch.device | str) -> Params:
+    """fp32 adapters from `seed` (a torch.Generator on `device`; the
+    reference's recipe, not its values): A truncated normal on [-2, 2]
+    times d_in**-0.5, B = 0, so the merged model starts exactly at the
+    base."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    L, r = cfg.num_layers, lora_cfg.rank
+    out: Params = {"blocks": {}}
+    for name in lora_cfg.targets:
+        d_in, d_out = (getattr(cfg, a) for a in _TARGET_DIMS[name])
+        a = torch.empty((L, d_in, r), dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(a, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        out["blocks"][name] = {
+            "A": a * d_in**-0.5,
+            "B": torch.zeros((L, r, d_out), dtype=torch.float32,
+                             device=device)}
+    return out
+
+
+def lora_train_tree(base: Params, adapters: Params) -> Params:
+    return {"base": base, "lora": adapters}
+
+
+def _label(tree: Params, label: str) -> Params:
+    return {k: _label(v, label) if isinstance(v, dict) else label
+            for k, v in tree.items()}
+
+
+def lora_freeze_labels(tree: Params) -> Params:
+    """The trainer's `freeze_labels` for a `lora_train_tree`: the base
+    frozen (no gradient, no update, no optimizer state), the adapters
+    trained."""
+    return {"base": _label(tree["base"], "freeze"),
+            "lora": _label(tree["lora"], "train")}
+
+
+def _detach(tree: Params) -> Params:
+    return {k: _detach(v) if isinstance(v, dict) else v.detach()
+            for k, v in tree.items()}
+
+
+def lora_loss_fn(model_loss_fn, lora_cfg: LoraConfig):
+    """`loss(params, tokens, targets, mask)` over the model's params ->
+    the same over the {"base", "lora"} train tree: the base detached
+    (the reference's stop_gradient), merged with the adapters, then the
+    model's loss."""
+
+    def loss(tree: Params, tokens, targets, mask):
+        merged = merge_lora(_detach(tree["base"]), tree["lora"], lora_cfg)
+        return model_loss_fn(merged, tokens, targets, mask)
+
+    return loss

@@ -2,12 +2,16 @@
 
 Model-agnostic, as the reference's: it takes llama (`llama.apply`, or
 chunked CE over `llama.hidden` through `loss_fn`) and gemma
-(`gemma.apply`, dense CE over the tied head) the same way. The
-reference jits a sharded step over a device mesh; the port runs one
-card, eagerly: the loss and its gradients through autograd (the model's
-attention through the flash kernels' `autograd.Function`), then an AdamW
-update written out to match optax's, in place. There is no mesh, so no
-sharding rules. Checkpoints: train/checkpoint.py.
+(`gemma.apply`, dense CE over the tied head) and the MoE family
+(`llama_moe.loss_fn`: dense CE plus the weighted load-balance loss) the
+same way. The reference jits a sharded step over a device mesh; the
+port runs one card, eagerly: the loss and its gradients through autograd
+(the model's attention through the flash kernels' `autograd.Function`),
+then an AdamW or Adafactor update written out to match optax's, in
+place. `freeze_labels` (LoRA's frozen base, train/lora.py) is the
+reference's multi_transform: frozen leaves are no autograd leaves and
+have no optimizer state. There is no mesh, so no sharding rules.
+Checkpoints: train/checkpoint.py.
 
 The obs bridge, as the reference's: each step is a `train.step` span
 and a `step` phase of a `PhaseProfiler(phases=TRAIN_PHASES)` (the time
@@ -26,7 +30,8 @@ optax parity, where PyTorch's defaults differ:
 - `clip_by_global_norm` scales by max_norm / norm only when norm >=
   max_norm (`torch.nn.utils.clip_grad_norm_` divides by norm + 1e-6);
 - adamw decays every leaf, norms included, with eps 1e-8 and no
-  eps_root.
+  eps_root; adafactor's weight decay is not scaled by the learning rate
+  (optax adds it after the schedule).
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import math
 import time
 from typing import Callable
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -139,7 +145,8 @@ class TrainConfig:
     # microbatches and average their grads (mask-weighted, fp32
     # accumulator) before ONE optimizer update. 1 = off.
     grad_accum: int = 1
-    # "adamw" only; the reference's "adafactor" is ROADMAP work.
+    # "adamw" (two fp32 moments mirroring the params) or "adafactor"
+    # (a factored second moment: a row and a column vector a matrix)
     optimizer: str = "adamw"
     # ZeRO-style partitioning of the optimizer state over the data axis.
     # On one device there is no data axis, so this is an exact no-op, as
@@ -172,83 +179,201 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
     return schedule
 
 
-class AdamW:
-    """optax.chain(clip_by_global_norm(grad_clip), adamw(schedule, b1,
-    b2, eps=1e-8, weight_decay)) over a nested dict of tensors, updated
-    in place. State: fp32 moments mirroring the params and one update
-    count."""
+def _named_leaves(tree: Params, prefix: str = "") -> list:
+    """(dotted name, leaf) pairs of a nested dict, in insertion order."""
+    out = []
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        out.extend(_named_leaves(v, name + ".") if isinstance(v, dict)
+                   else [(name, v)])
+    return out
 
-    eps = 1e-8
 
-    def __init__(self, tc: TrainConfig):
+class _Optimizer:
+    """optax.chain(clip_by_global_norm(grad_clip), <inner>), and with
+    `freeze_labels` the reference's multi_transform({"train": that chain,
+    "freeze": set_to_zero()}). State: `{"count": n, slot: [tensor per
+    trained leaf]}` for each of the optimizer's `slots`; frozen leaves
+    have no state, get no update and take no part in the clip's norm
+    (multi_transform hands each group only its own leaves)."""
+
+    slots: tuple[str, ...] = ()
+
+    def __init__(self, tc: TrainConfig, freeze_labels: Params | None = None):
         self.tc = tc
+        self.freeze_labels = freeze_labels
         self.schedule = warmup_cosine_decay_schedule(
             init_value=0.0, peak_value=tc.learning_rate,
             warmup_steps=tc.warmup_steps,
             decay_steps=max(tc.total_steps, tc.warmup_steps + 1),
             end_value=tc.learning_rate * 0.1)
+        if freeze_labels is not None:
+            bad = {lab for _, lab in _named_leaves(freeze_labels)} \
+                - {"train", "freeze"}
+            if bad:
+                raise ValueError(f"freeze_labels: unknown labels "
+                                 f"{sorted(bad)} (train | freeze)")
+
+    def trained(self, params: Params) -> list[tuple[str, torch.Tensor]]:
+        """(name, leaf) of every leaf the optimizer updates, in order."""
+        named = _named_leaves(params)
+        if self.freeze_labels is None:
+            return named
+        labels = _named_leaves(self.freeze_labels)
+        if [n for n, _ in named] != [n for n, _ in labels]:
+            raise ValueError("freeze_labels and params name different "
+                             "leaves")
+        return [nl for nl, (_, lab) in zip(named, labels) if lab == "train"]
 
     def init(self, params: Params) -> dict:
-        leaves = _leaves(params)
-        return {"count": 0,
-                "mu": [torch.zeros_like(p) for p in leaves],
-                "nu": [torch.zeros_like(p) for p in leaves]}
+        leaves = [p for _, p in self.trained(params)]
+        return {"count": 0, **{slot: [self._zeros(slot, p) for p in leaves]
+                               for slot in self.slots}}
+
+    def _zeros(self, slot: str, p: torch.Tensor) -> torch.Tensor:
+        return torch.zeros_like(p)
 
     @torch.no_grad()
     def update(self, grads: list, opt_state: dict, params: Params) -> None:
         """Apply one update to `params` and `opt_state` in place; `grads`
-        are in the order of `_leaves(params)`."""
-        tc = self.tc
+        are in the order of the trained leaves (`trained`)."""
         norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
         # optax: where(norm < max, g, g / norm * max)
-        clip = torch.where(norm < tc.grad_clip, torch.ones_like(norm),
-                           tc.grad_clip / norm)
+        clip = torch.where(norm < self.tc.grad_clip, torch.ones_like(norm),
+                           self.tc.grad_clip / norm)
         count = opt_state["count"]
         lr = self.schedule(count)
-        count += 1
-        bc1 = 1 - tc.b1**count
-        bc2 = 1 - tc.b2**count
-        for p, g, mu, nu in zip(_leaves(params), grads, opt_state["mu"],
-                                opt_state["nu"]):
-            g = g * clip
-            mu.mul_(tc.b1).add_(g, alpha=1 - tc.b1)
-            nu.mul_(tc.b2).addcmul_(g, g, value=1 - tc.b2)
-            u = (mu / bc1) / ((nu / bc2).sqrt() + self.eps)
-            u.add_(p, alpha=tc.weight_decay)
-            p.add_(u, alpha=-lr)
-        opt_state["count"] = count
+        leaves = [p for _, p in self.trained(params)]
+        for i, (p, g) in enumerate(zip(leaves, grads, strict=True)):
+            self._leaf(p, g * clip, [opt_state[s][i] for s in self.slots],
+                       count, lr)
+        opt_state["count"] = count + 1
+
+
+class AdamW(_Optimizer):
+    """adamw(schedule, b1, b2, eps=1e-8, weight_decay) after the clip.
+    State: fp32 moments `mu` and `nu`."""
+
+    slots = ("mu", "nu")
+    eps = 1e-8
+
+    def _leaf(self, p, g, state, count, lr):
+        tc = self.tc
+        mu, nu = state
+        mu.mul_(tc.b1).add_(g, alpha=1 - tc.b1)
+        nu.mul_(tc.b2).addcmul_(g, g, value=1 - tc.b2)
+        # in place where it can be: at Mixtral's widths one expert stack
+        # is 3.8 GB in fp32, and each temporary is one more
+        u = (nu / (1 - tc.b2 ** (count + 1))).sqrt_().add_(self.eps)
+        u = (mu / (1 - tc.b1 ** (count + 1))).div_(u)
+        u.add_(p, alpha=tc.weight_decay)
+        p.add_(u, alpha=-lr)
+
+
+def _factored_dims(shape, min_dim_size_to_factor: int = 128):
+    """optax's rule: the two largest axes (second-largest first) when the
+    second-largest has at least `min_dim_size_to_factor`, else None."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor(_Optimizer):
+    """optax 0.2.6's adafactor(learning_rate=schedule,
+    weight_decay_rate=weight_decay or None) after the clip, at its
+    defaults, in its order: scale_by_factored_rms (decay 0.8, eps 1e-30,
+    factored where two axes have >= 128), clip_by_block_rms(1.0), the
+    schedule, scale_by_param_block_rms (min 1e-3), add_decayed_weights
+    (not scaled by the learning rate), negate. No momentum. State per
+    trained leaf: `v_row` and `v_col` (the factored second moment, the
+    leaf's shape less its largest or second-largest axis) or `v` (the
+    whole second moment); the slots a leaf does not use hold an empty
+    tensor. One count serves the factored rms and the schedule, which
+    optax counts apart in step."""
+
+    slots = ("v_row", "v_col", "v")
+    decay_rate = 0.8
+    eps = 1e-30
+    clipping_threshold = 1.0
+    min_scale = 1e-3
+
+    def _zeros(self, slot, p):
+        dims = _factored_dims(p.shape)
+        if (dims is None) != (slot == "v"):
+            return p.new_zeros(0)
+        if slot == "v":
+            return torch.zeros_like(p)
+        d1, d0 = dims
+        shape = list(p.shape)
+        del shape[d0 if slot == "v_row" else d1]
+        return p.new_zeros(shape)
+
+    def _leaf(self, p, g, state, count, lr):
+        v_row, v_col, v = state
+        # optax evaluates the decay in fp32: 1 - (count + 1)^-0.8
+        decay = np.float32(1) - np.float32(count + 1) ** np.float32(
+            -self.decay_rate)
+        keep = float(np.float32(1) - decay)
+        decay = float(decay)
+        g2 = g * g + self.eps
+        dims = _factored_dims(p.shape)
+        if dims is not None:
+            d1, d0 = dims
+            v_row.mul_(decay).add_(g2.mean(d0) * keep)
+            v_col.mul_(decay).add_(g2.mean(d1) * keep)
+            row_mean = v_row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
+            u = (g * (v_row / row_mean).rsqrt().unsqueeze(d0)
+                 * v_col.rsqrt().unsqueeze(d1))
+        else:
+            v.mul_(decay).add_(g2 * keep)
+            u = g * v.rsqrt()
+        del g2
+        u.div_(torch.clamp(u.square().mean().sqrt()
+                           / self.clipping_threshold, min=1.0))
+        u.mul_(float(np.float32(lr)))
+        rms = p.square().mean().sqrt()
+        u.mul_(torch.where(rms <= self.min_scale,
+                           torch.full_like(rms, self.min_scale), rms))
+        if self.tc.weight_decay:
+            u.add_(p, alpha=self.tc.weight_decay)
+        p.sub_(u)
 
 
 def make_optimizer(tc: TrainConfig, freeze_labels: Params | None = None
-                   ) -> AdamW:
-    """AdamW with warmup-cosine, as the reference's optax chain."""
-    if freeze_labels is not None:
-        raise NotImplementedError(
-            "freeze_labels (LoRA / frozen subtrees) is not ported yet "
-            "(ROADMAP Queue 1)")
+                   ) -> _Optimizer:
+    """AdamW or Adafactor with warmup-cosine after a global-norm clip, as
+    the reference's optax chain. `freeze_labels` (a params-shaped tree of
+    "train" / "freeze") gives the frozen leaves zero updates and no
+    optimizer state: for LoRA that empty state is the point."""
+    if tc.optimizer == "adamw":
+        return AdamW(tc, freeze_labels)
     if tc.optimizer == "adafactor":
-        raise NotImplementedError(
-            "optimizer 'adafactor' is not ported yet (ROADMAP Queue 1); "
-            "use 'adamw'")
-    if tc.optimizer != "adamw":
-        raise ValueError(f"unknown optimizer {tc.optimizer!r} "
-                         "(adamw | adafactor)")
-    return AdamW(tc)
+        return Adafactor(tc, freeze_labels)
+    raise ValueError(f"unknown optimizer {tc.optimizer!r} "
+                     "(adamw | adafactor)")
 
 
-def _prep(tree: Params, device: torch.device) -> Params:
-    """Params on `device` as autograd leaves."""
-    return {k: _prep(v, device) if isinstance(v, dict)
-            else v.detach().to(device).requires_grad_(True)
-            for k, v in tree.items()}
+def _prep(tree: Params, device: torch.device,
+          labels: Params | None = None) -> Params:
+    """Params on `device`; the leaves labelled "train" (all, without
+    `labels`) become autograd leaves, the frozen ones stay plain tensors,
+    so autograd computes no gradient for them."""
+    out = {}
+    for k, v in tree.items():
+        lab = None if labels is None else labels[k]
+        if isinstance(v, dict):
+            out[k] = _prep(v, device, lab)
+        else:
+            out[k] = v.detach().to(device).requires_grad_(lab != "freeze")
+    return out
 
 
 def _leaves(params: Params) -> list:
     """Leaves of a nested dict, in insertion order."""
-    out = []
-    for v in params.values():
-        out.extend(_leaves(v) if isinstance(v, dict) else [v])
-    return out
+    return [v for _, v in _named_leaves(params)]
 
 
 class TrainState:
@@ -268,7 +393,10 @@ class Trainer:
     (moved to `device`, which defaults to the CUDA card). `loss_fn(params,
     tokens, targets, mask) -> scalar` overrides the default apply_fn →
     cross-entropy pipeline, e.g. `chunked_cross_entropy_from_hidden`
-    over `llama.hidden`. `tracer` / `registry` receive the obs bridge's
+    over `llama.hidden`. `freeze_labels` (a params-shaped "train" /
+    "freeze" tree) freezes a subtree: no gradient, no update, no
+    optimizer state (see `make_optimizer`; LoRA's
+    `lora_freeze_labels`). `tracer` / `registry` receive the obs bridge's
     spans and families (default: `obs.DEFAULT_TRACER` and the process's
     default registry; several trainers in one process share the
     series)."""
@@ -277,13 +405,15 @@ class Trainer:
                  train_config: TrainConfig = TrainConfig(),
                  loss_fn: Callable | None = None,
                  device: torch.device | str | None = None, *,
+                 freeze_labels: Params | None = None,
                  tracer=None, registry=None):
         self.apply_fn = apply_fn
         self.init_fn = init_fn
         self.tc = train_config
         self.loss_fn = loss_fn
         self.device = resolve_device(device)
-        self.optimizer = make_optimizer(train_config)
+        self.freeze_labels = freeze_labels
+        self.optimizer = make_optimizer(train_config, freeze_labels)
         self._n_params: int | None = None
         self._opt_bytes: int | None = None
         self.tracer = tracer if tracer is not None else obs.DEFAULT_TRACER
@@ -342,27 +472,33 @@ class Trainer:
         """Fresh optimizer state around existing params (fine-tuning).
         The params are moved to the device and become autograd leaves;
         tensors already there are used as they are, not copied."""
-        params = _prep(params, self.device)
+        params = _prep(params, self.device, self.freeze_labels)
         return self.state_from(params, self.optimizer.init(params), 0)
 
     def state_from(self, params: Params, opt_state: dict, step: int, *,
                    device: torch.device | str | None = None) -> TrainState:
         """A state around existing params and optimizer state (a restored
-        checkpoint: `{"count", "mu", "nu"}`, the moments in the order of
-        the params' leaves), on `device` (default: the trainer's). As in
-        `init_from_params`, tensors already there are not copied."""
+        checkpoint: `{"count", slot: [...]}` for the optimizer's slots,
+        AdamW's `mu` and `nu` or Adafactor's `v_row`, `v_col` and `v`,
+        each in the order of the trained leaves), on `device` (default:
+        the trainer's). As in `init_from_params`, tensors already there
+        are not copied."""
         device = self.device if device is None else torch.device(device)
-        params = _prep(params, device)
-        opt_state = {"count": int(opt_state["count"]),
-                     "mu": [t.to(device) for t in opt_state["mu"]],
-                     "nu": [t.to(device) for t in opt_state["nu"]]}
+        params = _prep(params, device, self.freeze_labels)
+        n_trained = len(self.optimizer.trained(params))
+        slots = {slot: [t.to(device) for t in opt_state[slot]]
+                 for slot in self.optimizer.slots}
+        if any(len(v) != n_trained for v in slots.values()):
+            raise ValueError(f"optimizer state for {n_trained} trained "
+                             "leaves expected")
+        opt_state = {"count": int(opt_state["count"]), **slots}
         self._n_params = sum(p.numel() for p in _leaves(params))
         self._opt_bytes = sum(t.numel() * t.element_size()
-                              for t in opt_state["mu"] + opt_state["nu"])
+                              for v in slots.values() for t in v)
         return TrainState(params, opt_state, int(step))
 
     def _value_and_grad(self, params, tokens, targets, mask):
-        leaves = _leaves(params)
+        leaves = [p for _, p in self.optimizer.trained(params)]
         loss = self._loss(params, tokens, targets, mask)
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), grads
@@ -407,8 +543,9 @@ class Trainer:
             # Each micro loss is a masked MEAN, so grads and losses are
             # re-weighted by the micro's mask mass: the full-batch step up
             # to summation order.
+            trained = [p for _, p in self.optimizer.trained(state.params)]
             gsum = [torch.zeros_like(p, dtype=torch.float32)
-                    for p in _leaves(state.params)]
+                    for p in trained]
             lsum = torch.zeros((), device=self.device)
             wsum = torch.zeros((), device=self.device)
             for toks, tgts, m in zip(tokens.chunk(acc), targets.chunk(acc),
@@ -421,7 +558,7 @@ class Trainer:
                 wsum = wsum + w
             denom = torch.clamp(wsum, min=1.0)
             grads = [(g / denom).to(p.dtype)
-                     for g, p in zip(gsum, _leaves(state.params))]
+                     for g, p in zip(gsum, trained)]
             loss = lsum / denom
         self.optimizer.update(grads, state.opt_state, state.params)
         state.step += 1
@@ -429,8 +566,8 @@ class Trainer:
 
     @property
     def param_count(self) -> int:
-        """Total trainable parameter count (the N in 6·N·T); known once
-        a state was built."""
+        """Total parameter count, frozen leaves included, as the
+        reference's (the N in 6·N·T); known once a state was built."""
         if self._n_params is None:
             raise RuntimeError("param_count is known after init() or "
                                "init_from_params()")
@@ -441,8 +578,8 @@ class Trainer:
         return estimate_step_flops(self.param_count, batch * seq)
 
     def opt_state_bytes(self) -> int:
-        """Optimizer-state bytes (both moments; known once a state was
-        built), all of it on the one device."""
+        """Optimizer-state bytes (every slot of every trained leaf; known
+        once a state was built), all of it on the one device."""
         if self._opt_bytes is None:
             raise RuntimeError("opt_state_bytes is known after init() or "
                                "init_from_params()")

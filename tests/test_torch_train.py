@@ -25,6 +25,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch.utils.checkpoint import CheckpointPolicy
 
 from kubeflow_tpu.models import llama as jllama
 from kubeflow_tpu.parallel import MeshSpec, create_mesh
@@ -236,17 +237,55 @@ def test_loss_falls():
     assert state.step == 5
 
 
+def _adafactor_state():
+    """Adafactor's state: factored (v_row, v_col) for a leaf with two axes
+    of at least 128, whole (v) for a small one."""
+    opt = ttrain.make_optimizer(ttrain.TrainConfig(optimizer="adafactor"))
+    state = opt.init({"w": torch.zeros(256, 128), "b": torch.zeros(4)})
+    got = {s: [tuple(t.shape) for t in state[s]]
+           for s in ("v_row", "v_col", "v")}
+    return got, {"v_row": [(128,), (0,)], "v_col": [(256,), (0,)],
+                 "v": [(0,), (4,)]}
+
+
+def _frozen_leaf():
+    """A frozen leaf has no optimizer state and is no autograd leaf."""
+    labels = {"a": "train", "b": "freeze"}
+    opt = ttrain.make_optimizer(ttrain.TrainConfig(), labels)
+    params = {"a": torch.zeros(3), "b": torch.zeros(5)}
+    state = opt.init(params)
+    prepped = ttrain._prep(params, torch.device("cpu"), labels)
+    got = ([tuple(t.shape) for t in state["mu"] + state["nu"]],
+           {k: v.requires_grad for k, v in prepped.items()})
+    return got, ([(3,), (3,)], {"a": True, "b": False})
+
+
+def _mlp_policy():
+    """Under "mlp" a block saves the 2-D products inside the MLP and
+    recomputes the others."""
+    cfg = dataclasses.replace(tllama.LLAMA_TINY, remat_policy="mlp")
+    mm = torch.ops.aten.mm.default
+
+    def decide():
+        return tllama._save_policy(cfg.remat_policy, None, mm)
+
+    outside = decide()
+    with tllama._mlp_product():
+        inside = decide()
+    return (outside, inside), (CheckpointPolicy.PREFER_RECOMPUTE,
+                               CheckpointPolicy.MUST_SAVE)
+
+
 @pytest.mark.parametrize("build,msg", [
-    (lambda: ttrain.make_optimizer(ttrain.TrainConfig(
-        optimizer="adafactor")), "adafactor"),
-    (lambda: ttrain.make_optimizer(ttrain.TrainConfig(), {"a": "train"}),
-     "freeze_labels"),
-    (lambda: dataclasses.replace(tllama.LLAMA_TINY, remat_policy="mlp"),
-     "remat_policy 'mlp'"),
+    (lambda: _adafactor_state(), "adafactor"),
+    (lambda: _frozen_leaf(), "freeze_labels"),
+    (lambda: _mlp_policy(), "remat_policy 'mlp'"),
 ])
 def test_unported_options_raise(build, msg):
-    with pytest.raises(NotImplementedError, match=msg):
-        build()
+    """The options the port once refused by name (NotImplementedError)
+    now build and do what they name."""
+    got, want = build()
+    assert got == want, msg
 
 
 def test_trainer_errors():

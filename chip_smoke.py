@@ -465,11 +465,35 @@ Phases, each fatal on failure (exit code 1, no result line):
              moments), the trained adapters then served as a pack
              through the continuous app (exact paged launches, logprobs
              and argmax against the merged model).
+Phase 16:    single-card models and the data path. (a) The data story
+             at llama3-1b: `tools.prepare_data` on a fixed list of the
+             repository's markdown that its work does not rewrite
+             (CORPUS_FILES; BPE at vocab 1024, KTSH shards of ~65,536
+             tokens under build/phase16/, the last held out), the native
+             word encoder's ids against the Python loop's over every
+             word of the corpus (both rates), the native
+             loader's first 16 batches against PyTokenLoader's and a
+             resume ticket, then phase 4's configuration trained 8 steps
+             from the native loader and 4 from PyTokenLoader at its
+             ticket, each batch through the loader's `next_batch_on`
+             (exact flash launches, the loss falling, no batch
+             repeated, host_gap for each loader), and `tools.eval_ppl`'s
+             function on the held-out shard at seq 2048 for the trained
+             and the initial weights (16 flash forwards a batch, no
+             backward; the trained perplexity lower). (b) ViT-B/16 at
+             full width and depth: loss and every gradient leaf on the
+             card against the CPU at fp32 after one step, then bf16 at
+             batch 64 through the Trainer (images/s, StepTimer, MFU by
+             bench.py's accounting, peak memory, time to the first step,
+             the loss falling on a fixed synthetic batch, no kernel
+             launched). (c) The MNIST MLP smoke (test accuracy >= 0.90),
+             its images/s at bench_mnist's 200 steps x 256, and a TPE
+             sweep of the learning rate over 8 shortened smokes.
 Phase 3 also times the tracer: the same cold requests twice with the
 app's tracer detached and twice attached, host ms a decode step each.
 Then prints the `kernels` JSON line (launches: the paged kernels' over
 phases 3, 3b, 3c, 8, 9's spec-off pass, 10, 11, 13, 14 and 15c, each
-other kernel's over its phases (4, 8, 15b and 15c for flash, 5, 8, 9
+other kernel's over its phases (4, 8, 15b, 15c and 16a for flash, 5, 8, 9
 and 14 for dense decode); each kernel
 again as `<name>@gemma-2b`, timed in phase 2 at gemma-2b's shapes and
 counted over phase 6, or phase 7 for the flash kernels; the flash
@@ -6464,6 +6488,528 @@ def adafactor_lora_and_check(torch):
     return counts
 
 
+# -- phase 16: the data story, ViT-B/16, MNIST and a local HPO sweep ---------
+
+DATA_DIR = os.path.join(ROOT, "build", "phase16")
+DATA_VOCAB = 1024                  # the BPE fitted on CORPUS_FILES
+DATA_SHARD_TOKENS = 65536
+DATA_STEPS = 8                     # counted, from the native loader
+DATA_PY_STEPS = 4                  # then from PyTokenLoader at its ticket
+LOADER_BATCHES = 16                # compared native against Python
+RESUME_AT = 8
+# ViT-B/16 on the card against the CPU at fp32, batch 4, after one step
+# so the head is not zero: loss relative error, and each gradient leaf's
+# relative L2 error (fp32 cuBLAS with TF32 off against the CPU's fp32
+# GEMMs: other summation orders over up to 3072 terms, ~1e-6 relative;
+# the limits sit well above that and far below any wrong term). The key
+# bias's exact gradient is 0 (softmax over keys is blind to it): both
+# sides give rounding noise, held under VIT_BK_TOL of the query bias's.
+VIT_CHECK_B = 4
+VIT_LOSS_TOL = 1e-4
+VIT_GRAD_TOL = 1e-3
+VIT_BK_TOL = 1e-3
+VIT_B, VIT_WARM, VIT_STEPS = 64, 2, 10     # bench.py's vit-b16 cell
+MNIST_ACC_GATE = 0.90              # bench.py's gate on the smoke
+MNIST_BENCH_STEPS, MNIST_BENCH_B = 200, 256
+HPO_TRIALS, HPO_SMOKE_STEPS = 8, 30
+
+
+# Phase 16a's corpus: markdown of the repository that its work does not
+# rewrite (the project's documents and the survey of the system it was
+# modelled on), so every run tokenizes, shards and trains on the same
+# text. 12 files, 244,554 bytes; the log prints their sha256.
+CORPUS_FILES = ("BASELINE.md", "PAPER.md", "PAPERS.md", "SNIPPETS.md",
+                "SURVEY.md", "docs/architecture.md", "docs/compute-guide.md",
+                "docs/migration.md", "docs/observability.md",
+                "docs/operator-guide.md", "docs/perf-notes.md",
+                "docs/user-guide.md")
+
+
+def _corpus_paths():
+    return [os.path.join(ROOT, f) for f in CORPUS_FILES]
+
+
+def data_story_and_check(torch):
+    """Phase 16a: prepare_data on CORPUS_FILES (BPE at vocab 1024,
+    KTSH shards, the last held out), the native word encoder against the
+    Python loop over every word of the corpus, the native loader against
+    PyTokenLoader and a resume ticket, llama3-1b at phase 4's
+    configuration trained from the shards (8 steps native, then 4 from
+    PyTokenLoader at its ticket), and eval_ppl's function on the held-out
+    shard at seq 2048 for the trained and the initial weights.
+    -> flash launches."""
+    import shutil
+
+    import numpy as np
+
+    from kubeflow_tpu_torch.data import bpe
+    from kubeflow_tpu_torch.data import loader as dl
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.obs.metrics import Registry
+    from kubeflow_tpu_torch.ops import attention
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.tools import eval_ppl, prepare_data
+    from kubeflow_tpu_torch.train import TrainConfig, Trainer
+
+    dev = torch.device("cuda")
+    if not dl.native_available():
+        fail(f"phase 16a: the native loader did not build: "
+             f"{dl.native_error()}")
+    if bpe._load_bpe_lib() is None:
+        fail(f"phase 16a: the native BPE encoder did not build: "
+             f"{bpe.native_error()}")
+    import hashlib
+
+    paths = _corpus_paths()
+    digest = hashlib.sha256()
+    for p in paths:
+        with open(p, "rb") as f:
+            digest.update(f.read())
+    n_bytes = sum(os.path.getsize(p) for p in paths)
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    summary = prepare_data.prepare(paths, DATA_DIR, vocab_size=DATA_VOCAB,
+                                   shard_tokens=DATA_SHARD_TOKENS)
+    prep_s = time.perf_counter() - t0
+    shards = summary["shard_paths"]
+    sizes = [(os.path.getsize(p) - 16) // 4 for p in shards]
+    log(f"  prepare_data: {len(paths)} files, {n_bytes} bytes (sha256 "
+        f"{digest.hexdigest()[:16]}) -> "
+        f"{summary['tokens']} tokens at vocab {summary['vocab_size']}, "
+        f"shards of {sizes} tokens, {prep_s:.1f} s (tokenizer training "
+        f"and encoding, host)")
+    # the last shard held out, with the one before it when the last
+    # holds fewer than two evaluation batches of windows
+    n_val = 1 if (sizes[-1] - 1) // FLASH_S >= 2 * FLASH_B else 2
+    val, train = shards[-n_val:], shards[:-n_val]
+    if not train:
+        fail(f"phase 16a: {len(shards)} shards leave none to train on")
+
+    # the two word encoders over every word of the corpus, no cache:
+    # equal ids, and those of the shards, which encode() wrote
+    tok = bpe.Tokenizer.load(summary["tokenizer"])
+    if not tok.warm_native():
+        fail(f"phase 16a: encode does not take the native encoder: "
+             f"{bpe.native_error()}")
+    words = []
+    for p in paths:
+        with open(p, encoding="utf-8", errors="replace") as f:
+            words.append([bpe._to_word_bytes(w)
+                          for w in bpe._split_words(f.read())])
+    encoders = {"Python": lambda w: bpe._encode_word_py(tok._ranks, w),
+                "native": tok._ranks_id.native.encode}
+    ids, rate = {}, {}
+    for name, encode_word in encoders.items():
+        t0 = time.perf_counter()
+        out = []
+        for ws in words:
+            for w in ws:
+                out.extend(encode_word(w))
+            out.append(tok.eos_id)
+        rate[name] = len(out) / (time.perf_counter() - t0)
+        ids[name] = out
+    stored = np.concatenate([np.fromfile(p, np.int32, offset=16)
+                             for p in shards])
+    same_ids = ids["native"] == ids["Python"]
+    log(f"  encode, word by word without the cache (host): Python "
+        f"{rate['Python']:.0f} tokens/s, native {rate['native']:.0f} "
+        f"tokens/s ({rate['native'] / rate['Python']:.2f}x); ids equal "
+        f"{same_ids} ({len(ids['native'])} tokens); the shards hold them "
+        f"{np.array_equal(stored, ids['native'])}")
+    if not same_ids or not np.array_equal(stored, ids["native"]):
+        fail("phase 16a: the native encoder's ids differ from the Python "
+             "encoder's or from the shards'")
+
+    # the loaders: the same stream, and a resume ticket continues it
+    kw = dict(batch=FLASH_B, seq=FLASH_S, seed=0)
+
+    def timed_batches(loader):
+        out, secs = [], []
+        for i in range(LOADER_BATCHES):
+            if i == RESUME_AT:
+                saved = loader.state_dict()   # what a checkpoint keeps
+            t0 = time.perf_counter()
+            out.append(loader.next_batch())
+            secs.append(time.perf_counter() - t0)
+        return out, secs, saved
+
+    with dl.open_loader(train, **kw) as nat:
+        if type(nat) is not dl.TokenShardLoader:
+            fail(f"phase 16a: open_loader gave {type(nat).__name__}")
+        stream, nat_s, saved = timed_batches(nat)
+        py_stream, py_s, _ = timed_batches(dl.PyTokenLoader(train, **kw))
+        same = all(np.array_equal(a, b) for a, b in zip(stream, py_stream))
+        windows = nat.n_windows
+    with dl.TokenShardLoader(train, start_ticket=saved["ticket"],
+                             **kw) as nat:
+        resumed = all(np.array_equal(nat.next_batch(), b)
+                      for b in stream[RESUME_AT:])
+    log(f"  loaders over {len(train)} training shards ({windows} windows "
+        f"of {FLASH_S + 1}): the first {LOADER_BATCHES} batches native == "
+        f"Python {same}; reopened at the saved ticket {saved['ticket']}, "
+        f"the stream continues {resumed}; next_batch (host) native first "
+        f"{nat_s[0] * 1e3:.3f} ms, then median "
+        f"{np.median(nat_s[1:]) * 1e3:.4f} ms; Python first "
+        f"{py_s[0] * 1e3:.3f} ms, then median "
+        f"{np.median(py_s[1:]) * 1e3:.4f} ms")
+    if not (same and resumed):
+        fail("phase 16a: the native loader's stream differs from "
+             "PyTokenLoader's, or its resume ticket does not continue it")
+
+    # llama3-1b at phase 4's configuration, from the shards
+    cfg = llama.LLAMA3_1B
+    trainer = Trainer(apply_fn=lambda p, t: llama.apply(p, cfg, t),
+                      init_fn=lambda seed: llama.init(cfg, seed, dev,
+                                                      train=True),
+                      train_config=TrainConfig(warmup_steps=10,
+                                               total_steps=1000),
+                      loss_fn=_chunked_loss(cfg), device=dev,
+                      registry=Registry())
+    state = trainer.init(0)
+    nat = dl.open_loader(train, **kw)
+    py = dl.PyTokenLoader(train, start_ticket=DATA_STEPS, **kw)
+    reset_launch_counts()
+    attention.reset_impl_counts()
+    losses = []
+    steps = DATA_STEPS + DATA_PY_STEPS
+    pin_s = []
+    for i in range(steps):
+        t_pin = time.perf_counter()
+        batch = (nat if i < DATA_STEPS else py).next_batch_on(dev)
+        pin_s.append(time.perf_counter() - t_pin)
+        state, loss = trainer.step(state, batch[:, :-1], batch[:, 1:])
+        losses.append(loss)
+        if i == 0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        elif i == DATA_STEPS - 1:
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t0) / (DATA_STEPS - 1)
+    torch.cuda.synchronize()
+    nat.close()
+    counts, impl = launch_counts(), attention.impl_counts()
+    # the batches the steps took, read again on the host (the native
+    # stream equals PyTokenLoader's, checked above), so that no copy
+    # back from the card synchronizes the steps
+    with dl.PyTokenLoader(train, **kw) as again:
+        seen = {again.next_batch().tobytes() for _ in range(steps)}
+    # next_batch_on alone, the card idle: the input pipeline's own host
+    # cost, apart from any wait on a launch queue the steps filled
+    idle_s = []
+    with dl.open_loader(train, **kw) as ld:
+        for _ in range(LOADER_BATCHES):
+            t_pin = time.perf_counter()
+            ld.next_batch_on(dev)
+            idle_s.append(time.perf_counter() - t_pin)
+            torch.cuda.synchronize()
+    losses = [float(x) for x in losses]
+    # host_gap sample k is the gap before step k + 2; the gaps before
+    # steps 2 and DATA_STEPS + 1 hold the timing's synchronize
+    gaps = trainer.profiler.samples("host_gap")
+    gap_native, gap_py = gaps[1:DATA_STEPS - 1], gaps[DATA_STEPS:]
+    log(f"  train from the shards: losses "
+        f"{[round(x, 4) for x in losses]} (steps 1-{DATA_STEPS} native, "
+        f"then {DATA_PY_STEPS} from PyTokenLoader at ticket {DATA_STEPS}); "
+        f"{len(seen)} distinct batches")
+    log(f"  step (host clock, native steps 2-{DATA_STEPS}, to a "
+        f"synchronize): {step_s * 1e3:.1f} ms, {FLASH_B * FLASH_S / step_s:.0f} "
+        f"tokens/s; host_gap (the gaps no synchronize falls in) native "
+        f"median {np.median(gap_native) * 1e3:.3f} ms, max "
+        f"{max(gap_native) * 1e3:.3f} over {len(gap_native)}; PyTokenLoader "
+        f"median {np.median(gap_py) * 1e3:.3f} ms, max "
+        f"{max(gap_py) * 1e3:.3f} over {len(gap_py)}; of which "
+        f"next_batch_on (the loader's batch, pinned, its copy queued): "
+        f"median {np.median(pin_s) * 1e3:.3f} ms; next_batch_on alone "
+        f"with the card idle: first {idle_s[0] * 1e3:.3f} ms, then median "
+        f"{np.median(idle_s[1:]) * 1e3:.3f} ms")
+    log(f"  attention impl counts {impl}; kernel launches {counts} over "
+        f"{steps} steps")
+    per_step = {"flash_attention_fwd": 2 * cfg.num_layers,
+                "flash_attention_dq": cfg.num_layers,
+                "flash_attention_dkv": cfg.num_layers}
+    for name, n in per_step.items():
+        if counts[name] != n * steps:
+            fail(f"phase 16a: {name}: {counts[name]} launches in {steps} "
+                 f"steps, the design implies {n * steps}")
+    if impl["torch"] != 0:
+        fail(f"phase 16a: attention left the flash kernels: {impl}")
+    if len(seen) != steps:
+        fail("phase 16a: a batch repeated within the first epoch")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"phase 16a: the loss did not fall: {losses}")
+    counts = {k: counts[k] for k in per_step}
+
+    # eval_ppl's function on the held-out shards at seq 2048
+    apply = eval_ppl.model_apply("llama", cfg)
+    ppl = {}
+    for label in ("trained", "initial"):
+        if label == "initial":
+            del state, trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            params = llama.init(cfg, 0, dev, train=True)
+        else:
+            params = state.params
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = eval_ppl.evaluate(apply, params, val, batch=FLASH_B,
+                                seq=FLASH_S, device=dev)
+        eval_s = time.perf_counter() - t0
+        got = launch_counts()
+        ppl[label] = out["ppl"]
+        counts = {k: counts[k] + got[k] for k in per_step}
+        log(f"  eval_ppl, {label} weights: loss {out['loss']:.4f}, ppl "
+            f"{out['ppl']:.2f} over {out['tokens']} tokens "
+            f"({out['batches']} batches of {FLASH_B} x {FLASH_S}, "
+            f"{out['loader']}), {eval_s:.2f} s; launches {got}")
+        if out["loader"] != "TokenShardLoader":
+            fail(f"phase 16a: eval ran {out['loader']}")
+        if (got["flash_attention_fwd"] != cfg.num_layers * out["batches"]
+                or got["flash_attention_dq"] or got["flash_attention_dkv"]):
+            fail(f"phase 16a: eval launches {got}, the design implies "
+                 f"{cfg.num_layers} forwards a batch and no backward")
+        del params
+    if not ppl["trained"] < ppl["initial"]:
+        fail(f"phase 16a: trained perplexity {ppl['trained']} is not "
+             f"below the initial {ppl['initial']}")
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    return counts
+
+
+def _vit_loss(torch, vit, cfg, params, x, y):
+    logits = vit.apply(params, cfg, x)
+    logz = torch.logsumexp(logits, -1)
+    gold = torch.gather(logits, -1, y.long()[:, None])[:, 0]
+    return (logz - gold).mean()
+
+
+def _named(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _vit_grads(torch, vit, cfg, params, x, y):
+    leaves = dict(_named(params))
+    for t in leaves.values():
+        t.requires_grad_(True)
+    loss = _vit_loss(torch, vit, cfg, params, x, y)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    for t in leaves.values():
+        t.requires_grad_(False)
+    return float(loss.detach()), dict(zip(leaves, grads))
+
+
+def _synthetic_images(np, n, size, seed=0):
+    """Class 0: bright top half; class 1: bright bottom half."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, 2, n).astype(np.int32)
+    x = rng.normal(scale=0.1, size=(n, size, size, 3)).astype(np.float32)
+    x[y == 0, :size // 2] += 1.0
+    x[y == 1, size // 2:] += 1.0
+    return x, y
+
+
+def vit_and_check(torch):
+    """Phase 16b: ViT-B/16 at full width and depth. The card against the
+    CPU at fp32 after one step (loss and every gradient leaf), then the
+    bf16 fine-tune through the port's Trainer at batch 64 (bench.py's
+    cell): images/s, StepTimer, MFU, peak memory, time to the first
+    step, the loss falling on a fixed synthetic batch, and no kernel
+    launched (197 tokens at head dim 64 take the plain attention)."""
+    import dataclasses
+
+    import numpy as np
+
+    from kubeflow_tpu_torch.models import vit
+    from kubeflow_tpu_torch.obs.metrics import Registry
+    from kubeflow_tpu_torch.ops import attention
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.train import TrainConfig, Trainer
+    from kubeflow_tpu_torch.utils.profiling import (
+        POD_START_ENV,
+        StepTimer,
+        time_to_first_compile,
+    )
+
+    dev = torch.device("cuda")
+    base = vit.VIT_B16
+    reset_launch_counts()
+    attention.reset_impl_counts()
+
+    # the card against the CPU, fp32, after one plain SGD step
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("phase 16b: TF32 matmuls are on; the fp32 check needs them off")
+    cfg32 = dataclasses.replace(base, dtype=torch.float32)
+    t0 = time.perf_counter()
+    x, y = _synthetic_images(np, VIT_CHECK_B, base.image_size, seed=1)
+    y = (y * 7 + 3).astype(np.int32)        # two of the 1000 classes
+    xc, yc = torch.from_numpy(x), torch.from_numpy(y)
+    params = {k: ({n: t.cpu() for n, t in v.items()}
+                  if isinstance(v, dict) else v.cpu())
+              for k, v in vit.init(cfg32, 0, dev).items()}
+    _, g0 = _vit_grads(torch, vit, cfg32, params, xc, yc)
+    with torch.no_grad():
+        for name, t in _named(params):
+            t.sub_(0.05 * g0[name])
+    del g0
+    if not float(params["head_w"].abs().max()) > 0:
+        fail("phase 16b: the head is still zero after one step")
+    want_loss, want = _vit_grads(torch, vit, cfg32, params, xc, yc)
+    cpu_s = time.perf_counter() - t0
+    params_c = {k: ({n: t.to(dev) for n, t in v.items()}
+                    if isinstance(v, dict) else v.to(dev))
+                for k, v in params.items()}
+    got_loss, got = _vit_grads(torch, vit, cfg32, params_c, xc.to(dev),
+                               yc.to(dev))
+    loss_err = abs(got_loss - want_loss) / abs(want_loss)
+    errs = {}
+    for name, w in want.items():
+        if name == "blocks.bk":
+            continue
+        errs[name] = float((got[name].cpu() - w).norm() / w.norm())
+    worst = max(errs, key=errs.get)
+    bk = max(float(got["blocks.bk"].abs().max()),
+             float(want["blocks.bk"].abs().max()))
+    bq = float(want["blocks.bq"].abs().max())
+    log(f"  card vs CPU at fp32 (batch {VIT_CHECK_B}, after one step; the "
+        f"CPU side {cpu_s:.1f} s): loss {got_loss:.6f} vs {want_loss:.6f} "
+        f"(relative {loss_err:.2e}, tol {VIT_LOSS_TOL}); worst gradient "
+        f"leaf {worst} {errs[worst]:.2e} (tol {VIT_GRAD_TOL}); key bias "
+        f"|grad| {bk:.2e} against the query bias's {bq:.2e}")
+    if loss_err > VIT_LOSS_TOL or errs[worst] > VIT_GRAD_TOL \
+            or bk > VIT_BK_TOL * bq:
+        fail("phase 16b: ViT-B/16 on the card disagrees with the CPU")
+    del params, params_c, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the bf16 fine-tune, bench.py's cell
+    cfg = base
+    trainer = Trainer(apply_fn=vit.apply_fn(cfg),
+                      init_fn=lambda seed: vit.init(cfg, seed, dev),
+                      train_config=TrainConfig(warmup_steps=10,
+                                               total_steps=1000),
+                      device=dev, registry=Registry())
+    x, y = _synthetic_images(np, VIT_B, cfg.image_size)
+    imgs = torch.from_numpy(x).to(dev)
+    tgt = torch.from_numpy(y[:, None]).to(dev)
+    mask = torch.ones((VIT_B, 1), device=dev)  # the default takes [b, H, W, C]
+    # the "pod" starts here: time_to_first_compile is then the init and
+    # the first step, synchronized
+    os.environ[POD_START_ENV] = str(time.time())
+    state = trainer.init(0)
+    ttfc, (state, loss) = time_to_first_compile(trainer.step, state, imgs,
+                                                tgt, mask)
+    del os.environ[POD_START_ENV]
+    losses = [float(loss)]
+    for _ in range(VIT_WARM - 1):
+        state, loss = trainer.step(state, imgs, tgt, mask)
+        losses.append(float(loss))
+    timer = StepTimer()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(VIT_STEPS):
+        with timer.step():
+            state, loss = trainer.step(state, imgs, tgt, mask)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    summ = timer.summary()
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, loss = trainer.step(state, imgs, tgt, mask)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    losses.append(float(loss))
+    img_s = VIT_B * VIT_STEPS / sum(timer.durations)
+    # bench.py's accounting: 6 N a token, plus attention, x seq tokens
+    n_params = vit.num_params(cfg)
+    seq = cfg.seq_len
+    attn = 12 * cfg.num_layers * cfg.num_heads * cfg.head_dim * seq
+    mfu = img_s * (6 * n_params + attn) * seq / BF16_FLOPS_S
+    counts, impl = launch_counts(), attention.impl_counts()
+    log(f"  ViT-B/16 fine-tune, bf16, batch {VIT_B}, {n_params} params: "
+        f"{img_s:.1f} images/s over {VIT_STEPS} steps after {VIT_WARM}; "
+        f"StepTimer " + ", ".join(
+            f"{k} {v * 1e3:.2f} ms" if k.endswith("_s") else f"{k} {v}"
+            for k, v in summ.items()))
+    log(f"  MFU {mfu:.1%} of 989 TFLOP/s (bench.py's (6 N + attention) x "
+        f"seq a image); peak memory {peak / 2**30:.2f} GiB; "
+        f"time_to_first_compile {ttfc:.2f} s (the trainer's init and its "
+        f"first step, synchronized)")
+    log(f"  losses on the fixed synthetic batch "
+        f"{[round(v, 4) for v in losses]}; attention impl counts {impl}; "
+        f"kernel launches {counts}")
+    _report_profile(prof, prof_s, top=12)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"phase 16b: the loss did not fall: {losses}")
+    if any(counts.values()) or impl["flash"] or impl["decode"]:
+        fail(f"phase 16b: a kernel launched ({counts}, {impl}); ViT's "
+             "attention takes the plain path")
+    return {}
+
+
+def mnist_hpo_and_check(torch):
+    """Phase 16c: the MNIST MLP smoke on the card against bench.py's
+    accuracy gate, its images/s at bench_mnist's 200 steps x 256, and a
+    TPE sweep of the learning rate over shortened smokes."""
+    from kubeflow_tpu_torch import hpo
+    from kubeflow_tpu_torch.models import mnist
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    dev = torch.device("cuda")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    smoke = mnist.train_smoke(device=dev)
+    log(f"  train_smoke (100 steps, batch 128, lr 0.1): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in smoke.items())
+        + f"; {time.perf_counter() - t0:.2f} s")
+    if not smoke["test_accuracy"] >= MNIST_ACC_GATE:
+        fail(f"phase 16c: test accuracy {smoke['test_accuracy']} below "
+             f"{MNIST_ACC_GATE}")
+
+    x_tr, y_tr, x_te, y_te = mnist.load_dataset()
+    params = mnist.init(0, device=dev)
+    stream = mnist.batch_stream(x_tr, y_tr, MNIST_BENCH_B, dev)
+    mnist.sgd_step(params, *next(stream), 0.1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MNIST_BENCH_STEPS):
+        loss = mnist.sgd_step(params, *next(stream), 0.1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    _, acc = mnist.loss_and_accuracy(params, torch.from_numpy(x_te).to(dev),
+                                     torch.from_numpy(y_te).to(dev))
+    log(f"  bench_mnist's loop: {MNIST_BENCH_STEPS * MNIST_BENCH_B / dt:.0f}"
+        f" images/s ({MNIST_BENCH_STEPS} steps x {MNIST_BENCH_B}, host clock "
+        f"to a synchronize, batches from the host each step); loss "
+        f"{float(loss):.4f}, test accuracy {float(acc):.4f}")
+
+    t0 = time.perf_counter()
+    sweep = hpo.run_sweep(
+        lambda a: mnist.train_smoke(steps=HPO_SMOKE_STEPS, lr=a["lr"],
+                                    device=dev)["test_loss"],
+        hpo.SearchSpace((hpo.Double("lr", 1e-3, 1.0, log=True),)),
+        n_trials=HPO_TRIALS, goal="minimize", algorithm="tpe", seed=0)
+    wall = time.perf_counter() - t0
+    done = [t for t in sweep.trials if t.value is not None]
+    log(f"  TPE sweep of lr over {HPO_TRIALS} smokes of {HPO_SMOKE_STEPS} "
+        f"steps: best lr {sweep.best_assignment['lr']:.4g}, test loss "
+        f"{sweep.best_value:.4f}; {len(done)} completed; {wall:.2f} s; "
+        f"trials " + ", ".join(f"{t.assignment['lr']:.3g}:{t.value:.3f}"
+                               for t in done))
+    if len(done) != HPO_TRIALS:
+        fail(f"phase 16c: {HPO_TRIALS - len(done)} sweep trials failed: "
+             + "; ".join(t.error for t in sweep.trials if t.error))
+    if any(launch_counts().values()):
+        fail(f"phase 16c: a kernel launched: {launch_counts()}")
+    return {}
+
+
 def _dev_us(e):
     return getattr(e, "self_device_time_total",
                    getattr(e, "self_cuda_time_total", 0))
@@ -6711,6 +7257,22 @@ def main() -> None:
         add(adafactor_lora_and_check(torch))
         tidy()
         log(f"phase 15 {time.perf_counter() - t15:.1f} s")
+
+    if run("16"):
+        tidy()
+        t16 = time.perf_counter()
+        log("phase 16a: the data story at llama3-1b (prepare_data, the "
+            "native encoder and loader, training from shards, eval_ppl)")
+        add(data_story_and_check(torch), prefix="flash")
+        tidy()
+        log("phase 16b: ViT-B/16 fine-tune (card against CPU, bench.py's "
+            "cell)")
+        add(vit_and_check(torch))
+        tidy()
+        log("phase 16c: the MNIST MLP smoke and a local HPO sweep")
+        add(mnist_hpo_and_check(torch))
+        tidy()
+        log(f"phase 16 {time.perf_counter() - t16:.1f} s")
 
     log(f"total {time.perf_counter() - t_all:.1f} s")
     if only:

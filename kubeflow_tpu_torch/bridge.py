@@ -14,6 +14,10 @@ so this module needs no JAX. A quantized tree (the reference's
 caller to `{"q": int8, "scale": float32}` numpy arrays, and becomes the
 port's `QTensor` (its bf16 scale widened to float32 and back is exact).
 `pack_from_jax` carries a reference `AdapterPack` across.
+
+A ViT tree (`ViTConfig`) and an MNIST MLP tree (`MLPConfig`, whose
+`layers` is a list of `{"w", "b"}` dicts) keep every leaf in its
+parameter dtype, fp32, as the reference keeps them.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch.models.llama import MATRICES, leaf_dtype
+from kubeflow_tpu_torch.models.mnist import MLPConfig
+from kubeflow_tpu_torch.models.vit import ViTConfig
 from kubeflow_tpu_torch.serving.multilora import AdapterPack
 from kubeflow_tpu_torch.serving.quant import QTensor
 
@@ -32,7 +38,11 @@ def from_jax(params: dict, cfg, device: torch.device | str,
     GemmaConfig or a MoELlamaConfig `cfg`. Block matrices go to `dtype`
     (default: cfg.dtype, the dtype the reference casts them to at every
     use), every other leaf to fp32. A `{"q", "scale"}` block leaf becomes a
-    QTensor: q int8, scale bf16."""
+    QTensor: q int8, scale bf16. For a ViTConfig or an MLPConfig every
+    leaf goes to `dtype` (default: fp32, their parameter dtype)."""
+    if isinstance(cfg, (ViTConfig, MLPConfig)):
+        return _plain_tree(params, device, dtype or getattr(
+            cfg, "param_dtype", torch.float32))
 
     def conv(name, arr):
         if isinstance(arr, dict):
@@ -49,6 +59,16 @@ def from_jax(params: dict, cfg, device: torch.device | str,
     out = {k: conv(k, v) for k, v in params.items() if k != "blocks"}
     out["blocks"] = {k: conv(k, v) for k, v in params["blocks"].items()}
     return out
+
+
+def _plain_tree(tree, device, dtype):
+    """Every leaf of a nested dict / list tree to `dtype` on `device`."""
+    if isinstance(tree, dict):
+        return {k: _plain_tree(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_plain_tree(v, device, dtype) for v in tree]
+    return torch.from_numpy(np.array(tree, np.float32)).to(device=device,
+                                                           dtype=dtype)
 
 
 def pack_from_jax(pack, device: torch.device | str,
@@ -70,10 +90,12 @@ def pack_from_jax(pack, device: torch.device | str,
         scaling=float(pack.scaling), names=dict(pack.names))
 
 
-def to_numpy(params: dict) -> dict:
-    """torch param tree -> the same nested dict of fp32 numpy arrays
-    (the inverse of `from_jax`, for comparing trained params with the
-    reference's)."""
-    return {k: to_numpy(v) if isinstance(v, dict)
-            else v.detach().float().cpu().numpy()
-            for k, v in params.items()}
+def to_numpy(params):
+    """torch param tree -> the same nested dict (and list) tree of fp32
+    numpy arrays (the inverse of `from_jax`, for comparing trained params
+    with the reference's)."""
+    if isinstance(params, dict):
+        return {k: to_numpy(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [to_numpy(v) for v in params]
+    return params.detach().float().cpu().numpy()

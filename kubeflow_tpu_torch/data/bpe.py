@@ -14,9 +14,14 @@ Design notes:
   pair — O(unique words) per merge, not O(corpus).
 - Encoding applies merges by rank (lowest first), the standard greedy
   BPE; a merge-rank dict makes each word O(pieces^2) worst case with
-  tiny constants, and an LRU memo makes hot words O(1). Only the
-  pure-Python encoder is here: the reference's native one builds a
-  library outside this package.
+  tiny constants, and an LRU memo makes hot words O(1). Each word
+  goes through the native encoder (`native/bpe.cpp` over ctypes, the
+  same ids) when its library builds, else through the Python loop.
+  The library is built at first use into the port's build directory,
+  keyed by a hash of its source (`data/_native.py`): an edited source is
+  rebuilt, never shadowed by a stale library. `warm_native()` builds it
+  ahead of the first encode (a server calls it when it loads the
+  tokenizer, so no request waits on the compiler).
 - IDs: 0..255 are the raw bytes, then one id per merge, then specials
   appended at the end (pad/bos/eos by default) — so a trained tokenizer
   of V merges has vocab 256 + V + len(specials), matching how serving's
@@ -28,9 +33,12 @@ uses the same bytes-first convention.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import json
+import logging
+import subprocess
 from collections import Counter
 from typing import Iterable, Sequence
 
@@ -107,7 +115,7 @@ class Tokenizer:
             table[256 + rank] = table[a] + table[b]
         return table
 
-    def _encode_word(self, word: tuple[int, ...]) -> list[int]:
+    def _encode_word(self, word: tuple[int, ...]) -> tuple[int, ...]:
         return _encode_word_cached(self._ranks_id, word)
 
     @functools.cached_property
@@ -115,6 +123,11 @@ class Tokenizer:
         # A hashable capsule for the lru-cached module function: the
         # tokenizer is immutable, so identity keying is sound.
         return _RanksHandle(self._ranks, self.merges)
+
+    def warm_native(self) -> bool:
+        """Build and load the native encoder now rather than at the first
+        encode. True when encode will take it."""
+        return self._ranks_id.native is not None
 
     def encode(self, text: str, *, bos: bool = False,
                eos: bool = False) -> list[int]:
@@ -162,13 +175,24 @@ class Tokenizer:
 
 class _RanksHandle:
     """Hashable capsule keying the word cache (identity-keyed: the
-    tokenizer is immutable)."""
+    tokenizer is immutable). Carries the rank table AND, built lazily,
+    the native encoder, so the cached function can take the C++ path
+    without changing cache identity."""
 
-    __slots__ = ("ranks", "merges")
+    __slots__ = ("ranks", "merges", "_native")
+
+    _NATIVE_UNSET = object()
 
     def __init__(self, ranks, merges=()):
         self.ranks = ranks
         self.merges = merges
+        self._native = self._NATIVE_UNSET
+
+    @property
+    def native(self):
+        if self._native is self._NATIVE_UNSET:
+            self._native = _native_encoder(self.merges)
+        return self._native
 
     def __hash__(self):
         return id(self)
@@ -177,11 +201,88 @@ class _RanksHandle:
         return self is other
 
 
+_bpe_lib = None
+_bpe_build_error = ""
+log = logging.getLogger(__name__)
+
+
+def native_error() -> str:
+    """Why the native encoder is unavailable ("" unless a build failed)."""
+    return _bpe_build_error
+
+
+def _load_bpe_lib():
+    """The ctypes library of native/bpe.cpp, or None when it cannot be
+    built (the Python loop stays)."""
+    global _bpe_lib, _bpe_build_error
+    if _bpe_lib is not None or _bpe_build_error:
+        return _bpe_lib
+    from kubeflow_tpu_torch.data import _native
+
+    try:
+        lib = ctypes.CDLL(str(_native.build("bpe")))
+    except (RuntimeError, OSError, subprocess.SubprocessError) as e:
+        _bpe_build_error = str(e)
+        log.warning("native BPE encoder unavailable: %s", e)
+        return None
+    lib.kt_bpe_new.restype = ctypes.c_void_p
+    lib.kt_bpe_new.argtypes = [ctypes.POINTER(ctypes.c_int32),
+                               ctypes.c_int64]
+    lib.kt_bpe_encode_word.restype = ctypes.c_int64
+    lib.kt_bpe_encode_word.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int32)]
+    # without explicit argtypes ctypes passes the handle as a C int: a
+    # 64-bit pointer truncated to 32 bits crashes in free()
+    lib.kt_bpe_free.restype = None
+    lib.kt_bpe_free.argtypes = [ctypes.c_void_p]
+    _bpe_lib = lib
+    return lib
+
+
+class _Native:
+    """One native encoder (a `kt_bpe_new` handle) over a merge table."""
+
+    def __init__(self, lib, merges):
+        self.lib = lib
+        flat = (ctypes.c_int32 * (2 * len(merges)))(
+            *(x for pair in merges for x in pair))
+        self.handle = lib.kt_bpe_new(flat, len(merges))
+
+    def encode(self, word: tuple[int, ...]) -> tuple[int, ...]:
+        n = len(word)
+        buf_in = (ctypes.c_uint8 * n)(*word)
+        buf_out = (ctypes.c_int32 * n)()
+        count = self.lib.kt_bpe_encode_word(self.handle, buf_in, n, buf_out)
+        return tuple(buf_out[:count])
+
+    def __del__(self):
+        try:
+            self.lib.kt_bpe_free(self.handle)
+        except Exception:  # noqa: BLE001 — interpreter teardown
+            pass
+
+
+def _native_encoder(merges):
+    """A native encoder over `merges`, or None (the Python loop stays)."""
+    if not merges:
+        return None
+    lib = _load_bpe_lib()
+    return None if lib is None else _Native(lib, merges)
+
+
 @functools.lru_cache(maxsize=65536)
 def _encode_word_cached(handle: _RanksHandle,
                         word: tuple[int, ...]) -> tuple[int, ...]:
     # returns a tuple: the cache hands the SAME object to every caller
-    ranks = handle.ranks
+    enc = handle.native
+    if enc is not None and word:
+        return enc.encode(word)
+    return _encode_word_py(handle.ranks, word)
+
+
+def _encode_word_py(ranks, word: tuple[int, ...]) -> tuple[int, ...]:
+    """The greedy rank-ordered merge loop in Python."""
     pieces = list(word)
     while len(pieces) > 1:
         best_rank, best_i = None, -1

@@ -1,1 +1,2 @@
-"""Models of the port (counterparts: kubeflow_tpu/models/)."""
+"""Models of the port (counterparts: kubeflow_tpu/models/): llama,
+gemma, the MoE llama family, ViT and the MNIST MLP."""

@@ -760,7 +760,9 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
     `tokenizer` (data/bpe.py's `Tokenizer`, or anything with encode,
     decode and vocab_size) serves the "text" request field; without one
     the byte-level fallback applies. A tokenizer whose vocab exceeds a
-    model's is refused here, not per request.
+    model's is refused here, not per request, and one with a native
+    encoder (`warm_native`) builds it here, so no request compiles it on
+    the event loop.
     `warmup=True` runs every serving shape in an on_startup hook before
     the app takes traffic: the continuous batchers' `warmup`, or in the
     one-shot mode each engine's decode graphs for the window batcher's
@@ -847,6 +849,9 @@ def create_serving_app(engines: dict[str, InferenceEngine], *,
                 raise ValueError(
                     f"tokenizer vocab {tok_vocab} exceeds model "
                     f"{name!r} vocab {eng.cfg.vocab_size}")
+    warm_native = getattr(tokenizer, "warm_native", None)
+    if warm_native is not None:
+        warm_native()
     app = web.Application()
     sobs = ServingObs(registry=registry, tracer=tracer,
                       slo_ttft_s=slo_ttft_s,

@@ -424,6 +424,18 @@ def test_torch_tokenizer_wider_than_model_refused(engines):
         server.create_serving_app({MODEL: teng}, tokenizer=tok)
 
 
+def test_torch_native_encoder_built_before_traffic(engines):
+    """The app builds a BPE tokenizer's native encoder when it is
+    created, so no text request waits on the compiler."""
+    _, teng, _, _ = engines
+    tok = bpe.Tokenizer(merges=((104, 105), (256, 32)))
+    handle = tok._ranks_id
+    assert handle._native is bpe._RanksHandle._NATIVE_UNSET
+    server.create_serving_app({MODEL: teng}, tokenizer=tok)
+    assert handle._native is not bpe._RanksHandle._NATIVE_UNSET
+    assert (handle._native is not None) == (bpe._load_bpe_lib() is not None)
+
+
 @pytest.mark.parametrize("stream", [False, True])
 def test_torch_retry_after_matches_reference(engines, stream):
     """An Overloaded 429's Retry-After from queue depth and the service

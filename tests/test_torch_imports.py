@@ -46,3 +46,13 @@ def test_moe_modules_are_covered():
     assert {"kubeflow_tpu_torch/parallel/moe.py",
             "kubeflow_tpu_torch/parallel/__init__.py",
             "kubeflow_tpu_torch/models/llama_moe.py"} <= names
+
+
+def test_data_and_single_card_modules_are_covered():
+    """The data path, the tools, the HPO layer, the profiling utilities
+    and the ViT / MNIST models are among the files checked above."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {f"kubeflow_tpu_torch/{m}.py" for m in (
+        "data/loader", "data/_native", "data/bpe", "tools/prepare_data",
+        "tools/eval_ppl", "hpo/search", "hpo/local", "utils/profiling",
+        "models/vit", "models/mnist")} <= names

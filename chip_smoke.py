@@ -424,15 +424,27 @@ Phases, each fatal on failure (exit code 1, no result line):
              margin exceeds 0.2, at every position whose smallest router
              gap (k-th minus (k+1)-th probability, over the layers) is at
              least MOE_GAP_TOL; the positions under it are excused and
-             printed, at most 10% of the phase's distinct positions; a
-             control with the gates renormalised over the k chosen must
-             exceed 0.1. Prints the load seconds and peak memory, a
+             printed; a position past a limit is served again alone by
+             an eager copy of the engine, and its experts at each layer
+             printed beside the teacher's: excused if the served path
+             chose other experts (a route flip), else a failure; at most
+             10% of the phase's distinct positions excused; a control
+             with the gates renormalised over the k chosen must exceed
+             0.1. Prints the load seconds and peak memory, a
              one-shot decode step's device ms (graph replay) against the
              13.86 ms bound of its block weights, the same step of an
              eager engine split into expert products (`aten::bmm`),
              decode attention kernel and the rest, one layer's expert
              products graph-replayed, how many of the 8 experts each
              decode step's layers route to, and the phase's seconds.
+             Then the same bf16 base with a pack of three attention-only
+             adapters (wq, wk, wv, wo; rank 8): phase 12b's eight rows
+             served continuously, exact paged launches, each row
+             against the plain MoE model on its merged weights. Then
+             the weights under --quant int8 (expert stacks per expert
+             and output channel, the router kept; param bytes as
+             reckoned), served continuously chunked (the checks above,
+             the teacher on the same int8 weights) and one-shot.
 15. train  — (a) the MoE family at Mixtral-8x7B's widths (hidden 4096,
              32/8 heads of 128, 8 experts, top 2, expert width 14336,
              vocab 32000, capacity factor 1.25, aux weight 0.01), at the
@@ -489,12 +501,45 @@ Phase 16:    single-card models and the data path. (a) The data story
              launched). (c) The MNIST MLP smoke (test accuracy >= 0.90),
              its images/s at bench_mnist's 200 steps x 256, and a TPE
              sweep of the learning rate over 8 shortened smokes.
+Phase 17:    the distributed set (kubeflow_tpu_torch/parallel/,
+             train/fsdp.py, models/llama_pp.py) in gangs of worker
+             processes (`--dist-worker`) on cuda:0 in a gloo group over
+             a file:// store, their collectives staged through host
+             memory (NCCL refuses two ranks of one device; the staged
+             time is logged apart). (a) Ring flash attention over 4
+             ranks at llama3-1b's attention (n_q 16, n_kv 8, hd 128),
+             bf16, b 1, s 8192 (2048 a rank), causal and bidirectional,
+             forward and backward: o within 2^-8 max|ref| + 2^-7 |ref|
+             of one-device flash_attention over the whole sequence and
+             of the plain ring, gradients within TRAIN_GRAD_TOL, flash
+             launches over the ranks exactly 10 forward, 10 dQ and 10
+             dK/dV causal (rank r runs r + 1: its future blocks are
+             skipped) and 16 each bidirectional (the off-diagonal blocks
+             non-causal, the backward against the merged (o, lse)).
+             (b) Ulysses (impl "flash") at the same shapes against the
+             same result. (c) llama3-1b at full width and FSDP_LAYERS
+             of its 16 layers (depth cut for the phase's time), FSDP on
+             (data 1, fsdp 2), global batch 2 x 2048, 3 steps from the
+             weights of a one-device Trainer run on the same batch:
+             losses within TRAIN_LOSS_TOL, optimizer state a rank half
+             the one-device run's, exact flash launches; a rank's peak
+             memory below the one-device run's by at least half its
+             params and moments, and a forward through the mesh view
+             leaving for its backward no more than the plain model's
+             forward on the same rows plus the leaves gathered once and
+             one layer (a gathered layer must not outlive its block). (d)
+             PipelineTrainer on llama3-1b over 2 stages, 4 microbatches:
+             the loss against the dense forward's, flash launches as the
+             schedule implies. (e) One MoE layer at Mixtral-8x7B's
+             widths, 4 experts on each of 2 ranks, forward and backward
+             against `moe_mlp` on each rank's token block. Then the ring
+             and an FSDP step on a one-rank NCCL group.
 Phase 3 also times the tracer: the same cold requests twice with the
 app's tracer detached and twice attached, host ms a decode step each.
 Then prints the `kernels` JSON line (launches: the paged kernels' over
 phases 3, 3b, 3c, 8, 9's spec-off pass, 10, 11, 13, 14 and 15c, each
-other kernel's over its phases (4, 8, 15b, 15c and 16a for flash, 5, 8, 9
-and 14 for dense decode); each kernel
+other kernel's over its phases (4, 8, 15b, 15c, 16a and 17's ranks for
+flash, 5, 8, 9 and 14 for dense decode); each kernel
 again as `<name>@gemma-2b`, timed in phase 2 at gemma-2b's shapes and
 counted over phase 6, or phase 7 for the flash kernels; the flash
 kernels as `<name>@mixtral`, timed in phase 2 at Mixtral's attention
@@ -504,14 +549,16 @@ and counted over phase 15a (15b and 15c count under the plain names,
 counted over phase 9's verify rounds, whose prefill slices count under
 `paged_prefill_append`; `int8_proj`, no Pallas kernel's port (it replaces
 the reference's `qdot`), timed as one llama3-8b decode layer's four
-launches and counted over phase 12, with its kernel functions), the
+launches and counted over phases 12 and 14, with its kernel functions), the
 card's name and power limit,
 and last `{"ok": true, "device": {...}}`.
 
 Exits non-zero without a result when CUDA is unavailable or the port's
 package is not beside this script. `--phases 1,8` runs only the phases
 named (a debugging call: it prints no result line). `--replica OUT --
-<serving CLI args>` is phase 13's server process, not a smoke run.
+<serving CLI args>` is phase 13's server process and `--dist-worker
+CASE RANK WORLD STORE OUT BACKEND` one rank of phase 17's gangs, not
+smoke runs.
 """
 
 from __future__ import annotations
@@ -525,6 +572,7 @@ import socket
 import subprocess
 import sys
 import time
+import weakref
 from typing import NamedTuple
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -582,7 +630,7 @@ GEMMA_2B_PARAMS = 2_506_434_560    # the tied head counted once
 # limit 6.5x that.
 TRAIN_GRAD_TOL = 0.05
 TRAIN_LOSS_TOL = 1e-3
-LOGPROB_TOL = 0.1                  # served vs teacher-forced, bf16 model
+LOGPROB_TOL = 0.1                  # served vs teacher-forced
 PROMPT_LENS = (17, 130, 300, 17)
 MAX_NEW = 16
 # phase 3c: four prompts on one shared prefix, and a prompt of a whole
@@ -1736,13 +1784,14 @@ def _teacher_check(torch, engine, prompts, outs, lps, label):
 
 
 async def serve_and_check(torch, chunked: bool, model: str = "llama3-1b",
-                          engine=None):
+                          engine=None, teacher=None):
     """`model` (llama3-1b in phases 3 and 3b, gemma-2b in phase 6) served
     continuously in-process through the HTTP app the CLI builds, warmed
     at start-up, at dispatch-ahead depth 2: chunked prefill or
     monolithic admission. With `engine` (phase 14's MoE model, which the
     CLI's registry does not hold) the app is the one the CLI would build
-    around it: `create_serving_app` with the same arguments."""
+    around it: `create_serving_app` with the same arguments. `teacher`
+    (default the engine) is what the served sequences are held to."""
     import aiohttp
     from aiohttp import web
 
@@ -1893,7 +1942,7 @@ async def serve_and_check(torch, chunked: bool, model: str = "llama3-1b",
     if outs[0] != outs[3]:
         fail(f"repeated prompt gave different greedy tokens: {outs[0]} vs "
              f"{outs[3]}")
-    _teacher_check(torch, engine, prompts, outs, lps, label)
+    _teacher_check(torch, teacher or engine, prompts, outs, lps, label)
     if chunked:
         # control: the same requests through the explicit eager path
         control = ContinuousBatcher(engine, asyncio.Lock(), max_slots=SLOTS,
@@ -2424,12 +2473,14 @@ def _check_train_bridge(trainer, tracer, steps: int) -> None:
 
 
 async def serve_dense_and_check(torch, name="llama3-8b", spec=True,
-                                engine=None, max_new=DENSE_MAX_NEW):
+                                engine=None, max_new=DENSE_MAX_NEW,
+                                teacher=None):
     """`name` (llama3-8b in phase 5, gemma-2b in phase 6; the CLI's
     registry entry, random weights from seed 0) served one-shot (window
     batcher and direct path) and, with `spec`, speculatively (llama3-1b
     draft) through the HTTP app, in-process. `engine`: phase 14's MoE
-    model, built by the caller, served `max_new` tokens a request."""
+    model, built by the caller, served `max_new` tokens a request;
+    `teacher` (default the engine) is what the sequences are held to."""
     import aiohttp
     from aiohttp import web
 
@@ -2466,7 +2517,7 @@ async def serve_dense_and_check(torch, name="llama3-8b", spec=True,
     torch.cuda.synchronize()
     leaves = [*target.params["blocks"].values(),
               *(v for k, v in target.params.items() if k != "blocks")]
-    n_params = sum(t.numel() for t in leaves)
+    n_params = sum(getattr(t, "q", t).numel() for t in leaves)  # QTensor
     log(f"  {name} (seed 0, {n_params} params)"
         f"{' and llama3-1b draft (seed 1)' if spec else ''} built in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -2541,7 +2592,10 @@ async def serve_dense_and_check(torch, name="llama3-8b", spec=True,
     if counts["decode_attention"] != expect:
         fail(f"decode_attention: {counts['decode_attention']} launches, the "
              f"design implies {expect} ({why})")
-    others = {k: n for k, n in counts.items() if k != "decode_attention"}
+    # int8 weights' projections (phase 14's int8 MoE) run int8_proj
+    own = ("decode_attention",) + (("int8_proj",) if _is_int8(target)
+                                   else ())
+    others = {k: n for k, n in counts.items() if k not in own}
     if any(others.values()):
         fail(f"one-shot serving launched other kernels: {others}")
     draft_captures = draft.captures if spec else 0
@@ -2570,7 +2624,8 @@ async def serve_dense_and_check(torch, name="llama3-8b", spec=True,
     if outs[0][1] != outs[len(prompts) - 1][1]:
         fail(f"repeated prompt gave different greedy tokens: {outs[0][1]} "
              f"vs {outs[len(prompts) - 1][1]}")
-    _teacher_check(torch, target, *zip(*outs), f"one-shot {name}")
+    _teacher_check(torch, teacher or target, *zip(*outs),
+                   f"one-shot {name}")
 
     if spec:
         # the confident draft: llama3-1b with its lm_head x50 as its own
@@ -4658,8 +4713,17 @@ LORA_RANK, LORA_ALPHA = 8, 16.0
 LORA_ROWS = ((17, ""), (130, "alice"), (300, "bob"), (45, "carol"),
              (60, ""), (90, "alice"), (200, "bob"), (17, "carol"))
 ISOLATION_LEN = 200       # the prompt served as base, alice, alice again
+# phase 14's pack on the MoE family: its routed FFN has no dense MLP
+ATTN_TARGETS = ("wq", "wk", "wv", "wo")
 # phase 3's and phase 5's bf16 numbers, printed beside phase 12's
 MEASURED: dict = {}
+
+
+def _is_int8(engine) -> bool:
+    from kubeflow_tpu_torch.serving.quant import QTensor
+
+    return any(isinstance(w, QTensor)
+               for w in engine.params["blocks"].values())
 
 
 def _reckon_param_bytes(cfg) -> int:
@@ -4898,17 +4962,19 @@ async def quant_oneshot_and_check(torch):
     return counts
 
 
-def _lora_adapters(torch, cfg, dev, seed):
+def _lora_adapters(torch, cfg, dev, seed, targets=None):
     """Three adapter trees in the reference's layout and test recipe: A
     fan-in-scaled truncated normal (init_lora's law), B normal x 0.05
-    (non-zero: a fresh B of 0 is the base), fp32 on the card."""
+    (non-zero: a fresh B of 0 is the base), fp32 on the card; over
+    `targets` (default: all seven block matrices)."""
     from kubeflow_tpu_torch.train.lora import _TARGET_DIMS
 
     g = torch.Generator(device=dev).manual_seed(seed)
     out = {}
     for name in LORA_NAMES:
         blocks = {}
-        for t, (din, dout) in _TARGET_DIMS.items():
+        for t in targets or _TARGET_DIMS:
+            din, dout = _TARGET_DIMS[t]
             d_in, d_out = getattr(cfg, din), getattr(cfg, dout)
             a = torch.empty(cfg.num_layers, d_in, LORA_RANK, device=dev)
             torch.nn.init.trunc_normal_(a, 0.0, 1.0, -2.0, 2.0, generator=g)
@@ -5461,28 +5527,41 @@ MOE_MAX_NEW = 16
 # 1.37e-3), and the renormalised-gates control 1.075-1.432.
 MOE_GAP_TOL = 2e-4
 MOE_EXCUSE_MAX = 0.10
+# A position past the logprob limit is tested for a route flip at each
+# layer whose router gap there is under MOE_FLIP_GAP (ten MOE_GAP_TOLs;
+# the int8 model's positions past 0.1 sat at gaps of 2.4e-4 to 9.8e-4 in
+# three card runs, H100 80GB HBM3, 700 W).
+MOE_FLIP_GAP = 10 * MOE_GAP_TOL
 
 
-def _moe_teacher_pass(torch, engine, seqs, renorm=False):
+def _moe_teacher_pass(torch, engine, seqs, renorm=False, swap=None):
     """Each (prompt, served tokens) teacher-forced through the port's plain
     `llama_moe.apply` at capacity E / k (nothing drops, as in serving)
-    -> [(log-softmax [n, vocab] at the n served positions, smallest
-    router gap [n] over the layers)]. The probabilities are read where a
-    layer takes its top k (`moe._top_k`, wrapped for the pass); the gap
-    is the k-th minus the (k+1)-th. `renorm` is the control: the gate
-    values renormalised over the k chosen, as public Mixtral code has
-    them and the reference does not."""
+    -> [(log-softmax [n, vocab] at the n served positions, router gaps
+    [L, n], the experts each layer chose [L, n, k])]. The probabilities
+    are read where a layer takes its top k (`moe._top_k`, wrapped for
+    the pass); the gap is the k-th minus the (k+1)-th. `renorm` is the
+    control: the gate values renormalised over the k chosen, as public
+    Mixtral code has them and the reference does not. `swap` = (j,
+    layer): at served position j that layer takes the (k+1)-th expert,
+    at its probability, in place of the k-th (a route flip)."""
     from kubeflow_tpu_torch.models import llama_moe
     from kubeflow_tpu_torch.parallel import moe
 
     cfg = dataclasses.replace(
         engine.cfg, capacity_factor=engine.cfg.num_experts / engine.cfg.top_k)
-    top_k, gaps, out = moe._top_k, [], []
+    top_k, gaps, chosen, out = moe._top_k, [], [], []
+    row = None
 
     def probe(probs, k):
-        top = torch.topk(probs, k + 1, dim=-1).values
-        gaps.append(top[:, k - 1] - top[:, k])
+        top = torch.topk(probs, k + 1, dim=-1)
+        gaps.append(top.values[:, k - 1] - top.values[:, k])
         vals, idx = top_k(probs, k)
+        if swap is not None and len(chosen) == swap[1]:
+            vals, idx = vals.clone(), idx.clone()
+            vals[row, k - 1] = top.values[row, k]
+            idx[row, k - 1] = top.indices[row, k]
+        chosen.append(idx)
         if renorm:
             vals = vals / vals.sum(-1, keepdim=True)
         return vals, idx
@@ -5492,70 +5571,164 @@ def _moe_teacher_pass(torch, engine, seqs, renorm=False):
         with torch.inference_mode():
             for p, o in seqs:
                 gaps.clear()
+                chosen.clear()
+                row = None if swap is None else len(p) - 1 + swap[0]
                 toks = torch.tensor([p + o[:-1]], device=engine.device)
                 logits, _ = llama_moe.apply(engine.params, cfg, toks)
                 at = slice(len(p) - 1, len(p) - 1 + len(o))
                 out.append((torch.log_softmax(logits[0, at], -1),
-                            torch.stack(gaps).min(0).values[at].cpu()))
+                            torch.stack(gaps)[:, at].cpu(),
+                            torch.stack(chosen)[:, at].cpu()))
     finally:
         moe._top_k = top_k
     return out
+
+
+def _moe_served_routes(torch, engine, p, o):
+    """One (prompt, served tokens) through the engine's one-shot served
+    path, teacher-forced on the served tokens: the prompt's prefill,
+    then one cached forward a token (`_forward_cached`, the path
+    `generate` takes, without graphs, so each layer's routing runs on
+    the host's call), with `moe._top_k` wrapped. -> (logprobs of the
+    served tokens, the experts each layer chose at the n served
+    positions [L, n, k]): the prefill's last row, then one row a
+    step."""
+    from kubeflow_tpu_torch.parallel import moe
+
+    dev = engine.device
+    top_k, chosen, lps = moe._top_k, [], []
+
+    def probe(probs, k):
+        vals, idx = top_k(probs, k)
+        chosen.append(idx)
+        return vals, idx
+
+    moe._top_k = probe
+    try:
+        with torch.inference_mode():
+            state = engine.init_state(1)
+            feed = [p] + [[t] for t in o[:-1]]
+            for toks, nxt in zip(feed, o):
+                logits, state = engine._forward_cached(
+                    torch.tensor([toks], device=dev), state)
+                lps.append(float(torch.log_softmax(logits[0], -1)[nxt]))
+    finally:
+        moe._top_k = top_k
+    L = engine.cfg.num_layers
+    if len(chosen) != L * len(o) or chosen[0].shape[0] != len(p):
+        fail(f"served routes: {len(chosen)} routing calls for {L} layers "
+             f"and {len(o)} tokens (prefill rows {chosen[0].shape[0]})")
+    routes = torch.stack([torch.cat([chosen[li][-1:]] + chosen[L + li::L])
+                          for li in range(L)])
+    return lps, routes.cpu()
 
 
 def _moe_teacher_check(torch, engine, prompts, outs, lps, label):
     """`_teacher_check` for a MoE engine: logprobs within LOGPROB_TOL of
     the plain pass and the argmax where its top-2 margin exceeds 2 x
     LOGPROB_TOL, at every position whose router gap is at least
-    MOE_GAP_TOL; the excused ones are printed and pooled (by sequence)
-    for the phase's cap. The renormalised-gates control must exceed
-    LOGPROB_TOL on the same positions."""
+    MOE_GAP_TOL. A position past either limit is examined for a route
+    flip (when the teacher holds the served engine): the experts each
+    layer chose there on the engine's served path, teacher-forced on
+    the served tokens (`_moe_served_routes`), are printed beside the
+    teacher's, and the teacher is run again with the k-th expert swapped
+    for the (k+1)-th at each layer whose gap there is under
+    MOE_FLIP_GAP. The position is excused as a route flip where the
+    served path chose other experts, or where a swap brings the teacher
+    within LOGPROB_TOL of the served logprob; else the check fails. The
+    excused ones (by gap or by flip) are printed and pooled (by
+    sequence) for the phase's cap. The renormalised-gates control must
+    exceed LOGPROB_TOL on the positions not excused."""
+    tol = LOGPROB_TOL
+    served = getattr(engine, "served",
+                     engine if hasattr(engine, "generate") else None)
     seqs = list(zip(prompts, outs))
     plain = _moe_teacher_pass(torch, engine, seqs)
     ctrl = _moe_teacher_pass(torch, engine, seqs, renorm=True)
-    pooled = MEASURED.setdefault("moe_positions", {})
-    worst = ctrl_worst = 0.0
-    argmax_ok = argmax_n = 0
-    rows = []       # (gap, |err| or None) of every position
-    for (p, o), lp, (logp, gap), (clogp, _) in zip(seqs, lps, plain, ctrl):
+    pos = []        # one dict a served position
+    for i, ((p, o), lp, (logp, gaps, _), (clogp, _, _)) in enumerate(
+            zip(seqs, lps, plain, ctrl)):
         at = torch.arange(len(o), device=logp.device)
         tok = torch.tensor(o, device=logp.device)
         ref, cref = logp[at, tok].cpu(), clogp[at, tok].cpu()
         top2 = torch.topk(logp, 2, dim=-1)
         margin = (top2.values[:, 0] - top2.values[:, 1]).cpu()
         best = top2.indices[:, 0].cpu()
-        pooled[tuple(p + o)] = [float(g) < MOE_GAP_TOL for g in gap]
+        gap = gaps.min(0).values
         for j in range(len(o)):
-            err = None if lp is None else abs(lp[j] - float(ref[j]))
-            rows.append((float(gap[j]), err))
-            if gap[j] < MOE_GAP_TOL:
-                continue
-            if lp is not None:
-                worst = max(worst, err)
-                ctrl_worst = max(ctrl_worst, abs(lp[j] - float(cref[j])))
-            if margin[j] > 2 * LOGPROB_TOL:
-                argmax_n += 1
-                argmax_ok += int(best[j]) == o[j]
-    excused = [r for r in rows if r[0] < MOE_GAP_TOL]
+            pos.append(dict(
+                i=i, j=j, gap=float(gap[j]), ref=float(ref[j]), flip=False,
+                lp=None if lp is None else lp[j],
+                err=None if lp is None else abs(lp[j] - float(ref[j])),
+                cerr=None if lp is None else abs(lp[j] - float(cref[j])),
+                argmax=(None if margin[j] <= 2 * tol
+                        else int(best[j]) == o[j])))
+    over = [r for r in pos if r["gap"] >= MOE_GAP_TOL and (
+        (r["err"] or 0.0) > tol or r["argmax"] is False)]
+    routes = {}
+    for r in over if served is not None else ():
+        i, j = r["i"], r["j"]
+        p, o = seqs[i]
+        if i not in routes:
+            routes[i] = _moe_served_routes(torch, served, p, o)
+        rlps, got = routes[i]
+        gaps, mine = plain[i][1], plain[i][2]
+        flips = [(li, got[li, j].tolist(), mine[li, j].tolist())
+                 for li in range(got.shape[0])
+                 if set(got[li, j].tolist()) != set(mine[li, j].tolist())]
+        swaps = []
+        for li in gaps[:, j].argsort().tolist():
+            if gaps[li, j] >= MOE_FLIP_GAP:
+                break
+            (slogp, _, _), = _moe_teacher_pass(torch, engine, [(p, o)],
+                                               swap=(j, li))
+            swaps.append((li, round(float(gaps[li, j]), 6),
+                          round(float(slogp[j, o[j]]), 4)))
+        explained = [sw for sw in swaps if r["lp"] is not None
+                     and abs(r["lp"] - sw[2]) <= tol]
+        r["flip"] = bool(flips) or bool(explained)
+        log(f"    past the limit: sequence {i} position {j} (router gap "
+            f"{r['gap']:.6f}, served {r['lp'] or 0.0:.4f}, teacher "
+            f"{r['ref']:.4f}, "
+            f"err {r['err'] or 0.0:.4f}, argmax {r['argmax']}); the served "
+            f"path teacher-forced: logprob {rlps[j]:.4f}, layers choosing "
+            f"other experts than the teacher (layer, served, teacher) "
+            f"{flips}; the teacher with a layer's k-th expert swapped for "
+            f"the (k+1)-th (layer, gap, logprob) {swaps}: "
+            f"{'a route flip' if r['flip'] else 'no flip'}")
+    pooled = MEASURED.setdefault("moe_positions", {})
+    for i, (p, o) in enumerate(seqs):
+        pooled[tuple(p + o)] = [r["gap"] < MOE_GAP_TOL or r["flip"]
+                                for r in pos if r["i"] == i]
+    kept = [r for r in pos if r["gap"] >= MOE_GAP_TOL and not r["flip"]]
+    worst = max((r["err"] for r in kept if r["err"] is not None),
+                default=0.0)
+    ctrl_worst = max((r["cerr"] for r in kept if r["cerr"] is not None),
+                     default=0.0)
+    judged = [r["argmax"] for r in kept if r["argmax"] is not None]
+    by_gap = [r for r in pos if r["gap"] < MOE_GAP_TOL]
+    by_flip = [r for r in pos if r["flip"]]
 
     def shown(some):
-        return [(round(g, 6), e if e is None else round(e, 4))
-                for g, e in some]
+        return [(round(r["gap"], 6),
+                 r["err"] if r["err"] is None else round(r["err"], 4))
+                for r in some]
 
     log(f"  {label}: teacher-forced logprob max_abs_err {worst:.4f} (tol "
-        f"{LOGPROB_TOL}) over {len(rows) - len(excused)} positions; "
-        f"{len(excused)}/{len(rows)} excused (router gap < {MOE_GAP_TOL}, "
-        f"(gap, err)): {shown(excused)}; greedy argmax agrees on "
-        f"{argmax_ok}/{argmax_n} steps with margin > {2 * LOGPROB_TOL}; "
-        f"renormalised-gates control {ctrl_worst:.4f}")
-    by_err = sorted((r for r in rows if r[1] is not None),
-                    key=lambda r: -r[1])[:6]
+        f"{tol}) over {len(kept)} positions; {len(by_gap)}/{len(pos)} "
+        f"excused by router gap < {MOE_GAP_TOL} and {len(by_flip)} by a "
+        f"route flip ((gap, err)): {shown(by_gap)}, {shown(by_flip)}; "
+        f"greedy argmax agrees on {sum(judged)}/{len(judged)} steps with "
+        f"margin > {2 * tol}; renormalised-gates control {ctrl_worst:.4f}")
+    by_err = sorted((r for r in pos if r["err"] is not None),
+                    key=lambda r: -r["err"])[:6]
     log(f"    largest errors (gap, err): {shown(by_err)}; smallest gaps: "
-        f"{shown(sorted(rows)[:6])}")
-    if worst > LOGPROB_TOL or argmax_ok != argmax_n:
+        f"{shown(sorted(pos, key=lambda r: r['gap'])[:6])}")
+    if worst > tol or not all(judged):
         fail(f"{label}: served tokens disagree with the plain MoE model")
-    if any(lp is not None for lp in lps) and ctrl_worst <= LOGPROB_TOL:
+    if any(lp is not None for lp in lps) and ctrl_worst <= tol:
         fail(f"{label}: the renormalised-gates control is within "
-             f"{LOGPROB_TOL}: the check does not see the gating")
+             f"{tol}: the check does not see the gating")
 
 
 def _dev_total(e):
@@ -5637,6 +5810,16 @@ def _moe_step_split(torch, engine, prompts):
     return total, experts, attn
 
 
+async def _release(torch) -> None:
+    """Free what a closed server or batcher held. Its cancelled worker and
+    the app's cleanup leave callbacks on the event loop that keep the
+    engine, and so its weights, alive until the loop runs them: yield to
+    the loop once, then collect and return the cached blocks."""
+    await asyncio.sleep(0)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 async def serve_moe_and_check(torch):
     """Phase 14: the MoE family at Mixtral-8x7B's widths and 16 layers
     (random weights, seed 0, drawn a layer at a time) served three ways
@@ -5679,8 +5862,7 @@ async def serve_moe_and_check(torch):
         got = await serve_and_check(torch, chunked, MOE_NAME, engine=engine)
         for name in ("paged_decode_attention", "paged_prefill_append"):
             counts[name] = counts.get(name, 0) + got[name]
-        gc.collect()
-        torch.cuda.empty_cache()
+        await _release(torch)
         secs[way] = time.perf_counter() - t0
     log("  one-shot (window batcher, direct path):")
     t0 = time.perf_counter()
@@ -5688,14 +5870,7 @@ async def serve_moe_and_check(torch):
                                       engine=engine, max_new=MOE_MAX_NEW)
     counts["decode_attention"] = got["decode_attention"]
     secs["one-shot"] = time.perf_counter() - t0
-    pooled = MEASURED.pop("moe_positions")
-    n_pos = sum(len(v) for v in pooled.values())
-    n_exc = sum(sum(v) for v in pooled.values())
-    log(f"  router gaps: {n_exc}/{n_pos} distinct served positions excused "
-        f"(gap < {MOE_GAP_TOL}; at most {MOE_EXCUSE_MAX:.0%})")
-    if n_exc > MOE_EXCUSE_MAX * n_pos:
-        fail(f"phase 14: {n_exc} of {n_pos} positions excused by their "
-             f"router gap, above {MOE_EXCUSE_MAX:.0%}")
+    _moe_excused("")
 
     gen = torch.Generator().manual_seed(14)
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
@@ -5723,9 +5898,222 @@ async def serve_moe_and_check(torch):
         f"{cfg.hidden_size}] {layer_ms:.4f} ms graph-replayed "
         f"({expert_bytes / layer_ms / 1e6:.0f} GB/s, x{MOE_LAYERS} = "
         f"{layer_ms * MOE_LAYERS:.3f} ms)")
-    del engine, params, lp, xe
+    del lp, xe
+    t0 = time.perf_counter()
+    for k, n in (await _moe_adapters_and_check(torch, engine)).items():
+        counts[k] = counts.get(k, 0) + n
+    secs["adapters"] = time.perf_counter() - t0
+    del engine
+    await _release(torch)
+    t0 = time.perf_counter()
+    qparams = _moe_quantize(torch, params, cfg)
+    # the bf16 weights (43 GiB) must be gone before the int8 engine
+    # serves: beside them its graphs and dequantized stacks overrun 80 GB
+    bf16 = weakref.ref(params["blocks"]["w_up"])
+    del params, blocks
+    await _release(torch)
+    log(f"  int8: bf16 weights released {bf16() is None}; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before "
+        f"int8 serving")
+    if bf16() is not None:
+        fail("phase 14 int8: the bf16 weights outlived their engines")
+    for k, n in (await _serve_moe_int8(torch, qparams, cfg)).items():
+        counts[k] = counts.get(k, 0) + n
+    secs["int8"] = time.perf_counter() - t0
+    del qparams
     log(f"  phase 14 {time.perf_counter() - t_phase:.1f} s ("
         + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + ")")
+    return counts
+
+
+def _reckon_moe_param_bytes(cfg) -> int:
+    """Device bytes of the MoE family's params under --quant int8: the
+    four attention matrices and the three expert stacks int8 plus a bf16
+    scale per output channel (per expert for the stacks), the router
+    bf16, the norms, embedding and head fp32 (the serving storage
+    rule)."""
+    L, D, E, M = (cfg.num_layers, cfg.hidden_size, cfg.num_experts,
+                  cfg.expert_mlp_dim)
+    q, kv = cfg.q_dim, cfg.kv_dim
+    attn = sum(k * n + 2 * n for k, n in ((D, q), (D, kv), (D, kv),
+                                          (q, D)))
+    experts = E * (2 * (D * M + 2 * M) + (M * D + 2 * D))
+    router = 2 * D * E
+    return (L * (attn + experts + router) + (2 * L * D + D) * 4
+            + 2 * cfg.vocab_size * D * 4)
+
+
+def _moe_excused(label: str) -> None:
+    """The excused-position cap over what the teacher checks since the
+    last call pooled (MEASURED["moe_positions"])."""
+    pooled = MEASURED.pop("moe_positions", {})
+    n_pos = sum(len(v) for v in pooled.values())
+    n_exc = sum(sum(v) for v in pooled.values())
+    log(f"  {label + ' ' if label else ''}router gaps: {n_exc}/{n_pos} "
+        f"distinct served positions excused (gap < {MOE_GAP_TOL} or a "
+        f"route flip; at most {MOE_EXCUSE_MAX:.0%})")
+    if n_exc > MOE_EXCUSE_MAX * n_pos:
+        fail(f"phase 14{' ' + label if label else ''}: {n_exc} of {n_pos} "
+             f"positions excused by their router gap or a route flip, "
+             f"above {MOE_EXCUSE_MAX:.0%}")
+
+
+async def _moe_adapters_and_check(torch, base) -> dict:
+    """Phase 14, adapters: the MoE model's bf16 base with a pack of
+    attention-only adapters (wq, wk, wv, wo; the routed FFN has no dense
+    MLP to adapt), served continuously (8 slots, chunk 64): phase 12b's
+    eight rows mixing the base and the adapters, exact paged launches,
+    and each row against the plain MoE model on its merged weights."""
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.serving.continuous import ContinuousBatcher
+    from kubeflow_tpu_torch.serving.engine import (
+        MOE_LLAMA_FAMILY,
+        EngineConfig,
+        InferenceEngine,
+    )
+    from kubeflow_tpu_torch.serving.multilora import build_pack
+    from kubeflow_tpu_torch.train.lora import LoraConfig
+
+    cfg, dev = base.cfg, base.device
+    lcfg = LoraConfig(rank=LORA_RANK, alpha=LORA_ALPHA, targets=ATTN_TARGETS)
+    adapters = _lora_adapters(torch, cfg, dev, 14, ATTN_TARGETS)
+    pack = build_pack(cfg, lcfg, adapters, device=dev)
+    engine = InferenceEngine(base.params, cfg, MOE_LLAMA_FAMILY,
+                             EngineConfig(max_len=MAX_LEN), device=dev,
+                             adapter_pack=pack)
+    batcher = ContinuousBatcher(engine, asyncio.Lock(), max_slots=SLOTS,
+                                prefill_chunk_tokens=CHUNK, seed=0)
+    gen = torch.Generator().manual_seed(141)
+    rows = [(torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist(),
+             a) for n, a in LORA_ROWS]
+    t0 = time.perf_counter()
+    try:
+        reset_launch_counts()
+        served = await asyncio.gather(*(
+            batcher.submit(p, MAX_NEW, {"adapter": a} if a else {},
+                           with_logprobs=True) for p, a in rows))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        calls, slices = batcher.calls, batcher.slices
+    finally:
+        await batcher.close()
+    L = cfg.num_layers
+    want = {"paged_decode_attention": L * calls,
+            "paged_prefill_append": L * slices}
+    log(f"  adapters: a {len(LORA_NAMES)}-adapter attention-only pack (rank "
+        f"{LORA_RANK}, {pack.nbytes / 2**20:.1f} MiB), {len(rows)} rows in "
+        f"{time.perf_counter() - t0:.1f} s: {calls} decode steps, {slices} "
+        f"slices; launches {counts}")
+    for k, n in want.items():
+        if counts[k] != n:
+            fail(f"phase 14 adapters {k}: {counts[k]} launches, the design "
+                 f"implies {n}")
+    groups = {a: [] for a in ("",) + LORA_NAMES}
+    for (p, a), (toks, lps) in zip(rows, served):
+        groups[a].append((p, list(toks), list(lps)))
+    MEASURED["moe_positions"] = {}
+    for a, items in groups.items():
+        teacher = _merged_teacher(torch, engine, adapters, lcfg, a)
+        _teacher_check(torch, teacher, *map(list, zip(*items)),
+                       f"MoE {a or 'base'} rows (teacher: merged weights)")
+        del teacher
+        gc.collect()
+        torch.cuda.empty_cache()
+    _moe_excused("adapters")
+    del engine, pack
+    return counts
+
+
+def _moe_quantize(torch, params, cfg):
+    """Phase 14, int8: the same weights under --quant int8 (the expert
+    stacks quantized per expert and output channel over D, the router
+    kept), param bytes as reckoned. -> the int8 params."""
+    from kubeflow_tpu_torch.serving.quant import param_bytes, quantize_blocks
+
+    t0 = time.perf_counter()
+    qparams = quantize_blocks(params)
+    torch.cuda.synchronize()
+    got, want = param_bytes(qparams), _reckon_moe_param_bytes(cfg)
+    log(f"  int8: quantized in {time.perf_counter() - t0:.1f} s, param "
+        f"bytes {got} (reckoned {want}; bf16 {param_bytes(params)})")
+    if got != want:
+        fail(f"phase 14 int8: {got} param bytes, reckoned {want}")
+    return qparams
+
+
+class _QdotRhs:
+    """`h @ rhs` as the reference's `qdot` forms it, (h @ q) * scale,
+    in the int8_proj kernel's arithmetic: accumulated and scaled in fp32,
+    rounded once."""
+
+    def __init__(self, w, dtype):
+        self.w, self.dtype = w, dtype
+
+    def __rmatmul__(self, h):
+        y = h.float() @ self.w.q.float()
+        return (y * self.w.scale.float()[..., 0, :]).to(self.dtype)
+
+
+def _qdot_teacher(engine):
+    """The plain MoE model over an int8 engine's weights with the served
+    numerics: the four attention products as the reference's `qdot`
+    ((h @ q) * scale, in fp32 and rounded once, as int8_proj computes
+    it; not a product with the dequantized weight), the expert stacks
+    dequantized as the serving FFN dequantizes them. `served` is the
+    engine, for the routes of a position past the limit."""
+    import types
+
+    from kubeflow_tpu_torch.serving.quant import QTensor
+
+    class QdotLeaf(QTensor):
+        def __getitem__(self, idx):
+            return QdotLeaf(self.q[idx], self.scale[idx])
+
+        def to(self, dtype):
+            return _QdotRhs(self, dtype)
+
+    blocks = {k: QdotLeaf(w.q, w.scale) if k in ATTN_TARGETS else w
+              for k, w in engine.params["blocks"].items()}
+    return types.SimpleNamespace(params=dict(engine.params, blocks=blocks),
+                                 cfg=engine.cfg, family=engine.family,
+                                 device=engine.device, served=engine)
+
+
+async def _serve_moe_int8(torch, qparams, cfg) -> dict:
+    """The int8 MoE model served continuously (chunked: a repeated
+    prompt, the teacher check against the plain MoE model on the same
+    int8 weights with the reference's qdot, the eager control) and
+    one-shot. The expert stacks are dequantized each step; the
+    attention products run through int8_proj. -> launch counts."""
+    from kubeflow_tpu_torch.serving.engine import (
+        MOE_LLAMA_FAMILY,
+        EngineConfig,
+        InferenceEngine,
+    )
+
+    dev = torch.device("cuda")
+    engine = InferenceEngine(qparams, cfg, MOE_LLAMA_FAMILY,
+                             EngineConfig(max_len=MAX_LEN), device=dev)
+    MEASURED["moe_positions"] = {}
+    counts = {}
+    log("  int8, continuous, chunked:")
+    teacher = _qdot_teacher(engine)
+    got = await serve_and_check(torch, True, MOE_NAME, engine=engine,
+                                teacher=teacher)
+    for name in ("paged_decode_attention", "paged_prefill_append",
+                 "int8_proj"):
+        counts[name] = counts.get(name, 0) + got[name]
+    await _release(torch)
+    log("  int8, one-shot (window batcher, direct path):")
+    got = await serve_dense_and_check(torch, MOE_NAME, spec=False,
+                                      engine=engine, max_new=MOE_MAX_NEW,
+                                      teacher=teacher)
+    for name in ("decode_attention", "int8_proj"):
+        counts[name] = counts.get(name, 0) + got[name]
+    _moe_excused("int8")
+    if not counts["int8_proj"]:
+        fail("phase 14 int8: no int8_proj launch")
+    del engine
     return counts
 
 
@@ -7010,6 +7398,610 @@ def mnist_hpo_and_check(torch):
     return {}
 
 
+# -- phase 17 ---------------------------------------------------------------
+
+# The distributed set on one card. Worker processes (`--dist-worker`)
+# all use cuda:0 in a gloo group over a file:// store: NCCL refuses two
+# ranks of one device, so parallel/comm.py stages their collectives
+# through host memory (the cost of gloo on one card, logged apart, not a
+# number for the port's collectives). One rank also forms an NCCL group.
+DIST_DIR = os.path.join(ROOT, "build", "phase17")
+DIST_TIMEOUT = 600
+RING_RANKS = 4
+RING_S = 8192                 # 17a/17b: the global sequence, 2048 a rank
+# 17a: bf16 o within phase 2's flash bound with c = 2^-8 (the blocks'
+# bf16 outputs are merged in fp32 and rounded again): |err| <= 2^-8
+# max|ref| + 2^-7 |ref|; gradients by relative L2 within TRAIN_GRAD_TOL
+RING_C = 2**-8
+FSDP_STEPS = 3
+# 17c/the NCCL rank: llama3-1b at full width, depth cut from 16 to 4 for
+# the phase's time: at 16 layers, 93.5 s of 3 steps' 106.6 s went to the
+# host-staged gloo collectives (119.85 GiB through the host; H100 80GB
+# HBM3, 700 W, the phase's first card run), a cost of one card, not of
+# FSDP
+FSDP_LAYERS = 4
+PP_MICRO = 4                  # 17d: microbatches of one row
+LLAMA_1B_VOCAB = 128256       # models/llama.py LLAMA3_1B.vocab_size
+EP_TOKENS = 1024              # 17e: tokens a rank (b 1 x s 1024)
+# 17e: EP against moe_mlp on each rank's block, bf16: relative L2 of the
+# output and of every gradient (the expert products run over other slot
+# counts, the a2a-returned rows in another order)
+EP_OUT_TOL = 1e-2
+EP_GRAD_TOL = TRAIN_GRAD_TOL
+
+
+def _rel_l2(torch, got, want) -> float:
+    d = (got.float() - want.float())
+    return float(torch.linalg.vector_norm(d)
+                 / torch.linalg.vector_norm(want.float()))
+
+
+def _ring_qkv(torch, dev, s=RING_S, seed=17):
+    """llama3-1b's attention at the ring's global sequence, bf16, from a
+    seed: q, k, v and the output gradient, alike on every rank."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(n):
+        return torch.randn(1, s, n, HD, generator=g, device=dev).to(
+            torch.bfloat16)
+
+    return draw(N_Q), draw(N_KV), draw(N_KV), draw(N_Q)
+
+
+def _dist_seq(torch, rank, world):
+    """17a and 17b on every rank of a 4-rank ring: ring flash attention
+    (causal and bidirectional, forward and backward), the plain ring on
+    the same blocks, and Ulysses with impl "flash"."""
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.parallel import MeshSpec, comm, create_mesh, ring
+
+    dev = torch.device("cuda")
+    mesh = create_mesh(MeshSpec(data=1, fsdp=world), device_type="cuda")
+    g = mesh.axis_group("fsdp")
+    q, k, v, do = _ring_qkv(torch, dev)
+
+    def blk(t):
+        return t.chunk(world, 1)[g.index].contiguous()
+
+    out = {"backend": g.backend, "index": g.index}
+    for impl in ("ring", "ulysses"):
+        for causal in (True, False):
+            qb, kb, vb = (blk(t).requires_grad_() for t in (q, k, v))
+            comm.reset_staged()
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if impl == "ring":
+                o = ring.ring_flash_attention(qb, kb, vb, group=g,
+                                              causal=causal)
+            else:
+                o = ring.ulysses_attention(qb, kb, vb, group=g,
+                                           causal=causal, impl="flash")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            grads = torch.autograd.grad(o, (qb, kb, vb), blk(do))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            res = {"o": o.detach().cpu(), "counts": launch_counts(),
+                   "fwd_s": t1 - t0, "bwd_s": t2 - t1,
+                   "staged": dict(comm.staged)}
+            res.update(zip(("dq", "dk", "dv"), (t.cpu() for t in grads)))
+            if impl == "ring":
+                with torch.no_grad():
+                    res["plain"] = ring.ring_attention(
+                        blk(q), blk(k), blk(v), group=g,
+                        causal=causal).cpu()
+            out[(impl, causal)] = res
+    return out
+
+
+def _fsdp_cfg(torch):
+    from kubeflow_tpu_torch.models import llama
+
+    return dataclasses.replace(llama.LLAMA3_1B, num_layers=FSDP_LAYERS)
+
+
+def _dist_tc():
+    from kubeflow_tpu_torch.train import TrainConfig
+
+    return TrainConfig(warmup_steps=1, total_steps=100)
+
+
+def _fsdp_residue(torch, trainer, state, cfg, toks) -> dict:
+    """17c's forward residue on a rank: the device bytes a forward on the
+    rank's rows leaves for its backward, through the trainer's mesh view
+    and through the plain model on the full params (gathered), and the
+    bytes of the leaves the view gathers once and of one gathered layer.
+    The view's extra should be the once-gathered leaves: a layer's
+    gathered weights live only while its checkpointed block runs."""
+    import math
+
+    from kubeflow_tpu_torch.models import llama
+
+    lay = trainer.layout
+    rows = lay.local_rows(toks)
+    full = {k: ({n: t.requires_grad_() for n, t in v.items()}
+                if isinstance(v, dict) else v.requires_grad_())
+            for k, v in trainer.gather_params(state).items()}
+
+    def held(params_fn):
+        torch.cuda.synchronize()
+        m = torch.cuda.memory_allocated()
+        logits = llama.apply(params_fn(), cfg, rows)
+        torch.cuda.synchronize()
+        n = torch.cuda.memory_allocated() - m
+        del logits
+        return n
+
+    plain = held(lambda: full)
+    view = held(lambda: lay.model_view(state.params))
+    del full
+    once = sum(math.prod(leaf.shape) * 4 for leaf in lay.leaves.values()
+               if leaf.gathers and not leaf.per_layer)
+    layer = sum(math.prod(leaf.shape[1:]) * 4
+                for leaf in lay.leaves.values() if leaf.per_layer)
+    return {"plain": plain, "view": view, "once": once, "layer": layer}
+
+
+def _dist_train(torch, rank, world):
+    """17c, 17d and 17e on each of 2 ranks: llama3-1b under FSDP on
+    (data 1, fsdp 2), llama3-1b pipelined over 2 stages, and one MoE
+    layer at Mixtral-8x7B's widths with 4 experts a rank."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.models import llama, llama_moe, llama_pp
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.parallel import (
+        Mesh,
+        MeshSpec,
+        comm,
+        create_mesh,
+        moe,
+    )
+    from kubeflow_tpu_torch.train import Trainer
+
+    dev = torch.device("cuda")
+    out = {}
+    cfg = _fsdp_cfg(torch)
+    mesh = create_mesh(MeshSpec(data=1, fsdp=world), device_type="cuda")
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(lambda p, t: llama.apply(p, cfg, t),
+                      lambda s: llama.init(cfg, s, dev, train=True),
+                      _dist_tc(), device=dev, mesh=mesh,
+                      logical_axes=llama.param_logical_axes(cfg))
+    state = trainer.init(0)
+    toks, tgts = _llama1b_batch(torch, dev, 17)
+    comm.reset_staged()
+    reset_launch_counts()
+    losses, step_s = [], []
+    for _ in range(FSDP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = trainer.step(state, toks, tgts)
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+    out["fsdp"] = {"losses": losses, "step_s": step_s,
+                   "staged": dict(comm.staged), "counts": launch_counts(),
+                   "opt_bytes": trainer.opt_state_bytes(),
+                   "wq": tuple(state.params["blocks"]["wq"].shape),
+                   "peak": torch.cuda.max_memory_allocated() - m0,
+                   "residue": _fsdp_residue(torch, trainer, state, cfg,
+                                            toks)}
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = llama.LLAMA3_1B
+    pmesh = Mesh(np.arange(world).reshape(world, 1), ("stage", "data"),
+                 "cuda")
+    pt = llama_pp.PipelineTrainer(cfg, pmesh, num_microbatches=PP_MICRO,
+                                  train_config=_dist_tc(), device=dev)
+    state = pt.init(0)
+    ptoks, ptgts = _pp_batch(torch, dev)
+    comm.reset_staged()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = pt.step(state, ptoks, ptgts)
+    torch.cuda.synchronize()
+    out["pp"] = {"loss": float(loss), "step_s": time.perf_counter() - t0,
+                 "staged": dict(comm.staged), "counts": launch_counts(),
+                 "wq": tuple(state.params["blocks"]["wq"].shape)}
+    del pt, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mcfg = llama_moe.MIXTRAL_8X7B.moe_config()
+    emesh = Mesh(np.arange(world), ("expert",), "cuda")
+    g = emesh.axis_group("expert")
+    full = moe.init_moe(mcfg, 17, dev)
+    gen = torch.Generator(device=dev).manual_seed(170 + rank)
+    x = torch.randn(1, EP_TOKENS, mcfg.embed_dim, generator=gen,
+                    device=dev).to(mcfg.dtype)
+    local = {k: (v.chunk(world, 0)[g.index] if k != "router" else v)
+             .clone().requires_grad_() for k, v in full.items()}
+    xe = x.clone().requires_grad_()
+    comm.reset_staged()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, aux = moe.moe_mlp_expert_parallel(local, xe, mcfg, group=g,
+                                         token_groups=(g,))
+    names = ("router", "w_gate", "w_up", "w_down")
+    grads = torch.autograd.grad((y.float() ** 2).sum(),
+                                [xe] + [local[k] for k in names])
+    torch.cuda.synchronize()
+    ep_s = time.perf_counter() - t0
+    staged = dict(comm.staged)
+    dense = {k: v.clone().requires_grad_() for k, v in full.items()}
+    xd = x.clone().requires_grad_()
+    yd, _ = moe.moe_mlp(dense, xd, mcfg)
+    dgrads = torch.autograd.grad((yd.float() ** 2).sum(),
+                                 [xd] + [dense[k] for k in names])
+    errs = {"y": _rel_l2(torch, y, yd), "x": _rel_l2(torch, grads[0],
+                                                     dgrads[0]),
+            "router": _rel_l2(torch, grads[1], dgrads[1])}
+    for name, got, want in zip(names[1:], grads[2:], dgrads[2:]):
+        # each rank's experts get every rank's tokens' gradient: the
+        # other rank's dense gradient of this rank's experts, summed
+        parts = comm._all_to_all(want.contiguous(), 0, 0, g)
+        errs[name] = _rel_l2(torch, got, sum(parts.chunk(world, 0)))
+    logits = x.reshape(-1, mcfg.embed_dim).float() @ full["router"].float()
+    *_, frac, mean_prob = moe._assign(logits, mcfg, mcfg.capacity(
+        EP_TOKENS))
+    aux_ref = moe._aux_loss(comm._psum(frac, g) / world,
+                            comm._psum(mean_prob, g) / world)
+    out["ep"] = {"errs": errs, "aux": float(aux), "aux_ref": float(aux_ref),
+                 "s": ep_s, "staged": staged, "counts": launch_counts(),
+                 "experts": tuple(local["w_gate"].shape)}
+    return out
+
+
+def _pp_batch(torch, dev):
+    """17d's batch: PP_MICRO rows of llama3-1b tokens at s 2048."""
+    import numpy as np
+
+    rng = np.random.default_rng(171)
+    toks = torch.from_numpy(rng.integers(
+        0, LLAMA_1B_VOCAB, (PP_MICRO, FLASH_S))).to(dev)
+    return toks, torch.roll(toks, -1, dims=1)
+
+
+def _dist_nccl(torch, rank, world):
+    """A one-rank NCCL group: the ring (one causal block, so one launch
+    of each kernel) and one FSDP trainer step."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.ops.cuda import flash_attention as fa
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.parallel import MeshSpec, create_mesh, ring
+    from kubeflow_tpu_torch.train import Trainer
+
+    dev = torch.device("cuda")
+    mesh = create_mesh(MeshSpec(data=1, fsdp=1), device_type="cuda")
+    g = mesh.axis_group("fsdp")
+    q, k, v, do = _ring_qkv(torch, dev, s=FLASH_S)
+    qb, kb, vb = (t.clone().requires_grad_() for t in (q, k, v))
+    reset_launch_counts()
+    o = ring.ring_flash_attention(qb, kb, vb, group=g, causal=True)
+    dq, dk, dv = torch.autograd.grad(o, (qb, kb, vb), do)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    ref = fa.flash_attention(q, k, v, causal=True)
+    cfg = _fsdp_cfg(torch)
+    trainer = Trainer(lambda p, t: llama.apply(p, cfg, t),
+                      lambda s: llama.init(cfg, s, dev, train=True),
+                      _dist_tc(), device=dev, mesh=mesh,
+                      logical_axes=llama.param_logical_axes(cfg))
+    state = trainer.init(0)
+    toks, tgts = _llama1b_batch(torch, dev, 17)
+    _, loss = trainer.step(state, toks, tgts)
+    return {"backend": dist.get_backend(), "counts": counts,
+            "ring_equal": bool(torch.equal(o, ref)),
+            "loss": float(loss)}
+
+
+DIST_CASES = {"seq": _dist_seq, "train": _dist_train, "nccl": _dist_nccl}
+
+
+def dist_worker_main(argv: list[str]) -> None:
+    """`chip_smoke.py --dist-worker CASE RANK WORLD STORE OUT BACKEND`:
+    one rank of phase 17's gang on cuda:0; what CASE returns (CPU
+    tensors and numbers) is saved to OUT."""
+    import torch
+    import torch.distributed as dist
+
+    case, rank, world, store, out, backend = argv
+    rank, world = int(rank), int(world)
+    sys.path.insert(0, ROOT)
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    result = DIST_CASES[case](torch, rank, world)
+    torch.save(result, out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _spawn_gang(torch, case: str, world: int, backend: str = "gloo"):
+    """Start `world` worker processes of `case` on cuda:0 and wait for
+    them all. A rank that fails or outlives DIST_TIMEOUT fails the
+    phase. -> ([per-rank results], seconds)."""
+    os.makedirs(DIST_DIR, exist_ok=True)
+    store = os.path.join(DIST_DIR, f"{case}.store")
+    outs = [os.path.join(DIST_DIR, f"{case}.{r}.pt") for r in range(world)]
+    for path in (store, *outs):
+        if os.path.exists(path):
+            os.remove(path)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-worker", case,
+         str(r), str(world), store, outs[r], backend],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=DIST_TIMEOUT)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        fail(f"phase 17 {case}: a rank outlived {DIST_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            fail(f"phase 17 {case}: rank {r} of {world} exited "
+                 f"{p.returncode}:\n{text[-4000:]}")
+    res = [torch.load(o, weights_only=False) for o in outs]
+    return res, time.perf_counter() - t0
+
+
+def _sum_counts(results, key=None) -> dict:
+    total: dict = {}
+    for r in results:
+        got = r["counts"] if key is None else r[key]["counts"]
+        for name, n in got.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def _ring_checks(torch, dev, seq) -> dict:
+    """17a and 17b against one-device flash attention over the whole
+    sequence (the same kernels at s 8192). -> launch counts."""
+    from kubeflow_tpu_torch.ops.cuda import flash_attention as fa
+
+    q, k, v, do = _ring_qkv(torch, dev)
+    counts: dict = {}
+    for impl in ("ring", "ulysses"):
+        for causal in (True, False):
+            label = f"17{'a' if impl == 'ring' else 'b'} {impl} " \
+                f"{'causal' if causal else 'bidirectional'}"
+            parts = [r[(impl, causal)] for r in seq]
+            cat = {name: torch.cat([p[name] for p in parts], 1).to(dev)
+                   for name in ("o", "dq", "dk", "dv")}
+            qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+            ref = fa.flash_attention(qr, kr, vr, causal=causal)
+            rgrads = torch.autograd.grad(ref, (qr, kr, vr), do)
+            ref = ref.detach().float()
+            bound = RING_C * ref.abs().max() + 2**-7 * ref.abs()
+            o_err = float(((cat["o"].float() - ref).abs() - bound).max())
+            gerr = {n: _rel_l2(torch, cat[n], w)
+                    for n, w in zip(("dq", "dk", "dv"), rgrads)}
+            total = _sum_counts(parts)
+            n_blocks = (RING_RANKS * (RING_RANKS + 1) // 2 if causal
+                        else RING_RANKS * RING_RANKS)
+            want = n_blocks if impl == "ring" else RING_RANKS
+            flash = {n: total[f"flash_attention_{n}"]
+                     for n in ("fwd", "dq", "dkv")}
+            fwd_s = max(p["fwd_s"] for p in parts)
+            bwd_s = max(p["bwd_s"] for p in parts)
+            st = max(p["staged"]["seconds"] for p in parts)
+            mib = sum(p["staged"]["bytes"] for p in parts) / 2**20
+            extra = ""
+            if impl == "ring":
+                plain = torch.cat([p["plain"] for p in parts], 1).to(dev)
+                p_err = float(((cat["o"].float() - plain.float()).abs()
+                               - bound).max())
+                extra = f"; ring flash vs plain ring: excess {p_err:.2e}"
+                if p_err > 0:
+                    fail(f"{label}: ring flash and the plain ring disagree "
+                         f"beyond the bf16 bound")
+            log(f"  {label}: o excess over the bound {o_err:.2e} (<= 0: "
+                f"within 2^-8 max|ref| + 2^-7 |ref|), gradient rel L2 "
+                + ", ".join(f"{n} {e:.2e}" for n, e in gerr.items())
+                + f" (tol {TRAIN_GRAD_TOL}){extra}; launches over the "
+                f"ranks {flash} (design {want} each; per rank "
+                f"{[p['counts']['flash_attention_fwd'] for p in parts]}); "
+                f"forward {fwd_s * 1e3:.1f} ms, backward {bwd_s * 1e3:.1f} "
+                f"ms (slowest rank), of which host-staged collectives "
+                f"{st * 1e3:.1f} ms on the slowest rank ({mib:.1f} MiB "
+                f"through the host over the ranks)")
+            if o_err > 0:
+                fail(f"{label}: o outside the bf16 bound")
+            if max(gerr.values()) > TRAIN_GRAD_TOL:
+                fail(f"{label}: gradients {gerr} beyond {TRAIN_GRAD_TOL}")
+            if any(n != want for n in flash.values()):
+                fail(f"{label}: flash launches {flash}, the design "
+                     f"implies {want} each")
+            for name, n in total.items():
+                counts[name] = counts.get(name, 0) + n
+    return counts
+
+
+def distributed_and_check(torch) -> dict:
+    """Phase 17: the distributed set on the card, in gangs of worker
+    processes on cuda:0. -> the flash kernels' launches over the
+    ranks."""
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.train import Trainer
+    from kubeflow_tpu_torch.train.trainer import _leaves
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    log(f"  ranks: worker processes on cuda:0 in a gloo group over a "
+        f"file:// store; their collectives stage through host memory "
+        f"(NCCL refuses two ranks of one device); one rank also forms an "
+        f"NCCL group")
+    seq, seq_s = _spawn_gang(torch, "seq", RING_RANKS)
+    if {r["backend"] for r in seq} != {"gloo"}:
+        fail(f"phase 17: ring ranks on {[r['backend'] for r in seq]}")
+    log(f"  17a/17b: {RING_RANKS} ranks, llama3-1b attention (n_q {N_Q}, "
+        f"n_kv {N_KV}, hd {HD}), bf16, b 1, s {RING_S} "
+        f"({RING_S // RING_RANKS} a rank), gang {seq_s:.1f} s")
+    counts = _ring_checks(torch, dev, seq)
+
+    cfg = _fsdp_cfg(torch)
+    toks, tgts = _llama1b_batch(torch, dev, 17)
+    gc.collect()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    one = Trainer(lambda p, t: llama.apply(p, cfg, t),
+                  lambda s: llama.init(cfg, s, dev, train=True),
+                  _dist_tc(), device=dev)
+    state = one.init(0)
+    one_losses = []
+    for _ in range(FSDP_STEPS):
+        state, loss = one.step(state, toks, tgts)
+        one_losses.append(float(loss))
+    one_peak = torch.cuda.max_memory_allocated() - m0
+    one_bytes = one.opt_state_bytes()
+    one_params = sum(p.numel() * p.element_size()
+                     for p in _leaves(state.params))
+    del one, state
+    fsdp_cfg, cfg = cfg, llama.LLAMA3_1B
+    params = llama.init(cfg, 0, dev, train=True)
+    ptoks, ptgts = _pp_batch(torch, dev)
+    with torch.no_grad():
+        from kubeflow_tpu_torch.train.trainer import cross_entropy_loss
+
+        dense_loss = float(cross_entropy_loss(
+            llama.apply(params, cfg, ptoks), ptgts))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    train, train_s = _spawn_gang(torch, "train", 2)
+    f = train[0]["fsdp"]
+    errs = [abs(a - b) / abs(b) for a, b in zip(f["losses"], one_losses)]
+    step_s = [max(r["fsdp"]["step_s"][i] for r in train)
+              for i in range(FSDP_STEPS)]
+    st = max(r["fsdp"]["staged"]["seconds"] for r in train)
+    fl = _sum_counts(train, "fsdp")
+    want = {"flash_attention_fwd": 2 * FSDP_LAYERS * 2 * FSDP_STEPS,
+            "flash_attention_dq": 2 * FSDP_LAYERS * FSDP_STEPS,
+            "flash_attention_dkv": 2 * FSDP_LAYERS * FSDP_STEPS}
+    half = one_bytes / 2
+    gib = sum(r["fsdp"]["staged"]["bytes"] for r in train) / 2**30
+    log(f"  17c FSDP: llama3-1b at full width, {fsdp_cfg.num_layers} of 16 "
+        f"layers (depth cut for the phase's time: FSDP_LAYERS), "
+        f"mesh (data 1, fsdp 2), global batch {FLASH_B} x {FLASH_S}, "
+        f"{FSDP_STEPS} steps: losses {f['losses']} vs one device "
+        f"{one_losses} (rel err {max(errs):.2e}, tol {TRAIN_LOSS_TOL}); "
+        f"wq held as {f['wq']}; optimizer state a rank "
+        f"{f['opt_bytes']} B vs half the one-device run's {half:.0f} B; "
+        f"step {[round(s, 3) for s in step_s]} s (slowest rank), of which "
+        f"host-staged collectives {st:.3f} s over the {FSDP_STEPS} steps "
+        f"on the slowest rank ({gib:.2f} GiB through the host); launches "
+        f"{fl} (design {want})")
+    # memory: each rank holds 1/2 of the params and moments the one
+    # device holds, so its peak sits at least that far below the one
+    # device's; and a forward through the mesh view leaves for the
+    # backward only the once-gathered leaves more than the plain model's
+    # forward on the same rows (one gathered layer's bytes of slack)
+    peak = max(r["fsdp"]["peak"] for r in train)
+    share = (1 - 1 / 2) * (one_params + one_bytes)
+    res = [r["fsdp"]["residue"] for r in train]
+    extra = max(x["view"] - x["plain"] for x in res)
+    bound = res[0]["once"] + res[0]["layer"]
+    log(f"  17c memory: peak {peak / 2**30:.3f} GiB a rank (above its "
+        f"start) vs the one device's {one_peak / 2**30:.3f} GiB, which "
+        f"less half its params and moments ({share / 2**30:.3f} GiB) "
+        f"bounds it at {(one_peak - share) / 2**30:.3f} GiB; a forward "
+        f"on a rank's rows leaves "
+        f"{[round(x['view'] / 2**30, 3) for x in res]} GiB for the "
+        f"backward through the mesh view vs "
+        f"{[round(x['plain'] / 2**30, 3) for x in res]} GiB through the "
+        f"plain model: {extra / 2**30:.3f} GiB more, bound "
+        f"{bound / 2**30:.3f} GiB (the once-gathered leaves "
+        f"{res[0]['once'] / 2**30:.3f} + one layer "
+        f"{res[0]['layer'] / 2**30:.3f})")
+    if max(errs) > TRAIN_LOSS_TOL:
+        fail("17c: FSDP losses differ from the one-device run")
+    if peak > one_peak - share:
+        fail(f"17c: a rank's peak {peak} B is not below the one device's "
+             f"{one_peak} B by half its params and moments ({share:.0f} B)")
+    if extra > bound:
+        fail(f"17c: the mesh view's forward leaves {extra} B more than the "
+             f"plain forward, above the once-gathered leaves and one "
+             f"layer ({bound} B): gathered layers outlive their blocks")
+    if abs(f["opt_bytes"] - half) > 8 + 2 * len(llama.param_shapes(
+            fsdp_cfg)):
+        fail(f"17c: {f['opt_bytes']} B of optimizer state a rank, not "
+             f"half of {one_bytes}")
+    if any(fl.get(k) != n for k, n in want.items()):
+        fail(f"17c: flash launches {fl}, the design implies {want}")
+    p = train[0]["pp"]
+    per = cfg.num_layers // 2
+    ticks = PP_MICRO + 2 - 1
+    pwant = {"flash_attention_fwd": 2 * (ticks + PP_MICRO) * per,
+             "flash_attention_dq": 2 * PP_MICRO * per,
+             "flash_attention_dkv": 2 * PP_MICRO * per}
+    pl = _sum_counts(train, "pp")
+    perr = abs(p["loss"] - dense_loss) / abs(dense_loss)
+    log(f"  17d pipeline: llama3-1b over 2 stages ({per} layers a rank, "
+        f"wq held as {p['wq']}), {PP_MICRO} microbatches of 1 x {FLASH_S}: "
+        f"loss {p['loss']:.6f} vs the dense forward's {dense_loss:.6f} "
+        f"(rel err {perr:.2e}, tol {TRAIN_LOSS_TOL}); step "
+        f"{max(r['pp']['step_s'] for r in train):.3f} s, host-staged "
+        f"{max(r['pp']['staged']['seconds'] for r in train):.3f} s; "
+        f"launches {pl} (design {pwant}: {ticks} ticks x {per} forward, "
+        f"{PP_MICRO} x {per} recomputed and {PP_MICRO} x {per} dQ, dK/dV, "
+        f"a rank)")
+    if perr > TRAIN_LOSS_TOL:
+        fail("17d: the pipelined loss differs from the dense loss")
+    if any(pl.get(k) != n for k, n in pwant.items()):
+        fail(f"17d: flash launches {pl}, the design implies {pwant}")
+    for r in train:
+        e = r["ep"]
+        log(f"  17e EP rank: experts held {e['experts']}, {EP_TOKENS} "
+            f"tokens; rel L2 vs moe_mlp on its block {e['errs']} (y tol "
+            f"{EP_OUT_TOL}, gradients {EP_GRAD_TOL}); aux {e['aux']:.6f} "
+            f"vs {e['aux_ref']:.6f}; forward+backward {e['s'] * 1e3:.1f} "
+            f"ms, host-staged {e['staged']['seconds'] * 1e3:.1f} ms")
+        errs = dict(e["errs"])
+        if errs.pop("y") > EP_OUT_TOL or max(errs.values()) > EP_GRAD_TOL:
+            fail(f"17e: expert parallelism disagrees with moe_mlp on the "
+                 f"rank's block: {e['errs']}")
+        if abs(e["aux"] - e["aux_ref"]) > 1e-3 * abs(e["aux_ref"]):
+            fail("17e: the aux loss is not the global batch's")
+    for name in ("fsdp", "pp"):
+        for k, n in _sum_counts(train, name).items():
+            counts[k] = counts.get(k, 0) + n
+
+    nccl, nccl_s = _spawn_gang(torch, "nccl", 1, backend="nccl")
+    n = nccl[0]
+    nerr = abs(n["loss"] - one_losses[0]) / abs(one_losses[0])
+    log(f"  one-rank NCCL group ({n['backend']}): ring flash launches "
+        f"{n['counts']}, equal to flash_attention {n['ring_equal']}; an "
+        f"FSDP step's loss {n['loss']:.6f} vs one device "
+        f"{one_losses[0]:.6f} (rel err {nerr:.2e}); gang {nccl_s:.1f} s")
+    if n["backend"] != "nccl" or not n["ring_equal"] or nerr > \
+            TRAIN_LOSS_TOL:
+        fail("phase 17: the one-rank NCCL group disagrees")
+    for k, c in n["counts"].items():
+        counts[k] = counts.get(k, 0) + c
+    log(f"  phase 17 {time.perf_counter() - t_phase:.1f} s (ring gang "
+        f"{seq_s:.1f}, train gang {train_s:.1f}, nccl {nccl_s:.1f})")
+    return counts
+
+
 def _dev_us(e):
     return getattr(e, "self_device_time_total",
                    getattr(e, "self_cuda_time_total", 0))
@@ -7062,6 +8054,10 @@ def main() -> None:
     if sys.argv[1:2] == ["--replica"]:
         # phase 13's replica process: `--replica OUT -- <CLI args>`
         replica_main(sys.argv[2], sys.argv[4:])
+        return
+    if sys.argv[1:2] == ["--dist-worker"]:
+        # one rank of phase 17's gang
+        dist_worker_main(sys.argv[2:])
         return
     only = _phases(sys.argv[1:])
 
@@ -7273,6 +8269,13 @@ def main() -> None:
         add(mnist_hpo_and_check(torch))
         tidy()
         log(f"phase 16 {time.perf_counter() - t16:.1f} s")
+
+    if run("17"):
+        tidy()
+        log("phase 17: the distributed set (ring and Ulysses over the "
+            "flash kernels, FSDP, the pipeline, expert parallelism)")
+        add(distributed_and_check(torch))
+        tidy()
 
     log(f"total {time.perf_counter() - t_all:.1f} s")
     if only:

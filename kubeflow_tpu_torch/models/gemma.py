@@ -43,6 +43,7 @@ from kubeflow_tpu_torch.ops.attention import dot_product_attention
 from kubeflow_tpu_torch.ops.embedding import embed_lookup
 from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rotary import apply_rope, rope_frequencies
+from kubeflow_tpu_torch.parallel.sharding import read_layer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +80,25 @@ GEMMA_TINY = GemmaConfig(
 )
 
 CONFIGS = {"gemma-2b": GEMMA_2B, "tiny": GEMMA_TINY}
+
+
+def param_logical_axes(cfg: GemmaConfig) -> Params:
+    """Logical axis names per param leaf (the reference's tree)."""
+    return {
+        "embed": ("vocab", "embed"),
+        "blocks": {
+            "attn_norm": ("layers", "embed"),
+            "wq": ("layers", "embed", "heads"),
+            "wk": ("layers", "embed", "kv_heads"),
+            "wv": ("layers", "embed", "kv_heads"),
+            "wo": ("layers", "heads", "embed"),
+            "mlp_norm": ("layers", "embed"),
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        },
+        "final_norm": ("embed",),
+    }
 
 
 def param_shapes(cfg: GemmaConfig) -> Params:
@@ -125,6 +145,7 @@ def embed_scale(cfg: GemmaConfig) -> torch.Tensor:
 def _block(cfg: GemmaConfig, x, p, positions, inv_freq, kv_mask,
            contiguous_positions=False):
     """One Gemma block on x [b, s, D] in cfg.dtype."""
+    p = read_layer(p)
     b, s, _ = x.shape
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
     q = (h @ p["wq"].to(cfg.dtype)).reshape(b, s, cfg.num_heads,

@@ -9,7 +9,8 @@ reference scans; with `remat` (and gradients on) each block runs under
 (`remat_policy`): "full" keeps only the block's input, "mlp" also the
 outputs of the three MLP products, "dots" every product without batch
 dims (torch's selective activation checkpointing; see `_remat_context`).
-No sharding: the port runs on one card.
+`param_logical_axes` names each leaf's axes for the sharding rules
+(parallel/sharding.py), which the trainer's mesh layout reads.
 
 Storage dtypes: serving stores the block matrices in the activation
 dtype (the reference casts them to it at every use) and the embedding,
@@ -37,6 +38,7 @@ from kubeflow_tpu_torch.ops.attention import dot_product_attention
 from kubeflow_tpu_torch.ops.embedding import embed_lookup
 from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rotary import apply_rope, rope_frequencies
+from kubeflow_tpu_torch.parallel.sharding import read_layer
 
 Params = dict
 
@@ -135,6 +137,31 @@ LLAMA_TINY = LlamaConfig(
 
 CONFIGS = {"llama3-8b": LLAMA3_8B, "llama3-1b": LLAMA3_1B,
            "tiny": LLAMA_TINY}
+
+
+def param_logical_axes(cfg: LlamaConfig) -> Params:
+    """Logical axis names per param leaf, the reference's tree (the
+    layers axis leads the block params); parallel/sharding.py maps them
+    onto a mesh."""
+    block = {
+        "attn_norm": ("layers", "embed"),
+        "wq": ("layers", "embed", "heads"),     # [L, D, n_q * hd]
+        "wk": ("layers", "embed", "kv_heads"),
+        "wv": ("layers", "embed", "kv_heads"),
+        "wo": ("layers", "heads", "embed"),
+        "mlp_norm": ("layers", "embed"),
+        "w_gate": ("layers", "embed", "mlp"),
+        "w_up": ("layers", "embed", "mlp"),
+        "w_down": ("layers", "mlp", "embed"),
+    }
+    axes: Params = {
+        "embed": ("vocab", "embed"),
+        "blocks": block,
+        "final_norm": ("embed",),
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
 
 
 def param_shapes(cfg: LlamaConfig) -> Params:
@@ -257,6 +284,7 @@ def _attention_half(cfg, x, p, positions, inv_freq, kv_mask,
 def _block(cfg: LlamaConfig, x, p, positions, inv_freq, kv_mask,
            contiguous_positions=False):
     """One transformer block on x [b, s, D] in cfg.dtype."""
+    p = read_layer(p)
     x = _attention_half(cfg, x, p, positions, inv_freq, kv_mask,
                         contiguous_positions)
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)

@@ -48,6 +48,7 @@ from kubeflow_tpu_torch.ops.embedding import embed_lookup
 from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rotary import rope_frequencies
 from kubeflow_tpu_torch.parallel import moe as moe_lib
+from kubeflow_tpu_torch.parallel.sharding import read_layer
 
 EXPERT_STACKS = ("w_gate", "w_up", "w_down")
 MOE_LEAVES = ("router",) + EXPERT_STACKS
@@ -98,6 +99,28 @@ MIXTRAL_TINY = MoELlamaConfig(
 CONFIGS = {"mixtral-8x7b": MIXTRAL_8X7B, "tiny": MIXTRAL_TINY}
 
 
+def param_logical_axes(cfg: MoELlamaConfig) -> Params:
+    """Logical axis names per param leaf (the reference's tree; the
+    expert stacks' "experts" axis maps to tensor)."""
+    return {
+        "embed": ("vocab", "embed"),
+        "blocks": {
+            "attn_norm": ("layers", "embed"),
+            "wq": ("layers", "embed", "heads"),
+            "wk": ("layers", "embed", "kv_heads"),
+            "wv": ("layers", "embed", "kv_heads"),
+            "wo": ("layers", "heads", "embed"),
+            "mlp_norm": ("layers", "embed"),
+            "router": ("layers", "embed", None),
+            "w_gate": ("layers", "experts", "embed", None),
+            "w_up": ("layers", "experts", "embed", None),
+            "w_down": ("layers", "experts", None, "embed"),
+        },
+        "final_norm": ("embed",),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
 def param_shapes(cfg: MoELlamaConfig) -> Params:
     L, D, E, M = (cfg.num_layers, cfg.hidden_size, cfg.num_experts,
                   cfg.expert_mlp_dim)
@@ -140,6 +163,7 @@ def init(cfg: MoELlamaConfig, seed: int, device: torch.device | str, *,
 
 def _block(cfg: MoELlamaConfig, x, p, positions, inv_freq):
     """One MoE block on x [b, s, D] in cfg.dtype -> (x, aux)."""
+    p = read_layer(p)
     x = _attention_half(cfg, x, p, positions, inv_freq, None,
                         contiguous_positions=True)
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)

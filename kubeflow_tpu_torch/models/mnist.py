@@ -32,6 +32,16 @@ class MLPConfig:
 MNIST_MLP = MLPConfig()
 
 
+def param_logical_axes(cfg: MLPConfig = MNIST_MLP) -> Params:
+    """Logical axis names per param leaf (the reference's tree)."""
+    return {
+        "layers": [{"w": ("embed", "mlp"), "b": ("mlp",)}
+                   for _ in cfg.hidden_dims],
+        "out_w": ("embed", "vocab"),
+        "out_b": ("vocab",),
+    }
+
+
 def init(seed: int | torch.Generator = 0, cfg: MLPConfig = MNIST_MLP,
          device: torch.device | str | None = None) -> Params:
     """Random params: normal weights scaled by fan_in^-0.5, zero biases,

@@ -27,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.ops.attention import dot_product_attention
 from kubeflow_tpu_torch.ops.norms import layer_norm
+from kubeflow_tpu_torch.parallel.sharding import read_layer
 
 Params = dict[str, Any]
 
@@ -74,6 +75,32 @@ VIT_TINY = ViTConfig(
 )
 
 CONFIGS = {"vit-b16": VIT_B16, "tiny": VIT_TINY}
+
+
+def param_logical_axes(cfg: ViTConfig) -> Params:
+    """Logical axis names per param leaf (the reference's tree)."""
+    axes: Params = {
+        "patch_embed": (None, "embed"),
+        "patch_bias": ("embed",),
+        "pos_embed": (None, "embed"),
+        "blocks": {
+            "ln1_w": ("layers", "embed"), "ln1_b": ("layers", "embed"),
+            "wq": ("layers", "embed", "heads"),
+            "wk": ("layers", "embed", "heads"),
+            "wv": ("layers", "embed", "heads"),
+            "bq": ("layers", "heads"), "bk": ("layers", "heads"),
+            "bv": ("layers", "heads"),
+            "wo": ("layers", "heads", "embed"), "bo": ("layers", "embed"),
+            "ln2_w": ("layers", "embed"), "ln2_b": ("layers", "embed"),
+            "w1": ("layers", "embed", "mlp"), "b1": ("layers", "mlp"),
+            "w2": ("layers", "mlp", "embed"), "b2": ("layers", "embed"),
+        },
+        "final_ln_w": ("embed",), "final_ln_b": ("embed",),
+        "head_w": ("embed", "vocab"), "head_b": ("vocab",),
+    }
+    if cfg.use_cls_token:
+        axes["cls_token"] = (None, "embed")
+    return axes
 
 
 def init(cfg: ViTConfig, seed: int = 0,
@@ -145,6 +172,7 @@ def patchify(cfg: ViTConfig, images: torch.Tensor) -> torch.Tensor:
 
 
 def _block(cfg: ViTConfig, x, p):
+    p = read_layer(p)
     b, s, D = x.shape
     nh, hd = cfg.num_heads, cfg.head_dim
     dt = cfg.dtype

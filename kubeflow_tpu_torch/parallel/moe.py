@@ -42,16 +42,33 @@ aux loss; `frac` is a count and carries none.
 The expert products are `torch.bmm` over all E experts and C slots: at
 serving's capacity they compute E / k times the routed products and
 read every expert's weights each step, as the reference's einsums do.
-No Pallas kernel lies on this path. Expert parallelism
-(`moe_mlp_expert_parallel`, `moe_mlp_sharded`, `moe_logical_axes`)
-waits for the distributed queue (ROADMAP Queue 1).
+No Pallas kernel lies on this path.
+
+Expert parallelism (`moe_mlp_expert_parallel`, on every rank of the
+expert axis, as the reference's runs inside `shard_map`): each rank
+routes its own tokens against ALL experts (the router is replicated)
+into the same [E, C, D] slot buffer, a tiled all-to-all sends expert
+group j's slots to rank j ([E/N, N*C, D]: this rank's experts' slots
+from every rank), the local experts run, and the inverse all-to-all
+brings the outputs home for the combine. Capacity comes from the LOCAL
+token count, so under tight capacity each rank drops as `moe_mlp` does
+on its own token block (the reference's documented per-shard
+semantics). The load-balance factors are averaged over every token
+axis (`pmean`) before their product, so the aux loss, and its router
+gradient, are the global batch's. `moe_mlp_sharded` takes the global
+batch every rank holds alike, splits it over the batch axes and the
+experts over the expert axis, and returns the global output.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+
+from kubeflow_tpu_torch.parallel import comm
+from kubeflow_tpu_torch.parallel import mesh as mesh_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +100,17 @@ def init_moe(cfg: MoEConfig, seed: int,
 
     return {"router": normal((d, e), d), "w_gate": normal((e, d, m), d),
             "w_up": normal((e, d, m), d), "w_down": normal((e, m, d), m)}
+
+
+def moe_logical_axes() -> dict[str, tuple[str | None, ...]]:
+    """Logical axes of the layer's params for sharding.py's rules
+    ("experts" -> tensor by default)."""
+    return {
+        "router": ("embed", None),
+        "w_gate": ("experts", "embed", None),
+        "w_up": ("experts", "embed", None),
+        "w_down": ("experts", None, "embed"),
+    }
 
 
 def _top_k(probs: torch.Tensor, k: int):
@@ -141,24 +169,108 @@ def _expert_ffn(params, x_ecd: torch.Tensor) -> torch.Tensor:
     return torch.bmm(act, params["w_down"])
 
 
+def _dispatch(xt, logits, cfg: MoEConfig, capacity: int):
+    """Route [T, d] tokens into an [E * C, d] slot buffer. -> (slots,
+    rows [T * k] each choice's slot row (E * C for a dropped one), gate
+    weights [T, k] fp32 (0 where dropped), frac, mean_prob)."""
+    E, k = cfg.num_experts, cfg.top_k
+    gate_vals, gate_idx, slot, keep, frac, mean_prob = _assign(
+        logits, cfg, capacity)
+    trash = E * capacity
+    row = torch.where(keep, gate_idx * capacity + slot, trash).reshape(-1)
+    xe = xt.new_zeros((trash + 1, xt.shape[1]))
+    xe[row] = xt.repeat_interleave(k, 0)   # only the trash row repeats
+    w = torch.where(keep, gate_vals, 0.0)
+    return xe[:trash], row, w, frac, mean_prob
+
+
+def _combine(ye, row, w, T, k, dtype):
+    """Each token's k slot rows of ye [E * C, d], weighted by its gate
+    values rounded to the activation dtype, summed in fp32."""
+    ye = torch.cat([ye, ye.new_zeros((1, ye.shape[1]))])
+    w = w.to(ye.dtype).float()
+    y = (ye[row].view(T, k, -1).float() * w[..., None]).sum(1)
+    return y.to(dtype)
+
+
 def moe_mlp(params: dict[str, torch.Tensor], x: torch.Tensor,
             cfg: MoEConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """The routed layer on x [b, s, d] -> (output [b, s, d] in x's dtype,
     aux loss []). `params` (router [d, E], w_gate / w_up [E, d, M],
     w_down [E, M, d]) are in the activation dtype."""
     b, s, d = x.shape
-    T, E, k = b * s, cfg.num_experts, cfg.top_k
+    T, E = b * s, cfg.num_experts
     xt = x.reshape(T, d)
     capacity = cfg.capacity(T)
     logits = xt.float() @ params["router"].float()
-    gate_vals, gate_idx, slot, keep, frac, mean_prob = _assign(
-        logits, cfg, capacity)
-    trash = E * capacity
-    row = torch.where(keep, gate_idx * capacity + slot, trash).reshape(-1)
-    xe = x.new_zeros((trash + 1, d))
-    xe[row] = xt.repeat_interleave(k, 0)   # only the trash row repeats
-    ye = _expert_ffn(params, xe[:trash].view(E, capacity, d))
-    ye = torch.cat([ye.reshape(trash, d), ye.new_zeros((1, d))])
-    w = torch.where(keep, gate_vals, 0.0).to(ye.dtype).float()
-    y = (ye[row].view(T, k, d).float() * w[..., None]).sum(1)
-    return y.to(x.dtype).reshape(b, s, d), _aux_loss(frac, mean_prob)
+    xe, row, w, frac, mean_prob = _dispatch(xt, logits, cfg, capacity)
+    ye = _expert_ffn(params, xe.view(E, capacity, d))
+    y = _combine(ye.reshape(E * capacity, d), row, w, T, cfg.top_k, x.dtype)
+    return y.reshape(b, s, d), _aux_loss(frac, mean_prob)
+
+
+def moe_mlp_expert_parallel(
+    params: dict[str, torch.Tensor],   # experts dim LOCAL (E/N a rank)
+    x: torch.Tensor,                   # [b_local, s, d] LOCAL tokens
+    cfg: MoEConfig, *,
+    group: comm.AxisGroup,
+    token_groups: tuple[comm.AxisGroup, ...] = (),
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Explicit expert parallelism over the expert axis `group`, run on
+    every rank of it. `token_groups`: the axes the token batch is split
+    over (default: the expert axis), over which the load-balance
+    factors are averaged before their product."""
+    n = group.size
+    b, s, d = x.shape
+    T = b * s
+    e_local = params["w_gate"].shape[0]
+    E = e_local * n
+    if E != cfg.num_experts:
+        raise ValueError(f"{e_local} local experts x {n} ranks != "
+                         f"num_experts={cfg.num_experts}")
+    xt = x.reshape(T, d)
+    capacity = cfg.capacity(T)
+    logits = xt.float() @ params["router"].float()
+    xe, row, w, frac, mean_prob = _dispatch(xt, logits, cfg, capacity)
+    # a2a #1: [E, C, d] -> [E/N, N*C, d], this rank's experts' slots
+    # from every rank
+    xe = comm.all_to_all(xe.view(E, capacity, d), 0, 1, group)
+    ye = _expert_ffn(params, xe)
+    # a2a #2 (inverse): back to [E, C, d] on the tokens' ranks
+    ye = comm.all_to_all(ye, 1, 0, group)
+    y = _combine(ye.reshape(E * capacity, d), row, w, T, cfg.top_k, x.dtype)
+    for g in (token_groups or (group,)):
+        frac = comm.pmean(frac, g)
+        mean_prob = comm.pmean(mean_prob, g)
+    return y.reshape(b, s, d), _aux_loss(frac, mean_prob)
+
+
+def moe_mlp_sharded(
+    params: dict[str, torch.Tensor], x: torch.Tensor, cfg: MoEConfig,
+    mesh, *, expert_axis: str = mesh_lib.TENSOR_AXIS,
+    batch_axes: tuple[str, ...] = (mesh_lib.DATA_AXIS, mesh_lib.FSDP_AXIS,
+                                   mesh_lib.TENSOR_AXIS),
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The global batch [b, s, d] split over `batch_axes`, the experts
+    over `expert_axis` (which is also a batch axis: tokens and experts
+    co-shard, so the all-to-alls move only dispatched slots). Params and
+    x are the global tensors every rank holds alike; returns the global
+    output and the aux loss, gradients whole on every rank."""
+    n = mesh.shape[expert_axis]
+    if cfg.num_experts % n:
+        raise ValueError(f"num_experts={cfg.num_experts} not divisible by "
+                         f"{expert_axis}={n}")
+    n_batch = math.prod(mesh.shape[a] for a in batch_axes)
+    if x.shape[0] % max(1, n_batch):
+        raise ValueError(f"batch {x.shape[0]} not divisible by "
+                         f"{batch_axes}")
+    batch = mesh.axis_group(batch_axes)
+    experts = mesh.axis_group(expert_axis)
+    rest = mesh.axis_group([a for a in mesh.axis_names if a != expert_axis])
+    local = {"router": comm.pvary(params["router"], batch)}
+    for k in ("w_gate", "w_up", "w_down"):
+        local[k] = comm.shard(comm.pvary(params[k], rest), 0, experts)
+    y, aux = moe_mlp_expert_parallel(
+        local, comm.shard(x, 0, batch), cfg, group=experts,
+        token_groups=tuple(mesh.axis_group(a) for a in batch_axes))
+    return comm.all_gather_invariant(y, 0, batch), aux

@@ -25,8 +25,9 @@ Serves one model on the CUDA card (`--cpu` runs the plain PyTorch path
 on the CPU instead; the head dim 32 of `gemma-tiny` and `mixtral-tiny`
 has no kernel, so they are served with `--cpu` only: on the card the
 kernels refuse it at the first request). `mixtral-tiny` is the MoE
-family (`llama-moe`: routed experts, dropless at serving); `--quant
-int8` is refused for it. Without `--continuous`, the reference's default
+family (`llama-moe`: routed experts, dropless at serving); under
+`--quant int8` its expert stacks are dequantized each step, as the
+reference's. Without `--continuous`, the reference's default
 mode: the one-shot engine on a dense KV cache, single prompts coalesced
 by a `--batch-window-ms` window when it is above 0, else each request
 generated directly. With `--continuous`, continuous batching on the
@@ -234,11 +235,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.pool != "mixed" and not args.continuous:
         # the handoff ships paged KV blocks: the continuous engine's
         p.error("--pool prefill/decode requires --continuous")
-    if args.quant and model_registry()[args.model][2].mlp is not None:
-        p.error(f"--quant {args.quant} is not ported for the MoE family "
-                f"({args.model}): its expert stacks have no int8 product "
-                f"(the reference dequantizes every expert's whole stack "
-                f"each step)")
     return args
 
 

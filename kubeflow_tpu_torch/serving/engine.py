@@ -10,7 +10,10 @@ int8 `QTensor`s' in one `int8_proj` launch a group: four a layer),
 `multilora.lora_proj` for rows that carry adapter ids. A family's `mlp`
 replaces the FFN half: `MOE_LLAMA_FAMILY` routes it through the
 experts (parallel/moe.py) at a capacity where nothing drops, while the
-attention products stay behind `proj`.
+attention products stay behind `proj`: an adapter pack that targets
+wq/wk/wv/wo serves there, one that targets the dense MLP is refused,
+and int8 expert stacks are dequantized whole each step (`QTensor.to`,
+the reference's `.astype`).
 `InferenceEngine` holds the weights, the embedding, head and sampling
 steps the continuous engine builds on, and the reference's one-shot
 entry points: `generate`, `generate_stream`, `prefill_chunked`, `score`
@@ -96,6 +99,9 @@ def _moe_serving_mlp(cfg, p, h: torch.Tensor) -> torch.Tensor:
     y, _aux = moe_mlp(params, h, mcfg)
     return y
 
+
+# the LoRA targets a family with its own FFN (`Family.mlp`) lacks
+DENSE_MLP_TARGETS = ("w_gate", "w_up", "w_down")
 
 MOE_LLAMA_FAMILY = Family("llama-moe", torch.nn.functional.silu,
                           scale_embed=False, mlp=_moe_serving_mlp)
@@ -332,13 +338,17 @@ class InferenceEngine:
         self.ec = engine_config
         self.layers = [layer_params(params, li)
                        for li in range(cfg.num_layers)]
-        if adapter_pack is not None and family.mlp is not None:
-            # the packs' LoRA targets are the dense MLP's w_gate / w_up /
-            # w_down, which a family with its own FFN does not have
+        mlp_targets = sorted(set(getattr(adapter_pack, "blocks", ()))
+                             & set(DENSE_MLP_TARGETS))
+        if family.mlp is not None and mlp_targets:
+            # a family with its own FFN has no dense w_gate / w_up /
+            # w_down to adapt (the reference fails in build_pack there:
+            # its config has no intermediate_size); attention-only packs
+            # ride the shared attention half
             raise ValueError(
-                f"adapter packs are not ported for the {family.name} "
-                f"family: its FFN is routed experts, not the dense "
-                f"w_gate/w_up/w_down the adapters target")
+                f"adapter packs that target {mlp_targets} are refused for "
+                f"the {family.name} family: its FFN is routed experts, "
+                f"not the dense w_gate/w_up/w_down; target wq/wk/wv/wo")
         self.adapter_pack = adapter_pack
         self._pack_layers = pack_layers(adapter_pack)
         self._inv_freq = rope_frequencies(cfg.head_dim, theta=cfg.rope_theta,

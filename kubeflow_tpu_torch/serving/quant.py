@@ -3,8 +3,11 @@ kubeflow_tpu/serving/quant.py).
 
 Decode reads every block weight once per step, so its bytes are its
 time; symmetric per-output-channel int8 halves the bf16 bytes of the
-seven block matrices at ~0.3% RMS weight error. Embed, lm_head and the
-norms stay in their source dtype.
+seven block matrices at ~0.3% RMS weight error. Embed, lm_head, the
+norms and the MoE router stay in their source dtype. The MoE family's
+expert stacks are QTensors too, dequantized whole each step by its
+serving FFN (`QTensor.to`, the reference's `.astype`): no expert
+product reads int8 yet.
 
 `QTensor` holds `q` int8 `[..., in, out]` and `scale` bf16 `[..., 1,
 out]`; indexing a stacked `[L, in, out]` leaf gives layer l's
@@ -114,9 +117,9 @@ def quantize(w: torch.Tensor, *,
 
 
 def _quantize_stacked(w: torch.Tensor) -> QTensor:
-    """`quantize` of a stacked [L, in, out] leaf one layer at a time into
-    preallocated q and scale, so the fp32 transient is one [in, out]
-    matrix (a whole-leaf quantize of an 8B model's w_gate would hold a
+    """`quantize` of a stacked [L, ..., in, out] leaf one layer at a
+    time into preallocated q and scale, so the fp32 transient is one
+    layer (a whole-leaf quantize of an 8B model's w_gate would hold a
     second fp32 copy of it)."""
     q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
     scale = torch.empty((*w.shape[:-2], 1, w.shape[-1]),
@@ -131,18 +134,14 @@ def _quantize_stacked(w: torch.Tensor) -> QTensor:
 def quantize_blocks(params: Params) -> Params:
     """Serving params with the seven block matmul weights as QTensors
     (layer by layer); every other leaf passes through untouched (the
-    same objects). A MoE tree is refused: its expert stacks have no int8
-    product."""
-    if "router" in params["blocks"]:
-        raise ValueError(
-            "int8 weights are not ported for the MoE family: its expert "
-            "stacks [L, E, D, M] have no int8 product (the reference "
-            "dequantizes every expert's whole stack each step)")
+    same objects). A MoE tree's expert stacks [L, E, D, M] quantize per
+    expert and output channel over D, as the reference's; its router
+    stays as it is."""
     out = dict(params)
     blocks = dict(params["blocks"])
     for name in BLOCK_MATMUL_WEIGHTS:
         w = blocks[name]
-        blocks[name] = (_quantize_stacked(w) if w.ndim == 3
+        blocks[name] = (_quantize_stacked(w) if w.ndim >= 3
                         else quantize(w))
     out["blocks"] = blocks
     return out

@@ -15,8 +15,8 @@ trainer's `freeze_labels` (the base: no gradient, no update, no
 optimizer state), and `lora_loss_fn` merges the detached base with the
 adapters each step before the model's loss, so autograd reaches only A
 and B. `init_lora` draws A from a fan-in-scaled truncated normal and
-sets B = 0, so step 0 is the base. The reference's `lora_logical_axes`
-is sharding, which waits for the distributed queue (ROADMAP Queue 1).
+sets B = 0, so step 0 is the base. `lora_logical_axes` gives the
+train tree's adapters their sharding on the trainer's mesh.
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from kubeflow_tpu_torch.parallel.sharding import LayerStack
 
 Params = dict
 
@@ -75,6 +77,14 @@ def merge_lora(base: Params, adapters: Params,
 
     for name, ab in adapters["blocks"].items():
         w = blocks[name]
+        if any(isinstance(t, LayerStack) for t in (w, ab["A"], ab["B"])):
+            # leaves of the trainer's mesh view: merged layer by layer,
+            # where the block reads the layer (train/fsdp.py)
+            blocks[name] = LayerStack.map(
+                lambda w, a, b: (w.float() + lora_cfg.scaling
+                                 * (a.float() @ b.float())).to(w.dtype),
+                w, ab["A"], ab["B"])
+            continue
         delta = torch.einsum("lir,lro->lio", f32(ab["A"], w.device),
                              f32(ab["B"], w.device))
         blocks[name] = (w.float() + lora_cfg.scaling * delta).to(w.dtype)
@@ -100,6 +110,20 @@ def init_lora(cfg, lora_cfg: LoraConfig, seed: int,
             "A": a * d_in**-0.5,
             "B": torch.zeros((L, r, d_out), dtype=torch.float32,
                              device=device)}
+    return out
+
+
+def lora_logical_axes(base_axes: Params, lora_cfg: LoraConfig) -> Params:
+    """Adapter logical axes mirroring the base weight's: A keeps the
+    in-axis, B the out-axis; the rank axis replicates. `base_axes` is
+    the model's `param_logical_axes` tree."""
+    out: Params = {"blocks": {}}
+    for name in lora_cfg.targets:
+        layers_ax, in_ax, out_ax = base_axes["blocks"][name]
+        out["blocks"][name] = {
+            "A": (layers_ax, in_ax, "lora_rank"),
+            "B": (layers_ax, "lora_rank", out_ax),
+        }
     return out
 
 

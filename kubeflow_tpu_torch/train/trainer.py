@@ -1,4 +1,5 @@
-"""Single-device training (counterpart: kubeflow_tpu/train/trainer.py).
+"""Training on one device or on a mesh (counterpart:
+kubeflow_tpu/train/trainer.py).
 
 Model-agnostic, as the reference's: it takes llama (`llama.apply`, or
 chunked CE over `llama.hidden` through `loss_fn`) and gemma
@@ -10,8 +11,15 @@ port runs one card, eagerly: the loss and its gradients through autograd
 then an AdamW or Adafactor update written out to match optax's, in
 place. `freeze_labels` (LoRA's frozen base, train/lora.py) is the
 reference's multi_transform: frozen leaves are no autograd leaves and
-have no optimizer state. There is no mesh, so no sharding rules.
-Checkpoints: train/checkpoint.py.
+have no optimizer state. Checkpoints: train/checkpoint.py.
+
+With `mesh=` (parallel/mesh.py) and the params' `logical_axes`, the
+same step runs on every rank of the mesh under the sharding `rules`
+(default LLAMA_RULES): parameters as FSDP blocks gathered per block
+before use, the batch split over the data axes, the moments ZeRO-sliced
+over "data" with `zero_optimizer` (train/fsdp.py has the layout). `step`
+takes the global batch on every rank; `gather_params` assembles the
+full params. Without a mesh nothing of this runs.
 
 The obs bridge, as the reference's: each step is a `train.step` span
 and a `step` phase of a `PhaseProfiler(phases=TRAIN_PHASES)` (the time
@@ -36,6 +44,7 @@ optax parity, where PyTorch's defaults differ:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import math
@@ -49,6 +58,7 @@ from torch.utils.checkpoint import checkpoint
 from kubeflow_tpu_torch import obs
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.obs.metrics import Counter
+from kubeflow_tpu_torch.parallel import comm
 
 Params = dict
 
@@ -148,9 +158,10 @@ class TrainConfig:
     # "adamw" (two fp32 moments mirroring the params) or "adafactor"
     # (a factored second moment: a row and a column vector a matrix)
     optimizer: str = "adamw"
-    # ZeRO-style partitioning of the optimizer state over the data axis.
-    # On one device there is no data axis, so this is an exact no-op, as
-    # it is in the reference on data=1 meshes; kept for config parity.
+    # ZeRO-style partitioning of the optimizer state over the data axis
+    # of a mesh (train/fsdp.py): each data-parallel rank holds and
+    # updates its slice of every moment. An exact no-op without a mesh
+    # or on data=1 meshes, as in the reference.
     zero_optimizer: bool = True
 
 
@@ -187,6 +198,14 @@ def _named_leaves(tree: Params, prefix: str = "") -> list:
         out.extend(_named_leaves(v, name + ".") if isinstance(v, dict)
                    else [(name, v)])
     return out
+
+
+def _local_sq_norm(names, grads) -> torch.Tensor:
+    return sum((g.float() ** 2).sum() for g in grads)
+
+
+def _whole_leaf(name, p, g):
+    return contextlib.nullcontext((p, g))
 
 
 class _Optimizer:
@@ -234,19 +253,28 @@ class _Optimizer:
         return torch.zeros_like(p)
 
     @torch.no_grad()
-    def update(self, grads: list, opt_state: dict, params: Params) -> None:
+    def update(self, grads: list, opt_state: dict, params: Params, *,
+               sq_norm: Callable = _local_sq_norm,
+               slot: Callable = _whole_leaf) -> None:
         """Apply one update to `params` and `opt_state` in place; `grads`
-        are in the order of the trained leaves (`trained`)."""
-        norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+        are in the order of the trained leaves (`trained`). Two hooks
+        for leaves held as blocks of a mesh (train/fsdp.py,
+        models/llama_pp.py): `sq_norm(names, grads)` gives the clip's
+        squared global norm (default: the local sum), and `slot(name, p,
+        g)` is a context giving the slices of p and g that the leaf's
+        moments cover, and putting p together after the update (default:
+        p and g whole)."""
+        named = self.trained(params)
+        norm = torch.sqrt(sq_norm([n for n, _ in named], grads))
         # optax: where(norm < max, g, g / norm * max)
         clip = torch.where(norm < self.tc.grad_clip, torch.ones_like(norm),
                            self.tc.grad_clip / norm)
         count = opt_state["count"]
         lr = self.schedule(count)
-        leaves = [p for _, p in self.trained(params)]
-        for i, (p, g) in enumerate(zip(leaves, grads, strict=True)):
-            self._leaf(p, g * clip, [opt_state[s][i] for s in self.slots],
-                       count, lr)
+        for i, ((name, p), g) in enumerate(zip(named, grads, strict=True)):
+            with slot(name, p, g) as (ps, gs):
+                self._leaf(ps, gs * clip,
+                           [opt_state[s][i] for s in self.slots], count, lr)
         opt_state["count"] = count + 1
 
 
@@ -399,14 +427,27 @@ class Trainer:
     `lora_freeze_labels`). `tracer` / `registry` receive the obs bridge's
     spans and families (default: `obs.DEFAULT_TRACER` and the process's
     default registry; several trainers in one process share the
-    series)."""
+    series). `mesh` / `logical_axes` / `rules`: training on a mesh (the
+    module docstring); `device` is then this rank's device."""
 
     def __init__(self, apply_fn: Callable, init_fn: Callable[[int], Params],
                  train_config: TrainConfig = TrainConfig(),
                  loss_fn: Callable | None = None,
                  device: torch.device | str | None = None, *,
                  freeze_labels: Params | None = None,
-                 tracer=None, registry=None):
+                 tracer=None, registry=None, mesh=None,
+                 logical_axes: Params | None = None, rules=None):
+        self.mesh = mesh
+        self.layout = None
+        if mesh is not None:
+            if logical_axes is None:
+                raise ValueError("a mesh needs the params' logical_axes")
+            if rules is None:
+                from kubeflow_tpu_torch.parallel.sharding import LLAMA_RULES
+                rules = LLAMA_RULES
+            from kubeflow_tpu_torch.train.fsdp import MeshLayout
+            self.layout = MeshLayout(mesh, logical_axes, rules,
+                                     train_config)
         self.apply_fn = apply_fn
         self.init_fn = init_fn
         self.tc = train_config
@@ -472,8 +513,31 @@ class Trainer:
         """Fresh optimizer state around existing params (fine-tuning).
         The params are moved to the device and become autograd leaves;
         tensors already there are used as they are, not copied."""
+        if self.layout is not None:
+            return self._mesh_state(params)
         params = _prep(params, self.device, self.freeze_labels)
         return self.state_from(params, self.optimizer.init(params), 0)
+
+    def _mesh_state(self, params: Params) -> TrainState:
+        """This rank's blocks of full params, and moments for the slices
+        it updates."""
+        lay = self.layout
+        self._n_params = sum(p.numel() for p in _leaves(params))
+        local = lay.shard_params(params)
+        local = _prep(local, self.device, self.freeze_labels)
+        named = self.optimizer.trained(local)
+        opt_state = {"count": 0, **{slot: [
+            self.optimizer._zeros(slot, lay.slot_view(n, p)).detach()
+            for n, p in named] for slot in self.optimizer.slots}}
+        self._opt_bytes = lay.opt_state_bytes(named, self.optimizer)
+        return TrainState(local, opt_state, 0)
+
+    def gather_params(self, state: TrainState) -> Params:
+        """The full params (on a mesh: assembled from every rank's
+        blocks, a collective every rank calls)."""
+        if self.layout is None:
+            return state.params
+        return self.layout.gather_params(state.params)
 
     def state_from(self, params: Params, opt_state: dict, step: int, *,
                    device: torch.device | str | None = None) -> TrainState:
@@ -534,7 +598,25 @@ class Trainer:
             self.compile_seconds.observe(dt)
         return out
 
+    def _mesh_step(self, state: TrainState, tokens, targets, mask):
+        lay = self.layout
+        tokens, targets, mask = (lay.local_rows(x)
+                                 for x in (tokens, targets, mask))
+        weight = lay.loss_weight(mask)
+        named = self.optimizer.trained(state.params)
+        loss = self._loss(lay.model_view(state.params), tokens, targets,
+                          mask) * weight
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+        with torch.no_grad():
+            self.optimizer.update(lay.reduce_grads(named, grads),
+                                  state.opt_state, state.params,
+                                  sq_norm=lay.sq_norm, slot=lay.slot)
+        state.step += 1
+        return state, comm._psum(loss.detach(), lay.batch)
+
     def _step(self, state: TrainState, tokens, targets, mask):
+        if self.layout is not None:
+            return self._mesh_step(state, tokens, targets, mask)
         acc = self.tc.grad_accum
         if acc <= 1:
             loss, grads = self._value_and_grad(state.params, tokens,
@@ -578,8 +660,10 @@ class Trainer:
         return estimate_step_flops(self.param_count, batch * seq)
 
     def opt_state_bytes(self) -> int:
-        """Optimizer-state bytes (every slot of every trained leaf; known
-        once a state was built), all of it on the one device."""
+        """Optimizer-state bytes, known once a state was built: on one
+        device every slot of every trained leaf; on a mesh what this rank
+        holds, as the reference's `opt_state_bytes(per_replica=True)`
+        reckons it (`MeshLayout.opt_state_bytes`)."""
         if self._opt_bytes is None:
             raise RuntimeError("opt_state_bytes is known after init() or "
                                "init_from_params()")

@@ -56,3 +56,14 @@ def test_data_and_single_card_modules_are_covered():
         "data/loader", "data/_native", "data/bpe", "tools/prepare_data",
         "tools/eval_ppl", "hpo/search", "hpo/local", "utils/profiling",
         "models/vit", "models/mnist")} <= names
+
+
+def test_distributed_modules_are_covered():
+    """The distributed set's modules (mesh, collectives, sharding rules,
+    ring, pipeline, the mesh trainer, pipelined Llama) are among the
+    files checked above."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {f"kubeflow_tpu_torch/{m}.py" for m in (
+        "distributed", "parallel/mesh", "parallel/comm",
+        "parallel/sharding", "parallel/ring", "parallel/pipeline",
+        "train/fsdp", "models/llama_pp")} <= names

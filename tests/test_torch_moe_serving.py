@@ -16,10 +16,12 @@ among batch-mates and pads: the FFN within 1e-6 (the expert products
 run over another number of slots), tokens identical, logprobs within
 1e-5.
 
-The MoE combinations the CLI and the engine accept are tested here
+The MoE combinations the CLI and the engines accept are tested here
 (speculative decoding with a MoE target or a MoE draft: greedy in,
-greedy out); those they refuse are refused by name (`--quant int8`,
-adapter packs).
+greedy out; int8 weights against the reference's int8 engine, bit-equal
+leaves; an attention-only adapter pack against the reference's engine
+with the same pack and the merged oracles, at LP_TOL); a pack that
+targets the dense MLP is refused by name.
 """
 
 import asyncio
@@ -35,7 +37,11 @@ from kubeflow_tpu.models import llama_moe as jmodel
 from kubeflow_tpu.serving import EngineConfig as JEngineConfig
 from kubeflow_tpu.serving import InferenceEngine as JEngine
 from kubeflow_tpu.serving import MOE_LLAMA_FAMILY as J_MOE
+from kubeflow_tpu.serving import build_pack as jbuild_pack
+from kubeflow_tpu.serving import quant as jquant
 from kubeflow_tpu.serving.__main__ import model_registry as j_registry
+from kubeflow_tpu.train.lora import LoraConfig as JLoraConfig
+from kubeflow_tpu.train.lora import init_lora as j_init_lora
 from kubeflow_tpu_torch import bridge
 from kubeflow_tpu_torch.models import llama as tllama
 from kubeflow_tpu_torch.models import llama_moe as tmodel
@@ -48,7 +54,14 @@ from kubeflow_tpu_torch.serving.engine import (
     InferenceEngine,
     _moe_serving_mlp,
 )
-from kubeflow_tpu_torch.serving.quant import quantize_blocks
+from kubeflow_tpu_torch.serving.multilora import AdapterPack, build_pack
+from kubeflow_tpu_torch.serving.quant import (
+    BLOCK_MATMUL_WEIGHTS,
+    QTensor,
+    param_bytes,
+    quantize_blocks,
+)
+from kubeflow_tpu_torch.train.lora import LoraConfig, merge_lora
 from kubeflow_tpu_torch.serving.server import (
     ENGINES_KEY,
     create_serving_app,
@@ -284,14 +297,171 @@ def test_cli_refuses_mixtral_tiny_off_the_cpu():
 
 
 def test_refused_combinations_name_the_moe_family(engines, capsys):
+    """What stays refused for the MoE family, by name: an adapter pack
+    that targets the dense MLP (w_gate / w_up / w_down), which a routed
+    FFN lacks. `--quant int8` and attention-only packs are served
+    (below)."""
     _, teng, _, _ = engines
-    with pytest.raises(SystemExit):
-        cli.parse_args(["--model", "mixtral-tiny", "--random", "--cpu",
-                        "--quant", "int8"])
-    assert "not ported for the MoE family" in capsys.readouterr().err
-    with pytest.raises(ValueError, match="MoE family"):
-        quantize_blocks(teng.params)
-    with pytest.raises(ValueError, match="adapter packs are not ported "
+    args = cli.parse_args(["--model", "mixtral-tiny", "--random", "--cpu",
+                           "--quant", "int8"])
+    assert args.quant == "int8"
+    assert "not ported" not in capsys.readouterr().err
+    fake = AdapterPack(blocks={"wq": {}, "w_up": {}}, scaling=1.0,
+                       names={"a": 1})
+    with pytest.raises(ValueError, match=r"target \['w_up'\] are refused "
                                          "for the llama-moe family"):
         InferenceEngine(teng.params, teng.cfg, MOE_LLAMA_FAMILY,
-                        device="cpu", adapter_pack=object())
+                        device="cpu", adapter_pack=fake)
+
+
+# -- int8 weights -------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def int8_engines(engines):
+    """The reference's int8 engine (its `quantize_blocks` of the x50
+    weights) and the port's on the same weights, quantized by the port."""
+    jeng, teng, _, _ = engines
+    jq = JEngine(jquant.quantize_blocks(jeng.params), jeng.cfg, J_MOE,
+                 JEngineConfig(max_len=MAX_LEN))
+    tq = InferenceEngine(quantize_blocks(teng.params), teng.cfg,
+                         MOE_LLAMA_FAMILY, EngineConfig(max_len=MAX_LEN),
+                         device="cpu")
+    return jq, tq
+
+
+def test_int8_blocks_match_reference_bit_for_bit(int8_engines):
+    """Every block matmul weight, the [L, E, D, M] expert stacks among
+    them, quantizes to the reference's q and scale; the router stays
+    as it is; param bytes are the reference's `param_bytes`."""
+    jq, tq = int8_engines
+    for name in BLOCK_MATMUL_WEIGHTS:
+        got, want = tq.params["blocks"][name], jq.params["blocks"][name]
+        assert isinstance(got, QTensor), name
+        np.testing.assert_array_equal(got.q.numpy(), np.asarray(want.q))
+        np.testing.assert_array_equal(got.scale.float().numpy(),
+                                      np.asarray(want.scale, np.float32))
+    assert tq.params["blocks"]["w_gate"].scale.shape == (2, 4, 1, 192)
+    assert not isinstance(tq.params["blocks"]["router"], QTensor)
+    assert param_bytes(tq.params) == jquant.param_bytes(jq.params)
+
+
+def test_int8_generate_matches_reference(engines, int8_engines):
+    """One-shot generate on a left-padded batch: greedy tokens equal to
+    the reference's int8 engine, logprobs within LP_TOL."""
+    _, _, prompts, _ = engines
+    jq, tq = int8_engines
+    arr, mask = _padded(prompts)
+    wt, wl = jq.generate(jnp.asarray(arr), prompt_mask=jnp.asarray(mask),
+                         max_new=MAX_NEW, return_logprobs=True)
+    gt, gl = tq.generate(arr, prompt_mask=mask, max_new=MAX_NEW,
+                         return_logprobs=True)
+    np.testing.assert_array_equal(gt.numpy(), np.asarray(wt))
+    np.testing.assert_allclose(gl.numpy(), np.asarray(wl), **LP_TOL)
+
+
+@pytest.mark.parametrize("chunk_tokens", [None, 8])
+def test_int8_continuous_matches_reference(engines, int8_engines,
+                                           chunk_tokens):
+    """The continuous batcher over the int8 MoE weights, monolithic and
+    chunked: each row the reference's int8 solo generation."""
+    _, _, prompts, _ = engines
+    jq, tq = int8_engines
+    got = asyncio.run(_serve(ContinuousBatcher(
+        tq, asyncio.Lock(), max_slots=3, kv_block_size=BS,
+        prefill_chunk_tokens=chunk_tokens, seed=0), prompts))
+    for p, (toks, lps) in zip(prompts, got):
+        wt, wl = jq.generate(jnp.asarray([p], jnp.int32), max_new=MAX_NEW,
+                             return_logprobs=True)
+        assert list(toks) == np.asarray(wt)[0].tolist()
+        np.testing.assert_allclose(lps, np.asarray(wl)[0], **LP_TOL)
+
+
+# -- attention-only adapter packs ---------------------------------------------
+
+ATTN = ("wq", "wk", "wv", "wo")
+
+
+def _lora_adapter(seed: int, lcfg):
+    """A reference LoRA tree on MIXTRAL_TINY with B non-zero (a fresh
+    init has B = 0: the base), the dense pack tests' recipe."""
+    ad = j_init_lora(jax.random.key(seed), jmodel.MIXTRAL_TINY,
+                     JLoraConfig(rank=lcfg.rank, targets=lcfg.targets))
+    return {"blocks": {
+        t: {"A": np.asarray(ab["A"]),
+            "B": np.asarray(jax.random.normal(
+                jax.random.key(seed + 99), ab["B"].shape) * 0.05)}
+        for t, ab in ad["blocks"].items()}}
+
+
+@pytest.fixture(scope="module")
+def lora_engines(engines):
+    """Both engines with one pack of two attention-only adapters (rank
+    4), and the port's engines on each adapter's merged weights."""
+    jeng, teng, _, _ = engines
+    lcfg = LoraConfig(rank=4, targets=ATTN)
+    jlcfg = JLoraConfig(rank=4, targets=ATTN)
+    adapters = {"a": _lora_adapter(1, lcfg), "b": _lora_adapter(2, lcfg)}
+    jpack = jbuild_pack(jeng.cfg, jlcfg, adapters)
+    jl = JEngine(jeng.params, jeng.cfg, J_MOE,
+                 JEngineConfig(max_len=MAX_LEN), adapter_pack=jpack)
+    tl = InferenceEngine(teng.params, teng.cfg, MOE_LLAMA_FAMILY,
+                         EngineConfig(max_len=MAX_LEN), device="cpu",
+                         adapter_pack=build_pack(teng.cfg, lcfg, adapters))
+    merged = {n: InferenceEngine(
+        merge_lora(teng.params, a, lcfg), teng.cfg, MOE_LLAMA_FAMILY,
+        EngineConfig(max_len=MAX_LEN), device="cpu")
+        for n, a in adapters.items()}
+    return jl, tl, merged
+
+
+def test_attention_pack_generate_matches_reference(engines, lora_engines):
+    """Per-row adapters in one batch (base, a, b): greedy tokens equal to
+    the reference's engine with the same pack and to each merged
+    oracle, logprobs within LP_TOL; the adapters move the tokens, and
+    the zero adapter gives the base's."""
+    _, teng, prompts, _ = engines
+    jl, tl, merged = lora_engines
+    p = prompts[1]
+    names = ["", "a", "b"]
+    gt, gl = tl.generate([p] * 3, max_new=MAX_NEW, adapter=names,
+                         return_logprobs=True)
+    wt, wl = jl.generate(jnp.asarray([p] * 3, jnp.int32), max_new=MAX_NEW,
+                         adapter=names, return_logprobs=True)
+    np.testing.assert_array_equal(gt.numpy(), np.asarray(wt))
+    np.testing.assert_allclose(gl.numpy(), np.asarray(wl), **LP_TOL)
+    base = teng.generate([p], max_new=MAX_NEW)[0].tolist()
+    assert gt[0].tolist() == base
+    for i, n in enumerate(names[1:], 1):
+        mt, ml = merged[n].generate([p], max_new=MAX_NEW,
+                                    return_logprobs=True)
+        assert gt[i].tolist() == mt[0].tolist()
+        np.testing.assert_allclose(gl[i].numpy(), ml[0].numpy(), **LP_TOL)
+    assert not np.allclose(gl[1].numpy(), gl[0].numpy(), atol=1e-3)
+
+
+@pytest.mark.parametrize("chunk_tokens", [None, 8])
+def test_attention_pack_continuous_matches_reference(engines, lora_engines,
+                                                     chunk_tokens):
+    """The continuous batcher takes the engine's pack: concurrent base,
+    a and b requests decode their adapters' reference tokens."""
+    _, _, prompts, _ = engines
+    jl, tl, _ = lora_engines
+    reqs = list(zip(prompts, ["a", "", "b", "a"]))
+    batcher = ContinuousBatcher(tl, asyncio.Lock(), max_slots=3,
+                                kv_block_size=BS,
+                                prefill_chunk_tokens=chunk_tokens, seed=0)
+
+    async def serve():
+        try:
+            return await asyncio.gather(*(
+                batcher.submit(p, MAX_NEW, {"adapter": a} if a else {},
+                               with_logprobs=True) for p, a in reqs))
+        finally:
+            await batcher.close()
+
+    for (p, a), (toks, lps) in zip(reqs, asyncio.run(serve())):
+        wt, wl = jl.generate(jnp.asarray([p], jnp.int32), max_new=MAX_NEW,
+                             adapter=a, return_logprobs=True)
+        assert list(toks) == np.asarray(wt)[0].tolist(), a
+        np.testing.assert_allclose(lps, np.asarray(wl)[0], **LP_TOL)

@@ -49,10 +49,12 @@ Phases, each fatal on failure (exit code 1, no result line):
              hd 256, 18 layers' pools): paged decode at the same cursors
              and splits, prefill-append as the 4-row batch, the
              300-token prompt's slices and the capped repeat, the flash
-             forward, dQ and dK/dV (bf16 only: fp32 takes hd 128) over
-             the same four cases at b 2 (dK/dV also timed without its
-             query-head split), dense decode at the window batch and at
-             batch 1; the same bounds and controls, SDPA with K/V
+             forward, dQ and dK/dV (bf16 and fp32) over the same four
+             cases at b 2 (dK/dV also timed without its query-head
+             split; the fp32 CUDA-core kernels timed at the causal shape
+             against fp32 SDPA and their bound at the fp32 rate, 67
+             TFLOP/s, as `<name>@fp32-256` rows), dense decode at the
+             window batch and at batch 1; the same bounds and controls, SDPA with K/V
              repeated over the group, ptxas registers and spills of
              every hd-256 instantiation.
              Then the flash forward, dQ and dK/dV at Mixtral-8x7B's
@@ -533,7 +535,39 @@ Phase 17:    the distributed set (kubeflow_tpu_torch/parallel/,
              schedule implies. (e) One MoE layer at Mixtral-8x7B's
              widths, 4 experts on each of 2 ranks, forward and backward
              against `moe_mlp` on each rank's token block. Then the ring
-             and an FSDP step on a one-rank NCCL group.
+             and an FSDP step on a one-rank NCCL group (its process runs
+             beside the ring gang).
+Phase 18:    fp32 flash at head dim 256 on a path, and the elastic
+             trainer fleet (train/elastic.py, train/goodput.py,
+             train/checkpoint.py over the mesh trainer,
+             tools/memplan.py). (a) gemma-2b's widths at
+             dtype=float32, 2 of its 18 layers, batch 1 x 2048, 3 steps
+             through the fp32 flash kernels at head dim 256 against the
+             plain attention path from the same weights (TRAIN_LOSS_TOL;
+             exact launches). (b) `elastic._build_trainer(1, llama3-1b)`
+             at phase 4's 2 x 2048 under a GoodputLedger and the
+             Checkpointer: 4 steps with a save at step 2, then a rebuild
+             and `restore_or_init` as a restarted worker does and steps
+             3-4 again (booked to replay, their losses within
+             ELASTIC_LOSS_TOL of the first run's; the ledger's causes
+             within 1% of its wall; exact launches; save, wait and
+             restore seconds, bytes written, the goodput fraction). (c)
+             a 2-rank gloo gang on cuda:0, llama3-1b at full width and
+             FSDP_LAYERS layers on (data 2) with ZeRO moments, 3 steps
+             and a save; one device restores it (moments bit-equal to
+             the gang's gathered ones, the resize logged) and takes 2
+             steps against the gang's own 2 (TRAIN_LOSS_TOL). (d) the
+             coordinator CLI (--min-replicas 2) and 3 worker CLIs on
+             cuda:0 at the reference's defaults (llama-tiny, batch 12,
+             seq 16, 16 steps, a save every 4, a 1 s slow save); the
+             chief is SIGKILLed while /elastic/world shows it saving step
+             8 (or a later save); the survivors restart from the last committed step and
+             finish; one restart, a later generation, every loss line
+             against a one-worker uninterrupted run (ELASTIC_LOSS_TOL),
+             /elastic/metrics federating both survivors, /elastic/traces
+             merging their tracks, each survivor's goodput book. (e)
+             `memplan.plan` for phase 4's run beside phase 4's measured
+             peak (a finding: the planner's budget is a TPU chip's).
 Phase 3 also times the tracer: the same cold requests twice with the
 app's tracer detached and twice attached, host ms a decode step each.
 Then prints the `kernels` JSON line (launches: the paged kernels' over
@@ -542,6 +576,9 @@ other kernel's over its phases (4, 8, 15b, 15c, 16a and 17's ranks for
 flash, 5, 8, 9 and 14 for dense decode); each kernel
 again as `<name>@gemma-2b`, timed in phase 2 at gemma-2b's shapes and
 counted over phase 6, or phase 7 for the flash kernels; the flash
+kernels as `<name>@fp32-256`, timed in phase 2 in fp32 at gemma-2b's
+shapes and counted over phase 18a (18b and 18c count under the plain
+names); the flash
 kernels as `<name>@mixtral`, timed in phase 2 at Mixtral's attention
 and counted over phase 15a (15b and 15c count under the plain names,
 15c's serving under the paged kernels'); and
@@ -564,6 +601,7 @@ smoke runs.
 from __future__ import annotations
 
 import asyncio
+import atexit
 import dataclasses
 import gc
 import json
@@ -584,6 +622,7 @@ NUM_BLOCKS = 1 + SLOTS * NB        # trash + every slot at max_len
 LAYERS = 16
 HBM_BYTES_S = 3.35e12              # H100 SXM device memory rate
 BF16_FLOPS_S = 989e12              # H100 SXM dense bf16 tensor rate
+FP32_FLOPS_S = 67e12               # H100 SXM fp32 on the CUDA cores
 # Decode kernels vs plain versions, bf16: both accumulate in fp32 and
 # round the result once, so they differ by at most one bf16 ulp of it
 # (<= 2**-7 of its value); the absolute floor covers fp32 summation
@@ -672,6 +711,9 @@ GEMMA = "@gemma-2b"
 # suffix of the prefill-append kernel measured at the speculative verify
 # pass's shape (phase 2) and launched by phase 9's spec waves
 VERIFY = "@verify"
+# suffix of the fp32 flash kernels measured at gemma-2b's head dim 256
+# (phase 2) and launched by phase 18a's fp32 training
+FP32_256 = "@fp32-256"
 
 
 def fail(msg: str) -> None:
@@ -751,12 +793,13 @@ def _time_ms(torch, fn, n):
 
 
 def _summary(kind, worst, kernel, plain, library_ms, bytes_moved, flops,
-             library="SDPA"):
+             library="SDPA", flops_s=BF16_FLOPS_S):
     """Log one kernel's timings and return its `kernels`-line numbers.
     The bound is the larger of bytes over the memory rate and flops over
-    the bf16 tensor rate, for this run's inputs."""
+    the inputs' peak rate (`flops_s`: the bf16 tensor rate unless
+    given), for this run's inputs."""
     t_bytes = bytes_moved / HBM_BYTES_S * 1e3
-    t_ops = flops / BF16_FLOPS_S * 1e3
+    t_ops = flops / flops_s * 1e3
     bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
                           else (t_ops, "operations"))
     log(f"  {kind}: device {kernel[0]:.4f} ms (eager call {kernel[1]:.4f} "
@@ -1303,12 +1346,13 @@ def _pairs(s, causal, window):
     return sum(min(t + 1, window or s) for t in range(s))
 
 
-def _flash_need(kind, b, s, causal, window, g=LLAMA_1B):
-    """(bytes, flops) one call needs at bf16: every input read once,
-    every output written once; 2 hd flops per visible pair and product
-    (forward: QK, PV; dQ: QK, dO V^T, dS K; dK/dV: those and P^T dO)."""
-    q = b * s * g.n_q * g.hd * 2
-    kv = b * s * g.n_kv * g.hd * 2
+def _flash_need(kind, b, s, causal, window, g=LLAMA_1B, elt=2):
+    """(bytes, flops) one call needs with `elt`-byte elements (bf16 by
+    default): every input read once, every output written once; 2 hd
+    flops per visible pair and product (forward: QK, PV; dQ: QK, dO V^T,
+    dS K; dK/dV: those and P^T dO)."""
+    q = b * s * g.n_q * g.hd * elt
+    kv = b * s * g.n_kv * g.hd * elt
     rows = b * g.n_q * s * 4                    # an fp32 lse or delta
     products, moved = {
         "fwd": (2, q + 2 * kv + q + rows),      # q k v -> o lse
@@ -1379,13 +1423,15 @@ def _time_events(torch, fn, n):
 
 def check_flash(torch, dev, g=LLAMA_1B):
     """Each flash kernel against its plain version over the cases and
-    every dtype its kernels take at `g`'s head dim (bf16 and fp32 at
-    llama3-1b's 128, bf16 at gemma-2b's 256); timings at the causal bf16
-    shape."""
+    every dtype its kernels take at `g`'s head dim (bf16 and fp32, at
+    llama3-1b's 128 and gemma-2b's 256); timings at the causal bf16
+    shape, and at gemma-2b's head dim the fp32 kernels' too (their rows
+    carry the FP32_256 suffix)."""
     from kubeflow_tpu_torch.ops.cuda import flash_attention as fa
 
     gen = torch.Generator().manual_seed(4)
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    worst_fp32 = dict(worst)
     for dtype in (torch.bfloat16, torch.float32):
         if g.hd not in fa.HEAD_DIMS[dtype]:
             continue
@@ -1441,8 +1487,8 @@ def check_flash(torch, dev, g=LLAMA_1B):
                     f"+ {rtol:.3g} |ref|{slack})")
                 if ratio > 1 or err != err:
                     fail(f"flash {kind} {name} {dtype}: err {err} over tol")
-                if bf16:
-                    worst[kind] = max(worst[kind], err)
+                w = worst if bf16 else worst_fp32
+                w[kind] = max(w[kind], err)
             del q, do, k, v, o, lse, wo, wlse, delta, args, dq, dk, dv
             del wdq, wdk, wdv, o_mag, dq_mag, dk_mag, dv_mag
             torch.cuda.empty_cache()
@@ -1522,6 +1568,74 @@ def check_flash(torch, dev, g=LLAMA_1B):
         marker = f"flash_{kind}_tc_kernelILi{g.hd}E"
         log(f"    ptxas, bf16 {kind} kernel at hd {g.hd}: "
             f"{_ptxas(f'flash_attention_{kind}', marker)}")
+    del q, k, v, do, o, lse, delta, args, qt, kt, vt, dot, out
+    torch.cuda.empty_cache()
+    if g.hd == 256:
+        stats.update(_time_flash_fp32(torch, dev, g, gen, worst_fp32))
+    return stats
+
+
+def _time_flash_fp32(torch, dev, g, gen, worst):
+    """The fp32 CUDA-core kernels at `g`'s head dim 256, causal, the
+    training shape: device ms against their plain versions, fp32 SDPA
+    (forward, and forward + backward for dQ and dK/dV; K/V repeated over
+    the group, graph-replayed) and the bound at the fp32 CUDA-core rate.
+    `worst`: each kernel's max error over phase 2's fp32 cases."""
+    from kubeflow_tpu_torch.ops.cuda import flash_attention as fa
+
+    s = FLASH_S
+    q, do = (torch.randn(FLASH_B, s, g.n_q, g.hd, generator=gen).to(dev)
+             for _ in range(2))
+    k, v = (torch.randn(FLASH_B, s, g.n_kv, g.hd, generator=gen).to(dev)
+            for _ in range(2))
+    o, lse = fa.flash_fwd_plain(q, k, v)
+    delta = fa.flash_delta(o, do)
+    args = (q, k, v, do, lse, delta)
+    kernel = {"fwd": _time_ms(torch, lambda i: fa.flash_block_fwd(
+                  q, k, v, causal=True), 10),
+              "dq": _time_ms(torch, lambda i: fa.flash_dq(*args), 10),
+              "dkv": _time_ms(torch, lambda i: fa.flash_dkv(*args), 10)}
+    plain = {"fwd": _time_ms(torch, lambda i: fa.flash_fwd_plain(q, k, v),
+                             2),
+             "dq": _time_ms(torch, lambda i: fa.flash_dq_plain(*args), 2),
+             "dkv": _time_ms(torch, lambda i: fa.flash_dkv_plain(*args),
+                             2)}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    group = g.n_q // g.n_kv
+    qt = q.transpose(1, 2).detach().requires_grad_(True)
+    kt, vt = (x.repeat_interleave(group, dim=2).transpose(1, 2).detach()
+              .requires_grad_(True) for x in (k, v))
+    dot = do.transpose(1, 2)
+
+    def fwd():
+        with torch.no_grad():
+            return sdpa(qt, kt, vt, is_causal=True)
+
+    dq, (dk, dv) = fa.flash_dq(*args), fa.flash_dkv(*args)
+    same = [float((a == b).float().mean()) for a, b in (
+        (dq, fa.flash_dq_plain(*args)), *zip((dk, dv),
+                                             fa.flash_dkv_plain(*args)))]
+    log(f"  fp32 dQ, dK, dV at the causal shape: share of elements equal "
+        f"to the plain versions' bit for bit {same}")
+    del dq, dk, dv
+    lib_fwd = _time_ms(torch, lambda i: fwd(), 10)[0]
+    lib_fb = _time_ms(torch, lambda i: torch.autograd.grad(
+        sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), dot), 10)[0]
+    log(f"  fp32 SDPA (K/V repeated over the group), graph-replayed: "
+        f"forward {lib_fwd:.4f} ms, forward + backward {lib_fb:.4f} ms")
+    stats = {}
+    for kind, lib in (("fwd", lib_fwd), ("dq", lib_fb), ("dkv", lib_fb)):
+        moved, flops = _flash_need(kind, FLASH_B, s, True, None, g, elt=4)
+        st = stats[f"flash_attention_{kind}{FP32_256}"] = _summary(
+            f"flash {kind} fp32 ({g.model}: b {FLASH_B}, s {s}, n_q "
+            f"{g.n_q}, n_kv {g.n_kv}, hd {g.hd}, causal, CUDA cores)",
+            worst[kind], kernel[kind], plain[kind], lib, moved, flops,
+            flops_s=FP32_FLOPS_S)
+        log(f"    {st['ms'] / lib:.2f}x fp32 SDPA's time; "
+            f"{st['bound_ms'] / st['ms']:.1%} of the bound (fp32 at "
+            f"{FP32_FLOPS_S / 1e12:.0f} TFLOP/s)")
+        log(f"    ptxas, fp32 {kind} kernel at hd {g.hd}: "
+            f"{_ptxas(f'flash_attention_{kind}', f'flash_{kind}_kernelILi256E')}")
     return stats
 
 
@@ -2395,6 +2509,7 @@ def train_and_check(torch):
     impl = attention.impl_counts()
     losses += [float(x) for x in pending]
     peak = torch.cuda.max_memory_allocated()
+    MEASURED["phase4_peak"] = peak       # phase 18e sets the plan beside it
     steps = 2 + TRAIN_STEPS
     tok_s = b * s / step_s
     mfu = trainer.step_flops(b, s) / step_s / BF16_FLOPS_S
@@ -5350,28 +5465,12 @@ def _recompiles(base):
     return prof, metrics, series
 
 
-def replay_and_check() -> dict:
-    """Phase 13: llama3-1b from the serving CLI in a subprocess, three
-    open-loop traces replayed through `HttpTarget`, then the recompile,
-    ledger, tracer and recorder checks. -> the paged kernels' launches
-    over the phase."""
-    import signal
-
-    sys.path.insert(0, ROOT)
-    from kubeflow_tpu_torch import scenarios
-    from kubeflow_tpu_torch.scenarios import __main__ as scenarios_cli
-
-    t_phase = time.perf_counter()
+def start_replica():
+    """Phase 13's replica: the serving CLI in a subprocess, started (the
+    smoke starts it beside phase 12, whose work it does not touch). ->
+    what `replay_and_check` takes."""
     os.makedirs(PHASE13_DIR, exist_ok=True)
-    traces = []
-    for shape, params in REPLAY_TRACES:
-        tr = scenarios.generate(shape, 0, **params)
-        path = os.path.join(PHASE13_DIR, f"{shape}.jsonl")
-        scenarios.write_trace(tr, path)
-        traces.append(tr)
     port = _free_port()
-    base = f"http://127.0.0.1:{port}"
-    gen_url = f"{base}/v1/models/{REPLAY_MODEL}:generate"
     dump = os.path.join(PHASE13_DIR, "replica.json")
     log_path = os.path.join(PHASE13_DIR, "replica.log")
     if os.path.exists(dump):
@@ -5381,6 +5480,31 @@ def replay_and_check() -> dict:
             [sys.executable, os.path.abspath(__file__), "--replica", dump,
              "--", *REPLICA_ARGV, "--host", "127.0.0.1", "--port",
              str(port)], cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT)
+    atexit.register(_stop, proc)   # a failure before phase 13 exits
+    return proc, port, dump, log_path, time.perf_counter()
+
+
+def replay_and_check(started) -> dict:
+    """Phase 13: llama3-1b from the serving CLI in a subprocess
+    (`start_replica`), three open-loop traces replayed through
+    `HttpTarget`, then the recompile, ledger, tracer and recorder
+    checks. -> the paged kernels' launches over the phase."""
+    import signal
+
+    sys.path.insert(0, ROOT)
+    from kubeflow_tpu_torch import scenarios
+    from kubeflow_tpu_torch.scenarios import __main__ as scenarios_cli
+
+    proc, port, dump, log_path, t_start = started
+    t_phase = time.perf_counter()
+    traces = []
+    for shape, params in REPLAY_TRACES:
+        tr = scenarios.generate(shape, 0, **params)
+        path = os.path.join(PHASE13_DIR, f"{shape}.jsonl")
+        scenarios.write_trace(tr, path)
+        traces.append(tr)
+    base = f"http://127.0.0.1:{port}"
+    gen_url = f"{base}/v1/models/{REPLAY_MODEL}:generate"
 
     def replica_log() -> str:
         with open(log_path) as f:
@@ -5400,8 +5524,9 @@ def replay_and_check() -> dict:
             if time.monotonic() > deadline:
                 fail(f"the replica did not come up:\n{replica_log()}")
             time.sleep(0.5)
-        log(f"  replica up in {time.perf_counter() - t_phase:.1f} s "
-            f"(`python -m kubeflow_tpu_torch.serving "
+        log(f"  replica up {time.perf_counter() - t_start:.1f} s after "
+            f"its start, {time.perf_counter() - t_phase:.1f} s into the "
+            f"phase (`python -m kubeflow_tpu_torch.serving "
             f"{' '.join(REPLICA_ARGV)}` in a subprocess, port {port})")
         sent = _trace_checks(base, gen_url)
         prof0, _, series0 = _recompiles(base)
@@ -7414,12 +7539,12 @@ RING_S = 8192                 # 17a/17b: the global sequence, 2048 a rank
 # max|ref| + 2^-7 |ref|; gradients by relative L2 within TRAIN_GRAD_TOL
 RING_C = 2**-8
 FSDP_STEPS = 3
-# 17c/the NCCL rank: llama3-1b at full width, depth cut from 16 to 4 for
-# the phase's time: at 16 layers, 93.5 s of 3 steps' 106.6 s went to the
-# host-staged gloo collectives (119.85 GiB through the host; H100 80GB
-# HBM3, 700 W, the phase's first card run), a cost of one card, not of
-# FSDP
-FSDP_LAYERS = 4
+# 17c/18c/the NCCL rank: llama3-1b at full width, depth cut from 16 to 2
+# for the phases' time: at 16 layers, 93.5 s of 3 steps' 106.6 s went to
+# the host-staged gloo collectives (119.85 GiB through the host; H100
+# 80GB HBM3, 700 W, the phase's first card run), a cost of one card, not
+# of FSDP; 4 layers until phase 18 joined the smoke
+FSDP_LAYERS = 2
 PP_MICRO = 4                  # 17d: microbatches of one row
 LLAMA_1B_VOCAB = 128256       # models/llama.py LLAMA3_1B.vocab_size
 EP_TOKENS = 1024              # 17e: tokens a rank (b 1 x s 1024)
@@ -7704,7 +7829,9 @@ def _dist_nccl(torch, rank, world):
             "loss": float(loss)}
 
 
-DIST_CASES = {"seq": _dist_seq, "train": _dist_train, "nccl": _dist_nccl}
+DIST_CASES = {"seq": _dist_seq, "train": _dist_train, "nccl": _dist_nccl,
+              "resize": lambda torch, rank, world: _dist_resize(torch, rank,
+                                                                world)}
 
 
 def dist_worker_main(argv: list[str]) -> None:
@@ -7726,10 +7853,9 @@ def dist_worker_main(argv: list[str]) -> None:
     dist.destroy_process_group()
 
 
-def _spawn_gang(torch, case: str, world: int, backend: str = "gloo"):
-    """Start `world` worker processes of `case` on cuda:0 and wait for
-    them all. A rank that fails or outlives DIST_TIMEOUT fails the
-    phase. -> ([per-rank results], seconds)."""
+def _start_gang(case: str, world: int, backend: str = "gloo"):
+    """Start `world` worker processes of `case` on cuda:0; -> what
+    `_wait_gang` takes."""
     os.makedirs(DIST_DIR, exist_ok=True)
     store = os.path.join(DIST_DIR, f"{case}.store")
     outs = [os.path.join(DIST_DIR, f"{case}.{r}.pt") for r in range(world)]
@@ -7742,6 +7868,22 @@ def _spawn_gang(torch, case: str, world: int, backend: str = "gloo"):
          str(r), str(world), store, outs[r], backend],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
+    for p in procs:     # a failure elsewhere exits the smoke: stop them
+        atexit.register(_stop, p)
+    return case, procs, outs, t0
+
+
+def _stop(proc) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def _wait_gang(torch, started):
+    """Wait for a started gang. A rank that fails or outlives
+    DIST_TIMEOUT fails the phase. -> ([per-rank results], seconds)."""
+    case, procs, outs, t0 = started
+    world = len(procs)
     texts = []
     try:
         for p in procs:
@@ -7749,17 +7891,23 @@ def _spawn_gang(torch, case: str, world: int, backend: str = "gloo"):
     except subprocess.TimeoutExpired:
         for p in procs:
             p.kill()
-        fail(f"phase 17 {case}: a rank outlived {DIST_TIMEOUT} s")
+        fail(f"gang {case}: a rank outlived {DIST_TIMEOUT} s")
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
     for r, (p, text) in enumerate(zip(procs, texts)):
         if p.returncode != 0:
-            fail(f"phase 17 {case}: rank {r} of {world} exited "
+            fail(f"gang {case}: rank {r} of {world} exited "
                  f"{p.returncode}:\n{text[-4000:]}")
     res = [torch.load(o, weights_only=False) for o in outs]
     return res, time.perf_counter() - t0
+
+
+def _spawn_gang(torch, case: str, world: int, backend: str = "gloo"):
+    """Start `world` worker processes of `case` on cuda:0 and wait for
+    them all (`_start_gang`, `_wait_gang`)."""
+    return _wait_gang(torch, _start_gang(case, world, backend))
 
 
 def _sum_counts(results, key=None) -> dict:
@@ -7848,6 +7996,8 @@ def distributed_and_check(torch) -> dict:
         f"file:// store; their collectives stage through host memory "
         f"(NCCL refuses two ranks of one device); one rank also forms an "
         f"NCCL group")
+    # the one NCCL rank runs beside the ring gang (the smoke's time)
+    nccl_started = _start_gang("nccl", 1, backend="nccl")
     seq, seq_s = _spawn_gang(torch, "seq", RING_RANKS)
     if {r["backend"] for r in seq} != {"gloo"}:
         fail(f"phase 17: ring ranks on {[r['backend'] for r in seq]}")
@@ -7985,7 +8135,7 @@ def distributed_and_check(torch) -> dict:
         for k, n in _sum_counts(train, name).items():
             counts[k] = counts.get(k, 0) + n
 
-    nccl, nccl_s = _spawn_gang(torch, "nccl", 1, backend="nccl")
+    nccl, nccl_s = _wait_gang(torch, nccl_started)
     n = nccl[0]
     nerr = abs(n["loss"] - one_losses[0]) / abs(one_losses[0])
     log(f"  one-rank NCCL group ({n['backend']}): ring flash launches "
@@ -8000,6 +8150,616 @@ def distributed_and_check(torch) -> dict:
     log(f"  phase 17 {time.perf_counter() - t_phase:.1f} s (ring gang "
         f"{seq_s:.1f}, train gang {train_s:.1f}, nccl {nccl_s:.1f})")
     return counts
+
+
+# -- phase 18 ----------------------------------------------------------------
+
+ELASTIC_DIR = os.path.join(ROOT, "build", "phase18")
+FP32_LAYERS, FP32_B, FP32_STEPS = 2, 1, 3   # 18a: 2 of gemma-2b's 18
+ELASTIC_STEPS, ELASTIC_SAVE_AT = 4, 2       # 18b
+# 18b at full width, 4 of llama3-1b's 16 layers: the depth is cut for the
+# smoke's time (a 16-layer state is an 18.4 GB checkpoint: 36.7 s of save
+# and wait and an 11.0 s restore in a whole run on an NVIDIA H100 80GB
+# HBM3 at 700 W on a slow host)
+ELASTIC_LAYERS = 4
+RESIZE_STEPS, RESIZE_MORE = 3, 2            # 18c
+GANG_WORKERS, GANG_STEPS, GANG_SAVE_EVERY = 3, 16, 4   # 18d
+# the chief is killed in its first save at or past GANG_KILL_AT (step 8
+# unless a busy host makes the poll miss that save's window)
+GANG_KILL_AT, GANG_SLOW_SAVE_S = 8, 1.0
+GANG_TIMEOUT = 240
+# Replayed and restarted losses against the first run's on the card:
+# bit-equal in every card run so far (the flash kernels, cuBLAS at fixed
+# shapes and the sorted accumulation of the embedding's gradient are
+# deterministic on one card; NVIDIA H100 80GB HBM3, 700 W). The check
+# holds them to the training checks' TRAIN_LOSS_TOL and logs the largest
+# |diff| and how many were bit-equal, so a card or library whose step is
+# not bit-deterministic fails only past the training bound.
+ELASTIC_LOSS_TOL = TRAIN_LOSS_TOL
+GOODPUT_TOL = 0.01                 # the ledger's causes vs its wall
+
+
+def fp32_gemma_and_check(torch):
+    """18a: gemma-2b's widths trained in fp32 (`dtype=float32`: fp32
+    activations, so the attention takes the fp32 CUDA-core flash kernels
+    at head dim 256), 2 of its 18 layers, batch 1 x 2048, 3 steps, against
+    the plain attention path from the same weights; exact launches."""
+    import math
+
+    from kubeflow_tpu_torch.models import gemma
+    from kubeflow_tpu_torch.ops import attention
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.train import TrainConfig, Trainer
+
+    import numpy as np
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(gemma.GEMMA_2B, num_layers=FP32_LAYERS,
+                              dtype=torch.float32)
+    b, s = FP32_B, FLASH_S
+    rng = np.random.default_rng(18)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to(dev)
+    targets = torch.roll(tokens, -1, dims=1)
+    plain_positions = torch.arange(s, device=dev).expand(b, s)
+
+    def run(positions):
+        trainer = Trainer(
+            apply_fn=lambda p, t: gemma.apply(p, cfg, t, positions=positions),
+            init_fn=lambda seed: gemma.init(cfg, seed, dev, train=True),
+            train_config=TrainConfig(warmup_steps=1, total_steps=100),
+            device=dev)
+        state = trainer.init(0)
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(FP32_STEPS):
+            state, loss = trainer.step(state, tokens, targets)
+            losses.append(float(loss))
+        return losses, time.perf_counter() - t0
+
+    plain, plain_s = run(plain_positions)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    attention.reset_impl_counts()
+    losses, kernel_s = run(None)
+    counts = launch_counts()
+    impl = attention.impl_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    diff = max(abs(a - p) for a, p in zip(losses, plain))
+    log(f"  gemma-2b widths, {FP32_LAYERS} layers, fp32, batch {b} x {s}: "
+        f"losses {[round(x, 5) for x in losses]}, plain path "
+        f"{[round(x, 5) for x in plain]}, max |diff| {diff:.2e} (tol "
+        f"{TRAIN_LOSS_TOL}); {FP32_STEPS} steps {kernel_s:.2f} s through "
+        f"the kernels, {plain_s:.2f} s plain (host clock, first steps "
+        f"included)")
+    log(f"  attention impl counts {impl}; kernel launches {counts}")
+    steps = FP32_STEPS
+    expect = {"flash_attention_fwd": 2 * cfg.num_layers * steps,
+              "flash_attention_dq": cfg.num_layers * steps,
+              "flash_attention_dkv": cfg.num_layers * steps}
+    for name, n in expect.items():
+        if counts[name] != n:
+            fail(f"18a {name}: {counts[name]} launches, the design implies "
+                 f"{n} (remat: forward + recompute)")
+    if impl["flash"] == 0 or impl["torch"] != 0:
+        fail(f"18a did not route every attention call through the fp32 "
+             f"flash kernels: {impl}")
+    if not all(math.isfinite(x) for x in losses) or diff > TRAIN_LOSS_TOL:
+        fail(f"18a fp32 kernel-path losses {losses} against the plain "
+             f"path's {plain}")
+    return {name: n for name, n in counts.items() if name in expect}
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _loss_match(got, want) -> tuple[float, int]:
+    """(max |diff|, how many bit-equal) of two loss lists."""
+    return (max(abs(a - b) for a, b in zip(got, want)),
+            sum(a == b for a, b in zip(got, want)))
+
+
+def elastic_trainer_and_check(torch):
+    """18b: the elastic worker's trainer (`elastic._build_trainer(1, ...)`)
+    at llama3-1b's full width (phase 4's 2 x 2048, full remat) under a
+    GoodputLedger and the Checkpointer, as a worker and its restarted
+    incarnation run it: 4 steps with a save at step 2, then a rebuild,
+    `restore_or_init` and steps 3-4 again."""
+    import shutil
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.obs.metrics import Registry
+    from kubeflow_tpu_torch.obs.tracing import Tracer
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.train import elastic
+    from kubeflow_tpu_torch.train.checkpoint import (
+        CheckpointConfig,
+        Checkpointer,
+    )
+    from kubeflow_tpu_torch.train.goodput import GoodputLedger
+
+    dev = torch.device("cuda")
+    ckdir = os.path.join(ELASTIC_DIR, "trainer")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    os.makedirs(ckdir)
+    cfg = _fit_depth(dataclasses.replace(llama.LLAMA3_1B,
+                                         num_layers=ELASTIC_LAYERS),
+                     shutil.disk_usage(ckdir).free)
+    b, s = FLASH_B, FLASH_S
+    ledger = GoodputLedger(peak_flops_per_s=BF16_FLOPS_S)
+    reg = Registry()
+    times = {}
+
+    def build():
+        with ledger.book("compile"):
+            trainer = elastic._build_trainer(1, cfg, registry=reg,
+                                             tracer=Tracer(), device=dev)
+        ckpt = Checkpointer(CheckpointConfig(
+            ckdir, save_interval_steps=ELASTIC_SAVE_AT, enable_async=True),
+            trainer, run_metadata={"replica": "smoke"}, registry=reg)
+        with ledger.book("checkpoint_restore"):
+            t0 = time.perf_counter()
+            state = ckpt.restore_or_init(0)
+            torch.cuda.synchronize()
+            times.setdefault("restore_s", []).append(time.perf_counter() - t0)
+        ledger.note_restore(int(state.step))
+        return trainer, ckpt, state
+
+    def steps(trainer, ckpt, state, until):
+        losses = []
+        while state.step < until:
+            step = state.step
+            toks, tgts = elastic._deterministic_batch(cfg.vocab_size, b, s,
+                                                      0, step)
+            compiling = not trainer._stepped
+            t0 = time.perf_counter()
+            state, loss = trainer.step(state, torch.as_tensor(toks),
+                                       torch.as_tensor(tgts))
+            losses.append(float(loss))
+            ledger.note_step(step, time.perf_counter() - t0,
+                             tokens=b * s, flops=trainer.step_flops(b, s),
+                             compiling=compiling)
+            if state.step == ELASTIC_SAVE_AT and "save_s" not in times:
+                with ledger.book("checkpoint_save"):
+                    t0 = time.perf_counter()
+                    ckpt.save(state, force=True)
+                    times["save_s"] = time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    ckpt.wait()        # the write, fsync and commit
+                    times["wait_s"] = time.perf_counter() - t0
+        return state, losses
+
+    reset_launch_counts()
+    trainer, ckpt, state = build()
+    state, first = steps(trainer, ckpt, state, ELASTIC_STEPS)
+    ckpt.close()
+    saved = _dir_bytes(ckpt.step_path(ELASTIC_SAVE_AT))
+    del trainer, ckpt, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer, ckpt, state = build()     # the restarted incarnation
+    if state.step != ELASTIC_SAVE_AT:
+        fail(f"18b restored step {state.step}, not {ELASTIC_SAVE_AT}")
+    state, replay = steps(trainer, ckpt, state, ELASTIC_STEPS)
+    ckpt.close()
+    counts = launch_counts()
+    snap = ledger.snapshot()
+    del trainer, ckpt, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckdir, ignore_errors=True)
+    diff, same = _loss_match(replay, first[ELASTIC_SAVE_AT:])
+    booked = sum(snap["seconds"].values())
+    log(f"  llama3-1b ({cfg.num_layers} layers), batch {b} x {s}: losses "
+        f"{[round(x, 5) for x in first]}; replayed steps "
+        f"{ELASTIC_SAVE_AT + 1}-{ELASTIC_STEPS} "
+        f"{[round(x, 5) for x in replay]}: max |diff| {diff:.2e}, "
+        f"{same} of {len(replay)} bit-equal (tol {ELASTIC_LOSS_TOL})")
+    log(f"  checkpoint of step {ELASTIC_SAVE_AT}: {saved} bytes written; "
+        f"save {times['save_s']:.2f} s (device-to-host copy and dispatch), "
+        f"write + commit wait {times['wait_s']:.2f} s, restores "
+        + ", ".join(f"{x:.2f}" for x in times["restore_s"]) + " s")
+    log("  goodput ledger: " + ", ".join(
+        f"{c} {v:.3f}" for c, v in snap["seconds"].items())
+        + f" s; wall {snap['wall_seconds']:.3f} s, booked {booked:.3f} s, "
+        f"goodput fraction {snap['goodput_fraction']:.4f}, "
+        f"{snap['productive_steps']} productive and {snap['replay_steps']} "
+        f"replayed steps, {snap['tokens_per_second']:.0f} tokens/s, MFU "
+        f"{snap['mfu']:.1%} (host clock)")
+    per_step = {"flash_attention_fwd": 2, "flash_attention_dq": 1,
+                "flash_attention_dkv": 1}
+    n = ELASTIC_STEPS + (ELASTIC_STEPS - ELASTIC_SAVE_AT)
+    want = {k: v * cfg.num_layers * n for k, v in per_step.items()}
+    got = {k: counts[k] for k in want}
+    log(f"  flash launches {got} over {n} steps")
+    if got != want:
+        fail(f"18b flash launches {got}, the design implies {want}")
+    if diff > ELASTIC_LOSS_TOL:
+        fail(f"18b replayed losses {replay} against {first}")
+    # the rebuilt trainer's first step books to compile (a fresh
+    # trainer's first step), the rest of the re-run to replay
+    if snap["replay_steps"] != ELASTIC_STEPS - ELASTIC_SAVE_AT - 1 \
+            or not snap["seconds"]["replay"] > 0:
+        fail(f"18b: the replayed steps were not booked to replay: {snap}")
+    if abs(booked - snap["wall_seconds"]) > GOODPUT_TOL * \
+            snap["wall_seconds"] or not snap["conserved"]:
+        fail(f"18b: the ledger's causes do not sum to its wall: {snap}")
+    return got
+
+
+def _dist_resize(torch, rank, world):
+    """18c on each of 2 ranks on cuda:0: llama3-1b at full width and
+    FSDP_LAYERS layers on (data 2, fsdp 1) with ZeRO moments, 3 steps and
+    a save, then RESIZE_MORE steps on the mesh (the uninterrupted run);
+    rank 0 then restores the checkpoint into a one-device trainer, holds
+    its moments against the mesh's gathered ones bit for bit and steps
+    it RESIZE_MORE times."""
+    import logging
+
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.parallel import MeshSpec, create_mesh
+    from kubeflow_tpu_torch.train import TrainConfig, Trainer
+    from kubeflow_tpu_torch.train.checkpoint import (
+        CheckpointConfig,
+        Checkpointer,
+    )
+
+    dev = torch.device("cuda")
+    lines = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    ckpt_log = logging.getLogger("kubeflow_tpu_torch.train.checkpoint")
+    ckpt_log.addHandler(Catch())
+    ckpt_log.setLevel(logging.INFO)
+    cfg = _fsdp_cfg(torch)
+    tc = TrainConfig(warmup_steps=1, total_steps=100, zero_optimizer=True)
+    mesh = create_mesh(MeshSpec(data=world, fsdp=1), device_type="cuda")
+
+    def trainer_on(m):
+        return Trainer(lambda p, t: llama.apply(p, cfg, t),
+                       lambda seed: llama.init(cfg, seed, dev, train=True),
+                       tc, device=dev, mesh=m,
+                       logical_axes=llama.param_logical_axes(cfg))
+
+    trainer = trainer_on(mesh)
+    state = trainer.init(0)
+    toks, tgts = _llama1b_batch(torch, dev, 18)
+    reset_launch_counts()
+    losses = []
+    for _ in range(RESIZE_STEPS):
+        state, loss = trainer.step(state, toks, tgts)
+        losses.append(float(loss))
+    ckdir = os.path.join(ELASTIC_DIR, "resize")
+    # async: the disk write overlaps the gather below and the two steps;
+    # close() commits it
+    ckpt = Checkpointer(CheckpointConfig(ckdir, enable_async=True),
+                        trainer)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save(state, force=True)
+    save_s = time.perf_counter() - t0
+    # on the host: the card is shared with 18b and 18d meanwhile
+    saved = {slot: [t.to("cpu") for t in v] if isinstance(v, list) else v
+             for slot, v in trainer.gather_opt_state(state).items()}
+    local_mu = tuple(state.opt_state["mu"][0].shape)
+    for _ in range(RESIZE_MORE):
+        state, loss = trainer.step(state, toks, tgts)
+        losses.append(float(loss))
+    t0 = time.perf_counter()
+    ckpt.close()
+    out = {"losses": losses, "save_s": save_s, "local_mu": local_mu,
+           "close_s": time.perf_counter() - t0,
+           "bytes": _dir_bytes(ckpt.step_path(RESIZE_STEPS))
+           if rank == 0 else 0}
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        one = trainer_on(None)
+        ck1 = Checkpointer(CheckpointConfig(ckdir), one)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = ck1.restore()
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+        out["stamp"] = (ck1.restore_metadata()["virtual_replicas"],
+                        ck1.virtual_replicas)
+        out["moments_equal"] = all(
+            torch.equal(a.to("cpu"), b) for slot in one.optimizer.slots
+            for a, b in zip(restored.opt_state[slot], saved[slot]))
+        out["count"] = (restored.opt_state["count"], saved["count"])
+        del saved
+        out["one_device"] = []
+        for _ in range(RESIZE_MORE):
+            restored, loss = one.step(restored, toks, tgts)
+            out["one_device"].append(float(loss))
+        del one, restored
+        ck1.close()
+    out["log"] = lines
+    out["counts"] = launch_counts()
+    dist.barrier()
+    if rank == 0:
+        import shutil
+
+        shutil.rmtree(ckdir, ignore_errors=True)
+    return out
+
+
+def start_resize():
+    """18c's gang, started: its two ranks are processes, host-bound on
+    the staged collectives, so the phase runs 18a, 18b and 18d
+    meanwhile."""
+    import shutil
+
+    shutil.rmtree(os.path.join(ELASTIC_DIR, "resize"), ignore_errors=True)
+    return _start_gang("resize", 2)
+
+
+def resize_and_check(torch, started) -> dict:
+    """18c: resize-on-restore at full width: a 2-rank gloo gang's ZeRO
+    checkpoint restored into one device."""
+    res, wall_s = _wait_gang(torch, started)
+    r0 = res[0]
+    cfg = _fsdp_cfg(torch)
+    got, want = r0["one_device"], r0["losses"][RESIZE_STEPS:]
+    diff, same = _loss_match(got, want)
+    log(f"  gang (data 2, ZeRO) at {cfg.num_layers} layers: losses "
+        f"{[round(x, 5) for x in r0['losses']]}; rank 0's moment of the "
+        f"embedding {r0['local_mu']}; save {r0['save_s']:.2f} s "
+        f"({r0['bytes']} bytes: the gather from the ranks and the "
+        f"device-to-host copy), close {r0['close_s']:.2f} s (the rest of "
+        f"the write, after 2 steps, and the commit); {wall_s:.1f} s for "
+        f"the gang")
+    log(f"  one device restored the checkpoint in {r0['restore_s']:.2f} s: "
+        f"stamp saved {r0['stamp'][0]}, restored {r0['stamp'][1]}; "
+        f"moments bit-equal {r0['moments_equal']}, count {r0['count']}; "
+        f"then {[round(x, 5) for x in got]} against the gang's "
+        f"{[round(x, 5) for x in want]}: max |diff| {diff:.2e}, {same} "
+        f"bit-equal (tol {TRAIN_LOSS_TOL})")
+    resize_lines = [x for x in r0["log"] if "resize-on-restore" in x]
+    log(f"  resize log: {resize_lines}")
+    if not r0["moments_equal"] or r0["count"][0] != r0["count"][1]:
+        fail("18c: the restored moments differ from the saved ones")
+    if r0["stamp"] != (2, 1) or not any(
+            "saved at 2 virtual replicas, restored at 1" in x
+            for x in resize_lines):
+        fail(f"18c: stamp {r0['stamp']}, log {resize_lines}")
+    if r0["local_mu"][0] * 2 != LLAMA_1B_VOCAB:
+        fail(f"18c: rank 0's embedding moment {r0['local_mu']} is not a "
+             "ZeRO half")
+    if diff > TRAIN_LOSS_TOL:
+        fail(f"18c: one-device losses {got} against the gang's {want}")
+    counts = _sum_counts(res)
+    n_mesh = 2 * (RESIZE_STEPS + RESIZE_MORE) + RESIZE_MORE
+    want_counts = {"flash_attention_fwd": 2 * cfg.num_layers * n_mesh,
+                   "flash_attention_dq": cfg.num_layers * n_mesh,
+                   "flash_attention_dkv": cfg.num_layers * n_mesh}
+    got_counts = {k: counts[k] for k in want_counts}
+    if got_counts != want_counts:
+        fail(f"18c flash launches {got_counts}, the design implies "
+             f"{want_counts}")
+    return got_counts
+
+
+def _http_json(url: str, body=None):
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if body is None
+                                 else "POST",
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=10) as r:
+        text = r.read().decode()
+    return json.loads(text) if url.split("/")[-1] != "metrics" else text
+
+
+def elastic_gang_and_check(torch):
+    """18d: the coordinator CLI (--min-replicas 2) and GANG_WORKERS
+    worker CLIs on cuda:0 at the reference's defaults (llama-tiny, batch
+    12, seq 16, 16 steps, a save every 4); the chief is SIGKILLed while
+    /elastic/world shows it saving at step GANG_KILL_AT or later."""
+    import shutil
+    import signal
+
+    from kubeflow_tpu_torch import obs
+
+    gdir = os.path.join(ELASTIC_DIR, "gang")
+    shutil.rmtree(gdir, ignore_errors=True)
+    os.makedirs(gdir)
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}"
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    mod = [sys.executable, "-m", "kubeflow_tpu_torch.train.elastic"]
+    # every process logs to a file of its own (a pipe nobody reads would
+    # fill and block the writer: the coordinator logs each request)
+    logs = {}
+
+    def start(name, args, stdout=subprocess.DEVNULL):
+        logs[name] = open(os.path.join(gdir, f"{name}.log"), "w")
+        procs[name] = subprocess.Popen(mod + args, env=env, stdout=stdout,
+                                       stderr=logs[name], text=True)
+
+    def tail(name):
+        logs[name].flush()
+        with open(logs[name].name) as f:
+            return f.read()[-3000:]
+
+    procs = {}
+    start("coordinator", ["coordinator", "--port", str(port),
+                          "--min-replicas", "2"])
+    rids = [f"tr{i}" for i in range(GANG_WORKERS)]
+    t0 = time.perf_counter()
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                _http_json(url + "/elastic/world")
+                break
+            except OSError:
+                if time.monotonic() > deadline:
+                    fail(f"18d: the coordinator never answered: "
+                         f"{tail('coordinator')}")
+                time.sleep(0.1)
+        for rid in rids:
+            start(rid, ["worker", "--coordinator", url, "--replica-id", rid,
+                        "--ckpt-dir", os.path.join(gdir, "ckpt"),
+                        "--steps", str(GANG_STEPS),
+                        "--save-every", str(GANG_SAVE_EVERY),
+                        "--slow-save-s", str(GANG_SLOW_SAVE_S),
+                        "--loss-log", os.path.join(gdir, f"{rid}.jsonl")],
+                  stdout=subprocess.PIPE)
+        want = _gang_oracle(torch)
+        deadline = time.monotonic() + GANG_TIMEOUT
+        while True:
+            w = _http_json(url + "/elastic/world")
+            if w["phases"].get("tr0") == "saving" and \
+                    (w["steps"].get("tr0") or 0) >= GANG_KILL_AT:
+                break
+            if procs["tr0"].poll() is not None or \
+                    time.monotonic() > deadline:
+                fail(f"18d: tr0 never saved at step {GANG_KILL_AT} or "
+                     f"later: {w}; {tail('tr0')}")
+            time.sleep(0.01)
+        gen_at_kill, kill_step = w["generation"], w["steps"]["tr0"]
+        procs["tr0"].send_signal(signal.SIGKILL)
+        t_kill = time.perf_counter()
+        survivors = rids[1:]
+        fed = traces = None
+        while fed is None:
+            w = _http_json(url + "/elastic/world")
+            live = (w["generation"] > gen_at_kill
+                    and w["members"] == survivors
+                    and all((w["steps"].get(r) or 0) > kill_step
+                            for r in survivors))
+            if live:
+                fed = _http_json(url + "/elastic/metrics")
+                traces = _http_json(url + "/elastic/traces")
+                # while the survivors are members: once they finish and
+                # stop beating, their departure is one more change
+                metrics = _http_json(url + "/metrics")
+                world = w
+            elif any(procs[r].poll() is not None for r in survivors) or \
+                    time.monotonic() > deadline:
+                fail(f"18d: the survivors never resumed past step "
+                     f"{kill_step}: {w}")
+            time.sleep(0.02)
+        results = {}
+        for rid in survivors:
+            out, _ = procs[rid].communicate(timeout=GANG_TIMEOUT)
+            if procs[rid].returncode != 0:
+                fail(f"18d: {rid} exited {procs[rid].returncode}: "
+                     f"{tail(rid)}")
+            results[rid] = json.loads(out.strip().splitlines()[-1])
+        resume_s = time.perf_counter() - t_kill
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.communicate()
+        for f in logs.values():
+            f.close()
+    wall_s = time.perf_counter() - t0
+    fams = obs.parse_exposition(metrics)
+    restarts = fams["train_restarts_total"]["samples"][
+        ("train_restarts_total", ())]
+    fed_fams = obs.parse_exposition(fed)
+    up = {dict(k[1])["replica"]: v
+          for k, v in fed_fams["fleet_federation_up"]["samples"].items()}
+    booked = sum(fed_fams["train_goodput_seconds_total"]["samples"].values())
+    tracks = {e["args"]["name"] for e in traces["traceEvents"]
+              if e.get("ph") == "M" and e["name"] == "process_name"}
+    lines = {rid: [json.loads(x) for x in open(
+        os.path.join(gdir, f"{rid}.jsonl"))] for rid in rids}
+    diffs = [abs(x["loss"] - want[x["step"] - 1])
+             for ls in lines.values() for x in ls]
+    equal = sum(d == 0 for d in diffs)
+    log(f"  coordinator and {GANG_WORKERS} workers on cuda:0: tr0 killed "
+        f"while saving step {kill_step} (generation {gen_at_kill} -> "
+        f"{world['generation']}); survivors resumed and finished "
+        f"{resume_s:.1f} s after the kill; {wall_s:.1f} s in all")
+    log(f"  train_restarts_total {restarts}; /elastic/metrics: "
+        f"fleet_federation_up {up}, goodput seconds booked {booked:.3f}; "
+        f"/elastic/traces tracks {sorted(tracks)}")
+    log(f"  {len(diffs)} loss lines against a one-worker uninterrupted run: "
+        f"max |diff| {max(diffs):.2e}, {equal} bit-equal (tol "
+        f"{ELASTIC_LOSS_TOL})")
+    for rid, res in results.items():
+        book = res["goodput"]
+        log(f"  {rid}: restores {res['restores']}, generation "
+            f"{res['generation']}, goodput fraction "
+            f"{book['goodput_fraction']:.4f}, seconds " + ", ".join(
+                f"{c} {v:.3f}" for c, v in book["seconds"].items())
+            + f"; {book['productive_steps']} productive, "
+            f"{book['replay_steps']} replayed steps")
+    shutil.rmtree(gdir, ignore_errors=True)
+    if restarts != 1 or world["generation"] <= gen_at_kill:
+        fail(f"18d: restarts {restarts}, generation {world['generation']}")
+    # a worker restores once at its start, again for each generation it
+    # sees move (a member joining after the world formed, the kill)
+    if any(res["final_step"] != GANG_STEPS or res["restores"] < 2
+           or res["generation"] != world["generation"]
+           for res in results.values()):
+        fail(f"18d: survivors' results {results}")
+    if {x["step"] for r in survivors for x in lines[r]} != \
+            set(range(1, GANG_STEPS + 1)):
+        fail("18d: the survivors' loss lines do not cover every step")
+    if max(diffs) > ELASTIC_LOSS_TOL:
+        fail(f"18d: loss lines off the uninterrupted run by {max(diffs)}")
+    if up.get("tr1") != 1.0 or up.get("tr2") != 1.0 or not booked > 0:
+        fail(f"18d: /elastic/metrics did not federate the workers: {up}")
+    if tracks != set(survivors):
+        fail(f"18d: /elastic/traces merged {tracks}")
+    if any(not res["goodput"]["conserved"] for res in results.values()):
+        fail("18d: a survivor's goodput ledger does not conserve")
+
+
+def _gang_oracle(torch):
+    """One worker's uninterrupted losses on the card: the worker's
+    trainer and batches, in this process."""
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.obs.metrics import Registry
+    from kubeflow_tpu_torch.train import elastic
+
+    cfg = llama.LLAMA_TINY
+    trainer = elastic._build_trainer(1, cfg, registry=Registry(),
+                                     device=torch.device("cuda:0"))
+    state = trainer.init(0)
+    losses = []
+    for step in range(GANG_STEPS):
+        toks, tgts = elastic._deterministic_batch(cfg.vocab_size, 12, 16, 0,
+                                                  step)
+        state, loss = trainer.step(state, torch.as_tensor(toks),
+                                   torch.as_tensor(tgts))
+        losses.append(float(loss))
+    return losses
+
+
+def planner_and_check(torch):
+    """18e: the planner's estimate for phase 4's run beside phase 4's
+    measured peak (a finding: the planner's budget is a TPU chip's)."""
+    from kubeflow_tpu_torch.tools import memplan
+
+    got = memplan.plan("llama3-1b", {"data": 1, "fsdp": 1, "tensor": 1},
+                       FLASH_B, FLASH_S, "v5p")
+    gb = got["per_chip_gb"]
+    peak = MEASURED.get("phase4_peak")
+    if peak is None:
+        log(f"  plan per chip (GB): {gb}; phase 4 did not run: no measured "
+            f"peak to set beside it")
+        return
+    log(f"  plan per chip (GB): {gb}; phase 4's measured peak "
+        f"{peak / 1e9:.3f} GB (torch.cuda.max_memory_allocated): "
+        f"estimate / measured {gb['total'] * 1e9 / peak:.3f}")
 
 
 def _dev_us(e):
@@ -8061,9 +8821,6 @@ def main() -> None:
         return
     only = _phases(sys.argv[1:])
 
-    def run(phase: str) -> bool:
-        return not only or phase in only
-
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs the card")
     sys.path.insert(0, ROOT)
@@ -8073,6 +8830,12 @@ def main() -> None:
         fail(f"the port's package is not beside this script ({e})")
     dev = torch.device("cuda")
     t_all = time.perf_counter()
+
+    def run(phase: str) -> bool:
+        go = not only or phase in only
+        if go:
+            log(f"[{time.perf_counter() - t_all:.1f} s] phase {phase}")
+        return go
 
     log("phase 1: build")
     build_s = _build.build_all()
@@ -8100,8 +8863,8 @@ def main() -> None:
                                                            GEMMA_2B),
             f"paged_prefill_append{GEMMA}": check_prefill(torch, dev,
                                                           GEMMA_2B)[0],
-            **{name + GEMMA: st for name, st in
-               check_flash(torch, dev, GEMMA_2B).items()},
+            **{name if name.endswith(FP32_256) else name + GEMMA: st
+               for name, st in check_flash(torch, dev, GEMMA_2B).items()},
             f"decode_attention{GEMMA}": check_dense_decode(
                 torch, dev, GEMMA_2B, GEMMA_2B)[0]})
         log("phase 2, gemma-2b verify: the verify pass's shape at head dim "
@@ -8211,6 +8974,8 @@ def main() -> None:
         add(asyncio.run(fleet_and_check(torch)))
         tidy()
 
+    # phase 13's replica comes up beside phase 12
+    replica = start_replica() if (not only or "13" in only) else None
     if run("12"):
         t12 = time.perf_counter()
         log("phase 12a: llama3-8b one-shot under --quant int8 (the "
@@ -8228,7 +8993,7 @@ def main() -> None:
     if run("13"):
         log("phase 13: replay open-loop traces from the scenario engine "
             "against llama3-1b served by the CLI in a subprocess")
-        add(replay_and_check(), prefix="paged")
+        add(replay_and_check(replica), prefix="paged")
 
     if run("14"):
         tidy()
@@ -8277,6 +9042,42 @@ def main() -> None:
         add(distributed_and_check(torch))
         tidy()
 
+    if run("18"):
+        tidy()
+        t18 = time.perf_counter()
+        sub = []
+
+        def lap(name):
+            sub.append(f"{name} {time.perf_counter() - t18:.1f}")
+
+        resize = start_resize()
+        log("phase 18a: gemma-2b's widths trained in fp32 through the fp32 "
+            "flash kernels at head dim 256 (18c's gang runs meanwhile)")
+        add(fp32_gemma_and_check(torch), FP32_256)
+        tidy()
+        lap("18a")
+        log("phase 18b: the elastic worker's trainer at llama3-1b's full "
+            "width under the goodput ledger, saved, restarted, replayed "
+            "(18c's gang runs meanwhile)")
+        add(elastic_trainer_and_check(torch))
+        tidy()
+        lap("18b")
+        log("phase 18d: the elastic gang (coordinator and 3 workers on "
+            "cuda:0, the chief killed mid-save; 18c's gang runs "
+            "meanwhile)")
+        elastic_gang_and_check(torch)
+        tidy()
+        lap("18d")
+        log("phase 18c: resize-on-restore at full width (a 2-rank ZeRO "
+            "gang's checkpoint into one device; started before 18a)")
+        add(resize_and_check(torch, resize))
+        tidy()
+        lap("18c")
+        log("phase 18e: the memory-fit planner beside phase 4's peak")
+        planner_and_check(torch)
+        log(f"phase 18 {time.perf_counter() - t18:.1f} s (at the end of "
+            f"{', '.join(sub)} s)")
+
     log(f"total {time.perf_counter() - t_all:.1f} s")
     if only:
         log(f"partial run (phases {sorted(only)}): no result line")
@@ -8306,6 +9107,7 @@ def main() -> None:
     for name in ("flash_attention_fwd", "flash_attention_dq",
                  "flash_attention_dkv"):
         meta[name + MIXTRAL_SUFFIX] = meta[name]
+        meta[name + FP32_256] = meta[name]
     meta["paged_prefill_append" + VERIFY] = meta["paged_prefill_append"]
     # no Pallas kernel: the card's counterpart of the reference's qdot
     meta["int8_proj"] = ("kubeflow_tpu_torch/csrc/int8_proj.cu",

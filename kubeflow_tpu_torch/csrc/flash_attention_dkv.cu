@@ -60,8 +60,14 @@
 //   wrapper picks `splits` from the shapes alone; at llama3-1b's shape
 //   (512 blocks) it is 1, the in-kernel group sum and one bf16 output.
 //
-// fp32: that first kernel, kept for fp32 inputs at head dim 128 (fp32
-// tiles in shared memory, products on the CUDA cores; flash_tile.cuh).
+// fp32: that first kernel, kept for fp32 inputs (fp32 tiles in shared
+// memory, products on the CUDA cores; flash_tile.cuh), a template on the
+// head dim. At 256 (gemma-2b) K, V, Q, dO and the score tile would need
+// 283 KB, so Q and dO share one tile in turn: S^T = K Q^T, then dO
+// replaces Q for dP^T = V dO^T and dV += P^T dO, then Q is read again
+// (from L2) for dK += dS^T Q (217 KB, one block an SM). dK and dV
+// accumulate [64, 256] each in registers (128 fp32 a thread). fp32
+// stays off the tensor cores (TF32 would round the products).
 #include "flash_tile.cuh"
 #include "flash_wgmma.cuh"
 
@@ -73,9 +79,17 @@ using bf16 = __nv_bfloat16;
 
 // -- fp32 -------------------------------------------------------------------
 
-constexpr size_t kSmemBytes =
-    sizeof(float) * (4 * (size_t)kHdTileFloats + kPTileFloats + 2 * kTile);
+// K, V, Q, dO, the score tile and lse / delta at head dim 128 (150 KB);
+// at 256 one tile takes Q, then dO, then Q again (K, V, that tile, the
+// score tile and the statistics: 217 KB).
+template <int HD>
+constexpr size_t fp32_smem_bytes() {
+  return sizeof(float) * ((kSharedBuffer<HD> ? 3 : 4) *
+                              (size_t)kHdTileFloats<HD> + kPTileFloats +
+                          2 * kTile);
+}
 
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_dkv_kernel(const float* __restrict__ q,      // [b, s, n_q, hd]
                  const float* __restrict__ k,      // [b, s, n_kv, hd]
@@ -87,12 +101,14 @@ flash_dkv_kernel(const float* __restrict__ q,      // [b, s, n_q, hd]
                  float* __restrict__ dv,
                  int s, int n_q, int n_kv, int causal, int window,
                  float scale) {
+  constexpr int kCols = HD / 16;  // accumulator columns a thread
+  constexpr bool kOneQ = kSharedBuffer<HD>;
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;
-  float* vs = ks + kHdTileFloats;
-  float* qs = vs + kHdTileFloats;
-  float* dos = qs + kHdTileFloats;
-  float* ps = dos + kHdTileFloats;
+  float* vs = ks + kHdTileFloats<HD>;
+  float* qs = vs + kHdTileFloats<HD>;
+  float* dos = kOneQ ? qs : qs + kHdTileFloats<HD>;
+  float* ps = dos + kHdTileFloats<HD>;
   float* lse_s = ps + kPTileFloats;
   float* delta_s = lse_s + kTile;
   const int hk = blockIdx.x;
@@ -103,16 +119,16 @@ flash_dkv_kernel(const float* __restrict__ q,      // [b, s, n_q, hd]
   const int group = n_q / n_kv;
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
-  const size_t q_row = (size_t)n_q * kHD;
-  const size_t kv_row = (size_t)n_kv * kHD;
-  const size_t kv_off = ((size_t)b * s + k0) * kv_row + (size_t)hk * kHD;
-  load_tile(ks, k + kv_off, kv_row, s - k0);
-  load_tile(vs, v + kv_off, kv_row, s - k0);
-  float dk_acc[4][8], dv_acc[4][8];
+  const size_t q_row = (size_t)n_q * HD;
+  const size_t kv_row = (size_t)n_kv * HD;
+  const size_t kv_off = ((size_t)b * s + k0) * kv_row + (size_t)hk * HD;
+  load_tile<HD>(ks, k + kv_off, kv_row, s - k0);
+  load_tile<HD>(vs, v + kv_off, kv_row, s - k0);
+  float dk_acc[4][kCols], dv_acc[4][kCols];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+    for (int c = 0; c < kCols; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
 
   int lo, hi;
   query_tiles(k0, nq, causal, window, &lo, &hi);
@@ -121,16 +137,22 @@ flash_dkv_kernel(const float* __restrict__ q,      // [b, s, n_q, hd]
     const size_t stat = ((size_t)b * n_q + h) * s;
     for (int qi = lo; qi <= hi; ++qi) {
       const int q0 = qi * kTile;
-      const size_t q_off = ((size_t)b * s + q0) * q_row + (size_t)h * kHD;
+      const size_t q_off = ((size_t)b * s + q0) * q_row + (size_t)h * HD;
       __syncthreads();  // the previous tile's Q, dO and dS are consumed
-      load_tile(qs, q + q_off, q_row, s - q0);
-      load_tile(dos, dout + q_off, q_row, s - q0);
+      load_tile<HD>(qs, q + q_off, q_row, s - q0);
+      if constexpr (!kOneQ)
+        load_tile<HD>(dos, dout + q_off, q_row, s - q0);
       load_rows(lse_s, lse + stat + q0, s - q0);
       load_rows(delta_s, delta + stat + q0, s - q0);
       __syncthreads();
       float sc[4][4], dp[4][4];
-      dot_tile(ks, qs, ty, tx, sc);   // [key][query] logits / scale
-      dot_tile(vs, dos, ty, tx, dp);  // [key][query] of dO V^T
+      dot_tile<HD>(ks, qs, ty, tx, sc);   // [key][query] logits / scale
+      if constexpr (kOneQ) {
+        __syncthreads();  // Q is consumed: dO takes its tile
+        load_tile<HD>(dos, dout + q_off, q_row, s - q0);
+        __syncthreads();
+      }
+      dot_tile<HD>(vs, dos, ty, tx, dp);  // [key][query] of dO V^T
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int kp = k0 + ty + 16 * i;
@@ -146,17 +168,19 @@ flash_dkv_kernel(const float* __restrict__ q,      // [b, s, n_q, hd]
       }
       store_scores(ps, ty, tx, sc);
       __syncthreads();
-      pv_tile(ps, dos, ty, tx, dv_acc);  // dV += P^T dO
+      pv_tile<HD>(ps, dos, ty, tx, dv_acc);  // dV += P^T dO
       __syncthreads();
       store_scores(ps, ty, tx, dp);
+      // Q again, into the tile dO held (a second read, from L2)
+      if constexpr (kOneQ) load_tile<HD>(qs, q + q_off, q_row, s - q0);
       __syncthreads();
-      pv_tile(ps, qs, ty, tx, dk_acc);   // dK += dS^T Q
+      pv_tile<HD>(ps, qs, ty, tx, dk_acc);   // dK += dS^T Q
     }
   }
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
   const float mul[4] = {scale, scale, scale, scale};
-  store_acc(dv + kv_off, kv_row, s - k0, ty, tx, dv_acc, one);
-  store_acc(dk + kv_off, kv_row, s - k0, ty, tx, dk_acc, mul);
+  store_acc<HD>(dv + kv_off, kv_row, s - k0, ty, tx, dv_acc, one);
+  store_acc<HD>(dk + kv_off, kv_row, s - k0, ty, tx, dk_acc, mul);
 }
 
 // -- bf16: tensor cores -----------------------------------------------------
@@ -326,18 +350,20 @@ flash_dkv_tc_kernel(const bf16* __restrict__ q,       // [b, s, n_q, hd]
   wg::store_tile(dk + kv_off + 128 * op, kv_row, s - k0, ks);
 }
 
+template <int HD>
 int launch_fp32(const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta,
                 void* dk, void* dv, int b, int s, int n_q, int n_kv,
                 int causal, int window, float scale, cudaStream_t stream) {
-  // once per kernel, so launches inside a CUDA-graph capture make no
-  // attribute calls
+  constexpr size_t kSmem = fp32_smem_bytes<HD>();
+  // once per instantiation, so launches inside a CUDA-graph capture make
+  // no attribute calls
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
+      flash_dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(n_kv, b, (s + kTile - 1) / kTile);
-  flash_dkv_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+  flash_dkv_kernel<HD><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -391,9 +417,12 @@ extern "C" int kft_flash_attention_dkv(const void* q, const void* k,
   if (s < 1 || n_kv < 1 || n_q % n_kv || splits < 1 ||
       (n_q / n_kv) % splits)
     return cudaErrorInvalidValue;
-  if (dtype == 0 && hd == kHD && splits == 1)
-    return launch_fp32(q, k, v, dout, lse, delta, dk, dv, b, s, n_q, n_kv,
-                       causal, window, scale, st);
+  if (dtype == 0 && hd == 128 && splits == 1)
+    return launch_fp32<128>(q, k, v, dout, lse, delta, dk, dv, b, s, n_q,
+                            n_kv, causal, window, scale, st);
+  if (dtype == 0 && hd == 256 && splits == 1)
+    return launch_fp32<256>(q, k, v, dout, lse, delta, dk, dv, b, s, n_q,
+                            n_kv, causal, window, scale, st);
   if (dtype == 1 && hd == 128)
     return launch_bf16<128>(q, k, v, dout, lse, delta, dk, dv, b, s, n_q,
                             n_kv, splits, causal, window, scale, st);

@@ -50,8 +50,12 @@
 // head dim was split over two blocks that each form dS, which does 5/3
 // the tensor work; 205 at hd 128).
 //
-// fp32: that first kernel, kept for fp32 inputs at head dim 128 (fp32
-// tiles in shared memory, products on the CUDA cores; flash_tile.cuh).
+// fp32: that first kernel, kept for fp32 inputs (fp32 tiles in shared
+// memory, products on the CUDA cores; flash_tile.cuh), a template on the
+// head dim. At 256 (gemma-2b) four [64, 260] fp32 tiles and dS would
+// need 283 KB, so V and K share one tile in turn: dP = dO V^T first,
+// then K replaces V for S = Q K^T and dQ += dS K (217 KB, one block an
+// SM). fp32 stays off the tensor cores (TF32 would round the products).
 #include "flash_tile.cuh"
 #include "flash_wgmma.cuh"
 
@@ -63,9 +67,15 @@ using bf16 = __nv_bfloat16;
 
 // -- fp32 -------------------------------------------------------------------
 
-constexpr size_t kSmemBytes =
-    sizeof(float) * (4 * (size_t)kHdTileFloats + kPTileFloats);
+// Q, dO, K, V and the dS tile at head dim 128 (150 KB); at 256 one tile
+// takes V, then K (Q, dO, that tile and dS: 217 KB).
+template <int HD>
+constexpr size_t fp32_smem_bytes() {
+  return sizeof(float) * ((kSharedBuffer<HD> ? 3 : 4) *
+                              (size_t)kHdTileFloats<HD> + kPTileFloats);
+}
 
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_dq_kernel(const float* __restrict__ q,      // [b, s, n_q, hd]
                 const float* __restrict__ k,      // [b, s, n_kv, hd]
@@ -76,12 +86,14 @@ flash_dq_kernel(const float* __restrict__ q,      // [b, s, n_q, hd]
                 float* __restrict__ dq,           // [b, s, n_q, hd]
                 int s, int n_q, int n_kv, int causal, int window,
                 float scale) {
+  constexpr int kCols = HD / 16;  // accumulator columns a thread
+  constexpr bool kOneKV = kSharedBuffer<HD>;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;
-  float* dos = qs + kHdTileFloats;
-  float* ks = dos + kHdTileFloats;
-  float* vs = ks + kHdTileFloats;
-  float* ds_s = vs + kHdTileFloats;
+  float* dos = qs + kHdTileFloats<HD>;
+  float* ks = dos + kHdTileFloats<HD>;
+  float* vs = kOneKV ? ks : ks + kHdTileFloats<HD>;
+  float* ds_s = vs + kHdTileFloats<HD>;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int nq = (s + kTile - 1) / kTile;
@@ -90,12 +102,12 @@ flash_dq_kernel(const float* __restrict__ q,      // [b, s, n_q, hd]
   const int hk = h / (n_q / n_kv);
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
-  const size_t q_row = (size_t)n_q * kHD;
-  const size_t kv_row = (size_t)n_kv * kHD;
-  const size_t q_off = ((size_t)b * s + q0) * q_row + (size_t)h * kHD;
-  load_tile(qs, q + q_off, q_row, s - q0);
-  load_tile(dos, dout + q_off, q_row, s - q0);
-  float row_lse[4], row_delta[4], acc[4][8];
+  const size_t q_row = (size_t)n_q * HD;
+  const size_t kv_row = (size_t)n_kv * HD;
+  const size_t q_off = ((size_t)b * s + q0) * q_row + (size_t)h * HD;
+  load_tile<HD>(qs, q + q_off, q_row, s - q0);
+  load_tile<HD>(dos, dout + q_off, q_row, s - q0);
+  float row_lse[4], row_delta[4], acc[4][kCols];
   const size_t stat = ((size_t)b * n_q + h) * s;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -103,21 +115,26 @@ flash_dq_kernel(const float* __restrict__ q,      // [b, s, n_q, hd]
     row_lse[i] = qp < s ? lse[stat + qp] : 0.f;
     row_delta[i] = qp < s ? delta[stat + qp] : 0.f;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
   }
 
   int lo, hi;
   key_tiles(q0, nq, causal, window, &lo, &hi);
   for (int ki = lo; ki <= hi; ++ki) {
     const int k0 = ki * kTile;
-    const size_t kv_off = ((size_t)b * s + k0) * kv_row + (size_t)hk * kHD;
+    const size_t kv_off = ((size_t)b * s + k0) * kv_row + (size_t)hk * HD;
     __syncthreads();  // the previous tile's K, V and dS are consumed
-    load_tile(ks, k + kv_off, kv_row, s - k0);
-    load_tile(vs, v + kv_off, kv_row, s - k0);
+    load_tile<HD>(vs, v + kv_off, kv_row, s - k0);
+    if constexpr (!kOneKV) load_tile<HD>(ks, k + kv_off, kv_row, s - k0);
     __syncthreads();
     float sc[4][4], dp[4][4];
-    dot_tile(qs, ks, ty, tx, sc);
-    dot_tile(dos, vs, ty, tx, dp);
+    dot_tile<HD>(dos, vs, ty, tx, dp);
+    if constexpr (kOneKV) {
+      __syncthreads();  // V is consumed: K takes its tile
+      load_tile<HD>(ks, k + kv_off, kv_row, s - k0);
+      __syncthreads();
+    }
+    dot_tile<HD>(qs, ks, ty, tx, sc);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qp = q0 + ty + 16 * i;
@@ -132,10 +149,10 @@ flash_dq_kernel(const float* __restrict__ q,      // [b, s, n_q, hd]
     }
     store_scores(ds_s, ty, tx, dp);
     __syncthreads();
-    pv_tile(ds_s, ks, ty, tx, acc);
+    pv_tile<HD>(ds_s, ks, ty, tx, acc);
   }
   const float mul[4] = {scale, scale, scale, scale};
-  store_acc(dq + q_off, q_row, s - q0, ty, tx, acc, mul);
+  store_acc<HD>(dq + q_off, q_row, s - q0, ty, tx, acc, mul);
 }
 
 // -- bf16: tensor cores -----------------------------------------------------
@@ -277,18 +294,20 @@ flash_dq_tc_kernel(const bf16* __restrict__ q,       // [b, s, n_q, hd]
                    qs + wg::kTileBytes * p);
 }
 
+template <int HD>
 int launch_fp32(const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta,
                 void* dq, int b, int s, int n_q, int n_kv, int causal,
                 int window, float scale, cudaStream_t stream) {
-  // once per kernel, so launches inside a CUDA-graph capture make no
-  // attribute calls
+  constexpr size_t kSmem = fp32_smem_bytes<HD>();
+  // once per instantiation, so launches inside a CUDA-graph capture make
+  // no attribute calls
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
+      flash_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(n_q, b, (s + kTile - 1) / kTile);
-  flash_dq_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+  flash_dq_kernel<HD><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -328,9 +347,12 @@ extern "C" int kft_flash_attention_dq(const void* q, const void* k,
                                       float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (s < 1 || n_kv < 1 || n_q % n_kv) return cudaErrorInvalidValue;
-  if (dtype == 0 && hd == kHD)
-    return launch_fp32(q, k, v, dout, lse, delta, dq, b, s, n_q, n_kv,
-                       causal, window, scale, st);
+  if (dtype == 0 && hd == 128)
+    return launch_fp32<128>(q, k, v, dout, lse, delta, dq, b, s, n_q, n_kv,
+                            causal, window, scale, st);
+  if (dtype == 0 && hd == 256)
+    return launch_fp32<256>(q, k, v, dout, lse, delta, dq, b, s, n_q, n_kv,
+                            causal, window, scale, st);
   if (dtype == 1 && hd == 128)
     return launch_bf16<128>(q, k, v, dout, lse, delta, dq, b, s, n_q, n_kv,
                             causal, window, scale, st);

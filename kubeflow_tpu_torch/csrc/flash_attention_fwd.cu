@@ -48,8 +48,14 @@
 // thread). Q 32 KB and a 2-stage K/V ring of 64 KB a stage: 161 KB, one
 // block an SM; the grid stays (query head, batch row, 64-query tile).
 //
-// fp32: that first kernel, kept for fp32 inputs at head dim 128 (fp32
-// tiles in shared memory, products on the CUDA cores; flash_tile.cuh).
+// fp32: that first kernel, kept for fp32 inputs (fp32 tiles in shared
+// memory, products on the CUDA cores; flash_tile.cuh), a template on the
+// head dim: 128 (118 KB of shared memory) and 256 (gemma-2b: Q, K, V and
+// the score tile are 217 KB, opted in past the 48 KB default; one block
+// an SM). fp32 stays off the tensor cores: TF32 would round the products
+// the reference's fp32 kernels take in full fp32. Bound at gemma-2b's
+// shape in fp32: the 34.4 GFLOP over the card's 67 TFLOP/s of fp32 on
+// the CUDA cores, 0.51 ms.
 #include "flash_tile.cuh"
 #include "flash_wgmma.cuh"
 
@@ -61,9 +67,13 @@ using bf16 = __nv_bfloat16;
 
 // -- fp32 -------------------------------------------------------------------
 
-constexpr size_t kSmemBytes =
-    sizeof(float) * (3 * (size_t)kHdTileFloats + kPTileFloats);
+// Q, K, V and a score tile: 118 KB at head dim 128, 217 KB at 256.
+template <int HD>
+constexpr size_t fp32_smem_bytes() {
+  return sizeof(float) * (3 * (size_t)kHdTileFloats<HD> + kPTileFloats);
+}
 
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const float* __restrict__ q,  // [b, s, n_q, hd]
                  const float* __restrict__ k,  // [b, s, n_kv, hd]
@@ -72,11 +82,12 @@ flash_fwd_kernel(const float* __restrict__ q,  // [b, s, n_q, hd]
                  float* __restrict__ lse,      // [b, n_q, s]
                  int s, int n_q, int n_kv, int causal, int window,
                  float scale) {
+  constexpr int kCols = HD / 16;  // accumulator columns a thread
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;
-  float* ks = qs + kHdTileFloats;
-  float* vs = ks + kHdTileFloats;
-  float* ps = vs + kHdTileFloats;
+  float* ks = qs + kHdTileFloats<HD>;
+  float* vs = ks + kHdTileFloats<HD>;
+  float* ps = vs + kHdTileFloats<HD>;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int nq = (s + kTile - 1) / kTile;
@@ -85,30 +96,30 @@ flash_fwd_kernel(const float* __restrict__ q,  // [b, s, n_q, hd]
   const int hk = h / (n_q / n_kv);
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
-  const size_t q_row = (size_t)n_q * kHD;
-  const size_t kv_row = (size_t)n_kv * kHD;
-  const size_t q_off = ((size_t)b * s + q0) * q_row + (size_t)h * kHD;
-  load_tile(qs, q + q_off, q_row, s - q0);
+  const size_t q_row = (size_t)n_q * HD;
+  const size_t kv_row = (size_t)n_kv * HD;
+  const size_t q_off = ((size_t)b * s + q0) * q_row + (size_t)h * HD;
+  load_tile<HD>(qs, q + q_off, q_row, s - q0);
 
-  float m[4], l[4], acc[4][8];
+  float m[4], l[4], acc[4][kCols];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
   }
   int lo, hi;
   key_tiles(q0, nq, causal, window, &lo, &hi);
   for (int ki = lo; ki <= hi; ++ki) {
     const int k0 = ki * kTile;
-    const size_t kv_off = ((size_t)b * s + k0) * kv_row + (size_t)hk * kHD;
+    const size_t kv_off = ((size_t)b * s + k0) * kv_row + (size_t)hk * HD;
     __syncthreads();  // the previous tile's K, V and P are consumed
-    load_tile(ks, k + kv_off, kv_row, s - k0);
-    load_tile(vs, v + kv_off, kv_row, s - k0);
+    load_tile<HD>(ks, k + kv_off, kv_row, s - k0);
+    load_tile<HD>(vs, v + kv_off, kv_row, s - k0);
     __syncthreads();
     float sc[4][4];
-    dot_tile(qs, ks, ty, tx, sc);
+    dot_tile<HD>(qs, ks, ty, tx, sc);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qp = q0 + ty + 16 * i;
@@ -131,11 +142,11 @@ flash_fwd_kernel(const float* __restrict__ q,  // [b, s, n_q, hd]
       l[i] = l[i] * alpha + row_sum(sum);
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
     }
     store_scores(ps, ty, tx, sc);
     __syncthreads();
-    pv_tile(ps, vs, ty, tx, acc);
+    pv_tile<HD>(ps, vs, ty, tx, acc);
   }
 
   float inv[4];
@@ -147,7 +158,7 @@ flash_fwd_kernel(const float* __restrict__ q,  // [b, s, n_q, hd]
     if (tx == 0 && qp < s)
       lse[((size_t)b * n_q + h) * s + qp] = m[i] + logf(safe_l);
   }
-  store_acc(o + q_off, q_row, s - q0, ty, tx, acc, inv);
+  store_acc<HD>(o + q_off, q_row, s - q0, ty, tx, acc, inv);
 }
 
 // -- bf16: tensor cores -----------------------------------------------------
@@ -300,17 +311,19 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q,  // [b, s, n_q, hd]
                    qs + wg::kTileBytes * p);
 }
 
+template <int HD>
 int launch_fp32(const void* q, const void* k, const void* v, void* o,
                 void* lse, int b, int s, int n_q, int n_kv, int causal,
                 int window, float scale, cudaStream_t stream) {
-  // once per kernel, so launches inside a CUDA-graph capture make no
-  // attribute calls
+  constexpr size_t kSmem = fp32_smem_bytes<HD>();
+  // once per instantiation, so launches inside a CUDA-graph capture make
+  // no attribute calls
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
+      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(n_q, b, (s + kTile - 1) / kTile);
-  flash_fwd_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+  flash_fwd_kernel<HD><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), s, n_q, n_kv, causal, window, scale);
@@ -347,9 +360,12 @@ extern "C" int kft_flash_attention_fwd(const void* q, const void* k,
                                        float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (s < 1 || n_kv < 1 || n_q % n_kv) return cudaErrorInvalidValue;
-  if (dtype == 0 && hd == kHD)
-    return launch_fp32(q, k, v, o, lse, b, s, n_q, n_kv, causal, window,
-                       scale, st);
+  if (dtype == 0 && hd == 128)
+    return launch_fp32<128>(q, k, v, o, lse, b, s, n_q, n_kv, causal,
+                            window, scale, st);
+  if (dtype == 0 && hd == 256)
+    return launch_fp32<256>(q, k, v, o, lse, b, s, n_q, n_kv, causal,
+                            window, scale, st);
   if (dtype == 1 && hd == 128)
     return launch_bf16<128>(q, k, v, o, lse, b, s, n_q, n_kv, causal,
                             window, scale, st);

@@ -12,10 +12,13 @@
 // - tiles of 64 query rows x 64 key rows, staged in shared memory as
 //   fp32; every product accumulates in fp32 on the CUDA cores. No tensor
 //   cores, no TMA, no pipelining;
+// - a template on the head dim HD (128 or 256): a [64, HD] tile is
+//   HD / 64 column parts of 64;
 // - 256 threads as 16 x 16: thread (ty, tx) owns score rows ty + 16 i and
-//   score columns tx + 16 j (i, j < 4), and for a [64, hd] accumulator the
-//   rows ty + 16 i and head-dim columns tx*4 + {0..3}, 64 + tx*4 + {0..3};
-// - [64, hd] tiles are padded by 4 floats a row, so the 16-byte reads of
+//   score columns tx + 16 j (i, j < 4), and for a [64, HD] accumulator the
+//   rows ty + 16 i and head-dim columns 64 part + tx*4 + {0..3} of every
+//   part (HD / 16 columns a row: acc[4][HD / 16]);
+// - [64, HD] tiles are padded by 4 floats a row, so the 16-byte reads of
 //   8 neighbouring lanes from 8 different rows hit all 32 banks once, and
 //   the 16 lanes of a row read the other operand's same address
 //   (broadcast); [64, 64] score tiles likewise;
@@ -31,16 +34,23 @@
 
 namespace kft_flash {
 
-// Head dim of the fp32 kernels (llama3-1b). The bf16 kernels take theirs
-// as a template parameter (128 or 256); at 256 an fp32 [64, 260] tile is
-// 66.5 KB and the fp32 dK/dV kernel needs four and a score tile, past the
-// 227 KB a block may have, so fp32 stays at 128.
-constexpr int kHD = 128;
+// A padded fp32 [64, HD] tile is 33.8 KB at 128 and 66.5 KB at 256. At
+// 256 the kernels keep three such tiles and a score tile (217 KB of the
+// 227 KB a block may have, one block an SM): the forward Q, K and V; dQ
+// Q, dO and one buffer that takes V, then K; dK/dV K, V and one buffer
+// that takes Q, then dO, then Q again (a second read of Q from L2). At
+// 128 each operand has its own tile.
 constexpr int kTile = 64;         // query rows and key rows of a tile
 constexpr int kThreads = 256;     // 16 x 16
-constexpr int kStride = kHD + 4;  // padded fp32 row of a [64, hd] tile
+template <int HD>
+constexpr int kStride = HD + 4;   // padded fp32 row of a [64, HD] tile
+template <int HD>
+constexpr int kHdTileFloats = kTile * kStride<HD>;
+template <int HD>
+constexpr int kParts = HD / 64;   // 64-column parts of a row
+template <int HD>
+constexpr bool kSharedBuffer = HD > 128;  // one tile for two operands
 constexpr int kPStride = kTile + 4;  // padded row of a [64, 64] tile
-constexpr int kHdTileFloats = kTile * kStride;
 constexpr int kPTileFloats = kTile * kPStride;
 constexpr float kNegInf = kft::kNegInf;
 
@@ -77,14 +87,15 @@ __device__ __forceinline__ void query_tiles(int k0, int nq, int causal,
 // Load 64 rows of one head into a padded fp32 tile. `src` points at the
 // tile's first row of that head; consecutive rows are `row_stride`
 // elements apart. Rows at or past `rows_valid` are zero.
+template <int HD>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst,
                                           const float* __restrict__ src,
                                           size_t row_stride, int rows_valid) {
-  constexpr int kPerRow = kHD / 4;  // 16-byte loads a row
+  constexpr int kPerRow = HD / 4;  // 16-byte loads a row
   for (int i = threadIdx.x; i < kTile * kPerRow; i += kThreads) {
     const int r = i / kPerRow;
     const int e = (i % kPerRow) * 4;
-    *reinterpret_cast<float4*>(dst + r * kStride + e) =
+    *reinterpret_cast<float4*>(dst + r * kStride<HD> + e) =
         r < rows_valid
             ? *reinterpret_cast<const float4*>(src + r * row_stride + e)
             : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -101,7 +112,8 @@ __device__ __forceinline__ void load_rows(float* __restrict__ dst,
 }
 
 // acc[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over two padded
-// [64, hd] tiles.
+// [64, HD] tiles.
+template <int HD>
 __device__ __forceinline__ void dot_tile(const float* __restrict__ A,
                                          const float* __restrict__ B, int ty,
                                          int tx, float acc[4][4]) {
@@ -110,14 +122,16 @@ __device__ __forceinline__ void dot_tile(const float* __restrict__ A,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 #pragma unroll 2
-  for (int d = 0; d < kHD; d += 4) {
+  for (int d = 0; d < HD; d += 4) {
     float4 a[4], b[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * kStride + d);
+      a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * kStride<HD>
+                                              + d);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      b[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * kStride + d);
+      b[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * kStride<HD>
+                                              + d);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -133,11 +147,11 @@ __device__ __forceinline__ void dot_tile(const float* __restrict__ A,
 }
 
 // acc[i][c] += sum_r P[ty + 16 i][r] * V[r][col(c)] for a padded [64, 64]
-// P and a padded [64, hd] V; col(c) = tx*4 + c for c < 4, 64 + tx*4 +
-// (c - 4) otherwise.
+// P and a padded [64, HD] V; col(c) = 64 (c / 4) + tx*4 + c % 4.
+template <int HD>
 __device__ __forceinline__ void pv_tile(const float* __restrict__ P,
                                         const float* __restrict__ V, int ty,
-                                        int tx, float acc[4][8]) {
+                                        int tx, float acc[4][HD / 16]) {
 #pragma unroll 2
   for (int r = 0; r < kTile; r += 4) {
     float4 p[4];
@@ -146,21 +160,20 @@ __device__ __forceinline__ void pv_tile(const float* __restrict__ P,
       p[i] = *reinterpret_cast<const float4*>(P + (ty + 16 * i) * kPStride + r);
 #pragma unroll
     for (int rr = 0; rr < 4; ++rr) {
-      const float* vr = V + (r + rr) * kStride + tx * 4;
-      const float4 v0 = *reinterpret_cast<const float4*>(vr);
-      const float4 v1 = *reinterpret_cast<const float4*>(vr + 64);
+      const float* vr = V + (r + rr) * kStride<HD> + tx * 4;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pv = rr == 0 ? p[i].x : rr == 1 ? p[i].y
-                       : rr == 2 ? p[i].z : p[i].w;
-        acc[i][0] = fmaf(pv, v0.x, acc[i][0]);
-        acc[i][1] = fmaf(pv, v0.y, acc[i][1]);
-        acc[i][2] = fmaf(pv, v0.z, acc[i][2]);
-        acc[i][3] = fmaf(pv, v0.w, acc[i][3]);
-        acc[i][4] = fmaf(pv, v1.x, acc[i][4]);
-        acc[i][5] = fmaf(pv, v1.y, acc[i][5]);
-        acc[i][6] = fmaf(pv, v1.z, acc[i][6]);
-        acc[i][7] = fmaf(pv, v1.w, acc[i][7]);
+      for (int part = 0; part < kParts<HD>; ++part) {
+        const float4 v4 = *reinterpret_cast<const float4*>(vr + part * 64);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float pv = rr == 0 ? p[i].x : rr == 1 ? p[i].y
+                         : rr == 2 ? p[i].z : p[i].w;
+          const int c = part * 4;
+          acc[i][c] = fmaf(pv, v4.x, acc[i][c]);
+          acc[i][c + 1] = fmaf(pv, v4.y, acc[i][c + 1]);
+          acc[i][c + 2] = fmaf(pv, v4.z, acc[i][c + 2]);
+          acc[i][c + 3] = fmaf(pv, v4.w, acc[i][c + 3]);
+        }
       }
     }
   }
@@ -175,12 +188,14 @@ __device__ __forceinline__ void store_scores(float* __restrict__ P, int ty,
     for (int j = 0; j < 4; ++j) P[(ty + 16 * i) * kPStride + tx + 16 * j] = v[i][j];
 }
 
-// Write a thread's [4][8] accumulator rows (times `mul`) to a [.., s,
-// heads, hd] tensor. `dst` points at the tile's first row of the head;
-// rows at or past `rows_valid` are not written.
+// Write a thread's [4][HD / 16] accumulator rows (times `mul`) to a
+// [.., s, heads, HD] tensor. `dst` points at the tile's first row of the
+// head; rows at or past `rows_valid` are not written.
+template <int HD>
 __device__ __forceinline__ void store_acc(float* __restrict__ dst,
                                           size_t row_stride, int rows_valid,
-                                          int ty, int tx, const float acc[4][8],
+                                          int ty, int tx,
+                                          const float acc[4][HD / 16],
                                           const float mul[4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -188,10 +203,10 @@ __device__ __forceinline__ void store_acc(float* __restrict__ dst,
     if (r >= rows_valid) continue;
     float* row = dst + r * row_stride;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float* out = row + half * 64 + tx * 4;
+    for (int part = 0; part < kParts<HD>; ++part) {
+      float* out = row + part * 64 + tx * 4;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) out[c] = acc[i][half * 4 + c] * mul[i];
+      for (int c = 0; c < 4; ++c) out[c] = acc[i][part * 4 + c] * mul[i];
     }
   }
 }

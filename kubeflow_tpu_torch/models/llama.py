@@ -211,8 +211,11 @@ def random_params(shapes: Params, dtype_of, seed: int,
     card's draws while the card holds one leaf's draw at a time. The
     leaves named in `by_layer` are drawn one leading index (layer) at a
     time into their stored tensor, so that the fp32 draw of a leaf too
-    large to draw whole (a MoE expert stack) is one layer's."""
-    gen = torch.Generator(device=device).manual_seed(seed)
+    large to draw whole (a MoE expert stack) is one layer's. On the
+    "meta" device the leaves carry shapes and dtypes only, nothing is
+    drawn (tools/memplan.py sizes a model so)."""
+    gen = (None if torch.device(device).type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
 
     def draw(shape, fan_in, dtype):
         w = torch.empty(shape, dtype=torch.float32, device=device)

@@ -6,8 +6,10 @@ timelines (`timeline`), the metric registry, counters, gauges and
 histograms behind the serving app's `/metrics` (`metrics`), the SLO
 burn-rate engine whose gauges it renders (`slo`), the label guard that
 caps the values a client's `X-Tenant` header can put into a label
-(`cardinality`), and the step anatomy and compile watch of the
-batcher's worker loop and the trainer's steps (`profiling`).
+(`cardinality`), the step anatomy and compile watch of the
+batcher's worker loop and the trainer's steps (`profiling`), and the
+strict exposition parser and renderer (`exposition`) under the metrics
+federation of the elastic coordinator (`federation`).
 
 `obs.endpoints` (the aiohttp `/metrics` and `/debug/traces` handlers)
 is not imported here: importing `obs` must not pull aiohttp into a
@@ -28,6 +30,12 @@ from kubeflow_tpu_torch.obs.cachestats import (
     prefix_hash,
 )
 from kubeflow_tpu_torch.obs.cardinality import OVERFLOW_LABEL, LabelGuard
+from kubeflow_tpu_torch.obs.exposition import (
+    ExpositionError,
+    parse_exposition,
+    render_families,
+)
+from kubeflow_tpu_torch.obs.federation import federate, merge_families
 from kubeflow_tpu_torch.obs.metrics import (
     LATENCY_BUCKETS,
     SIZE_BUCKETS,
@@ -66,6 +74,7 @@ from kubeflow_tpu_torch.obs.tracing import (
 __all__ = [
     "DEFER_CAUSES",
     "EVICTION_CAUSES",
+    "ExpositionError",
     "LATENCY_BUCKETS",
     "PEER_FETCH_OUTCOMES",
     "PREFILL_SOURCES",
@@ -94,13 +103,17 @@ __all__ = [
     "abstract_signature",
     "canonical_prefix",
     "default_registry",
+    "federate",
     "format_float",
     "get_or_create_histogram",
     "get_or_create_slo_engine",
     "merge_chrome_traces",
     "merge_counter_tracks",
+    "merge_families",
+    "parse_exposition",
     "prefix_hash",
     "register_budget_gauge",
+    "render_families",
     "sample_quantile",
     "traces_response_payload",
 ]

@@ -33,10 +33,9 @@ dkv_launches = 0
 
 NEG_INF = -2.0**30  # the reference's finite mask value
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# head dims each dtype's kernels take: bf16 runs on the tensor cores at
-# llama's 128 and gemma's 256; the fp32 CUDA-core kernels' tiles do not
-# fit in shared memory at 256
-HEAD_DIMS = {torch.bfloat16: (128, 256), torch.float32: (128,)}
+# head dims each dtype's kernels take: bf16 runs on the tensor cores, fp32
+# on the CUDA cores, both at llama's 128 and gemma's 256
+HEAD_DIMS = {torch.bfloat16: (128, 256), torch.float32: (128, 256)}
 # the dK/dV grid (KV heads x batch rows x key tiles x 128-column parts)
 # is split over query-head subgroups until it has this many blocks, about
 # two waves of one block an SM: at gemma-2b's training shape 2 subgroups

@@ -29,6 +29,18 @@ thread (the next optimizer step updates the tensors in place, so the
 copy must be taken before it), the disk write on a background thread,
 and the commit happens on `wait()` or the next save, as the reference's
 `_flush_commits` does.
+
+A trainer on a mesh (train/fsdp.py) saves the same files: every rank
+calls `save`, which assembles the full params (`Trainer.gather_params`)
+and every optimizer slot from its ZeRO slices
+(`Trainer.gather_opt_state`), both collectives; the mesh's first rank
+alone writes and commits, and every rank waits at a barrier for the
+commit (the next save's, `wait()`'s or `close()`'s flush). Restore
+reads the full leaves on every rank and cuts each rank's blocks and
+slices under the current trainer's layout, whatever the saving mesh
+was: that is resize-on-restore. Each step is stamped with the data
+replicas it was saved at (`virtual_replicas` in run_metadata.json), and
+a restore at another count logs the resize.
 """
 
 from __future__ import annotations
@@ -46,10 +58,8 @@ from typing import Any, Mapping
 
 import torch
 
-from kubeflow_tpu_torch.obs.metrics import (
-    default_registry,
-    get_or_create_histogram,
-)
+from kubeflow_tpu_torch.obs.metrics import default_registry
+from kubeflow_tpu_torch.train.goodput import checkpoint_histograms
 from kubeflow_tpu_torch.train.trainer import Trainer, TrainState
 
 PARAMS_FILE = "params.pt"
@@ -121,18 +131,22 @@ def _fsync_dir(path: str) -> None:
         os.close(fd)
 
 
-def _to_host(state: TrainState, optimizer) -> tuple[dict, dict]:
-    """Host copies of a state's params and optimizer slots, by flat
-    name (the slots' over the leaves `optimizer` trains)."""
+def _to_host(state: TrainState, trainer: Trainer) -> tuple[dict, dict]:
+    """Host copies of a state's full params and optimizer slots, by flat
+    name (the slots' over the leaves the optimizer trains); on a mesh,
+    gathered from every rank (a collective)."""
+    optimizer = trainer.optimizer
     names = [n for n, _ in optimizer.trained(state.params)]
+    full_opt = trainer.gather_opt_state(state)
 
     def host(t):
         return t.detach().to("cpu", copy=True)
 
-    params = {n: host(t) for n, t in flatten(state.params).items()}
-    opt = {"count": int(state.opt_state["count"]),
+    params = {n: host(t) for n, t in
+              flatten(trainer.gather_params(state)).items()}
+    opt = {"count": int(full_opt["count"]),
            **{slot: {n: host(t) for n, t in
-                     zip(names, state.opt_state[slot], strict=True)}
+                     zip(names, full_opt[slot], strict=True)}
               for slot in optimizer.slots}}
     return params, opt
 
@@ -159,30 +173,36 @@ class Checkpointer:
         self.config = config
         self.trainer = trainer
         self.run_metadata = dict(run_metadata or {})
-        os.makedirs(config.directory, exist_ok=True)
-        self._pending: tuple[int, threading.Thread, list] | None = None
+        mesh = trainer.mesh
+        # the mesh's first rank writes; every rank of it saves and flushes
+        self._writes = mesh is None or mesh.rank == int(mesh.devices.min())
+        if self._writes:
+            os.makedirs(config.directory, exist_ok=True)
+        self._barrier()
+        # (step, write thread or None, write errors) of the uncommitted
+        # save
+        self._pending: tuple[int, threading.Thread | None, list] | None \
+            = None
         self._closed = False
         self._handlers_installed = False
         reg = registry if registry is not None else default_registry()
-        # the reference's names and help for these two families
-        self.save_seconds = get_or_create_histogram(
-            reg, "train_checkpoint_save_seconds",
-            "checkpoint save wall time (async: dispatch + previous-save "
-            "drain, not the device->disk copy itself)")
-        self.restore_seconds = get_or_create_histogram(
-            reg, "train_checkpoint_restore_seconds",
-            "checkpoint restore wall time onto the current mesh "
-            "(includes cross-replica-count resharding on resize)")
-        self.save_seconds.seed()
-        self.restore_seconds.seed()
+        # one catalog site for the two families (train/goodput.py): the
+        # elastic coordinator zero-seeds the same ones
+        self.save_seconds, self.restore_seconds = checkpoint_histograms(reg)
         if config.install_crash_handlers:
             self.install_crash_handlers()
 
     @property
     def virtual_replicas(self) -> int:
-        """The data-axis size a checkpoint is stamped with: one device,
-        no data axis."""
-        return 1
+        """The replica count a checkpoint saved through this
+        Checkpointer is stamped with: the trainer's (its mesh's data
+        axis, or an elastic worker's live world size)."""
+        return self.trainer.virtual_replicas
+
+    def _barrier(self) -> None:
+        """Every rank of the trainer's mesh meets here (no-op without)."""
+        if self.trainer.mesh is not None:
+            torch.distributed.barrier()
 
     # -- save ------------------------------------------------------------
 
@@ -211,34 +231,38 @@ class Checkpointer:
                 log.info("step %d already committed under %s — "
                          "skipping save", step, self.config.directory)
                 return False
-            log.warning(
-                "removing stale uncommitted dir for step %d under %s "
-                "before re-save", step, self.config.directory)
-            shutil.rmtree(step_dir)
+            if self._writes:
+                log.warning(
+                    "removing stale uncommitted dir for step %d under %s "
+                    "before re-save", step, self.config.directory)
+                shutil.rmtree(step_dir)
         if not force and not self._should_save(step):
             return False
         meta = dict(self.run_metadata)
         meta["virtual_replicas"] = self.virtual_replicas
-        params, opt = _to_host(state, self.trainer.optimizer)
-        os.makedirs(step_dir)
-        if self.config.enable_async:
-            errors: list = []
+        params, opt = _to_host(state, self.trainer)
+        errors: list = []
+        thread = None
+        if self._writes:
+            os.makedirs(step_dir)
 
             def run():
                 try:
                     self._write(step_dir, params, opt, meta, data_state)
-                except BaseException as e:  # noqa: BLE001 — re-raised on wait
+                except BaseException as e:  # noqa: BLE001 — re-raised on flush
                     errors.append(e)
 
-            thread = threading.Thread(target=run, name=f"ckpt-{step}",
-                                      daemon=True)
-            thread.start()
-            self._pending = (step, thread, errors)
-        else:
-            self._write(step_dir, params, opt, meta, data_state)
-            self._commit(step)
-        if self.config.tokenizer_path:
-            self._carry_tokenizer()
+            if self.config.enable_async:
+                thread = threading.Thread(target=run, name=f"ckpt-{step}",
+                                          daemon=True)
+                thread.start()
+            else:
+                run()
+            if self.config.tokenizer_path:
+                self._carry_tokenizer()
+        self._pending = (step, thread, errors)
+        if not self.config.enable_async:
+            self._flush_commits()
         self.save_seconds.observe(time.perf_counter() - t0)
         return True
 
@@ -280,16 +304,21 @@ class Checkpointer:
             shutil.rmtree(self.step_path(step), ignore_errors=True)
 
     def _flush_commits(self) -> None:
-        """Wait for the pending async write and commit its step; a write
-        that failed raises here and leaves its step uncommitted."""
+        """Wait for the pending write and commit its step (the writing
+        rank), then meet every rank of the mesh; a write that failed
+        raises here, after the barrier, and leaves its step
+        uncommitted."""
         if self._pending is None:
             return
         step, thread, errors = self._pending
-        thread.join()
         self._pending = None
+        if thread is not None:
+            thread.join()
+        if self._writes and not errors:
+            self._commit(step)
+        self._barrier()
         if errors:
             raise errors[0]
-        self._commit(step)
 
     def _carry_tokenizer(self) -> None:
         """Copy the configured tokenizer to <dir>/tokenizer.json once."""
@@ -344,9 +373,17 @@ class Checkpointer:
         steps = self.committed_steps()
         return steps[-1] if steps else None
 
+    def latest_committed_path(self) -> str | None:
+        """Directory of the newest COMMITTED step, or None before the
+        first durable save: what an elastic chief publishes, never a
+        crash's uncommitted leftover."""
+        step = self.latest_committed_step()
+        return None if step is None else self.step_path(step)
+
     def restore(self, step: int | None = None, *,
                 device=None) -> TrainState:
-        """Restore onto `device` (default: the trainer's). `step=None`
+        """Restore onto `device` (default: the trainer's; a mesh trainer
+        always restores onto its own, cut under its layout). `step=None`
         takes the newest committed step and falls back to the next older
         one when it fails to load; an explicit `step` is restored
         exactly or raises."""
@@ -377,11 +414,28 @@ class Checkpointer:
                     cand, e, candidates[i + 1])
                 continue
             self.restore_seconds.observe(time.perf_counter() - t0)
+            self._log_resize(cand)
             return state
         raise AssertionError("unreachable")
 
+    def _log_resize(self, step: int) -> None:
+        try:
+            meta = self.restore_metadata(step)
+        except Exception:  # noqa: BLE001 — provenance only, never fatal
+            return
+        saved = meta.get("virtual_replicas")
+        if saved and int(saved) != self.virtual_replicas:
+            log.info(
+                "resize-on-restore: step %d (%s) was saved at %d "
+                "virtual replicas, restored at %d (optimizer state "
+                "re-partitioned over the new data axis)",
+                step, self.step_path(step), int(saved),
+                self.virtual_replicas)
+
     def _load_state(self, step: int, device) -> TrainState:
         step_dir = self.step_path(step)
+        if self.trainer.mesh is not None:
+            device = "cpu"  # full leaves; each rank keeps its cut
         flat = _load(os.path.join(step_dir, PARAMS_FILE), device)
         opt = _load(os.path.join(step_dir, OPT_FILE), device)
         params = unflatten(flat)

@@ -208,6 +208,18 @@ class MeshLayout:
         dim, group = zero
         return p.chunk(group.size, dim)[group.index]
 
+    def shard_slot(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """A full moment (alike on every rank) -> this rank's slice, the
+        one `slot_view` gives of its block."""
+        return sharding_lib.shard_tensor(full, self.leaves[name].opt_spec,
+                                         self.mesh)
+
+    def gather_slot(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The full moment from every rank's slice (collective)."""
+        return sharding_lib.gather_tensor(t.detach(),
+                                          self.leaves[name].opt_spec,
+                                          self.mesh)
+
     @contextlib.contextmanager
     def slot(self, name: str, p: torch.Tensor, g: torch.Tensor):
         """`_Optimizer.update`'s slot hook: the slices of the block and

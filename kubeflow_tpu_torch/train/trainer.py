@@ -428,7 +428,12 @@ class Trainer:
     spans and families (default: `obs.DEFAULT_TRACER` and the process's
     default registry; several trainers in one process share the
     series). `mesh` / `logical_axes` / `rules`: training on a mesh (the
-    module docstring); `device` is then this rank's device."""
+    module docstring); `device` is then this rank's device.
+    `virtual_replicas`: the data-parallel replica count the state stands
+    for, which checkpoints are stamped with: the mesh's data axis by
+    default (1 without a mesh); an elastic worker that computes the full
+    global step alone on its device passes the live world size
+    (train/elastic.py)."""
 
     def __init__(self, apply_fn: Callable, init_fn: Callable[[int], Params],
                  train_config: TrainConfig = TrainConfig(),
@@ -436,9 +441,14 @@ class Trainer:
                  device: torch.device | str | None = None, *,
                  freeze_labels: Params | None = None,
                  tracer=None, registry=None, mesh=None,
-                 logical_axes: Params | None = None, rules=None):
+                 logical_axes: Params | None = None, rules=None,
+                 virtual_replicas: int | None = None):
         self.mesh = mesh
         self.layout = None
+        if virtual_replicas is None:
+            virtual_replicas = (1 if mesh is None
+                                else int(mesh.shape.get("data", 1)))
+        self.virtual_replicas = int(virtual_replicas)
         if mesh is not None:
             if logical_axes is None:
                 raise ValueError("a mesh needs the params' logical_axes")
@@ -518,19 +528,27 @@ class Trainer:
         params = _prep(params, self.device, self.freeze_labels)
         return self.state_from(params, self.optimizer.init(params), 0)
 
-    def _mesh_state(self, params: Params) -> TrainState:
+    def _mesh_state(self, params: Params, opt_state: dict | None = None,
+                    step: int = 0) -> TrainState:
         """This rank's blocks of full params, and moments for the slices
-        it updates."""
+        it updates: zeros, or cut from full `opt_state` slots (a
+        restore)."""
         lay = self.layout
         self._n_params = sum(p.numel() for p in _leaves(params))
         local = lay.shard_params(params)
         local = _prep(local, self.device, self.freeze_labels)
         named = self.optimizer.trained(local)
-        opt_state = {"count": 0, **{slot: [
-            self.optimizer._zeros(slot, lay.slot_view(n, p)).detach()
-            for n, p in named] for slot in self.optimizer.slots}}
+        if opt_state is None:
+            opt_state = {"count": 0, **{slot: [
+                self.optimizer._zeros(slot, lay.slot_view(n, p)).detach()
+                for n, p in named] for slot in self.optimizer.slots}}
+        else:
+            opt_state = {"count": int(opt_state["count"]), **{slot: [
+                lay.shard_slot(n, full).to(self.device)
+                for (n, _), full in zip(named, opt_state[slot], strict=True)]
+                for slot in self.optimizer.slots}}
         self._opt_bytes = lay.opt_state_bytes(named, self.optimizer)
-        return TrainState(local, opt_state, 0)
+        return TrainState(local, opt_state, int(step))
 
     def gather_params(self, state: TrainState) -> Params:
         """The full params (on a mesh: assembled from every rank's
@@ -539,6 +557,18 @@ class Trainer:
             return state.params
         return self.layout.gather_params(state.params)
 
+    def gather_opt_state(self, state: TrainState) -> dict:
+        """The full optimizer state, `{"count", slot: [...]}` in the
+        order of the trained leaves (on a mesh: each moment assembled
+        from every rank's ZeRO slices, a collective every rank calls)."""
+        if self.layout is None:
+            return state.opt_state
+        named = self.optimizer.trained(state.params)
+        return {"count": int(state.opt_state["count"]), **{slot: [
+            self.layout.gather_slot(n, t)
+            for (n, _), t in zip(named, state.opt_state[slot], strict=True)]
+            for slot in self.optimizer.slots}}
+
     def state_from(self, params: Params, opt_state: dict, step: int, *,
                    device: torch.device | str | None = None) -> TrainState:
         """A state around existing params and optimizer state (a restored
@@ -546,7 +576,11 @@ class Trainer:
         AdamW's `mu` and `nu` or Adafactor's `v_row`, `v_col` and `v`,
         each in the order of the trained leaves), on `device` (default:
         the trainer's). As in `init_from_params`, tensors already there
-        are not copied."""
+        are not copied. On a mesh the params and slots are full tensors
+        (alike on every rank), cut to this rank's blocks and slices under
+        the trainer's layout, on its device."""
+        if self.layout is not None:
+            return self._mesh_state(params, opt_state, step)
         device = self.device if device is None else torch.device(device)
         params = _prep(params, device, self.freeze_labels)
         n_trained = len(self.optimizer.trained(params))

@@ -34,9 +34,10 @@ bound.
 
 Every kernel is held at llama's heads (hd 128) and at gemma-2b's (8
 query heads over one kv head of 256; the bf16 dK/dV kernel with its
-head-subgroup split off, forced and as the shapes pick it); one card
-test holds the refusals: the flash wrappers in fp32 at hd 256 and in
-bf16 at 64, every serving wrapper at gemma-tiny's hd 32.
+head-subgroup split off, forced and as the shapes pick it; the fp32
+CUDA-core kernels at 256 too); one card test holds the refusals: the
+flash wrappers in fp32 and in bf16 at hd 64, every serving wrapper at
+gemma-tiny's hd 32.
 
 The paged and dense decode kernels split each row's cells across
 blocks of `split_cells` cells (a block whose cells the kv_mask hides
@@ -360,12 +361,12 @@ def test_decode_door_launches_the_kernel_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_kernels_refuse_head_dims_they_lack_on_card(cuda_device):
-    """Nothing falls back: the flash wrappers refuse fp32 at head dim 256
-    (the fp32 CUDA-core kernels' tiles do not fit at 256; bf16 takes 128
-    and 256) and bf16 at 64, naming dtype and head dim, and the serving
-    wrappers refuse gemma-tiny's 32 (served on the CPU only)."""
+    """Nothing falls back: the flash wrappers refuse head dim 64 in fp32
+    and in bf16 (both take 128 and 256), naming dtype and head dim, and
+    the serving wrappers refuse gemma-tiny's 32 (served on the CPU
+    only)."""
     gen = torch.Generator().manual_seed(11)
-    for dtype, hd in ((torch.float32, 256), (torch.bfloat16, 64)):
+    for dtype, hd in ((torch.float32, 64), (torch.bfloat16, 64)):
         q, k, v, do = (torch.randn(1, 1024, n, hd, generator=gen)
                        .to(cuda_device, dtype) for n in (8, 1, 1, 8))
         msg = f"for {dtype}, got head_dim {hd}"
@@ -483,6 +484,32 @@ def test_flash_kernels_at_head_dim_256_match_plain_on_card(
                             mags[2:]):
         assert g.dtype == torch.bfloat16
         _flash_close(g, want, c, rtol, mag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,n_q,n_kv,causal,window", FLASH_HD256_SHAPES)
+def test_fp32_flash_kernels_at_head_dim_256_match_plain_on_card(
+        cuda_device, b, s, n_q, n_kv, causal, window):
+    """The fp32 CUDA-core kernels at head dim 256 (one shared-memory
+    tile for V then K in dQ, for Q then dO then Q in dK/dV) within the
+    fp32 bound."""
+    q, k, v, do = _flash_inputs(cuda_device, torch.float32, b, s, n_q,
+                                n_kv, hd=256)
+    c, rtol = FLASH_TOL[torch.float32]
+    kw = dict(causal=causal, window=window)
+    o, lse = tflash.flash_block_fwd(q, k, v, **kw)
+    wo, wlse = tflash.flash_fwd_plain(q, k, v, **kw)
+    delta = tflash.flash_delta(wo, do)
+    args = (q, k, v, do, wlse, delta)
+    torch.cuda.synchronize()
+    _flash_close(o, wo, c, rtol)
+    _flash_close(lse, wlse, 1e-5, 0.0)
+    _flash_close(tflash.flash_dq(*args, **kw),
+                 tflash.flash_dq_plain(*args, **kw), c, rtol)
+    for got, want in zip(tflash.flash_dkv(*args, **kw),
+                         tflash.flash_dkv_plain(*args, **kw)):
+        assert got.dtype == torch.float32
+        _flash_close(got, want, c, rtol)
 
 
 @pytest.mark.cuda

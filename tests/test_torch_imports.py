@@ -67,3 +67,13 @@ def test_distributed_modules_are_covered():
         "distributed", "parallel/mesh", "parallel/comm",
         "parallel/sharding", "parallel/ring", "parallel/pipeline",
         "train/fsdp", "models/llama_pp")} <= names
+
+
+def test_elastic_modules_are_covered():
+    """The elastic slice's modules (the replica registry, the exposition
+    parser and federation, the goodput ledger, the elastic fleet, the
+    memory planner) are among the files checked above."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {f"kubeflow_tpu_torch/{m}.py" for m in (
+        "fleet/registry", "obs/exposition", "obs/federation",
+        "train/goodput", "train/elastic", "tools/memplan")} <= names

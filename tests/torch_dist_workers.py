@@ -298,3 +298,144 @@ def fsdp_cases(payload, rank, world):
                            bool(torch.equal(gather_fns["blocks"]["wq"](block),
                                             w)))
     return out
+
+
+# -- test_torch_elastic_gang.py ---------------------------------------------
+
+def elastic_resize_cases(payload, rank, world):
+    """Resize-on-restore over the mesh trainer: a ZeRO run saved at
+    (data 2, fsdp 2), restored at (data 4, fsdp 1) and on one device;
+    `resize_state` between the meshes and onto one device; the commit
+    markers with one writing rank."""
+    import logging
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.train import TrainConfig, Trainer
+    from kubeflow_tpu_torch.train.checkpoint import (
+        COMMIT_MARKER, CheckpointConfig, Checkpointer,
+    )
+    from kubeflow_tpu_torch.train.elastic import resize_state
+
+    cfg = llama.LLAMA_TINY
+    meshes = {2: create_mesh(MeshSpec(data=2, fsdp=2), device_type="cpu"),
+              4: create_mesh(MeshSpec(data=4, fsdp=1), device_type="cpu")}
+    batches = [(torch.tensor(t).long(), torch.tensor(y).long())
+               for t, y in payload["batches"]]
+
+    def trainer(world_size):
+        return Trainer(lambda p, t: llama.apply(p, cfg, t),
+                       lambda seed: llama.init(cfg, seed, "cpu", train=True),
+                       TrainConfig(warmup_steps=1, total_steps=100,
+                                   zero_optimizer=True),
+                       device="cpu", mesh=meshes.get(world_size),
+                       logical_axes=llama.param_logical_axes(cfg))
+
+    def full(tr, state):
+        """Copies of the whole params and moments (a gather may hand back
+        a live leaf, which the next step updates in place)."""
+        params = tr.gather_params(state)
+        return ({k: ({n: t.clone() for n, t in v.items()}
+                     if isinstance(v, dict) else v.clone())
+                 for k, v in params.items()},
+                {k: [t.clone() for t in v] if isinstance(v, list) else v
+                 for k, v in tr.gather_opt_state(state).items()})
+
+    lines = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    ckpt_log = logging.getLogger("kubeflow_tpu_torch.train.checkpoint")
+    ckpt_log.addHandler(Catch())
+    ckpt_log.setLevel(logging.INFO)
+    trs = {n: trainer(n) for n in (2, 4, 1)}
+    out = {}
+    d = payload["dir"]
+    tr2 = trs[2]
+    ck2 = Checkpointer(CheckpointConfig(os.path.join(d, "resize"),
+                                        save_interval_steps=1,
+                                        enable_async=False), tr2,
+                       run_metadata={"run": "resize-test"})
+    state = tr2.init(0)
+    for s in range(3):
+        state, _ = tr2.step(state, *batches[s])
+    out["saved"] = ck2.save(state, force=True)
+    out["saved_opt"] = full(tr2, state)[1]
+    out["mu_local"] = tuple(state.opt_state["mu"][1].shape)
+    oracle = []
+    for s in range(3, 8):
+        state, loss = tr2.step(state, *batches[s])
+        oracle.append(float(loss))
+    out["oracle"] = oracle
+    ck2.close()
+    for n in (4, 1):
+        ck = Checkpointer(CheckpointConfig(os.path.join(d, "resize")),
+                          trs[n])
+        restored = ck.restore()
+        got = {"step": restored.step, "stamp": ck.virtual_replicas,
+               "meta": ck.restore_metadata(),
+               "opt": full(trs[n], restored)[1], "losses": []}
+        for s in range(3, 8):
+            restored, loss = trs[n].step(restored, *batches[s])
+            got["losses"].append(float(loss))
+        out[("restore", n)] = got
+        ck.close()
+    out["log"] = list(lines)
+
+    # live resize: mesh 2 -> mesh 4 and -> one device, without a disk
+    state = tr2.init(7)
+    state, _ = tr2.step(state, *batches[0])
+    src = full(tr2, state)
+    moved4 = resize_state(state, trs[4], from_trainer=tr2)
+    moved1 = resize_state(state, trs[1], from_trainer=tr2)
+    out["resize"] = {"src": src, "to4": full(trs[4], moved4),
+                     "to1": full(trs[1], moved1),
+                     "losses": [float(tr.step(st, *batches[1])[1])
+                                for tr, st in ((tr2, state),
+                                               (trs[4], moved4),
+                                               (trs[1], moved1))]}
+
+    # commit markers: rank 0 writes, every rank flushes
+    mk = os.path.join(d, "markers")
+    ck = Checkpointer(CheckpointConfig(mk, save_interval_steps=1,
+                                       enable_async=True), tr2)
+    state = tr2.init(0)
+    state, _ = tr2.step(state, *batches[0])
+    ck.save(state, force=True)
+    state, _ = tr2.step(state, *batches[1])
+    ck.save(state, force=True)          # flushes step 1's marker
+    marks = {"after_second_save": ck.committed_steps()}
+    ck.close()                          # drains, marks step 2
+    marks["after_close"] = ck.committed_steps()
+    marks["latest_path"] = ck.latest_committed_path()
+    if rank == 0:                       # a crash mid-save left step 3
+        os.makedirs(os.path.join(mk, "3", "junk"))
+    dist.barrier()
+    ck = Checkpointer(CheckpointConfig(mk, save_interval_steps=1,
+                                       enable_async=False), tr2)
+    marks["latest_committed"] = ck.latest_committed_step()
+    marks["restored_step"] = ck.restore().step
+    state, _ = tr2.step(state, *batches[2])
+    marks["resaved"] = ck.save(state, force=True)   # over the stale dir
+    marks["junk_gone"] = not os.path.exists(os.path.join(mk, "3", "junk"))
+    marks["marker"] = os.path.exists(os.path.join(mk, "3", COMMIT_MARKER))
+    marks["skip_committed"] = ck.save(state, force=True)
+    ck.close()
+    dist.barrier()
+    only = os.path.join(d, "uncommitted_only")
+    if rank == 0:
+        os.makedirs(os.path.join(only, "5", "junk"))
+    dist.barrier()
+    ck = Checkpointer(CheckpointConfig(only), tr2)
+    marks["fresh_step"] = ck.restore_or_init(0).step
+    ck.close()
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(only)
+    out["marks"] = marks
+    return out

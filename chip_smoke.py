@@ -53,8 +53,13 @@ Phases, each fatal on failure (exit code 1, no result line):
              cases at b 2 (dK/dV also timed without its query-head
              split; the fp32 CUDA-core kernels timed at the causal shape
              against fp32 SDPA and their bound at the fp32 rate, 67
-             TFLOP/s, as `<name>@fp32-256` rows), dense decode at the
-             window batch and at batch 1; the same bounds and controls, SDPA with K/V
+             TFLOP/s, as `<name>@fp32-256` rows, and likewise at
+             llama3-1b's shape as `<name>@fp32-128` rows; fp32 dK/dV
+             checked at the shapes' query-head split and a forced one,
+             timed at every split, and a sum of the split's partials
+             without one subgroup's must exceed the fp32 bound), dense
+             decode at the window batch and at batch 1; the same bounds
+             and controls, SDPA with K/V
              repeated over the group, ptxas registers and spills of
              every hd-256 instantiation.
              Then the flash forward, dQ and dK/dV at Mixtral-8x7B's
@@ -578,8 +583,9 @@ again as `<name>@gemma-2b`, timed in phase 2 at gemma-2b's shapes and
 counted over phase 6, or phase 7 for the flash kernels; the flash
 kernels as `<name>@fp32-256`, timed in phase 2 in fp32 at gemma-2b's
 shapes and counted over phase 18a (18b and 18c count under the plain
-names); the flash
-kernels as `<name>@mixtral`, timed in phase 2 at Mixtral's attention
+names), and as `<name>@fp32-128`, timed in phase 2 in fp32 at
+llama3-1b's shapes and counted over phase 15a's fp32 gradient pass; the
+flash kernels as `<name>@mixtral`, timed in phase 2 at Mixtral's attention
 and counted over phase 15a (15b and 15c count under the plain names,
 15c's serving under the paged kernels'); and
 `paged_prefill_append@verify`, timed at the verify pass's shape and
@@ -714,6 +720,9 @@ VERIFY = "@verify"
 # suffix of the fp32 flash kernels measured at gemma-2b's head dim 256
 # (phase 2) and launched by phase 18a's fp32 training
 FP32_256 = "@fp32-256"
+# the same at llama3-1b's head dim 128 (phase 2), launched by phase 15a's
+# fp32 gradient pass at Mixtral's attention (group 4, hd 128)
+FP32_128 = "@fp32-128"
 
 
 def fail(msg: str) -> None:
@@ -1424,9 +1433,10 @@ def _time_events(torch, fn, n):
 def check_flash(torch, dev, g=LLAMA_1B):
     """Each flash kernel against its plain version over the cases and
     every dtype its kernels take at `g`'s head dim (bf16 and fp32, at
-    llama3-1b's 128 and gemma-2b's 256); timings at the causal bf16
-    shape, and at gemma-2b's head dim the fp32 kernels' too (their rows
-    carry the FP32_256 suffix)."""
+    llama3-1b's 128 and gemma-2b's 256; fp32 dK/dV at the shapes' split
+    and a forced one); timings at the causal bf16 shape, and at
+    llama3-1b's and gemma-2b's shapes the fp32 kernels' too (their rows
+    carry the FP32_128 or FP32_256 suffix)."""
     from kubeflow_tpu_torch.ops.cuda import flash_attention as fa
 
     gen = torch.Generator().manual_seed(4)
@@ -1449,6 +1459,12 @@ def check_flash(torch, dev, g=LLAMA_1B):
             args = (q, k, v, do, wlse, delta)
             dq = fa.flash_dq(*args, **kw)
             dk, dv = fa.flash_dkv(*args, **kw)
+            fdk = fdv = None
+            if not bf16:  # fp32 dK/dV at a split the shapes do not pick
+                chosen = fa.default_head_splits(FLASH_B, s, g.n_q, g.n_kv,
+                                                g.hd, dtype)
+                forced = 2 if chosen != 2 else 4
+                fdk, fdv = fa.flash_dkv(*args, **kw, head_splits=forced)
             torch.cuda.synchronize()
             wdk, wdv = fa.flash_dkv_plain(*args, **kw)
             wdq = fa.flash_dq_plain(*args, **kw)
@@ -1460,6 +1476,24 @@ def check_flash(torch, dev, g=LLAMA_1B):
                     "dq": [_flash_err(dq, wdq, c, rtol, dq_mag)],
                     "dkv": [_flash_err(dk, wdk, c, rtol, dk_mag),
                             _flash_err(dv, wdv, c, rtol, dv_mag)]}
+            if not bf16:
+                errs["dkv"] += [_flash_err(fdk, wdk, c, rtol),
+                                _flash_err(fdv, wdv, c, rtol)]
+                log(f"  fp32 dkv {name}: head splits chosen {chosen}, "
+                    f"forced {forced}")
+            if not bf16 and name == "causal":
+                # a sum of the split's partials without one subgroup's
+                # must exceed the fp32 bound
+                parts = fa.flash_dkv_partials_plain(*args, forced, **kw)
+                dropped = [_flash_err(p[:, :, :, 1:].sum(3), w, c, rtol)[1]
+                           for p, w in zip(parts, (wdk, wdv))]
+                log(f"  dropped-partial control (the plain partials of "
+                    f"{forced} subgroups without the first) err/tol: dk "
+                    f"{dropped[0]:.1f}, dv {dropped[1]:.1f}")
+                if min(dropped) <= 1:
+                    fail("the fp32 flash bound cannot see a dropped "
+                         f"partial: {dropped}")
+                del parts
             if bf16 and name == "causal":
                 with _dropped_diagonal(torch, fa):
                     bad_o, _ = fa.flash_fwd_plain(q, k, v, **kw)
@@ -1490,7 +1524,7 @@ def check_flash(torch, dev, g=LLAMA_1B):
                 w = worst if bf16 else worst_fp32
                 w[kind] = max(w[kind], err)
             del q, do, k, v, o, lse, wo, wlse, delta, args, dq, dk, dv
-            del wdq, wdk, wdv, o_mag, dq_mag, dk_mag, dv_mag
+            del fdk, fdv, wdq, wdk, wdv, o_mag, dq_mag, dk_mag, dv_mag
             torch.cuda.empty_cache()
 
     # timings: causal, bf16, the training shape
@@ -1570,19 +1604,21 @@ def check_flash(torch, dev, g=LLAMA_1B):
             f"{_ptxas(f'flash_attention_{kind}', marker)}")
     del q, k, v, do, o, lse, delta, args, qt, kt, vt, dot, out
     torch.cuda.empty_cache()
-    if g.hd == 256:
+    if g in (LLAMA_1B, GEMMA_2B):
         stats.update(_time_flash_fp32(torch, dev, g, gen, worst_fp32))
     return stats
 
 
 def _time_flash_fp32(torch, dev, g, gen, worst):
-    """The fp32 CUDA-core kernels at `g`'s head dim 256, causal, the
-    training shape: device ms against their plain versions, fp32 SDPA
-    (forward, and forward + backward for dQ and dK/dV; K/V repeated over
-    the group, graph-replayed) and the bound at the fp32 CUDA-core rate.
-    `worst`: each kernel's max error over phase 2's fp32 cases."""
+    """The fp32 CUDA-core kernels at `g`'s shape, causal, the training
+    shape: device ms against their plain versions, fp32 SDPA (forward,
+    and forward + backward for dQ and dK/dV; K/V repeated over the
+    group, graph-replayed) and the bound at the fp32 CUDA-core rate;
+    dK/dV at every query-head split that divides the group. `worst`:
+    each kernel's max error over phase 2's fp32 cases."""
     from kubeflow_tpu_torch.ops.cuda import flash_attention as fa
 
+    suffix = {128: FP32_128, 256: FP32_256}[g.hd]
     s = FLASH_S
     q, do = (torch.randn(FLASH_B, s, g.n_q, g.hd, generator=gen).to(dev)
              for _ in range(2))
@@ -1595,6 +1631,15 @@ def _time_flash_fp32(torch, dev, g, gen, worst):
                   q, k, v, causal=True), 10),
               "dq": _time_ms(torch, lambda i: fa.flash_dq(*args), 10),
               "dkv": _time_ms(torch, lambda i: fa.flash_dkv(*args), 10)}
+    chosen = fa.default_head_splits(FLASH_B, s, g.n_q, g.n_kv, g.hd,
+                                    torch.float32)
+    sweep = {n: kernel["dkv"][0] if n == chosen else _time_ms(
+                 torch, lambda i, n=n: fa.flash_dkv(*args, head_splits=n),
+                 10)[0]
+             for n in (1, 2, 4, 8) if (g.n_q // g.n_kv) % n == 0}
+    log(f"  fp32 flash dkv ({g.model}) by query-head subgroups: " + "; ".join(
+        f"{n}: {ms:.4f} ms" + (" (the shapes' choice)" if n == chosen
+                               else "") for n, ms in sweep.items()))
     plain = {"fwd": _time_ms(torch, lambda i: fa.flash_fwd_plain(q, k, v),
                              2),
              "dq": _time_ms(torch, lambda i: fa.flash_dq_plain(*args), 2),
@@ -1611,22 +1656,18 @@ def _time_flash_fp32(torch, dev, g, gen, worst):
         with torch.no_grad():
             return sdpa(qt, kt, vt, is_causal=True)
 
-    dq, (dk, dv) = fa.flash_dq(*args), fa.flash_dkv(*args)
-    same = [float((a == b).float().mean()) for a, b in (
-        (dq, fa.flash_dq_plain(*args)), *zip((dk, dv),
-                                             fa.flash_dkv_plain(*args)))]
-    log(f"  fp32 dQ, dK, dV at the causal shape: share of elements equal "
-        f"to the plain versions' bit for bit {same}")
-    del dq, dk, dv
     lib_fwd = _time_ms(torch, lambda i: fwd(), 10)[0]
     lib_fb = _time_ms(torch, lambda i: torch.autograd.grad(
         sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), dot), 10)[0]
-    log(f"  fp32 SDPA (K/V repeated over the group), graph-replayed: "
-        f"forward {lib_fwd:.4f} ms, forward + backward {lib_fb:.4f} ms")
+    log(f"  fp32 SDPA ({g.model}, K/V repeated over the group), "
+        f"graph-replayed: forward {lib_fwd:.4f} ms, forward + backward "
+        f"{lib_fb:.4f} ms; the kernels' dQ + dK/dV "
+        f"{kernel['dq'][0] + kernel['dkv'][0]:.4f} ms against SDPA's "
+        f"backward alone (the difference) {lib_fb - lib_fwd:.4f} ms")
     stats = {}
     for kind, lib in (("fwd", lib_fwd), ("dq", lib_fb), ("dkv", lib_fb)):
         moved, flops = _flash_need(kind, FLASH_B, s, True, None, g, elt=4)
-        st = stats[f"flash_attention_{kind}{FP32_256}"] = _summary(
+        st = stats[f"flash_attention_{kind}{suffix}"] = _summary(
             f"flash {kind} fp32 ({g.model}: b {FLASH_B}, s {s}, n_q "
             f"{g.n_q}, n_kv {g.n_kv}, hd {g.hd}, causal, CUDA cores)",
             worst[kind], kernel[kind], plain[kind], lib, moved, flops,
@@ -1634,8 +1675,9 @@ def _time_flash_fp32(torch, dev, g, gen, worst):
         log(f"    {st['ms'] / lib:.2f}x fp32 SDPA's time; "
             f"{st['bound_ms'] / st['ms']:.1%} of the bound (fp32 at "
             f"{FP32_FLOPS_S / 1e12:.0f} TFLOP/s)")
+        marker = f"flash_{kind}_kernelILi{g.hd}E"
         log(f"    ptxas, fp32 {kind} kernel at hd {g.hd}: "
-            f"{_ptxas(f'flash_attention_{kind}', f'flash_{kind}_kernelILi256E')}")
+            f"{_ptxas(f'flash_attention_{kind}', marker)}")
     return stats
 
 
@@ -6336,7 +6378,8 @@ def _moe_step_flops(cfg, b, s):
 
 def moe_train_and_check(torch):
     """Phase 15a: the MoE family trained at Mixtral-8x7B's widths, at the
-    depth the card's memory holds. -> the flash kernels' launches."""
+    depth the card's memory holds. -> (the flash kernels' launches over
+    the bf16 training, over the fp32 gradient pass)."""
     from unittest import mock
 
     import numpy as np
@@ -6418,7 +6461,9 @@ def moe_train_and_check(torch):
         attention.reset_impl_counts()
         force = [idx for idx, _ in plain_calls]
         moe._top_k = _route_probe(torch, kernel_calls, force)
+        reset_launch_counts()
         got_loss, got = _grads(torch, loss32(), params0, *batch)
+        fp32_counts = launch_counts()
         kernel_impl = attention.impl_counts()
         grad_err = _worst_grad_err(torch, got, want)
         del got
@@ -6457,6 +6502,12 @@ def moe_train_and_check(torch):
     if plain_impl["flash"] or kernel_impl["torch"] or not kernel_impl["flash"]:
         fail(f"phase 15a: the passes did not take their paths: plain "
              f"{plain_impl}, kernel {kernel_impl}")
+    # the fp32 kernel pass, no remat: one forward, dQ and dK/dV a layer
+    fp32_counts = {k: n for k, n in fp32_counts.items()
+                   if k.startswith("flash_attention")}
+    if fp32_counts != {k: L for k in fp32_counts} or len(fp32_counts) != 3:
+        fail(f"phase 15a: the fp32 kernel pass launched {fp32_counts}, the "
+             f"design implies {L} of each flash kernel")
     if any(g >= MOE_ROUTE_GAP_TOL for g in gaps):
         fail(f"phase 15a: routes differ at router gaps {gaps}, not only "
              f"near-ties under {MOE_ROUTE_GAP_TOL}")
@@ -6564,7 +6615,7 @@ def moe_train_and_check(torch):
     MEASURED["moe_train"] = dict(step_ms=step_s * 1e3, peak=peak, run=run,
                                  layers=L)
     del state, trainer
-    return {k: v for k, v in counts.items() if k in expect}
+    return {k: v for k, v in counts.items() if k in expect}, fp32_counts
 
 
 def _chunked_loss(cfg):
@@ -9007,7 +9058,9 @@ def main() -> None:
         t15 = time.perf_counter()
         log("phase 15a: train the MoE family at Mixtral-8x7B's widths "
             "through the flash kernels (group 4)")
-        add(moe_train_and_check(torch), MIXTRAL_SUFFIX)
+        train_counts, fp32_counts = moe_train_and_check(torch)
+        add(train_counts, MIXTRAL_SUFFIX)
+        add(fp32_counts, FP32_128)
         tidy()
         log("phase 15b: llama3-1b under the remat policies full, mlp and "
             "dots")
@@ -9108,6 +9161,7 @@ def main() -> None:
                  "flash_attention_dkv"):
         meta[name + MIXTRAL_SUFFIX] = meta[name]
         meta[name + FP32_256] = meta[name]
+        meta[name + FP32_128] = meta[name]
     meta["paged_prefill_append" + VERIFY] = meta["paged_prefill_append"]
     # no Pallas kernel: the card's counterpart of the reference's qdot
     meta["int8_proj"] = ("kubeflow_tpu_torch/csrc/int8_proj.cu",

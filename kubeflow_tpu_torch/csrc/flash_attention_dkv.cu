@@ -60,15 +60,34 @@
 //   wrapper picks `splits` from the shapes alone; at llama3-1b's shape
 //   (512 blocks) it is 1, the in-kernel group sum and one bf16 output.
 //
-// fp32: that first kernel, kept for fp32 inputs (fp32 tiles in shared
-// memory, products on the CUDA cores; flash_tile.cuh), a template on the
-// head dim. At 256 (gemma-2b) K, V, Q, dO and the score tile would need
-// 283 KB, so Q and dO share one tile in turn: S^T = K Q^T, then dO
-// replaces Q for dP^T = V dO^T and dV += P^T dO, then Q is read again
-// (from L2) for dK += dS^T Q (217 KB, one block an SM). dK and dV
-// accumulate [64, 256] each in registers (128 fp32 a thread). fp32
-// stays off the tensor cores (TF32 would round the products).
-#include "flash_tile.cuh"
+// fp32 (the CUDA cores; TF32 would round the products), a template on
+// the head dim. Bound at gemma-2b's shape: the 68.7 GFLOP over 67
+// TFLOP/s, 1.026 ms. Two problems of the first fp32 kernel, and what the
+// design does about them:
+// - parallelism: 64 blocks on 132 SMs at gemma-2b's one KV head, the
+//   first key tile walking 8 heads x 32 query tiles while the average SM
+//   had 64 steps of work. The query-head split above applies to fp32 as
+//   well: `splits` subgroups write fp32 dK and dV at [b, s, n_kv, splits,
+//   hd], summed by the caller (`default_head_splits` picks 4 there: 256
+//   blocks, heaviest key tiles first);
+// - the step: synchronous loads (Q read twice at 256), five barriers a
+//   step and 4 x 4 micro-tiles. Now K and V stay resident as padded [64,
+//   HD] tiles; Q and dO of each (query head, query tile) step stream
+//   through flash_fp32_ring.cuh's cp.async ring, as 32-column chunks for
+//   S^T = K Q^T and dP^T = V dO^T, then as chunks of whole rows (8 at
+//   256, 16 at 128) for dV += P^T dO and dK += dS^T Q (all four operands
+//   would need 266 KB at 256); lse and delta come in registers. The two
+//   warpgroups split the work: one forms S^T, P^T and dV, the other
+//   dP^T, dS^T and dK, each thread an 8 x 4 micro-tile of its score
+//   product and 8 rows x 16 columns of its accumulator at 256 (8 x 8 at
+//   128; 5.3 and 4 FMAs a loaded float). P^T is formed once into a
+//   shared [query][key] tile, dS^T beside it; one barrier a chunk and
+//   one more a step. dK or dV: 128 fp32 registers a thread at 256. 218
+//   KB of shared memory at 256 (154 KB at 128), one block an SM.
+// On an H100 80GB HBM3 at 700 W: 2.07 ms at gemma-2b's shape (50% of the
+// bound; the first kernel 9.02 in the same run), 2.16 ms at llama3-1b's
+// (48%; 2.41).
+#include "flash_fp32_ring.cuh"
 #include "flash_wgmma.cuh"
 
 namespace {
@@ -79,16 +98,17 @@ using bf16 = __nv_bfloat16;
 
 // -- fp32 -------------------------------------------------------------------
 
-// K, V, Q, dO, the score tile and lse / delta at head dim 128 (150 KB);
-// at 256 one tile takes Q, then dO, then Q again (K, V, that tile, the
-// score tile and the statistics: 217 KB).
+// K and V resident, P^T and dS^T tiles and the ring: 154 KB at head dim
+// 128, 218 KB at 256 (one block an SM).
 template <int HD>
 constexpr size_t fp32_smem_bytes() {
-  return sizeof(float) * ((kSharedBuffer<HD> ? 3 : 4) *
-                              (size_t)kHdTileFloats<HD> + kPTileFloats +
-                          2 * kTile);
+  return sizeof(float) * (2 * (size_t)kHdTileFloats<HD> + 2 * kPTileFloats +
+                          kRingStages * kStageFloats);
 }
 
+// grid.x = n_kv x splits: block x takes KV head x / splits and query-head
+// subgroup x % splits of its group; it writes fp32 dK and dV at [b, s,
+// n_kv, splits, hd] (with splits == 1, [b, s, n_kv, hd]).
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_dkv_kernel(const float* __restrict__ q,      // [b, s, n_q, hd]
@@ -97,90 +117,186 @@ flash_dkv_kernel(const float* __restrict__ q,      // [b, s, n_q, hd]
                  const float* __restrict__ dout,   // [b, s, n_q, hd]
                  const float* __restrict__ lse,    // [b, n_q, s]
                  const float* __restrict__ delta,  // [b, n_q, s]
-                 float* __restrict__ dk,           // [b, s, n_kv, hd]
+                 float* __restrict__ dk,  // [b, s, n_kv, splits, hd]
                  float* __restrict__ dv,
-                 int s, int n_q, int n_kv, int causal, int window,
-                 float scale) {
-  constexpr int kCols = HD / 16;  // accumulator columns a thread
-  constexpr bool kOneQ = kSharedBuffer<HD>;
+                 int s, int n_q, int n_kv, int splits, int causal,
+                 int window, float scale) {
+  constexpr int kP1 = HD / kChunk;           // Q and dO column chunks a step
+  constexpr int kRows = kStageRows<HD> / 2;  // Q and dO rows of a phase-3 chunk
+  constexpr int kP3 = kTile / kRows;
+  constexpr int kIters = kP1 + kP3;          // ring chunks a step
+  constexpr int kCols = HD / 64;             // float4 columns of dK or dV a thread
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;
   float* vs = ks + kHdTileFloats<HD>;
-  float* qs = vs + kHdTileFloats<HD>;
-  float* dos = kOneQ ? qs : qs + kHdTileFloats<HD>;
-  float* ps = dos + kHdTileFloats<HD>;
-  float* lse_s = ps + kPTileFloats;
-  float* delta_s = lse_s + kTile;
-  const int hk = blockIdx.x;
+  float* pq = vs + kHdTileFloats<HD>;  // P: [query][key]
+  float* sq = pq + kPTileFloats;       // dS: [query][key]
+  float* ring_base = sq + kPTileFloats;
+  const int sub = blockIdx.x % splits;
+  const int hk = blockIdx.x / splits;
   const int b = blockIdx.y;
-  const int ki = blockIdx.z;  // heaviest (earliest) key tiles first
-  const int k0 = ki * kTile;
+  const int k0 = blockIdx.z * kTile;  // heaviest (earliest) tiles first
   const int nq = (s + kTile - 1) / kTile;
-  const int group = n_q / n_kv;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
+  const int heads = n_q / n_kv / splits;  // query heads of the subgroup
+  const int h0 = hk * (n_q / n_kv) + sub * heads;
   const size_t q_row = (size_t)n_q * HD;
   const size_t kv_row = (size_t)n_kv * HD;
   const size_t kv_off = ((size_t)b * s + k0) * kv_row + (size_t)hk * HD;
-  load_tile<HD>(ks, k + kv_off, kv_row, s - k0);
-  load_tile<HD>(vs, v + kv_off, kv_row, s - k0);
-  float dk_acc[4][kCols], dv_acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-
   int lo, hi;
   query_tiles(k0, nq, causal, window, &lo, &hi);
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    const size_t stat = ((size_t)b * n_q + h) * s;
-    for (int qi = lo; qi <= hi; ++qi) {
-      const int q0 = qi * kTile;
-      const size_t q_off = ((size_t)b * s + q0) * q_row + (size_t)h * HD;
-      __syncthreads();  // the previous tile's Q, dO and dS are consumed
-      load_tile<HD>(qs, q + q_off, q_row, s - q0);
-      if constexpr (!kOneQ)
-        load_tile<HD>(dos, dout + q_off, q_row, s - q0);
-      load_rows(lse_s, lse + stat + q0, s - q0);
-      load_rows(delta_s, delta + stat + q0, s - q0);
-      __syncthreads();
-      float sc[4][4], dp[4][4];
-      dot_tile<HD>(ks, qs, ty, tx, sc);   // [key][query] logits / scale
-      if constexpr (kOneQ) {
-        __syncthreads();  // Q is consumed: dO takes its tile
-        load_tile<HD>(dos, dout + q_off, q_row, s - q0);
-        __syncthreads();
-      }
-      dot_tile<HD>(vs, dos, ty, tx, dp);  // [key][query] of dO V^T
+  const int per_head = hi - lo + 1;
+  const int steps = heads * per_head;  // (query head, query tile) pairs
+  // chunk J: step J / kIters; for r = J % kIters < kP1 its Q and dO
+  // columns [32 r, 32 r + 32), else its Q and dO rows [kRows (r - kP1),
+  // + kRows)
+  auto issue = [&](int J, float* st) {
+    const int t = J / kIters, r = J % kIters;
+    const int h = h0 + t / per_head;
+    const int q0 = (lo + t % per_head) * kTile;
+    const size_t off = ((size_t)b * s + q0) * q_row + (size_t)h * HD;
+    if (r < kP1) {
+      load_async<kTile, kChunk>(st, kCStride, q + off + r * kChunk, q_row,
+                                s - q0);
+      load_async<kTile, kChunk>(st + kTile * kCStride, kCStride,
+                                dout + off + r * kChunk, q_row, s - q0);
+    } else {
+      const int r0 = (r - kP1) * kRows;
+      const int valid = s - q0 - r0;  // <= 0: zeros, from the tile's row 0
+      const size_t at = off + (valid > 0 ? r0 * q_row : 0);
+      load_async<kRows, HD>(st, kStride<HD>, q + at, q_row, valid);
+      load_async<kRows, HD>(st + kRows * kStride<HD>, kStride<HD>,
+                            dout + at, q_row, valid);
+    }
+  };
+  load_async<kTile, HD>(ks, kStride<HD>, k + kv_off, kv_row, s - k0);
+  load_async<kTile, HD>(vs, kStride<HD>, v + kv_off, kv_row, s - k0);
+  ChunkRing<decltype(issue)> ring{ring_base, steps * kIters, issue};
+  ring.start();
+
+  // Two warpgroups: grp 0 forms S^T = K Q^T, P^T and dV += P^T dO; grp 1
+  // forms dP^T = V dO^T, dS^T = P^T (dP^T - delta) and dK += dS^T Q.
+  // Phase 1: rows (keys) ka + 8 i, columns (queries) qa + 16 j; a warp
+  // is 4 x 8 of (ka, qa). Phase 3: rows 8 kt + i, head-dim columns 64 m
+  // + 4 dt + j; a warp is 2 x 16 of (kt, dt).
+  const int grp = threadIdx.x / 128;
+  const int gw = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+  const int ka = (gw % 2) * 4 + lane / 8, qa = (gw / 2) * 8 + lane % 8;
+  const int kt = 2 * gw + lane / 16, dt = lane % 16;
+  const float* rows = grp ? vs : ks;       // phase 1's A operand
+  const float* stat = grp ? delta : lse;
+  const float* pd = (grp ? sq : pq) + 8 * kt;  // phase 3's A operand
+  float acc[8][4 * kCols];                 // dV (grp 0) or dK (grp 1)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kp = k0 + ty + 16 * i;
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = tx + 16 * j;
-          const float p = visible(q0 + c, kp, s, causal, window)
-                              ? expf(sc[i][j] * scale - lse_s[c])
-                              : 0.f;
-          sc[i][j] = p;
-          dp[i][j] = p * (dp[i][j] - delta_s[c]);
+    for (int j = 0; j < 4 * kCols; ++j) acc[i][j] = 0.f;
+
+  for (int t = 0; t < steps; ++t) {
+    const int h = h0 + t / per_head;
+    const int q0 = (lo + t % per_head) * kTile;
+    const size_t so = ((size_t)b * n_q + h) * s;
+    float rs[4];  // lse (grp 0) or delta (grp 1) of the columns
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int qp = q0 + qa + 16 * j;
+      rs[j] = qp < s ? stat[so + qp] : 0.f;
+    }
+    float x[8][4];  // S^T (grp 0) or dP^T (grp 1)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) x[i][j] = 0.f;
+#pragma unroll 1
+    for (int c = 0; c < kP1; ++c) {
+      // grp 0 reads the Q chunk, grp 1 the dO chunk
+      const float* cb = ring.next() + grp * kTile * kCStride;
+      const float* ab = rows + c * kChunk;
+#pragma unroll 4
+      for (int d = 0; d < kChunk; d += 4) {
+        float4 bq[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          bq[j] = ld4(cb + (qa + 16 * j) * kCStride + d);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 a = ld4(ab + (ka + 8 * i) * kStride<HD> + d);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float y = x[i][j];
+            y = fmaf(a.x, bq[j].x, y);
+            y = fmaf(a.y, bq[j].y, y);
+            y = fmaf(a.z, bq[j].z, y);
+            y = fmaf(a.w, bq[j].w, y);
+            x[i][j] = y;
+          }
         }
       }
-      store_scores(ps, ty, tx, sc);
-      __syncthreads();
-      pv_tile<HD>(ps, dos, ty, tx, dv_acc);  // dV += P^T dO
-      __syncthreads();
-      store_scores(ps, ty, tx, dp);
-      // Q again, into the tile dO held (a second read, from L2)
-      if constexpr (kOneQ) load_tile<HD>(qs, q + q_off, q_row, s - q0);
-      __syncthreads();
-      pv_tile<HD>(ps, qs, ty, tx, dk_acc);   // dK += dS^T Q
+    }
+    if (grp == 0) {  // P^T, stored [query][key]
+      const bool edge = edge_tile(q0, k0, s, causal, window);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float p = expf(x[i][j] * scale - rs[j]);
+          if (edge && !visible(q0 + qa + 16 * j, k0 + ka + 8 * i, s, causal,
+                               window))
+            p = 0.f;
+          pq[(qa + 16 * j) * kPStride + ka + 8 * i] = p;
+        }
+    }
+    __syncthreads();  // P^T is in shared memory
+    if (grp == 1) {   // dS^T at the same places
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int at = (qa + 16 * j) * kPStride + ka + 8 * i;
+          sq[at] = pq[at] * (x[i][j] - rs[j]);
+        }
+    }
+    // Phase 3 (the next chunk's barrier publishes dS^T): grp 0 dV += P^T
+    // dO, grp 1 dK += dS^T Q, over kRows queries a chunk
+#pragma unroll 1
+    for (int c = 0; c < kP3; ++c) {
+      // grp 0 reads the dO rows, grp 1 the Q rows
+      const float* cb = ring.next() + (1 - grp) * kRows * kStride<HD> +
+                        4 * dt;
+      const float* ac = pd + c * kRows * kPStride;
+#pragma unroll 8
+      for (int qq = 0; qq < kRows; ++qq) {
+        const float4 a0 = ld4(ac + qq * kPStride);
+        const float4 a1 = ld4(ac + qq * kPStride + 4);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+        for (int m = 0; m < kCols; ++m) {
+          const float4 b4 = ld4(cb + qq * kStride<HD> + 64 * m);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            acc[i][4 * m] = fmaf(av[i], b4.x, acc[i][4 * m]);
+            acc[i][4 * m + 1] = fmaf(av[i], b4.y, acc[i][4 * m + 1]);
+            acc[i][4 * m + 2] = fmaf(av[i], b4.z, acc[i][4 * m + 2]);
+            acc[i][4 * m + 3] = fmaf(av[i], b4.w, acc[i][4 * m + 3]);
+          }
+        }
+      }
     }
   }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  const float mul[4] = {scale, scale, scale, scale};
-  store_acc<HD>(dv + kv_off, kv_row, s - k0, ty, tx, dv_acc, one);
-  store_acc<HD>(dk + kv_off, kv_row, s - k0, ty, tx, dk_acc, mul);
+  kft_wgmma::cp_async_wait<0>();
+  float* out = grp ? dk : dv;
+  const float mul = grp ? scale : 1.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int kp = k0 + 8 * kt + i;
+    if (kp >= s) continue;
+    float* row = out + ((((size_t)b * s + kp) * n_kv + hk) * splits + sub) *
+                           HD + 4 * dt;
+#pragma unroll
+    for (int m = 0; m < kCols; ++m)
+      *reinterpret_cast<float4*>(row + 64 * m) = make_float4(
+          acc[i][4 * m] * mul, acc[i][4 * m + 1] * mul,
+          acc[i][4 * m + 2] * mul, acc[i][4 * m + 3] * mul);
+  }
 }
 
 // -- bf16: tensor cores -----------------------------------------------------
@@ -354,7 +470,8 @@ template <int HD>
 int launch_fp32(const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta,
                 void* dk, void* dv, int b, int s, int n_q, int n_kv,
-                int causal, int window, float scale, cudaStream_t stream) {
+                int splits, int causal, int window, float scale,
+                cudaStream_t stream) {
   constexpr size_t kSmem = fp32_smem_bytes<HD>();
   // once per instantiation, so launches inside a CUDA-graph capture make
   // no attribute calls
@@ -362,13 +479,13 @@ int launch_fp32(const void* q, const void* k, const void* v,
       flash_dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmem);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid(n_kv, b, (s + kTile - 1) / kTile);
+  const dim3 grid(n_kv * splits, b, (s + kTile - 1) / kTile);
   flash_dkv_kernel<HD><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dk), static_cast<float*>(dv), s, n_q, n_kv,
-      causal, window, scale);
+      splits, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -400,12 +517,13 @@ int launch_bf16(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores, hd 128 only, splits 1), 1 = bfloat16
-// (tensor cores, hd 128 or 256). splits: query-head subgroups of each
-// GQA group, a divisor of n_q / n_kv; with splits > 1, dk and dv point at
-// fp32 partials [b, s, n_kv, splits, hd] for the caller to sum over
-// splits. window <= 0 means none. Returns cudaGetLastError() after the
-// launch.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); hd 128
+// or 256. splits: query-head subgroups of each GQA group, a divisor of
+// n_q / n_kv. fp32 writes dk and dv at [b, s, n_kv, splits, hd] (the
+// outputs themselves at splits 1); bf16 writes bf16 dk and dv at splits
+// 1, else fp32 partials [b, s, n_kv, splits, hd]; the caller sums
+// partials over splits. window <= 0 means none. Returns
+// cudaGetLastError() after the launch.
 extern "C" int kft_flash_attention_dkv(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
@@ -417,12 +535,12 @@ extern "C" int kft_flash_attention_dkv(const void* q, const void* k,
   if (s < 1 || n_kv < 1 || n_q % n_kv || splits < 1 ||
       (n_q / n_kv) % splits)
     return cudaErrorInvalidValue;
-  if (dtype == 0 && hd == 128 && splits == 1)
+  if (dtype == 0 && hd == 128)
     return launch_fp32<128>(q, k, v, dout, lse, delta, dk, dv, b, s, n_q,
-                            n_kv, causal, window, scale, st);
-  if (dtype == 0 && hd == 256 && splits == 1)
+                            n_kv, splits, causal, window, scale, st);
+  if (dtype == 0 && hd == 256)
     return launch_fp32<256>(q, k, v, dout, lse, delta, dk, dv, b, s, n_q,
-                            n_kv, causal, window, scale, st);
+                            n_kv, splits, causal, window, scale, st);
   if (dtype == 1 && hd == 128)
     return launch_bf16<128>(q, k, v, dout, lse, delta, dk, dv, b, s, n_q,
                             n_kv, splits, causal, window, scale, st);

@@ -50,13 +50,31 @@
 // head dim was split over two blocks that each form dS, which does 5/3
 // the tensor work; 205 at hd 128).
 //
-// fp32: that first kernel, kept for fp32 inputs (fp32 tiles in shared
-// memory, products on the CUDA cores; flash_tile.cuh), a template on the
-// head dim. At 256 (gemma-2b) four [64, 260] fp32 tiles and dS would
-// need 283 KB, so V and K share one tile in turn: dP = dO V^T first,
-// then K replaces V for S = Q K^T and dQ += dS K (217 KB, one block an
-// SM). fp32 stays off the tensor cores (TF32 would round the products).
-#include "flash_tile.cuh"
+// fp32 (the CUDA cores; TF32 would round the products the reference's
+// fp32 kernels take in full fp32), a template on the head dim. Bound at
+// gemma-2b's shape: the 51.6 GFLOP over the card's 67 TFLOP/s of fp32
+// FMAs, 0.770 ms. The first fp32 kernel lost its time in the step:
+// synchronous K and V loads (at 256 one tile took V, then K), three
+// barriers a key tile, and 4 x 4 micro-tiles whose shared loads outran
+// the FMAs. Design:
+// - Q and dO stay resident as padded [64, HD] tiles; K and V stream
+//   through flash_fp32_ring.cuh's cp.async ring, as 32-column chunks for
+//   S = Q K^T and dP = dO V^T, then K again as chunks of whole rows (16
+//   at 256, 32 at 128) for dQ += dS K (all four operands would need 266
+//   KB at 256), so no load waits in line: one barrier a chunk, and one
+//   a key tile for P;
+// - the two warpgroups split the score products: one forms S and P =
+//   exp(S scale - lse), the other dP and dS = P (dP - delta) from P in
+//   shared memory; 8 x 4 micro-tiles (rows 8 apart, columns 16 apart);
+// - dQ += dS K over all 256 threads, dS^T from a shared [key][query]
+//   tile: 8 rows x 8 columns a thread at 256 (8 x 4 at 128), 4 FMAs a
+//   loaded float, a warp reading one row of the K chunk in 16-byte loads.
+// 218 KB of shared memory at 256 (154 KB at 128), one block an SM; the
+// grid stays (query head, batch row, 64-query tile), 512 blocks at
+// gemma-2b's shape, the heaviest first. On an H100 80GB HBM3 at 700 W:
+// 1.48 ms at gemma-2b's shape (52% of the bound; the first kernel 1.72
+// in the same run), 1.60 ms at llama3-1b's (48%; 1.85).
+#include "flash_fp32_ring.cuh"
 #include "flash_wgmma.cuh"
 
 namespace {
@@ -67,12 +85,12 @@ using bf16 = __nv_bfloat16;
 
 // -- fp32 -------------------------------------------------------------------
 
-// Q, dO, K, V and the dS tile at head dim 128 (150 KB); at 256 one tile
-// takes V, then K (Q, dO, that tile and dS: 217 KB).
+// Q and dO resident, the P and dS^T tiles and the ring: 154 KB at head
+// dim 128, 218 KB at 256 (one block an SM).
 template <int HD>
 constexpr size_t fp32_smem_bytes() {
-  return sizeof(float) * ((kSharedBuffer<HD> ? 3 : 4) *
-                              (size_t)kHdTileFloats<HD> + kPTileFloats);
+  return sizeof(float) * (2 * (size_t)kHdTileFloats<HD> + 2 * kPTileFloats +
+                          kRingStages * kStageFloats);
 }
 
 template <int HD>
@@ -86,73 +104,168 @@ flash_dq_kernel(const float* __restrict__ q,      // [b, s, n_q, hd]
                 float* __restrict__ dq,           // [b, s, n_q, hd]
                 int s, int n_q, int n_kv, int causal, int window,
                 float scale) {
-  constexpr int kCols = HD / 16;  // accumulator columns a thread
-  constexpr bool kOneKV = kSharedBuffer<HD>;
+  constexpr int kP1 = HD / kChunk;       // K and V column chunks a key tile
+  constexpr int kRows = kStageRows<HD>;  // K rows of a phase-3 chunk
+  constexpr int kP3 = kTile / kRows;
+  constexpr int kIters = kP1 + kP3;      // ring chunks a key tile
+  constexpr int kCols = HD / 128;        // float4 columns of dQ a thread
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;
   float* dos = qs + kHdTileFloats<HD>;
-  float* ks = dos + kHdTileFloats<HD>;
-  float* vs = kOneKV ? ks : ks + kHdTileFloats<HD>;
-  float* ds_s = vs + kHdTileFloats<HD>;
+  float* ps = dos + kHdTileFloats<HD>;   // P: [key][query]
+  float* ds_s = ps + kPTileFloats;       // dS^T: [key][query]
+  float* ring_base = ds_s + kPTileFloats;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int nq = (s + kTile - 1) / kTile;
-  const int qi = nq - 1 - blockIdx.z;  // heaviest tiles first
-  const int q0 = qi * kTile;
+  const int q0 = (nq - 1 - blockIdx.z) * kTile;  // heaviest tiles first
   const int hk = h / (n_q / n_kv);
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
   const size_t q_row = (size_t)n_q * HD;
   const size_t kv_row = (size_t)n_kv * HD;
   const size_t q_off = ((size_t)b * s + q0) * q_row + (size_t)h * HD;
-  load_tile<HD>(qs, q + q_off, q_row, s - q0);
-  load_tile<HD>(dos, dout + q_off, q_row, s - q0);
-  float row_lse[4], row_delta[4], acc[4][kCols];
-  const size_t stat = ((size_t)b * n_q + h) * s;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty + 16 * i;
-    row_lse[i] = qp < s ? lse[stat + qp] : 0.f;
-    row_delta[i] = qp < s ? delta[stat + qp] : 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
-  }
-
+  const size_t kv_head = (size_t)b * s * kv_row + (size_t)hk * HD;
   int lo, hi;
   key_tiles(q0, nq, causal, window, &lo, &hi);
+  // chunk J: key tile lo + J / kIters; for r = J % kIters < kP1 its K
+  // and V columns [32 r, 32 r + 32), else its K rows [kRows (r - kP1),
+  // + kRows)
+  auto issue = [&](int J, float* st) {
+    const int k0 = (lo + J / kIters) * kTile;
+    const int r = J % kIters;
+    const size_t off = kv_head + (size_t)k0 * kv_row;
+    if (r < kP1) {
+      load_async<kTile, kChunk>(st, kCStride, k + off + r * kChunk, kv_row,
+                                s - k0);
+      load_async<kTile, kChunk>(st + kTile * kCStride, kCStride,
+                                v + off + r * kChunk, kv_row, s - k0);
+    } else {
+      const int r0 = (r - kP1) * kRows;
+      const int valid = s - k0 - r0;  // <= 0: zeros, from the tile's row 0
+      load_async<kRows, HD>(st, kStride<HD>,
+                            k + off + (valid > 0 ? r0 * kv_row : 0), kv_row,
+                            valid);
+    }
+  };
+  load_async<kTile, HD>(qs, kStride<HD>, q + q_off, q_row, s - q0);
+  load_async<kTile, HD>(dos, kStride<HD>, dout + q_off, q_row, s - q0);
+  ChunkRing<decltype(issue)> ring{ring_base, (hi - lo + 1) * kIters, issue};
+  ring.start();
+
+  // Phase 1, two warpgroups: grp 0 forms S = Q K^T and P, grp 1 dP =
+  // dO V^T and dS; rows (queries) qa + 8 i, columns (keys) ka + 16 j.
+  // Phase 3, dQ += dS K: rows 8 qt + i, head-dim columns 128 m + 4 dt +
+  // j. A warp is 4 x 8 of (qa, ka), or one qt and 32 dt.
+  const int grp = threadIdx.x / 128;
+  const int gw = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+  const int qa = (gw % 2) * 4 + lane / 8, ka = (gw / 2) * 8 + lane % 8;
+  const int qt = threadIdx.x / 32, dt = lane;
+  const float* rows = grp ? dos : qs;      // phase 1's A operand
+  const size_t stat = ((size_t)b * n_q + h) * s;
+  float rs[8];  // lse (grp 0) or delta (grp 1) of the rows
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int qp = q0 + qa + 8 * i;
+    rs[i] = qp < s ? (grp ? delta : lse)[stat + qp] : 0.f;
+  }
+  float acc[8][4 * kCols];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * kCols; ++j) acc[i][j] = 0.f;
+
   for (int ki = lo; ki <= hi; ++ki) {
     const int k0 = ki * kTile;
-    const size_t kv_off = ((size_t)b * s + k0) * kv_row + (size_t)hk * HD;
-    __syncthreads();  // the previous tile's K, V and dS are consumed
-    load_tile<HD>(vs, v + kv_off, kv_row, s - k0);
-    if constexpr (!kOneKV) load_tile<HD>(ks, k + kv_off, kv_row, s - k0);
-    __syncthreads();
-    float sc[4][4], dp[4][4];
-    dot_tile<HD>(dos, vs, ty, tx, dp);
-    if constexpr (kOneKV) {
-      __syncthreads();  // V is consumed: K takes its tile
-      load_tile<HD>(ks, k + kv_off, kv_row, s - k0);
-      __syncthreads();
-    }
-    dot_tile<HD>(qs, ks, ty, tx, sc);
+    float x[8][4];  // S (grp 0) or dP (grp 1)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty + 16 * i;
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        const float p = visible(qp, kp, s, causal, window)
-                            ? expf(sc[i][j] * scale - row_lse[i])
-                            : 0.f;
-        dp[i][j] = p * (dp[i][j] - row_delta[i]);
+      for (int j = 0; j < 4; ++j) x[i][j] = 0.f;
+#pragma unroll 1
+    for (int c = 0; c < kP1; ++c) {
+      // grp 0 reads the K chunk, grp 1 the V chunk
+      const float* cb = ring.next() + grp * kTile * kCStride;
+      const float* ab = rows + c * kChunk;
+#pragma unroll 4
+      for (int d = 0; d < kChunk; d += 4) {
+        float4 bk[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          bk[j] = ld4(cb + (ka + 16 * j) * kCStride + d);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 a = ld4(ab + (qa + 8 * i) * kStride<HD> + d);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float y = x[i][j];
+            y = fmaf(a.x, bk[j].x, y);
+            y = fmaf(a.y, bk[j].y, y);
+            y = fmaf(a.z, bk[j].z, y);
+            y = fmaf(a.w, bk[j].w, y);
+            x[i][j] = y;
+          }
+        }
       }
     }
-    store_scores(ds_s, ty, tx, dp);
-    __syncthreads();
-    pv_tile<HD>(ds_s, ks, ty, tx, acc);
+    if (grp == 0) {  // P, stored [key][query]
+      const bool edge = edge_tile(q0, k0, s, causal, window);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float p = expf(x[i][j] * scale - rs[i]);
+          if (edge && !visible(q0 + qa + 8 * i, k0 + ka + 16 * j, s, causal,
+                               window))
+            p = 0.f;
+          ps[(ka + 16 * j) * kPStride + qa + 8 * i] = p;
+        }
+    }
+    __syncthreads();  // P is in shared memory
+    if (grp == 1) {   // dS^T at the same places
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int at = (ka + 16 * j) * kPStride + qa + 8 * i;
+          ds_s[at] = ps[at] * (x[i][j] - rs[i]);
+        }
+    }
+    // Phase 3 (the next chunk's barrier publishes dS^T): dQ += dS K over
+    // kRows keys a chunk
+#pragma unroll 1
+    for (int c = 0; c < kP3; ++c) {
+      const float* kt = ring.next();
+      const float* dsc = ds_s + c * kRows * kPStride + 8 * qt;
+#pragma unroll 8
+      for (int kk = 0; kk < kRows; ++kk) {
+        const float4 d0 = ld4(dsc + kk * kPStride);
+        const float4 d1 = ld4(dsc + kk * kPStride + 4);
+        const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+        for (int m = 0; m < kCols; ++m) {
+          const float4 k4 = ld4(kt + kk * kStride<HD> + 128 * m + 4 * dt);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            acc[i][4 * m] = fmaf(dv[i], k4.x, acc[i][4 * m]);
+            acc[i][4 * m + 1] = fmaf(dv[i], k4.y, acc[i][4 * m + 1]);
+            acc[i][4 * m + 2] = fmaf(dv[i], k4.z, acc[i][4 * m + 2]);
+            acc[i][4 * m + 3] = fmaf(dv[i], k4.w, acc[i][4 * m + 3]);
+          }
+        }
+      }
+    }
   }
-  const float mul[4] = {scale, scale, scale, scale};
-  store_acc<HD>(dq + q_off, q_row, s - q0, ty, tx, acc, mul);
+  kft_wgmma::cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = 8 * qt + i;
+    if (q0 + r >= s) continue;
+    float* row = dq + q_off + r * q_row + 4 * dt;
+#pragma unroll
+    for (int m = 0; m < kCols; ++m)
+      *reinterpret_cast<float4*>(row + 128 * m) = make_float4(
+          acc[i][4 * m] * scale, acc[i][4 * m + 1] * scale,
+          acc[i][4 * m + 2] * scale, acc[i][4 * m + 3] * scale);
+  }
 }
 
 // -- bf16: tensor cores -----------------------------------------------------
@@ -336,9 +449,9 @@ int launch_bf16(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores, hd 128 only), 1 = bfloat16 (tensor
-// cores, hd 128 or 256). window <= 0 means none. Returns
-// cudaGetLastError() after the launch.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); hd 128
+// or 256. window <= 0 means none. Returns cudaGetLastError() after the
+// launch.
 extern "C" int kft_flash_attention_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,

@@ -1,6 +1,7 @@
 // Tile arithmetic shared by the flash-attention kernels: the layout,
-// masking and tile ranges of all of them, and the CUDA-core tiles of the
-// fp32 forward, dQ and dK/dV kernels (their bf16 versions use
+// masking and tile ranges of all of them, the padded fp32 tiles of the
+// CUDA-core kernels, and the fp32 forward's products (the fp32 backward
+// kernels stream through flash_fp32_ring.cuh; the bf16 kernels use
 // flash_wgmma.cuh).
 //
 // Layout: q, o, dO are [b, s, n_q, hd] and k, v, dK, dV [b, s, n_kv, hd],
@@ -8,7 +9,7 @@
 // reads KV head h / (n_q / n_kv) (GQA; KV is never repeated in memory).
 // Row statistics (lse, delta) are [b, n_q, s] fp32.
 //
-// Design of the CUDA-core tiles, for Hopper (sm_90a), simple first:
+// Design of the fp32 forward's tiles, for Hopper (sm_90a), simple first:
 // - tiles of 64 query rows x 64 key rows, staged in shared memory as
 //   fp32; every product accumulates in fp32 on the CUDA cores. No tensor
 //   cores, no TMA, no pipelining;
@@ -35,11 +36,9 @@
 namespace kft_flash {
 
 // A padded fp32 [64, HD] tile is 33.8 KB at 128 and 66.5 KB at 256. At
-// 256 the kernels keep three such tiles and a score tile (217 KB of the
-// 227 KB a block may have, one block an SM): the forward Q, K and V; dQ
-// Q, dO and one buffer that takes V, then K; dK/dV K, V and one buffer
-// that takes Q, then dO, then Q again (a second read of Q from L2). At
-// 128 each operand has its own tile.
+// 256 the forward keeps three such tiles (Q, K, V) and a score tile (217
+// KB of the 227 KB a block may have, one block an SM); the backward
+// kernels keep two and stream the rest (flash_fp32_ring.cuh).
 constexpr int kTile = 64;         // query rows and key rows of a tile
 constexpr int kThreads = 256;     // 16 x 16
 template <int HD>
@@ -48,8 +47,6 @@ template <int HD>
 constexpr int kHdTileFloats = kTile * kStride<HD>;
 template <int HD>
 constexpr int kParts = HD / 64;   // 64-column parts of a row
-template <int HD>
-constexpr bool kSharedBuffer = HD > 128;  // one tile for two operands
 constexpr int kPStride = kTile + 4;  // padded row of a [64, 64] tile
 constexpr int kPTileFloats = kTile * kPStride;
 constexpr float kNegInf = kft::kNegInf;
@@ -100,15 +97,6 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst,
             ? *reinterpret_cast<const float4*>(src + r * row_stride + e)
             : make_float4(0.f, 0.f, 0.f, 0.f);
   }
-}
-
-// Load 64 per-row fp32 statistics (lse or delta) starting at `src`; rows
-// at or past `rows_valid` are zero.
-__device__ __forceinline__ void load_rows(float* __restrict__ dst,
-                                          const float* __restrict__ src,
-                                          int rows_valid) {
-  for (int r = threadIdx.x; r < kTile; r += kThreads)
-    dst[r] = r < rows_valid ? src[r] : 0.f;
 }
 
 // acc[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over two padded

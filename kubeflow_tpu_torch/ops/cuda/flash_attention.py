@@ -42,6 +42,11 @@ HEAD_DIMS = {torch.bfloat16: (128, 256), torch.float32: (128, 256)}
 # (256 blocks) beat 1, 4 and 8 on an H100 (chip_smoke.py phase 2 logs
 # the sweep)
 DKV_MIN_BLOCKS = 256
+# the same for the fp32 dK/dV kernel (one block an SM, no column parts):
+# at gemma-2b's training shape 4 subgroups (256 blocks) beat 1, 2 and 8
+# on an H100, evening out the causal walk, whose first key tile is 32
+# query tiles long a head (chip_smoke.py phase 2 logs the sweep)
+DKV_FP32_MIN_BLOCKS = 256
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _TAIL = [_I] * 7 + [ctypes.c_float, _I]  # b s n_q n_kv hd causal window
 _FWD_ARGS = [_P] * 5 + _TAIL + [_P]      # q k v o lse ... stream
@@ -207,18 +212,48 @@ def _stream(q):
     return torch.cuda.current_stream(q.device).cuda_stream
 
 
-def default_head_splits(b, s, n_q, n_kv, hd):
-    """Query-head subgroups of each GQA group for the bf16 dK/dV kernel,
-    from the shapes alone: the smallest power of two dividing the group
-    that gives the grid DKV_MIN_BLOCKS blocks (or the whole group). 1 at
-    llama3-1b's training shape (512 blocks: the in-kernel group sum), 2
-    at gemma-2b's (one KV head: 128 blocks unsplit)."""
+def default_head_splits(b, s, n_q, n_kv, hd, dtype=torch.bfloat16):
+    """Query-head subgroups of each GQA group for the dK/dV kernel of
+    `dtype`, from the shapes alone: the smallest power of two dividing
+    the group that gives the grid DKV_MIN_BLOCKS blocks (bf16, counting
+    128-column parts) or DKV_FP32_MIN_BLOCKS (fp32), or the whole group.
+    bf16: 1 at llama3-1b's training shape (512 blocks: the in-kernel
+    group sum), 2 at gemma-2b's (one KV head: 128 blocks unsplit). fp32:
+    1 at llama3-1b's, 4 at gemma-2b's (64 blocks unsplit)."""
     group = n_q // n_kv
-    blocks = n_kv * b * -(-s // 64) * (hd // 128)
+    blocks = n_kv * b * -(-s // 64)
+    if dtype == torch.float32:
+        least = DKV_FP32_MIN_BLOCKS
+    else:
+        blocks *= hd // 128
+        least = DKV_MIN_BLOCKS
     splits = 1
-    while (blocks * splits < DKV_MIN_BLOCKS and group % (2 * splits) == 0):
+    while blocks * splits < least and group % (2 * splits) == 0:
         splits *= 2
     return splits
+
+
+def flash_dkv_partials_plain(q, k, v, do, lse, delta, splits, *,
+                             causal=True, window=None):
+    """The split dK/dV kernel's partials, plain: fp32 (dK, dV) [b, s,
+    n_kv, splits, hd], partial `sub` of KV head hk summed over query heads
+    hk * group + sub * heads + [0, heads), heads = group / splits. Their
+    sum over splits is `flash_dkv_plain`'s. For the tests and the card's
+    checks; no kernel path calls it."""
+    b, s, n_q, hd = q.shape
+    n_kv = k.shape[2]
+    group = n_q // n_kv
+    if splits < 1 or group % splits:
+        raise ValueError(f"splits {splits} must divide the group {group}")
+    heads = group // splits
+    p, ds = _p_and_ds(q, k, v, do, lse, delta, causal, window)
+    qg = q.float().reshape(b, s, n_kv, splits, heads, hd)
+    dog = do.float().reshape(b, s, n_kv, splits, heads, hd)
+    p = p.reshape(b, n_kv, splits, heads, s, s)
+    ds = ds.reshape(b, n_kv, splits, heads, s, s)
+    dk = torch.einsum("bnpgst,bsnpgh->btnph", ds, qg) * hd**-0.5
+    dv = torch.einsum("bnpgst,bsnpgh->btnph", p, dog)
+    return dk, dv
 
 
 def flash_block_fwd(q, k, v, *, causal, window=None):
@@ -267,9 +302,10 @@ def flash_dq(q, k, v, do, lse, delta, *, causal=True, window=None):
 def flash_dkv(q, k, v, do, lse, delta, *, causal=True, window=None,
               head_splits=None):
     """(dK, dV) [b, s, n_kv, hd], group-summed, in k's dtype. CPU
-    tensors take `flash_dkv_plain`. `head_splits` (bf16 only; default
-    `default_head_splits`) splits each group's query heads over that many
-    blocks a key tile, whose fp32 partials are summed here."""
+    tensors take `flash_dkv_plain`. `head_splits` (default
+    `default_head_splits` for q's dtype) splits each group's query heads
+    over that many blocks a key tile, whose fp32 partials are summed
+    here; it must divide the group."""
     global dkv_launches
     _check_args(q, k, v, causal, window)
     if q.device.type == "cpu":
@@ -282,12 +318,10 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal=True, window=None,
     n_kv = k.shape[2]
     splits = head_splits
     if splits is None:
-        splits = (default_head_splits(b, s, n_q, n_kv, hd)
-                  if q.dtype == torch.bfloat16 else 1)
-    if splits < 1 or (n_q // n_kv) % splits or (
-            splits > 1 and q.dtype != torch.bfloat16):
+        splits = default_head_splits(b, s, n_q, n_kv, hd, q.dtype)
+    if splits < 1 or (n_q // n_kv) % splits:
         raise ValueError(f"head_splits {splits} must divide the group "
-                         f"{n_q // n_kv} (and be 1 for {q.dtype})")
+                         f"{n_q // n_kv}")
     if splits == 1:
         dk, dv = torch.empty_like(k), torch.empty_like(v)
     else:

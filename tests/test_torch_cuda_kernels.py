@@ -33,9 +33,10 @@ plain version that leaves each query's own key out must exceed that
 bound.
 
 Every kernel is held at llama's heads (hd 128) and at gemma-2b's (8
-query heads over one kv head of 256; the bf16 dK/dV kernel with its
-head-subgroup split off, forced and as the shapes pick it; the fp32
-CUDA-core kernels at 256 too); one card test holds the refusals: the
+query heads over one kv head of 256; the fp32 CUDA-core kernels at 256
+too); both dK/dV kernels with their head-subgroup split off, forced and
+as the shapes pick it, and a sum of the split's partials with one left
+out must exceed the fp32 bound; one card test holds the refusals: the
 flash wrappers in fp32 and in bf16 at hd 64, every serving wrapper at
 gemma-tiny's hd 32.
 
@@ -422,11 +423,22 @@ FLASH_SHAPES = [(1, 200, 4, 2, True, None), (1, 200, 4, 2, True, 37),
                 (1, 1024, 32, 8, True, None), (1, 1025, 8, 2, True, None)]
 
 
+def _forced_splits(n_q, n_kv):
+    """A split the shapes would not pick: 2 subgroups where the group
+    allows (1 otherwise)."""
+    return 2 if (n_q // n_kv) % 2 == 0 else 1
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("split", ["off", "forced", "chosen"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,n_q,n_kv,causal,window", FLASH_SHAPES)
 def test_flash_kernels_match_plain_on_card(cuda_device, dtype, b, s, n_q,
-                                           n_kv, causal, window):
+                                           n_kv, causal, window, split):
+    """dK/dV with its head-subgroup split off (1), forced (2 where the
+    group allows) and as the shapes pick it (None)."""
+    head_splits = {"off": 1, "forced": _forced_splits(n_q, n_kv),
+                   "chosen": None}[split]
     q, k, v, do = _flash_inputs(cuda_device, dtype, b, s, n_q, n_kv)
     c, rtol = FLASH_TOL[dtype]
     kw = dict(causal=causal, window=window)
@@ -442,10 +454,11 @@ def test_flash_kernels_match_plain_on_card(cuda_device, dtype, b, s, n_q,
     _flash_close(lse, wlse, 1e-5, 0.0)
     _flash_close(tflash.flash_dq(*args, **kw),
                  tflash.flash_dq_plain(*args, **kw), c, rtol, mags[1])
-    for got, want, mag in zip(tflash.flash_dkv(*args, **kw),
-                              tflash.flash_dkv_plain(*args, **kw),
-                              mags[2:]):
-        _flash_close(got, want, c, rtol, mag)
+    got = tflash.flash_dkv(*args, **kw, head_splits=head_splits)
+    for g, want, mag in zip(got, tflash.flash_dkv_plain(*args, **kw),
+                            mags[2:]):
+        assert g.dtype == dtype
+        _flash_close(g, want, c, rtol, mag)
 
 
 # (b, s, n_q, n_kv, causal, window) at head dim 256, bf16: gemma-2b's
@@ -487,12 +500,14 @@ def test_flash_kernels_at_head_dim_256_match_plain_on_card(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("head_splits", [1, 2, None])
 @pytest.mark.parametrize("b,s,n_q,n_kv,causal,window", FLASH_HD256_SHAPES)
 def test_fp32_flash_kernels_at_head_dim_256_match_plain_on_card(
-        cuda_device, b, s, n_q, n_kv, causal, window):
-    """The fp32 CUDA-core kernels at head dim 256 (one shared-memory
-    tile for V then K in dQ, for Q then dO then Q in dK/dV) within the
-    fp32 bound."""
+        cuda_device, b, s, n_q, n_kv, causal, window, head_splits):
+    """The fp32 CUDA-core kernels at head dim 256 (Q and dO resident in
+    dQ, K and V in dK/dV, the other operands streamed in column chunks)
+    within the fp32 bound; dK/dV with the head-subgroup split off (1),
+    forced (2) and as the shapes pick it (None: 8 at these sizes)."""
     q, k, v, do = _flash_inputs(cuda_device, torch.float32, b, s, n_q,
                                 n_kv, hd=256)
     c, rtol = FLASH_TOL[torch.float32]
@@ -506,10 +521,44 @@ def test_fp32_flash_kernels_at_head_dim_256_match_plain_on_card(
     _flash_close(lse, wlse, 1e-5, 0.0)
     _flash_close(tflash.flash_dq(*args, **kw),
                  tflash.flash_dq_plain(*args, **kw), c, rtol)
-    for got, want in zip(tflash.flash_dkv(*args, **kw),
+    for got, want in zip(tflash.flash_dkv(*args, **kw,
+                                          head_splits=head_splits),
                          tflash.flash_dkv_plain(*args, **kw)):
         assert got.dtype == torch.float32
         _flash_close(got, want, c, rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_dkv_refuses_a_split_off_the_group_on_card(cuda_device,
+                                                         dtype):
+    """Nothing falls back: a query-head split that does not divide the
+    group raises, in either dtype."""
+    q, k, v, do = _flash_inputs(cuda_device, dtype, 1, 128, 8, 1, hd=256)
+    lse = torch.zeros(1, 8, 128, device=cuda_device)
+    for splits in (0, 3):
+        with pytest.raises(ValueError, match="must divide the group 8"):
+            tflash.flash_dkv(q, k, v, do, lse, lse, head_splits=splits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [128, 256])
+def test_fp32_dkv_bound_sees_a_dropped_partial_on_card(cuda_device, hd):
+    """The split's partials (plain) summed over every subgroup meet the
+    fp32 bound against the group-summed plain dK and dV; left without
+    one subgroup's partial they exceed it."""
+    b, s, n_q, n_kv = 1, 1025, 8, 2
+    q, k, v, do = _flash_inputs(cuda_device, torch.float32, b, s, n_q,
+                                n_kv, hd=hd)
+    c, rtol = FLASH_TOL[torch.float32]
+    wo, wlse = tflash.flash_fwd_plain(q, k, v)
+    args = (q, k, v, do, wlse, tflash.flash_delta(wo, do))
+    splits = tflash.default_head_splits(b, s, n_q, n_kv, hd, torch.float32)
+    assert splits == 4
+    parts = tflash.flash_dkv_partials_plain(*args, splits)
+    for part, want in zip(parts, tflash.flash_dkv_plain(*args)):
+        assert flash_err_ratio(part.sum(3), want, c, rtol) <= 1
+        assert flash_err_ratio(part[:, :, :, 1:].sum(3), want, c, rtol) > 1
 
 
 @pytest.mark.cuda

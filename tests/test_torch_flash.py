@@ -7,9 +7,11 @@ rtol = 1e-5 for the forward and lse (the reference's online softmax over
 32/64-wide blocks against the port's one-pass softmax differ by fp32
 rounding, ~1e-7 here); 2e-5 for gradients, which add two more fp32
 contractions over s <= 256. Head dims 64 and, at gemma-2b's head
-geometry (8 query heads over one KV head), 256. The bf16 dK/dV kernel's
-head-subgroup split is emulated: fp32 partials per subgroup, summed,
-equal the group-summed plain version to fp32 rounding (1e-5).
+geometry (8 query heads over one KV head), 256. The dK/dV kernels'
+head-subgroup split is emulated: fp32 partials per subgroup, each
+through the plain version, summed, equal the group-summed plain version
+to fp32 rounding (1e-5) and, in fp32 at head dim 128, the reference's
+Pallas backward (2e-5; head dim 256 in test_torch_flash_fp32_hd256.py).
 """
 
 import importlib
@@ -123,36 +125,103 @@ def test_block_entry_points_match_reference(causal, window):
     ((1, 200, 8, 1, 256), 8),     # few blocks: the whole group
     ((1, 200, 4, 2, 128), 2),
     ((1, 1024, 8, 8, 128), 1),    # no group to split
+    # the fp32 kernel's chooser (no column parts)
+    ((2, 2048, 16, 8, 128, torch.float32), 1),   # llama3-1b: 512 blocks
+    ((2, 2048, 8, 1, 256, torch.float32), 4),    # gemma-2b: 64 unsplit
+    ((2, 2048, 32, 8, 128, torch.float32), 1),   # Mixtral: 512 blocks
+    ((2, 1000, 8, 1, 256, torch.float32), 8),    # 32 blocks: the group
+    ((1, 200, 4, 2, 128, torch.float32), 2),
 ])
 def test_default_head_splits(shape, want):
     assert tflash.default_head_splits(*shape) == want
 
 
-@pytest.mark.parametrize("n_q,n_kv,splits", [(8, 1, 4), (8, 2, 2)])
-def test_head_split_partials_sum_to_the_group(n_q, n_kv, splits):
-    """The bf16 dK/dV kernel's split, emulated: block (KV head hk,
-    subgroup sub) takes query heads hk * group + sub * heads + [0,
-    heads) and writes fp32 partials [b, s, n_kv, splits, hd]; their sum
-    over splits is the group-summed dK and dV."""
-    q, k, v = (torch.from_numpy(a) for a in _qkv(n_q, n_kv, 1, 64, 32))
-    do = torch.from_numpy(np.random.default_rng(4).standard_normal(
-        q.shape).astype(np.float32))
-    o, lse = tflash.flash_fwd_plain(q, k, v, causal=True)
-    delta = tflash.flash_delta(o, do)
+def split_partials(q, k, v, do, lse, delta, splits, **kw):
+    """The dK/dV kernels' split, emulated: block (KV head hk, subgroup
+    sub) takes query heads hk * group + sub * heads + [0, heads), each
+    piece through the plain version -> fp32 partials [b, s, n_kv,
+    splits, hd] of dK and dV."""
+    b, s, n_q, hd = q.shape
+    n_kv = k.shape[2]
     group, heads = n_q // n_kv, n_q // n_kv // splits
-    parts = torch.zeros(2, 1, 64, n_kv, splits, 32)
+    parts = torch.zeros(2, b, s, n_kv, splits, hd)
     for hk in range(n_kv):
         for sub in range(splits):
             hs = slice(hk * group + sub * heads, hk * group + (sub + 1) * heads)
             got = tflash.flash_dkv_plain(
                 q[:, :, hs], k[:, :, hk:hk + 1], v[:, :, hk:hk + 1],
-                do[:, :, hs], lse[:, hs], delta[:, hs])
+                do[:, :, hs], lse[:, hs], delta[:, hs], **kw)
             for i, g in enumerate(got):
                 parts[i, :, :, hk, sub] = g[:, :, 0]
+    return parts
+
+
+@pytest.mark.parametrize("n_q,n_kv,splits", [(8, 1, 4), (8, 2, 2)])
+def test_head_split_partials_sum_to_the_group(n_q, n_kv, splits):
+    """The split's partials sum over splits to the group-summed dK and
+    dV; `flash_dkv_partials_plain` gives the same partials."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(n_q, n_kv, 1, 64, 32))
+    do = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        q.shape).astype(np.float32))
+    o, lse = tflash.flash_fwd_plain(q, k, v, causal=True)
+    delta = tflash.flash_delta(o, do)
+    parts = split_partials(q, k, v, do, lse, delta, splits)
     want = tflash.flash_dkv_plain(q, k, v, do, lse, delta)
     for got, w in zip(parts.sum(4), want):
         np.testing.assert_allclose(got.numpy(), w.numpy(), atol=1e-5,
                                    rtol=1e-5)
+    for got, w in zip(tflash.flash_dkv_partials_plain(
+            q, k, v, do, lse, delta, splits), parts):
+        np.testing.assert_allclose(got.numpy(), w.numpy(), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def check_fp32_split(q, k, v, do, want_dkv, **kw):
+    """The fp32 split at the chooser's pick and at 2 subgroups: partials
+    summed against the reference's dK and dV [b, s, n_kv, hd]."""
+    b, s, n_q, hd = q.shape
+    o, lse = tflash.flash_block_fwd(q, k, v, **kw)
+    delta = tflash.flash_delta(o, do)
+    chosen = tflash.default_head_splits(b, s, n_q, k.shape[2], hd,
+                                        torch.float32)
+    assert chosen == n_q // k.shape[2]   # few blocks: the whole group
+    for splits in (chosen, 2):
+        parts = split_partials(q, k, v, do, lse, delta, splits, **kw)
+        for name, got, w in zip(("dk", "dv"), parts.sum(4), want_dkv):
+            np.testing.assert_allclose(got.numpy(), w, **GRAD_TOL,
+                                       err_msg=f"{name} at {splits}")
+
+
+@pytest.fixture(scope="module")
+def fp32_hd128_cases():
+    """Inputs at head dim 128, a group of 4 over one KV head, s 100 (off
+    the 64-row tile), and the reference's dK and dV for each case."""
+    rng = np.random.default_rng(23)
+    q, k, v, do = (rng.standard_normal((1, 100, n, 128)).astype(np.float32)
+                   for n in (4, 1, 1, 4))
+    j4 = [jnp.transpose(jnp.asarray(a), (0, 2, 1, 3)) for a in (q, k, v)]
+    jdo = jnp.transpose(jnp.asarray(do), (0, 2, 1, 3))
+    cases = {}
+    for name, kw in (("window37", dict(causal=True, window=37)),
+                     ("noncausal", dict(causal=False, window=None))):
+        jo, jlse = jflash.flash_block_fwd(*j4, interpret=True, block_q=128,
+                                          block_k=128, **kw)
+        _, jdk, jdv = jflash.flash_block_bwd(
+            (*j4, jo, jlse), jdo, interpret=True, block_q=128, block_k=128,
+            **kw)
+        cases[name] = (kw, [np.asarray(jnp.transpose(w, (0, 2, 1, 3)))
+                            for w in (jdk, jdv)])
+    return [torch.from_numpy(a) for a in (q, k, v, do)], cases
+
+
+@pytest.mark.parametrize("case", ["window37", "noncausal"])
+def test_fp32_head_split_matches_reference(fp32_hd128_cases, case):
+    """The fp32 dK/dV kernel's split, emulated at head dim 128 (each
+    subgroup through the plain version, partials summed), against the
+    reference's Pallas backward in interpret mode."""
+    tensors, cases = fp32_hd128_cases
+    kw, want = cases[case]
+    check_fp32_split(*tensors, want, **kw)
 
 
 def test_cpu_tensors_take_plain_versions():

@@ -28,8 +28,9 @@ Phases, each fatal on failure (exit code 1, no result line):
              and fp32): causal, window 700, non-causal and s 1000; the
              bf16 kernels (tensor cores, P, dS, P^T and dS^T rounded to
              bf16) within a bound that adds 2^-8 of each product's
-             absolute terms, which plain versions without each query's
-             own key must exceed; times at the causal bf16 shape against
+             absolute terms; plain versions without each query's own
+             key must exceed the bf16 bound and the fp32 one; times at
+             the causal bf16 shape against
              one SDPA call captured in a CUDA graph (forward; forward +
              backward for the backward kernels; the eager times logged
              beside) and the CUDA-core kernels' recorded times, with
@@ -1383,7 +1384,8 @@ def _flash_err(got, want, c, rtol, mag=None):
 
 def _dropped_diagonal(torch, fa):
     """The plain flash versions of `fa` with each query's own key left
-    out (a causal mask off by one): the control the bf16 bound must see."""
+    out (a causal mask off by one): the control the bf16 and fp32 flash
+    bounds must see."""
     from unittest import mock
 
     mask = fa._mask
@@ -1494,7 +1496,7 @@ def check_flash(torch, dev, g=LLAMA_1B):
                     fail("the fp32 flash bound cannot see a dropped "
                          f"partial: {dropped}")
                 del parts
-            if bf16 and name == "causal":
+            if name == "causal":
                 with _dropped_diagonal(torch, fa):
                     bad_o, _ = fa.flash_fwd_plain(q, k, v, **kw)
                     bad_dq = fa.flash_dq_plain(*args, **kw)
@@ -1504,12 +1506,12 @@ def check_flash(torch, dev, g=LLAMA_1B):
                     "dq": [_flash_err(bad_dq, wdq, c, rtol, dq_mag)[1]],
                     "dkv": [_flash_err(bad_dk, wdk, c, rtol, dk_mag)[1],
                             _flash_err(bad_dv, wdv, c, rtol, dv_mag)[1]]}
-                log("  dropped-diagonal control (plain versions without "
-                    "each query's own key) err/tol: " + "; ".join(
+                log(f"  {dtype} dropped-diagonal control (plain versions "
+                    "without each query's own key) err/tol: " + "; ".join(
                         f"{kind} {min(r):.1f}" for kind, r in
                         controls.items()))
                 if min(min(r) for r in controls.values()) <= 1:
-                    fail("the bf16 flash bound cannot see a dropped "
+                    fail(f"the {dtype} flash bound cannot see a dropped "
                          f"diagonal: {controls}")
                 del bad_o, bad_dq, bad_dk, bad_dv
             for kind, pairs in errs.items():

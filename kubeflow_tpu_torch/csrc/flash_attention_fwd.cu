@@ -13,15 +13,16 @@
 // written once; 15 us at 3.35 TB/s), so operations bound it: 34.8 us at
 // the bf16 tensor rate (989 TFLOP/s).
 //
-// Both kernels: one CUDA block per (query head, batch row, 64-query tile)
-// walks the relevant 64-key tiles in a loop (the Pallas kernel's
-// sequential grid axis), carrying the row max m, the row sum l and the
-// [64, hd] accumulator in registers. Tiles above the causal diagonal and
-// wholly older than the window are never visited. Any s works: the tail
-// tile's rows past s are zero-filled and masked. A masked logit is the
-// reference's finite NEG_INF, so a row whose first visited tile is all
-// masked is washed out by the next tile's alpha. The heaviest query
-// tiles (the last, under causal masking) are launched first.
+// Both kernels: one CUDA block per (query head, batch row, query tile:
+// 64 rows in bf16, 128 in fp32) walks the relevant 64-key tiles in a
+// loop (the Pallas kernel's sequential grid axis), carrying the row max
+// m, the row sum l and the [rows, hd] accumulator in registers. Tiles
+// above the causal diagonal and wholly older than the window are never
+// visited. Any s works: the tail tile's rows past s are zero-filled and
+// masked. A masked logit is the reference's finite NEG_INF, so a row
+// whose first visited tile is all masked is washed out by the next
+// tile's alpha. The heaviest query tiles (the last, under causal
+// masking) are launched first.
 //
 // bf16 (the training path), on the tensor cores: one warpgroup per block.
 // Q sits in shared memory as a swizzled bf16 tile (flash_wgmma.cuh); K
@@ -34,10 +35,10 @@
 // MN-major in its natural [keys, hd] layout). No P tile goes through
 // shared memory. 80 KB of shared memory a block, so two blocks share an
 // SM. o leaves through shared memory in 16-byte stores. What held the
-// first kernel (below) back: fp32 products on the CUDA cores (67 TFLOP/s
-// peak against 989), P round-tripped through shared memory with a barrier
-// on each side, synchronous K/V loads, and 118 KB of fp32 tiles (one
-// block an SM).
+// first kernel (the fp32 one before its redesign, below) back: fp32
+// products on the CUDA cores (67 TFLOP/s peak against 989), P
+// round-tripped through shared memory with a barrier on each side,
+// synchronous K/V loads, and 118 KB of fp32 tiles (one block an SM).
 //
 // Head dim 256 (gemma-2b: b 2, s 2048, n_q 8, n_kv 1; n_q hd is 2048 as
 // at llama3-1b, so the same 34.4 GFLOP and bound): the bf16 kernel is a
@@ -48,15 +49,44 @@
 // thread). Q 32 KB and a 2-stage K/V ring of 64 KB a stage: 161 KB, one
 // block an SM; the grid stays (query head, batch row, 64-query tile).
 //
-// fp32: that first kernel, kept for fp32 inputs (fp32 tiles in shared
-// memory, products on the CUDA cores; flash_tile.cuh), a template on the
-// head dim: 128 (118 KB of shared memory) and 256 (gemma-2b: Q, K, V and
-// the score tile are 217 KB, opted in past the 48 KB default; one block
-// an SM). fp32 stays off the tensor cores: TF32 would round the products
-// the reference's fp32 kernels take in full fp32. Bound at gemma-2b's
-// shape in fp32: the 34.4 GFLOP over the card's 67 TFLOP/s of fp32 on
-// the CUDA cores, 0.51 ms.
-#include "flash_tile.cuh"
+// fp32 (the CUDA cores; TF32 would round the products the reference's
+// fp32 kernels take in full fp32), a template on the head dim: 128 and
+// 256. Bound at gemma-2b's causal shape in fp32 (and at llama3-1b's: the
+// same n_q hd): the 34.4 GFLOP over the card's 67 TFLOP/s of fp32 FMAs,
+// 0.513 ms. The first fp32 kernel (64 query rows a block) lost its time
+// to synchronous K and V loads between two barriers, a third barrier a
+// key tile for P, 4 x 4 score micro-tiles (2 FMAs a loaded float) and
+// masking and two expf on every score. Design:
+// - 128 query rows a block as two warpgroups of 64, each with its own
+//   row max m, lane partial sums l and [64, HD] accumulator; Q stays
+//   resident (two padded [64, HD] tiles) and both warpgroups share every
+//   K and V chunk, which stream through flash_fp32_ring.cuh's cp.async
+//   ring: K as two [64, 32] column chunks a stage for S = Q K^T (HD / 64
+//   stages a key tile), then V as stages of whole rows (32 at 128, 16 at
+//   256) for O += P V, so every thread's accumulator takes part in every
+//   chunk; the V stages are in flight during the softmax. One barrier a
+//   chunk, 2048 FMAs a thread between two;
+// - a thread owns an 8 x 4 score micro-tile (rows 8 apart, columns 16
+//   apart) and an 8 x 8 (128) or 8 x 16 (256) O micro-tile on the same
+//   rows; the 16 threads of a row group sit in one half-warp, so row max
+//   and sum are shuffles and P crosses a warpgroup's own shared tile
+//   under __syncwarp, not a block barrier;
+// - under causal masking the two warpgroups' last key tiles differ by
+//   one (with a window, their first ones may too): each skips the tiles
+//   outside its own range and masks only the tiles edge_tile marks;
+// - exp2 (ex2.approx) of logits pre-scaled by scale log2(e), lse
+//   converted back as the bf16 kernel does; o leaves through the freed Q
+//   tiles in 16-byte stores.
+// 154 KB of shared memory at head dim 128, 218 KB at 256, one block of 8
+// warps an SM (at 256 the 128 x 256 fp32 accumulator alone takes half
+// the register file); the grid is (query head, batch row, 128-query
+// block), the heaviest blocks first. On an H100 80GB HBM3 at 700 W:
+// 1.05-1.06 ms at gemma-2b's shape (48-49% of the bound; the first kernel
+// 1.24 in the same run), 1.00 at llama3-1b's (51%; 1.30). Slower there
+// and not kept: at 128, two blocks an SM (Q streamed beside K in
+// 16-column chunks, 90 KB, 128 registers with spills: 1.35 ms); skipping
+// the accumulator rescale when no row max of a warp moved (no faster).
+#include "flash_fp32_ring.cuh"
 #include "flash_wgmma.cuh"
 
 namespace {
@@ -67,10 +97,23 @@ using bf16 = __nv_bfloat16;
 
 // -- fp32 -------------------------------------------------------------------
 
-// Q, K, V and a score tile: 118 KB at head dim 128, 217 KB at 256.
+constexpr int kBlockRows = 2 * kTile;  // query rows of an fp32 block
+
+// 2^x on the special-function unit (relative error about 2^-22; exp2f
+// adds a denormal-safe scaling around the same instruction, and p and
+// alpha below 2^-126 are nothing beside the row's largest p, 1)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Q resident, the ring and a P tile a warpgroup: 154 KB at head dim 128,
+// 218 KB at 256 (one block an SM).
 template <int HD>
 constexpr size_t fp32_smem_bytes() {
-  return sizeof(float) * (3 * (size_t)kHdTileFloats<HD> + kPTileFloats);
+  return sizeof(float) * (2 * (size_t)kHdTileFloats<HD> + 2 * kPTileFloats +
+                          kRingStages * kStageFloats);
 }
 
 template <int HD>
@@ -82,83 +125,204 @@ flash_fwd_kernel(const float* __restrict__ q,  // [b, s, n_q, hd]
                  float* __restrict__ lse,      // [b, n_q, s]
                  int s, int n_q, int n_kv, int causal, int window,
                  float scale) {
-  constexpr int kCols = HD / 16;  // accumulator columns a thread
+  constexpr int kKs = HD / (2 * kChunk);  // K stages a key tile
+  constexpr int kVRows = kStageRows<HD>;  // V rows a stage
+  constexpr int kVs = kTile / kVRows;     // V stages a key tile
+  constexpr int kIters = kKs + kVs;       // ring chunks a key tile
+  constexpr int kCols = HD / 64;          // float4 columns of O a thread
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* ks = qs + kHdTileFloats<HD>;
-  float* vs = ks + kHdTileFloats<HD>;
-  float* ps = vs + kHdTileFloats<HD>;
+  float* qs = smem;                       // [128, HD]: two [64, HD] tiles
+  float* ring_base = qs + 2 * kHdTileFloats<HD>;
+  // warpgroup grp: query rows 64 grp + [0, 64); thread t of it: rows
+  // rg + 8 i, score columns cg + 16 j, O columns 64 c + 4 cg + [0, 4)
+  const int grp = threadIdx.x / 128;
+  const int rg = threadIdx.x % 128 / 16, cg = threadIdx.x % 16;
+  const float* qw_s = qs + grp * kHdTileFloats<HD>;
+  float* ps = ring_base + kRingStages * kStageFloats + grp * kPTileFloats;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int nq = (s + kTile - 1) / kTile;
-  const int qi = nq - 1 - blockIdx.z;  // heaviest tiles first
-  const int q0 = qi * kTile;
+  const int nb = (s + kBlockRows - 1) / kBlockRows;
+  const int q0 = (nb - 1 - blockIdx.z) * kBlockRows;  // heaviest first
+  const int qw = q0 + grp * kTile;        // the warpgroup's first row
+  const int nk = (s + kTile - 1) / kTile;
   const int hk = h / (n_q / n_kv);
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
   const size_t q_row = (size_t)n_q * HD;
   const size_t kv_row = (size_t)n_kv * HD;
   const size_t q_off = ((size_t)b * s + q0) * q_row + (size_t)h * HD;
-  load_tile<HD>(qs, q + q_off, q_row, s - q0);
-
-  float m[4], l[4], acc[4][kCols];
+  const size_t kv_head = (size_t)b * s * kv_row + (size_t)hk * HD;
+  // the block walks the union of the warpgroups' key tiles: from the
+  // first's lo to the last (with rows)'s hi; a warpgroup without rows
+  // skips them all
+  int lo, hi, wlo, whi, unused;
+  key_tiles(q0, nk, causal, window, &lo, &hi);
+  if (q0 + kTile < s) key_tiles(q0 + kTile, nk, causal, window, &unused, &hi);
+  key_tiles(qw, nk, causal, window, &wlo, &whi);
+  if (qw >= s) whi = -1;
+  // chunk J: key tile lo + J / kIters; for r = J % kIters < kKs its K
+  // columns [64 r, 64 r + 64), else its V rows [kVRows (r - kKs), +
+  // kVRows)
+  auto issue = [&](int J, float* st) {
+    const int k0 = (lo + J / kIters) * kTile;
+    const int r = J % kIters;
+    const size_t off = kv_head + (size_t)k0 * kv_row;
+    if (r < kKs) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+      for (int c = 0; c < 2; ++c)
+        load_async<kTile, kChunk>(st + c * kTile * kCStride, kCStride,
+                                  k + off + (2 * r + c) * kChunk, kv_row,
+                                  s - k0);
+    } else {
+      const int r0 = (r - kKs) * kVRows;
+      const int valid = s - k0 - r0;  // <= 0: zeros, from the tile's row 0
+      load_async<kVRows, HD>(st, kStride<HD>,
+                             v + off + (valid > 0 ? r0 * kv_row : 0), kv_row,
+                             valid);
+    }
+  };
+  load_async<kBlockRows, HD>(qs, kStride<HD>, q + q_off, q_row, s - q0);
+  ChunkRing<decltype(issue)> ring{ring_base, (hi - lo + 1) * kIters, issue};
+  ring.start();
+
+  const float sl2 = scale * wg::kLog2e;  // logits in log2 units
+  float m[8], l[8], acc[8][4 * kCols];   // l: this lane's partial sums
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < 4 * kCols; ++c) acc[i][c] = 0.f;
   }
-  int lo, hi;
-  key_tiles(q0, nq, causal, window, &lo, &hi);
   for (int ki = lo; ki <= hi; ++ki) {
     const int k0 = ki * kTile;
-    const size_t kv_off = ((size_t)b * s + k0) * kv_row + (size_t)hk * HD;
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    load_tile<HD>(ks, k + kv_off, kv_row, s - k0);
-    load_tile<HD>(vs, v + kv_off, kv_row, s - k0);
-    __syncthreads();
-    float sc[4][4];
-    dot_tile<HD>(qs, ks, ty, tx, sc);
+    const bool on = ki >= wlo && ki <= whi;  // the same in a warpgroup
+    float x[8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty + 16 * i;
-      float mx = kNegInf;
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        sc[i][j] = visible(qp, kp, s, causal, window) ? sc[i][j] * scale
-                                                      : kNegInf;
-        mx = fmaxf(mx, sc[i][j]);
+      for (int j = 0; j < 4; ++j) x[i][j] = 0.f;
+    // S = Q K^T, 64 head-dim columns a stage
+#pragma unroll 1
+    for (int c = 0; c < kKs; ++c) {
+      const float* st = ring.next();
+      if (!on) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float* kb = st + half * kTile * kCStride;
+        const float* qb = qw_s + (2 * c + half) * kChunk;
+#pragma unroll
+        for (int d = 0; d < kChunk; d += 4) {
+          float4 bk[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            bk[j] = ld4(kb + (cg + 16 * j) * kCStride + d);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float4 a = ld4(qb + (rg + 8 * i) * kStride<HD> + d);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              float y = x[i][j];
+              y = fmaf(a.x, bk[j].x, y);
+              y = fmaf(a.y, bk[j].y, y);
+              y = fmaf(a.z, bk[j].z, y);
+              y = fmaf(a.w, bk[j].w, y);
+              x[i][j] = y;
+            }
+          }
+        }
       }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sc[i][j] = expf(sc[i][j] - m_new);
-        sum += sc[i][j];
-      }
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
     }
-    store_scores(ps, ty, tx, sc);
-    __syncthreads();
-    pv_tile<HD>(ps, vs, ty, tx, acc);
-  }
-
-  float inv[4];
+    if (on) {  // online softmax; P into the warpgroup's tile
+      const bool edge = edge_tile(qw, k0, s, causal, window);
+      float alpha[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float safe_l = l[i] == 0.f ? 1.f : l[i];
-    inv[i] = 1.f / safe_l;
-    const int qp = q0 + ty + 16 * i;
-    if (tx == 0 && qp < s)
-      lse[((size_t)b * n_q + h) * s + qp] = m[i] + logf(safe_l);
+      for (int i = 0; i < 8; ++i) {
+        const int r = rg + 8 * i;
+        float mx = kNegInf;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float y = x[i][j] * sl2;
+          if (edge && !visible(qw + r, k0 + cg + 16 * j, s, causal, window))
+            y = kNegInf;
+          x[i][j] = y;
+          mx = fmaxf(mx, y);
+        }
+        const float m_new = fmaxf(m[i], row_max(mx));
+        alpha[i] = ex2(m[i] - m_new);
+        m[i] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = ex2(x[i][j] - m_new);
+          sum += p;
+          ps[r * kPStride + cg + 16 * j] = p;
+        }
+        l[i] = l[i] * alpha[i] + sum;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < 4 * kCols; ++c) acc[i][c] *= alpha[i];
+      __syncwarp();  // a row group's P is its own half-warp's
+    }
+    // O += P V, kVRows keys a stage
+#pragma unroll 1
+    for (int c = 0; c < kVs; ++c) {
+      const float* vt = ring.next() + 4 * cg;
+      if (!on) continue;
+      const float* pc = ps + c * kVRows;
+#pragma unroll 2
+      for (int kk = 0; kk < kVRows; kk += 4) {
+        float4 p[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          p[i] = ld4(pc + (rg + 8 * i) * kPStride + kk);
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) {
+#pragma unroll
+          for (int cc = 0; cc < kCols; ++cc) {
+            const float4 v4 = ld4(vt + (kk + rr) * kStride<HD> + 64 * cc);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const float pv = rr == 0 ? p[i].x : rr == 1 ? p[i].y
+                             : rr == 2 ? p[i].z : p[i].w;
+              const int a = 4 * cc;
+              acc[i][a] = fmaf(pv, v4.x, acc[i][a]);
+              acc[i][a + 1] = fmaf(pv, v4.y, acc[i][a + 1]);
+              acc[i][a + 2] = fmaf(pv, v4.z, acc[i][a + 2]);
+              acc[i][a + 3] = fmaf(pv, v4.w, acc[i][a + 3]);
+            }
+          }
+        }
+      }
+    }
   }
-  store_acc<HD>(o + q_off, q_row, s - q0, ty, tx, acc, inv);
+  kft_wgmma::cp_async_wait<0>();
+
+  const size_t stat = ((size_t)b * n_q + h) * s;
+  // Q was last read before the last V stage's barrier: its tiles hold o
+  float* ow = qs + grp * kHdTileFloats<HD> + 4 * cg;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = rg + 8 * i;
+    const float sum = row_sum(l[i]);
+    const float safe_l = sum == 0.f ? 1.f : sum;
+    const float inv = 1.f / safe_l;
+    if (cg == 0 && qw + r < s)
+      lse[stat + qw + r] = m[i] * wg::kLn2 + logf(safe_l);
+#pragma unroll
+    for (int cc = 0; cc < kCols; ++cc)
+      *reinterpret_cast<float4*>(ow + r * kStride<HD> + 64 * cc) =
+          make_float4(acc[i][4 * cc] * inv, acc[i][4 * cc + 1] * inv,
+                      acc[i][4 * cc + 2] * inv, acc[i][4 * cc + 3] * inv);
+  }
+  __syncthreads();
+  constexpr int kPerRow = HD / 4;  // 16-byte stores a row
+  for (int n = threadIdx.x; n < kBlockRows * kPerRow; n += kThreads) {
+    const int r = n / kPerRow, e = (n % kPerRow) * 4;
+    if (q0 + r < s)
+      *reinterpret_cast<float4*>(o + q_off + r * q_row + e) =
+          ld4(qs + r * kStride<HD> + e);
+  }
 }
 
 // -- bf16: tensor cores -----------------------------------------------------
@@ -322,7 +486,7 @@ int launch_fp32(const void* q, const void* k, const void* v, void* o,
       flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmem);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid(n_q, b, (s + kTile - 1) / kTile);
+  const dim3 grid(n_q, b, (s + kBlockRows - 1) / kBlockRows);
   flash_fwd_kernel<HD><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
@@ -350,8 +514,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores, hd 128 only), 1 = bfloat16 (tensor
-// cores, hd 128 or 256). window <= 0 means none (and is ignored unless
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); hd 128
+// or 256. window <= 0 means none (and is ignored unless
 // causal). Returns cudaGetLastError() after the launch.
 extern "C" int kft_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, void* lse,

@@ -1,15 +1,17 @@
-// The chunk ring of the fp32 CUDA-core backward kernels
-// (flash_attention_dq.cu, flash_attention_dkv.cu).
+// The chunk ring of the fp32 CUDA-core flash kernels
+// (flash_attention_fwd.cu, flash_attention_dq.cu, flash_attention_dkv.cu).
 //
 // Each kernel keeps one pair of [64, HD] fp32 tiles resident in shared
-// memory (dQ: Q and dO; dK/dV: K and V) and streams the other operands
-// through a ring of kRingStages stages of 18 KB. Every thread issues its
-// 16-byte cp.async copies for the chunk kRingStages - 1 ahead right
-// after the barrier that frees its stage, so device memory and L2
-// traffic overlap the products; one barrier a chunk both publishes the
-// landed chunk and frees the stage the next copy fills. A chunk's
-// products are 1024 fp32 FMAs a thread in both kernels, so a barrier
-// comes once in about 2000 cycles of issue.
+// memory (forward: Q of its 128 query rows; dQ: Q and dO; dK/dV: K and
+// V) and streams the other operands through a ring of kRingStages stages
+// of 18 KB. Every thread issues its 16-byte cp.async copies for the
+// chunk kRingStages - 1 ahead right after the barrier that frees its
+// stage, so device memory and L2 traffic overlap the products; one
+// barrier a chunk both publishes the landed chunk and frees the stage the
+// next copy fills. A chunk's products are 1024 fp32 FMAs a thread in the
+// backward kernels and 2048 in the forward (two warpgroups of 64 query
+// rows sharing each chunk), so a barrier comes once in about 2000 to
+// 4000 cycles of issue.
 //
 // Why chunks and not whole tiles: at head dim 256 a padded [64, 256]
 // fp32 tile is 66.5 KB, and the four operands of a step (K, V, Q, dO)
@@ -17,9 +19,10 @@
 // streamed operands arrive twice a step: for the score products (S =
 // Q K^T and dP = dO V^T reduce over the head dim) as [64, 32] column
 // chunks at a padded row of 36 floats, two to a stage; for the products
-// that reduce over the tile's rows (dQ += dS K, dV += P^T dO, dK += dS^T
-// Q) as chunks of whole rows (padded to HD + 4), so that every thread's
-// accumulator takes part in every chunk. The second pass reads from L2.
+// that reduce over the tile's rows (O += P V, dQ += dS K, dV += P^T dO,
+// dK += dS^T Q) as chunks of whole rows (padded to HD + 4), so that
+// every thread's accumulator takes part in every chunk. The second pass
+// reads from L2.
 //
 // Shared memory delivers 128 bytes a cycle to an SM's registers, 32
 // floats, against 128 fp32 FMAs, so a thread's micro-tile of m x n

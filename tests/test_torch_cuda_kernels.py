@@ -30,7 +30,11 @@ round P, dS, P^T and dS^T to bf16 before their products; each rounded
 term errs by at most 2**-8 of itself, so their bf16 bound adds 2**-8 *
 mag, the sum of the product's absolute terms (`flash_bf16_slack`). A
 plain version that leaves each query's own key out must exceed that
-bound.
+bound, and the fp32 bound at head dims 128 and 256. The fp32 forward
+runs 128 query rows a block as two warpgroups of 64 with their own
+key-tile ranges: its edge cases (a last block of one row, an empty
+second warpgroup, windows that end inside a block, GQA groups 1 to 8)
+hold the fp32 bound at both head dims.
 
 Every kernel is held at llama's heads (hd 128) and at gemma-2b's (8
 query heads over one kv head of 256; the fp32 CUDA-core kernels at 256
@@ -581,6 +585,62 @@ def test_flash_bf16_bound_sees_a_dropped_diagonal_on_card(cuda_device):
     assert flash_err_ratio(bad_dq, wdq, c, rtol, dq_mag) > 1
     assert flash_err_ratio(bad_dk, wdk, c, rtol, dk_mag) > 1
     assert flash_err_ratio(bad_dv, wdv, c, rtol, dv_mag) > 1
+
+
+# (b, s, n_q, n_kv, causal, window) at the fp32 forward's edges: its
+# blocks are 128 query rows as two warpgroups of 64, so s 129 leaves one
+# row in the last block and s 191 a partly full first warpgroup and an
+# empty second; a window that ends inside a block gives the two
+# warpgroups different key-tile ranges; GQA groups 1, 2, 4 and 8
+FP32_FWD_EDGES = [(1, 129, 4, 2, True, None), (1, 129, 4, 2, False, None),
+                  (2, 191, 4, 2, True, None), (1, 191, 4, 1, False, None),
+                  (1, 300, 4, 2, True, 64), (1, 300, 4, 2, True, 65),
+                  (1, 300, 4, 2, True, 127), (1, 320, 8, 8, True, None),
+                  (1, 320, 8, 4, True, None), (1, 320, 8, 2, True, 100),
+                  (1, 320, 8, 1, True, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [128, 256])
+@pytest.mark.parametrize("b,s,n_q,n_kv,causal,window", FP32_FWD_EDGES)
+def test_fp32_flash_forward_edges_on_card(cuda_device, b, s, n_q, n_kv,
+                                          causal, window, hd):
+    """The fp32 forward's o and lse within the fp32 bound at the edges of
+    its 128-row blocks, its warpgroups' key-tile ranges and the GQA
+    group, at head dims 128 and 256; one launch a call."""
+    q, k, v, _ = _flash_inputs(cuda_device, torch.float32, b, s, n_q, n_kv,
+                               hd=hd)
+    c, rtol = FLASH_TOL[torch.float32]
+    kw = dict(causal=causal, window=window)
+    before = tflash.fwd_launches
+    o, lse = tflash.flash_block_fwd(q, k, v, **kw)
+    assert tflash.fwd_launches == before + 1
+    wo, wlse = tflash.flash_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _flash_close(o, wo, c, rtol)
+    _flash_close(lse, wlse, 1e-5, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [128, 256])
+def test_flash_fp32_bound_sees_a_dropped_diagonal_on_card(cuda_device, hd):
+    """At a causal fp32 shape, a plain forward, dQ and dK/dV that leave
+    out each query's own key exceed the bound the fp32 kernels meet."""
+    q, k, v, do = _flash_inputs(cuda_device, torch.float32, 1, 1025, 8, 2,
+                                hd=hd)
+    c, rtol = FLASH_TOL[torch.float32]
+    wo, wlse = tflash.flash_fwd_plain(q, k, v)
+    args = (q, k, v, do, wlse, tflash.flash_delta(wo, do))
+    wdq = tflash.flash_dq_plain(*args)
+    wdk, wdv = tflash.flash_dkv_plain(*args)
+    with dropped_diagonal(tflash):
+        bad_o, _ = tflash.flash_fwd_plain(q, k, v)
+        bad_dq = tflash.flash_dq_plain(*args)
+        bad_dk, bad_dv = tflash.flash_dkv_plain(*args)
+    assert flash_err_ratio(bad_o, wo, c, rtol) > 1
+    assert flash_err_ratio(bad_dq, wdq, c, rtol) > 1
+    assert flash_err_ratio(bad_dk, wdk, c, rtol) > 1
+    assert flash_err_ratio(bad_dv, wdv, c, rtol) > 1
 
 
 @pytest.mark.cuda

@@ -540,9 +540,18 @@ Phase 17:    the distributed set (kubeflow_tpu_torch/parallel/,
              the loss against the dense forward's, flash launches as the
              schedule implies. (e) One MoE layer at Mixtral-8x7B's
              widths, 4 experts on each of 2 ranks, forward and backward
-             against `moe_mlp` on each rank's token block. Then the ring
-             and an FSDP step on a one-rank NCCL group (its process runs
-             beside the ring gang).
+             against `moe_mlp` on each rank's token block. (f) Tensor
+             parallelism in the mesh trainer on (tensor 2): llama3-1b at
+             full width, FSDP_LAYERS layers, 3 steps from (c)'s weights
+             and batch, losses within TRAIN_LOSS_TOL of (c)'s one-device
+             run, exact flash launches (12 forward, 6 dQ, 6 dK/dV a
+             rank), wq held as [2, 2048, 1024], a rank's peak below the
+             one device's by at least half the tensor-cut leaves'
+             params and moments; gemma-2b's widths at 2 of 18 layers
+             (its one KV head held whole), TP_GEMMA_STEPS steps against
+             a one-device run of the same. Then the ring and an FSDP
+             step on a one-rank NCCL group (its process runs beside the
+             ring gang).
 Phase 18:    fp32 flash at head dim 256 on a path, and the elastic
              trainer fleet (train/elastic.py, train/goodput.py,
              train/checkpoint.py over the mesh trainer,
@@ -710,6 +719,11 @@ LLAMA_1B = Geom("llama3-1b", N_Q, N_KV, HD, LAYERS)
 LLAMA_8B = Geom("llama3-8b", DENSE_NQ, N_KV, HD, DENSE_LAYERS)
 # gemma-2b (phase 6): 18 layers, 8 query heads over one kv head of 256
 GEMMA_2B = Geom("gemma-2b", 8, 1, 256, 18, repeat_kv=True)
+# a rank's heads at tensor 2 (phase 17f): llama3-1b's cut on whole heads
+# (group 2), gemma-2b's query heads over its one KV head held whole
+# (group 4, whose dK/dV subgroups no other case picks)
+TP2_SHAPES = (Geom("llama3-1b at tensor 2", N_Q // 2, N_KV // 2, HD, LAYERS),
+              Geom("gemma-2b at tensor 2", 4, 1, 256, 18))
 
 
 # suffix of a `kernels`-line name measured at gemma-2b's shapes (phase 2)
@@ -1609,6 +1623,55 @@ def check_flash(torch, dev, g=LLAMA_1B):
     if g in (LLAMA_1B, GEMMA_2B):
         stats.update(_time_flash_fp32(torch, dev, g, gen, worst_fp32))
     return stats
+
+
+def check_flash_tp(torch, dev):
+    """The bf16 flash kernels at a rank's heads under tensor parallelism
+    (TP2_SHAPES; b 2, s 2048, causal), each against its plain version
+    under the phase's bounds, and timed (device ms, graph-replayed)."""
+    from kubeflow_tpu_torch.ops.cuda import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(5)
+    c, rtol = FLASH_TOL["bfloat16"]
+    card = _card()
+    for g in TP2_SHAPES:
+        q, do = (torch.randn(FLASH_B, FLASH_S, g.n_q, g.hd, generator=gen)
+                 .to(dev, torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(FLASH_B, FLASH_S, g.n_kv, g.hd, generator=gen)
+                .to(dev, torch.bfloat16) for _ in range(2))
+        o, lse = fa.flash_block_fwd(q, k, v, causal=True)
+        wo, wlse = fa.flash_fwd_plain(q, k, v, causal=True)
+        args = (q, k, v, do, wlse, fa.flash_delta(wo, do))
+        dq = fa.flash_dq(*args)
+        dk, dv = fa.flash_dkv(*args)
+        wdq = fa.flash_dq_plain(*args)
+        wdk, wdv = fa.flash_dkv_plain(*args)
+        o_mag, dq_mag, dk_mag, dv_mag = fa.flash_bf16_slack(*args)
+        errs = {"fwd": [_flash_err(o, wo, c, rtol, o_mag),
+                        _flash_err(lse, wlse, 1e-5, 0.0)],
+                "dq": [_flash_err(dq, wdq, c, rtol, dq_mag)],
+                "dkv": [_flash_err(dk, wdk, c, rtol, dk_mag),
+                        _flash_err(dv, wdv, c, rtol, dv_mag)]}
+        ms = {"fwd": _time_ms(torch, lambda i: fa.flash_block_fwd(
+                  q, k, v, causal=True), 20)[0],
+              "dq": _time_ms(torch, lambda i: fa.flash_dq(*args), 20)[0],
+              "dkv": _time_ms(torch, lambda i: fa.flash_dkv(*args), 20)[0]}
+        splits = fa.default_head_splits(FLASH_B, FLASH_S, g.n_q, g.n_kv,
+                                        g.hd)
+        for kind, pairs in errs.items():
+            err = max(e for e, _ in pairs)
+            ratio = max(r for _, r in pairs)
+            log(f"  flash {kind} at {g.model} (b {FLASH_B}, s {FLASH_S}, "
+                f"n_q {g.n_q}, n_kv {g.n_kv}, hd {g.hd}, causal, bf16"
+                + (f", {splits} query-head subgroups" if kind == "dkv"
+                   else "") + f"): max_abs_err {err:.3e}, err/tol max "
+                f"{ratio:.3f} ({BF16_TOL_TEXT}); device {ms[kind]:.4f} ms "
+                f"({card})")
+            if ratio > 1 or err != err:
+                fail(f"flash {kind} at {g.model}: err {err} over tol")
+        del q, do, k, v, o, lse, wo, wlse, args, dq, dk, dv, wdq, wdk, wdv
+        del o_mag, dq_mag, dk_mag, dv_mag
+        torch.cuda.empty_cache()
 
 
 def _time_flash_fp32(torch, dev, g, gen, worst):
@@ -7599,6 +7662,7 @@ FSDP_STEPS = 3
 # of FSDP; 4 layers until phase 18 joined the smoke
 FSDP_LAYERS = 2
 PP_MICRO = 4                  # 17d: microbatches of one row
+TP_GEMMA_STEPS = 3            # 17f: gemma-2b's widths at tensor 2
 LLAMA_1B_VOCAB = 128256       # models/llama.py LLAMA3_1B.vocab_size
 EP_TOKENS = 1024              # 17e: tokens a rank (b 1 x s 1024)
 # 17e: EP against moe_mlp on each rank's block, bf16: relative L2 of the
@@ -7771,6 +7835,8 @@ def _dist_train(torch, rank, world):
     gc.collect()
     torch.cuda.empty_cache()
 
+    out.update(_dist_tensor(torch, world))
+
     cfg = llama.LLAMA3_1B
     pmesh = Mesh(np.arange(world).reshape(world, 1), ("stage", "data"),
                  "cuda")
@@ -7834,6 +7900,68 @@ def _dist_train(torch, rank, world):
     out["ep"] = {"errs": errs, "aux": float(aux), "aux_ref": float(aux_ref),
                  "s": ep_s, "staged": staged, "counts": launch_counts(),
                  "experts": tuple(local["w_gate"].shape)}
+    return out
+
+
+def _gemma_tp_cfg(torch):
+    from kubeflow_tpu_torch.models import gemma
+
+    return dataclasses.replace(gemma.GEMMA_2B, num_layers=FSDP_LAYERS)
+
+
+def _dist_tensor(torch, world):
+    """17f on each rank of (tensor world): llama3-1b at full width
+    (FSDP_LAYERS layers, 3 steps, (c)'s weights and batch) and gemma-2b's
+    widths (FSDP_LAYERS layers, TP_GEMMA_STEPS steps) trained
+    tensor-parallel; each run's losses, step seconds, host-staged
+    collectives, launches, per-rank peak and the bytes of its
+    tensor-cut leaves' params and moments."""
+    import math
+
+    from kubeflow_tpu_torch.models import gemma, llama
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.parallel import MeshSpec, comm, create_mesh
+    from kubeflow_tpu_torch.train import Trainer
+
+    dev = torch.device("cuda")
+    mesh = create_mesh(MeshSpec(data=1, fsdp=1, tensor=world),
+                       device_type="cuda")
+    toks, tgts = _llama1b_batch(torch, dev, 17)
+    out = {}
+    for key, mod, cfg, steps in (
+            ("tp", llama, _fsdp_cfg(torch), FSDP_STEPS),
+            ("tp_gemma", gemma, _gemma_tp_cfg(torch), TP_GEMMA_STEPS)):
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(lambda p, t, mod=mod, cfg=cfg: mod.apply(p, cfg, t),
+                          lambda s, mod=mod, cfg=cfg: mod.init(
+                              cfg, s, dev, train=True),
+                          _dist_tc(), device=dev, mesh=mesh,
+                          logical_axes=mod.param_logical_axes(cfg),
+                          model_config=cfg)
+        state = trainer.init(0)
+        comm.reset_staged()
+        reset_launch_counts()
+        losses, step_s = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = trainer.step(state, toks, tgts)
+            losses.append(float(loss))
+            step_s.append(time.perf_counter() - t0)
+        cut = sum(3 * 4 * math.prod(lay.shape)
+                  for lay in trainer.layout.leaves.values()
+                  if "tensor" in lay.norm_axes)
+        out[key] = {"losses": losses, "step_s": step_s,
+                    "staged": dict(comm.staged), "counts": launch_counts(),
+                    "wq": tuple(state.params["blocks"]["wq"].shape),
+                    "wk": tuple(state.params["blocks"]["wk"].shape),
+                    "peak": torch.cuda.max_memory_allocated() - m0,
+                    "cut_bytes": cut}
+        del trainer, state
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -8035,11 +8163,63 @@ def _ring_checks(torch, dev, seq) -> dict:
     return counts
 
 
+def _tensor_checks(train, one_losses, one_peak, gemma_losses) -> None:
+    """17f: the tensor-parallel runs against their one-device ones."""
+    for key, label, want_losses, layers_of in (
+            ("tp", "llama3-1b at full width", one_losses, 16),
+            ("tp_gemma", "gemma-2b's widths", gemma_losses, 18)):
+        t = train[0][key]
+        steps = len(t["losses"])
+        errs = [abs(a - b) / abs(b) for a, b in zip(t["losses"],
+                                                   want_losses)]
+        per_step = [max(r[key]["step_s"][i] for r in train)
+                    for i in range(steps)]
+        st = max(r[key]["staged"]["seconds"] for r in train)
+        gib = sum(r[key]["staged"]["bytes"] for r in train) / 2**30
+        got = _sum_counts(train, key)
+        want = {"flash_attention_fwd": 2 * FSDP_LAYERS * 2 * steps,
+                "flash_attention_dq": 2 * FSDP_LAYERS * steps,
+                "flash_attention_dkv": 2 * FSDP_LAYERS * steps}
+        peak = max(r[key]["peak"] for r in train)
+        share = (1 - 1 / 2) * t["cut_bytes"]
+        log(f"  17f tensor parallelism: {label}, {FSDP_LAYERS} of "
+            f"{layers_of} layers, mesh (data 1, fsdp 1, tensor 2), global "
+            f"batch {FLASH_B} x {FLASH_S}, {steps} steps: losses "
+            f"{t['losses']} vs one device {want_losses[:steps]} (rel err "
+            f"{max(errs):.2e}, tol {TRAIN_LOSS_TOL}); wq held as {t['wq']}, "
+            f"wk as {t['wk']}; step {[round(x, 3) for x in per_step]} s "
+            f"(slowest rank), of which host-staged collectives {st:.3f} s "
+            f"over the {steps} steps on the slowest rank ({gib:.2f} GiB "
+            f"through the host); peak {peak / 2**30:.3f} GiB a rank; "
+            f"launches {got} (design {want})")
+        if max(errs) > TRAIN_LOSS_TOL:
+            fail(f"17f {label}: tensor-parallel losses differ from the "
+                 f"one-device run")
+        if any(got.get(k) != n for k, n in want.items()):
+            fail(f"17f {label}: flash launches {got}, the design implies "
+                 f"{want}")
+        if key == "tp":
+            log(f"  17f memory: peak {peak / 2**30:.3f} GiB a rank vs the "
+                f"one device's {one_peak / 2**30:.3f} GiB, which less half "
+                f"the tensor-cut leaves' params and moments "
+                f"({share / 2**30:.3f} GiB) bounds it at "
+                f"{(one_peak - share) / 2**30:.3f} GiB")
+            if t["wq"] != (FSDP_LAYERS, 2048, 1024):
+                fail(f"17f: wq held as {t['wq']}, not [2, 2048, 1024]")
+            if peak > one_peak - share:
+                fail(f"17f: a rank's peak {peak} B is not below the one "
+                     f"device's {one_peak} B by half the tensor-cut "
+                     f"leaves' params and moments ({share:.0f} B)")
+        elif t["wk"] != (FSDP_LAYERS, 2048, 256):
+            fail(f"17f: gemma-2b's one KV head held as {t['wk']}, not "
+                 "whole")
+
+
 def distributed_and_check(torch) -> dict:
     """Phase 17: the distributed set on the card, in gangs of worker
     processes on cuda:0. -> the flash kernels' launches over the
     ranks."""
-    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.models import gemma, llama
     from kubeflow_tpu_torch.train import Trainer
     from kubeflow_tpu_torch.train.trainer import _leaves
 
@@ -8078,6 +8258,16 @@ def distributed_and_check(torch) -> dict:
     one_params = sum(p.numel() * p.element_size()
                      for p in _leaves(state.params))
     del one, state
+    # 17f's yardstick at gemma-2b's widths: the same run on one device
+    gcfg = _gemma_tp_cfg(torch)
+    gone = Trainer(lambda p, t: gemma.apply(p, gcfg, t),
+                   lambda s: gemma.init(gcfg, s, dev, train=True),
+                   _dist_tc(), device=dev)
+    state = gone.init(0)
+    gemma_losses = [float(gone.step(state, toks, tgts)[1])
+                    for _ in range(TP_GEMMA_STEPS)]
+    del gone, state
+    gc.collect()
     fsdp_cfg, cfg = cfg, llama.LLAMA3_1B
     params = llama.init(cfg, 0, dev, train=True)
     ptoks, ptgts = _pp_batch(torch, dev)
@@ -8150,6 +8340,7 @@ def distributed_and_check(torch) -> dict:
              f"half of {one_bytes}")
     if any(fl.get(k) != n for k, n in want.items()):
         fail(f"17c: flash launches {fl}, the design implies {want}")
+    _tensor_checks(train, one_losses, one_peak, gemma_losses)
     p = train[0]["pp"]
     per = cfg.num_layers // 2
     ticks = PP_MICRO + 2 - 1
@@ -8184,9 +8375,10 @@ def distributed_and_check(torch) -> dict:
                  f"rank's block: {e['errs']}")
         if abs(e["aux"] - e["aux_ref"]) > 1e-3 * abs(e["aux_ref"]):
             fail("17e: the aux loss is not the global batch's")
-    for name in ("fsdp", "pp"):
+    for name, suffix in (("fsdp", ""), ("pp", ""), ("tp", ""),
+                         ("tp_gemma", GEMMA)):
         for k, n in _sum_counts(train, name).items():
-            counts[k] = counts.get(k, 0) + n
+            counts[k + suffix] = counts.get(k + suffix, 0) + n
 
     nccl, nccl_s = _wait_gang(torch, nccl_started)
     n = nccl[0]
@@ -8927,6 +9119,9 @@ def main() -> None:
             "attention (n_q 32, n_kv 8, hd 128: group 4)")
         stats.update({name + MIXTRAL_SUFFIX: st for name, st in
                       check_flash(torch, dev, MIXTRAL).items()})
+        log("phase 2, tensor 2: the flash kernels at a rank's heads under "
+            "tensor parallelism (phase 17f's shapes)")
+        check_flash_tp(torch, dev)
         log("phase 2, int8_proj: the int8-weight projection at llama3-8b's "
             "and llama3-1b's projection shapes")
         stats["int8_proj"] = check_int8_proj(torch, dev)

@@ -43,6 +43,7 @@ from kubeflow_tpu_torch.ops.attention import dot_product_attention
 from kubeflow_tpu_torch.ops.embedding import embed_lookup
 from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rotary import apply_rope, rope_frequencies
+from kubeflow_tpu_torch.parallel import tensor
 from kubeflow_tpu_torch.parallel.sharding import read_layer
 
 
@@ -147,32 +148,36 @@ def _block(cfg: GemmaConfig, x, p, positions, inv_freq, kv_mask,
     """One Gemma block on x [b, s, D] in cfg.dtype."""
     p = read_layer(p)
     b, s, _ = x.shape
-    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    q = (h @ p["wq"].to(cfg.dtype)).reshape(b, s, cfg.num_heads,
-                                            cfg.head_dim)
-    k = (h @ p["wk"].to(cfg.dtype)).reshape(b, s, cfg.num_kv_heads,
-                                            cfg.head_dim)
-    v = (h @ p["wv"].to(cfg.dtype)).reshape(b, s, cfg.num_kv_heads,
-                                            cfg.head_dim)
+    hd = cfg.head_dim
+    # head counts from the leaves: the rank's under tensor parallelism
+    h = tensor.enter(rms_norm(x, p["attn_norm"], cfg.norm_eps))
+    wk, wv = (tensor.kv_columns(p[n], cfg.num_kv_heads, hd)
+              for n in ("wk", "wv"))
+    q = (h @ p["wq"].to(cfg.dtype)).reshape(b, s, -1, hd)
+    k = (h @ wk.to(cfg.dtype)).reshape(b, s, -1, hd)
+    v = (h @ wv.to(cfg.dtype)).reshape(b, s, -1, hd)
     q = apply_rope(q, positions, inv_freq)
     k = apply_rope(k, positions, inv_freq)
     attn = dot_product_attention(q, k, v, positions, positions,
                                  causal=True, kv_mask=kv_mask,
                                  window=cfg.sliding_window,
                                  contiguous_positions=contiguous_positions)
-    x = x + attn.reshape(b, s, cfg.q_dim) @ p["wo"].to(cfg.dtype)
-    h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+    x = x + tensor.exit(attn.reshape(b, s, -1) @ p["wo"].to(cfg.dtype))
+    h = tensor.enter(rms_norm(x, p["mlp_norm"], cfg.norm_eps))
     # GeGLU: gelu(gate) * up, the Gemma MLP
     gate = torch.nn.functional.gelu(h @ p["w_gate"].to(cfg.dtype),
                                     approximate="tanh")
     ff = gate * (h @ p["w_up"].to(cfg.dtype))
-    return x + ff @ p["w_down"].to(cfg.dtype)
+    return x + tensor.exit(ff @ p["w_down"].to(cfg.dtype))
 
 
 def apply(params: Params, cfg: GemmaConfig, tokens: torch.Tensor,
           positions: torch.Tensor | None = None,
           kv_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Forward -> logits [b, s, vocab] in fp32, through the tied head."""
+    """Forward -> logits [b, s, vocab] in fp32, through the tied head;
+    under tensor parallelism the rank's vocab block of them (its block
+    of the table transposed), the lookup summed over the blocks before
+    the embedding scale."""
     b, s = tokens.shape
     contiguous = positions is None  # safe for the index-masked kernels
     if positions is None:
@@ -186,10 +191,11 @@ def apply(params: Params, cfg: GemmaConfig, tokens: torch.Tensor,
     # layers' gradients once
     layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
     remat = cfg.remat and torch.is_grad_enabled()
+    block = tensor.bind(_block)
     for li in range(cfg.num_layers):
         p = {k: v[li] for k, v in layers.items()}
         args = (cfg, x, p, positions, inv_freq, kv_mask, contiguous)
-        x = (checkpoint(_block, *args, use_reentrant=False) if remat
-             else _block(*args))
+        x = (checkpoint(block, *args, use_reentrant=False) if remat
+             else block(*args))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x.float() @ params["embed"].T.float()
+    return tensor.enter(x.float()) @ params["embed"].T.float()

@@ -38,6 +38,7 @@ from kubeflow_tpu_torch.ops.attention import dot_product_attention
 from kubeflow_tpu_torch.ops.embedding import embed_lookup
 from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rotary import apply_rope, rope_frequencies
+from kubeflow_tpu_torch.parallel import tensor
 from kubeflow_tpu_torch.parallel.sharding import read_layer
 
 Params = dict
@@ -266,22 +267,24 @@ def layer_params(params: Params, li: int) -> Params:
 def _attention_half(cfg, x, p, positions, inv_freq, kv_mask,
                     contiguous_positions=False):
     """A block's attention half on x [b, s, D] in cfg.dtype: the residual
-    after the attention output (models/llama_moe.py shares it)."""
+    after the attention output (models/llama_moe.py shares it). Head
+    counts come from the leaves: under tensor parallelism they are the
+    rank's (parallel/tensor.py), its wo product a partial sum."""
     b, s, _ = x.shape
-    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    q = (h @ p["wq"].to(cfg.dtype)).reshape(b, s, cfg.num_heads,
-                                            cfg.head_dim)
-    k = (h @ p["wk"].to(cfg.dtype)).reshape(b, s, cfg.num_kv_heads,
-                                            cfg.head_dim)
-    v = (h @ p["wv"].to(cfg.dtype)).reshape(b, s, cfg.num_kv_heads,
-                                            cfg.head_dim)
+    hd = cfg.head_dim
+    h = tensor.enter(rms_norm(x, p["attn_norm"], cfg.norm_eps))
+    wk, wv = (tensor.kv_columns(p[n], cfg.num_kv_heads, hd)
+              for n in ("wk", "wv"))
+    q = (h @ p["wq"].to(cfg.dtype)).reshape(b, s, -1, hd)
+    k = (h @ wk.to(cfg.dtype)).reshape(b, s, -1, hd)
+    v = (h @ wv.to(cfg.dtype)).reshape(b, s, -1, hd)
     q = apply_rope(q, positions, inv_freq)
     k = apply_rope(k, positions, inv_freq)
     attn = dot_product_attention(q, k, v, positions, positions,
                                  causal=True, kv_mask=kv_mask,
                                  window=cfg.sliding_window,
                                  contiguous_positions=contiguous_positions)
-    return x + attn.reshape(b, s, cfg.q_dim) @ p["wo"].to(cfg.dtype)
+    return x + tensor.exit(attn.reshape(b, s, -1) @ p["wo"].to(cfg.dtype))
 
 
 def _block(cfg: LlamaConfig, x, p, positions, inv_freq, kv_mask,
@@ -290,7 +293,7 @@ def _block(cfg: LlamaConfig, x, p, positions, inv_freq, kv_mask,
     p = read_layer(p)
     x = _attention_half(cfg, x, p, positions, inv_freq, kv_mask,
                         contiguous_positions)
-    h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+    h = tensor.enter(rms_norm(x, p["mlp_norm"], cfg.norm_eps))
     w_gate, w_up, w_down = (p[n].to(cfg.dtype)
                             for n in ("w_gate", "w_up", "w_down"))
     with _mlp_product():
@@ -299,7 +302,7 @@ def _block(cfg: LlamaConfig, x, p, positions, inv_freq, kv_mask,
     ff = torch.nn.functional.silu(gate) * up
     with _mlp_product():
         down = ff @ w_down
-    return x + down
+    return x + tensor.exit(down)
 
 
 def hidden(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
@@ -320,23 +323,26 @@ def hidden(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
     remat = cfg.remat and torch.is_grad_enabled()
     context = _remat_context(cfg.remat_policy)
+    block = tensor.bind(_block)
     for li in range(cfg.num_layers):
         p = {k: v[li] for k, v in layers.items()}
         args = (cfg, x, p, positions, inv_freq, kv_mask, contiguous)
-        x = (checkpoint(_block, *args, use_reentrant=False,
+        x = (checkpoint(block, *args, use_reentrant=False,
                         context_fn=context) if remat
-             else _block(*args))
+             else block(*args))
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
 def unembed_matrix(params: Params, cfg: LlamaConfig) -> torch.Tensor:
-    """[D, vocab] unembedding (the tied table transposed, or lm_head)."""
+    """[D, vocab] unembedding (the tied table transposed, or lm_head);
+    under tensor parallelism the rank's vocab block."""
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
 def apply(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
           positions: torch.Tensor | None = None,
           kv_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Forward -> logits [b, s, vocab] in fp32."""
+    """Forward -> logits [b, s, vocab] in fp32; under tensor parallelism
+    the rank's vocab block of them [b, s, vocab / t]."""
     x = hidden(params, cfg, tokens, positions, kv_mask)
-    return x.float() @ unembed_matrix(params, cfg).float()
+    return tensor.enter(x.float()) @ unembed_matrix(params, cfg).float()

@@ -17,7 +17,8 @@ split) and the embedding, norm and head alike, and its moments mirror
 that; the batch splits over the data axis. Per-rank flash launches of
 one step, with M microbatches over S stages and L/S layers a stage: (M
 + S - 1) L/S forward in the forward pass, M L/S forward again and M L/S
-each of dQ and dK/dV in the backward.
+each of dQ and dK/dV in the backward. A mesh with tensor > 1 is
+refused: tensor parallelism runs in the mesh trainer (train/fsdp.py).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rotary import rope_frequencies
 from kubeflow_tpu_torch.parallel import comm
 from kubeflow_tpu_torch.parallel import pipeline as pp
+from kubeflow_tpu_torch.parallel.mesh import TENSOR_AXIS
 from kubeflow_tpu_torch.train import trainer as trainer_lib
 from kubeflow_tpu_torch.train.fsdp import _rebuild, sharded_sq_norm
 from kubeflow_tpu_torch.train.trainer import _named_leaves
@@ -113,6 +115,11 @@ class PipelineTrainer:
                  train_config: trainer_lib.TrainConfig = (
                      trainer_lib.TrainConfig()),
                  device: torch.device | str | None = None):
+        if mesh.shape.get(TENSOR_AXIS, 1) > 1:
+            raise ValueError(
+                f"tensor parallelism is not ported for the pipeline "
+                f"(PipelineTrainer on mesh {mesh.shape}): use stage and "
+                "data axes")
         S = mesh.shape[stage_axis]
         if cfg.num_layers % S:
             raise ValueError(f"num_layers={cfg.num_layers} not divisible by "

@@ -1,6 +1,6 @@
 """Collectives over one mesh axis: the port's counterpart of the
 collectives `shard_map` code calls (`jax.lax.ppermute`, `all_to_all`,
-`psum`, `pmean`, `axis_index`; `all_gather` and its transpose for the
+`psum`, `pmean`, `pmax`, `axis_index`; `all_gather` and its transpose for the
 FSDP gather).
 
 Each op takes an `AxisGroup` (`Mesh.axis_group(name)`): the axis's
@@ -27,6 +27,20 @@ rank of an axis ("invariant", one logical copy) and values that differ
 An objective that every rank computes from invariant values is one
 copy, and its gradients come out whole on every rank; the trainers sum
 the gradients of per-rank (batch-sharded) objectives themselves.
+
+Their roles in tensor parallelism (Megatron-style, over the "tensor"
+axis; parallel/tensor.py places them in the blocks):
+- `pvary` where an invariant activation enters per-rank work: the
+  normed residual before the column-parallel products (wq, wk, wv,
+  w_gate, w_up) and the final hidden before the vocab-cut head. Each
+  rank's gradient of it is partial; the backward sums them;
+- `psum` after the row-parallel products (wo, w_down) and after the
+  masked lookup in the rank's vocab block of the embedding: the
+  partial sums become the invariant residual, whose gradient every
+  rank already holds whole;
+- `pmax` (no gradient) and `psum` in the vocab-parallel cross entropy:
+  the logits' max over the vocab blocks, then the sum-exp and the gold
+  logit.
 
 Host staging: a gloo group lacks send/recv and all_to_all for CUDA
 tensors (and its CUDA paths for the rest vary by build), so on a gloo
@@ -184,6 +198,16 @@ def _psum(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
     return out
 
 
+def _pmax(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
+    if group.size == 1:
+        return x.clone()
+    with _Staged(group, x) as st:
+        xs = st.host(x).clone()
+        dist.all_reduce(xs, op=dist.ReduceOp.MAX, group=group.pg)
+        out = st.back(xs)
+    return out
+
+
 def _reduce_scatter(x: torch.Tensor, dim: int,
                     group: AxisGroup) -> torch.Tensor:
     """The sum over the axis, cut along dim: this rank's block (the
@@ -321,6 +345,13 @@ def psum(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
 def pmean(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
     """Mean over the axis (an invariant value)."""
     return _PSum.apply(x, group, True)
+
+
+def pmax(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
+    """Elementwise max over the axis (an invariant value), with no
+    gradient: `jax.lax.pmax` under `stop_gradient`, the shift a
+    vocab-parallel softmax subtracts."""
+    return _pmax(x.detach(), group)
 
 
 def pvary(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:

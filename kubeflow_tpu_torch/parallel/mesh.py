@@ -4,8 +4,8 @@ kubeflow_tpu/parallel/mesh.py).
 A mesh lays the ranks of the process group out on named axes, outer to
 inner: "data" (pure data parallelism, gradients all-reduced), "fsdp"
 (sharded data parallelism: parameters sharded, gathered per block,
-ZeRO-3) and "tensor" (tensor parallelism, which the port's trainer does
-not implement: it refuses a mesh with tensor > 1). Hybrid multi-slice
+ZeRO-3) and "tensor" (tensor parallelism: heads, MLP columns and vocab
+cut, parallel/tensor.py). Hybrid multi-slice
 meshes put "dcn" outermost. Sequence ("seq"), expert ("expert") and
 stage ("stage") axes are the names the ring, MoE and pipeline layers
 use; as in the reference they reuse these device axes, or name the axes
@@ -183,15 +183,12 @@ class Mesh:
         self.device_mesh = DeviceMesh(
             self.device_type, torch.as_tensor(self.devices),
             mesh_dim_names=self.axis_names)
-        combos = [(a,) for a in self.axis_names]
-        for extra in (BATCH_AXES[:2], BATCH_AXES, self.axis_names):
-            c = tuple(a for a in self.axis_names if a in extra)
-            if len(c) > 1 and c not in combos:
-                combos.append(c)
+        # every combination of the axes larger than 1, in mesh order:
+        # the batch axes, a leaf's cut axes and both (train/fsdp.py)
+        live = [a for a in self.axis_names if self.shape[a] > 1]
+        combos = [c for n in range(1, len(live) + 1)
+                  for c in itertools.combinations(live, n)]
         for axes in combos:
-            sizes = [self.shape[a] for a in axes]
-            if math.prod(sizes) == 1:
-                continue
             if len(axes) == 1:
                 pg = self.device_mesh.get_group(axes[0])
                 self._groups[axes] = AxisGroup(
@@ -224,13 +221,14 @@ class Mesh:
     def axis_group(self, axes: str | Sequence[str]) -> AxisGroup:
         """The AxisGroup of one axis, or of several flattened in mesh
         order (axes absent from the mesh are dropped, as the reference's
-        specs drop them)."""
+        specs drop them, and so are axes of size 1)."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         axes = tuple(a for a in self.axis_names if a in axes)
-        if math.prod(self.shape[a] for a in axes) == 1:
+        live = tuple(a for a in axes if self.shape[a] > 1)
+        if not live:
             return AxisGroup(axes, (self.rank,), 0, None)
         try:
-            return self._groups[axes]
+            return self._groups[live]
         except KeyError:
             raise ValueError(
                 f"no process group for axes {axes} of mesh {self.shape} "

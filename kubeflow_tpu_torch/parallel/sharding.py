@@ -59,7 +59,8 @@ class ShardingRules:
 
 # The Llama/transformer rule set. A param's embed dim shards over fsdp
 # (ZeRO-3, gathered per block); an activation's batch dim carries the
-# data axes; tensor parallelism would shard heads / mlp / vocab.
+# data axes; tensor parallelism shards heads / mlp / vocab (the blocks
+# compute on them, parallel/tensor.py).
 LLAMA_RULES = ShardingRules(
     rules={
         # --- params ---
@@ -152,16 +153,27 @@ def zero_extend_spec(spec: P, shape: tuple[int, ...], mesh,
     return spec
 
 
-def filter_spec(spec: P, mesh) -> P:
-    """Drop the axes `mesh` lacks (a hybrid mesh's "dcn" on a plain one)."""
+def _keep_axes(spec: P, keep) -> P:
+    """`spec` with only the axis names `keep(name)` accepts."""
 
     def filt(entry):
-        kept = tuple(a for a in _entry_axes(entry) if a in mesh.axis_names)
+        kept = tuple(a for a in _entry_axes(entry) if keep(a))
         if not kept:
             return None
         return kept if isinstance(entry, (tuple, list)) else kept[0]
 
     return P(*(filt(e) for e in spec))
+
+
+def filter_spec(spec: P, mesh) -> P:
+    """Drop the axes `mesh` lacks (a hybrid mesh's "dcn" on a plain one)."""
+    return _keep_axes(spec, lambda a: a in mesh.axis_names)
+
+
+def without_axis(spec: P, axis: str) -> P:
+    """`spec` with `axis` dropped from every entry (no dim split over
+    it)."""
+    return _keep_axes(spec, lambda a: a != axis)
 
 
 def _dim_groups(spec: P, mesh) -> list[tuple[int, AxisGroup]]:

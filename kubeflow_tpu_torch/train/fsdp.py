@@ -35,8 +35,22 @@ explicit, parallel/comm.py's).
   each moment covering the rank's slice of its block, split further
   over "data" as the reference's `zero_extend_spec` splits it (`slot`:
   the rank updates its slice and all-gathers the slices over data).
-A mesh with tensor > 1 is refused (tensor parallelism is not ported),
-as are Adafactor and gradient accumulation on a mesh.
+- With tensor > 1 (Megatron-style tensor parallelism, parallel/
+  tensor.py) the leaves whose logical axes map to "tensor" are cut on
+  it and never gathered: the blocks compute on their local heads, MLP
+  columns and vocab block, and `parallel()` gives them the axis's
+  group. The cut falls on whole heads, so the layout takes the model's
+  config: KV projections whose heads the axis does not divide (the axis
+  a multiple of them) are held whole on every tensor rank, and a query
+  head count it does not divide is refused. A leaf held whole and read
+  inside per-rank work (those KV projections, a LoRA factor on the
+  uncut side) has a partial gradient on each tensor rank: `reduce_grads`
+  sums it over "tensor" too; the norm scales, read before the residual
+  enters per-rank work, have whole gradients and are not summed. The
+  clip's squares of a tensor-cut block are summed over "tensor" as over
+  any axis a block is cut on.
+Refused on a mesh: Adafactor and gradient accumulation; at tensor > 1,
+the MoE family and ViT (and the pipeline, models/llama_pp.py).
 """
 
 from __future__ import annotations
@@ -47,7 +61,7 @@ import math
 
 import torch
 
-from kubeflow_tpu_torch.parallel import comm
+from kubeflow_tpu_torch.parallel import comm, tensor
 from kubeflow_tpu_torch.parallel import mesh as mesh_lib
 from kubeflow_tpu_torch.parallel import sharding as sharding_lib
 from kubeflow_tpu_torch.train.trainer import _named_leaves
@@ -63,12 +77,19 @@ class LeafLayout:
     gathers: list               # (dim, AxisGroup) the block is cut by
     per_layer: bool             # a stacked leaf, gathered layer by layer
     zero: tuple | None          # (dim, data AxisGroup) of the ZeRO slice
-    grad_group: comm.AxisGroup  # the batch axes the block is not cut on
+    grad_group: comm.AxisGroup  # the axes its gradient is summed over
 
     @property
     def norm_axes(self) -> tuple:
         """The mesh axes the block is cut over."""
         return tuple(g.name for _, g in self.gathers)
+
+    @property
+    def view_gathers(self) -> list:
+        """The gathers the model's view makes: over every axis but
+        "tensor", whose blocks the model computes on."""
+        return [(d, g) for d, g in self.gathers
+                if g.name != mesh_lib.TENSOR_AXIS]
 
 
 def _gathered(x: torch.Tensor, gathers) -> torch.Tensor:
@@ -93,14 +114,36 @@ def sharded_sq_norm(mesh, grads, axes) -> torch.Tensor:
                for a, v in sq.items())
 
 
-class MeshLayout:
-    """Per-leaf layouts of a params tree on `mesh` under `rules`."""
+def _tensor_heads(model_config, size: int) -> bool:
+    """At tensor `size` > 1: whether the model's KV projections are held
+    whole (`tensor.kv_held_whole`); refuses by name the models whose
+    tensor parallelism is not ported, and a config the cut cannot take."""
+    from kubeflow_tpu_torch.models.gemma import GemmaConfig
+    from kubeflow_tpu_torch.models.llama import LlamaConfig
+    from kubeflow_tpu_torch.models.llama_moe import MoELlamaConfig
+    from kubeflow_tpu_torch.models.vit import ViTConfig
 
-    def __init__(self, mesh, logical_axes, rules, tc):
-        if mesh.shape.get(mesh_lib.TENSOR_AXIS, 1) > 1:
-            raise ValueError(
-                f"tensor parallelism is not ported: mesh {mesh.shape} has "
-                "tensor > 1 (use data and fsdp)")
+    refused = {MoELlamaConfig: "the MoE family", ViTConfig: "ViT"}
+    for cls, name in refused.items():
+        if isinstance(model_config, cls):
+            raise ValueError(f"tensor parallelism is not ported for {name} "
+                             f"(mesh tensor={size}; llama and gemma are)")
+    if not isinstance(model_config, (LlamaConfig, GemmaConfig)):
+        raise ValueError(
+            f"a mesh with tensor={size} needs the model's config "
+            f"(model_config=, llama or gemma) for its head counts, got "
+            f"{type(model_config).__name__}")
+    return tensor.kv_held_whole(model_config.num_heads,
+                                model_config.num_kv_heads, size)
+
+
+class MeshLayout:
+    """Per-leaf layouts of a params tree on `mesh` under `rules`
+    (`model_config`: the model's, needed at tensor > 1)."""
+
+    def __init__(self, mesh, logical_axes, rules, tc, model_config=None):
+        size = mesh.shape.get(mesh_lib.TENSOR_AXIS, 1)
+        self.kv_whole = size > 1 and _tensor_heads(model_config, size)
         if tc.optimizer != "adamw":
             raise ValueError(f"optimizer {tc.optimizer!r} is not ported on "
                              "a mesh (adamw is)")
@@ -114,6 +157,12 @@ class MeshLayout:
         self.batch_axes = [a for a in mesh_lib.BATCH_AXES
                            if a in mesh.axis_names]
         self.batch = mesh.axis_group(self.batch_axes)
+        self.tensor = mesh.axis_group(mesh_lib.TENSOR_AXIS)
+
+    def parallel(self):
+        """The context the model runs in: tensor-parallel over the mesh's
+        "tensor" axis (a no-op at tensor 1)."""
+        return tensor.parallel(self.tensor)
 
     def add(self, name: str, shape) -> LeafLayout:
         mesh = self.mesh
@@ -122,6 +171,8 @@ class MeshLayout:
             raise ValueError(f"{name}: logical axes {axes} for shape "
                              f"{tuple(shape)}")
         spec = sharding_lib.filter_spec(self.rules.resolve(axes), mesh)
+        if self.kv_whole and "kv_heads" in axes:
+            spec = sharding_lib.without_axis(spec, mesh_lib.TENSOR_AXIS)
         gathers = sharding_lib._dim_groups(spec, mesh)
         for dim, g in gathers:
             if shape[dim] % g.size:
@@ -134,10 +185,14 @@ class MeshLayout:
             if a != b:
                 zero = (dim, mesh.axis_group(mesh_lib.DATA_AXIS))
         cut = sharding_lib.spec_axes(spec)
+        summed = [a for a in self.batch_axes if a not in cut]
+        if (self.tensor.size > 1 and mesh_lib.TENSOR_AXIS not in cut
+                and tensor.read_in_rank_work(axes)):
+            summed.append(mesh_lib.TENSOR_AXIS)
         lay = LeafLayout(
             tuple(shape), spec, opt_spec, gathers,
             axes[0] == "layers" and all(d > 0 for d, _ in gathers), zero,
-            mesh.axis_group([a for a in self.batch_axes if a not in cut]))
+            mesh.axis_group(summed))
         self.leaves[name] = lay
         return lay
 
@@ -153,23 +208,30 @@ class MeshLayout:
     def model_view(self, local: dict) -> dict:
         """The tree the model reads: stacked block leaves as LayerStacks
         gathered layer by layer where the block reads them, the others
-        gathered now (differentiably)."""
+        gathered now (differentiably). A block cut on "tensor" stays
+        this rank's block along that dim."""
         def view(name, leaf):
             lay = self.leaves[name]
-            if not lay.gathers:
+            gathers = lay.view_gathers
+            if not gathers:
                 return leaf
             if lay.per_layer:
                 slices = leaf.unbind(0)
-                gathers = [(d - 1, g) for d, g in lay.gathers]
+                gathers = [(d - 1, g) for d, g in gathers]
                 return sharding_lib.LayerStack(
                     len(slices), lambda li: _gathered(slices[li], gathers))
-            return _gathered(leaf, lay.gathers)
+            return _gathered(leaf, gathers)
         return _rebuild(local, view)
+
+    def gather_leaf(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The full leaf (or its gradient) from every rank's block
+        (collective)."""
+        return sharding_lib.gather_tensor(t.detach(), self.leaves[name].spec,
+                                          self.mesh)
 
     def gather_params(self, local: dict) -> dict:
         """The full params from every rank's blocks (collective)."""
-        return _rebuild(local, lambda name, leaf: sharding_lib.gather_tensor(
-            leaf.detach(), self.leaves[name].spec, self.mesh))
+        return _rebuild(local, self.gather_leaf)
 
     # -- the batch -------------------------------------------------------
 
@@ -191,7 +253,9 @@ class MeshLayout:
 
     def reduce_grads(self, named, grads) -> list:
         """Each block's gradient summed over the batch axes its leaf is
-        not cut on (the gathers' reduce-scatters summed the others)."""
+        not cut on (the gathers' reduce-scatters summed the others), and
+        over "tensor" for a leaf held whole there and read inside
+        per-rank work."""
         return [comm._psum(g, self.leaves[name].grad_group)
                 for (name, _), g in zip(named, grads, strict=True)]
 

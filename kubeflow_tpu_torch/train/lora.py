@@ -16,7 +16,11 @@ optimizer state), and `lora_loss_fn` merges the detached base with the
 adapters each step before the model's loss, so autograd reaches only A
 and B. `init_lora` draws A from a fan-in-scaled truncated normal and
 sets B = 0, so step 0 is the base. `lora_logical_axes` gives the
-train tree's adapters their sharding on the trainer's mesh.
+train tree's adapters their sharding on the trainer's mesh. Under
+tensor parallelism the merge runs on the rank's blocks: B is cut with
+the base weight's output axis (wq, wk, wv), A with its input axis (wo),
+the other factor held whole, its gradient summed over the axis by the
+trainer (train/fsdp.py); a KV weight held whole keeps both whole.
 """
 
 from __future__ import annotations

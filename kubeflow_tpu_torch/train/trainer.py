@@ -17,7 +17,10 @@ With `mesh=` (parallel/mesh.py) and the params' `logical_axes`, the
 same step runs on every rank of the mesh under the sharding `rules`
 (default LLAMA_RULES): parameters as FSDP blocks gathered per block
 before use, the batch split over the data axes, the moments ZeRO-sliced
-over "data" with `zero_optimizer` (train/fsdp.py has the layout). `step`
+over "data" with `zero_optimizer`, and with tensor > 1 the heads, MLP
+columns and vocab cut over "tensor", the blocks computing on their
+own (train/fsdp.py has the layout, parallel/tensor.py the blocks'
+collectives; the loss is then the same on every tensor rank). `step`
 takes the global batch on every rank; `gather_params` assembles the
 full params. Without a mesh nothing of this runs.
 
@@ -58,7 +61,7 @@ from torch.utils.checkpoint import checkpoint
 from kubeflow_tpu_torch import obs
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.obs.metrics import Counter
-from kubeflow_tpu_torch.parallel import comm
+from kubeflow_tpu_torch.parallel import comm, tensor
 
 Params = dict
 
@@ -78,13 +81,34 @@ def _masked_mean(nll: torch.Tensor,
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
+def _vocab_parallel_nll(m, sumexp, gold, group) -> torch.Tensor:
+    """Per-position NLL from each vocab block's (max, sum-exp relative to
+    that max, gold logit or 0): the max over the blocks as a shift with
+    no gradient, the sum-exp and the gold logit summed over them."""
+    top = comm.pmax(m, group)
+    total = comm.psum(sumexp * torch.exp(m - top), group)
+    return top + torch.log(total) - comm.psum(gold, group)
+
+
 def cross_entropy_loss(logits: torch.Tensor,   # [b, s, vocab] fp32
                        targets: torch.Tensor,  # [b, s] int
                        mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean next-token cross entropy over valid positions."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    return _masked_mean(logz - gold, mask)
+    """Mean next-token cross entropy over valid positions. Under tensor
+    parallelism (parallel/tensor.py) `logits` is the rank's vocab block
+    and the loss, reduced over the blocks, is the same on every rank."""
+    group = tensor.group()
+    if group is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+        return _masked_mean(logz - gold, mask)
+    n = logits.shape[-1]
+    local = targets.long() - tensor.vocab_start(n)
+    inside = (local >= 0) & (local < n)
+    m = logits.detach().amax(dim=-1)
+    sumexp = torch.exp(logits - m[..., None]).sum(dim=-1)
+    picked = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    return _masked_mean(_vocab_parallel_nll(
+        m, sumexp, torch.where(inside, picked, 0.0), group), mask)
 
 
 def _ce_chunk(hidden, head_c, targets, m, acc, gold, off):
@@ -113,7 +137,12 @@ def chunked_cross_entropy_from_hidden(
     loop over vocab chunks keeps the online (max, sumexp, gold-logit)
     stats, and each chunk body runs under `torch.utils.checkpoint`, so
     the backward recomputes the chunk's logits instead of storing them.
-    Matches `cross_entropy_loss(hidden @ head, ...)` to fp32 rounding."""
+    Matches `cross_entropy_loss(hidden @ head, ...)` to fp32 rounding.
+    Under tensor parallelism `head` is the rank's vocab block: its chunks
+    are offset by the block's start, and the stats are reduced over the
+    blocks at the end."""
+    group = tensor.group()
+    hidden = tensor.enter(hidden.float())
     b, s, _ = hidden.shape
     vocab = head.shape[1]
     # Largest divisor of vocab <= requested: never silently degrade to
@@ -129,7 +158,7 @@ def chunked_cross_entropy_from_hidden(
             "<= the requested chunk count %d — full [b, s, vocab] "
             "logits will materialize", vocab, requested)
     chunk = vocab // num_chunks
-    hidden = hidden.float()
+    start = tensor.vocab_start(vocab)
     dev = hidden.device
     m = torch.full((b, s), -math.inf, device=dev)
     acc = torch.zeros(b, s, device=dev)
@@ -138,7 +167,10 @@ def chunked_cross_entropy_from_hidden(
     # once, where slicing per chunk would write a full-size one per chunk
     for i, head_c in enumerate(head.split(chunk, dim=1)):
         m, acc, gold = checkpoint(_ce_chunk, hidden, head_c, targets, m,
-                                  acc, gold, i * chunk, use_reentrant=False)
+                                  acc, gold, start + i * chunk,
+                                  use_reentrant=False)
+    if group is not None:
+        return _masked_mean(_vocab_parallel_nll(m, acc, gold, group), mask)
     return _masked_mean((m + torch.log(acc)) - gold, mask)
 
 
@@ -429,6 +461,8 @@ class Trainer:
     default registry; several trainers in one process share the
     series). `mesh` / `logical_axes` / `rules`: training on a mesh (the
     module docstring); `device` is then this rank's device.
+    `model_config`: the model's config, which a mesh with tensor > 1
+    needs for its head counts (train/fsdp.py cuts on whole heads).
     `virtual_replicas`: the data-parallel replica count the state stands
     for, which checkpoints are stamped with: the mesh's data axis by
     default (1 without a mesh); an elastic worker that computes the full
@@ -442,6 +476,7 @@ class Trainer:
                  freeze_labels: Params | None = None,
                  tracer=None, registry=None, mesh=None,
                  logical_axes: Params | None = None, rules=None,
+                 model_config=None,
                  virtual_replicas: int | None = None):
         self.mesh = mesh
         self.layout = None
@@ -457,7 +492,7 @@ class Trainer:
                 rules = LLAMA_RULES
             from kubeflow_tpu_torch.train.fsdp import MeshLayout
             self.layout = MeshLayout(mesh, logical_axes, rules,
-                                     train_config)
+                                     train_config, model_config)
         self.apply_fn = apply_fn
         self.init_fn = init_fn
         self.tc = train_config
@@ -601,15 +636,20 @@ class Trainer:
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), grads
 
-    def step(self, state: TrainState, tokens, targets, mask=None):
-        """One optimizer step on a [b, s] batch -> (state, loss), under a
-        `train.step` span and the profiler's `step` phase."""
+    def _batch(self, tokens, targets, mask):
+        """The batch on the trainer's device, the mask all ones unless
+        given."""
         tokens = torch.as_tensor(tokens, device=self.device)
         targets = torch.as_tensor(targets, device=self.device)
         if mask is None:
             mask = torch.ones(tokens.shape, dtype=torch.float32,
                               device=self.device)
-        mask = torch.as_tensor(mask, device=self.device)
+        return tokens, targets, torch.as_tensor(mask, device=self.device)
+
+    def step(self, state: TrainState, tokens, targets, mask=None):
+        """One optimizer step on a [b, s] batch -> (state, loss), under a
+        `train.step` span and the profiler's `step` phase."""
+        tokens, targets, mask = self._batch(tokens, targets, mask)
         acc = self.tc.grad_accum
         if acc > 1 and tokens.shape[0] % acc:
             raise ValueError(f"batch {tokens.shape[0]} not divisible by "
@@ -632,21 +672,44 @@ class Trainer:
             self.compile_seconds.observe(dt)
         return out
 
-    def _mesh_step(self, state: TrainState, tokens, targets, mask):
+    def _mesh_grads(self, state: TrainState, tokens, targets, mask):
+        """This rank's share of the global loss and each trained block's
+        gradient of the global loss (reduced over the ranks that share
+        it). The tensor context covers the backward too: remat reruns
+        the blocks' collectives there."""
         lay = self.layout
         tokens, targets, mask = (lay.local_rows(x)
                                  for x in (tokens, targets, mask))
         weight = lay.loss_weight(mask)
         named = self.optimizer.trained(state.params)
-        loss = self._loss(lay.model_view(state.params), tokens, targets,
-                          mask) * weight
-        grads = torch.autograd.grad(loss, [p for _, p in named])
+        with lay.parallel():
+            loss = self._loss(lay.model_view(state.params), tokens,
+                              targets, mask) * weight
+            grads = torch.autograd.grad(loss, [p for _, p in named])
+        return loss.detach(), named, lay.reduce_grads(named, grads)
+
+    def _mesh_step(self, state: TrainState, tokens, targets, mask):
+        lay = self.layout
+        loss, named, grads = self._mesh_grads(state, tokens, targets, mask)
         with torch.no_grad():
-            self.optimizer.update(lay.reduce_grads(named, grads),
-                                  state.opt_state, state.params,
+            self.optimizer.update(grads, state.opt_state, state.params,
                                   sq_norm=lay.sq_norm, slot=lay.slot)
         state.step += 1
-        return state, comm._psum(loss.detach(), lay.batch)
+        return state, comm._psum(loss, lay.batch)
+
+    def grads(self, state: TrainState, tokens, targets,
+              mask=None) -> list:
+        """The gradients of one step's loss on a global [b, s] batch, as
+        the optimizer would take them (before the clip), in the order of
+        the trained leaves, as full leaves: on a mesh, reduced and
+        gathered from every rank's blocks (a collective)."""
+        tokens, targets, mask = self._batch(tokens, targets, mask)
+        if self.layout is None:
+            return list(self._value_and_grad(state.params, tokens, targets,
+                                             mask)[1])
+        _, named, grads = self._mesh_grads(state, tokens, targets, mask)
+        return [self.layout.gather_leaf(n, g)
+                for (n, _), g in zip(named, grads, strict=True)]
 
     def _step(self, state: TrainState, tokens, targets, mask):
         if self.layout is not None:

@@ -439,3 +439,195 @@ def elastic_resize_cases(payload, rank, world):
         shutil.rmtree(only)
     out["marks"] = marks
     return out
+
+
+# -- test_torch_tensor_parallel.py -------------------------------------------
+
+def _full_state(tr, state):
+    """Copies of the whole params and moments of a trainer's state."""
+    from kubeflow_tpu_torch.train.checkpoint import flatten
+
+    opt = tr.gather_opt_state(state)
+    return ({k: v.clone() for k, v in flatten(tr.gather_params(state))
+             .items()},
+            {k: [t.clone() for t in v] if isinstance(v, list) else v
+             for k, v in opt.items()})
+
+
+def tensor_parallel_cases(payload, rank, world):
+    """Llama-tiny, gemma-tiny and a LoRA pack trained tensor-parallel on
+    (fsdp 2, tensor 2) and (data 2, tensor 2): the forward's logits, one
+    step's gradients (with a control that sums a whole leaf over tensor
+    once too often), 3 steps, remat policies, a checkpoint round trip."""
+    import dataclasses
+    import os
+
+    from kubeflow_tpu_torch import bridge
+    from kubeflow_tpu_torch.models import gemma, llama
+    from kubeflow_tpu_torch.parallel import tensor
+    from kubeflow_tpu_torch.train import TrainConfig, Trainer, lora
+    from kubeflow_tpu_torch.train.checkpoint import (
+        CheckpointConfig, Checkpointer,
+    )
+    from kubeflow_tpu_torch.train.trainer import (
+        chunked_cross_entropy_from_hidden, cross_entropy_loss,
+    )
+
+    ft = create_mesh(MeshSpec(data=1, fsdp=2, tensor=2), device_type="cpu")
+    dt = create_mesh(MeshSpec(data=2, fsdp=1, tensor=2), device_type="cpu")
+    df = create_mesh(MeshSpec(data=2, fsdp=2, tensor=1), device_type="cpu")
+    toks = torch.tensor(payload["toks"]).long()
+    tgts = torch.tensor(payload["tgts"]).long()
+    tc = TrainConfig(warmup_steps=1, total_steps=10)
+    out = {}
+
+    def trainer(mod, cfg, mesh, **kw):
+        return Trainer(lambda p, t: mod.apply(p, cfg, t), None,
+                       kw.pop("tc", tc), device="cpu", mesh=mesh,
+                       logical_axes=kw.pop(
+                           "axes", mod.param_logical_axes(cfg)),
+                       model_config=cfg, **kw)
+
+    def steps(tr, state, n=3):
+        losses = []
+        for _ in range(n):
+            state, loss = tr.step(state, toks, tgts)
+            losses.append(float(loss))
+        return state, losses
+
+    def local_shapes(state):
+        return {k: tuple(v.shape) for k, v in state.params["blocks"].items()}
+
+    # llama-tiny on (fsdp 2, tensor 2): the forward, gradients, 3 steps
+    cfg = llama.LLAMA_TINY
+    tr = trainer(llama, cfg, ft)
+    state = tr.init_from_params(bridge.from_jax(payload["llama"], cfg, "cpu"))
+    lay = tr.layout
+    with torch.no_grad(), lay.parallel():
+        logits = llama.apply(lay.model_view(state.params), cfg,
+                             lay.local_rows(toks))
+    logits = comm._all_gather(logits, 2, lay.tensor)
+    out["logits"] = comm._all_gather(logits, 0, lay.batch)
+    names = [n for n, _ in tr.optimizer.trained(state.params)]
+    out["llama_grads"] = dict(zip(names, tr.grads(state, toks, tgts)))
+    # the control: final_norm's gradient (whole already) summed over
+    # tensor as well
+    keep = lay.leaves["final_norm"].grad_group
+    lay.leaves["final_norm"].grad_group = ft.axis_group("tensor")
+    out["control_grads"] = dict(zip(names, tr.grads(state, toks, tgts)))
+    lay.leaves["final_norm"].grad_group = keep
+    out["llama_local"] = local_shapes(state)
+    state, losses = steps(tr, state)
+    out["llama"] = {"losses": losses, "opt_bytes": tr.opt_state_bytes(),
+                    "params": tr.gather_params(state)}
+
+    # its checkpoint: saved here, restored on one device and on
+    # (data 2, fsdp 2)
+    saved = _full_state(tr, state)
+    d = os.path.join(payload["dir"], "tp")
+    ck = Checkpointer(CheckpointConfig(d, enable_async=False), tr)
+    ck.save(state, force=True)
+    ck.close()
+    ckpt = {"saved_stamp": ck.restore_metadata()["virtual_replicas"]}
+    for key, mesh in (("one", None), ("df", df)):
+        other = Trainer(lambda p, t: llama.apply(p, cfg, t), None, tc,
+                        device="cpu", mesh=mesh,
+                        logical_axes=llama.param_logical_axes(cfg))
+        ck = Checkpointer(CheckpointConfig(d), other)
+        restored = ck.restore()
+        params, opt = _full_state(other, restored)
+        ckpt[key] = {
+            "stamp": ck.virtual_replicas, "step": restored.step,
+            "params": all(torch.equal(v, saved[0][k])
+                          for k, v in params.items()),
+            "opt": opt["count"] == saved[1]["count"] and all(
+                torch.equal(a, b) for slot in ("mu", "nu")
+                for a, b in zip(opt[slot], saved[1][slot], strict=True))}
+        ck.close()
+    out["ckpt"] = ckpt
+
+    # remat policies: the same gradients when the backward reruns the
+    # blocks and their collectives
+    out["remat"] = {}
+    for policy in ("full", "mlp", "dots"):
+        rcfg = dataclasses.replace(cfg, remat=True, remat_policy=policy)
+        rtr = trainer(llama, rcfg, ft)
+        rstate = rtr.init_from_params(
+            bridge.from_jax(payload["llama"], rcfg, "cpu"))
+        out["remat"][policy] = dict(zip(names, rtr.grads(rstate, toks,
+                                                         tgts)))
+    # the forward inside the context, the backward outside it, as
+    # autograd's device thread runs a CUDA backward: the rerun blocks
+    # carry their group (tensor.bind)
+    lay = rtr.layout
+    named = rtr.optimizer.trained(rstate.params)
+    rows, targets = lay.local_rows(toks), lay.local_rows(tgts)
+    with lay.parallel():
+        loss = cross_entropy_loss(llama.apply(
+            lay.model_view(rstate.params), rcfg, rows), targets)
+    loss = loss * lay.loss_weight(torch.ones(rows.shape))
+    grads = torch.autograd.grad(loss, [p for _, p in named])
+    out["remat"]["outside"] = {
+        n: lay.gather_leaf(n, g) for (n, _), g in
+        zip(named, lay.reduce_grads(named, grads), strict=True)}
+
+    # llama-tiny with the chunked loss from the final hidden
+    def chunked(p, t, tg, m):
+        return chunked_cross_entropy_from_hidden(
+            llama.hidden(p, cfg, t), llama.unembed_matrix(p, cfg), tg, m)
+
+    tr = trainer(llama, cfg, ft, loss_fn=chunked)
+    state = tr.init_from_params(bridge.from_jax(payload["llama"], cfg, "cpu"))
+    state, losses = steps(tr, state)
+    out["chunked"] = {"losses": losses, "params": tr.gather_params(state)}
+
+    # gemma-tiny on (data 2, tensor 2) with ZeRO: its one KV head held
+    # whole
+    gcfg = gemma.GEMMA_TINY
+    tr = trainer(gemma, gcfg, dt)
+    state = tr.init_from_params(bridge.from_jax(payload["gemma"], gcfg,
+                                                "cpu"))
+    gnames = [n for n, _ in tr.optimizer.trained(state.params)]
+    out["gemma_grads"] = dict(zip(gnames, tr.grads(state, toks, tgts)))
+    out["gemma_local"] = local_shapes(state)
+    state, losses = steps(tr, state)
+    out["gemma"] = {"losses": losses, "opt_bytes": tr.opt_state_bytes(),
+                    "params": tr.gather_params(state)}
+
+    # a LoRA pack on wq, wk, wv and wo over llama-tiny's frozen base
+    lcfg = lora.LoraConfig(rank=4, alpha=8.0,
+                           targets=("wq", "wk", "wv", "wo"))
+    base_axes = llama.param_logical_axes(cfg)
+    tree = lora.lora_train_tree(
+        bridge.from_jax(payload["lora"]["base"], cfg, "cpu",
+                        dtype=cfg.param_dtype),
+        {"blocks": {n: {k: torch.tensor(v) for k, v in ab.items()}
+                    for n, ab in payload["lora"]["lora"]["blocks"].items()}})
+
+    def lora_model_loss(p, t, tg, m):
+        return cross_entropy_loss(llama.apply(p, cfg, t), tg, m)
+
+    tr = Trainer(None, None, TrainConfig(warmup_steps=2, total_steps=100,
+                                         learning_rate=3e-3),
+                 loss_fn=lora.lora_loss_fn(lora_model_loss, lcfg),
+                 device="cpu", mesh=ft, model_config=cfg,
+                 logical_axes={"base": base_axes,
+                               "lora": lora.lora_logical_axes(base_axes,
+                                                              lcfg)},
+                 freeze_labels=lora.lora_freeze_labels(tree))
+    state = tr.init_from_params(tree)
+    base = {k: v.clone() for k, v in tr.gather_params(state)["base"]
+            ["blocks"].items()}
+    lnames = [n for n, _ in tr.optimizer.trained(state.params)]
+    out["lora_grads"] = dict(zip(lnames, tr.grads(state, toks, tgts)))
+    out["lora_local"] = {f"{n}.{k}": tuple(v.shape) for n, ab in
+                         state.params["lora"]["blocks"].items()
+                         for k, v in ab.items()}
+    state, losses = steps(tr, state)
+    full = tr.gather_params(state)
+    out["lora"] = {"losses": losses, "params": full["lora"],
+                   "base_unchanged": all(
+                       torch.equal(v, base[k])
+                       for k, v in full["base"]["blocks"].items())}
+    out["context_left"] = tensor.group() is None
+    return out

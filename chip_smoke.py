@@ -549,9 +549,27 @@ Phase 17:    the distributed set (kubeflow_tpu_torch/parallel/,
              one device's by at least half the tensor-cut leaves'
              params and moments; gemma-2b's widths at 2 of 18 layers
              (its one KV head held whole), TP_GEMMA_STEPS steps against
-             a one-device run of the same. Then the ring and an FSDP
-             step on a one-rank NCCL group (its process runs beside the
-             ring gang).
+             a one-device run of the same. (g) The mesh trainer's
+             recipes on (tensor 2), RECIPE_STEPS steps each against one
+             device: llama3-1b at (c)'s depth under Adafactor (losses
+             within RECIPE_LOSS_TOL, wq's gathered v_row the one
+             device's shape) and under AdamW at grad_accum RECIPE_ACC
+             (within RECIPE_LOSS_TOL of (f)'s full-batch run on the same
+             mesh, TRAIN_LOSS_TOL of (c)'s one-device run);
+             Mixtral-8x7B's widths at the depth the card holds for both
+             ranks (15a's batch, seed and config; 15a's first
+             RECIPE_STEPS steps are the yardstick where it ran at that
+             depth, else a one-device run before the gang), the ranks
+             forced onto the yardstick's routes (at the initial
+             weights at most MOE_EXCUSE_MAX of their own routings
+             choose other experts: rounding moves near-ties only),
+             losses within TRAIN_LOSS_TOL, w_gate [L, 4, 4096, 14336] a
+             rank, the router moved, a rank's peak below one device's;
+             ViT-B/16
+             (6 heads and 500 classes a rank) against a one-device run;
+             exact flash launches. Then the ring and an FSDP step on a
+             one-rank NCCL group (its process runs beside the ring
+             gang and is awaited before 17g-b reckons its depth).
 Phase 18:    fp32 flash at head dim 256 on a path, and the elastic
              trainer fleet (train/elastic.py, train/goodput.py,
              train/checkpoint.py over the mesh trainer,
@@ -719,11 +737,14 @@ LLAMA_1B = Geom("llama3-1b", N_Q, N_KV, HD, LAYERS)
 LLAMA_8B = Geom("llama3-8b", DENSE_NQ, N_KV, HD, DENSE_LAYERS)
 # gemma-2b (phase 6): 18 layers, 8 query heads over one kv head of 256
 GEMMA_2B = Geom("gemma-2b", 8, 1, 256, 18, repeat_kv=True)
-# a rank's heads at tensor 2 (phase 17f): llama3-1b's cut on whole heads
-# (group 2), gemma-2b's query heads over its one KV head held whole
-# (group 4, whose dK/dV subgroups no other case picks)
+# a rank's heads at tensor 2 (phases 17f and 17g): llama3-1b's cut on
+# whole heads (group 2), gemma-2b's query heads over its one KV head held
+# whole (group 4, whose dK/dV subgroups no other case picks), Mixtral's
+# cut on whole heads (group 4 over half the KV heads of phase 2's
+# `@mixtral` case)
 TP2_SHAPES = (Geom("llama3-1b at tensor 2", N_Q // 2, N_KV // 2, HD, LAYERS),
-              Geom("gemma-2b at tensor 2", 4, 1, 256, 18))
+              Geom("gemma-2b at tensor 2", 4, 1, 256, 18),
+              Geom("Mixtral-8x7B at tensor 2", 16, 4, 128, 32))
 
 
 # suffix of a `kernels`-line name measured at gemma-2b's shapes (phase 2)
@@ -6355,7 +6376,7 @@ async def _serve_moe_int8(torch, qparams, cfg) -> dict:
 # group of 4), timed in phase 2 and trained through in phase 15a
 MIXTRAL = Geom("mixtral-8x7b", 32, 8, 128, 32)
 MIXTRAL_SUFFIX = "@mixtral"
-MOE_TRAIN_STEPS = 4                # timed, after two counted steps
+MOE_TRAIN_STEPS = 4                # timed, after RECIPE_STEPS counted steps
 # The MoE training state: 16 bytes a parameter (fp32 master, gradient, two
 # AdamW moments) and 4 more a block parameter (each layer's gradient waits
 # for the others before the unbind's backward stacks them), plus this for
@@ -6605,16 +6626,20 @@ def moe_train_and_check(torch):
                 out[1].flatten(), minlength=cfg.num_experts).tolist())
         return out
 
-    moe._assign = counted_train
+    # the counted steps' routes: phase 17g-b forces its ranks onto them
+    routes: list = []
+    moe._assign, moe._top_k = counted_train, _route_probe(torch, routes)
     try:
         t0 = time.perf_counter()
         state, loss = trainer.step(state, tokens, targets)
         losses = [float(loss)]
         warm_s = time.perf_counter() - t0
-    finally:
         moe._assign = assign
-    state, loss = trainer.step(state, tokens, targets)
-    losses.append(float(loss))
+        for _ in range(RECIPE_STEPS - 1):
+            state, loss = trainer.step(state, tokens, targets)
+            losses.append(float(loss))
+    finally:
+        moe._assign, moe._top_k = assign, top_k
     torch.cuda.reset_peak_memory_stats()
     pending = []
     t0 = time.perf_counter()
@@ -6627,14 +6652,15 @@ def moe_train_and_check(torch):
     counts = launch_counts()
     impl = attention.impl_counts()
     losses += [float(x) for x in pending]
-    steps = 2 + MOE_TRAIN_STEPS
+    steps = RECIPE_STEPS + MOE_TRAIN_STEPS
     flops, rows = _moe_step_flops(cfg, b, s)
     run = flops["forward"] + flops["backward"]
     model = trainer.step_flops(b, s) / 1e12
     log(f"  losses {[round(x, 4) for x in losses]}; first step "
         f"{warm_s:.2f} s; choices dropped per layer {train_drops}, "
         f"routed-expert histogram {train_hist} (bf16, first step)")
-    log(f"  step (host clock, {MOE_TRAIN_STEPS} steps after 2): "
+    log(f"  step (host clock, {MOE_TRAIN_STEPS} steps after "
+        f"{RECIPE_STEPS}): "
         f"{step_s * 1e3:.1f} ms, {b * s / step_s:.0f} tokens/s, peak memory "
         f"{peak / 2**30:.2f} GiB, optimizer state "
         f"{trainer.opt_state_bytes() / 2**30:.2f} GiB")
@@ -6677,8 +6703,10 @@ def moe_train_and_check(torch):
         fail(f"phase 15a: non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         fail(f"phase 15a: loss did not fall: {losses}")
-    MEASURED["moe_train"] = dict(step_ms=step_s * 1e3, peak=peak, run=run,
-                                 layers=L)
+    MEASURED["moe_train"] = dict(
+        step_ms=step_s * 1e3, peak=peak, run=run, layers=L,
+        losses=losses[:RECIPE_STEPS],
+        routes=[idx.cpu() for idx, _ in routes])
     del state, trainer
     return {k: v for k, v in counts.items() if k in expect}, fp32_counts
 
@@ -7670,6 +7698,29 @@ EP_TOKENS = 1024              # 17e: tokens a rank (b 1 x s 1024)
 # counts, the a2a-returned rows in another order)
 EP_OUT_TOL = 1e-2
 EP_GRAD_TOL = TRAIN_GRAD_TOL
+# 17g: the mesh trainer's recipes at tensor 2: (a) llama3-1b at 17c's
+# depth under Adafactor against one device, losses within 1e-4 relative
+# (17f's llama3-1b runs came within 9.64e-05), then AdamW at grad_accum
+# 2 (micro-batches of one row) within 1e-4 of 17f's full-batch run on
+# the same mesh, as the reference holds grad_accum N to its acc-1 step
+# (against one device it keeps 17f's TRAIN_LOSS_TOL: AdamW's first
+# update turns rounding-level gradient differences into up to a
+# learning rate: 1.14e-04 at step 3 on an H100 80GB HBM3 at 700 W);
+# (b) Mixtral-8x7B's widths at the depth the card holds for both ranks
+# (as 15a cuts it), 15a's batch, seed and config, on the one-device
+# run's routes (bf16 rounding of the router's input routes a near-tie
+# elsewhere on one side, and a dropped choice moves every later slot of
+# its expert: unforced, 1.42e-03 at step 3 on the same card; at the
+# initial weights 276 of the ranks' 32768 token routings chose other
+# experts, at top-3 gaps up to 2.9e-3, so a share above MOE_EXCUSE_MAX
+# fails; after an update the weights differ by the step's rounding),
+# within the training checks' TRAIN_LOSS_TOL; (c) ViT-B/16 at batch
+# VIT_TP_B
+RECIPE_STEPS, RECIPE_ACC = 3, 2
+RECIPE_LOSS_TOL = 1e-4
+VIT_TP_B = 16
+# 17g-b's one-device depth and routes, written by the parent for the ranks
+MOE_YARDSTICK = os.path.join(DIST_DIR, "moe_yardstick.pt")
 
 
 def _rel_l2(torch, got, want) -> float:
@@ -7786,8 +7837,9 @@ def _fsdp_residue(torch, trainer, state, cfg, toks) -> dict:
 
 
 def _dist_train(torch, rank, world):
-    """17c, 17d and 17e on each of 2 ranks: llama3-1b under FSDP on
-    (data 1, fsdp 2), llama3-1b pipelined over 2 stages, and one MoE
+    """17c to 17g on each of 2 ranks: llama3-1b under FSDP on (data 1,
+    fsdp 2), the tensor-parallel runs and recipes (`_dist_tensor`,
+    `_dist_recipes`), llama3-1b pipelined over 2 stages, and one MoE
     layer at Mixtral-8x7B's widths with 4 experts a rank."""
     import numpy as np
 
@@ -7836,6 +7888,7 @@ def _dist_train(torch, rank, world):
     torch.cuda.empty_cache()
 
     out.update(_dist_tensor(torch, world))
+    out.update(_dist_recipes(torch, world))
 
     cfg = llama.LLAMA3_1B
     pmesh = Mesh(np.arange(world).reshape(world, 1), ("stage", "data"),
@@ -7962,6 +8015,153 @@ def _dist_tensor(torch, world):
         del trainer, state
         gc.collect()
         torch.cuda.empty_cache()
+    return out
+
+
+def _ada_tc():
+    from kubeflow_tpu_torch.train import TrainConfig
+
+    return TrainConfig(warmup_steps=1, total_steps=100,
+                       optimizer="adafactor")
+
+
+def _moe_batch(torch, dev, vocab):
+    """15a's batch: FLASH_B x FLASH_S tokens from seed 15."""
+    import numpy as np
+
+    rng = np.random.default_rng(15)
+    tokens = torch.from_numpy(rng.integers(0, vocab, (FLASH_B, FLASH_S)))
+    return tokens.to(dev), torch.roll(tokens.to(dev), -1, dims=1)
+
+
+def _moe_tc():
+    from kubeflow_tpu_torch.train import TrainConfig
+
+    return TrainConfig(warmup_steps=2, total_steps=1000)   # 15a's
+
+
+def _vit_tp_batch(torch, dev):
+    import numpy as np
+
+    x, y = _synthetic_images(np, VIT_TP_B, 224)
+    return (torch.from_numpy(x).to(dev), torch.from_numpy(y[:, None]).to(dev),
+            torch.ones((VIT_TP_B, 1), device=dev))
+
+
+def _timed_steps(torch, trainer, state, batch, steps):
+    """`steps` steps -> (state, losses, step seconds, staged collectives,
+    launches)."""
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.parallel import comm
+
+    comm.reset_staged()
+    reset_launch_counts()
+    losses, step_s = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = trainer.step(state, *batch)
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+    return state, {"losses": losses, "step_s": step_s,
+                   "staged": dict(comm.staged), "counts": launch_counts()}
+
+
+def _dist_recipes(torch, world):
+    """17g on each rank of (tensor world): (a) llama3-1b at full width,
+    FSDP_LAYERS layers, under Adafactor, then AdamW at grad_accum
+    RECIPE_ACC; (b) Mixtral-8x7B's widths at the depth and on the routes
+    of the parent's one-device yardstick (MOE_YARDSTICK; 15a's batch,
+    seed and config), with the choices the ranks would have made apart
+    and their router gaps; (c) ViT-B/16 at full width and depth;
+    RECIPE_STEPS steps each."""
+    from kubeflow_tpu_torch.models import llama, llama_moe, vit
+    from kubeflow_tpu_torch.parallel import MeshSpec, create_mesh, moe
+    from kubeflow_tpu_torch.train import Trainer
+
+    dev = torch.device("cuda")
+    mesh = create_mesh(MeshSpec(data=1, fsdp=1, tensor=world),
+                       device_type="cuda")
+    out = {}
+
+    def tidy():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    cfg = _fsdp_cfg(torch)
+    batch = _llama1b_batch(torch, dev, 17)
+    for key, tc in (("g_ada", _ada_tc()),
+                    ("g_acc", dataclasses.replace(_dist_tc(),
+                                                  grad_accum=RECIPE_ACC))):
+        trainer = Trainer(lambda p, t: llama.apply(p, cfg, t),
+                          lambda s: llama.init(cfg, s, dev, train=True), tc,
+                          device=dev, mesh=mesh,
+                          logical_axes=llama.param_logical_axes(cfg),
+                          model_config=cfg)
+        state, res = _timed_steps(torch, trainer, trainer.init(0), batch,
+                                  RECIPE_STEPS)
+        if key == "g_ada":
+            names = [n for n, _ in trainer.optimizer.trained(state.params)]
+            opt = trainer.gather_opt_state(state)
+            res["v_row"] = tuple(opt["v_row"][names.index("blocks.wq")]
+                                 .shape)
+            res["opt_bytes"] = trainer.opt_state_bytes()
+        out[key] = res
+        del trainer, state
+        tidy()
+
+    yard = torch.load(MOE_YARDSTICK, weights_only=False)
+    mcfg = dataclasses.replace(llama_moe.MIXTRAL_8X7B,
+                               num_layers=yard["layers"])
+    trainer = Trainer(lambda p, t: llama_moe.apply(p, mcfg, t)[0], None,
+                      _moe_tc(), loss_fn=llama_moe.loss_fn(mcfg), device=dev,
+                      mesh=mesh, logical_axes=llama_moe.param_logical_axes(
+                          mcfg), model_config=mcfg)
+    t0 = time.perf_counter()
+    # drawn on the card a layer at a time, as 15a draws them, held on the
+    # host until each rank keeps its experts
+    state = trainer.init_from_params(llama_moe.init(mcfg, 0, dev, train=True,
+                                                    store="cpu"))
+    init_s = time.perf_counter() - t0
+    router = state.params["blocks"]["router"].detach().clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    calls, top_k = [], moe._top_k
+    moe._top_k = _route_probe(torch, calls,
+                              [r.to(dev) for r in yard["routes"]])
+    try:
+        state, res = _timed_steps(torch, trainer, state, _moe_batch(
+            torch, dev, mcfg.vocab_size), RECIPE_STEPS)
+    finally:
+        moe._top_k = top_k
+    # each step's natural choices that differ from the forced ones, by
+    # router gap (2 L routings a step: the forward and remat's rerun)
+    gaps = [[] for _ in range(RECIPE_STEPS)]
+    for i, ((idx, gap), forced) in enumerate(zip(calls, yard["routes"],
+                                                 strict=True)):
+        moved = (idx.cpu() != forced).any(-1)
+        gaps[i // (2 * mcfg.num_layers)] += gap[moved.to(dev)].tolist()
+    res.update(peak=torch.cuda.max_memory_allocated(), layers=mcfg.num_layers,
+               flip_gaps=gaps, calls=len(calls), init_s=init_s,
+               w_gate=tuple(state.params["blocks"]["w_gate"].shape),
+               router_moved=float((state.params["blocks"]["router"]
+                                   - router).abs().max()))
+    out["g_moe"] = res
+    del trainer, state, router
+    tidy()
+
+    vcfg = vit.VIT_B16
+    trainer = Trainer(vit.apply_fn(vcfg), lambda s: vit.init(vcfg, s, dev),
+                      _dist_tc(), device=dev, mesh=mesh,
+                      logical_axes=vit.param_logical_axes(vcfg),
+                      model_config=vcfg)
+    state, res = _timed_steps(torch, trainer, trainer.init(0),
+                              _vit_tp_batch(torch, dev), RECIPE_STEPS)
+    res.update(wq=tuple(state.params["blocks"]["wq"].shape),
+               head=tuple(state.params["head_w"].shape))
+    out["g_vit"] = res
+    del trainer, state
+    tidy()
     return out
 
 
@@ -8215,6 +8415,200 @@ def _tensor_checks(train, one_losses, one_peak, gemma_losses) -> None:
                  "whole")
 
 
+def _one_device_recipes(torch, dev) -> dict:
+    """17g's one-device yardsticks, before the gang: llama3-1b at 17c's
+    depth under Adafactor (wq's v_row shape, its losses) and ViT-B/16
+    (losses), RECIPE_STEPS steps on the ranks' batches and seeds."""
+    from kubeflow_tpu_torch.models import llama, vit
+    from kubeflow_tpu_torch.train import Trainer
+
+    cfg = _fsdp_cfg(torch)
+    one = Trainer(lambda p, t: llama.apply(p, cfg, t),
+                  lambda s: llama.init(cfg, s, dev, train=True), _ada_tc(),
+                  device=dev)
+    state = one.init(0)
+    batch = _llama1b_batch(torch, dev, 17)
+    ada = [float(one.step(state, *batch)[1]) for _ in range(RECIPE_STEPS)]
+    names = [n for n, _ in one.optimizer.trained(state.params)]
+    v_row = tuple(state.opt_state["v_row"][names.index("blocks.wq")].shape)
+    del one, state
+    vcfg = vit.VIT_B16
+    one = Trainer(vit.apply_fn(vcfg), lambda s: vit.init(vcfg, s, dev),
+                  _dist_tc(), device=dev)
+    state = one.init(0)
+    batch = _vit_tp_batch(torch, dev)
+    vit_losses = [float(one.step(state, *batch)[1])
+                  for _ in range(RECIPE_STEPS)]
+    del one, state, batch
+    gc.collect()
+    return {"ada": ada, "v_row": v_row, "vit": vit_losses}
+
+
+def _mixtral_yardstick(torch) -> dict:
+    """17g-b's one-device yardstick, before the gang, at the depth the
+    card's free memory holds for the two ranks together (as 15a reckons
+    one device): 15a's run where it ran at that depth, else 15a's
+    training run (batch, seed, config) at that depth here. Its first
+    RECIPE_STEPS losses, its peak over them and its routes, which it
+    writes to MOE_YARDSTICK with the depth for the ranks to force (a bf16
+    near-tie may route a token elsewhere on one side: a jump, not a
+    rounding)."""
+    from kubeflow_tpu_torch.models import llama_moe
+    from kubeflow_tpu_torch.parallel import moe
+    from kubeflow_tpu_torch.train import Trainer
+
+    dev = torch.device("cuda")
+    free = torch.cuda.mem_get_info()[0]
+    free += torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+    cfg, _, _ = _moe_train_depth(llama_moe.MIXTRAL_8X7B, free)
+    seen = MEASURED.get("moe_train")
+    if seen and seen["layers"] == cfg.num_layers:
+        want = {"losses": seen["losses"], "peak": seen["peak"],
+                "routes": seen["routes"], "source": "phase 15a's run"}
+    else:
+        trainer = Trainer(lambda p, t: llama_moe.apply(p, cfg, t)[0], None,
+                          _moe_tc(), loss_fn=llama_moe.loss_fn(cfg),
+                          device=dev)
+        state = trainer.init_from_params(llama_moe.init(cfg, 0, dev,
+                                                        train=True))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        batch = _moe_batch(torch, dev, cfg.vocab_size)
+        calls, top_k = [], moe._top_k
+        moe._top_k = _route_probe(torch, calls)
+        try:
+            losses = [float(trainer.step(state, *batch)[1])
+                      for _ in range(RECIPE_STEPS)]
+        finally:
+            moe._top_k = top_k
+        want = {"losses": losses, "peak": torch.cuda.max_memory_allocated(),
+                "routes": [idx.cpu() for idx, _ in calls],
+                "source": "a one-device run in this phase"}
+        del trainer, state, batch, calls
+        gc.collect()
+        torch.cuda.empty_cache()
+    os.makedirs(DIST_DIR, exist_ok=True)
+    torch.save({"layers": cfg.num_layers, "routes": want["routes"]},
+               MOE_YARDSTICK)
+    return dict(want, layers=cfg.num_layers, free=free)
+
+
+def _recipe_checks(torch, train, one_losses, one) -> dict:
+    """17g: the recipes at tensor 2 against their one-device runs (the
+    accumulation against 17f's full-batch run too), and their launches
+    against the design. -> the flash launches (Mixtral's under its
+    suffix)."""
+    L = FSDP_LAYERS
+    ranks = len(train)
+
+    def design(layers, micro):
+        return {"flash_attention_fwd": ranks * micro * layers * 2
+                * RECIPE_STEPS,
+                "flash_attention_dq": ranks * micro * layers * RECIPE_STEPS,
+                "flash_attention_dkv": ranks * micro * layers * RECIPE_STEPS}
+
+    def report(key, label, want_losses, tol, want_counts):
+        t = train[0][key]
+        errs = [abs(a - b) / abs(b) for a, b in zip(t["losses"],
+                                                   want_losses)]
+        per_step = [max(r[key]["step_s"][i] for r in train)
+                    for i in range(RECIPE_STEPS)]
+        st = max(r[key]["staged"]["seconds"] for r in train)
+        gib = sum(r[key]["staged"]["bytes"] for r in train) / 2**30
+        got = {k: n for k, n in _sum_counts(train, key).items()
+               if k.startswith("flash")}
+        log(f"  17g {label}, mesh (data 1, fsdp 1, tensor 2), "
+            f"{RECIPE_STEPS} steps: losses {t['losses']} vs one device "
+            f"{want_losses} (rel err {max(errs):.2e}, tol {tol}); step "
+            f"{[round(x, 3) for x in per_step]} s (slowest rank), of which "
+            f"host-staged collectives {st:.3f} s over the steps on the "
+            f"slowest rank ({gib:.2f} GiB through the host); flash launches "
+            f"{got} (design {want_counts})")
+        if max(errs) > tol or any(x != x for x in t["losses"]):
+            fail(f"17g {label}: tensor-parallel losses differ from one "
+                 "device's")
+        if {k: n for k, n in got.items() if n} != {
+                k: n for k, n in want_counts.items() if n}:
+            fail(f"17g {label}: flash launches {got}, the design implies "
+                 f"{want_counts}")
+        return got
+
+    counts: dict = {}
+    ada = train[0]["g_ada"]
+    got = report("g_ada", f"(a) llama3-1b at full width, {L} of 16 layers, "
+                 "Adafactor", one["ada"], RECIPE_LOSS_TOL, design(L, 1))
+    log(f"  17g (a) Adafactor: wq's gathered v_row {ada['v_row']} vs one "
+        f"device's {one['v_row']}; optimizer state a rank "
+        f"{ada['opt_bytes']} B")
+    if ada["v_row"] != one["v_row"]:
+        fail(f"17g (a): wq's v_row gathered as {ada['v_row']}, one device "
+             f"holds {one['v_row']}")
+    for k, n in got.items():
+        counts[k] = counts.get(k, 0) + n
+    label = (f"(a) llama3-1b, AdamW at grad_accum {RECIPE_ACC} "
+             f"(micro-batches of 1 x {FLASH_S})")
+    got = report("g_acc", label + ", against 17f's full-batch steps on the "
+                 "same mesh", train[0]["tp"]["losses"][:RECIPE_STEPS],
+                 RECIPE_LOSS_TOL, design(L, RECIPE_ACC))
+    acc = train[0]["g_acc"]["losses"]
+    err = max(abs(a - b) / abs(b) for a, b in zip(acc, one_losses))
+    log(f"  17g {label} against one device {one_losses[:RECIPE_STEPS]}: "
+        f"rel err {err:.2e} (tol {TRAIN_LOSS_TOL}, 17f's)")
+    if err > TRAIN_LOSS_TOL:
+        fail(f"17g {label}: losses differ from one device's")
+    for k, n in got.items():
+        counts[k] = counts.get(k, 0) + n
+
+    m = train[0]["g_moe"]
+    want = one["moe"]
+    layers = want["layers"]
+    peak = max(r["g_moe"]["peak"] for r in train)
+    got = report("g_moe", f"(b) Mixtral-8x7B's widths, {layers} of 32 layers "
+                 f"(the depth the card's {want['free'] / 2**30:.1f} GiB free "
+                 f"holds for both ranks), on the routes of the yardstick, "
+                 f"{want['source']}", want["losses"], TRAIN_LOSS_TOL,
+                 design(layers, 1))
+    steps = [[g for r in train for g in r["g_moe"]["flip_gaps"][i]]
+             for i in range(RECIPE_STEPS)]
+    # a token's routing at a layer, each rank, the forward and remat's rerun
+    moved = len(steps[0]) / (ranks * 2 * layers * FLASH_B * FLASH_S)
+    log(f"  17g (b) w_gate held as {m['w_gate']}; the router moved by "
+        f"{m['router_moved']:.3e}; peak {peak / 2**30:.3f} GiB a rank vs "
+        f"one device's {want['peak'] / 2**30:.3f} GiB; the init drew and "
+        f"cut the params in {m['init_s']:.1f} s; choices the ranks would "
+        f"have routed elsewhere, a step (2 x {layers} routings of "
+        f"{FLASH_B * FLASH_S} tokens a rank): {[len(g) for g in steps]} at "
+        f"router gaps up to {[round(max(g, default=0.0), 6) for g in steps]}"
+        f" (at the initial weights a share {moved:.2e} of the routings, "
+        f"at most MOE_EXCUSE_MAX {MOE_EXCUSE_MAX}; later the weights "
+        f"differ by the steps' rounding)")
+    if moved > MOE_EXCUSE_MAX:
+        fail(f"17g (b): at the initial weights the ranks route a share "
+             f"{moved:.2e} of the tokens elsewhere than one device, more "
+             f"than rounding moves (MOE_EXCUSE_MAX {MOE_EXCUSE_MAX})")
+    if m["calls"] != 2 * layers * RECIPE_STEPS:
+        fail(f"17g (b): {m['calls']} routings, the design implies "
+             f"{2 * layers * RECIPE_STEPS} (forward and remat a layer)")
+    if m["w_gate"] != (layers, 4, 4096, 14336):
+        fail(f"17g (b): w_gate held as {m['w_gate']}")
+    if not m["router_moved"] > 0:
+        fail("17g (b): the router did not move")
+    if peak >= want["peak"]:
+        fail(f"17g (b): a rank's peak {peak} B is not below one device's "
+             f"{want['peak']} B")
+    for k, n in got.items():
+        counts[k + MIXTRAL_SUFFIX] = counts.get(k + MIXTRAL_SUFFIX, 0) + n
+
+    v = train[0]["g_vit"]
+    report("g_vit", f"(c) ViT-B/16, batch {VIT_TP_B}, 6 heads and 500 "
+           "classes a rank (the plain attention at hd 64)", one["vit"],
+           TRAIN_LOSS_TOL, {})
+    log(f"  17g (c) wq held as {v['wq']}, the head as {v['head']}")
+    if v["wq"] != (12, 768, 384) or v["head"] != (768, 500):
+        fail(f"17g (c): wq held as {v['wq']}, the head as {v['head']}")
+    return counts
+
+
 def distributed_and_check(torch) -> dict:
     """Phase 17: the distributed set on the card, in gangs of worker
     processes on cuda:0. -> the flash kernels' launches over the
@@ -8268,6 +8662,11 @@ def distributed_and_check(torch) -> dict:
                     for _ in range(TP_GEMMA_STEPS)]
     del gone, state
     gc.collect()
+    one_recipes = _one_device_recipes(torch, dev)
+    # the NCCL rank's memory is back before 17g-b reckons its depth from
+    # the card's free memory
+    nccl, nccl_s = _wait_gang(torch, nccl_started)
+    one_recipes["moe"] = _mixtral_yardstick(torch)
     fsdp_cfg, cfg = cfg, llama.LLAMA3_1B
     params = llama.init(cfg, 0, dev, train=True)
     ptoks, ptgts = _pp_batch(torch, dev)
@@ -8341,6 +8740,7 @@ def distributed_and_check(torch) -> dict:
     if any(fl.get(k) != n for k, n in want.items()):
         fail(f"17c: flash launches {fl}, the design implies {want}")
     _tensor_checks(train, one_losses, one_peak, gemma_losses)
+    recipe_counts = _recipe_checks(torch, train, one_losses, one_recipes)
     p = train[0]["pp"]
     per = cfg.num_layers // 2
     ticks = PP_MICRO + 2 - 1
@@ -8379,8 +8779,9 @@ def distributed_and_check(torch) -> dict:
                          ("tp_gemma", GEMMA)):
         for k, n in _sum_counts(train, name).items():
             counts[k + suffix] = counts.get(k + suffix, 0) + n
+    for k, n in recipe_counts.items():
+        counts[k] = counts.get(k, 0) + n
 
-    nccl, nccl_s = _wait_gang(torch, nccl_started)
     n = nccl[0]
     nerr = abs(n["loss"] - one_losses[0]) / abs(one_losses[0])
     log(f"  one-rank NCCL group ({n['backend']}): ring flash launches "
@@ -9120,7 +9521,7 @@ def main() -> None:
         stats.update({name + MIXTRAL_SUFFIX: st for name, st in
                       check_flash(torch, dev, MIXTRAL).items()})
         log("phase 2, tensor 2: the flash kernels at a rank's heads under "
-            "tensor parallelism (phase 17f's shapes)")
+            "tensor parallelism (phases 17f's and 17g's shapes)")
         check_flash_tp(torch, dev)
         log("phase 2, int8_proj: the int8-weight projection at llama3-8b's "
             "and llama3-1b's projection shapes")
@@ -9288,7 +9689,8 @@ def main() -> None:
     if run("17"):
         tidy()
         log("phase 17: the distributed set (ring and Ulysses over the "
-            "flash kernels, FSDP, the pipeline, expert parallelism)")
+            "flash kernels, FSDP, the pipeline, expert parallelism, "
+            "tensor parallelism and the mesh trainer's recipes)")
         add(distributed_and_check(torch))
         tidy()
 

@@ -28,7 +28,17 @@ is unbound once, so the backward stacks its layers' gradients once
 rank-major, so logits are causal only while capacity holds; serving
 routes with capacity_factor E / k, where nothing can drop
 (serving/engine.py's `_moe_serving_mlp`). `loss_fn` is the trainer's:
-dense CE plus `aux_loss_weight` times the layers' mean aux loss.
+dense CE plus `aux_loss_weight` times the layers' mean aux loss, the
+latter a `global_term` (under the mesh trainer every rank routes its
+rows as part of the global batch and computes the global aux loss,
+which enters the loss once).
+
+Under tensor parallelism (parallel/tensor.py) the attention half is
+llama's, the expert stacks are the rank's E / t experts (parallel/
+moe.py's `moe_mlp` sums their outputs over the axis), and the head's
+logits are the rank's vocab block; each block is bound to the tensor
+group and the routing's batch group, which a backward rerun on
+autograd's device thread does not see otherwise.
 """
 
 from __future__ import annotations
@@ -48,6 +58,7 @@ from kubeflow_tpu_torch.ops.embedding import embed_lookup
 from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rotary import rope_frequencies
 from kubeflow_tpu_torch.parallel import moe as moe_lib
+from kubeflow_tpu_torch.parallel import tensor
 from kubeflow_tpu_torch.parallel.sharding import read_layer
 
 EXPERT_STACKS = ("w_gate", "w_up", "w_down")
@@ -176,7 +187,8 @@ def _block(cfg: MoELlamaConfig, x, p, positions, inv_freq):
 
 def apply(params: Params, cfg: MoELlamaConfig,
           tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Forward -> (logits [b, s, vocab] fp32, mean aux loss [])."""
+    """Forward -> (logits [b, s, vocab] fp32, mean aux loss []); under
+    tensor parallelism the rank's vocab block of the logits."""
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
@@ -186,26 +198,30 @@ def apply(params: Params, cfg: MoELlamaConfig,
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
     remat = cfg.remat and torch.is_grad_enabled()
+    block = tensor.bind(moe_lib.bind(_block))
     for li in range(cfg.num_layers):
         p = {k: v[li] for k, v in layers.items()}
         args = (cfg, x, p, positions, inv_freq)
-        x, a = (checkpoint(_block, *args, use_reentrant=False) if remat
-                else _block(*args))
+        x, a = (checkpoint(block, *args, use_reentrant=False) if remat
+                else block(*args))
         aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x.float() @ params["lm_head"].float()
+    logits = tensor.enter(x.float()) @ params["lm_head"].float()
     return logits, aux / cfg.num_layers
 
 
 def loss_fn(cfg: MoELlamaConfig):
     """Trainer-shaped loss: next-token CE plus the weighted load-balance
-    aux loss."""
+    aux loss (a `global_term`: once in the mesh trainer's global loss)."""
 
-    from kubeflow_tpu_torch.train.trainer import cross_entropy_loss
+    from kubeflow_tpu_torch.train.trainer import (
+        cross_entropy_loss,
+        global_term,
+    )
 
     def loss(params, tokens, targets, mask):
         logits, aux = apply(params, cfg, tokens)
         return (cross_entropy_loss(logits, targets, mask)
-                + cfg.aux_loss_weight * aux)
+                + global_term(cfg.aux_loss_weight * aux))
 
     return loss

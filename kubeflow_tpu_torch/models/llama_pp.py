@@ -11,10 +11,14 @@ pipeline's backward already reruns each active tick's stage
 inside it.
 
 `PipelineTrainer` steps this forward with the trainer's optimizer chain
-(warmup-cosine AdamW after the global-norm clip) on a (stage, data)
-mesh: each rank holds its stage's blocks (the contiguous stage-major
-split) and the embedding, norm and head alike, and its moments mirror
-that; the batch splits over the data axis. Per-rank flash launches of
+(warmup-cosine AdamW or Adafactor after the global-norm clip,
+`trainer.make_optimizer`) on a (stage, data) mesh: each rank holds its
+stage's blocks (the contiguous stage-major split) and the embedding,
+norm and head alike, and its moments mirror that; Adafactor's factored
+`v_row` and `v_col`, which mirror no param, are held whole, as the
+reference replicates them, and its means and RMS run over the full
+leaf (a block's `LeafCut` is its stage's cut along the layers); the
+batch splits over the data axis. Per-rank flash launches of
 one step, with M microbatches over S stages and L/S layers a stage: (M
 + S - 1) L/S forward in the forward pass, M L/S forward again and M L/S
 each of dQ and dK/dV in the backward. A mesh with tensor > 1 is
@@ -22,6 +26,8 @@ refused: tensor parallelism runs in the mesh trainer (train/fsdp.py).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -35,7 +41,7 @@ from kubeflow_tpu_torch.parallel import pipeline as pp
 from kubeflow_tpu_torch.parallel.mesh import TENSOR_AXIS
 from kubeflow_tpu_torch.train import trainer as trainer_lib
 from kubeflow_tpu_torch.train.fsdp import _rebuild, sharded_sq_norm
-from kubeflow_tpu_torch.train.trainer import _named_leaves
+from kubeflow_tpu_torch.train.trainer import LeafCut, _named_leaves
 
 
 def split_stages(params: Params, cfg: LlamaConfig, n_stages: int) -> Params:
@@ -124,9 +130,6 @@ class PipelineTrainer:
         if cfg.num_layers % S:
             raise ValueError(f"num_layers={cfg.num_layers} not divisible by "
                              f"{stage_axis}={S}")
-        if train_config.optimizer != "adamw":
-            raise ValueError(f"optimizer {train_config.optimizer!r} is not "
-                             "ported for the pipeline (adamw is)")
         self.cfg = cfg
         self.mesh = mesh
         self.stage_axis = stage_axis
@@ -150,7 +153,19 @@ class PipelineTrainer:
         local["blocks"] = {k: v[idx].clone() for k, v in
                            split_stages(params, self.cfg, S).items()}
         local = trainer_lib._prep(local, self.device)
-        return trainer_lib.TrainState(local, self.optimizer.init(local), 0)
+        return trainer_lib.TrainState(
+            local, self.optimizer.init(local, self._cut), 0)
+
+    def _cut(self, name: str, p: torch.Tensor) -> LeafCut:
+        """A leaf's LeafCut: a stage's blocks are cut along the layers."""
+        if not name.startswith("blocks."):
+            return LeafCut(p.shape)
+        return LeafCut((p.shape[0] * self.stage.size, *p.shape[1:]),
+                       [(0, self.stage)])
+
+    @contextlib.contextmanager
+    def _slot(self, name, p, g):
+        yield p, g, self._cut(name, p)
 
     def _loss(self, params, tokens, targets):
         cfg = self.cfg
@@ -177,7 +192,7 @@ class PipelineTrainer:
         with torch.no_grad():
             self.optimizer.update([comm._psum(g, self.data) for g in grads],
                                   state.opt_state, state.params,
-                                  sq_norm=self._sq_norm)
+                                  sq_norm=self._sq_norm, slot=self._slot)
         state.step += 1
         return state, comm._psum(loss.detach(), self.data)
 

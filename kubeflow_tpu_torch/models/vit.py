@@ -13,6 +13,13 @@ Attention goes through `ops.attention.dot_product_attention(...,
 causal=False)` with "auto": 197 tokens at head dim 64 take the plain
 path, as the reference's "auto" takes XLA below 1024 tokens; the flash
 kernels take only head dims 128 and 256.
+
+Under tensor parallelism (parallel/tensor.py) the head counts come from
+the leaves (wq, wk, wv and their biases cut on whole heads, w1 and b1 on
+the MLP columns, wo and w2 on their rows, the head on the classes):
+`enter` after each layer norm and before the head, `exit` after wo and
+w2, and the residual biases bo and b2 are added after the `exit`, once,
+not inside per-rank work, where the sum would count them t times.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.ops.attention import dot_product_attention
 from kubeflow_tpu_torch.ops.norms import layer_norm
+from kubeflow_tpu_torch.parallel import tensor
 from kubeflow_tpu_torch.parallel.sharding import read_layer
 
 Params = dict[str, Any]
@@ -173,27 +181,28 @@ def patchify(cfg: ViTConfig, images: torch.Tensor) -> torch.Tensor:
 
 def _block(cfg: ViTConfig, x, p):
     p = read_layer(p)
-    b, s, D = x.shape
-    nh, hd = cfg.num_heads, cfg.head_dim
+    b, s, _ = x.shape
+    hd = cfg.head_dim
     dt = cfg.dtype
     pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
 
-    h = layer_norm(x, p["ln1_w"], p["ln1_b"], cfg.norm_eps)
-    q = (h @ p["wq"].to(dt) + p["bq"].to(dt)).reshape(b, s, nh, hd)
-    k = (h @ p["wk"].to(dt) + p["bk"].to(dt)).reshape(b, s, nh, hd)
-    v = (h @ p["wv"].to(dt) + p["bv"].to(dt)).reshape(b, s, nh, hd)
+    h = tensor.enter(layer_norm(x, p["ln1_w"], p["ln1_b"], cfg.norm_eps))
+    q = (h @ p["wq"].to(dt) + p["bq"].to(dt)).reshape(b, s, -1, hd)
+    k = (h @ p["wk"].to(dt) + p["bk"].to(dt)).reshape(b, s, -1, hd)
+    v = (h @ p["wv"].to(dt) + p["bv"].to(dt)).reshape(b, s, -1, hd)
     attn = dot_product_attention(q, k, v, pos, pos, causal=False)
-    attn = attn.reshape(b, s, D)
-    x = x + attn @ p["wo"].to(dt) + p["bo"].to(dt)
+    attn = attn.reshape(b, s, -1)
+    x = x + tensor.exit(attn @ p["wo"].to(dt)) + p["bo"].to(dt)
 
-    h = layer_norm(x, p["ln2_w"], p["ln2_b"], cfg.norm_eps)
+    h = tensor.enter(layer_norm(x, p["ln2_w"], p["ln2_b"], cfg.norm_eps))
     h = F.gelu(h @ p["w1"].to(dt) + p["b1"].to(dt), approximate="tanh")
-    return x + h @ p["w2"].to(dt) + p["b2"].to(dt)
+    return x + tensor.exit(h @ p["w2"].to(dt)) + p["b2"].to(dt)
 
 
 def apply(params: Params, cfg: ViTConfig, images: torch.Tensor
           ) -> torch.Tensor:
-    """[b, H, W, C] float images -> logits [b, num_classes] fp32."""
+    """[b, H, W, C] float images -> logits [b, num_classes] fp32; under
+    tensor parallelism the rank's block of the classes."""
     dt = cfg.dtype
     x = patchify(cfg, images).to(dt)
     x = x @ params["patch_embed"].to(dt) + params["patch_bias"].to(dt)
@@ -208,15 +217,16 @@ def apply(params: Params, cfg: ViTConfig, images: torch.Tensor
     # gradient per layer and sum them
     layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
     remat = cfg.remat and torch.is_grad_enabled()
+    block = tensor.bind(_block)
     for li in range(cfg.num_layers):
         p = {k: v[li] for k, v in layers.items()}
-        x = (checkpoint(_block, cfg, x, p, use_reentrant=False) if remat
-             else _block(cfg, x, p))
+        x = (checkpoint(block, cfg, x, p, use_reentrant=False) if remat
+             else block(cfg, x, p))
 
     x = layer_norm(x, params["final_ln_w"], params["final_ln_b"],
                    cfg.norm_eps)
     pooled = x[:, 0] if cfg.use_cls_token else x.mean(dim=1)
-    return (pooled.float() @ params["head_w"].float()
+    return (tensor.enter(pooled.float()) @ params["head_w"].float()
             + params["head_b"].float())
 
 

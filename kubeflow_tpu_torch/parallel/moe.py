@@ -58,17 +58,42 @@ axis (`pmean`) before their product, so the aux loss, and its router
 gradient, are the global batch's. `moe_mlp_sharded` takes the global
 batch every rank holds alike, splits it over the batch axes and the
 experts over the expert axis, and returns the global output.
+
+Under the mesh trainer (train/fsdp.py) `moe_mlp` routes the rank's rows
+as its slice of the global batch, as the reference's GSPMD `moe_mlp`
+sees the whole batch (`global_batch(group)`, which the trainer sets over
+its batch axes as `tensor.parallel` sets the tensor group): the capacity
+comes from the global token count; a choice's slot counts, for its
+expert, every choice of an earlier choice rank over all batch ranks,
+then the earlier batch ranks' choices of its own choice rank, then its
+own rank's earlier tokens (rows are rank-major over the batch axes,
+outer first, as `MeshLayout.local_rows` cuts them), so the slots are
+the global (k, T) priority's, from one all-gather of the [k, E] counts a
+layer; and `frac` and `mean_prob` are averaged over the batch ranks
+before their product (`pmean`), so the aux loss is the global batch's,
+the same on every rank (the trainer adds it to the loss once). Under
+tensor parallelism (parallel/tensor.py) the rank holds E / t experts
+(the stacks cut on "experts"): every tensor rank routes alike on the
+invariant input, runs its experts on their global capacity slots, and
+`exit` sums the ranks' outputs; the input and the gate values `enter`
+per-rank work, so their gradients are summed over "tensor" and the
+router's comes out whole on every tensor rank.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 
 import torch
 
-from kubeflow_tpu_torch.parallel import comm
+from kubeflow_tpu_torch.parallel import comm, tensor
 from kubeflow_tpu_torch.parallel import mesh as mesh_lib
+
+_BATCH: contextvars.ContextVar = contextvars.ContextVar("moe_batch",
+                                                       default=None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,18 +144,75 @@ def _top_k(probs: torch.Tensor, k: int):
     return torch.topk(probs, k, dim=-1)
 
 
-def _assign(router_logits: torch.Tensor, cfg: MoEConfig, capacity: int):
-    """Top-k routing with capacity, in index form. logits [T, E].
-    -> (gate values [T, k] fp32, experts [T, k], slots [T, k], kept
-    [T, k] bool, frac [E], mean_prob [E])."""
+@contextlib.contextmanager
+def global_batch(group: comm.AxisGroup | None, *, padded: bool = False):
+    """`moe_mlp` inside routes the rank's rows as its slice of the batch
+    split over `group` (None, or a group of one rank: the rows are the
+    whole batch). `padded`: the rows include padding (a micro-batch the
+    ranks do not divide), which a routing would count: `moe_mlp` refuses
+    it."""
+    token = _BATCH.set((group, padded) if group is not None
+                       and group.size > 1 else None)
+    try:
+        yield
+    finally:
+        _BATCH.reset(token)
+
+
+def bind(fn):
+    """fn run under the batch context current now, wherever it is called
+    (a checkpointed block that the backward reruns on autograd's device
+    thread, as `tensor.bind`)."""
+    batch = _BATCH.get()
+    if batch is None:
+        return fn
+
+    def run(*args, **kwargs):
+        token = _BATCH.set(batch)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _BATCH.reset(token)
+
+    return run
+
+
+def _batch_group() -> comm.AxisGroup | None:
+    batch = _BATCH.get()
+    if batch is None:
+        return None
+    group, padded = batch
+    if padded:
+        raise ValueError(
+            "MoE routing on a micro-batch the batch ranks do not divide is "
+            "refused: its padding rows would take capacity slots (make "
+            "batch / grad_accum a multiple of the batch ranks)")
+    return group
+
+
+def _assign(router_logits: torch.Tensor, cfg: MoEConfig, capacity: int,
+            group: comm.AxisGroup | None = None):
+    """Top-k routing with capacity, in index form. logits [T, E], the
+    rank's slice of the batch split over `group` (None: the whole
+    batch). -> (gate values [T, k] fp32, experts [T, k], slots [T, k],
+    kept [T, k] bool, frac [E], mean_prob [E]); frac and mean_prob are
+    the rank's own."""
     T, E = router_logits.shape
     probs = torch.softmax(router_logits.float(), dim=-1)
     gate_vals, gate_idx = _top_k(probs, cfg.top_k)
     # one-hot by comparison: F.one_hot checks its range on the host
     onehot = (gate_idx[..., None] == torch.arange(
         E, device=gate_idx.device)).long()                     # [T, k, E]
-    prio = onehot.transpose(0, 1).reshape(cfg.top_k * T, E)
-    pos = (torch.cumsum(prio, 0) - prio).reshape(cfg.top_k, T, E)
+    per_rank = onehot.transpose(0, 1)                          # [k, T, E]
+    counts = per_rank.sum(1, keepdim=True)                     # [k, 1, E]
+    every = (counts[None] if group is None
+             else comm._all_gather(counts[None], 0, group))    # [n, k, 1, E]
+    total = every.sum(0)
+    # earlier choice ranks over every batch rank, then the earlier batch
+    # ranks at the same choice rank, then this rank's earlier tokens
+    pos = (torch.cumsum(total, 0) - total
+           + every[:0 if group is None else group.index].sum(0)
+           + torch.cumsum(per_rank, 1) - per_rank)             # [k, T, E]
     slot = (pos.transpose(0, 1) * onehot).sum(-1)              # [T, k]
     keep = slot < capacity
     frac = onehot.sum(1).float().mean(0)
@@ -169,15 +251,21 @@ def _expert_ffn(params, x_ecd: torch.Tensor) -> torch.Tensor:
     return torch.bmm(act, params["w_down"])
 
 
-def _dispatch(xt, logits, cfg: MoEConfig, capacity: int):
-    """Route [T, d] tokens into an [E * C, d] slot buffer. -> (slots,
-    rows [T * k] each choice's slot row (E * C for a dropped one), gate
-    weights [T, k] fp32 (0 where dropped), frac, mean_prob)."""
-    E, k = cfg.num_experts, cfg.top_k
+def _dispatch(xt, logits, cfg: MoEConfig, capacity: int, group=None,
+              first: int = 0, experts: int | None = None):
+    """Route [T, d] tokens into an [n * C, d] slot buffer of the n
+    `experts` from `first` (default: all E). -> (slots, rows [T * k] each
+    choice's slot row (n * C for a dropped choice or another rank's
+    expert), gate weights [T, k] fp32 (0 where dropped), frac,
+    mean_prob)."""
+    k = cfg.top_k
+    n = cfg.num_experts if experts is None else experts
     gate_vals, gate_idx, slot, keep, frac, mean_prob = _assign(
-        logits, cfg, capacity)
-    trash = E * capacity
-    row = torch.where(keep, gate_idx * capacity + slot, trash).reshape(-1)
+        logits, cfg, capacity, group)
+    trash = n * capacity
+    mine = keep & (gate_idx >= first) & (gate_idx < first + n)
+    row = torch.where(mine, (gate_idx - first) * capacity + slot,
+                      trash).reshape(-1)
     xe = xt.new_zeros((trash + 1, xt.shape[1]))
     xe[row] = xt.repeat_interleave(k, 0)   # only the trash row repeats
     w = torch.where(keep, gate_vals, 0.0)
@@ -185,28 +273,42 @@ def _dispatch(xt, logits, cfg: MoEConfig, capacity: int):
 
 
 def _combine(ye, row, w, T, k, dtype):
-    """Each token's k slot rows of ye [E * C, d], weighted by its gate
-    values rounded to the activation dtype, summed in fp32."""
+    """Each token's k slot rows of ye [n * C, d], weighted by its gate
+    values rounded to the activation dtype, summed in fp32 (a row of
+    another rank's expert reads the zero row); rounded to `dtype` (None:
+    kept in fp32)."""
     ye = torch.cat([ye, ye.new_zeros((1, ye.shape[1]))])
     w = w.to(ye.dtype).float()
     y = (ye[row].view(T, k, -1).float() * w[..., None]).sum(1)
-    return y.to(dtype)
+    return y if dtype is None else y.to(dtype)
 
 
 def moe_mlp(params: dict[str, torch.Tensor], x: torch.Tensor,
             cfg: MoEConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """The routed layer on x [b, s, d] -> (output [b, s, d] in x's dtype,
     aux loss []). `params` (router [d, E], w_gate / w_up [E, d, M],
-    w_down [E, M, d]) are in the activation dtype."""
+    w_down [E, M, d]) are in the activation dtype; under tensor
+    parallelism the stacks are the rank's E / t experts. Inside
+    `global_batch` x is the rank's rows of the global batch."""
     b, s, d = x.shape
-    T, E = b * s, cfg.num_experts
+    T = b * s
+    group = _batch_group()
+    capacity = cfg.capacity(T * (1 if group is None else group.size))
     xt = x.reshape(T, d)
-    capacity = cfg.capacity(T)
     logits = xt.float() @ params["router"].float()
-    xe, row, w, frac, mean_prob = _dispatch(xt, logits, cfg, capacity)
-    ye = _expert_ffn(params, xe.view(E, capacity, d))
-    y = _combine(ye.reshape(E * capacity, d), row, w, T, cfg.top_k, x.dtype)
-    return y.reshape(b, s, d), _aux_loss(frac, mean_prob)
+    n = params["w_gate"].shape[0]
+    tg = tensor.group()
+    first = 0 if tg is None or n == cfg.num_experts else tg.index * n
+    xe, row, w, frac, mean_prob = _dispatch(tensor.enter(xt), logits, cfg,
+                                            capacity, group, first, n)
+    ye = _expert_ffn(params, xe.view(n, capacity, d))
+    y = _combine(ye.reshape(n * capacity, d), row, tensor.enter(w), T,
+                 cfg.top_k, None)
+    if group is not None:
+        frac = comm.pmean(frac, group)
+        mean_prob = comm.pmean(mean_prob, group)
+    return (tensor.exit(y).to(x.dtype).reshape(b, s, d),
+            _aux_loss(frac, mean_prob))
 
 
 def moe_mlp_expert_parallel(

@@ -12,7 +12,8 @@ XLA inserts the all-reduces. The port's collectives are explicit
 - every rank holds its block of the leaves cut on "tensor": wq, wk, wv,
   w_gate and w_up by output columns, wo and w_down by input rows, the
   embedding and lm_head by vocab (train/fsdp.py lays them out), always
-  on whole heads;
+  on whole heads; the MoE family's expert stacks by experts
+  (parallel/moe.py), ViT's head by classes;
 - `enter` (pvary) where the invariant residual enters per-rank work:
   after `attn_norm` and `mlp_norm`, and the final hidden before the
   head; `exit` (psum) after the row-parallel wo and w_down products;
@@ -140,7 +141,10 @@ def kv_held_whole(num_heads: int, num_kv_heads: int, size: int) -> bool:
 def read_in_rank_work(logical_axes: tuple) -> bool:
     """Whether a leaf held whole on every tensor rank is read inside
     per-rank work, so that each rank's gradient of it is partial and the
-    trainer sums it over the axis: every such leaf but a vector over
-    the residual width (the norm scales, read on the invariant residual
-    before `enter`, whose gradients come out whole)."""
-    return not set(logical_axes) <= {"layers", "embed"}
+    trainer sums it over the axis: every such leaf but those over the
+    residual width and unnamed dims alone, which the models read on the
+    invariant side of `enter` and `exit`, so that their gradients come
+    out whole (the norm scales; ViT's patch and position embeddings, CLS
+    token and the biases added after `exit`; the MoE router, whose gate
+    values `enter` per-rank work)."""
+    return not set(logical_axes) <= {"layers", "embed", None}

@@ -35,6 +35,16 @@ explicit, parallel/comm.py's).
   each moment covering the rank's slice of its block, split further
   over "data" as the reference's `zero_extend_spec` splits it (`slot`:
   the rank updates its slice and all-gathers the slices over data).
+  The slice's `LeafCut` (every axis it is cut over, ZeRO's data slice
+  included) gives Adafactor the full leaf's factored means and RMS;
+  its `v_row` and `v_col`, which mirror no param, are held as the
+  reference holds them: whole on every rank, or with `zero_optimizer`
+  split over "data" by `zero_extend_spec`.
+- With `grad_accum` > 1 the trainer runs the reference's micro-steps,
+  each micro's global rows cut over the batch ranks (train/trainer.py).
+- A MoE model routes each rank's rows as its slice of the global batch
+  (`parallel()` sets the batch group for parallel/moe.py); its
+  load-balance loss enters the loss once (`trainer.global_term`).
 - With tensor > 1 (Megatron-style tensor parallelism, parallel/
   tensor.py) the leaves whose logical axes map to "tensor" are cut on
   it and never gathered: the blocks compute on their local heads, MLP
@@ -48,9 +58,15 @@ explicit, parallel/comm.py's).
   sums it over "tensor" too; the norm scales, read before the residual
   enters per-rank work, have whole gradients and are not summed. The
   clip's squares of a tensor-cut block are summed over "tensor" as over
-  any axis a block is cut on.
-Refused on a mesh: Adafactor and gradient accumulation; at tensor > 1,
-the MoE family and ViT (and the pipeline, models/llama_pp.py).
+  any axis a block is cut on. The MoE family's expert stacks are cut on
+  "experts" (E / t experts a rank) and ViT's classes on "vocab"; leaves
+  held whole and read on the invariant side (the norm scales, ViT's
+  patch and position embeddings and its residual biases, the MoE
+  router, whose gate values enter per-rank work) are not summed.
+Refused on a mesh: at tensor > 1, a trainer without the model's config,
+head, KV-head, expert or class counts the axis does not divide (and
+the pipeline, models/llama_pp.py); MoE routing on a micro-batch the
+batch ranks do not divide (parallel/moe.py).
 """
 
 from __future__ import annotations
@@ -61,10 +77,10 @@ import math
 
 import torch
 
-from kubeflow_tpu_torch.parallel import comm, tensor
+from kubeflow_tpu_torch.parallel import comm, moe, tensor
 from kubeflow_tpu_torch.parallel import mesh as mesh_lib
 from kubeflow_tpu_torch.parallel import sharding as sharding_lib
-from kubeflow_tpu_torch.train.trainer import _named_leaves
+from kubeflow_tpu_torch.train.trainer import LeafCut, _named_leaves
 
 
 @dataclasses.dataclass
@@ -78,6 +94,7 @@ class LeafLayout:
     per_layer: bool             # a stacked leaf, gathered layer by layer
     zero: tuple | None          # (dim, data AxisGroup) of the ZeRO slice
     grad_group: comm.AxisGroup  # the axes its gradient is summed over
+    cut: LeafCut                # where the moments' slice lies
 
     @property
     def norm_axes(self) -> tuple:
@@ -114,25 +131,33 @@ def sharded_sq_norm(mesh, grads, axes) -> torch.Tensor:
                for a, v in sq.items())
 
 
+def _divides(count: int, what: str, size: int) -> None:
+    if count % size:
+        raise ValueError(f"{what} {count} is not divisible by "
+                         f"tensor={size}: the cut falls on whole {what}")
+
+
 def _tensor_heads(model_config, size: int) -> bool:
     """At tensor `size` > 1: whether the model's KV projections are held
-    whole (`tensor.kv_held_whole`); refuses by name the models whose
-    tensor parallelism is not ported, and a config the cut cannot take."""
+    whole (`tensor.kv_held_whole`); refuses a config the cut cannot take
+    (head, expert or class counts the axis does not divide) and a
+    trainer without one."""
     from kubeflow_tpu_torch.models.gemma import GemmaConfig
     from kubeflow_tpu_torch.models.llama import LlamaConfig
     from kubeflow_tpu_torch.models.llama_moe import MoELlamaConfig
     from kubeflow_tpu_torch.models.vit import ViTConfig
 
-    refused = {MoELlamaConfig: "the MoE family", ViTConfig: "ViT"}
-    for cls, name in refused.items():
-        if isinstance(model_config, cls):
-            raise ValueError(f"tensor parallelism is not ported for {name} "
-                             f"(mesh tensor={size}; llama and gemma are)")
-    if not isinstance(model_config, (LlamaConfig, GemmaConfig)):
+    if isinstance(model_config, ViTConfig):
+        _divides(model_config.num_heads, "num_heads", size)
+        _divides(model_config.num_classes, "num_classes", size)
+        return False
+    if isinstance(model_config, MoELlamaConfig):
+        _divides(model_config.num_experts, "num_experts", size)
+    elif not isinstance(model_config, (LlamaConfig, GemmaConfig)):
         raise ValueError(
             f"a mesh with tensor={size} needs the model's config "
-            f"(model_config=, llama or gemma) for its head counts, got "
-            f"{type(model_config).__name__}")
+            f"(model_config=: llama, gemma, the MoE family or ViT) for its "
+            f"head counts, got {type(model_config).__name__}")
     return tensor.kv_held_whole(model_config.num_heads,
                                 model_config.num_kv_heads, size)
 
@@ -144,11 +169,6 @@ class MeshLayout:
     def __init__(self, mesh, logical_axes, rules, tc, model_config=None):
         size = mesh.shape.get(mesh_lib.TENSOR_AXIS, 1)
         self.kv_whole = size > 1 and _tensor_heads(model_config, size)
-        if tc.optimizer != "adamw":
-            raise ValueError(f"optimizer {tc.optimizer!r} is not ported on "
-                             "a mesh (adamw is)")
-        if tc.grad_accum > 1:
-            raise ValueError("grad_accum > 1 is not ported on a mesh")
         self.mesh = mesh
         self.rules = rules
         self.zero = tc.zero_optimizer
@@ -159,10 +179,32 @@ class MeshLayout:
         self.batch = mesh.axis_group(self.batch_axes)
         self.tensor = mesh.axis_group(mesh_lib.TENSOR_AXIS)
 
-    def parallel(self):
+    @contextlib.contextmanager
+    def parallel(self, padded: bool = False):
         """The context the model runs in: tensor-parallel over the mesh's
-        "tensor" axis (a no-op at tensor 1)."""
-        return tensor.parallel(self.tensor)
+        "tensor" axis, MoE routing over the batch axes' global batch
+        (each a no-op at size 1). `padded`: the rows hold padding, which
+        MoE routing refuses."""
+        with tensor.parallel(self.tensor), moe.global_batch(
+                self.batch, padded=padded):
+            yield
+
+    def _side(self, shape) -> list:
+        """The cuts of a moment that mirrors no param, of full `shape`."""
+        return sharding_lib._dim_groups(self.slot_spec(None, shape),
+                                        self.mesh)
+
+    def slot_spec(self, name: str | None, shape) -> sharding_lib.P:
+        """The spec of a moment of leaf `name`: the leaf's (ZeRO-
+        extended) where it mirrors the leaf (`shape` None), else the
+        reference's for a state leaf that mirrors no param: replicated,
+        split over "data" by `zero_extend_spec` with `zero_optimizer`."""
+        if shape is None:
+            return self.leaves[name].opt_spec
+        if not self.zero:
+            return sharding_lib.P()
+        return sharding_lib.zero_extend_spec(sharding_lib.P(), tuple(shape),
+                                             self.mesh)
 
     def add(self, name: str, shape) -> LeafLayout:
         mesh = self.mesh
@@ -192,7 +234,8 @@ class MeshLayout:
         lay = LeafLayout(
             tuple(shape), spec, opt_spec, gathers,
             axes[0] == "layers" and all(d > 0 for d, _ in gathers), zero,
-            mesh.axis_group(summed))
+            mesh.axis_group(summed),
+            LeafCut(shape, gathers + ([zero] if zero else []), self._side))
         self.leaves[name] = lay
         return lay
 
@@ -272,40 +315,52 @@ class MeshLayout:
         dim, group = zero
         return p.chunk(group.size, dim)[group.index]
 
-    def shard_slot(self, name: str, full: torch.Tensor) -> torch.Tensor:
-        """A full moment (alike on every rank) -> this rank's slice, the
-        one `slot_view` gives of its block."""
-        return sharding_lib.shard_tensor(full, self.leaves[name].opt_spec,
+    def shard_slot(self, name: str, full: torch.Tensor,
+                   shape=None) -> torch.Tensor:
+        """A full moment (alike on every rank) -> what this rank holds of
+        it: for one that mirrors the leaf (`shape` None), the slice
+        `slot_view` gives of its block; else its part under `slot_spec`."""
+        return sharding_lib.shard_tensor(full, self.slot_spec(name, shape),
                                          self.mesh)
 
-    def gather_slot(self, name: str, t: torch.Tensor) -> torch.Tensor:
-        """The full moment from every rank's slice (collective)."""
+    def gather_slot(self, name: str, t: torch.Tensor,
+                    shape=None) -> torch.Tensor:
+        """The full moment from what every rank holds (collective)."""
         return sharding_lib.gather_tensor(t.detach(),
-                                          self.leaves[name].opt_spec,
+                                          self.slot_spec(name, shape),
                                           self.mesh)
 
     @contextlib.contextmanager
     def slot(self, name: str, p: torch.Tensor, g: torch.Tensor):
         """`_Optimizer.update`'s slot hook: the slices of the block and
-        its gradient that the rank updates; after the update, with
-        ZeRO, the block is put together from every data rank's slice."""
+        its gradient that the rank updates, and their `LeafCut`; after
+        the update, with ZeRO, the block is put together from every data
+        rank's slice."""
         ps = self.slot_view(name, p)
-        yield ps, self.slot_view(name, g)
+        yield ps, self.slot_view(name, g), self.leaves[name].cut
         zero = self.leaves[name].zero
         if zero is not None:
             dim, group = zero
             p.copy_(comm._all_gather(ps.contiguous(), dim, group))
 
     def opt_state_bytes(self, named, optimizer) -> int:
-        """Moment bytes a rank holds, as the reference reckons them: each
-        fp32 moment at its full shape over the product of its spec's
-        axis sizes (rounded up), plus the two int32 step counts of its
-        chain."""
+        """Optimizer-state bytes a rank holds, as the reference reckons
+        them: each state leaf at its full shape over the product of its
+        spec's axis sizes (rounded up), plus the two int32 step counts
+        of its chain. A slot that mirrors its leaf has the leaf's shape
+        and (ZeRO-extended) spec; Adafactor's factored `v_row` and
+        `v_col` theirs under `slot_spec`; a slot the leaf does not use
+        is optax's one-element placeholder, replicated."""
         total = 8
         for name, p in named:
             lay = self.leaves[name]
-            ways = math.prod(self.mesh.shape.get(a, 1) for a in
-                             sharding_lib.spec_axes(lay.opt_spec))
-            nbytes = -(-math.prod(lay.shape) * p.element_size() // ways)
-            total += nbytes * len(optimizer.slots)
+            for slot in optimizer.slots:
+                shape = optimizer.slot_shape(slot, lay.shape)
+                if shape is not None and not math.prod(shape):
+                    shape = (1,)
+                spec = self.slot_spec(name, shape)
+                ways = math.prod(self.mesh.shape.get(a, 1) for a in
+                                 sharding_lib.spec_axes(spec))
+                n = math.prod(lay.shape if shape is None else shape)
+                total += -(-n * p.element_size() // ways)
         return total

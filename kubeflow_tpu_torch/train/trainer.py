@@ -22,7 +22,11 @@ columns and vocab cut over "tensor", the blocks computing on their
 own (train/fsdp.py has the layout, parallel/tensor.py the blocks'
 collectives; the loss is then the same on every tensor rank). `step`
 takes the global batch on every rank; `gather_params` assembles the
-full params. Without a mesh nothing of this runs.
+full params. Adafactor reduces over the axes each leaf is cut on
+(`LeafCut`), `grad_accum` runs the reference's micro-steps over the
+global rows, and a loss's `global_term` (the MoE load-balance loss,
+routed over the global batch) enters the global loss once. Without a
+mesh nothing of this runs.
 
 The obs bridge, as the reference's: each step is a `train.step` span
 and a `step` phase of a `PhaseProfiler(phases=TRAIN_PHASES)` (the time
@@ -48,6 +52,7 @@ optax parity, where PyTorch's defaults differ:
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import dataclasses
 import logging
 import math
@@ -71,6 +76,23 @@ def estimate_step_flops(n_params: int, tokens: int) -> float:
     (2·N·T forward + 4·N·T backward). MODEL flops, the numerator of MFU:
     attention's quadratic terms and rematerialisation are left out."""
     return 6.0 * float(n_params) * float(tokens)
+
+
+_TERMS: contextvars.ContextVar = contextvars.ContextVar("global_terms",
+                                                       default=None)
+
+
+def global_term(x: torch.Tensor) -> torch.Tensor:
+    """A term of a loss that every rank of the mesh trainer computes
+    alike, over the global batch (the MoE family's weighted load-balance
+    loss, parallel/moe.py): the mesh trainer adds it to the global loss
+    once, where it weights the rank's own part by its share of the mask
+    mass, and this returns 0 in its place. On one device it is x."""
+    terms = _TERMS.get()
+    if terms is None:
+        return x
+    terms.append(x)
+    return torch.zeros_like(x)
 
 
 def _masked_mean(nll: torch.Tensor,
@@ -236,8 +258,73 @@ def _local_sq_norm(names, grads) -> torch.Tensor:
     return sum((g.float() ** 2).sum() for g in grads)
 
 
+class LeafCut:
+    """Where the part of a leaf that a rank's optimizer updates lies in
+    the full leaf: the leaf's full `shape`, and the `cuts` [(dim,
+    AxisGroup)] that made the part, in the order they were made (none:
+    the whole leaf). Adafactor reduces over them: a mean along a dim
+    sums over the ranks that dim is cut over, the leaf's RMS over every
+    cut. A slot that does not mirror the leaf (Adafactor's factored rows
+    and columns) has a full shape of its own and is held cut by
+    `side(shape)` ([(dim, AxisGroup)]; default: whole on every rank)."""
+
+    def __init__(self, shape, cuts=(), side=None):
+        self.shape = tuple(shape)
+        self.cuts = list(cuts)
+        self.side = side if side is not None else (lambda shape: [])
+
+    def mean(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The full leaf's mean along `dim`, as a full tensor (`dim`
+        dropped), from x over this part."""
+        if not self.cuts:
+            return x.mean(dim)
+        y = x.sum(dim)
+        for d, g in reversed(self.cuts):
+            y = (comm._psum(y, g) if d == dim
+                 else comm._all_gather(y, d - (d > dim), g))
+        return y / self.shape[dim]
+
+    def part(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The part of x (a full tensor over the leaf's dims but `dim`)
+        that lies over this part of the leaf."""
+        for d, g in self.cuts:
+            if d != dim:
+                x = comm._block(x, d - (d > dim), g)
+        return x
+
+    def rms(self, x: torch.Tensor) -> torch.Tensor:
+        """The full leaf's root mean square, from x over this part."""
+        if not self.cuts:
+            return x.square().mean().sqrt()
+        sq = x.square().sum()
+        for _, g in self.cuts:
+            sq = comm._psum(sq, g)
+        return (sq / math.prod(self.shape)).sqrt()
+
+    def local_shape(self, shape) -> list:
+        """The held shape of a side slot of full `shape`."""
+        shape = list(shape)
+        for d, g in self.side(shape):
+            shape[d] //= g.size
+        return shape
+
+    def load(self, t: torch.Tensor, shape) -> torch.Tensor:
+        """A side slot of full `shape`, whole, from what the rank holds."""
+        for d, g in reversed(self.side(shape)):
+            t = comm._all_gather(t, d, g)
+        return t
+
+    def store(self, t: torch.Tensor, full: torch.Tensor, shape) -> None:
+        """Write the rank's part of a side slot's updated `full` into t."""
+        cuts = self.side(shape)
+        for d, g in cuts:
+            full = comm._block(full, d, g)
+        if cuts:
+            t.copy_(full)
+
+
 def _whole_leaf(name, p, g):
-    return contextlib.nullcontext((p, g))
+    return contextlib.nullcontext((p, g, LeafCut(p.shape)))
 
 
 class _Optimizer:
@@ -276,13 +363,28 @@ class _Optimizer:
                              "leaves")
         return [nl for nl, (_, lab) in zip(named, labels) if lab == "train"]
 
-    def init(self, params: Params) -> dict:
-        leaves = [p for _, p in self.trained(params)]
-        return {"count": 0, **{slot: [self._zeros(slot, p) for p in leaves]
+    def init(self, params: Params, cut: Callable | None = None) -> dict:
+        """Zero state for the trained leaves; `cut(name, p)` gives each
+        leaf's `LeafCut` where p is a part of it (default: p whole)."""
+        named = self.trained(params)
+        cuts = [LeafCut(p.shape) if cut is None else cut(n, p)
+                for n, p in named]
+        return {"count": 0, **{slot: [self.zeros(slot, p, c) for (_, p), c
+                                      in zip(named, cuts)]
                                for slot in self.slots}}
 
-    def _zeros(self, slot: str, p: torch.Tensor) -> torch.Tensor:
-        return torch.zeros_like(p)
+    def slot_shape(self, slot: str, shape) -> tuple | None:
+        """A slot's full shape for a leaf of full `shape`, or None where
+        it mirrors the leaf."""
+        return None
+
+    def zeros(self, slot: str, p: torch.Tensor, cut: LeafCut
+              ) -> torch.Tensor:
+        """The zero slot for the part p of a leaf that `cut` places."""
+        shape = self.slot_shape(slot, cut.shape)
+        if shape is None:
+            return torch.zeros_like(p)
+        return p.new_zeros(cut.local_shape(shape))
 
     @torch.no_grad()
     def update(self, grads: list, opt_state: dict, params: Params, *,
@@ -293,9 +395,11 @@ class _Optimizer:
         for leaves held as blocks of a mesh (train/fsdp.py,
         models/llama_pp.py): `sq_norm(names, grads)` gives the clip's
         squared global norm (default: the local sum), and `slot(name, p,
-        g)` is a context giving the slices of p and g that the leaf's
-        moments cover, and putting p together after the update (default:
-        p and g whole)."""
+        g)` is a context giving the parts of p and g that the leaf's
+        moments cover and their `LeafCut`, and putting p together after
+        the update (default: p and g whole). A slot that does not mirror
+        the leaf is updated whole (`LeafCut.load`) and written back to
+        the part the rank holds (`LeafCut.store`)."""
         named = self.trained(params)
         norm = torch.sqrt(sq_norm([n for n, _ in named], grads))
         # optax: where(norm < max, g, g / norm * max)
@@ -304,9 +408,15 @@ class _Optimizer:
         count = opt_state["count"]
         lr = self.schedule(count)
         for i, ((name, p), g) in enumerate(zip(named, grads, strict=True)):
-            with slot(name, p, g) as (ps, gs):
-                self._leaf(ps, gs * clip,
-                           [opt_state[s][i] for s in self.slots], count, lr)
+            held = [opt_state[s][i] for s in self.slots]
+            with slot(name, p, g) as (ps, gs, cut):
+                shapes = [self.slot_shape(s, cut.shape) for s in self.slots]
+                state = [t if sh is None else cut.load(t, sh)
+                         for t, sh in zip(held, shapes)]
+                self._leaf(ps, gs * clip, state, count, lr, cut)
+                for t, full, sh in zip(held, state, shapes):
+                    if sh is not None:
+                        cut.store(t, full, sh)
         opt_state["count"] = count + 1
 
 
@@ -317,7 +427,7 @@ class AdamW(_Optimizer):
     slots = ("mu", "nu")
     eps = 1e-8
 
-    def _leaf(self, p, g, state, count, lr):
+    def _leaf(self, p, g, state, count, lr, cut):
         tc = self.tc
         mu, nu = state
         mu.mul_(tc.b1).add_(g, alpha=1 - tc.b1)
@@ -352,7 +462,10 @@ class Adafactor(_Optimizer):
     leaf's shape less its largest or second-largest axis) or `v` (the
     whole second moment); the slots a leaf does not use hold an empty
     tensor. One count serves the factored rms and the schedule, which
-    optax counts apart in step."""
+    optax counts apart in step. On a mesh (the `LeafCut` of the part a
+    rank updates) the factored dims are the full leaf's, the row and
+    column means and the RMS of the update and of the leaf are the full
+    leaf's, and `v_row` and `v_col` are updated whole."""
 
     slots = ("v_row", "v_col", "v")
     decay_rate = 0.8
@@ -360,18 +473,18 @@ class Adafactor(_Optimizer):
     clipping_threshold = 1.0
     min_scale = 1e-3
 
-    def _zeros(self, slot, p):
-        dims = _factored_dims(p.shape)
+    def slot_shape(self, slot, shape):
+        dims = _factored_dims(shape)
         if (dims is None) != (slot == "v"):
-            return p.new_zeros(0)
+            return (0,)
         if slot == "v":
-            return torch.zeros_like(p)
+            return None
         d1, d0 = dims
-        shape = list(p.shape)
+        shape = list(shape)
         del shape[d0 if slot == "v_row" else d1]
-        return p.new_zeros(shape)
+        return tuple(shape)
 
-    def _leaf(self, p, g, state, count, lr):
+    def _leaf(self, p, g, state, count, lr, cut):
         v_row, v_col, v = state
         # optax evaluates the decay in fp32: 1 - (count + 1)^-0.8
         decay = np.float32(1) - np.float32(count + 1) ** np.float32(
@@ -379,22 +492,21 @@ class Adafactor(_Optimizer):
         keep = float(np.float32(1) - decay)
         decay = float(decay)
         g2 = g * g + self.eps
-        dims = _factored_dims(p.shape)
+        dims = _factored_dims(cut.shape)
         if dims is not None:
             d1, d0 = dims
-            v_row.mul_(decay).add_(g2.mean(d0) * keep)
-            v_col.mul_(decay).add_(g2.mean(d1) * keep)
+            v_row.mul_(decay).add_(cut.mean(g2, d0) * keep)
+            v_col.mul_(decay).add_(cut.mean(g2, d1) * keep)
             row_mean = v_row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
-            u = (g * (v_row / row_mean).rsqrt().unsqueeze(d0)
-                 * v_col.rsqrt().unsqueeze(d1))
+            u = (g * cut.part(v_row / row_mean, d0).rsqrt().unsqueeze(d0)
+                 * cut.part(v_col, d1).rsqrt().unsqueeze(d1))
         else:
             v.mul_(decay).add_(g2 * keep)
             u = g * v.rsqrt()
         del g2
-        u.div_(torch.clamp(u.square().mean().sqrt()
-                           / self.clipping_threshold, min=1.0))
+        u.div_(torch.clamp(cut.rms(u) / self.clipping_threshold, min=1.0))
         u.mul_(float(np.float32(lr)))
-        rms = p.square().mean().sqrt()
+        rms = cut.rms(p)
         u.mul_(torch.where(rms <= self.min_scale,
                            torch.full_like(rms, self.min_scale), rms))
         if self.tc.weight_decay:
@@ -572,16 +684,18 @@ class Trainer:
         self._n_params = sum(p.numel() for p in _leaves(params))
         local = lay.shard_params(params)
         local = _prep(local, self.device, self.freeze_labels)
-        named = self.optimizer.trained(local)
+        opt = self.optimizer
+        named = opt.trained(local)
         if opt_state is None:
             opt_state = {"count": 0, **{slot: [
-                self.optimizer._zeros(slot, lay.slot_view(n, p)).detach()
-                for n, p in named] for slot in self.optimizer.slots}}
+                opt.zeros(slot, lay.slot_view(n, p), lay.leaves[n].cut)
+                .detach() for n, p in named] for slot in opt.slots}}
         else:
             opt_state = {"count": int(opt_state["count"]), **{slot: [
-                lay.shard_slot(n, full).to(self.device)
+                lay.shard_slot(n, full, self._slot_shape(slot, n))
+                .to(self.device)
                 for (n, _), full in zip(named, opt_state[slot], strict=True)]
-                for slot in self.optimizer.slots}}
+                for slot in opt.slots}}
         self._opt_bytes = lay.opt_state_bytes(named, self.optimizer)
         return TrainState(local, opt_state, int(step))
 
@@ -600,9 +714,13 @@ class Trainer:
             return state.opt_state
         named = self.optimizer.trained(state.params)
         return {"count": int(state.opt_state["count"]), **{slot: [
-            self.layout.gather_slot(n, t)
+            self.layout.gather_slot(n, t, self._slot_shape(slot, n))
             for (n, _), t in zip(named, state.opt_state[slot], strict=True)]
             for slot in self.optimizer.slots}}
+
+    def _slot_shape(self, slot: str, name: str) -> tuple | None:
+        return self.optimizer.slot_shape(slot,
+                                         self.layout.leaves[name].shape)
 
     def state_from(self, params: Params, opt_state: dict, step: int, *,
                    device: torch.device | str | None = None) -> TrainState:
@@ -672,30 +790,72 @@ class Trainer:
             self.compile_seconds.observe(dt)
         return out
 
-    def _mesh_grads(self, state: TrainState, tokens, targets, mask):
-        """This rank's share of the global loss and each trained block's
-        gradient of the global loss (reduced over the ranks that share
-        it). The tensor context covers the backward too: remat reruns
-        the blocks' collectives there."""
+    def _mesh_grads(self, state: TrainState, tokens, targets, mask,
+                    padded: bool = False):
+        """The global loss of a global batch and each trained block's
+        gradient of it (reduced over the ranks that share it): each rank
+        weights the loss of its rows by its share of the mask mass, and
+        the terms the loss marks `global_term` enter once. The tensor and
+        routing contexts cover the backward too: remat reruns the blocks'
+        collectives there. `padded`: the batch has padding rows."""
         lay = self.layout
         tokens, targets, mask = (lay.local_rows(x)
                                  for x in (tokens, targets, mask))
         weight = lay.loss_weight(mask)
         named = self.optimizer.trained(state.params)
-        with lay.parallel():
-            loss = self._loss(lay.model_view(state.params), tokens,
-                              targets, mask) * weight
-            grads = torch.autograd.grad(loss, [p for _, p in named])
-        return loss.detach(), named, lay.reduce_grads(named, grads)
+        terms: list = []
+        token = _TERMS.set(terms)
+        try:
+            with lay.parallel(padded=padded):
+                loss = self._loss(lay.model_view(state.params), tokens,
+                                  targets, mask) * weight
+                once = sum(terms, torch.zeros((), device=loss.device))
+                grads = torch.autograd.grad(loss + once,
+                                            [p for _, p in named])
+        finally:
+            _TERMS.reset(token)
+        total = comm._psum(loss.detach(), lay.batch) + once.detach()
+        return total, named, lay.reduce_grads(named, grads)
+
+    def _mesh_accumulated(self, state: TrainState, tokens, targets, mask):
+        """`grad_accum` micro-steps on a mesh, the reference's: micro i is
+        the global rows [i B / acc, (i + 1) B / acc), cut over the batch
+        ranks (padded with mask-0 rows where they do not divide it), its
+        loss and gradients weighted by its global mask mass into fp32
+        sums, cast to the param dtype once."""
+        acc = self.tc.grad_accum
+        mb = tokens.shape[0] // acc
+        pad = -mb % self.layout.batch.size
+        gsum = lsum = wsum = None
+        for i in range(acc):
+            micro = [x[i * mb:(i + 1) * mb] for x in (tokens, targets, mask)]
+            if pad:
+                micro = [torch.cat([x, x.new_zeros((pad, *x.shape[1:]))])
+                         for x in micro]
+            loss, named, grads = self._mesh_grads(state, *micro,
+                                                  padded=bool(pad))
+            w = micro[2].float().sum()
+            if gsum is None:
+                gsum = [g.float() * w for g in grads]
+                lsum, wsum = loss.float() * w, w
+                continue
+            for a, g in zip(gsum, grads):
+                a.add_(g.float() * w)
+            lsum, wsum = lsum + loss.float() * w, wsum + w
+        denom = torch.clamp(wsum, min=1.0)
+        grads = [(g / denom).to(p.dtype) for g, (_, p) in zip(gsum, named)]
+        return lsum / denom, named, grads
 
     def _mesh_step(self, state: TrainState, tokens, targets, mask):
         lay = self.layout
-        loss, named, grads = self._mesh_grads(state, tokens, targets, mask)
+        step = (self._mesh_accumulated if self.tc.grad_accum > 1
+                else self._mesh_grads)
+        loss, named, grads = step(state, tokens, targets, mask)
         with torch.no_grad():
             self.optimizer.update(grads, state.opt_state, state.params,
                                   sq_norm=lay.sq_norm, slot=lay.slot)
         state.step += 1
-        return state, comm._psum(loss, lay.batch)
+        return state, loss
 
     def grads(self, state: TrainState, tokens, targets,
               mask=None) -> list:

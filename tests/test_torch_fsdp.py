@@ -42,7 +42,6 @@ from kubeflow_tpu_torch.models import gemma as tgemma
 from kubeflow_tpu_torch.models import llama as tllama
 from kubeflow_tpu_torch.models import llama_moe as tmoe
 from kubeflow_tpu_torch.models import llama_pp as tpp
-from kubeflow_tpu_torch.models import vit as tvit
 from kubeflow_tpu_torch.parallel import Mesh, MeshSpec, create_mesh
 from kubeflow_tpu_torch.train import TrainConfig, Trainer
 from torch_dist import run_gang
@@ -258,23 +257,19 @@ def test_layer_gathers_do_not_outlive_their_block(setup, policy):
 
 
 def test_tensor_parallel_mesh_is_refused_by_name():
-    """What tensor parallelism does not carry yet is refused by name at
-    tensor > 1 (tests/test_torch_tensor_parallel.py trains llama, gemma
-    and LoRA there): the MoE family, ViT, the pipeline, a query head
-    count the axis does not divide, KV heads that neither divide nor are
-    divided by it, and a mesh trainer without the model's config; and
-    Adafactor on any mesh."""
+    """What the mesh trainer still refuses at tensor > 1 is refused by
+    name (tests/test_torch_tensor_parallel.py trains llama, gemma and
+    LoRA there, tests/test_torch_mesh_recipes.py the MoE family, ViT,
+    Adafactor and gradient accumulation): the pipeline, a mesh trainer
+    without the model's config, a query head count the axis does not
+    divide, KV heads that neither divide nor are divided by it, and an
+    expert count the axis does not divide."""
     mesh = create_mesh(MeshSpec(data=1, fsdp=2, tensor=2), devices=range(4))
 
     def build(cfg, axes, tc=TrainConfig(), mesh=mesh):
         return Trainer(None, None, tc, device="cpu", mesh=mesh,
                        logical_axes=axes, model_config=cfg)
 
-    moe = tmoe.MIXTRAL_TINY
-    with pytest.raises(ValueError, match="the MoE family"):
-        build(moe, tmoe.param_logical_axes(moe))
-    with pytest.raises(ValueError, match="ViT"):
-        build(tvit.VIT_TINY, tvit.param_logical_axes(tvit.VIT_TINY))
     cfg = tllama.LLAMA_TINY
     with pytest.raises(ValueError, match="needs the model's config"):
         build(None, tllama.param_logical_axes(cfg))
@@ -285,10 +280,9 @@ def test_tensor_parallel_mesh_is_refused_by_name():
                               num_kv_heads=3)
     with pytest.raises(ValueError, match="num_kv_heads 3 at tensor=2"):
         build(odd, tgemma.param_logical_axes(odd))
+    odd = dataclasses.replace(tmoe.MIXTRAL_TINY, num_experts=3)
+    with pytest.raises(ValueError, match="num_experts 3 is not divisible"):
+        build(odd, tmoe.param_logical_axes(odd))
     staged = Mesh(np.arange(4).reshape(2, 2), ("stage", "tensor"), "cpu")
     with pytest.raises(ValueError, match="not ported for the pipeline"):
         tpp.PipelineTrainer(cfg, staged, device="cpu")
-    mesh = create_mesh(MeshSpec(data=2, fsdp=2), devices=range(4))
-    with pytest.raises(ValueError, match="adafactor"):
-        build(cfg, tllama.param_logical_axes(cfg),
-              TrainConfig(optimizer="adafactor"), mesh)

@@ -631,3 +631,332 @@ def tensor_parallel_cases(payload, rank, world):
                        for k, v in full["base"]["blocks"].items())}
     out["context_left"] = tensor.group() is None
     return out
+
+
+# -- test_torch_mesh_recipes.py ----------------------------------------------
+
+def _guarded(out, key, fn):
+    """out[key] = fn(), or the error it raised (on every rank alike: the
+    refusals raise before any collective), so one case's failure leaves
+    the others' results."""
+    try:
+        out[key] = fn()
+    except Exception as e:  # noqa: BLE001 - reported to the parent
+        out[key] = {"error": f"{type(e).__name__}: {e}"}
+
+
+def _drops(moe, calls):
+    """A stand-in for `moe._assign` that records each call's dropped and
+    total choices."""
+    assign = moe._assign
+
+    def counted(*a, **kw):
+        res = assign(*a, **kw)
+        calls.append((int((~res[3]).sum()), res[3].numel()))
+        return res
+
+    return assign, counted
+
+
+def _mesh_trainer(mod, cfg, mesh, tc, **kw):
+    from kubeflow_tpu_torch.train import Trainer
+
+    return Trainer(kw.pop("apply_fn", lambda p, t: mod.apply(p, cfg, t)),
+                   None, tc, device="cpu", mesh=mesh,
+                   logical_axes=mod.param_logical_axes(cfg),
+                   model_config=cfg, **kw)
+
+
+def _steps(tr, state, batch, n=3):
+    losses = []
+    for _ in range(n):
+        state, loss = tr.step(state, *batch)
+        losses.append(float(loss))
+    return state, losses
+
+
+def _moe_recipes(payload, meshes):
+    """The MoE family: global routing on (data 2, fsdp 4) and
+    tensor-parallel on (data 2, fsdp 2, tensor 2), 3 steps each, with
+    the dropped choices of the first forward; one step's gradients at
+    tensor 2, and the control that sums the router's whole gradient over
+    "tensor"."""
+    import dataclasses
+
+    from kubeflow_tpu_torch import bridge
+    from kubeflow_tpu_torch.models import llama_moe
+    from kubeflow_tpu_torch.parallel import moe
+    from kubeflow_tpu_torch.train import TrainConfig
+
+    cfg = dataclasses.replace(llama_moe.MIXTRAL_TINY, **payload["moe_cfg"])
+    tc = TrainConfig(**payload["moe_tc"])
+    batch = tuple(torch.tensor(payload["moe_" + k]).long()
+                  for k in ("toks", "tgts"))
+    out = {}
+    for key in ("df", "dft"):
+        def run(key=key):
+            tr = _mesh_trainer(llama_moe, cfg, meshes[key], tc,
+                               apply_fn=lambda p, t: llama_moe.apply(
+                                   p, cfg, t)[0],
+                               loss_fn=llama_moe.loss_fn(cfg))
+            state = tr.init_from_params(bridge.from_jax(payload["moe"], cfg,
+                                                        "cpu"))
+            res = {}
+            if key == "dft":
+                names = [n for n, _ in tr.optimizer.trained(state.params)]
+                res["grads"] = dict(zip(names, tr.grads(state, *batch)))
+                lay = tr.layout
+                router = lay.leaves["blocks.router"]
+                keep = router.grad_group
+                router.grad_group = meshes[key].axis_group(
+                    ("data", "tensor"))
+                res["control"] = dict(zip(names, tr.grads(state, *batch)))
+                router.grad_group = keep
+                res["experts"] = tuple(state.params["blocks"]["w_gate"]
+                                       .shape)
+            calls = []
+            assign, moe._assign = _drops(moe, calls)
+            try:
+                state, loss = tr.step(state, *batch)
+            finally:
+                moe._assign = assign
+            state, losses = _steps(tr, state, batch, 2)
+            # every batch rank's choices, each layer's counted once
+            drops = comm._psum(torch.tensor(calls), tr.layout.batch)
+            res.update(losses=[float(loss)] + losses,
+                       drops=[tuple(d) for d in drops.tolist()],
+                       params=tr.gather_params(state))
+            return res
+        _guarded(out, key, run)
+
+    def padded():
+        tr = _mesh_trainer(llama_moe, cfg, meshes["dft"],
+                           TrainConfig(**payload["moe_tc"], grad_accum=4),
+                           apply_fn=lambda p, t: llama_moe.apply(p, cfg, t)[0],
+                           loss_fn=llama_moe.loss_fn(cfg))
+        state = tr.init_from_params(bridge.from_jax(payload["moe"], cfg,
+                                                    "cpu"))
+        tr.step(state, *batch)
+        return {}
+    _guarded(out, "padded", padded)
+    return out
+
+
+def _vit_block_bias_inside(cfg, x, p):
+    """The ViT block with bo added inside per-rank work (before the
+    `exit` that sums the ranks' partial products): the control."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.ops.attention import dot_product_attention
+    from kubeflow_tpu_torch.ops.norms import layer_norm
+    from kubeflow_tpu_torch.parallel import tensor
+    from kubeflow_tpu_torch.parallel.sharding import read_layer
+
+    p = read_layer(p)
+    b, s, _ = x.shape
+    pos = torch.arange(s, dtype=torch.int32).expand(b, s)
+    h = tensor.enter(layer_norm(x, p["ln1_w"], p["ln1_b"], cfg.norm_eps))
+    q, k, v = ((h @ p["w" + n] + p["b" + n]).reshape(b, s, -1,
+                                                     cfg.head_dim)
+               for n in "qkv")
+    attn = dot_product_attention(q, k, v, pos, pos, causal=False)
+    x = x + tensor.exit(attn.reshape(b, s, -1) @ p["wo"] + p["bo"])
+    h = tensor.enter(layer_norm(x, p["ln2_w"], p["ln2_b"], cfg.norm_eps))
+    h = F.gelu(h @ p["w1"] + p["b1"], approximate="tanh")
+    return x + tensor.exit(h @ p["w2"]) + p["b2"]
+
+
+def _vit_recipes(payload, mesh):
+    """ViT-tiny tensor-parallel on (data 2, fsdp 2, tensor 2): one
+    step's gradients, 3 steps, and the control with bo inside per-rank
+    work."""
+    from kubeflow_tpu_torch import bridge
+    from kubeflow_tpu_torch.models import vit
+    from kubeflow_tpu_torch.train import TrainConfig
+
+    cfg = vit.VIT_TINY
+    batch = tuple(torch.tensor(payload["vit_" + k]) for k in "xyw")
+    tc = TrainConfig(**payload["vit_tc"])
+    tr = _mesh_trainer(vit, cfg, mesh, tc, apply_fn=vit.apply_fn(cfg))
+    state = tr.init_from_params(bridge.from_jax(payload["vit"], cfg, "cpu"))
+    names = [n for n, _ in tr.optimizer.trained(state.params)]
+    out = {"grads": dict(zip(names, tr.grads(state, *batch)))}
+    block = vit._block
+    vit._block = _vit_block_bias_inside
+    try:
+        out["control"] = dict(zip(names, tr.grads(state, *batch)))
+    finally:
+        vit._block = block
+    out["local"] = {k: tuple(state.params["blocks"][k].shape)
+                    for k in ("wq", "bq", "wo", "bo", "w1", "b1")}
+    out["head"] = tuple(state.params["head_w"].shape)
+    state, out["losses"] = _steps(tr, state, batch)
+    out["params"] = tr.gather_params(state)
+    return out
+
+
+def _adafactor_recipes(payload, meshes):
+    """Adafactor on llama-tiny at (data 2, fsdp 2, tensor 2) with and
+    without ZeRO: 3 steps, the gathered state and its bytes; the ZeRO
+    run saved and restored on the same mesh, on one device and on (data
+    2, fsdp 4), each restored state's next loss."""
+    import os
+
+    from kubeflow_tpu_torch import bridge
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.train import TrainConfig
+    from kubeflow_tpu_torch.train.checkpoint import (
+        CheckpointConfig,
+        Checkpointer,
+    )
+
+    cfg = llama.LLAMA_TINY
+    batch = (torch.tensor(payload["toks"]).long(),
+             torch.tensor(payload["tgts"]).long())
+    out = {}
+    for zero in (True, False):
+        tc = TrainConfig(**payload["ada_tc"], zero_optimizer=zero)
+        tr = _mesh_trainer(llama, cfg, meshes["dft"], tc)
+        state = tr.init_from_params(bridge.from_jax(payload["llama"], cfg,
+                                                    "cpu"))
+        names = [n for n, _ in tr.optimizer.trained(state.params)]
+        held = {s: dict(zip(names, (tuple(t.shape)
+                                    for t in state.opt_state[s])))
+                for s in tr.optimizer.slots}
+        state, losses = _steps(tr, state, batch)
+        opt = _full_state(tr, state)[1]
+        res = {"losses": losses, "held": held,
+               "opt_bytes": tr.opt_state_bytes(),
+               "params": tr.gather_params(state),
+               "opt": {s: dict(zip(names, opt[s]))
+                       for s in tr.optimizer.slots}}
+        out[zero] = res
+        if not zero:
+            continue
+        saved = _full_state(tr, state)
+        d = os.path.join(payload["dir"], "ada")
+        ck = Checkpointer(CheckpointConfig(d, enable_async=False), tr)
+        ck.save(state, force=True)
+        ck.close()
+        _, res["next"] = tr.step(state, *batch)
+        ckpt = {}
+        for key, mesh in (("same", meshes["dft"]), ("one", None),
+                          ("df", meshes["df"])):
+            other = (tr if key == "same" else
+                     _mesh_trainer(llama, cfg, mesh, tc))
+            ck = Checkpointer(CheckpointConfig(d), other)
+            restored = ck.restore()
+            params, opt = _full_state(other, restored)
+            ckpt[key] = {
+                "step": restored.step,
+                "params": all(torch.equal(v, saved[0][k])
+                              for k, v in params.items()),
+                "opt": opt["count"] == saved[1]["count"] and all(
+                    torch.equal(a, b) for slot in tr.optimizer.slots
+                    for a, b in zip(opt[slot], saved[1][slot],
+                                    strict=True)),
+                "next": float(other.step(restored, *batch)[1])}
+            ck.close()
+        res["ckpt"] = ckpt
+        res["next"] = float(res["next"])
+    return out
+
+
+def _accum_recipes(payload, mesh):
+    """grad_accum 1, 2 and 4 on (data 2, fsdp 2, tensor 2), one step on a
+    ragged mask from the same params (acc 4: micros of 2 rows over 4
+    batch ranks); acc 3's refusal."""
+    from kubeflow_tpu_torch import bridge
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.train import TrainConfig
+
+    cfg = llama.LLAMA_TINY
+    batch = tuple(torch.tensor(payload["acc_" + k])
+                  for k in ("toks", "tgts", "mask"))
+    batch = (batch[0].long(), batch[1].long(), batch[2])
+    out = {}
+    for acc in (1, 2, 4, 3):
+        def run(acc=acc):
+            tr = _mesh_trainer(llama, cfg, mesh,
+                               TrainConfig(**payload["acc_tc"],
+                                           grad_accum=acc))
+            state = tr.init_from_params(bridge.from_jax(payload["llama"],
+                                                        cfg, "cpu"))
+            state, loss = tr.step(state, *batch)
+            return {"loss": float(loss), "params": tr.gather_params(state)}
+        _guarded(out, acc, run)
+    return out
+
+
+def _hybrid_recipe(payload, mesh):
+    """llama-tiny on the hybrid (dcn 2, fsdp 2, tensor 2) mesh, 3
+    steps."""
+    from kubeflow_tpu_torch import bridge
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.train import TrainConfig
+
+    cfg = llama.LLAMA_TINY
+    tr = _mesh_trainer(llama, cfg, mesh, TrainConfig(**payload["acc_tc"]))
+    state = tr.init_from_params(bridge.from_jax(payload["llama"], cfg,
+                                                "cpu"))
+    batch = tuple(torch.tensor(payload["hyb_" + k]).long()
+                  for k in ("toks", "tgts"))
+    state, losses = _steps(tr, state, batch)
+    lay = tr.layout
+    return {"losses": losses, "params": tr.gather_params(state),
+            "batch_axes": list(lay.batch_axes),
+            "batch_group": lay.batch.name, "batch_size": lay.batch.size}
+
+
+def _pipeline_adafactor(payload, mesh):
+    """PipelineTrainer with Adafactor on (stage 2, data 4), llama-tiny
+    at 4 layers, 2 microbatches, 3 steps."""
+    import dataclasses
+
+    from kubeflow_tpu_torch import bridge
+    from kubeflow_tpu_torch.models import llama, llama_pp
+    from kubeflow_tpu_torch.train import TrainConfig
+
+    cfg = dataclasses.replace(llama.LLAMA_TINY, num_layers=4)
+    tr = llama_pp.PipelineTrainer(cfg, mesh, num_microbatches=2,
+                                  train_config=TrainConfig(
+                                      **payload["pp_tc"]), device="cpu")
+    state = tr.init_from_params(bridge.from_jax(payload["llama4"], cfg,
+                                                "cpu"))
+    batch = tuple(torch.tensor(payload["pp_" + k]).long()
+                  for k in ("toks", "tgts"))
+    losses = []
+    for _ in range(3):
+        state, loss = tr.step(state, *batch)
+        losses.append(float(loss))
+    return {"losses": losses, "params": tr.gather_params(state),
+            "v_row": tuple(state.opt_state["v_row"][
+                [n for n, _ in tr.optimizer.trained(state.params)]
+                .index("blocks.wq")].shape)}
+
+
+def mesh_recipe_cases(payload, rank, world):
+    """The mesh trainer's recipes on 8 ranks: MoE routed over the global
+    batch and tensor-parallel, ViT tensor-parallel, Adafactor with and
+    without ZeRO and its checkpoint, gradient accumulation, the hybrid
+    mesh, and Adafactor under the pipeline trainer."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.parallel import Mesh, create_hybrid_mesh
+
+    meshes = {
+        "df": create_mesh(MeshSpec(data=2, fsdp=4), device_type="cpu"),
+        "dft": create_mesh(MeshSpec(data=2, fsdp=2, tensor=2),
+                           device_type="cpu"),
+        "hybrid": create_hybrid_mesh(MeshSpec(data=1, fsdp=2, tensor=2),
+                                     num_slices=2, device_type="cpu"),
+        "pp": Mesh(np.arange(8).reshape(2, 4), ("stage", "data"), "cpu"),
+    }
+    out = {"moe": _moe_recipes(payload, meshes)}
+    _guarded(out, "vit", lambda: _vit_recipes(payload, meshes["dft"]))
+    _guarded(out, "ada", lambda: _adafactor_recipes(payload, meshes))
+    out["acc"] = _accum_recipes(payload, meshes["dft"])
+    _guarded(out, "hybrid", lambda: _hybrid_recipe(payload,
+                                                   meshes["hybrid"]))
+    _guarded(out, "pp", lambda: _pipeline_adafactor(payload, meshes["pp"]))
+    return out

@@ -601,6 +601,34 @@ Phase 18:    fp32 flash at head dim 256 on a path, and the elastic
              merging their tracks, each survivor's goodput book. (e)
              `memplan.plan` for phase 4's run beside phase 4's measured
              peak (a finding: the planner's budget is a TPU chip's).
+Phase 19:    tensor-parallel serving (serving/gang.py, the engines at
+             tensor > 1): two worker processes (`--dist-worker
+             serving`) on cuda:0 in a gloo group, each holding its
+             rank's cut of random weights from seed 0, rank 0 running
+             the HTTP app and the batcher, rank 1 following its device
+             calls; eager (graphs are refused at tensor > 1). First the
+             one-device yardsticks in this process (greedy tokens and
+             the teacher-forced plain pass), then the card is freed
+             for the ranks. (a) llama3-1b continuous, 8 slots, chunked
+             prefill: phase 3's four requests, the 130-token prompt
+             again (a radix hit, the same tokens), a decode step and a
+             prefill slice timed alone with their staged collectives,
+             then a monolithic wave through a second batcher; (b)
+             gemma-2b (one KV head held whole, the 256,000-token
+             vocabulary cut in two) one-shot, a direct 2-row request
+             through the app. Checks: every rank's tokens rank 0's;
+             served tokens the one-device run's, logprobs within
+             LOGPROB_TOL of the teacher-forced pass, to the first token
+             that differs, which must sit at a top-2 margin of at most 2
+             x LOGPROB_TOL (bf16 exit sums round once per rank); exact
+             launches a rank (16 paged decode a decode step, 16
+             prefill-append a slice, 18 dense decode a one-shot step);
+             no graph captured; a rank's KV bytes against one device's;
+             a control in which rank 1 drops layer 0's attention exit sum
+             during a one-shot generate must fail the check. Phase 2's
+             tensor-2 serving lines check the three kernels at the
+             ranks' heads (llama3-1b 8 / 4, llama3-8b 16 / 4, gemma-2b 4 /
+             1 at hd 256).
 Phase 3 also times the tracer: the same cold requests twice with the
 app's tracer detached and twice attached, host ms a decode step each.
 Then prints the `kernels` JSON line (launches: the paged kernels' over
@@ -620,16 +648,20 @@ and counted over phase 15a (15b and 15c count under the plain names,
 counted over phase 9's verify rounds, whose prefill slices count under
 `paged_prefill_append`; `int8_proj`, no Pallas kernel's port (it replaces
 the reference's `qdot`), timed as one llama3-8b decode layer's four
-launches and counted over phases 12 and 14, with its kernel functions), the
-card's name and power limit,
+launches and counted over phases 12 and 14, with its kernel functions;
+`paged_decode_attention@llama3-1b-tp2` and
+`paged_prefill_append@llama3-1b-tp2`, timed in phase 2 at a tensor-2
+rank's llama3-1b heads and counted over phase 19a's ranks, and
+`decode_attention@gemma-2b-tp2`, timed at a rank's gemma-2b heads and
+counted over phase 19b's ranks), the card's name and power limit,
 and last `{"ok": true, "device": {...}}`.
 
 Exits non-zero without a result when CUDA is unavailable or the port's
 package is not beside this script. `--phases 1,8` runs only the phases
 named (a debugging call: it prints no result line). `--replica OUT --
 <serving CLI args>` is phase 13's server process and `--dist-worker
-CASE RANK WORLD STORE OUT BACKEND` one rank of phase 17's gangs, not
-smoke runs.
+CASE RANK WORLD STORE OUT BACKEND` one rank of the gangs of phases 17,
+18 and 19, not smoke runs.
 """
 
 from __future__ import annotations
@@ -747,9 +779,24 @@ TP2_SHAPES = (Geom("llama3-1b at tensor 2", N_Q // 2, N_KV // 2, HD, LAYERS),
               Geom("Mixtral-8x7B at tensor 2", 16, 4, 128, 32))
 
 
+# a rank's heads at tensor 2 on the serving paths (phase 19): llama3-1b
+# cut on whole heads (n_q 8, n_kv 4: group 2), llama3-8b's (16, 4: group
+# 4), gemma-2b's query heads over its one KV head held whole (4, 1: group
+# 4 at head dim 256, which no served path ran before)
+TP2_SERVING = (
+    Geom("llama3-1b at tensor 2", N_Q // 2, N_KV // 2, HD, LAYERS),
+    Geom("llama3-8b at tensor 2", DENSE_NQ // 2, N_KV // 2, HD, DENSE_LAYERS),
+    Geom("gemma-2b at tensor 2", 4, 1, 256, 18, repeat_kv=True))
+
 # suffix of a `kernels`-line name measured at gemma-2b's shapes (phase 2)
 # and launched by phase 6
 GEMMA = "@gemma-2b"
+# suffixes of the serving kernels measured at a tensor-2 rank's heads
+# (phase 2's check_serving_tp) and launched by phase 19's gang: llama3-1b
+# continuous (paged decode, prefill-append) and gemma-2b one-shot (dense
+# decode)
+TP2 = "@llama3-1b-tp2"
+GEMMA_TP2 = "@gemma-2b-tp2"
 # suffix of the prefill-append kernel measured at the speculative verify
 # pass's shape (phase 2) and launched by phase 9's spec waves
 VERIFY = "@verify"
@@ -877,7 +924,7 @@ def _sdpa_kv(torch, g, *kv):
     return tuple(t.repeat_interleave(g.n_q // g.n_kv, dim=1) for t in kv)
 
 
-def check_decode(torch, dev, g=LLAMA_1B):
+def check_decode(torch, dev, g=LLAMA_1B, splits=DECODE_SPLITS):
     from kubeflow_tpu_torch.ops.cuda.paged_attention import (
         default_split_cells,
         paged_decode_attention,
@@ -923,7 +970,8 @@ def check_decode(torch, dev, g=LLAMA_1B):
     mask[:, 5] = False
     posd = pos.to(dev)
     split_ms = {}
-    for split in DECODE_SPLITS:
+    default = default_split_cells(g.n_q // g.n_kv, g.hd)
+    for split in splits or (default,):
         split_ms[split] = _time_ms(torch, lambda i: paged_decode_attention(
             q, kp[i % g.layers], vp[i % g.layers], table, posd, mask,
             split_cells=split), 20 * g.layers)
@@ -934,7 +982,6 @@ def check_decode(torch, dev, g=LLAMA_1B):
             f"cell; "
             f"device {split_ms[split][0]:.4f} ms (eager call "
             f"{split_ms[split][1]:.4f} ms)")
-    default = default_split_cells(g.n_q // g.n_kv, g.hd)
     log(f"  {kind}: the wrapper's default split for this head geometry is "
         f"{default} cells")
     ms, eager = split_ms[default]
@@ -1693,6 +1740,29 @@ def check_flash_tp(torch, dev):
         del q, do, k, v, o, lse, wo, wlse, args, dq, dk, dv, wdq, wdk, wdv
         del o_mag, dq_mag, dk_mag, dv_mag
         torch.cuda.empty_cache()
+
+
+def check_serving_tp(torch, dev) -> dict:
+    """The serving kernels at a tensor-2 rank's heads (TP2_SERVING), each
+    against its plain version under phase 2's bounds and timed by graph
+    replay: paged decode and prefill-append at every rank geometry,
+    dense decode at gemma-2b's (phase 19b's one-shot path). -> the
+    `kernels`-line numbers of the shapes phase 19 launches."""
+    llama1b, _, gemma2b = TP2_SERVING
+    out = {}
+    for g in TP2_SERVING:
+        t0 = time.perf_counter()
+        log(f"  {g.model}: n_q {g.n_q}, n_kv {g.n_kv}, hd {g.hd} (group "
+            f"{g.n_q // g.n_kv}); paged decode timed at its default split")
+        dec = check_decode(torch, dev, g, splits=())
+        pre = check_prefill(torch, dev, g)[0]
+        log(f"  {g.model}: {time.perf_counter() - t0:.1f} s")
+        if g is llama1b:
+            out["paged_decode_attention" + TP2] = dec
+            out["paged_prefill_append" + TP2] = pre
+    out["decode_attention" + GEMMA_TP2] = check_dense_decode(
+        torch, dev, gemma2b, gemma2b)[0]
+    return out
 
 
 def _time_flash_fp32(torch, dev, g, gen, worst):
@@ -8210,9 +8280,343 @@ def _dist_nccl(torch, rank, world):
             "loss": float(loss)}
 
 
+# -- phase 19: tensor-parallel serving ----------------------------------------
+# Two ranks on cuda:0 in a gloo group (`--dist-worker serving`), each one
+# process holding its rank's cut of the weights (`bridge.
+# tensor_rank_params`), stepped in lockstep by serving/gang.py: rank 0
+# runs the HTTP app and the batcher, rank 1 follows. Eager throughout:
+# the engines refuse CUDA graphs at tensor > 1 (a gloo collective stages
+# through host memory). (a) llama3-1b continuous, 8 slots, chunked prefill
+# (phase 3's requests, then the 130-token prompt again, which must hit the
+# radix cache), then a monolithic wave through a second batcher; a
+# control in which the follower drops layer 0's attention exit sum
+# during a one-shot generate of the same prompts; (b) gemma-2b one-shot,
+# a direct 2-row request through the app (its one KV head held whole, its
+# 256,000-token vocabulary cut on "tensor").
+TP_RANKS = 2
+TP_GANG_TIMEOUT_S = 120.0
+TP_GEMMA_ROWS, TP_GEMMA_LEN = 2, 45  # 19b's direct batch (one width)
+TP_MEASURE_STEPS = 8               # decode steps timed alone after 19a
+# a rank's peak in 19a and 19b over one device's for the same part, at
+# most: a rank holds half the weights and half the KV cells but the
+# whole gathered logits (0.56-0.57 of one device's on an H100 80GB); a
+# rank that still holds its 19a engine at 19b reads 0.76
+TP_PEAK_SHARE = 0.7
+
+
+def _tp_prompts(torch, vocab):
+    """Phase 3's prompts (17, 130, 300 tokens, the first again)."""
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, vocab, (n,), generator=gen).tolist()
+               for n in PROMPT_LENS[:3]]
+    return prompts + [prompts[0]]
+
+
+def _tp_gemma_rows(torch, vocab):
+    """19b's direct batch: TP_GEMMA_ROWS prompts of TP_GEMMA_LEN tokens
+    (a client's batch has one width)."""
+    gen = torch.Generator().manual_seed(4)
+    return torch.randint(0, vocab, (TP_GEMMA_ROWS, TP_GEMMA_LEN),
+                         generator=gen).tolist()
+
+
+def _tp_rank_engine(torch, mod, cfg, gang):
+    """This rank's engine: the full weights drawn on the card from seed 0
+    into host memory, leaf by leaf, cut for the rank, the cut moved to
+    the card."""
+    from kubeflow_tpu_torch import bridge
+    from kubeflow_tpu_torch.serving.engine import (
+        GEMMA_FAMILY, LLAMA_FAMILY, EngineConfig, InferenceEngine,
+    )
+
+    dev = torch.device("cuda")
+    full = mod.init(cfg, 0, dev, store="cpu")
+    local = bridge.tensor_rank_params(full, cfg, gang.group.index,
+                                      gang.group.size)
+    local = {k: ({n: t.to(dev) for n, t in v.items()} if k == "blocks"
+                 else v.to(dev)) for k, v in local.items()}
+    del full
+    fam = GEMMA_FAMILY if mod.__name__.endswith("gemma") else LLAMA_FAMILY
+    return InferenceEngine(local, cfg, fam, EngineConfig(max_len=MAX_LEN),
+                           device=dev, cuda_graphs=False, group=gang.group)
+
+
+def _tp_token_log(torch):
+    """Every rank logs the tokens its engines compute (decode steps,
+    prefill slices and groups, one-shot generates), so the parent can
+    hold each rank's to rank 0's."""
+    from kubeflow_tpu_torch.serving.continuous import ContinuousEngine
+    from kubeflow_tpu_torch.serving.engine import InferenceEngine
+
+    got = []
+
+    def logged(cls, name, pick):
+        fn = getattr(cls, name)
+
+        def run(self, *a, **kw):
+            out = fn(self, *a, **kw)
+            got.append((name, pick(out).detach().cpu()))
+            return out
+
+        setattr(cls, name, run)
+
+    logged(ContinuousEngine, "decode", lambda out: out[0])
+    logged(ContinuousEngine, "prefill_slice", lambda out: out[0])
+    logged(ContinuousEngine, "prefill_batch", lambda out: out[1])
+    logged(InferenceEngine, "generate",
+           lambda out: out[0] if isinstance(out, tuple) else out)
+    return got
+
+
+def _tp_serve_llama(torch, eng, prompts, calls_log):
+    """19a on the leading rank: the app's chunked waves, the radix
+    repeat, the staged cost of a decode step and of a prefill slice, a
+    monolithic wave; -> what the parent checks."""
+    import aiohttp
+    import numpy as np
+    from aiohttp import web
+
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.parallel import comm
+    from kubeflow_tpu_torch.serving.continuous import ContinuousBatcher
+    from kubeflow_tpu_torch.serving.server import (
+        BATCHERS_KEY, create_serving_app,
+    )
+
+    name = "llama3-1b"
+
+    async def session():
+        out = {}
+        app = create_serving_app({name: eng}, max_batch=SLOTS,
+                                 continuous=True, prefill_chunk_tokens=CHUNK,
+                                 seed=0)
+        runner = web.AppRunner(app)
+        await runner.setup()
+        port = _free_port()
+        await web.TCPSite(runner, "127.0.0.1", port).start()
+        batcher = app[BATCHERS_KEY][name]
+        url = f"http://127.0.0.1:{port}/v1/models/{name}:generate"
+        try:
+            async with aiohttp.ClientSession() as sess:
+                async def post(p):
+                    async with sess.post(url, json={
+                            "tokens": [p], "max_new": MAX_NEW,
+                            "logprobs": True}) as r:
+                        if r.status != 200:
+                            raise RuntimeError(f":generate {r.status}: "
+                                               f"{await r.text()}")
+                        return await r.json()
+
+                reset_launch_counts()
+                comm.reset_staged()
+                t0 = time.perf_counter()
+                bodies = await asyncio.gather(*(post(p) for p in prompts))
+                out["wave_s"] = time.perf_counter() - t0
+                out["counts"] = launch_counts()
+                out["logged_steps"] = sum(int(t.shape[1]) for n, t in
+                                          calls_log if n == "decode")
+                out["staged_wave"] = dict(comm.staged)
+                out.update(calls=batcher.calls, slices=batcher.slices,
+                           decode_ms=batcher.decode_s
+                           / max(batcher.calls, 1) * 1e3)
+                hits0 = batcher.prefix_hits
+                again = await post(prompts[1])
+                out["hits"] = batcher.prefix_hits - hits0
+                out["chunked"] = [(b["tokens"][0], b["logprobs"][0])
+                                  for b in bodies]
+                out["repeat"] = (again["tokens"][0], again["logprobs"][0])
+                if not await batcher.drain(timeout=60):
+                    raise RuntimeError("19a: the batcher did not drain")
+                ce = batcher.cengine
+                sp = ce.sampling(np.zeros(SLOTS, np.float32),
+                                 np.zeros(SLOTS, np.int64),
+                                 np.ones(SLOTS, np.float32))
+                ce.reset_slots(ce.slots(), list(range(SLOTS)))
+                steps = []
+                for i in range(TP_MEASURE_STEPS + 1):
+                    comm.reset_staged()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    ce.decode(sp, 1)
+                    torch.cuda.synchronize()
+                    if i:    # the first step is not timed
+                        steps.append((time.perf_counter() - t0,
+                                      dict(comm.staged)))
+                out["step"] = steps
+                comm.reset_staged()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ce.prefill_slice(sp, 0, np.zeros((1, CHUNK), np.int64),
+                                 CHUNK, False)
+                torch.cuda.synchronize()
+                out["slice"] = (time.perf_counter() - t0, dict(comm.staged))
+                ce.reset_slots(ce.slots(), list(range(SLOTS)))
+        finally:
+            await runner.cleanup()
+        out["kv_block_bytes"] = eng.kv_cache_bytes(1, BS)
+        mono = ContinuousBatcher(eng, asyncio.Lock(), max_slots=SLOTS,
+                                 seed=0)
+        try:
+            out["mono"] = [tuple(r) for r in await asyncio.gather(*(
+                mono.submit(p, MAX_NEW, with_logprobs=True)
+                for p in prompts))]
+        finally:
+            await mono.close()
+        return out
+
+    return asyncio.run(session())
+
+
+def _tp_serve_gemma(torch, eng):
+    """19b on the leading rank: one direct 2-row request through the
+    one-shot app (window 0)."""
+    import aiohttp
+    from aiohttp import web
+
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.parallel import comm
+    from kubeflow_tpu_torch.serving.server import create_serving_app
+
+    name = "gemma-2b"
+    rows = _tp_gemma_rows(torch, eng.cfg.vocab_size)
+
+    async def session():
+        app = create_serving_app({name: eng})
+        runner = web.AppRunner(app)
+        await runner.setup()
+        port = _free_port()
+        await web.TCPSite(runner, "127.0.0.1", port).start()
+        url = f"http://127.0.0.1:{port}/v1/models/{name}:generate"
+        try:
+            async with aiohttp.ClientSession() as sess:
+                reset_launch_counts()
+                comm.reset_staged()
+                t0 = time.perf_counter()
+                async with sess.post(url, json={
+                        "tokens": rows, "max_new": MAX_NEW,
+                        "logprobs": True}) as r:
+                    if r.status != 200:
+                        raise RuntimeError(f":generate {r.status}: "
+                                           f"{await r.text()}")
+                    body = await r.json()
+                return {"s": time.perf_counter() - t0,
+                        "counts": launch_counts(),
+                        "staged": dict(comm.staged),
+                        "tokens": body["tokens"],
+                        "logprobs": body["logprobs"]}
+        finally:
+            await runner.cleanup()
+
+    return asyncio.run(session())
+
+
+def _tp_follow_faulty(g, eng, layers) -> int:
+    """Follow the gang; the control: during a one-shot generate (the
+    continuous waves run none) this rank drops layer 0's attention exit
+    sum (the collective still runs, its result is thrown away). -> the
+    forwards it dropped the sum in."""
+    from kubeflow_tpu_torch.parallel import tensor
+
+    real_exit, fault = tensor.exit, {"on": False, "n": 0}
+
+    def exit_(x):
+        if fault["on"]:
+            fault["n"] += 1
+            if fault["n"] % (2 * layers) == 1:
+                real_exit(x)
+                return x
+        return real_exit(x)
+
+    generate = eng.generate
+
+    def faulty(*a, **kw):
+        fault["on"] = True
+        try:
+            return generate(*a, **kw)
+        finally:
+            fault["on"] = False
+
+    tensor.exit, eng.generate = exit_, faulty
+    try:
+        g.follow(eng)
+    finally:
+        tensor.exit = real_exit
+        del eng.generate
+    return fault["n"] // (2 * layers)
+
+
+def _dist_serving(torch, rank, world):
+    """Phase 19 on each rank of the serving gang: (a) llama3-1b, its
+    control, (b) gemma-2b. -> per part: the leader's served tokens and
+    logprobs, every rank's token log, launches, peak memory, KV bytes,
+    captured graphs, staged collectives."""
+    from kubeflow_tpu_torch.models import gemma, llama
+    from kubeflow_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from kubeflow_tpu_torch.serving import gang as gang_lib
+    from kubeflow_tpu_torch.serving import graphs
+
+    gangs = {k: gang_lib.form(list(range(world)),
+                              timeout_s=TP_GANG_TIMEOUT_S)
+             for k in ("llama", "gemma")}
+    log_ = _tp_token_log(torch)
+    out = {"rank": rank}
+
+    # (a) llama3-1b
+    g = gangs["llama"]
+    torch.cuda.reset_peak_memory_stats()
+    eng = _tp_rank_engine(torch, llama, llama.LLAMA3_1B, g)
+    prompts = _tp_prompts(torch, eng.cfg.vocab_size)
+    width = max(len(p) for p in prompts)
+    arr = [[0] * (width - len(p)) + p for p in prompts]
+    mask = [[False] * (width - len(p)) + [True] * len(p) for p in prompts]
+    layers = eng.cfg.num_layers
+    reset_launch_counts()
+    if g.leader:
+        g.lead(eng)
+        part = _tp_serve_llama(torch, eng, prompts, log_)
+        toks, lps = eng.generate(arr, max_new=MAX_NEW, prompt_mask=mask,
+                                 return_logprobs=True)
+        part["control"] = (toks.tolist(), lps.tolist())
+        g.stop()
+    else:
+        part = {"dropped": _tp_follow_faulty(g, eng, layers)}
+    part.update(session=launch_counts(),
+                peak=torch.cuda.max_memory_allocated(),
+                kv_heads=eng.kv_heads, gang_calls=g.calls,
+                log=[(n, t) for n, t in log_ if n != "generate"])
+    out["llama"] = part
+    log_.clear()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) gemma-2b
+    g = gangs["gemma"]
+    torch.cuda.reset_peak_memory_stats()
+    eng = _tp_rank_engine(torch, gemma, gemma.GEMMA_2B, g)
+    if g.leader:
+        g.lead(eng)
+        part = _tp_serve_gemma(torch, eng)
+        g.stop()
+    else:
+        reset_launch_counts()
+        g.follow(eng)
+        part = {"counts": launch_counts()}
+    part.update(peak=torch.cuda.max_memory_allocated(),
+                kv_heads=eng.kv_heads, gang_calls=g.calls, log=list(log_),
+                kv_cache_bytes=eng.kv_cache_bytes(1))
+    out["gemma"] = part
+    out["graphs"] = graphs.captured["graphs"]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 DIST_CASES = {"seq": _dist_seq, "train": _dist_train, "nccl": _dist_nccl,
               "resize": lambda torch, rank, world: _dist_resize(torch, rank,
-                                                                world)}
+                                                                world),
+              "serving": _dist_serving}
 
 
 def dist_worker_main(argv: list[str]) -> None:
@@ -8298,6 +8702,277 @@ def _sum_counts(results, key=None) -> dict:
         for name, n in got.items():
             total[name] = total.get(name, 0) + n
     return total
+
+
+def _tp_teacher(torch, mod, eng, prompts, outs):
+    """Each one-device sequence teacher-forced through the plain dense
+    model: per row, per position (the logprob of the one-device token,
+    the top-2 margin, the argmax), and the whole log-softmax [n, V] on
+    the host (a served token that parts from the one-device run is held
+    to it)."""
+    rows, dists = [], []
+    with torch.inference_mode():
+        for p, o in zip(prompts, outs):
+            toks = torch.tensor([p + o[:-1]], device=eng.device)
+            logp = torch.log_softmax(
+                mod.apply(eng.params, eng.cfg, toks)[0, len(p) - 1:].float(),
+                -1)
+            top2 = torch.topk(logp, 2, dim=-1)
+            got = logp[torch.arange(len(o), device=eng.device),
+                       torch.tensor(o, device=eng.device)]
+            rows.append(list(zip(got.tolist(),
+                                 (top2.values[:, 0] - top2.values[:, 1])
+                                 .tolist(), top2.indices[:, 0].tolist())))
+            dists.append(logp.cpu())
+    return rows, dists
+
+
+def _tp_one_device(torch, key):
+    """Phase 19's one-device yardstick of part `key` ("llama": 19a's
+    prompts one at a time; "gemma": 19b's two rows): greedy tokens, the
+    teacher-forced pass along them, peak memory and KV bytes; the card
+    is freed after."""
+    from kubeflow_tpu_torch.models import gemma, llama
+    from kubeflow_tpu_torch.serving.engine import (
+        GEMMA_FAMILY, LLAMA_FAMILY, EngineConfig, InferenceEngine,
+    )
+
+    mod, cfg, fam = ((llama, llama.LLAMA3_1B, LLAMA_FAMILY) if key == "llama"
+                     else (gemma, gemma.GEMMA_2B, GEMMA_FAMILY))
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng = InferenceEngine(mod.init(cfg, 0, dev), cfg, fam,
+                          EngineConfig(max_len=MAX_LEN), device=dev,
+                          cuda_graphs=False)
+    if key == "llama":
+        prompts = _tp_prompts(torch, cfg.vocab_size)
+        outs = [eng.generate([p], max_new=MAX_NEW)[0].tolist()
+                for p in prompts]
+    else:
+        prompts = _tp_gemma_rows(torch, cfg.vocab_size)
+        outs = eng.generate(prompts, max_new=MAX_NEW).tolist()
+    peak = torch.cuda.max_memory_allocated() - m0
+    teacher, dists = _tp_teacher(torch, mod, eng, prompts, outs)
+    for i, (o, t) in enumerate(zip(outs, teacher)):
+        for j, (tok, (_, margin, top)) in enumerate(zip(o, t)):
+            if margin > 2 * LOGPROB_TOL and top != tok:
+                fail(f"phase 19 one-device {key}: row {i} token {j} is "
+                     f"{tok}, the plain model's argmax {top} (margin "
+                     f"{margin:.3f})")
+            if top != tok:
+                break
+    ref = {"prompts": prompts, "tokens": outs, "teacher": teacher,
+           "dists": dists, "peak": peak,
+           "kv_block_bytes": eng.kv_cache_bytes(1, BS),
+           "kv_cache_bytes": eng.kv_cache_bytes(1)}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _tp_hold(ref, outs, lps, label) -> bool:
+    """Served sequences against the one-device yardstick: each token's
+    logprob within LOGPROB_TOL of the teacher-forced pass's, up to and
+    including the first token that differs from the one-device run's
+    (the same prefix, so the teacher's distribution there holds the
+    served token too), which must sit at a top-2 margin of at most 2 x
+    LOGPROB_TOL (a near tie that the bf16 exit sums, rounded once per
+    rank, may break either way); the rest of that row follows another
+    path and is not compared. -> ok."""
+    worst, n, excused, bad = 0.0, 0, 0, []
+    for i, (o, lp) in enumerate(zip(outs, lps)):
+        for j, (tok, got) in enumerate(zip(o, lp)):
+            _, margin, _ = ref["teacher"][i][j]
+            worst = max(worst, abs(got - float(ref["dists"][i][j, tok])))
+            n += 1
+            if tok != ref["tokens"][i][j]:
+                if margin > 2 * LOGPROB_TOL:
+                    bad.append((i, j, round(margin, 3)))
+                else:
+                    excused += 1
+                break
+    ok = worst <= LOGPROB_TOL and not bad
+    log(f"  {label}: {n} tokens held to the teacher-forced pass, logprob "
+        f"max_abs_err {worst:.4f} (tol {LOGPROB_TOL}); {excused} rows part "
+        f"from the one-device run at a near tie (margin <= "
+        f"{2 * LOGPROB_TOL}); parted above it: {bad}")
+    return ok
+
+
+def _tp_same_logs(results, key):
+    """Every rank's logged tokens are rank 0's. -> entries compared."""
+    base = results[0][key]["log"]
+    for r in results[1:]:
+        got = r[key]["log"]
+        if len(got) != len(base) or any(
+                a[0] != b[0] or not _tensors_equal(a[1], b[1])
+                for a, b in zip(got, base)):
+            fail(f"phase 19 {key}: rank {r['rank']}'s tokens are not rank "
+                 f"0's ({len(got)} vs {len(base)} logged calls)")
+    return len(base)
+
+
+def _tensors_equal(a, b) -> bool:
+    return a.shape == b.shape and bool((a == b).all())
+
+
+def _tp_staged(st) -> str:
+    return (f"{st['calls']} staged calls, {st['bytes'] / 2**20:.3f} MiB, "
+            f"{st['seconds'] * 1e3:.2f} ms")
+
+
+def serving_tp_and_check(torch) -> dict:
+    """Phase 19: tensor-parallel serving, two ranks on cuda:0 stepped in
+    lockstep by a gang behind the HTTP app (`--dist-worker serving`),
+    held to one device's yardstick. -> the serving kernels' launches
+    over the ranks, under the `@...-tp2` names."""
+    t_phase = time.perf_counter()
+    card = _card()
+    refs = {key: _tp_one_device(torch, key) for key in ("llama", "gemma")}
+    log(f"  one-device yardsticks in {time.perf_counter() - t_phase:.1f} s; "
+        f"ranks: {TP_RANKS} worker processes on cuda:0 in a gloo group "
+        f"(host-staged collectives), eager (graphs refused at tensor > 1)")
+    res, gang_s = _spawn_gang(torch, "serving", TP_RANKS)
+    lead, layers = res[0], LAYERS
+    log(f"  gang {gang_s:.1f} s ({card})")
+
+    # (a) llama3-1b
+    a = lead["llama"]
+    counts = a["counts"]
+    bad = []
+    for r in res:
+        lg = r["llama"]["log"]
+        steps = sum(int(t.shape[1]) for n, t in lg if n == "decode")
+        slices = sum(1 for n, _ in lg if n == "prefill_slice")
+        got = r["llama"]["session"]
+        log(f"  19a rank {r['rank']}: {steps} decode steps and {slices} "
+            f"slices logged over the session, launches {got}")
+        if (got.get("paged_decode_attention", 0) != layers * steps
+                or got.get("paged_prefill_append", 0) != layers * slices):
+            bad.append(f"rank {r['rank']}: launches {got}, its {steps} "
+                       f"decode steps and {slices} slices imply {layers} "
+                       f"each")
+    want = {"paged_decode_attention": layers * a["calls"],
+            "paged_prefill_append": layers * a["slices"]}
+    for name, n in want.items():
+        if counts.get(name, 0) != n:
+            bad.append(f"{name} {counts.get(name, 0)} launches in the wave "
+                       f"on rank 0, its {a['calls']} steps ({a['logged_steps']}"
+                       f" logged) and {a['slices']} slices imply {n}")
+    if a["slices"] != sum(-(-n // CHUNK) for n in PROMPT_LENS):
+        bad.append(f"{a['slices']} prefill slices for {PROMPT_LENS}")
+    if a["logged_steps"] != a["calls"]:
+        bad.append(f"{a['calls']} decode steps dispatched in the wave, "
+                   f"{a['logged_steps']} run")
+    for key in ("llama", "gemma"):
+        calls = {r[key]["gang_calls"] for r in res}
+        if len(calls) != 1:
+            bad.append(f"{key}: the ranks made {calls} calls of the gang")
+    if bad:
+        fail("phase 19: " + "; ".join(bad))
+    n_log = _tp_same_logs(res, "llama")
+    log(f"  19a llama3-1b at tensor 2 (n_q 8, n_kv {a['kv_heads']} a rank), "
+        f"8 slots, chunked prefill: {len(PROMPT_LENS)} requests in "
+        f"{a['wave_s']:.3f} s, {a['calls']} decode steps, {a['slices']} "
+        f"slices; launches a rank {counts} ({layers} a step / slice); "
+        f"{n_log} calls' tokens identical on every rank; staged in the wave "
+        f"{_tp_staged(a['staged_wave'])}")
+    outs = [o for o, _ in a["chunked"]]
+    ok = _tp_hold(refs["llama"], outs, [lp for _, lp in a["chunked"]],
+                  "19a chunked")
+    if outs[0] != outs[3]:
+        fail(f"19a: the repeated 17-token prompt gave {outs[3]}, first "
+             f"{outs[0]}")
+    if a["hits"] < 1 or a["repeat"][0] != outs[1]:
+        fail(f"19a: the 130-token prompt again: {a['hits']} radix hits, "
+             f"tokens {a['repeat'][0]} vs {outs[1]}")
+    mono = [list(t) for t, _ in a["mono"]]
+    ok &= _tp_hold(refs["llama"], mono, [lp for _, lp in a["mono"]],
+                   "19a monolithic wave")
+    if not ok:
+        fail("19a: the served tokens disagree with one device's")
+    ctl_ok = _tp_hold(refs["llama"], *a["control"], "19a control")
+    log(f"  19a control (rank 1 drops layer 0's attention exit sum in "
+        f"{res[1]['llama']['dropped']} forwards of a one-shot generate): "
+        f"{'PASSED the check: fault' if ctl_ok else 'fails the check'}")
+    if ctl_ok or not res[1]["llama"]["dropped"]:
+        fail("19a: the control with a dropped exit sum passed the check")
+    steps = a["step"]
+    mean = {k: sum(st[k] for _, st in steps) / len(steps)
+            for k in ("calls", "bytes", "seconds")}
+    host_ms = sum(t for t, _ in steps) / len(steps) * 1e3
+    sl_s, sl = a["slice"]
+    phase3 = MEASURED.get("phase3_step_ms")
+    log(f"  19a a decode step (8 slots, {len(steps)} timed alone, rank 0): "
+        f"host {host_ms:.2f} ms, {_tp_staged(mean)} staged; the wave's "
+        f"batcher {a['decode_ms']:.2f} ms a step (dispatch + wait; phase 3's "
+        f"graph replays: "
+        f"{'not run' if phase3 is None else f'{phase3} ms'}); a {CHUNK}-token "
+        f"prefill slice {sl_s * 1e3:.2f} ms, {_tp_staged(sl)} staged: gloo on "
+        f"one card, not a number for NCCL ({card})")
+    kv1 = refs["llama"]["kv_block_bytes"]
+    if a["kv_block_bytes"] * 2 != kv1:
+        fail(f"19a: a rank's KV block {a['kv_block_bytes']} B, one "
+             f"device's {kv1} B (half the KV heads)")
+    log(f"  19a memory: peak {res[0]['llama']['peak'] / 2**30:.2f} / "
+        f"{res[1]['llama']['peak'] / 2**30:.2f} GiB on ranks 0 / 1 (weights "
+        f"cut in two, paged pools of two batchers, eager activations) "
+        f"against one device's {refs['llama']['peak'] / 2**30:.2f} GiB "
+        f"(all the weights, its batch-1 generates); KV block "
+        f"{a['kv_block_bytes']} B a rank against {kv1} B")
+
+    # (b) gemma-2b
+    b = lead["gemma"]
+    n_log = _tp_same_logs(res, "gemma")
+    steps = MAX_NEW - 1
+    for r in res:
+        got = r["gemma"]["counts"].get("decode_attention", 0)
+        if got != 18 * steps:
+            fail(f"19b rank {r['rank']}: decode_attention {got} launches, "
+                 f"18 layers x {steps} steps imply {18 * steps}")
+    if not _tp_hold(refs["gemma"], b["tokens"], b["logprobs"],
+                    "19b gemma-2b direct"):
+        fail("19b: the served tokens disagree with one device's")
+    if b["kv_cache_bytes"] != refs["gemma"]["kv_cache_bytes"]:
+        fail(f"19b: a rank's dense cache {b['kv_cache_bytes']} B, one "
+             f"device's {refs['gemma']['kv_cache_bytes']} B (its one KV "
+             f"head held whole)")
+    log(f"  19b gemma-2b at tensor 2 (n_q 4 over its one KV head held whole, "
+        f"vocab 256000 cut in two), a direct request of {TP_GEMMA_ROWS} x "
+        f"{TP_GEMMA_LEN} tokens: {b['s']:.3f} s, decode_attention 18 x {steps} a "
+        f"rank, {n_log} calls' tokens identical on every rank; staged "
+        f"{_tp_staged(b['staged'])}; peak {res[0]['gemma']['peak'] / 2**30:.2f}"
+        f" / {res[1]['gemma']['peak'] / 2**30:.2f} GiB against one device's "
+        f"{refs['gemma']['peak'] / 2**30:.2f} GiB")
+    shares = {}
+    for key, part in (("llama", "19a"), ("gemma", "19b")):
+        one = refs[key]["peak"]
+        shares[part] = [r[key]["peak"] / one for r in res]
+        for r, share in zip(res, shares[part]):
+            if share > TP_PEAK_SHARE:
+                fail(f"{part} rank {r['rank']}: peak {r[key]['peak']} B is "
+                     f"{share:.3f} of one device's {one} B (at most "
+                     f"{TP_PEAK_SHARE})")
+    log("  a rank's peak over one device's (ranks 0 / 1, at most "
+        f"{TP_PEAK_SHARE}): " + "; ".join(
+            f"{part} " + " / ".join(f"{x:.3f}" for x in xs)
+            for part, xs in shares.items()))
+    graphs = [r["graphs"] for r in res]
+    if any(graphs):
+        fail(f"phase 19: CUDA graphs captured at tensor 2: {graphs}")
+    took = time.perf_counter() - t_phase
+    log(f"  no graph captured on either rank; phase 19 {took:.1f} s "
+        f"(budget 75 s)")
+    total = _sum_counts([{"counts": r["llama"]["session"]} for r in res])
+    gcount = _sum_counts([{"counts": r["gemma"]["counts"]} for r in res])
+    return {"paged_decode_attention" + TP2: total["paged_decode_attention"],
+            "paged_prefill_append" + TP2: total["paged_prefill_append"],
+            "decode_attention" + GEMMA_TP2: gcount["decode_attention"]}
 
 
 def _ring_checks(torch, dev, seq) -> dict:
@@ -9523,6 +10198,9 @@ def main() -> None:
         log("phase 2, tensor 2: the flash kernels at a rank's heads under "
             "tensor parallelism (phases 17f's and 17g's shapes)")
         check_flash_tp(torch, dev)
+        log("phase 2, tensor 2 serving: paged decode, prefill-append and "
+            "dense decode at a rank's heads (phase 19's shapes)")
+        stats.update(check_serving_tp(torch, dev))
         log("phase 2, int8_proj: the int8-weight projection at llama3-8b's "
             "and llama3-1b's projection shapes")
         stats["int8_proj"] = check_int8_proj(torch, dev)
@@ -9730,6 +10408,14 @@ def main() -> None:
         log(f"phase 18 {time.perf_counter() - t18:.1f} s (at the end of "
             f"{', '.join(sub)} s)")
 
+    if run("19"):
+        tidy()
+        log("phase 19: tensor-parallel serving, two ranks on cuda:0 stepped "
+            "in lockstep by a gang behind the HTTP app (llama3-1b "
+            "continuous, gemma-2b one-shot)")
+        add(serving_tp_and_check(torch))
+        tidy()
+
     log(f"total {time.perf_counter() - t_all:.1f} s")
     if only:
         log(f"partial run (phases {sorted(only)}): no result line")
@@ -9762,6 +10448,9 @@ def main() -> None:
         meta[name + FP32_256] = meta[name]
         meta[name + FP32_128] = meta[name]
     meta["paged_prefill_append" + VERIFY] = meta["paged_prefill_append"]
+    for name in ("paged_decode_attention", "paged_prefill_append"):
+        meta[name + TP2] = meta[name]
+    meta["decode_attention" + GEMMA_TP2] = meta["decode_attention"]
     # no Pallas kernel: the card's counterpart of the reference's qdot
     meta["int8_proj"] = ("kubeflow_tpu_torch/csrc/int8_proj.cu",
                          "kubeflow_tpu/serving/quant.py:77")

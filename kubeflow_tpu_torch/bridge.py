@@ -14,6 +14,8 @@ so this module needs no JAX. A quantized tree (the reference's
 caller to `{"q": int8, "scale": float32}` numpy arrays, and becomes the
 port's `QTensor` (its bf16 scale widened to float32 and back is exact).
 `pack_from_jax` carries a reference `AdapterPack` across.
+`tensor_rank_params` cuts a full llama or gemma tree into one tensor
+rank's serving params, by the mesh trainer's cut (train/fsdp.py).
 
 A ViT tree (`ViTConfig`) and an MNIST MLP tree (`MLPConfig`, whose
 `layers` is a list of `{"w", "b"}` dicts) keep every leaf in its
@@ -59,6 +61,27 @@ def from_jax(params: dict, cfg, device: torch.device | str,
     out = {k: conv(k, v) for k, v in params.items() if k != "blocks"}
     out["blocks"] = {k: conv(k, v) for k, v in params["blocks"].items()}
     return out
+
+
+def tensor_rank_params(params: dict, cfg, index: int, size: int) -> dict:
+    """Tensor rank `index` of `size`'s serving params from the full tree
+    (`from_jax`'s, or a model's `init`): its query heads' columns of wq,
+    its K/V heads' columns of wk / wv (or, where the axis is a multiple
+    of the KV heads, the whole of them: `tensor.kv_columns` reads the one
+    head rank i's query heads share, i // (size / n_kv)), its columns of
+    w_gate / w_up, its rows of wo / w_down, its vocab block of the
+    embedding and of lm_head; the norm scales whole. The cut is
+    train/fsdp.py's (`tensor_rank_cut`), so serving and training cut
+    alike. Refuses a config whose heads or vocab the axis does not
+    divide, the MoE family and int8 `QTensor` leaves."""
+    from kubeflow_tpu_torch.models import gemma, llama
+    from kubeflow_tpu_torch.serving.engine import refuse_tensor_weights
+    from kubeflow_tpu_torch.train.fsdp import tensor_rank_cut
+
+    refuse_tensor_weights(params, cfg, size)
+    mod = gemma if isinstance(cfg, gemma.GemmaConfig) else llama
+    return tensor_rank_cut(params, mod.param_logical_axes(cfg), cfg, index,
+                           size)
 
 
 def _plain_tree(tree, device, dtype):

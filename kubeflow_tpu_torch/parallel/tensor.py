@@ -21,6 +21,13 @@ XLA inserts the all-reduces. The port's collectives are explicit
   and psums (ops/embedding.py); the head's logits stay vocab-local and
   the cross entropy reduces over the blocks (train/trainer.py).
 
+Serving (serving/engine.py, serving/gang.py) runs the same blocks with
+no backward: the engine's forward runs inside `parallel(group)`, reads
+its K/V columns through `kv_columns`, calls `exit` after the wo and
+w_down products, looks the embedding up in its vocab block, and
+`gather_vocab` puts the head's vocab-local logits back together, so
+that sampling sees the whole vocabulary on every rank.
+
 `parallel(group)` sets the group for the code inside it, as the
 reference's `set_mesh` does; outside one (or with a group of one rank)
 every helper is the identity, at no cost. The mesh trainer's step runs
@@ -103,6 +110,24 @@ def vocab_start(local_vocab: int) -> int:
     """The first vocab id of this rank's block of `local_vocab` ids."""
     g = group()
     return 0 if g is None else g.index * local_vocab
+
+
+def vocab_divides(vocab_size: int, size: int) -> None:
+    """Refuses a vocabulary that the axis does not divide: the embedding
+    and the head are cut into equal vocab blocks, one a rank."""
+    if vocab_size % size:
+        raise ValueError(f"vocab_size {vocab_size} is not divisible by "
+                         f"tensor={size}: the embedding and the head are "
+                         "cut into equal vocab blocks")
+
+
+def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
+    """The head's vocab-local logits [..., V / t] -> [..., V] on every
+    rank, the blocks in axis order (no gradient: serving)."""
+    g = group()
+    if g is None:
+        return logits
+    return comm._all_gather(logits.contiguous(), logits.ndim - 1, g)
 
 
 def kv_columns(w: torch.Tensor, num_kv_heads: int,

@@ -87,6 +87,20 @@ spill tier and imported blocks are keyed by (namespace, adapter id)
 (`cache_ns`): K/V computed under one adapter is never reused under
 another, where the reference keys by namespace alone and serves an
 adapter request over a base request's cells.
+
+Tensor-parallel serving (an engine built with `group=`, t > 1 ranks):
+every rank holds a `ContinuousEngine` over its rank's engine, whose
+pool is `[L, blocks, block, n_kv_rank, hd]` (its KV heads, or the one
+head its query heads share) and whose forwards run inside the group.
+The batcher runs on one rank only; serving/gang.py mirrors its device
+calls on the others, and the engine's seed, resolved on that rank, is
+the seed of every rank's generator, so sampled rows draw alike and the
+ranks' caches stay one. The engine's `cuda_graphs` (False, the only
+setting at t > 1) is the `ContinuousEngine`'s by default, so every
+runner is eager; an explicit `cuda_graphs=True` is refused. Refused at
+t > 1 too, each naming its ROADMAP item: `warmup`, a draft (speculative
+decoding), the spill tier and the block export and import of migration
+and the fleet plane.
 """
 
 from __future__ import annotations
@@ -114,6 +128,7 @@ from kubeflow_tpu_torch.serving.engine import (
     InferenceEngine,
     SamplingParams,
     race_draw,
+    refuse_graphs_at_tensor,
     sampling_dist,
     transformer_block,
 )
@@ -267,7 +282,9 @@ class ContinuousEngine:
     and `prefill_slice` replay CUDA graphs of `step` and of the slice
     body, `warmup` captures them ahead of traffic. `cuda_graphs=False`
     runs the same bodies as eager launches: an explicit control, never a
-    fallback. `seed` seeds the generator every sampled draw takes.
+    fallback; None (the default) takes the engine's own setting, and
+    True is refused at tensor > 1. `seed` seeds the generator every
+    sampled draw takes.
 
     With a `draft` engine (continuous speculative decoding), the engine
     also owns the draft's per-slot cache (`draft_slots()`), seeds a row
@@ -280,10 +297,14 @@ class ContinuousEngine:
     def __init__(self, engine: InferenceEngine, max_slots: int = 8,
                  block_size: int = 64, *, num_blocks: int | None = None,
                  prefill_chunk: int | None = None,
-                 seed: int | None = None, cuda_graphs: bool = True,
+                 seed: int | None = None, cuda_graphs: bool | None = None,
                  draft: InferenceEngine | None = None):
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
+        if draft is not None and (engine.group is not None
+                                  or draft.group is not None):
+            raise ValueError("speculative decoding at tensor > 1 is not "
+                             "ported yet (ROADMAP Queue 1 item 3g)")
         if draft is not None:
             # the ratio test compares draft and target distributions
             # token by token, and a draft row follows its target cursor
@@ -336,13 +357,26 @@ class ContinuousEngine:
         self._rows = torch.arange(max_slots, device=dev)
         if seed is None:
             seed = int.from_bytes(os.urandom(8), "little") >> 1
+        self.seed = seed
         self.gen = torch.Generator(device=dev).manual_seed(seed)
+        if cuda_graphs is None:
+            cuda_graphs = engine.cuda_graphs
+        if engine.group is not None:
+            refuse_graphs_at_tensor(cuda_graphs)
         self.graphs = GraphCache(dev, eager=not cuda_graphs)
         self._st: SlotState | None = None
         self._knobs = None     # static [S] temperature, top_k, top_p
         self._slice_in = {}    # prompt-slice width -> static slice inputs
         self._dst: DraftSlots | None = None
         self._spec_in = {}     # gamma -> static (drafted, qs)
+        if engine.gang is not None:
+            # the gang's leading rank: every other rank builds its own
+            # engine with these arguments (this seed) and mirrors its
+            # device calls
+            engine.gang.adopt(self, dict(
+                max_slots=max_slots, block_size=block_size,
+                num_blocks=num_blocks, prefill_chunk=prefill_chunk,
+                seed=seed, cuda_graphs=cuda_graphs))
 
     @property
     def attention_impl(self) -> str:
@@ -354,9 +388,12 @@ class ContinuousEngine:
 
     @torch.inference_mode()
     def init_slots(self) -> SlotState:
+        return self._new_slots()
+
+    def _new_slots(self) -> SlotState:
         cfg, dev, S = self.engine.cfg, self.engine.device, self.S
         shape = (cfg.num_layers, self.num_blocks, self.block_size,
-                 cfg.num_kv_heads, cfg.head_dim)
+                 self.engine.kv_heads, cfg.head_dim)
 
         def zeros(*shape, dtype=torch.int32):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -373,7 +410,9 @@ class ContinuousEngine:
         allocated once and never replaced."""
         if self._st is None:
             dev, S = self.engine.device, self.S
-            self._st = self.init_slots()
+            # not `init_slots`, which a serving gang mirrors: every rank
+            # builds its own state where its first use reaches it
+            self._st = self._new_slots()
             self._knobs = (torch.zeros(S, dtype=torch.float32, device=dev),
                            torch.zeros(S, dtype=torch.int64, device=dev),
                            torch.ones(S, dtype=torch.float32, device=dev))
@@ -411,7 +450,8 @@ class ContinuousEngine:
             self._dst.length.zero_()
 
     def kv_block_bytes(self) -> int:
-        """Device bytes one pool block holds (K+V, all layers)."""
+        """Device bytes one pool block holds (K+V, all layers): a rank's,
+        under tensor parallelism."""
         return self.engine.kv_cache_bytes(1, self.block_size)
 
     def _index(self, values) -> torch.Tensor:
@@ -479,12 +519,20 @@ class ContinuousEngine:
                                        device=dev),
                            torch.zeros(g, dtype=torch.int32, device=dev))
 
+    def _refuse_blocks(self) -> None:
+        if self.engine.group is not None:
+            raise ValueError(
+                "block export and import (the spill tier, migration and "
+                "the fleet plane) at tensor > 1 are not ported yet "
+                "(ROADMAP Queue 1 items 3h and 3i)")
+
     @torch.inference_mode()
     def export_blocks(self, st: SlotState, block_ids):
         """Host copies of the K/V held by physical blocks `block_ids`:
         `(k, v)`, each a CPU tensor `[L, n, block_size, n_kv, hd]` of the
         pool's dtype, in id order. A synchronous device-to-host copy: it
         waits for the work queued before it. Does not touch the state."""
+        self._refuse_blocks()
         ids = self._index(list(block_ids))
         return tuple(pool[:, ids].cpu() for pool in (st.k, st.v))
 
@@ -495,10 +543,11 @@ class ContinuousEngine:
         canonical form (cell index == token position), so the blocks
         are radix-shareable at once. Raises ValueError when a payload's
         shape disagrees with the pool's block geometry."""
+        self._refuse_blocks()
         cfg = self.engine.cfg
         block_ids = list(block_ids)
         want = (cfg.num_layers, len(block_ids), self.block_size,
-                cfg.num_kv_heads, cfg.head_dim)
+                self.engine.kv_heads, cfg.head_dim)
         k, v = (x if isinstance(x, torch.Tensor)
                 else torch.tensor(np.asarray(x)) for x in (k, v))
         if tuple(k.shape) != want or tuple(v.shape) != want:
@@ -619,7 +668,7 @@ class ContinuousEngine:
                                       j + npad[:, None]),
                           max=max_len - 1).long()             # [n, w]
         shape = (cfg.num_layers, n * self.blocks_per_slot, self.block_size,
-                 cfg.num_kv_heads, cfg.head_dim)
+                 self.engine.kv_heads, cfg.head_dim)
         for pool, dense in ((st.k, pstate.k), (st.v, pstate.v)):
             rows_kv = dense[:, row_i[:, None], src]       # [L, n, w, ...]
             pool[:, tab] = rows_kv.reshape(shape).to(pool.dtype)
@@ -686,9 +735,10 @@ class ContinuousEngine:
                     self._kv_positions, causal=True, kv_mask=kv_valid,
                     window=window)
 
-            x, _ = transformer_block(cfg, fam, p, x, rope_positions,
-                                     self._inv_freq, write_kv, attn,
-                                     eng.layer_proj(li, aid))
+            with eng.parallel():
+                x, _ = transformer_block(cfg, fam, p, x, rope_positions,
+                                         self._inv_freq, write_kv, attn,
+                                         eng.layer_proj(li, aid))
         logits = eng._head(eng.rms_final(x)[:, -1])
         nxt, lp = eng._sample(logits, gen, sp)
         st.length.copy_(torch.where(
@@ -781,9 +831,10 @@ class ContinuousEngine:
                     kv_mask=kv_valid, window=window)
                 return out
 
-            x, _ = transformer_block(cfg, fam, p, x, rope_positions,
-                                     self._inv_freq, write_kv, attn,
-                                     eng.layer_proj(li, aid))
+            with eng.parallel():
+                x, _ = transformer_block(cfg, fam, p, x, rope_positions,
+                                         self._inv_freq, write_kv, attn,
+                                         eng.layer_proj(li, aid))
         return eng.rms_final(x)
 
     def _append(self, st: SlotState, idx, tokens, n_valid, finish,
@@ -1003,7 +1054,13 @@ class ContinuousEngine:
         `slice_tokens` for every sampling key, with a draft and
         `spec_gamma` a draft row's seed and the spec draft and verify
         graphs for every sampling key, and `reset_slots`. Then clears
-        the state. -> the number of shapes run."""
+        the state. -> the number of shapes run. Refused at tensor > 1,
+        where nothing is captured."""
+        if self.engine.group is not None:
+            raise ValueError(
+                "warmup captures CUDA graphs, which tensor-parallel serving "
+                "refuses (host-staged gloo collectives; NCCL gangs with "
+                "graph capture: ROADMAP Queue 1 item 3k)")
         st = self.slots()
         spec = self.draft is not None and bool(spec_gamma)
         if spec:
@@ -1224,7 +1281,7 @@ class ContinuousBatcher:
                  kv_block_size: int = 64,
                  kv_pool_blocks: int | None = None,
                  kv_spill_bytes: int | None = None,
-                 seed: int | None = None, cuda_graphs: bool = True,
+                 seed: int | None = None, cuda_graphs: bool | None = None,
                  draft: InferenceEngine | None = None,
                  spec_gamma: int = 4,
                  tenancy: TenancyConfig | None = None):
@@ -1244,6 +1301,9 @@ class ContinuousBatcher:
         if kv_spill_bytes is not None and kv_spill_bytes < 0:
             raise ValueError(
                 f"kv_spill_bytes must be >= 0, got {kv_spill_bytes}")
+        if kv_spill_bytes is not None and engine.group is not None:
+            raise ValueError("the spill tier at tensor > 1 is not ported "
+                             "yet (ROADMAP Queue 1 item 3h)")
         self.engine = engine
         self.gpu_lock = gpu_lock
         self.chunk = chunk

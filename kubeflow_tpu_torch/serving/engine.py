@@ -39,6 +39,23 @@ With an `adapter_pack` (serving/multilora.py), `generate(adapter=...)`,
 `prefill_chunked` and `score` take one adapter name for the batch or one
 a row; the lane's decode graph then reads the pack and the lane's static
 `aid` ids, and is keyed apart from the plain step.
+
+Tensor parallelism (`group=`, an `AxisGroup` of the "tensor" axis of
+size t > 1): the engine holds one rank's params (`bridge.
+tensor_rank_params`: its query heads, its K/V heads or the one head
+they share, its MLP columns and rows, its vocab block of the embedding
+and the head) and runs its forward inside `tensor.parallel(group)`:
+`transformer_block` reshapes to the rank's head counts, sums the wo and
+w_down products over the ranks (`tensor.exit`, fp32, rounded once), the
+embedding is the vocab-parallel lookup and the head's vocab-local
+logits are gathered (`tensor.gather_vocab`), so sampling, filtering,
+logprobs and EOS forcing see the whole vocabulary on every rank. The
+dense cache holds the rank's KV heads. Every rank of the group must run
+the same calls in the same order: serving/gang.py steps them. Refused
+at t > 1, each naming the ROADMAP item that will port it:
+`cuda_graphs=True` (a gloo collective stages through host memory, which
+a graph cannot capture: every step runs eagerly), `warmup`, an adapter
+pack, int8 `QTensor` weights and the MoE family.
 """
 
 from __future__ import annotations
@@ -58,10 +75,11 @@ from kubeflow_tpu_torch.ops.attention import dot_product_attention
 from kubeflow_tpu_torch.ops.embedding import embed_lookup
 from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rotary import apply_rope, rope_frequencies
+from kubeflow_tpu_torch.parallel import tensor
 from kubeflow_tpu_torch.parallel.moe import moe_mlp
 from kubeflow_tpu_torch.serving.graphs import GraphCache, upload
 from kubeflow_tpu_torch.serving.multilora import lora_proj
-from kubeflow_tpu_torch.serving.quant import qdot_many
+from kubeflow_tpu_torch.serving.quant import QTensor, qdot_many
 
 
 @dataclasses.dataclass(frozen=True)
@@ -282,31 +300,86 @@ def transformer_block(cfg, fam: Family, p, x, rope_positions, inv_freq,
     cache policy and the
     attention call; `proj(names, h, ws)` computes the block matmuls that
     read one h, in order (default `qdot_many`: plain weights' products,
-    or int8 QTensors' in one launch)."""
+    or int8 QTensors' in one launch).
+
+    Head counts come from the leaves: under tensor parallelism (inside
+    `tensor.parallel`) they are the rank's, K/V read through
+    `tensor.kv_columns`, and the wo and w_down products are partial sums
+    that `tensor.exit` sums over the ranks, where models/llama.py's
+    `_attention_half` and `_block` place them. Serving has no backward,
+    so there is no `tensor.enter` after the norms."""
     if proj is None:
         def proj(names, h, ws):
             return qdot_many(h, ws, cfg.dtype)
 
     b, s = x.shape[:2]
+    hd = cfg.head_dim
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    q, k, v = proj(("wq", "wk", "wv"), h, (p["wq"], p["wk"], p["wv"]))
-    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    wk, wv = (tensor.kv_columns(p[n], cfg.num_kv_heads, hd)
+              for n in ("wk", "wv"))
+    q, k, v = proj(("wq", "wk", "wv"), h, (p["wq"], wk, wv))
+    q = q.reshape(b, s, -1, hd)
+    k = k.reshape(b, s, -1, hd)
+    v = v.reshape(b, s, -1, hd)
     q = apply_rope(q, rope_positions, inv_freq)
     k = apply_rope(k, rope_positions, inv_freq)
     k_cache, v_cache = write_kv(k, v)
     out = attn(q, k_cache, v_cache)
-    (o,) = proj(("wo",), out.reshape(b, s, cfg.q_dim), (p["wo"],))
-    x = x + o
+    (o,) = proj(("wo",), out.reshape(b, s, -1), (p["wo"],))
+    x = x + tensor.exit(o)
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
     if fam.mlp is not None:
         return x + fam.mlp(cfg, p, h), (k_cache, v_cache)
     gate, up = proj(("w_gate", "w_up"), h, (p["w_gate"], p["w_up"]))
     ff = fam.gate_act(gate) * up
     (down,) = proj(("w_down",), ff, (p["w_down"],))
-    x = x + down
+    x = x + tensor.exit(down)
     return x, (k_cache, v_cache)
+
+
+def refuse_graphs_at_tensor(cuda_graphs: bool) -> None:
+    """The one graph policy of tensor-parallel serving: CUDA graphs are
+    refused at tensor > 1 (the engines' `cuda_graphs=True`)."""
+    if cuda_graphs:
+        raise ValueError(
+            "cuda_graphs=True at tensor > 1: a gloo collective stages "
+            "through host memory, which a CUDA graph cannot capture; pass "
+            "cuda_graphs=False (every step then runs eagerly; NCCL gangs "
+            "across cards with graph capture: ROADMAP Queue 1 item 3k)")
+
+
+def refuse_tensor_weights(params, cfg, size: int) -> bool:
+    """The refusals of serving weights at tensor `size` > 1, for the full
+    tree (`bridge.tensor_rank_params`) and a rank's cut (the engine): the
+    MoE family's, int8 `QTensor` leaves, and a vocab or head count the
+    axis does not divide. -> whether the KV heads are held whole."""
+    if "router" in params["blocks"]:
+        raise ValueError("tensor-parallel serving of the MoE family is not "
+                         "ported yet (ROADMAP Queue 1 item 3d)")
+    if any(isinstance(v, QTensor) for v in params["blocks"].values()):
+        raise ValueError("int8 QTensor weights are not cut for tensor-"
+                         "parallel serving yet (ROADMAP Queue 1 item 3e)")
+    tensor.vocab_divides(cfg.vocab_size, size)
+    return tensor.kv_held_whole(cfg.num_heads, cfg.num_kv_heads, size)
+
+
+def _tensor_serving(params, cfg, size: int, cuda_graphs: bool,
+                    adapter_pack) -> int:
+    """The refusals of a tensor-parallel engine of `size` ranks and a
+    check that `params` are a rank's cut. -> the rank's KV heads (one
+    where they are held whole)."""
+    refuse_graphs_at_tensor(cuda_graphs)
+    if adapter_pack is not None:
+        raise ValueError("adapter packs at tensor > 1 are not ported yet "
+                         "(ROADMAP Queue 1 item 3f)")
+    whole = refuse_tensor_weights(params, cfg, size)
+    want = cfg.num_heads // size * cfg.head_dim
+    got = params["blocks"]["wq"].shape[-1]
+    if got != want:
+        raise ValueError(f"wq has {got} columns, a rank's cut at "
+                         f"tensor={size} has {want}: pass the rank's params "
+                         "(bridge.tensor_rank_params)")
+    return 1 if whole else cfg.num_kv_heads // size
 
 
 class InferenceEngine:
@@ -320,13 +393,26 @@ class InferenceEngine:
     card instead of replaying its graph: an explicit control, never a
     fallback. `adapter_pack` (`multilora.build_pack`, on the engine's
     device) makes K fine-tunes resident over these weights; a request
-    names one per row (`generate(adapter=...)`)."""
+    names one per row (`generate(adapter=...)`).
+
+    `group` (an `AxisGroup` of the "tensor" axis, or None): the engine
+    is one rank of a tensor-parallel replica (the module docstring),
+    `params` that rank's cut; `gang` is set on the rank that leads the
+    replica's gang (serving/gang.py)."""
 
     def __init__(self, params, cfg, family: Family,
                  engine_config: EngineConfig = EngineConfig(),
                  device: torch.device | str | None = None, *,
-                 cuda_graphs: bool = True, adapter_pack=None):
+                 cuda_graphs: bool = True, adapter_pack=None,
+                 group=None):
         self.device = resolve_device(device)
+        self.group = group if group is not None and group.size > 1 else None
+        self.gang = None
+        # the rank's KV heads: the cache and the pool hold these
+        self.kv_heads = cfg.num_kv_heads
+        if self.group is not None:
+            self.kv_heads = _tensor_serving(params, cfg, self.group.size,
+                                            cuda_graphs, adapter_pack)
         self.cuda_graphs = cuda_graphs
         self._lanes: dict[int, _Lane] = {}
         self._retired = [0, 0]   # captures, replays of private lanes
@@ -356,19 +442,30 @@ class InferenceEngine:
         self._cells = torch.arange(engine_config.max_len, dtype=torch.int32,
                                    device=self.device)
 
+    def parallel(self):
+        """The context the forward runs in: tensor-parallel over the
+        engine's group (a no-op on one device)."""
+        return tensor.parallel(self.group)
+
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The (vocab-parallel, under the group) lookup; gemma's
+        sqrt(hidden) scale after the ranks' sum."""
         cfg = self.cfg
-        x = embed_lookup(self.params["embed"], tokens, cfg.dtype)
+        with self.parallel():
+            x = embed_lookup(self.params["embed"], tokens, cfg.dtype)
         if self.family.scale_embed:
             x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=cfg.dtype)
         return x
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
-        """fp32 logits, as the reference (engine.py:279-282)."""
+        """fp32 logits, as the reference (engine.py:279-282): under the
+        group, the rank's vocab block of the head (the tied embedding's
+        transpose for gemma), then the blocks gathered."""
         head = self.params.get("lm_head")
         if head is None:
             head = self.params["embed"].T
-        return x.float() @ head.float()
+        with self.parallel():
+            return tensor.gather_vocab(x.float() @ head.float())
 
     def _sample(self, logits: torch.Tensor, gen: torch.Generator,
                 sp: SamplingParams):
@@ -439,11 +536,12 @@ class InferenceEngine:
                 contiguous_positions=True)
 
         x = self._embed(tokens)
-        for li, p in enumerate(self.layers):
-            x, _ = transformer_block(
-                cfg, fam, p, x, rope_positions, self._inv_freq,
-                lambda k, v, li=li: write(li, k, v), attn,
-                self.layer_proj(li, aid))
+        with self.parallel():
+            for li, p in enumerate(self.layers):
+                x, _ = transformer_block(
+                    cfg, fam, p, x, rope_positions, self._inv_freq,
+                    lambda k, v, li=li: write(li, k, v), attn,
+                    self.layer_proj(li, aid))
         return self.rms_final(x)
 
     def _forward_cached(self, tokens: torch.Tensor, state: DecodeState, *,
@@ -488,7 +586,7 @@ class InferenceEngine:
 
     def init_state(self, batch: int) -> DecodeState:
         cfg = self.cfg
-        shape = (cfg.num_layers, batch, self.ec.max_len, cfg.num_kv_heads,
+        shape = (cfg.num_layers, batch, self.ec.max_len, self.kv_heads,
                  cfg.head_dim)
         return DecodeState(
             torch.zeros(shape, dtype=cfg.dtype, device=self.device),
@@ -496,13 +594,14 @@ class InferenceEngine:
 
     def kv_cache_bytes(self, batch: int, cells: int | None = None) -> int:
         """KV-cache bytes for `batch` rows of `cells` cache cells (K+V,
-        all layers; defaults to max_len, what the dense cache holds)."""
+        all layers; defaults to max_len, what the dense cache holds): a
+        rank's, under tensor parallelism."""
         cfg = self.cfg
         if cells is None:
             cells = self.ec.max_len
         itemsize = torch.empty((), dtype=cfg.dtype).element_size()
         return (2 * cfg.num_layers * batch * cells
-                * cfg.num_kv_heads * cfg.head_dim * itemsize)
+                * self.kv_heads * cfg.head_dim * itemsize)
 
     def _tensor(self, x, dtype: torch.dtype) -> torch.Tensor:
         """A tensor, numpy array or nested list as `dtype` on the
@@ -626,7 +725,13 @@ class InferenceEngine:
         size ahead of traffic (the window batcher's rows are powers of
         two up to its max_batch); a batch size left out captures on first
         use; with an adapter pack each key's adapter step too. Returns the
-        number of graphs warmed."""
+        number of graphs warmed. Refused at tensor > 1, where nothing is
+        captured."""
+        if self.group is not None:
+            raise ValueError(
+                "warmup captures CUDA graphs, which tensor-parallel serving "
+                "refuses (host-staged gloo collectives; NCCL gangs with "
+                "graph capture: ROADMAP Queue 1 item 3k)")
         gen = torch.Generator(device=self.device).manual_seed(0)
         loras = (False, True) if self.adapter_pack is not None else (False,)
         n = 0

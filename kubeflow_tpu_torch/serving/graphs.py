@@ -17,6 +17,10 @@ during capture), captures it with `torch.cuda.graph`, and from then on
 - On the card a capture that fails raises. There is no fallback to
   eager launches: the only eager CUDA path is a `GraphCache` built with
   `eager=True`, which a caller names explicitly (a control run).
+- At tensor > 1 (a tensor-parallel engine, serving/gang.py) every
+  cache is eager: a gloo collective stages through host memory, which a
+  graph cannot capture. `captured` counts the graphs this process has
+  captured, so a caller can check that none was.
 - Launch counts stay exact under replay: a capture records what the
   body's kernel wrappers counted (`ops.cuda.launch_counts()` and
   `ops.attention.impl_counts()`), takes it back (a capture launches
@@ -40,6 +44,11 @@ import torch
 
 from kubeflow_tpu_torch.ops import attention
 from kubeflow_tpu_torch.ops.cuda import add_launch_counts, launch_counts
+
+
+# graphs captured in this process (a `GraphCache`'s `captures` counts its
+# eager runners too)
+captured = {"graphs": 0}
 
 
 def upload(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -183,6 +192,7 @@ class GraphRunner:
                              for k in after[kind]} for kind in after}
         _add_counts(self.delta, -1)   # a capture launches nothing
         self.graph, self.out = graph, out
+        captured["graphs"] += 1
         if self.on_capture is not None:
             self.on_capture()
         return result

@@ -286,7 +286,9 @@ class ServingObs:
         self.kv_blocks = Gauge(
             "serving_kv_blocks_in_use",
             "KV pool blocks held by active requests plus the radix "
-            "prefix cache, per model", reg)
+            "prefix cache, per model (under tensor parallelism each rank "
+            "holds these blocks of its own KV heads: the leading rank's "
+            "view)", reg)
         self.prefill_tokens = get_or_create_histogram(
             reg, "serving_prefill_tokens",
             "Per-admission prompt tokens by source: computed (suffix "
@@ -374,7 +376,8 @@ class ServingObs:
         self.kv_high_water = Gauge(
             "serving_kv_blocks_high_water",
             "High-water mark of KV pool blocks in use since startup, "
-            "per model (capacity headroom for the pool sizing knob)", reg)
+            "per model (capacity headroom for the pool sizing knob; per "
+            "rank under tensor parallelism)", reg)
         # the host spill tier's traffic and occupancy, and the peer
         # block fetch by outcome (any non-ok fell back to plain prefill)
         self.kv_spill_demotions = Counter(
@@ -2195,7 +2198,8 @@ async def reload_weights(request: web.Request):
     The batcher forgets every cached KV (`flush_cache`), admission opens,
     the version is adopted, the defect is planted or healed, and a fleet
     registration is forced so the router sees the new version at once.
-    Every failure re-opens admission with the old weights."""
+    Every failure re-opens admission with the old weights. A tensor-
+    parallel engine (one rank of a serving gang) is refused (400)."""
     app = request.app
     try:
         body: dict[str, Any] = await request.json()
@@ -2231,6 +2235,11 @@ async def reload_weights(request: web.Request):
                 {"error": "defect.ttft_delay_s must be a number in "
                           "[0, 30]"}, status=400)
     engine = engines[name]
+    if getattr(engine, "group", None) is not None:
+        return web.json_response(
+            {"error": "a weight reload at tensor > 1 (into every rank of "
+                      "the serving gang) is not ported yet (ROADMAP Queue "
+                      "1 item 3i)"}, status=400)
     was_draining = app[DRAIN_KEY]["draining"]
     app[DRAIN_KEY]["draining"] = True
     batchers = app[BATCHERS_KEY]

@@ -51,6 +51,9 @@ class SpeculativeEngine:
     counts diverge across rows, and each cache keeps one cursor."""
 
     def __init__(self, target: InferenceEngine, draft: InferenceEngine):
+        if getattr(target, "group", None) or getattr(draft, "group", None):
+            raise ValueError("speculative decoding at tensor > 1 is not "
+                             "ported yet (ROADMAP Queue 1 item 3g)")
         if target.cfg.vocab_size != draft.cfg.vocab_size:
             raise ValueError(
                 f"target vocab {target.cfg.vocab_size} != draft vocab "

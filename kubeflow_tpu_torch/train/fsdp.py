@@ -162,6 +162,39 @@ def _tensor_heads(model_config, size: int) -> bool:
                                 model_config.num_kv_heads, size)
 
 
+def tensor_spec(rules, logical_axes: tuple, kv_whole: bool) -> sharding_lib.P:
+    """A leaf's spec under `rules`, "tensor" dropped from the KV
+    projections where they are held whole (`_tensor_heads`)."""
+    spec = rules.resolve(logical_axes)
+    if kv_whole and "kv_heads" in logical_axes:
+        spec = sharding_lib.without_axis(spec, mesh_lib.TENSOR_AXIS)
+    return spec
+
+
+def tensor_rank_cut(params: dict, logical_axes, model_config, index: int,
+                    size: int, rules=sharding_lib.LLAMA_RULES) -> dict:
+    """Tensor rank `index` of `size`'s blocks of full `params`: the cut
+    `MeshLayout` makes on a mesh whose only axis above 1 is "tensor"
+    (`tensor_spec`, on whole heads; KV projections held whole where
+    `_tensor_heads` says so). The serving engines' weights
+    (`bridge.tensor_rank_params`)."""
+    kv_whole = _tensor_heads(model_config, size)
+    axes = dict(_named_leaves(logical_axes))
+
+    def cut(name, leaf):
+        spec = tensor_spec(rules, axes[name], kv_whole)
+        for dim, entry in enumerate(spec):
+            if mesh_lib.TENSOR_AXIS in sharding_lib._entry_axes(entry):
+                if leaf.shape[dim] % size:
+                    raise ValueError(f"{name}: dim {dim} of "
+                                     f"{tuple(leaf.shape)} not divisible "
+                                     f"by tensor={size}")
+                leaf = leaf.chunk(size, dim)[index]
+        return leaf.clone(memory_format=torch.contiguous_format)
+
+    return _rebuild(params, cut)
+
+
 class MeshLayout:
     """Per-leaf layouts of a params tree on `mesh` under `rules`
     (`model_config`: the model's, needed at tensor > 1)."""
@@ -212,9 +245,8 @@ class MeshLayout:
         if len(axes) != len(shape):
             raise ValueError(f"{name}: logical axes {axes} for shape "
                              f"{tuple(shape)}")
-        spec = sharding_lib.filter_spec(self.rules.resolve(axes), mesh)
-        if self.kv_whole and "kv_heads" in axes:
-            spec = sharding_lib.without_axis(spec, mesh_lib.TENSOR_AXIS)
+        spec = sharding_lib.filter_spec(
+            tensor_spec(self.rules, axes, self.kv_whole), mesh)
         gathers = sharding_lib._dim_groups(spec, mesh)
         for dim, g in gathers:
             if shape[dim] % g.size:

@@ -960,3 +960,381 @@ def mesh_recipe_cases(payload, rank, world):
                                                    meshes["hybrid"]))
     _guarded(out, "pp", lambda: _pipeline_adafactor(payload, meshes["pp"]))
     return out
+
+
+# -- test_torch_tp_serving.py ------------------------------------------------
+
+# the failure case's gang: a short tensor-group timeout
+TP_FAIL_TIMEOUT_S = 8.0
+
+
+def _tp_models(payload):
+    from kubeflow_tpu_torch.models import gemma, llama
+    from kubeflow_tpu_torch.serving.engine import GEMMA_FAMILY, LLAMA_FAMILY
+
+    return {"llama": (llama.LLAMA_TINY, LLAMA_FAMILY),
+            "gemma": (gemma.GEMMA_TINY, GEMMA_FAMILY),
+            "tied": (payload["tied_cfg"], LLAMA_FAMILY)}
+
+
+def _tp_engine(payload, model, gang, max_len, **kw):
+    """This rank's engine of `model` at the gang's tensor size, from the
+    parent's full params."""
+    from kubeflow_tpu_torch import bridge
+    from kubeflow_tpu_torch.serving.engine import EngineConfig, InferenceEngine
+
+    cfg, fam = _tp_models(payload)[model]
+    full = bridge.from_jax(payload[model], cfg, "cpu")
+    local = bridge.tensor_rank_params(full, cfg, gang.group.index,
+                                      gang.group.size)
+    return InferenceEngine(local, cfg, fam, EngineConfig(max_len=max_len),
+                           device="cpu", cuda_graphs=False,
+                           group=gang.group, **kw), full
+
+
+def _tp_led(payload, model, gang, max_len, lead_fn):
+    """The followers follow; the leader runs `lead_fn(engine, full
+    params)` and stops the gang."""
+    eng, full = _tp_engine(payload, model, gang, max_len)
+    if not gang.leader:
+        # the results the follower holds after each call
+        held, hold = {}, gang._hold
+
+        def tracked(result):
+            hold(result)
+            held[gang.calls] = len(gang._objs)
+
+        gang._hold = tracked
+        gang.follow(eng)
+        return {"calls": gang.calls, "held": held}
+    gang.lead(eng)
+    try:
+        out = lead_fn(eng, full)
+    finally:
+        gang.stop()
+    out["calls"] = gang.calls
+    return out
+
+
+def _tp_engine_case(payload, model):
+    """The slot engine's prefill / insert / step (the reference's
+    tensor-parallel test), one-shot generate, its stream, chunked
+    prefill, and score against the port's one-device engine."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.serving.continuous import GREEDY, ContinuousEngine
+    from kubeflow_tpu_torch.serving.engine import EngineConfig, InferenceEngine
+
+    prompts, max_new = payload["engine_prompts"], payload["engine_new"]
+
+    def run(eng, full):
+        ce = ContinuousEngine(eng, max_slots=len(prompts))
+        st = ce.init_slots()
+        got = [[] for _ in prompts]
+        for i, p in enumerate(prompts):
+            pstate, first, _, _ = ce.prefill_batch(
+                [p], ce.bucket_for(len(p), max_new), [GREEDY], ce.gen)
+            st = ce.insert(st, i, pstate, first)
+            got[i].append(int(first[0]))
+        n = len(prompts)
+        sp, _ = eng._resolve_sampling(np.zeros(n, np.float32),
+                                      np.zeros(n, np.int64),
+                                      np.ones(n, np.float32), None, batch=n)
+        st, toks, _ = ce.step(st, sp, ce.gen, steps=max_new - 1)
+        for i in range(n):
+            got[i].extend(toks[i].tolist())
+        arr, mask = payload["engine_batch"]
+        one = eng.generate(arr, max_new=max_new, prompt_mask=mask).numpy()
+        stream = np.concatenate(list(eng.generate_stream(
+            arr, max_new=max_new, prompt_mask=mask, chunk=2)), 1)
+        chunked = eng.generate(arr, max_new=max_new, prompt_mask=mask,
+                               prefill_chunk=4).numpy()
+        seq = np.concatenate([arr, one], 1)
+        seq_mask = np.concatenate([mask, np.ones_like(one, bool)], 1)
+        score = eng.score(seq, prompt_mask=seq_mask).numpy()
+        cfg, fam = _tp_models(payload)[model]
+        solo = InferenceEngine(full, cfg, fam, EngineConfig(max_len=64),
+                               device="cpu")
+        want_score = solo.score(seq, prompt_mask=seq_mask).numpy()
+        return {"continuous": got, "generate": one, "stream": stream,
+                "chunked": chunked, "score": score, "solo_score": want_score,
+                "seq": seq, "seq_mask": seq_mask,
+                "kv_heads": eng.kv_heads,
+                "pool": tuple(st.k.shape), "cache": tuple(
+                    eng.init_state(1).k.shape)}
+
+    return run
+
+
+def _tp_http_case(payload):
+    """Rank 0's HTTP app over the gang's engine with continuous batching
+    (chunked prefill), four prompts and the first one repeated; then a
+    monolithic batcher over the same engine; then the one-shot app's
+    window batcher and direct path."""
+    import asyncio
+    import weakref
+
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from kubeflow_tpu_torch.obs.metrics import Registry
+    from kubeflow_tpu_torch.serving import server
+    from kubeflow_tpu_torch.serving.continuous import ContinuousBatcher
+
+    prompts, max_new = payload["http_prompts"], payload["http_new"]
+
+    async def session(eng):
+        app = server.create_serving_app(
+            {"m": eng}, continuous=True, max_batch=4,
+            prefill_chunk_tokens=8, kv_block_size=8, registry=Registry())
+        client = TestClient(TestServer(app))
+        await client.start_server()
+        try:
+            async def ask(p):
+                r = await client.post("/v1/models/m:generate", json={
+                    "tokens": [p], "max_new": max_new})
+                assert r.status == 200, await r.text()
+                return (await r.json())["tokens"][0]
+
+            wave = await asyncio.gather(*(ask(p) for p in prompts))
+            again = await ask(prompts[0])
+            stats = app[server.BATCHERS_KEY]["m"].prefix_cache_stats()
+            metrics = await (await client.get("/metrics")).text()
+        finally:
+            await client.close()
+        mono = ContinuousBatcher(eng, asyncio.Lock(), max_slots=4,
+                                 kv_block_size=8)
+        try:
+            mwave = await asyncio.gather(*(mono.submit(p, max_new)
+                                           for p in prompts))
+            mrepeat = await mono.submit(prompts[0], max_new)
+            mstats = mono.prefix_cache_stats()
+            # the leader's live handles, its finalizers of them and its
+            # calls after each of several requests more, one at a time
+            handles = []
+            for p in prompts + prompts:
+                await mono.submit(p, max_new)
+                g = eng.gang
+                handles.append((len(g._ids), sum(
+                    1 for f in list(weakref.finalize._registry)
+                    if getattr(f.peek()[1], "__self__", None) is g),
+                    g.calls))
+        finally:
+            await mono.close()
+        # the one-shot modes: a window batcher's single prompt, then an
+        # explicit 2-row batch on the direct path
+        app = server.create_serving_app({"m": eng}, batch_window_ms=5.0,
+                                        registry=Registry())
+        client = TestClient(TestServer(app))
+        await client.start_server()
+        try:
+            oneshot = []
+            for rows in ([prompts[1]], [prompts[3], prompts[3]]):
+                r = await client.post("/v1/models/m:generate", json={
+                    "tokens": rows, "max_new": max_new})
+                assert r.status == 200, await r.text()
+                oneshot.append((await r.json())["tokens"])
+        finally:
+            await client.close()
+        return {"wave": wave, "repeat": again, "hits": stats["hits"],
+                "mono": mwave, "mono_repeat": mrepeat,
+                "mono_hits": mstats["hits"], "oneshot": oneshot,
+                "handles": handles,
+                "kv_family": [ln for ln in metrics.splitlines()
+                              if ln.startswith("# HELP serving_kv")]}
+
+    def run(eng, full):
+        return asyncio.run(session(eng))
+
+    return run
+
+
+def _tp_refusals(payload, gang):
+    """Each refusal at tensor > 1, raised on this rank before any
+    collective. -> {case: error text}."""
+    import asyncio
+    import dataclasses
+
+    import numpy as np
+
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from kubeflow_tpu_torch import bridge
+    from kubeflow_tpu_torch.models import llama, llama_moe
+    from kubeflow_tpu_torch.obs.metrics import Registry
+    from kubeflow_tpu_torch.serving import multilora, quant, server
+    from kubeflow_tpu_torch.serving.continuous import (
+        ContinuousBatcher, ContinuousEngine,
+    )
+    from kubeflow_tpu_torch.serving.engine import (
+        MOE_LLAMA_FAMILY, EngineConfig, InferenceEngine,
+    )
+    from kubeflow_tpu_torch.serving.speculative import SpeculativeEngine
+    from kubeflow_tpu_torch.train.lora import LoraConfig
+
+    g = gang.group
+    cfg = llama.LLAMA_TINY
+    eng, full = _tp_engine(payload, "llama", gang, 64)
+    local = bridge.tensor_rank_params(full, cfg, g.index, g.size)
+    ec = EngineConfig(max_len=64)
+    L, D = cfg.num_layers, cfg.hidden_size
+    pack = multilora.build_pack(cfg, LoraConfig(rank=2, alpha=4.0,
+                                                targets=("wq",)), {
+        "a": {"blocks": {"wq": {"A": np.zeros((L, D, 2), np.float32),
+                                "B": np.zeros((L, 2, cfg.q_dim),
+                                              np.float32)}}}}, device="cpu")
+    moe_cfg = llama_moe.MIXTRAL_TINY
+    moe = llama_moe.init(moe_cfg, 0, "cpu")
+    ce = ContinuousEngine(eng, max_slots=2)
+
+    def reload():
+        """`/v1/reload` on the app over this rank's engine: its 400's
+        error."""
+        async def post():
+            client = TestClient(TestServer(server.create_serving_app(
+                {"m": eng}, registry=Registry())))
+            await client.start_server()
+            try:
+                r = await client.post("/v1/reload", json={
+                    "version": "v2", "source": {"checkpoint": "none"}})
+                return r.status, (await r.json())["error"]
+            finally:
+                await client.close()
+
+        status, err = asyncio.run(post())
+        if status == 400:
+            raise ValueError(err)
+
+    cases = {
+        "graphs": lambda: InferenceEngine(local, cfg, eng.family, ec,
+                                          device="cpu", group=g),
+        "graphs_continuous": lambda: ContinuousEngine(eng, max_slots=2,
+                                                      cuda_graphs=True),
+        "reload": reload,
+        "int8": lambda: InferenceEngine(quant.quantize_blocks(local), cfg,
+                                        eng.family, ec, device="cpu",
+                                        cuda_graphs=False, group=g),
+        "int8_cut": lambda: bridge.tensor_rank_params(
+            quant.quantize_blocks(full), cfg, g.index, g.size),
+        "pack": lambda: InferenceEngine(local, cfg, eng.family, ec,
+                                        device="cpu", cuda_graphs=False,
+                                        adapter_pack=pack, group=g),
+        "moe": lambda: InferenceEngine(moe, moe_cfg, MOE_LLAMA_FAMILY, ec,
+                                       device="cpu", cuda_graphs=False,
+                                       group=g),
+        "moe_cut": lambda: bridge.tensor_rank_params(moe, moe_cfg, g.index,
+                                                     g.size),
+        "spec_continuous": lambda: ContinuousEngine(eng, max_slots=2,
+                                                    draft=eng),
+        "spec_batch1": lambda: SpeculativeEngine(eng, eng),
+        "spill": lambda: ContinuousBatcher(eng, asyncio.Lock(),
+                                           kv_spill_bytes=1 << 20),
+        "migration": lambda: ce.export_blocks(ce.slots(), [1]),
+        "warmup": lambda: eng.warmup((1,)),
+        "warmup_continuous": lambda: ce.warmup(),
+        "vocab": lambda: bridge.tensor_rank_params(
+            full, dataclasses.replace(cfg, vocab_size=511), g.index, g.size),
+        "heads": lambda: bridge.tensor_rank_params(
+            full, dataclasses.replace(cfg, num_heads=3), g.index, g.size),
+        "kv_heads": lambda: bridge.tensor_rank_params(
+            full, dataclasses.replace(cfg, num_heads=6, num_kv_heads=3),
+            g.index, g.size),
+    }
+    out = {}
+    for name, fn in cases.items():
+        try:
+            fn()
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def _tp_failure(payload, gang):
+    """A follower that raises in a decode step: the leader's request
+    fails (through the batcher's `_fail_all`), within the tensor group's
+    timeout; a later request fails at once; the follower leaves its
+    loop with the gang's error."""
+    import asyncio
+    import time
+
+    from kubeflow_tpu_torch.serving.continuous import ContinuousBatcher
+    from kubeflow_tpu_torch.serving.gang import GangError
+
+    eng, _ = _tp_engine(payload, "llama", gang, 64)
+    if not gang.leader:
+        embed, calls = eng._embed, []
+
+        def failing(tokens):
+            calls.append(1)
+            if len(calls) == 2:   # the first decode step
+                raise RuntimeError("injected follower fault")
+            return embed(tokens)
+
+        eng._embed = failing
+        try:
+            gang.follow(eng)
+            return {"follower": "returned"}
+        except GangError as e:
+            return {"follower": str(e)}
+    gang.lead(eng)
+
+    async def session():
+        b = ContinuousBatcher(eng, asyncio.Lock(), max_slots=2, chunk=1)
+        out = {}
+        for key in ("first", "later"):
+            t0 = time.monotonic()
+            try:
+                await b.submit(payload["engine_prompts"][0], 4)
+                out[key] = ("ok", time.monotonic() - t0)
+            except Exception as e:  # noqa: BLE001 — reported to the parent
+                out[key] = (f"{type(e).__name__}: {e}",
+                            time.monotonic() - t0)
+        await b.close()
+        return out
+
+    out = asyncio.run(session())
+    gang.stop()
+    out["broken"] = str(gang.broken)
+    return out
+
+
+def tp_serving_cases(payload, rank, world):
+    """Tensor-parallel serving on 4 ranks: at tensor 2, llama-tiny on
+    ranks (0, 1) (the engines, then the HTTP app) beside gemma-tiny on
+    (2, 3) (the engines, the refusals, then a follower's failure); at
+    tensor 4, llama-tiny, gemma-tiny and the 262,144-token tied
+    vocabulary's generate."""
+    from kubeflow_tpu_torch.serving import gang as gang_lib
+
+    all_ranks = list(range(world))
+    gangs = {"l2": gang_lib.form([0, 1], timeout_s=60),
+             "g2": gang_lib.form([2, 3], timeout_s=60),
+             "fail": gang_lib.form([2, 3], timeout_s=TP_FAIL_TIMEOUT_S),
+             "l4": gang_lib.form(all_ranks, timeout_s=60),
+             "g4": gang_lib.form(all_ranks, timeout_s=60),
+             "v4": gang_lib.form(all_ranks, timeout_s=60)}
+    out = {}
+    if rank < 2:
+        engine_case = _tp_engine_case(payload, "llama")
+        http_case = _tp_http_case(payload)
+        out["llama2"] = _tp_led(payload, "llama", gangs["l2"], 64,
+                                lambda eng, full: dict(
+                                    engine_case(eng, full),
+                                    http=http_case(eng, full)))
+    else:
+        out["gemma2"] = _tp_led(payload, "gemma", gangs["g2"], 64,
+                                _tp_engine_case(payload, "gemma"))
+        out["refusals"] = _tp_refusals(payload, gangs["g2"])
+        out["failure"] = _tp_failure(payload, gangs["fail"])
+    out["llama4"] = _tp_led(payload, "llama", gangs["l4"], 64,
+                            _tp_engine_case(payload, "llama"))
+    out["gemma4"] = _tp_led(payload, "gemma", gangs["g4"], 64,
+                            _tp_engine_case(payload, "gemma"))
+
+    def tied(eng, full):
+        arr = payload["tied_prompt"]
+        return {"generate": eng.generate(arr, max_new=payload["tied_new"])
+                .numpy()}
+
+    out["tied4"] = _tp_led(payload, "tied", gangs["v4"], 32, tied)
+    return out
